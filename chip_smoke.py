@@ -18,20 +18,28 @@ there is no card or any phase fails. Phases:
    rounding error grows with that norm, not with ``|plain|``: a row whose
    terms cancel (the headline hub sums 803,866 of them) ends near 0 with an
    error of the size of its partial sums. One dropped or doubled edge still
-   exceeds the tolerance. Then the whole GCN on a small graph, CUDA against
-   CPU, at ``1e-4 * max(1, |cpu|)``;
+   exceeds the tolerance. K1 (sorted-segment SpMM) first; then the dedup
+   kernels: K4's counts must equal the plain counts exactly, K5 (cached
+   counts) and K6 (rebuilt counts) pass the check above and agree with each
+   other bit for bit. Then the whole GCN on a small graph, CUDA against
+   CPU, at ``1e-4 * max(1, |cpu|)``, through K1 and through the dedup path;
 3. the main path: the bench headline (``bench.py``: ``powerlaw_graph(131072,
    16, feat_dim=128, seed=0)``, ``GCN(128, 16, num_layers=3,
    hidden_size=128, dropout=0)``, Adam at lr 1e-3) trains 3 warm-up and 20
-   timed steps; asserts 5 SpMM launches per step, finite and falling loss;
-4. kernel time (CUDA events over warm launches) at each SpMM shape of the
-   step beside the plain version, ``torch.sparse.mm`` on a CSR tensor of
-   the same graph (the yardstick; the port never calls it) and the bound.
+   timed steps three ways: with ``dispatch.DEDUP`` off (K1), on (K4 twice
+   at ``tensor()``, then K5), and on with a counts budget of 0 (K6). Each
+   asserts its kernels' launches per step, and a finite and falling loss;
+4. kernel time (CUDA events over warm launches) at each kernel's shapes on
+   the main path, beside the plain version, ``torch.sparse.mm`` on a CSR
+   tensor of the same graph (the yardstick for the SpMM; the port never
+   calls it) and the bound; then the SpMM device time per step of each
+   path.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -43,6 +51,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM, float32 outside the tensor cores
 REPLACES = "pgl_tpu/ops/pallas/segment_kernels.py:161"
 SOURCE = "pgl_tpu_torch/ops/kernels/csrc/segment_kernels.cu"
+DEDUP_SOURCE = "pgl_tpu_torch/ops/kernels/csrc/dedup_kernels.cu"
+DEDUP_REPLACES = {"counts": "pgl_tpu/ops/pallas/dedup_kernels.py:554",
+                  "dedup_cached": "pgl_tpu/ops/pallas/dedup_kernels.py:608",
+                  "dedup": "pgl_tpu/ops/pallas/dedup_kernels.py:405"}
 STEPS, WARMUP = 20, 3
 # SpMM launches per training step, by (layout, width): forward layers 0 and
 # 1 at D=128 and layer 2 at D=16 over CSC; backward layers 1 (D=128) and 2
@@ -135,38 +147,72 @@ def phase_kernels(g_head, dev):
           f"max |err| {e:.3e}", flush=True)
 
 
+@contextlib.contextmanager
+def dispatch_settings(**settings):
+    """Set constants of ``pgl_tpu_torch.ops.dispatch`` (``DEDUP``,
+    ``COUNTS_BUDGET_BYTES``, ...) for the graphs built inside; restored
+    after."""
+    from pgl_tpu_torch.ops import dispatch
+    old = {k: getattr(dispatch, k) for k in settings}
+    for k, v in settings.items():
+        setattr(dispatch, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(dispatch, k, v)
+
+
 def phase_model_small(dev):
     """The whole GCN on a small graph: CUDA kernels against the CPU's plain
-    versions with the same weights (logits and gradients)."""
+    versions with the same weights (logits and gradients), through K1 and,
+    with the dedup band opened to this graph, through K4 and K5."""
     import torch
     from pgl_tpu_torch.datasets import community_graph
     from pgl_tpu_torch.models import GCN
     from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
 
     g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
                                 avg_degree=8, seed=5)
-    results = {}
-    for d in ("cpu", dev):
-        gt = g.tensor(d)
-        model = GCN(16, 3, num_layers=3, hidden_size=24, dropout=0.0,
-                    generator=torch.Generator().manual_seed(0), device=d)
-        logits = model(gt, gt.node_feat["h"])
-        ce(logits, torch.as_tensor(labels, device=d)).mean().backward()
-        results[str(d)] = (logits.detach().cpu(),
-                           {k: p.grad.cpu()
-                            for k, p in model.named_parameters()})
-    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(dev)]
-    err = check("small GCN logits", l_gpu, l_cpu)
-    for k in g_cpu:
-        err = max(err, check(f"small GCN grad {k}", g_gpu[k], g_cpu[k]))
-    print(f"[model] small GCN CUDA vs CPU: max |err| {err:.3e}", flush=True)
+    for path, settings in (("K1", {"DEDUP": False}),
+                           ("dedup", {"DEDUP": True, "DEDUP_MIN_EDGES": 0})):
+        results = {}
+        dk.reset_launches()
+        for d in ("cpu", dev):
+            with dispatch_settings(**settings):
+                gt = g.tensor(d)
+            model = GCN(16, 3, num_layers=3, hidden_size=24, dropout=0.0,
+                        generator=torch.Generator().manual_seed(0), device=d)
+            logits = model(gt, gt.node_feat["h"])
+            ce(logits, torch.as_tensor(labels, device=d)).mean().backward()
+            results[str(d)] = (logits.detach().cpu(),
+                               {k: p.grad.cpu()
+                                for k, p in model.named_parameters()})
+        if path == "dedup" and not dk.LAUNCHES_BY_SHAPE[
+                ("dedup_cached", "csc", 24)]:
+            raise AssertionError("small GCN did not take the dedup path")
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(dev)]
+        err = check(f"small GCN {path} logits", l_gpu, l_cpu)
+        for k in g_cpu:
+            err = max(err, check(f"small GCN {path} grad {k}", g_gpu[k],
+                                 g_cpu[k]))
+        print(f"[model] small GCN through {path}, CUDA vs CPU: max |err| "
+              f"{err:.3e}", flush=True)
 
 
-def headline_graph():
-    """The bench headline graph, on the card."""
+def headline_host():
+    """The bench headline graph on the host (numpy)."""
     from pgl_tpu_torch.datasets import powerlaw_graph
     return powerlaw_graph(num_nodes=131072, avg_degree=16, feat_dim=128,
-                          seed=0).tensor()
+                          seed=0)
+
+
+def headline_graph(dedup=False, host=None, **settings):
+    """The bench headline graph on the card, through K1 (``dedup=False``)
+    or the dedup path; ``settings`` sets further dispatch constants."""
+    with dispatch_settings(DEDUP=dedup, **settings):
+        return (host if host is not None else headline_host()).tensor()
 
 
 def headline_trainer(g):
@@ -194,45 +240,67 @@ def headline_trainer(g):
     return model, step
 
 
-def phase_train(g):
-    """The main path: the bench headline GCN trains on the card."""
-    import torch
+def reset_all_launches():
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    sk.reset_launches()
+    dk.reset_launches()
 
+
+def all_launches():
+    """Launch counts of every kernel module: K1's keyed ``(kind, D)``, the
+    dedup kernels' ``(kernel, kind, D)``."""
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    return {**sk.LAUNCHES_BY_SHAPE, **dk.LAUNCHES_BY_SHAPE}
+
+
+def phase_train(g, path="K1", per_step=None):
+    """The main path: the bench headline GCN trains on the card. Asserts
+    the launches of every kernel: ``per_step`` (default: K1's ``PER_STEP``)
+    times the step count, and no other."""
+    import torch
+
+    per_step = PER_STEP if per_step is None else per_step
     model, step = headline_trainer(g)
     for _ in range(WARMUP):
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     losses, times = [], []
-    sk.reset_launches()
+    reset_all_launches()
     for _ in range(STEPS):
         t0 = time.perf_counter()
         losses.append(step())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches, by_shape = sk.LAUNCHES, dict(sk.LAUNCHES_BY_SHAPE)
+    by_shape = {k: v for k, v in all_launches().items() if v}
+    launches = sum(by_shape.values())
     losses = [float(v) for v in losses]
-    want = {k: v * STEPS for k, v in PER_STEP.items()}
-    if launches != 5 * STEPS or by_shape != want:
-        raise AssertionError(f"SpMM launches {launches} {by_shape}, "
-                             f"expected {5 * STEPS} {want}")
+    want = {k: v * STEPS for k, v in per_step.items()}
+    if by_shape != want:
+        raise AssertionError(f"{path}: SpMM launches {by_shape}, expected "
+                             f"{want}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"losses not finite and falling: {losses}")
+        raise AssertionError(f"{path}: losses not finite and falling: "
+                             f"{losses}")
     with torch.no_grad():
         logits = model(g, g.node_feat["h"])
     if logits.shape != (g.num_nodes, 16) or not bool(
             torch.isfinite(logits).all()):
-        raise AssertionError("headline logits not finite [N, 16]")
+        raise AssertionError(f"{path}: headline logits not finite [N, 16]")
     step_ms = float(np.median(times)) * 1e3
     peak = torch.cuda.max_memory_allocated()
-    print(f"[train] {STEPS} steps: loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
-          f"median step {step_ms:.4f} ms (min {min(times) * 1e3:.4f}, max "
-          f"{max(times) * 1e3:.4f}); peak memory {peak / 2**20:.1f} MiB; "
-          f"SpMM launches {launches} = {launches / STEPS:g}/step",
+    print(f"[train {path}] {STEPS} steps: loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; median step {step_ms:.4f} ms (min "
+          f"{min(times) * 1e3:.4f}, max {max(times) * 1e3:.4f}); peak memory "
+          f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before the "
+          f"steps); SpMM launches {launches} = {launches / STEPS:g}/step",
           flush=True)
     return {"step_ms": step_ms, "peak_mib": peak / 2**20,
-            "loss_first": losses[0], "loss_last": losses[-1]}, by_shape
+            "held_mib": held / 2**20, "loss_first": losses[0],
+            "loss_last": losses[-1]}, by_shape
 
 
 def time_ms(fn, iters):
@@ -293,6 +361,180 @@ def phase_timing(g, dev, by_shape):
     return rows
 
 
+def check_dedup(name, got, x, layout):
+    """``check`` of a dedup kernel result against the plain version in
+    float64, with the 2-norm scale of ``check_spmm``."""
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    x = x.detach().double()
+    return check(name, got, dk.apply_reference(x, layout),
+                 dk.apply_reference(x * x, layout).sqrt())
+
+
+def check_counts(name, got, layout):
+    """K4's counts must equal the plain counts bit for bit."""
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    import torch
+    want = dk.counts_reference(layout)
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{name}: counts differ from the plain counts "
+                             f"in {int((got != want).sum())} cells")
+
+
+def dedup_layouts(g, dev):
+    """Both dedup layouts of ``g`` (no gate), with K4's counts."""
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    return tuple(dk.materialize_counts(dk.build_dedup_layout(
+        idx.indptr, idx.sorted_v, g.num_nodes, kind=kind, device=dev))
+        for kind, idx in (("csc", g.adj_dst_index.numpy()),
+                          ("csr", g.adj_src_index.numpy())))
+
+
+def phase_dedup_kernels(g_head, dev):
+    """K4 exact, K5 and K6 against the float64 plain version forward and
+    backward, and K5 against K6 bit for bit."""
+    import dataclasses
+
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+
+    small = Graph(skewed_graph(3000, 40000, seed=1), num_nodes=3000
+                  ).tensor(dev)
+    lay_small = dedup_layouts(small, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [("small", small, lay_small, d) for d in (1, 3, 16, 128, 130,
+                                                      256)]
+    cases += [("headline", g_head, g_head._dedup_layouts, d)
+              for d in (128, 16)]
+    for tag, lays in (("small", lay_small),
+                      ("headline", g_head._dedup_layouts)):
+        for lay in lays:
+            check_counts(f"{tag} counts {lay.kind}", lay.counts, lay)
+        print(f"[dedup] {tag} counts csc/csr equal the plain counts "
+              f"(P = {lays[0].num_pairs} / {lays[1].num_pairs}, partial "
+              f"blocks {lays[0].num_partials} / {lays[1].num_partials})",
+              flush=True)
+    for tag, g, (csc, csr), d in cases:
+        uncached = [dataclasses.replace(lay, counts=None)
+                    for lay in (csc, csr)]
+        x = torch.randn(g.num_nodes, d, device=dev, generator=gen,
+                        requires_grad=True)
+        w = torch.randn(g.num_nodes, d, device=dev, generator=gen)
+        res = []
+        for lays in ((csc, csr), uncached):
+            out = dk.spmm_dedup(x, *lays)
+            (out * w).sum().backward()
+            res.append((out.detach(), x.grad))
+            x.grad = None
+        (out5, grad5), (out6, grad6) = res
+        with torch.no_grad():
+            e_f = check_dedup(f"{tag} K5 csc D={d}", out5, x, csc)
+            e_b = check_dedup(f"{tag} K5 csr D={d}", grad5, w, csr)
+        if not (torch.equal(out5, out6) and torch.equal(grad5, grad6)):
+            raise AssertionError(f"{tag} D={d}: K5 and K6 differ")
+        print(f"[dedup] {tag} N={g.num_nodes} E={g.num_edges} D={d}: K5 = "
+              f"K6 bit for bit; max |err| fwd {e_f:.3e} bwd {e_b:.3e}",
+              flush=True)
+
+
+def phase_dedup_timing(g, launches, dev, cells):
+    """Rows at the shapes of the main path: K4 and K5 on a graph with
+    counts, K6 on one without. ``cells`` maps a layout kind to its nonzero
+    count cells (the FLOPs of the bound); K4 fills it."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(3)
+    N = g.num_nodes
+    cached = g._dedup_layouts[0].counts is not None
+    for lay in g._dedup_layouts if cached else ():
+        buf = torch.empty_like(lay.counts)
+        ms = time_ms(lambda: dk._launch_counts(lay, buf), 20)
+        check_counts(f"timed counts {lay.kind}", buf, lay)
+        plain_ms = time_ms(lambda: dk.counts_reference(lay), 3)
+        cells[lay.kind] = int((lay.counts != 0).sum())
+        nbytes = (16 * lay.num_pairs + 8 * lay.num_edges
+                  + lay.counts_bytes)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append(dedup_row(
+            f"materialize_counts_{lay.kind}", "counts", launches,
+            ("counts", lay.kind, None), 0.0, ms, plain_ms, bound_ms,
+            "bytes", None, lay, None))
+        print(f"[timing] K4 counts {lay.kind}: kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_ms / ms:.3f} of it); nonzero cells {cells[lay.kind]}",
+              flush=True)
+    kernel = "dedup_cached" if cached else "dedup"
+    for lay, k1 in zip(g._dedup_layouts, g._spmm_layouts):
+        A = torch.sparse_csr_tensor(k1.indptr, k1.indices,
+                                    torch.ones(k1.num_edges, device=dev),
+                                    size=(k1.num_rows, N))
+        for d in (128, 16):
+            x = torch.randn(N, d, device=dev, generator=gen)
+            out = torch.empty(lay.n_pad, d, device=dev)
+            part = torch.empty(lay.num_partials * dk.NB, d, device=dev)
+            ms = time_ms(lambda: dk._launch_apply(
+                x, lay, lay.counts, out, part), 20)
+            plain_ms = time_ms(
+                lambda: dk.apply_reference(x, lay, lay.counts), 3)
+            lib_ms = time_ms(lambda: torch.sparse.mm(A, x), 20)
+            with torch.no_grad():
+                err = check_dedup(f"timed {kernel} {lay.kind} D={d}",
+                                  out[:N], x, lay)
+            structure = (lay.counts_bytes if cached
+                         else 8 * lay.num_edges)
+            nbytes = (structure + 4 * (2 * N * d + lay.uv.numel())
+                      + 16 * (lay.num_pairs + lay.groups.shape[0]))
+            ops = 2 * cells[lay.kind] * d
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            k1_bound_ms = 4 * (2 * N * d + k1.num_edges + N + 1) \
+                / HBM_BYTES_PER_S * 1e3
+            rows.append(dedup_row(
+                f"spmm_{kernel}_{lay.kind}_d{d}", kernel, launches,
+                (kernel, lay.kind, d), err, ms, plain_ms, bound_ms,
+                "bytes" if t_bytes >= t_ops else "operations", lib_ms,
+                lay, d, k1_bound_ms=k1_bound_ms))
+            print(f"[timing] {kernel} {lay.kind} D={d}: kernel {ms:.5f} "
+                  f"ms, plain {plain_ms:.5f} ms, torch.sparse.mm "
+                  f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms "
+                  f"({bound_ms / ms:.3f} of it; K1's bound "
+                  f"{k1_bound_ms:.5f} ms)", flush=True)
+    return rows
+
+
+def dedup_row(name, kernel, launches, key, err, ms, plain_ms, bound_ms,
+              bound_by, lib_ms, lay, d, **extra):
+    return dict({
+        "name": name, "route": "cuda", "source": DEDUP_SOURCE,
+        "replaces": DEDUP_REPLACES[kernel], "launches": launches.get(key, 0),
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        "share": bound_ms / ms,
+        "shape": {"layout": lay.kind, "kernel": kernel, "D": d,
+                  "edges": lay.num_edges, "pairs": lay.num_pairs,
+                  "groups": int(lay.groups.shape[0]),
+                  "partial_blocks": lay.num_partials}}, **extra)
+
+
+def spmm_ms_per_step(rows, kernel):
+    """SpMM device ms per headline step of one path, from its rows."""
+    return sum(r["ms"] * PER_STEP[r["shape"]["layout"], r["shape"]["D"]]
+               for r in rows if r["shape"].get("kernel") == kernel)
+
+
+def tensor_s(host, dedup, **settings):
+    """``(graph, seconds)`` of one ``tensor()`` of the headline host graph,
+    ended by a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = headline_graph(dedup, host, **settings)
+    torch.cuda.synchronize()
+    return g, time.perf_counter() - t0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -310,13 +552,14 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    libs = _build.build("segment_kernels")
+    libs = _build.build("segment_kernels", "dedup_kernels")
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
     for path in libs.values():
         print(path.with_suffix(".log").read_text().strip(), flush=True)
 
     t0 = time.perf_counter()
-    g = headline_graph()
+    host = headline_host()
+    g = headline_graph(False, host)
     deg = g.indegree().cpu().numpy()
     print(f"[graph] headline N={g.num_nodes} E={g.num_edges} built in "
           f"{time.perf_counter() - t0:.2f} s; largest in-degree "
@@ -325,12 +568,62 @@ def main():
 
     phase_kernels(g, dev)
     phase_model_small(dev)
-    train, by_shape = phase_train(g)
+    train, by_shape = phase_train(g, "K1")
     rows = phase_timing(g, dev, by_shape)
-    spmm_ms = sum(r["ms"] * PER_STEP[r["shape"]["layout"], r["shape"]["D"]]
-                  for r in rows)
-    print(json.dumps({"step": dict(train, spmm_ms_per_step=spmm_ms,
-                                   device=smi)}), flush=True)
+    for r in rows:
+        r["shape"]["kernel"] = "spmm"
+    del g
+    g, t_k1 = tensor_s(host, False)         # host indexes warm, as below
+    del g
+    torch.cuda.empty_cache()
+
+    # the dedup path: K4 twice at tensor() time, then K5 five times a step
+    reset_all_launches()
+    g_d, t_dedup = tensor_s(host, True)
+    k4 = {k: v for k, v in all_launches().items() if v}
+    if k4 != {("counts", "csc", None): 1, ("counts", "csr", None): 1}:
+        raise AssertionError(f"tensor() launched {k4}, expected K4 once "
+                             "per layout")
+    csc_d, csr_d = g_d._dedup_layouts
+    print(f"[graph] tensor() {t_k1:.3f} s with K1 layouts only, "
+          f"{t_dedup:.3f} s with the dedup layouts and counts; CSC "
+          f"{csc_d.num_pairs} pairs, {csc_d.groups.shape[0]} groups, "
+          f"simple {csc_d.simple}, max count {csc_d.max_count}; CSR "
+          f"{csr_d.num_pairs} pairs, {csr_d.groups.shape[0]} groups",
+          flush=True)
+    train_d, by_d = phase_train(g_d, "dedup", {
+        ("dedup_cached", k, d): v for (k, d), v in PER_STEP.items()})
+    phase_dedup_kernels(g_d, dev)
+    cells = {}
+    rows += phase_dedup_timing(g_d, {**k4, **by_d}, dev, cells)
+    del g_d, csc_d, csr_d
+    torch.cuda.empty_cache()
+
+    # the dedup path over budget: no counts, K6 five times a step
+    reset_all_launches()
+    g_6, t_6 = tensor_s(host, True, COUNTS_BUDGET_BYTES=0)
+    if any(all_launches().values()) or g_6._dedup_layouts[0].counts \
+            is not None:
+        raise AssertionError("tensor() over the counts budget made counts")
+    train_6, by_6 = phase_train(g_6, "dedup uncached", {
+        ("dedup", k, d): v for (k, d), v in PER_STEP.items()})
+    rows += phase_dedup_timing(g_6, by_6, dev, cells)
+
+    spmm = {path: spmm_ms_per_step(rows, kernel) for path, kernel in (
+        ("K1", "spmm"), ("dedup", "dedup_cached"),
+        ("dedup_uncached", "dedup"))}
+    print(f"[default] SpMM device ms per headline step: K1 {spmm['K1']:.5f}, "
+          f"dedup (K5) {spmm['dedup']:.5f}, dedup over budget (K6) "
+          f"{spmm['dedup_uncached']:.5f}; lower: "
+          f"{'dedup' if spmm['dedup'] < spmm['K1'] else 'K1'}", flush=True)
+    print(json.dumps({"step": {
+        "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
+        "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
+                      tensor_s=t_dedup),
+        "dedup_uncached": dict(train_6,
+                               spmm_ms_per_step=spmm["dedup_uncached"],
+                               tensor_s=t_6),
+        "device": smi}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

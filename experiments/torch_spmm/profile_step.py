@@ -10,10 +10,11 @@ step's wall time under the profiler (host clock, ended by a synchronize).
 Without the profiler it times 20 steps back to back (one synchronize at
 the end) and the host time each step() call takes to return, which says
 whether the host's launches or the device bound the step; the idle share
-is 1 - (kernel time per step) / (back-to-back step time). Needs one CUDA
-card:
+is 1 - (kernel time per step) / (back-to-back step time). ``--dedup``
+builds the graph with ``dispatch.DEDUP`` on, so the step's SpMMs run K5
+over the dedup layouts instead of K1. Needs one CUDA card:
 
-    python3 experiments/torch_spmm/profile_step.py
+    python3 experiments/torch_spmm/profile_step.py [--dedup]
 """
 
 import json
@@ -33,7 +34,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from chip_smoke import headline_graph, headline_trainer  # noqa: E402
 
 STEPS = 10
-KINDS = (("spmm", ("spmm_pieces", "spmm_combine")),
+KINDS = (("spmm", ("spmm_pieces", "spmm_combine", "dedup_apply",
+                   "dedup_combine")),
          ("gemm", ("gemm", "cutlass", "cublas", "sm90_xmma", "Kernel2")),
          ("optimizer", ("multi_tensor", "adam", "Adam")),
          ("reduction", ("reduce", "Reduce")),
@@ -57,7 +59,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi)
-    _, step = headline_trainer(headline_graph())
+    dedup = "--dedup" in sys.argv[1:]
+    _, step = headline_trainer(headline_graph(dedup))
     for _ in range(5):
         step()
     torch.cuda.synchronize()
@@ -95,7 +98,8 @@ def main():
         print(f"{self_us(e) / 1e3 / STEPS:9.4f} ms/step {e.count // STEPS:4d}"
               f"x  {e.key[:110]}")
     busy = sum(by_kind.values())
-    print(json.dumps({"device": smi, "chained_ms_per_step": chained_ms,
+    print(json.dumps({"device": smi, "dedup": dedup,
+                      "chained_ms_per_step": chained_ms,
                       "host_ms_per_step_call": host_ms,
                       "host_ms_per_step_call_min": min(host) * 1e3,
                       "profiled_wall_ms_per_step": wall_ms,

@@ -6,10 +6,12 @@ copy-send reductions. As in the reference, edges are sorted by destination
 once, at conversion time, so every receive is a sorted segment reduce; and
 ``tensor()`` returns a new Graph instead of mutating this one.
 
-``send_u_recv`` with sum or mean runs the SpMM of
-``ops/kernels/segment_kernels.py`` (the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors); max and min run plain segment ops, as the
-reference does.
+``send_u_recv`` with sum or mean runs the dedup SpMM of
+``ops/kernels/dedup_kernels.py`` when ``tensor()`` built its layouts (the
+rule of ``pgl_tpu/graph.py:580-637``, with the gates of
+``ops/dispatch.py``), and the SpMM of ``ops/kernels/segment_kernels.py``
+otherwise: the CUDA kernels for CUDA tensors, their plain versions for CPU
+tensors. Max and min run plain segment ops, as the reference does.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .ops import dispatch
 from .ops import message_passing as mp
 from .ops import segment as S
+from .ops.kernels import dedup_kernels as dk
 from .ops.kernels.segment_kernels import build_spmm_layout, spmm
 from .utils.edge_index import EdgeIndex
 
@@ -63,6 +67,7 @@ class Graph:
         self._adj_src_index = kwargs.get("adj_src_index", None)
         self._adj_dst_index = kwargs.get("adj_dst_index", None)
         self._spmm_layouts = kwargs.get("_spmm_layouts", None)
+        self._dedup_layouts = kwargs.get("_dedup_layouts", None)
 
     # -- basic accessors ----------------------------------------------------
 
@@ -143,9 +148,12 @@ class Graph:
             if self._spmm_layouts is None:
                 self._spmm_layouts = self._build_spmm_layouts(
                     self._edges.device)
-            csc, csr = self._spmm_layouts
             flat = feature.reshape(feature.shape[0], -1).contiguous()
-            out = spmm(flat, csc, csr).reshape(
+            if self._dedup_layouts is not None:
+                out = dk.spmm_dedup(flat, *self._dedup_layouts)
+            else:
+                out = spmm(flat, *self._spmm_layouts)
+            out = out.reshape(
                 (self._num_nodes,) + feature.shape[1:])
             if reduce_op == "mean":
                 deg = idx.degree.clamp(min=1).to(out.dtype)
@@ -159,7 +167,9 @@ class Graph:
 
     def tensor(self, device=None) -> "Graph":
         """Device copy on ``device`` (default: the CUDA card; raises when
-        there is none). Builds the CSC/CSR indexes and the SpMM layouts."""
+        there is none). Builds the CSC/CSR indexes, the K1 SpMM layouts and,
+        where ``ops/dispatch.py`` admits the graph, the dedup layouts with
+        their counts (K4)."""
         device = resolve_device(device)
         host = self.numpy()
         dst_idx, src_idx = host.adj_dst_index, host.adj_src_index
@@ -174,7 +184,8 @@ class Graph:
             edge_feat={k: put(v) for k, v in host.edge_feat.items()},
             adj_src_index=src_idx.tensor(device),
             adj_dst_index=dst_idx.tensor(device),
-            _spmm_layouts=host._build_spmm_layouts(device))
+            _spmm_layouts=host._build_spmm_layouts(device),
+            _dedup_layouts=host._build_dedup_layouts(device))
 
     def _build_spmm_layouts(self, device):
         """The SpMM layouts on ``device``: CSC for the forward, CSR for the
@@ -184,6 +195,30 @@ class Graph:
                               kind=kind, device=device)
             for kind, idx in (("csc", self.adj_dst_index.numpy()),
                               ("csr", self.adj_src_index.numpy())))
+
+    def _build_dedup_layouts(self, device):
+        """(csc_d, csr_d) on ``device``, or None: both layouts pass the
+        band and ratio gates, or neither is kept (``pgl_tpu/graph.py:
+        580-604``). Their counts are materialised when both fit the budget
+        (``:612-627``); each layout skips it when bf16 cannot hold its
+        counts exactly."""
+        if not (dispatch.DEDUP and dispatch.DEDUP_MIN_EDGES
+                <= self._num_edges <= dispatch.DEDUP_MAX_EDGES):
+            return None
+        lays = []
+        for kind, idx in (("csc", self.adj_dst_index.numpy()),
+                          ("csr", self.adj_src_index.numpy())):
+            lay = dk.build_dedup_layout(idx.indptr, idx.sorted_v,
+                                        self._num_nodes, kind=kind,
+                                        max_ratio=dispatch.DEDUP_MAX_RATIO,
+                                        device=device)
+            if lay is None:
+                return None
+            lays.append(lay)
+        if sum(lay.counts_bytes for lay in lays) \
+                <= dispatch.COUNTS_BUDGET_BYTES:
+            lays = [dk.materialize_counts(lay) for lay in lays]
+        return tuple(lays)
 
     def numpy(self) -> "Graph":
         """Host copy (numpy arrays); the indexes carry over."""

@@ -114,18 +114,7 @@ def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
     # narrow, nearly disjoint bands of x, which concurrent warps share in
     # L2 (the sum is the same up to float32 rounding order)
     indices = indices[np.lexsort((indices, seg_ids))]
-    n_pc = np.maximum(1, -(-deg // ET))
-    first = np.zeros(R + 1, dtype=np.int64)
-    np.cumsum(n_pc, out=first[1:])
-    row = np.repeat(np.arange(R, dtype=np.int64), n_pc)
-    begin = indptr[row] + (np.arange(len(row)) - first[row]) * ET
-    end = np.minimum(begin + ET, indptr[row + 1])
-    split = n_pc[row] > 1
-    slot = np.full(len(row), -1, dtype=np.int64)
-    slot[split] = np.arange(int(split.sum()))
-    split_rows = np.flatnonzero(n_pc > 1)
-    split_ptr = np.zeros(len(split_rows) + 1, dtype=np.int64)
-    np.cumsum(n_pc[split_rows], out=split_ptr[1:])
+    pieces, split_rows, split_ptr = cut_rows(indptr, ET)
 
     device = resolve_device(device)
 
@@ -136,11 +125,38 @@ def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
     return SpmmLayout(
         kind=kind, num_rows=R, num_edges=E,
         max_index=int(indices.max()) if E else -1,
-        num_partials=int(split.sum()),
+        num_partials=int(split_ptr[-1]),
         indptr=put(indptr), indices=put(indices),
-        seg_ids=put(seg_ids),
-        pieces=put(np.stack([row, begin, end, slot], axis=1)),
+        seg_ids=put(seg_ids), pieces=put(pieces),
         split_rows=put(split_rows), split_ptr=put(split_ptr))
+
+
+def cut_rows(indptr, size: int):
+    """Cut every row of ``indptr`` into pieces of at most ``size`` items
+    (an empty row is one empty piece), the work list of a kernel that sums
+    each row's pieces into partials and combines them in a second launch.
+
+    Returns ``pieces`` [P, 4] int64 (row, begin, end, slot), where ``slot``
+    is the piece's partial row, or -1 when its row has one piece;
+    ``split_rows``, the rows of more than one piece; and ``split_ptr``
+    [S+1], their ranges of partial slots, in piece order.
+    """
+    indptr = np.asarray(indptr, dtype=np.int64)
+    R = len(indptr) - 1
+    n_pc = np.maximum(1, -(-np.diff(indptr) // size))
+    first = np.zeros(R + 1, dtype=np.int64)
+    np.cumsum(n_pc, out=first[1:])
+    row = np.repeat(np.arange(R, dtype=np.int64), n_pc)
+    begin = indptr[row] + (np.arange(len(row)) - first[row]) * size
+    end = np.minimum(begin + size, indptr[row + 1])
+    split = n_pc[row] > 1
+    slot = np.full(len(row), -1, dtype=np.int64)
+    slot[split] = np.arange(int(split.sum()))
+    split_rows = np.flatnonzero(n_pc > 1)
+    split_ptr = np.zeros(len(split_rows) + 1, dtype=np.int64)
+    np.cumsum(n_pc[split_rows], out=split_ptr[1:])
+    return (np.stack([row, begin, end, slot], axis=1).reshape(-1, 4),
+            split_rows, split_ptr)
 
 
 def spmm_reference(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:

@@ -148,7 +148,9 @@ def test_convert_transposes_dense_kernels():
 def test_import_leaves_jax_out():
     code = ("import sys, pgl_tpu_torch, pgl_tpu_torch.models, "
             "pgl_tpu_torch.datasets, pgl_tpu_torch.utils.convert, "
-            "pgl_tpu_torch.ops.kernels.segment_kernels\n"
+            "pgl_tpu_torch.ops.kernels.segment_kernels, "
+            "pgl_tpu_torch.ops.kernels.dedup_kernels, "
+            "pgl_tpu_torch.ops.dispatch, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'pgl_tpu')]\n"
             "assert not bad, bad\n")

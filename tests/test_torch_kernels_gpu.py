@@ -7,19 +7,24 @@ machine need not have; parity with ``pgl_tpu`` is the CPU tests' job.
 
 Kernel results are held against the plain version evaluated in float64 at
 ``|kernel - plain| <= 1e-4 * max(1, |plain|, ||terms||_2)`` elementwise by
-chip_smoke.py's ``check_spmm``, which says why: the kernel sums float32 in
-another order, and its rounding error grows with the 2-norm of the terms an
-element sums.
+chip_smoke.py's ``check_spmm`` (K1) and ``check_dedup`` (K5, K6), which say
+why: the kernel sums float32 in another order, and its rounding error grows
+with the 2-norm of the terms an element sums. K4's counts must equal the
+plain counts bit for bit, and K5 and K6 must agree bit for bit.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import check_spmm, skewed_graph
+from chip_smoke import (check, check_counts, check_dedup, check_spmm,
+                        dedup_layouts, dispatch_settings, skewed_graph)
 from pgl_tpu_torch import Graph
 from pgl_tpu_torch.datasets import community_graph
 from pgl_tpu_torch.models import GCN
+from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
 from pgl_tpu_torch.ops.kernels import segment_kernels as sk
 
 
@@ -97,3 +102,89 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         sk.spmm(torch.randn(100, 8, device=cuda), *Graph(
             skewed_graph(100, 800, seed=6), num_nodes=100
         ).tensor("cpu")._spmm_layouts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 3, 16, 128, 130])
+def test_dedup_kernels_match_plain_version(cuda, D):
+    g = Graph(skewed_graph(3000, 40000, seed=4), num_nodes=3000).tensor(cuda)
+    dk.reset_launches()
+    csc, csr = dedup_layouts(g, cuda)
+    assert dict(dk.LAUNCHES_BY_SHAPE) == {("counts", "csc", None): 1,
+                                          ("counts", "csr", None): 1}
+    for lay in (csc, csr):
+        check_counts(f"counts {lay.kind}", lay.counts, lay)
+    assert csc.num_partials > 0                  # the hub block is split
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    x = torch.randn(3000, D, device=cuda, generator=gen, requires_grad=True)
+    w = torch.randn(3000, D, device=cuda, generator=gen)
+    res = []
+    for lays in ((csc, csr), [dataclasses.replace(lay, counts=None)
+                              for lay in (csc, csr)]):
+        out = dk.spmm_dedup(x, *lays)
+        (out * w).sum().backward()
+        res.append((out.detach(), x.grad))
+        x.grad = None
+    torch.cuda.synchronize()
+    assert dict(dk.LAUNCHES_BY_SHAPE) == {
+        ("counts", "csc", None): 1, ("counts", "csr", None): 1,
+        ("dedup_cached", "csc", D): 1, ("dedup_cached", "csr", D): 1,
+        ("dedup", "csc", D): 1, ("dedup", "csr", D): 1}
+    (out5, grad5), (out6, grad6) = res
+    with torch.no_grad():
+        check_dedup("K5 csc", out5, x, csc)
+        check_dedup("K5 csr", grad5, w, csr)
+    assert torch.equal(out5, out6) and torch.equal(grad5, grad6)
+    assert (out5[1:1500] == 0).all()             # empty rows are exact zeros
+
+
+@pytest.mark.gpu
+def test_graph_dedup_path_on_cuda(cuda):
+    """``tensor()`` under ``DEDUP`` launches K4 once per layout, and
+    ``send_u_recv`` then runs K5 and agrees with the K1 path."""
+    edges = skewed_graph(3000, 40000, seed=7)
+    x = torch.randn(3000, 32, device=cuda)
+    dk.reset_launches()
+    with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0):
+        gd = Graph(edges, num_nodes=3000).tensor(cuda)
+    out = gd.send_u_recv(x, "mean")
+    torch.cuda.synchronize()
+    assert dict(dk.LAUNCHES_BY_SHAPE) == {
+        ("counts", "csc", None): 1, ("counts", "csr", None): 1,
+        ("dedup_cached", "csc", 32): 1}
+    with dispatch_settings(DEDUP=False):
+        g1 = Graph(edges, num_nodes=3000).tensor(cuda)
+    assert g1._dedup_layouts is None
+    check("dedup against K1", out, g1.send_u_recv(x, "mean"))
+
+
+@pytest.mark.gpu
+def test_gcn_through_dedup_on_cuda_matches_cpu(cuda):
+    g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                                avg_degree=8, seed=5)
+    logits = {}
+    for dev in ("cpu", cuda):
+        with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0):
+            gt = g.tensor(dev)
+        assert gt._dedup_layouts is not None
+        model = GCN(16, 3, num_layers=3, hidden_size=24, dropout=0.0,
+                    generator=torch.Generator().manual_seed(0), device=dev)
+        logits[str(dev)] = model(gt, gt.node_feat["h"]).detach().cpu()
+    np.testing.assert_allclose(logits[str(cuda)], logits["cpu"], rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_dedup_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    g = Graph(skewed_graph(100, 800, seed=6), num_nodes=100).tensor(cuda)
+    csc, csr = dedup_layouts(g, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        dk.spmm_dedup(torch.randn(100, 8, device=cuda, dtype=torch.float64),
+                      csc, csr)
+    with pytest.raises(ValueError, match="contiguous"):
+        dk.spmm_dedup(torch.randn(8, 100, device=cuda).t(), csc, csr)
+    with pytest.raises(ValueError, match="gathers row"):
+        dk.spmm_dedup(torch.randn(50, 8, device=cuda), csc, csr)
+    with pytest.raises(ValueError, match="layout"):
+        dk.spmm_dedup(torch.randn(100, 8, device=cuda), *dedup_layouts(
+            g, "cpu"))
