@@ -33,7 +33,23 @@ there is no card or any phase fails. Phases:
    the main path, beside the plain version, ``torch.sparse.mm`` on a CSR
    tensor of the same graph (the yardstick for the SpMM; the port never
    calls it) and the bound; then the SpMM device time per step of each
-   path.
+   path;
+5. the GAT path (per-edge attention, K9 and K10): K9, K10-dq and K10-dkv
+   against their float64 plain versions at dropout rates 0 and 0.6, on a
+   skewed small graph with a hub destination and a hub source and on the
+   bench GAT graph (``bench.py``: ``powerlaw_graph(65536, 16,
+   feat_dim=128, seed=1)``), with the tolerance above (no terms scale:
+   every output is a convex combination or a sum of bounded terms); the
+   keep bits of K9 and K10-dkv equal the plain mask exactly (a permutation
+   graph, where each row has one edge); the small GAT, CUDA against CPU;
+   then the bench GAT (``GAT(128, 16, num_heads=8, hidden_size=8,
+   feat_drop=0, attn_drop=0)``, Adam at lr 1e-3) and ``GAT`` with its
+   default dropouts (0.6, training) each train 3 warm-up and 20 timed
+   steps, asserting their launches per step (one K9, K10-dq and K10-dkv
+   at each of (H, dvh) = (8, 8) and (1, 16), the combine launches where
+   rows split, no SpMM) and a finite, falling loss; a torch.profiler trace
+   of the bench GAT step gives its device time by kernel and idle share;
+   and the kernels are timed as in 4.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -55,6 +71,12 @@ DEDUP_SOURCE = "pgl_tpu_torch/ops/kernels/csrc/dedup_kernels.cu"
 DEDUP_REPLACES = {"counts": "pgl_tpu/ops/pallas/dedup_kernels.py:554",
                   "dedup_cached": "pgl_tpu/ops/pallas/dedup_kernels.py:608",
                   "dedup": "pgl_tpu/ops/pallas/dedup_kernels.py:405"}
+ATTN_SOURCE = "pgl_tpu_torch/ops/kernels/csrc/attention_kernels.cu"
+ATTN_REPLACES = {"gat_fwd": "pgl_tpu/ops/pallas/attention_kernels.py:86",
+                 "gat_dq": "pgl_tpu/ops/pallas/attention_kernels.py:288",
+                 "gat_dkv": "pgl_tpu/ops/pallas/attention_kernels.py:403"}
+# (heads, per-head width) of the GAT's two attention calls
+GAT_SHAPES = ((8, 8), (1, 16))
 STEPS, WARMUP = 20, 3
 # SpMM launches per training step, by (layout, width): forward layers 0 and
 # 1 at D=128 and layer 2 at D=16 over CSC; backward layers 1 (D=128) and 2
@@ -241,28 +263,33 @@ def headline_trainer(g):
 
 
 def reset_all_launches():
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
     sk.reset_launches()
     dk.reset_launches()
+    ak.reset_launches()
 
 
 def all_launches():
     """Launch counts of every kernel module: K1's keyed ``(kind, D)``, the
-    dedup kernels' ``(kernel, kind, D)``."""
+    dedup kernels' ``(kernel, kind, D)``, the attention kernels' ``(kernel,
+    H, dvh)``."""
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
-    return {**sk.LAUNCHES_BY_SHAPE, **dk.LAUNCHES_BY_SHAPE}
+    return {**sk.LAUNCHES_BY_SHAPE, **dk.LAUNCHES_BY_SHAPE,
+            **ak.LAUNCHES_BY_SHAPE}
 
 
-def phase_train(g, path="K1", per_step=None):
-    """The main path: the bench headline GCN trains on the card. Asserts
-    the launches of every kernel: ``per_step`` (default: K1's ``PER_STEP``)
-    times the step count, and no other."""
+def phase_train(g, path="K1", per_step=None, trainer=None):
+    """The main path: a model trains on the card (default: the bench
+    headline GCN). Asserts the launches of every kernel: ``per_step``
+    (default: K1's ``PER_STEP``) times the step count, and no other."""
     import torch
 
     per_step = PER_STEP if per_step is None else per_step
-    model, step = headline_trainer(g)
+    model, step = (trainer or headline_trainer)(g)
     for _ in range(WARMUP):
         step()
     torch.cuda.synchronize()
@@ -280,7 +307,7 @@ def phase_train(g, path="K1", per_step=None):
     losses = [float(v) for v in losses]
     want = {k: v * STEPS for k, v in per_step.items()}
     if by_shape != want:
-        raise AssertionError(f"{path}: SpMM launches {by_shape}, expected "
+        raise AssertionError(f"{path}: launches {by_shape}, expected "
                              f"{want}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{path}: losses not finite and falling: "
@@ -296,7 +323,7 @@ def phase_train(g, path="K1", per_step=None):
           f"{losses[-1]:.6f}; median step {step_ms:.4f} ms (min "
           f"{min(times) * 1e3:.4f}, max {max(times) * 1e3:.4f}); peak memory "
           f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before the "
-          f"steps); SpMM launches {launches} = {launches / STEPS:g}/step",
+          f"steps); kernel launches {launches} = {launches / STEPS:g}/step",
           flush=True)
     return {"step_ms": step_ms, "peak_mib": peak / 2**20,
             "held_mib": held / 2**20, "loss_first": losses[0],
@@ -535,6 +562,386 @@ def tensor_s(host, dedup, **settings):
     return g, time.perf_counter() - t0
 
 
+def attention_graph(num_nodes, num_edges, seed):
+    """``skewed_graph`` with a hub source as well (node 7 sends 15% of the
+    edges), so both attention layouts have split rows."""
+    edges = skewed_graph(num_nodes, num_edges, seed)
+    rng = np.random.default_rng(seed + 100)
+    edges[rng.choice(num_edges, num_edges * 3 // 20, replace=False), 0] = 7
+    return edges
+
+
+def attention_inputs(n, H, dvh, dev, gen):
+    """Random a_dst, a_src [n, H], v and g [n, H * dvh] (float32)."""
+    import torch
+    return tuple(torch.randn(n, w, device=dev, generator=gen)
+                 for w in (H, H, H * dvh, H * dvh))
+
+
+def check_attention(tag, lays, ins, rate, seed):
+    """K9, K10-dq and K10-dkv (float32) against their plain versions in
+    float64 on the same inputs; returns the max |err| of each and the
+    kernels' outputs."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    csc, csr = lays
+    a_dst, a_src, v, g = ins
+    H = a_dst.shape[1]
+    dvh = v.shape[1] // H
+    with torch.no_grad():
+        out, lse = ak._fwd_cuda(a_dst, a_src, v, csc, 0.2, dvh, rate, seed)
+        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+        bwd = (a_dst, a_src, v, g, lse, delta)
+        da_dst = ak._dq_cuda(*bwd, csc, 0.2, dvh, rate, seed)
+        da_src, dv = ak._dkv_cuda(*bwd, csr, 0.2, dvh, rate, seed)
+        d64 = [t.double() for t in bwd]
+        out_p, lse_p = ak.gat_attention_reference(*d64[:3], csc, 0.2, dvh,
+                                                  rate, seed)
+        dq_p = ak.gat_dq_reference(*d64, csc, 0.2, dvh, rate, seed)
+        dsrc_p, dv_p = ak.gat_dkv_reference(*d64, csr, 0.2, dvh, rate, seed)
+        name = f"{tag} H={H} dvh={dvh} rate={rate}"
+        return {"gat_fwd": max(check(f"{name} K9 out", out, out_p),
+                               check(f"{name} K9 lse", lse, lse_p)),
+                "gat_dq": check(f"{name} K10-dq", da_dst, dq_p),
+                "gat_dkv": max(check(f"{name} K10-dkv d a_src", da_src,
+                                     dsrc_p),
+                               check(f"{name} K10-dkv dv", dv, dv_p))}, \
+            (out, lse, da_dst, da_src, dv)
+
+
+def phase_attention_kernels(g_gat, dev):
+    """Every attention kernel against its float64 plain version at rates 0
+    and 0.6 (seed drawn per case), on the small graph at several head
+    shapes and on the GAT headline graph at the GAT's; and the runs are
+    bit-identical. Returns the max |err| per (kernel, H, dvh) on the
+    headline graph."""
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+
+    small = Graph(attention_graph(3000, 40000, seed=1), num_nodes=3000
+                  ).tensor(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs = {}
+    cases = [("small", small, hd) for hd in ((8, 8), (1, 16), (4, 32),
+                                             (3, 3), (2, 64), (42, 1))]
+    cases += [("headline", g_gat, hd) for hd in GAT_SHAPES]
+    for tag, g, (H, dvh) in cases:
+        lays = g._attention_layouts()
+        if tag == "small" and not (lays[0].num_partials
+                                   and lays[1].num_partials):
+            raise AssertionError("the small graph must split rows on both "
+                                 "layouts")
+        ins = attention_inputs(g.num_nodes, H, dvh, dev, gen)
+        for rate in (0.0, 0.6):
+            seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                                 generator=gen, device=dev)
+            e, got = check_attention(tag, lays, ins, rate, seed)
+            _, again = check_attention(tag, lays, ins, rate, seed)
+            if not all(map(torch.equal, got, again)):
+                raise AssertionError(f"{tag} H={H} dvh={dvh}: two runs "
+                                     "differ")
+            if tag == "headline":
+                for k, v in e.items():
+                    errs[k, H, dvh] = max(errs.get((k, H, dvh), 0.0), v)
+            print(f"[attention] {tag} N={g.num_nodes} E={g.num_edges} "
+                  f"H={H} dvh={dvh} rate={rate}: max |err| K9 "
+                  f"{e['gat_fwd']:.3e} K10-dq {e['gat_dq']:.3e} K10-dkv "
+                  f"{e['gat_dkv']:.3e}", flush=True)
+    ak.reset_launches()
+    return errs
+
+
+def phase_attention_mask(dev):
+    """The keep bits of K9 and K10-dkv equal the plain mask exactly: on a
+    permutation graph every row has one edge, so with a_dst = a_src = 0,
+    v = g = 1 and dvh = 1, K9's out and K10-dkv's dv are 1 / (1 - rate)
+    where the edge is kept and 0 where it is dropped. (K10-dq's bits show
+    in the float64 checks: a flip there moves a short row's d a_dst by
+    about q·gv, far over the tolerance.)"""
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+
+    n, H, rate = 1 << 20, 42, 0.6
+    rng = np.random.default_rng(8)
+    g = Graph(np.stack([rng.permutation(n), np.arange(n)], axis=1),
+              num_nodes=n).tensor(dev)
+    csc, csr = g._attention_layouts()
+    zeros = torch.zeros(n, H, device=dev)
+    ones = torch.ones(n, H, device=dev)
+    for seed_v in (-1640531535, 12345):
+        seed = torch.tensor([seed_v], dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            out, lse = ak._fwd_cuda(zeros, zeros, ones, csc, 0.2, 1, rate,
+                                    seed)
+            _, dv = ak._dkv_cuda(zeros, zeros, ones, ones, lse, out, csr,
+                                 0.2, 1, rate, seed)
+            for name, got, lay in (("K9", out, csc), ("K10-dkv", dv, csr)):
+                pos = torch.empty_like(lay.positions())
+                pos[lay.seg_ids.long()] = lay.positions()
+                want = torch.stack([ak.drop_keep(pos, seed, h, rate)
+                                    for h in range(H)], dim=1)
+                if not torch.equal(got != 0, want):
+                    raise AssertionError(
+                        f"{name} keep bits differ from the plain mask in "
+                        f"{int(((got != 0) != want).sum())} of {want.numel()}")
+    ak.reset_launches()
+    print(f"[attention] keep bits of K9 and K10-dkv equal the plain mask "
+          f"over {n} positions x {H} heads, 2 seeds, rate {rate}",
+          flush=True)
+
+
+def phase_gat_small(dev):
+    """The whole GAT on a small graph: CUDA kernels against the CPU's plain
+    versions with the same weights (logits and gradients)."""
+    import torch
+    from pgl_tpu_torch.datasets import community_graph
+    from pgl_tpu_torch.models import GAT
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+
+    g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                                avg_degree=8, seed=5)
+    results = {}
+    for d in ("cpu", dev):
+        gt = g.tensor(d)
+        model = GAT(16, 3, num_heads=8, hidden_size=8, feat_drop=0.0,
+                    attn_drop=0.0, generator=torch.Generator().manual_seed(0),
+                    device=d)
+        logits = model(gt, gt.node_feat["h"], True)
+        ce(logits, torch.as_tensor(labels, device=d)).mean().backward()
+        results[str(d)] = (logits.detach().cpu(),
+                           {k: p.grad.cpu()
+                            for k, p in model.named_parameters()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(dev)]
+    err = check("small GAT logits", l_gpu, l_cpu)
+    for k in g_cpu:
+        err = max(err, check(f"small GAT grad {k}", g_gpu[k], g_cpu[k]))
+    print(f"[model] small GAT, CUDA vs CPU: max |err| {err:.3e}", flush=True)
+
+
+def gat_host():
+    """The bench GAT graph on the host (numpy)."""
+    from pgl_tpu_torch.datasets import powerlaw_graph
+    return powerlaw_graph(num_nodes=65536, avg_degree=16, feat_dim=128,
+                          seed=1)
+
+
+def gat_trainer(g, defaults=False):
+    """The bench GAT (``defaults=False``: no dropout, evaluation mode as in
+    the bench) or ``GAT`` with its default dropouts, training, on ``g``'s
+    device (weights from seed 0, labels from seed 1), and a function that
+    takes one Adam step and returns its loss."""
+    import torch
+    from pgl_tpu_torch.models import GAT
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+
+    x = g.node_feat["h"]
+    y = torch.as_tensor(np.random.default_rng(1).integers(
+        0, 16, g.num_nodes).astype(np.int64), device=x.device)
+    drop = {} if defaults else {"feat_drop": 0.0, "attn_drop": 0.0}
+    model = GAT(input_size=128, num_class=16, num_heads=8, hidden_size=8,
+                generator=torch.Generator().manual_seed(0), device=x.device,
+                **drop)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = ce(model(g, x, defaults), y).mean()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return model, step
+
+
+def gat_per_step(g):
+    """Attention launches per GAT step: K9, K10-dq and K10-dkv once at each
+    shape, and the second launch of each where its layout splits rows."""
+    csc, csr = g._attention_layouts()
+    per = {}
+    for H, dvh in GAT_SHAPES:
+        for kernel, lay in (("gat_fwd", csc), ("gat_dq", csc),
+                            ("gat_dkv", csr)):
+            per[kernel, H, dvh] = 1
+            if lay.num_partials:
+                per[f"{kernel}_combine", H, dvh] = 1
+    return per
+
+
+def phase_attention_timing(g, dev, runs, errs):
+    """Rows at the GAT's shapes: each kernel's ms (the wrapper's launches,
+    combine included), its plain version's, and its bound, at rate 0 (the
+    bench GAT) and 0.6 (GAT's defaults). ``runs`` maps a rate to the
+    launches of its training run."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+
+    csc, csr = g._attention_layouts()
+    N, E = g.num_nodes, g.num_edges
+    gen = torch.Generator(device=dev).manual_seed(5)
+    seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+    rows = []
+    for H, dvh in GAT_SHAPES:
+        C = H * dvh
+        a_dst, a_src, v, g_out = attention_inputs(N, H, dvh, dev, gen)
+        for rate, launches in runs.items():
+            with torch.no_grad():
+                out, lse = ak._fwd_cuda(a_dst, a_src, v, csc, 0.2, dvh, rate,
+                                        seed)
+                delta = (g_out.reshape(N, H, dvh)
+                         * out.reshape(N, H, dvh)).sum(-1)
+            bwd = (a_dst, a_src, v, g_out, lse, delta)
+            cases = {
+                "gat_fwd": (lambda: ak._fwd_cuda(a_dst, a_src, v, csc, 0.2,
+                                                 dvh, rate, seed),
+                            lambda: ak.gat_attention_reference(
+                                a_dst, a_src, v, csc, 0.2, dvh, rate, seed),
+                            csc, 2 * H + C, C + H),
+                "gat_dq": (lambda: ak._dq_cuda(*bwd, csc, 0.2, dvh, rate,
+                                               seed),
+                           lambda: ak.gat_dq_reference(*bwd, csc, 0.2, dvh,
+                                                       rate, seed),
+                           csc, 4 * H + 2 * C, H),
+                "gat_dkv": (lambda: ak._dkv_cuda(*bwd, csr, 0.2, dvh, rate,
+                                                 seed),
+                            lambda: ak.gat_dkv_reference(*bwd, csr, 0.2, dvh,
+                                                         rate, seed),
+                            csr, 4 * H + 2 * C, H + C),
+            }
+            for kernel, (fn, plain, lay, cols_in, cols_out) in cases.items():
+                with torch.no_grad():
+                    ms = time_ms(fn, 50)
+                    plain_ms = time_ms(plain, 3)
+                # each input read once: the node tables, the edge list
+                # (and the CSC positions where the CSR pass drops), the
+                # pieces; each output written once
+                edge_ints = 1 + (kernel == "gat_dkv" and rate > 0)
+                nbytes = 4 * (N * (cols_in + cols_out) + E * edge_ints
+                              + 4 * lay.pieces.shape[0])
+                # per edge and head: add, leaky, max, 2 exp, 2 scale, the
+                # dropout hash (8 integer ops); per column: 2 (fma) in K9,
+                # 4 (g.v product and sum, dv) in K10
+                per_col = 2 if kernel == "gat_fwd" else 4
+                ops = E * (H * (7 + 8 * (rate > 0)) + per_col * C)
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+                bound_ms = max(t_bytes, t_ops) * 1e3
+                suffix = f"_drop{rate:g}" if rate else ""
+                rows.append({
+                    "name": f"{kernel}_h{H}_d{dvh}{suffix}", "route": "cuda",
+                    "source": ATTN_SOURCE, "replaces": ATTN_REPLACES[kernel],
+                    "launches": launches.get((kernel, H, dvh), 0),
+                    "max_abs_err": errs[kernel, H, dvh], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": None, "share": bound_ms / ms,
+                    "shape": {"kernel": kernel, "H": H, "dvh": dvh,
+                              "rate": rate, "rows": N, "edges": E,
+                              "pieces": int(lay.pieces.shape[0]),
+                              "split_rows": int(lay.split_rows.shape[0])}})
+                print(f"[timing] {kernel} H={H} dvh={dvh} rate={rate}: "
+                      f"kernel {ms:.5f} ms ({rows[-1]['launches']} launches "
+                      f"in its run), plain {plain_ms:.5f} ms, bound "
+                      f"{bound_ms:.5f} ms ({rows[-1]['bound_by']}; "
+                      f"{bound_ms / ms:.3f} of it)", flush=True)
+    ak.reset_launches()
+    return rows
+
+
+def phase_gat_profile(g):
+    """Where a bench GAT step's device time goes: 20 steps back to back
+    (one synchronize at the end), then 10 under torch.profiler; prints the
+    device time per step by kernel (attention kernels by name, the rest by
+    sum), and the idle share 1 - busy / back-to-back step time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _, step = gat_trainer(g)
+    for _ in range(WARMUP):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        step()
+    torch.cuda.synchronize()
+    chained_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    n = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    # device spans of annotations (Optimizer.step#...) overlap kernels
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.key.startswith("Optimizer."):
+            name = e.key.replace("void (anonymous namespace)::",
+                                 "").split("(")[0]
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            by_name[name] = by_name.get(name, 0.0) + us / 1e3 / n
+    attn = {k: v for k, v in by_name.items() if k.startswith(("gat_", "sum_"))}
+    busy = sum(by_name.values())
+    profile_line = {
+        "chained_ms_per_step": chained_ms, "device_busy_ms_per_step": busy,
+        "attention_ms_per_step": sum(attn.values()),
+        "other_ms_per_step": busy - sum(attn.values()),
+        "idle_share": 1 - busy / chained_ms, "attention_kernels_ms": attn}
+    print(f"[profile] GAT step: {json.dumps(profile_line)}", flush=True)
+    return profile_line
+
+
+def phase_gat(dev):
+    """The GAT path: kernel checks, the small model, the two training runs
+    on the bench GAT graph, and the kernels' times. Returns (rows, the
+    step line's GAT entries)."""
+    import torch
+
+    t0 = time.perf_counter()
+    host = gat_host()
+    g = host.tensor()
+    torch.cuda.synchronize()
+    t_tensor = time.perf_counter() - t0
+    if g._attn_layouts is not None:
+        raise AssertionError("tensor() built attention layouts")
+    t0 = time.perf_counter()
+    csc, csr = g._attention_layouts()
+    torch.cuda.synchronize()
+    t_layouts = time.perf_counter() - t0
+    deg = g.indegree().cpu().numpy()
+    pairs = len(np.unique(host.edges[:, 1] * np.int64(g.num_nodes)
+                          + host.edges[:, 0]))
+    print(f"[graph] GAT N={g.num_nodes} E={g.num_edges} ({pairs} distinct "
+          f"(dst, src) pairs): tensor() "
+          f"{t_tensor:.3f} s (generator included), attention layouts "
+          f"{t_layouts:.3f} s on the host; largest in-degree "
+          f"{int(deg.max())}, empty rows {int((deg == 0).sum())}, largest "
+          f"out-degree {int(g.outdegree().max())}; CSC {csc.pieces.shape[0]} "
+          f"pieces, {csc.split_rows.shape[0]} split rows; CSR "
+          f"{csr.pieces.shape[0]} pieces, {csr.split_rows.shape[0]} split "
+          f"rows", flush=True)
+    errs = phase_attention_kernels(g, dev)
+    phase_attention_mask(dev)
+    phase_gat_small(dev)
+    per = gat_per_step(g)
+    train, by0 = phase_train(g, "GAT", per, gat_trainer)
+    train_d, by6 = phase_train(g, "GAT defaults", per,
+                               lambda g: gat_trainer(g, defaults=True))
+    prof = phase_gat_profile(g)
+    rows = phase_attention_timing(g, dev, {0.0: by0, 0.6: by6}, errs)
+    attn = {rate: sum(r["ms"] for r in rows if r["shape"]["rate"] == rate)
+            for rate in (0.0, 0.6)}
+    print(f"[default] attention device ms per GAT step: {attn[0.0]:.5f} "
+          f"(no dropout), {attn[0.6]:.5f} (rate 0.6)", flush=True)
+    return rows, {
+        "GAT": dict(train, attention_ms_per_step=attn[0.0],
+                    tensor_s=t_tensor, attention_layouts_s=t_layouts,
+                    profile=prof),
+        "GAT_defaults": dict(train_d, attention_ms_per_step=attn[0.6])}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -552,7 +959,8 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    libs = _build.build("segment_kernels", "dedup_kernels")
+    libs = _build.build("segment_kernels", "dedup_kernels",
+                        "attention_kernels")
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
     for path in libs.values():
         print(path.with_suffix(".log").read_text().strip(), flush=True)
@@ -616,6 +1024,10 @@ def main():
           f"dedup (K5) {spmm['dedup']:.5f}, dedup over budget (K6) "
           f"{spmm['dedup_uncached']:.5f}; lower: "
           f"{'dedup' if spmm['dedup'] < spmm['K1'] else 'K1'}", flush=True)
+    del g_6
+    torch.cuda.empty_cache()
+    gat_rows, gat_steps = phase_gat(dev)
+    rows += gat_rows
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -623,7 +1035,7 @@ def main():
         "dedup_uncached": dict(train_6,
                                spmm_ms_per_step=spmm["dedup_uncached"],
                                tensor_s=t_6),
-        "device": smi}}), flush=True)
+        **gat_steps, "device": smi}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

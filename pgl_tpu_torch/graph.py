@@ -12,6 +12,10 @@ rule of ``pgl_tpu/graph.py:580-637``, with the gates of
 ``ops/dispatch.py``), and the SpMM of ``ops/kernels/segment_kernels.py``
 otherwise: the CUDA kernels for CUDA tensors, their plain versions for CPU
 tensors. Max and min run plain segment ops, as the reference does.
+
+The attention layouts of ``ops/kernels/attention_kernels.py`` are built on
+the first attention call, from the host indexes, and kept on the device
+graph: ``tensor()`` alone does not build them.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from .ops import dispatch
 from .ops import message_passing as mp
 from .ops import segment as S
 from .ops.kernels import dedup_kernels as dk
+from .ops.kernels.attention_kernels import build_attention_layouts
 from .ops.kernels.segment_kernels import build_spmm_layout, spmm
 from .utils.edge_index import EdgeIndex
 
@@ -68,6 +73,7 @@ class Graph:
         self._adj_dst_index = kwargs.get("adj_dst_index", None)
         self._spmm_layouts = kwargs.get("_spmm_layouts", None)
         self._dedup_layouts = kwargs.get("_dedup_layouts", None)
+        self._attn_layouts = None
 
     # -- basic accessors ----------------------------------------------------
 
@@ -162,6 +168,17 @@ class Graph:
         return S.segment_pool(mp.gather_rows(feature, idx.sorted_v),
                               idx.segment_ids, reduce_op,
                               num_segments=self._num_nodes)
+
+    def _attention_layouts(self):
+        """``(csc, csr)`` work lists of the attention kernels (K9/K10),
+        built from the host indexes on the first call and kept on this
+        device graph."""
+        self._require_tensor()
+        if self._attn_layouts is None:
+            self._attn_layouts = build_attention_layouts(
+                self.adj_dst_index.numpy(), self.adj_src_index.numpy(),
+                self._num_nodes, device=self._edges.device)
+        return self._attn_layouts
 
     # -- conversion ---------------------------------------------------------
 

@@ -1,3 +1,3 @@
-from .gnn import GCN
+from .gnn import GAT, GCN
 
-__all__ = ["GCN"]
+__all__ = ["GCN", "GAT"]

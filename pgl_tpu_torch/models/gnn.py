@@ -8,9 +8,9 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from ..nn import GCNConv
+from ..nn import GATConv, GCNConv
 
-__all__ = ["GCN"]
+__all__ = ["GCN", "GAT"]
 
 
 class GCN(nn.Module):
@@ -42,3 +42,29 @@ class GCN(nn.Module):
                                                 training=True)
             feature = getattr(self, f"gcn_{i}")(graph, feature)
         return feature
+
+
+class GAT(nn.Module):
+    """2-layer GAT as in the citation benchmark (``pgl_tpu/models/gnn.py:
+    50-70``): ``gat_0`` with ``num_heads`` heads of ``hidden_size``,
+    concatenated, then elu; ``gat_1`` with one head of ``num_class``."""
+
+    def __init__(self, input_size: int, num_class: int, num_heads: int = 8,
+                 hidden_size: int = 8, feat_drop: float = 0.6,
+                 attn_drop: float = 0.6, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.gat_0 = GATConv(input_size, hidden_size, feat_drop=feat_drop,
+                             attn_drop=attn_drop, num_heads=num_heads,
+                             activation="elu", generator=gen, device=device)
+        self.gat_1 = GATConv(hidden_size * num_heads, num_class,
+                             feat_drop=feat_drop, attn_drop=attn_drop,
+                             num_heads=1, concat=False, generator=gen,
+                             device=device)
+
+    def forward(self, graph, feature, training: bool = False):
+        feature = self.gat_0(graph, feature, training)
+        return self.gat_1(graph, feature, training)

@@ -1,4 +1,4 @@
-from .conv import GCNConv
+from .conv import GATConv, GCNConv
 from . import functional
 
-__all__ = ["GCNConv", "functional"]
+__all__ = ["GCNConv", "GATConv", "functional"]

@@ -1,11 +1,11 @@
 """Which implementation a message-passing reduction runs.
 
-Port of ``pgl_tpu/ops/dispatch.py:22-33`` and of the dedup selection rule
+Port of ``pgl_tpu/ops/dispatch.py:22-59`` and of the dedup selection rule
 of ``pgl_tpu/graph.py:580-637``. For a kernel, the rule is the tensor's
 device and nothing else: a CUDA tensor goes to the Hopper kernel, a CPU
-tensor to the kernel's plain PyTorch version. The reference's K1 threshold
-(``_MIN_EDGES``) and its lane padding to 128 are TPU matters and are not
-carried over.
+tensor to the kernel's plain PyTorch version. The reference's edge
+threshold (``_MIN_EDGES``, for K1 and the attention alike) and its lane
+padding to 128 are TPU matters and are not carried over.
 
 Which SpMM family a graph uses is decided once, at ``Graph.tensor()`` time,
 from the module constants below (read there, so tests and ``chip_smoke.py``
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["use_spmm_kernel", "DEDUP", "DEDUP_MIN_EDGES", "DEDUP_MAX_EDGES",
+__all__ = ["use_spmm_kernel", "use_attention_kernel", "DEDUP", "DEDUP_MIN_EDGES", "DEDUP_MAX_EDGES",
            "DEDUP_MAX_RATIO", "COUNTS_MAX", "COUNTS_BUDGET_BYTES"]
 
 # Build the unique-source ("dedup") layouts and run K5/K6 for sum and mean
@@ -51,18 +51,29 @@ COUNTS_MAX = 256
 COUNTS_BUDGET_BYTES = 512_000_000
 
 
+def _use_kernel(tensor: torch.Tensor, what: str) -> bool:
+    kind = tensor.device.type
+    if kind == "cpu":
+        return False
+    if kind != "cuda":
+        raise ValueError(f"no {what} for device {tensor.device}")
+    if tensor.dtype != torch.float32:
+        raise TypeError(
+            f"the CUDA {what} takes float32 features, got {tensor.dtype}")
+    return True
+
+
 def use_spmm_kernel(feature: torch.Tensor) -> bool:
     """True to launch the CUDA SpMM, False to run its plain version.
 
     Raises for a CUDA tensor of a dtype the kernel does not take, and for
     any device other than CUDA or the CPU.
     """
-    kind = feature.device.type
-    if kind == "cpu":
-        return False
-    if kind != "cuda":
-        raise ValueError(f"no SpMM for device {feature.device}")
-    if feature.dtype != torch.float32:
-        raise TypeError(
-            f"the CUDA SpMM takes float32 features, got {feature.dtype}")
-    return True
+    return _use_kernel(feature, "SpMM")
+
+
+def use_attention_kernel(tensor: torch.Tensor) -> bool:
+    """True to launch the CUDA attention kernels (K9/K10), False to run
+    their plain versions; raises as :func:`use_spmm_kernel` does (the port
+    of ``use_fused_attention``, whose other gates are the TPU's)."""
+    return _use_kernel(tensor, "attention")

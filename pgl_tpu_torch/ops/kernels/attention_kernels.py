@@ -1,0 +1,449 @@
+"""Per-edge GAT attention: the kernels behind ``GATConv``.
+
+Port of the additive half of ``pgl_tpu/ops/pallas/attention_kernels.py``
+(``fused_gat_attention``: ``_attn_kernel`` forward, K9;
+``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel`` backward, K10) onto
+hand-written CUDA kernels for Hopper, ``csrc/attention_kernels.cu``, whose
+note gives the design.
+
+* :func:`build_attention_layouts` builds, once on the host (numpy), the
+  two work lists the kernels walk: CSC (rows are destinations, edges in the
+  reference's CSC order, so an edge's position is the dropout hash's
+  counter) and CSR (rows are sources), which carries for every edge its CSC
+  position, the reference's ``perm`` (``pgl_tpu/graph.py:569-574``). Rows
+  are cut into pieces of at most ``ET`` edges by ``segment_kernels.cut_rows``.
+* :func:`fused_gat_attention` is an autograd ``Function`` with the
+  reference's contract (``:855-938``): the forward (K9) saves ``lse``; the
+  backward computes ``delta = Σ g·out`` per (row, head) in torch, then runs
+  K10-dq over the CSC layout (``d a_dst``) and K10-dkv over the CSR layout
+  (``d a_src`` and ``dv``). The dropout seed is saved, so all three passes
+  draw the same mask.
+* :func:`gat_attention_reference`, :func:`gat_dq_reference` and
+  :func:`gat_dkv_reference` are the plain PyTorch versions, in edge space
+  with ``index_add_``. CPU tensors run them; CUDA tensors launch the kernels
+  or raise.
+* :func:`drop_keep` and :func:`apply_hash_dropout` are the reference's
+  counter-hash dropout (``_drop_keep`` and ``_apply_hash_dropout``) in torch
+  integer arithmetic, bit for bit.
+
+``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, H, dvh)``, kernel one of
+``gat_fwd``, ``gat_dq``, ``gat_dkv`` and, where a layout has split rows,
+their second launches ``gat_fwd_combine``, ``gat_dq_combine`` and
+``gat_dkv_combine``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ... import resolve_device
+from ..dispatch import use_attention_kernel
+from ..segment import segment_max, segment_softmax, segment_sum
+from . import _build
+from .segment_kernels import cut_rows
+
+__all__ = ["AttentionLayout", "build_attention_layouts", "drop_keep",
+           "apply_hash_dropout", "gat_attention_reference",
+           "gat_dq_reference", "gat_dkv_reference", "fused_gat_attention",
+           "ET", "MAX_SLOTS", "LAUNCHES_BY_SHAPE", "reset_launches"]
+
+# most edges in one piece (one warp's work); read when a layout is built
+ET = 256
+
+# the kernels hold H * dvh_p columns (dvh rounded up to a power of two) in
+# at most 16 registers a lane
+MAX_SLOTS = 512
+
+LAUNCHES_BY_SHAPE: Counter = Counter()
+
+_MASK32 = 0xFFFFFFFF
+
+
+def reset_launches():
+    """Set the launch counts to 0."""
+    LAUNCHES_BY_SHAPE.clear()
+
+
+@dataclass(frozen=True)
+class AttentionLayout:
+    """One side of the graph as the attention kernels read it (int32, one
+    device).
+
+    indices:     [E] the other end of each edge (the source for CSC, the
+                 destination for CSR), in the reference's edge order
+    seg_ids:     [E] row of each edge (the plain versions' scatter ids)
+    eidx:        [E] CSR only: each edge's CSC position (the dropout
+                 hash's counter); None for CSC, where it is the position
+    pieces, split_rows, split_ptr: the work list of ``cut_rows``
+    """
+    kind: str
+    num_rows: int
+    num_edges: int
+    max_index: int        # largest gather id (-1 without edges)
+    num_partials: int
+    indices: torch.Tensor
+    seg_ids: torch.Tensor
+    eidx: Optional[torch.Tensor]
+    pieces: torch.Tensor
+    split_rows: torch.Tensor
+    split_ptr: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.indices.device
+
+    def positions(self) -> torch.Tensor:
+        """The CSC position of every edge, in this layout's order."""
+        if self.eidx is not None:
+            return self.eidx
+        return torch.arange(self.num_edges, dtype=torch.int32,
+                            device=self.device)
+
+
+def build_attention_layouts(dst_index, src_index, num_nodes: int,
+                            device=None):
+    """``(csc, csr)`` from a graph's host ``EdgeIndex``es: ``dst_index``
+    groups the edges by destination (CSC), ``src_index`` by source."""
+    E, N = len(dst_index.sorted_v), int(num_nodes)
+    if E >= 2 ** 31 or N >= 2 ** 31:
+        raise ValueError(f"int32 layout: {E} edges / {N} nodes would wrap "
+                         "— shard the graph first")
+    inv_csc = np.empty(E, dtype=np.int64)
+    inv_csc[np.asarray(dst_index.sorted_eid)] = np.arange(E)
+    perm = inv_csc[np.asarray(src_index.sorted_eid)]
+    device = resolve_device(device)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
+                               device=device)
+
+    def one(kind, idx, eidx):
+        indptr = np.asarray(idx.indptr, dtype=np.int64)
+        indices = np.asarray(idx.sorted_v, dtype=np.int64)
+        pieces, split_rows, split_ptr = cut_rows(indptr, ET)
+        return AttentionLayout(
+            kind=kind, num_rows=N, num_edges=E,
+            max_index=int(indices.max()) if E else -1,
+            num_partials=int(split_ptr[-1]), indices=put(indices),
+            seg_ids=put(np.repeat(np.arange(N), np.diff(indptr))),
+            eidx=None if eidx is None else put(eidx), pieces=put(pieces),
+            split_rows=put(split_rows), split_ptr=put(split_ptr))
+
+    return one("csc", dst_index, None), one("csr", src_index, perm)
+
+
+# -- dropout ---------------------------------------------------------------
+
+def _mul32(x, c: int):
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32), without int64
+    overflow."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def _thresh(rate: float) -> int:
+    return int((1.0 - rate) * (1 << 31))
+
+
+def drop_keep(idx, seed, h: int, rate: float) -> torch.Tensor:
+    """Keep mask of the reference's ``_drop_keep``: a counter hash of the
+    edge's CSC position ``idx``, the int32 ``seed`` (an int or a tensor)
+    and the head ``h``. The reference's int32 wrap-around and logical
+    shifts are taken in int64 masked to 32 bits."""
+    hc = (h * 0x632BE5AB) & _MASK32
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=idx.device)
+    x = (idx.to(torch.int64) & _MASK32) ^ ((seed + hc) & _MASK32)
+    x = _mul32(x, 0x9E3779B1)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    return (x & 0x7FFFFFFF) < _thresh(rate)
+
+
+def apply_hash_dropout(p, rate: float, seed, positions) -> torch.Tensor:
+    """``p`` [E, H] with the kernels' dropout: edge e of CSC position
+    ``positions[e]`` keeps head h when ``drop_keep`` says so, scaled by
+    1 / (1 - rate) (``_apply_hash_dropout``, ``:687-696``)."""
+    seed = 0 if seed is None else seed
+    keep = torch.stack([drop_keep(positions, seed, h, rate)
+                        for h in range(p.shape[1])], dim=1)
+    return torch.where(keep, p, torch.zeros_like(p)) * (1.0 / (1.0 - rate))
+
+
+# -- plain versions ----------------------------------------------------------
+
+def _leaky(s, slope):
+    return torch.where(s >= 0, s, s * slope) if slope else s
+
+
+def _ends(layout):
+    """(dst, src) of every edge of ``layout``, int64."""
+    rows, other = layout.seg_ids.long(), layout.indices.long()
+    return (rows, other) if layout.kind == "csc" else (other, rows)
+
+
+def gat_attention_reference(a_dst, a_src, v, layout: AttentionLayout,
+                            leaky_slope: float = 0.2, dvh=None,
+                            attn_drop: float = 0.0, seed=None):
+    """The plain forward: ``(out [N, H·dvh], lse [N, H])`` over the CSC
+    ``layout`` (``_xla_additive_reference``, ``:699-721``, with the hash
+    dropout, plus the log-sum-exp of each row's scores; an empty row gives
+    zeros in both)."""
+    N, H = a_dst.shape
+    dvh = dvh or v.shape[1] // H
+    dst, src = _ends(layout)
+    E = dst.shape[0]
+    s = _leaky(a_dst[dst] + a_src[src], leaky_slope)            # [E, H]
+    p = segment_softmax(s, dst, N)
+    m = segment_max(s.detach(), dst, N)
+    total = segment_sum(torch.exp(s - m[dst]), dst, N)
+    lse = torch.where(total > 0, m + torch.log(total), torch.zeros_like(m))
+    if attn_drop:
+        p = apply_hash_dropout(p, attn_drop, seed, layout.positions())
+    msg = v[src, :H * dvh].reshape(E, H, dvh) * p[..., None]
+    return segment_sum(msg.reshape(E, H * dvh), dst, N), lse
+
+
+def _edge_grads(a_dst, a_src, v, g, lse, delta, layout, leaky_slope, dvh,
+                attn_drop, seed):
+    """Per edge of ``layout``: (dst, src, q, ds), with q the dropped
+    probability and ds the score's cotangent (``:367-386``)."""
+    H = a_dst.shape[1]
+    dst, src = _ends(layout)
+    E = dst.shape[0]
+    s_raw = a_dst[dst] + a_src[src]
+    p = torch.exp(_leaky(s_raw, leaky_slope) - lse[dst])
+    q = (apply_hash_dropout(p, attn_drop, seed, layout.positions())
+         if attn_drop else p)
+    g_e = g[dst].reshape(E, H, dvh)
+    gv = (g_e * v[src].reshape(E, H, dvh)).sum(-1)
+    ds = q * gv - p * delta[dst]
+    if leaky_slope:
+        ds = torch.where(s_raw >= 0, ds, ds * leaky_slope)
+    return dst, src, q, ds, g_e
+
+
+def gat_dq_reference(a_dst, a_src, v, g, lse, delta,
+                     layout: AttentionLayout, leaky_slope: float = 0.2,
+                     dvh=None, attn_drop: float = 0.0, seed=None):
+    """The plain K10-dq: ``d a_dst [N, H]`` over the CSC ``layout``."""
+    N, H = a_dst.shape
+    dst, _, _, ds, _ = _edge_grads(a_dst, a_src, v, g, lse, delta, layout,
+                                   leaky_slope, dvh or v.shape[1] // H,
+                                   attn_drop, seed)
+    return ds.new_zeros(N, H).index_add_(0, dst, ds)
+
+
+def gat_dkv_reference(a_dst, a_src, v, g, lse, delta,
+                      layout: AttentionLayout, leaky_slope: float = 0.2,
+                      dvh=None, attn_drop: float = 0.0, seed=None):
+    """The plain K10-dkv: ``(d a_src [N, H], dv [N, H·dvh])`` over the CSR
+    ``layout``, whose ``eidx`` gives the dropout hash its CSC positions."""
+    N, H = a_src.shape
+    dvh = dvh or v.shape[1] // H
+    _, src, q, ds, g_e = _edge_grads(a_dst, a_src, v, g, lse, delta, layout,
+                                     leaky_slope, dvh, attn_drop, seed)
+    dv = (q[..., None] * g_e).reshape(-1, H * dvh)
+    return (ds.new_zeros(N, H).index_add_(0, src, ds),
+            dv.new_zeros(N, H * dvh).index_add_(0, src, dv))
+
+
+# -- CUDA --------------------------------------------------------------------
+
+def _lib():
+    lib = _build.load("attention_kernels")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # (device, tables..., indices[, eidx], pieces, n_pieces, split_rows,
+    #  split_ptr, n_split, H, dvh, slope, seed, thresh, inv_keep,
+    #  outputs..., partials, stream)
+    work = [p, i, p, p, i, i, i, f, p, i, f]
+    sigs = {"pgl_gat_fwd_f32": [i] + [p] * 4 + work + [p] * 4,
+            "pgl_gat_dq_f32": [i] + [p] * 7 + work + [p] * 3,
+            "pgl_gat_dkv_f32": [i] + [p] * 8 + work + [p] * 4}
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _dvh_p(dvh: int) -> int:
+    return 1 << (int(dvh) - 1).bit_length()
+
+
+def _check(layout, H, dvh, *tensors):
+    """Raise on what the kernels do not take."""
+    if H * _dvh_p(dvh) > MAX_SLOTS:
+        raise ValueError(f"{H} heads of width {dvh} need {H * _dvh_p(dvh)} "
+                         f"slots; the CUDA attention holds {MAX_SLOTS}")
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA attention takes CUDA tensors, got "
+                             f"one on {t.device}")
+        if t.device != layout.device:
+            raise ValueError(f"tensor on {t.device}, layout on "
+                             f"{layout.device}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA attention takes contiguous tensors, "
+                             f"got strides {t.stride()}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA attention takes float32, got "
+                            f"{t.dtype}")
+        if t.shape[0] != layout.num_rows or t.shape[0] <= layout.max_index:
+            raise ValueError(f"table of {t.shape[0]} rows; the layout has "
+                             f"{layout.num_rows} rows and gathers row "
+                             f"{layout.max_index}")
+
+
+def _drop_args(rate: float):
+    """(thresh, inv_keep) for the kernels; thresh -1 turns dropout off."""
+    if not rate:
+        return -1, 1.0
+    return _thresh(rate), 1.0 / (1.0 - rate)
+
+
+def _raise_on(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"attention_kernels {name} launch failed: CUDA "
+                           f"error {rc}")
+
+
+def _count(name, layout, H, dvh):
+    LAUNCHES_BY_SHAPE[(name, H, dvh)] += 1
+    if layout.split_rows.shape[0]:
+        LAUNCHES_BY_SHAPE[(f"{name}_combine", H, dvh)] += 1
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _fwd_cuda(a_dst, a_src, v, lay, slope, dvh, rate, seed):
+    N, H = a_dst.shape
+    _check(lay, H, dvh, a_dst, a_src, v)
+    out = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
+    lse = torch.empty(N, H, dtype=v.dtype, device=v.device)
+    part = torch.empty(lay.num_partials, H * dvh + 2 * H, dtype=v.dtype,
+                       device=v.device)
+    thresh, inv_keep = _drop_args(rate)
+    _raise_on(_lib().pgl_gat_fwd_f32(
+        v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
+        lay.indices.data_ptr(), lay.pieces.data_ptr(), lay.pieces.shape[0],
+        lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
+        lay.split_rows.shape[0], H, dvh, slope, seed.data_ptr(), thresh,
+        inv_keep, out.data_ptr(), lse.data_ptr(), part.data_ptr(),
+        _stream(v)), "forward")
+    _count("gat_fwd", lay, H, dvh)
+    return out, lse
+
+
+def _dq_cuda(a_dst, a_src, v, g, lse, delta, lay, slope, dvh, rate, seed):
+    N, H = a_dst.shape
+    _check(lay, H, dvh, a_dst, a_src, v, g, lse, delta)
+    da = torch.empty(N, H, dtype=v.dtype, device=v.device)
+    part = torch.empty(lay.num_partials, H, dtype=v.dtype, device=v.device)
+    thresh, inv_keep = _drop_args(rate)
+    _raise_on(_lib().pgl_gat_dq_f32(
+        v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        lay.indices.data_ptr(), lay.pieces.data_ptr(), lay.pieces.shape[0],
+        lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
+        lay.split_rows.shape[0], H, dvh, slope, seed.data_ptr(), thresh,
+        inv_keep, da.data_ptr(), part.data_ptr(), _stream(v)), "dq")
+    _count("gat_dq", lay, H, dvh)
+    return da
+
+
+def _dkv_cuda(a_dst, a_src, v, g, lse, delta, lay, slope, dvh, rate, seed):
+    N, H = a_src.shape
+    _check(lay, H, dvh, a_dst, a_src, v, g, lse, delta)
+    da = torch.empty(N, H, dtype=v.dtype, device=v.device)
+    dv = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
+    part = torch.empty(lay.num_partials, H + H * dvh, dtype=v.dtype,
+                       device=v.device)
+    thresh, inv_keep = _drop_args(rate)
+    _raise_on(_lib().pgl_gat_dkv_f32(
+        v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        lay.indices.data_ptr(), lay.eidx.data_ptr(), lay.pieces.data_ptr(),
+        lay.pieces.shape[0], lay.split_rows.data_ptr(),
+        lay.split_ptr.data_ptr(), lay.split_rows.shape[0], H, dvh, slope,
+        seed.data_ptr(), thresh, inv_keep, da.data_ptr(), dv.data_ptr(),
+        part.data_ptr(), _stream(v)), "dkv")
+    _count("gat_dkv", lay, H, dvh)
+    return da, dv
+
+
+def _seed_tensor(seed, device) -> torch.Tensor:
+    """The dropout seed as an int32 [1] tensor on ``device`` (0 when
+    None), the form the kernels read."""
+    if seed is None:
+        seed = 0
+    return torch.as_tensor(seed, dtype=torch.int32,
+                           device=device).reshape(1)
+
+
+class _GatAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a_dst, a_src, v, csc, csr, leaky_slope, dvh, rate,
+                seed):
+        args = (csc, leaky_slope, dvh, rate, seed)
+        if use_attention_kernel(v):
+            out, lse = _fwd_cuda(a_dst, a_src, v, *args)
+        else:
+            out, lse = gat_attention_reference(a_dst, a_src, v, *args)
+        ctx.save_for_backward(a_dst, a_src, v, out, lse, seed)
+        ctx.meta = (csc, csr, leaky_slope, dvh, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a_dst, a_src, v, out, lse, seed = ctx.saved_tensors
+        csc, csr, slope, dvh, rate = ctx.meta
+        H = a_dst.shape[1]
+        g = g.contiguous()
+        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+        ins = (a_dst, a_src, v, g, lse, delta)
+        if use_attention_kernel(v):
+            da_dst = _dq_cuda(*ins, csc, slope, dvh, rate, seed)
+            da_src, dv = _dkv_cuda(*ins, csr, slope, dvh, rate, seed)
+        else:
+            da_dst = gat_dq_reference(*ins, csc, slope, dvh, rate, seed)
+            da_src, dv = gat_dkv_reference(*ins, csr, slope, dvh, rate, seed)
+        return da_dst, da_src, dv, None, None, None, None, None, None
+
+
+def fused_gat_attention(a_dst, a_src, v, csc: AttentionLayout,
+                        csr: AttentionLayout, leaky_slope: float = 0.2,
+                        dvh=None, attn_drop: float = 0.0, drop_seed=None):
+    """GAT additive attention: ``out[r] = Σ_{e: dst=r} softmax_r(leaky(
+    a_dst[r] + a_src[src_e])) · v[src_e]`` per head, with the reference's
+    in-kernel dropout on the probabilities (``attn_drop`` > 0: a hash of
+    each edge's CSC position, the int32 ``drop_seed`` and the head; the
+    softmax denominator stays undropped).
+
+    Args:
+      a_dst, a_src: [N, H] attention coefficients of destination and source.
+      v: [N, H·dvh] values (no lane padding, unlike the reference's).
+      csc, csr: the graph's :func:`build_attention_layouts`.
+      dvh: per-head value width (default ``v.shape[1] // H``).
+    Returns [N, H·dvh]; rows with no incoming edge are 0.
+    """
+    N, H = a_dst.shape
+    dvh = dvh or v.shape[1] // H
+    if a_src.shape != (N, H) or v.shape != (N, H * dvh):
+        raise ValueError(f"a_dst {tuple(a_dst.shape)}, a_src "
+                         f"{tuple(a_src.shape)} and v {tuple(v.shape)} are "
+                         f"not [N, H], [N, H] and [N, H * {dvh}]")
+    rate = float(attn_drop)
+    seed = _seed_tensor(drop_seed, v.device)
+    return _GatAttention.apply(a_dst.contiguous(), a_src.contiguous(),
+                               v.contiguous(), csc, csr, leaky_slope, dvh,
+                               rate, seed)

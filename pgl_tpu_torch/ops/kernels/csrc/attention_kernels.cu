@@ -1,0 +1,655 @@
+// Per-edge GAT attention for Hopper (sm_90a), additive scores:
+//   s_e     = leaky(a_dst[r, h] + a_src[src_e, h])          (edge e into row r)
+//   out[r]  = sum_e keep_e * softmax_r(s)_e * v[src_e] / (1 - rate)
+//   lse[r]  = log sum_e exp(s_e)                             (per head)
+// and its flash-style backward.
+//
+// Replaces the TPU kernels of pgl_tpu/ops/pallas/attention_kernels.py in
+// their additive mode (`fused_gat_attention`): `_attn_kernel` (forward, K9),
+// `_attn_bwd_dq_kernel` (the CSC pass, d a_dst) and `_attn_bwd_dkv_kernel`
+// (the CSR pass, d a_src and dv) (K10).
+//
+// What bounds it: bytes and latency, not arithmetic. Per edge the forward
+// reads one index, H scores and the C = H * dvh values of the source row;
+// the backward passes read as much again plus the cotangent row. Each edge
+// costs a few exps per column, far below the card's rate. The design:
+//   * one warp walks one piece of at most ET edges of a row, the work list
+//     of `segment_kernels.cut_rows` built on the host, so a hub row (38% of
+//     the edges of the bench GAT graph) spreads over many SMs; there is no
+//     [E, C] gathered stream in device memory (the TPU kernels DMA one);
+//   * lanes take "slots": head h owns dvh_p (dvh rounded up to a power of
+//     two) consecutive slots, slot j = lane + 32 k, so the lanes of one head
+//     sit in one aligned group and a per-head dot product (g . v) is a
+//     shuffle reduction inside the group (dvh_p <= 32) or across the warp;
+//   * the forward keeps an online (max, sum, acc) per slot, the backward
+//     recomputes p = exp(s - lse) from the saved lse;
+//   * a row of one piece stores its result directly, an empty row stores
+//     zeros (out and lse, as the reference); a row of several pieces stores
+//     per-piece partials that a second launch merges in piece order
+//     (rescaled by exp(m_i - m) in the forward, summed in the backward). No
+//     float atomics: every run gives the same bits.
+//
+// Attention dropout is the reference's counter hash `_drop_keep` of the
+// edge's CSC position, seed and head, in uint32 arithmetic (the reference's
+// int32 wrap-around and logical shifts). The CSC passes use the edge's own
+// position; the CSR pass reads it from `eidx` (the reference's `perm`).
+// The softmax sum stays undropped; `acc`, the dv term and the g.v term use
+// the dropped probability, the delta term the undropped one.
+//
+// Calling convention: launches on the given stream, does not synchronise,
+// allocates nothing (the caller passes outputs and partials), and returns
+// cudaGetLastError(). `thresh` < 0 turns dropout off.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;              // warps per block
+constexpr float kMaskValue = -1e30f;   // the reference's running-max start
+
+__device__ __forceinline__ bool drop_keep(uint32_t idx, uint32_t seed,
+                                          uint32_t hc, int thresh) {
+  uint32_t x = idx ^ (seed + hc);
+  x *= 0x9E3779B1u;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  return static_cast<int>(x & 0x7FFFFFFFu) < thresh;
+}
+
+// slope 0 means no leaky relu at all (the reference's `if leaky_slope`)
+__device__ __forceinline__ float leaky(float s, float slope) {
+  return (slope != 0.f && !(s >= 0.f)) ? s * slope : s;
+}
+
+__device__ __forceinline__ float leaky_grad(float s, float slope) {
+  return (slope != 0.f && !(s >= 0.f)) ? slope : 1.f;
+}
+
+// The slots of one lane: head (clamped to H - 1 on the padding past the
+// last head), column (-1 on padding), the head's hash constant, and whether
+// the lane is its head's first (it writes per-head values).
+template <int NC>
+struct Slots {
+  int head[NC];
+  int col[NC];
+  uint32_t hc[NC];
+  bool lead[NC];
+
+  __device__ __forceinline__ Slots(int lane, int H, int dvh, int dvh_p) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int j = lane + 32 * k;
+      const int h = j / dvh_p;
+      const int w = j - h * dvh_p;
+      const bool ok = h < H && w < dvh;
+      head[k] = min(h, H - 1);
+      col[k] = ok ? h * dvh + w : -1;
+      hc[k] = static_cast<uint32_t>(head[k]) * 0x632BE5ABu;
+      lead[k] = ok && w == 0;
+    }
+  }
+};
+
+// x[k] <- sum of x over the slots of k's head (every lane of the warp
+// must call it; dvh_p is uniform).
+template <int NC>
+__device__ __forceinline__ void head_sum(float (&x)[NC], int dvh_p) {
+  if (dvh_p <= 32) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k)
+      for (int off = dvh_p >> 1; off > 0; off >>= 1)
+        x[k] += __shfl_xor_sync(kFull, x[k], off);
+  } else {
+    const int kph = dvh_p >> 5;  // slots of one head per lane
+    float red[NC];
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      red[k] = x[k];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        red[k] += __shfl_xor_sync(kFull, red[k], off);
+    }
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      float t = 0.f;
+#pragma unroll
+      for (int k2 = 0; k2 < NC; ++k2)
+        if (k2 / kph == k / kph) t += red[k2];
+      x[k] = t;
+    }
+  }
+}
+
+// K9, one warp per CSC piece (row, begin, end, slot).
+template <int NC, int U>
+__global__ void __launch_bounds__(kWarps * 32)
+gat_fwd_pieces(const float* __restrict__ a_dst,
+               const float* __restrict__ a_src, const float* __restrict__ v,
+               const int* __restrict__ indices,
+               const int4* __restrict__ pieces, int n_pieces, int H, int dvh,
+               int dvh_p, float slope, const int* __restrict__ seed_p,
+               int thresh, float inv_keep, float* __restrict__ out,
+               float* __restrict__ lse, float* __restrict__ partials) {
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= n_pieces) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  const int C = H * dvh;
+  const int4 pc = pieces[warp];
+  const Slots<NC> sl(lane, H, dvh, dvh_p);
+  const bool drop = thresh >= 0;
+  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
+
+  float ad[NC], m[NC], l[NC], acc[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    ad[k] = __ldg(a_dst + static_cast<size_t>(pc.x) * H + sl.head[k]);
+    m[k] = kMaskValue;
+    l[k] = 0.f;
+    acc[k] = 0.f;
+  }
+  // each lane holds one index of the current 32-edge batch
+  int mine = lane < pc.z - pc.y ? __ldg(indices + pc.y + lane) : 0;
+  for (long long base = pc.y; base < pc.z; base += 32) {
+    const int n = static_cast<int>(min(32LL, pc.z - base));
+    const long long next_e = base + 32 + lane;
+    const int next = next_e < pc.z ? __ldg(indices + next_e) : 0;
+    for (int j0 = 0; j0 < n; j0 += U) {
+      float as[U][NC], vv[U][NC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        const int s = __shfl_sync(kFull, mine, j & 31);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          as[u][k] = j < n ? __ldg(a_src + static_cast<size_t>(s) * H +
+                                   sl.head[k])
+                           : 0.f;
+          vv[u][k] = (j < n && sl.col[k] >= 0)
+                         ? __ldg(v + static_cast<size_t>(s) * C + sl.col[k])
+                         : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        if (j >= n) break;  // uniform
+        const uint32_t e = static_cast<uint32_t>(base + j);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const float s = leaky(ad[k] + as[u][k], slope);
+          const float mn = fmaxf(m[k], s);
+          const float sc = expf(m[k] - mn);
+          const float p = expf(s - mn);
+          l[k] = l[k] * sc + p;
+          const float pk =
+              (!drop || drop_keep(e, seed, sl.hc[k], thresh)) ? p : 0.f;
+          acc[k] = acc[k] * sc + pk * vv[u][k];
+          m[k] = mn;
+        }
+      }
+    }
+    mine = next;
+  }
+  if (pc.w < 0) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const bool row = l[k] > 0.f;  // an empty row stores zeros
+      if (sl.col[k] >= 0)
+        out[static_cast<size_t>(pc.x) * C + sl.col[k]] =
+            row ? acc[k] * (inv_keep / fmaxf(l[k], 1e-30f)) : 0.f;
+      if (sl.lead[k])
+        lse[static_cast<size_t>(pc.x) * H + sl.head[k]] =
+            row ? m[k] + logf(l[k]) : 0.f;
+    }
+  } else {
+    // partial row: acc [C] | m [H] | l [H]
+    float* part = partials + static_cast<size_t>(pc.w) * (C + 2 * H);
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      if (sl.col[k] >= 0) part[sl.col[k]] = acc[k];
+      if (sl.lead[k]) {
+        part[C + sl.head[k]] = m[k];
+        part[C + H + sl.head[k]] = l[k];
+      }
+    }
+  }
+}
+
+// Online merge of a softmax state (M, L, A) with a partial (m, l, a).
+__device__ __forceinline__ void merge(float& M, float& L, float& A, float m,
+                                      float l, float a) {
+  const float mn = fmaxf(M, m);
+  const float s1 = expf(M - mn);
+  const float s2 = expf(m - mn);
+  L = L * s1 + l * s2;
+  A = A * s1 + a * s2;
+  M = mn;
+}
+
+// warps of a combine block: 16, fewer where slots per lane would overflow
+// the block's 24 KB of shared state
+template <int NC>
+struct CombineWarps {
+  static constexpr int value = NC >= 4 ? 64 / NC : 16;
+};
+
+// K9's merge of split rows (flash decoding), one block per row: warp w
+// merges pieces p0 + w, p0 + w + W, ... in order, then warp 0 merges the W
+// warp states in order. A fixed assignment and order: the same bits on
+// every run.
+template <int NC>
+__global__ void __launch_bounds__(CombineWarps<NC>::value * 32)
+gat_fwd_combine(const float* __restrict__ partials,
+                const int* __restrict__ split_rows,
+                const int* __restrict__ split_ptr, int H, int dvh, int dvh_p,
+                float inv_keep, float* __restrict__ out,
+                float* __restrict__ lse) {
+  constexpr int W = CombineWarps<NC>::value;
+  __shared__ float state[W][3][NC * 32];
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int C = H * dvh;
+  const size_t P = static_cast<size_t>(C + 2 * H);  // partial row width
+  const Slots<NC> sl(lane, H, dvh, dvh_p);
+  const int p0 = split_ptr[blockIdx.x];
+  const int p1 = split_ptr[blockIdx.x + 1];
+  const int r = split_rows[blockIdx.x];
+  float M[NC], L[NC], A[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    M[k] = kMaskValue;
+    L[k] = 0.f;
+    A[k] = 0.f;
+  }
+  for (int p = p0 + w; p < p1; p += W) {
+    const float* part = partials + p * P;
+#pragma unroll
+    for (int k = 0; k < NC; ++k)
+      merge(M[k], L[k], A[k], part[C + sl.head[k]],
+            part[C + H + sl.head[k]],
+            sl.col[k] >= 0 ? part[sl.col[k]] : 0.f);
+  }
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    state[w][0][k * 32 + lane] = M[k];
+    state[w][1][k * 32 + lane] = L[k];
+    state[w][2][k * 32 + lane] = A[k];
+  }
+  __syncthreads();
+  if (w != 0) return;
+  for (int v = 1; v < W; ++v) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k)
+      merge(M[k], L[k], A[k], state[v][0][k * 32 + lane],
+            state[v][1][k * 32 + lane], state[v][2][k * 32 + lane]);
+  }
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const bool row = L[k] > 0.f;
+    if (sl.col[k] >= 0)
+      out[static_cast<size_t>(r) * C + sl.col[k]] =
+          row ? A[k] * (inv_keep / fmaxf(L[k], 1e-30f)) : 0.f;
+    if (sl.lead[k])
+      lse[static_cast<size_t>(r) * H + sl.head[k]] =
+          row ? M[k] + logf(L[k]) : 0.f;
+  }
+}
+
+// K10-dq, one warp per CSC piece: d a_dst[r, h] = sum_e ds_e.
+template <int NC, int U>
+__global__ void __launch_bounds__(kWarps * 32)
+gat_dq_pieces(const float* __restrict__ a_dst,
+              const float* __restrict__ a_src, const float* __restrict__ v,
+              const float* __restrict__ g, const float* __restrict__ lse,
+              const float* __restrict__ delta,
+              const int* __restrict__ indices,
+              const int4* __restrict__ pieces, int n_pieces, int H, int dvh,
+              int dvh_p, float slope, const int* __restrict__ seed_p,
+              int thresh, float inv_keep, float* __restrict__ da_dst,
+              float* __restrict__ partials) {
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= n_pieces) return;
+  const int lane = threadIdx.x & 31;
+  const int C = H * dvh;
+  const int4 pc = pieces[warp];
+  const Slots<NC> sl(lane, H, dvh, dvh_p);
+  const bool drop = thresh >= 0;
+  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
+
+  float ad[NC], ls[NC], dl[NC], gr[NC], da[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const size_t rh = static_cast<size_t>(pc.x) * H + sl.head[k];
+    ad[k] = __ldg(a_dst + rh);
+    ls[k] = __ldg(lse + rh);
+    dl[k] = __ldg(delta + rh);
+    gr[k] = sl.col[k] >= 0
+                ? __ldg(g + static_cast<size_t>(pc.x) * C + sl.col[k])
+                : 0.f;
+    da[k] = 0.f;
+  }
+  int mine = lane < pc.z - pc.y ? __ldg(indices + pc.y + lane) : 0;
+  for (long long base = pc.y; base < pc.z; base += 32) {
+    const int n = static_cast<int>(min(32LL, pc.z - base));
+    const long long next_e = base + 32 + lane;
+    const int next = next_e < pc.z ? __ldg(indices + next_e) : 0;
+    for (int j0 = 0; j0 < n; j0 += U) {
+      float as[U][NC], vv[U][NC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        const int s = __shfl_sync(kFull, mine, j & 31);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          as[u][k] = j < n ? __ldg(a_src + static_cast<size_t>(s) * H +
+                                   sl.head[k])
+                           : 0.f;
+          vv[u][k] = (j < n && sl.col[k] >= 0)
+                         ? __ldg(v + static_cast<size_t>(s) * C + sl.col[k])
+                         : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        if (j >= n) break;  // uniform
+        const uint32_t e = static_cast<uint32_t>(base + j);
+        float gv[NC];
+#pragma unroll
+        for (int k = 0; k < NC; ++k) gv[k] = gr[k] * vv[u][k];
+        head_sum<NC>(gv, dvh_p);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const float sr = ad[k] + as[u][k];
+          const float p = expf(leaky(sr, slope) - ls[k]);
+          const float q =
+              drop ? (drop_keep(e, seed, sl.hc[k], thresh) ? p * inv_keep
+                                                           : 0.f)
+                   : p;
+          da[k] += (q * gv[k] - p * dl[k]) * leaky_grad(sr, slope);
+        }
+      }
+    }
+    mine = next;
+  }
+  float* dst = pc.w < 0 ? da_dst + static_cast<size_t>(pc.x) * H
+                        : partials + static_cast<size_t>(pc.w) * H;
+#pragma unroll
+  for (int k = 0; k < NC; ++k)
+    if (sl.lead[k]) dst[sl.head[k]] = da[k];
+}
+
+// K10-dkv, one warp per CSR piece (the row is the source node s):
+// d a_src[s, h] = sum_e ds_e, dv[s, c] = sum_e q_e * g[dst_e, c]. Every
+// out-edge reads its destination's a_dst, lse, delta and g row directly,
+// and its CSC position from eidx for the dropout hash.
+template <int NC, int U>
+__global__ void __launch_bounds__(kWarps * 32)
+gat_dkv_pieces(const float* __restrict__ a_dst,
+               const float* __restrict__ a_src, const float* __restrict__ v,
+               const float* __restrict__ g, const float* __restrict__ lse,
+               const float* __restrict__ delta,
+               const int* __restrict__ indices, const int* __restrict__ eidx,
+               const int4* __restrict__ pieces, int n_pieces, int H, int dvh,
+               int dvh_p, float slope, const int* __restrict__ seed_p,
+               int thresh, float inv_keep, float* __restrict__ da_src,
+               float* __restrict__ dv, float* __restrict__ partials) {
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= n_pieces) return;
+  const int lane = threadIdx.x & 31;
+  const int C = H * dvh;
+  const int4 pc = pieces[warp];
+  const Slots<NC> sl(lane, H, dvh, dvh_p);
+  const bool drop = thresh >= 0;
+  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
+
+  float as[NC], vs[NC], da[NC], dva[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    as[k] = __ldg(a_src + static_cast<size_t>(pc.x) * H + sl.head[k]);
+    vs[k] = sl.col[k] >= 0
+                ? __ldg(v + static_cast<size_t>(pc.x) * C + sl.col[k])
+                : 0.f;
+    da[k] = 0.f;
+    dva[k] = 0.f;
+  }
+  const bool has = lane < pc.z - pc.y;
+  int mine = has ? __ldg(indices + pc.y + lane) : 0;
+  int mpos = has && drop ? __ldg(eidx + pc.y + lane) : 0;
+  for (long long base = pc.y; base < pc.z; base += 32) {
+    const int n = static_cast<int>(min(32LL, pc.z - base));
+    const long long next_e = base + 32 + lane;
+    const bool nhas = next_e < pc.z;
+    const int next = nhas ? __ldg(indices + next_e) : 0;
+    const int npos = nhas && drop ? __ldg(eidx + next_e) : 0;
+    for (int j0 = 0; j0 < n; j0 += U) {
+      float ad[U][NC], ls[U][NC], dl[U][NC], gd[U][NC];
+      uint32_t pos[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        const int d = __shfl_sync(kFull, mine, j & 31);
+        pos[u] = static_cast<uint32_t>(__shfl_sync(kFull, mpos, j & 31));
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const size_t dh = static_cast<size_t>(d) * H + sl.head[k];
+          ad[u][k] = j < n ? __ldg(a_dst + dh) : 0.f;
+          ls[u][k] = j < n ? __ldg(lse + dh) : 0.f;
+          dl[u][k] = j < n ? __ldg(delta + dh) : 0.f;
+          gd[u][k] = (j < n && sl.col[k] >= 0)
+                         ? __ldg(g + static_cast<size_t>(d) * C + sl.col[k])
+                         : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        if (j >= n) break;  // uniform
+        float gv[NC];
+#pragma unroll
+        for (int k = 0; k < NC; ++k) gv[k] = gd[u][k] * vs[k];
+        head_sum<NC>(gv, dvh_p);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const float sr = ad[u][k] + as[k];
+          const float p = expf(leaky(sr, slope) - ls[u][k]);
+          const float q =
+              drop ? (drop_keep(pos[u], seed, sl.hc[k], thresh)
+                          ? p * inv_keep
+                          : 0.f)
+                   : p;
+          da[k] += (q * gv[k] - p * dl[u][k]) * leaky_grad(sr, slope);
+          dva[k] += q * gd[u][k];
+        }
+      }
+    }
+    mine = next;
+    mpos = npos;
+  }
+  if (pc.w < 0) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      if (sl.lead[k]) da_src[static_cast<size_t>(pc.x) * H + sl.head[k]] = da[k];
+      if (sl.col[k] >= 0) dv[static_cast<size_t>(pc.x) * C + sl.col[k]] = dva[k];
+    }
+  } else {
+    // partial row: d a_src [H] | dv [C]
+    float* part = partials + static_cast<size_t>(pc.w) * (H + C);
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      if (sl.lead[k]) part[sl.head[k]] = da[k];
+      if (sl.col[k] >= 0) part[H + sl.col[k]] = dva[k];
+    }
+  }
+}
+
+// K10's sum of split rows, one block per row: partial rows [n1 | n2],
+// 32 columns at a time; warp w sums pieces p0 + w, p0 + w + W, ... in
+// order, then warp 0 adds the W warp sums in order, into out1 [R, n1] and
+// out2 [R, n2].
+constexpr int kSumWarps = 16;
+
+__global__ void __launch_bounds__(kSumWarps * 32)
+sum_combine(const float* __restrict__ partials,
+            const int* __restrict__ split_rows,
+            const int* __restrict__ split_ptr, int n1, int n2,
+            float* __restrict__ out1, float* __restrict__ out2) {
+  __shared__ float sums[kSumWarps][32];
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t P = static_cast<size_t>(n1 + n2);
+  const int p0 = split_ptr[blockIdx.x];
+  const int p1 = split_ptr[blockIdx.x + 1];
+  const size_t r = split_rows[blockIdx.x];
+  for (int c0 = 0; c0 < n1 + n2; c0 += 32) {
+    const int c = c0 + lane;
+    float t = 0.f;
+    if (c < n1 + n2) {
+#pragma unroll 8
+      for (int p = p0 + w; p < p1; p += kSumWarps) t += partials[p * P + c];
+    }
+    sums[w][lane] = t;
+    __syncthreads();
+    if (w == 0 && c < n1 + n2) {
+      float total = 0.f;
+#pragma unroll
+      for (int v = 0; v < kSumWarps; ++v) total += sums[v][lane];
+      if (c < n1)
+        out1[r * n1 + c] = total;
+      else
+        out2[r * n2 + (c - n1)] = total;
+    }
+    __syncthreads();
+  }
+}
+
+// slots per lane for H heads of dvh_p slots: 1, 2, 4, 8 or 16; 0 if wider
+int slots_per_lane(int H, int dvh_p) {
+  const int need = (H * dvh_p + 31) / 32;
+  int nc = 1;
+  while (nc < need) nc <<= 1;
+  return nc <= 16 ? nc : 0;
+}
+
+int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+int blocks_for(int warps) { return (warps + kWarps - 1) / kWarps; }
+
+constexpr int unroll_for(int nc) { return nc <= 2 ? 4 : (nc <= 4 ? 2 : 1); }
+
+}  // namespace
+
+// BODY (the variadic arguments) runs with NC, a compile-time slots-per-lane
+#define PGL_NC_CASE(N, ...) \
+  case N: {                 \
+    constexpr int NC = N;   \
+    __VA_ARGS__;            \
+  } break;
+#define PGL_NC_SWITCH(NC_VAR, ...)     \
+  switch (NC_VAR) {                    \
+    PGL_NC_CASE(1, __VA_ARGS__)        \
+    PGL_NC_CASE(2, __VA_ARGS__)        \
+    PGL_NC_CASE(4, __VA_ARGS__)        \
+    PGL_NC_CASE(8, __VA_ARGS__)        \
+    default:                           \
+      PGL_NC_CASE(16, __VA_ARGS__)     \
+  }
+
+extern "C" int pgl_gat_fwd_f32(int device, const float* a_dst,
+                               const float* a_src, const float* v,
+                               const int* indices, const int* pieces,
+                               int n_pieces, const int* split_rows,
+                               const int* split_ptr, int n_split, int H,
+                               int dvh, float slope, const int* seed,
+                               int thresh, float inv_keep, float* out,
+                               float* lse, float* partials, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int dvh_p = pow2_at_least(dvh);
+  const int nc = slots_per_lane(H, dvh_p);
+  if (nc == 0 || H <= 0 || dvh <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* pc = reinterpret_cast<const int4*>(pieces);
+  PGL_NC_SWITCH(nc, {
+    gat_fwd_pieces<NC, unroll_for(NC)><<<blocks_for(n_pieces), kWarps * 32,
+                                         0, s>>>(
+        a_dst, a_src, v, indices, pc, n_pieces, H, dvh, dvh_p, slope, seed,
+        thresh, inv_keep, out, lse, partials);
+    if (n_split > 0)
+      gat_fwd_combine<NC><<<n_split, CombineWarps<NC>::value * 32, 0, s>>>(
+          partials, split_rows, split_ptr, H, dvh, dvh_p, inv_keep, out,
+          lse);
+  })
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pgl_gat_dq_f32(int device, const float* a_dst,
+                              const float* a_src, const float* v,
+                              const float* g, const float* lse,
+                              const float* delta, const int* indices,
+                              const int* pieces, int n_pieces,
+                              const int* split_rows, const int* split_ptr,
+                              int n_split, int H, int dvh, float slope,
+                              const int* seed, int thresh, float inv_keep,
+                              float* da_dst, float* partials, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int dvh_p = pow2_at_least(dvh);
+  const int nc = slots_per_lane(H, dvh_p);
+  if (nc == 0 || H <= 0 || dvh <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* pc = reinterpret_cast<const int4*>(pieces);
+  PGL_NC_SWITCH(nc, {
+    gat_dq_pieces<NC, unroll_for(NC)><<<blocks_for(n_pieces), kWarps * 32, 0,
+                                        s>>>(
+        a_dst, a_src, v, g, lse, delta, indices, pc, n_pieces, H, dvh, dvh_p,
+        slope, seed, thresh, inv_keep, da_dst, partials);
+  })
+  if (n_split > 0)
+    sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
+        partials, split_rows, split_ptr, H, 0, da_dst, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pgl_gat_dkv_f32(int device, const float* a_dst,
+                               const float* a_src, const float* v,
+                               const float* g, const float* lse,
+                               const float* delta, const int* indices,
+                               const int* eidx, const int* pieces,
+                               int n_pieces, const int* split_rows,
+                               const int* split_ptr, int n_split, int H,
+                               int dvh, float slope, const int* seed,
+                               int thresh, float inv_keep, float* da_src,
+                               float* dv, float* partials, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int dvh_p = pow2_at_least(dvh);
+  const int nc = slots_per_lane(H, dvh_p);
+  if (nc == 0 || H <= 0 || dvh <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* pc = reinterpret_cast<const int4*>(pieces);
+  PGL_NC_SWITCH(nc, {
+    gat_dkv_pieces<NC, unroll_for(NC)><<<blocks_for(n_pieces), kWarps * 32,
+                                         0, s>>>(
+        a_dst, a_src, v, g, lse, delta, indices, eidx, pc, n_pieces, H, dvh,
+        dvh_p, slope, seed, thresh, inv_keep, da_src, dv, partials);
+  })
+  if (n_split > 0)
+    sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
+        partials, split_rows, split_ptr, H, H * dvh, da_src, dv);
+  return static_cast<int>(cudaGetLastError());
+}

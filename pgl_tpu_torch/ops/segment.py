@@ -1,6 +1,6 @@
 """Segment reductions on ``index_add_`` and ``scatter_reduce``.
 
-Port of ``pgl_tpu/ops/segment.py:43-105`` with the reference contract:
+Port of ``pgl_tpu/ops/segment.py:43-127`` with the reference contract:
 a segment that receives no element gives 0, and the mean divides by
 max(count, 1).
 """
@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 
 __all__ = ["segment_count", "segment_sum", "segment_mean", "segment_max",
-           "segment_min", "segment_pool"]
+           "segment_min", "segment_pool", "segment_softmax"]
 
 
 def _num_segments(segment_ids, num_segments: Optional[int]) -> int:
@@ -78,3 +78,16 @@ def segment_pool(data, segment_ids, pool_type: str,
         raise ValueError(
             "We only support sum, mean, max, min pool types in segment_pool.")
     return fn(data, segment_ids, num_segments)
+
+
+def segment_softmax(data, segment_ids, num_segments: Optional[int] = None):
+    """Softmax within each segment, one probability per row of ``data``:
+    shift by the segment's max (no gradient through it; an empty segment's
+    shift is 0), exponentiate, divide by the segment's sum floored at the
+    dtype's ``tiny`` (``pgl_tpu/ops/segment.py:108-127``)."""
+    n = _num_segments(segment_ids, num_segments)
+    seg_max = segment_max(data.detach(), segment_ids, n)
+    exp = torch.exp(data - seg_max[segment_ids])
+    denom = segment_sum(exp, segment_ids, n).clamp(
+        min=torch.finfo(exp.dtype).tiny)
+    return exp / denom[segment_ids]

@@ -1,0 +1,193 @@
+"""Port parity for GAT training: ``GATConv`` and ``GAT`` of
+``pgl_tpu_torch`` against ``pgl_tpu``'s on the CPU with flax-initialised
+parameters carried over by ``pgl_tpu_torch.utils.convert``; the 20-step
+``gat`` loss golden; the route rule of ``GATConv``; and the activation
+lookup."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+pytest.importorskip("flax")
+
+from chip_smoke import dispatch_settings, skewed_graph
+from pgl_tpu.datasets import community_graph as j_community_graph
+from pgl_tpu.models import GAT as JGAT
+from pgl_tpu.nn import GATConv as JGATConv
+from pgl_tpu.ops import softmax_cross_entropy_integer as j_ce
+from pgl_tpu_torch import Graph
+from pgl_tpu_torch.datasets import community_graph
+from pgl_tpu_torch.models import GAT
+from pgl_tpu_torch.nn import GATConv
+from pgl_tpu_torch.nn.conv import _resolve_act
+from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+from pgl_tpu_torch.utils.convert import flax_to_state_dict
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDENS_FILE = os.path.join(REPO, "tests", "test_trajectory_goldens_data.npz")
+GOLDEN_RTOL = 2e-3          # tests/test_trajectory_goldens.py:30
+
+
+def _graphs():
+    g, labels = j_community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                                  avg_degree=8, seed=5)
+    tg, tlabels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                                  avg_degree=8, seed=5)
+    return g.tensor(), jnp.asarray(labels), tg.tensor("cpu"), \
+        torch.as_tensor(tlabels)
+
+
+def _numpy_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _check_logits_and_grads(jmodel, model, training):
+    """Logits at rtol/atol 1e-5, parameter gradients at rtol 1e-4, atol
+    1e-5 (float32; sums in another order), as tests/test_torch_gcn.py."""
+    gj, yj, gt, y = _graphs()
+    params = jmodel.init(jax.random.key(0), gj, gj.node_feat["h"])
+
+    def loss(p):
+        logits = jmodel.apply(p, gj, gj.node_feat["h"], training)
+        return j_ce(logits, yj).mean(), logits
+
+    (_, want_logits), want_grads = jax.value_and_grad(loss, has_aux=True)(
+        params)
+    model.load_state_dict(flax_to_state_dict(_numpy_tree(params), "cpu"),
+                          strict=True)
+    logits = model(gt, gt.node_feat["h"], training)
+    ce(logits, y).mean().backward()
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               np.asarray(want_logits), rtol=1e-5, atol=1e-5)
+    want = flax_to_state_dict(_numpy_tree(want_grads), "cpu")
+    got = {k: p.grad for k, p in model.named_parameters()}
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_gatconv_matches_reference(training):
+    """Evaluation with the default dropouts, and training with both at 0."""
+    drop = 0.0 if training else 0.6
+    kw = dict(feat_drop=drop, attn_drop=drop, num_heads=3)
+    _check_logits_and_grads(JGATConv(16, 8, **kw),
+                            GATConv(16, 8, device="cpu", **kw), training)
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_gat_matches_reference(training):
+    drop = 0.0 if training else 0.6
+    kw = dict(num_heads=8, hidden_size=8, feat_drop=drop, attn_drop=drop)
+    _check_logits_and_grads(JGAT(16, 3, **kw),
+                            GAT(16, 3, device="cpu", **kw), training)
+
+
+def test_gat_trajectory_matches_golden():
+    """The ``gat`` trajectory of tests/test_trajectory_goldens.py: two
+    GATConv layers initialised by flax from the same keys, then 20 steps of
+    torch Adam at lr 1e-2."""
+    gj, _, gt, y = _graphs()
+    jlayers = [JGATConv(input_size=16, hidden_size=8, num_heads=3,
+                        feat_drop=0.0, attn_drop=0.0),
+               JGATConv(input_size=24, hidden_size=3, num_heads=1,
+                        feat_drop=0.0, attn_drop=0.0)]
+    key, h, params = jax.random.key(0), gj.node_feat["h"], []
+    for layer in jlayers:
+        key, sub = jax.random.split(key)
+        p = layer.init(sub, gj, h)
+        h = layer.apply(p, gj, h)
+        params.append(p)
+    layers = torch.nn.ModuleList([
+        GATConv(16, 8, num_heads=3, feat_drop=0.0, attn_drop=0.0,
+                device="cpu"),
+        GATConv(24, 3, num_heads=1, feat_drop=0.0, attn_drop=0.0,
+                device="cpu")])
+    for layer, p in zip(layers, params):
+        layer.load_state_dict(flax_to_state_dict(_numpy_tree(p), "cpu"))
+    opt = torch.optim.Adam(layers.parameters(), lr=1e-2)
+    losses = []
+    for _ in range(20):
+        h = gt.node_feat["h"]
+        for layer in layers:
+            h = layer(gt, h)
+        loss = ce(h, y).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    np.testing.assert_allclose(losses, np.load(GOLDENS_FILE)["gat"],
+                               rtol=GOLDEN_RTOL)
+
+
+def test_training_dropout_is_seeded_and_learns():
+    """GAT's defaults (feat_drop = attn_drop = 0.6) train through the
+    hash dropout: the same generator seed gives the same losses, and the
+    loss falls."""
+    _, _, gt, y = _graphs()
+    runs = []
+    for _ in range(2):
+        model = GAT(16, 3, generator=torch.Generator().manual_seed(3),
+                    device="cpu")
+        opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+        losses = []
+        for _ in range(15):
+            loss = ce(model(gt, gt.node_feat["h"], True), y).mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        runs.append(losses)
+    assert runs[0] == runs[1]
+    assert np.isfinite(runs[0]).all() and runs[0][-1] < runs[0][0]
+
+
+def test_tensor_builds_no_attention_layout():
+    _, _, gt, _ = _graphs()
+    assert gt._attn_layouts is None
+    GATConv(16, 8, device="cpu")(gt, gt.node_feat["h"])
+    csc, csr = gt._attn_layouts
+    assert gt._attention_layouts()[0] is csc
+
+
+def test_route_raises_where_the_reference_takes_other_kernels():
+    """K7/K8 on a graph with dedup layouts (unless it is a multigraph under
+    edge-mode dropout, which keeps K9/K10), and the dot-mode fallback for
+    3·H > 128, are not ported."""
+    edges = skewed_graph(400, 6000, seed=2)        # repeats (dst, src) pairs
+    with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0):
+        gd = Graph(edges, num_nodes=400).tensor("cpu")
+    assert gd._dedup_layouts is not None and not gd._dedup_layouts[0].simple
+    x = torch.randn(400, 16)
+    conv = GATConv(16, 4, num_heads=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="K7/K8"):
+        conv(gd, x)                                  # evaluation: rate 0
+    assert conv(gd, x, training=True).shape == (400, 8)
+    cell = GATConv(16, 4, num_heads=2, attn_drop_mode="cell", device="cpu")
+    with pytest.raises(NotImplementedError, match="K7/K8"):
+        cell(gd, x, training=True)
+    g = Graph(edges, num_nodes=400).tensor("cpu")
+    with pytest.raises(NotImplementedError, match="dot-mode"):
+        GATConv(16, 2, num_heads=43, device="cpu")(g, x)
+    with pytest.raises(ValueError, match="attn_drop_mode"):
+        GATConv(16, 2, attn_drop_mode="node", device="cpu")
+
+
+def test_activation_names_resolve():
+    x = torch.linspace(-2, 2, 9)
+    assert torch.equal(_resolve_act("relu")(x), torch.relu(x))
+    assert torch.equal(_resolve_act("elu")(x),
+                       torch.nn.functional.elu(x))
+    assert _resolve_act(None) is None
+
+
+def test_gat_without_a_device_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GAT(16, 3)

@@ -150,6 +150,7 @@ def test_import_leaves_jax_out():
             "pgl_tpu_torch.datasets, pgl_tpu_torch.utils.convert, "
             "pgl_tpu_torch.ops.kernels.segment_kernels, "
             "pgl_tpu_torch.ops.kernels.dedup_kernels, "
+            "pgl_tpu_torch.ops.kernels.attention_kernels, "
             "pgl_tpu_torch.ops.dispatch, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'pgl_tpu')]\n"

@@ -10,7 +10,10 @@ Kernel results are held against the plain version evaluated in float64 at
 chip_smoke.py's ``check_spmm`` (K1) and ``check_dedup`` (K5, K6), which say
 why: the kernel sums float32 in another order, and its rounding error grows
 with the 2-norm of the terms an element sums. K4's counts must equal the
-plain counts bit for bit, and K5 and K6 must agree bit for bit.
+plain counts bit for bit, and K5 and K6 must agree bit for bit. The
+attention kernels (K9, K10) go through ``check_attention`` (no terms scale:
+their outputs are convex combinations or sums of bounded terms) and must
+give the same bits on two runs.
 """
 
 import dataclasses
@@ -19,11 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check, check_counts, check_dedup, check_spmm,
-                        dedup_layouts, dispatch_settings, skewed_graph)
+from chip_smoke import (attention_graph, attention_inputs, check,
+                        check_attention, check_counts, check_dedup,
+                        check_spmm, dedup_layouts, dispatch_settings,
+                        skewed_graph)
 from pgl_tpu_torch import Graph
 from pgl_tpu_torch.datasets import community_graph
-from pgl_tpu_torch.models import GCN
+from pgl_tpu_torch.models import GAT, GCN
+from pgl_tpu_torch.ops.kernels import attention_kernels as ak
 from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
 from pgl_tpu_torch.ops.kernels import segment_kernels as sk
 
@@ -188,3 +194,63 @@ def test_dedup_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="layout"):
         dk.spmm_dedup(torch.randn(100, 8, device=cuda), *dedup_layouts(
             g, "cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+@pytest.mark.parametrize("H,dvh", [(8, 8), (1, 16), (3, 5)])
+def test_attention_kernels_match_plain_version(cuda, H, dvh, rate):
+    """K9, K10-dq and K10-dkv on a graph whose hub destination and hub
+    source are both split across pieces; two runs give the same bits."""
+    g = Graph(attention_graph(3000, 40000, seed=4), num_nodes=3000
+              ).tensor(cuda)
+    lays = g._attention_layouts()
+    assert lays[0].num_partials > 0 and lays[1].num_partials > 0
+    gen = torch.Generator(device=cuda).manual_seed(H * dvh)
+    ins = attention_inputs(3000, H, dvh, cuda, gen)
+    seed = torch.tensor([-987654321], dtype=torch.int32, device=cuda)
+    ak.reset_launches()
+    _, got = check_attention("small", lays, ins, rate, seed)
+    _, again = check_attention("small", lays, ins, rate, seed)
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, got, again))
+    assert dict(ak.LAUNCHES_BY_SHAPE) == {
+        (k, H, dvh): 2 for k in ("gat_fwd", "gat_fwd_combine", "gat_dq",
+                                 "gat_dq_combine", "gat_dkv",
+                                 "gat_dkv_combine")}
+    out, lse = got[:2]
+    assert (out[1:1500] == 0).all() and (lse[1:1500] == 0).all()
+
+
+@pytest.mark.gpu
+def test_gat_on_cuda_matches_cpu(cuda):
+    g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                                avg_degree=8, seed=5)
+    res = {}
+    for dev in ("cpu", cuda):
+        gt = g.tensor(dev)
+        model = GAT(16, 3, feat_drop=0.0, attn_drop=0.0,
+                    generator=torch.Generator().manual_seed(0), device=dev)
+        logits = model(gt, gt.node_feat["h"], True)
+        logits.square().sum().backward()
+        res[str(dev)] = (logits.detach().cpu(),
+                         model.gat_0.linear.weight.grad.cpu())
+    for got, want in zip(res[str(cuda)], res["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    g = Graph(skewed_graph(100, 800, seed=6), num_nodes=100)
+    lays = g.tensor(cuda)._attention_layouts()
+    a = torch.randn(100, 2)
+    v = torch.randn(100, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ak._fwd_cuda(a, a, v, lays[0], 0.2, 4, 0.0,
+                     torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(TypeError, match="float32"):
+        ak.fused_gat_attention(*(t.to(cuda, torch.float64) for t in (a, a, v)),
+                               *lays)
+    with pytest.raises(ValueError, match="layout"):
+        ak.fused_gat_attention(*(t.to(cuda) for t in (a, a, v)),
+                               *g.tensor("cpu")._attention_layouts())
