@@ -49,7 +49,23 @@ there is no card or any phase fails. Phases:
    at each of (H, dvh) = (8, 8) and (1, 16), the combine launches where
    rows split, no SpMM) and a finite, falling loss; a torch.profiler trace
    of the bench GAT step gives its device time by kernel and idle share;
-   and the kernels are timed as in 4.
+   and the kernels are timed as in 4;
+6. the dedup GAT path (count-matrix attention, K7 and K8, then K1 over
+   ``build_uniq_reduce``'s layout): the bench GAT graph under
+   ``dispatch.DEDUP`` (K4 twice at ``tensor()``; K7/K8's work lists built
+   at the first attention call); K7, K8 and the two K1 folds against their
+   float64 plain versions at rates 0 and 0.6 on the skewed small graph
+   (seven head shapes, 3·H > 128 among them) and on the bench GAT graph,
+   two runs and a layout without counts giving the same bits; the keep
+   bits of K7 and K8 equal the plain cell mask exactly (a permutation
+   graph); the small GAT through the dedup path, CUDA against CPU; then
+   three training runs of 20 timed steps, asserting their launches per
+   step (K7, K8 and their merges at each of (H, dvh) = (8, 8) and (1, 16),
+   the four folds, nothing else): the bench GAT, the same graph over a
+   zero counts budget, and GAT's default dropouts with
+   ``attn_drop_mode="cell"``; a torch.profiler trace of the step; the
+   kernels timed as in 4; and the attention device time per step of this
+   route beside the per-edge route's.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -75,6 +91,9 @@ ATTN_SOURCE = "pgl_tpu_torch/ops/kernels/csrc/attention_kernels.cu"
 ATTN_REPLACES = {"gat_fwd": "pgl_tpu/ops/pallas/attention_kernels.py:86",
                  "gat_dq": "pgl_tpu/ops/pallas/attention_kernels.py:288",
                  "gat_dkv": "pgl_tpu/ops/pallas/attention_kernels.py:403"}
+DATTN_SOURCE = "pgl_tpu_torch/ops/kernels/csrc/dedup_attention.cu"
+DATTN_REPLACES = {"dedup_fwd": "pgl_tpu/ops/pallas/dedup_attention.py:102",
+                  "dedup_bwd": "pgl_tpu/ops/pallas/dedup_attention.py:285"}
 # (heads, per-head width) of the GAT's two attention calls
 GAT_SHAPES = ((8, 8), (1, 16))
 STEPS, WARMUP = 20, 3
@@ -262,24 +281,25 @@ def headline_trainer(g):
     return model, step
 
 
-def reset_all_launches():
+def _kernel_modules():
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
     from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
-    sk.reset_launches()
-    dk.reset_launches()
-    ak.reset_launches()
+    return sk, dk, ak, da
+
+
+def reset_all_launches():
+    for module in _kernel_modules():
+        module.reset_launches()
 
 
 def all_launches():
     """Launch counts of every kernel module: K1's keyed ``(kind, D)``, the
-    dedup kernels' ``(kernel, kind, D)``, the attention kernels' ``(kernel,
-    H, dvh)``."""
-    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
-    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
-    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
-    return {**sk.LAUNCHES_BY_SHAPE, **dk.LAUNCHES_BY_SHAPE,
-            **ak.LAUNCHES_BY_SHAPE}
+    dedup kernels' ``(kernel, kind, D)``, the two attention modules'
+    ``(kernel, H, dvh)``."""
+    return {k: v for module in _kernel_modules()
+            for k, v in module.LAUNCHES_BY_SHAPE.items()}
 
 
 def phase_train(g, path="K1", per_step=None, trainer=None):
@@ -692,9 +712,10 @@ def phase_attention_mask(dev):
           flush=True)
 
 
-def phase_gat_small(dev):
+def phase_gat_small(dev, dedup=False):
     """The whole GAT on a small graph: CUDA kernels against the CPU's plain
-    versions with the same weights (logits and gradients)."""
+    versions with the same weights (logits and gradients); with ``dedup``,
+    through the count-matrix attention (the dedup band opened to it)."""
     import torch
     from pgl_tpu_torch.datasets import community_graph
     from pgl_tpu_torch.models import GAT
@@ -703,8 +724,10 @@ def phase_gat_small(dev):
     g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
                                 avg_degree=8, seed=5)
     results = {}
+    reset_all_launches()
     for d in ("cpu", dev):
-        gt = g.tensor(d)
+        with dispatch_settings(DEDUP=dedup, DEDUP_MIN_EDGES=0):
+            gt = g.tensor(d)
         model = GAT(16, 3, num_heads=8, hidden_size=8, feat_drop=0.0,
                     attn_drop=0.0, generator=torch.Generator().manual_seed(0),
                     device=d)
@@ -713,11 +736,18 @@ def phase_gat_small(dev):
         results[str(d)] = (logits.detach().cpu(),
                            {k: p.grad.cpu()
                             for k, p in model.named_parameters()})
+    kernel = "dedup_fwd" if dedup else "gat_fwd"
+    if not all_launches().get((kernel, 8, 8)):
+        raise AssertionError(f"small GAT did not launch {kernel}")
+    reset_all_launches()
+    path = "dedup" if dedup else "per-edge"
     (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(dev)]
-    err = check("small GAT logits", l_gpu, l_cpu)
+    err = check(f"small GAT {path} logits", l_gpu, l_cpu)
     for k in g_cpu:
-        err = max(err, check(f"small GAT grad {k}", g_gpu[k], g_cpu[k]))
-    print(f"[model] small GAT, CUDA vs CPU: max |err| {err:.3e}", flush=True)
+        err = max(err, check(f"small GAT {path} grad {k}", g_gpu[k],
+                             g_cpu[k]))
+    print(f"[model] small GAT through the {path} attention, CUDA vs CPU: "
+          f"max |err| {err:.3e}", flush=True)
 
 
 def gat_host():
@@ -727,11 +757,12 @@ def gat_host():
                           seed=1)
 
 
-def gat_trainer(g, defaults=False):
+def gat_trainer(g, defaults=False, mode="edge"):
     """The bench GAT (``defaults=False``: no dropout, evaluation mode as in
     the bench) or ``GAT`` with its default dropouts, training, on ``g``'s
-    device (weights from seed 0, labels from seed 1), and a function that
-    takes one Adam step and returns its loss."""
+    device (weights from seed 0, labels from seed 1), its two GATConvs in
+    attention dropout ``mode``, and a function that takes one Adam step and
+    returns its loss."""
     import torch
     from pgl_tpu_torch.models import GAT
     from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
@@ -743,6 +774,8 @@ def gat_trainer(g, defaults=False):
     model = GAT(input_size=128, num_class=16, num_heads=8, hidden_size=8,
                 generator=torch.Generator().manual_seed(0), device=x.device,
                 **drop)
+    for layer in (model.gat_0, model.gat_1):
+        layer.attn_drop_mode = mode
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
 
     def step():
@@ -848,11 +881,13 @@ def phase_attention_timing(g, dev, runs, errs):
     return rows
 
 
-def phase_gat_profile(g):
+def phase_gat_profile(g, tag="GAT"):
     """Where a bench GAT step's device time goes: 20 steps back to back
     (one synchronize at the end), then 10 under torch.profiler; prints the
-    device time per step by kernel (attention kernels by name, the rest by
-    sum), and the idle share 1 - busy / back-to-back step time."""
+    device time per step by kernel (attention kernels by name, with K1's
+    folds on the dedup route; the rest by sum), the idle share 1 - busy /
+    back-to-back step time, and the host's own time per step (all and the
+    eight largest operators)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -872,24 +907,28 @@ def phase_gat_profile(g):
             step()
         torch.cuda.synchronize()
     # device spans of annotations (Optimizer.step#...) overlap kernels
-    by_name = {}
+    by_name, host = {}, {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and not e.key.startswith("Optimizer."):
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            host[e.key] = e.self_cpu_time_total / 1e3 / n
+        elif not e.key.startswith("Optimizer."):
             name = e.key.replace("void (anonymous namespace)::",
                                  "").split("(")[0]
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
             by_name[name] = by_name.get(name, 0.0) + us / 1e3 / n
-    attn = {k: v for k, v in by_name.items() if k.startswith(("gat_", "sum_"))}
+    attn = {k: v for k, v in by_name.items()
+            if k.startswith(("gat_", "sum_", "dedup_attn", "spmm_"))}
     busy = sum(by_name.values())
     profile_line = {
         "chained_ms_per_step": chained_ms, "device_busy_ms_per_step": busy,
         "attention_ms_per_step": sum(attn.values()),
         "other_ms_per_step": busy - sum(attn.values()),
-        "idle_share": 1 - busy / chained_ms, "attention_kernels_ms": attn}
-    print(f"[profile] GAT step: {json.dumps(profile_line)}", flush=True)
+        "idle_share": 1 - busy / chained_ms, "attention_kernels_ms": attn,
+        "host_ms_per_step": sum(host.values()),
+        "host_top_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:8])}
+    print(f"[profile] {tag} step: {json.dumps(profile_line)}", flush=True)
     return profile_line
 
 
@@ -942,6 +981,362 @@ def phase_gat(dev):
         "GAT_defaults": dict(train_d, attention_ms_per_step=attn[0.6])}
 
 
+def dedup_attention_of(g, dev, counts=True):
+    """K7/K8's work lists of ``g``'s CSC dedup layout (built with no gate),
+    with K4's counts or without."""
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    idx = g.adj_dst_index.numpy()
+    lay = dk.build_dedup_layout(idx.indptr, idx.sorted_v, g.num_nodes,
+                                device=dev)
+    return da.build_dedup_attention(
+        dk.materialize_counts(lay) if counts else lay, g.num_nodes)
+
+
+def without_counts(att):
+    """``att`` rebuilt from its layout with the counts dropped."""
+    import dataclasses
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+    return da.build_dedup_attention(
+        dataclasses.replace(att.layout, counts=None), att.num_rows)
+
+
+def run_dedup_attention(att, ins, rate, seed):
+    """K7, K8 and K1's two folds of K8's slot rows on float32 ``ins``:
+    ``(out, lse, d a_dst, d a_src slots, dv slots, d a_src, dv)``."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    a_dst, a_src, v, g = ins
+    H = a_dst.shape[1]
+    dvh = v.shape[1] // H
+    with torch.no_grad():
+        out, lse = da._fwd_cuda(a_dst, a_src, v, att, 0.2, dvh, rate, seed)
+        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+        bwd = da._bwd_cuda(a_dst, a_src, v, g, lse, delta, att, 0.2, dvh,
+                           rate, seed)
+        return (out, lse) + bwd + (sk._spmm_cuda(bwd[1], att.red),
+                                   sk._spmm_cuda(bwd[2], att.red))
+
+
+def check_dedup_attention(tag, att, ins, rate, seed, got):
+    """``got`` of :func:`run_dedup_attention` against the plain versions in
+    float64 on the same inputs (the folds by ``check_spmm``); returns the
+    max |err| of K7, K8 and the folds."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+    out, lse, da_dst, dsrc, dv, fold_src, fold_v = got
+    a_dst, a_src, v, g = ins
+    H = a_dst.shape[1]
+    dvh = v.shape[1] // H
+    name = f"{tag} H={H} dvh={dvh} rate={rate}"
+    with torch.no_grad():
+        d64 = [t.double() for t in ins]
+        out_p, lse_p = da.dedup_attention_reference(*d64[:3], att.layout,
+                                                    0.2, dvh, rate, seed)
+        delta = (d64[3].reshape(-1, H, dvh)
+                 * out.double().reshape(-1, H, dvh)).sum(-1)
+        dq_p, dsrc_p, dv_p = da.dedup_bwd_reference(
+            *d64, lse.double(), delta, att.layout, 0.2, dvh, rate, seed)
+        return {"dedup_fwd": max(check(f"{name} K7 out", out, out_p),
+                                 check(f"{name} K7 lse", lse, lse_p)),
+                "dedup_bwd": max(check(f"{name} K8 d a_dst", da_dst, dq_p),
+                                 check(f"{name} K8 d a_src slots", dsrc,
+                                       dsrc_p),
+                                 check(f"{name} K8 dv slots", dv, dv_p)),
+                "uniq_reduce": max(check_spmm(f"{name} fold d a_src",
+                                              fold_src, dsrc, att.red),
+                                   check_spmm(f"{name} fold dv", fold_v, dv,
+                                              att.red))}
+
+
+def phase_dedup_attention_kernels(g_gat, dev):
+    """K7, K8 and the folds against their float64 plain versions at rates 0
+    and 0.6 (seed drawn per case), on the small graph at several head
+    shapes and on the bench GAT graph at the GAT's; a second run and a
+    layout without counts give the same bits. Returns the max |err| per
+    (kernel, H, dvh) on the bench graph."""
+    import torch
+    from pgl_tpu_torch import Graph
+
+    small = Graph(attention_graph(3000, 40000, seed=1), num_nodes=3000
+                  ).tensor(dev)
+    atts = {"small": dedup_attention_of(small, dev),
+            "headline": g_gat._dedup_attn_aux()}
+    if not (atts["small"].num_partials and atts["headline"].num_partials):
+        raise AssertionError("both graphs must split rows into pieces")
+    bare = {tag: without_counts(att) for tag, att in atts.items()}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    errs = {}
+    cases = [("small", hd) for hd in ((8, 8), (1, 16), (4, 32), (3, 3),
+                                      (2, 64), (42, 1), (43, 2))]
+    cases += [("headline", hd) for hd in GAT_SHAPES]
+    for tag, (H, dvh) in cases:
+        att = atts[tag]
+        ins = attention_inputs(att.num_rows, H, dvh, dev, gen)
+        for rate in (0.0, 0.6):
+            seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                                 generator=gen, device=dev)
+            got = run_dedup_attention(att, ins, rate, seed)
+            for what, other in (("a second run", att),
+                                ("the layout without counts", bare[tag])):
+                if not all(map(torch.equal, got, run_dedup_attention(
+                        other, ins, rate, seed))):
+                    raise AssertionError(f"{tag} H={H} dvh={dvh} rate="
+                                         f"{rate}: {what} differs")
+            e = check_dedup_attention(tag, att, ins, rate, seed, got)
+            if tag == "headline":
+                for k, v in e.items():
+                    errs[k, H, dvh] = max(errs.get((k, H, dvh), 0.0), v)
+            print(f"[dedup attention] {tag} N={att.num_rows} E="
+                  f"{att.layout.num_edges} cells={att.num_cells} H={H} "
+                  f"dvh={dvh} rate={rate}: max |err| K7 "
+                  f"{e['dedup_fwd']:.3e} K8 {e['dedup_bwd']:.3e} folds "
+                  f"{e['uniq_reduce']:.3e}; same bits on a second run and "
+                  "without counts", flush=True)
+    reset_all_launches()
+    return errs
+
+
+def phase_dedup_attention_mask(dev, n=1 << 20):
+    """The keep bits of K7 and K8 equal the plain cell mask exactly: on a
+    permutation graph every row has one cell and every nonempty slot one,
+    so with a_dst = a_src = 0, v = g = 1 and dvh = 1, K7's out and K8's dv
+    slot rows are 1 / (1 - rate) where the cell is kept and 0 where it is
+    dropped, and every other slot row is 0."""
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+
+    H, rate = 42, 0.6
+    rng = np.random.default_rng(9)
+    g = Graph(np.stack([rng.permutation(n), np.arange(n)], axis=1),
+              num_nodes=n).tensor(dev)
+    att = dedup_attention_of(g, dev, counts=False)
+    lay = att.layout
+    if not lay.simple:
+        raise AssertionError("a permutation graph is simple")
+    dst, urow, slot = da._edge_slots(lay)
+    key = da.cell_idx(dst, urow)
+    zeros = torch.zeros(n, H, device=dev)
+    ones = torch.ones(n, H, device=dev)
+    for seed_v in (-1640531535, 12345):
+        seed = torch.tensor([seed_v], dtype=torch.int32, device=dev)
+        want = torch.stack([ak.drop_keep(key, seed, h, rate)
+                            for h in range(H)], dim=1)
+        with torch.no_grad():
+            out, lse = da._fwd_cuda(zeros, zeros, ones, att, 0.2, 1, rate,
+                                    seed)
+            _, _, dv = da._bwd_cuda(zeros, zeros, ones, ones, lse, out, att,
+                                    0.2, 1, rate, seed)
+        for name, got in (("K7", out[dst] != 0), ("K8", dv[slot] != 0)):
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{name} keep bits differ from the plain mask in "
+                    f"{int((got != want).sum())} of {want.numel()}")
+        if int((dv != 0).sum()) != int(want.sum()):
+            raise AssertionError("K8 wrote to a slot row without cells")
+    reset_all_launches()
+    print(f"[dedup attention] keep bits of K7 and K8 equal the plain cell "
+          f"mask over {n} cells x {H} heads, 2 seeds, rate {rate}",
+          flush=True)
+
+
+def dedup_gat_per_step(g):
+    """Launches per GAT step on the dedup route: K7 and K8 once at each
+    shape (with their second launches where rows split), and K1 over
+    ``red`` at D = H and D = H·dvh."""
+    att = g._dedup_attn_aux()
+    per = {}
+    for H, dvh in GAT_SHAPES:
+        for kernel in ("dedup_fwd", "dedup_bwd"):
+            per[kernel, H, dvh] = 1
+            if att.num_partials:
+                per[f"{kernel}_combine", H, dvh] = 1
+        for d in (H, H * dvh):
+            per["uniq_reduce", d] = 1
+    return per
+
+
+def phase_dedup_attention_timing(g, dev, runs, errs):
+    """Rows at the GAT's shapes on the dedup route: K7 and K8 (each
+    wrapper's launches, merges included) at rate 0 and 0.6, and K1 over
+    ``red`` at D = H and H·dvh, beside the plain versions, the bound and,
+    for K1, ``torch.sparse.mm``. ``runs`` maps a rate to the launches of its
+    training run."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+
+    att = g._dedup_attn_aux()
+    lay, red = att.layout, att.red
+    N, n, S = g.num_nodes, att.num_cells, att.num_slots
+    n_pieces = int(att.pieces.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+    A = torch.sparse_csr_tensor(red.indptr, red.indices,
+                                torch.ones(S, device=dev), size=(N, S))
+    shape = {"rows": N, "edges": lay.num_edges, "cells": n,
+             "pieces": n_pieces, "split_rows": int(att.split_rows.shape[0]),
+             "pairs": lay.num_pairs, "slots": S}
+    rows = []
+
+    def row(name, kernel, source, replaces, launches, err, ms, plain_ms,
+            t_bytes, t_ops, lib_ms, **extra):
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "share": bound_ms / ms,
+            "shape": dict(shape, kernel=kernel, **extra)})
+        print(f"[timing] {name}: kernel {ms:.5f} ms ({launches} launches in "
+              f"its run), plain {plain_ms:.5f} ms, "
+              + (f"torch.sparse.mm {lib_ms:.5f} ms, " if lib_ms else "")
+              + f"bound {bound_ms:.5f} ms ({rows[-1]['bound_by']}; "
+              f"{bound_ms / ms:.3f} of it)", flush=True)
+
+    for H, dvh in GAT_SHAPES:
+        C = H * dvh
+        a_dst, a_src, v, g_out = attention_inputs(N, H, dvh, dev, gen)
+        for rate, launches in runs.items():
+            drop = rate > 0
+            with torch.no_grad():
+                out, lse = da._fwd_cuda(a_dst, a_src, v, att, 0.2, dvh,
+                                        rate, seed)
+                delta = (g_out.reshape(N, H, dvh)
+                         * out.reshape(N, H, dvh)).sum(-1)
+                bwd = (a_dst, a_src, v, g_out, lse, delta)
+                fwd_ms = time_ms(lambda: da._fwd_cuda(
+                    a_dst, a_src, v, att, 0.2, dvh, rate, seed), 50)
+                fwd_plain = time_ms(lambda: da.dedup_attention_reference(
+                    a_dst, a_src, v, lay, 0.2, dvh, rate, seed), 3)
+                bwd_ms = time_ms(lambda: da._bwd_cuda(
+                    *bwd, att, 0.2, dvh, rate, seed), 50)
+                bwd_plain = time_ms(lambda: da.dedup_bwd_reference(
+                    *bwd, lay, 0.2, dvh, rate, seed), 3)
+            suffix = f"_drop{rate:g}" if rate else ""
+            # bytes: each input read once (the node tables; 3 ints a cell
+            # and 4 a piece in row order; K8 also 2 ints a cell, the slot
+            # pointers, pairs and uv in column order), each output written
+            # once (out and lse; d a_dst and the slot rows)
+            row_ints = 3 * n + 4 * n_pieces
+            fwd_bytes = 4 * (N * (2 * H + C) + row_ints + N * (C + H))
+            bwd_bytes = 4 * (N * (4 * H + 2 * C) + row_ints + 2 * n + S + 1
+                             + 4 * lay.num_pairs + lay.uv.numel()
+                             + N * H + S * (H + C))
+            # operations a cell and head: add, leaky, max, 2 exp, 2 scale,
+            # count multiply (K8: clamp, leaky slope, 2 multiply-adds, each
+            # pass), the hash (8 integer ops); a cell and column: 2 (K7's
+            # fma), 2 and 4 in K8's passes (g.v, dv)
+            per_head = 8 + 8 * drop
+            fwd_ops = n * (H * per_head + 2 * C)
+            bwd_ops = n * (2 * H * (per_head + 2) + 6 * C)
+            for kernel, ms, plain_ms, nbytes, ops in (
+                    ("dedup_fwd", fwd_ms, fwd_plain, fwd_bytes, fwd_ops),
+                    ("dedup_bwd", bwd_ms, bwd_plain, bwd_bytes, bwd_ops)):
+                row(f"{kernel}_h{H}_d{dvh}{suffix}", kernel, DATTN_SOURCE,
+                    DATTN_REPLACES[kernel],
+                    launches.get((kernel, H, dvh), 0), errs[kernel, H, dvh],
+                    ms, plain_ms, nbytes / HBM_BYTES_PER_S,
+                    ops / F32_OPS_PER_S, None, H=H, dvh=dvh, rate=rate)
+        for d in (H, C):
+            x = torch.randn(S, d, device=dev, generator=gen)
+            out = torch.empty(N, d, device=dev)
+            part = torch.empty(red.num_partials, d, device=dev)
+            ms = time_ms(lambda: sk._launch(x, red, out, part), 50)
+            plain_ms = time_ms(lambda: sk.spmm_reference(x, red), 10)
+            lib_ms = time_ms(lambda: torch.sparse.mm(A, x), 50)
+            with torch.no_grad():
+                err = check_spmm(f"timed uniq_reduce D={d}", out, x, red)
+            nbytes = 4 * (S * d + S + N + 1 + N * d)
+            row(f"spmm_uniq_reduce_d{d}", "uniq_reduce", SOURCE, REPLACES,
+                runs[0.0].get(("uniq_reduce", d), 0), err, ms, plain_ms,
+                nbytes / HBM_BYTES_PER_S, S * d / F32_OPS_PER_S, lib_ms, D=d)
+    reset_all_launches()
+    return rows
+
+
+def phase_dedup_gat(dev, edge_route_ms):
+    """The dedup GAT path (count-matrix attention): kernel checks, the
+    small model, three training runs on the bench GAT graph, its profile
+    and the kernels' times. ``edge_route_ms`` is the per-edge route's
+    attention device time per step (rate 0) from ``phase_gat``. Returns
+    (rows, the step line's entries)."""
+    import torch
+
+    host = gat_host()
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with dispatch_settings(DEDUP=True):
+        g = host.tensor()
+    torch.cuda.synchronize()
+    t_tensor = time.perf_counter() - t0
+    k4 = {k: v for k, v in all_launches().items() if v}
+    if k4 != {("counts", "csc", None): 1, ("counts", "csr", None): 1}:
+        raise AssertionError(f"tensor() launched {k4}, expected K4 once "
+                             "per layout")
+    if g._dedup_attn is not None or g._attn_layouts is not None:
+        raise AssertionError("tensor() built attention work lists")
+    t0 = time.perf_counter()
+    att = g._dedup_attn_aux()
+    torch.cuda.synchronize()
+    t_att = time.perf_counter() - t0
+    csc_d, csr_d = g._dedup_layouts
+    print(f"[graph] GAT under DEDUP: tensor() {t_tensor:.3f} s (generator, "
+          f"layouts and K4 included); K7/K8 work lists and red {t_att:.3f} "
+          f"s on the host. CSC {csc_d.num_pairs} pairs, "
+          f"{csc_d.groups.shape[0]} groups, {csc_d.num_partials} partials in "
+          f"{csc_d.split_blocks.shape[0]} split blocks, simple "
+          f"{csc_d.simple}, max count {csc_d.max_count}, counts "
+          f"{csc_d.counts_bytes / 1e6:.1f} MB, uv {csc_d.uv.numel()} rows; "
+          f"CSR {csr_d.num_pairs} pairs, counts "
+          f"{csr_d.counts_bytes / 1e6:.1f} MB; {att.num_cells} nonzero "
+          f"cells, {att.pieces.shape[0]} pieces, {att.split_rows.shape[0]} "
+          f"split rows, {att.num_slots} slots", flush=True)
+    errs = phase_dedup_attention_kernels(g, dev)
+    phase_dedup_attention_mask(dev)
+    phase_gat_small(dev, dedup=True)
+    per = dedup_gat_per_step(g)
+    train, by0 = phase_train(g, "GAT dedup", per, gat_trainer)
+    reset_all_launches()
+    with dispatch_settings(DEDUP=True, COUNTS_BUDGET_BYTES=0):
+        g_bare = host.tensor()
+    if any(all_launches().values()) or g_bare._dedup_layouts[0].counts \
+            is not None:
+        raise AssertionError("tensor() over the counts budget made counts")
+    train_bare, _ = phase_train(g_bare, "GAT dedup uncached",
+                                dedup_gat_per_step(g_bare), gat_trainer)
+    del g_bare
+    train_cell, by6 = phase_train(
+        g, "GAT defaults cell", per,
+        lambda g: gat_trainer(g, defaults=True, mode="cell"))
+    prof = phase_gat_profile(g, "GAT dedup")
+    rows = phase_dedup_attention_timing(g, dev, {0.0: by0, 0.6: by6}, errs)
+    # K7 and K8 once a step at each shape, and the four folds
+    folds_ms = sum(r["ms"] for r in rows
+                   if r["shape"]["kernel"] == "uniq_reduce")
+    attn = {rate: folds_ms + sum(r["ms"] for r in rows
+                                 if r["shape"].get("rate") == rate)
+            for rate in (0.0, 0.6)}
+    lower = "dedup" if attn[0.0] < edge_route_ms else "per-edge"
+    print(f"[default] attention device ms per bench GAT step: dedup route "
+          f"(K7, K8, folds) {attn[0.0]:.5f}, per-edge route (K9, K10) "
+          f"{edge_route_ms:.5f}; lower: {lower}; dedup route at rate 0.6 "
+          f"(cell mode) {attn[0.6]:.5f}", flush=True)
+    return rows, {
+        "GAT_dedup": dict(train, attention_ms_per_step=attn[0.0],
+                          tensor_s=t_tensor, work_lists_s=t_att,
+                          profile=prof),
+        "GAT_dedup_uncached": train_bare,
+        "GAT_defaults_cell": dict(train_cell,
+                                  attention_ms_per_step=attn[0.6]),
+        "attention_route_lower": lower}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -960,7 +1355,7 @@ def main():
 
     t0 = time.perf_counter()
     libs = _build.build("segment_kernels", "dedup_kernels",
-                        "attention_kernels")
+                        "attention_kernels", "dedup_attention")
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
     for path in libs.values():
         print(path.with_suffix(".log").read_text().strip(), flush=True)
@@ -1028,6 +1423,10 @@ def main():
     torch.cuda.empty_cache()
     gat_rows, gat_steps = phase_gat(dev)
     rows += gat_rows
+    torch.cuda.empty_cache()
+    dedup_rows, dedup_steps = phase_dedup_gat(
+        dev, gat_steps["GAT"]["attention_ms_per_step"])
+    rows += dedup_rows
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -1035,7 +1434,7 @@ def main():
         "dedup_uncached": dict(train_6,
                                spmm_ms_per_step=spmm["dedup_uncached"],
                                tensor_s=t_6),
-        **gat_steps, "device": smi}}), flush=True)
+        **gat_steps, **dedup_steps, "device": smi}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,9 +13,11 @@ rule of ``pgl_tpu/graph.py:580-637``, with the gates of
 otherwise: the CUDA kernels for CUDA tensors, their plain versions for CPU
 tensors. Max and min run plain segment ops, as the reference does.
 
-The attention layouts of ``ops/kernels/attention_kernels.py`` are built on
-the first attention call, from the host indexes, and kept on the device
-graph: ``tensor()`` alone does not build them.
+The attention layouts of ``ops/kernels/attention_kernels.py`` (K9/K10) and
+the count-matrix attention's work lists of ``ops/kernels/dedup_attention.py``
+(K7/K8, with the fold ``red``) are built on the first attention call that
+needs them and kept on the device graph: ``tensor()`` alone does not build
+them.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .ops import message_passing as mp
 from .ops import segment as S
 from .ops.kernels import dedup_kernels as dk
 from .ops.kernels.attention_kernels import build_attention_layouts
+from .ops.kernels.dedup_attention import build_dedup_attention
 from .ops.kernels.segment_kernels import build_spmm_layout, spmm
 from .utils.edge_index import EdgeIndex
 
@@ -74,6 +77,7 @@ class Graph:
         self._spmm_layouts = kwargs.get("_spmm_layouts", None)
         self._dedup_layouts = kwargs.get("_dedup_layouts", None)
         self._attn_layouts = None
+        self._dedup_attn = None
 
     # -- basic accessors ----------------------------------------------------
 
@@ -179,6 +183,19 @@ class Graph:
                 self.adj_dst_index.numpy(), self.adj_src_index.numpy(),
                 self._num_nodes, device=self._edges.device)
         return self._attn_layouts
+
+    def _dedup_attn_aux(self):
+        """The count-matrix attention's view of the CSC dedup layout (K7/K8's
+        cell lists and ``red``, the fold of K8's slot rows), built from the
+        layout on the first call and kept on this device graph; None when
+        the graph has no dedup layouts."""
+        self._require_tensor()
+        if self._dedup_layouts is None:
+            return None
+        if self._dedup_attn is None:
+            self._dedup_attn = build_dedup_attention(self._dedup_layouts[0],
+                                                     self._num_nodes)
+        return self._dedup_attn
 
     # -- conversion ---------------------------------------------------------
 

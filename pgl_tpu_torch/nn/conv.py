@@ -17,6 +17,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..ops.kernels.attention_kernels import fused_gat_attention
+from ..ops.kernels.dedup_attention import dedup_gat_attention
 from .functional import graph_op as GF
 
 __all__ = ["GCNConv", "GATConv", "lecun_normal_"]
@@ -97,18 +98,24 @@ class GCNConv(nn.Module):
 
 class GATConv(nn.Module):
     """GAT: additive attention, edge softmax and weighted aggregation in
-    one fused call (``pgl_tpu/nn/conv.py:134-274``), through the per-edge
-    kernels K9/K10 (``ops/kernels/attention_kernels.py``).
+    one fused call (``pgl_tpu/nn/conv.py:134-274``), on the reference's
+    route: on a graph that carries dedup layouts, the count-matrix kernels
+    K7/K8 (``ops/kernels/dedup_attention.py``), unless it is a multigraph
+    under edge-mode dropout; otherwise the per-edge kernels K9/K10
+    (``ops/kernels/attention_kernels.py``).
 
     Dropout draws from the layer's own generator on its device
     (``self.generator``, seeded from ``generator`` at construction): the
     feature mask, and on each training forward one int32 seed for the
     attention's hash dropout (the counterpart of ``_attn_drop_seed``).
+    ``attn_drop_mode="cell"`` keeps a multigraph under dropout on K7/K8,
+    whose mask drops a cell's duplicate edges together (the same
+    expectation as edge dropout).
 
-    The reference takes its count-matrix kernels (K7/K8) on a graph that
-    carries dedup layouts, unless it is a multigraph under edge-mode
-    dropout; those kernels are not ported yet, so that case raises here, as
-    does ``3·H > 128`` (the reference's dot-mode fallback).
+    Where the reference leaves its fused kernels, this layer raises
+    ``NotImplementedError``: training with attention dropout at ``3·H >
+    128`` (its unfused ``send_uv`` path), and ``3·H > 128`` off the
+    count-matrix route (its dot-mode kernels); neither is ported yet.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
@@ -143,24 +150,29 @@ class GATConv(nn.Module):
         self.to(device)
 
     def _route(self, graph, rate: float):
-        """Raise where the reference would not run the per-edge kernels."""
+        """The count-matrix attention's work lists where the reference takes
+        K7/K8 (``pgl_tpu/nn/conv.py:202-240``), None where it takes K9/K10;
+        raises where it leaves the fused kernels."""
         H = self.num_heads
+        if rate > 1e-15 and 3 * H > 128:
+            raise NotImplementedError(
+                f"GATConv with {H} heads trains with attention dropout on "
+                "the reference's unfused path (send_uv, send_ue_recv; 3·H > "
+                "128), which is not ported yet")
+        dedup = graph._dedup_layouts
+        if dedup is not None and not (rate > 0.0 and not dedup[0].simple
+                                      and self.attn_drop_mode != "cell"):
+            return graph._dedup_attn_aux()
         if 3 * H > 128:
             raise NotImplementedError(
                 f"GATConv with {H} heads takes the reference's dot-mode "
                 "attention (3·H > 128), which is not ported yet")
-        dedup = graph._dedup_layouts
-        if dedup is not None and not (rate > 0.0 and not dedup[0].simple
-                                      and self.attn_drop_mode != "cell"):
-            raise NotImplementedError(
-                "on a graph with dedup layouts the reference runs its "
-                "count-matrix attention (K7/K8), which is not ported yet; "
-                "build the graph with dispatch.DEDUP off")
+        return None
 
     def forward(self, graph, feature, training: bool = False):
         H, Dh = self.num_heads, self.hidden_size
         rate = float(self.attn_drop) if training else 0.0
-        self._route(graph, rate)
+        dedup = self._route(graph, rate)
         if training and self.feat_drop > 1e-15:
             feature = _dropout(feature, self.feat_drop, self.generator)
         feature = self.linear(feature)
@@ -172,9 +184,14 @@ class GATConv(nn.Module):
             seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
                                  generator=self.generator,
                                  device=self.generator.device)
-        out = fused_gat_attention(attn_dst, attn_src, feature,
-                                  *graph._attention_layouts(), 0.2, dvh=Dh,
-                                  attn_drop=rate, drop_seed=seed)
+        if dedup is not None:
+            out = dedup_gat_attention(attn_dst, attn_src, feature, dedup,
+                                      0.2, dvh=Dh, attn_drop=rate,
+                                      drop_seed=seed)
+        else:
+            out = fused_gat_attention(attn_dst, attn_src, feature,
+                                      *graph._attention_layouts(), 0.2,
+                                      dvh=Dh, attn_drop=rate, drop_seed=seed)
         output = out.reshape(-1, H, Dh)
         if self.concat:
             output = output.reshape(-1, H * Dh)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled into
 ``build/lib<name>-<hash>.so`` on first use, where the hash covers the
-source and the flags, so an edited source is rebuilt. The library is
+source, the headers of ``csrc/`` and the flags, so an edited source or
+header is rebuilt. The library is
 loaded with ctypes; no PyTorch headers are compiled. A failed build raises
 with the compiler's output. ``nvcc``'s own report (``-Xptxas -v``:
 registers, shared memory, spills per kernel) is kept beside the library as
@@ -44,8 +45,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    # the headers are shared, so each of them is part of every source
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -20,8 +20,9 @@ note gives the design.
   draw the same mask.
 * :func:`gat_attention_reference`, :func:`gat_dq_reference` and
   :func:`gat_dkv_reference` are the plain PyTorch versions, in edge space
-  with ``index_add_``. CPU tensors run them; CUDA tensors launch the kernels
-  or raise.
+  with ``index_add_``, over :func:`plain_attention` and :func:`edge_grads`
+  (which the count-matrix attention's plain versions share). CPU tensors
+  run them; CUDA tensors launch the kernels or raise.
 * :func:`drop_keep` and :func:`apply_hash_dropout` are the reference's
   counter-hash dropout (``_drop_keep`` and ``_apply_hash_dropout``) in torch
   integer arithmetic, bit for bit.
@@ -49,7 +50,8 @@ from . import _build
 from .segment_kernels import cut_rows
 
 __all__ = ["AttentionLayout", "build_attention_layouts", "drop_keep",
-           "apply_hash_dropout", "gat_attention_reference",
+           "apply_hash_dropout", "plain_attention", "edge_grads",
+           "gat_attention_reference",
            "gat_dq_reference", "gat_dkv_reference", "fused_gat_attention",
            "ET", "MAX_SLOTS", "LAUNCHES_BY_SHAPE", "reset_launches"]
 
@@ -188,16 +190,13 @@ def _ends(layout):
     return (rows, other) if layout.kind == "csc" else (other, rows)
 
 
-def gat_attention_reference(a_dst, a_src, v, layout: AttentionLayout,
-                            leaky_slope: float = 0.2, dvh=None,
-                            attn_drop: float = 0.0, seed=None):
-    """The plain forward: ``(out [N, H·dvh], lse [N, H])`` over the CSC
-    ``layout`` (``_xla_additive_reference``, ``:699-721``, with the hash
-    dropout, plus the log-sum-exp of each row's scores; an empty row gives
-    zeros in both)."""
+def plain_attention(a_dst, a_src, v, dst, src, keys, leaky_slope, dvh,
+                    attn_drop, seed):
+    """``(out [N, H·dvh], lse [N, H])`` over the edges ``src[e] -> dst[e]``
+    (int64), with the hash dropout keyed by ``keys[e]``: the plain forward
+    of the per-edge (K9) and the count-matrix (K7) attention. An empty row
+    gives zeros in both."""
     N, H = a_dst.shape
-    dvh = dvh or v.shape[1] // H
-    dst, src = _ends(layout)
     E = dst.shape[0]
     s = _leaky(a_dst[dst] + a_src[src], leaky_slope)            # [E, H]
     p = segment_softmax(s, dst, N)
@@ -205,28 +204,41 @@ def gat_attention_reference(a_dst, a_src, v, layout: AttentionLayout,
     total = segment_sum(torch.exp(s - m[dst]), dst, N)
     lse = torch.where(total > 0, m + torch.log(total), torch.zeros_like(m))
     if attn_drop:
-        p = apply_hash_dropout(p, attn_drop, seed, layout.positions())
+        p = apply_hash_dropout(p, attn_drop, seed, keys)
     msg = v[src, :H * dvh].reshape(E, H, dvh) * p[..., None]
     return segment_sum(msg.reshape(E, H * dvh), dst, N), lse
 
 
-def _edge_grads(a_dst, a_src, v, g, lse, delta, layout, leaky_slope, dvh,
-                attn_drop, seed):
-    """Per edge of ``layout``: (dst, src, q, ds), with q the dropped
-    probability and ds the score's cotangent (``:367-386``)."""
+def gat_attention_reference(a_dst, a_src, v, layout: AttentionLayout,
+                            leaky_slope: float = 0.2, dvh=None,
+                            attn_drop: float = 0.0, seed=None):
+    """The plain forward: ``(out [N, H·dvh], lse [N, H])`` over the CSC
+    ``layout`` (``_xla_additive_reference``, ``:699-721``, with the hash
+    dropout, plus the log-sum-exp of each row's scores; an empty row gives
+    zeros in both)."""
+    return plain_attention(a_dst, a_src, v, *_ends(layout),
+                           layout.positions(), leaky_slope,
+                           dvh or v.shape[1] // a_dst.shape[1], attn_drop,
+                           seed)
+
+
+def edge_grads(a_dst, a_src, v, g, lse, delta, dst, src, keys, leaky_slope,
+               dvh, attn_drop, seed):
+    """Per edge ``src[e] -> dst[e]`` (int64) with dropout key ``keys[e]``:
+    ``(q, ds, g_e)``, with q the dropped probability, ds the score's
+    cotangent (``:367-386``) and g_e the destination's cotangent row
+    [E, H, dvh]."""
     H = a_dst.shape[1]
-    dst, src = _ends(layout)
     E = dst.shape[0]
     s_raw = a_dst[dst] + a_src[src]
     p = torch.exp(_leaky(s_raw, leaky_slope) - lse[dst])
-    q = (apply_hash_dropout(p, attn_drop, seed, layout.positions())
-         if attn_drop else p)
+    q = apply_hash_dropout(p, attn_drop, seed, keys) if attn_drop else p
     g_e = g[dst].reshape(E, H, dvh)
     gv = (g_e * v[src].reshape(E, H, dvh)).sum(-1)
     ds = q * gv - p * delta[dst]
     if leaky_slope:
         ds = torch.where(s_raw >= 0, ds, ds * leaky_slope)
-    return dst, src, q, ds, g_e
+    return q, ds, g_e
 
 
 def gat_dq_reference(a_dst, a_src, v, g, lse, delta,
@@ -234,9 +246,10 @@ def gat_dq_reference(a_dst, a_src, v, g, lse, delta,
                      dvh=None, attn_drop: float = 0.0, seed=None):
     """The plain K10-dq: ``d a_dst [N, H]`` over the CSC ``layout``."""
     N, H = a_dst.shape
-    dst, _, _, ds, _ = _edge_grads(a_dst, a_src, v, g, lse, delta, layout,
-                                   leaky_slope, dvh or v.shape[1] // H,
-                                   attn_drop, seed)
+    dst, src = _ends(layout)
+    _, ds, _ = edge_grads(a_dst, a_src, v, g, lse, delta, dst, src,
+                          layout.positions(), leaky_slope,
+                          dvh or v.shape[1] // H, attn_drop, seed)
     return ds.new_zeros(N, H).index_add_(0, dst, ds)
 
 
@@ -247,8 +260,10 @@ def gat_dkv_reference(a_dst, a_src, v, g, lse, delta,
     ``layout``, whose ``eidx`` gives the dropout hash its CSC positions."""
     N, H = a_src.shape
     dvh = dvh or v.shape[1] // H
-    _, src, q, ds, g_e = _edge_grads(a_dst, a_src, v, g, lse, delta, layout,
-                                     leaky_slope, dvh, attn_drop, seed)
+    dst, src = _ends(layout)
+    q, ds, g_e = edge_grads(a_dst, a_src, v, g, lse, delta, dst, src,
+                            layout.positions(), leaky_slope, dvh, attn_drop,
+                            seed)
     dv = (q[..., None] * g_e).reshape(-1, H * dvh)
     return (ds.new_zeros(N, H).index_add_(0, src, ds),
             dv.new_zeros(N, H * dvh).index_add_(0, src, dv))

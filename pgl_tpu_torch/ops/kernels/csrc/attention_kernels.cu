@@ -40,89 +40,9 @@
 // allocates nothing (the caller passes outputs and partials), and returns
 // cudaGetLastError(). `thresh` < 0 turns dropout off.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "attention_common.cuh"
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;              // warps per block
-constexpr float kMaskValue = -1e30f;   // the reference's running-max start
-
-__device__ __forceinline__ bool drop_keep(uint32_t idx, uint32_t seed,
-                                          uint32_t hc, int thresh) {
-  uint32_t x = idx ^ (seed + hc);
-  x *= 0x9E3779B1u;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  return static_cast<int>(x & 0x7FFFFFFFu) < thresh;
-}
-
-// slope 0 means no leaky relu at all (the reference's `if leaky_slope`)
-__device__ __forceinline__ float leaky(float s, float slope) {
-  return (slope != 0.f && !(s >= 0.f)) ? s * slope : s;
-}
-
-__device__ __forceinline__ float leaky_grad(float s, float slope) {
-  return (slope != 0.f && !(s >= 0.f)) ? slope : 1.f;
-}
-
-// The slots of one lane: head (clamped to H - 1 on the padding past the
-// last head), column (-1 on padding), the head's hash constant, and whether
-// the lane is its head's first (it writes per-head values).
-template <int NC>
-struct Slots {
-  int head[NC];
-  int col[NC];
-  uint32_t hc[NC];
-  bool lead[NC];
-
-  __device__ __forceinline__ Slots(int lane, int H, int dvh, int dvh_p) {
-#pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      const int j = lane + 32 * k;
-      const int h = j / dvh_p;
-      const int w = j - h * dvh_p;
-      const bool ok = h < H && w < dvh;
-      head[k] = min(h, H - 1);
-      col[k] = ok ? h * dvh + w : -1;
-      hc[k] = static_cast<uint32_t>(head[k]) * 0x632BE5ABu;
-      lead[k] = ok && w == 0;
-    }
-  }
-};
-
-// x[k] <- sum of x over the slots of k's head (every lane of the warp
-// must call it; dvh_p is uniform).
-template <int NC>
-__device__ __forceinline__ void head_sum(float (&x)[NC], int dvh_p) {
-  if (dvh_p <= 32) {
-#pragma unroll
-    for (int k = 0; k < NC; ++k)
-      for (int off = dvh_p >> 1; off > 0; off >>= 1)
-        x[k] += __shfl_xor_sync(kFull, x[k], off);
-  } else {
-    const int kph = dvh_p >> 5;  // slots of one head per lane
-    float red[NC];
-#pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      red[k] = x[k];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        red[k] += __shfl_xor_sync(kFull, red[k], off);
-    }
-#pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      float t = 0.f;
-#pragma unroll
-      for (int k2 = 0; k2 < NC; ++k2)
-        if (k2 / kph == k / kph) t += red[k2];
-      x[k] = t;
-    }
-  }
-}
 
 // K9, one warp per CSC piece (row, begin, end, slot).
 template <int NC, int U>
@@ -216,86 +136,6 @@ gat_fwd_pieces(const float* __restrict__ a_dst,
         part[C + H + sl.head[k]] = l[k];
       }
     }
-  }
-}
-
-// Online merge of a softmax state (M, L, A) with a partial (m, l, a).
-__device__ __forceinline__ void merge(float& M, float& L, float& A, float m,
-                                      float l, float a) {
-  const float mn = fmaxf(M, m);
-  const float s1 = expf(M - mn);
-  const float s2 = expf(m - mn);
-  L = L * s1 + l * s2;
-  A = A * s1 + a * s2;
-  M = mn;
-}
-
-// warps of a combine block: 16, fewer where slots per lane would overflow
-// the block's 24 KB of shared state
-template <int NC>
-struct CombineWarps {
-  static constexpr int value = NC >= 4 ? 64 / NC : 16;
-};
-
-// K9's merge of split rows (flash decoding), one block per row: warp w
-// merges pieces p0 + w, p0 + w + W, ... in order, then warp 0 merges the W
-// warp states in order. A fixed assignment and order: the same bits on
-// every run.
-template <int NC>
-__global__ void __launch_bounds__(CombineWarps<NC>::value * 32)
-gat_fwd_combine(const float* __restrict__ partials,
-                const int* __restrict__ split_rows,
-                const int* __restrict__ split_ptr, int H, int dvh, int dvh_p,
-                float inv_keep, float* __restrict__ out,
-                float* __restrict__ lse) {
-  constexpr int W = CombineWarps<NC>::value;
-  __shared__ float state[W][3][NC * 32];
-  const int w = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int C = H * dvh;
-  const size_t P = static_cast<size_t>(C + 2 * H);  // partial row width
-  const Slots<NC> sl(lane, H, dvh, dvh_p);
-  const int p0 = split_ptr[blockIdx.x];
-  const int p1 = split_ptr[blockIdx.x + 1];
-  const int r = split_rows[blockIdx.x];
-  float M[NC], L[NC], A[NC];
-#pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    M[k] = kMaskValue;
-    L[k] = 0.f;
-    A[k] = 0.f;
-  }
-  for (int p = p0 + w; p < p1; p += W) {
-    const float* part = partials + p * P;
-#pragma unroll
-    for (int k = 0; k < NC; ++k)
-      merge(M[k], L[k], A[k], part[C + sl.head[k]],
-            part[C + H + sl.head[k]],
-            sl.col[k] >= 0 ? part[sl.col[k]] : 0.f);
-  }
-#pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    state[w][0][k * 32 + lane] = M[k];
-    state[w][1][k * 32 + lane] = L[k];
-    state[w][2][k * 32 + lane] = A[k];
-  }
-  __syncthreads();
-  if (w != 0) return;
-  for (int v = 1; v < W; ++v) {
-#pragma unroll
-    for (int k = 0; k < NC; ++k)
-      merge(M[k], L[k], A[k], state[v][0][k * 32 + lane],
-            state[v][1][k * 32 + lane], state[v][2][k * 32 + lane]);
-  }
-#pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    const bool row = L[k] > 0.f;
-    if (sl.col[k] >= 0)
-      out[static_cast<size_t>(r) * C + sl.col[k]] =
-          row ? A[k] * (inv_keep / fmaxf(L[k], 1e-30f)) : 0.f;
-    if (sl.lead[k])
-      lse[static_cast<size_t>(r) * H + sl.head[k]] =
-          row ? M[k] + logf(L[k]) : 0.f;
   }
 }
 
@@ -487,81 +327,7 @@ gat_dkv_pieces(const float* __restrict__ a_dst,
   }
 }
 
-// K10's sum of split rows, one block per row: partial rows [n1 | n2],
-// 32 columns at a time; warp w sums pieces p0 + w, p0 + w + W, ... in
-// order, then warp 0 adds the W warp sums in order, into out1 [R, n1] and
-// out2 [R, n2].
-constexpr int kSumWarps = 16;
-
-__global__ void __launch_bounds__(kSumWarps * 32)
-sum_combine(const float* __restrict__ partials,
-            const int* __restrict__ split_rows,
-            const int* __restrict__ split_ptr, int n1, int n2,
-            float* __restrict__ out1, float* __restrict__ out2) {
-  __shared__ float sums[kSumWarps][32];
-  const int w = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t P = static_cast<size_t>(n1 + n2);
-  const int p0 = split_ptr[blockIdx.x];
-  const int p1 = split_ptr[blockIdx.x + 1];
-  const size_t r = split_rows[blockIdx.x];
-  for (int c0 = 0; c0 < n1 + n2; c0 += 32) {
-    const int c = c0 + lane;
-    float t = 0.f;
-    if (c < n1 + n2) {
-#pragma unroll 8
-      for (int p = p0 + w; p < p1; p += kSumWarps) t += partials[p * P + c];
-    }
-    sums[w][lane] = t;
-    __syncthreads();
-    if (w == 0 && c < n1 + n2) {
-      float total = 0.f;
-#pragma unroll
-      for (int v = 0; v < kSumWarps; ++v) total += sums[v][lane];
-      if (c < n1)
-        out1[r * n1 + c] = total;
-      else
-        out2[r * n2 + (c - n1)] = total;
-    }
-    __syncthreads();
-  }
-}
-
-// slots per lane for H heads of dvh_p slots: 1, 2, 4, 8 or 16; 0 if wider
-int slots_per_lane(int H, int dvh_p) {
-  const int need = (H * dvh_p + 31) / 32;
-  int nc = 1;
-  while (nc < need) nc <<= 1;
-  return nc <= 16 ? nc : 0;
-}
-
-int pow2_at_least(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
-}
-
-int blocks_for(int warps) { return (warps + kWarps - 1) / kWarps; }
-
-constexpr int unroll_for(int nc) { return nc <= 2 ? 4 : (nc <= 4 ? 2 : 1); }
-
 }  // namespace
-
-// BODY (the variadic arguments) runs with NC, a compile-time slots-per-lane
-#define PGL_NC_CASE(N, ...) \
-  case N: {                 \
-    constexpr int NC = N;   \
-    __VA_ARGS__;            \
-  } break;
-#define PGL_NC_SWITCH(NC_VAR, ...)     \
-  switch (NC_VAR) {                    \
-    PGL_NC_CASE(1, __VA_ARGS__)        \
-    PGL_NC_CASE(2, __VA_ARGS__)        \
-    PGL_NC_CASE(4, __VA_ARGS__)        \
-    PGL_NC_CASE(8, __VA_ARGS__)        \
-    default:                           \
-      PGL_NC_CASE(16, __VA_ARGS__)     \
-  }
 
 extern "C" int pgl_gat_fwd_f32(int device, const float* a_dst,
                                const float* a_src, const float* v,

@@ -1,0 +1,453 @@
+// Count-matrix ("dedup") GAT attention for Hopper (sm_90a), additive scores.
+// C is the count matrix of the CSC dedup layout: C[r, u] is the number of
+// edges into destination row r whose source is unique row u (node uv[u]).
+// Per row r and head h, over the nonzero cells (r, u):
+//   S       = leaky(a_dst[r, h] + a_src[uv[u], h])
+//   l       = sum_u C * exp(S - m)                   (m: max of S over them)
+//   out[r]  = sum_u keep * C * exp(S - m) * v[uv[u]] / (1 - rate) / l
+//   lse[r]  = m + log l                              (0 and 0 for no cells)
+// and its flash backward, with delta = sum g * out per (row, head):
+//   p       = C * exp(min(S - lse, 80))
+//   ds      = p * (keep * (g . v) / (1 - rate) - delta) * leaky'(S)
+//   d a_dst[r]  = sum_u ds;   slot (p, c) of unique row u:
+//   d a_src     = sum_r ds,   dv = sum_r keep * p * g[r] / (1 - rate)
+//
+// Replaces the TPU kernels of pgl_tpu/ops/pallas/dedup_attention.py in
+// their additive mode: `_attn_fwd_kernel` (:102, K7) and `_attn_bwd_kernel`
+// (:285, K8). As there, d a_src and dv land in the pair's own slot rows
+// [P * 128, .] (row p * 128 + c belongs to unique row wb_p + c of pair p)
+// and K1 over `build_uniq_reduce`'s layout folds them onto nodes.
+//
+// The reference has two forms of each kernel, one reading the cached bf16
+// counts (K4's), one rebuilding C from the pair's edges. Here both are one
+// kernel: it reads the multiplicities of the nonzero cells from work lists
+// built once on the host (`dedup_attention.py`, `build_dedup_attention`),
+// whether or not the layout carries counts, so the two give the same bits.
+// An absent cell (C = 0: a window running into the next block's rows, or uv
+// pad rows aliasing node 0) is in no list, so it never enters the max.
+//
+// What bounds it on this card: bytes and latency, not arithmetic. The byte
+// bound counts the node tables, the cell lists and the outputs once: about
+// 48 MB (K7) and 96 MB (K8: the slot rows are 39 MB of it) at the bench GAT
+// graph's (H, dvh) = (8, 8), 0.014 and 0.029 ms at 3.35 TB/s. The dense
+// TPU tile does 256 x 128 cells a pair though 1.6% of them are nonzero
+// there; the design:
+//   * work per nonzero cell, never per dense tile cell. A cell is visited
+//     once with its multiplicity, so a multigraph costs per distinct
+//     (dst, src) pair (552,791 cells for 1,048,576 edges on the bench GAT
+//     graph), and the gather of a cell is of its unique row's node;
+//   * K7 and K8's row pass walk the cells in row order, one warp per piece
+//     of at most ET cells of one row (`segment_kernels.cut_rows`), lanes
+//     over per-head "slots" as in K9/K10 (attention_common.cuh); a row of
+//     several pieces (the bench graph's hub has 65k cells) writes partials
+//     that a second launch merges (K7) or sums (K8) in piece order;
+//   * K8's slot pass walks the cells in column order, one warp per slot of
+//     the [P * 128] slot rows: the cells of unique row wb_p + c in pair p,
+//     a run of the layout's dedup order; an empty slot writes zeros;
+//   * no float atomics: every run gives the same bits.
+// Staging each window's 128 source rows in shared memory (the TPU kernel's
+// gather saving) is left to a later optimisation: the row order visits
+// cells by row, not by window.
+//
+// Dropout is the reference's cell key `_cell_idx` = dst * 0x9E3779B1 +
+// unique row (uint32 wrap-around, the reference's int32), hashed by
+// `drop_keep` with the seed and the head: a cell's duplicate edges drop
+// together. The softmax sum stays undropped.
+//
+// Calling convention: launches on the given stream, does not synchronise,
+// allocates nothing (the caller passes outputs and partials), and returns
+// cudaGetLastError(). `thresh` < 0 turns dropout off.
+
+#include "attention_common.cuh"
+
+namespace {
+
+constexpr uint32_t kCellMul = 0x9E3779B1u;  // `_cell_idx`'s row multiplier
+constexpr int kWindow = 128;                // unique rows per window (W)
+
+// K7, one warp per piece (row, begin, end, slot) of the row-ordered cells.
+template <int NC, int U>
+__global__ void __launch_bounds__(kWarps * 32)
+dedup_attn_fwd(const float* __restrict__ a_dst,
+               const float* __restrict__ a_src, const float* __restrict__ v,
+               const int* __restrict__ cell_src,
+               const int* __restrict__ cell_urow,
+               const int* __restrict__ cell_cnt,
+               const int4* __restrict__ pieces, int n_pieces, int H, int dvh,
+               int dvh_p, float slope, const int* __restrict__ seed_p,
+               int thresh, float inv_keep, float* __restrict__ out,
+               float* __restrict__ lse, float* __restrict__ partials) {
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= n_pieces) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  const int C = H * dvh;
+  const int4 pc = pieces[warp];
+  const Slots<NC> sl(lane, H, dvh, dvh_p);
+  const bool drop = thresh >= 0;
+  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
+  const uint32_t row_key = static_cast<uint32_t>(pc.x) * kCellMul;
+
+  float ad[NC], m[NC], l[NC], acc[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    ad[k] = __ldg(a_dst + static_cast<size_t>(pc.x) * H + sl.head[k]);
+    m[k] = kMaskValue;
+    l[k] = 0.f;
+    acc[k] = 0.f;
+  }
+  // each lane holds one cell (node, unique row, count) of the 32-cell batch
+  const bool has = lane < pc.z - pc.y;
+  int ms = has ? __ldg(cell_src + pc.y + lane) : 0;
+  int mu = has ? __ldg(cell_urow + pc.y + lane) : 0;
+  int mc = has ? __ldg(cell_cnt + pc.y + lane) : 0;
+  for (int base = pc.y; base < pc.z; base += 32) {
+    const int n = min(32, pc.z - base);
+    const int nx = base + 32 + lane;
+    const bool nhas = nx < pc.z;
+    const int ns = nhas ? __ldg(cell_src + nx) : 0;
+    const int nu = nhas ? __ldg(cell_urow + nx) : 0;
+    const int nc = nhas ? __ldg(cell_cnt + nx) : 0;
+    for (int j0 = 0; j0 < n; j0 += U) {
+      float as[U][NC], vv[U][NC], cnt[U];
+      uint32_t key[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        const int s = __shfl_sync(kFull, ms, j & 31);
+        cnt[u] = static_cast<float>(__shfl_sync(kFull, mc, j & 31));
+        key[u] = row_key + static_cast<uint32_t>(__shfl_sync(kFull, mu, j & 31));
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          as[u][k] = j < n ? __ldg(a_src + static_cast<size_t>(s) * H +
+                                   sl.head[k])
+                           : 0.f;
+          vv[u][k] = (j < n && sl.col[k] >= 0)
+                         ? __ldg(v + static_cast<size_t>(s) * C + sl.col[k])
+                         : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        if (j >= n) break;  // uniform
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const float s = leaky(ad[k] + as[u][k], slope);
+          const float mn = fmaxf(m[k], s);
+          const float sc = expf(m[k] - mn);
+          const float p = cnt[u] * expf(s - mn);
+          l[k] = l[k] * sc + p;
+          const float pk =
+              (!drop || drop_keep(key[u], seed, sl.hc[k], thresh)) ? p : 0.f;
+          acc[k] = acc[k] * sc + pk * vv[u][k];
+          m[k] = mn;
+        }
+      }
+    }
+    ms = ns;
+    mu = nu;
+    mc = nc;
+  }
+  if (pc.w < 0) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const bool row = l[k] > 0.f;  // a row without cells stores zeros
+      if (sl.col[k] >= 0)
+        out[static_cast<size_t>(pc.x) * C + sl.col[k]] =
+            row ? acc[k] * (inv_keep / fmaxf(l[k], 1e-30f)) : 0.f;
+      if (sl.lead[k])
+        lse[static_cast<size_t>(pc.x) * H + sl.head[k]] =
+            row ? m[k] + logf(l[k]) : 0.f;
+    }
+  } else {
+    // partial row: acc [C] | m [H] | l [H] (merged by gat_fwd_combine)
+    float* part = partials + static_cast<size_t>(pc.w) * (C + 2 * H);
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      if (sl.col[k] >= 0) part[sl.col[k]] = acc[k];
+      if (sl.lead[k]) {
+        part[C + sl.head[k]] = m[k];
+        part[C + H + sl.head[k]] = l[k];
+      }
+    }
+  }
+}
+
+// K8's row pass, one warp per piece of the row-ordered cells:
+// d a_dst[r, h] = sum_u ds.
+template <int NC, int U>
+__global__ void __launch_bounds__(kWarps * 32)
+dedup_attn_bwd_rows(const float* __restrict__ a_dst,
+                    const float* __restrict__ a_src,
+                    const float* __restrict__ v, const float* __restrict__ g,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ cell_src,
+                    const int* __restrict__ cell_urow,
+                    const int* __restrict__ cell_cnt,
+                    const int4* __restrict__ pieces, int n_pieces, int H,
+                    int dvh, int dvh_p, float slope,
+                    const int* __restrict__ seed_p, int thresh,
+                    float inv_keep, float* __restrict__ da_dst,
+                    float* __restrict__ partials) {
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= n_pieces) return;
+  const int lane = threadIdx.x & 31;
+  const int C = H * dvh;
+  const int4 pc = pieces[warp];
+  const Slots<NC> sl(lane, H, dvh, dvh_p);
+  const bool drop = thresh >= 0;
+  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
+  const uint32_t row_key = static_cast<uint32_t>(pc.x) * kCellMul;
+
+  float ad[NC], ls[NC], dl[NC], gr[NC], da[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const size_t rh = static_cast<size_t>(pc.x) * H + sl.head[k];
+    ad[k] = __ldg(a_dst + rh);
+    ls[k] = __ldg(lse + rh);
+    dl[k] = __ldg(delta + rh);
+    gr[k] = sl.col[k] >= 0
+                ? __ldg(g + static_cast<size_t>(pc.x) * C + sl.col[k])
+                : 0.f;
+    da[k] = 0.f;
+  }
+  const bool has = lane < pc.z - pc.y;
+  int ms = has ? __ldg(cell_src + pc.y + lane) : 0;
+  int mu = has ? __ldg(cell_urow + pc.y + lane) : 0;
+  int mc = has ? __ldg(cell_cnt + pc.y + lane) : 0;
+  for (int base = pc.y; base < pc.z; base += 32) {
+    const int n = min(32, pc.z - base);
+    const int nx = base + 32 + lane;
+    const bool nhas = nx < pc.z;
+    const int ns = nhas ? __ldg(cell_src + nx) : 0;
+    const int nu = nhas ? __ldg(cell_urow + nx) : 0;
+    const int nc = nhas ? __ldg(cell_cnt + nx) : 0;
+    for (int j0 = 0; j0 < n; j0 += U) {
+      float as[U][NC], vv[U][NC], cnt[U];
+      uint32_t key[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        const int s = __shfl_sync(kFull, ms, j & 31);
+        cnt[u] = static_cast<float>(__shfl_sync(kFull, mc, j & 31));
+        key[u] = row_key + static_cast<uint32_t>(__shfl_sync(kFull, mu, j & 31));
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          as[u][k] = j < n ? __ldg(a_src + static_cast<size_t>(s) * H +
+                                   sl.head[k])
+                           : 0.f;
+          vv[u][k] = (j < n && sl.col[k] >= 0)
+                         ? __ldg(v + static_cast<size_t>(s) * C + sl.col[k])
+                         : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        if (j >= n) break;  // uniform
+        float gv[NC];
+#pragma unroll
+        for (int k = 0; k < NC; ++k) gv[k] = gr[k] * vv[u][k];
+        head_sum<NC>(gv, dvh_p);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const float sr = ad[k] + as[u][k];
+          const float p =
+              cnt[u] * expf(fminf(leaky(sr, slope) - ls[k], 80.f));
+          const float q =
+              drop ? (drop_keep(key[u], seed, sl.hc[k], thresh) ? p * inv_keep
+                                                                : 0.f)
+                   : p;
+          da[k] += (q * gv[k] - p * dl[k]) * leaky_grad(sr, slope);
+        }
+      }
+    }
+    ms = ns;
+    mu = nu;
+    mc = nc;
+  }
+  float* dst = pc.w < 0 ? da_dst + static_cast<size_t>(pc.x) * H
+                        : partials + static_cast<size_t>(pc.w) * H;
+#pragma unroll
+  for (int k = 0; k < NC; ++k)
+    if (sl.lead[k]) dst[sl.head[k]] = da[k];
+}
+
+// K8's slot pass, one warp per slot t = p * 128 + c: the cells (r, count)
+// of unique row u = wb_p + c in pair p, in column order. Writes
+// dsrc[t, h] = sum_r ds and dv[t, :] = sum_r q * g[r, :], zeros when the
+// slot has no cells.
+template <int NC, int U>
+__global__ void __launch_bounds__(kWarps * 32)
+dedup_attn_bwd_slots(const float* __restrict__ a_dst,
+                     const float* __restrict__ a_src,
+                     const float* __restrict__ v, const float* __restrict__ g,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ uv,
+                     const int4* __restrict__ pairs,
+                     const int* __restrict__ slot_ptr,
+                     const int* __restrict__ slot_dst,
+                     const int* __restrict__ slot_cnt, int n_slots, int H,
+                     int dvh, int dvh_p, float slope,
+                     const int* __restrict__ seed_p, int thresh,
+                     float inv_keep, float* __restrict__ dsrc,
+                     float* __restrict__ dv) {
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= n_slots) return;
+  const int lane = threadIdx.x & 31;
+  const int C = H * dvh;
+  const Slots<NC> sl(lane, H, dvh, dvh_p);
+  const bool drop = thresh >= 0;
+  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
+  const int urow = pairs[warp / kWindow].y + warp % kWindow;
+  const int node = __ldg(uv + urow);
+
+  float as[NC], vs[NC], da[NC], dva[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    as[k] = __ldg(a_src + static_cast<size_t>(node) * H + sl.head[k]);
+    vs[k] = sl.col[k] >= 0
+                ? __ldg(v + static_cast<size_t>(node) * C + sl.col[k])
+                : 0.f;
+    da[k] = 0.f;
+    dva[k] = 0.f;
+  }
+  const int b = __ldg(slot_ptr + warp);
+  const int e = __ldg(slot_ptr + warp + 1);
+  const bool has = lane < e - b;
+  int md = has ? __ldg(slot_dst + b + lane) : 0;
+  int mc = has ? __ldg(slot_cnt + b + lane) : 0;
+  for (int base = b; base < e; base += 32) {
+    const int n = min(32, e - base);
+    const int nx = base + 32 + lane;
+    const bool nhas = nx < e;
+    const int nd = nhas ? __ldg(slot_dst + nx) : 0;
+    const int nc = nhas ? __ldg(slot_cnt + nx) : 0;
+    for (int j0 = 0; j0 < n; j0 += U) {
+      float ad[U][NC], ls[U][NC], dl[U][NC], gd[U][NC], cnt[U];
+      uint32_t key[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        const int d = __shfl_sync(kFull, md, j & 31);
+        cnt[u] = static_cast<float>(__shfl_sync(kFull, mc, j & 31));
+        key[u] = static_cast<uint32_t>(d) * kCellMul +
+                 static_cast<uint32_t>(urow);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const size_t dh = static_cast<size_t>(d) * H + sl.head[k];
+          ad[u][k] = j < n ? __ldg(a_dst + dh) : 0.f;
+          ls[u][k] = j < n ? __ldg(lse + dh) : 0.f;
+          dl[u][k] = j < n ? __ldg(delta + dh) : 0.f;
+          gd[u][k] = (j < n && sl.col[k] >= 0)
+                         ? __ldg(g + static_cast<size_t>(d) * C + sl.col[k])
+                         : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        if (j >= n) break;  // uniform
+        float gv[NC];
+#pragma unroll
+        for (int k = 0; k < NC; ++k) gv[k] = gd[u][k] * vs[k];
+        head_sum<NC>(gv, dvh_p);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const float sr = ad[u][k] + as[k];
+          const float p =
+              cnt[u] * expf(fminf(leaky(sr, slope) - ls[u][k], 80.f));
+          const float q =
+              drop ? (drop_keep(key[u], seed, sl.hc[k], thresh) ? p * inv_keep
+                                                                : 0.f)
+                   : p;
+          da[k] += (q * gv[k] - p * dl[u][k]) * leaky_grad(sr, slope);
+          dva[k] += q * gd[u][k];
+        }
+      }
+    }
+    md = nd;
+    mc = nc;
+  }
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    if (sl.lead[k]) dsrc[static_cast<size_t>(warp) * H + sl.head[k]] = da[k];
+    if (sl.col[k] >= 0) dv[static_cast<size_t>(warp) * C + sl.col[k]] = dva[k];
+  }
+}
+
+}  // namespace
+
+// K7: out [N, H * dvh] and lse [N, H]; partials [n_partials, C + 2H].
+extern "C" int pgl_dedup_attn_fwd_f32(
+    int device, const float* a_dst, const float* a_src, const float* v,
+    const int* cell_src, const int* cell_urow, const int* cell_cnt,
+    const int* pieces, int n_pieces, const int* split_rows,
+    const int* split_ptr, int n_split, int H, int dvh, float slope,
+    const int* seed, int thresh, float inv_keep, float* out, float* lse,
+    float* partials, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int dvh_p = pow2_at_least(dvh);
+  const int nc = slots_per_lane(H, dvh_p);
+  if (nc == 0 || H <= 0 || dvh <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* pc = reinterpret_cast<const int4*>(pieces);
+  PGL_NC_SWITCH(nc, {
+    dedup_attn_fwd<NC, unroll_for(NC)><<<blocks_for(n_pieces), kWarps * 32,
+                                         0, s>>>(
+        a_dst, a_src, v, cell_src, cell_urow, cell_cnt, pc, n_pieces, H, dvh,
+        dvh_p, slope, seed, thresh, inv_keep, out, lse, partials);
+    if (n_split > 0)
+      gat_fwd_combine<NC><<<n_split, CombineWarps<NC>::value * 32, 0, s>>>(
+          partials, split_rows, split_ptr, H, dvh, dvh_p, inv_keep, out,
+          lse);
+  })
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: d a_dst [N, H] (row pass, partials [n_partials, H] summed by a second
+// launch), and the slot rows dsrc [n_slots, H] and dv [n_slots, H * dvh]
+// (slot pass; n_slots = P * 128).
+extern "C" int pgl_dedup_attn_bwd_f32(
+    int device, const float* a_dst, const float* a_src, const float* v,
+    const float* g, const float* lse, const float* delta,
+    const int* cell_src, const int* cell_urow, const int* cell_cnt,
+    const int* pieces, int n_pieces, const int* split_rows,
+    const int* split_ptr, int n_split, const int* uv, const int* pairs,
+    const int* slot_ptr, const int* slot_dst, const int* slot_cnt,
+    int n_slots, int H, int dvh, float slope, const int* seed, int thresh,
+    float inv_keep, float* da_dst, float* dsrc, float* dv, float* partials,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int dvh_p = pow2_at_least(dvh);
+  const int nc = slots_per_lane(H, dvh_p);
+  if (nc == 0 || H <= 0 || dvh <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* pc = reinterpret_cast<const int4*>(pieces);
+  const auto* pr = reinterpret_cast<const int4*>(pairs);
+  PGL_NC_SWITCH(nc, {
+    if (n_pieces > 0)
+      dedup_attn_bwd_rows<NC, unroll_for(NC)><<<blocks_for(n_pieces),
+                                                kWarps * 32, 0, s>>>(
+          a_dst, a_src, v, g, lse, delta, cell_src, cell_urow, cell_cnt, pc,
+          n_pieces, H, dvh, dvh_p, slope, seed, thresh, inv_keep, da_dst,
+          partials);
+    if (n_slots > 0)
+      dedup_attn_bwd_slots<NC, unroll_for(NC)><<<blocks_for(n_slots),
+                                                 kWarps * 32, 0, s>>>(
+          a_dst, a_src, v, g, lse, delta, uv, pr, slot_ptr, slot_dst,
+          slot_cnt, n_slots, H, dvh, dvh_p, slope, seed, thresh, inv_keep,
+          dsrc, dv);
+  })
+  if (n_pieces > 0 && n_split > 0)
+    sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
+        partials, split_rows, split_ptr, H, 0, da_dst, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}

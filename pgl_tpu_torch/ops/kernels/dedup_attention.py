@@ -1,0 +1,361 @@
+"""Count-matrix ("dedup") GAT attention: the kernels behind ``GATConv`` on a
+graph that carries dedup layouts.
+
+Port of the additive half of ``pgl_tpu/ops/pallas/dedup_attention.py``
+(``dedup_gat_attention``: ``_attn_fwd_kernel`` forward, K7;
+``_attn_bwd_kernel`` backward, K8; ``build_uniq_reduce``; ``_cell_idx``)
+onto hand-written CUDA kernels for Hopper, ``csrc/dedup_attention.cu``,
+whose note gives the design.
+
+Additive scores depend only on the two ends of an edge, so the softmax over
+a row's edges is a softmax over its count-matrix cells: the cell (r, u) of
+the CSC dedup layout (``dedup_kernels.py``) stands for the ``C[r, u]``
+edges into row r from unique row u (node ``uv[u]``), which share one score.
+
+* :func:`build_dedup_attention` builds, once on the host (numpy), what the
+  kernels walk: the nonzero cells with their multiplicities, in row order
+  (cut into pieces of at most ``ET`` cells by ``segment_kernels.cut_rows``)
+  and in column order (the layout's dedup order, by slot ``p·W + c``), and
+  :func:`build_uniq_reduce`, the reference's K1 layout that folds the
+  backward's pair-slot rows onto nodes.
+* :func:`dedup_gat_attention` is an autograd ``Function`` with the
+  reference's contract (``:727-768``): the forward (K7) saves ``lse``; the
+  backward computes ``delta = Σ g·out`` in torch, runs K8 (``d a_dst`` per
+  row, ``d a_src`` and ``dv`` per pair slot), then K1 over ``red`` twice.
+  The dropout seed is saved, so every pass draws the same mask.
+* :func:`dedup_attention_reference` and :func:`dedup_bwd_reference` are the
+  plain PyTorch versions, in edge space over the dedup order (``index_add_``,
+  ``segment_softmax``). CPU tensors run them; CUDA tensors launch the
+  kernels or raise.
+* :func:`cell_idx` is ``_cell_idx`` per edge: the dropout key of a cell,
+  shared by its duplicate edges.
+
+``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, H, dvh)``, kernel one of
+``dedup_fwd`` (K7) and ``dedup_bwd`` (K8: its row and slot passes) and,
+where a row has several pieces, their second launches ``dedup_fwd_combine``
+and ``dedup_bwd_combine``. The fold counts in ``segment_kernels`` as
+``("uniq_reduce", D)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..dispatch import use_attention_kernel
+from . import _build
+from . import segment_kernels as sk
+from .attention_kernels import (_check, _drop_args, _seed_tensor, _stream,
+                                edge_grads, plain_attention)
+from .dedup_kernels import W, DedupLayout
+
+__all__ = ["DedupAttention", "build_dedup_attention", "build_uniq_reduce",
+           "cell_idx", "dedup_attention_reference", "dedup_bwd_reference",
+           "dedup_gat_attention", "ET", "LAUNCHES_BY_SHAPE",
+           "reset_launches"]
+
+# most cells in one piece (one warp's work); read when a work list is built
+ET = 256
+
+LAUNCHES_BY_SHAPE: Counter = Counter()
+
+_MASK32 = 0xFFFFFFFF
+
+
+def reset_launches():
+    """Set the launch counts to 0."""
+    LAUNCHES_BY_SHAPE.clear()
+
+
+def build_uniq_reduce(layout: DedupLayout, num_nodes: int) -> sk.SpmmLayout:
+    """K1 layout from the pair-slot rows ``[P·W, ·]`` back to nodes
+    (``:62-79``): slot row ``p·W + k`` belongs to node ``uv[wb_p + k]``, and
+    a stable argsort of those nodes makes the fold a sorted segment sum.
+    Slot rows whose unique row has no edge in the pair carry zeros."""
+    uv = layout.uv.cpu().numpy().astype(np.int64)
+    wb = layout.pairs[:, 1].cpu().numpy().astype(np.int64)
+    slot_uv = uv[(wb[:, None] + np.arange(W, dtype=np.int64)).ravel()]
+    order = np.argsort(slot_uv, kind="stable")
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(
+        slot_uv, minlength=num_nodes))])
+    return sk.build_spmm_layout(indptr, order, num_nodes, kind="uniq_reduce",
+                                device=layout.device)
+
+
+@dataclass(frozen=True)
+class DedupAttention:
+    """What K7 and K8 read of a CSC dedup layout (int32 tensors on one
+    device), with the layout itself (the plain versions' edge space) and
+    ``red``, the fold of the slot rows.
+
+    Row order (K7, K8's row pass): the nonzero cells sorted by (dst, unique
+    row); ``cell_src`` [n] the cell's node ``uv[u]``, ``cell_urow`` [n] its
+    unique row u, ``cell_cnt`` [n] its multiplicity; ``pieces``,
+    ``split_rows``, ``split_ptr``: the work list of ``cut_rows``.
+    Column order (K8's slot pass): the cells by slot ``p·W + c``, in the
+    layout's dedup order; ``slot_ptr`` [P·W + 1] their ranges,
+    ``slot_dst`` [n] and ``slot_cnt`` [n] the cells' rows and
+    multiplicities.
+    """
+    layout: DedupLayout
+    red: sk.SpmmLayout
+    num_cells: int
+    num_partials: int
+    cell_src: torch.Tensor
+    cell_urow: torch.Tensor
+    cell_cnt: torch.Tensor
+    pieces: torch.Tensor
+    split_rows: torch.Tensor
+    split_ptr: torch.Tensor
+    slot_ptr: torch.Tensor
+    slot_dst: torch.Tensor
+    slot_cnt: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.layout.device
+
+    @property
+    def num_rows(self) -> int:
+        return self.layout.num_segments
+
+    @property
+    def max_index(self) -> int:
+        return self.layout.max_index
+
+    @property
+    def num_slots(self) -> int:
+        return self.layout.num_pairs * W
+
+
+def _edge_slots(layout: DedupLayout):
+    """``(dst, urow, slot)`` of every edge in dedup order, int64 on the
+    layout's device: its row, its unique row and its pair slot
+    ``p·W + urow - wb_p``."""
+    pairs = layout.pairs.long()
+    pair = torch.repeat_interleave(
+        torch.arange(layout.num_pairs, device=layout.device),
+        pairs[:, 3] - pairs[:, 2])
+    urow = layout.urow.long()
+    return layout.dst.long(), urow, pair * W + urow - pairs[pair, 1]
+
+
+def build_dedup_attention(layout: DedupLayout,
+                          num_nodes: int) -> DedupAttention:
+    """Host-side (numpy) build from a CSC dedup layout, O(E log E); call
+    once per graph (``Graph._dedup_attn_aux``)."""
+    dst, urow, slot = (t.cpu().numpy() for t in _edge_slots(layout))
+    E, N = len(dst), int(num_nodes)
+    # the dedup order sorts a block's edges by unique row and keeps the CSC
+    # order (by dst) among equals: slots ascend, and a cell's duplicate
+    # edges are neighbours
+    first = np.ones(E, dtype=bool)
+    first[1:] = (slot[1:] != slot[:-1]) | (dst[1:] != dst[:-1])
+    starts = np.flatnonzero(first)
+    cnt = np.diff(np.append(starts, E))
+    c_slot, c_dst, c_urow = slot[starts], dst[starts], urow[starts]
+    slot_ptr = np.searchsorted(c_slot, np.arange(layout.num_pairs * W + 1))
+    by_row = np.lexsort((c_urow, c_dst))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(c_dst,
+                                                        minlength=N))])
+    pieces, split_rows, split_ptr = sk.cut_rows(indptr, ET)
+    uv = layout.uv.cpu().numpy().astype(np.int64)
+    device = layout.device
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
+                               device=device)
+
+    return DedupAttention(
+        layout=layout, red=build_uniq_reduce(layout, N),
+        num_cells=len(starts), num_partials=int(split_ptr[-1]),
+        cell_src=put(uv[c_urow[by_row]]), cell_urow=put(c_urow[by_row]),
+        cell_cnt=put(cnt[by_row]), pieces=put(pieces),
+        split_rows=put(split_rows), split_ptr=put(split_ptr),
+        slot_ptr=put(slot_ptr), slot_dst=put(c_dst), slot_cnt=put(cnt))
+
+
+def cell_idx(dst: torch.Tensor, urow: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_cell_idx`` (``:93-99``) per edge: ``dst ·
+    0x9E3779B1 + urow`` with int32 wrap-around, as int32 (taken in int64
+    masked to 32 bits; the product stays below 2**63)."""
+    x = (dst.long() * 0x9E3779B1 + urow.long()) & _MASK32
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+# -- plain versions ---------------------------------------------------------
+
+def dedup_attention_reference(a_dst, a_src, v, layout: DedupLayout,
+                              leaky_slope: float = 0.2, dvh=None,
+                              attn_drop: float = 0.0, seed=None):
+    """The plain K7: ``(out [N, H·dvh], lse [N, H])`` over the edges of the
+    CSC dedup ``layout``, duplicates one by one (their scores are equal, so
+    this is the softmax over cells weighted by their counts), with the cell
+    dropout; an empty row gives zeros in both."""
+    dst, urow, _ = _edge_slots(layout)
+    return plain_attention(a_dst, a_src, v, dst, layout.uv.long()[urow],
+                           cell_idx(dst, urow), leaky_slope,
+                           dvh or v.shape[1] // a_dst.shape[1], attn_drop,
+                           seed)
+
+
+def dedup_bwd_reference(a_dst, a_src, v, g, lse, delta, layout: DedupLayout,
+                        leaky_slope: float = 0.2, dvh=None,
+                        attn_drop: float = 0.0, seed=None):
+    """The plain K8: ``(d a_dst [N, H], d a_src slots [P·W, H], dv slots
+    [P·W, H·dvh])``, the slot rows before the fold."""
+    N, H = a_dst.shape
+    dvh = dvh or v.shape[1] // H
+    dst, urow, slot = _edge_slots(layout)
+    q, ds, g_e = edge_grads(a_dst, a_src, v, g, lse, delta, dst,
+                            layout.uv.long()[urow], cell_idx(dst, urow),
+                            leaky_slope, dvh, attn_drop, seed)
+    S = layout.num_pairs * W
+    dv = (q[..., None] * g_e).reshape(-1, H * dvh)
+    return (ds.new_zeros(N, H).index_add_(0, dst, ds),
+            ds.new_zeros(S, H).index_add_(0, slot, ds),
+            dv.new_zeros(S, H * dvh).index_add_(0, slot, dv))
+
+
+# -- CUDA --------------------------------------------------------------------
+
+def _lib():
+    lib = _build.load("dedup_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # (..., pieces, n_pieces, split_rows, split_ptr, n_split, ...)
+    rows = [p, i, p, p, i]
+    tail = [i, i, f, p, i, f]     # H, dvh, slope, seed, thresh, inv_keep
+    sigs = {"pgl_dedup_attn_fwd_f32": [i] + [p] * 6 + rows + tail + [p] * 4,
+            "pgl_dedup_attn_bwd_f32": [i] + [p] * 9 + rows + [p] * 5 + [i]
+            + tail + [p] * 5}
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _raise_on(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"dedup_attention {name} launch failed: CUDA "
+                           f"error {rc}")
+
+
+def _count(name, att, H, dvh):
+    LAUNCHES_BY_SHAPE[(name, H, dvh)] += 1
+    if att.num_partials:
+        LAUNCHES_BY_SHAPE[(f"{name}_combine", H, dvh)] += 1
+
+
+def _rows(att):
+    return (att.cell_src.data_ptr(), att.cell_urow.data_ptr(),
+            att.cell_cnt.data_ptr(), att.pieces.data_ptr(),
+            att.pieces.shape[0], att.split_rows.data_ptr(),
+            att.split_ptr.data_ptr(), att.split_rows.shape[0])
+
+
+def _fwd_cuda(a_dst, a_src, v, att, slope, dvh, rate, seed):
+    """K7 (and its merge of split rows): ``(out, lse)``."""
+    N, H = a_dst.shape
+    _check(att, H, dvh, a_dst, a_src, v)
+    out = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
+    lse = torch.empty(N, H, dtype=v.dtype, device=v.device)
+    part = torch.empty(att.num_partials, H * dvh + 2 * H, dtype=v.dtype,
+                       device=v.device)
+    thresh, inv_keep = _drop_args(rate)
+    _raise_on(_lib().pgl_dedup_attn_fwd_f32(
+        v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
+        *_rows(att), H, dvh, slope, seed.data_ptr(), thresh, inv_keep,
+        out.data_ptr(), lse.data_ptr(), part.data_ptr(), _stream(v)),
+        "forward")
+    _count("dedup_fwd", att, H, dvh)
+    return out, lse
+
+
+def _bwd_cuda(a_dst, a_src, v, g, lse, delta, att, slope, dvh, rate, seed):
+    """K8 (row pass, slot pass, the sum of split rows): ``(d a_dst, d a_src
+    slots, dv slots)``."""
+    N, H = a_dst.shape
+    _check(att, H, dvh, a_dst, a_src, v, g, lse, delta)
+    S = att.num_slots
+    da = torch.empty(N, H, dtype=v.dtype, device=v.device)
+    dsrc = torch.empty(S, H, dtype=v.dtype, device=v.device)
+    dv = torch.empty(S, H * dvh, dtype=v.dtype, device=v.device)
+    part = torch.empty(att.num_partials, H, dtype=v.dtype, device=v.device)
+    thresh, inv_keep = _drop_args(rate)
+    lay = att.layout
+    _raise_on(_lib().pgl_dedup_attn_bwd_f32(
+        v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_rows(att),
+        lay.uv.data_ptr(), lay.pairs.data_ptr(), att.slot_ptr.data_ptr(),
+        att.slot_dst.data_ptr(), att.slot_cnt.data_ptr(), S, H, dvh, slope,
+        seed.data_ptr(), thresh, inv_keep, da.data_ptr(), dsrc.data_ptr(),
+        dv.data_ptr(), part.data_ptr(), _stream(v)), "backward")
+    _count("dedup_bwd", att, H, dvh)
+    return da, dsrc, dv
+
+
+class _DedupGatAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a_dst, a_src, v, att, leaky_slope, dvh, rate, seed):
+        args = (leaky_slope, dvh, rate, seed)
+        if use_attention_kernel(v):
+            out, lse = _fwd_cuda(a_dst, a_src, v, att, *args)
+        else:
+            out, lse = dedup_attention_reference(a_dst, a_src, v, att.layout,
+                                                 *args)
+        ctx.save_for_backward(a_dst, a_src, v, out, lse, seed)
+        ctx.meta = (att, leaky_slope, dvh, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a_dst, a_src, v, out, lse, seed = ctx.saved_tensors
+        att, slope, dvh, rate = ctx.meta
+        H = a_dst.shape[1]
+        g = g.contiguous()
+        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+        ins = (a_dst, a_src, v, g, lse, delta)
+        if use_attention_kernel(v):
+            da_dst, dsrc, dv = _bwd_cuda(*ins, att, slope, dvh, rate, seed)
+        else:
+            da_dst, dsrc, dv = dedup_bwd_reference(*ins, att.layout, slope,
+                                                   dvh, rate, seed)
+        # fold the pair-slot rows onto nodes (K1 over ``red``)
+        return (da_dst, sk._spmm_one(dsrc, att.red),
+                sk._spmm_one(dv, att.red), None, None, None, None, None)
+
+
+def dedup_gat_attention(a_dst, a_src, v, att: DedupAttention,
+                        leaky_slope: float = 0.2, dvh=None,
+                        attn_drop: float = 0.0, drop_seed=None):
+    """GAT additive attention over the count matrix: ``out[r] = Σ_{e:
+    dst=r} softmax_r(leaky(a_dst[r] + a_src[src_e])) · v[src_e]`` per head,
+    the same function as :func:`attention_kernels.fused_gat_attention`,
+    with the dropout keyed by cell (``cell_idx``, the int32 ``drop_seed``
+    and the head): a cell's duplicate edges drop together, and on a simple
+    graph that is edge dropout. The softmax denominator stays undropped.
+
+    Args:
+      a_dst, a_src: [N, H] attention coefficients of destination and source.
+      v: [N, H·dvh] values (no lane padding, unlike the reference's).
+      att: the graph's :func:`build_dedup_attention` (``Graph.
+        _dedup_attn_aux()``), which carries the CSC dedup layout and ``red``.
+      dvh: per-head value width (default ``v.shape[1] // H``).
+    Returns [N, H·dvh]; rows with no incoming edge are 0.
+    """
+    N, H = a_dst.shape
+    dvh = dvh or v.shape[1] // H
+    if a_src.shape != (N, H) or v.shape != (N, H * dvh):
+        raise ValueError(f"a_dst {tuple(a_dst.shape)}, a_src "
+                         f"{tuple(a_src.shape)} and v {tuple(v.shape)} are "
+                         f"not [N, H], [N, H] and [N, H * {dvh}]")
+    seed = _seed_tensor(drop_seed, v.device)
+    return _DedupGatAttention.apply(a_dst.contiguous(), a_src.contiguous(),
+                                    v.contiguous(), att, leaky_slope, dvh,
+                                    float(attn_drop), seed)

@@ -1,0 +1,346 @@
+"""Parity of the port's count-matrix GAT attention (K7/K8,
+``pgl_tpu_torch/ops/kernels/dedup_attention.py``) with ``pgl_tpu``'s
+``dedup_gat_attention`` run in interpret mode, on the CPU, each on its own
+dedup layout of the same numpy edges: the forward and its ``lse``, the
+gradients (through the fold over ``build_uniq_reduce``), the cell dropout,
+the cell key ``_cell_idx`` bit for bit, and the fold layout array for array.
+The work lists that the CUDA kernels walk are held against the plain
+versions here too, evaluated in cell space; the kernels themselves are held
+against the plain versions in ``tests/test_torch_kernels_gpu.py``."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+# the reference needs flax, which a machine that runs only the port (the
+# card's) may lack: there this file skips
+pytest.importorskip("flax")
+
+from pgl_tpu.ops.pallas import dedup_kernels as jdk
+from pgl_tpu.ops.pallas.dedup_attention import (
+    _cell_idx, _dedup_attn_fwd_call, build_uniq_reduce as j_uniq_reduce,
+    dedup_gat_attention as j_dedup_gat)
+from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+from pgl_tpu_torch.ops.kernels import dedup_attention as da
+from pgl_tpu_torch.ops.kernels import dedup_kernels as tdk
+from pgl_tpu_torch.utils.edge_index import EdgeIndex
+
+# The first torch.exp of a process on the CPU can differ from every later
+# one by up to ~6e-5 (seen on [6000, 4] float32 inputs, in about one
+# process of five), which the tolerances below would flag: take it here,
+# before any comparison.
+torch.exp(torch.zeros(1 << 16))
+
+
+def _edges(kind):
+    """(edges [E, 2] as (src, dst), N) of a small graph of one kind."""
+    rng = np.random.default_rng({"hub": 1, "dups": 2, "empty": 3,
+                                 "simple": 4, "multi": 5}[kind])
+    if kind == "empty":                 # every edge into nodes 0..99
+        N = 300
+        return np.stack([rng.integers(0, N, 1500),
+                         rng.integers(0, 100, 1500)], 1), N
+    if kind == "simple":                # no (dst, src) pair twice
+        N, E = 600, 4000
+        pairs = rng.choice(N * N, E, replace=False)
+        return np.stack([pairs % N, pairs // N], 1), N
+    N, E = 800, 6000
+    e = rng.integers(0, N, (E, 2))
+    if kind == "hub":                   # hub destination 0, hub source 1
+        e[:E // 3, 1] = 0
+        e[E // 3:E // 2, 0] = 1
+    else:                               # "dups" and "multi": a multigraph
+        e[-600:] = e[:600]
+    return e, N
+
+
+def _case(kind, H, dvh):
+    """Both packages' layouts of one graph and numpy inputs."""
+    edges, N = _edges(kind)
+    idx = EdgeIndex.from_edges(edges[:, 1], edges[:, 0], N)
+    ref = jdk.build_dedup_layout(idx.indptr, idx.sorted_v, N,
+                                 debug_rows=True)
+    lay = tdk.build_dedup_layout(idx.indptr, idx.sorted_v, N, device="cpu")
+    rng = np.random.default_rng(H * 100 + dvh)
+    a_dst, a_src = (rng.normal(size=(N, H)).astype(np.float32)
+                    for _ in range(2))
+    v = rng.normal(size=(N, H * dvh)).astype(np.float32)
+    tgt = rng.normal(size=(N, H * dvh)).astype(np.float32)
+    return N, ref, lay, a_dst, a_src, v, tgt
+
+
+def _pad128(v):
+    return jnp.zeros((v.shape[0], 128)).at[:, :v.shape[1]].set(v)
+
+
+def _reference(ref, N, H, dvh, a_dst, a_src, v, tgt, rate, seed):
+    """The reference's out, lse [N, H] and gradients of sum((out - tgt)^2)
+    (interpret mode)."""
+    red = j_uniq_reduce(ref, N)
+    seed_j = None if seed is None else jnp.int32(seed)
+    out, lse = _dedup_attn_fwd_call(
+        jnp.asarray(a_dst), jnp.asarray(a_src), _pad128(v), ref, H, dvh, 0,
+        True, 0.2, 256, 1024, 128, True, rate, seed_j)
+    n_pad = lse.shape[0] // H
+    lse = np.asarray(lse).reshape(n_pad // 256, H, 256).transpose(
+        0, 2, 1).reshape(n_pad, H)[:N]
+
+    def loss(a, b, c):
+        o = j_dedup_gat(a, b, c, ref, red, H, dvh, 0.2, 256, 1024, True,
+                        rate, seed_j)
+        return ((o[:, :H * dvh] - tgt) ** 2).sum()
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(a_dst), jnp.asarray(a_src), _pad128(v))
+    return (np.asarray(out)[:, :H * dvh], lse,
+            [np.asarray(gr)[:, :w] for gr, w in zip(grads, (H, H, H * dvh))])
+
+
+def _port(lay, N, a_dst, a_src, v, tgt, rate, seed):
+    att = da.build_dedup_attention(lay, N)
+    t = [torch.tensor(x, requires_grad=True) for x in (a_dst, a_src, v)]
+    out = da.dedup_gat_attention(*t, att, 0.2, v.shape[1] // a_dst.shape[1],
+                                 rate, seed)
+    ((out - torch.as_tensor(tgt)) ** 2).sum().backward()
+    _, lse = da.dedup_attention_reference(*(x.detach() for x in t),
+                                          lay, 0.2, None, rate, seed)
+    return out.detach().numpy(), lse.numpy(), [x.grad.numpy() for x in t]
+
+
+def _assert_matches(got, want, fwd_tol, grad_tol):
+    (out, lse, grads), (out_j, lse_j, grads_j) = got, want
+    np.testing.assert_allclose(out, out_j, **fwd_tol)
+    np.testing.assert_allclose(lse, lse_j, **fwd_tol)
+    for g, w, name in zip(grads, grads_j, ("a_dst", "a_src", "v")):
+        np.testing.assert_allclose(g, w, err_msg=name, **grad_tol)
+
+
+# tighter than the reference's own tests (tests/test_dedup_attention.py:
+# forward rtol 1e-4, atol 1e-5; gradients rtol 2e-3 with atol 2e-4, or 3e-4
+# under dropout) where they hold: the port sums float32 in another order,
+# edge by edge, and the hub's gradient sums (hundreds of terms) need the
+# reference's atol. Measured worst cases: forward 1.9e-6 absolute,
+# gradients 1.5e-4 (hub) and 1.4e-5 (the dropout cases).
+FWD = dict(rtol=1e-5, atol=2e-6)
+GRAD = dict(rtol=2e-3, atol=2e-4)
+GRAD_DROP = dict(rtol=2e-3, atol=5e-5)
+
+
+@pytest.mark.parametrize("kind,H,dvh", [("hub", 4, 8), ("dups", 8, 8),
+                                        ("empty", 1, 16)])
+def test_forward_lse_and_gradients_match_reference(kind, H, dvh):
+    """A hub destination and a hub source (the hub block has several
+    windows), a multigraph, and empty rows (zeros in out and lse)."""
+    N, ref, lay, *ins = _case(kind, H, dvh)
+    got = _port(lay, N, *ins, 0.0, None)
+    _assert_matches(got, _reference(ref, N, H, dvh, *ins, 0.0, None), FWD,
+                    GRAD)
+    if kind == "empty":
+        assert (got[0][100:] == 0).all() and (got[1][100:] == 0).all()
+    if kind == "hub":
+        assert int(np.bincount(lay.pairs[:, 0].numpy())[0]) > 1
+    if kind == "dups":
+        assert not lay.simple
+
+
+@pytest.mark.parametrize("kind", ["simple", "multi"])
+def test_cell_dropout_matches_reference(kind):
+    """Rate 0.4 at one seed: on a simple graph (cell dropout is edge
+    dropout there) and on a multigraph in cell mode (a cell's duplicates
+    drop together), outputs and gradients against the reference's kernel."""
+    H, dvh = 4, 8
+    N, ref, lay, *ins = _case(kind, H, dvh)
+    assert lay.simple == (kind == "simple")
+    _assert_matches(_port(lay, N, *ins, 0.4, -1234567),
+                    _reference(ref, N, H, dvh, *ins, 0.4, -1234567), FWD,
+                    GRAD_DROP)
+
+
+@pytest.mark.parametrize("kind", ["hub", "multi", "empty"])
+def test_cell_idx_is_the_reference_key(kind):
+    """Per edge, the port's key equals the reference kernel's ``_cell_idx``
+    tile of its pair at (dst row, unique row), bit for bit."""
+    edges, N = _edges(kind)
+    idx = EdgeIndex.from_edges(edges[:, 1], edges[:, 0], N)
+    lay = tdk.build_dedup_layout(idx.indptr, idx.sorted_v, N, device="cpu")
+    blk, wb, start, end = lay.pairs.numpy().T
+    dst, urow = lay.dst.numpy(), lay.urow.numpy()
+    want = np.empty(lay.num_edges, np.int32)
+    for p in range(lay.num_pairs):
+        tile = np.asarray(_cell_idx(jnp.int32(blk[p]), jnp.int32(wb[p]),
+                                    tdk.NB, tdk.W))
+        s = slice(start[p], end[p])
+        want[s] = tile[dst[s] - blk[p] * tdk.NB, urow[s] - wb[p]]
+    got = da.cell_idx(lay.dst, lay.urow)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want < 0).any()             # the int32 wrap-around is exercised
+
+
+def test_uniq_reduce_matches_reference():
+    """The fold's order (gather ids) and row pointer, array for array."""
+    edges, N = _edges("hub")
+    idx = EdgeIndex.from_edges(edges[:, 1], edges[:, 0], N)
+    ref = j_uniq_reduce(jdk.build_dedup_layout(idx.indptr, idx.sorted_v, N),
+                        N)
+    red = da.build_uniq_reduce(
+        tdk.build_dedup_layout(idx.indptr, idx.sorted_v, N, device="cpu"), N)
+    S = red.num_edges
+    assert (red.kind, red.num_rows, S) == ("uniq_reduce", N, ref.num_edges)
+    np.testing.assert_array_equal(red.indices.numpy(),
+                                  np.asarray(ref.padded_v)[:S])
+    np.testing.assert_array_equal(
+        red.seg_ids.numpy(), np.asarray(ref.padded_ids).reshape(-1)[:S])
+    indptr = red.indptr.numpy()
+    np.testing.assert_array_equal(
+        indptr[np.minimum(np.arange(len(ref.tile_ends)) * 256 + 256, N)],
+        np.asarray(ref.tile_ends))
+
+
+def test_counts_or_none_give_the_same_bits():
+    """A layout with K4's counts and one without give the same work lists,
+    outputs and gradients."""
+    N, _, lay, *ins = _case("dups", 8, 8)
+    with_counts = tdk.materialize_counts(lay)
+    assert with_counts.counts is not None
+    runs = [_port(lay_, N, *ins, 0.4, 99)
+            for lay_ in (with_counts, dataclasses.replace(lay, counts=None))]
+    flat = [np.concatenate([r[0].ravel(), r[1].ravel()]
+                           + [g.ravel() for g in r[2]]) for r in runs]
+    np.testing.assert_array_equal(flat[0], flat[1])
+    att = [da.build_dedup_attention(x, N)
+           for x in (with_counts, dataclasses.replace(lay, counts=None))]
+    for f in dataclasses.fields(da.DedupAttention):
+        x, y = getattr(att[0], f.name), getattr(att[1], f.name)
+        if torch.is_tensor(x):
+            assert torch.equal(x, y), f.name
+
+
+def _pieces_rows(att):
+    """The row of every row-ordered cell, from the pieces; checks that the
+    pieces cover the cells once, in order, at most ``ET`` each, and every
+    row."""
+    pieces = att.pieces.long()
+    row, begin, end, slot = pieces.T
+    assert begin[0] == 0 and end[-1] == att.num_cells
+    assert torch.equal(begin[1:], end[:-1])
+    assert int((end - begin).max()) <= da.ET
+    assert torch.equal(torch.unique(row), torch.arange(att.num_rows))
+    assert int((slot >= 0).sum()) == att.num_partials
+    return torch.repeat_interleave(row, end - begin)
+
+
+@pytest.mark.parametrize("kind", ["hub", "multi"])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_work_lists_compute_the_plain_function(kind, rate):
+    """The kernels' arithmetic, evaluated in float64 over the work lists
+    (cells with counts in row order; cells by slot in column order), equals
+    the plain versions in edge space: forward and lse, d a_dst, and the
+    slot rows of d a_src and dv."""
+    H, dvh = 3, 5
+    N, _, lay, a_dst, a_src, v, g = _case(kind, H, dvh)
+    att = da.build_dedup_attention(lay, N)
+    a_dst, a_src, v, g = (torch.tensor(x, dtype=torch.float64)
+                          for x in (a_dst, a_src, v, g))
+    seed, E = 31337, lay.num_edges
+    out_p, lse_p = da.dedup_attention_reference(a_dst, a_src, v, lay, 0.2,
+                                                dvh, rate, seed)
+    delta = (g.reshape(N, H, dvh) * out_p.reshape(N, H, dvh)).sum(-1)
+    bwd = (a_dst, a_src, v, g, lse_p, delta)
+    want = da.dedup_bwd_reference(*bwd, lay, 0.2, dvh, rate, seed)
+    assert int(att.cell_cnt.sum()) == int(att.slot_cnt.sum()) == E
+    if kind == "multi":
+        assert int(att.cell_cnt.max()) > 1 and att.num_cells < E
+
+    def keep(dst, urow):
+        key = da.cell_idx(dst, urow)
+        k = torch.stack([ak.drop_keep(key, seed, h, rate)
+                         for h in range(H)], 1)
+        return k.double() / (1 - rate) if rate else torch.ones_like(
+            k, dtype=torch.float64)
+
+    def leaky(s):
+        return torch.where(s >= 0, s, 0.2 * s)
+
+    # row order: K7 and K8's row pass
+    dst = _pieces_rows(att)
+    src, urow = att.cell_src.long(), att.cell_urow.long()
+    cnt = att.cell_cnt.double()[:, None]
+    s = leaky(a_dst[dst] + a_src[src])
+    m = torch.full((N, H), -torch.inf, dtype=torch.float64).scatter_reduce_(
+        0, dst[:, None].expand(-1, H), s, "amax")
+    p = cnt * torch.exp(s - m[dst])
+    l = torch.zeros(N, H, dtype=torch.float64).index_add_(0, dst, p)
+    kp = keep(dst, urow)
+    acc = torch.zeros(N, H, dvh, dtype=torch.float64).index_add_(
+        0, dst, (kp * p)[..., None] * v[src].reshape(-1, H, dvh))
+    has = l > 0
+    out = torch.where(has[..., None], acc / l.clamp(min=1e-300)[..., None],
+                      0.0).reshape(N, H * dvh)
+    lse = torch.where(has, m + torch.log(l), 0.0)
+    torch.testing.assert_close(out, out_p, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-12, atol=1e-12)
+
+    def cell_grads(dst, src, urow, cnt):
+        sr = a_dst[dst] + a_src[src]
+        p = cnt * torch.exp(torch.clamp(leaky(sr) - lse_p[dst], max=80.0))
+        q = keep(dst, urow) * p
+        gv = (g[dst].reshape(-1, H, dvh) * v[src].reshape(-1, H, dvh)).sum(-1)
+        ds = q * gv - p * delta[dst]
+        return torch.where(sr >= 0, ds, 0.2 * ds), q
+
+    ds, _ = cell_grads(dst, src, urow, cnt)
+    da_dst = torch.zeros(N, H, dtype=torch.float64).index_add_(0, dst, ds)
+    torch.testing.assert_close(da_dst, want[0], rtol=1e-12, atol=1e-12)
+
+    # column order: K8's slot pass
+    ptr = att.slot_ptr.long()
+    S = att.num_slots
+    assert ptr.shape == (S + 1,) and ptr[-1] == att.num_cells
+    slot = torch.repeat_interleave(torch.arange(S), ptr[1:] - ptr[:-1])
+    surow = lay.pairs[slot // tdk.W, 1].long() + slot % tdk.W
+    ds, q = cell_grads(att.slot_dst.long(), lay.uv.long()[surow], surow,
+                       att.slot_cnt.double()[:, None])
+    dsrc = torch.zeros(S, H, dtype=torch.float64).index_add_(0, slot, ds)
+    dv = torch.zeros(S, H * dvh, dtype=torch.float64).index_add_(
+        0, slot, (q[..., None] * g[att.slot_dst.long()].reshape(-1, H, dvh)
+                  ).reshape(-1, H * dvh))
+    torch.testing.assert_close(dsrc, want[1], rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(dv, want[2], rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_backward_is_autograd_of_plain_forward(rate):
+    """``dedup_gat_attention``'s backward (the plain K8, then the fold over
+    ``red``) against torch autograd of the plain forward, in float64."""
+    H, dvh = 3, 5
+    N, _, lay, a_dst, a_src, v, g = _case("multi", H, dvh)
+    att = da.build_dedup_attention(lay, N)
+    t = [torch.tensor(x, dtype=torch.float64, requires_grad=True)
+         for x in (a_dst, a_src, v)]
+    g = torch.as_tensor(g, dtype=torch.float64)
+    out, _ = da.dedup_attention_reference(*t, lay, 0.2, dvh, rate, -77)
+    want = torch.autograd.grad(out, t, g)
+    got = torch.autograd.grad(
+        da.dedup_gat_attention(*t, att, 0.2, dvh, rate, -77), t, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
+
+
+def test_plain_path_launches_nothing_and_checks_shapes():
+    N, _, lay, a_dst, a_src, v, _ = _case("empty", 2, 3)
+    att = da.build_dedup_attention(lay, N)
+    da.reset_launches()
+    da.dedup_gat_attention(*(torch.as_tensor(x) for x in (a_dst, a_src, v)),
+                           att)
+    assert not da.LAUNCHES_BY_SHAPE
+    a = torch.zeros(N, 2)
+    with pytest.raises(ValueError, match="not \\[N, H\\]"):
+        da.dedup_gat_attention(a, torch.zeros(N, 3), torch.zeros(N, 6), att)
+    with pytest.raises(ValueError, match="device"):
+        da.dedup_gat_attention(*(x.to("meta") for x in (a, a, a)), att)

@@ -151,6 +151,7 @@ def test_import_leaves_jax_out():
             "pgl_tpu_torch.ops.kernels.segment_kernels, "
             "pgl_tpu_torch.ops.kernels.dedup_kernels, "
             "pgl_tpu_torch.ops.kernels.attention_kernels, "
+            "pgl_tpu_torch.ops.kernels.dedup_attention, "
             "pgl_tpu_torch.ops.dispatch, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'pgl_tpu')]\n"

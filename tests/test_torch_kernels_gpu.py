@@ -13,7 +13,9 @@ with the 2-norm of the terms an element sums. K4's counts must equal the
 plain counts bit for bit, and K5 and K6 must agree bit for bit. The
 attention kernels (K9, K10) go through ``check_attention`` (no terms scale:
 their outputs are convex combinations or sums of bounded terms) and must
-give the same bits on two runs.
+give the same bits on two runs; the count-matrix attention (K7, K8, and K1
+over ``red``) through ``check_dedup_attention``, with the same bits on two
+runs and on a layout without counts.
 """
 
 import dataclasses
@@ -24,12 +26,14 @@ import torch
 
 from chip_smoke import (attention_graph, attention_inputs, check,
                         check_attention, check_counts, check_dedup,
-                        check_spmm, dedup_layouts, dispatch_settings,
-                        skewed_graph)
+                        check_dedup_attention, check_spmm,
+                        dedup_attention_of, dedup_layouts, dispatch_settings,
+                        run_dedup_attention, skewed_graph, without_counts)
 from pgl_tpu_torch import Graph
 from pgl_tpu_torch.datasets import community_graph
 from pgl_tpu_torch.models import GAT, GCN
 from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+from pgl_tpu_torch.ops.kernels import dedup_attention as da
 from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
 from pgl_tpu_torch.ops.kernels import segment_kernels as sk
 
@@ -223,12 +227,46 @@ def test_attention_kernels_match_plain_version(cuda, H, dvh, rate):
 
 
 @pytest.mark.gpu
-def test_gat_on_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+@pytest.mark.parametrize("H,dvh", [(8, 8), (1, 16), (3, 5), (43, 2)])
+def test_dedup_attention_kernels_match_plain_version(cuda, H, dvh, rate):
+    """K7, K8 and the folds on a graph whose hub destination is split
+    across pieces; two runs, and the layout without counts, give the same
+    bits."""
+    g = Graph(attention_graph(3000, 40000, seed=4), num_nodes=3000
+              ).tensor(cuda)
+    att = dedup_attention_of(g, cuda)
+    assert att.num_partials > 0
+    gen = torch.Generator(device=cuda).manual_seed(H * dvh)
+    ins = attention_inputs(3000, H, dvh, cuda, gen)
+    seed = torch.tensor([-987654321], dtype=torch.int32, device=cuda)
+    bare = without_counts(att)
+    da.reset_launches()
+    got = run_dedup_attention(att, ins, rate, seed)
+    for other in (att, bare):
+        assert all(map(torch.equal, got,
+                       run_dedup_attention(other, ins, rate, seed)))
+    torch.cuda.synchronize()
+    assert dict(da.LAUNCHES_BY_SHAPE) == {
+        (k, H, dvh): 3 for k in ("dedup_fwd", "dedup_fwd_combine",
+                                 "dedup_bwd", "dedup_bwd_combine")}
+    check_dedup_attention("small", att, ins, rate, seed, got)
+    out, lse = got[:2]
+    assert (out[1:1500] == 0).all() and (lse[1:1500] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dedup", [False, True])
+def test_gat_on_cuda_matches_cpu(cuda, dedup):
+    """Through the per-edge attention, and through the count-matrix
+    attention (the dedup band opened to this graph)."""
     g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
                                 avg_degree=8, seed=5)
     res = {}
     for dev in ("cpu", cuda):
-        gt = g.tensor(dev)
+        with dispatch_settings(DEDUP=dedup, DEDUP_MIN_EDGES=0):
+            gt = g.tensor(dev)
+        assert (gt._dedup_layouts is not None) == dedup
         model = GAT(16, 3, feat_drop=0.0, attn_drop=0.0,
                     generator=torch.Generator().manual_seed(0), device=dev)
         logits = model(gt, gt.node_feat["h"], True)
@@ -237,6 +275,7 @@ def test_gat_on_cuda_matches_cpu(cuda):
                          model.gat_0.linear.weight.grad.cpu())
     for got, want in zip(res[str(cuda)], res["cpu"]):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    assert (gt._dedup_attn is not None) == dedup
 
 
 @pytest.mark.gpu
@@ -254,3 +293,25 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="layout"):
         ak.fused_gat_attention(*(t.to(cuda) for t in (a, a, v)),
                                *g.tensor("cpu")._attention_layouts())
+
+
+@pytest.mark.gpu
+def test_dedup_attention_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda):
+    g = Graph(skewed_graph(100, 800, seed=6), num_nodes=100)
+    att = dedup_attention_of(g.tensor(cuda), cuda, counts=False)
+    a = torch.randn(100, 2)
+    v = torch.randn(100, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        da._fwd_cuda(a, a, v, att, 0.2, 4, 0.0,
+                     torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(TypeError, match="float32"):
+        da.dedup_gat_attention(*(t.to(cuda, torch.float64)
+                                 for t in (a, a, v)), att)
+    with pytest.raises(ValueError, match="layout"):
+        da.dedup_gat_attention(*(t.to(cuda) for t in (a, a, v)),
+                               dedup_attention_of(g.tensor("cpu"), "cpu"))
+    wide = torch.randn(100, 1, device=cuda)
+    with pytest.raises(ValueError, match="slots"):
+        da.dedup_gat_attention(wide, wide, torch.randn(100, 513,
+                                                       device=cuda), att)
