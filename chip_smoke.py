@@ -65,7 +65,24 @@ there is no card or any phase fails. Phases:
    zero counts budget, and GAT's default dropouts with
    ``attn_drop_mode="cell"``; a torch.profiler trace of the step; the
    kernels timed as in 4; and the attention device time per step of this
-   route beside the per-edge route's.
+   route beside the per-edge route's;
+7. the UniMP path (per-edge attention in dot mode, K9 and K10 on q·k
+   scores): the dot-mode K9, K10-dq and K10-dkv against their float64
+   plain versions at rates 0 and 0.3 (dq, dk and dv with the terms scale),
+   at UniMP's shape (H, dsh, dvh) = (2, 128, 128), at (8, 16, 16) and at
+   two shapes of GATConv's many-head fallback on the skewed small graph,
+   and at UniMP's shape on the bench GAT graph (split rows) and on the
+   UniMP graph, an ogbn-arxiv-sized stand-in (``community_graph(169343,
+   40, feat_dim=128, avg_degree=116, seed=0)``, about 2.4M edges); two runs
+   give the same bits; the keep bits equal the plain mask exactly; a small
+   UniMP, CUDA against CPU; then ``UniMP(128, 40, num_layers=3,
+   hidden_size=128, num_heads=2, dropout=0.3)``, the reference's defaults,
+   trains 3 warm-up and 20 timed steps with dropout and 20 without (AdamW,
+   a fresh 60% of the train labels fed each step, as
+   ``examples/unimp/train.py``), asserting two launches of each dot kernel
+   a step and no other; a torch.profiler trace of the step; and the dot
+   kernels timed beside two bounds (each input read once; the rows each
+   edge gathers).
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -297,15 +314,16 @@ def reset_all_launches():
 def all_launches():
     """Launch counts of every kernel module: K1's keyed ``(kind, D)``, the
     dedup kernels' ``(kernel, kind, D)``, the two attention modules'
-    ``(kernel, H, dvh)``."""
+    ``(kernel, H, dvh)`` (dot mode ``(kernel, H, dsh, dvh)``)."""
     return {k: v for module in _kernel_modules()
             for k, v in module.LAUNCHES_BY_SHAPE.items()}
 
 
-def phase_train(g, path="K1", per_step=None, trainer=None):
+def phase_train(g, path="K1", per_step=None, trainer=None, num_class=16):
     """The main path: a model trains on the card (default: the bench
     headline GCN). Asserts the launches of every kernel: ``per_step``
-    (default: K1's ``PER_STEP``) times the step count, and no other."""
+    (default: K1's ``PER_STEP``) times the step count, and no other; and
+    finite logits [N, ``num_class``] after the steps."""
     import torch
 
     per_step = PER_STEP if per_step is None else per_step
@@ -334,9 +352,9 @@ def phase_train(g, path="K1", per_step=None, trainer=None):
                              f"{losses}")
     with torch.no_grad():
         logits = model(g, g.node_feat["h"])
-    if logits.shape != (g.num_nodes, 16) or not bool(
+    if logits.shape != (g.num_nodes, num_class) or not bool(
             torch.isfinite(logits).all()):
-        raise AssertionError(f"{path}: headline logits not finite [N, 16]")
+        raise AssertionError(f"{path}: logits not finite [N, {num_class}]")
     step_ms = float(np.median(times)) * 1e3
     peak = torch.cuda.max_memory_allocated()
     print(f"[train {path}] {STEPS} steps: loss {losses[0]:.6f} -> "
@@ -881,17 +899,18 @@ def phase_attention_timing(g, dev, runs, errs):
     return rows
 
 
-def phase_gat_profile(g, tag="GAT"):
-    """Where a bench GAT step's device time goes: 20 steps back to back
-    (one synchronize at the end), then 10 under torch.profiler; prints the
-    device time per step by kernel (attention kernels by name, with K1's
-    folds on the dedup route; the rest by sum), the idle share 1 - busy /
-    back-to-back step time, and the host's own time per step (all and the
-    eight largest operators)."""
+def phase_gat_profile(g, tag="GAT", trainer=None):
+    """Where a training step's device time goes (default: the bench GAT's):
+    20 steps back to back (one synchronize at the end), then 10 under
+    torch.profiler; prints the device time per step by kernel (attention
+    kernels by name, with K1's folds on the dedup route; the rest by sum),
+    the idle share 1 - busy / back-to-back step time, the eight largest
+    device kernels, and the host's own time per step (all and the eight
+    largest operators)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    _, step = gat_trainer(g)
+    _, step = (trainer or gat_trainer)(g)
     for _ in range(WARMUP):
         step()
     torch.cuda.synchronize()
@@ -907,7 +926,7 @@ def phase_gat_profile(g, tag="GAT"):
             step()
         torch.cuda.synchronize()
     # device spans of annotations (Optimizer.step#...) overlap kernels
-    by_name, host = {}, {}
+    by_name, host, device = {}, {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CPU:
             host[e.key] = e.self_cpu_time_total / 1e3 / n
@@ -918,14 +937,18 @@ def phase_gat_profile(g, tag="GAT"):
             if us is None:
                 us = e.self_cuda_time_total
             by_name[name] = by_name.get(name, 0.0) + us / 1e3 / n
+            device[e.key[:100]] = us / 1e3 / n
     attn = {k: v for k, v in by_name.items()
-            if k.startswith(("gat_", "sum_", "dedup_attn", "spmm_"))}
+            if k.startswith(("gat_", "dot_", "sum_", "dedup_attn",
+                             "spmm_"))}
     busy = sum(by_name.values())
     profile_line = {
         "chained_ms_per_step": chained_ms, "device_busy_ms_per_step": busy,
         "attention_ms_per_step": sum(attn.values()),
         "other_ms_per_step": busy - sum(attn.values()),
         "idle_share": 1 - busy / chained_ms, "attention_kernels_ms": attn,
+        "device_top_ms": dict(sorted(device.items(),
+                                     key=lambda kv: -kv[1])[:8]),
         "host_ms_per_step": sum(host.values()),
         "host_top_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:8])}
     print(f"[profile] {tag} step: {json.dumps(profile_line)}", flush=True)
@@ -1337,6 +1360,405 @@ def phase_dedup_gat(dev, edge_route_ms):
         "attention_route_lower": lower}
 
 
+# (heads, score width, value width) of UniMP's attention layers 0 and 1
+UNIMP_SHAPE = (2, 128, 128)
+# ogbn-arxiv's train split size (examples/unimp/train.py feeds its labels)
+UNIMP_TRAIN = 90941
+DOT_KERNELS = ("dot_fwd", "dot_dq", "dot_dkv")
+DOT_REPLACES = {"dot_" + k[4:]: v for k, v in ATTN_REPLACES.items()}
+
+
+def dot_inputs(n, shape, dev, gen):
+    """Random q, k [n, H·dsh] (q scaled by 1/√dsh, so the scores spread as
+    unit normals, as TransformerConv's), v and g [n, H·dvh] (float32)."""
+    import torch
+    H, dsh, dvh = shape
+    q, k, v, g = (torch.randn(n, H * w, device=dev, generator=gen)
+                  for w in (dsh, dsh, dvh, dvh))
+    return q * dsh ** -0.5, k, v, g
+
+
+def run_dot(lays, ins, shape, leaky, rate, seed):
+    """The dot-mode K9, K10-dq and K10-dkv on float32 ``ins``: ``(out, lse,
+    dq, dk, dv)``."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    csc, csr = lays
+    q, k, v, g = ins
+    H, dsh, dvh = shape
+    with torch.no_grad():
+        out, lse = ak._dot_fwd_cuda(q, k, v, csc, leaky, dsh, dvh, rate,
+                                    seed)
+        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+        bwd = (q, k, v, g, lse, delta)
+        dq = ak._dot_dq_cuda(*bwd, csc, leaky, dsh, dvh, rate, seed)
+        dk, dv = ak._dot_dkv_cuda(*bwd, csr, leaky, dsh, dvh, rate, seed)
+    return out, lse, dq, dk, dv
+
+
+def check_dot(tag, lays, ins, shape, leaky, rate, seed, got):
+    """``got`` of :func:`run_dot` against the plain versions in float64 on
+    the same inputs (the backward on the kernel's lse and delta), with
+    ``check``'s rule; dq, dk and dv scaled by the 2-norm of the terms each
+    element sums. Returns the max |err| of each kernel."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    csc, csr = lays
+    H, dsh, dvh = shape
+    out, lse, dq, dk, dv = got
+    name = f"{tag} H={H} dsh={dsh} dvh={dvh} rate={rate}"
+    with torch.no_grad():
+        q, k, v, g = (t.double() for t in ins)
+        out_p, lse_p = ak.dot_attention_reference(q, k, v, csc, dsh, dvh,
+                                                  leaky, rate, seed)
+        errs = {"dot_fwd": max(check(f"{name} K9 out", out, out_p),
+                               check(f"{name} K9 lse", lse, lse_p))}
+        del out_p, lse_p
+        delta = (g.reshape(-1, H, dvh)
+                 * out.double().reshape(-1, H, dvh)).sum(-1)
+        bwd = (q, k, v, g, lse.double(), delta)
+        args = (dsh, dvh, leaky, rate, seed)
+        ends = {lay.kind: ak._ends(lay) for lay in lays}
+        n = q.shape[0]
+
+        def grads(lay):
+            dst, src = ends[lay.kind]
+            return dst, src, ak.edge_grads(*bwd, dst, src, lay.positions(),
+                                           leaky, dvh, rate, seed, dsh)
+
+        dst, src, (_, ds, _) = grads(csc)
+        scale = ak.head_scatter(ds * ds, k[src] ** 2, dst, n).sqrt()
+        del ds
+        errs["dot_dq"] = check(f"{name} K10-dq", dq,
+                               ak.dot_dq_reference(*bwd, csc, *args), scale)
+        dst, src, (qe, ds, g_e) = grads(csr)
+        scale_k = ak.head_scatter(ds * ds, q[dst] ** 2, src, n).sqrt()
+        scale_v = ak.head_scatter(qe * qe, g_e.reshape(len(dst), -1) ** 2,
+                                  src, n).sqrt()
+        del qe, ds, g_e
+        dk_p, dv_p = ak.dot_dkv_reference(*bwd, csr, *args)
+        errs["dot_dkv"] = max(check(f"{name} K10-dkv dk", dk, dk_p, scale_k),
+                              check(f"{name} K10-dkv dv", dv, dv_p, scale_v))
+    return errs
+
+
+def phase_dot_kernels(graphs, dev):
+    """The dot-mode K9/K10 against their float64 plain versions at rates 0
+    and 0.3 (seed drawn per case): on the small graph with a hub
+    destination and a hub source at UniMP's shape, (8, 16, 16) and two
+    shapes of GATConv's many-head fallback (dsh 2, leaky 0.2), and on each
+    of ``graphs`` (tag -> graph: the bench GAT graph, whose hub row splits,
+    and UniMP's) at UniMP's shape; a second run gives the same bits.
+    Returns the max |err| per (tag, kernel)."""
+    import torch
+    from pgl_tpu_torch import Graph
+
+    small = Graph(attention_graph(3000, 40000, seed=1), num_nodes=3000
+                  ).tensor(dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cases = [("small", small, shape, leaky) for shape, leaky in (
+        (UNIMP_SHAPE, 0.0), ((8, 16, 16), 0.0), ((43, 2, 2), 0.2),
+        ((43, 2, 8), 0.2))]
+    cases += [(tag, g, UNIMP_SHAPE, 0.0) for tag, g in graphs.items()]
+    errs = {}
+    for tag, g, shape, leaky in cases:
+        lays = g._attention_layouts()
+        if tag == "small" and not (lays[0].num_partials
+                                   and lays[1].num_partials):
+            raise AssertionError("the small graph must split rows on both "
+                                 "layouts")
+        ins = dot_inputs(g.num_nodes, shape, dev, gen)
+        for rate in (0.0, 0.3):
+            seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                                 generator=gen, device=dev)
+            got = run_dot(lays, ins, shape, leaky, rate, seed)
+            if not all(map(torch.equal, got,
+                           run_dot(lays, ins, shape, leaky, rate, seed))):
+                raise AssertionError(f"{tag} {shape} rate={rate}: two runs "
+                                     "differ")
+            e = check_dot(tag, lays, ins, shape, leaky, rate, seed, got)
+            del got
+            for k, v in e.items():
+                errs[tag, k] = max(errs.get((tag, k), 0.0), v)
+            print(f"[dot attention] {tag} N={g.num_nodes} E={g.num_edges} "
+                  f"(H, dsh, dvh)={shape} leaky={leaky} rate={rate}: max "
+                  f"|err| K9 {e['dot_fwd']:.3e} K10-dq {e['dot_dq']:.3e} "
+                  f"K10-dkv {e['dot_dkv']:.3e}; same bits on a second run",
+                  flush=True)
+    reset_all_launches()
+    return errs
+
+
+def phase_dot_mask(dev):
+    """The dot-mode keep bits of K9 and K10-dkv equal the plain mask
+    exactly: on a permutation graph (one edge a row) with q = k = 0 (dsh =
+    2), v = g = 1 and dvh = 1, K9's out and K10-dkv's dv are 1 / (1 - rate)
+    where the edge is kept and 0 where it is dropped."""
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+
+    n, H, rate = 1 << 20, 42, 0.3
+    rng = np.random.default_rng(10)
+    g = Graph(np.stack([rng.permutation(n), np.arange(n)], axis=1),
+              num_nodes=n).tensor(dev)
+    lays = g._attention_layouts()
+    zeros = torch.zeros(n, 2 * H, device=dev)
+    ones = torch.ones(n, H, device=dev)
+    for seed_v in (-1640531535, 12345):
+        seed = torch.tensor([seed_v], dtype=torch.int32, device=dev)
+        out, _, _, _, dv = run_dot(lays, (zeros, zeros, ones, ones),
+                                   (H, 2, 1), 0.0, rate, seed)
+        for name, got, lay in (("K9", out, lays[0]), ("K10-dkv", dv,
+                                                       lays[1])):
+            pos = torch.empty_like(lay.positions())
+            pos[lay.seg_ids.long()] = lay.positions()
+            want = torch.stack([ak.drop_keep(pos, seed, h, rate)
+                                for h in range(H)], dim=1)
+            if not torch.equal(got != 0, want):
+                raise AssertionError(
+                    f"dot {name} keep bits differ from the plain mask in "
+                    f"{int(((got != 0) != want).sum())} of {want.numel()}")
+    reset_all_launches()
+    print(f"[dot attention] keep bits of K9 and K10-dkv equal the plain mask "
+          f"over {n} positions x {H} heads, 2 seeds, rate {rate}", flush=True)
+
+
+def phase_unimp_small(dev):
+    """A small UniMP (2 heads of 16, labels fed through a mask): the CUDA
+    kernels against the CPU's plain versions with the same weights, logits
+    and every parameter gradient, at ``check``'s rule."""
+    import torch
+    from pgl_tpu_torch.datasets import community_graph
+    from pgl_tpu_torch.models import UniMP
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+
+    g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                                avg_degree=8, seed=5)
+    mask = np.random.default_rng(2).random(300) < 0.5
+    results = {}
+    reset_all_launches()
+    for d in ("cpu", dev):
+        gt = g.tensor(d)
+        y = torch.as_tensor(labels, device=d).long()
+        model = UniMP(16, 3, hidden_size=16, num_heads=2, dropout=0.0,
+                      generator=torch.Generator().manual_seed(0), device=d)
+        logits = model(gt, gt.node_feat["h"], y,
+                       torch.as_tensor(mask, device=d), training=True)
+        ce(logits, y).mean().backward()
+        results[str(d)] = (logits.detach().cpu(),
+                           {k: p.grad.cpu()
+                            for k, p in model.named_parameters()})
+    launched = {k: v for k, v in all_launches().items() if v}
+    if launched != {(k, 2, 16, 16): 2 for k in DOT_KERNELS}:
+        raise AssertionError(f"small UniMP launched {launched}")
+    reset_all_launches()
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(dev)]
+    err = check("small UniMP logits", l_gpu, l_cpu)
+    for k in g_cpu:
+        err = max(err, check(f"small UniMP grad {k}", g_gpu[k], g_cpu[k]))
+    print(f"[model] small UniMP, CUDA vs CPU: max |err| {err:.3e} (logits "
+          f"and {len(g_cpu)} parameter gradients)", flush=True)
+
+
+def unimp_host():
+    """An ogbn-arxiv-sized stand-in (the arxiv files are not in the repo):
+    169,343 nodes of 128 features in 40 classes, about 2.4M edges."""
+    from pgl_tpu_torch.datasets import community_graph
+    return community_graph(num_nodes=169343, num_classes=40, feat_dim=128,
+                           avg_degree=116, seed=0)
+
+
+def unimp_trainer(g, labels, training=True):
+    """UniMP at the reference's defaults (``pgl_tpu/models/unimp.py:65-71``:
+    3 layers, 2 heads of 128, dropout 0.3; weights from seed 0) on ``g``'s
+    device, and a function that takes one AdamW step (lr 5e-3, weight
+    decay 5e-4) as ``examples/unimp/train.py:65-92``: the train nodes are
+    the first ``UNIMP_TRAIN`` of a seeded permutation, each step feeds a
+    fresh seeded 60% of their labels, and the loss is over the train nodes
+    not fed."""
+    import torch
+    from pgl_tpu_torch.models import UniMP
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+
+    x = g.node_feat["h"]
+    dev, n = x.device, g.num_nodes
+    y = torch.as_tensor(labels, device=dev).long()
+    train = torch.zeros(n, dtype=torch.bool, device=dev)
+    train[torch.as_tensor(np.random.default_rng(0).permutation(n)[
+        :UNIMP_TRAIN], device=dev)] = True
+    model = UniMP(input_size=128, num_class=40, num_layers=3,
+                  hidden_size=128, num_heads=2, dropout=0.3,
+                  generator=torch.Generator().manual_seed(0), device=dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=5e-3, weight_decay=5e-4)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def step():
+        feed = train & (torch.rand(n, generator=gen, device=dev) < 0.6)
+        rest = (train & ~feed).float()
+        opt.zero_grad(set_to_none=True)
+        losses = ce(model(g, x, y, feed, training=training), y)
+        loss = (losses * rest).sum() / rest.sum().clamp(min=1.0)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return model, step
+
+
+def phase_dot_timing(graphs, dev, runs, errs):
+    """Rows at UniMP's shape for each of ``graphs`` (tag -> graph): each
+    dot kernel's ms (the wrapper's launches, merges included), its plain
+    version's, and two bounds: the table's (each input read once, each
+    output written once) and the gather bound (the rows each edge gathers
+    read from device memory once an edge). ``runs`` maps a tag to {rate:
+    launches of its training run}."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+
+    H, dsh, dvh = shape = UNIMP_SHAPE
+    DS, C = H * dsh, H * dvh
+    gen = torch.Generator(device=dev).manual_seed(9)
+    seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+    rows = []
+    for tag, g in graphs.items():
+        csc, csr = g._attention_layouts()
+        N, E = g.num_nodes, g.num_edges
+        q, k, v, g_out = dot_inputs(N, shape, dev, gen)
+        for rate, launches in runs[tag].items():
+            drop = rate > 0
+            args = (dsh, dvh, 0.0, rate, seed)
+            with torch.no_grad():
+                out, lse = ak._dot_fwd_cuda(q, k, v, csc, 0.0, dsh, dvh,
+                                            rate, seed)
+                delta = (g_out.reshape(N, H, dvh)
+                         * out.reshape(N, H, dvh)).sum(-1)
+            bwd = (q, k, v, g_out, lse, delta)
+            # (kernel, plain, layout, node columns read, written, gathered
+            # an edge, operations an edge)
+            per_head = 7 + 8 * drop      # leaky, max, 2 exp, 2 scale; hash
+            cases = {
+                "dot_fwd": (
+                    lambda: ak._dot_fwd_cuda(q, k, v, csc, 0.0, dsh, dvh,
+                                             rate, seed),
+                    lambda: ak.dot_attention_reference(q, k, v, csc, *args),
+                    csc, 2 * DS + C, C + H, DS + C,
+                    2 * DS + 2 * C + H * per_head),
+                "dot_dq": (
+                    lambda: ak._dot_dq_cuda(*bwd, csc, 0.0, dsh, dvh, rate,
+                                            seed),
+                    lambda: ak.dot_dq_reference(*bwd, csc, *args),
+                    csc, 2 * DS + 2 * C + 2 * H, DS, DS + C,
+                    4 * DS + 2 * C + H * per_head),
+                "dot_dkv": (
+                    lambda: ak._dot_dkv_cuda(*bwd, csr, 0.0, dsh, dvh, rate,
+                                             seed),
+                    lambda: ak.dot_dkv_reference(*bwd, csr, *args),
+                    csr, 2 * DS + 2 * C + 2 * H, DS + C, DS + C + 2 * H,
+                    4 * DS + 4 * C + H * per_head),
+            }
+            for kernel, (fn, plain, lay, cols_in, cols_out, gathered,
+                         ops_e) in cases.items():
+                with torch.no_grad():
+                    ms = time_ms(fn, 20)
+                    plain_ms = time_ms(plain, 3)
+                edge_ints = 1 + (kernel == "dot_dkv" and drop)
+                nbytes = 4 * (N * (cols_in + cols_out) + E * edge_ints
+                              + 4 * lay.pieces.shape[0])
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                t_ops = E * ops_e / F32_OPS_PER_S
+                bound_ms = max(t_bytes, t_ops) * 1e3
+                gather_ms = 4 * E * gathered / HBM_BYTES_PER_S * 1e3
+                suffix = (f"_drop{rate:g}" if drop else "") + (
+                    "" if tag == "unimp" else f"_{tag}")
+                rows.append({
+                    "name": f"{kernel}_h{H}_s{dsh}_d{dvh}{suffix}",
+                    "route": "cuda", "source": ATTN_SOURCE,
+                    "replaces": DOT_REPLACES[kernel],
+                    "launches": launches.get((kernel, *shape), 0),
+                    "max_abs_err": errs[tag, kernel], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": None, "share": bound_ms / ms,
+                    "gather_bound_ms": gather_ms,
+                    "shape": {"kernel": kernel, "graph": tag, "H": H,
+                              "dsh": dsh, "dvh": dvh, "rate": rate,
+                              "rows": N, "edges": E,
+                              "pieces": int(lay.pieces.shape[0]),
+                              "split_rows": int(lay.split_rows.shape[0])}})
+                print(f"[timing] {kernel} {tag} (H, dsh, dvh)={shape} "
+                      f"rate={rate}: kernel {ms:.5f} ms "
+                      f"({rows[-1]['launches']} launches in its run), plain "
+                      f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+                      f"({rows[-1]['bound_by']}; {bound_ms / ms:.3f} of it), "
+                      f"gather bound {gather_ms:.5f} ms "
+                      f"({gather_ms / ms:.3f} of it)", flush=True)
+            del out, lse, delta, bwd
+    reset_all_launches()
+    return rows
+
+
+def phase_unimp(dev):
+    """The UniMP path (dot-mode K9/K10): the arxiv-sized graph, kernel
+    checks (with the bench GAT graph, whose hub row splits), keep bits, the
+    small model, the slice at full width trained 20 steps with dropout and
+    20 without, a profile of the step and the kernels' times. Returns
+    (rows, the step line's entries)."""
+    import torch
+
+    t0 = time.perf_counter()
+    host, labels = unimp_host()
+    g = host.tensor()
+    torch.cuda.synchronize()
+    t_tensor = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csc, csr = g._attention_layouts()
+    torch.cuda.synchronize()
+    t_layouts = time.perf_counter() - t0
+    deg = g.indegree().cpu().numpy()
+    cells = len(np.unique(host.edges[:, 1] * np.int64(g.num_nodes)
+                          + host.edges[:, 0]))
+    print(f"[graph] UniMP N={g.num_nodes} E={g.num_edges} ({cells} distinct "
+          f"(dst, src) pairs): tensor() {t_tensor:.3f} s (generator "
+          f"included), attention layouts {t_layouts:.3f} s on the host; "
+          f"largest in-degree {int(deg.max())}, empty rows "
+          f"{int((deg == 0).sum())}, largest out-degree "
+          f"{int(g.outdegree().max())}; CSC {csc.pieces.shape[0]} pieces, "
+          f"{csc.split_rows.shape[0]} split rows; CSR {csr.pieces.shape[0]} "
+          f"pieces, {csr.split_rows.shape[0]} split rows", flush=True)
+    graphs = {"unimp": g, "gat_graph": gat_host().tensor()}
+    errs = phase_dot_kernels(graphs, dev)
+    phase_dot_mask(dev)
+    phase_unimp_small(dev)
+    per = {(k, *UNIMP_SHAPE): 2 for k in DOT_KERNELS}
+    train, by3 = phase_train(g, "UniMP", per,
+                             lambda g: unimp_trainer(g, labels), 40)
+    train_e, by0 = phase_train(
+        g, "UniMP no dropout", per,
+        lambda g: unimp_trainer(g, labels, training=False), 40)
+    prof = phase_gat_profile(g, "UniMP",
+                             lambda g: unimp_trainer(g, labels))
+    rows = phase_dot_timing(graphs, dev, {"unimp": {0.3: by3, 0.0: by0},
+                                          "gat_graph": {0.0: {}}}, errs)
+    attn = {rate: 2 * sum(r["ms"] for r in rows
+                          if r["shape"]["graph"] == "unimp"
+                          and r["shape"]["rate"] == rate)
+            for rate in (0.0, 0.3)}
+    gather = 2 * sum(r["gather_bound_ms"] for r in rows
+                     if r["shape"]["graph"] == "unimp"
+                     and r["shape"]["rate"] == 0.0)
+    print(f"[default] attention device ms per UniMP step (2 layers of K9, "
+          f"K10-dq, K10-dkv): {attn[0.3]:.5f} (rate 0.3, training), "
+          f"{attn[0.0]:.5f} (no dropout); gather bound {gather:.5f} ms; "
+          f"step median {train['step_ms']:.4f} ms (training), "
+          f"{train_e['step_ms']:.4f} ms (no dropout)", flush=True)
+    return rows, {
+        "UniMP": dict(train, attention_ms_per_step=attn[0.3],
+                      gather_bound_ms_per_step=gather, tensor_s=t_tensor,
+                      attention_layouts_s=t_layouts, profile=prof),
+        "UniMP_no_dropout": dict(train_e, attention_ms_per_step=attn[0.0])}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1427,6 +1849,9 @@ def main():
     dedup_rows, dedup_steps = phase_dedup_gat(
         dev, gat_steps["GAT"]["attention_ms_per_step"])
     rows += dedup_rows
+    torch.cuda.empty_cache()
+    unimp_rows, unimp_steps = phase_unimp(dev)
+    rows += unimp_rows
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -1434,7 +1859,8 @@ def main():
         "dedup_uncached": dict(train_6,
                                spmm_ms_per_step=spmm["dedup_uncached"],
                                tensor_s=t_6),
-        **gat_steps, **dedup_steps, "device": smi}}), flush=True)
+        **gat_steps, **dedup_steps, **unimp_steps, "device": smi}}),
+        flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

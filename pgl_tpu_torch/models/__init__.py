@@ -1,3 +1,4 @@
 from .gnn import GAT, GCN
+from .unimp import UniMP
 
-__all__ = ["GCN", "GAT"]
+__all__ = ["GCN", "GAT", "UniMP"]

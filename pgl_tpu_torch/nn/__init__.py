@@ -1,4 +1,4 @@
-from .conv import GATConv, GCNConv
+from .conv import GATConv, GCNConv, TransformerConv
 from . import functional
 
-__all__ = ["GCNConv", "GATConv", "functional"]
+__all__ = ["GCNConv", "GATConv", "TransformerConv", "functional"]

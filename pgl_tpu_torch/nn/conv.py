@@ -16,11 +16,14 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from ..ops.kernels.attention_kernels import fused_gat_attention
+from ..ops.kernels.attention_kernels import (fused_gat_attention,
+                                             fused_graph_attention,
+                                             gat_score_features)
 from ..ops.kernels.dedup_attention import dedup_gat_attention
+from ..ops.segment import segment_softmax, segment_sum
 from .functional import graph_op as GF
 
-__all__ = ["GCNConv", "GATConv", "lecun_normal_"]
+__all__ = ["GCNConv", "GATConv", "TransformerConv", "lecun_normal_"]
 
 # std of a unit normal truncated to [-2, 2]; flax's lecun_normal divides by
 # it so that the truncated draw keeps variance 1 / fan_in
@@ -34,6 +37,15 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std,
                                      2.0 * std, generator=generator)
+
+
+def _dense(input_size: int, output_size: int,
+           generator: torch.Generator) -> nn.Linear:
+    """flax ``nn.Dense``: lecun-normal weight, zero bias."""
+    linear = nn.Linear(input_size, output_size)
+    lecun_normal_(linear.weight, generator)
+    nn.init.zeros_(linear.bias)
+    return linear
 
 
 def _resolve_act(activation) -> Optional[Callable]:
@@ -56,6 +68,32 @@ def _dropout(x, rate: float, generator: torch.Generator):
     by 1 / (1 - rate); the mask comes from ``generator``."""
     keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
     return x * keep / (1.0 - rate)
+
+
+def _layer_generator(gen: torch.Generator, device) -> torch.Generator:
+    """A layer's own dropout generator on ``device``, seeded from ``gen``."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(torch.randint(0, 2 ** 62, (1,),
+                                            generator=gen)))
+    return generator
+
+
+def _attn_seed(generator: torch.Generator, rate: float):
+    """One int32 seed for the kernels' hash dropout (the counterpart of
+    ``_attn_drop_seed``), None at rate 0."""
+    if rate <= 1e-15:
+        return None
+    return torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                         generator=generator, device=generator.device)
+
+
+def _dedup_route(graph, rate: float, mode: str) -> bool:
+    """True where the reference takes the count-matrix attention (K7/K8):
+    a graph with dedup layouts, unless it is a multigraph under edge-mode
+    dropout (``pgl_tpu/nn/conv.py:217-227,517-523``)."""
+    dedup = graph._dedup_layouts
+    return dedup is not None and not (rate > 0.0 and not dedup[0].simple
+                                      and mode != "cell")
 
 
 class GCNConv(nn.Module):
@@ -102,7 +140,9 @@ class GATConv(nn.Module):
     route: on a graph that carries dedup layouts, the count-matrix kernels
     K7/K8 (``ops/kernels/dedup_attention.py``), unless it is a multigraph
     under edge-mode dropout; otherwise the per-edge kernels K9/K10
-    (``ops/kernels/attention_kernels.py``).
+    (``ops/kernels/attention_kernels.py``), in additive mode for ``3·H <=
+    128`` and in dot mode past it, the score written as a dot by
+    ``gat_score_features`` (the reference's many-head fallback).
 
     Dropout draws from the layer's own generator on its device
     (``self.generator``, seeded from ``generator`` at construction): the
@@ -112,10 +152,9 @@ class GATConv(nn.Module):
     whose mask drops a cell's duplicate edges together (the same
     expectation as edge dropout).
 
-    Where the reference leaves its fused kernels, this layer raises
-    ``NotImplementedError``: training with attention dropout at ``3·H >
-    128`` (its unfused ``send_uv`` path), and ``3·H > 128`` off the
-    count-matrix route (its dot-mode kernels); neither is ported yet.
+    Training with attention dropout at ``3·H > 128`` raises
+    ``NotImplementedError``: the reference leaves its fused kernels there
+    for its unfused ``send_uv`` path, which is not ported yet.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
@@ -136,62 +175,54 @@ class GATConv(nn.Module):
         device = resolve_device(device)
         gen = generator if generator is not None \
             else torch.Generator().manual_seed(0)
-        self.linear = nn.Linear(input_size, num_heads * hidden_size)
-        lecun_normal_(self.linear.weight, gen)
-        nn.init.zeros_(self.linear.bias)
+        self.linear = _dense(input_size, num_heads * hidden_size, gen)
         # flax xavier_uniform on [H, Dh]: fan_in H, fan_out Dh, as torch's
         self.weight_src = nn.Parameter(nn.init.xavier_uniform_(
             torch.empty(num_heads, hidden_size), generator=gen))
         self.weight_dst = nn.Parameter(nn.init.xavier_uniform_(
             torch.empty(num_heads, hidden_size), generator=gen))
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(int(torch.randint(
-            0, 2 ** 62, (1,), generator=gen)))
+        self.generator = _layer_generator(gen, device)
         self.to(device)
 
-    def _route(self, graph, rate: float):
-        """The count-matrix attention's work lists where the reference takes
-        K7/K8 (``pgl_tpu/nn/conv.py:202-240``), None where it takes K9/K10;
-        raises where it leaves the fused kernels."""
+    def _route(self, graph, rate: float) -> str:
+        """``"dedup"`` where the reference takes K7/K8
+        (``pgl_tpu/nn/conv.py:202-256``), ``"additive"`` or ``"dot"`` where
+        it takes K9/K10 in that mode; raises where it leaves the fused
+        kernels."""
         H = self.num_heads
         if rate > 1e-15 and 3 * H > 128:
             raise NotImplementedError(
                 f"GATConv with {H} heads trains with attention dropout on "
                 "the reference's unfused path (send_uv, send_ue_recv; 3·H > "
                 "128), which is not ported yet")
-        dedup = graph._dedup_layouts
-        if dedup is not None and not (rate > 0.0 and not dedup[0].simple
-                                      and self.attn_drop_mode != "cell"):
-            return graph._dedup_attn_aux()
-        if 3 * H > 128:
-            raise NotImplementedError(
-                f"GATConv with {H} heads takes the reference's dot-mode "
-                "attention (3·H > 128), which is not ported yet")
-        return None
+        if _dedup_route(graph, rate, self.attn_drop_mode):
+            return "dedup"
+        return "additive" if 3 * H <= 128 else "dot"
 
     def forward(self, graph, feature, training: bool = False):
         H, Dh = self.num_heads, self.hidden_size
         rate = float(self.attn_drop) if training else 0.0
-        dedup = self._route(graph, rate)
+        route = self._route(graph, rate)
         if training and self.feat_drop > 1e-15:
             feature = _dropout(feature, self.feat_drop, self.generator)
         feature = self.linear(feature)
         heads = feature.reshape(-1, H, Dh)
         attn_src = (heads * self.weight_src).sum(-1)
         attn_dst = (heads * self.weight_dst).sum(-1)
-        seed = None
-        if rate > 1e-15:
-            seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
-                                 generator=self.generator,
-                                 device=self.generator.device)
-        if dedup is not None:
-            out = dedup_gat_attention(attn_dst, attn_src, feature, dedup,
-                                      0.2, dvh=Dh, attn_drop=rate,
-                                      drop_seed=seed)
-        else:
+        seed = _attn_seed(self.generator, rate)
+        if route == "dedup":
+            out = dedup_gat_attention(attn_dst, attn_src, feature,
+                                      graph._dedup_attn_aux(), 0.2, dvh=Dh,
+                                      attn_drop=rate, drop_seed=seed)
+        elif route == "additive":
             out = fused_gat_attention(attn_dst, attn_src, feature,
                                       *graph._attention_layouts(), 0.2,
                                       dvh=Dh, attn_drop=rate, drop_seed=seed)
+        else:
+            q, k = gat_score_features(attn_dst, attn_src)
+            out = fused_graph_attention(q, k, feature,
+                                        *graph._attention_layouts(), H, 0.2,
+                                        dsh=q.shape[1] // H, dvh=Dh)
         output = out.reshape(-1, H, Dh)
         if self.concat:
             output = output.reshape(-1, H * Dh)
@@ -200,3 +231,118 @@ class GATConv(nn.Module):
         if self.activation is not None:
             output = self.activation(output)
         return output
+
+
+class TransformerConv(nn.Module):
+    """UniMP's graph transformer layer (``pgl_tpu/nn/conv.py:444-581``):
+    per-head ``q·k / √D`` attention over each node's incoming edges, an
+    optional edge feature added to k and v, a (gated) skip connection,
+    layer norm and the activation. Parameters carry the flax names: ``q``,
+    ``k``, ``v``, ``skip_feat``, ``gate`` and ``ln`` (``LayerNorm`` at
+    flax's ``eps=1e-6``).
+
+    The route is the reference's without its TPU gates (``_MIN_EDGES``,
+    the backend, ``(H·D) % 128 == 0``):
+
+    * without ``edge_feat`` and with ``concat``, on a graph without dedup
+      layouts (or a multigraph under edge-mode dropout): the per-edge
+      kernels K9/K10 in dot mode (``fused_graph_attention``) with in-kernel
+      attention dropout;
+    * the same case on a graph with dedup layouts is the reference's
+      count-matrix dot attention (``dedup_dot_attention``, K7/K8 in dot
+      mode), not ported yet: it raises ``NotImplementedError``;
+    * otherwise (``edge_feat`` given, or ``concat=False``): the reference's
+      edge-space composition (``:545-565``) in torch.
+
+    Dropout draws from the layer's own generator, as ``GATConv``'s.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 num_heads: int = 4, feat_drop: float = 0.6,
+                 attn_drop: float = 0.6, concat: bool = True,
+                 skip_feat: bool = True, gate: bool = False,
+                 layer_norm: bool = True, attn_drop_mode: str = "edge",
+                 activation: Any = "relu", *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        _check_drop_mode(attn_drop_mode)
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        self.num_heads = num_heads
+        self.feat_drop = feat_drop
+        self.attn_drop = attn_drop
+        self.concat = concat
+        self.attn_drop_mode = attn_drop_mode
+        self.activation = _resolve_act(activation)
+        device = resolve_device(device)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        HD = num_heads * hidden_size
+        width = HD if concat else hidden_size
+        self.q = _dense(input_size, HD, gen)
+        self.k = _dense(input_size, HD, gen)
+        self.v = _dense(input_size, HD, gen)
+        self.skip_feat = _dense(input_size, width, gen) if skip_feat \
+            else None
+        self.gate = _dense(3 * width, 1, gen) if skip_feat and gate else None
+        self.ln = nn.LayerNorm(width, eps=1e-6) if layer_norm else None
+        self.generator = _layer_generator(gen, device)
+        self.to(device)
+
+    def forward(self, graph, feature, edge_feat=None,
+                training: bool = False):
+        H, D = self.num_heads, self.hidden_size
+        rate = float(self.attn_drop) if training else 0.0
+        fused = edge_feat is None and self.concat
+        if fused and _dedup_route(graph, rate, self.attn_drop_mode):
+            raise NotImplementedError(
+                "TransformerConv on a graph with dedup layouts takes the "
+                "reference's count-matrix dot attention (dedup_dot_attention, "
+                "K7/K8 in dot mode), which is not ported yet")
+        dropping = training and self.feat_drop > 1e-5
+        if dropping:
+            feature = _dropout(feature, self.feat_drop, self.generator)
+        q = self.q(feature) / D ** 0.5
+        k = self.k(feature)
+        v = self.v(feature)
+        if edge_feat is not None and dropping:
+            edge_feat = _dropout(edge_feat, self.feat_drop, self.generator)
+        if fused:
+            output = fused_graph_attention(
+                q, k, v, *graph._attention_layouts(), H, 0.0, dsh=D, dvh=D,
+                attn_drop=rate, drop_seed=_attn_seed(self.generator, rate))
+        else:
+            output = self._edge_attention(graph, q, k, v, edge_feat, rate)
+        if self.skip_feat is not None:
+            skip = self.skip_feat(feature)
+            if self.gate is not None:
+                g = torch.sigmoid(self.gate(
+                    torch.cat([skip, output, skip - output], dim=-1)))
+                output = g * skip + (1 - g) * output
+            else:
+                output = skip + output
+        if self.ln is not None:
+            output = self.ln(output)
+        if self.activation is not None:
+            output = self.activation(output)
+        return output
+
+    def _edge_attention(self, graph, q, k, v, edge_feat, rate: float):
+        """The reference's composition in edge space: gather, per-head
+        scores, softmax over each destination's edges, dropout on the
+        probabilities, weighted sum (``:545-565``)."""
+        H, D = self.num_heads, self.hidden_size
+        src, dst = graph.edges[:, 0], graph.edges[:, 1]
+        q_e = q.reshape(-1, H, D)[dst]
+        k_e = k.reshape(-1, H, D)[src]
+        v_e = v.reshape(-1, H, D)[src]
+        if edge_feat is not None:
+            edge_feat = edge_feat.reshape(-1, H, D)
+            k_e = k_e + edge_feat
+            v_e = v_e + edge_feat
+        alpha = segment_softmax((q_e * k_e).sum(-1), dst, graph.num_nodes)
+        if rate > 1e-15:
+            alpha = _dropout(alpha, rate, self.generator)
+        msg = v_e * alpha[..., None]
+        msg = msg.reshape(-1, H * D) if self.concat else msg.mean(dim=1)
+        return segment_sum(msg, dst, graph.num_nodes)

@@ -1,10 +1,12 @@
-"""Per-edge GAT attention: the kernels behind ``GATConv``.
+"""Per-edge graph attention: the kernels behind ``GATConv`` and
+``TransformerConv``.
 
-Port of the additive half of ``pgl_tpu/ops/pallas/attention_kernels.py``
-(``fused_gat_attention``: ``_attn_kernel`` forward, K9;
-``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel`` backward, K10) onto
-hand-written CUDA kernels for Hopper, ``csrc/attention_kernels.cu``, whose
-note gives the design.
+Port of ``pgl_tpu/ops/pallas/attention_kernels.py`` (``_attn_kernel``
+forward, K9; ``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel`` backward,
+K10) in both of its score modes onto hand-written CUDA kernels for Hopper,
+``csrc/attention_kernels.cu``, whose note gives the design: additive
+(``fused_gat_attention``, GAT's ``a_dst + a_src``) and dot
+(``fused_graph_attention``, per-head ``q·k``).
 
 * :func:`build_attention_layouts` builds, once on the host (numpy), the
   two work lists the kernels walk: CSC (rows are destinations, edges in the
@@ -12,25 +14,31 @@ note gives the design.
   counter) and CSR (rows are sources), which carries for every edge its CSC
   position, the reference's ``perm`` (``pgl_tpu/graph.py:569-574``). Rows
   are cut into pieces of at most ``ET`` edges by ``segment_kernels.cut_rows``.
-* :func:`fused_gat_attention` is an autograd ``Function`` with the
-  reference's contract (``:855-938``): the forward (K9) saves ``lse``; the
-  backward computes ``delta = Σ g·out`` per (row, head) in torch, then runs
-  K10-dq over the CSC layout (``d a_dst``) and K10-dkv over the CSR layout
-  (``d a_src`` and ``dv``). The dropout seed is saved, so all three passes
-  draw the same mask.
-* :func:`gat_attention_reference`, :func:`gat_dq_reference` and
-  :func:`gat_dkv_reference` are the plain PyTorch versions, in edge space
-  with ``index_add_``, over :func:`plain_attention` and :func:`edge_grads`
-  (which the count-matrix attention's plain versions share). CPU tensors
-  run them; CUDA tensors launch the kernels or raise.
+* :func:`fused_gat_attention` and :func:`fused_graph_attention` are
+  autograd ``Function``s with the reference's contracts (``:855-938`` and
+  ``:756-777``): the forward (K9) saves ``lse``; the backward computes
+  ``delta = Σ g·out`` per (row, head) in torch, then runs K10-dq over the
+  CSC layout (``d a_dst`` or ``dq``) and K10-dkv over the CSR layout
+  (``d a_src`` or ``dk``, and ``dv``). The dropout seed is saved, so all
+  three passes draw the same mask.
+* The plain PyTorch versions, in edge space with ``index_add_``, over
+  :func:`plain_attention` and :func:`edge_grads` (which the count-matrix
+  attention's plain versions share): :func:`gat_attention_reference`,
+  :func:`gat_dq_reference` and :func:`gat_dkv_reference` (additive),
+  :func:`dot_attention_reference`, :func:`dot_dq_reference` and
+  :func:`dot_dkv_reference` (dot). CPU tensors run them; CUDA tensors
+  launch the kernels or raise.
+* :func:`gat_score_features` writes GAT's additive score as a dot
+  (``:941-954``), for ``GATConv``'s many-head fallback.
 * :func:`drop_keep` and :func:`apply_hash_dropout` are the reference's
   counter-hash dropout (``_drop_keep`` and ``_apply_hash_dropout``) in torch
   integer arithmetic, bit for bit.
 
-``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, H, dvh)``, kernel one of
-``gat_fwd``, ``gat_dq``, ``gat_dkv`` and, where a layout has split rows,
-their second launches ``gat_fwd_combine``, ``gat_dq_combine`` and
-``gat_dkv_combine``.
+``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, H, dvh)`` in additive
+mode, kernel one of ``gat_fwd``, ``gat_dq``, ``gat_dkv``, and by
+``(kernel, H, dsh, dvh)`` in dot mode, kernel one of ``dot_fwd``,
+``dot_dq``, ``dot_dkv``; where a layout has split rows, each kernel's
+second launch counts under its name with ``_combine``.
 """
 
 from __future__ import annotations
@@ -51,15 +59,19 @@ from .segment_kernels import cut_rows
 
 __all__ = ["AttentionLayout", "build_attention_layouts", "drop_keep",
            "apply_hash_dropout", "plain_attention", "edge_grads",
-           "gat_attention_reference",
-           "gat_dq_reference", "gat_dkv_reference", "fused_gat_attention",
-           "ET", "MAX_SLOTS", "LAUNCHES_BY_SHAPE", "reset_launches"]
+           "gat_attention_reference", "gat_dq_reference",
+           "gat_dkv_reference", "fused_gat_attention", "head_scatter",
+           "dot_attention_reference", "dot_dq_reference",
+           "dot_dkv_reference", "fused_graph_attention",
+           "gat_score_features", "ET", "MAX_SLOTS", "LAUNCHES_BY_SHAPE",
+           "reset_launches"]
 
 # most edges in one piece (one warp's work); read when a layout is built
 ET = 256
 
-# the kernels hold H * dvh_p columns (dvh rounded up to a power of two) in
-# at most 16 registers a lane
+# the kernels hold H heads of dvh_p slots (additive) or of max(dsh_p,
+# dvh_p) slots (dot; widths rounded up to powers of two) in at most 16
+# registers a lane
 MAX_SLOTS = 512
 
 LAUNCHES_BY_SHAPE: Counter = Counter()
@@ -190,15 +202,29 @@ def _ends(layout):
     return (rows, other) if layout.kind == "csc" else (other, rows)
 
 
+def _raw_scores(a_dst, a_src, dst, src, dsh):
+    """Per-edge scores before the leaky relu, [E, H]: ``a_dst[dst] +
+    a_src[src]`` (additive, ``dsh`` None) or, per head, the dot of the
+    ``dsh``-wide slices of ``q = a_dst`` at ``dst`` and ``k = a_src`` at
+    ``src`` (dot)."""
+    if dsh is None:
+        return a_dst[dst] + a_src[src]
+    E, H = dst.shape[0], a_dst.shape[1] // dsh
+    return (a_dst[dst].reshape(E, H, dsh)
+            * a_src[src].reshape(E, H, dsh)).sum(-1)
+
+
 def plain_attention(a_dst, a_src, v, dst, src, keys, leaky_slope, dvh,
-                    attn_drop, seed):
+                    attn_drop, seed, dsh=None):
     """``(out [N, H·dvh], lse [N, H])`` over the edges ``src[e] -> dst[e]``
     (int64), with the hash dropout keyed by ``keys[e]``: the plain forward
-    of the per-edge (K9) and the count-matrix (K7) attention. An empty row
-    gives zeros in both."""
-    N, H = a_dst.shape
+    of the per-edge (K9) and the count-matrix (K7) attention, additive or,
+    given ``dsh``, dot (``a_dst``, ``a_src`` are then q, k [N, H·dsh]). An
+    empty row gives zeros in both."""
+    N = a_dst.shape[0]
     E = dst.shape[0]
-    s = _leaky(a_dst[dst] + a_src[src], leaky_slope)            # [E, H]
+    s = _leaky(_raw_scores(a_dst, a_src, dst, src, dsh), leaky_slope)
+    H = s.shape[1]
     p = segment_softmax(s, dst, N)
     m = segment_max(s.detach(), dst, N)
     total = segment_sum(torch.exp(s - m[dst]), dst, N)
@@ -223,14 +249,14 @@ def gat_attention_reference(a_dst, a_src, v, layout: AttentionLayout,
 
 
 def edge_grads(a_dst, a_src, v, g, lse, delta, dst, src, keys, leaky_slope,
-               dvh, attn_drop, seed):
+               dvh, attn_drop, seed, dsh=None):
     """Per edge ``src[e] -> dst[e]`` (int64) with dropout key ``keys[e]``:
     ``(q, ds, g_e)``, with q the dropped probability, ds the score's
     cotangent (``:367-386``) and g_e the destination's cotangent row
-    [E, H, dvh]."""
-    H = a_dst.shape[1]
+    [E, H, dvh]; scores as in :func:`plain_attention`."""
     E = dst.shape[0]
-    s_raw = a_dst[dst] + a_src[src]
+    s_raw = _raw_scores(a_dst, a_src, dst, src, dsh)
+    H = s_raw.shape[1]
     p = torch.exp(_leaky(s_raw, leaky_slope) - lse[dst])
     q = apply_hash_dropout(p, attn_drop, seed, keys) if attn_drop else p
     g_e = g[dst].reshape(E, H, dvh)
@@ -264,9 +290,56 @@ def gat_dkv_reference(a_dst, a_src, v, g, lse, delta,
     q, ds, g_e = edge_grads(a_dst, a_src, v, g, lse, delta, dst, src,
                             layout.positions(), leaky_slope, dvh, attn_drop,
                             seed)
-    dv = (q[..., None] * g_e).reshape(-1, H * dvh)
     return (ds.new_zeros(N, H).index_add_(0, src, ds),
-            dv.new_zeros(N, H * dvh).index_add_(0, src, dv))
+            head_scatter(q, g_e.reshape(len(src), -1), src, N))
+
+
+def head_scatter(ds, x_e, rows, num_rows: int):
+    """``out[r, h-slice] = Σ_{e: rows[e]=r} ds[e, h] · x_e[e, h-slice]``:
+    the per-head sum of edge rows ``x_e`` [E, H·w] weighted by ``ds``
+    [E, H], into [num_rows, H·w]."""
+    E, H = ds.shape
+    terms = (ds[..., None] * x_e.reshape(E, H, -1)).reshape(E, -1)
+    return terms.new_zeros(num_rows, terms.shape[1]).index_add_(0, rows,
+                                                                terms)
+
+
+def dot_attention_reference(q, k, v, layout: AttentionLayout, dsh: int,
+                            dvh: int, leaky_slope: float = 0.0,
+                            attn_drop: float = 0.0, seed=None):
+    """The plain dot-mode forward: ``(out [N, H·dvh], lse [N, H])`` over the
+    CSC ``layout`` (``_xla_reference``, ``:724-751``, with the hash dropout,
+    plus the log-sum-exp of each row's scores; an empty row gives zeros in
+    both)."""
+    return plain_attention(q, k, v, *_ends(layout), layout.positions(),
+                           leaky_slope, dvh, attn_drop, seed, dsh)
+
+
+def dot_dq_reference(q, k, v, g, lse, delta, layout: AttentionLayout,
+                     dsh: int, dvh: int, leaky_slope: float = 0.0,
+                     attn_drop: float = 0.0, seed=None):
+    """The plain dot-mode K10-dq: ``dq [N, H·dsh]``, per head ``Σ_e ds_e ·
+    k[src_e]`` over the CSC ``layout``."""
+    dst, src = _ends(layout)
+    _, ds, _ = edge_grads(q, k, v, g, lse, delta, dst, src,
+                          layout.positions(), leaky_slope, dvh, attn_drop,
+                          seed, dsh)
+    return head_scatter(ds, k[src], dst, q.shape[0])
+
+
+def dot_dkv_reference(q, k, v, g, lse, delta, layout: AttentionLayout,
+                      dsh: int, dvh: int, leaky_slope: float = 0.0,
+                      attn_drop: float = 0.0, seed=None):
+    """The plain dot-mode K10-dkv: ``(dk [N, H·dsh], dv [N, H·dvh])``, per
+    head ``Σ_e ds_e · q[dst_e]`` and ``Σ_e q_e · g[dst_e]`` over the CSR
+    ``layout``, whose ``eidx`` gives the dropout hash its CSC positions."""
+    N = k.shape[0]
+    dst, src = _ends(layout)
+    qe, ds, g_e = edge_grads(q, k, v, g, lse, delta, dst, src,
+                             layout.positions(), leaky_slope, dvh, attn_drop,
+                             seed, dsh)
+    return (head_scatter(ds, q[dst], src, N),
+            head_scatter(qe, g_e.reshape(dst.shape[0], -1), src, N))
 
 
 # -- CUDA --------------------------------------------------------------------
@@ -277,10 +350,15 @@ def _lib():
     # (device, tables..., indices[, eidx], pieces, n_pieces, split_rows,
     #  split_ptr, n_split, H, dvh, slope, seed, thresh, inv_keep,
     #  outputs..., partials, stream)
+    # (dot mode: H, dsh, dvh)
     work = [p, i, p, p, i, i, i, f, p, i, f]
+    dot = [p, i, p, p, i, i, i, i, f, p, i, f]
     sigs = {"pgl_gat_fwd_f32": [i] + [p] * 4 + work + [p] * 4,
             "pgl_gat_dq_f32": [i] + [p] * 7 + work + [p] * 3,
-            "pgl_gat_dkv_f32": [i] + [p] * 8 + work + [p] * 4}
+            "pgl_gat_dkv_f32": [i] + [p] * 8 + work + [p] * 4,
+            "pgl_dot_fwd_f32": [i] + [p] * 4 + dot + [p] * 4,
+            "pgl_dot_dq_f32": [i] + [p] * 7 + dot + [p] * 3,
+            "pgl_dot_dkv_f32": [i] + [p] * 8 + dot + [p] * 4}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -293,11 +371,15 @@ def _dvh_p(dvh: int) -> int:
     return 1 << (int(dvh) - 1).bit_length()
 
 
-def _check(layout, H, dvh, *tensors):
-    """Raise on what the kernels do not take."""
-    if H * _dvh_p(dvh) > MAX_SLOTS:
-        raise ValueError(f"{H} heads of width {dvh} need {H * _dvh_p(dvh)} "
-                         f"slots; the CUDA attention holds {MAX_SLOTS}")
+def _check(layout, H, dvh, *tensors, dsh=None):
+    """Raise on what the kernels do not take (``dsh``: dot mode, whose
+    heads hold score and value columns in the same slots)."""
+    width = _dvh_p(dvh) if dsh is None else max(_dvh_p(dsh), _dvh_p(dvh))
+    if H * width > MAX_SLOTS:
+        what = f"width {dvh}" if dsh is None \
+            else f"score width {dsh} and value width {dvh}"
+        raise ValueError(f"{H} heads of {what} need {H * width} slots; the "
+                         f"CUDA attention holds {MAX_SLOTS}")
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"the CUDA attention takes CUDA tensors, got "
@@ -330,10 +412,10 @@ def _raise_on(rc, name):
                            f"error {rc}")
 
 
-def _count(name, layout, H, dvh):
-    LAUNCHES_BY_SHAPE[(name, H, dvh)] += 1
+def _count(name, layout, *shape):
+    LAUNCHES_BY_SHAPE[(name, *shape)] += 1
     if layout.split_rows.shape[0]:
-        LAUNCHES_BY_SHAPE[(f"{name}_combine", H, dvh)] += 1
+        LAUNCHES_BY_SHAPE[(f"{name}_combine", *shape)] += 1
 
 
 def _stream(t):
@@ -462,3 +544,140 @@ def fused_gat_attention(a_dst, a_src, v, csc: AttentionLayout,
     return _GatAttention.apply(a_dst.contiguous(), a_src.contiguous(),
                                v.contiguous(), csc, csr, leaky_slope, dvh,
                                rate, seed)
+
+
+# -- dot mode ----------------------------------------------------------------
+
+def _dot_fwd_cuda(q, k, v, lay, slope, dsh, dvh, rate, seed):
+    N, H = q.shape[0], q.shape[1] // dsh
+    _check(lay, H, dvh, q, k, v, dsh=dsh)
+    out = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
+    lse = torch.empty(N, H, dtype=v.dtype, device=v.device)
+    part = torch.empty(lay.num_partials, H * dvh + 2 * H, dtype=v.dtype,
+                       device=v.device)
+    thresh, inv_keep = _drop_args(rate)
+    _raise_on(_lib().pgl_dot_fwd_f32(
+        v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        lay.indices.data_ptr(), lay.pieces.data_ptr(), lay.pieces.shape[0],
+        lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
+        lay.split_rows.shape[0], H, dsh, dvh, slope, seed.data_ptr(), thresh,
+        inv_keep, out.data_ptr(), lse.data_ptr(), part.data_ptr(),
+        _stream(v)), "dot forward")
+    _count("dot_fwd", lay, H, dsh, dvh)
+    return out, lse
+
+
+def _dot_dq_cuda(q, k, v, g, lse, delta, lay, slope, dsh, dvh, rate, seed):
+    N, H = q.shape[0], q.shape[1] // dsh
+    _check(lay, H, dvh, q, k, v, g, lse, delta, dsh=dsh)
+    dq = torch.empty(N, H * dsh, dtype=v.dtype, device=v.device)
+    part = torch.empty(lay.num_partials, H * dsh, dtype=v.dtype,
+                       device=v.device)
+    thresh, inv_keep = _drop_args(rate)
+    _raise_on(_lib().pgl_dot_dq_f32(
+        v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        lay.indices.data_ptr(), lay.pieces.data_ptr(), lay.pieces.shape[0],
+        lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
+        lay.split_rows.shape[0], H, dsh, dvh, slope, seed.data_ptr(), thresh,
+        inv_keep, dq.data_ptr(), part.data_ptr(), _stream(v)), "dot dq")
+    _count("dot_dq", lay, H, dsh, dvh)
+    return dq
+
+
+def _dot_dkv_cuda(q, k, v, g, lse, delta, lay, slope, dsh, dvh, rate,
+                  seed):
+    N, H = k.shape[0], k.shape[1] // dsh
+    _check(lay, H, dvh, q, k, v, g, lse, delta, dsh=dsh)
+    dk = torch.empty(N, H * dsh, dtype=v.dtype, device=v.device)
+    dv = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
+    part = torch.empty(lay.num_partials, H * (dsh + dvh), dtype=v.dtype,
+                       device=v.device)
+    thresh, inv_keep = _drop_args(rate)
+    _raise_on(_lib().pgl_dot_dkv_f32(
+        v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        lay.indices.data_ptr(), lay.eidx.data_ptr(), lay.pieces.data_ptr(),
+        lay.pieces.shape[0], lay.split_rows.data_ptr(),
+        lay.split_ptr.data_ptr(), lay.split_rows.shape[0], H, dsh, dvh,
+        slope, seed.data_ptr(), thresh, inv_keep, dk.data_ptr(),
+        dv.data_ptr(), part.data_ptr(), _stream(v)), "dot dkv")
+    _count("dot_dkv", lay, H, dsh, dvh)
+    return dk, dv
+
+
+class _DotAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, csc, csr, leaky_slope, dsh, dvh, rate, seed):
+        args = (csc, leaky_slope, dsh, dvh, rate, seed)
+        if use_attention_kernel(v):
+            out, lse = _dot_fwd_cuda(q, k, v, *args)
+        else:
+            out, lse = dot_attention_reference(q, k, v, csc, dsh, dvh,
+                                               leaky_slope, rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse, seed)
+        ctx.meta = (csc, csr, leaky_slope, dsh, dvh, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, seed = ctx.saved_tensors
+        csc, csr, slope, dsh, dvh, rate = ctx.meta
+        H = q.shape[1] // dsh
+        g = g.contiguous()
+        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+        ins = (q, k, v, g, lse, delta)
+        if use_attention_kernel(v):
+            dq = _dot_dq_cuda(*ins, csc, slope, dsh, dvh, rate, seed)
+            dk, dv = _dot_dkv_cuda(*ins, csr, slope, dsh, dvh, rate, seed)
+        else:
+            dq = dot_dq_reference(*ins, csc, dsh, dvh, slope, rate, seed)
+            dk, dv = dot_dkv_reference(*ins, csr, dsh, dvh, slope, rate,
+                                       seed)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def fused_graph_attention(q, k, v, csc: AttentionLayout, csr: AttentionLayout,
+                          num_heads: int, leaky_slope: float = 0.0, dsh=None,
+                          dvh=None, attn_drop: float = 0.0, drop_seed=None):
+    """Dot-score attention: ``out[r] = Σ_{e: dst=r} softmax_r(leaky(q[r] ·
+    k[src_e])) · v[src_e]`` per head, with the reference's in-kernel dropout
+    on the probabilities (as :func:`fused_gat_attention`).
+
+    Args:
+      q: [N, H·dsh] destination-side score features.
+      k: [N, H·dsh] source-side score features.
+      v: [N, H·dvh] values (no lane padding, unlike the reference's).
+      csc, csr: the graph's :func:`build_attention_layouts`.
+      num_heads: H.
+      leaky_slope: nonzero applies a leaky relu to the scores (GAT).
+      dsh, dvh: per-head score and value widths (default ``q.shape[1] //
+        H`` and ``v.shape[1] // H``).
+    Returns [N, H·dvh]; rows with no incoming edge are 0.
+    """
+    N, H = q.shape[0], int(num_heads)
+    dsh = dsh or q.shape[1] // H
+    dvh = dvh or v.shape[1] // H
+    if q.shape != (N, H * dsh) or k.shape != (N, H * dsh) \
+            or v.shape != (N, H * dvh):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} are not [N, {H} * {dsh}], "
+                         f"[N, {H} * {dsh}] and [N, {H} * {dvh}]")
+    seed = _seed_tensor(drop_seed, v.device)
+    return _DotAttention.apply(q.contiguous(), k.contiguous(),
+                               v.contiguous(), csc, csr, float(leaky_slope),
+                               dsh, dvh, float(attn_drop), seed)
+
+
+def gat_score_features(attn_dst, attn_src):
+    """GAT's additive score ``a_dst[r] + a_src[s]`` as a dot: per head,
+    ``q' = [a_dst_h, 1, 0, ...]`` and ``k' = [1, a_src_h, 0, ...]`` of
+    width ``dsh = max(2, 128 // H)``, the reference's padding to its 128
+    lanes (``:941-954``). Returns (q', k'), [N, H·dsh] each."""
+    N, H = attn_dst.shape
+    dsh = max(2, 128 // H)
+    ones = attn_dst.new_ones(N, H, 1)
+    pad = attn_dst.new_zeros(N, H, dsh - 2)
+    q = torch.cat([attn_dst[..., None], ones, pad], dim=-1)
+    k = torch.cat([ones, attn_src[..., None], pad], dim=-1)
+    return q.reshape(N, H * dsh), k.reshape(N, H * dsh)

@@ -9,6 +9,9 @@
 // * `Slots`: how a warp's lanes hold H heads of dvh columns: head h owns
 //   dvh_p (dvh rounded up to a power of two) consecutive slots, slot j =
 //   lane + 32 k, so a per-head sum is a shuffle reduction (`head_sum`);
+//   `DotSlots`, the same for the dot mode, whose heads hold their dsh score
+//   and dvh value columns in one group of max(dsh_p, dvh_p) slots, and
+//   `head_dot`, the one per-head score q . k of all three dot passes;
 // * the second launches that finish rows split over several warps:
 //   `gat_fwd_combine` merges online-softmax partials (m, l, acc),
 //   `sum_combine` adds plain partials, both in a fixed order (no float
@@ -70,34 +73,86 @@ struct Slots {
   }
 };
 
-// x[k] <- sum of x over the slots of k's head (every lane of the warp
-// must call it; dvh_p is uniform).
+// x[k] <- sum of x over the slots of k's head, a group of wp slots (a
+// power of two); every lane of the warp must call it (wp is uniform). Every
+// slot of a head ends with the same bits. Heads wider than a warp hold kph =
+// wp / 32 consecutive slots in each lane: those are summed in the lane
+// first, then once across the warp, and the sum is copied back.
 template <int NC>
-__device__ __forceinline__ void head_sum(float (&x)[NC], int dvh_p) {
-  if (dvh_p <= 32) {
+__device__ __forceinline__ void head_sum(float (&x)[NC], int wp) {
+  if (wp <= 32) {
 #pragma unroll
     for (int k = 0; k < NC; ++k)
-      for (int off = dvh_p >> 1; off > 0; off >>= 1)
+      for (int off = wp >> 1; off > 0; off >>= 1)
         x[k] += __shfl_xor_sync(kFull, x[k], off);
-  } else {
-    const int kph = dvh_p >> 5;  // slots of one head per lane
-    float red[NC];
+    return;
+  }
+  const int kph = wp >> 5;
 #pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      red[k] = x[k];
+  for (int s = 1; s < NC; s <<= 1) {
+    if (s < kph) {
+      float t[NC];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        red[k] += __shfl_xor_sync(kFull, red[k], off);
-    }
+      for (int k = 0; k < NC; ++k) t[k] = x[k] + x[k ^ s];
 #pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      float t = 0.f;
-#pragma unroll
-      for (int k2 = 0; k2 < NC; ++k2)
-        if (k2 / kph == k / kph) t += red[k2];
-      x[k] = t;
+      for (int k = 0; k < NC; ++k) x[k] = t[k];
     }
   }
+#pragma unroll
+  for (int k = 0; k < NC; ++k)
+    if ((k & (kph - 1)) == 0) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        x[k] += __shfl_xor_sync(kFull, x[k], off);
+    }
+#pragma unroll
+  for (int s = 1; s < NC; s <<= 1) {
+    if (s < kph) {
+#pragma unroll
+      for (int k = 0; k < NC; ++k)
+        if (k & s) x[k] = x[k ^ s];
+    }
+  }
+}
+
+// Dot mode: head h owns wp = max(dsh_p, dvh_p) consecutive slots (slot j =
+// lane + 32 k); slot w of head h holds score column h * dsh + w (w < dsh,
+// else -1) and value column h * dvh + w (w < dvh, else -1).
+template <int NC>
+struct DotSlots {
+  int head[NC];
+  int scol[NC];
+  int vcol[NC];
+  uint32_t hc[NC];
+  bool lead[NC];
+
+  __device__ __forceinline__ DotSlots(int lane, int H, int dsh, int dvh,
+                                      int wp) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int j = lane + 32 * k;
+      const int h = j / wp;
+      const int w = j - h * wp;
+      const bool ok = h < H;
+      head[k] = min(h, H - 1);
+      scol[k] = ok && w < dsh ? h * dsh + w : -1;
+      vcol[k] = ok && w < dvh ? h * dvh + w : -1;
+      hc[k] = static_cast<uint32_t>(head[k]) * 0x632BE5ABu;
+      lead[k] = ok && w == 0;
+    }
+  }
+};
+
+// s[k] <- the score q . k of k's head, the same bits in every pass: K9 and
+// K10-dq hold q resident and gather k, K10-dkv gathers q and holds k, and
+// all three call this with q first and the same slot map and tree.
+template <int NC>
+__device__ __forceinline__ void head_dot(const float (&q)[NC],
+                                         const float (&k)[NC], int wp,
+                                         float (&s)[NC]) {
+#pragma unroll
+  for (int i = 0; i < NC; ++i) s[i] = q[i] * k[i];
+  head_sum<NC>(s, wp);
 }
 
 // Online merge of a softmax state (M, L, A) with a partial (m, l, a).

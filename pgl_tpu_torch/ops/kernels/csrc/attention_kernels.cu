@@ -1,26 +1,40 @@
-// Per-edge GAT attention for Hopper (sm_90a), additive scores:
-//   s_e     = leaky(a_dst[r, h] + a_src[src_e, h])          (edge e into row r)
+// Per-edge graph attention for Hopper (sm_90a), in two score modes:
+//   additive (GAT):  s_e = leaky(a_dst[r, h] + a_src[src_e, h])
+//   dot (UniMP's TransformerConv, GAT's many-head fallback):
+//                    s_e = leaky(q[r, h-slice] . k[src_e, h-slice])
+// for edge e into row r and head h, then
 //   out[r]  = sum_e keep_e * softmax_r(s)_e * v[src_e] / (1 - rate)
 //   lse[r]  = log sum_e exp(s_e)                             (per head)
 // and its flash-style backward.
 //
 // Replaces the TPU kernels of pgl_tpu/ops/pallas/attention_kernels.py in
-// their additive mode (`fused_gat_attention`): `_attn_kernel` (forward, K9),
-// `_attn_bwd_dq_kernel` (the CSC pass, d a_dst) and `_attn_bwd_dkv_kernel`
-// (the CSR pass, d a_src and dv) (K10).
+// both modes (`fused_gat_attention`, `fused_graph_attention`):
+// `_attn_kernel` (:86, forward, K9), `_attn_bwd_dq_kernel` (:288, the CSC
+// pass: d a_dst, or dq = sum_e ds_e k[src_e]) and `_attn_bwd_dkv_kernel`
+// (:403, the CSR pass: d a_src or dk = sum_e ds_e q[dst_e], and dv) (K10).
 //
 // What bounds it: bytes and latency, not arithmetic. Per edge the forward
-// reads one index, H scores and the C = H * dvh values of the source row;
-// the backward passes read as much again plus the cotangent row. Each edge
-// costs a few exps per column, far below the card's rate. The design:
+// reads one index, H scores (additive) or the H * dsh columns of k, and the
+// C = H * dvh values of the source row; the backward passes read as much
+// again plus the cotangent row. In dot mode at UniMP's width (2 heads of
+// 128) that is 2 KB of gathered rows an edge, so the gathers, not the
+// per-edge arithmetic (a few exps per column), set the pace. The design:
 //   * one warp walks one piece of at most ET edges of a row, the work list
 //     of `segment_kernels.cut_rows` built on the host, so a hub row (38% of
 //     the edges of the bench GAT graph) spreads over many SMs; there is no
 //     [E, C] gathered stream in device memory (the TPU kernels DMA one);
-//   * lanes take "slots": head h owns dvh_p (dvh rounded up to a power of
-//     two) consecutive slots, slot j = lane + 32 k, so the lanes of one head
-//     sit in one aligned group and a per-head dot product (g . v) is a
-//     shuffle reduction inside the group (dvh_p <= 32) or across the warp;
+//     each gathered row is read by the warp's lanes on neighbouring
+//     addresses (128-byte transactions);
+//   * lanes take "slots": head h owns a power-of-two group of consecutive
+//     slots (dvh_p in additive mode; max(dsh_p, dvh_p) in dot mode, score
+//     and value columns in the same slots), slot j = lane + 32 k, so the
+//     lanes of one head sit in one aligned group and a per-head dot product
+//     (q . k, g . v) is a shuffle reduction inside the group (<= 32 slots)
+//     or a sum in the lane and then across the warp (`head_sum`);
+//   * the dot score is one device function (`head_dot`) with the same slot
+//     map and tree in all three passes, so the backward's p = exp(s - lse)
+//     sees the forward's bits (the reference runs its score dots at HIGHEST
+//     precision for the same reason);
 //   * the forward keeps an online (max, sum, acc) per slot, the backward
 //     recomputes p = exp(s - lse) from the saved lse;
 //   * a row of one piece stores its result directly, an empty row stores
@@ -327,6 +341,315 @@ gat_dkv_pieces(const float* __restrict__ a_dst,
   }
 }
 
+// Dot-mode K9, one warp per CSC piece (row, begin, end, slot): q's row is
+// resident, each edge gathers k's and v's source rows.
+template <int NC, int U>
+__global__ void __launch_bounds__(kWarps * 32)
+dot_fwd_pieces(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const int* __restrict__ indices,
+               const int4* __restrict__ pieces, int n_pieces, int H, int dsh,
+               int dvh, int wp, float slope, const int* __restrict__ seed_p,
+               int thresh, float inv_keep, float* __restrict__ out,
+               float* __restrict__ lse, float* __restrict__ partials) {
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= n_pieces) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  const int DS = H * dsh;
+  const int C = H * dvh;
+  const int4 pc = pieces[warp];
+  const DotSlots<NC> sl(lane, H, dsh, dvh, wp);
+  const bool drop = thresh >= 0;
+  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
+
+  float qr[NC], m[NC], l[NC], acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    qr[c] = sl.scol[c] >= 0
+                ? __ldg(q + static_cast<size_t>(pc.x) * DS + sl.scol[c])
+                : 0.f;
+    m[c] = kMaskValue;
+    l[c] = 0.f;
+    acc[c] = 0.f;
+  }
+  int mine = lane < pc.z - pc.y ? __ldg(indices + pc.y + lane) : 0;
+  for (long long base = pc.y; base < pc.z; base += 32) {
+    const int n = static_cast<int>(min(32LL, pc.z - base));
+    const long long next_e = base + 32 + lane;
+    const int next = next_e < pc.z ? __ldg(indices + next_e) : 0;
+    for (int j0 = 0; j0 < n; j0 += U) {
+      float kk[U][NC], vv[U][NC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        const int s = __shfl_sync(kFull, mine, j & 31);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          kk[u][c] = (j < n && sl.scol[c] >= 0)
+                         ? __ldg(k + static_cast<size_t>(s) * DS + sl.scol[c])
+                         : 0.f;
+          vv[u][c] = (j < n && sl.vcol[c] >= 0)
+                         ? __ldg(v + static_cast<size_t>(s) * C + sl.vcol[c])
+                         : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        if (j >= n) break;  // uniform
+        const uint32_t e = static_cast<uint32_t>(base + j);
+        float sd[NC];
+        head_dot<NC>(qr, kk[u], wp, sd);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float s = leaky(sd[c], slope);
+          const float mn = fmaxf(m[c], s);
+          const float sc = expf(m[c] - mn);
+          const float p = expf(s - mn);
+          l[c] = l[c] * sc + p;
+          const float pk =
+              (!drop || drop_keep(e, seed, sl.hc[c], thresh)) ? p : 0.f;
+          acc[c] = acc[c] * sc + pk * vv[u][c];
+          m[c] = mn;
+        }
+      }
+    }
+    mine = next;
+  }
+  if (pc.w < 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const bool row = l[c] > 0.f;  // an empty row stores zeros
+      if (sl.vcol[c] >= 0)
+        out[static_cast<size_t>(pc.x) * C + sl.vcol[c]] =
+            row ? acc[c] * (inv_keep / fmaxf(l[c], 1e-30f)) : 0.f;
+      if (sl.lead[c])
+        lse[static_cast<size_t>(pc.x) * H + sl.head[c]] =
+            row ? m[c] + logf(l[c]) : 0.f;
+    }
+  } else {
+    // partial row: acc [C] | m [H] | l [H] (the additive mode's, so
+    // gat_fwd_combine merges it)
+    float* part = partials + static_cast<size_t>(pc.w) * (C + 2 * H);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (sl.vcol[c] >= 0) part[sl.vcol[c]] = acc[c];
+      if (sl.lead[c]) {
+        part[C + sl.head[c]] = m[c];
+        part[C + H + sl.head[c]] = l[c];
+      }
+    }
+  }
+}
+
+// Dot-mode K10-dq, one warp per CSC piece: dq[r, h-slice] = sum_e ds_e *
+// k[src_e, h-slice], with q's and g's rows and lse and delta resident.
+template <int NC, int U>
+__global__ void __launch_bounds__(kWarps * 32)
+dot_dq_pieces(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ g,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              const int* __restrict__ indices,
+              const int4* __restrict__ pieces, int n_pieces, int H, int dsh,
+              int dvh, int wp, float slope, const int* __restrict__ seed_p,
+              int thresh, float inv_keep, float* __restrict__ dq,
+              float* __restrict__ partials) {
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= n_pieces) return;
+  const int lane = threadIdx.x & 31;
+  const int DS = H * dsh;
+  const int C = H * dvh;
+  const int4 pc = pieces[warp];
+  const DotSlots<NC> sl(lane, H, dsh, dvh, wp);
+  const bool drop = thresh >= 0;
+  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
+
+  float qr[NC], gr[NC], ls[NC], dl[NC], acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const size_t rh = static_cast<size_t>(pc.x) * H + sl.head[c];
+    qr[c] = sl.scol[c] >= 0
+                ? __ldg(q + static_cast<size_t>(pc.x) * DS + sl.scol[c])
+                : 0.f;
+    gr[c] = sl.vcol[c] >= 0
+                ? __ldg(g + static_cast<size_t>(pc.x) * C + sl.vcol[c])
+                : 0.f;
+    ls[c] = __ldg(lse + rh);
+    dl[c] = __ldg(delta + rh);
+    acc[c] = 0.f;
+  }
+  int mine = lane < pc.z - pc.y ? __ldg(indices + pc.y + lane) : 0;
+  for (long long base = pc.y; base < pc.z; base += 32) {
+    const int n = static_cast<int>(min(32LL, pc.z - base));
+    const long long next_e = base + 32 + lane;
+    const int next = next_e < pc.z ? __ldg(indices + next_e) : 0;
+    for (int j0 = 0; j0 < n; j0 += U) {
+      float kk[U][NC], vv[U][NC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        const int s = __shfl_sync(kFull, mine, j & 31);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          kk[u][c] = (j < n && sl.scol[c] >= 0)
+                         ? __ldg(k + static_cast<size_t>(s) * DS + sl.scol[c])
+                         : 0.f;
+          vv[u][c] = (j < n && sl.vcol[c] >= 0)
+                         ? __ldg(v + static_cast<size_t>(s) * C + sl.vcol[c])
+                         : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        if (j >= n) break;  // uniform
+        const uint32_t e = static_cast<uint32_t>(base + j);
+        float sd[NC], gv[NC];
+        head_dot<NC>(qr, kk[u], wp, sd);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) gv[c] = gr[c] * vv[u][c];
+        head_sum<NC>(gv, wp);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float p = expf(leaky(sd[c], slope) - ls[c]);
+          const float qe =
+              drop ? (drop_keep(e, seed, sl.hc[c], thresh) ? p * inv_keep
+                                                           : 0.f)
+                   : p;
+          const float ds =
+              (qe * gv[c] - p * dl[c]) * leaky_grad(sd[c], slope);
+          acc[c] += ds * kk[u][c];
+        }
+      }
+    }
+    mine = next;
+  }
+  float* dst = pc.w < 0 ? dq + static_cast<size_t>(pc.x) * DS
+                        : partials + static_cast<size_t>(pc.w) * DS;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    if (sl.scol[c] >= 0) dst[sl.scol[c]] = acc[c];
+}
+
+// Dot-mode K10-dkv, one warp per CSR piece (the row is the source node s):
+// dk[s, h-slice] = sum_e ds_e * q[dst_e, h-slice], dv[s, h-slice] =
+// sum_e q_e * g[dst_e, h-slice], with k's and v's rows resident; every
+// out-edge gathers its destination's q and g rows, lse and delta, and its
+// CSC position from eidx for the dropout hash.
+template <int NC, int U>
+__global__ void __launch_bounds__(kWarps * 32)
+dot_dkv_pieces(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ g,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               const int* __restrict__ indices, const int* __restrict__ eidx,
+               const int4* __restrict__ pieces, int n_pieces, int H, int dsh,
+               int dvh, int wp, float slope, const int* __restrict__ seed_p,
+               int thresh, float inv_keep, float* __restrict__ dk,
+               float* __restrict__ dv, float* __restrict__ partials) {
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= n_pieces) return;
+  const int lane = threadIdx.x & 31;
+  const int DS = H * dsh;
+  const int C = H * dvh;
+  const int4 pc = pieces[warp];
+  const DotSlots<NC> sl(lane, H, dsh, dvh, wp);
+  const bool drop = thresh >= 0;
+  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
+
+  float kr[NC], vr[NC], dka[NC], dva[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    kr[c] = sl.scol[c] >= 0
+                ? __ldg(k + static_cast<size_t>(pc.x) * DS + sl.scol[c])
+                : 0.f;
+    vr[c] = sl.vcol[c] >= 0
+                ? __ldg(v + static_cast<size_t>(pc.x) * C + sl.vcol[c])
+                : 0.f;
+    dka[c] = 0.f;
+    dva[c] = 0.f;
+  }
+  const bool has = lane < pc.z - pc.y;
+  int mine = has ? __ldg(indices + pc.y + lane) : 0;
+  int mpos = has && drop ? __ldg(eidx + pc.y + lane) : 0;
+  for (long long base = pc.y; base < pc.z; base += 32) {
+    const int n = static_cast<int>(min(32LL, pc.z - base));
+    const long long next_e = base + 32 + lane;
+    const bool nhas = next_e < pc.z;
+    const int next = nhas ? __ldg(indices + next_e) : 0;
+    const int npos = nhas && drop ? __ldg(eidx + next_e) : 0;
+    for (int j0 = 0; j0 < n; j0 += U) {
+      float qd[U][NC], gd[U][NC], ls[U][NC], dl[U][NC];
+      uint32_t pos[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        const int d = __shfl_sync(kFull, mine, j & 31);
+        pos[u] = static_cast<uint32_t>(__shfl_sync(kFull, mpos, j & 31));
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const size_t dh = static_cast<size_t>(d) * H + sl.head[c];
+          qd[u][c] = (j < n && sl.scol[c] >= 0)
+                         ? __ldg(q + static_cast<size_t>(d) * DS + sl.scol[c])
+                         : 0.f;
+          gd[u][c] = (j < n && sl.vcol[c] >= 0)
+                         ? __ldg(g + static_cast<size_t>(d) * C + sl.vcol[c])
+                         : 0.f;
+          ls[u][c] = j < n ? __ldg(lse + dh) : 0.f;
+          dl[u][c] = j < n ? __ldg(delta + dh) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        if (j >= n) break;  // uniform
+        float sd[NC], gv[NC];
+        head_dot<NC>(qd[u], kr, wp, sd);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) gv[c] = gd[u][c] * vr[c];
+        head_sum<NC>(gv, wp);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float p = expf(leaky(sd[c], slope) - ls[u][c]);
+          const float qe =
+              drop ? (drop_keep(pos[u], seed, sl.hc[c], thresh)
+                          ? p * inv_keep
+                          : 0.f)
+                   : p;
+          const float ds =
+              (qe * gv[c] - p * dl[u][c]) * leaky_grad(sd[c], slope);
+          dka[c] += ds * qd[u][c];
+          dva[c] += qe * gd[u][c];
+        }
+      }
+    }
+    mine = next;
+    mpos = npos;
+  }
+  if (pc.w < 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (sl.scol[c] >= 0)
+        dk[static_cast<size_t>(pc.x) * DS + sl.scol[c]] = dka[c];
+      if (sl.vcol[c] >= 0)
+        dv[static_cast<size_t>(pc.x) * C + sl.vcol[c]] = dva[c];
+    }
+  } else {
+    // partial row: dk [DS] | dv [C]
+    float* part = partials + static_cast<size_t>(pc.w) * (DS + C);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (sl.scol[c] >= 0) part[sl.scol[c]] = dka[c];
+      if (sl.vcol[c] >= 0) part[DS + sl.vcol[c]] = dva[c];
+    }
+  }
+}
+
+// Slots per lane of the dot mode (0 if the heads do not fit) and the group
+// width wp of each head.
+int dot_slots(int H, int dsh, int dvh, int* wp) {
+  *wp = pow2_at_least(dsh > dvh ? dsh : dvh);
+  return slots_per_lane(H, *wp);
+}
+
 }  // namespace
 
 extern "C" int pgl_gat_fwd_f32(int device, const float* a_dst,
@@ -417,5 +740,101 @@ extern "C" int pgl_gat_dkv_f32(int device, const float* a_dst,
   if (n_split > 0)
     sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
         partials, split_rows, split_ptr, H, H * dvh, da_src, dv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pgl_dot_fwd_f32(int device, const float* q, const float* k,
+                               const float* v, const int* indices,
+                               const int* pieces, int n_pieces,
+                               const int* split_rows, const int* split_ptr,
+                               int n_split, int H, int dsh, int dvh,
+                               float slope, const int* seed, int thresh,
+                               float inv_keep, float* out, float* lse,
+                               float* partials, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int wp = 0;
+  const int nc = dot_slots(H, dsh, dvh, &wp);
+  const int dvh_p = pow2_at_least(dvh);
+  const int ncv = slots_per_lane(H, dvh_p);
+  if (nc == 0 || H <= 0 || dsh <= 0 || dvh <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* pc = reinterpret_cast<const int4*>(pieces);
+  PGL_NC_SWITCH(nc, {
+    dot_fwd_pieces<NC, unroll_for(NC)><<<blocks_for(n_pieces), kWarps * 32,
+                                         0, s>>>(
+        q, k, v, indices, pc, n_pieces, H, dsh, dvh, wp, slope, seed, thresh,
+        inv_keep, out, lse, partials);
+  })
+  if (n_split > 0) {
+    PGL_NC_SWITCH(ncv, {
+      gat_fwd_combine<NC><<<n_split, CombineWarps<NC>::value * 32, 0, s>>>(
+          partials, split_rows, split_ptr, H, dvh, dvh_p, inv_keep, out,
+          lse);
+    })
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pgl_dot_dq_f32(int device, const float* q, const float* k,
+                              const float* v, const float* g,
+                              const float* lse, const float* delta,
+                              const int* indices, const int* pieces,
+                              int n_pieces, const int* split_rows,
+                              const int* split_ptr, int n_split, int H,
+                              int dsh, int dvh, float slope, const int* seed,
+                              int thresh, float inv_keep, float* dq,
+                              float* partials, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int wp = 0;
+  const int nc = dot_slots(H, dsh, dvh, &wp);
+  if (nc == 0 || H <= 0 || dsh <= 0 || dvh <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* pc = reinterpret_cast<const int4*>(pieces);
+  PGL_NC_SWITCH(nc, {
+    dot_dq_pieces<NC, unroll_for(NC)><<<blocks_for(n_pieces), kWarps * 32, 0,
+                                        s>>>(
+        q, k, v, g, lse, delta, indices, pc, n_pieces, H, dsh, dvh, wp, slope,
+        seed, thresh, inv_keep, dq, partials);
+  })
+  if (n_split > 0)
+    sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
+        partials, split_rows, split_ptr, H * dsh, 0, dq, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pgl_dot_dkv_f32(int device, const float* q, const float* k,
+                               const float* v, const float* g,
+                               const float* lse, const float* delta,
+                               const int* indices, const int* eidx,
+                               const int* pieces, int n_pieces,
+                               const int* split_rows, const int* split_ptr,
+                               int n_split, int H, int dsh, int dvh,
+                               float slope, const int* seed, int thresh,
+                               float inv_keep, float* dk, float* dv,
+                               float* partials, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int wp = 0;
+  const int nc = dot_slots(H, dsh, dvh, &wp);
+  if (nc == 0 || H <= 0 || dsh <= 0 || dvh <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* pc = reinterpret_cast<const int4*>(pieces);
+  PGL_NC_SWITCH(nc, {
+    dot_dkv_pieces<NC, unroll_for(NC)><<<blocks_for(n_pieces), kWarps * 32,
+                                         0, s>>>(
+        q, k, v, g, lse, delta, indices, eidx, pc, n_pieces, H, dsh, dvh, wp,
+        slope, seed, thresh, inv_keep, dk, dv, partials);
+  })
+  if (n_split > 0)
+    sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
+        partials, split_rows, split_ptr, H * dsh, H * dvh, dk, dv);
   return static_cast<int>(cudaGetLastError());
 }

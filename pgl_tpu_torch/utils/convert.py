@@ -3,8 +3,10 @@
 Takes the parameter tree as nested dicts of numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``), so this module needs no JAX. A flax
 ``Dense`` kernel ``<path>/kernel`` of shape [in, out] becomes the
-``nn.Linear`` weight ``<path>.weight`` of shape [out, in]; every other leaf
-(``bias`` and friends) keeps its name and shape.
+``nn.Linear`` weight ``<path>.weight`` of shape [out, in]; a ``LayerNorm``
+``scale`` and an ``Embed`` ``embedding`` [num, features] become the
+``weight`` of ``nn.LayerNorm`` and ``nn.Embedding``, shape kept; every other
+leaf (``bias`` and friends) keeps its name and shape.
 """
 
 from __future__ import annotations
@@ -38,7 +40,11 @@ def flax_to_state_dict(params: Mapping,
     out = {}
     for path, value in _flatten(params):
         array = np.asarray(value)
-        if path.rsplit(".", 1)[-1] == "kernel" and array.ndim == 2:
-            path, array = path[:-len("kernel")] + "weight", array.T
+        head, _, leaf = path.rpartition(".")
+        if leaf == "kernel" and array.ndim == 2:
+            leaf, array = "weight", array.T
+        elif leaf in ("scale", "embedding"):
+            leaf = "weight"
+        path = f"{head}.{leaf}" if head else leaf
         out[path] = torch.tensor(array, device=device)
     return out

@@ -1,9 +1,10 @@
 """Port parity for GAT training: ``GATConv`` and ``GAT`` of
 ``pgl_tpu_torch`` against ``pgl_tpu``'s on the CPU with flax-initialised
 parameters carried over by ``pgl_tpu_torch.utils.convert``, through the
-per-edge attention (K9/K10) and, on a graph with dedup layouts, the
-count-matrix attention (K7/K8); the 20-step ``gat`` loss golden through
-both; the route rule of ``GATConv``; and the activation lookup."""
+per-edge attention (K9/K10; in dot mode for 3·H > 128) and, on a graph
+with dedup layouts, the count-matrix attention (K7/K8); the 20-step ``gat``
+loss golden through both; the route rule of ``GATConv``; and the
+activation lookup."""
 
 import os
 
@@ -273,20 +274,40 @@ def test_route_takes_the_reference_kernels(monkeypatch):
                  True) == "fused"
 
 
-def test_route_raises_where_the_reference_takes_other_kernels():
-    """The dot-mode fallback for 3·H > 128 off the count-matrix route, and
-    the unfused path for attention dropout at 3·H > 128 on any graph, are
-    not ported."""
+@pytest.mark.parametrize("training", [False, True])
+def test_gatconv_with_many_heads_matches_reference(training):
+    """3·H > 128 off the count-matrix route: the reference's many-head
+    fallback, K9/K10 in dot mode over ``gat_score_features`` (the plain
+    versions here; the reference's unfused path on the CPU computes the
+    same function). Evaluation with the default dropouts, and training
+    with both at 0."""
+    drop = 0.0 if training else 0.6
+    kw = dict(feat_drop=drop, attn_drop=drop, num_heads=43)
+    _check_logits_and_grads(JGATConv(16, 2, **kw),
+                            GATConv(16, 2, device="cpu", **kw), training)
+
+
+def test_route_raises_where_the_reference_takes_other_kernels(monkeypatch):
+    """3·H > 128 at rate 0 without dedup layouts takes the dot-mode
+    kernels over ``gat_score_features`` (dsh 2, leaky 0.2); the unfused
+    path for attention dropout at 3·H > 128 on any graph is not ported and
+    raises."""
+    calls = []
+    real = conv_module.fused_graph_attention
+    monkeypatch.setattr(conv_module, "fused_graph_attention",
+                        lambda *a, **k: calls.append((a, k)) or real(*a, **k))
     edges, gd = _dedup_multigraph()
     x = torch.randn(400, 16)
     g = Graph(edges, num_nodes=400).tensor("cpu")
-    with pytest.raises(NotImplementedError, match="dot-mode"):
-        GATConv(16, 2, num_heads=43, device="cpu")(g, x)
+    assert GATConv(16, 2, num_heads=43, device="cpu")(g, x).shape == (400, 86)
+    (args, kw), = calls
+    assert args[5:] == (43, 0.2) and kw == {"dsh": 2, "dvh": 2}
     wide = GATConv(16, 2, num_heads=43, attn_drop_mode="cell", device="cpu")
     for graph in (g, gd):
         with pytest.raises(NotImplementedError, match="unfused"):
             wide(graph, x, training=True)
     assert wide(gd, x).shape == (400, 86)            # rate 0: K7/K8
+    assert len(calls) == 1
     with pytest.raises(ValueError, match="attn_drop_mode"):
         GATConv(16, 2, attn_drop_mode="node", device="cpu")
 

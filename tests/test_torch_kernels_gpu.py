@@ -13,7 +13,8 @@ with the 2-norm of the terms an element sums. K4's counts must equal the
 plain counts bit for bit, and K5 and K6 must agree bit for bit. The
 attention kernels (K9, K10) go through ``check_attention`` (no terms scale:
 their outputs are convex combinations or sums of bounded terms) and must
-give the same bits on two runs; the count-matrix attention (K7, K8, and K1
+give the same bits on two runs; in dot mode through ``check_dot`` (dq, dk
+and dv with the terms scale); the count-matrix attention (K7, K8, and K1
 over ``red``) through ``check_dedup_attention``, with the same bits on two
 runs and on a layout without counts.
 """
@@ -24,14 +25,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (attention_graph, attention_inputs, check,
-                        check_attention, check_counts, check_dedup,
-                        check_dedup_attention, check_spmm,
+from chip_smoke import (DOT_KERNELS, attention_graph, attention_inputs,
+                        check, check_attention, check_counts, check_dedup,
+                        check_dedup_attention, check_dot, check_spmm,
                         dedup_attention_of, dedup_layouts, dispatch_settings,
-                        run_dedup_attention, skewed_graph, without_counts)
+                        dot_inputs, run_dedup_attention, run_dot,
+                        skewed_graph, without_counts)
 from pgl_tpu_torch import Graph
 from pgl_tpu_torch.datasets import community_graph
-from pgl_tpu_torch.models import GAT, GCN
+from pgl_tpu_torch.models import GAT, GCN, UniMP
+from pgl_tpu_torch.nn import TransformerConv
 from pgl_tpu_torch.ops.kernels import attention_kernels as ak
 from pgl_tpu_torch.ops.kernels import dedup_attention as da
 from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
@@ -315,3 +318,90 @@ def test_dedup_attention_wrapper_rejects_what_the_kernel_does_not_take(
     with pytest.raises(ValueError, match="slots"):
         da.dedup_gat_attention(wide, wide, torch.randn(100, 513,
                                                        device=cuda), att)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("H,dsh,dvh,leaky", [(2, 128, 128, 0.0),
+                                             (8, 16, 16, 0.0),
+                                             (43, 2, 8, 0.2)])
+def test_dot_attention_kernels_match_plain_version(cuda, H, dsh, dvh, leaky,
+                                                   rate):
+    """The dot-mode K9, K10-dq and K10-dkv at UniMP's shape, (8, 16, 16)
+    and a shape of GATConv's many-head fallback, on a graph whose hub
+    destination and hub source are both split across pieces; two runs give
+    the same bits."""
+    g = Graph(attention_graph(3000, 40000, seed=4), num_nodes=3000
+              ).tensor(cuda)
+    lays = g._attention_layouts()
+    shape = (H, dsh, dvh)
+    gen = torch.Generator(device=cuda).manual_seed(H * dsh * dvh)
+    ins = dot_inputs(3000, shape, cuda, gen)
+    seed = torch.tensor([-987654321], dtype=torch.int32, device=cuda)
+    ak.reset_launches()
+    got = run_dot(lays, ins, shape, leaky, rate, seed)
+    again = run_dot(lays, ins, shape, leaky, rate, seed)
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, got, again))
+    assert dict(ak.LAUNCHES_BY_SHAPE) == {
+        (k + c, *shape): 2 for k in DOT_KERNELS for c in ("", "_combine")}
+    check_dot("small", lays, ins, shape, leaky, rate, seed, got)
+    out, lse = got[:2]
+    assert (out[1:1500] == 0).all() and (lse[1:1500] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["TransformerConv", "UniMP"])
+def test_transformer_on_cuda_matches_cpu(cuda, kind):
+    """A small TransformerConv (3 heads of 8) and UniMP (2 heads of 16,
+    labels fed through a mask), CUDA kernels against the CPU's plain
+    versions with the same weights: logits and every parameter gradient at
+    ``check``'s rule, and the dot kernels launched."""
+    g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                                avg_degree=8, seed=5)
+    mask = np.random.default_rng(2).random(300) < 0.5
+    res = {}
+    ak.reset_launches()
+    for dev in ("cpu", cuda):
+        gt = g.tensor(dev)
+        y = torch.as_tensor(labels, device=dev).long()
+        gen = torch.Generator().manual_seed(0)
+        if kind == "UniMP":
+            model = UniMP(16, 3, hidden_size=16, num_heads=2, dropout=0.0,
+                          generator=gen, device=dev)
+            args = (y, torch.as_tensor(mask, device=dev))
+        else:
+            model = TransformerConv(16, 8, num_heads=3, feat_drop=0.0,
+                                    attn_drop=0.0, generator=gen, device=dev)
+            args = ()
+        logits = model(gt, gt.node_feat["h"], *args, training=True)
+        logits.square().sum().backward()
+        res[str(dev)] = (logits.detach().cpu(),
+                         {k: p.grad.cpu() for k, p in model.named_parameters()})
+    torch.cuda.synchronize()
+    launched = {k for k, v in ak.LAUNCHES_BY_SHAPE.items() if v}
+    assert {k[0] for k in launched} == set(DOT_KERNELS)
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res[str(cuda)]
+    check("logits", l_gpu, l_cpu)
+    for k in g_cpu:
+        check(f"grad {k}", g_gpu[k], g_cpu[k])
+
+
+@pytest.mark.gpu
+def test_dot_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    g = Graph(skewed_graph(100, 800, seed=6), num_nodes=100)
+    lays = g.tensor(cuda)._attention_layouts()
+    q = torch.randn(100, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ak._dot_fwd_cuda(q, q, q, lays[0], 0.0, 4, 4, 0.0,
+                         torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(TypeError, match="float32"):
+        ak.fused_graph_attention(*(t.to(cuda, torch.float64)
+                                   for t in (q, q, q)), *lays, 2)
+    with pytest.raises(ValueError, match="layout"):
+        ak.fused_graph_attention(*(t.to(cuda) for t in (q, q, q)),
+                                 *g.tensor("cpu")._attention_layouts(), 2)
+    wide = torch.randn(100, 2 * 512, device=cuda)
+    with pytest.raises(ValueError, match="slots"):
+        ak.fused_graph_attention(wide, wide, torch.randn(100, 2, device=cuda),
+                                 *lays, 2)
