@@ -82,7 +82,26 @@ there is no card or any phase fails. Phases:
    ``examples/unimp/train.py``), asserting two launches of each dot kernel
    a step and no other; a torch.profiler trace of the step; and the dot
    kernels timed beside two bounds (each input read once; the rows each
-   edge gathers).
+   edge gathers);
+8. the UniMP dedup path (count-matrix attention in dot mode, K7 and K8 on
+   q·k scores, then K1 over ``red``): the bench GAT graph under
+   ``dispatch.DEDUP`` (K4 twice at ``tensor()``, the work lists at the
+   first attention call); the dot-mode K7, K8 and the two folds against
+   their float64 plain versions at rates 0 and 0.3 (dq and the dk and dv
+   slot rows with the terms scale) on the skewed small graph at (H, dsh,
+   dvh) = (2, 128, 128), (8, 16, 16) and (4, 64, 8) and on the bench GAT
+   graph at UniMP's shape, two runs and a layout without counts giving the
+   same bits; the keep bits equal the plain cell mask exactly (a
+   permutation graph); a small UniMP through the route, CUDA against CPU;
+   then UniMP at the reference's defaults on the bench GAT graph trains 3
+   warm-up and 20 timed steps without dropout (``training=False``, the
+   route the reference takes on a multigraph) and 20 with dropout 0.3 in
+   ``attn_drop_mode="cell"``, asserting its launches a step (two of each
+   dot kernel and of their merges, four folds at D = 256, nothing else)
+   and a finite, falling loss; a torch.profiler trace of the step; the
+   kernels timed beside the table and gather bounds; and the attention
+   device time per UniMP step of this route beside the per-edge route's
+   on the same graph (phase 7's dot kernels there).
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -940,7 +959,7 @@ def phase_gat_profile(g, tag="GAT", trainer=None):
             device[e.key[:100]] = us / 1e3 / n
     attn = {k: v for k, v in by_name.items()
             if k.startswith(("gat_", "dot_", "sum_", "dedup_attn",
-                             "spmm_"))}
+                             "dedup_dot", "spmm_"))}
     busy = sum(by_name.values())
     profile_line = {
         "chained_ms_per_step": chained_ms, "device_busy_ms_per_step": busy,
@@ -1121,18 +1140,19 @@ def phase_dedup_attention_kernels(g_gat, dev):
     return errs
 
 
-def phase_dedup_attention_mask(dev, n=1 << 20):
+def phase_dedup_attention_mask(dev, n=1 << 20, dot=False):
     """The keep bits of K7 and K8 equal the plain cell mask exactly: on a
     permutation graph every row has one cell and every nonempty slot one,
-    so with a_dst = a_src = 0, v = g = 1 and dvh = 1, K7's out and K8's dv
-    slot rows are 1 / (1 - rate) where the cell is kept and 0 where it is
-    dropped, and every other slot row is 0."""
+    so with a_dst = a_src = 0 (``dot``: q = k = 0 with dsh = 2), v = g = 1
+    and dvh = 1, K7's out and K8's dv slot rows are 1 / (1 - rate) where
+    the cell is kept and 0 where it is dropped, and every other slot row is
+    0."""
     import torch
     from pgl_tpu_torch import Graph
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
 
-    H, rate = 42, 0.6
+    H, rate = 42, 0.3 if dot else 0.6
     rng = np.random.default_rng(9)
     g = Graph(np.stack([rng.permutation(n), np.arange(n)], axis=1),
               num_nodes=n).tensor(dev)
@@ -1142,17 +1162,23 @@ def phase_dedup_attention_mask(dev, n=1 << 20):
         raise AssertionError("a permutation graph is simple")
     dst, urow, slot = da._edge_slots(lay)
     key = da.cell_idx(dst, urow)
-    zeros = torch.zeros(n, H, device=dev)
+    zeros = torch.zeros(n, 2 * H if dot else H, device=dev)
     ones = torch.ones(n, H, device=dev)
     for seed_v in (-1640531535, 12345):
         seed = torch.tensor([seed_v], dtype=torch.int32, device=dev)
         want = torch.stack([ak.drop_keep(key, seed, h, rate)
                             for h in range(H)], dim=1)
         with torch.no_grad():
-            out, lse = da._fwd_cuda(zeros, zeros, ones, att, 0.2, 1, rate,
-                                    seed)
-            _, _, dv = da._bwd_cuda(zeros, zeros, ones, ones, lse, out, att,
-                                    0.2, 1, rate, seed)
+            if dot:
+                out, lse = da._dot_fwd_cuda(zeros, zeros, ones, att, 0.0, 2,
+                                            1, rate, seed)
+                _, _, dv = da._dot_bwd_cuda(zeros, zeros, ones, ones, lse,
+                                            out, att, 0.0, 2, 1, rate, seed)
+            else:
+                out, lse = da._fwd_cuda(zeros, zeros, ones, att, 0.2, 1,
+                                        rate, seed)
+                _, _, dv = da._bwd_cuda(zeros, zeros, ones, ones, lse, out,
+                                        att, 0.2, 1, rate, seed)
         for name, got in (("K7", out[dst] != 0), ("K8", dv[slot] != 0)):
             if not torch.equal(got, want):
                 raise AssertionError(
@@ -1161,8 +1187,9 @@ def phase_dedup_attention_mask(dev, n=1 << 20):
         if int((dv != 0).sum()) != int(want.sum()):
             raise AssertionError("K8 wrote to a slot row without cells")
     reset_all_launches()
-    print(f"[dedup attention] keep bits of K7 and K8 equal the plain cell "
-          f"mask over {n} cells x {H} heads, 2 seeds, rate {rate}",
+    mode = "dot " if dot else ""
+    print(f"[dedup {mode}attention] keep bits of K7 and K8 equal the plain "
+          f"cell mask over {n} cells x {H} heads, 2 seeds, rate {rate}",
           flush=True)
 
 
@@ -1182,6 +1209,59 @@ def dedup_gat_per_step(g):
     return per
 
 
+def timing_row(rows, info, name, kernel, source, replaces, launches, err,
+               ms, plain_ms, nbytes, ops, lib_ms, gather_bytes=None,
+               **extra):
+    """Append one row of the kernels line to ``rows`` and print it. The
+    bound is the larger of ``nbytes`` (each input read once, each output
+    written once) over the card's memory rate and ``ops`` over its float32
+    rate; ``gather_bytes`` (the rows the kernel gathers, read once each
+    time) adds a gather bound. ``info`` and ``extra`` describe the shape."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    rows.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms, "share": bound_ms / ms,
+        "shape": dict(info, kernel=kernel, **extra)})
+    gather = ""
+    if gather_bytes is not None:
+        gather_ms = gather_bytes / HBM_BYTES_PER_S * 1e3
+        rows[-1]["gather_bound_ms"] = gather_ms
+        gather = (f", gather bound {gather_ms:.5f} ms "
+                  f"({gather_ms / ms:.3f} of it)")
+    print(f"[timing] {name}: kernel {ms:.5f} ms ({launches} launches in "
+          f"its run), plain {plain_ms:.5f} ms, "
+          + (f"torch.sparse.mm {lib_ms:.5f} ms, " if lib_ms else "")
+          + f"bound {bound_ms:.5f} ms ({rows[-1]['bound_by']}; "
+          f"{bound_ms / ms:.3f} of it){gather}", flush=True)
+
+
+def time_uniq_reduce(rows, info, red, d, launches, dev, gen, iters):
+    """Time K1 over ``red`` (the fold of K8's slot rows) at width ``d``
+    beside its plain version and ``torch.sparse.mm``, check it, and add its
+    row."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    N, S = red.num_rows, red.num_edges
+    A = torch.sparse_csr_tensor(red.indptr, red.indices,
+                                torch.ones(S, device=dev), size=(N, S))
+    x = torch.randn(S, d, device=dev, generator=gen)
+    out = torch.empty(N, d, device=dev)
+    part = torch.empty(red.num_partials, d, device=dev)
+    ms = time_ms(lambda: sk._launch(x, red, out, part), iters)
+    plain_ms = time_ms(lambda: sk.spmm_reference(x, red), 10)
+    lib_ms = time_ms(lambda: torch.sparse.mm(A, x), iters)
+    with torch.no_grad():
+        err = check_spmm(f"timed uniq_reduce D={d}", out, x, red)
+    nbytes = 4 * (S * d + S + N + 1 + N * d)
+    timing_row(rows, info, f"spmm_uniq_reduce_d{d}", "uniq_reduce", SOURCE,
+               REPLACES, launches, err, ms, plain_ms, nbytes, S * d, lib_ms,
+               D=d)
+
+
 def phase_dedup_attention_timing(g, dev, runs, errs):
     """Rows at the GAT's shapes on the dedup route: K7 and K8 (each
     wrapper's launches, merges included) at rate 0 and 0.6, and K1 over
@@ -1190,37 +1270,17 @@ def phase_dedup_attention_timing(g, dev, runs, errs):
     training run."""
     import torch
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
-    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
 
     att = g._dedup_attn_aux()
-    lay, red = att.layout, att.red
+    lay = att.layout
     N, n, S = g.num_nodes, att.num_cells, att.num_slots
     n_pieces = int(att.pieces.shape[0])
     gen = torch.Generator(device=dev).manual_seed(7)
     seed = torch.tensor([12345], dtype=torch.int32, device=dev)
-    A = torch.sparse_csr_tensor(red.indptr, red.indices,
-                                torch.ones(S, device=dev), size=(N, S))
     shape = {"rows": N, "edges": lay.num_edges, "cells": n,
              "pieces": n_pieces, "split_rows": int(att.split_rows.shape[0]),
              "pairs": lay.num_pairs, "slots": S}
     rows = []
-
-    def row(name, kernel, source, replaces, launches, err, ms, plain_ms,
-            t_bytes, t_ops, lib_ms, **extra):
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "share": bound_ms / ms,
-            "shape": dict(shape, kernel=kernel, **extra)})
-        print(f"[timing] {name}: kernel {ms:.5f} ms ({launches} launches in "
-              f"its run), plain {plain_ms:.5f} ms, "
-              + (f"torch.sparse.mm {lib_ms:.5f} ms, " if lib_ms else "")
-              + f"bound {bound_ms:.5f} ms ({rows[-1]['bound_by']}; "
-              f"{bound_ms / ms:.3f} of it)", flush=True)
-
     for H, dvh in GAT_SHAPES:
         C = H * dvh
         a_dst, a_src, v, g_out = attention_inputs(N, H, dvh, dev, gen)
@@ -1260,24 +1320,15 @@ def phase_dedup_attention_timing(g, dev, runs, errs):
             for kernel, ms, plain_ms, nbytes, ops in (
                     ("dedup_fwd", fwd_ms, fwd_plain, fwd_bytes, fwd_ops),
                     ("dedup_bwd", bwd_ms, bwd_plain, bwd_bytes, bwd_ops)):
-                row(f"{kernel}_h{H}_d{dvh}{suffix}", kernel, DATTN_SOURCE,
-                    DATTN_REPLACES[kernel],
-                    launches.get((kernel, H, dvh), 0), errs[kernel, H, dvh],
-                    ms, plain_ms, nbytes / HBM_BYTES_PER_S,
-                    ops / F32_OPS_PER_S, None, H=H, dvh=dvh, rate=rate)
+                timing_row(rows, shape, f"{kernel}_h{H}_d{dvh}{suffix}",
+                           kernel, DATTN_SOURCE, DATTN_REPLACES[kernel],
+                           launches.get((kernel, H, dvh), 0),
+                           errs[kernel, H, dvh], ms, plain_ms, nbytes, ops,
+                           None, H=H, dvh=dvh, rate=rate)
         for d in (H, C):
-            x = torch.randn(S, d, device=dev, generator=gen)
-            out = torch.empty(N, d, device=dev)
-            part = torch.empty(red.num_partials, d, device=dev)
-            ms = time_ms(lambda: sk._launch(x, red, out, part), 50)
-            plain_ms = time_ms(lambda: sk.spmm_reference(x, red), 10)
-            lib_ms = time_ms(lambda: torch.sparse.mm(A, x), 50)
-            with torch.no_grad():
-                err = check_spmm(f"timed uniq_reduce D={d}", out, x, red)
-            nbytes = 4 * (S * d + S + N + 1 + N * d)
-            row(f"spmm_uniq_reduce_d{d}", "uniq_reduce", SOURCE, REPLACES,
-                runs[0.0].get(("uniq_reduce", d), 0), err, ms, plain_ms,
-                nbytes / HBM_BYTES_PER_S, S * d / F32_OPS_PER_S, lib_ms, D=d)
+            time_uniq_reduce(rows, shape, att.red, d,
+                             runs[0.0].get(("uniq_reduce", d), 0), dev, gen,
+                             50)
     reset_all_launches()
     return rows
 
@@ -1362,10 +1413,13 @@ def phase_dedup_gat(dev, edge_route_ms):
 
 # (heads, score width, value width) of UniMP's attention layers 0 and 1
 UNIMP_SHAPE = (2, 128, 128)
-# ogbn-arxiv's train split size (examples/unimp/train.py feeds its labels)
-UNIMP_TRAIN = 90941
+# ogbn-arxiv's train split of its nodes (examples/unimp/train.py feeds its
+# labels); a graph of another size takes the same share
+UNIMP_TRAIN, UNIMP_NODES = 90941, 169343
 DOT_KERNELS = ("dot_fwd", "dot_dq", "dot_dkv")
 DOT_REPLACES = {"dot_" + k[4:]: v for k, v in ATTN_REPLACES.items()}
+DDOT_KERNELS = ("dedup_dot_fwd", "dedup_dot_bwd")
+DDOT_REPLACES = {"dedup_dot_" + k[6:]: v for k, v in DATTN_REPLACES.items()}
 
 
 def dot_inputs(n, shape, dev, gen):
@@ -1524,10 +1578,12 @@ def phase_dot_mask(dev):
           f"over {n} positions x {H} heads, 2 seeds, rate {rate}", flush=True)
 
 
-def phase_unimp_small(dev):
+def phase_unimp_small(dev, dedup=False):
     """A small UniMP (2 heads of 16, labels fed through a mask): the CUDA
     kernels against the CPU's plain versions with the same weights, logits
-    and every parameter gradient, at ``check``'s rule."""
+    and every parameter gradient, at ``check``'s rule; with ``dedup``,
+    through the count-matrix dot attention (the dedup band opened to the
+    graph)."""
     import torch
     from pgl_tpu_torch.datasets import community_graph
     from pgl_tpu_torch.models import UniMP
@@ -1537,9 +1593,10 @@ def phase_unimp_small(dev):
                                 avg_degree=8, seed=5)
     mask = np.random.default_rng(2).random(300) < 0.5
     results = {}
-    reset_all_launches()
     for d in ("cpu", dev):
-        gt = g.tensor(d)
+        with dispatch_settings(DEDUP=dedup, DEDUP_MIN_EDGES=0):
+            gt = g.tensor(d)
+        reset_all_launches()            # K4 at tensor() under DEDUP
         y = torch.as_tensor(labels, device=d).long()
         model = UniMP(16, 3, hidden_size=16, num_heads=2, dropout=0.0,
                       generator=torch.Generator().manual_seed(0), device=d)
@@ -1550,33 +1607,41 @@ def phase_unimp_small(dev):
                            {k: p.grad.cpu()
                             for k, p in model.named_parameters()})
     launched = {k: v for k, v in all_launches().items() if v}
-    if launched != {(k, 2, 16, 16): 2 for k in DOT_KERNELS}:
+    kernels = DDOT_KERNELS if dedup else DOT_KERNELS
+    want = {(k, 2, 16, 16): 2 for k in kernels}
+    if dedup:
+        want["uniq_reduce", 32] = 4
+    if launched != want:
         raise AssertionError(f"small UniMP launched {launched}")
     reset_all_launches()
+    path = "dedup" if dedup else "per-edge"
     (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(dev)]
-    err = check("small UniMP logits", l_gpu, l_cpu)
+    err = check(f"small UniMP {path} logits", l_gpu, l_cpu)
     for k in g_cpu:
-        err = max(err, check(f"small UniMP grad {k}", g_gpu[k], g_cpu[k]))
-    print(f"[model] small UniMP, CUDA vs CPU: max |err| {err:.3e} (logits "
-          f"and {len(g_cpu)} parameter gradients)", flush=True)
+        err = max(err, check(f"small UniMP {path} grad {k}", g_gpu[k],
+                             g_cpu[k]))
+    print(f"[model] small UniMP through the {path} route, CUDA vs CPU: max "
+          f"|err| {err:.3e} (logits and {len(g_cpu)} parameter gradients)",
+          flush=True)
 
 
 def unimp_host():
     """An ogbn-arxiv-sized stand-in (the arxiv files are not in the repo):
     169,343 nodes of 128 features in 40 classes, about 2.4M edges."""
     from pgl_tpu_torch.datasets import community_graph
-    return community_graph(num_nodes=169343, num_classes=40, feat_dim=128,
-                           avg_degree=116, seed=0)
+    return community_graph(num_nodes=UNIMP_NODES, num_classes=40,
+                           feat_dim=128, avg_degree=116, seed=0)
 
 
-def unimp_trainer(g, labels, training=True):
+def unimp_trainer(g, labels, training=True, mode="edge"):
     """UniMP at the reference's defaults (``pgl_tpu/models/unimp.py:65-71``:
     3 layers, 2 heads of 128, dropout 0.3; weights from seed 0) on ``g``'s
-    device, and a function that takes one AdamW step (lr 5e-3, weight
-    decay 5e-4) as ``examples/unimp/train.py:65-92``: the train nodes are
-    the first ``UNIMP_TRAIN`` of a seeded permutation, each step feeds a
-    fresh seeded 60% of their labels, and the loss is over the train nodes
-    not fed."""
+    device, its two attention layers in attention dropout ``mode``, and a
+    function that takes one AdamW step (lr 5e-3, weight decay 5e-4) as
+    ``examples/unimp/train.py:65-92``: the train nodes are the first
+    ogbn-arxiv share (``UNIMP_TRAIN`` of ``UNIMP_NODES``) of a seeded
+    permutation, each step feeds a fresh seeded 60% of their labels, and
+    the loss is over the train nodes not fed."""
     import torch
     from pgl_tpu_torch.models import UniMP
     from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
@@ -1586,10 +1651,12 @@ def unimp_trainer(g, labels, training=True):
     y = torch.as_tensor(labels, device=dev).long()
     train = torch.zeros(n, dtype=torch.bool, device=dev)
     train[torch.as_tensor(np.random.default_rng(0).permutation(n)[
-        :UNIMP_TRAIN], device=dev)] = True
+        :n * UNIMP_TRAIN // UNIMP_NODES], device=dev)] = True
     model = UniMP(input_size=128, num_class=40, num_layers=3,
                   hidden_size=128, num_heads=2, dropout=0.3,
                   generator=torch.Generator().manual_seed(0), device=dev)
+    for layer in (model.conv_0, model.conv_1):
+        layer.attn_drop_mode = mode
     opt = torch.optim.AdamW(model.parameters(), lr=5e-3, weight_decay=5e-4)
     gen = torch.Generator(device=dev).manual_seed(7)
 
@@ -1759,6 +1826,286 @@ def phase_unimp(dev):
         "UniMP_no_dropout": dict(train_e, attention_ms_per_step=attn[0.0])}
 
 
+# -- phase 8: the UniMP dedup path (count-matrix attention in dot mode) ------
+
+def run_dedup_dot(att, ins, shape, rate, seed):
+    """The dot-mode K7, K8 and K1's two folds of K8's slot rows on float32
+    ``ins``: ``(out, lse, dq, dk slots, dv slots, dk, dv)``."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    q, k, v, g = ins
+    H, dsh, dvh = shape
+    with torch.no_grad():
+        out, lse = da._dot_fwd_cuda(q, k, v, att, 0.0, dsh, dvh, rate, seed)
+        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+        bwd = da._dot_bwd_cuda(q, k, v, g, lse, delta, att, 0.0, dsh, dvh,
+                               rate, seed)
+        return (out, lse) + bwd + (sk._spmm_cuda(bwd[1], att.red),
+                                   sk._spmm_cuda(bwd[2], att.red))
+
+
+def check_dedup_dot(tag, att, ins, shape, rate, seed, got):
+    """``got`` of :func:`run_dedup_dot` against the plain versions in
+    float64 on the same inputs (the backward on the kernel's lse and
+    delta), with ``check``'s rule; dq and the dk and dv slot rows scaled by
+    the 2-norm of the terms each element sums, the folds by
+    ``check_spmm``. Returns the max |err| of K7, K8 and the folds."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+    out, lse, dq, dk, dv, fold_k, fold_v = got
+    H, dsh, dvh = shape
+    lay = att.layout
+    name = f"{tag} H={H} dsh={dsh} dvh={dvh} rate={rate}"
+    with torch.no_grad():
+        q, k, v, g = (t.double() for t in ins)
+        out_p, lse_p = da.dedup_dot_reference(q, k, v, lay, dsh, dvh, 0.0,
+                                              rate, seed)
+        errs = {"dedup_dot_fwd": max(check(f"{name} K7 out", out, out_p),
+                                     check(f"{name} K7 lse", lse, lse_p))}
+        del out_p, lse_p
+        delta = (g.reshape(-1, H, dvh)
+                 * out.double().reshape(-1, H, dvh)).sum(-1)
+        bwd = (q, k, v, g, lse.double(), delta)
+        dst, urow, slot = da._edge_slots(lay)
+        src = lay.uv.long()[urow]
+        qe, ds, g_e = ak.edge_grads(*bwd, dst, src, da.cell_idx(dst, urow),
+                                    0.0, dvh, rate, seed, dsh)
+        n, S = q.shape[0], att.num_slots
+        scale_q = ak.head_scatter(ds * ds, k[src] ** 2, dst, n).sqrt()
+        scale_k = ak.head_scatter(ds * ds, q[dst] ** 2, slot, S).sqrt()
+        scale_v = ak.head_scatter(qe * qe, g_e.reshape(len(dst), -1) ** 2,
+                                  slot, S).sqrt()
+        del qe, ds, g_e
+        dq_p, dk_p, dv_p = da.dedup_dot_bwd_reference(*bwd, lay, dsh, dvh,
+                                                      0.0, rate, seed)
+        errs["dedup_dot_bwd"] = max(
+            check(f"{name} K8 dq", dq, dq_p, scale_q),
+            check(f"{name} K8 dk slots", dk, dk_p, scale_k),
+            check(f"{name} K8 dv slots", dv, dv_p, scale_v))
+        errs["uniq_reduce"] = max(
+            check_spmm(f"{name} fold dk", fold_k, dk, att.red),
+            check_spmm(f"{name} fold dv", fold_v, dv, att.red))
+    return errs
+
+
+def phase_dedup_dot_kernels(g_gat, dev):
+    """The dot-mode K7, K8 and the folds against their float64 plain
+    versions at rates 0 and 0.3 (seed drawn per case): on the small graph
+    at UniMP's shape, (8, 16, 16) and (4, 64, 8) (dsh != dvh), and on the
+    bench GAT graph at UniMP's shape; a second run and a layout without
+    counts give the same bits. Returns the max |err| per (tag, kernel)."""
+    import torch
+    from pgl_tpu_torch import Graph
+
+    small = Graph(attention_graph(3000, 40000, seed=1), num_nodes=3000
+                  ).tensor(dev)
+    atts = {"small": dedup_attention_of(small, dev),
+            "headline": g_gat._dedup_attn_aux()}
+    if not (atts["small"].num_partials and atts["headline"].num_partials):
+        raise AssertionError("both graphs must split rows into pieces")
+    bare = {tag: without_counts(att) for tag, att in atts.items()}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errs = {}
+    cases = [("small", shape) for shape in (UNIMP_SHAPE, (8, 16, 16),
+                                            (4, 64, 8))]
+    cases += [("headline", UNIMP_SHAPE)]
+    for tag, shape in cases:
+        att = atts[tag]
+        ins = dot_inputs(att.num_rows, shape, dev, gen)
+        for rate in (0.0, 0.3):
+            seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                                 generator=gen, device=dev)
+            got = run_dedup_dot(att, ins, shape, rate, seed)
+            for what, other in (("a second run", att),
+                                ("the layout without counts", bare[tag])):
+                if not all(map(torch.equal, got, run_dedup_dot(
+                        other, ins, shape, rate, seed))):
+                    raise AssertionError(f"{tag} {shape} rate={rate}: "
+                                         f"{what} differs")
+            e = check_dedup_dot(tag, att, ins, shape, rate, seed, got)
+            del got
+            for k, v in e.items():
+                errs[tag, k] = max(errs.get((tag, k), 0.0), v)
+            print(f"[dedup dot attention] {tag} N={att.num_rows} E="
+                  f"{att.layout.num_edges} cells={att.num_cells} (H, dsh, "
+                  f"dvh)={shape} rate={rate}: max |err| K7 "
+                  f"{e['dedup_dot_fwd']:.3e} K8 {e['dedup_dot_bwd']:.3e} "
+                  f"folds {e['uniq_reduce']:.3e}; same bits on a second run "
+                  "and without counts", flush=True)
+    reset_all_launches()
+    return errs
+
+
+def unimp_dedup_per_step(g):
+    """Launches per UniMP step on the dedup route: K7 and K8 in dot mode
+    for layers 0 and 1 (with their second launches where rows split), and
+    K1 over ``red`` for each layer's dk and dv."""
+    att = g._dedup_attn_aux()
+    H, dsh, dvh = UNIMP_SHAPE
+    per = {}
+    for kernel in DDOT_KERNELS:
+        per[(kernel, *UNIMP_SHAPE)] = 2
+        if att.num_partials:
+            per[(f"{kernel}_combine", *UNIMP_SHAPE)] = 2
+    for d in (H * dsh, H * dvh):
+        per["uniq_reduce", d] = per.get(("uniq_reduce", d), 0) + 2
+    return per
+
+
+def phase_dedup_dot_timing(g, dev, runs, errs):
+    """Rows at UniMP's shape on the bench GAT graph's dedup route: the dot
+    K7 and K8 (each wrapper's launches, merges included) at rates 0 and
+    0.3, and K1 over ``red`` at D = H·dsh, beside the plain versions, the
+    table bound (each input read once, each output written once), the
+    gather bound (the rows each cell gathers, read once a cell, and K8's
+    slot rows written) and, for K1, ``torch.sparse.mm``. ``runs`` maps a
+    rate to the launches of its training run."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+
+    att = g._dedup_attn_aux()
+    lay = att.layout
+    N, n, S = g.num_nodes, att.num_cells, att.num_slots
+    H, dsh, dvh = shape = UNIMP_SHAPE
+    DS, C = H * dsh, H * dvh
+    n_pieces = int(att.pieces.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(12)
+    seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+    info = {"rows": N, "edges": lay.num_edges, "cells": n,
+            "pieces": n_pieces, "split_rows": int(att.split_rows.shape[0]),
+            "pairs": lay.num_pairs, "slots": S, "H": H, "dsh": dsh,
+            "dvh": dvh}
+    rows = []
+
+    q, k, v, g_out = dot_inputs(N, shape, dev, gen)
+    for rate, launches in runs.items():
+        drop = rate > 0
+        args = (dsh, dvh, rate, seed)
+        with torch.no_grad():
+            out, lse = da._dot_fwd_cuda(q, k, v, att, 0.0, *args)
+            delta = (g_out.reshape(N, H, dvh)
+                     * out.reshape(N, H, dvh)).sum(-1)
+            bwd = (q, k, v, g_out, lse, delta)
+            fwd_ms = time_ms(lambda: da._dot_fwd_cuda(q, k, v, att, 0.0,
+                                                      *args), 20)
+            fwd_plain = time_ms(lambda: da.dedup_dot_reference(
+                q, k, v, lay, dsh, dvh, 0.0, rate, seed), 3)
+            bwd_ms = time_ms(lambda: da._dot_bwd_cuda(*bwd, att, 0.0,
+                                                      *args), 20)
+            bwd_plain = time_ms(lambda: da.dedup_dot_bwd_reference(
+                *bwd, lay, dsh, dvh, 0.0, rate, seed), 3)
+        del out, lse, delta, bwd
+        # bytes: each input read once (the node tables; 3 ints a cell and 4
+        # a piece in row order; K8 also 2 ints a cell, the slot pointers,
+        # pairs and uv in column order), each output written once (out and
+        # lse; dq and the slot rows)
+        row_ints = 3 * n + 4 * n_pieces
+        fwd_bytes = 4 * (N * (2 * DS + C) + row_ints + N * (C + H))
+        bwd_bytes = 4 * (N * (2 * DS + 2 * C + 2 * H) + row_ints + 2 * n
+                         + S + 1 + 4 * lay.num_pairs + lay.uv.numel()
+                         + N * DS + S * (DS + C))
+        # operations a cell: the score (2 a score column), 2 a value
+        # column (K7's fma; K8's g.v in both passes, dv), 2 a score column
+        # for dq and dk; a head: max, 2 exp, 2 scale, count multiply, the
+        # hash (8 integer ops), K8's clamp and two multiply-adds a pass
+        per_head = 6 + 8 * drop
+        fwd_ops = n * (2 * DS + 2 * C + H * per_head)
+        bwd_ops = n * (8 * DS + 6 * C + 2 * H * (per_head + 3))
+        # gathered a cell: k|v rows (K7, K8's row pass), q|g rows, lse and
+        # delta (K8's slot pass); K8 also writes its slot rows
+        fwd_gather = 4 * n * (DS + C)
+        bwd_gather = 4 * (n * (2 * DS + 2 * C + 2 * H) + S * (DS + C))
+        suffix = f"_drop{rate:g}" if drop else ""
+        for kernel, ms, plain_ms, nbytes, ops, gathered in (
+                ("dedup_dot_fwd", fwd_ms, fwd_plain, fwd_bytes, fwd_ops,
+                 fwd_gather),
+                ("dedup_dot_bwd", bwd_ms, bwd_plain, bwd_bytes, bwd_ops,
+                 bwd_gather)):
+            timing_row(rows, info, f"{kernel}_h{H}_s{dsh}_d{dvh}{suffix}",
+                       kernel, DATTN_SOURCE, DDOT_REPLACES[kernel],
+                       launches.get((kernel, *shape), 0),
+                       errs["headline", kernel], ms, plain_ms, nbytes, ops,
+                       None, gathered, rate=rate)
+    for d in sorted({DS, C}):
+        time_uniq_reduce(rows, info, att.red, d,
+                         runs[0.0].get(("uniq_reduce", d), 0), dev, gen, 20)
+    reset_all_launches()
+    return rows
+
+
+def phase_unimp_dedup(dev, edge_route_ms):
+    """The UniMP dedup path (count-matrix attention in dot mode) on the
+    bench GAT graph under ``DEDUP``: kernel checks, keep bits, the small
+    model, UniMP at full width trained 20 steps without dropout and 20
+    with dropout in cell mode, a profile of the step and the kernels'
+    times. ``edge_route_ms`` is the per-edge route's attention device time
+    per UniMP step on the same graph (rate 0) from ``phase_unimp``.
+    Returns (rows, the step line's entries)."""
+    import torch
+
+    host = gat_host()
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with dispatch_settings(DEDUP=True):
+        g = host.tensor()
+    torch.cuda.synchronize()
+    t_tensor = time.perf_counter() - t0
+    if g._dedup_layouts is None or g._dedup_attn is not None:
+        raise AssertionError("tensor() under DEDUP: no dedup layouts, or "
+                             "work lists built early")
+    t0 = time.perf_counter()
+    att = g._dedup_attn_aux()
+    torch.cuda.synchronize()
+    t_att = time.perf_counter() - t0
+    print(f"[graph] UniMP dedup: bench GAT graph N={g.num_nodes} "
+          f"E={g.num_edges} under DEDUP, tensor() {t_tensor:.3f} s (K4 "
+          f"included), K7/K8 work lists and red {t_att:.3f} s; "
+          f"{att.num_cells} cells, {att.pieces.shape[0]} pieces, "
+          f"{att.split_rows.shape[0]} split rows, {att.num_slots} slots",
+          flush=True)
+    errs = phase_dedup_dot_kernels(g, dev)
+    phase_dedup_attention_mask(dev, dot=True)
+    phase_unimp_small(dev, dedup=True)
+    labels = np.random.default_rng(2).integers(0, 40, g.num_nodes)
+    per = unimp_dedup_per_step(g)
+    train, by0 = phase_train(
+        g, "UniMP dedup", per,
+        lambda g: unimp_trainer(g, labels, training=False), 40)
+    train_c, by3 = phase_train(
+        g, "UniMP dedup cell", per,
+        lambda g: unimp_trainer(g, labels, mode="cell"), 40)
+    if g._attn_layouts is not None:
+        raise AssertionError("the dedup route built per-edge work lists")
+    prof = phase_gat_profile(g, "UniMP dedup",
+                             lambda g: unimp_trainer(g, labels, mode="cell"))
+    rows = phase_dedup_dot_timing(g, dev, {0.0: by0, 0.3: by3}, errs)
+    folds_ms = sum(r["ms"] * per["uniq_reduce", r["shape"]["D"]]
+                   for r in rows if r["shape"]["kernel"] == "uniq_reduce")
+    attn = {rate: folds_ms + 2 * sum(r["ms"] for r in rows
+                                     if r["shape"].get("rate") == rate)
+            for rate in (0.0, 0.3)}
+    gather = 2 * sum(r["gather_bound_ms"] for r in rows
+                     if r["shape"].get("rate") == 0.0)
+    lower = "dedup" if attn[0.0] < edge_route_ms else "per-edge"
+    print(f"[default] attention device ms per UniMP step on the bench GAT "
+          f"graph: dedup route (K7, K8 dot, 4 folds) {attn[0.0]:.5f} (no "
+          f"dropout), {attn[0.3]:.5f} (rate 0.3, cell mode); per-edge route "
+          f"(K9, K10 dot) {edge_route_ms:.5f}; lower: {lower}; gather bound "
+          f"of the dedup route {gather:.5f} ms; step median "
+          f"{train['step_ms']:.4f} ms (no dropout), {train_c['step_ms']:.4f} "
+          f"ms (cell dropout)", flush=True)
+    return rows, {
+        "UniMP_dedup": dict(train, attention_ms_per_step=attn[0.0],
+                            gather_bound_ms_per_step=gather,
+                            tensor_s=t_tensor, work_lists_s=t_att,
+                            profile=prof),
+        "UniMP_dedup_cell": dict(train_c, attention_ms_per_step=attn[0.3]),
+        "unimp_attention_route_lower": lower}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1852,6 +2199,13 @@ def main():
     torch.cuda.empty_cache()
     unimp_rows, unimp_steps = phase_unimp(dev)
     rows += unimp_rows
+    torch.cuda.empty_cache()
+    # the per-edge dot kernels' attention ms a UniMP step on the bench GAT
+    # graph (2 layers of K9, K10-dq, K10-dkv at rate 0)
+    edge_ms = 2 * sum(r["ms"] for r in unimp_rows
+                      if r["shape"]["graph"] == "gat_graph")
+    ddot_rows, ddot_steps = phase_unimp_dedup(dev, edge_ms)
+    rows += ddot_rows
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -1859,7 +2213,8 @@ def main():
         "dedup_uncached": dict(train_6,
                                spmm_ms_per_step=spmm["dedup_uncached"],
                                tensor_s=t_6),
-        **gat_steps, **dedup_steps, **unimp_steps, "device": smi}}),
+        **gat_steps, **dedup_steps, **unimp_steps, **ddot_steps,
+        "device": smi}}),
         flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

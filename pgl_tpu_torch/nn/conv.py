@@ -19,7 +19,8 @@ from .. import resolve_device
 from ..ops.kernels.attention_kernels import (fused_gat_attention,
                                              fused_graph_attention,
                                              gat_score_features)
-from ..ops.kernels.dedup_attention import dedup_gat_attention
+from ..ops.kernels.dedup_attention import (dedup_dot_attention,
+                                           dedup_gat_attention)
 from ..ops.segment import segment_softmax, segment_sum
 from .functional import graph_op as GF
 
@@ -241,20 +242,23 @@ class TransformerConv(nn.Module):
     ``k``, ``v``, ``skip_feat``, ``gate`` and ``ln`` (``LayerNorm`` at
     flax's ``eps=1e-6``).
 
-    The route is the reference's without its TPU gates (``_MIN_EDGES``,
-    the backend, ``(H·D) % 128 == 0``):
+    The route is the reference's (``:513-565``) without its TPU gates
+    (``_MIN_EDGES``, the backend, ``(H·D) % 128 == 0``):
 
-    * without ``edge_feat`` and with ``concat``, on a graph without dedup
-      layouts (or a multigraph under edge-mode dropout): the per-edge
-      kernels K9/K10 in dot mode (``fused_graph_attention``) with in-kernel
-      attention dropout;
-    * the same case on a graph with dedup layouts is the reference's
-      count-matrix dot attention (``dedup_dot_attention``, K7/K8 in dot
-      mode), not ported yet: it raises ``NotImplementedError``;
+    * without ``edge_feat`` and with ``concat``, on a graph with dedup
+      layouts: the count-matrix dot attention (``dedup_dot_attention``,
+      K7/K8 in dot mode) with in-kernel dropout keyed by cell, unless the
+      graph is a multigraph under edge-mode dropout;
+    * the same case otherwise: the per-edge kernels K9/K10 in dot mode
+      (``fused_graph_attention``) with in-kernel attention dropout;
     * otherwise (``edge_feat`` given, or ``concat=False``): the reference's
       edge-space composition (``:545-565``) in torch.
 
-    Dropout draws from the layer's own generator, as ``GATConv``'s.
+    The reference keeps ``(H·D) % 128 != 0`` off its fused kernels even on
+    a dedup-layout graph; the port takes K7/K8 there too: the same
+    function, with the dropout mask keyed by cell. Dropout draws from the
+    layer's own generator, as ``GATConv``'s; ``attn_drop_mode="cell"``
+    keeps a multigraph under dropout on K7/K8.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
@@ -294,11 +298,7 @@ class TransformerConv(nn.Module):
         H, D = self.num_heads, self.hidden_size
         rate = float(self.attn_drop) if training else 0.0
         fused = edge_feat is None and self.concat
-        if fused and _dedup_route(graph, rate, self.attn_drop_mode):
-            raise NotImplementedError(
-                "TransformerConv on a graph with dedup layouts takes the "
-                "reference's count-matrix dot attention (dedup_dot_attention, "
-                "K7/K8 in dot mode), which is not ported yet")
+        dedup = fused and _dedup_route(graph, rate, self.attn_drop_mode)
         dropping = training and self.feat_drop > 1e-5
         if dropping:
             feature = _dropout(feature, self.feat_drop, self.generator)
@@ -307,7 +307,11 @@ class TransformerConv(nn.Module):
         v = self.v(feature)
         if edge_feat is not None and dropping:
             edge_feat = _dropout(edge_feat, self.feat_drop, self.generator)
-        if fused:
+        if dedup:
+            output = dedup_dot_attention(
+                q, k, v, graph._dedup_attn_aux(), H, D, D, 0.0,
+                attn_drop=rate, drop_seed=_attn_seed(self.generator, rate))
+        elif fused:
             output = fused_graph_attention(
                 q, k, v, *graph._attention_layouts(), H, 0.0, dsh=D, dvh=D,
                 attn_drop=rate, drop_seed=_attn_seed(self.generator, rate))

@@ -10,8 +10,9 @@
 //   dvh_p (dvh rounded up to a power of two) consecutive slots, slot j =
 //   lane + 32 k, so a per-head sum is a shuffle reduction (`head_sum`);
 //   `DotSlots`, the same for the dot mode, whose heads hold their dsh score
-//   and dvh value columns in one group of max(dsh_p, dvh_p) slots, and
-//   `head_dot`, the one per-head score q . k of all three dot passes;
+//   and dvh value columns in one group of max(dsh_p, dvh_p) slots
+//   (`dot_slots` sizes it), and `head_dot`, the one per-head score q . k
+//   of every dot pass, per-edge (K9/K10) and count-matrix (K7/K8) alike;
 // * the second launches that finish rows split over several warps:
 //   `gat_fwd_combine` merges online-softmax partials (m, l, acc),
 //   `sum_combine` adds plain partials, both in a fixed order (no float
@@ -288,6 +289,13 @@ int pow2_at_least(int x) {
   int p = 1;
   while (p < x) p <<= 1;
   return p;
+}
+
+// Slots per lane of the dot mode (0 if the heads do not fit) and the group
+// width wp of each head.
+int dot_slots(int H, int dsh, int dvh, int* wp) {
+  *wp = pow2_at_least(dsh > dvh ? dsh : dvh);
+  return slots_per_lane(H, *wp);
 }
 
 int blocks_for(int warps) { return (warps + kWarps - 1) / kWarps; }

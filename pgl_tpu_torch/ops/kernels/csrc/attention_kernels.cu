@@ -643,13 +643,6 @@ dot_dkv_pieces(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Slots per lane of the dot mode (0 if the heads do not fit) and the group
-// width wp of each head.
-int dot_slots(int H, int dsh, int dvh, int* wp) {
-  *wp = pow2_at_least(dsh > dvh ? dsh : dvh);
-  return slots_per_lane(H, *wp);
-}
-
 }  // namespace
 
 extern "C" int pgl_gat_fwd_f32(int device, const float* a_dst,

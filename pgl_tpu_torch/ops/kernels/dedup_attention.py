@@ -1,14 +1,15 @@
-"""Count-matrix ("dedup") GAT attention: the kernels behind ``GATConv`` on a
-graph that carries dedup layouts.
+"""Count-matrix ("dedup") graph attention: the kernels behind ``GATConv``
+and ``TransformerConv`` on a graph that carries dedup layouts.
 
-Port of the additive half of ``pgl_tpu/ops/pallas/dedup_attention.py``
-(``dedup_gat_attention``: ``_attn_fwd_kernel`` forward, K7;
-``_attn_bwd_kernel`` backward, K8; ``build_uniq_reduce``; ``_cell_idx``)
-onto hand-written CUDA kernels for Hopper, ``csrc/dedup_attention.cu``,
-whose note gives the design.
+Port of ``pgl_tpu/ops/pallas/dedup_attention.py`` in both of its score
+modes (``_attn_fwd_kernel`` forward, K7; ``_attn_bwd_kernel`` backward, K8;
+``build_uniq_reduce``; ``_cell_idx``) onto hand-written CUDA kernels for
+Hopper, ``csrc/dedup_attention.cu``, whose note gives the design: additive
+(``dedup_gat_attention``, GAT's ``a_dst + a_src``) and dot
+(``dedup_dot_attention``, per-head ``q·k``, UniMP's TransformerConv).
 
-Additive scores depend only on the two ends of an edge, so the softmax over
-a row's edges is a softmax over its count-matrix cells: the cell (r, u) of
+Both scores depend only on the two ends of an edge, so the softmax over a
+row's edges is a softmax over its count-matrix cells: the cell (r, u) of
 the CSC dedup layout (``dedup_kernels.py``) stands for the ``C[r, u]``
 edges into row r from unique row u (node ``uv[u]``), which share one score.
 
@@ -18,23 +19,26 @@ edges into row r from unique row u (node ``uv[u]``), which share one score.
   and in column order (the layout's dedup order, by slot ``p·W + c``), and
   :func:`build_uniq_reduce`, the reference's K1 layout that folds the
   backward's pair-slot rows onto nodes.
-* :func:`dedup_gat_attention` is an autograd ``Function`` with the
-  reference's contract (``:727-768``): the forward (K7) saves ``lse``; the
-  backward computes ``delta = Σ g·out`` in torch, runs K8 (``d a_dst`` per
-  row, ``d a_src`` and ``dv`` per pair slot), then K1 over ``red`` twice.
-  The dropout seed is saved, so every pass draws the same mask.
-* :func:`dedup_attention_reference` and :func:`dedup_bwd_reference` are the
-  plain PyTorch versions, in edge space over the dedup order (``index_add_``,
-  ``segment_softmax``). CPU tensors run them; CUDA tensors launch the
-  kernels or raise.
+* :func:`dedup_gat_attention` and :func:`dedup_dot_attention` are autograd
+  ``Function``s with the reference's contracts (``:727-768`` and
+  ``:771-805``): the forward (K7) saves ``lse``; the backward computes
+  ``delta = Σ g·out`` in torch, runs K8 (``d a_dst`` or ``dq`` per row,
+  ``d a_src`` or ``dk``, and ``dv``, per pair slot), then K1 over ``red``
+  twice. The dropout seed is saved, so every pass draws the same mask.
+* :func:`dedup_attention_reference` and :func:`dedup_bwd_reference`
+  (additive), :func:`dedup_dot_reference` and :func:`dedup_dot_bwd_reference`
+  (dot) are the plain PyTorch versions, in edge space over the dedup order
+  (``index_add_``, ``segment_softmax``). CPU tensors run them; CUDA tensors
+  launch the kernels or raise.
 * :func:`cell_idx` is ``_cell_idx`` per edge: the dropout key of a cell,
   shared by its duplicate edges.
 
-``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, H, dvh)``, kernel one of
-``dedup_fwd`` (K7) and ``dedup_bwd`` (K8: its row and slot passes) and,
-where a row has several pieces, their second launches ``dedup_fwd_combine``
-and ``dedup_bwd_combine``. The fold counts in ``segment_kernels`` as
-``("uniq_reduce", D)``.
+``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, H, dvh)`` in additive
+mode, kernel one of ``dedup_fwd`` (K7) and ``dedup_bwd`` (K8: its row and
+slot passes), and by ``(kernel, H, dsh, dvh)`` in dot mode, kernel one of
+``dedup_dot_fwd`` and ``dedup_dot_bwd``; where a row has several pieces,
+each kernel's second launch counts under its name with ``_combine``. The
+fold counts in ``segment_kernels`` as ``("uniq_reduce", D)``.
 """
 
 from __future__ import annotations
@@ -50,13 +54,14 @@ from ..dispatch import use_attention_kernel
 from . import _build
 from . import segment_kernels as sk
 from .attention_kernels import (_check, _drop_args, _seed_tensor, _stream,
-                                edge_grads, plain_attention)
+                                edge_grads, head_scatter, plain_attention)
 from .dedup_kernels import W, DedupLayout
 
 __all__ = ["DedupAttention", "build_dedup_attention", "build_uniq_reduce",
            "cell_idx", "dedup_attention_reference", "dedup_bwd_reference",
-           "dedup_gat_attention", "ET", "LAUNCHES_BY_SHAPE",
-           "reset_launches"]
+           "dedup_gat_attention", "dedup_dot_reference",
+           "dedup_dot_bwd_reference", "dedup_dot_attention", "ET",
+           "LAUNCHES_BY_SHAPE", "reset_launches"]
 
 # most cells in one piece (one warp's work); read when a work list is built
 ET = 256
@@ -221,6 +226,37 @@ def dedup_bwd_reference(a_dst, a_src, v, g, lse, delta, layout: DedupLayout,
             dv.new_zeros(S, H * dvh).index_add_(0, slot, dv))
 
 
+def dedup_dot_reference(q, k, v, layout: DedupLayout, dsh: int, dvh: int,
+                        leaky_slope: float = 0.0, attn_drop: float = 0.0,
+                        seed=None):
+    """The plain dot-mode K7: ``(out [N, H·dvh], lse [N, H])`` from q, k
+    [N, H·dsh] over the edges of the CSC dedup ``layout``, as
+    :func:`dedup_attention_reference` (cell dropout; an empty row gives
+    zeros in both)."""
+    dst, urow, _ = _edge_slots(layout)
+    return plain_attention(q, k, v, dst, layout.uv.long()[urow],
+                           cell_idx(dst, urow), leaky_slope, dvh, attn_drop,
+                           seed, dsh)
+
+
+def dedup_dot_bwd_reference(q, k, v, g, lse, delta, layout: DedupLayout,
+                            dsh: int, dvh: int, leaky_slope: float = 0.0,
+                            attn_drop: float = 0.0, seed=None):
+    """The plain dot-mode K8: ``(dq [N, H·dsh], dk slots [P·W, H·dsh], dv
+    slots [P·W, H·dvh])``, per head ``Σ ds·k[src]`` into rows and ``Σ
+    ds·q[dst]``, ``Σ keep·p·g[dst]`` into pair slots, the slot rows before
+    the fold."""
+    dst, urow, slot = _edge_slots(layout)
+    src = layout.uv.long()[urow]
+    qe, ds, g_e = edge_grads(q, k, v, g, lse, delta, dst, src,
+                             cell_idx(dst, urow), leaky_slope, dvh, attn_drop,
+                             seed, dsh)
+    S = layout.num_pairs * W
+    return (head_scatter(ds, k[src], dst, q.shape[0]),
+            head_scatter(ds, q[dst], slot, S),
+            head_scatter(qe, g_e.reshape(dst.shape[0], -1), slot, S))
+
+
 # -- CUDA --------------------------------------------------------------------
 
 def _lib():
@@ -229,9 +265,14 @@ def _lib():
     # (..., pieces, n_pieces, split_rows, split_ptr, n_split, ...)
     rows = [p, i, p, p, i]
     tail = [i, i, f, p, i, f]     # H, dvh, slope, seed, thresh, inv_keep
+    dot = [i] + tail              # H, dsh, dvh, ...
+    slots = [p] * 5 + [i]         # uv, pairs, slot_ptr/dst/cnt, n_slots
     sigs = {"pgl_dedup_attn_fwd_f32": [i] + [p] * 6 + rows + tail + [p] * 4,
-            "pgl_dedup_attn_bwd_f32": [i] + [p] * 9 + rows + [p] * 5 + [i]
-            + tail + [p] * 5}
+            "pgl_dedup_attn_bwd_f32": [i] + [p] * 9 + rows + slots + tail
+            + [p] * 5,
+            "pgl_dedup_dot_fwd_f32": [i] + [p] * 6 + rows + dot + [p] * 4,
+            "pgl_dedup_dot_bwd_f32": [i] + [p] * 9 + rows + slots + dot
+            + [p] * 5}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -246,10 +287,10 @@ def _raise_on(rc, name):
                            f"error {rc}")
 
 
-def _count(name, att, H, dvh):
-    LAUNCHES_BY_SHAPE[(name, H, dvh)] += 1
+def _count(name, att, *shape):
+    LAUNCHES_BY_SHAPE[(name, *shape)] += 1
     if att.num_partials:
-        LAUNCHES_BY_SHAPE[(f"{name}_combine", H, dvh)] += 1
+        LAUNCHES_BY_SHAPE[(f"{name}_combine", *shape)] += 1
 
 
 def _rows(att):
@@ -257,6 +298,12 @@ def _rows(att):
             att.cell_cnt.data_ptr(), att.pieces.data_ptr(),
             att.pieces.shape[0], att.split_rows.data_ptr(),
             att.split_ptr.data_ptr(), att.split_rows.shape[0])
+
+
+def _slots(att):
+    lay = att.layout
+    return (lay.uv.data_ptr(), lay.pairs.data_ptr(), att.slot_ptr.data_ptr(),
+            att.slot_dst.data_ptr(), att.slot_cnt.data_ptr(), att.num_slots)
 
 
 def _fwd_cuda(a_dst, a_src, v, att, slope, dvh, rate, seed):
@@ -288,14 +335,12 @@ def _bwd_cuda(a_dst, a_src, v, g, lse, delta, att, slope, dvh, rate, seed):
     dv = torch.empty(S, H * dvh, dtype=v.dtype, device=v.device)
     part = torch.empty(att.num_partials, H, dtype=v.dtype, device=v.device)
     thresh, inv_keep = _drop_args(rate)
-    lay = att.layout
     _raise_on(_lib().pgl_dedup_attn_bwd_f32(
         v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_rows(att),
-        lay.uv.data_ptr(), lay.pairs.data_ptr(), att.slot_ptr.data_ptr(),
-        att.slot_dst.data_ptr(), att.slot_cnt.data_ptr(), S, H, dvh, slope,
-        seed.data_ptr(), thresh, inv_keep, da.data_ptr(), dsrc.data_ptr(),
-        dv.data_ptr(), part.data_ptr(), _stream(v)), "backward")
+        *_slots(att), H, dvh, slope, seed.data_ptr(), thresh, inv_keep,
+        da.data_ptr(), dsrc.data_ptr(), dv.data_ptr(), part.data_ptr(),
+        _stream(v)), "backward")
     _count("dedup_bwd", att, H, dvh)
     return da, dsrc, dv
 
@@ -359,3 +404,112 @@ def dedup_gat_attention(a_dst, a_src, v, att: DedupAttention,
     return _DedupGatAttention.apply(a_dst.contiguous(), a_src.contiguous(),
                                     v.contiguous(), att, leaky_slope, dvh,
                                     float(attn_drop), seed)
+
+
+# -- dot mode ----------------------------------------------------------------
+
+def _dot_fwd_cuda(q, k, v, att, slope, dsh, dvh, rate, seed):
+    """Dot-mode K7 (and its merge of split rows): ``(out, lse)``."""
+    N, H = q.shape[0], q.shape[1] // dsh
+    _check(att, H, dvh, q, k, v, dsh=dsh)
+    out = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
+    lse = torch.empty(N, H, dtype=v.dtype, device=v.device)
+    part = torch.empty(att.num_partials, H * dvh + 2 * H, dtype=v.dtype,
+                       device=v.device)
+    thresh, inv_keep = _drop_args(rate)
+    _raise_on(_lib().pgl_dedup_dot_fwd_f32(
+        v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        *_rows(att), H, dsh, dvh, slope, seed.data_ptr(), thresh, inv_keep,
+        out.data_ptr(), lse.data_ptr(), part.data_ptr(), _stream(v)),
+        "dot forward")
+    _count("dedup_dot_fwd", att, H, dsh, dvh)
+    return out, lse
+
+
+def _dot_bwd_cuda(q, k, v, g, lse, delta, att, slope, dsh, dvh, rate, seed):
+    """Dot-mode K8 (row pass, slot pass, the sum of split rows): ``(dq, dk
+    slots, dv slots)``; the row pass's partials are ``H·dsh`` wide."""
+    N, H = q.shape[0], q.shape[1] // dsh
+    _check(att, H, dvh, q, k, v, g, lse, delta, dsh=dsh)
+    S = att.num_slots
+    dq = torch.empty(N, H * dsh, dtype=v.dtype, device=v.device)
+    dk = torch.empty(S, H * dsh, dtype=v.dtype, device=v.device)
+    dv = torch.empty(S, H * dvh, dtype=v.dtype, device=v.device)
+    part = torch.empty(att.num_partials, H * dsh, dtype=v.dtype,
+                       device=v.device)
+    thresh, inv_keep = _drop_args(rate)
+    _raise_on(_lib().pgl_dedup_dot_bwd_f32(
+        v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_rows(att),
+        *_slots(att), H, dsh, dvh, slope, seed.data_ptr(), thresh, inv_keep,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
+        _stream(v)), "dot backward")
+    _count("dedup_dot_bwd", att, H, dsh, dvh)
+    return dq, dk, dv
+
+
+class _DedupDotAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, att, leaky_slope, dsh, dvh, rate, seed):
+        if use_attention_kernel(v):
+            out, lse = _dot_fwd_cuda(q, k, v, att, leaky_slope, dsh, dvh,
+                                     rate, seed)
+        else:
+            out, lse = dedup_dot_reference(q, k, v, att.layout, dsh, dvh,
+                                           leaky_slope, rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse, seed)
+        ctx.meta = (att, leaky_slope, dsh, dvh, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, seed = ctx.saved_tensors
+        att, slope, dsh, dvh, rate = ctx.meta
+        H = q.shape[1] // dsh
+        g = g.contiguous()
+        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+        ins = (q, k, v, g, lse, delta)
+        if use_attention_kernel(v):
+            dq, dk, dv = _dot_bwd_cuda(*ins, att, slope, dsh, dvh, rate,
+                                       seed)
+        else:
+            dq, dk, dv = dedup_dot_bwd_reference(*ins, att.layout, dsh, dvh,
+                                                 slope, rate, seed)
+        # fold the pair-slot rows onto nodes (K1 over ``red``), dk and dv
+        # apart
+        return (dq, sk._spmm_one(dk, att.red), sk._spmm_one(dv, att.red),
+                None, None, None, None, None, None)
+
+
+def dedup_dot_attention(q, k, v, att: DedupAttention, num_heads: int,
+                        dsh=None, dvh=None, leaky_slope: float = 0.0,
+                        attn_drop: float = 0.0, drop_seed=None):
+    """Dot-score attention over the count matrix: ``out[r] = Σ_{e: dst=r}
+    softmax_r(leaky(q[r] · k[src_e])) · v[src_e]`` per head, the same
+    function as :func:`attention_kernels.fused_graph_attention`, with the
+    dropout keyed by cell as :func:`dedup_gat_attention`'s.
+
+    Args:
+      q: [N, H·dsh] destination-side score features.
+      k: [N, H·dsh] source-side score features.
+      v: [N, H·dvh] values (no lane padding, unlike the reference's).
+      att: the graph's :func:`build_dedup_attention` (``Graph.
+        _dedup_attn_aux()``), which carries the CSC dedup layout and ``red``.
+      num_heads: H.
+      dsh, dvh: per-head score and value widths (default ``q.shape[1] //
+        H`` and ``v.shape[1] // H``).
+      leaky_slope: nonzero applies a leaky relu to the scores.
+    Returns [N, H·dvh]; rows with no incoming edge are 0.
+    """
+    N, H = q.shape[0], int(num_heads)
+    dsh = dsh or q.shape[1] // H
+    dvh = dvh or v.shape[1] // H
+    if q.shape != (N, H * dsh) or k.shape != (N, H * dsh) \
+            or v.shape != (N, H * dvh):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} are not [N, {H} * {dsh}], "
+                         f"[N, {H} * {dsh}] and [N, {H} * {dvh}]")
+    seed = _seed_tensor(drop_seed, v.device)
+    return _DedupDotAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), att, float(leaky_slope),
+                                    dsh, dvh, float(attn_drop), seed)

@@ -23,6 +23,10 @@ from pgl_tpu.ops.pallas.segment_kernels import build_blocked_layout
 from pgl_tpu_torch import Graph
 from pgl_tpu_torch.ops.kernels import attention_kernels as ak
 
+# one intra-op thread: the test files run in parallel worker processes,
+# and these sums are small
+torch.set_num_threads(1)
+
 N = 300
 
 

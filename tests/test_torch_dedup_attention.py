@@ -30,6 +30,10 @@ from pgl_tpu_torch.ops.kernels import dedup_attention as da
 from pgl_tpu_torch.ops.kernels import dedup_kernels as tdk
 from pgl_tpu_torch.utils.edge_index import EdgeIndex
 
+# one intra-op thread: the test files run in parallel worker processes,
+# and these sums are small
+torch.set_num_threads(1)
+
 # The first torch.exp of a process on the CPU can differ from every later
 # one by up to ~6e-5 (seen on [6000, 4] float32 inputs, in about one
 # process of five), which the tolerances below would flag: take it here,

@@ -38,6 +38,10 @@ from pgl_tpu_torch.ops.kernels import segment_kernels as tsk
 from pgl_tpu_torch.utils.convert import flax_to_state_dict
 from pgl_tpu_torch.utils.edge_index import EdgeIndex
 
+# one intra-op thread: the test files run in parallel worker processes,
+# and these sums are small
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-3
 
 

@@ -28,6 +28,10 @@ from pgl_tpu_torch.nn import GCNConv
 from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
 from pgl_tpu_torch.utils.convert import flax_to_state_dict
 
+# one intra-op thread: the test files run in parallel worker processes,
+# and these sums are small
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS_FILE = os.path.join(REPO, "tests", "test_trajectory_goldens_data.npz")
 GOLDEN_RTOL = 2e-3          # tests/test_trajectory_goldens.py:30

@@ -20,6 +20,10 @@ from pgl_tpu.utils.edge_index import EdgeIndex as JEdgeIndex
 from pgl_tpu_torch.nn.functional import degree_norm as t_degree_norm
 from pgl_tpu_torch.utils.edge_index import EdgeIndex as TEdgeIndex
 
+# one intra-op thread: the test files run in parallel worker processes,
+# and these sums are small
+torch.set_num_threads(1)
+
 FIELDS = ("degree", "sorted_u", "sorted_v", "sorted_eid", "indptr")
 
 

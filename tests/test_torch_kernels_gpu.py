@@ -15,8 +15,9 @@ attention kernels (K9, K10) go through ``check_attention`` (no terms scale:
 their outputs are convex combinations or sums of bounded terms) and must
 give the same bits on two runs; in dot mode through ``check_dot`` (dq, dk
 and dv with the terms scale); the count-matrix attention (K7, K8, and K1
-over ``red``) through ``check_dedup_attention``, with the same bits on two
-runs and on a layout without counts.
+over ``red``) through ``check_dedup_attention``, and in dot mode through
+``check_dedup_dot`` (dq and the dk and dv slot rows with the terms scale),
+with the same bits on two runs and on a layout without counts.
 """
 
 import dataclasses
@@ -25,12 +26,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (DOT_KERNELS, attention_graph, attention_inputs,
-                        check, check_attention, check_counts, check_dedup,
-                        check_dedup_attention, check_dot, check_spmm,
+from chip_smoke import (DDOT_KERNELS, DOT_KERNELS, attention_graph,
+                        attention_inputs, check, check_attention,
+                        check_counts, check_dedup, check_dedup_attention,
+                        check_dedup_dot, check_dot, check_spmm,
                         dedup_attention_of, dedup_layouts, dispatch_settings,
-                        dot_inputs, run_dedup_attention, run_dot,
-                        skewed_graph, without_counts)
+                        dot_inputs, run_dedup_attention, run_dedup_dot,
+                        run_dot, skewed_graph, without_counts)
 from pgl_tpu_torch import Graph
 from pgl_tpu_torch.datasets import community_graph
 from pgl_tpu_torch.models import GAT, GCN, UniMP
@@ -39,6 +41,10 @@ from pgl_tpu_torch.ops.kernels import attention_kernels as ak
 from pgl_tpu_torch.ops.kernels import dedup_attention as da
 from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
 from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+
+# one intra-op thread: the test files run in parallel worker processes,
+# and these sums are small
+torch.set_num_threads(1)
 
 
 @pytest.fixture
@@ -405,3 +411,91 @@ def test_dot_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="slots"):
         ak.fused_graph_attention(wide, wide, torch.randn(100, 2, device=cuda),
                                  *lays, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("H,dsh,dvh", [(2, 128, 128), (8, 16, 16), (4, 64, 8)])
+def test_dedup_dot_kernels_match_plain_version(cuda, H, dsh, dvh, rate):
+    """The dot-mode K7, K8 and the folds on a graph whose hub destination
+    is split across pieces; two runs, and the layout without counts, give
+    the same bits."""
+    g = Graph(attention_graph(3000, 40000, seed=4), num_nodes=3000
+              ).tensor(cuda)
+    att = dedup_attention_of(g, cuda)
+    assert att.num_partials > 0
+    shape = (H, dsh, dvh)
+    gen = torch.Generator(device=cuda).manual_seed(H * dsh * dvh)
+    ins = dot_inputs(3000, shape, cuda, gen)
+    seed = torch.tensor([-987654321], dtype=torch.int32, device=cuda)
+    bare = without_counts(att)
+    da.reset_launches()
+    got = run_dedup_dot(att, ins, shape, rate, seed)
+    for other in (att, bare):
+        assert all(map(torch.equal, got,
+                       run_dedup_dot(other, ins, shape, rate, seed)))
+    torch.cuda.synchronize()
+    assert dict(da.LAUNCHES_BY_SHAPE) == {
+        (k + c, *shape): 3 for k in DDOT_KERNELS for c in ("", "_combine")}
+    check_dedup_dot("small", att, ins, shape, rate, seed, got)
+    out, lse = got[:2]
+    assert (out[1:1500] == 0).all() and (lse[1:1500] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["TransformerConv", "UniMP"])
+def test_transformer_on_dedup_graph_on_cuda_matches_cpu(cuda, kind):
+    """A small TransformerConv (3 heads of 8) and UniMP (2 heads of 16) on
+    a graph with dedup layouts (the band opened to it): the dot-mode K7/K8
+    and the folds against the CPU's plain versions with the same weights,
+    logits and every parameter gradient at ``check``'s rule."""
+    g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                                avg_degree=8, seed=5)
+    mask = np.random.default_rng(2).random(300) < 0.5
+    res = {}
+    for dev in ("cpu", cuda):
+        with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0):
+            gt = g.tensor(dev)
+        y = torch.as_tensor(labels, device=dev).long()
+        gen = torch.Generator().manual_seed(0)
+        if kind == "UniMP":
+            model = UniMP(16, 3, hidden_size=16, num_heads=2, dropout=0.0,
+                          generator=gen, device=dev)
+            args = (y, torch.as_tensor(mask, device=dev))
+        else:
+            model = TransformerConv(16, 8, num_heads=3, feat_drop=0.0,
+                                    attn_drop=0.0, generator=gen, device=dev)
+            args = ()
+        da.reset_launches()
+        logits = model(gt, gt.node_feat["h"], *args, training=True)
+        logits.square().sum().backward()
+        res[str(dev)] = (logits.detach().cpu(),
+                         {k: p.grad.cpu() for k, p in model.named_parameters()})
+    torch.cuda.synchronize()
+    assert {k[0] for k, v in da.LAUNCHES_BY_SHAPE.items() if v} == set(
+        DDOT_KERNELS)
+    assert gt._attn_layouts is None
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res[str(cuda)]
+    check("logits", l_gpu, l_cpu)
+    for k in g_cpu:
+        check(f"grad {k}", g_gpu[k], g_cpu[k])
+
+
+@pytest.mark.gpu
+def test_dedup_dot_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    g = Graph(skewed_graph(100, 800, seed=6), num_nodes=100)
+    att = dedup_attention_of(g.tensor(cuda), cuda, counts=False)
+    q = torch.randn(100, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        da._dot_fwd_cuda(q, q, q, att, 0.0, 4, 4, 0.0,
+                         torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(TypeError, match="float32"):
+        da.dedup_dot_attention(*(t.to(cuda, torch.float64)
+                                 for t in (q, q, q)), att, 2)
+    with pytest.raises(ValueError, match="layout"):
+        da.dedup_dot_attention(*(t.to(cuda) for t in (q, q, q)),
+                               dedup_attention_of(g.tensor("cpu"), "cpu"), 2)
+    wide = torch.randn(100, 2 * 512, device=cuda)
+    with pytest.raises(ValueError, match="slots"):
+        da.dedup_dot_attention(wide, wide, torch.randn(100, 2, device=cuda),
+                               att, 2)

@@ -4,7 +4,10 @@ attention (K9/K10, ``fused_graph_attention`` of
 run in interpret mode; ``TransformerConv`` and ``UniMP`` against
 ``pgl_tpu``'s with flax-initialised parameters carried over by
 ``pgl_tpu_torch.utils.convert``; the 20-step ``unimp`` loss golden; and the
-route rule of ``TransformerConv``."""
+route rule of ``TransformerConv``. On a graph with dedup layouts the layers
+take the count-matrix dot attention (K7/K8, ``dedup_dot_attention``), whose
+kernels' plain versions ``tests/test_torch_dedup_dot.py`` holds against the
+reference; here ``TransformerConv`` and ``UniMP`` on such a graph."""
 
 import os
 
@@ -37,6 +40,10 @@ from pgl_tpu_torch.nn import conv as conv_module
 from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
 from pgl_tpu_torch.ops.kernels import attention_kernels as ak
 from pgl_tpu_torch.utils.convert import flax_to_state_dict
+
+# one intra-op thread: the test files run in parallel worker processes,
+# and these sums are small
+torch.set_num_threads(1)
 
 # The first torch.exp of a process on the CPU can differ from every later
 # one by up to ~6e-5 (see tests/test_torch_gat.py): take it here.
@@ -209,13 +216,15 @@ def _numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _check_logits_and_grads(jmodel, model, args, jargs, training=False):
+def _check_logits_and_grads(jmodel, model, args, jargs, training=False,
+                            dedup=False):
     """Logits at rtol/atol 1e-5, parameter gradients at rtol 1e-4, atol
     1e-5 (float32; sums in another order), as tests/test_torch_gat.py;
-    ``args``/``jargs`` follow the graph and the features. On the CPU the
-    reference takes its edge-space composition; at attention rate 0 it is
-    the function the port's kernels compute."""
-    gj, yj, gt, y = _graphs()
+    ``args``/``jargs`` follow the graph and the features; ``dedup`` gives
+    the port's graph dedup layouts. On the CPU the reference takes its
+    edge-space composition; at attention rate 0 it is the function the
+    port's kernels compute. Returns the port's graph."""
+    gj, yj, gt, y = _graphs(dedup)
     params = jmodel.init(jax.random.key(0), gj, gj.node_feat["h"], *jargs)
 
     def loss(p):
@@ -223,8 +232,8 @@ def _check_logits_and_grads(jmodel, model, args, jargs, training=False):
                               training=training)
         return j_ce(logits, yj).mean(), logits
 
-    (_, want_logits), want_grads = jax.value_and_grad(loss, has_aux=True)(
-        params)
+    (_, want_logits), want_grads = jax.jit(jax.value_and_grad(
+        loss, has_aux=True))(params)
     model.load_state_dict(flax_to_state_dict(_numpy_tree(params), "cpu"),
                           strict=True)
     logits = model(gt, gt.node_feat["h"], *args, training=training)
@@ -290,6 +299,33 @@ def test_unimp_matches_reference(training):
         JUniMP(16, 3, **kw), UniMP(16, 3, device="cpu", **kw),
         (torch.as_tensor(label), torch.as_tensor(mask)),
         (jnp.asarray(label), jnp.asarray(mask)), training)
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_transformerconv_on_dedup_graph_matches_reference(training):
+    """On a graph with dedup layouts, through ``dedup_dot_attention`` (3
+    heads of 4: H·D = 12, off the reference's lane gate): evaluation with
+    the default dropouts, and training with both at 0."""
+    kw = dict(num_heads=3)
+    if training:
+        kw.update(feat_drop=0.0, attn_drop=0.0)
+    gt = _check_logits_and_grads(JTransformerConv(16, 4, **kw),
+                                 TransformerConv(16, 4, device="cpu", **kw),
+                                 (), (), training, dedup=True)
+    assert gt._dedup_attn is not None and gt._attn_layouts is None
+
+
+def test_unimp_on_dedup_graph_matches_reference():
+    """UniMP on a graph with dedup layouts (layers 0 and 1 through
+    ``dedup_dot_attention``, the last through the edge-space composition),
+    the labels fed through a mask, training at dropout 0."""
+    label, mask = _unimp_args(300)
+    kw = dict(num_layers=3, hidden_size=8, num_heads=2, dropout=0.0)
+    gt = _check_logits_and_grads(
+        JUniMP(16, 3, **kw), UniMP(16, 3, device="cpu", **kw),
+        (torch.as_tensor(label), torch.as_tensor(mask)),
+        (jnp.asarray(label), jnp.asarray(mask)), True, dedup=True)
+    assert gt._dedup_attn is not None and gt._attn_layouts is None
 
 
 def test_unimp_parameters_load_strictly():
@@ -383,6 +419,38 @@ def test_unimp_training_dropout_is_seeded_and_learns():
     assert runs[0][-1] < runs[0][0]
 
 
+def test_unimp_cell_dropout_on_dedup_graph_is_seeded_and_learns():
+    """UniMP at dropout 0.3 on a dedup-layout multigraph, its attention
+    layers in cell mode (K7/K8 with the cell mask): finite logits; the same
+    generator seed gives the same losses; the loss falls; no per-edge work
+    list is built."""
+    _, _, gt, y = _graphs(dedup=True)
+    assert not gt._dedup_layouts[0].simple
+    label, mask = (torch.as_tensor(a) for a in _unimp_args(300))
+    runs = []
+    for _ in range(2):
+        model = UniMP(16, 3, hidden_size=8, dropout=0.3,
+                      generator=torch.Generator().manual_seed(3),
+                      device="cpu")
+        for layer in (model.conv_0, model.conv_1):
+            layer.attn_drop_mode = "cell"
+        opt = torch.optim.AdamW(model.parameters(), lr=5e-3,
+                                weight_decay=5e-4)
+        losses = []
+        for _ in range(10):
+            logits = model(gt, gt.node_feat["h"], label, mask, training=True)
+            assert bool(torch.isfinite(logits).all())
+            loss = ce(logits, y).mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        runs.append(losses)
+    assert runs[0] == runs[1]
+    assert runs[0][-1] < runs[0][0]
+    assert gt._attn_layouts is None
+
+
 # -- the route -------------------------------------------------------------
 
 def _spy(monkeypatch, calls):
@@ -414,28 +482,38 @@ def test_route_takes_the_dot_kernels(monkeypatch):
     assert len(calls) == n
 
 
-def test_route_raises_on_dedup_graphs(monkeypatch):
-    """On a graph with dedup layouts the reference takes the count-matrix
-    dot attention, not ported: the layer raises, unless the graph is a
-    multigraph under edge-mode dropout (then K9/K10, as the reference) or
-    the layer takes the edge-space route."""
-    calls = []
+def test_route_on_dedup_graphs(monkeypatch):
+    """On a graph with dedup layouts the layer takes the count-matrix dot
+    attention (``dedup_dot_attention``, K7/K8 in dot mode) with the
+    reference's arguments, at rate 0 and in cell mode under dropout; a
+    multigraph under edge-mode dropout takes K9/K10, as the reference; and
+    ``concat=False`` the edge-space route. H·D = 8 here, which the reference
+    keeps off its fused kernels (``(H·D) % 128 != 0``): the port takes
+    K7/K8 there, the one deliberate departure."""
+    calls, dedup_calls = [], []
     _spy(monkeypatch, calls)
+    real = conv_module.dedup_dot_attention
+    monkeypatch.setattr(
+        conv_module, "dedup_dot_attention",
+        lambda *a, **k: dedup_calls.append((a[4:], k)) or real(*a, **k))
     edges = skewed_graph(400, 6000, seed=2)        # repeats (dst, src) pairs
     with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0):
         gd = Graph(edges, num_nodes=400).tensor("cpu")
     assert not gd._dedup_layouts[0].simple
     x = torch.randn(400, 16)
     conv = TransformerConv(16, 4, num_heads=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="dedup_dot_attention"):
-        conv(gd, x)
+    assert conv(gd, x).shape == (400, 8)
+    assert dedup_calls[-1] == ((2, 4, 4, 0.0),
+                               {"attn_drop": 0.0, "drop_seed": None})
     assert conv(gd, x, training=True).shape == (400, 8)
-    assert len(calls) == 1
+    assert len(calls) == 1 and len(dedup_calls) == 1
     cell = TransformerConv(16, 4, num_heads=2, attn_drop_mode="cell",
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="K7/K8"):
-        cell(gd, x, training=True)
+    assert cell(gd, x, training=True).shape == (400, 8)
+    assert dedup_calls[-1][1]["attn_drop"] == 0.6
+    assert dedup_calls[-1][1]["drop_seed"].dtype == torch.int32
     mean = TransformerConv(16, 4, num_heads=2, concat=False, device="cpu")
     assert mean(gd, x).shape == (400, 4)
+    assert len(calls) == 1 and len(dedup_calls) == 2
     with pytest.raises(ValueError, match="attn_drop_mode"):
         TransformerConv(16, 4, attn_drop_mode="node", device="cpu")
