@@ -101,7 +101,32 @@ there is no card or any phase fails. Phases:
    and a finite, falling loss; a torch.profiler trace of the step; the
    kernels timed beside the table and gather bounds; and the attention
    device time per UniMP step of this route beside the per-edge route's
-   on the same graph (phase 7's dot kernels there).
+   on the same graph (phase 7's dot kernels there);
+9. the edge-weighted path (``send_ue_recv``: K1w, the sorted SpMM on
+   weighted messages, and the weighted K6): K1w forward, dx and dw (one
+   launch over CSR) against their float64 plain versions with the terms
+   scale, for mul and add, one weight an edge or 8 a head, D in (16, 64,
+   128), on the skewed small graph and the headline graph, two runs giving
+   the same bits, and each gradient alone; the weighted K6 forward, dx and
+   dw (K1w's pass) on the headline graph under ``DEDUP`` against float64,
+   the same bits twice, forward and dx within tolerance of K1w; small
+   FAGCN (through
+   K1w and through the weighted K6), GATv2 and GATConv at 48 heads on its
+   unfused path, CUDA against CPU; then ``FAGCN(128, 16, hidden_size=64,
+   num_layer=3, eps=0.2, dropout=0.6)`` (the reference's widths) trains 3
+   warm-up and 20 timed steps on the headline graph with dropout, without,
+   and under ``DEDUP`` (the weighted K6), and ``GATv2(128, 16,
+   num_heads=8, hidden_size=8, feat_drop=0.6, attn_drop=0.6)`` on the bench
+   GAT graph, each asserting its launches a step (FAGCN: three K1w forward
+   and three backward at D = 64, or three weighted K6 each way and three dw
+   passes; GATv2: K1w at (D, H) = (64, 8) and (16, 1) each way) and a
+   finite, falling loss; torch.profiler traces of the FAGCN (both routes)
+   and GATv2 steps; the kernels timed beside their plain versions, the byte
+   and gather bounds, the library calls (``torch.sparse.mm`` on the
+   weights for one weight an edge, ``torch.bmm`` on batched COO matrices
+   for one a head, ``torch.sparse.sampled_addmm`` for dw) and K1 at the
+   same width; and the weighted SpMM device time a FAGCN step on both
+   routes.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -959,7 +984,7 @@ def phase_gat_profile(g, tag="GAT", trainer=None):
             device[e.key[:100]] = us / 1e3 / n
     attn = {k: v for k, v in by_name.items()
             if k.startswith(("gat_", "dot_", "sum_", "dedup_attn",
-                             "dedup_dot", "spmm_"))}
+                             "dedup_dot", "spmm_", "dedup_apply"))}
     busy = sum(by_name.values())
     profile_line = {
         "chained_ms_per_step": chained_ms, "device_busy_ms_per_step": busy,
@@ -1211,12 +1236,13 @@ def dedup_gat_per_step(g):
 
 def timing_row(rows, info, name, kernel, source, replaces, launches, err,
                ms, plain_ms, nbytes, ops, lib_ms, gather_bytes=None,
-               **extra):
+               lib_name="torch.sparse.mm", **extra):
     """Append one row of the kernels line to ``rows`` and print it. The
     bound is the larger of ``nbytes`` (each input read once, each output
     written once) over the card's memory rate and ``ops`` over its float32
     rate; ``gather_bytes`` (the rows the kernel gathers, read once each
-    time) adds a gather bound. ``info`` and ``extra`` describe the shape."""
+    time) adds a gather bound. ``lib_name`` names the library call timed
+    in ``lib_ms``; ``info`` and ``extra`` describe the shape."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     rows.append({
@@ -1226,6 +1252,8 @@ def timing_row(rows, info, name, kernel, source, replaces, launches, err,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib_ms, "share": bound_ms / ms,
         "shape": dict(info, kernel=kernel, **extra)})
+    if lib_ms is not None:
+        rows[-1]["library_call"] = lib_name
     gather = ""
     if gather_bytes is not None:
         gather_ms = gather_bytes / HBM_BYTES_PER_S * 1e3
@@ -1234,7 +1262,7 @@ def timing_row(rows, info, name, kernel, source, replaces, launches, err,
                   f"({gather_ms / ms:.3f} of it)")
     print(f"[timing] {name}: kernel {ms:.5f} ms ({launches} launches in "
           f"its run), plain {plain_ms:.5f} ms, "
-          + (f"torch.sparse.mm {lib_ms:.5f} ms, " if lib_ms else "")
+          + (f"{lib_name} {lib_ms:.5f} ms, " if lib_ms else "")
           + f"bound {bound_ms:.5f} ms ({rows[-1]['bound_by']}; "
           f"{bound_ms / ms:.3f} of it){gather}", flush=True)
 
@@ -2106,6 +2134,538 @@ def phase_unimp_dedup(dev, edge_route_ms):
         "unimp_attention_route_lower": lower}
 
 
+# -- phase 9: edge-weighted message passing (K1w, the weighted K6) --------
+
+# K1w's shapes on the main path: (op, H) at the widths FAGCN (D = 64,
+# scalar weights) and GATv2 (D = 64 with 8 heads, D = 16 with one) run
+K1W_CASES = [(op, H, D) for op in ("mul", "add") for H in (1, 8)
+             for D in (16, 64, 128)]
+
+
+def weighted_terms(x, w, lay, op):
+    """K1w's plain version in float64 over ``lay`` and the 2-norm of each
+    output's terms (``check``'s scale)."""
+    import torch
+    E, H, D = lay.num_edges, w.shape[1], x.shape[1]
+    m = x.double().index_select(0, lay.indices).reshape(E, H, D // H)
+    we = w.double().index_select(0, lay.edge_id).unsqueeze(-1)
+    m = (m * we if op == "mul" else m + we).reshape(E, D)
+    z = torch.zeros(lay.num_rows, D, dtype=torch.float64, device=x.device)
+    return (z.index_add(0, lay.seg_ids, m),
+            z.index_add(0, lay.seg_ids, m * m).sqrt())
+
+
+def check_weighted(tag, x, w, g, csc, csr, op, out, dx, dw):
+    """K1w's forward, dx and dw (float32, any of them None when not run)
+    against their float64 plain versions at ``check``'s tolerance with the
+    terms scale; returns the max |err| of each."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    H = w.shape[1]
+    errs = {}
+    with torch.no_grad():
+        if out is not None:
+            want, scale = weighted_terms(x, w, csc, op)
+            errs["fwd"] = check(f"{tag} K1w fwd", out, want, scale)
+        if dx is not None:
+            if op == "mul":
+                want, scale = weighted_terms(g, w, csr, op)
+                errs["dx"] = check(f"{tag} K1w dx", dx, want, scale)
+            else:
+                errs["dx"] = check_spmm(f"{tag} K1w dx", dx, g, csr)
+        if dw is not None:
+            g64, x64 = g.double(), x.double()
+            want = sk.weight_grad_reference(g64, x64, csr, H, op)
+            scale = sk.weight_grad_reference(g64 * g64, x64 * x64, csr, H,
+                                             op).sqrt()
+            errs["dw"] = check(f"{tag} K1w dw", dw, want, scale)
+    return errs
+
+
+def run_weighted(x, w, g, csc, csr, op, need_dx=True, need_dw=True):
+    """One K1w forward and backward on the card: (out, dx, dw)."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    xr = x.detach().clone().requires_grad_(need_dx)
+    wr = w.detach().clone().requires_grad_(need_dw)
+    out = sk.spmm_weighted(xr, wr, csc, csr, op)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    return out.detach(), xr.grad, wr.grad
+
+
+def phase_weighted_kernels(g_head, g_dedup, dev):
+    """K1w against float64 at every case of ``K1W_CASES`` on the skewed
+    small graph and the headline graph, and with one gradient alone (dx,
+    then dw); two runs give the same bits. Then the weighted K6 on the
+    headline graph under ``DEDUP``: forward, dx and dw against float64,
+    the same bits twice, and forward and dx within the tolerance of K1w on
+    the same inputs (its dw is K1w's own pass)."""
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+
+    small = Graph(skewed_graph(3000, 40000, seed=1), num_nodes=3000
+                  ).tensor(dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for tag, g in (("small", small), ("headline", g_head)):
+        csc, csr = g._spmm_layouts
+        for op, H, D in K1W_CASES:
+            x = torch.randn(g.num_nodes, D, device=dev, generator=gen)
+            w = torch.randn(g.num_edges, H, device=dev, generator=gen)
+            cot = torch.randn(g.num_nodes, D, device=dev, generator=gen)
+            first = run_weighted(x, w, cot, csc, csr, op)
+            again = run_weighted(x, w, cot, csc, csr, op)
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"{tag} K1w {op} H={H} D={D}: two "
+                                     "runs differ")
+            e = check_weighted(f"{tag} {op} H={H} D={D}", x, w, cot, csc,
+                               csr, op, *first)
+            print(f"[weighted] {tag} E={g.num_edges} {op} H={H} D={D}: max "
+                  f"|err| fwd {e['fwd']:.3e} dx {e['dx']:.3e} dw "
+                  f"{e['dw']:.3e}; same bits twice", flush=True)
+        # one gradient alone: dx (weights without a gradient), dw (features
+        # without one: the launch that writes dw only)
+        x = torch.randn(g.num_nodes, 64, device=dev, generator=gen)
+        w = torch.randn(g.num_edges, 1, device=dev, generator=gen)
+        cot = torch.randn(g.num_nodes, 64, device=dev, generator=gen)
+        _, dx, _ = run_weighted(x, w, cot, csc, csr, "mul", need_dw=False)
+        _, _, dw = run_weighted(x, w, cot, csc, csr, "mul", need_dx=False)
+        e = check_weighted(f"{tag} mul alone", x, w, cot, csc, csr, "mul",
+                           None, dx, dw)
+        print(f"[weighted] {tag} mul H=1 D=64, one gradient alone: max "
+              f"|err| dx {e['dx']:.3e} dw {e['dw']:.3e}", flush=True)
+
+    csc_d, csr_d = g_dedup._dedup_layouts
+    csc, csr = g_dedup._spmm_layouts
+    for D in (16, 64):
+        x = torch.randn(g_dedup.num_nodes, D, device=dev, generator=gen)
+        w = torch.randn(g_dedup.num_edges, device=dev, generator=gen)
+        cot = torch.randn(g_dedup.num_nodes, D, device=dev, generator=gen)
+        runs = []
+        for _ in range(2):
+            xr = x.clone().requires_grad_(True)
+            wr = w.clone().requires_grad_(True)
+            out = dk.spmm_dedup_weighted(xr, wr, csc_d, csr_d, csr)
+            (out * cot).sum().backward()
+            torch.cuda.synchronize()
+            runs.append((out.detach(), xr.grad, wr.grad))
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"weighted K6 D={D}: two runs differ")
+        out, dx, dw = runs[0]
+        e = check_weighted(f"headline weighted K6 D={D}", x, w[:, None],
+                           cot, csc, csr, "mul", out, dx, dw[:, None])
+        k1w = run_weighted(x, w[:, None], cot, csc, csr, "mul")
+        with torch.no_grad():
+            _, scale = weighted_terms(x, w[:, None], csc, "mul")
+            check(f"weighted K6 D={D} against K1w", out, k1w[0], scale)
+            _, scale = weighted_terms(cot, w[:, None], csr, "mul")
+            check(f"weighted K6 D={D} dx against K1w", dx, k1w[1], scale)
+        print(f"[weighted] headline weighted K6 D={D}: max |err| fwd "
+              f"{e['fwd']:.3e} dx {e['dx']:.3e} dw {e['dw']:.3e}; same bits "
+              "twice; fwd and dx within tolerance of K1w (dw is K1w's own "
+              "pass, held against float64 only)", flush=True)
+    reset_all_launches()
+
+
+@contextlib.contextmanager
+def no_dropout():
+    """The layers' dropout replaced by the identity (their routes keep
+    reading the rates), so CUDA and CPU runs compare."""
+    from pgl_tpu_torch.nn import conv
+    real = conv._dropout
+    conv._dropout = lambda x, rate, generator: x
+    try:
+        yield
+    finally:
+        conv._dropout = real
+
+
+def phase_weighted_small(dev):
+    """Small FAGCN (through K1w, and through the weighted K6 on a graph
+    with dedup layouts), GATv2, and GATConv at 48 heads on its unfused path
+    (attention dropout, replaced by the identity), CUDA against the CPU's
+    plain versions with the same weights: output and parameter
+    gradients."""
+    import torch
+    from pgl_tpu_torch.datasets import community_graph
+    from pgl_tpu_torch.models import FAGCN, GATv2
+    from pgl_tpu_torch.nn import GATConv
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+
+    g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                                avg_degree=8, seed=5)
+    cases = [
+        ("FAGCN", False, False, ("mul", "csc", 16, 1),
+         lambda d: FAGCN(16, 3, hidden_size=16, device=d, generator=torch.
+                         Generator().manual_seed(0))),
+        ("FAGCN dedup", True, False, ("dedup_weighted", "csc", 16),
+         lambda d: FAGCN(16, 3, hidden_size=16, device=d, generator=torch.
+                         Generator().manual_seed(0))),
+        ("GATv2", False, False, ("mul", "csc", 64, 8),
+         lambda d: GATv2(16, 3, device=d, generator=torch.
+                         Generator().manual_seed(0))),
+        ("GATConv 48 heads unfused", False, True, ("mul", "csc", 96, 48),
+         lambda d: GATConv(16, 2, feat_drop=0.0, attn_drop=0.5,
+                           num_heads=48, device=d, generator=torch.
+                           Generator().manual_seed(0)))]
+    for name, dedup, training, key, make in cases:
+        results = {}
+        reset_all_launches()
+        for d in ("cpu", dev):
+            with dispatch_settings(DEDUP=dedup, DEDUP_MIN_EDGES=0):
+                gt = g.tensor(d)
+            model = make(d)
+            with no_dropout():
+                out = model(gt, gt.node_feat["h"], training)
+            y = torch.as_tensor(labels, device=d)
+            (ce(out, y).mean() if out.shape[1] == 3
+             else out.square().mean()).backward()
+            results[str(d)] = (out.detach().cpu(),
+                               {k: p.grad.cpu()
+                                for k, p in model.named_parameters()})
+        if not all_launches().get(key):
+            raise AssertionError(f"small {name} did not launch {key}")
+        reset_all_launches()
+        (o_cpu, g_cpu), (o_gpu, g_gpu) = results["cpu"], results[str(dev)]
+        err = check(f"small {name} output", o_gpu, o_cpu)
+        for k in g_cpu:
+            err = max(err, check(f"small {name} grad {k}", g_gpu[k],
+                                 g_cpu[k]))
+        print(f"[model] small {name}, CUDA vs CPU: max |err| {err:.3e}",
+              flush=True)
+
+
+def fagcn_trainer(g, dropout=0.6):
+    """FAGCN at the reference's widths (``FAGCN(128, 16, hidden_size=64,
+    num_layer=3, eps=0.2, dropout)``) on ``g``'s device, weights from seed
+    0, the headline's labels (seed 0), training; and a function that takes
+    one Adam step (lr 1e-3, as the headline) and returns its loss."""
+    import torch
+    from pgl_tpu_torch.models import FAGCN
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+
+    x = g.node_feat["h"]
+    y = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 16, g.num_nodes).astype(np.int64), device=x.device)
+    model = FAGCN(128, 16, hidden_size=64, num_layer=3, eps=0.2,
+                  dropout=dropout, generator=torch.Generator().manual_seed(0),
+                  device=x.device)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = ce(model(g, x, True), y).mean()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return model, step
+
+
+def gatv2_trainer(g):
+    """GATv2 at the reference's defaults (``GATv2(128, 16, num_heads=8,
+    hidden_size=8, feat_drop=0.6, attn_drop=0.6)``) on ``g``'s device,
+    weights from seed 0, labels from seed 1 (as the bench GAT), training,
+    and a function that takes one Adam step (lr 1e-3) and returns its
+    loss."""
+    import torch
+    from pgl_tpu_torch.models import GATv2
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+
+    x = g.node_feat["h"]
+    y = torch.as_tensor(np.random.default_rng(1).integers(
+        0, 16, g.num_nodes).astype(np.int64), device=x.device)
+    model = GATv2(128, 16, num_heads=8, hidden_size=8, feat_drop=0.6,
+                  attn_drop=0.6, generator=torch.Generator().manual_seed(0),
+                  device=x.device)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = ce(model(g, x, True), y).mean()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return model, step
+
+
+# launches a step, from the code: FAGCN's three FAConv layers each run one
+# weighted SpMM forward over CSC and one backward over CSR (every layer's
+# input and weights carry a gradient), at D = 64 with one weight an edge;
+# under DEDUP the weighted K6 both ways and K1w's dw pass. GATv2's two
+# layers: 8 heads of 8 and one of 16.
+FAGCN_PER_STEP = {("mul", "csc", 64, 1): 3, ("mul", "csr", 64, 1): 3}
+FAGCN_DEDUP_PER_STEP = {("dedup_weighted", "csc", 64): 3,
+                        ("dedup_weighted", "csr", 64): 3,
+                        ("mul_dw", "csr", 64, 1): 3}
+GATV2_PER_STEP = {("mul", "csc", 64, 8): 1, ("mul", "csc", 16, 1): 1,
+                  ("mul", "csr", 64, 8): 1, ("mul", "csr", 16, 1): 1}
+K1W_REPLACES = "pgl_tpu/ops/pallas/segment_kernels.py:161"
+K6W_REPLACES = DEDUP_REPLACES["dedup"]
+
+
+def batched_csr(lay, values, N):
+    """``values.shape[0]`` CSR matrices [N, N] of ``lay``'s pattern, matrix
+    h holding ``values[h]`` (in the layout's order)."""
+    import torch
+    H = values.shape[0]
+    return torch.sparse_csr_tensor(
+        lay.indptr.expand(H, -1).contiguous(),
+        lay.indices.expand(H, -1).contiguous(), values, size=(H, N, N))
+
+
+def k1w_library(lay, N, w, feat):
+    """One PyTorch call that computes K1w's mul over ``lay`` on ``feat``
+    [N, D] with ``w`` [E, H]: ``torch.sparse.mm`` on a CSR matrix of the
+    weights (H = 1), else ``torch.bmm`` on H COO matrices batched over
+    ``feat``'s heads (an [H, N, Dh] view; the output [H, N, Dh]). Batched
+    CSR is not implemented for ``bmm`` on CUDA
+    (``experiments/torch_spmm/library_calls.py``). Returns (a function of
+    no arguments, the call's name)."""
+    import torch
+    N_, D = feat.shape
+    H = w.shape[1]
+    wl = w.index_select(0, lay.edge_id)
+    if H == 1:
+        A = torch.sparse_csr_tensor(lay.indptr, lay.indices, wl[:, 0],
+                                    size=(N, N))
+        return (lambda: torch.sparse.mm(A, feat)), "torch.sparse.mm"
+    A = batched_csr(lay, wl.T.contiguous(), N).to_sparse_coo()
+    fv = feat.view(N_, H, D // H).transpose(0, 1)
+    return (lambda: torch.bmm(A, fv)), "torch.bmm (batched COO)"
+
+
+def dw_library(lay, N, H, g, x):
+    """One PyTorch call that computes K1w's mul dw over the CSR layout
+    ``lay`` (rows the sources): ``torch.sparse.sampled_addmm`` on a CSR
+    matrix of ``lay``'s pattern, ``x`` at the rows and ``g.T`` at the
+    columns (``beta=0``), batched over the heads for H > 1; dw in the
+    layout's order. A function of no arguments."""
+    import torch
+    E, D = lay.num_edges, x.shape[1]
+    if H == 1:
+        P = torch.sparse_csr_tensor(lay.indptr, lay.indices,
+                                    x.new_zeros(E), size=(N, N))
+        return lambda: torch.sparse.sampled_addmm(P, x, g.T, beta=0)
+    P = batched_csr(lay, x.new_zeros(H, E), N)
+    xv = x.view(-1, H, D // H).transpose(0, 1)
+    gv = g.view(-1, H, D // H).permute(1, 2, 0)
+    return lambda: torch.sparse.sampled_addmm(P, xv, gv, beta=0)
+
+
+def weighted_timing(rows, g, dev, gen, op, H, D, launches, name, graph):
+    """K1w's forward (CSC) and backward (CSR: dx and dw in one launch) at
+    (op, H, D) on ``g``, and K1 at D over the same layouts: CUDA events
+    beside the plain versions, the library (mul: ``k1w_library``, and on
+    the backward ``dw_library`` after it; K1: ``torch.sparse.mm`` on a CSR
+    matrix of ones), the byte bound (each input read once, each output
+    written once) and the gather bound (each edge's gathered row read once
+    instead of the table)."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    csc, csr = g._spmm_layouts
+    N, E = g.num_nodes, g.num_edges
+    x = torch.randn(N, D, device=dev, generator=gen)
+    w = torch.randn(E, H, device=dev, generator=gen)
+    cot = torch.randn(N, D, device=dev, generator=gen)
+    mul = op == "mul"
+    wop = 1 if mul else 2
+    info = {"graph": graph, "rows": N, "edges": E, "op": op, "H": H, "D": D}
+    table = 4 * N * D
+    for kind, lay, bwd in (("csc", csc, False), ("csr", csr, True)):
+        out = torch.empty(N, D, device=dev)
+        part = torch.empty(lay.num_partials, D, device=dev)
+        dw = torch.empty(E, H, device=dev) if bwd else None
+        if bwd:
+            args = (cot, w, lay, out, part, 1 if mul else 0, wop,
+                    x if mul else None, dw)
+            plain = lambda: ((sk.spmm_weighted_reference(cot, w, lay, "mul")
+                              if mul else sk.spmm_reference(cot, lay)),
+                             sk.weight_grad_reference(cot, x, lay, H, op))
+        else:
+            args = (x, w, lay, out, part, wop)
+            plain = lambda: sk.spmm_weighted_reference(x, w, lay, op)
+        ms = time_ms(lambda: sk._launch_weighted(*args), 50)
+        plain_ms = time_ms(plain, 5)
+        lib_ms = lib_name = None
+        if mul:
+            lib, lib_name = k1w_library(lay, N, w, cot if bwd else x)
+            if bwd:
+                dw_lib = dw_library(lay, N, H, cot, x)
+                lib_ms = time_ms(lambda: (lib(), dw_lib()), 50)
+                lib_name += " + torch.sparse.sampled_addmm"
+            else:
+                lib_ms = time_ms(lib, 50)
+        with torch.no_grad():
+            e = check_weighted(f"timed {name} {kind}", x, w, cot, csc, csr,
+                               op, None if bwd else out,
+                               out if bwd else None, dw)
+        # bytes: the gathered table (and on the backward of mul the row
+        # table x), indices, edge ids and pieces, the weights (not read by
+        # add's backward), out (and dw) written once
+        struct = 8 * E + 16 * lay.pieces.shape[0]
+        reads = table * (2 if bwd and mul else 1) + struct + (
+            4 * E * H if mul or not bwd else 0)
+        nbytes = reads + table + (4 * E * H if bwd else 0)
+        kernel = "k1w_bwd" if bwd else "k1w_fwd"
+        timing_row(rows, info, f"{name}_{kernel}_{kind}", kernel, SOURCE,
+                   K1W_REPLACES, launches.get((op, kind, D, H), 0),
+                   max(e.values()), ms, plain_ms, nbytes,
+                   2 * E * D * (2 if bwd else 1), lib_ms,
+                   nbytes - table + 4 * E * D, lib_name, layout=kind)
+        # K1 at the same width over the same layout: what the weights cost
+        k1_ms = time_ms(lambda: sk._launch(x, lay, out, part), 50)
+        k1_plain = time_ms(lambda: sk.spmm_reference(x, lay), 5)
+        A1 = torch.sparse_csr_tensor(lay.indptr, lay.indices,
+                                     torch.ones(E, device=dev), size=(N, N))
+        k1_lib = time_ms(lambda: torch.sparse.mm(A1, x), 50)
+        with torch.no_grad():
+            k1_err = check_spmm(f"timed K1 {kind} D={D}", out, x, lay)
+        k1_bytes = 2 * table + 4 * E + 16 * lay.pieces.shape[0]
+        timing_row(rows, dict(info, op=None, H=None), f"{name}_k1_{kind}",
+                   "spmm", SOURCE, REPLACES, launches.get((kind, D), 0),
+                   k1_err, k1_ms, k1_plain, k1_bytes, E * D, k1_lib,
+                   k1_bytes - table + 4 * E * D, layout=kind)
+
+
+def phase_weighted_timing(g_head, g_dedup, g_gat, dev, runs):
+    """Rows at the main path's shapes: K1w at FAGCN's (mul, H=1, D=64) on
+    the headline graph and GATv2's (mul, 8, 64) and (mul, 1, 16) on the
+    bench GAT graph, each beside K1 at its width; the weighted K6 forward
+    and dx and K1w's dw pass at D = 64 on the headline graph under
+    ``DEDUP``. ``runs`` maps a run to its launches."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+    weighted_timing(rows, g_head, dev, gen, "mul", 1, 64, runs["fagcn"],
+                    "fagcn", "headline")
+    for H, D in ((8, 64), (1, 16)):
+        weighted_timing(rows, g_gat, dev, gen, "mul", H, D, runs["gatv2"],
+                        f"gatv2_h{H}", "gat_graph")
+
+    N, E, D = g_dedup.num_nodes, g_dedup.num_edges, 64
+    x = torch.randn(N, D, device=dev, generator=gen)
+    w = torch.randn(E, device=dev, generator=gen)
+    cot = torch.randn(N, D, device=dev, generator=gen)
+    launches = runs["fagcn_dedup"]
+    for lay, k1, src in zip(g_dedup._dedup_layouts, g_dedup._spmm_layouts,
+                            (x, cot)):
+        cell = torch.ones(E, dtype=torch.bool, device=dev)
+        cell[1:] = (lay.dst[1:] != lay.dst[:-1]) | (lay.urow[1:]
+                                                   != lay.urow[:-1])
+        cells = int(cell.sum())
+        out = torch.empty(lay.n_pad, D, device=dev)
+        part = torch.empty(lay.num_partials * dk.NB, D, device=dev)
+        ms = time_ms(lambda: dk._launch_apply(src, lay, None, out, part, w),
+                     20)
+        plain_ms = time_ms(lambda: dk.apply_weighted_reference(src, w, lay),
+                           5)
+        A = torch.sparse_csr_tensor(k1.indptr, k1.indices,
+                                    w.index_select(0, k1.edge_id),
+                                    size=(N, N))
+        lib_ms = time_ms(lambda: torch.sparse.mm(A, src), 20)
+        with torch.no_grad():
+            want, scale = weighted_terms(src, w[:, None], k1, "mul")
+            err = check(f"timed weighted K6 {lay.kind}", out[:N], want,
+                        scale)
+        # bytes: x once, uv, pairs and groups, dst, urow and edge ids, the
+        # weights, out written; operations: 2 a nonzero cell and column,
+        # one add an edge for the weight sums
+        nbytes = (4 * (2 * N * D + lay.uv.numel() + 4 * E)
+                  + 16 * (lay.num_pairs + lay.groups.shape[0]))
+        info = {"graph": "headline", "rows": N, "edges": E, "D": D,
+                "pairs": lay.num_pairs, "groups": int(lay.groups.shape[0]),
+                "cells": cells}
+        timing_row(rows, info, f"fagcn_dedup_weighted_{lay.kind}",
+                   "dedup_weighted", DEDUP_SOURCE, K6W_REPLACES,
+                   launches.get(("dedup_weighted", lay.kind, D), 0), err,
+                   ms, plain_ms, nbytes, 2 * cells * D + E, lib_ms,
+                   nbytes - 4 * N * D + 4 * cells * D, layout=lay.kind)
+    # the dedup route's dw: K1w's pass over the K1 CSR layout, dw alone
+    csr = g_dedup._spmm_layouts[1]
+    dw = torch.empty(E, 1, device=dev)
+    w1 = w[:, None]
+    ms = time_ms(lambda: sk._launch_weighted(cot, w1, csr, None, None, 0, 1,
+                                             x, dw), 50)
+    plain_ms = time_ms(lambda: sk.weight_grad_reference(cot, x, csr, 1), 5)
+    with torch.no_grad():
+        err = check_weighted("timed dw pass", x, w1, cot, None, csr, "mul",
+                             None, None, dw)["dw"]
+    lib_ms = time_ms(dw_library(csr, N, 1, cot, x), 50)
+    # bytes: the two tables, indices, edge ids and dw written (no weights:
+    # the launch without dx does not read them), the pieces
+    nbytes = 2 * 4 * N * D + 12 * E + 16 * csr.pieces.shape[0]
+    timing_row(rows, {"graph": "headline", "rows": N, "edges": E, "D": D,
+                      "op": "mul", "H": 1},
+               "fagcn_dedup_k1w_dw_csr", "k1w_dw", SOURCE, K1W_REPLACES,
+               launches.get(("mul_dw", "csr", D, 1), 0), err, ms, plain_ms,
+               nbytes, 2 * E * D, lib_ms, nbytes - 4 * N * D + 4 * E * D,
+               "torch.sparse.sampled_addmm", layout="csr")
+    reset_all_launches()
+    return rows
+
+
+def phase_weighted(dev, host):
+    """The edge-weighted path: kernel checks, the small models, FAGCN on
+    the headline graph three ways, GATv2 on the bench GAT graph, their
+    profiles and the kernels' times. Returns (rows, the step line's
+    entries)."""
+    import torch
+
+    g = headline_graph(False, host)
+    reset_all_launches()
+    g_dedup = headline_graph(True, host)
+    if g_dedup._dedup_layouts is None or g_dedup._dedup_layouts[0].edge_id \
+            is None:
+        raise AssertionError("headline under DEDUP: no dedup layouts with "
+                             "edge ids")
+    phase_weighted_kernels(g, g_dedup, dev)
+    phase_weighted_small(dev)
+    train, by6 = phase_train(g, "FAGCN", FAGCN_PER_STEP, fagcn_trainer)
+    train0, _ = phase_train(g, "FAGCN no dropout", FAGCN_PER_STEP,
+                            lambda g: fagcn_trainer(g, 0.0))
+    train_d, by_d = phase_train(g_dedup, "FAGCN dedup", FAGCN_DEDUP_PER_STEP,
+                                fagcn_trainer)
+    prof = phase_gat_profile(g, "FAGCN", fagcn_trainer)
+    prof_d = phase_gat_profile(g_dedup, "FAGCN dedup", fagcn_trainer)
+    g_gat = gat_host().tensor()
+    train_v2, by_v2 = phase_train(g_gat, "GATv2", GATV2_PER_STEP,
+                                  gatv2_trainer)
+    prof_v2 = phase_gat_profile(g_gat, "GATv2", gatv2_trainer)
+    rows = phase_weighted_timing(
+        g, g_dedup, g_gat, dev,
+        {"fagcn": by6, "fagcn_dedup": by_d, "gatv2": by_v2})
+
+    def per_step(run, per):
+        return sum(r["ms"] * per.get((r["shape"]["op"], r["shape"]["layout"],
+                                      r["shape"]["D"], r["shape"]["H"]), 0)
+                   for r in rows if r["shape"].get("graph") == run
+                   and r["shape"]["kernel"] in ("k1w_fwd", "k1w_bwd"))
+
+    k1w_fagcn = per_step("headline", FAGCN_PER_STEP)
+    k1w_gatv2 = per_step("gat_graph", GATV2_PER_STEP)
+    dedup_ms = sum(r["ms"] * 3 for r in rows if r["shape"]["kernel"] in (
+        "dedup_weighted", "k1w_dw"))
+    print(f"[default] weighted SpMM device ms a step: FAGCN K1w "
+          f"{k1w_fagcn:.5f}, FAGCN dedup (weighted K6, dw pass) "
+          f"{dedup_ms:.5f}; lower: "
+          f"{'dedup' if dedup_ms < k1w_fagcn else 'K1w'}; GATv2 K1w "
+          f"{k1w_gatv2:.5f}", flush=True)
+    return rows, {
+        "FAGCN": dict(train, weighted_spmm_ms_per_step=k1w_fagcn,
+                      profile=prof),
+        "FAGCN_no_dropout": train0,
+        "FAGCN_dedup": dict(train_d, weighted_spmm_ms_per_step=dedup_ms,
+                            profile=prof_d),
+        "GATv2": dict(train_v2, weighted_spmm_ms_per_step=k1w_gatv2,
+                      profile=prof_v2)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2206,6 +2766,9 @@ def main():
                       if r["shape"]["graph"] == "gat_graph")
     ddot_rows, ddot_steps = phase_unimp_dedup(dev, edge_ms)
     rows += ddot_rows
+    torch.cuda.empty_cache()
+    weighted_rows, weighted_steps = phase_weighted(dev, host)
+    rows += weighted_rows
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -2214,7 +2777,7 @@ def main():
                                spmm_ms_per_step=spmm["dedup_uncached"],
                                tensor_s=t_6),
         **gat_steps, **dedup_steps, **unimp_steps, **ddot_steps,
-        "device": smi}}),
+        **weighted_steps, "device": smi}}),
         flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

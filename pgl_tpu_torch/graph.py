@@ -13,6 +13,12 @@ rule of ``pgl_tpu/graph.py:580-637``, with the gates of
 otherwise: the CUDA kernels for CUDA tensors, their plain versions for CPU
 tensors. Max and min run plain segment ops, as the reference does.
 
+``send_ue_recv`` (``pgl_tpu/graph.py:350-431``) runs K1w, the weighted SpMM
+of ``segment_kernels``, for mul or add with sum and a scalar or per-head
+edge feature, and the weighted K6 of ``dedup_kernels`` for a scalar mul on
+a graph with dedup layouts; everything else gathers, combines and runs a
+segment op. ``send_uv`` is the reference's gathers (``:433-437``).
+
 The attention layouts of ``ops/kernels/attention_kernels.py`` (K9/K10) and
 the count-matrix attention's work lists of ``ops/kernels/dedup_attention.py``
 (K7/K8, with the fold ``red``) are built on the first attention call that
@@ -34,7 +40,8 @@ from .ops import segment as S
 from .ops.kernels import dedup_kernels as dk
 from .ops.kernels.attention_kernels import build_attention_layouts
 from .ops.kernels.dedup_attention import build_dedup_attention
-from .ops.kernels.segment_kernels import build_spmm_layout, spmm
+from .ops.kernels.segment_kernels import (build_spmm_layout, spmm,
+                                          spmm_weighted)
 from .utils.edge_index import EdgeIndex
 
 __all__ = ["Graph"]
@@ -46,6 +53,27 @@ def _check_feat_dict(feat, name):
     if not isinstance(feat, dict):
         raise TypeError(f"{name} must be a dict of arrays, got {type(feat)}")
     return dict(feat)
+
+
+def _kernel_weights(feature, edge_feat):
+    """``edge_feat`` as the [E, H] weights of K1w on ``feature`` flattened to
+    [N, D], or None where the combine is not one weight a head: [E] or
+    [E, H] with H | D on an [N, D] feature, [E, H] or [E, H, 1] on an
+    [N, H, Dh] one."""
+    if edge_feat.ndim == 0:
+        return None
+    E, trail = edge_feat.shape[0], tuple(edge_feat.shape[1:])
+    if feature.ndim == 2:
+        if not trail:
+            return edge_feat.reshape(E, 1)
+        D = feature.shape[1]
+        if len(trail) == 1 and trail[0] >= 1 and D % trail[0] == 0:
+            return edge_feat
+        return None
+    if feature.ndim == 3 and trail in ((feature.shape[1],),
+                                       (feature.shape[1], 1)):
+        return edge_feat.reshape(E, feature.shape[1])
+    return None
 
 
 class Graph:
@@ -173,6 +201,57 @@ class Graph:
                               idx.segment_ids, reduce_op,
                               num_segments=self._num_nodes)
 
+    def send_ue_recv(self, feature, edge_feat, message_op: str = "mul",
+                     reduce_op: str = "sum"):
+        """Edge-weighted SpMM: ``out[d]`` = ``reduce_op`` over the incoming
+        edges e of ``feature[s] message_op edge_feat[e]`` (``edge_feat`` in
+        the original edge order, broadcast against the gathered rows);
+        nodes with no incoming edge give 0.
+
+        mul and add with sum, on a scalar edge feature (``[E]``, ``[E,
+        1]``) or one weight a head (``[E, H]`` with H | D on ``[N, D]``;
+        ``[E, H]`` or ``[E, H, 1]`` on ``[N, H, Dh]``), run K1w (the CUDA
+        kernel, or its plain version on the CPU);
+        a scalar mul on a graph with dedup layouts runs the weighted K6.
+        Two departures from the reference's rule (``pgl_tpu/graph.py:
+        358-419``), each the same function: no ``D % 128`` gate or lane
+        padding, and an ``[N, H, Dh]`` feature takes K1w (the reference
+        sends every 3-D feature to its segment path)."""
+        self._require_tensor()
+        mp._check_op(message_op)
+        w = None
+        if message_op in ("mul", "add") and reduce_op == "sum":
+            w = _kernel_weights(feature, edge_feat)
+        if w is not None:
+            if self._spmm_layouts is None:
+                self._spmm_layouts = self._build_spmm_layouts(
+                    self._edges.device)
+            flat = feature.reshape(feature.shape[0], -1).contiguous()
+            w = w.to(flat.dtype).contiguous()
+            if (self._dedup_layouts is not None and message_op == "mul"
+                    and w.shape[1] == 1):
+                out = dk.spmm_dedup_weighted(flat, w.reshape(-1),
+                                             *self._dedup_layouts,
+                                             self._spmm_layouts[1])
+            else:
+                out = spmm_weighted(flat, w, *self._spmm_layouts,
+                                    message_op)
+            return out.reshape((self._num_nodes,) + feature.shape[1:])
+        idx = self.adj_dst_index
+        ef = edge_feat.index_select(0, idx.sorted_eid)
+        msg = mp._COMBINE[message_op](
+            mp.gather_rows(feature, idx.sorted_v),
+            mp._broadcast_edge(ef, feature.ndim))
+        return S.segment_pool(msg, idx.segment_ids, reduce_op,
+                              num_segments=self._num_nodes)
+
+    def send_uv(self, src_feat, dst_feat, message_op: str = "add"):
+        """Per-edge combine of ``src_feat[src]`` and ``dst_feat[dst]`` by
+        ``message_op`` (add/sub/mul/div), in the original edge order."""
+        self._require_tensor()
+        return mp.send_uv(src_feat, dst_feat, self._edges[:, 0],
+                          self._edges[:, 1], message_op=message_op)
+
     def _attention_layouts(self):
         """``(csc, csr)`` work lists of the attention kernels (K9/K10),
         built from the host indexes on the first call and kept on this
@@ -223,10 +302,12 @@ class Graph:
 
     def _build_spmm_layouts(self, device):
         """The SpMM layouts on ``device``: CSC for the forward, CSR for the
-        transposed backward (built on the host)."""
+        transposed backward (built on the host), with the original edge
+        ids that K1w reads its weights through."""
         return tuple(
             build_spmm_layout(idx.indptr, idx.sorted_v, self._num_nodes,
-                              kind=kind, device=device)
+                              kind=kind, device=device,
+                              edge_id=idx.sorted_eid)
             for kind, idx in (("csc", self.adj_dst_index.numpy()),
                               ("csr", self.adj_src_index.numpy())))
 
@@ -245,7 +326,8 @@ class Graph:
             lay = dk.build_dedup_layout(idx.indptr, idx.sorted_v,
                                         self._num_nodes, kind=kind,
                                         max_ratio=dispatch.DEDUP_MAX_RATIO,
-                                        device=device)
+                                        device=device,
+                                        edge_id=idx.sorted_eid)
             if lay is None:
                 return None
             lays.append(lay)

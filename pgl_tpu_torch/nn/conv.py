@@ -24,7 +24,8 @@ from ..ops.kernels.dedup_attention import (dedup_dot_attention,
 from ..ops.segment import segment_softmax, segment_sum
 from .functional import graph_op as GF
 
-__all__ = ["GCNConv", "GATConv", "TransformerConv", "lecun_normal_"]
+__all__ = ["GCNConv", "GATConv", "GATv2Conv", "PinSageConv", "FAConv",
+           "TransformerConv", "lecun_normal_"]
 
 # std of a unit normal truncated to [-2, 2]; flax's lecun_normal divides by
 # it so that the truncated draw keeps variance 1 / fan_in
@@ -56,6 +57,20 @@ def _resolve_act(activation) -> Optional[Callable]:
         return activation
     fn = getattr(nn.functional, activation, None)
     return fn if fn is not None else getattr(torch, activation)
+
+
+def _l2_normalize(x, eps: float = 1e-12):
+    """``x / sqrt(max(Σ x², eps))`` over the last axis (the reference's
+    ``_l2_normalize``)."""
+    return x / (x * x).sum(-1, keepdim=True).clamp(min=eps).sqrt()
+
+
+def _merge_heads(output, concat: bool, activation):
+    """Concatenate (``concat``) or average the heads of ``output`` [N, H,
+    Dh], then the activation."""
+    N, H, Dh = output.shape
+    output = output.reshape(N, H * Dh) if concat else output.mean(dim=1)
+    return activation(output) if activation is not None else output
 
 
 def _check_drop_mode(mode):
@@ -95,6 +110,68 @@ def _dedup_route(graph, rate: float, mode: str) -> bool:
     dedup = graph._dedup_layouts
     return dedup is not None and not (rate > 0.0 and not dedup[0].simple
                                       and mode != "cell")
+
+
+class PinSageConv(nn.Module):
+    """PinSage: edge-weighted neighbour sum, a Dense on it and one on the
+    node's own feature, added, then L2-normalised (``pgl_tpu/nn/conv.py:
+    84-100``). ``efeat`` weighs each edge (``[E]`` or ``[E, 1]``): K1w on
+    the aggregation for ``aggr_func="sum"``."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 aggr_func: str = "sum", *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        self.aggr_func = aggr_func
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.self_linear = _dense(input_size, hidden_size, gen)
+        self.neigh_linear = _dense(input_size, hidden_size, gen)
+        self.to(resolve_device(device))
+
+    def forward(self, graph, nfeat, efeat, act=None):
+        neigh = graph.send_ue_recv(nfeat, efeat, "mul", self.aggr_func)
+        output = self.self_linear(nfeat) + self.neigh_linear(neigh)
+        act = _resolve_act(act)
+        if act is not None:
+            output = act(output)
+        return _l2_normalize(output)
+
+
+class FAConv(nn.Module):
+    """FAGCN's layer: a tanh gate on each edge's endpoints, scaled by both
+    endpoints' degree norms, weighs the neighbour sum (``pgl_tpu/nn/conv.py:
+    756-778``). As in the reference the ``gate`` Dense on ``[h_s | h_d]`` is
+    split into node-side halves combined per edge by ``send_uv``: ``h_s ·
+    W[:D] + h_d · W[D:] + b``. The per-edge weight is a scalar, so the sum
+    runs K1w (the weighted K6 on a graph with dedup layouts). Dropout on
+    the weights draws from the layer's own generator."""
+
+    def __init__(self, hidden_size: int, drop: float = 0.5, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.drop = drop
+        device = resolve_device(device)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.gate = _dense(2 * hidden_size, 1, gen)
+        self.generator = _layer_generator(gen, device)
+        self.to(device)
+
+    def forward(self, graph, feature, training: bool = False):
+        D = self.hidden_size
+        norm = GF.degree_norm(graph, dtype=feature.dtype)
+        weight = self.gate.weight
+        s_src = nn.functional.linear(feature, weight[:, :D])
+        s_dst = nn.functional.linear(feature, weight[:, D:], self.gate.bias)
+        alpha = torch.tanh(graph.send_uv(s_src, s_dst, "add"))
+        alpha = alpha * graph.send_uv(norm, norm, "mul")
+        if training and self.drop > 0:
+            alpha = _dropout(alpha, self.drop, self.generator)
+        return graph.send_ue_recv(feature, alpha, "mul", "sum")
 
 
 class GCNConv(nn.Module):
@@ -153,9 +230,10 @@ class GATConv(nn.Module):
     whose mask drops a cell's duplicate edges together (the same
     expectation as edge dropout).
 
-    Training with attention dropout at ``3·H > 128`` raises
-    ``NotImplementedError``: the reference leaves its fused kernels there
-    for its unfused ``send_uv`` path, which is not ported yet.
+    Training with attention dropout at ``3·H > 128`` takes the reference's
+    unfused path (``:258-266``): ``send_uv`` scores, ``edge_softmax``,
+    dropout on the probabilities and ``send_ue_recv``, whose per-head
+    weights run K1w.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
@@ -188,14 +266,11 @@ class GATConv(nn.Module):
     def _route(self, graph, rate: float) -> str:
         """``"dedup"`` where the reference takes K7/K8
         (``pgl_tpu/nn/conv.py:202-256``), ``"additive"`` or ``"dot"`` where
-        it takes K9/K10 in that mode; raises where it leaves the fused
-        kernels."""
+        it takes K9/K10 in that mode, ``"unfused"`` where it leaves the
+        fused kernels (attention dropout at ``3·H > 128``)."""
         H = self.num_heads
         if rate > 1e-15 and 3 * H > 128:
-            raise NotImplementedError(
-                f"GATConv with {H} heads trains with attention dropout on "
-                "the reference's unfused path (send_uv, send_ue_recv; 3·H > "
-                "128), which is not ported yet")
+            return "unfused"
         if _dedup_route(graph, rate, self.attn_drop_mode):
             return "dedup"
         return "additive" if 3 * H <= 128 else "dot"
@@ -210,6 +285,13 @@ class GATConv(nn.Module):
         heads = feature.reshape(-1, H, Dh)
         attn_src = (heads * self.weight_src).sum(-1)
         attn_dst = (heads * self.weight_dst).sum(-1)
+        if route == "unfused":
+            alpha = graph.send_uv(attn_src, attn_dst, "add")
+            alpha = nn.functional.leaky_relu(alpha, 0.2)
+            alpha = GF.edge_softmax(graph, alpha).reshape(-1, H, 1)
+            alpha = _dropout(alpha, rate, self.generator)
+            return _merge_heads(graph.send_ue_recv(heads, alpha, "mul", "sum"),
+                                self.concat, self.activation)
         seed = _attn_seed(self.generator, rate)
         if route == "dedup":
             out = dedup_gat_attention(attn_dst, attn_src, feature,
@@ -224,14 +306,55 @@ class GATConv(nn.Module):
             out = fused_graph_attention(q, k, feature,
                                         *graph._attention_layouts(), H, 0.2,
                                         dsh=q.shape[1] // H, dvh=Dh)
-        output = out.reshape(-1, H, Dh)
-        if self.concat:
-            output = output.reshape(-1, H * Dh)
-        else:
-            output = output.mean(dim=1)
-        if self.activation is not None:
-            output = self.activation(output)
-        return output
+        return _merge_heads(out.reshape(-1, H, Dh), self.concat,
+                            self.activation)
+
+
+class GATv2Conv(nn.Module):
+    """GATv2 (``pgl_tpu/nn/conv.py:277-318``): the score ``a · leaky(h_s +
+    h_d)`` of each edge from ``send_uv``, ``edge_softmax`` over each
+    destination, dropout on the probabilities, and the per-head weighted
+    sum by ``send_ue_recv`` (K1w with H weights an edge on the ``[N, H,
+    Dh]`` heads). ``attn`` is flax's ``[1, H, Dh]``, xavier-uniform as
+    there. Dropout draws from the layer's own generator."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 feat_drop: float = 0.6, attn_drop: float = 0.6,
+                 num_heads: int = 1, concat: bool = True,
+                 activation: Any = None, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        self.feat_drop = feat_drop
+        self.attn_drop = attn_drop
+        self.num_heads = num_heads
+        self.concat = concat
+        self.activation = _resolve_act(activation)
+        device = resolve_device(device)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.linear = _dense(input_size, num_heads * hidden_size, gen)
+        # flax xavier_uniform on [1, H, Dh]: fan_in H, fan_out Dh (the
+        # receptive field 1), as torch's on the same shape
+        self.attn = nn.Parameter(nn.init.xavier_uniform_(
+            torch.empty(1, num_heads, hidden_size), generator=gen))
+        self.generator = _layer_generator(gen, device)
+        self.to(device)
+
+    def forward(self, graph, feature, training: bool = False):
+        H, Dh = self.num_heads, self.hidden_size
+        if training and self.feat_drop > 1e-15:
+            feature = _dropout(feature, self.feat_drop, self.generator)
+        heads = self.linear(feature).reshape(-1, H, Dh)
+        alpha = graph.send_uv(heads, heads, "add")
+        alpha = nn.functional.leaky_relu(alpha, 0.2)
+        alpha = (alpha * self.attn).sum(-1)
+        alpha = GF.edge_softmax(graph, alpha).unsqueeze(-1)
+        if training and self.attn_drop > 1e-15:
+            alpha = _dropout(alpha, self.attn_drop, self.generator)
+        return _merge_heads(graph.send_ue_recv(heads, alpha, "mul", "sum"),
+                            self.concat, self.activation)
 
 
 class TransformerConv(nn.Module):

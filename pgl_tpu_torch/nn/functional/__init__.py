@@ -1,3 +1,3 @@
-from .graph_op import degree_norm
+from .graph_op import degree_norm, edge_softmax
 
-__all__ = ["degree_norm"]
+__all__ = ["degree_norm", "edge_softmax"]

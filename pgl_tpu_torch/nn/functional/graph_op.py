@@ -5,7 +5,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["degree_norm"]
+from ...ops.segment import segment_softmax
+
+__all__ = ["degree_norm", "edge_softmax"]
 
 
 def degree_norm(graph, mode: str = "indegree", dtype=torch.float32):
@@ -19,3 +21,13 @@ def degree_norm(graph, mode: str = "indegree", dtype=torch.float32):
             "The degree_norm mode should be in ['indegree', 'outdegree']. "
             f"But receive mode={mode}")
     return degree.to(dtype).clamp(min=1.0).pow(-0.5).unsqueeze(-1)
+
+
+def edge_softmax(graph, logits, norm_by: str = "dst"):
+    """Softmax of per-edge ``logits`` ([E] or [E, ...]) over each node's
+    incoming (``norm_by="dst"``) or outgoing (``"src"``) edges, in the
+    original edge order (``pgl_tpu/nn/functional/graph_op.py:54-66``)."""
+    if norm_by not in ("dst", "src"):
+        raise ValueError(f"norm_by must be 'dst' or 'src', got {norm_by!r}")
+    seg = graph.edges[:, 1 if norm_by == "dst" else 0].contiguous()
+    return segment_softmax(logits, seg, num_segments=graph.num_nodes)

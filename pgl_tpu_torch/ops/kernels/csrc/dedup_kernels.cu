@@ -8,10 +8,12 @@
 //   * K4 `_materialize_kernel` with `_count_tiles` (the counts as bf16
 //     [P*256, 128]): `pgl_dedup_counts`;
 //   * K5 `_dedup_cached_kernel` (the apply with cached counts) and K6
-//     `_dedup_kernel`, unweighted (the apply with the counts rebuilt from
-//     the pair's edges on every call): `pgl_dedup_apply_f32`, one kernel
-//     templated on where C comes from. Everything after C is the same code,
-//     so K5 and K6 give identical bits wherever the cached counts are exact.
+//     `_dedup_kernel` (the apply with C rebuilt from the pair's edges on
+//     every call; unweighted, or weighted: `weighted=True`, the TPU path's
+//     `spmm_dedup_weighted`, where C[r, c] is the sum of the cell's edge
+//     weights): `pgl_dedup_apply_f32`, one kernel templated on where C comes
+//     from. Everything after C is the same code, so K5 and K6 give
+//     identical bits wherever the cached counts are exact.
 //
 // What bounds it on this card. K4 is bound by the bytes of the counts it
 // writes (2 B a cell, 64 KB a pair). The apply is dense: 2*256*128*D
@@ -25,7 +27,12 @@
 // Design:
 //   * no per-edge one-hot products: the count pass walks the pair's edges
 //     (exact [start, end) span, any length) and adds 1 to a shared-memory
-//     int32 cell with an atomic; integer sums agree in any order;
+//     int32 cell with an atomic; integer sums agree in any order. The
+//     weighted pass sums float32 weights, whose sum depends on the order, so
+//     it takes no atomics: a cell's edges are contiguous in the layout
+//     (`build_dedup_layout` checks it), and the thread at a cell's first
+//     edge sums the run in edge order. The TPU kernel splits w into three
+//     bf16 terms for its MXU; here C stays float32;
 //   * a CUDA block owns one group of at most PAIRS_PER_GROUP consecutive
 //     pairs of one dst block, one half (128 rows) of that block and one
 //     column tile of D (16, 32 or 64 wide). It sums its pairs in order in
@@ -78,6 +85,35 @@ __device__ __forceinline__ void count_half(int* cnt, int4 pr, int h,
   __syncthreads();
 }
 
+// C_p's rows [h*128, h*128 + 128) as float in `c` [128][kLdc]: each cell
+// the float32 sum, in edge order, of its edges' weights w[edge_id[e]]. Ends
+// with a barrier.
+__device__ __forceinline__ void weigh_half(float* c, int4 pr, int h,
+                                           const int* __restrict__ dst,
+                                           const int* __restrict__ urow,
+                                           const int* __restrict__ edge_id,
+                                           const float* __restrict__ w) {
+  for (int i = threadIdx.x; i < kHalf * kLdc; i += kThreads) c[i] = 0.f;
+  __syncthreads();
+  const int row0 = pr.x * kNB + h * kHalf;
+  for (int e = pr.z + threadIdx.x; e < pr.w; e += kThreads) {
+    const int d = __ldg(dst + e);
+    const int u = __ldg(urow + e);
+    const int r = d - row0;
+    if (static_cast<unsigned>(r) >= static_cast<unsigned>(kHalf)) continue;
+    if (e > pr.z && __ldg(dst + e - 1) == d && __ldg(urow + e - 1) == u)
+      continue;  // not the cell's first edge
+    float sum = 0.f;
+    int f = e;
+    do {
+      sum += __ldg(w + __ldg(edge_id + f));
+      ++f;
+    } while (f < pr.w && __ldg(dst + f) == d && __ldg(urow + f) == u);
+    c[r * kLdc + (u - pr.y)] = sum;
+  }
+  __syncthreads();
+}
+
 // K4: one CUDA block per (pair, half).
 __global__ void __launch_bounds__(kThreads)
 dedup_counts(const int4* __restrict__ pairs, const int* __restrict__ dst,
@@ -92,16 +128,20 @@ dedup_counts(const int4* __restrict__ pairs, const int* __restrict__ dst,
     o[i] = __float2bfloat16(static_cast<float>(cnt[(i / kW) * kLdc + i % kW]));
 }
 
-// K5 (CACHED) and K6: one CUDA block per (group, half, column tile of DT).
-// TX threads span the tile's columns (4 each), TY thread rows span the
-// half's 128 rows (RPT each).
-template <bool CACHED, int DT>
+// Where C comes from: K5's cached counts, K6's counts, K6's weights.
+enum Mode { kCached = 0, kCount = 1, kWeighted = 2 };
+
+// K5 and K6: one CUDA block per (group, half, column tile of DT). TX
+// threads span the tile's columns (4 each), TY thread rows span the half's
+// 128 rows (RPT each).
+template <int MODE, int DT>
 __global__ void __launch_bounds__(kThreads)
 dedup_apply(const float* __restrict__ x, const int* __restrict__ uv,
             const int4* __restrict__ pairs, const int4* __restrict__ groups,
             const int* __restrict__ dst, const int* __restrict__ urow,
-            const __nv_bfloat162* __restrict__ counts, int D,
-            float* __restrict__ out, float* __restrict__ partials) {
+            const __nv_bfloat162* __restrict__ counts,
+            const int* __restrict__ edge_id, const float* __restrict__ w,
+            int D, float* __restrict__ out, float* __restrict__ partials) {
   constexpr int TX = DT / 4;
   constexpr int TY = kThreads / TX;
   constexpr int RPT = kHalf / TY;
@@ -124,7 +164,7 @@ dedup_apply(const float* __restrict__ x, const int* __restrict__ uv,
 
   for (int p = gr.y; p < gr.z; ++p) {
     const int4 pr = pairs[p];
-    if constexpr (CACHED) {
+    if constexpr (MODE == kCached) {
       const __nv_bfloat162* c2 =
           counts + (static_cast<size_t>(p) * kNB + h * kHalf) * (kW / 2);
       for (int i = threadIdx.x; i < kHalf * kW / 2; i += kThreads) {
@@ -134,6 +174,8 @@ dedup_apply(const float* __restrict__ x, const int* __restrict__ uv,
         cs[r * kLdc + c] = v.x;
         cs[r * kLdc + c + 1] = v.y;
       }
+    } else if constexpr (MODE == kWeighted) {
+      weigh_half(cs, pr, h, dst, urow, edge_id, w);
     } else {
       int* cnt = reinterpret_cast<int*>(cs);
       count_half(cnt, pr, h, dst, urow);
@@ -216,36 +258,39 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
   return err;
 }
 
-template <bool CACHED, int DT>
-cudaError_t launch_apply(int n_groups, cudaStream_t s, const float* x,
-                         const int* uv, const int4* pairs, const int4* groups,
-                         const int* dst, const int* urow,
-                         const __nv_bfloat162* counts, int D, float* out,
-                         float* partials) {
+struct ApplyArgs {
+  const float* x;
+  const int* uv;
+  const int4* pairs;
+  const int4* groups;
+  const int* dst;
+  const int* urow;
+  const __nv_bfloat162* counts;
+  const int* edge_id;
+  const float* w;
+  int D;
+  float* out;
+  float* partials;
+};
+
+template <int MODE, int DT>
+cudaError_t launch_apply(int n_groups, cudaStream_t s, const ApplyArgs& a) {
   static bool ready = false;
-  const auto kernel = dedup_apply<CACHED, DT>;
+  const auto kernel = dedup_apply<MODE, DT>;
   const cudaError_t err = allow_smem(kernel, apply_smem<DT>(), ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_groups, kNB / kHalf, (D + DT - 1) / DT);
+  const dim3 grid(n_groups, kNB / kHalf, (a.D + DT - 1) / DT);
   kernel<<<grid, kThreads, apply_smem<DT>(), s>>>(
-      x, uv, pairs, groups, dst, urow, counts, D, out, partials);
+      a.x, a.uv, a.pairs, a.groups, a.dst, a.urow, a.counts, a.edge_id, a.w,
+      a.D, a.out, a.partials);
   return cudaSuccess;
 }
 
-template <bool CACHED>
-cudaError_t launch_apply_d(int n_groups, cudaStream_t s, const float* x,
-                           const int* uv, const int4* pairs,
-                           const int4* groups, const int* dst,
-                           const int* urow, const __nv_bfloat162* counts,
-                           int D, float* out, float* partials) {
-  if (D <= 16)
-    return launch_apply<CACHED, 16>(n_groups, s, x, uv, pairs, groups, dst,
-                                    urow, counts, D, out, partials);
-  if (D <= 32)
-    return launch_apply<CACHED, 32>(n_groups, s, x, uv, pairs, groups, dst,
-                                    urow, counts, D, out, partials);
-  return launch_apply<CACHED, 64>(n_groups, s, x, uv, pairs, groups, dst,
-                                  urow, counts, D, out, partials);
+template <int MODE>
+cudaError_t launch_apply_d(int n_groups, cudaStream_t s, const ApplyArgs& a) {
+  if (a.D <= 16) return launch_apply<MODE, 16>(n_groups, s, a);
+  if (a.D <= 32) return launch_apply<MODE, 32>(n_groups, s, a);
+  return launch_apply<MODE, 64>(n_groups, s, a);
 }
 
 }  // namespace
@@ -267,27 +312,44 @@ extern "C" int pgl_dedup_counts(int device, const int* pairs, int n_pairs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5 (`cached` != 0, `counts` [P*256, 128] bf16) or K6 (`counts` unused):
-// out [n_pad, D] f32 from x [N, D] f32.
-extern "C" int pgl_dedup_apply_f32(int device, int cached, const float* x,
+// out [n_pad, D] f32 from x [N, D] f32, with C from `mode`: 0 (K5) the
+// cached `counts` [P*256, 128] bf16; 1 (K6) the counts rebuilt; 2 (the
+// weighted K6) the sums of w [E] f32 (the caller's edge order) over each
+// cell's edges, edge_id [E] naming each layout position's edge.
+extern "C" int pgl_dedup_apply_f32(int device, int mode, const float* x,
                                    const int* uv, const int* pairs,
                                    const int* groups, int n_groups,
                                    const int* split_blocks,
                                    const int* split_ptr, int n_split,
                                    const int* dst, const int* urow,
-                                   const void* counts, int D, float* out,
+                                   const void* counts, const int* edge_id,
+                                   const float* w, int D, float* out,
                                    float* partials, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_groups <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* pr = reinterpret_cast<const int4*>(pairs);
-  const auto* gr = reinterpret_cast<const int4*>(groups);
-  const auto* c2 = static_cast<const __nv_bfloat162*>(counts);
-  err = cached ? launch_apply_d<true>(n_groups, s, x, uv, pr, gr, dst, urow,
-                                      c2, D, out, partials)
-               : launch_apply_d<false>(n_groups, s, x, uv, pr, gr, dst, urow,
-                                       c2, D, out, partials);
+  const ApplyArgs a{x,
+                    uv,
+                    reinterpret_cast<const int4*>(pairs),
+                    reinterpret_cast<const int4*>(groups),
+                    dst,
+                    urow,
+                    static_cast<const __nv_bfloat162*>(counts),
+                    edge_id,
+                    w,
+                    D,
+                    out,
+                    partials};
+  if (mode == kCached) {
+    err = launch_apply_d<kCached>(n_groups, s, a);
+  } else if (mode == kCount) {
+    err = launch_apply_d<kCount>(n_groups, s, a);
+  } else if (mode == kWeighted) {
+    err = launch_apply_d<kWeighted>(n_groups, s, a);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_split > 0) {
     dedup_combine<<<dim3(n_split, kNB / kCombineWarps), kCombineWarps * 32,

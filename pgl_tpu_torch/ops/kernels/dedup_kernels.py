@@ -2,10 +2,11 @@
 sum and mean on graphs whose row blocks repeat their sources.
 
 Port of ``pgl_tpu/ops/pallas/dedup_kernels.py`` (``_LayoutPrefix``,
-``build_dedup_layout``, ``materialize_counts``, ``spmm_dedup``; the Pallas
-kernels ``_materialize_kernel``, ``_dedup_cached_kernel`` and the
-unweighted ``_dedup_kernel``) onto the CUDA source
-``csrc/dedup_kernels.cu``, whose note gives the design.
+``build_dedup_layout``, ``materialize_counts``, ``spmm_dedup``,
+``spmm_dedup_weighted``; the Pallas kernels ``_materialize_kernel``,
+``_dedup_cached_kernel`` and ``_dedup_kernel``, unweighted and weighted)
+onto the CUDA source ``csrc/dedup_kernels.cu``, whose note gives the
+design.
 
 The destination rows are cut into blocks of ``NB`` = 256. Each block keeps a
 table of its distinct sources, densely packed into one array ``uv`` for all
@@ -36,15 +37,21 @@ the number of its edges with destination ``blk_p·NB + r`` whose source is
   not; the backward runs the same over the CSR layout. The kernels gather
   the window rows ``feature[uv[...]]`` themselves; no ``[U, D]`` table of
   unique rows is written. K5 and K6 give identical bits.
-* :func:`counts_reference` and :func:`apply_reference` are the plain
-  PyTorch versions (``bincount``; ``bmm`` and ``index_add_``). CPU tensors
-  run them; CUDA tensors launch the kernels or raise.
+* :func:`spmm_dedup_weighted` is the weighted K6 as an autograd
+  ``Function``: ``out[d] = Σ_e w_e · feature[src_e]`` with scalar weights in
+  the graph's original edge order, C[r, c] the sum of the cell's weights.
+  Its backward is the weighted K6 over the CSR layout for dx and K1w's
+  weight-gradient pass over the K1 CSR layout for dw.
+* :func:`counts_reference`, :func:`apply_reference` and
+  :func:`apply_weighted_reference` are the plain PyTorch versions
+  (``bincount``; ``bmm`` and ``index_add_``; ``index_select``, a product and
+  ``index_add_``). CPU tensors run them; CUDA tensors launch the kernels or
+  raise.
 
 ``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, layout kind, D)`` with
-kernel ``"counts"`` (K4; D is None), ``"dedup_cached"`` (K5) or ``"dedup"``
-(K6); one per call, which is two CUDA launches when a block has several
-groups. ``LAUNCHES`` is their sum. The weighted variant
-(``spmm_dedup_weighted``) is not ported yet.
+kernel ``"counts"`` (K4; D is None), ``"dedup_cached"`` (K5), ``"dedup"``
+(K6) or ``"dedup_weighted"`` (the weighted K6); one per call, which is two
+CUDA launches when a block has several groups. ``LAUNCHES`` is their sum.
 """
 
 from __future__ import annotations
@@ -61,10 +68,11 @@ import torch
 from ... import resolve_device
 from ..dispatch import COUNTS_MAX, use_spmm_kernel
 from . import _build
-from .segment_kernels import cut_rows
+from .segment_kernels import SpmmLayout, _weighted_backward, cut_rows
 
 __all__ = ["DedupLayout", "build_dedup_layout", "materialize_counts",
-           "spmm_dedup", "counts_reference", "apply_reference", "NB", "W",
+           "spmm_dedup", "spmm_dedup_weighted", "counts_reference",
+           "apply_reference", "apply_weighted_reference", "NB", "W",
            "PAIRS_PER_GROUP", "LAUNCHES", "LAUNCHES_BY_SHAPE",
            "reset_launches"]
 
@@ -108,6 +116,8 @@ class DedupLayout:
     split_blocks: [S] blocks of more than one group
     split_ptr:    [S+1] their ranges of partial slots, in group order
     counts:       None, or [P·NB, W] bf16 count matrices (K4)
+    edge_id:      None, or [E] original edge id of each dedup position
+                  (the weighted K6 reads its weights through it)
     """
     kind: str
     num_segments: int
@@ -125,6 +135,7 @@ class DedupLayout:
     split_blocks: torch.Tensor
     split_ptr: torch.Tensor
     counts: Optional[torch.Tensor] = None
+    edge_id: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -202,12 +213,19 @@ class _LayoutPrefix:
         pkey = pair_blk * (int(nw.max()) + 1) + win_in_blk
         self.starts = np.searchsorted(ekey, pkey, side="left")
         self.ends = np.searchsorted(ekey, pkey, side="right")
-        # (dst, unique row) identifies a count cell: its multiplicity
+        # (dst, unique row) identifies a count cell: its multiplicity. The
+        # stable sort keeps a cell's edges contiguous (same block and unique
+        # row, CSC order within: destinations ascending), which the
+        # weighted K6 needs to sum each cell in edge order without atomics
         if E:
-            _, cell_counts = np.unique(self.dst_o * (Upad + 1) + self.grow_o,
-                                       return_counts=True)
+            cell = self.dst_o * (Upad + 1) + self.grow_o
+            _, cell_counts = np.unique(cell, return_counts=True)
             self.n_cells, self.max_count = (len(cell_counts),
                                             int(cell_counts.max()))
+            runs = 1 + int(np.count_nonzero(cell[1:] != cell[:-1]))
+            if runs != self.n_cells:
+                raise RuntimeError("dedup layout: a count cell's edges "
+                                     "are not contiguous")
         else:
             self.n_cells, self.max_count = 0, 0
         self.E, self.N, self.G, self.P = E, N, G, P
@@ -216,10 +234,11 @@ class _LayoutPrefix:
 
 def build_dedup_layout(indptr, sorted_v, num_segments: int,
                        kind: str = "csc", max_ratio: float = 0.0,
-                       device=None) -> Optional[DedupLayout]:
+                       device=None, edge_id=None) -> Optional[DedupLayout]:
     """Host-side (numpy) build from a sorted adjacency, O(E log E); call
     once, at ``Graph.tensor()`` time. ``kind`` names the layout in the
-    launch counts.
+    launch counts; ``edge_id`` [E], the original edge id of each sorted
+    position (the index's ``sorted_eid``), lets the weighted K6 run on it.
 
     Returns None when ``max_ratio`` > 0 and the padded unique-row count
     exceeds ``max_ratio * E``: such a graph repeats few sources within a
@@ -252,7 +271,9 @@ def build_dedup_layout(indptr, sorted_v, num_segments: int,
                             pre.ends], axis=1).reshape(-1, 4)),
         dst=put(pre.dst_o), urow=put(pre.grow_o), eid=put(pre.order),
         groups=put(groups), split_blocks=put(split_blocks),
-        split_ptr=put(split_ptr))
+        split_ptr=put(split_ptr),
+        edge_id=(None if edge_id is None
+                 else put(np.asarray(edge_id, dtype=np.int64)[pre.order])))
 
 
 # -- plain versions ---------------------------------------------------------
@@ -295,6 +316,17 @@ def apply_reference(x: torch.Tensor, layout: DedupLayout,
     return out[:layout.num_segments]
 
 
+def apply_weighted_reference(x: torch.Tensor, w: torch.Tensor,
+                             layout: DedupLayout) -> torch.Tensor:
+    """The plain version of the weighted K6: ``out[dst_e] += w[edge_id_e] ·
+    x[uv[urow_e]]`` over the layout's edges, ``w`` [E] in the original edge
+    order."""
+    msgs = x.index_select(0, layout.uv.index_select(0, layout.urow)) \
+        * w.index_select(0, layout.edge_id).unsqueeze(1)
+    return x.new_zeros(layout.num_segments, x.shape[1]).index_add_(
+        0, layout.dst, msgs)
+
+
 # -- the CUDA kernels -------------------------------------------------------
 
 def _lib():
@@ -304,7 +336,7 @@ def _lib():
         lib.pgl_dedup_counts.argtypes = [i, p, i, p, p, p, p]
         lib.pgl_dedup_counts.restype = ctypes.c_int
         lib.pgl_dedup_apply_f32.argtypes = [i, i, p, p, p, p, i, p, p, i,
-                                            p, p, p, i, p, p, p]
+                                            p, p, p, p, p, i, p, p, p]
         lib.pgl_dedup_apply_f32.restype = ctypes.c_int
     return lib
 
@@ -325,17 +357,21 @@ def _launch_counts(layout: DedupLayout, counts: torch.Tensor):
                            f"error {rc}")
 
 
-def _launch_apply(x, layout: DedupLayout, counts, out, partials):
-    """K5 (``counts`` given) or K6 (``counts`` None) into preallocated
-    ``out`` [n_pad, D] and ``partials`` [num_partials·NB, D]."""
+def _launch_apply(x, layout: DedupLayout, counts, out, partials, w=None):
+    """K5 (``counts`` given), K6 (``counts`` None) or the weighted K6
+    (weights ``w`` [E] given) into preallocated ``out`` [n_pad, D] and
+    ``partials`` [num_partials·NB, D]."""
+    mode = 2 if w is not None else 0 if counts is not None else 1
     rc = _lib().pgl_dedup_apply_f32(
-        x.device.index, int(counts is not None), x.data_ptr(),
+        x.device.index, mode, x.data_ptr(),
         layout.uv.data_ptr(), layout.pairs.data_ptr(),
         layout.groups.data_ptr(), layout.groups.shape[0],
         layout.split_blocks.data_ptr(), layout.split_ptr.data_ptr(),
         layout.split_blocks.shape[0], layout.dst.data_ptr(),
         layout.urow.data_ptr(),
-        counts.data_ptr() if counts is not None else None, x.shape[1],
+        counts.data_ptr() if counts is not None else None,
+        layout.edge_id.data_ptr() if w is not None else None,
+        w.data_ptr() if w is not None else None, x.shape[1],
         out.data_ptr(), partials.data_ptr(), _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"dedup_kernels apply launch failed: CUDA "
@@ -363,7 +399,8 @@ def materialize_counts(layout: DedupLayout) -> DedupLayout:
     return dataclasses.replace(layout, counts=counts)
 
 
-def _apply_cuda(x: torch.Tensor, layout: DedupLayout) -> torch.Tensor:
+def _apply_cuda(x: torch.Tensor, layout: DedupLayout,
+                w: Optional[torch.Tensor] = None) -> torch.Tensor:
     if x.device != layout.device:
         raise ValueError(f"features on {x.device}, layout on "
                          f"{layout.device}")
@@ -374,19 +411,26 @@ def _apply_cuda(x: torch.Tensor, layout: DedupLayout) -> torch.Tensor:
     if x.shape[0] <= layout.max_index:
         raise ValueError(f"feature table of {x.shape[0]} rows; the layout "
                          f"gathers row {layout.max_index}")
+    if w is not None and not w.is_contiguous():
+        raise ValueError("the CUDA weighted dedup SpMM takes contiguous "
+                         "weights")
     D = x.shape[1]
     out = torch.empty(layout.n_pad, D, dtype=x.dtype, device=x.device)
     partials = torch.empty(layout.num_partials * NB, D, dtype=x.dtype,
                            device=x.device)
-    _launch_apply(x, layout, layout.counts, out, partials)
-    kernel = "dedup" if layout.counts is None else "dedup_cached"
+    _launch_apply(x, layout, layout.counts, out, partials, w)
+    kernel = ("dedup_weighted" if w is not None
+              else "dedup" if layout.counts is None else "dedup_cached")
     LAUNCHES_BY_SHAPE[(kernel, layout.kind, D)] += 1
     return out[:layout.num_segments]
 
 
-def _apply_one(x: torch.Tensor, layout: DedupLayout) -> torch.Tensor:
+def _apply_one(x: torch.Tensor, layout: DedupLayout,
+               w: Optional[torch.Tensor] = None) -> torch.Tensor:
     if use_spmm_kernel(x):
-        return _apply_cuda(x, layout)
+        return _apply_cuda(x, layout, w)
+    if w is not None:
+        return apply_weighted_reference(x, w, layout)
     return apply_reference(x, layout, layout.counts)
 
 
@@ -408,3 +452,47 @@ def spmm_dedup(feature: torch.Tensor, csc_d: DedupLayout,
     ``csc_d`` (K5 with cached counts, else K6); the gradient runs the same
     over ``csr_d``."""
     return _SpMMDedup.apply(feature, csc_d, csr_d)
+
+
+class _SpMMDedupWeighted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feature, w, csc_d, csr_d, csr):
+        ctx.csr_d, ctx.csr = csr_d, csr
+        ctx.save_for_backward(feature, w)
+        return _apply_one(feature, csc_d, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        feature, w = ctx.saved_tensors
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        g = g.contiguous()
+        # dx: the weighted K6 over the layout grouped by source
+        dx = _apply_one(g, ctx.csr_d, w) if need_dx else None
+        dw = None
+        if need_dw:
+            # dw_e = <g[dst_e], x[src_e]>: K1w's weight-gradient pass
+            _, dw = _weighted_backward(g, feature, w.unsqueeze(1), ctx.csr,
+                                       "mul", False, True)
+            dw = dw.reshape(-1)
+        return dx, dw, None, None, None
+
+
+def spmm_dedup_weighted(feature: torch.Tensor, w: torch.Tensor,
+                        csc_d: DedupLayout, csr_d: DedupLayout,
+                        csr: SpmmLayout) -> torch.Tensor:
+    """The weighted K6: ``out[d] = Σ_{edges e: s→d} w[e] · feature[s]``
+    through the dedup layout ``csc_d``, ``w`` [E] in the graph's original
+    edge order. The gradient: dx by the weighted K6 over ``csr_d``, dw (in
+    the original edge order) by K1w's weight-gradient pass over the K1
+    layout ``csr``. All three layouts need their ``edge_id``."""
+    for layout in (csc_d, csr_d, csr):
+        if layout.edge_id is None:
+            raise ValueError(f"the {layout.kind} layout was built without "
+                             "edge ids; the weighted SpMM reads its weights "
+                             "through them")
+    if w.shape != (csc_d.num_edges,) or w.dtype != feature.dtype \
+            or w.device != feature.device:
+        raise ValueError(f"weights {w.dtype} of shape {tuple(w.shape)} on "
+                         f"{w.device} for {csc_d.num_edges} edges and "
+                         f"{feature.dtype} features on {feature.device}")
+    return _SpMMDedupWeighted.apply(feature, w, csc_d, csr_d, csr)

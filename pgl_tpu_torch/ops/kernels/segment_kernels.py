@@ -1,8 +1,10 @@
-"""Sorted-segment SpMM: the kernel behind ``send_u_recv`` sum and mean.
+"""Sorted-segment SpMM: the kernel behind ``send_u_recv`` sum and mean, and
+on weighted messages (K1w) behind ``send_ue_recv``.
 
 Port of ``pgl_tpu/ops/pallas/segment_kernels.py`` (``_kernel`` and
-``_fused_kernel``; ``spmm`` and ``sorted_segment_sum``) onto one CUDA kernel
-for Hopper, ``csrc/segment_kernels.cu``, whose note gives the design.
+``_fused_kernel``; ``spmm``, ``sorted_segment_sum`` and ``spmm_weighted``)
+onto one CUDA kernel for Hopper, ``csrc/segment_kernels.cu``, whose note
+gives the design.
 
 * :func:`build_spmm_layout` cuts every row of a sorted adjacency into
   pieces of at most ``ET`` edges on the host (numpy) — the work list the
@@ -11,12 +13,22 @@ for Hopper, ``csrc/segment_kernels.cu``, whose note gives the design.
   backward the same kernel over the CSR layout (the transposed SpMM).
 * :func:`sorted_segment_sum` is the same kernel with the identity gather;
   its backward is a gather.
-* :func:`spmm_reference` is the plain PyTorch version. CPU tensors run it;
-  CUDA tensors launch the kernel or raise.
+* :func:`spmm_weighted` (K1w) is an autograd ``Function`` on weighted
+  messages, ``out[d] = Σ_e x[src_e] ⊛ w_e`` with ⊛ mul or add and ``w``
+  scalar ``[E, 1]`` or per head ``[E, H]`` (H | D) in the graph's original
+  edge order: the forward over CSC, the backward one launch over CSR that
+  gives dx and dw (in the original edge order) together.
+* :func:`spmm_reference`, :func:`spmm_weighted_reference` and
+  :func:`weight_grad_reference` are the plain PyTorch versions. CPU tensors
+  run them; CUDA tensors launch the kernel or raise.
 
-``LAUNCHES_BY_SHAPE`` counts kernel launches by ``(layout.kind, D)``: one per
-SpMM call, which is two CUDA launches when a row was split. ``LAUNCHES`` is
-their sum.
+``LAUNCHES_BY_SHAPE`` counts kernel launches: K1's by ``(layout.kind, D)``,
+K1w's by ``(op, layout.kind, D, H)`` with op ``"mul"`` or ``"add"`` (the
+backward launch, dx with or without dw, is keyed by the CSR layout; add's
+dx alone is K1's unweighted sum and counts as K1), and ``"mul_dw"`` or
+``"add_dw"`` for a launch that gives dw alone; one per call, which is two
+CUDA launches when a row was split and dx is written.
+``LAUNCHES`` is their sum.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ from __future__ import annotations
 import ctypes
 from collections import Counter
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,7 +46,8 @@ from ..dispatch import use_spmm_kernel
 from . import _build
 
 __all__ = ["SpmmLayout", "build_spmm_layout", "spmm", "spmm_reference",
-           "sorted_segment_sum", "ET", "LAUNCHES",
+           "spmm_weighted", "spmm_weighted_reference",
+           "weight_grad_reference", "sorted_segment_sum", "ET", "LAUNCHES",
            "LAUNCHES_BY_SHAPE", "reset_launches"]
 
 # most edges in one piece (one warp's work): shorter pieces spread a hub
@@ -70,6 +84,9 @@ class SpmmLayout:
                  has one piece and the kernel stores its sum directly
     split_rows:  [S]   rows of more than one piece
     split_ptr:   [S+1] their ranges of partial slots, in piece order
+    edge_id:     [E]   original edge id of each position (None when built
+                 without edge ids): K1w reads ``w`` and writes ``dw``
+                 through it
     """
     kind: str
     num_rows: int
@@ -82,6 +99,7 @@ class SpmmLayout:
     pieces: torch.Tensor
     split_rows: torch.Tensor
     split_ptr: torch.Tensor
+    edge_id: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -89,12 +107,14 @@ class SpmmLayout:
 
 
 def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
-                      device=None) -> SpmmLayout:
+                      device=None, edge_id=None) -> SpmmLayout:
     """Host-side (numpy) build; call once, at ``Graph.tensor()`` time.
 
     ``indptr`` [R+1] and ``indices`` [E] are a sorted adjacency (CSC:
     ``indices`` are the sources grouped by destination row). ``kind`` names
-    the layout in the launch counts.
+    the layout in the launch counts. ``edge_id`` [E], the original edge id
+    of each position (the index's ``sorted_eid``), follows the positions
+    and lets K1w run on the layout.
     """
     indptr = np.asarray(indptr, dtype=np.int64)
     indices = np.asarray(indices, dtype=np.int64)
@@ -113,7 +133,8 @@ def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
     # sources ascending within each row: the pieces of a hub row then read
     # narrow, nearly disjoint bands of x, which concurrent warps share in
     # L2 (the sum is the same up to float32 rounding order)
-    indices = indices[np.lexsort((indices, seg_ids))]
+    order = np.lexsort((indices, seg_ids))
+    indices = indices[order]
     pieces, split_rows, split_ptr = cut_rows(indptr, ET)
 
     device = resolve_device(device)
@@ -128,7 +149,9 @@ def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
         num_partials=int(split_ptr[-1]),
         indptr=put(indptr), indices=put(indices),
         seg_ids=put(seg_ids), pieces=put(pieces),
-        split_rows=put(split_rows), split_ptr=put(split_ptr))
+        split_rows=put(split_rows), split_ptr=put(split_ptr),
+        edge_id=(None if edge_id is None
+                 else put(np.asarray(edge_id, dtype=np.int64)[order])))
 
 
 def cut_rows(indptr, size: int):
@@ -165,31 +188,88 @@ def spmm_reference(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
         0, layout.seg_ids, x.index_select(0, layout.indices))
 
 
+def spmm_weighted_reference(x: torch.Tensor, w: torch.Tensor,
+                            layout: SpmmLayout,
+                            msg_op: str = "mul") -> torch.Tensor:
+    """The plain version of K1w: ``out[r] = Σ_{e in row r} x[indices[e]] ⊛
+    w[edge_id[e]]``, ``w`` [E, H] broadcast over each head's ``D / H``
+    columns, ⊛ mul or add."""
+    E, H, D = layout.num_edges, w.shape[1], x.shape[1]
+    msgs = x.index_select(0, layout.indices).reshape(E, H, D // H)
+    we = w.index_select(0, layout.edge_id).unsqueeze(-1)
+    msgs = msgs * we if msg_op == "mul" else msgs + we
+    return x.new_zeros(layout.num_rows, D).index_add_(
+        0, layout.seg_ids, msgs.reshape(E, D))
+
+
+def weight_grad_reference(g: torch.Tensor, x: torch.Tensor,
+                          layout: SpmmLayout, H: int,
+                          msg_op: str = "mul") -> torch.Tensor:
+    """The plain version of K1w's dw, over the transposed (CSR) layout,
+    whose rows are the sources: ``dw[edge_id[e], h]`` is the sum over head
+    h's columns of ``g[indices[e]] · x[seg_ids[e]]`` (mul) or of
+    ``g[indices[e]]`` (add); [E, H] in the original edge order."""
+    E, D = layout.num_edges, g.shape[1]
+    ge = g.index_select(0, layout.indices)
+    if msg_op == "mul":
+        ge = ge * x.index_select(0, layout.seg_ids)
+    dw = ge.reshape(E, H, D // H).sum(-1)
+    return torch.empty_like(dw).index_copy_(0, layout.edge_id.long(), dw)
+
+
+_OPS = {"mul": 1, "add": 2}
+
+
 def _lib():
     lib = _build.load("segment_kernels")
-    fn = lib.pgl_spmm_f32
-    if fn.argtypes is None:
+    if lib.pgl_spmm_f32.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, i, p, p, i, i, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+        lib.pgl_spmm_f32.argtypes = [i, p, p, p, i, p, p, i, i, p, p, p]
+        lib.pgl_spmm_f32.restype = ctypes.c_int
+        lib.pgl_spmm_weighted_f32.argtypes = [i, i, i, p, p, p, p, i, p, i,
+                                              p, p, i, i, p, p, p, p, p]
+        lib.pgl_spmm_weighted_f32.restype = ctypes.c_int
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_weighted(x, w, layout, out, partials, wop, dwop=0, xrow=None,
+                     dw=None):
+    """One K1w launch on the current stream: ``wop`` 1 (mul), 2 (add) or 0
+    (unweighted, only beside a ``dwop``) into preallocated ``out`` (None:
+    dw alone, with ``wop`` 0) and ``partials``; ``dwop`` 1 (mul, with
+    ``xrow``) or 2 (add) also writes ``dw`` [E, H]. Raises when the launch
+    is refused."""
+    rc = _lib().pgl_spmm_weighted_f32(
+        x.device.index, wop, dwop, x.data_ptr(), layout.indices.data_ptr(),
+        layout.edge_id.data_ptr(), w.data_ptr(), w.shape[1],
+        layout.pieces.data_ptr(), layout.pieces.shape[0],
+        layout.split_rows.data_ptr(), layout.split_ptr.data_ptr(),
+        layout.split_rows.shape[0], x.shape[1], _ptr(out), _ptr(partials),
+        _ptr(xrow), _ptr(dw), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_kernels weighted SpMM launch failed: "
+                           f"CUDA error {rc}")
 
 
 def _launch(x, layout, out, partials):
     """One SpMM on the current stream into preallocated ``out`` and
     ``partials``; raises when the launch is refused."""
-    rc = _lib()(x.device.index, x.data_ptr(), layout.indices.data_ptr(),
-                layout.pieces.data_ptr(), layout.pieces.shape[0],
-                layout.split_rows.data_ptr(), layout.split_ptr.data_ptr(),
-                layout.split_rows.shape[0], x.shape[1], out.data_ptr(),
-                partials.data_ptr(),
-                torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _lib().pgl_spmm_f32(
+        x.device.index, x.data_ptr(), layout.indices.data_ptr(),
+        layout.pieces.data_ptr(), layout.pieces.shape[0],
+        layout.split_rows.data_ptr(), layout.split_ptr.data_ptr(),
+        layout.split_rows.shape[0], x.shape[1], out.data_ptr(),
+        partials.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_kernels SpMM launch failed: CUDA error "
                            f"{rc}")
 
 
-def _spmm_cuda(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
+def _check_features(x: torch.Tensor, layout: SpmmLayout):
     if x.device != layout.device:
         raise ValueError(f"features on {x.device}, layout on "
                          f"{layout.device}")
@@ -200,6 +280,10 @@ def _spmm_cuda(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
     if x.shape[0] <= layout.max_index:
         raise ValueError(f"feature table of {x.shape[0]} rows; the layout "
                          f"gathers row {layout.max_index}")
+
+
+def _spmm_cuda(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
+    _check_features(x, layout)
     D = x.shape[1]
     out = torch.empty(layout.num_rows, D, dtype=x.dtype, device=x.device)
     partials = torch.empty(layout.num_partials, D, dtype=x.dtype,
@@ -232,6 +316,105 @@ def spmm(feature: torch.Tensor, csc: SpmmLayout,
     """``out[d] = Σ_{edges s→d} feature[s]`` over ``csc``; the gradient
     runs the same kernel over ``csr`` (the graph grouped by source)."""
     return _SpMM.apply(feature, csc, csr)
+
+
+def _check_weights(x: torch.Tensor, w: torch.Tensor, layout: SpmmLayout,
+                   msg_op: str):
+    """Raise on what K1w does not take (on any device: the plain version
+    computes the same function)."""
+    if msg_op not in _OPS:
+        raise ValueError(f"msg_op must be 'mul' or 'add', got {msg_op!r}")
+    if layout.edge_id is None:
+        raise ValueError(f"the {layout.kind} layout was built without edge "
+                         "ids; K1w reads its weights through them")
+    if (w.ndim != 2 or w.shape[0] != layout.num_edges or w.shape[1] < 1
+            or x.ndim != 2 or x.shape[1] % w.shape[1]):
+        raise ValueError(f"weights of shape {tuple(w.shape)} for "
+                         f"{layout.num_edges} edges and features of shape "
+                         f"{tuple(x.shape)}: K1w takes [E, H] with H | D")
+    if w.device != x.device or w.dtype != x.dtype:
+        raise ValueError(f"weights {w.dtype} on {w.device}, features "
+                         f"{x.dtype} on {x.device}")
+
+
+def _weighted_forward(x, w, layout, msg_op):
+    if not use_spmm_kernel(x):
+        return spmm_weighted_reference(x, w, layout, msg_op)
+    _check_features(x, layout)
+    if not w.is_contiguous():
+        raise ValueError("the CUDA weighted SpMM takes contiguous weights")
+    D, H = x.shape[1], w.shape[1]
+    out = torch.empty(layout.num_rows, D, dtype=x.dtype, device=x.device)
+    partials = torch.empty(layout.num_partials, D, dtype=x.dtype,
+                           device=x.device)
+    _launch_weighted(x, w, layout, out, partials, _OPS[msg_op])
+    LAUNCHES_BY_SHAPE[(msg_op, layout.kind, D, H)] += 1
+    return out
+
+
+def _weighted_backward(g, x, w, csr, msg_op, need_dx, need_dw):
+    """(dx, dw) of K1w over the transposed layout ``csr``: one launch on a
+    CUDA tensor, the plain versions on a CPU one; None for a gradient not
+    needed."""
+    H = w.shape[1]
+    if not use_spmm_kernel(g):
+        dx = dw = None
+        if need_dx:
+            dx = (spmm_weighted_reference(g, w, csr, "mul")
+                  if msg_op == "mul" else spmm_reference(g, csr))
+        if need_dw:
+            dw = weight_grad_reference(g, x, csr, H, msg_op)
+        return dx, dw
+    mul = msg_op == "mul"
+    if not (mul or need_dw):
+        return _spmm_cuda(g, csr), None  # add's dx is K1's transposed sum
+    _check_features(g, csr)
+    D = g.shape[1]
+    dx = partials = dw = None
+    if need_dx:
+        dx = torch.empty(csr.num_rows, D, dtype=g.dtype, device=g.device)
+        partials = torch.empty(csr.num_partials, D, dtype=g.dtype,
+                               device=g.device)
+    if need_dw:
+        dw = torch.empty(csr.num_edges, H, dtype=g.dtype, device=g.device)
+    _launch_weighted(g, w, csr, dx, partials, 1 if mul and need_dx else 0,
+                     _OPS[msg_op] if need_dw else 0,
+                     x if mul and need_dw else None, dw)
+    key = msg_op if need_dx else f"{msg_op}_dw"
+    LAUNCHES_BY_SHAPE[(key, csr.kind, D, H)] += 1
+    return dx, dw
+
+
+class _SpMMWeighted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feature, w, csc, csr, msg_op):
+        ctx.csr, ctx.msg_op = csr, msg_op
+        ctx.save_for_backward(feature, w)
+        return _weighted_forward(feature, w, csc, msg_op)
+
+    @staticmethod
+    def backward(ctx, g):
+        feature, w = ctx.saved_tensors
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        if not (need_dx or need_dw):
+            return None, None, None, None, None
+        dx, dw = _weighted_backward(g.contiguous(), feature, w, ctx.csr,
+                                    ctx.msg_op, need_dx, need_dw)
+        return dx, dw, None, None, None
+
+
+def spmm_weighted(feature: torch.Tensor, w: torch.Tensor, csc: SpmmLayout,
+                  csr: SpmmLayout, msg_op: str = "mul") -> torch.Tensor:
+    """K1w: ``out[d] = Σ_{edges e: s→d} feature[s] ⊛ w[e]`` over ``csc``,
+    ⊛ ``msg_op`` ("mul" or "add"), ``feature`` [N, D], ``w`` [E, H] with
+    H | D in the graph's original edge order (H = 1: a scalar a edge; H =
+    D: elementwise; between: one weight a head of ``D / H`` columns). The
+    gradient runs over ``csr``: dx is the transposed SpMM (weighted for
+    mul), dw comes back in the original edge order. Both layouts need
+    their ``edge_id``."""
+    for layout in (csc, csr):
+        _check_weights(feature, w, layout, msg_op)
+    return _SpMMWeighted.apply(feature, w, csc, csr, msg_op)
 
 
 class _SegSum(torch.autograd.Function):

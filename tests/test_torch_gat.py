@@ -293,13 +293,20 @@ def test_gatconv_with_many_heads_matches_reference(training):
 
 def test_route_raises_where_the_reference_takes_other_kernels(monkeypatch):
     """3·H > 128 at rate 0 without dedup layouts takes the dot-mode
-    kernels over ``gat_score_features`` (dsh 2, leaky 0.2); the unfused
-    path for attention dropout at 3·H > 128 on any graph is not ported and
-    raises."""
-    calls = []
+    kernels over ``gat_score_features`` (dsh 2, leaky 0.2); attention
+    dropout at 3·H > 128 on any graph takes the reference's unfused path
+    (``send_uv``, ``edge_softmax``, ``send_ue_recv`` with 43 weights an
+    edge) and no attention kernel."""
+    calls, unfused = [], []
     real = conv_module.fused_graph_attention
     monkeypatch.setattr(conv_module, "fused_graph_attention",
                         lambda *a, **k: calls.append((a, k)) or real(*a, **k))
+    real_ue = Graph.send_ue_recv
+    monkeypatch.setattr(
+        Graph, "send_ue_recv",
+        lambda self, x, w, *a: unfused.append((tuple(x.shape),
+                                               tuple(w.shape), a))
+        or real_ue(self, x, w, *a))
     edges, gd = _dedup_multigraph()
     x = torch.randn(400, 16)
     g = Graph(edges, num_nodes=400).tensor("cpu")
@@ -308,10 +315,12 @@ def test_route_raises_where_the_reference_takes_other_kernels(monkeypatch):
     assert args[5:] == (43, 0.2) and kw == {"dsh": 2, "dvh": 2}
     wide = GATConv(16, 2, num_heads=43, attn_drop_mode="cell", device="cpu")
     for graph in (g, gd):
-        with pytest.raises(NotImplementedError, match="unfused"):
-            wide(graph, x, training=True)
+        assert wide(graph, x, training=True).shape == (400, 86)
+    assert unfused == [((400, 43, 2), (edges.shape[0], 43, 1),
+                        ("mul", "sum"))] * 2
+    assert gd._dedup_attn is None                    # no K7/K8 under dropout
     assert wide(gd, x).shape == (400, 86)            # rate 0: K7/K8
-    assert len(calls) == 1
+    assert len(calls) == 1 and len(unfused) == 2
     with pytest.raises(ValueError, match="attn_drop_mode"):
         GATConv(16, 2, attn_drop_mode="node", device="cpu")
 

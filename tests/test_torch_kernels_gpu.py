@@ -17,7 +17,9 @@ give the same bits on two runs; in dot mode through ``check_dot`` (dq, dk
 and dv with the terms scale); the count-matrix attention (K7, K8, and K1
 over ``red``) through ``check_dedup_attention``, and in dot mode through
 ``check_dedup_dot`` (dq and the dk and dv slot rows with the terms scale),
-with the same bits on two runs and on a layout without counts.
+with the same bits on two runs and on a layout without counts. K1w and the
+weighted K6 go through ``check_weighted`` (forward, dx and dw with the
+terms scale) and must give the same bits on two runs.
 """
 
 import dataclasses
@@ -30,13 +32,15 @@ from chip_smoke import (DDOT_KERNELS, DOT_KERNELS, attention_graph,
                         attention_inputs, check, check_attention,
                         check_counts, check_dedup, check_dedup_attention,
                         check_dedup_dot, check_dot, check_spmm,
-                        dedup_attention_of, dedup_layouts, dispatch_settings,
-                        dot_inputs, run_dedup_attention, run_dedup_dot,
-                        run_dot, skewed_graph, without_counts)
+                        check_weighted, dedup_attention_of, dedup_layouts,
+                        dispatch_settings, dot_inputs, no_dropout,
+                        run_dedup_attention, run_dedup_dot, run_dot,
+                        run_weighted, skewed_graph, weighted_terms,
+                        without_counts)
 from pgl_tpu_torch import Graph
 from pgl_tpu_torch.datasets import community_graph
-from pgl_tpu_torch.models import GAT, GCN, UniMP
-from pgl_tpu_torch.nn import TransformerConv
+from pgl_tpu_torch.models import FAGCN, GAT, GATv2, GCN, UniMP
+from pgl_tpu_torch.nn import GATConv, TransformerConv
 from pgl_tpu_torch.ops.kernels import attention_kernels as ak
 from pgl_tpu_torch.ops.kernels import dedup_attention as da
 from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
@@ -499,3 +503,149 @@ def test_dedup_dot_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="slots"):
         da.dedup_dot_attention(wide, wide, torch.randn(100, 2, device=cuda),
                                att, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["mul", "add"])
+@pytest.mark.parametrize("H,D", [(1, 1), (1, 64), (8, 64), (8, 16), (3, 9),
+                                 (16, 16), (2, 200)])
+def test_k1w_matches_plain_version(cuda, op, H, D):
+    """K1w forward, dx and dw (one launch over CSR) on the skewed graph
+    (split rows both ways): scalar and per-head weights, vector and scalar
+    loads (dh % 4), a head wider than one column pass (D = 200, dh = 100);
+    two runs give the same bits."""
+    g = Graph(skewed_graph(3000, 40000, seed=7), num_nodes=3000).tensor(cuda)
+    csc, csr = g._spmm_layouts
+    gen = torch.Generator(device=cuda).manual_seed(H * 1000 + D)
+    x = torch.randn(3000, D, device=cuda, generator=gen)
+    w = torch.randn(40000, H, device=cuda, generator=gen)
+    cot = torch.randn(3000, D, device=cuda, generator=gen)
+    sk.reset_launches()
+    first = run_weighted(x, w, cot, csc, csr, op)
+    assert dict(sk.LAUNCHES_BY_SHAPE) == {(op, "csc", D, H): 1,
+                                          (op, "csr", D, H): 1}
+    again = run_weighted(x, w, cot, csc, csr, op)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    check_weighted(f"{op} H={H} D={D}", x, w, cot, csc, csr, op, *first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["mul", "add"])
+def test_k1w_one_gradient_alone(cuda, op):
+    """dx alone (weights without a gradient: for add, K1's unweighted sum,
+    counted as K1) and dw alone (the launch that writes only dw, keyed
+    ``mul_dw`` / ``add_dw``)."""
+    g = Graph(skewed_graph(3000, 40000, seed=8), num_nodes=3000).tensor(cuda)
+    csc, csr = g._spmm_layouts
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(3000, 32, device=cuda, generator=gen)
+    w = torch.randn(40000, 4, device=cuda, generator=gen)
+    cot = torch.randn(3000, 32, device=cuda, generator=gen)
+    sk.reset_launches()
+    _, dx, none_w = run_weighted(x, w, cot, csc, csr, op, need_dw=False)
+    none_x, _, dw = run_weighted(x, w, cot, csc, csr, op, need_dx=False)
+    assert none_w is None and dx is not None and dw is not None
+    dx_key = ("mul", "csr", 32, 4) if op == "mul" else ("csr", 32)
+    assert dict(sk.LAUNCHES_BY_SHAPE) == {
+        (op, "csc", 32, 4): 2, dx_key: 1, (f"{op}_dw", "csr", 32, 4): 1}
+    check_weighted("alone", x, w, cot, csc, csr, op, None, dx, dw)
+
+
+@pytest.mark.gpu
+def test_k1w_launch_refuses_an_unweighted_pass(cuda):
+    """wop 0 without a dwop is K1, whose entry point is ``pgl_spmm_f32``:
+    the weighted entry point refuses it."""
+    g = Graph(skewed_graph(300, 4000, seed=8), num_nodes=300).tensor(cuda)
+    csr = g._spmm_layouts[1]
+    x = torch.randn(300, 16, device=cuda)
+    w = torch.randn(4000, 1, device=cuda)
+    out = torch.empty(300, 16, device=cuda)
+    part = torch.empty(max(csr.num_partials, 1), 16, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sk._launch_weighted(x, w, csr, out, part, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 16, 64, 130])
+def test_weighted_dedup_kernel_matches_plain_version(cuda, D):
+    """The weighted K6 forward, dx (over CSR) and dw (K1w's pass) against
+    float64, the same bits twice, and K1w's results within tolerance."""
+    with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0):
+        g = Graph(skewed_graph(3000, 40000, seed=9), num_nodes=3000
+                  ).tensor(cuda)
+    csc_d, csr_d = g._dedup_layouts
+    csc, csr = g._spmm_layouts
+    assert not csc_d.simple
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    x = torch.randn(3000, D, device=cuda, generator=gen)
+    w = torch.randn(40000, device=cuda, generator=gen)
+    cot = torch.randn(3000, D, device=cuda, generator=gen)
+    dk.reset_launches()
+    sk.reset_launches()
+    runs = []
+    for _ in range(2):
+        xr = x.clone().requires_grad_(True)
+        wr = w.clone().requires_grad_(True)
+        out = dk.spmm_dedup_weighted(xr, wr, csc_d, csr_d, csr)
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        runs.append((out.detach(), xr.grad, wr.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert dict(dk.LAUNCHES_BY_SHAPE) == {("dedup_weighted", "csc", D): 2,
+                                          ("dedup_weighted", "csr", D): 2}
+    assert dict(sk.LAUNCHES_BY_SHAPE) == {("mul_dw", "csr", D, 1): 2}
+    out, dx, dw = runs[0]
+    check_weighted("weighted K6", x, w[:, None], cot, csc, csr, "mul", out,
+                   dx, dw[:, None])
+    k1w = run_weighted(x, w[:, None], cot, csc, csr, "mul")
+    with torch.no_grad():
+        check("K6w vs K1w", out, k1w[0],
+              weighted_terms(x, w[:, None], csc, "mul")[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["FAGCN", "FAGCN dedup", "GATv2",
+                                  "GATConv unfused"])
+def test_weighted_models_on_cuda_match_cpu(cuda, kind):
+    """Output and parameter gradients, CUDA against CPU with the same
+    weights; the unfused GATConv (48 heads, attention dropout) with its
+    dropout replaced by the identity."""
+    g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                                avg_degree=8, seed=5)
+    res = {}
+    for dev in ("cpu", cuda):
+        with dispatch_settings(DEDUP=kind.endswith("dedup"),
+                               DEDUP_MIN_EDGES=0):
+            gt = g.tensor(dev)
+        gen = torch.Generator().manual_seed(0)
+        model = (FAGCN(16, 3, hidden_size=16, generator=gen, device=dev)
+                 if kind.startswith("FAGCN") else
+                 GATv2(16, 3, generator=gen, device=dev) if kind == "GATv2"
+                 else GATConv(16, 2, feat_drop=0.0, attn_drop=0.5,
+                              num_heads=48, generator=gen, device=dev))
+        with no_dropout():
+            out = model(gt, gt.node_feat["h"], kind == "GATConv unfused")
+        out.square().mean().backward()
+        res[str(dev)] = (out.detach().cpu(),
+                         {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (o_cpu, g_cpu), (o_gpu, g_gpu) = res["cpu"], res[str(cuda)]
+    check("output", o_gpu, o_cpu)
+    for k in g_cpu:
+        check(f"grad {k}", g_gpu[k], g_cpu[k])
+
+
+@pytest.mark.gpu
+def test_weighted_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    g = Graph(skewed_graph(100, 800, seed=6), num_nodes=100).tensor(cuda)
+    csc, csr = g._spmm_layouts
+    x = torch.randn(100, 8, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        sk.spmm_weighted(x.double(), torch.randn(800, 1, device=cuda,
+                                                 dtype=torch.float64),
+                         csc, csr)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.spmm_weighted(x, torch.randn(2, 800, device=cuda).t(), csc, csr)
+    with pytest.raises(ValueError, match="H \\| D"):
+        sk.spmm_weighted(x, torch.randn(800, 3, device=cuda), csc, csr)
+    with pytest.raises(ValueError, match="float32 on cpu"):
+        sk.spmm_weighted(x, torch.randn(800, 1), csc, csr)
