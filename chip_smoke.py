@@ -126,7 +126,30 @@ there is no card or any phase fails. Phases:
    weights for one weight an edge, ``torch.bmm`` on batched COO matrices
    for one a head, ``torch.sparse.sampled_addmm`` for dw) and K1 at the
    same width; and the weighted SpMM device time a FAGCN step on both
-   routes.
+   routes;
+10. the dedup SDDMM path (``Graph.sddmm_csc``: K11, and K1 over the
+   layout's ``by_src`` and ``by_dst`` for its gradient): the headline graph
+   (with its 128-wide ``h`` and both indexes) dumped to a temporary
+   directory, loaded back memory-mapped with ``Graph.load``, its indexes
+   held against a direct build, and put on the card; ``sddmm_layout()``
+   timed on the host; K11 against its plain version **bit for bit** (one
+   IEEE operation a value) for add, sub, mul and div at D in (1, 16, 128)
+   on the skewed small graph and the headline, div also with exact zeros
+   (inf and nan where the plain version has them), pads +0, two runs
+   equal, every real slot equal to ``send_uv``'s row for its edge through
+   ``eid``; the backward against float64 with the terms scale (the four ops
+   at D in (1, 16, 128) on the skewed graph, at D = 16 on the headline, mul
+   at 128), the same bits twice, one K11 and two K1 launches each; the rest
+   of ``Graph`` on a ``disjoint`` of three small graphs (``send_u_recv``
+   and the UDF ``send``/``recv`` with each reduce, CUDA against CPU); then
+   the bench row's call (``bench.py:308-335``), ``(g.sddmm_csc(x, x,
+   "mul") ** 2).sum().backward()`` on the headline at D = 128, 3 warm-up
+   and 20 timed steps asserting one K11 and two K1 launches a step, beside
+   the same loss through ``send_uv``, with a torch.profiler trace of each;
+   and K11 timed for each op beside its plain version, a byte bound, a
+   gather bound and ``send_uv`` (no single library call computes it:
+   ``torch.sparse.sampled_addmm`` sums over D), K1 over ``by_src`` and
+   ``by_dst`` beside its plain version and ``torch.sparse.mm``.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -346,8 +369,9 @@ def _kernel_modules():
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
     from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    from pgl_tpu_torch.ops.kernels import sddmm_kernels as sdk
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
-    return sk, dk, ak, da
+    return sk, dk, ak, da, sdk
 
 
 def reset_all_launches():
@@ -358,7 +382,8 @@ def reset_all_launches():
 def all_launches():
     """Launch counts of every kernel module: K1's keyed ``(kind, D)``, the
     dedup kernels' ``(kernel, kind, D)``, the two attention modules'
-    ``(kernel, H, dvh)`` (dot mode ``(kernel, H, dsh, dvh)``)."""
+    ``(kernel, H, dvh)`` (dot mode ``(kernel, H, dsh, dvh)``), K11's
+    ``("sddmm", op, D)``."""
     return {k: v for module in _kernel_modules()
             for k, v in module.LAUNCHES_BY_SHAPE.items()}
 
@@ -984,7 +1009,8 @@ def phase_gat_profile(g, tag="GAT", trainer=None):
             device[e.key[:100]] = us / 1e3 / n
     attn = {k: v for k, v in by_name.items()
             if k.startswith(("gat_", "dot_", "sum_", "dedup_attn",
-                             "dedup_dot", "spmm_", "dedup_apply"))}
+                             "dedup_dot", "spmm_", "dedup_apply",
+                             "sddmm_"))}
     busy = sum(by_name.values())
     profile_line = {
         "chained_ms_per_step": chained_ms, "device_busy_ms_per_step": busy,
@@ -2666,6 +2692,413 @@ def phase_weighted(dev, host):
                       profile=prof_v2)}
 
 
+# -- phase 10: the dedup SDDMM (K11) through Graph.sddmm_csc -----------------
+
+SDDMM_SOURCE = "pgl_tpu_torch/ops/kernels/csrc/sddmm_kernels.cu"
+SDDMM_REPLACES = "pgl_tpu/ops/pallas/sddmm_kernels.py:237"
+SDDMM_OPS = ("add", "sub", "mul", "div")
+
+
+def sddmm_inputs(n, D, dev, gen, zeros=False):
+    """``src`` and ``dst`` [n, D] float32 on the card, ``|dst| >= 1``; with
+    ``zeros``, every third ``dst`` row and every second ``src`` row exactly
+    0, so ``div`` meets x/0 and 0/0."""
+    import torch
+    x = torch.randn(n, D, device=dev, generator=gen)
+    y = torch.randn(n, D, device=dev, generator=gen)
+    y = torch.where(y >= 0, y + 1, y - 1)
+    if zeros:
+        y[::3] = 0.0
+        x[::2] = 0.0
+    return x, y
+
+
+def same_bits(a, b):
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_sddmm(tag, lay, x, y, op):
+    """K11 against its plain version bit for bit (inf and nan included),
+    pads exactly +0, the same bits on a second run. Returns the output."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import sddmm_kernels as sdk
+    out = sdk.sddmm_dedup(x, y, lay, op)
+    again = sdk.sddmm_dedup(x, y, lay, op)
+    want = sdk.sddmm_reference(x, y, lay, op)
+    torch.cuda.synchronize()
+    if not same_bits(out, want):
+        bad = int((out.view(torch.int32) != want.view(torch.int32)).any(1)
+                  .sum())
+        raise AssertionError(f"{tag} {op}: K11 differs from its plain "
+                             f"version in {bad} slots")
+    if not same_bits(out, again):
+        raise AssertionError(f"{tag} {op}: two runs differ")
+    if bool((out[lay.eid < 0].view(torch.int32) != 0).any()):
+        raise AssertionError(f"{tag} {op}: a pad is not +0")
+    return out
+
+
+def sddmm_grads64(op, x, y, g, lay):
+    """d/dsrc and d/ddst of ``sum(out * g)`` in float64 (the plain math of
+    the reference's ``_sddmm_bwd``), each with the 2-norm of the terms an
+    element sums (``check``'s scale)."""
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    x, y, g = x.double(), y.double(), g.double()
+    xs = x.index_select(0, lay.slot_src)
+    xd = y.index_select(0, lay.slot_dst.clamp(max=lay.num_segments - 1))
+    gs, gd = {"add": (g, g), "sub": (g, -g), "mul": (g * xd, g * xs),
+              "div": (g / xd, -g * xs / (xd * xd))}[op]
+    return [(sk.spmm_reference(t, k1), sk.spmm_reference(t * t, k1).sqrt())
+            for t, k1 in ((gs, lay.by_src), (gd, lay.by_dst))]
+
+
+def run_sddmm_grad(x, y, lay, op, g):
+    """(dsrc, ddst) of ``sum(sddmm_dedup(x, y) * g)`` on the card and the
+    launches the forward and backward took."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import sddmm_kernels as sdk
+    xr = x.detach().clone().requires_grad_()
+    yr = y.detach().clone().requires_grad_()
+    reset_all_launches()
+    sdk.sddmm_dedup(xr, yr, lay, op).backward(g)
+    torch.cuda.synchronize()
+    return xr.grad, yr.grad, {k: v for k, v in all_launches().items() if v}
+
+
+def check_sddmm_grad(tag, x, y, lay, op, gen):
+    """The backward of K11 (K1 over ``by_src`` and ``by_dst``) against
+    float64 at ``check``'s tolerance with the terms scale, the same bits on
+    two runs, and one K11 and two K1 launches. Returns the max |err|."""
+    import torch
+    D = x.shape[1]
+    g = torch.randn(lay.slots, D, device=x.device, generator=gen)
+    ds, dd, launches = run_sddmm_grad(x, y, lay, op, g)
+    ds2, dd2, _ = run_sddmm_grad(x, y, lay, op, g)
+    want = {("sddmm", op, D): 1, ("sddmm_src", D): 1, ("sddmm_dst", D): 1}
+    if launches != want:
+        raise AssertionError(f"{tag} {op} D={D}: launches {launches}, "
+                             f"expected {want}")
+    if not (same_bits(ds, ds2) and same_bits(dd, dd2)):
+        raise AssertionError(f"{tag} {op} D={D}: two backward runs differ")
+    (ws, ss), (wd, sd) = sddmm_grads64(op, x, y, g, lay)
+    reset_all_launches()
+    return max(check(f"{tag} {op} D={D} dsrc", ds, ws, ss),
+               check(f"{tag} {op} D={D} ddst", dd, wd, sd))
+
+
+def median_ms(fn, iters):
+    """Median device time of ``fn`` over ``iters`` warm calls, each between
+    two CUDA events."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def loaded_headline(host):
+    """The headline graph dumped (with both indexes) to a temporary
+    directory, loaded back memory-mapped with ``Graph.load``, its indexes
+    held against a direct build, and put on the card (K1 layouts)."""
+    import tempfile
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.utils.edge_index import EdgeIndex
+
+    host.adj_dst_index, host.adj_src_index
+    N, edges = host.num_nodes, np.asarray(host.edges)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        host.dump(d)
+        t_dump = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = Graph.load(d, mmap_mode="r")
+        if not isinstance(loaded.node_feat["h"], np.memmap):
+            raise AssertionError("Graph.load did not memory-map")
+        for name, (u, v) in (("adj_dst_index", (edges[:, 1], edges[:, 0])),
+                             ("adj_src_index", (edges[:, 0], edges[:, 1]))):
+            want = EdgeIndex.from_edges(u, v, N)
+            got = getattr(loaded, name)
+            for f in ("degree", "sorted_u", "sorted_v", "sorted_eid",
+                      "indptr"):
+                if not np.array_equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"loaded {name}.{f} differs from "
+                                         "a direct build")
+        with dispatch_settings(DEDUP=False):
+            g = loaded.tensor()
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    print(f"[sddmm] headline dumped in {t_dump:.3f} s, loaded memory-mapped, "
+          f"indexes equal to a direct build, on the card in {t_load:.3f} s",
+          flush=True)
+    return g
+
+
+def phase_sddmm_kernels(g_head, lay_head, dev):
+    """K11 against its plain version bit for bit for the four ops at D in
+    (1, 16, 128) on the skewed small graph and the headline (div with
+    ``|dst| >= 1``, and once with exact zeros), real slots against
+    ``send_uv`` through ``eid``, and the backward against float64."""
+    import torch
+    from pgl_tpu_torch import Graph
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    g_sk = Graph(skewed_graph(3000, 40000, seed=6), num_nodes=3000).tensor()
+    lay_sk = g_sk.sddmm_layout()
+    graphs = (("skewed", g_sk, lay_sk), ("headline", g_head, lay_head))
+    for tag, g, lay in graphs:
+        for D in (1, 16, 128):
+            x, y = sddmm_inputs(g.num_nodes, D, dev, gen)
+            for op in SDDMM_OPS:
+                out = check_sddmm(tag, lay, x, y, op)
+                if D == 16:
+                    # each real slot is send_uv's row for its edge
+                    real = lay.eid >= 0
+                    edge = g.adj_dst_index.sorted_eid.index_select(
+                        0, lay.eid[real])
+                    uv = g.send_uv(x, y, op).index_select(0, edge)
+                    if not same_bits(out[real], uv):
+                        raise AssertionError(f"{tag} {op}: slots differ "
+                                             "from send_uv through eid")
+                del out
+        x, y = sddmm_inputs(g.num_nodes, 16, dev, gen, zeros=True)
+        out = check_sddmm(f"{tag} zeros", lay, x, y, "div")
+        real = out[lay.eid >= 0]
+        if not (bool(torch.isinf(real).any()) and bool(
+                torch.isnan(real).any())):
+            raise AssertionError(f"{tag}: no inf or nan from x/0 and 0/0")
+        print(f"[sddmm] {tag} S={lay.slots} E={lay.num_edges}: K11 equals "
+              "its plain version bit for bit (4 ops, D 1/16/128, div with "
+              "zeros), pads +0, two runs equal, slots equal send_uv",
+              flush=True)
+        del out, real
+    errs = {}
+    for tag, g, lay in graphs:
+        for D in ((1, 16, 128) if tag == "skewed" else (16, 128)):
+            x, y = sddmm_inputs(g.num_nodes, D, dev, gen)
+            for op in SDDMM_OPS if tag == "skewed" or D == 16 else ("mul",):
+                errs[(tag, op, D)] = check_sddmm_grad(tag, x, y, lay, op,
+                                                      gen)
+        torch.cuda.empty_cache()
+    print(f"[sddmm] backward (K1 over by_src, by_dst) against float64: max "
+          f"|err| {max(errs.values()):.3e}; same bits twice; 1 K11 and 2 K1 "
+          "launches each", flush=True)
+    del g_sk, lay_sk
+    return max(errs.values())
+
+
+def sddmm_step(g, x, through):
+    """One step of the bench row's loss ``(g.sddmm_csc(x, x, "mul") **
+    2).sum()`` and its backward, or the same loss through ``send_uv``."""
+    def step():
+        out = (g.sddmm_csc(x, x, "mul") if through == "sddmm"
+               else g.send_uv(x, x, "mul"))
+        loss = (out ** 2).sum()
+        loss.backward()
+        x.grad = None
+        return loss.detach()
+    return step
+
+
+def time_steps(step, tag):
+    """3 warm-up and 20 timed steps (host clock, each ended by a
+    synchronize); the median ms, the losses and the launches of the timed
+    steps (the counts set to 0 after the warm-up)."""
+    import torch
+    for _ in range(WARMUP):
+        step()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    times, losses = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: losses not finite: {losses}")
+    launches = {k: v for k, v in all_launches().items() if v}
+    return float(np.median(times)) * 1e3, losses, launches
+
+
+def phase_sddmm_timing(g, lay, dev, launches):
+    """Rows at the bench row's shape (the headline, D = 128): K11 for each
+    op beside its plain version, the byte bound, the gather bound and
+    ``send_uv`` (no single library call computes it), and K1 over
+    ``by_src`` and ``by_dst`` beside its plain version and
+    ``torch.sparse.mm``."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import sddmm_kernels as sdk
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    N, E, S, D = g.num_nodes, lay.num_edges, lay.slots, 128
+    x, y = sddmm_inputs(N, D, dev, gen)
+    out = torch.empty(S, D, device=dev)
+    rows = []
+    real = lay.eid >= 0
+    n_src = int(torch.unique(lay.slot_src[real]).numel())
+    n_dst = int(torch.unique(lay.slot_dst[real]).numel())
+    info = {"graph": "headline", "rows": N, "edges": E, "slots": S, "D": D,
+            "source_rows": n_src, "dst_rows": n_dst}
+    # bytes: each distinct source and destination row the real slots
+    # gather, once; the two int32 slot tables; the output written once.
+    # gather: two rows an edge
+    nbytes = (n_src + n_dst + S) * D * 4 + 2 * S * 4
+    gather = 2 * E * D * 4 + S * D * 4 + 2 * S * 4
+    for op in SDDMM_OPS:
+        ms = median_ms(lambda: sdk._launch(x, y, lay, op, out), 20)
+        plain_ms = median_ms(lambda: sdk.sddmm_reference(x, y, lay, op), 5)
+        uv_ms = median_ms(lambda: g.send_uv(x, y, op), 10)
+        torch.cuda.synchronize()
+        if not same_bits(out, sdk.sddmm_reference(x, y, lay, op)):
+            raise AssertionError(f"timed K11 {op} differs from its plain "
+                                 "version")
+        timing_row(rows, info, f"sddmm_{op}_d{D}", "sddmm", SDDMM_SOURCE,
+                   SDDMM_REPLACES, launches.get(("sddmm", op, D), 0), 0.0,
+                   ms, plain_ms, nbytes, S * D, None, gather, op=op)
+        rows[-1]["send_uv_ms"] = uv_ms
+        print(f"[timing] sddmm_{op}_d{D}: send_uv {uv_ms:.5f} ms "
+              f"({uv_ms / ms:.3f} of K11's time)", flush=True)
+    del out
+    # the backward's two K1 launches over the real slots of a [S, D] table
+    t = torch.randn(S, D, device=dev, generator=gen)
+    for k1 in (lay.by_src, lay.by_dst):
+        A = torch.sparse_csr_tensor(k1.indptr, k1.indices,
+                                    torch.ones(E, device=dev), size=(N, S))
+        res = torch.empty(N, D, device=dev)
+        part = torch.empty(k1.num_partials, D, device=dev)
+        ms = median_ms(lambda: sk._launch(t, k1, res, part), 20)
+        plain_ms = median_ms(lambda: sk.spmm_reference(t, k1), 5)
+        lib_ms = median_ms(lambda: torch.sparse.mm(A, t), 20)
+        with torch.no_grad():
+            err = check_spmm(f"timed K1 {k1.kind}", res, t, k1)
+        k1_bytes = 4 * (E * D + E + N + 1 + N * D) + 16 * k1.pieces.shape[0]
+        timing_row(rows, dict(info, op=None), f"{k1.kind}_k1_d{D}",
+                   "spmm", SOURCE, SDDMM_REPLACES,
+                   launches.get((k1.kind, D), 0), err, ms, plain_ms, k1_bytes,
+                   E * D, lib_ms, layout=k1.kind,
+                   pieces=int(k1.pieces.shape[0]),
+                   split_rows=int(k1.split_rows.shape[0]))
+    return rows
+
+
+def phase_graph_small(dev):
+    """The rest of ``Graph`` on the card against the CPU: ``disjoint`` of
+    three graphs, ``tensor()``, ``send_u_recv`` and the UDF ``send``/
+    ``recv`` with each reduce, and the subgraph ids."""
+    import torch
+    from pgl_tpu_torch import Graph
+
+    rng = np.random.default_rng(21)
+    parts = []
+    for n, e in ((200, 1500), (7, 0), (300, 4000)):
+        parts.append(Graph(
+            np.stack([rng.integers(0, n, e), rng.integers(0, n // 2, e)], 1),
+            num_nodes=n,
+            node_feat={"h": rng.normal(size=(n, 16)).astype(np.float32)},
+            edge_feat={"w": rng.normal(size=(e, 1)).astype(np.float32)}))
+    host = Graph.disjoint(parts)
+    results = {}
+    for d in ("cpu", dev):
+        g = host.tensor(d)
+        h, w = g.node_feat["h"], g.edge_feat["w"]
+        msg = g.send(lambda s, t, e: {"m": s["h"] * t["h"] + e["w"]},
+                     src_feat={"h": h}, dst_feat={"h": h},
+                     edge_feat={"w": w})
+        res = {f"send_u_recv {r}": g.send_u_recv(h, r)
+               for r in ("sum", "mean", "max", "min")}
+        res.update({f"recv {r}": g.recv(r, msg)
+                    for r in ("sum", "mean", "max", "min")})
+        res["recv softmax"] = g.recv(
+            lambda m: m.reduce_sum(m["m"] * m.reduce_softmax(m["m"])), msg)
+        res["graph_node_id"] = g.graph_node_id
+        results[str(d)] = {k: v.cpu() for k, v in res.items()}
+    err = 0.0
+    for k, want in results["cpu"].items():
+        got = results[str(dev)][k]
+        if k == "graph_node_id":
+            if not torch.equal(got, want):
+                raise AssertionError("graph_node_id differs on the card")
+            continue
+        err = max(err, check(f"batched graph {k}", got, want))
+    print(f"[graph] disjoint of 3 graphs (N={host.num_nodes}, "
+          f"E={host.num_edges}), send_u_recv and UDF send/recv with four "
+          f"reduces, CUDA vs CPU: max |err| {err:.3e}", flush=True)
+
+
+def phase_sddmm(dev, host):
+    """The dedup SDDMM path: the headline loaded memory-mapped from a dump,
+    K11 and its backward checked, the bench row's step timed through K11
+    and through ``send_uv`` with their profiles, the kernels' rows, and the
+    rest of ``Graph`` on a small batched graph. Returns (rows, the step
+    line's entry)."""
+    import torch
+
+    g = loaded_headline(host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lay = g.sddmm_layout()
+    torch.cuda.synchronize()
+    t_layout = time.perf_counter() - t0
+    print(f"[sddmm] sddmm_layout() {t_layout:.3f} s on the host: S="
+          f"{lay.slots} slots for E={lay.num_edges} edges "
+          f"({lay.slots - lay.num_edges} pads), {lay.uv.size} window rows "
+          f"with the tail, by_src {lay.by_src.pieces.shape[0]} pieces, "
+          f"by_dst {lay.by_dst.pieces.shape[0]} pieces", flush=True)
+    err = phase_sddmm_kernels(g, lay, dev)
+    phase_graph_small(dev)
+
+    # the main path: the bench row's SDDMM with its gradient
+    x = g.node_feat["h"].detach().clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, launches = time_steps(sddmm_step(g, x, "sddmm"),
+                                           "SDDMM")
+    peak = torch.cuda.max_memory_allocated()
+    # one K11 a forward, K1 over by_src and by_dst a backward
+    want = {("sddmm", "mul", 128): STEPS, ("sddmm_src", 128): STEPS,
+            ("sddmm_dst", 128): STEPS}
+    if launches != want:
+        raise AssertionError(f"SDDMM step: launches {launches}, expected "
+                             f"{want}")
+    uv_ms, uv_losses, uv_launches = time_steps(sddmm_step(g, x, "send_uv"),
+                                               "send_uv")
+    if uv_launches:
+        raise AssertionError(f"send_uv step launched {uv_launches}")
+    if abs(losses[0] - uv_losses[0]) > 1e-4 * abs(uv_losses[0]):
+        raise AssertionError(f"SDDMM loss {losses[0]} against send_uv's "
+                             f"{uv_losses[0]}")
+    print(f"[train SDDMM] {STEPS} steps of (sddmm_csc(x, x, mul) ** 2)"
+          f".sum().backward(): median {step_ms:.4f} ms (send_uv's "
+          f"{uv_ms:.4f} ms); loss {losses[0]:.6f} (send_uv {uv_losses[0]:.6f}"
+          f"); peak memory {peak / 2**20:.1f} MiB; launches {launches}",
+          flush=True)
+    prof = phase_gat_profile(g, "SDDMM", lambda g: (None, sddmm_step(
+        g, x, "sddmm")))
+    prof_uv = phase_gat_profile(g, "send_uv", lambda g: (None, sddmm_step(
+        g, x, "send_uv")))
+    reset_all_launches()
+    rows = phase_sddmm_timing(g, lay, dev, launches)
+    reset_all_launches()
+    return rows, {"SDDMM": {
+        "step_ms": step_ms, "send_uv_step_ms": uv_ms,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "peak_mib": peak / 2**20, "layout_s": t_layout, "slots": lay.slots,
+        "backward_max_abs_err": err, "profile": prof,
+        "send_uv_profile": prof_uv}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2684,7 +3117,8 @@ def main():
 
     t0 = time.perf_counter()
     libs = _build.build("segment_kernels", "dedup_kernels",
-                        "attention_kernels", "dedup_attention")
+                        "attention_kernels", "dedup_attention",
+                        "sddmm_kernels")
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
     for path in libs.values():
         print(path.with_suffix(".log").read_text().strip(), flush=True)
@@ -2769,6 +3203,9 @@ def main():
     torch.cuda.empty_cache()
     weighted_rows, weighted_steps = phase_weighted(dev, host)
     rows += weighted_rows
+    torch.cuda.empty_cache()
+    sddmm_rows, sddmm_steps = phase_sddmm(dev, host)
+    rows += sddmm_rows
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -2777,7 +3214,7 @@ def main():
                                spmm_ms_per_step=spmm["dedup_uncached"],
                                tensor_s=t_6),
         **gat_steps, **dedup_steps, **unimp_steps, **ddot_steps,
-        **weighted_steps, "device": smi}}),
+        **weighted_steps, **sddmm_steps, "device": smi}}),
         flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,14 @@
 """Graph — host (numpy) or device (torch) graph with node/edge features.
 
-Port of ``pgl_tpu/graph.py:51-348,512-628`` for the main path: construction,
-degrees, the CSC/CSR indexes, ``tensor``/``numpy`` conversion and the
-copy-send reductions. As in the reference, edges are sorted by destination
-once, at conversion time, so every receive is a sorted segment reduce; and
+Port of ``pgl_tpu/graph.py`` but for ``streamed_send_u_recv``:
+construction, degrees, the CSC/CSR indexes (built by the native counting
+sort), the host neighbour queries and sampling, ``tensor``/``numpy``
+conversion, the message passing (the UDF ``send``/``recv`` with
+:class:`~pgl_tpu_torch.message.Message`, the built-in sends and
+``sddmm_csc``), batching (``disjoint``, ``node_batch_iter``) and
+persistence (``dump``/``to_mmap``/``load``, the reference's directory
+format). As in the reference, edges are sorted by destination once, at
+conversion time, so every receive is a sorted segment reduce; and
 ``tensor()`` returns a new Graph instead of mutating this one.
 
 ``send_u_recv`` with sum or mean runs the dedup SpMM of
@@ -18,6 +23,8 @@ of ``segment_kernels``, for mul or add with sum and a scalar or per-head
 edge feature, and the weighted K6 of ``dedup_kernels`` for a scalar mul on
 a graph with dedup layouts; everything else gathers, combines and runs a
 segment op. ``send_uv`` is the reference's gathers (``:433-437``).
+``sddmm_csc`` runs the dedup SDDMM of ``ops/kernels/sddmm_kernels.py``
+(K11) on the slot layout ``sddmm_layout()`` builds once from the CSC index.
 
 The attention layouts of ``ops/kernels/attention_kernels.py`` (K9/K10) and
 the count-matrix attention's work lists of ``ops/kernels/dedup_attention.py``
@@ -28,18 +35,23 @@ them.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import json
+import os
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .message import Message
+from .native import graph_kernel as native
 from .ops import dispatch
 from .ops import message_passing as mp
 from .ops import segment as S
 from .ops.kernels import dedup_kernels as dk
 from .ops.kernels.attention_kernels import build_attention_layouts
 from .ops.kernels.dedup_attention import build_dedup_attention
+from .ops.kernels.sddmm_kernels import build_sddmm_layout, sddmm_dedup
 from .ops.kernels.segment_kernels import (build_spmm_layout, spmm,
                                           spmm_weighted)
 from .utils.edge_index import EdgeIndex
@@ -77,7 +89,7 @@ def _kernel_weights(feature, edge_feat):
 
 
 class Graph:
-    """A directed graph with node/edge feature dicts."""
+    """A (possibly batched) directed graph with node/edge feature dicts."""
 
     def __init__(self, edges, num_nodes: Optional[int] = None,
                  node_feat: Optional[Dict] = None,
@@ -104,8 +116,12 @@ class Graph:
         self._adj_dst_index = kwargs.get("adj_dst_index", None)
         self._spmm_layouts = kwargs.get("_spmm_layouts", None)
         self._dedup_layouts = kwargs.get("_dedup_layouts", None)
+        self._graph_node_index = kwargs.get("_graph_node_index", None)
+        self._graph_edge_index = kwargs.get("_graph_edge_index", None)
+        self._num_graph = int(kwargs.get("_num_graph", 1))
         self._attn_layouts = None
         self._dedup_attn = None
+        self._sddmm_layout = None        # (layout,) once built
 
     # -- basic accessors ----------------------------------------------------
 
@@ -121,6 +137,41 @@ class Graph:
     @property
     def num_edges(self) -> int:
         return self._num_edges
+
+    @property
+    def num_graph(self) -> int:
+        """Number of disjoint subgraphs batched into this Graph."""
+        return self._num_graph
+
+    @property
+    def nodes(self):
+        if self._is_tensor:
+            return torch.arange(self._num_nodes, device=self._edges.device)
+        return np.arange(self._num_nodes)
+
+    @property
+    def graph_node_id(self):
+        """[N] the subgraph each node belongs to."""
+        return self._subgraph_ids(self._graph_node_index, self._num_nodes)
+
+    @property
+    def graph_edge_id(self):
+        """[E] the subgraph each edge belongs to."""
+        return self._subgraph_ids(self._graph_edge_index, self._num_edges)
+
+    def _subgraph_ids(self, indptr, total):
+        """Subgraph ids from an indptr over subgraphs (int32 on the host,
+        int64 on the device, as the indexes)."""
+        if self._is_tensor:
+            device = self._edges.device
+            if indptr is None:
+                return torch.zeros(total, dtype=torch.int64, device=device)
+            pos = torch.arange(total, device=device)
+            return torch.searchsorted(indptr, pos, right=True) - 1
+        if indptr is None:
+            return np.zeros(total, dtype=np.int32)
+        counts = np.diff(np.asarray(indptr))
+        return np.repeat(np.arange(len(counts), dtype=np.int32), counts)
 
     @property
     def node_feat(self) -> Dict:
@@ -157,6 +208,17 @@ class Graph:
         idx = EdgeIndex.from_edges(u, v, self._num_nodes)
         return idx.tensor(self._edges.device) if self._is_tensor else idx
 
+    def sorted_edges(self, sort_by: str = "src"):
+        """(src, dst, eid) sorted by ``sort_by`` ("src" or "dst")."""
+        if sort_by == "src":
+            idx = self.adj_src_index
+            return idx.sorted_u, idx.sorted_v, idx.sorted_eid
+        if sort_by != "dst":
+            raise ValueError(f"sort_by must be 'src' or 'dst', got "
+                             f"{sort_by!r}")
+        idx = self.adj_dst_index
+        return idx.sorted_v, idx.sorted_u, idx.sorted_eid
+
     # -- degree -------------------------------------------------------------
 
     def indegree(self, nodes=None):
@@ -167,11 +229,100 @@ class Graph:
         deg = self.adj_src_index.degree
         return deg if nodes is None else deg[nodes]
 
+    # -- host-side neighbour queries (numpy mode) ---------------------------
+
+    def _require_numpy(self, what):
+        if self._is_tensor:
+            raise ValueError(f"{what} is a host-side query; call .numpy() "
+                             "first")
+
+    def successor(self, nodes=None, return_eids: bool = False):
+        """Each node's successors (a list of arrays; all nodes by default),
+        and with ``return_eids`` their edge ids."""
+        self._require_numpy("successor")
+        idx = self.adj_src_index
+        if return_eids:
+            return idx.view_v(nodes), idx.view_eid(nodes)
+        return idx.view_v(nodes)
+
+    def predecessor(self, nodes=None, return_eids: bool = False):
+        """Each node's predecessors, and with ``return_eids`` their edge
+        ids."""
+        self._require_numpy("predecessor")
+        idx = self.adj_dst_index
+        if return_eids:
+            return idx.view_v(nodes), idx.view_eid(nodes)
+        return idx.view_v(nodes)
+
+    def sample_successor(self, nodes, max_degree, return_eids: bool = False,
+                         seed: int = 0):
+        """At most ``max_degree`` successors of each node, uniformly without
+        replacement (the native sampler, seeded by ``seed``)."""
+        self._require_numpy("sample_successor")
+        return _sample_from_index(self.adj_src_index, nodes, max_degree,
+                                  return_eids, seed)
+
+    def sample_predecessor(self, nodes, max_degree, return_eids: bool = False,
+                           seed: int = 0):
+        """At most ``max_degree`` predecessors of each node."""
+        self._require_numpy("sample_predecessor")
+        return _sample_from_index(self.adj_dst_index, nodes, max_degree,
+                                  return_eids, seed)
+
     # -- message passing ----------------------------------------------------
 
     def _require_tensor(self):
         if not self._is_tensor:
             raise ValueError("You must call Graph.tensor() first")
+
+    def send(self, message_func: Callable, src_feat=None, dst_feat=None,
+             edge_feat=None, node_feat=None) -> Dict:
+        """UDF message: ``message_func(src, dst, edge)`` receives dicts of
+        ``[E, ...]`` rows gathered at each edge's endpoints (``node_feat``
+        feeds both sides) and the edge features, and returns a dict of
+        ``[E, ...]`` messages in the original edge order."""
+        self._require_tensor()
+        if (src_feat is not None or dst_feat is not None) \
+                and node_feat is not None:
+            raise ValueError(
+                "Can not use src/dst feat and node feat at the same time")
+        if node_feat is not None:
+            src_in = dst_in = dict(node_feat)
+        else:
+            src_in, dst_in = dict(src_feat or {}), dict(dst_feat or {})
+        src, dst = self._edges[:, 0], self._edges[:, 1]
+        msg = message_func({k: mp.gather_rows(v, src)
+                            for k, v in src_in.items()},
+                           {k: mp.gather_rows(v, dst)
+                            for k, v in dst_in.items()},
+                           dict(edge_feat or {}))
+        if not isinstance(msg, dict):
+            raise TypeError("message_func must return a dict of tensors")
+        return msg
+
+    def recv(self, reduce_func, msg: Dict, recv_mode: str = "dst"):
+        """Aggregate per-edge messages onto nodes: by their destination
+        (``recv_mode="dst"``) or source ("src"). ``reduce_func`` is "sum",
+        "mean", "max" or "min" (applied to every entry; one entry gives a
+        tensor, several a dict), or a function of a
+        :class:`~pgl_tpu_torch.message.Message`. A node that receives no
+        message gives 0."""
+        self._require_tensor()
+        if not isinstance(msg, dict):
+            raise TypeError("msg must be a dict")
+        if recv_mode not in ("dst", "src"):
+            raise ValueError(f"recv_mode must be 'dst' or 'src', got "
+                             f"{recv_mode!r}")
+        index = self.adj_dst_index if recv_mode == "dst" \
+            else self.adj_src_index
+        bucketed = Message(msg, index.segment_ids, self._num_nodes,
+                           eid=index.sorted_eid)
+        if callable(reduce_func):
+            return reduce_func(bucketed)
+        if len(msg) > 1:
+            return {k: bucketed.reduce(bucketed[k], reduce_func)
+                    for k in msg}
+        return bucketed.reduce(bucketed[next(iter(msg))], reduce_func)
 
     def send_recv(self, feature, reduce_func: str = "sum"):
         """Fused copy-send + built-in reduce."""
@@ -252,6 +403,39 @@ class Graph:
         return mp.send_uv(src_feat, dst_feat, self._edges[:, 0],
                           self._edges[:, 1], message_op=message_op)
 
+    def sddmm_csc(self, src_feat, dst_feat, message_op: str = "mul",
+                  layout=None):
+        """Dedup SDDMM (``ops/kernels/sddmm_kernels.py``; K11 on a CUDA
+        graph, its plain version on the CPU): the per-edge combine of
+        ``src_feat[src]`` and ``dst_feat[dst]`` by ``message_op``
+        (add/sub/mul/div), [N, D] float32 each.
+
+        Returns ``[S, D]`` float32 in the layout's **slot order** (the dedup
+        edge order, destination-block-major like CSC; pads are 0). Map a
+        real slot back with ``g.sddmm_layout().eid`` (slot → CSC edge
+        position) and ``g.adj_dst_index.sorted_eid`` (→ original edge id);
+        ``send_uv`` keeps the original edge order. ``layout`` takes a layout
+        ``sddmm_layout()`` built earlier. The reference's ``interpret``
+        argument (the Pallas kernel's interpret mode on a TPU host) has no
+        counterpart here and is dropped."""
+        self._require_tensor()
+        lay = layout if layout is not None else self.sddmm_layout()
+        if lay is None:                 # no edges
+            return torch.zeros((0,) + tuple(src_feat.shape[1:]),
+                               dtype=torch.float32, device=src_feat.device)
+        return sddmm_dedup(src_feat, dst_feat, lay, message_op)
+
+    def sddmm_layout(self):
+        """The dedup SDDMM's slot layout, built once on the host from the
+        CSC index and kept on this device graph (None without edges)."""
+        self._require_tensor()
+        if self._sddmm_layout is None:
+            idx = self.adj_dst_index.numpy()
+            self._sddmm_layout = (build_sddmm_layout(
+                idx.indptr, idx.sorted_v, self._num_nodes,
+                device=self._edges.device),)
+        return self._sddmm_layout[0]
+
     def _attention_layouts(self):
         """``(csc, csr)`` work lists of the attention kernels (K9/K10),
         built from the host indexes on the first call and kept on this
@@ -287,16 +471,25 @@ class Graph:
         host = self.numpy()
         dst_idx, src_idx = host.adj_dst_index, host.adj_src_index
 
-        def put(x):
-            return torch.as_tensor(np.asarray(x), device=device)
+        def put(x, dtype=None):
+            a = np.asarray(x, dtype=dtype)
+            if not a.flags.writeable:   # a memory map (``load``): copy
+                a = np.array(a)
+            return torch.as_tensor(a, device=device)
+
+        def put_index(indptr):
+            return None if indptr is None else put(indptr, np.int64)
 
         return Graph(
-            put(np.asarray(host.edges, dtype=np.int64)),
+            put(host.edges, np.int64),
             num_nodes=self._num_nodes,
             node_feat={k: put(v) for k, v in host.node_feat.items()},
             edge_feat={k: put(v) for k, v in host.edge_feat.items()},
             adj_src_index=src_idx.tensor(device),
             adj_dst_index=dst_idx.tensor(device),
+            _graph_node_index=put_index(host._graph_node_index),
+            _graph_edge_index=put_index(host._graph_edge_index),
+            _num_graph=self._num_graph,
             _spmm_layouts=host._build_spmm_layouts(device),
             _dedup_layouts=host._build_dedup_layouts(device))
 
@@ -344,6 +537,9 @@ class Graph:
         def get(x):
             return x.detach().cpu().numpy()
 
+        def get_index(indptr):
+            return None if indptr is None else get(indptr).astype(np.int32)
+
         return Graph(
             get(self._edges), num_nodes=self._num_nodes,
             node_feat={k: get(v) for k, v in self._node_feat.items()},
@@ -351,9 +547,144 @@ class Graph:
             adj_src_index=(self._adj_src_index.numpy()
                            if self._adj_src_index is not None else None),
             adj_dst_index=(self._adj_dst_index.numpy()
-                           if self._adj_dst_index is not None else None))
+                           if self._adj_dst_index is not None else None),
+            _graph_node_index=get_index(self._graph_node_index),
+            _graph_edge_index=get_index(self._graph_edge_index),
+            _num_graph=self._num_graph)
+
+    # -- batching -----------------------------------------------------------
+
+    @classmethod
+    def disjoint(cls, graph_list: Sequence["Graph"]) -> "Graph":
+        """Merge graphs (all numpy or all on one device) into one
+        block-diagonal graph: node ids offset, features concatenated (the
+        keys every graph has), ``graph_node_id``/``graph_edge_id`` kept."""
+        if not graph_list:
+            raise ValueError("graph_list is empty")
+        is_tensor = graph_list[0]._is_tensor
+        if any(g._is_tensor != is_tensor for g in graph_list):
+            raise ValueError("graph_list mixes numpy and tensor graphs")
+        node_off = np.cumsum([0] + [g.num_nodes for g in graph_list])
+        edge_off = np.cumsum([0] + [g.num_edges for g in graph_list])
+        shifted = [g.edges + int(off)
+                   for g, off in zip(graph_list, node_off[:-1])]
+        cat = torch.cat if is_tensor else np.concatenate
+        edges = cat(shifted)
+        if is_tensor:
+            gni = torch.as_tensor(node_off, device=edges.device)
+            gei = torch.as_tensor(edge_off, device=edges.device)
+        else:
+            gni, gei = node_off.astype(np.int32), edge_off.astype(np.int32)
+        return cls(edges, num_nodes=int(node_off[-1]),
+                   node_feat=_concat_feats([g.node_feat for g in graph_list],
+                                           cat),
+                   edge_feat=_concat_feats([g.edge_feat for g in graph_list],
+                                           cat),
+                   _graph_node_index=gni, _graph_edge_index=gei,
+                   _num_graph=len(graph_list))
+
+    batch = disjoint
+
+    def node_batch_iter(self, batch_size: int, shuffle: bool = True,
+                        seed: Optional[int] = None):
+        """Yield batches of node ids (host), shuffled by
+        ``np.random.default_rng(seed)`` unless ``shuffle`` is False."""
+        nodes = np.arange(self._num_nodes)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(nodes)
+        for start in range(0, self._num_nodes, batch_size):
+            yield nodes[start:start + batch_size]
+
+    # -- persistence --------------------------------------------------------
+
+    def dump(self, path: str):
+        """Save as a directory of ``.npy`` files (the reference's format:
+        ``edges.npy``, ``meta.json``, ``node_feat/``, ``edge_feat/``, the
+        indexes built so far under ``adj_src/`` and ``adj_dst/``, and a
+        batched graph's ``graph_node_index.npy`` and
+        ``graph_edge_index.npy``)."""
+        g = self.numpy()
+        os.makedirs(path, exist_ok=True)
+        np.save(os.path.join(path, "edges.npy"), np.asarray(g._edges))
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump({"num_nodes": g._num_nodes,
+                       "num_graph": g._num_graph}, f)
+        for sub, feats in (("node_feat", g._node_feat),
+                           ("edge_feat", g._edge_feat)):
+            d = os.path.join(path, sub)
+            os.makedirs(d, exist_ok=True)
+            for k, v in feats.items():
+                np.save(os.path.join(d, f"{k}.npy"), np.asarray(v))
+        for name, idx in (("adj_src", g._adj_src_index),
+                          ("adj_dst", g._adj_dst_index)):
+            if idx is not None:
+                idx.dump(os.path.join(path, name))
+        if g._graph_node_index is not None:
+            np.save(os.path.join(path, "graph_node_index.npy"),
+                    np.asarray(g._graph_node_index))
+            np.save(os.path.join(path, "graph_edge_index.npy"),
+                    np.asarray(g._graph_edge_index))
+
+    def to_mmap(self, path: str) -> "Graph":
+        """Dump to ``path``, then load it back memory-mapped."""
+        self.dump(path)
+        return Graph.load(path, mmap_mode="r")
+
+    @classmethod
+    def load(cls, path: str, mmap_mode: Optional[str] = "r") -> "Graph":
+        """Load a dumped graph as a numpy graph, its arrays memory-mapped
+        unless ``mmap_mode`` is None."""
+        def load(*parts):
+            return np.load(os.path.join(path, *parts), mmap_mode=mmap_mode)
+
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        feats = {}
+        for sub in ("node_feat", "edge_feat"):
+            d = os.path.join(path, sub)
+            names = sorted(os.listdir(d)) if os.path.isdir(d) else []
+            feats[sub] = {fn[:-4]: load(sub, fn) for fn in names
+                          if fn.endswith(".npy")}
+        kwargs = {}
+        for name, key in (("adj_src", "adj_src_index"),
+                          ("adj_dst", "adj_dst_index")):
+            d = os.path.join(path, name)
+            if os.path.isdir(d):
+                kwargs[key] = EdgeIndex.load(d, mmap_mode=mmap_mode)
+        if os.path.exists(os.path.join(path, "graph_node_index.npy")):
+            kwargs["_graph_node_index"] = load("graph_node_index.npy")
+            kwargs["_graph_edge_index"] = load("graph_edge_index.npy")
+            kwargs["_num_graph"] = len(kwargs["_graph_node_index"]) - 1
+        return cls(load("edges.npy"), num_nodes=meta["num_nodes"],
+                   node_feat=feats["node_feat"],
+                   edge_feat=feats["edge_feat"], **kwargs)
 
     def __repr__(self):
         mode = "tensor" if self._is_tensor else "numpy"
         return (f"Graph(num_nodes={self._num_nodes}, "
-                f"num_edges={self._num_edges}, mode={mode})")
+                f"num_edges={self._num_edges}, num_graph={self._num_graph}, "
+                f"mode={mode}, node_feat={list(self._node_feat)}, "
+                f"edge_feat={list(self._edge_feat)})")
+
+
+def _concat_feats(feat_dicts, cat):
+    """The features every dict has, concatenated along the first axis by
+    ``cat`` (``np.concatenate`` or ``torch.cat``)."""
+    keys = set(feat_dicts[0])
+    for fd in feat_dicts[1:]:
+        keys &= set(fd)
+    return {k: cat([fd[k] for fd in feat_dicts]) for k in sorted(keys)}
+
+
+def _sample_from_index(index: EdgeIndex, nodes, max_degree, return_eids,
+                       seed):
+    nodes = np.asarray(nodes).reshape(-1)
+    out_indptr, out_v, out_eid = native.sample_subset_with_eid(
+        index.indptr, index.sorted_v, index.sorted_eid, nodes, max_degree,
+        seed)
+    neighbors = [out_v[out_indptr[i]:out_indptr[i + 1]]
+                 for i in range(len(nodes))]
+    if return_eids:
+        return neighbors, [out_eid[out_indptr[i]:out_indptr[i + 1]]
+                           for i in range(len(nodes))]
+    return neighbors

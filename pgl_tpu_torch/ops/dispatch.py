@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["use_spmm_kernel", "use_attention_kernel", "DEDUP", "DEDUP_MIN_EDGES", "DEDUP_MAX_EDGES",
+__all__ = ["use_spmm_kernel", "use_attention_kernel", "use_sddmm_kernel",
+           "DEDUP", "DEDUP_MIN_EDGES", "DEDUP_MAX_EDGES",
            "DEDUP_MAX_RATIO", "COUNTS_MAX", "COUNTS_BUDGET_BYTES"]
 
 # Build the unique-source ("dedup") layouts and run K5/K6 for sum and mean
@@ -77,3 +78,10 @@ def use_attention_kernel(tensor: torch.Tensor) -> bool:
     their plain versions; raises as :func:`use_spmm_kernel` does (the port
     of ``use_fused_attention``, whose other gates are the TPU's)."""
     return _use_kernel(tensor, "attention")
+
+
+def use_sddmm_kernel(tensor: torch.Tensor) -> bool:
+    """True to launch the CUDA SDDMM (K11), False to run its plain version;
+    raises as :func:`use_spmm_kernel` does. The reference's other gate, the
+    TPU backend (``pgl_tpu/graph.py:458``), is the device here."""
+    return _use_kernel(tensor, "SDDMM")

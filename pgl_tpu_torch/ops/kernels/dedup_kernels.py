@@ -158,19 +158,22 @@ class DedupLayout:
 class _LayoutPrefix:
     """Host build shared with the reference (``pgl_tpu/ops/pallas/
     dedup_kernels.py:150-270``): the per-block unique-source table, the
-    dedup edge order and the (block, window) pairs with exact edge spans.
+    dedup edge order and the (block, window) pairs with exact edge spans,
+    at ``nb`` destination rows a block and ``w`` unique rows a window (the
+    SpMM and attention layouts take the defaults; the SDDMM layout of
+    ``sddmm_kernels`` takes 128 and 128, as the reference does).
     ``rejected`` is set, and nothing else built, when the padded
     unique-row count exceeds ``max_ratio * E``."""
 
     def __init__(self, indptr, sorted_v, num_segments: int,
-                 max_ratio: float = 0.0):
+                 max_ratio: float = 0.0, nb: int = NB, w: int = W):
         indptr = np.asarray(indptr, dtype=np.int64)
         src = np.asarray(sorted_v, dtype=np.int64)
         E = len(src)
         N = int(num_segments)
-        G = -(-N // NB)
+        G = -(-N // nb)
         dst = np.repeat(np.arange(N, dtype=np.int64), np.diff(indptr))
-        blk = dst // NB
+        blk = dst // nb
 
         # per-block unique sources and each edge's rank among them; source
         # ids may exceed N, so the composite key has its own modulus
@@ -178,7 +181,7 @@ class _LayoutPrefix:
         uniq, inv = np.unique(blk * M + src, return_inverse=True)
         ublk = uniq // M
         ub = np.bincount(ublk, minlength=G)
-        ubp = -(-ub // W) * W
+        ubp = -(-ub // w) * w
         self.ratio = float(ubp.sum()) / E if E else 0.0
         self.rejected = bool(max_ratio and E and self.ratio > max_ratio)
         if self.rejected:
@@ -190,7 +193,7 @@ class _LayoutPrefix:
         Upad = int(uv_off[-1])
         blk_first = np.concatenate([[0], np.cumsum(ub)[:-1]])
         rank = np.arange(len(uniq), dtype=np.int64) - blk_first[ublk]
-        uv = np.zeros(Upad + W, np.int32)
+        uv = np.zeros(Upad + w, np.int32)
         uv[uv_off[ublk] + rank] = (uniq % M).astype(np.int32)
 
         grow = uv_off[blk] + rank[inv]            # each edge's unique row
@@ -201,15 +204,15 @@ class _LayoutPrefix:
         self.src_o = src[order]
         self.order = order
 
-        # windows per block: max(ceil(ub / W), 1), so an empty block still
+        # windows per block: max(ceil(ub / w), 1), so an empty block still
         # owns one (empty) pair and its rows are written
-        nw = np.maximum(ubp // W, 1)
+        nw = np.maximum(ubp // w, 1)
         P = int(nw.sum())
         pair_blk = np.repeat(np.arange(G, dtype=np.int64), nw)
         win_in_blk = np.arange(P, dtype=np.int64) - np.repeat(
             np.concatenate([[0], np.cumsum(nw)[:-1]]), nw)
-        self.pair_wb = uv_off[pair_blk] + win_in_blk * W
-        ekey = blk_o * (int(nw.max()) + 1) + (self.grow_o - uv_off[blk_o]) // W
+        self.pair_wb = uv_off[pair_blk] + win_in_blk * w
+        ekey = blk_o * (int(nw.max()) + 1) + (self.grow_o - uv_off[blk_o]) // w
         pkey = pair_blk * (int(nw.max()) + 1) + win_in_blk
         self.starts = np.searchsorted(ekey, pkey, side="left")
         self.ends = np.searchsorted(ekey, pkey, side="right")

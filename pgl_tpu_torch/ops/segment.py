@@ -1,6 +1,7 @@
-"""Segment reductions on ``index_add_`` and ``scatter_reduce``.
+"""Segment reductions on ``index_add_`` and ``scatter_reduce``, and the
+segment padding and top-k selections built on them.
 
-Port of ``pgl_tpu/ops/segment.py:43-127`` with the reference contract:
+Port of ``pgl_tpu/ops/segment.py:43-240`` with the reference contract:
 a segment that receives no element gives 0, and the mean divides by
 max(count, 1).
 """
@@ -12,7 +13,8 @@ from typing import Optional
 import torch
 
 __all__ = ["segment_count", "segment_sum", "segment_mean", "segment_max",
-           "segment_min", "segment_pool", "segment_softmax"]
+           "segment_min", "segment_pool", "segment_softmax",
+           "segment_padding", "segment_topk", "segment_topk_mask"]
 
 
 def _num_segments(segment_ids, num_segments: Optional[int]) -> int:
@@ -92,3 +94,78 @@ def segment_softmax(data, segment_ids, num_segments: Optional[int] = None):
     denom = segment_sum(exp, segment_ids, n).clamp(
         min=torch.finfo(exp.dtype).tiny)
     return exp / denom.index_select(0, segment_ids)
+
+
+def segment_padding(data, segment_ids, num_segments: Optional[int] = None,
+                    max_len: Optional[int] = None):
+    """Scatter sorted segments into a dense ``[num_segments, max_len, ...]``
+    tensor (``pgl_tpu/ops/segment.py:130-163``). Returns ``(padded, mask,
+    max_len)``, ``mask`` a bool ``[num_segments, max_len]`` of the valid
+    positions; ``max_len`` defaults to the largest segment, and a segment
+    longer than it keeps its first ``max_len`` elements."""
+    segment_ids = segment_ids.long()
+    n = _num_segments(segment_ids, num_segments)
+    count = segment_count(segment_ids, n)
+    if max_len is None:
+        max_len = int(count.max()) if count.numel() else 0
+    starts = torch.cumsum(count, 0) - count
+    pos = torch.arange(segment_ids.shape[0], device=segment_ids.device) \
+        - starts.index_select(0, segment_ids)
+    keep = pos < max_len
+    flat = (segment_ids * max_len + pos)[keep]
+    padded = data.new_zeros((n * max_len,) + data.shape[1:]).index_copy(
+        0, flat, data[keep])
+    padded = padded.reshape((n, max_len) + data.shape[1:])
+    mask = (torch.arange(max_len, device=count.device)[None, :]
+            < count.clamp(max=max_len)[:, None])
+    return padded, mask, max_len
+
+
+def segment_topk_mask(score, segment_ids, num_segments: Optional[int] = None,
+                      ratio: float = 0.5, min_score: Optional[float] = None):
+    """Per-segment top-k as a bool keep-mask over the elements
+    (``pgl_tpu/ops/segment.py:166-204``): an element is kept when it is
+    among the ``ceil(ratio * segment_size)`` highest scores of its segment
+    (ties toward the earlier index), or, with ``min_score``, when its score
+    is at least ``min(segment max, min_score)``, so every segment keeps its
+    best element."""
+    score = score.reshape(-1)
+    n = _num_segments(segment_ids, num_segments)
+    if min_score is not None:
+        thresh = segment_max(score, segment_ids, n).clamp(max=min_score)
+        return score >= thresh.index_select(0, segment_ids)
+    count = segment_count(segment_ids, n)
+    # order by (segment, score descending, index): two stable sorts
+    by_score = torch.argsort(-score, stable=True)
+    order = by_score.index_select(0, torch.argsort(
+        segment_ids.index_select(0, by_score), stable=True))
+    starts = torch.cumsum(count, 0) - count
+    seg_sorted = segment_ids.index_select(0, order)
+    pos = torch.arange(score.shape[0], device=score.device) \
+        - starts.index_select(0, seg_sorted)
+    k = torch.ceil(ratio * count.to(score.dtype)).long()
+    keep = torch.zeros(score.shape[0], dtype=torch.bool, device=score.device)
+    keep[order] = pos < k.index_select(0, seg_sorted)
+    return keep
+
+
+def segment_topk(data, score, segment_ids, num_segments: Optional[int] = None,
+                 ratio: float = 0.5, min_score: Optional[float] = None,
+                 return_index: bool = True):
+    """Per-segment top-k selection with dynamic output shapes
+    (``pgl_tpu/ops/segment.py:207-240``): the elements
+    :func:`segment_topk_mask` keeps, taken in float64 as the reference's
+    host path takes its thresholds and ``k``. Returns ``(data[keep],
+    keep)`` or ``data[keep]``, ``keep`` int64 on ``data``'s device: in index
+    order with ``min_score``, otherwise segment by segment and in index
+    order within each, as the reference orders them."""
+    data = torch.as_tensor(data)
+    seg = torch.as_tensor(segment_ids, device=data.device).long()
+    score = torch.as_tensor(score, device=data.device).reshape(-1).double()
+    keep = segment_topk_mask(score, seg, num_segments, ratio,
+                             min_score).nonzero().reshape(-1)
+    if min_score is None:
+        keep = keep.index_select(0, torch.argsort(seg.index_select(0, keep),
+                                                  stable=True))
+    selected = data.index_select(0, keep)
+    return (selected, keep) if return_index else selected

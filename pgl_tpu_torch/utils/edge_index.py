@@ -1,10 +1,11 @@
 """CSR/CSC edge index — the sorted-adjacency container behind every Graph.
 
 Port of ``pgl_tpu/utils/edge_index.py``: the same fields (``degree,
-sorted_u, sorted_v, sorted_eid, indptr``) built by the same stable sort, so
-the arrays equal the reference's. The host build is the numpy path (stable
-argsort and bincount); the C++ counting sort of ``pgl_tpu/native`` is not
-carried yet.
+sorted_u, sorted_v, sorted_eid, indptr``) built by the same counting sort
+(the port's copy of the C++ host kernel, ``pgl_tpu_torch/native``), so the
+arrays equal the reference's; the ragged neighbour views; and ``dump`` /
+``load`` in the reference's directory of ``.npy`` files, so either package
+reads what the other wrote.
 
 The device form holds int64 tensors, the index type PyTorch's gather and
 scatter operators take; the kernel layouts keep their own int32 copies
@@ -13,8 +14,13 @@ scatter operators take; the kernel layouts keep their own int32 copies
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import numpy as np
 import torch
+
+from ..native import graph_kernel as _native
 
 __all__ = ["EdgeIndex"]
 
@@ -42,7 +48,7 @@ class EdgeIndex:
 
     @classmethod
     def from_edges(cls, u, v, num_nodes: int) -> "EdgeIndex":
-        """Host build: stable argsort of ``u`` plus a bincount."""
+        """Host build by the native O(E + N) counting sort on ``u``."""
         u = np.asarray(u)
         v = np.asarray(v)
         if u.size:
@@ -55,15 +61,32 @@ class EdgeIndex:
             raise ValueError(
                 f"int32 id layout: {u.shape[0]} edges / {num_nodes} nodes "
                 "would wrap — shard the graph first")
-        u64 = u.astype(np.int64)
-        degree = np.bincount(u64, minlength=num_nodes).astype(_ID_DTYPE)
-        indptr = np.zeros(num_nodes + 1, dtype=np.int64)
-        np.cumsum(degree, out=indptr[1:])
-        order = np.argsort(u64, kind="stable")
-        sorted_eid = order.astype(_ID_DTYPE)
-        sorted_v = v[order].astype(_ID_DTYPE)
+        degree, sorted_v, sorted_eid, indptr = _native.build_index(
+            u, v, num_nodes)
+        degree = degree.astype(_ID_DTYPE)
+        sorted_v = sorted_v.astype(_ID_DTYPE)
+        sorted_eid = sorted_eid.astype(_ID_DTYPE)
         sorted_u = np.repeat(np.arange(num_nodes, dtype=_ID_DTYPE), degree)
         return cls(degree, sorted_u, sorted_v, sorted_eid, indptr)
+
+    def view_v(self, u=None):
+        """Ragged neighbour view: a list of each node's ``sorted_v`` slice
+        (all nodes, or those of ``u``)."""
+        return self._view(self.sorted_v, u)
+
+    def view_eid(self, u=None):
+        """Ragged edge-id view: a list of each node's ``sorted_eid`` slice."""
+        return self._view(self.sorted_eid, u)
+
+    def _view(self, values, u):
+        indptr, values = np.asarray(self.indptr), np.asarray(values)
+        nodes = range(len(indptr) - 1) if u is None else \
+            np.asarray(u).reshape(-1)
+        return [values[indptr[i]:indptr[i + 1]] for i in nodes]
+
+    def triples(self):
+        """(sorted_u, sorted_v, sorted_eid)."""
+        return self.sorted_u, self.sorted_v, self.sorted_eid
 
     def _fields(self):
         return (self.degree, self.sorted_u, self.sorted_v, self.sorted_eid,
@@ -81,7 +104,8 @@ class EdgeIndex:
         """Device copy as int64 tensors on ``device``."""
         if self.is_tensor:
             return EdgeIndex(*(x.to(device) for x in self._fields()))
-        return EdgeIndex(*(torch.as_tensor(np.asarray(x, dtype=np.int64),
+        # a copy: the host arrays may be a read-only memory map (``load``)
+        return EdgeIndex(*(torch.as_tensor(np.array(x, dtype=np.int64),
                                            device=device)
                            for x in self._fields()))
 
@@ -92,6 +116,22 @@ class EdgeIndex:
         *ids, indptr = (x.cpu().numpy() for x in self._fields())
         return EdgeIndex(*(x.astype(_ID_DTYPE) for x in ids),
                          indptr.astype(np.int64))
+
+    _FILES = ("degree", "sorted_u", "sorted_v", "sorted_eid", "indptr")
+
+    def dump(self, path):
+        """Save the five arrays (host dtypes) as ``<name>.npy`` under
+        ``path``, the reference's format."""
+        os.makedirs(path, exist_ok=True)
+        for name, x in zip(self._FILES, self.numpy()._fields()):
+            np.save(os.path.join(path, f"{name}.npy"), np.asarray(x))
+
+    @classmethod
+    def load(cls, path, mmap_mode: Optional[str] = "r") -> "EdgeIndex":
+        """Load a dumped index, memory-mapped unless ``mmap_mode`` is
+        None."""
+        return cls(*(np.load(os.path.join(path, f"{name}.npy"),
+                             mmap_mode=mmap_mode) for name in cls._FILES))
 
     def __repr__(self):
         mode = "tensor" if self.is_tensor else "numpy"

@@ -156,6 +156,9 @@ def test_import_leaves_jax_out():
             "pgl_tpu_torch.ops.kernels.dedup_kernels, "
             "pgl_tpu_torch.ops.kernels.attention_kernels, "
             "pgl_tpu_torch.ops.kernels.dedup_attention, "
+            "pgl_tpu_torch.ops.kernels.sddmm_kernels, "
+            "pgl_tpu_torch.message, pgl_tpu_torch.math, "
+            "pgl_tpu_torch.native, pgl_tpu_torch.native.graph_kernel, "
             "pgl_tpu_torch.ops.dispatch, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'pgl_tpu')]\n"

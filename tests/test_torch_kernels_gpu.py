@@ -19,7 +19,11 @@ over ``red``) through ``check_dedup_attention``, and in dot mode through
 ``check_dedup_dot`` (dq and the dk and dv slot rows with the terms scale),
 with the same bits on two runs and on a layout without counts. K1w and the
 weighted K6 go through ``check_weighted`` (forward, dx and dw with the
-terms scale) and must give the same bits on two runs.
+terms scale) and must give the same bits on two runs. K11, the dedup SDDMM,
+must equal its plain version bit for bit (``check_sddmm``: one IEEE
+operation a value, pads +0), and its backward (K1 over ``by_src`` and
+``by_dst``) goes through ``check_sddmm_grad`` (float64 with the terms scale,
+the same bits twice, its launches).
 """
 
 import dataclasses
@@ -28,22 +32,25 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (DDOT_KERNELS, DOT_KERNELS, attention_graph,
-                        attention_inputs, check, check_attention,
-                        check_counts, check_dedup, check_dedup_attention,
-                        check_dedup_dot, check_dot, check_spmm,
+from chip_smoke import (DDOT_KERNELS, DOT_KERNELS, SDDMM_OPS,
+                        attention_graph, attention_inputs, check,
+                        check_attention, check_counts, check_dedup,
+                        check_dedup_attention, check_dedup_dot, check_dot,
+                        check_sddmm, check_sddmm_grad, check_spmm,
                         check_weighted, dedup_attention_of, dedup_layouts,
                         dispatch_settings, dot_inputs, no_dropout,
                         run_dedup_attention, run_dedup_dot, run_dot,
-                        run_weighted, skewed_graph, weighted_terms,
-                        without_counts)
+                        run_weighted, sddmm_inputs, skewed_graph,
+                        weighted_terms, without_counts)
 from pgl_tpu_torch import Graph
 from pgl_tpu_torch.datasets import community_graph
 from pgl_tpu_torch.models import FAGCN, GAT, GATv2, GCN, UniMP
 from pgl_tpu_torch.nn import GATConv, TransformerConv
 from pgl_tpu_torch.ops.kernels import attention_kernels as ak
 from pgl_tpu_torch.ops.kernels import dedup_attention as da
+from pgl_tpu_torch.ops.kernels import _build
 from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+from pgl_tpu_torch.ops.kernels import sddmm_kernels as sdk
 from pgl_tpu_torch.ops.kernels import segment_kernels as sk
 
 # one intra-op thread: the test files run in parallel worker processes,
@@ -649,3 +656,79 @@ def test_weighted_wrappers_reject_what_the_kernels_do_not_take(cuda):
         sk.spmm_weighted(x, torch.randn(800, 3, device=cuda), csc, csr)
     with pytest.raises(ValueError, match="float32 on cpu"):
         sk.spmm_weighted(x, torch.randn(800, 1), csc, csr)
+
+
+@pytest.fixture
+def skewed_sddmm(cuda):
+    g = Graph(skewed_graph(3000, 40000, seed=6), num_nodes=3000).tensor(cuda)
+    return g, g.sddmm_layout()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", SDDMM_OPS)
+@pytest.mark.parametrize("D", [1, 3, 16, 128])
+def test_sddmm_kernel_equals_plain_version(cuda, skewed_sddmm, op, D):
+    g, lay = skewed_sddmm
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    x, y = sddmm_inputs(g.num_nodes, D, cuda, gen)
+    sdk.reset_launches()
+    check_sddmm("skewed", lay, x, y, op)
+    assert dict(sdk.LAUNCHES_BY_SHAPE) == {("sddmm", op, D): 2}
+    x, y = sddmm_inputs(g.num_nodes, D, cuda, gen, zeros=True)
+    out = check_sddmm("skewed zeros", lay, x, y, op)
+    # through Graph.sddmm_csc: the same kernel, and a non-16-byte-aligned
+    # view takes the 4-byte path with the same bits
+    assert torch.equal(g.sddmm_csc(x, y, op).view(torch.int32),
+                       out.view(torch.int32))
+    if D % 4 == 0:
+        xs = torch.empty(g.num_nodes * D + 1, device=cuda)[1:].view(-1, D)
+        xs.copy_(x)
+        assert torch.equal(sdk.sddmm_dedup(xs, y, lay, op).view(torch.int32),
+                           out.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", SDDMM_OPS)
+@pytest.mark.parametrize("D", [1, 16, 128])
+def test_sddmm_backward_matches_float64(cuda, skewed_sddmm, op, D):
+    g, lay = skewed_sddmm
+    gen = torch.Generator(device=cuda).manual_seed(D + 1)
+    x, y = sddmm_inputs(g.num_nodes, D, cuda, gen)
+    check_sddmm_grad("skewed", x, y, lay, op, gen)
+
+
+@pytest.mark.gpu
+def test_sddmm_raises_without_its_library(cuda, skewed_sddmm, monkeypatch,
+                                          tmp_path):
+    """A failed nvcc, or a library that cannot be loaded, raises on the
+    card; nothing falls back to the plain version."""
+    g, lay = skewed_sddmm
+    x = torch.randn(g.num_nodes, 8, device=cuda)
+    sdk.reset_launches()
+    bad = tmp_path / "csrc"
+    bad.mkdir()
+    (bad / "sddmm_kernels.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "CSRC", bad)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="CUDA build failed"):
+        g.sddmm_csc(x, x, "mul")
+    monkeypatch.setattr(_build, "build",
+                        lambda *names: {n: tmp_path / "missing.so"
+                                        for n in names})
+    with pytest.raises(OSError):
+        sdk.sddmm_dedup(x, x, lay, "mul")
+    assert sdk.LAUNCHES == 0
+
+
+@pytest.mark.gpu
+def test_sddmm_wrapper_rejects_what_the_kernel_does_not_take(cuda,
+                                                            skewed_sddmm):
+    g, lay = skewed_sddmm
+    x = torch.randn(g.num_nodes, 8, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        sdk.sddmm_dedup(x.double(), x.double(), lay)
+    with pytest.raises(ValueError, match="contiguous"):
+        sdk.sddmm_dedup(torch.randn(8, g.num_nodes, device=cuda).t(), x, lay)
+    with pytest.raises(ValueError, match="layout"):
+        sdk.sddmm_dedup(x.cpu(), x.cpu(), lay)
