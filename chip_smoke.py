@@ -9,7 +9,9 @@ there is no card or any phase fails. Phases:
 
 1. the card's name and power limit (``nvidia-smi``); build the kernels from
    ``pgl_tpu_torch/ops/kernels/csrc`` (one ``nvcc`` per source, in
-   parallel) and print the build time and ``ptxas`` report;
+   parallel) and print the build time and ``ptxas`` report, and for each
+   instantiation of the dedup apply (K5, K6, the weighted K6) its
+   registers, spills and dynamic shared memory;
 2. every kernel against its plain PyTorch version on the card, forward and
    backward: the plain version runs in float64 on the same inputs, and
    ``|kernel - plain| <= 1e-4 * max(1, |plain|, ||terms||_2)`` elementwise,
@@ -20,9 +22,14 @@ there is no card or any phase fails. Phases:
    error of the size of its partial sums. One dropped or doubled edge still
    exceeds the tolerance. K1 (sorted-segment SpMM) first; then the dedup
    kernels: K4's counts must equal the plain counts exactly, K5 (cached
-   counts) and K6 (rebuilt counts) pass the check above and agree with each
-   other bit for bit. Then the whole GCN on a small graph, CUDA against
-   CPU, at ``1e-4 * max(1, |cpu|)``, through K1 and through the dedup path;
+   counts) and K6 (rebuilt counts) pass the check above, give the same
+   bits on two runs and agree with each other bit for bit, on a graph with
+   a count of 256, windows past their block's unique run, split and empty
+   dst blocks, at features with full 24-bit mantissas and subnormals and D
+   in (1, 3, 8, 16, 64, 128, 130, 256); K6 alone on a count of 300; and on
+   the headline at D = 128 and 16. Then the whole GCN on a small graph,
+   CUDA against CPU, at ``1e-4 * max(1, |cpu|)``, through K1 and through
+   the dedup path;
 3. the main path: the bench headline (``bench.py``: ``powerlaw_graph(131072,
    16, feat_dim=128, seed=0)``, ``GCN(128, 16, num_layers=3,
    hidden_size=128, dropout=0)``, Adam at lr 1e-3) trains 3 warm-up and 20
@@ -32,8 +39,8 @@ there is no card or any phase fails. Phases:
 4. kernel time (CUDA events over warm launches) at each kernel's shapes on
    the main path, beside the plain version, ``torch.sparse.mm`` on a CSR
    tensor of the same graph (the yardstick for the SpMM; the port never
-   calls it) and the bound; then the SpMM device time per step of each
-   path;
+   calls it) and the bound; K5, K6 and K1 side by side at each of the
+   step's (layout, D); then the SpMM device time per step of each path;
 5. the GAT path (per-edge attention, K9 and K10): K9, K10-dq and K10-dkv
    against their float64 plain versions at dropout rates 0 and 0.6, on a
    skewed small graph with a hub destination and a hub source and on the
@@ -109,7 +116,8 @@ there is no card or any phase fails. Phases:
    128), on the skewed small graph and the headline graph, two runs giving
    the same bits, and each gradient alone; the weighted K6 forward, dx and
    dw (K1w's pass) on the headline graph under ``DEDUP`` against float64,
-   the same bits twice, forward and dx within tolerance of K1w; small
+   the same bits twice, forward and dx within tolerance of K1w, at D = 16
+   and 64 and with weights over six orders of magnitude; small
    FAGCN (through
    K1w and through the weighted K6), GATv2 and GATConv at 48 heads on its
    unfused path, CUDA against CPU; then ``FAGCN(128, 16, hidden_size=64,
@@ -186,6 +194,41 @@ STEPS, WARMUP = 20, 3
 # (D=16) over CSR. Layer 0's input has no gradient, so its backward never
 # runs.
 PER_STEP = {("csc", 128): 2, ("csc", 16): 1, ("csr", 128): 1, ("csr", 16): 1}
+# widths the dedup apply is checked at: one, odd, each column tile, past it
+DEDUP_CASE_D = (1, 3, 8, 16, 64, 128, 130, 256)
+
+
+def apply_report(log):
+    """Lines on the dedup apply kernels (K5, K6, the weighted K6) from
+    ``nvcc -Xptxas -v``'s report ``log``: each instantiation's registers
+    and spills beside the dynamic shared memory its launch asks for."""
+    import re
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    lib = dk._lib()
+    names = {(0, 0): ("K5", 0, 1), (1, 0): ("K6", 1, 1),
+             (1, 1): ("K6, counts > 256", 1, 257),
+             (2, 1): ("weighted K6", 2, 1)}
+    lines, kernel, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*dedup_applyILi(\d)ELb(\d)"
+                      r"ELi(\d+)E", line)
+        if m:
+            kernel = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"spills {m.group(1)} / {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel is not None:
+            mode, fa, dt = kernel
+            name, mode_arg, max_count = names[mode, fa]
+            smem = lib.pgl_dedup_apply_smem(mode_arg, max_count, dt)
+            lines.append(f"[build] dedup_apply {name}, column tile {dt}: "
+                         f"{m.group(1)} registers, {spills}, dynamic shared "
+                         f"memory {smem} B")
+            kernel = None
+    return sorted(lines)
 
 
 def check(name, got, want, scale=None):
@@ -523,22 +566,116 @@ def dedup_layouts(g, dev):
                           ("csr", g.adj_src_index.numpy())))
 
 
+def dedup_case_edges(num_nodes=3000, num_edges=40000, seed=4, copies=256):
+    """``skewed_graph`` plus one (dst, src) cell repeated ``copies`` times:
+    at 256 the largest count bf16 caches (K5 runs); above it K6 keeps its
+    counts in float32 and splits them, as it does weights."""
+    edges = skewed_graph(num_nodes, num_edges, seed)
+    cell = np.tile(np.array([[5, num_nodes - 7]]), (copies, 1))
+    return np.concatenate([edges, cell])
+
+
+def dedup_case_facts(lay):
+    """What the dedup apply can get wrong that ``lay`` exercises: windows
+    that run past their block's unique run, dst blocks split over groups
+    (partials), empty blocks (one pair, no edges)."""
+    pairs = lay.pairs.cpu().numpy().astype(np.int64)
+    blk, wb, start, end = pairs.T
+    first = np.searchsorted(blk, np.arange(blk.max() + 2))
+    run_end = np.append(wb[first[1:-1]], lay.uv.numel() - 128)
+    n_pairs = np.diff(first)
+    return {"overrun": int((wb + 128 > run_end[blk]).sum()),
+            "partials": lay.num_partials,
+            "empty_blocks": int(((start == end)
+                                 & (n_pairs[blk] == 1)).sum())}
+
+
+def hard_features(n, d, dev, gen, subnormal=True):
+    """float32 features whose three bf16 planes are all nonzero (full
+    24-bit mantissas, 1 + k * 2^-23 times a power of two, either sign), and
+    with ``subnormal`` one entry in 64 subnormal."""
+    import torch
+    k = torch.randint(0, 1 << 23, (n, d), device=dev, generator=gen)
+    e = torch.randint(-4, 5, (n, d), device=dev, generator=gen)
+    sign = torch.randint(0, 2, (n, d), device=dev, generator=gen) * 2 - 1
+    x = sign * (1 + k.float() * 2.0 ** -23) * torch.pow(2.0, e.float())
+    sub = torch.randint(0, 64, (n, d), device=dev, generator=gen) == 0
+    tiny = k.float() * 2.0 ** -149
+    return torch.where(sub & subnormal, sign * tiny, x).float().contiguous()
+
+
+def check_dedup_exact(tag, dev, n=3000, d=128, seed=6):
+    """On a permutation graph every output of the dedup apply is one term
+    of count 1, so K5 and K6 must return the source row bit for bit, in
+    both directions: the three bf16 planes of a normal float32 add back to
+    it exactly, and a lost plane (the lowest is 2^-16 of the value, under
+    ``check``'s tolerance) shows here."""
+    import dataclasses
+
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    perm = np.random.default_rng(seed).permutation(n)
+    g = Graph(np.stack([perm, np.arange(n)], axis=1), num_nodes=n
+              ).tensor(dev)
+    csc, csr = dedup_layouts(g, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = hard_features(n, d, dev, gen, subnormal=False)
+    w = hard_features(n, d, dev, gen, subnormal=False)
+    p = torch.as_tensor(perm, device=dev)
+    uncached = [dataclasses.replace(lay, counts=None) for lay in (csc, csr)]
+    for name, lays in (("K5", (csc, csr)), ("K6", uncached)):
+        out, grad = run_dedup_twice(x, w, lays)
+        if not (torch.equal(out, x[p]) and torch.equal(grad[p], w)):
+            raise AssertionError(f"{tag} {name}: a one-term row differs "
+                                 "from its source row")
+
+
+def run_dedup_twice(x, w, lays):
+    """``spmm_dedup`` forward and backward (cotangent ``w``) twice; raises
+    unless the two runs give the same bits. Returns (out, grad)."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    res = []
+    for _ in range(2):
+        xr = x.detach().clone().requires_grad_(True)
+        out = dk.spmm_dedup(xr, *lays)
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        res.append((out.detach(), xr.grad))
+    if not all(torch.equal(a, b) for a, b in zip(*res)):
+        raise AssertionError("dedup apply: two runs differ")
+    return res[0]
+
+
 def phase_dedup_kernels(g_head, dev):
     """K4 exact, K5 and K6 against the float64 plain version forward and
-    backward, and K5 against K6 bit for bit."""
+    backward, two runs the same bits, and K5 against K6 bit for bit: on a
+    graph with a count of 256, windows past their block's run, split and
+    empty blocks, at features with full mantissas and subnormals and
+    D in ``DEDUP_CASE_D``; K6 alone on a count of 300 (counts split into
+    planes); then the headline at the main path's widths."""
     import dataclasses
 
     import torch
     from pgl_tpu_torch import Graph
     from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
 
-    small = Graph(skewed_graph(3000, 40000, seed=1), num_nodes=3000
-                  ).tensor(dev)
+    small = Graph(dedup_case_edges(), num_nodes=3000).tensor(dev)
     lay_small = dedup_layouts(small, dev)
+    facts = [dedup_case_facts(lay) for lay in lay_small]
+    if not (lay_small[0].max_count == 256 and lay_small[0].counts is not None
+            and all(facts[0].values())):
+        raise AssertionError(f"the dedup case graph misses a case: max "
+                             f"count {lay_small[0].max_count}, {facts[0]}")
+    over = Graph(dedup_case_edges(copies=300), num_nodes=3000).tensor(dev)
+    lay_over = dedup_layouts(over, dev)
+    if lay_over[0].counts is not None:
+        raise AssertionError("counts cached for a count of 300")
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = [("small", small, lay_small, d) for d in (1, 3, 16, 128, 130,
-                                                      256)]
-    cases += [("headline", g_head, g_head._dedup_layouts, d)
+    cases = [("small", small, lay_small, d, True) for d in DEDUP_CASE_D]
+    cases += [("count 300", over, lay_over, d, True) for d in (16, 128)]
+    cases += [("headline", g_head, g_head._dedup_layouts, d, False)
               for d in (128, 16)]
     for tag, lays in (("small", lay_small),
                       ("headline", g_head._dedup_layouts)):
@@ -548,27 +685,34 @@ def phase_dedup_kernels(g_head, dev):
               f"(P = {lays[0].num_pairs} / {lays[1].num_pairs}, partial "
               f"blocks {lays[0].num_partials} / {lays[1].num_partials})",
               flush=True)
-    for tag, g, (csc, csr), d in cases:
+    print(f"[dedup] case graph: max count 256, csc {facts[0]}, csr "
+          f"{facts[1]}", flush=True)
+    for d in (128, 3):
+        check_dedup_exact("permutation", dev, d=d)
+    print("[dedup] permutation graph, D=128 and 3: K5 and K6 return each "
+          "source row bit for bit, forward and backward", flush=True)
+    for tag, g, (csc, csr), d, hard in cases:
         uncached = [dataclasses.replace(lay, counts=None)
                     for lay in (csc, csr)]
-        x = torch.randn(g.num_nodes, d, device=dev, generator=gen,
-                        requires_grad=True)
-        w = torch.randn(g.num_nodes, d, device=dev, generator=gen)
-        res = []
-        for lays in ((csc, csr), uncached):
-            out = dk.spmm_dedup(x, *lays)
-            (out * w).sum().backward()
-            res.append((out.detach(), x.grad))
-            x.grad = None
-        (out5, grad5), (out6, grad6) = res
+        if hard:
+            x = hard_features(g.num_nodes, d, dev, gen)
+            w = hard_features(g.num_nodes, d, dev, gen)
+        else:
+            x = torch.randn(g.num_nodes, d, device=dev, generator=gen)
+            w = torch.randn(g.num_nodes, d, device=dev, generator=gen)
+        out6, grad6 = run_dedup_twice(x, w, uncached)
         with torch.no_grad():
-            e_f = check_dedup(f"{tag} K5 csc D={d}", out5, x, csc)
-            e_b = check_dedup(f"{tag} K5 csr D={d}", grad5, w, csr)
-        if not (torch.equal(out5, out6) and torch.equal(grad5, grad6)):
-            raise AssertionError(f"{tag} D={d}: K5 and K6 differ")
-        print(f"[dedup] {tag} N={g.num_nodes} E={g.num_edges} D={d}: K5 = "
-              f"K6 bit for bit; max |err| fwd {e_f:.3e} bwd {e_b:.3e}",
-              flush=True)
+            e_f = check_dedup(f"{tag} K6 csc D={d}", out6, x, csc)
+            e_b = check_dedup(f"{tag} K6 csr D={d}", grad6, w, csr)
+        if csc.counts is not None:
+            out5, grad5 = run_dedup_twice(x, w, (csc, csr))
+            if not (torch.equal(out5, out6) and torch.equal(grad5, grad6)):
+                raise AssertionError(f"{tag} D={d}: K5 and K6 differ")
+        print(f"[dedup] {tag} N={g.num_nodes} E={g.num_edges} D={d}"
+              f"{' (full mantissas, subnormals)' if hard else ''}: "
+              f"{'K5 = K6 bit for bit; ' if csc.counts is not None else ''}"
+              f"two runs the same bits; max |err| fwd {e_f:.3e} bwd "
+              f"{e_b:.3e}", flush=True)
 
 
 def phase_dedup_timing(g, launches, dev, cells):
@@ -2208,6 +2352,16 @@ def check_weighted(tag, x, w, g, csc, csr, op, out, dx, dw):
     return errs
 
 
+def spread_weights(n, dev, gen):
+    """``n`` float32 weights of either sign over six orders of magnitude
+    (|w| from 1e-3 to 1e3, log-uniform): a cell's sum needs all three bf16
+    planes of the weighted K6's C."""
+    import torch
+    mag = torch.pow(10.0, torch.rand(n, device=dev, generator=gen) * 6 - 3)
+    sign = torch.randint(0, 2, (n,), device=dev, generator=gen) * 2 - 1
+    return (sign * mag).float().contiguous()
+
+
 def run_weighted(x, w, g, csc, csr, op, need_dx=True, need_dw=True):
     """One K1w forward and backward on the card: (out, dx, dw)."""
     import torch
@@ -2264,9 +2418,10 @@ def phase_weighted_kernels(g_head, g_dedup, dev):
 
     csc_d, csr_d = g_dedup._dedup_layouts
     csc, csr = g_dedup._spmm_layouts
-    for D in (16, 64):
+    for D, spread in ((16, False), (64, False), (64, True)):
         x = torch.randn(g_dedup.num_nodes, D, device=dev, generator=gen)
-        w = torch.randn(g_dedup.num_edges, device=dev, generator=gen)
+        w = (spread_weights(g_dedup.num_edges, dev, gen) if spread else
+             torch.randn(g_dedup.num_edges, device=dev, generator=gen))
         cot = torch.randn(g_dedup.num_nodes, D, device=dev, generator=gen)
         runs = []
         for _ in range(2):
@@ -2287,7 +2442,9 @@ def phase_weighted_kernels(g_head, g_dedup, dev):
             check(f"weighted K6 D={D} against K1w", out, k1w[0], scale)
             _, scale = weighted_terms(cot, w[:, None], csr, "mul")
             check(f"weighted K6 D={D} dx against K1w", dx, k1w[1], scale)
-        print(f"[weighted] headline weighted K6 D={D}: max |err| fwd "
+        print(f"[weighted] headline weighted K6 D={D}"
+              f"{' (weights over six orders of magnitude)' if spread else ''}"
+              f": max |err| fwd "
               f"{e['fwd']:.3e} dx {e['dx']:.3e} dw {e['dw']:.3e}; same bits "
               "twice; fwd and dx within tolerance of K1w (dw is K1w's own "
               "pass, held against float64 only)", flush=True)
@@ -3122,6 +3279,9 @@ def main():
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
     for path in libs.values():
         print(path.with_suffix(".log").read_text().strip(), flush=True)
+    for line in apply_report(
+            libs["dedup_kernels"].with_suffix(".log").read_text()):
+        print(line, flush=True)
 
     t0 = time.perf_counter()
     host = headline_host()
@@ -3175,6 +3335,16 @@ def main():
         ("dedup", k, d): v for (k, d), v in PER_STEP.items()})
     rows += phase_dedup_timing(g_6, by_6, dev, cells)
 
+    by_kernel = {(r["shape"]["kernel"], r["shape"]["layout"],
+                  r["shape"]["D"]): r for r in rows if "kernel" in r["shape"]}
+    for (kind, d) in PER_STEP:
+        k5, k6, k1 = (by_kernel[k, kind, d]
+                      for k in ("dedup_cached", "dedup", "spmm"))
+        print(f"[dedup vs K1] {kind} D={d}: K5 {k5['ms']:.5f} ms, K6 "
+              f"{k6['ms']:.5f} ms, K1 {k1['ms']:.5f} ms, torch.sparse.mm "
+              f"{k1['library_ms']:.5f} ms (K5 {k5['ms'] / k1['ms']:.2f}x K1, "
+              f"{k5['ms'] / k1['library_ms']:.2f}x torch.sparse.mm)",
+              flush=True)
     spmm = {path: spmm_ms_per_step(rows, kernel) for path, kernel in (
         ("K1", "spmm"), ("dedup", "dedup_cached"),
         ("dedup_uncached", "dedup"))}

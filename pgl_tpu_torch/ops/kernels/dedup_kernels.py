@@ -339,8 +339,10 @@ def _lib():
         lib.pgl_dedup_counts.argtypes = [i, p, i, p, p, p, p]
         lib.pgl_dedup_counts.restype = ctypes.c_int
         lib.pgl_dedup_apply_f32.argtypes = [i, i, p, p, p, p, i, p, p, i,
-                                            p, p, p, p, p, i, p, p, p]
+                                            p, p, p, p, p, i, i, p, p, p]
         lib.pgl_dedup_apply_f32.restype = ctypes.c_int
+        lib.pgl_dedup_apply_smem.argtypes = [i, i, i]
+        lib.pgl_dedup_apply_smem.restype = ctypes.c_int
     return lib
 
 
@@ -374,8 +376,8 @@ def _launch_apply(x, layout: DedupLayout, counts, out, partials, w=None):
         layout.urow.data_ptr(),
         counts.data_ptr() if counts is not None else None,
         layout.edge_id.data_ptr() if w is not None else None,
-        w.data_ptr() if w is not None else None, x.shape[1],
-        out.data_ptr(), partials.data_ptr(), _stream(x.device))
+        w.data_ptr() if w is not None else None, layout.max_count,
+        x.shape[1], out.data_ptr(), partials.data_ptr(), _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"dedup_kernels apply launch failed: CUDA "
                            f"error {rc}")

@@ -10,7 +10,9 @@ Kernel results are held against the plain version evaluated in float64 at
 chip_smoke.py's ``check_spmm`` (K1) and ``check_dedup`` (K5, K6), which say
 why: the kernel sums float32 in another order, and its rounding error grows
 with the 2-norm of the terms an element sums. K4's counts must equal the
-plain counts bit for bit, and K5 and K6 must agree bit for bit. The
+plain counts bit for bit, and K5 and K6 must agree bit for bit and give the
+same bits on two runs, on features whose three bf16 planes are all
+nonzero. The
 attention kernels (K9, K10) go through ``check_attention`` (no terms scale:
 their outputs are convex combinations or sums of bounded terms) and must
 give the same bits on two runs; in dot mode through ``check_dot`` (dq, dk
@@ -32,16 +34,19 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (DDOT_KERNELS, DOT_KERNELS, SDDMM_OPS,
+from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS, SDDMM_OPS,
                         attention_graph, attention_inputs, check,
                         check_attention, check_counts, check_dedup,
-                        check_dedup_attention, check_dedup_dot, check_dot,
+                        check_dedup_attention, check_dedup_dot,
+                        check_dedup_exact, check_dot,
                         check_sddmm, check_sddmm_grad, check_spmm,
-                        check_weighted, dedup_attention_of, dedup_layouts,
-                        dispatch_settings, dot_inputs, no_dropout,
-                        run_dedup_attention, run_dedup_dot, run_dot,
-                        run_weighted, sddmm_inputs, skewed_graph,
-                        weighted_terms, without_counts)
+                        check_weighted, dedup_attention_of,
+                        dedup_case_edges, dedup_case_facts, dedup_layouts,
+                        dispatch_settings, dot_inputs, hard_features,
+                        no_dropout, run_dedup_attention, run_dedup_dot,
+                        run_dedup_twice, run_dot, run_weighted, sddmm_inputs,
+                        skewed_graph, spread_weights, weighted_terms,
+                        without_counts)
 from pgl_tpu_torch import Graph
 from pgl_tpu_torch.datasets import community_graph
 from pgl_tpu_torch.models import FAGCN, GAT, GATv2, GCN, UniMP
@@ -135,37 +140,64 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [1, 3, 16, 128, 130])
+@pytest.mark.parametrize("D", DEDUP_CASE_D)
 def test_dedup_kernels_match_plain_version(cuda, D):
-    g = Graph(skewed_graph(3000, 40000, seed=4), num_nodes=3000).tensor(cuda)
+    """K4 exact; K5 and K6 against float64 forward and backward on a graph
+    with a count of 256, windows past their block's unique run, a split
+    and an empty dst block, at features with full mantissas and
+    subnormals; two runs the same bits; K5 = K6 bit for bit."""
+    g = Graph(dedup_case_edges(), num_nodes=3000).tensor(cuda)
     dk.reset_launches()
     csc, csr = dedup_layouts(g, cuda)
     assert dict(dk.LAUNCHES_BY_SHAPE) == {("counts", "csc", None): 1,
                                           ("counts", "csr", None): 1}
     for lay in (csc, csr):
         check_counts(f"counts {lay.kind}", lay.counts, lay)
-    assert csc.num_partials > 0                  # the hub block is split
+    assert csc.max_count == 256
+    assert all(dedup_case_facts(csc).values())
     gen = torch.Generator(device=cuda).manual_seed(D)
-    x = torch.randn(3000, D, device=cuda, generator=gen, requires_grad=True)
-    w = torch.randn(3000, D, device=cuda, generator=gen)
-    res = []
-    for lays in ((csc, csr), [dataclasses.replace(lay, counts=None)
-                              for lay in (csc, csr)]):
-        out = dk.spmm_dedup(x, *lays)
-        (out * w).sum().backward()
-        res.append((out.detach(), x.grad))
-        x.grad = None
-    torch.cuda.synchronize()
+    x = hard_features(3000, D, cuda, gen)
+    w = hard_features(3000, D, cuda, gen)
+    out5, grad5 = run_dedup_twice(x, w, (csc, csr))
+    out6, grad6 = run_dedup_twice(x, w, [dataclasses.replace(lay, counts=None)
+                                         for lay in (csc, csr)])
     assert dict(dk.LAUNCHES_BY_SHAPE) == {
         ("counts", "csc", None): 1, ("counts", "csr", None): 1,
-        ("dedup_cached", "csc", D): 1, ("dedup_cached", "csr", D): 1,
-        ("dedup", "csc", D): 1, ("dedup", "csr", D): 1}
-    (out5, grad5), (out6, grad6) = res
+        ("dedup_cached", "csc", D): 2, ("dedup_cached", "csr", D): 2,
+        ("dedup", "csc", D): 2, ("dedup", "csr", D): 2}
     with torch.no_grad():
         check_dedup("K5 csc", out5, x, csc)
         check_dedup("K5 csr", grad5, w, csr)
     assert torch.equal(out5, out6) and torch.equal(grad5, grad6)
     assert (out5[1:1500] == 0).all()             # empty rows are exact zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [3, 128])
+def test_dedup_kernels_exact_on_one_term_rows(cuda, D):
+    """On a permutation graph K5 and K6 return each source row bit for bit,
+    forward and backward: the window's bf16 planes add back exactly."""
+    check_dedup_exact("permutation", cuda, d=D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 130])
+def test_dedup_k6_above_the_cached_counts(cuda, D):
+    """A count of 300 (no bf16 cache; K6 splits its counts into three
+    planes) against float64, two runs the same bits."""
+    g = Graph(dedup_case_edges(copies=300), num_nodes=3000).tensor(cuda)
+    csc, csr = dedup_layouts(g, cuda)
+    assert csc.counts is None and csc.max_count == 300
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    x = hard_features(3000, D, cuda, gen)
+    w = hard_features(3000, D, cuda, gen)
+    dk.reset_launches()
+    out, grad = run_dedup_twice(x, w, (csc, csr))
+    assert dict(dk.LAUNCHES_BY_SHAPE) == {("dedup", "csc", D): 2,
+                                          ("dedup", "csr", D): 2}
+    with torch.no_grad():
+        check_dedup("K6 csc", out, x, csc)
+        check_dedup("K6 csr", grad, w, csr)
 
 
 @pytest.mark.gpu
@@ -573,10 +605,13 @@ def test_k1w_launch_refuses_an_unweighted_pass(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("spread", [False, True])
 @pytest.mark.parametrize("D", [1, 16, 64, 130])
-def test_weighted_dedup_kernel_matches_plain_version(cuda, D):
+def test_weighted_dedup_kernel_matches_plain_version(cuda, D, spread):
     """The weighted K6 forward, dx (over CSR) and dw (K1w's pass) against
-    float64, the same bits twice, and K1w's results within tolerance."""
+    float64, the same bits twice, and K1w's results within tolerance; with
+    normal weights, and with weights over six orders of magnitude
+    (``spread``), whose sums need every bf16 plane of C."""
     with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0):
         g = Graph(skewed_graph(3000, 40000, seed=9), num_nodes=3000
                   ).tensor(cuda)
@@ -585,7 +620,8 @@ def test_weighted_dedup_kernel_matches_plain_version(cuda, D):
     assert not csc_d.simple
     gen = torch.Generator(device=cuda).manual_seed(D)
     x = torch.randn(3000, D, device=cuda, generator=gen)
-    w = torch.randn(40000, device=cuda, generator=gen)
+    w = (spread_weights(40000, cuda, gen) if spread
+         else torch.randn(40000, device=cuda, generator=gen))
     cot = torch.randn(3000, D, device=cuda, generator=gen)
     dk.reset_launches()
     sk.reset_launches()
