@@ -11,7 +11,9 @@ there is no card or any phase fails. Phases:
    ``pgl_tpu_torch/ops/kernels/csrc`` (one ``nvcc`` per source, in
    parallel) and print the build time and ``ptxas`` report, and for each
    instantiation of the dedup apply (K5, K6, the weighted K6) its
-   registers, spills and dynamic shared memory;
+   registers, spills and dynamic shared memory, and of K1 (``spmm_rows``,
+   ``spmm_packs``) and the dot-mode K10-dkv (``dot_dkv_staged``) its
+   registers and spills;
 2. every kernel against its plain PyTorch version on the card, forward and
    backward: the plain version runs in float64 on the same inputs, and
    ``|kernel - plain| <= 1e-4 * max(1, |plain|, ||terms||_2)`` elementwise,
@@ -20,9 +22,13 @@ there is no card or any phase fails. Phases:
    rounding error grows with that norm, not with ``|plain|``: a row whose
    terms cancel (the headline hub sums 803,866 of them) ends near 0 with an
    error of the size of its partial sums. One dropped or doubled edge still
-   exceeds the tolerance. K1 (sorted-segment SpMM) first; then the dedup
-   kernels: K4's counts must equal the plain counts exactly, K5 (cached
-   counts) and K6 (rebuilt counts) pass the check above, give the same
+   exceeds the tolerance. K1 (sorted-segment SpMM) first, also over every
+   kind of work item (a hub's pieces, rows of their own, packs of short
+   rows across item boundaries, empty rows) at D in (1, 3, 8, 16, 64, 128,
+   130, 256, 512) on 16-byte and on unaligned tables, the same bits twice;
+   then the dedup kernels: K4's counts must equal the plain counts
+   exactly, K5 (cached counts) and K6 (rebuilt counts) pass the check
+   above, give the same
    bits on two runs and agree with each other bit for bit, on a graph with
    a count of 256, windows past their block's unique run, split and empty
    dst blocks, at features with full 24-bit mantissas and subnormals and D
@@ -231,6 +237,44 @@ def apply_report(log):
     return sorted(lines)
 
 
+# ptxas entries reported one line each: (label, the mangled name with the
+# template arguments as groups, their names)
+REGISTER_REPORT = (
+    ("K1 spmm_rows", r"spmm_rowsILi(\d+)ELi(\d+)ELi(\d+)E",
+     ("VEC", "L", "NV")),
+    ("K1 spmm_packs", r"spmm_packsILi(\d+)ELi(\d+)ELi(\d+)E",
+     ("VEC", "L", "NV")),
+    ("K10-dkv-dot dot_dkv_staged", r"dot_dkv_stagedILi(\d+)ELb(\d)E",
+     ("NC", "FULL")))
+
+
+def register_report(log):
+    """Lines on K1's and the dot-mode K10-dkv's instantiations from ``nvcc
+    -Xptxas -v``'s report ``log``: registers and spilled bytes of each."""
+    import re
+    lines, entry, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = None
+            for label, pattern, names in REGISTER_REPORT:
+                k = re.search(pattern, m.group(1))
+                if k:
+                    entry = label + " " + ", ".join(
+                        f"{n}={v}" for n, v in zip(names, k.groups()))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"spills {m.group(1)} / {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            lines.append(f"[build] {entry}: {m.group(1)} registers, "
+                         f"{spills}")
+            entry = None
+    return sorted(lines)
+
+
 def check(name, got, want, scale=None):
     """Max |got - want|; raises unless |got - want| <= 1e-4 * max(1, |want|,
     scale) everywhere."""
@@ -261,6 +305,32 @@ def skewed_graph(num_nodes, num_edges, seed):
                                        num_edges - hub)])
     src = rng.integers(0, num_nodes, num_edges)
     return np.stack([src, dst], axis=1)
+
+
+def k1_case_edges(seed=11, n=2000):
+    """(edges [E, 2] as (src, dst), n) whose CSC rows hold every kind of
+    K1 work item: a hub of 1,300 edges (pieces), rows of 33 to 599 edges
+    (items of their own, or pieces past 64), runs of short rows (0 to 12
+    edges) packed across item boundaries, and a run of 200 empty rows;
+    1,200 edges leave one source, so the CSR side splits a row too."""
+    rng = np.random.default_rng(seed)
+    deg = rng.choice([0, 0, 1, 2, 3, 5, 8, 12], size=n)
+    deg[rng.choice(n, 40, replace=False)] = rng.integers(33, 600, 40)
+    deg[7] = 1300
+    deg[11] = 40
+    deg[100:300] = 0
+    dst = np.repeat(np.arange(n), deg)
+    src = rng.integers(0, n, len(dst))
+    src[rng.choice(len(dst), 1200, replace=False)] = 5
+    return np.stack([src, dst], axis=1), n
+
+
+def k1_features(n, d, dev, gen, aligned=True):
+    """A contiguous float32 [n, d] table; ``aligned=False`` starts it one
+    float past a 16-byte boundary (K1's scalar path at any width)."""
+    import torch
+    flat = torch.randn(n * d + 1, device=dev, generator=gen)
+    return flat[:n * d].view(n, d) if aligned else flat[1:].view(n, d)
 
 
 def check_spmm(name, got, x, layout):
@@ -296,6 +366,30 @@ def phase_kernels(g_head, dev):
             e_b = check_spmm(f"{tag} csr D={d}", x.grad, w, csr)
         print(f"[kernels] {tag} N={g.num_nodes} E={g.num_edges} D={d}: "
               f"max |err| fwd {e_f:.3e} bwd {e_b:.3e}", flush=True)
+
+    # every kind of K1 work item, one to four vectors a lane and a walk of
+    # 512 columns, on 16-byte vectors and on the scalar path; same bits twice
+    edges, n = k1_case_edges()
+    case = Graph(edges, num_nodes=n).tensor(dev)
+    err = 0.0
+    for d in (1, 3, 8, 16, 64, 128, 130, 256, 512):
+        for aligned in (True, False):
+            for lay in case._spmm_layouts:
+                x = k1_features(n, d, dev, gen, aligned)
+                out = sk._spmm_cuda(x, lay)
+                if not torch.equal(out, sk._spmm_cuda(x, lay)):
+                    raise AssertionError(f"K1 case {lay.kind} D={d}: two "
+                                         "runs differ")
+                with torch.no_grad():
+                    err = max(err, check_spmm(
+                        f"case {lay.kind} D={d} aligned={aligned}", out, x,
+                        lay))
+    kinds = case._spmm_layouts[0].items[:, 3].cpu()
+    print(f"[kernels] K1 work items (CSC: {int((kinds >= 0).sum())} pieces "
+          f"of split rows, {int((kinds == -1).sum())} whole rows, "
+          f"{int((kinds < -1).sum())} packs) at D in (1, 3, 8, 16, 64, 128, "
+          f"130, 256, 512), vector and scalar loads, both layouts: max "
+          f"|err| {err:.3e}; same bits on a second run", flush=True)
 
     # identity gather: sorted_segment_sum over pre-gathered messages
     idx = small.adj_dst_index
@@ -508,7 +602,7 @@ def phase_timing(g, dev, by_shape):
         for d in (128, 16):
             x = torch.randn(g.num_nodes, d, device=dev, generator=gen)
             out = torch.empty(lay.num_rows, d, device=dev)
-            part = torch.empty(lay.num_partials, d, device=dev)
+            part = torch.empty(lay.item_partials, d, device=dev)
             ms = time_ms(lambda: sk._launch(x, lay, out, part), 100)
             plain_ms = time_ms(lambda: sk.spmm_reference(x, lay), 20)
             lib_ms = time_ms(lambda: torch.sparse.mm(A, x), 50)
@@ -530,6 +624,7 @@ def phase_timing(g, dev, by_shape):
                 "shape": {"layout": kind, "rows": lay.num_rows,
                           "edges": lay.num_edges, "D": d,
                           "pieces": int(lay.pieces.shape[0]),
+                          "items": int(lay.items.shape[0]),
                           "split_rows": int(lay.split_rows.shape[0])}})
             print(f"[timing] {kind} D={d}: kernel {ms:.5f} ms, plain "
                   f"{plain_ms:.5f} ms, torch.sparse.mm {lib_ms:.5f} ms, "
@@ -1448,7 +1543,7 @@ def time_uniq_reduce(rows, info, red, d, launches, dev, gen, iters):
                                 torch.ones(S, device=dev), size=(N, S))
     x = torch.randn(S, d, device=dev, generator=gen)
     out = torch.empty(N, d, device=dev)
-    part = torch.empty(red.num_partials, d, device=dev)
+    part = torch.empty(red.item_partials, d, device=dev)
     ms = time_ms(lambda: sk._launch(x, red, out, part), iters)
     plain_ms = time_ms(lambda: sk.spmm_reference(x, red), 10)
     lib_ms = time_ms(lambda: torch.sparse.mm(A, x), iters)
@@ -2004,7 +2099,8 @@ def phase_unimp(dev):
     prof = phase_gat_profile(g, "UniMP",
                              lambda g: unimp_trainer(g, labels))
     rows = phase_dot_timing(graphs, dev, {"unimp": {0.3: by3, 0.0: by0},
-                                          "gat_graph": {0.0: {}}}, errs)
+                                          "gat_graph": {0.0: {}, 0.3: {}}},
+                            errs)
     attn = {rate: 2 * sum(r["ms"] for r in rows
                           if r["shape"]["graph"] == "unimp"
                           and r["shape"]["rate"] == rate)
@@ -2659,7 +2755,8 @@ def weighted_timing(rows, g, dev, gen, op, H, D, launches, name, graph):
     table = 4 * N * D
     for kind, lay, bwd in (("csc", csc, False), ("csr", csr, True)):
         out = torch.empty(N, D, device=dev)
-        part = torch.empty(lay.num_partials, D, device=dev)
+        part = torch.empty(max(lay.num_partials, lay.item_partials), D,
+                           device=dev)
         dw = torch.empty(E, H, device=dev) if bwd else None
         if bwd:
             args = (cot, w, lay, out, part, 1 if mul else 0, wop,
@@ -2706,7 +2803,7 @@ def weighted_timing(rows, g, dev, gen, op, H, D, launches, name, graph):
         k1_lib = time_ms(lambda: torch.sparse.mm(A1, x), 50)
         with torch.no_grad():
             k1_err = check_spmm(f"timed K1 {kind} D={D}", out, x, lay)
-        k1_bytes = 2 * table + 4 * E + 16 * lay.pieces.shape[0]
+        k1_bytes = 2 * table + 4 * E + 16 * lay.items.shape[0]
         timing_row(rows, dict(info, op=None, H=None), f"{name}_k1_{kind}",
                    "spmm", SOURCE, REPLACES, launches.get((kind, D), 0),
                    k1_err, k1_ms, k1_plain, k1_bytes, E * D, k1_lib,
@@ -3134,13 +3231,13 @@ def phase_sddmm_timing(g, lay, dev, launches):
         A = torch.sparse_csr_tensor(k1.indptr, k1.indices,
                                     torch.ones(E, device=dev), size=(N, S))
         res = torch.empty(N, D, device=dev)
-        part = torch.empty(k1.num_partials, D, device=dev)
+        part = torch.empty(k1.item_partials, D, device=dev)
         ms = median_ms(lambda: sk._launch(t, k1, res, part), 20)
         plain_ms = median_ms(lambda: sk.spmm_reference(t, k1), 5)
         lib_ms = median_ms(lambda: torch.sparse.mm(A, t), 20)
         with torch.no_grad():
             err = check_spmm(f"timed K1 {k1.kind}", res, t, k1)
-        k1_bytes = 4 * (E * D + E + N + 1 + N * D) + 16 * k1.pieces.shape[0]
+        k1_bytes = 4 * (E * D + E + N + 1 + N * D) + 16 * k1.items.shape[0]
         timing_row(rows, dict(info, op=None), f"{k1.kind}_k1_d{D}",
                    "spmm", SOURCE, SDDMM_REPLACES,
                    launches.get((k1.kind, D), 0), err, ms, plain_ms, k1_bytes,
@@ -3282,6 +3379,10 @@ def main():
     for line in apply_report(
             libs["dedup_kernels"].with_suffix(".log").read_text()):
         print(line, flush=True)
+    for name in ("segment_kernels", "attention_kernels"):
+        for line in register_report(
+                libs[name].with_suffix(".log").read_text()):
+            print(line, flush=True)
 
     t0 = time.perf_counter()
     host = headline_host()
@@ -3367,7 +3468,8 @@ def main():
     # the per-edge dot kernels' attention ms a UniMP step on the bench GAT
     # graph (2 layers of K9, K10-dq, K10-dkv at rate 0)
     edge_ms = 2 * sum(r["ms"] for r in unimp_rows
-                      if r["shape"]["graph"] == "gat_graph")
+                      if r["shape"]["graph"] == "gat_graph"
+                      and r["shape"]["rate"] == 0)
     ddot_rows, ddot_steps = phase_unimp_dedup(dev, edge_ms)
     rows += ddot_rows
     torch.cuda.empty_cache()

@@ -1,0 +1,338 @@
+#!/usr/bin/env python3
+"""K1 (the sorted SpMM), K1w and the dot-mode K10-dkv of a git revision
+beside this tree's, timed in one process on one card.
+
+    # with git (the card's copy of the repo has none): write the
+    # revision's sources into _archive/before_<rev>/ (git-ignored)
+    python experiments/torch_spmm/k1_k10_before_after.py --extract [--rev R]
+    # on the card: build both, check, time in turns
+    python experiments/torch_spmm/k1_k10_before_after.py [--rev R]
+
+The revision (default ``43a4f9f``) gives ``segment_kernels.cu``,
+``attention_kernels.cu`` and ``attention_common.cuh`` (``git show
+<rev>:<path>``); they are compiled with ``_build.NVCC_FLAGS`` into
+``_archive/before_<rev>/build/`` and loaded with ctypes beside the tree's
+libraries. Every shape is timed old, new, new, old (CUDA events, each a
+mean over warm launches) and the two runs of each averaged, so "no slower
+than before" is a comparison on one card. Shapes: K1 on the bench headline
+(CSC and CSR at D = 128, 16, 64), on the bench GAT graph (D = 64, 16), over
+``red`` (K8's slot rows folded onto nodes, bench GAT graph; D = 1, 8, 16,
+64, 256) and over ``by_src``/``by_dst`` (K11's backward on the headline, D
+= 128), each beside ``torch.sparse.mm``; K1w at FAGCN's and GATv2's shapes;
+K10-dkv-dot at UniMP's (2, 128, 128) on the UniMP stand-in and on the
+bench GAT graph at rates 0 and 0.3 (``--only`` picks among k1, k1w, k10).
+New results are held against the float64 plain version
+(``chip_smoke.check_spmm``) and old against new (K10:
+the largest difference, and whether the bits agree; ``chip_smoke.py``
+holds K10 against float64). The ``ptxas`` registers and spills of both
+versions' kernels print first. One JSON line of all rows ends the output,
+after the card's name and power limit.
+"""
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))
+CSRC = "pgl_tpu_torch/ops/kernels/csrc"
+SOURCES = ("segment_kernels.cu", "attention_kernels.cu",
+           "attention_common.cuh")
+
+
+def old_dir(rev):
+    return ROOT / "_archive" / f"before_{rev}"
+
+
+def extract(rev):
+    d = old_dir(rev)
+    d.mkdir(parents=True, exist_ok=True)
+    for name in SOURCES:
+        text = subprocess.run(["git", "show", f"{rev}:{CSRC}/{name}"],
+                              cwd=ROOT, check=True, capture_output=True,
+                              text=True).stdout
+        (d / name).write_text(text)
+    print(f"wrote {', '.join(SOURCES)} of {rev} to {d}")
+
+
+def build_old(rev):
+    """Compile the revision's two sources in parallel; returns {name: CDLL}
+    and the ptxas logs."""
+    from pgl_tpu_torch.ops.kernels import _build
+    d = old_dir(rev)
+    if not (d / SOURCES[0]).exists():
+        raise SystemExit(f"{d} has no sources: run with --extract first")
+    (d / "build").mkdir(exist_ok=True)
+    procs = {}
+    for name in ("segment_kernels", "attention_kernels"):
+        so = d / "build" / f"lib{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+             str(d / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs, logs = {}, {}
+    for name, (so, proc) in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"old {name} failed to build:\n{logs[name]}")
+        libs[name] = ctypes.CDLL(str(so))
+    return libs, logs
+
+
+def registers(log, pattern):
+    """(kernel template arguments, registers, spill bytes) of each entry
+    of ``log`` whose mangled name matches ``pattern``."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            args = re.search(r"I(?:L[ib][^E]*E)+", name)
+            out.append((args.group(0) if args else name, int(m.group(1)),
+                        spill))
+            name = None
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rev", default="43a4f9f")
+    ap.add_argument("--extract", action="store_true")
+    ap.add_argument("--only", choices=("k1", "k1w", "k10"), nargs="+",
+                    default=("k1", "k1w", "k10"),
+                    help="the kernels to time (default: all three)")
+    a = ap.parse_args()
+    if a.extract:
+        extract(a.rev)
+        return 0
+
+    import torch
+    if not torch.cuda.is_available():
+        print("k1_k10_before_after: no CUDA device", file=sys.stderr)
+        return 1
+    from chip_smoke import (UNIMP_SHAPE, check_spmm,
+                            dedup_attention_of, dispatch_settings, dot_inputs,
+                            gat_host, headline_host, time_ms, unimp_host)
+    from pgl_tpu_torch.ops.kernels import _build
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    old, old_logs = build_old(a.rev)
+    new = _build.build("segment_kernels", "attention_kernels")
+    new_logs = {n: p.with_suffix(".log").read_text() for n, p in new.items()}
+    for tag, logs, pat in (
+            ("old K1", old_logs, r"spmm_piecesILi\dELi\d+ELi0ELi0E"),
+            ("new K1", new_logs, r"spmm_(rows|packs)"),
+            ("old K10-dkv-dot", old_logs, r"dot_dkv_pieces"),
+            ("new K10-dkv-dot", new_logs, r"dot_dkv_staged")):
+        for args, regs, spill in registers(
+                logs["segment_kernels" if "K1" in tag else
+                     "attention_kernels"], pat):
+            print(f"[ptxas] {tag} {args}: {regs} registers, {spill} B "
+                  "spilled", flush=True)
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    seg = old["segment_kernels"]
+    # the revision's K1 takes this tree's work list (items, rows then
+    # packs) or, before it, the pieces of cut_rows (the parent's)
+    old_k1_new_abi = "int n_packs" in (
+        old_dir(a.rev) / "segment_kernels.cu").read_text()
+    seg.pgl_spmm_f32.argtypes = (sk._lib().pgl_spmm_f32.argtypes
+                                 if old_k1_new_abi else
+                                 [i, p, p, p, i, p, p, i, i, p, p, p])
+    seg.pgl_spmm_weighted_f32.argtypes = sk._lib(
+        ).pgl_spmm_weighted_f32.argtypes
+    att = old["attention_kernels"]
+    att.pgl_dot_dkv_f32.argtypes = ak._lib().pgl_dot_dkv_f32.argtypes
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def old_k1(x, lay, out, part):
+        if old_k1_new_abi:
+            work = (lay.indptr.data_ptr(), lay.items.data_ptr(),
+                    lay.items.shape[0] - lay.item_packs, lay.item_packs,
+                    lay.item_split_rows.data_ptr(),
+                    lay.item_split_ptr.data_ptr(),
+                    lay.item_split_rows.shape[0])
+        else:
+            work = (lay.pieces.data_ptr(), lay.pieces.shape[0],
+                    lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
+                    lay.split_rows.shape[0])
+        rc = seg.pgl_spmm_f32(
+            0, x.data_ptr(), lay.indices.data_ptr(), *work, x.shape[1],
+            out.data_ptr(), part.data_ptr(), stream())
+        assert rc == 0, rc
+
+    rows = []
+
+    def turns(name, fn_old, fn_new, iters, **extra):
+        t = [time_ms(f, iters) for f in (fn_old, fn_new, fn_new, fn_old)]
+        o, n = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        rows.append(dict(name=name, old_ms=o, new_ms=n, ratio=n / o,
+                         runs=t, **extra))
+        more = "".join(f", {k} {v:.5f}" if isinstance(v, float) else
+                       f", {k} {v}" for k, v in extra.items())
+        print(f"[before/after] {name}: old {o:.5f} ms, new {n:.5f} ms "
+              f"(new/old {n / o:.3f}; runs {', '.join(f'{v:.5f}' for v in t)}"
+              f"){more}", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def k1_rows(tag, lay, n_src, widths):
+        A = torch.sparse_csr_tensor(lay.indptr, lay.indices,
+                                    torch.ones(lay.num_edges, device=dev),
+                                    size=(lay.num_rows, n_src))
+        for d in widths:
+            x = torch.randn(n_src, d, device=dev, generator=gen)
+            outs = [torch.empty(lay.num_rows, d, device=dev)
+                    for _ in range(2)]
+            part = torch.empty(max(lay.num_partials, lay.item_partials), d,
+                               device=dev)
+            old_k1(x, lay, outs[0], part)
+            sk._launch(x, lay, outs[1], part)
+            with torch.no_grad():
+                err = check_spmm(f"{tag} D={d}", outs[1], x, lay)
+                diff = float((outs[0] - outs[1]).abs().max()) \
+                    if outs[0].numel() else 0.0
+            lib = time_ms(lambda: torch.sparse.mm(A, x), 50)
+            turns(f"K1 {tag} D={d}", lambda: old_k1(x, lay, outs[0], part),
+                  lambda: sk._launch(x, lay, outs[1], part), 100,
+                  library_ms=lib, max_abs_err=err, old_new_max_diff=diff,
+                  items=int(lay.items.shape[0]),
+                  pieces=int(lay.pieces.shape[0]))
+
+    def k1w_rows(tag, g, op, H, D):
+        csc, csr = g._spmm_layouts
+        N, E = g.num_nodes, g.num_edges
+        x = torch.randn(N, D, device=dev, generator=gen)
+        w = torch.randn(E, H, device=dev, generator=gen)
+        cot = torch.randn(N, D, device=dev, generator=gen)
+        out = torch.empty(N, D, device=dev)
+        part = torch.empty(max(csc.num_partials, csr.num_partials), D,
+                           device=dev)
+        dw = torch.empty(E, H, device=dev)
+        wop = sk._OPS[op]
+        cases = {"fwd csc": (x, w, csc, out, part, wop),
+                 "dx+dw csr": (cot, w, csr, out, part, 1, wop, x, dw),
+                 "dw csr": (cot, w, csr, None, None, 0, wop, x, dw)}
+        for kind, args in cases.items():
+            def launch(lib, args=args):
+                x_, w_, lay, o, pt, wo, *rest = args
+                dwop, xrow, dw_ = rest if rest else (0, None, None)
+                rc = lib.pgl_spmm_weighted_f32(
+                    0, wo, dwop, x_.data_ptr(), lay.indices.data_ptr(),
+                    lay.edge_id.data_ptr(), w_.data_ptr(), w_.shape[1],
+                    lay.pieces.data_ptr(), lay.pieces.shape[0],
+                    lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
+                    lay.split_rows.shape[0], x_.shape[1], sk._ptr(o),
+                    sk._ptr(pt), sk._ptr(xrow), sk._ptr(dw_), stream())
+                assert rc == 0, rc
+            turns(f"K1w {tag} {op} H={H} D={D} {kind}",
+                  lambda: launch(seg), lambda: launch(sk._lib()), 50)
+
+    def dkv_rows(tag, g, rates):
+        H, dsh, dvh = shape = UNIMP_SHAPE
+        csc, csr = g._attention_layouts()
+        N = g.num_nodes
+        q, k, v, g_out = dot_inputs(N, shape, dev, gen)
+        seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+        for rate in rates:
+            with torch.no_grad():
+                out, lse = ak._dot_fwd_cuda(q, k, v, csc, 0.0, dsh, dvh,
+                                            rate, seed)
+                delta = (g_out.reshape(N, H, dvh)
+                         * out.reshape(N, H, dvh)).sum(-1)
+            ins = (q, k, v, g_out, lse, delta)
+            thresh, inv_keep = ak._drop_args(rate)
+            res = {}
+
+            def old_dkv():
+                dk = torch.empty(N, H * dsh, device=dev)
+                dv = torch.empty(N, H * dvh, device=dev)
+                part = torch.empty(csr.num_partials, H * (dsh + dvh),
+                                   device=dev)
+                rc = att.pgl_dot_dkv_f32(
+                    0, *(t.data_ptr() for t in ins), csr.indices.data_ptr(),
+                    csr.eidx.data_ptr(), csr.pieces.data_ptr(),
+                    csr.pieces.shape[0], csr.split_rows.data_ptr(),
+                    csr.split_ptr.data_ptr(), csr.split_rows.shape[0], H,
+                    dsh, dvh, 0.0, seed.data_ptr(), thresh, inv_keep,
+                    dk.data_ptr(), dv.data_ptr(), part.data_ptr(), stream())
+                assert rc == 0, rc
+                res["old"] = dk, dv
+
+            def new_dkv():
+                res["new"] = ak._dot_dkv_cuda(*ins, csr, 0.0, dsh, dvh, rate,
+                                              seed)
+            old_dkv()
+            new_dkv()
+            with torch.no_grad():
+                diff = max(float((o - n_).abs().max())
+                           for o, n_ in zip(res["old"], res["new"]))
+                same = all(torch.equal(o, n_)
+                           for o, n_ in zip(res["old"], res["new"]))
+            turns(f"K10-dkv-dot {tag} {shape} rate={rate}", old_dkv,
+                  new_dkv, 20, old_new_max_diff=diff, same_bits_as_old=same)
+
+    only = set(a.only)
+    if only & {"k1", "k1w"}:
+        g = headline_host().tensor(dev)
+        csc, csr = g._spmm_layouts
+        if "k1" in only:
+            for kind, lay in (("headline csc", csc), ("headline csr", csr)):
+                k1_rows(kind, lay, g.num_nodes, (128, 16, 64))
+        if "k1w" in only:
+            k1w_rows("FAGCN headline", g, "mul", 1, 64)
+        if "k1" in only:
+            sdd = g.sddmm_layout()
+            S = max(sdd.by_src.max_index, sdd.by_dst.max_index) + 1
+            for lay in (sdd.by_src, sdd.by_dst):
+                k1_rows(lay.kind, lay, S, (128,))
+            del sdd
+        del g, csc, csr
+        torch.cuda.empty_cache()
+
+    with dispatch_settings(DEDUP=False):
+        g = gat_host().tensor(dev)
+    csc, csr = g._spmm_layouts
+    if "k1" in only:
+        for kind, lay in (("bench GAT csc", csc), ("bench GAT csr", csr)):
+            k1_rows(kind, lay, g.num_nodes, (64, 16))
+    if "k1w" in only:
+        k1w_rows("GATv2 layer 0", g, "mul", 8, 64)
+        k1w_rows("GATv2 layer 1", g, "mul", 1, 16)
+    if "k1" in only:
+        red = dedup_attention_of(g, dev).red
+        k1_rows("red", red, red.max_index + 1, (1, 8, 16, 64, 256))
+        del red
+    if "k10" in only:
+        dkv_rows("bench GAT graph", g, (0.0, 0.3))
+    del g, csc, csr
+    torch.cuda.empty_cache()
+
+    if "k10" in only:
+        g = unimp_host()[0].tensor(dev)
+        dkv_rows("UniMP stand-in", g, (0.0, 0.3))
+    print(json.dumps({"before_after": rows, "rev": a.rev, "device": smi}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -37,6 +37,11 @@
 //     precision for the same reason);
 //   * the forward keeps an online (max, sum, acc) per slot, the backward
 //     recomputes p = exp(s - lse) from the saved lse;
+//   * the dot-mode K10-dkv (`dot_dkv_staged`), the largest of them, stages
+//     each edge's q | g rows and its lse and delta in a shared-memory ring
+//     by cp.async two steps ahead of the step it computes, two edges a step
+//     at UniMP's shape, so its registers hold no loads in flight (at most
+//     128 up to NC = 8: two blocks of 8 warps an SM);
 //   * a row of one piece stores its result directly, an empty row stores
 //     zeros (out and lse, as the reference); a row of several pieces stores
 //     per-piece partials that a second launch merges in piece order
@@ -532,114 +537,241 @@ dot_dq_pieces(const float* __restrict__ q, const float* __restrict__ k,
 
 // Dot-mode K10-dkv, one warp per CSR piece (the row is the source node s):
 // dk[s, h-slice] = sum_e ds_e * q[dst_e, h-slice], dv[s, h-slice] =
-// sum_e q_e * g[dst_e, h-slice], with k's and v's rows resident; every
-// out-edge gathers its destination's q and g rows, lse and delta, and its
-// CSC position from eidx for the dropout hash.
-template <int NC, int U>
-__global__ void __launch_bounds__(kWarps * 32)
-dot_dkv_pieces(const float* __restrict__ q, const float* __restrict__ k,
+// sum_e q_e * g[dst_e, h-slice], with k's and v's rows resident in
+// registers; every out-edge gathers its destination's q and g rows, lse and
+// delta, and its CSC position from eidx for the dropout hash.
+//
+// The gathers are staged: each warp keeps a ring of kDkvSteps steps of P
+// edges in shared memory, an edge's q row | g row | lse | delta (each part
+// padded to 16 bytes), and fills it by cp.async (16-byte copies where every
+// row is 16-byte aligned, else 4-byte) kDkvSteps - 1 steps ahead of the step
+// it computes, so the loads in flight hold no registers. The step's P edges
+// are computed together, so their head reductions' shuffles interleave. A
+// lane's slots (head, score and value column) are computed from the lane
+// and NC, not stored; lse and delta are copied once per head an edge.
+// The score is `head_dot(q, k)` on the slot map of `DotSlots`, as in K9 and
+// K10-dq, so p = exp(s - lse) sees the forward's bits.
+constexpr int kDkvSteps = 3;
+
+template <int NC>
+struct DkvEdges {  // P: edges a step
+  static constexpr int value = NC <= 2 ? 4 : (NC <= 4 ? 2 : 1);
+};
+
+// at most 128 registers (two blocks of 8 warps an SM) up to NC = 8
+template <int NC>
+struct DkvBlocks {
+  static constexpr int value = NC <= 8 ? 2 : 1;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The warp copies n floats from src to dst (both 16-byte aligned when vec).
+__device__ __forceinline__ void stage_row(float* dst, const float* src, int n,
+                                          bool vec, int lane) {
+  if (vec) {
+    for (int c = lane; c < n / 4; c += 32) cp_async16(dst + 4 * c, src + 4 * c);
+  } else {
+    for (int c = lane; c < n; c += 32) cp_async4(dst + c, src + c);
+  }
+}
+
+// Floats of one staged edge: q [DS] | g [C] | lse [H] | delta [H], each
+// part rounded up to 4 floats.
+__host__ __device__ __forceinline__ int dkv_edge_floats(int DS, int C, int H) {
+  const auto up4 = [](int v) { return (v + 3) & ~3; };
+  return up4(DS) + up4(C) + 2 * up4(H);
+}
+
+template <int NC>
+__host__ __device__ __forceinline__ int dkv_warp_floats(int DS, int C, int H) {
+  // the ring, then one int a ring edge (its CSC position), rounded to 4
+  constexpr int ring = kDkvSteps * DkvEdges<NC>::value;
+  return ring * dkv_edge_floats(DS, C, H) + ((ring + 3) & ~3);
+}
+
+// entry `base + lane` of a piece's list `a` from `y` (0 past its n)
+__device__ __forceinline__ int piece_entry(const int* __restrict__ a,
+                                           int y, int base, int n,
+                                           int lane) {
+  return base + lane < n ? __ldg(a + y + base + lane) : 0;
+}
+
+// FULL: every slot is a real score and value column (dsh == dvh == wp and
+// H * wp == 32 NC, as at UniMP's shape), so a slot's column is its index
+// and no slot is masked.
+template <int NC, bool FULL>
+__global__ void __launch_bounds__(kWarps * 32, DkvBlocks<NC>::value)
+dot_dkv_staged(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ g,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const int* __restrict__ indices, const int* __restrict__ eidx,
                const int4* __restrict__ pieces, int n_pieces, int H, int dsh,
-               int dvh, int wp, float slope, const int* __restrict__ seed_p,
-               int thresh, float inv_keep, float* __restrict__ dk,
-               float* __restrict__ dv, float* __restrict__ partials) {
-  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (warp >= n_pieces) return;
+               int dvh, int wp, bool vec, float slope,
+               const int* __restrict__ seed_p, int thresh, float inv_keep,
+               float* __restrict__ dk, float* __restrict__ dv,
+               float* __restrict__ partials) {
+  constexpr int P = DkvEdges<NC>::value;
+  constexpr int S = kDkvSteps;
+  extern __shared__ float4 dkv_smem[];
+  const int wb = threadIdx.x >> 5;
+  const int warp = blockIdx.x * kWarps + wb;
+  if (warp >= n_pieces) return;  // uniform across the warp
   const int lane = threadIdx.x & 31;
   const int DS = H * dsh;
   const int C = H * dvh;
+  const int ES = dkv_edge_floats(DS, C, H);
+  const int o_g = (DS + 3) & ~3;
+  const int o_l = o_g + ((C + 3) & ~3);
+  const int o_d = o_l + ((H + 3) & ~3);
+  float* ring = reinterpret_cast<float*>(dkv_smem) +
+                static_cast<size_t>(wb) * dkv_warp_floats<NC>(DS, C, H);
+  int* ring_pos = reinterpret_cast<int*>(ring + S * P * ES);
   const int4 pc = pieces[warp];
-  const DotSlots<NC> sl(lane, H, dsh, dvh, wp);
+  const int n = pc.z - pc.y;
   const bool drop = thresh >= 0;
   const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
+  // slot c of this lane: slot j = lane + 32 c is column j % wp of head
+  // j / wp (DotSlots; wp is a power of two)
+  const int lwp = __ffs(wp) - 1;
+  const int kph = wp > 32 ? wp >> 5 : 1;  // slots of one head in a lane
 
   float kr[NC], vr[NC], dka[NC], dva[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    kr[c] = sl.scol[c] >= 0
-                ? __ldg(k + static_cast<size_t>(pc.x) * DS + sl.scol[c])
+    const int j = lane + 32 * c, h = j >> lwp, w = j & (wp - 1);
+    kr[c] = FULL || (h < H && w < dsh)
+                ? __ldg(k + static_cast<size_t>(pc.x) * DS +
+                        (FULL ? j : h * dsh + w))
                 : 0.f;
-    vr[c] = sl.vcol[c] >= 0
-                ? __ldg(v + static_cast<size_t>(pc.x) * C + sl.vcol[c])
+    vr[c] = FULL || (h < H && w < dvh)
+                ? __ldg(v + static_cast<size_t>(pc.x) * C +
+                        (FULL ? j : h * dvh + w))
                 : 0.f;
     dka[c] = 0.f;
     dva[c] = 0.f;
   }
-  const bool has = lane < pc.z - pc.y;
-  int mine = has ? __ldg(indices + pc.y + lane) : 0;
-  int mpos = has && drop ? __ldg(eidx + pc.y + lane) : 0;
-  for (long long base = pc.y; base < pc.z; base += 32) {
-    const int n = static_cast<int>(min(32LL, pc.z - base));
-    const long long next_e = base + 32 + lane;
-    const bool nhas = next_e < pc.z;
-    const int next = nhas ? __ldg(indices + next_e) : 0;
-    const int npos = nhas && drop ? __ldg(eidx + next_e) : 0;
-    for (int j0 = 0; j0 < n; j0 += U) {
-      float qd[U][NC], gd[U][NC], ls[U][NC], dl[U][NC];
-      uint32_t pos[U];
+
+  // the issue side's 32-edge batch of destinations (and CSC positions), a
+  // lane each, and the batch after it
+  int ib = 0;
+  int imine = piece_entry(indices, pc.y, 0, n, lane);
+  int inext = piece_entry(indices, pc.y, 32, n, lane);
+  int pmine = drop ? piece_entry(eidx, pc.y, 0, n, lane) : 0;
+  int pnext = drop ? piece_entry(eidx, pc.y, 32, n, lane) : 0;
+  const int steps = (n + P - 1) / P;
+  // iteration t stages step t + S - 1 into ring slot (t + S - 1) % S (one
+  // commit group a step, empty past the piece), then computes step t
+  for (int t = 1 - S; t < steps; ++t) {
+    const int ts = t + S - 1;
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        const int d = __shfl_sync(kFull, mine, j & 31);
-        pos[u] = static_cast<uint32_t>(__shfl_sync(kFull, mpos, j & 31));
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const size_t dh = static_cast<size_t>(d) * H + sl.head[c];
-          qd[u][c] = (j < n && sl.scol[c] >= 0)
-                         ? __ldg(q + static_cast<size_t>(d) * DS + sl.scol[c])
-                         : 0.f;
-          gd[u][c] = (j < n && sl.vcol[c] >= 0)
-                         ? __ldg(g + static_cast<size_t>(d) * C + sl.vcol[c])
-                         : 0.f;
-          ls[u][c] = j < n ? __ldg(lse + dh) : 0.f;
-          dl[u][c] = j < n ? __ldg(delta + dh) : 0.f;
+    for (int e = 0; e < P; ++e) {
+      const int j = ts * P + e;
+      if (j < n) {  // uniform
+        if (j >= ib + 32) {
+          ib += 32;
+          imine = inext;
+          pmine = pnext;
+          inext = piece_entry(indices, pc.y, ib + 32, n, lane);
+          if (drop) pnext = piece_entry(eidx, pc.y, ib + 32, n, lane);
         }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        if (j >= n) break;  // uniform
-        float sd[NC], gv[NC];
-        head_dot<NC>(qd[u], kr, wp, sd);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) gv[c] = gd[u][c] * vr[c];
-        head_sum<NC>(gv, wp);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float p = expf(leaky(sd[c], slope) - ls[u][c]);
-          const float qe =
-              drop ? (drop_keep(pos[u], seed, sl.hc[c], thresh)
-                          ? p * inv_keep
-                          : 0.f)
-                   : p;
-          const float ds =
-              (qe * gv[c] - p * dl[u][c]) * leaky_grad(sd[c], slope);
-          dka[c] += ds * qd[u][c];
-          dva[c] += qe * gd[u][c];
+        const size_t d =
+            static_cast<size_t>(__shfl_sync(kFull, imine, j & 31));
+        const int pos = __shfl_sync(kFull, pmine, j & 31);
+        float* st = ring + ((ts % S) * P + e) * ES;
+        stage_row(st, q + d * DS, DS, vec, lane);
+        stage_row(st + o_g, g + d * C, C, vec, lane);
+        for (int h = lane; h < H; h += 32) {
+          cp_async4(st + o_l + h, lse + d * H + h);
+          cp_async4(st + o_d + h, delta + d * H + h);
         }
+        if (lane == 0) ring_pos[(ts % S) * P + e] = pos;
       }
     }
-    mine = next;
-    mpos = npos;
+    cp_async_commit();
+    if (t < 0) continue;  // uniform
+    cp_async_wait<S - 1>();  // this lane's copies of step t have landed
+    __syncwarp();            // and every lane's
+    const float* st0 = ring + (t % S) * P * ES;
+    // the step's scores and g . v first, their shuffles interleaved; q and
+    // g are read again from the ring below rather than held
+    float sd[P][NC], gv[P][NC];
+#pragma unroll
+    for (int e = 0; e < P; ++e) {
+      const float* st = st0 + e * ES;
+      float qd[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int j = lane + 32 * c, h = j >> lwp, w = j & (wp - 1);
+        qd[c] = FULL || (h < H && w < dsh) ? st[FULL ? j : h * dsh + w]
+                                           : 0.f;
+        gv[e][c] = FULL || (h < H && w < dvh)
+                       ? st[o_g + (FULL ? j : h * dvh + w)] * vr[c]
+                       : 0.f;
+      }
+      head_dot<NC>(qd, kr, wp, sd[e]);
+      head_sum<NC>(gv[e], wp);
+    }
+#pragma unroll
+    for (int e = 0; e < P; ++e) {
+      if (t * P + e >= n) break;  // uniform
+      const float* st = st0 + e * ES;
+      const uint32_t pos = static_cast<uint32_t>(ring_pos[(t % S) * P + e]);
+      // p, its kept value and ds are a head's: computed at the first of
+      // the head's kph slots in this lane and kept for the others
+      float p = 0.f, qe = 0.f, ds = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int j = lane + 32 * c, h = j >> lwp, w = j & (wp - 1);
+        if ((c & (kph - 1)) == 0) {  // uniform
+          const int hd = FULL ? h : min(h, H - 1);
+          p = expf(leaky(sd[e][c], slope) - st[o_l + hd]);
+          qe = drop ? (drop_keep(pos, seed,
+                                 static_cast<uint32_t>(hd) * 0x632BE5ABu,
+                                 thresh)
+                           ? p * inv_keep
+                           : 0.f)
+                    : p;
+          ds = (qe * gv[e][c] - p * st[o_d + hd]) *
+               leaky_grad(sd[e][c], slope);
+        }
+        if (FULL || (h < H && w < dsh))
+          dka[c] += ds * st[FULL ? j : h * dsh + w];
+        if (FULL || (h < H && w < dvh))
+          dva[c] += qe * st[o_g + (FULL ? j : h * dvh + w)];
+      }
+    }
+    __syncwarp();  // every lane is done with slot t % S before it refills
   }
-  if (pc.w < 0) {
+  cp_async_wait<0>();
+
+  float* pdk = pc.w < 0 ? dk + static_cast<size_t>(pc.x) * DS
+                        : partials + static_cast<size_t>(pc.w) * (DS + C);
+  float* pdv = pc.w < 0 ? dv + static_cast<size_t>(pc.x) * C : pdk + DS;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if (sl.scol[c] >= 0)
-        dk[static_cast<size_t>(pc.x) * DS + sl.scol[c]] = dka[c];
-      if (sl.vcol[c] >= 0)
-        dv[static_cast<size_t>(pc.x) * C + sl.vcol[c]] = dva[c];
-    }
-  } else {
-    // partial row: dk [DS] | dv [C]
-    float* part = partials + static_cast<size_t>(pc.w) * (DS + C);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if (sl.scol[c] >= 0) part[sl.scol[c]] = dka[c];
-      if (sl.vcol[c] >= 0) part[DS + sl.vcol[c]] = dva[c];
-    }
+  for (int c = 0; c < NC; ++c) {
+    const int j = lane + 32 * c, h = j >> lwp, w = j & (wp - 1);
+    if (FULL || (h < H && w < dsh)) pdk[FULL ? j : h * dsh + w] = dka[c];
+    if (FULL || (h < H && w < dvh)) pdv[FULL ? j : h * dvh + w] = dva[c];
   }
 }
 
@@ -820,11 +952,22 @@ extern "C" int pgl_dot_dkv_f32(int device, const float* q, const float* k,
   if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* pc = reinterpret_cast<const int4*>(pieces);
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(g);
+  const bool vec = (H * dsh) % 4 == 0 && (H * dvh) % 4 == 0 && (ptrs & 15) == 0;
+  const bool full = dsh == dvh && dsh == wp && H * wp == 32 * nc;
   PGL_NC_SWITCH(nc, {
-    dot_dkv_pieces<NC, unroll_for(NC)><<<blocks_for(n_pieces), kWarps * 32,
-                                         0, s>>>(
+    const size_t smem =
+        sizeof(float) * kWarps * dkv_warp_floats<NC>(H * dsh, H * dvh, H);
+    const auto kernel =
+        full ? dot_dkv_staged<NC, true> : dot_dkv_staged<NC, false>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks_for(n_pieces), kWarps * 32, smem, s>>>(
         q, k, v, g, lse, delta, indices, eidx, pc, n_pieces, H, dsh, dvh, wp,
-        slope, seed, thresh, inv_keep, dk, dv, partials);
+        vec, slope, seed, thresh, inv_keep, dk, dv, partials);
   })
   if (n_split > 0)
     sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(

@@ -6,9 +6,11 @@ Port of ``pgl_tpu/ops/pallas/segment_kernels.py`` (``_kernel`` and
 onto one CUDA kernel for Hopper, ``csrc/segment_kernels.cu``, whose note
 gives the design.
 
-* :func:`build_spmm_layout` cuts every row of a sorted adjacency into
-  pieces of at most ``ET`` edges on the host (numpy) — the work list the
-  kernel walks, one warp per piece.
+* :func:`build_spmm_layout` builds K1's work list on the host (numpy):
+  every row longer than ``MIN_PIECE`` edges cut into pieces
+  (:func:`cut_spmm_rows`), runs of short rows packed into items of at most
+  ``PACK`` edges and rows (:func:`pack_rows`); a warp walks one item at a
+  time.
 * :func:`spmm` is an autograd ``Function``: forward over the CSC layout,
   backward the same kernel over the CSR layout (the transposed SpMM).
 * :func:`sorted_segment_sum` is the same kernel with the identity gather;
@@ -45,16 +47,32 @@ from ... import resolve_device
 from ..dispatch import use_spmm_kernel
 from . import _build
 
-__all__ = ["SpmmLayout", "build_spmm_layout", "spmm", "spmm_reference",
-           "spmm_weighted", "spmm_weighted_reference",
-           "weight_grad_reference", "sorted_segment_sum", "ET", "LAUNCHES",
-           "LAUNCHES_BY_SHAPE", "reset_launches"]
+__all__ = ["SpmmLayout", "build_spmm_layout", "cut_rows", "cut_spmm_rows",
+           "pack_rows", "spmm", "spmm_reference", "spmm_weighted",
+           "spmm_weighted_reference", "weight_grad_reference",
+           "sorted_segment_sum", "ET", "MIN_PIECE", "ROW_PIECES", "PACK",
+           "PACK_ROW", "LAUNCHES", "LAUNCHES_BY_SHAPE", "reset_launches"]
 
-# most edges in one piece (one warp's work): shorter pieces spread a hub
-# over more warps, longer ones cut the partials the second launch sums;
-# 512 was the fastest of 256..2048 over the GCN step's CSC shapes
-# (experiments/torch_spmm/sweep.py); read when a layout is built
+# ET: the piece length of K1w's work list (:func:`cut_rows`; 512 was the
+# fastest of 256..2048 over the GCN step's CSC shapes for the one-warp-a-
+# piece design) and the longest of K1's pieces. K1's (:func:`cut_spmm_rows`):
+# a row of more than MIN_PIECE edges is cut into about ROW_PIECES pieces of
+# MIN_PIECE to ET edges. Shorter pieces spread a row over more warps, so a
+# row of a few thousand edges is no longer one warp's chain of gathers;
+# longer ones cut the partials that the second launch sums in order, which
+# a hub of 800k edges needs (experiments/torch_spmm/sweep.py). Read when a
+# layout is built.
 ET = 512
+MIN_PIECE = 64
+ROW_PIECES = 128
+# most edges, and most rows, of a packed item of K1's work list: one index
+# (and one row pointer) a lane, loaded by the warp in one coalesced load;
+# csrc/segment_kernels.cu's kPack, the size of its staging arrays
+PACK = 32
+# the longest row that joins a pack: longer rows are items of their own,
+# whose lane groups share the row's edges (rows of ~16 edges ran slower
+# packed two an item; experiments/torch_spmm/sweep.py)
+PACK_ROW = 8
 
 LAUNCHES_BY_SHAPE: Counter = Counter()
 
@@ -78,12 +96,20 @@ class SpmmLayout:
     indices:     [E]   gather ids (the source node of each edge for CSC),
                  ascending within each row
     seg_ids:     [E]   row of each edge (the plain version's scatter ids)
-    pieces:      [P, 4] (row, begin, end, slot): every row cut into pieces
-                 of at most ``ET`` edges; an empty row is one empty piece;
+    pieces:      [P, 4] (row, begin, end, slot): K1w's work list, every
+                 row cut into pieces of at most ``ET`` edges
+                 (:func:`cut_rows`); an empty row is one empty piece;
                  ``slot`` is the piece's partial-sum row, or -1 when the row
                  has one piece and the kernel stores its sum directly
     split_rows:  [S]   rows of more than one piece
     split_ptr:   [S+1] their ranges of partial slots, in piece order
+    items:       [I, 4] K1's work list (:func:`pack_rows`): the pieces of
+                 :func:`cut_spmm_rows` of rows longer than ``PACK_ROW``
+                 edges, then the last ``item_packs`` items, packs of
+                 consecutive short rows (row0, begin, end, -rows); each
+                 part in row order (one kernel each)
+    item_split_rows, item_split_ptr: ``split_rows`` and ``split_ptr`` of
+                 K1's pieces
     edge_id:     [E]   original edge id of each position (None when built
                  without edge ids): K1w reads ``w`` and writes ``dw``
                  through it
@@ -92,13 +118,18 @@ class SpmmLayout:
     num_rows: int
     num_edges: int
     max_index: int        # largest gather id (-1 without edges)
-    num_partials: int
+    num_partials: int     # K1w's partial rows
+    item_partials: int    # K1's
+    item_packs: int       # packs at the end of ``items``
     indptr: torch.Tensor
     indices: torch.Tensor
     seg_ids: torch.Tensor
     pieces: torch.Tensor
     split_rows: torch.Tensor
     split_ptr: torch.Tensor
+    items: torch.Tensor
+    item_split_rows: torch.Tensor
+    item_split_ptr: torch.Tensor
     edge_id: Optional[torch.Tensor] = None
 
     @property
@@ -136,6 +167,10 @@ def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
     order = np.lexsort((indices, seg_ids))
     indices = indices[order]
     pieces, split_rows, split_ptr = cut_rows(indptr, ET)
+    k1_pieces, item_split_rows, item_split_ptr = cut_spmm_rows(indptr)
+    items = pack_rows(indptr, k1_pieces)
+    packs = items[:, 3] < -1
+    items = np.concatenate([items[~packs], items[packs]])
 
     device = resolve_device(device)
 
@@ -147,17 +182,22 @@ def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
         kind=kind, num_rows=R, num_edges=E,
         max_index=int(indices.max()) if E else -1,
         num_partials=int(split_ptr[-1]),
+        item_partials=int(item_split_ptr[-1]),
+        item_packs=int(packs.sum()),
         indptr=put(indptr), indices=put(indices),
         seg_ids=put(seg_ids), pieces=put(pieces),
         split_rows=put(split_rows), split_ptr=put(split_ptr),
+        items=put(items), item_split_rows=put(item_split_rows),
+        item_split_ptr=put(item_split_ptr),
         edge_id=(None if edge_id is None
                  else put(np.asarray(edge_id, dtype=np.int64)[order])))
 
 
-def cut_rows(indptr, size: int):
+def cut_rows(indptr, size):
     """Cut every row of ``indptr`` into pieces of at most ``size`` items
-    (an empty row is one empty piece), the work list of a kernel that sums
-    each row's pieces into partials and combines them in a second launch.
+    (an int, or one length a row; an empty row is one empty piece), the
+    work list of a kernel that sums each row's pieces into partials and
+    combines them in a second launch.
 
     Returns ``pieces`` [P, 4] int64 (row, begin, end, slot), where ``slot``
     is the piece's partial row, or -1 when its row has one piece;
@@ -166,12 +206,13 @@ def cut_rows(indptr, size: int):
     """
     indptr = np.asarray(indptr, dtype=np.int64)
     R = len(indptr) - 1
+    size = np.broadcast_to(np.asarray(size, dtype=np.int64), (R,))
     n_pc = np.maximum(1, -(-np.diff(indptr) // size))
     first = np.zeros(R + 1, dtype=np.int64)
     np.cumsum(n_pc, out=first[1:])
     row = np.repeat(np.arange(R, dtype=np.int64), n_pc)
-    begin = indptr[row] + (np.arange(len(row)) - first[row]) * size
-    end = np.minimum(begin + size, indptr[row + 1])
+    begin = indptr[row] + (np.arange(len(row)) - first[row]) * size[row]
+    end = np.minimum(begin + size[row], indptr[row + 1])
     split = n_pc[row] > 1
     slot = np.full(len(row), -1, dtype=np.int64)
     slot[split] = np.arange(int(split.sum()))
@@ -180,6 +221,63 @@ def cut_rows(indptr, size: int):
     np.cumsum(n_pc[split_rows], out=split_ptr[1:])
     return (np.stack([row, begin, end, slot], axis=1).reshape(-1, 4),
             split_rows, split_ptr)
+
+
+def cut_spmm_rows(indptr):
+    """The pieces of K1's work list, :func:`cut_rows` with a length for
+    each row: a row of ``d > MIN_PIECE`` edges is cut into pieces of
+    ``clip(ceil(d / ROW_PIECES), MIN_PIECE, ET)`` edges (the last one
+    shorter), any other row is one piece."""
+    deg = np.diff(np.asarray(indptr, dtype=np.int64))
+    return cut_rows(indptr, np.clip(-(-deg // ROW_PIECES), MIN_PIECE, ET))
+
+
+def pack_rows(indptr, pieces):
+    """K1's work list: ``pieces`` (:func:`cut_spmm_rows`' over ``indptr``)
+    with each maximal run of consecutive rows of at most ``PACK_ROW`` edges
+    packed greedily, in row order, into items of at most ``PACK`` edges and
+    ``PACK`` rows.
+
+    Returns ``items`` [I, 4] int64 in row order. A row of more than
+    ``PACK_ROW`` edges keeps its pieces (row, begin, end, slot); a pack of
+    one short row is its piece (row, begin, end, -1); a pack of ``n >= 2``
+    rows is (first row, its begin, the last row's end, -n). No item ends
+    inside a row except a piece of a split row.
+    """
+    indptr = np.asarray(indptr, dtype=np.int64)
+    pieces = np.asarray(pieces, dtype=np.int64).reshape(-1, 4)
+    R = len(indptr) - 1
+    if R <= 0:
+        return np.zeros((0, 4), dtype=np.int64)
+    rows = np.arange(R, dtype=np.int64)
+    short = np.diff(indptr) <= min(PACK_ROW, PACK)
+    # nxt[r]: the row after the item that would start at row r
+    longs = np.flatnonzero(~short)
+    stop = np.append(longs, R)[np.searchsorted(longs, rows, side="right")]
+    fits = np.searchsorted(indptr, indptr[:-1] + PACK, side="right") - 1
+    nxt = np.where(short, np.minimum(np.minimum(fits, rows + PACK), stop),
+                   rows + 1)
+    # the items' first rows, the chain 0 -> nxt[0] -> ... -> R, by doubling:
+    # with ``jump`` = nxt applied 2^k times, ``starts`` holds the chain's
+    # first 2^k rows and ``jump[starts]`` the next 2^k
+    jump = np.append(nxt, R)
+    starts = np.zeros(1, dtype=np.int64)
+    while starts[-1] < R:
+        starts = np.concatenate([starts, jump[starts]])
+        jump = jump[jump]
+    starts = starts[starts < R]
+    n_rows = nxt[starts] - starts
+    single = np.zeros(R, dtype=bool)
+    single[starts[n_rows == 1]] = True
+    kept = pieces[single[pieces[:, 0]]]
+    packed = starts[n_rows > 1]
+    n_packed = n_rows[n_rows > 1]
+    packs = np.stack([packed, indptr[packed], indptr[packed + n_packed],
+                      -n_packed], axis=1)
+    items = np.concatenate([kept, packs])
+    # each row is in one of the two lists: a stable sort by first row keeps
+    # a split row's pieces in piece order
+    return items[np.argsort(items[:, 0], kind="stable")]
 
 
 def spmm_reference(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
@@ -224,7 +322,8 @@ def _lib():
     lib = _build.load("segment_kernels")
     if lib.pgl_spmm_f32.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pgl_spmm_f32.argtypes = [i, p, p, p, i, p, p, i, i, p, p, p]
+        lib.pgl_spmm_f32.argtypes = [i, p, p, p, p, i, i, p, p, i, i, p,
+                                       p, p]
         lib.pgl_spmm_f32.restype = ctypes.c_int
         lib.pgl_spmm_weighted_f32.argtypes = [i, i, i, p, p, p, p, i, p, i,
                                               p, p, i, i, p, p, p, p, p]
@@ -256,14 +355,18 @@ def _launch_weighted(x, w, layout, out, partials, wop, dwop=0, xrow=None,
 
 
 def _launch(x, layout, out, partials):
-    """One SpMM on the current stream into preallocated ``out`` and
-    ``partials``; raises when the launch is refused."""
+    """One SpMM (K1, over ``layout.items``) on the current stream into
+    preallocated ``out`` and ``partials``; raises when the launch is
+    refused."""
     rc = _lib().pgl_spmm_f32(
         x.device.index, x.data_ptr(), layout.indices.data_ptr(),
-        layout.pieces.data_ptr(), layout.pieces.shape[0],
-        layout.split_rows.data_ptr(), layout.split_ptr.data_ptr(),
-        layout.split_rows.shape[0], x.shape[1], out.data_ptr(),
-        partials.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+        layout.indptr.data_ptr(), layout.items.data_ptr(),
+        layout.items.shape[0] - layout.item_packs, layout.item_packs,
+        layout.item_split_rows.data_ptr(),
+        layout.item_split_ptr.data_ptr(), layout.item_split_rows.shape[0],
+        x.shape[1],
+        out.data_ptr(), partials.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_kernels SpMM launch failed: CUDA error "
                            f"{rc}")
@@ -286,7 +389,7 @@ def _spmm_cuda(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
     _check_features(x, layout)
     D = x.shape[1]
     out = torch.empty(layout.num_rows, D, dtype=x.dtype, device=x.device)
-    partials = torch.empty(layout.num_partials, D, dtype=x.dtype,
+    partials = torch.empty(layout.item_partials, D, dtype=x.dtype,
                            device=x.device)
     _launch(x, layout, out, partials)
     LAUNCHES_BY_SHAPE[(layout.kind, D)] += 1

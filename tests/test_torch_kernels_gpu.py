@@ -43,6 +43,7 @@ from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS, SDDMM_OPS,
                         check_weighted, dedup_attention_of,
                         dedup_case_edges, dedup_case_facts, dedup_layouts,
                         dispatch_settings, dot_inputs, hard_features,
+                        k1_case_edges, k1_features,
                         no_dropout, run_dedup_attention, run_dedup_dot,
                         run_dedup_twice, run_dot, run_weighted, sddmm_inputs,
                         skewed_graph, spread_weights, weighted_terms,
@@ -90,6 +91,54 @@ def test_spmm_kernel_matches_plain_version(cuda, D):
         check_spmm("csc", out, x, csc)
         check_spmm("csr", x.grad, w, csr)
     assert (out[1:1500] == 0).all()          # empty rows are exact zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False], ids=["vec", "unaligned"])
+@pytest.mark.parametrize("D", [1, 3, 8, 16, 64, 128, 130, 256, 512])
+def test_k1_work_items_match_plain_version(cuda, D, aligned):
+    """K1 over every kind of work item (a hub's pieces, rows of their own,
+    packs of short rows across item boundaries, empty rows) at one to four
+    vectors a lane and past one pass (D = 512 in one walk), on 16-byte
+    vectors and on the scalar path (an unaligned table); both layouts, two
+    runs giving the same bits."""
+    edges, n = k1_case_edges()
+    g = Graph(edges, num_nodes=n).tensor(cuda)
+    csc, csr = g._spmm_layouts
+    kinds = csc.items[:, 3].cpu().numpy()
+    assert (kinds >= 0).any() and (kinds == -1).any() and (kinds < -1).any()
+    assert csr.item_partials > 0
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    outs = {}
+    for lay in (csc, csr):
+        x = k1_features(n, D, cuda, gen, aligned)
+        outs[lay.kind] = out = sk._spmm_cuda(x, lay)
+        again = sk._spmm_cuda(x, lay)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        with torch.no_grad():
+            check_spmm(f"{lay.kind} D={D}", out, x, lay)
+    empty = torch.as_tensor(np.bincount(edges[:, 1], minlength=n) == 0,
+                            device=cuda)
+    assert bool(empty.any()) and (outs["csc"][empty] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [8, 64, 256])
+def test_k1_fold_over_red_matches_plain_version(cuda, D):
+    """K1 over ``red``, the fold of K8's slot rows onto nodes (short rows
+    of a few slots each), on a real dedup layout; the same bits twice."""
+    g = Graph(attention_graph(3000, 40000, seed=4), num_nodes=3000
+              ).tensor(cuda)
+    red = dedup_attention_of(g, cuda).red
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    x = torch.randn(red.max_index + 1, D, device=cuda, generator=gen)
+    sk.reset_launches()
+    out = sk._spmm_cuda(x, red)
+    assert torch.equal(out, sk._spmm_cuda(x, red))
+    assert dict(sk.LAUNCHES_BY_SHAPE) == {("uniq_reduce", D): 2}
+    with torch.no_grad():
+        check_spmm(f"red D={D}", out, x, red)
 
 
 @pytest.mark.gpu
@@ -397,6 +446,86 @@ def test_dot_attention_kernels_match_plain_version(cuda, H, dsh, dvh, leaky,
     check_dot("small", lays, ins, shape, leaky, rate, seed, got)
     out, lse = got[:2]
     assert (out[1:1500] == 0).all() and (lse[1:1500] == 0).all()
+
+
+# (H, dsh, dvh) at each slots-a-lane count NC of the dot kernels
+DOT_NC_SHAPES = {1: (2, 16, 16), 2: (1, 64, 64), 4: (8, 16, 16),
+                 8: (2, 128, 128), 16: (4, 128, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("nc", sorted(DOT_NC_SHAPES))
+def test_dot_dkv_every_slot_count(cuda, nc, rate):
+    """The dot-mode K10-dkv (staged through shared memory) at every
+    slots-a-lane count against float64 (with K9 and K10-dq, whose lse and
+    delta it reads), on a graph whose hub source splits; two runs give the
+    same bits."""
+    g = Graph(attention_graph(3000, 40000, seed=6), num_nodes=3000
+              ).tensor(cuda)
+    lays = g._attention_layouts()
+    assert lays[1].num_partials > 0
+    shape = DOT_NC_SHAPES[nc]
+    gen = torch.Generator(device=cuda).manual_seed(nc)
+    ins = dot_inputs(3000, shape, cuda, gen)
+    seed = torch.tensor([-123456789], dtype=torch.int32, device=cuda)
+    got = run_dot(lays, ins, shape, 0.0, rate, seed)
+    again = run_dot(lays, ins, shape, 0.0, rate, seed)
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, got, again))
+    check_dot(f"NC={nc}", lays, ins, shape, 0.0, rate, seed, got)
+
+
+def _permutation_graph(n, cuda, seed=12):
+    rng = np.random.default_rng(seed)
+    src = rng.permutation(n)
+    g = Graph(np.stack([src, np.arange(n)], axis=1), num_nodes=n
+              ).tensor(cuda)
+    return g, torch.as_tensor(src, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc", sorted(DOT_NC_SHAPES))
+def test_dot_dkv_keep_mask_is_the_plain_mask(cuda, nc):
+    """On a permutation graph (one edge a row) with q = k = 0 and v = g =
+    1, K10-dkv's dv is 1 / (1 - rate) where the edge is kept and 0 where it
+    is dropped: its keep bits equal ``drop_keep`` of the edge's CSC
+    position for every head."""
+    n, rate = 4096, 0.3
+    H, dsh, dvh = shape = DOT_NC_SHAPES[nc]
+    g, src = _permutation_graph(n, cuda)
+    lays = g._attention_layouts()
+    zeros = torch.zeros(n, H * dsh, device=cuda)
+    ones = torch.ones(n, H * dvh, device=cuda)
+    seed = torch.tensor([-1640531535], dtype=torch.int32, device=cuda)
+    dv = run_dot(lays, (zeros, zeros, ones, ones), shape, 0.0, rate,
+                 seed)[4].reshape(n, H, dvh)
+    csr = lays[1]
+    pos = torch.empty_like(csr.positions())
+    pos[csr.seg_ids.long()] = csr.positions()
+    want = torch.stack([ak.drop_keep(pos, seed, h, rate) for h in range(H)],
+                       dim=1)
+    assert torch.equal(dv != 0, want[:, :, None].expand(n, H, dvh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc", sorted(DOT_NC_SHAPES))
+def test_dot_dkv_recomputes_the_forward_scores(cuda, nc):
+    """On a permutation graph at rate 0 K9's lse of each row is its one
+    edge's score, so K10-dkv's p = exp(s - lse) is exactly 1, and dv[src]
+    equals g[dst] bit for bit, only where K10-dkv recomputes the score
+    with K9's bits."""
+    n = 4096
+    shape = DOT_NC_SHAPES[nc]
+    g, src = _permutation_graph(n, cuda, seed=13)
+    lays = g._attention_layouts()
+    gen = torch.Generator(device=cuda).manual_seed(nc)
+    q, k, v, g_out = dot_inputs(n, shape, cuda, gen)
+    seed = torch.tensor([0], dtype=torch.int32, device=cuda)
+    out, lse, _, _, dv = run_dot(lays, (q * 4, k, v, g_out), shape, 0.0,
+                                 0.0, seed)
+    assert bool((lse != 0).any())
+    assert torch.equal(dv[src], g_out)
 
 
 @pytest.mark.gpu
