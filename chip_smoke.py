@@ -244,13 +244,18 @@ REGISTER_REPORT = (
      ("VEC", "L", "NV")),
     ("K1 spmm_packs", r"spmm_packsILi(\d+)ELi(\d+)ELi(\d+)E",
      ("VEC", "L", "NV")),
-    ("K10-dkv-dot dot_dkv_staged", r"dot_dkv_stagedILi(\d+)ELb(\d)E",
-     ("NC", "FULL")))
+    ("K9-dot dot_fwd_staged", r"dot_fwd_stagedILi(\d+)ELb(\d)ELb(\d)E",
+     ("NC", "FULL", "WIDE")),
+    ("K10-dq-dot dot_dq_staged", r"dot_dq_stagedILi(\d+)ELb(\d)ELb(\d)E",
+     ("NC", "FULL", "WIDE")),
+    ("K10-dkv-dot dot_dkv_staged", r"dot_dkv_stagedILi(\d+)ELb(\d)ELb(\d)E",
+     ("NC", "FULL", "WIDE")))
 
 
 def register_report(log):
-    """Lines on K1's and the dot-mode K10-dkv's instantiations from ``nvcc
-    -Xptxas -v``'s report ``log``: registers and spilled bytes of each."""
+    """Lines on K1's and the dot-mode K9's and K10's instantiations from
+    ``nvcc -Xptxas -v``'s report ``log``: registers and spilled bytes of
+    each."""
     import re
     lines, entry, spills = [], None, ""
     for line in log.splitlines():
@@ -461,6 +466,49 @@ def phase_model_small(dev):
                                  g_cpu[k]))
         print(f"[model] small GCN through {path}, CUDA vs CPU: max |err| "
               f"{err:.3e}", flush=True)
+
+
+def phase_dtype_route(dev):
+    """The dtype rule of ``Graph`` (``dispatch.plain_on_cuda``): an int64
+    feature on a CUDA graph takes the segment path, launches no kernel and
+    gives the CPU graph's sums exactly; the same feature in float32 still
+    launches K1 (sum, then mean); in bf16 it reaches the wrapper, which
+    raises (no kernel has a bf16 instantiation yet)."""
+    import torch
+    from pgl_tpu_torch import Graph
+
+    host = Graph(skewed_graph(1000, 20000, seed=6), num_nodes=1000)
+    ones = torch.ones(1000, 2, dtype=torch.int64)
+    want = host.tensor("cpu").send_u_recv(ones, "sum")
+    g = host.tensor(dev)
+    reset_all_launches()
+    got = g.send_u_recv(ones.to(dev), "sum")
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in all_launches().items() if v}
+    if launched:
+        raise AssertionError(f"an int64 send_u_recv launched {launched}")
+    if got.dtype != torch.int64 or not torch.equal(got.cpu(), want):
+        raise AssertionError("an int64 send_u_recv on the card differs "
+                             "from the CPU's sums")
+    for reduce in ("sum", "mean"):
+        g.send_u_recv(ones.to(dev, torch.float32), reduce)
+    k1 = sum(v for k, v in all_launches().items() if k[0] == "csc")
+    if k1 != 2:
+        raise AssertionError(f"a float32 send_u_recv launched K1 {k1} "
+                             "times, expected 2")
+    reset_all_launches()
+    try:
+        g.send_u_recv(ones.to(dev, torch.bfloat16), "sum")
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("a bf16 send_u_recv on the card did not raise")
+    if any(all_launches().values()):
+        raise AssertionError("a bf16 send_u_recv launched a kernel")
+    print(f"[graph] int64 send_u_recv on the card: the CPU's sums exactly "
+          f"(N={g.num_nodes}, E={g.num_edges}, largest sum "
+          f"{int(want.max())}), no kernel launched; float32 launched K1 "
+          f"twice (sum, mean); bf16 raised", flush=True)
 
 
 def headline_host():
@@ -1792,8 +1840,9 @@ def check_dot(tag, lays, ins, shape, leaky, rate, seed, got):
 def phase_dot_kernels(graphs, dev):
     """The dot-mode K9/K10 against their float64 plain versions at rates 0
     and 0.3 (seed drawn per case): on the small graph with a hub
-    destination and a hub source at UniMP's shape, (8, 16, 16) and two
-    shapes of GATConv's many-head fallback (dsh 2, leaky 0.2), and on each
+    destination and a hub source at UniMP's shape, (8, 16, 16) and three
+    shapes of GATConv's many-head fallback (dsh 2, leaky 0.2; 4, 8 and 16
+    slots a lane), and on each
     of ``graphs`` (tag -> graph: the bench GAT graph, whose hub row splits,
     and UniMP's) at UniMP's shape; a second run gives the same bits.
     Returns the max |err| per (tag, kernel)."""
@@ -1805,7 +1854,7 @@ def phase_dot_kernels(graphs, dev):
     gen = torch.Generator(device=dev).manual_seed(8)
     cases = [("small", small, shape, leaky) for shape, leaky in (
         (UNIMP_SHAPE, 0.0), ((8, 16, 16), 0.0), ((43, 2, 2), 0.2),
-        ((43, 2, 8), 0.2))]
+        ((43, 2, 4), 0.2), ((43, 2, 8), 0.2))]
     cases += [(tag, g, UNIMP_SHAPE, 0.0) for tag, g in graphs.items()]
     errs = {}
     for tag, g, shape, leaky in cases:
@@ -3395,6 +3444,7 @@ def main():
 
     phase_kernels(g, dev)
     phase_model_small(dev)
+    phase_dtype_route(dev)
     train, by_shape = phase_train(g, "K1")
     rows = phase_timing(g, dev, by_shape)
     for r in rows:

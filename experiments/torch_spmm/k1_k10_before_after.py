@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K1 (the sorted SpMM), K1w and the dot-mode K10-dkv of a git revision
-beside this tree's, timed in one process on one card.
+"""K1 (the sorted SpMM), K1w and the dot-mode K9, K10-dq and K10-dkv of a
+git revision beside this tree's, timed in one process on one card.
 
     # with git (the card's copy of the repo has none): write the
     # revision's sources into _archive/before_<rev>/ (git-ignored)
@@ -8,7 +8,7 @@ beside this tree's, timed in one process on one card.
     # on the card: build both, check, time in turns
     python experiments/torch_spmm/k1_k10_before_after.py [--rev R]
 
-The revision (default ``43a4f9f``) gives ``segment_kernels.cu``,
+The revision (default ``b8eb749``) gives ``segment_kernels.cu``,
 ``attention_kernels.cu`` and ``attention_common.cuh`` (``git show
 <rev>:<path>``); they are compiled with ``_build.NVCC_FLAGS`` into
 ``_archive/before_<rev>/build/`` and loaded with ctypes beside the tree's
@@ -19,12 +19,14 @@ than before" is a comparison on one card. Shapes: K1 on the bench headline
 ``red`` (K8's slot rows folded onto nodes, bench GAT graph; D = 1, 8, 16,
 64, 256) and over ``by_src``/``by_dst`` (K11's backward on the headline, D
 = 128), each beside ``torch.sparse.mm``; K1w at FAGCN's and GATv2's shapes;
-K10-dkv-dot at UniMP's (2, 128, 128) on the UniMP stand-in and on the
-bench GAT graph at rates 0 and 0.3 (``--only`` picks among k1, k1w, k10).
-New results are held against the float64 plain version
-(``chip_smoke.check_spmm``) and old against new (K10:
+K10-dkv-dot (``k10``), K9-dot (``k9``) and K10-dq-dot (``k10dq``) at
+UniMP's (2, 128, 128) on the UniMP stand-in and on the bench GAT graph at
+rates 0 and 0.3, K9-dot and K10-dq-dot also at GATConv's many-head
+(43, 2, 8) with leaky 0.2 on the bench GAT graph (``--only`` picks among
+k1, k1w, k10, k9, k10dq). New results are held against the float64 plain
+version (``chip_smoke.check_spmm``) and old against new (the dot kernels:
 the largest difference, and whether the bits agree; ``chip_smoke.py``
-holds K10 against float64). The ``ptxas`` registers and spills of both
+holds them against float64). The ``ptxas`` registers and spills of both
 versions' kernels print first. One JSON line of all rows ends the output,
 after the card's name and power limit.
 """
@@ -107,11 +109,11 @@ def registers(log, pattern):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--rev", default="43a4f9f")
+    ap.add_argument("--rev", default="b8eb749")
     ap.add_argument("--extract", action="store_true")
-    ap.add_argument("--only", choices=("k1", "k1w", "k10"), nargs="+",
-                    default=("k1", "k1w", "k10"),
-                    help="the kernels to time (default: all three)")
+    kinds = ("k1", "k1w", "k10", "k9", "k10dq")
+    ap.add_argument("--only", choices=kinds, nargs="+", default=kinds,
+                    help="the kernels to time (default: all)")
     a = ap.parse_args()
     if a.extract:
         extract(a.rev)
@@ -139,10 +141,14 @@ def main():
     for tag, logs, pat in (
             ("old K1", old_logs, r"spmm_piecesILi\dELi\d+ELi0ELi0E"),
             ("new K1", new_logs, r"spmm_(rows|packs)"),
-            ("old K10-dkv-dot", old_logs, r"dot_dkv_pieces"),
-            ("new K10-dkv-dot", new_logs, r"dot_dkv_staged")):
+            ("old K10-dkv-dot", old_logs, r"dot_dkv_(pieces|staged)"),
+            ("new K10-dkv-dot", new_logs, r"dot_dkv_staged"),
+            ("old K9-dot", old_logs, r"dot_fwd_(pieces|staged)"),
+            ("new K9-dot", new_logs, r"dot_fwd_staged"),
+            ("old K10-dq-dot", old_logs, r"dot_dq_(pieces|staged)"),
+            ("new K10-dq-dot", new_logs, r"dot_dq_staged")):
         for args, regs, spill in registers(
-                logs["segment_kernels" if "K1" in tag else
+                logs["segment_kernels" if tag.split()[1] == "K1" else
                      "attention_kernels"], pat):
             print(f"[ptxas] {tag} {args}: {regs} registers, {spill} B "
                   "spilled", flush=True)
@@ -159,7 +165,8 @@ def main():
     seg.pgl_spmm_weighted_f32.argtypes = sk._lib(
         ).pgl_spmm_weighted_f32.argtypes
     att = old["attention_kernels"]
-    att.pgl_dot_dkv_f32.argtypes = ak._lib().pgl_dot_dkv_f32.argtypes
+    for fn in ("pgl_dot_fwd_f32", "pgl_dot_dq_f32", "pgl_dot_dkv_f32"):
+        getattr(att, fn).argtypes = getattr(ak._lib(), fn).argtypes
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -187,7 +194,7 @@ def main():
         o, n = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         rows.append(dict(name=name, old_ms=o, new_ms=n, ratio=n / o,
                          runs=t, **extra))
-        more = "".join(f", {k} {v:.5f}" if isinstance(v, float) else
+        more = "".join(f", {k} {v:.6g}" if isinstance(v, float) else
                        f", {k} {v}" for k, v in extra.items())
         print(f"[before/after] {name}: old {o:.5f} ms, new {n:.5f} ms "
               f"(new/old {n / o:.3f}; runs {', '.join(f'{v:.5f}' for v in t)}"
@@ -291,6 +298,76 @@ def main():
             turns(f"K10-dkv-dot {tag} {shape} rate={rate}", old_dkv,
                   new_dkv, 20, old_new_max_diff=diff, same_bits_as_old=same)
 
+    def fwd_dq_rows(tag, g, shape, leaky, rates):
+        """K9-dot and K10-dq-dot of both builds on the same inputs (dq on
+        the new K9's lse and delta), timed in turns."""
+        H, dsh, dvh = shape
+        csc = g._attention_layouts()[0]
+        N = g.num_nodes
+        q, k, v, g_out = dot_inputs(N, shape, dev, gen)
+        seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+        split = (csc.split_rows.data_ptr(), csc.split_ptr.data_ptr(),
+                 csc.split_rows.shape[0])
+        for rate in rates:
+            thresh, inv_keep = ak._drop_args(rate)
+            with torch.no_grad():
+                out, lse = ak._dot_fwd_cuda(q, k, v, csc, leaky, dsh, dvh,
+                                            rate, seed)
+                delta = (g_out.reshape(N, H, dvh)
+                         * out.reshape(N, H, dvh)).sum(-1)
+            res = {}
+
+            def old_fwd():
+                o = torch.empty(N, H * dvh, device=dev)
+                ls = torch.empty(N, H, device=dev)
+                part = torch.empty(csc.num_partials, H * dvh + 2 * H,
+                                   device=dev)
+                rc = att.pgl_dot_fwd_f32(
+                    0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    csc.indices.data_ptr(), csc.pieces.data_ptr(),
+                    csc.pieces.shape[0], *split, H, dsh, dvh, leaky,
+                    seed.data_ptr(), thresh, inv_keep, o.data_ptr(),
+                    ls.data_ptr(), part.data_ptr(), stream())
+                assert rc == 0, rc
+                res["old_fwd"] = o, ls
+
+            def new_fwd():
+                res["new_fwd"] = ak._dot_fwd_cuda(q, k, v, csc, leaky, dsh,
+                                                  dvh, rate, seed)
+
+            def old_dq():
+                dq = torch.empty(N, H * dsh, device=dev)
+                part = torch.empty(csc.num_partials, H * dsh, device=dev)
+                rc = att.pgl_dot_dq_f32(
+                    0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    g_out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    csc.indices.data_ptr(), csc.pieces.data_ptr(),
+                    csc.pieces.shape[0], *split, H, dsh, dvh, leaky,
+                    seed.data_ptr(), thresh, inv_keep, dq.data_ptr(),
+                    part.data_ptr(), stream())
+                assert rc == 0, rc
+                res["old_dq"] = (dq,)
+
+            def new_dq():
+                res["new_dq"] = (ak._dot_dq_cuda(
+                    q, k, v, g_out, lse, delta, csc, leaky, dsh, dvh, rate,
+                    seed),)
+
+            for name, fo, fn, key in (("K9-dot", old_fwd, new_fwd, "fwd"),
+                                      ("K10-dq-dot", old_dq, new_dq, "dq")):
+                if {"fwd": "k9", "dq": "k10dq"}[key] not in only:
+                    continue
+                fo()
+                fn()
+                with torch.no_grad():
+                    pairs = list(zip(res["old_" + key], res["new_" + key]))
+                    diff = max(float((o - n_).abs().max()) for o, n_ in pairs)
+                    same = all(torch.equal(o, n_) for o, n_ in pairs)
+                turns(f"{name} {tag} {shape} leaky={leaky} rate={rate}", fo,
+                      fn, 20, old_new_max_diff=diff, same_bits_as_old=same)
+            del out, lse, delta
+            res.clear()
+
     only = set(a.only)
     if only & {"k1", "k1w"}:
         g = headline_host().tensor(dev)
@@ -324,12 +401,18 @@ def main():
         del red
     if "k10" in only:
         dkv_rows("bench GAT graph", g, (0.0, 0.3))
+    if only & {"k9", "k10dq"}:
+        fwd_dq_rows("bench GAT graph", g, UNIMP_SHAPE, 0.0, (0.0, 0.3))
+        fwd_dq_rows("bench GAT graph", g, (43, 2, 8), 0.2, (0.0, 0.3))
     del g, csc, csr
     torch.cuda.empty_cache()
 
-    if "k10" in only:
+    if only & {"k10", "k9", "k10dq"}:
         g = unimp_host()[0].tensor(dev)
-        dkv_rows("UniMP stand-in", g, (0.0, 0.3))
+        if "k10" in only:
+            dkv_rows("UniMP stand-in", g, (0.0, 0.3))
+        if only & {"k9", "k10dq"}:
+            fwd_dq_rows("UniMP stand-in", g, UNIMP_SHAPE, 0.0, (0.0, 0.3))
     print(json.dumps({"before_after": rows, "rev": a.rev, "device": smi}))
     return 0
 

@@ -330,10 +330,15 @@ class Graph:
 
     def send_u_recv(self, feature, reduce_op: str = "sum"):
         """SpMM: ``out[d]`` = ``reduce_op`` over incoming edges of
-        ``feature[s]``; nodes with no incoming edge give 0."""
+        ``feature[s]``; nodes with no incoming edge give 0. sum and mean
+        run the SpMM (the CUDA kernel, or its plain version on the CPU)
+        except on an integer or float64 CUDA feature
+        (``dispatch.plain_on_cuda``), which takes the segment path as max
+        and min do."""
         self._require_tensor()
         idx = self.adj_dst_index
-        if reduce_op in ("sum", "mean"):
+        if reduce_op in ("sum", "mean") and not dispatch.plain_on_cuda(
+                feature):
             if self._spmm_layouts is None:
                 self._spmm_layouts = self._build_spmm_layouts(
                     self._edges.device)
@@ -362,16 +367,19 @@ class Graph:
         mul and add with sum, on a scalar edge feature (``[E]``, ``[E,
         1]``) or one weight a head (``[E, H]`` with H | D on ``[N, D]``;
         ``[E, H]`` or ``[E, H, 1]`` on ``[N, H, Dh]``), run K1w (the CUDA
-        kernel, or its plain version on the CPU);
-        a scalar mul on a graph with dedup layouts runs the weighted K6.
-        Two departures from the reference's rule (``pgl_tpu/graph.py:
-        358-419``), each the same function: no ``D % 128`` gate or lane
-        padding, and an ``[N, H, Dh]`` feature takes K1w (the reference
-        sends every 3-D feature to its segment path)."""
+        kernel, or its plain version on the CPU); a scalar mul on a graph
+        with dedup layouts runs the weighted K6. The weights take the
+        feature's dtype there, so the feature alone decides: an integer or
+        float64 CUDA feature (``dispatch.plain_on_cuda``) takes the segment
+        path. Two departures from the reference's rule
+        (``pgl_tpu/graph.py:358-419``), each the same function: no ``D %
+        128`` gate or lane padding, and an ``[N, H, Dh]`` feature takes
+        K1w (the reference sends every 3-D feature to its segment path)."""
         self._require_tensor()
         mp._check_op(message_op)
         w = None
-        if message_op in ("mul", "add") and reduce_op == "sum":
+        if (message_op in ("mul", "add") and reduce_op == "sum"
+                and not dispatch.plain_on_cuda(feature)):
             w = _kernel_weights(feature, edge_feat)
         if w is not None:
             if self._spmm_layouts is None:
@@ -464,9 +472,10 @@ class Graph:
 
     def tensor(self, device=None) -> "Graph":
         """Device copy on ``device`` (default: the CUDA card; raises when
-        there is none). Builds the CSC/CSR indexes, the K1 SpMM layouts and,
-        where ``ops/dispatch.py`` admits the graph, the dedup layouts with
-        their counts (K4)."""
+        there is none). float64 features become float32, integer features
+        keep their dtype. Builds the CSC/CSR indexes, the K1 SpMM layouts
+        and, where ``ops/dispatch.py`` admits the graph, the dedup layouts
+        with their counts (K4)."""
         device = resolve_device(device)
         host = self.numpy()
         dst_idx, src_idx = host.adj_dst_index, host.adj_src_index
@@ -480,11 +489,19 @@ class Graph:
         def put_index(indptr):
             return None if indptr is None else put(indptr, np.int64)
 
+        def put_feat(x):
+            # float64 becomes float32, as the reference's jnp.asarray gives
+            # in JAX's 32-bit mode; integers keep their dtype (int64 stays
+            # int64, where the reference gives int32: torch's losses and
+            # index ops take int64)
+            a = np.asarray(x)
+            return put(a, np.float32 if a.dtype == np.float64 else None)
+
         return Graph(
             put(host.edges, np.int64),
             num_nodes=self._num_nodes,
-            node_feat={k: put(v) for k, v in host.node_feat.items()},
-            edge_feat={k: put(v) for k, v in host.edge_feat.items()},
+            node_feat={k: put_feat(v) for k, v in host.node_feat.items()},
+            edge_feat={k: put_feat(v) for k, v in host.edge_feat.items()},
             adj_src_index=src_idx.tensor(device),
             adj_dst_index=dst_idx.tensor(device),
             _graph_node_index=put_index(host._graph_node_index),

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..ops.dispatch import plain_on_cuda
 from ..ops.kernels.attention_kernels import (fused_gat_attention,
                                              fused_graph_attention,
                                              gat_score_features)
@@ -233,7 +234,10 @@ class GATConv(nn.Module):
     Training with attention dropout at ``3·H > 128`` takes the reference's
     unfused path (``:258-266``): ``send_uv`` scores, ``edge_softmax``,
     dropout on the probabilities and ``send_ue_recv``, whose per-head
-    weights run K1w.
+    weights run K1w. So does a projected feature that the kernels leave to
+    the plain path (an integer or float64 one on the card,
+    ``dispatch.plain_on_cuda``), whose ``send_ue_recv`` then takes the
+    segment path.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
@@ -263,13 +267,15 @@ class GATConv(nn.Module):
         self.generator = _layer_generator(gen, device)
         self.to(device)
 
-    def _route(self, graph, rate: float) -> str:
+    def _route(self, graph, inputs, rate: float) -> str:
         """``"dedup"`` where the reference takes K7/K8
         (``pgl_tpu/nn/conv.py:202-256``), ``"additive"`` or ``"dot"`` where
         it takes K9/K10 in that mode, ``"unfused"`` where it leaves the
-        fused kernels (attention dropout at ``3·H > 128``)."""
+        fused kernels (attention dropout at ``3·H > 128``, or ``inputs``,
+        the projected feature and scores that the kernels would receive,
+        that ``dispatch.plain_on_cuda`` leaves to the plain path)."""
         H = self.num_heads
-        if rate > 1e-15 and 3 * H > 128:
+        if (rate > 1e-15 and 3 * H > 128) or plain_on_cuda(*inputs):
             return "unfused"
         if _dedup_route(graph, rate, self.attn_drop_mode):
             return "dedup"
@@ -278,13 +284,13 @@ class GATConv(nn.Module):
     def forward(self, graph, feature, training: bool = False):
         H, Dh = self.num_heads, self.hidden_size
         rate = float(self.attn_drop) if training else 0.0
-        route = self._route(graph, rate)
         if training and self.feat_drop > 1e-15:
             feature = _dropout(feature, self.feat_drop, self.generator)
         feature = self.linear(feature)
         heads = feature.reshape(-1, H, Dh)
         attn_src = (heads * self.weight_src).sum(-1)
         attn_dst = (heads * self.weight_dst).sum(-1)
+        route = self._route(graph, (feature, attn_src, attn_dst), rate)
         if route == "unfused":
             alpha = graph.send_uv(attn_src, attn_dst, "add")
             alpha = nn.functional.leaky_relu(alpha, 0.2)
@@ -374,8 +380,9 @@ class TransformerConv(nn.Module):
       graph is a multigraph under edge-mode dropout;
     * the same case otherwise: the per-edge kernels K9/K10 in dot mode
       (``fused_graph_attention``) with in-kernel attention dropout;
-    * otherwise (``edge_feat`` given, or ``concat=False``): the reference's
-      edge-space composition (``:545-565``) in torch.
+    * otherwise (``edge_feat`` given, or ``concat=False``, or projections
+      q, k, v that ``dispatch.plain_on_cuda`` leaves to the plain path):
+      the reference's edge-space composition (``:545-565``) in torch.
 
     The reference keeps ``(H·D) % 128 != 0`` off its fused kernels even on
     a dedup-layout graph; the port takes K7/K8 there too: the same
@@ -420,14 +427,15 @@ class TransformerConv(nn.Module):
                 training: bool = False):
         H, D = self.num_heads, self.hidden_size
         rate = float(self.attn_drop) if training else 0.0
-        fused = edge_feat is None and self.concat
-        dedup = fused and _dedup_route(graph, rate, self.attn_drop_mode)
         dropping = training and self.feat_drop > 1e-5
         if dropping:
             feature = _dropout(feature, self.feat_drop, self.generator)
         q = self.q(feature) / D ** 0.5
         k = self.k(feature)
         v = self.v(feature)
+        fused = (edge_feat is None and self.concat
+                 and not plain_on_cuda(q, k, v))
+        dedup = fused and _dedup_route(graph, rate, self.attn_drop_mode)
         if edge_feat is not None and dropping:
             edge_feat = _dropout(edge_feat, self.feat_drop, self.generator)
         if dedup:

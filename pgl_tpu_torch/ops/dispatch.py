@@ -5,7 +5,14 @@ of ``pgl_tpu/graph.py:580-637``. For a kernel, the rule is the tensor's
 device and nothing else: a CUDA tensor goes to the Hopper kernel, a CPU
 tensor to the kernel's plain PyTorch version. The reference's edge
 threshold (``_MIN_EDGES``, for K1 and the attention alike) and its lane
-padding to 128 are TPU matters and are not carried over.
+padding to 128 are TPU matters and are not carried over. Its dtype gate
+(``pgl_tpu/ops/dispatch.py:29-30``: float32 and bfloat16 to the kernel,
+every other dtype to the segment path) is :func:`plain_on_cuda` for
+integers and float64, which ``Graph`` and the layers read to route such a
+CUDA tensor to the plain path. The wrappers take float32 only and raise
+on any other dtype, so a bf16 or fp16 tensor on the card raises until the
+kernels have a half-precision instantiation (a departure for fp16, which
+the reference's SpMM sends to its segment path).
 
 Which SpMM family a graph uses is decided once, at ``Graph.tensor()`` time,
 from the module constants below (read there, so tests and ``chip_smoke.py``
@@ -18,8 +25,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["use_spmm_kernel", "use_attention_kernel", "use_sddmm_kernel",
-           "DEDUP", "DEDUP_MIN_EDGES", "DEDUP_MAX_EDGES",
+__all__ = ["plain_on_cuda", "use_spmm_kernel",
+           "use_attention_kernel", "use_sddmm_kernel", "DEDUP",
+           "DEDUP_MIN_EDGES", "DEDUP_MAX_EDGES",
            "DEDUP_MAX_RATIO", "COUNTS_MAX", "COUNTS_BUDGET_BYTES"]
 
 # Build the unique-source ("dedup") layouts and run K5/K6 for sum and mean
@@ -50,6 +58,19 @@ COUNTS_MAX = 256
 # (PGL_TPU_COUNTS_BUDGET_MB=512, pgl_tpu/graph.py:621; set on a TPU). Over
 # it, the dedup SpMM runs K6.
 COUNTS_BUDGET_BYTES = 512_000_000
+
+
+def plain_on_cuda(*tensors) -> bool:
+    """True where one of ``tensors`` (None ignored) lies on the card as an
+    integer (or bool) or float64 tensor, dtypes the reference sends to its
+    segment path. ``Graph`` and the layers then take the plain path
+    (the segment path, the edge-space attention) with the tensors that the
+    kernel wrappers would have received. A float32 CUDA tensor still
+    launches the kernel, a bf16 or fp16 one reaches the wrapper and raises,
+    and a CPU tensor runs the wrapper's plain version."""
+    return any(t is not None and t.device.type == "cuda"
+               and (t.dtype == torch.float64 or not t.dtype.is_floating_point)
+               for t in tensors)
 
 
 def _use_kernel(tensor: torch.Tensor, what: str) -> bool:

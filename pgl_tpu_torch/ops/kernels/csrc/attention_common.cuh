@@ -16,7 +16,12 @@
 // * the second launches that finish rows split over several warps:
 //   `gat_fwd_combine` merges online-softmax partials (m, l, acc),
 //   `sum_combine` adds plain partials, both in a fixed order (no float
-//   atomics, so every run gives the same bits).
+//   atomics, so every run gives the same bits);
+// * the staging of gathered rows that the dot-mode per-edge kernels (K9,
+//   K10-dq, K10-dkv) share: a per-warp shared-memory ring filled by
+//   cp.async (`kStageSteps`, `StageEdges`, `StageBlocks`, `stage_row`),
+//   the piece's edge list read a 32-entry batch ahead (`PieceList`), and
+//   DotSlots' slot map computed rather than held (`dot_col`, `dot_head`).
 
 #pragma once
 
@@ -74,18 +79,29 @@ struct Slots {
   }
 };
 
+// What a kernel knows of its heads' width wp at compile time: nothing (the
+// sums test wp), or that every head is within a warp (wp <= 32) or wider.
+// A kernel that knows compiles one branch of the sums: the staged dot
+// kernels, where the other branch's registers slowed K10-dkv by 1% at
+// UniMP's shape (experiments/torch_spmm/k1_k10_before_after.py, H100).
+enum HeadWidth { kAnyWidth, kNarrow, kWide };
+
 // x[k] <- sum of x over the slots of k's head, a group of wp slots (a
 // power of two); every lane of the warp must call it (wp is uniform). Every
 // slot of a head ends with the same bits. Heads wider than a warp hold kph =
 // wp / 32 consecutive slots in each lane: those are summed in the lane
-// first, then once across the warp, and the sum is copied back.
-template <int NC>
+// first, then once across the warp, and the sum is copied back. Where wp <=
+// 32, each level of the tree is taken for every slot before the next, so
+// the NC slots' shuffles are in flight together (each slot adds in the
+// same order); taken so where wp > 32, whose slots branch on kph, it ran
+// 1.16-1.29x slower at UniMP's shape (same script).
+template <int NC, int W = kAnyWidth>
 __device__ __forceinline__ void head_sum(float (&x)[NC], int wp) {
-  if (wp <= 32) {
+  if (W == kNarrow || (W == kAnyWidth && wp <= 32)) {
+    for (int off = wp >> 1; off > 0; off >>= 1) {
 #pragma unroll
-    for (int k = 0; k < NC; ++k)
-      for (int off = wp >> 1; off > 0; off >>= 1)
-        x[k] += __shfl_xor_sync(kFull, x[k], off);
+      for (int k = 0; k < NC; ++k) x[k] += __shfl_xor_sync(kFull, x[k], off);
+    }
     return;
   }
   const int kph = wp >> 5;
@@ -147,13 +163,13 @@ struct DotSlots {
 // s[k] <- the score q . k of k's head, the same bits in every pass: K9 and
 // K10-dq hold q resident and gather k, K10-dkv gathers q and holds k, and
 // all three call this with q first and the same slot map and tree.
-template <int NC>
+template <int NC, int W = kAnyWidth>
 __device__ __forceinline__ void head_dot(const float (&q)[NC],
                                          const float (&k)[NC], int wp,
                                          float (&s)[NC]) {
 #pragma unroll
   for (int i = 0; i < NC; ++i) s[i] = q[i] * k[i];
-  head_sum<NC>(s, wp);
+  head_sum<NC, W>(s, wp);
 }
 
 // Online merge of a softmax state (M, L, A) with a partial (m, l, a).
@@ -301,6 +317,109 @@ int dot_slots(int H, int dsh, int dvh, int* wp) {
 int blocks_for(int warps) { return (warps + kWarps - 1) / kWarps; }
 
 constexpr int unroll_for(int nc) { return nc <= 2 ? 4 : (nc <= 4 ? 2 : 1); }
+
+// -- staged gathers (the dot-mode per-edge kernels) --------------------------
+//
+// Each warp keeps a ring of kStageSteps steps of StageEdges<NC> edges in
+// shared memory, an edge's gathered rows one after the other (each part
+// padded to 16 bytes), and fills it by cp.async (16-byte copies where every
+// row is 16-byte aligned, else 4-byte) kStageSteps - 1 steps ahead of the
+// step it computes, so the loads in flight hold no registers. The P edges
+// of a step are computed together, so their head reductions' shuffles
+// interleave.
+constexpr int kStageSteps = 3;
+
+template <int NC>
+struct StageEdges {  // P: edges a step
+  static constexpr int value = NC <= 2 ? 4 : (NC <= 4 ? 2 : 1);
+};
+
+// at most 128 registers (two blocks of 8 warps an SM) up to NC = 8
+template <int NC>
+struct StageBlocks {
+  static constexpr int value = NC <= 8 ? 2 : 1;
+};
+
+__host__ __device__ __forceinline__ int up4(int v) { return (v + 3) & ~3; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The warp copies n floats from src to dst (both 16-byte aligned when vec).
+__device__ __forceinline__ void stage_row(float* dst, const float* src, int n,
+                                          bool vec, int lane) {
+  if (vec) {
+    for (int c = lane; c < n / 4; c += 32) cp_async16(dst + 4 * c, src + 4 * c);
+  } else {
+    for (int c = lane; c < n; c += 32) cp_async4(dst + c, src + c);
+  }
+}
+
+// entry `base + lane` of a piece's list `a` from `y` (0 past its n)
+__device__ __forceinline__ int piece_entry(const int* __restrict__ a,
+                                           int y, int base, int n,
+                                           int lane) {
+  return base + lane < n ? __ldg(a + y + base + lane) : 0;
+}
+
+// A piece's n entries of `a` from `y`, read by a warp that walks them in
+// order: each lane holds one entry of the current 32-entry batch and one of
+// the batch after it. Every lane calls `at(j)` with the same j, never
+// smaller than the last; n = 0 reads nothing and gives 0.
+struct PieceList {
+  const int* __restrict__ a;
+  int y, n, lane, base, mine, next;
+
+  __device__ __forceinline__ PieceList(const int* __restrict__ a_, int y_,
+                                       int n_, int lane_)
+      : a(a_), y(y_), n(n_), lane(lane_), base(0),
+        mine(piece_entry(a_, y_, 0, n_, lane_)),
+        next(piece_entry(a_, y_, 32, n_, lane_)) {}
+
+  __device__ __forceinline__ int at(int j) {
+    if (j >= base + 32) {  // uniform
+      base += 32;
+      mine = next;
+      next = piece_entry(a, y, base + 32, n, lane);
+    }
+    return __shfl_sync(kFull, mine, j & 31);
+  }
+};
+
+// DotSlots' slot map computed rather than held: slot j = lane + 32 c is
+// column j % wp of head j / wp (wp = 1 << lwp); its column in a row of H
+// heads dh wide, -1 past dh or past the last head. FULL (every slot a real
+// column: dsh == dvh == wp and H * wp == 32 NC) gives j itself.
+template <bool FULL>
+__device__ __forceinline__ int dot_col(int j, int lwp, int H, int dh) {
+  if (FULL) return j;
+  const int h = j >> lwp, w = j & ((1 << lwp) - 1);
+  return h < H && w < dh ? h * dh + w : -1;
+}
+
+// the head of slot j, clamped to H - 1 on the padding past the last head
+template <bool FULL>
+__device__ __forceinline__ int dot_head(int j, int lwp, int H) {
+  return FULL ? j >> lwp : min(j >> lwp, H - 1);
+}
 
 }  // namespace
 

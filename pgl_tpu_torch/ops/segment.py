@@ -84,12 +84,15 @@ def segment_pool(data, segment_ids, pool_type: str,
 
 def segment_softmax(data, segment_ids, num_segments: Optional[int] = None):
     """Softmax within each segment, one probability per row of ``data``:
-    shift by the segment's max (no gradient through it; an empty segment's
-    shift is 0), exponentiate, divide by the segment's sum floored at the
-    dtype's ``tiny`` (``pgl_tpu/ops/segment.py:108-127``). The two gathers
-    are ``index_select``, whose backward is ``index_add_``."""
+    shift by the segment's max (no gradient through it; the shift of an
+    empty segment, or of one whose max is not finite, is 0, so an all
+    ``-inf`` segment gives zeros), exponentiate, divide by the segment's sum
+    floored at the dtype's ``tiny`` (``pgl_tpu/ops/segment.py:108-127``).
+    The two gathers are ``index_select``, whose backward is ``index_add_``."""
     n = _num_segments(segment_ids, num_segments)
     seg_max = segment_max(data.detach(), segment_ids, n)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                          torch.zeros_like(seg_max))
     exp = torch.exp(data - seg_max.index_select(0, segment_ids))
     denom = segment_sum(exp, segment_ids, n).clamp(
         min=torch.finfo(exp.dtype).tiny)

@@ -77,6 +77,36 @@ def test_gcn_logits_and_grads_match_reference():
                                    rtol=1e-4, atol=1e-5, err_msg=k)
 
 
+def test_gcn_on_a_float64_feature_graph_matches_reference():
+    """A graph built from float64 numpy features: ``tensor()`` gives
+    float32, as the reference's ``jnp.asarray`` does in 32-bit mode, so
+    ``GCN(4, 2)`` runs and its logits equal the reference's (rtol/atol
+    1e-5, float32 sums in another order); integer features stay int64, the
+    port's departure (the reference gives int32)."""
+    import pgl_tpu
+    import pgl_tpu_torch
+
+    edges = np.array([[0, 1], [1, 2], [2, 0], [0, 2]])
+    feat = np.random.default_rng(0).normal(size=(3, 4))
+    ids = np.arange(3)
+    jg = pgl_tpu.Graph(edges, num_nodes=3,
+                       node_feat={"h": feat, "id": ids}).tensor()
+    jmodel = JGCN(input_size=4, num_class=2, dropout=0.0)
+    params = jmodel.init(jax.random.key(0), jg, jg.node_feat["h"])
+    want = jmodel.apply(params, jg, jg.node_feat["h"])
+
+    tg = pgl_tpu_torch.Graph(edges, num_nodes=3,
+                             node_feat={"h": feat, "id": ids}).tensor("cpu")
+    assert tg.node_feat["h"].dtype == torch.float32
+    assert jg.node_feat["h"].dtype == jnp.float32
+    assert tg.node_feat["id"].dtype == torch.int64
+    model = GCN(4, 2, dropout=0.0, device="cpu")
+    model.load_state_dict(flax_to_state_dict(_numpy_tree(params), "cpu"))
+    got = model(tg, tg.node_feat["h"])
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_gcn_trajectory_matches_golden():
     """The ``gcn`` trajectory of tests/test_trajectory_goldens.py: two
     GCNConv layers initialised by flax from the same keys, then 20 steps of

@@ -379,3 +379,128 @@ def test_message_reductions_match_reference():
         close(getattr(m, name)(x), getattr(jm, name)(jx))
     close(m.edge_expand(m.reduce_sum(x)), jm.edge_expand(jm.reduce_sum(jx)))
     assert torch.equal(m.segment_ids, torch.tensor(seg))
+
+
+# -- the dtype rule of the CUDA kernels ---------------------------------------
+
+@pytest.mark.parametrize("device_type", ["cuda", "cpu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16,
+                                   torch.int64, torch.int32])
+def test_cuda_dtype_rule(dtype, device_type):
+    """The reference's dtype gate (``pgl_tpu/ops/dispatch.py:29-30``) on
+    the card: ``dispatch.plain_on_cuda`` sends integer and float64 CUDA
+    tensors to the plain path, as the reference sends them to its segment
+    path; float32 launches the kernel; bf16 and fp16 reach the wrapper and
+    raise until the kernels have a half-precision instantiation (the
+    reference's kernels take bf16). A CPU tensor is never plain-on-CUDA:
+    it runs the wrappers' plain versions. A stand-in with a CUDA device
+    holds the rule without a card."""
+    from types import SimpleNamespace
+
+    from pgl_tpu_torch.ops import dispatch
+    t = SimpleNamespace(device=torch.device(device_type), dtype=dtype)
+    plain = dtype in (torch.float64, torch.int64, torch.int32)
+    assert dispatch.plain_on_cuda(t) is (device_type == "cuda" and plain)
+    assert dispatch.plain_on_cuda(None, t) is dispatch.plain_on_cuda(t)
+    if device_type == "cpu":
+        assert dispatch.use_spmm_kernel(t) is False
+    elif dtype == torch.float32:
+        assert dispatch.use_spmm_kernel(t) is True
+    else:
+        with pytest.raises(TypeError):
+            dispatch.use_spmm_kernel(t)
+
+
+@pytest.mark.parametrize("entry", ["send_u_recv_sum", "send_u_recv_mean",
+                                   "send_ue_recv", "GATConv",
+                                   "TransformerConv"])
+def test_plain_on_cuda_routes_around_the_kernels(monkeypatch, entry):
+    """Where ``plain_on_cuda`` holds, ``Graph`` and the layers reach no
+    kernel wrapper and give what the wrappers' plain versions give: the
+    segment path for the SpMMs, GAT's unfused route and TransformerConv's
+    edge space for attention (rtol/atol 1e-5: float32 sums in another
+    order). Here a CPU graph stands in for the card's, with the predicate
+    patched to True and the wrappers to raise."""
+    from pgl_tpu_torch import graph as tgraph
+    from pgl_tpu_torch.nn import GATConv, TransformerConv
+    from pgl_tpu_torch.nn import conv as tconv
+    from pgl_tpu_torch.ops import dispatch
+
+    edges, nf, _ = make_graph()
+    g = Graph(edges, num_nodes=60, node_feat=nf).tensor("cpu")
+    x = g.node_feat["h"]
+    w = torch.as_tensor(np.random.default_rng(1).normal(size=len(edges)),
+                        dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    layer = {"GATConv": lambda: GATConv(6, 4, num_heads=2, generator=gen,
+                                        device="cpu"),
+             "TransformerConv": lambda: TransformerConv(
+                 6, 4, num_heads=2, generator=gen, device="cpu")}
+    model = layer[entry]() if entry in layer else None
+
+    def run():
+        if entry.startswith("send_u_recv"):
+            return g.send_u_recv(x, entry.rsplit("_", 1)[1])
+        if entry == "send_ue_recv":
+            return g.send_ue_recv(x, w, "mul", "sum")
+        return model(g, x)
+
+    want = run()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel wrapper was reached")
+
+    monkeypatch.setattr(dispatch, "plain_on_cuda", lambda *ts: True)
+    monkeypatch.setattr(tconv, "plain_on_cuda", lambda *ts: True)
+    for mod, names in ((tgraph, ("spmm", "spmm_weighted")),
+                       (tconv, ("fused_gat_attention",
+                                "fused_graph_attention",
+                                "dedup_gat_attention",
+                                "dedup_dot_attention"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    got = run()
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("entry", ["GATConv", "TransformerConv"])
+def test_attention_routes_from_the_projections(monkeypatch, entry):
+    """The layers decide their route from the tensors that the kernels
+    would receive (the projections), not from the layer's input: under
+    autocast a float32 input gives bf16 projections. Here the CPU's
+    autocast stands in for the card's, with ``plain_on_cuda`` patched to
+    hold for bf16 and the fused wrappers to raise: the layer must take its
+    edge-space route, ask the predicate about its bf16 projections, and
+    give the float32 run's output within bf16's rounding (rtol/atol 5e-2)."""
+    from pgl_tpu_torch.nn import GATConv, TransformerConv
+    from pgl_tpu_torch.nn import conv as tconv
+
+    edges, nf, _ = make_graph()
+    g = Graph(edges, num_nodes=60, node_feat=nf).tensor("cpu")
+    x = g.node_feat["h"]
+    gen = torch.Generator().manual_seed(0)
+    model = {"GATConv": GATConv, "TransformerConv": TransformerConv}[entry](
+        6, 4, num_heads=2, generator=gen, device="cpu")
+    with torch.no_grad():
+        want = model(g, x)
+    asked = []
+
+    def bf16_is_plain(*ts):
+        asked.extend(t.dtype for t in ts if t is not None)
+        return any(t is not None and t.dtype == torch.bfloat16 for t in ts)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a fused attention wrapper was reached")
+
+    monkeypatch.setattr(tconv, "plain_on_cuda", bf16_is_plain)
+    for name in ("fused_gat_attention", "fused_graph_attention",
+                 "dedup_gat_attention", "dedup_dot_attention"):
+        monkeypatch.setattr(tconv, name, refuse)
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+        got = model(g, x)
+    assert x.dtype == torch.float32 and torch.bfloat16 in asked
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                               rtol=5e-2, atol=5e-2)

@@ -528,6 +528,183 @@ def test_dot_dkv_recomputes_the_forward_scores(cuda, nc):
     assert torch.equal(dv[src], g_out)
 
 
+# (H, dsh, dvh, leaky) for each instantiation (NC, FULL, WIDE) of the
+# staged K9 and K10-dq: FULL when every slot is a real column (dsh == dvh ==
+# wp, H·wp == 32·NC), WIDE when a head is wider than a warp (wp > 32, never
+# at NC = 1); the shapes that are not FULL mask columns (dsh != dvh, widths
+# below their power of two, padding heads), some with widths that are not a
+# multiple of 4 floats (4-byte staging); GATConv's many-head shapes (43
+# heads, dsh 2) with leaky 0.2
+DOT_STAGED_CASES = {
+    (1, True, False): (2, 16, 16, 0.0), (1, False, False): (3, 8, 5, 0.0),
+    (2, True, False): (2, 32, 32, 0.0), (2, True, True): (1, 64, 64, 0.0),
+    (2, False, False): (3, 16, 12, 0.0), (2, False, True): (1, 64, 50, 0.0),
+    (4, True, False): (8, 16, 16, 0.0), (4, True, True): (2, 64, 64, 0.0),
+    (4, False, False): (5, 16, 16, 0.0), (4, False, True): (1, 128, 100, 0.0),
+    (8, True, False): (8, 32, 32, 0.0), (8, True, True): (2, 128, 128, 0.0),
+    (8, False, False): (43, 2, 4, 0.2), (8, False, True): (2, 100, 128, 0.0),
+    (16, True, False): (16, 32, 32, 0.0), (16, True, True): (4, 128, 128, 0.0),
+    (16, False, False): (43, 2, 8, 0.2), (16, False, True): (3, 128, 128, 0.0),
+}
+
+
+def _staged_instance(H, dsh, dvh):
+    """(NC, FULL, WIDE) of the staged K9/K10-dq a shape launches (the
+    rule of ``dot_slots`` and ``dot_full`` in attention_kernels.cu)."""
+    wp = 1 << (max(dsh, dvh) - 1).bit_length()
+    nc = 1 << (-(-H * wp // 32) - 1).bit_length()
+    return nc, dsh == dvh == wp and H * wp == 32 * nc, wp > 32
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` 4 bytes past a 16-byte boundary, so the
+    dot kernels stage its rows by 4-byte copies."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("instance", sorted(DOT_STAGED_CASES))
+def test_dot_fwd_and_dq_every_slot_count(cuda, instance, rate, aligned):
+    """The dot-mode K9 and K10-dq (staged through shared memory, as
+    K10-dkv) in every instantiation (NC, FULL, WIDE), with rows staged by
+    16-byte copies and (misaligned inputs) by 4-byte copies, against
+    float64 on a graph whose hub destination and hub source split; two
+    runs give the same bits."""
+    nc, full, wide = instance
+    *shape, leaky = DOT_STAGED_CASES[instance]
+    shape = tuple(shape)
+    assert _staged_instance(*shape) == instance
+    g = Graph(attention_graph(3000, 40000, seed=6), num_nodes=3000
+              ).tensor(cuda)
+    lays = g._attention_layouts()
+    assert lays[0].num_partials > 0 and lays[1].num_partials > 0
+    gen = torch.Generator(device=cuda).manual_seed(nc + 100 * full
+                                                   + 1000 * wide)
+    ins = dot_inputs(3000, shape, cuda, gen)
+    if not aligned:
+        ins = tuple(_misaligned(t) for t in ins)
+    seed = torch.tensor([-123456789], dtype=torch.int32, device=cuda)
+    got = run_dot(lays, ins, shape, leaky, rate, seed)
+    again = run_dot(lays, ins, shape, leaky, rate, seed)
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, got, again))
+    check_dot(f"NC={nc}", lays, ins, shape, leaky, rate, seed, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc", sorted(DOT_NC_SHAPES))
+def test_dot_fwd_and_dq_keep_masks_are_the_plain_mask(cuda, nc):
+    """On a permutation graph (one edge a row): with q = k = 0 and v = 1,
+    K9's out is 1 / (1 - rate) where the edge is kept and 0 where it is
+    dropped; with q = 0, k = g = v = 1 and lse = delta = 0, K10-dq's dq is
+    dvh / (1 - rate) where kept and 0 where dropped. Both keep bits equal
+    ``drop_keep`` of the edge's CSC position for every head."""
+    n, rate = 4096, 0.3
+    H, dsh, dvh = shape = DOT_NC_SHAPES[nc]
+    g, _ = _permutation_graph(n, cuda)
+    csc = g._attention_layouts()[0]
+    zeros = torch.zeros(n, H * dsh, device=cuda)
+    ones_s = torch.ones(n, H * dsh, device=cuda)
+    ones = torch.ones(n, H * dvh, device=cuda)
+    zero_h = torch.zeros(n, H, device=cuda)
+    seed = torch.tensor([-1640531535], dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        out, _ = ak._dot_fwd_cuda(zeros, zeros, ones, csc, 0.0, dsh, dvh,
+                                  rate, seed)
+        dq = ak._dot_dq_cuda(zeros, ones_s, ones, ones, zero_h, zero_h, csc,
+                             0.0, dsh, dvh, rate, seed)
+    pos = torch.empty_like(csc.positions())
+    pos[csc.seg_ids.long()] = csc.positions()
+    want = torch.stack([ak.drop_keep(pos, seed, h, rate) for h in range(H)],
+                       dim=1)
+    assert torch.equal(out.reshape(n, H, dvh) != 0,
+                       want[:, :, None].expand(n, H, dvh))
+    assert torch.equal(dq.reshape(n, H, dsh) != 0,
+                       want[:, :, None].expand(n, H, dsh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc", sorted(DOT_NC_SHAPES))
+def test_dot_dq_recomputes_the_forward_scores(cuda, nc):
+    """On a permutation graph at rate 0 K9's lse of each row is its one
+    edge's score, so K10-dq's p = exp(s - lse) is exactly 1; with g = v =
+    1 and delta = 0, dq = p * dvh * k[src] equals dvh * k[src] bit for bit
+    only where K10-dq recomputes the score with K9's bits."""
+    n = 4096
+    H, dsh, dvh = shape = DOT_NC_SHAPES[nc]
+    g, src = _permutation_graph(n, cuda, seed=13)
+    csc = g._attention_layouts()[0]
+    gen = torch.Generator(device=cuda).manual_seed(nc)
+    q, k, _, _ = dot_inputs(n, shape, cuda, gen)
+    ones = torch.ones(n, H * dvh, device=cuda)
+    seed = torch.tensor([0], dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        _, lse = ak._dot_fwd_cuda(q * 4, k, ones, csc, 0.0, dsh, dvh, 0.0,
+                                  seed)
+        dq = ak._dot_dq_cuda(q * 4, k, ones, ones, lse, torch.zeros_like(lse),
+                             csc, 0.0, dsh, dvh, 0.0, seed)
+    assert bool((lse != 0).any())
+    assert torch.equal(dq, k[src] * dvh)
+
+
+@pytest.mark.gpu
+def test_send_u_recv_of_an_int64_feature_on_cuda(cuda):
+    """An int64 feature on a CUDA graph takes the segment path (no kernel
+    takes it, ``dispatch.plain_on_cuda``) and gives the CPU graph's sums
+    exactly, with no K1 launch; a float32 one still launches K1."""
+    host = Graph(skewed_graph(100, 800, seed=6), num_nodes=100)
+    x = torch.ones(100, 2, dtype=torch.int64)
+    want = host.tensor("cpu").send_u_recv(x, "sum")
+    g = host.tensor(cuda)
+    sk.reset_launches()
+    got = g.send_u_recv(x.to(cuda), "sum")
+    assert sk.LAUNCHES == 0
+    assert got.dtype == torch.int64 and torch.equal(got.cpu(), want)
+    g.send_u_recv(x.to(cuda, torch.float32), "sum")
+    assert sk.LAUNCHES == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_precision_on_cuda_raises(cuda, dtype):
+    """No kernel has a half-precision instantiation yet, and the reference
+    sends bf16 to its kernels: a bf16 or fp16 feature on a CUDA graph
+    reaches the wrapper, which raises rather than running the plain
+    version, with no launch counted."""
+    host = Graph(skewed_graph(100, 800, seed=6), num_nodes=100)
+    g = host.tensor(cuda)
+    sk.reset_launches()
+    with pytest.raises(TypeError):
+        g.send_u_recv(torch.ones(100, 2, dtype=dtype, device=cuda), "sum")
+    assert sk.LAUNCHES == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float64,
+                                    torch.int64])
+def test_send_ue_recv_weights_take_the_feature_dtype(cuda, wdtype):
+    """A float32 feature with edge weights of another dtype: the weights
+    take the feature's dtype, so K1w launches and gives the CPU graph's
+    float32 result (rtol/atol 1e-5: float32 sums in another order)."""
+    host = Graph(skewed_graph(100, 800, seed=6), num_nodes=100)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.normal(size=(100, 8)), dtype=torch.float32)
+    w = torch.as_tensor(rng.integers(-3, 4, size=800)).to(wdtype)
+    want = host.tensor("cpu").send_ue_recv(x, w, "mul", "sum")
+    g = host.tensor(cuda)
+    sk.reset_launches()
+    got = g.send_ue_recv(x.to(cuda), w.to(cuda), "mul", "sum")
+    assert sk.LAUNCHES == 1 and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["TransformerConv", "UniMP"])
 def test_transformer_on_cuda_matches_cpu(cuda, kind):

@@ -22,8 +22,14 @@ import jax.numpy as jnp
 # card's) may lack: there this file skips, and the gpu tests still collect
 pytest.importorskip("flax")
 
+import pgl_tpu
+from pgl_tpu.nn.functional import edge_softmax as j_edge_softmax
 from pgl_tpu.ops.pallas import segment_kernels as jsk
+from pgl_tpu.ops.segment import segment_softmax as j_segment_softmax
+import pgl_tpu_torch
+from pgl_tpu_torch.nn.functional import edge_softmax
 from pgl_tpu_torch.ops.kernels import segment_kernels as tsk
+from pgl_tpu_torch.ops.segment import segment_softmax
 from pgl_tpu_torch.utils.edge_index import EdgeIndex
 
 # one intra-op thread: the test files run in parallel worker processes,
@@ -202,3 +208,51 @@ def test_plain_version_runs_for_cpu_tensors_only():
     with pytest.raises(ValueError, match="device"):
         tsk.spmm(torch.as_tensor(x, device="meta"), *layouts)
 
+
+
+def test_segment_softmax_of_an_all_neg_inf_segment_is_zero():
+    """A segment whose logits are all -inf gives zeros, as the reference's
+    shift of a non-finite max to 0 does (``pgl_tpu/ops/segment.py:117-
+    122``), and the other segments their softmax; no NaN."""
+    data = np.array([-np.inf, -np.inf, 1.0, 2.0], np.float32)
+    ids = np.array([0, 0, 1, 1])
+    want = np.asarray(j_segment_softmax(jnp.asarray(data), jnp.asarray(ids),
+                                        2))
+    got = segment_softmax(torch.as_tensor(data), torch.as_tensor(ids), 2)
+    assert not torch.isnan(got).any()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_edge_softmax_on_a_masked_destination_matches_reference():
+    """``edge_softmax`` on a 3-node graph where every edge into node 2 is
+    masked to -inf (``where(mask, x, -inf)``, the usual masked logits):
+    zeros there, and a finite gradient w.r.t. ``x`` equal to the
+    reference's ``jax.grad``, forward at rtol 1e-6 and backward at atol
+    1e-6 (float32, one exp and one division apart)."""
+    edges = np.array([[0, 1], [2, 1], [0, 2], [1, 2], [1, 0]])
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(5, 2)).astype(np.float32)
+    w = rng.normal(size=(5, 2)).astype(np.float32)
+    mask = (edges[:, 1] != 2)[:, None]
+
+    jg = pgl_tpu.Graph(edges, num_nodes=3).tensor()
+
+    def j_loss(a):
+        logits = jnp.where(mask, a, -jnp.inf)
+        alpha = j_edge_softmax(jg, logits)
+        return (alpha * w).sum(), alpha
+
+    (_, j_alpha), j_grad = jax.value_and_grad(j_loss, has_aux=True)(
+        jnp.asarray(x))
+
+    tg = pgl_tpu_torch.Graph(edges, num_nodes=3).tensor("cpu")
+    a = torch.tensor(x, requires_grad=True)
+    alpha = edge_softmax(tg, torch.where(torch.as_tensor(mask), a,
+                                         torch.tensor(-np.inf)))
+    (alpha * torch.as_tensor(w)).sum().backward()
+    assert not torch.isnan(alpha).any() and torch.isfinite(a.grad).all()
+    assert (alpha[2:4] == 0).all()
+    np.testing.assert_allclose(alpha.detach().numpy(), np.asarray(j_alpha),
+                               rtol=1e-6)
+    assert np.isfinite(np.asarray(j_grad)).all()
+    np.testing.assert_allclose(a.grad.numpy(), np.asarray(j_grad), atol=1e-6)
