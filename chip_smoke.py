@@ -12,8 +12,10 @@ there is no card or any phase fails. Phases:
    parallel) and print the build time and ``ptxas`` report, and for each
    instantiation of the dedup apply (K5, K6, the weighted K6) its
    registers, spills and dynamic shared memory, and of K1 (``spmm_rows``,
-   ``spmm_packs``) and the dot-mode K10-dkv (``dot_dkv_staged``) its
-   registers and spills;
+   ``spmm_packs``) and the staged dot kernels (``dot_fwd_staged``,
+   ``dot_dq_staged``, ``dot_dkv_staged``: K9 and K10 per edge, K7 and K8
+   per cell) its registers and spills, failing if a staged dot kernel
+   spills;
 2. every kernel against its plain PyTorch version on the card, forward and
    backward: the plain version runs in float64 on the same inputs, and
    ``|kernel - plain| <= 1e-4 * max(1, |plain|, ||terms||_2)`` elementwise,
@@ -96,25 +98,28 @@ there is no card or any phase fails. Phases:
    a step and no other; a torch.profiler trace of the step; and the dot
    kernels timed beside two bounds (each input read once; the rows each
    edge gathers);
-8. the UniMP dedup path (count-matrix attention in dot mode, K7 and K8 on
-   q·k scores, then K1 over ``red``): the bench GAT graph under
-   ``dispatch.DEDUP`` (K4 twice at ``tensor()``, the work lists at the
-   first attention call); the dot-mode K7, K8 and the two folds against
-   their float64 plain versions at rates 0 and 0.3 (dq and the dk and dv
-   slot rows with the terms scale) on the skewed small graph at (H, dsh,
-   dvh) = (2, 128, 128), (8, 16, 16) and (4, 64, 8) and on the bench GAT
-   graph at UniMP's shape, two runs and a layout without counts giving the
-   same bits; the keep bits equal the plain cell mask exactly (a
-   permutation graph); a small UniMP through the route, CUDA against CPU;
-   then UniMP at the reference's defaults on the bench GAT graph trains 3
-   warm-up and 20 timed steps without dropout (``training=False``, the
-   route the reference takes on a multigraph) and 20 with dropout 0.3 in
-   ``attn_drop_mode="cell"``, asserting its launches a step (two of each
-   dot kernel and of their merges, four folds at D = 256, nothing else)
-   and a finite, falling loss; a torch.profiler trace of the step; the
-   kernels timed beside the table and gather bounds; and the attention
-   device time per UniMP step of this route beside the per-edge route's
-   on the same graph (phase 7's dot kernels there);
+8. the UniMP dedup path (count-matrix attention in dot mode: K7 and K8
+   on q·k scores, the staged dot kernels in their cell form; K8's node
+   walk writes dk and dv on node rows, with no fold): the bench GAT graph
+   under ``dispatch.DEDUP`` (K4 twice at ``tensor()``, the work lists at
+   the first attention call, the node order's sort timed alone); the
+   dot-mode K7 and K8 against their float64 plain versions at rates 0 and
+   0.3 (dq, dk and dv with the terms scale) on the skewed small graph at
+   (H, dsh, dvh) = (2, 128, 128), (8, 16, 16), (4, 64, 8) and (43, 2, 4)
+   with a leaky relu, and on the bench GAT graph at UniMP's shape, two runs
+   and a layout without counts giving the same bits; out, lse and dq equal
+   to 12a5247's bits (``PARENT_BITS``) on six pinned cases; the keep bits
+   equal the plain cell mask exactly (a permutation graph); a small UniMP
+   through the route, CUDA against CPU; then UniMP at the reference's
+   defaults on the bench GAT graph trains 3 warm-up and 20 timed steps
+   without dropout (``training=False``, the route the reference takes on a
+   multigraph) and 20 with dropout 0.3 in ``attn_drop_mode="cell"``,
+   asserting its launches a step (two of each dot kernel and of their
+   merges, nothing else) and a finite, falling loss; a torch.profiler trace
+   of the step; the kernels timed beside the table and gather bounds, K8
+   split by kernel (row pass, node walk); and the attention device time per
+   UniMP step of this route beside the per-edge route's on the same graph
+   (phase 7's dot kernels there);
 9. the edge-weighted path (``send_ue_recv``: K1w, the sorted SpMM on
    weighted messages, and the weighted K6): K1w forward, dx and dw (one
    launch over CSR) against their float64 plain versions with the terms
@@ -190,6 +195,8 @@ ATTN_REPLACES = {"gat_fwd": "pgl_tpu/ops/pallas/attention_kernels.py:86",
                  "gat_dq": "pgl_tpu/ops/pallas/attention_kernels.py:288",
                  "gat_dkv": "pgl_tpu/ops/pallas/attention_kernels.py:403"}
 DATTN_SOURCE = "pgl_tpu_torch/ops/kernels/csrc/dedup_attention.cu"
+# the staged dot kernels, per edge (K9, K10) and per cell (K7, K8)
+DOT_SOURCE = "pgl_tpu_torch/ops/kernels/csrc/dot_staged.cuh"
 DATTN_REPLACES = {"dedup_fwd": "pgl_tpu/ops/pallas/dedup_attention.py:102",
                   "dedup_bwd": "pgl_tpu/ops/pallas/dedup_attention.py:285"}
 # (heads, per-head width) of the GAT's two attention calls
@@ -238,26 +245,36 @@ def apply_report(log):
 
 
 # ptxas entries reported one line each: (label, the mangled name with the
-# template arguments as groups, their names)
+# template arguments as groups, their names); the staged dot kernels' last
+# argument is CELLS, 0 per edge (K9, K10) and 1 per count-matrix cell (K7,
+# K8 in dot mode)
+_STAGED = r"ILi(\d+)ELb(\d)ELb(\d)ELb{}E"
 REGISTER_REPORT = (
     ("K1 spmm_rows", r"spmm_rowsILi(\d+)ELi(\d+)ELi(\d+)E",
      ("VEC", "L", "NV")),
     ("K1 spmm_packs", r"spmm_packsILi(\d+)ELi(\d+)ELi(\d+)E",
      ("VEC", "L", "NV")),
-    ("K9-dot dot_fwd_staged", r"dot_fwd_stagedILi(\d+)ELb(\d)ELb(\d)E",
+    ("K9-dot dot_fwd_staged", "dot_fwd_staged" + _STAGED.format(0),
      ("NC", "FULL", "WIDE")),
-    ("K10-dq-dot dot_dq_staged", r"dot_dq_stagedILi(\d+)ELb(\d)ELb(\d)E",
+    ("K10-dq-dot dot_dq_staged", "dot_dq_staged" + _STAGED.format(0),
      ("NC", "FULL", "WIDE")),
-    ("K10-dkv-dot dot_dkv_staged", r"dot_dkv_stagedILi(\d+)ELb(\d)ELb(\d)E",
-     ("NC", "FULL", "WIDE")))
+    ("K10-dkv-dot dot_dkv_staged", "dot_dkv_staged" + _STAGED.format(0),
+     ("NC", "FULL", "WIDE")),
+    ("K7-dot dot_fwd_staged cells", "dot_fwd_staged" + _STAGED.format(1),
+     ("NC", "FULL", "WIDE")),
+    ("K8-dot row pass dot_dq_staged cells",
+     "dot_dq_staged" + _STAGED.format(1), ("NC", "FULL", "WIDE")),
+    ("K8-dot node walk dot_dkv_staged cells",
+     "dot_dkv_staged" + _STAGED.format(1), ("NC", "FULL", "WIDE")))
 
 
 def register_report(log):
-    """Lines on K1's and the dot-mode K9's and K10's instantiations from
-    ``nvcc -Xptxas -v``'s report ``log``: registers and spilled bytes of
-    each."""
+    """Lines on K1's and the staged dot kernels' instantiations (K9, K10
+    per edge; K7, K8 per cell) from ``nvcc -Xptxas -v``'s report ``log``:
+    registers and spilled bytes of each. Raises if a staged dot kernel
+    spills."""
     import re
-    lines, entry, spills = [], None, ""
+    lines, entry, spills, spilled, spill_bytes = [], None, "", [], 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -272,11 +289,16 @@ def register_report(log):
                       line)
         if m:
             spills = f"spills {m.group(1)} / {m.group(2)} B"
+            spill_bytes = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
             lines.append(f"[build] {entry}: {m.group(1)} registers, "
                          f"{spills}")
+            if "staged" in entry and spill_bytes:
+                spilled.append(entry)
             entry = None
+    if spilled:
+        raise AssertionError(f"staged dot kernels spill: {spilled}")
     return sorted(lines)
 
 
@@ -1255,6 +1277,16 @@ def phase_attention_timing(g, dev, runs, errs):
     return rows
 
 
+def kernel_name(key):
+    """A profiler kernel key without its return type, namespace and
+    parameters: ``dot_dq_staged<8, true, true, true>``, ``sum_combine``
+    (a kernel that is no template has no ``void`` in its key)."""
+    for prefix in ("void ", "(anonymous namespace)::"):
+        if key.startswith(prefix):
+            key = key[len(prefix):]
+    return key.split("(")[0]
+
+
 def phase_gat_profile(g, tag="GAT", trainer=None):
     """Where a training step's device time goes (default: the bench GAT's):
     20 steps back to back (one synchronize at the end), then 10 under
@@ -1287,8 +1319,7 @@ def phase_gat_profile(g, tag="GAT", trainer=None):
         if e.device_type == torch.autograd.DeviceType.CPU:
             host[e.key] = e.self_cpu_time_total / 1e3 / n
         elif not e.key.startswith("Optimizer."):
-            name = e.key.replace("void (anonymous namespace)::",
-                                 "").split("(")[0]
+            name = kernel_name(e.key)
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
@@ -1480,10 +1511,11 @@ def phase_dedup_attention_kernels(g_gat, dev):
 
 def phase_dedup_attention_mask(dev, n=1 << 20, dot=False):
     """The keep bits of K7 and K8 equal the plain cell mask exactly: on a
-    permutation graph every row has one cell and every nonempty slot one,
-    so with a_dst = a_src = 0 (``dot``: q = k = 0 with dsh = 2), v = g = 1
-    and dvh = 1, K7's out and K8's dv slot rows are 1 / (1 - rate) where
-    the cell is kept and 0 where it is dropped, and every other slot row is
+    permutation graph every row has one cell and every nonempty slot (every
+    node, in dot mode) one, so with a_dst = a_src = 0 (``dot``: q = k = 0
+    with dsh = 2), v = g = 1 and dvh = 1, K7's out and K8's dv slot rows
+    (dot: dv node rows, from the node walk) are 1 / (1 - rate) where the
+    cell is kept and 0 where it is dropped, and every other slot row is
     0."""
     import torch
     from pgl_tpu_torch import Graph
@@ -1500,6 +1532,8 @@ def phase_dedup_attention_mask(dev, n=1 << 20, dot=False):
         raise AssertionError("a permutation graph is simple")
     dst, urow, slot = da._edge_slots(lay)
     key = da.cell_idx(dst, urow)
+    # where K8 writes a cell's dv: its pair slot, or (dot) its node
+    dv_row = lay.uv.long()[urow] if dot else slot
     zeros = torch.zeros(n, 2 * H if dot else H, device=dev)
     ones = torch.ones(n, H, device=dev)
     for seed_v in (-1640531535, 12345):
@@ -1517,7 +1551,7 @@ def phase_dedup_attention_mask(dev, n=1 << 20, dot=False):
                                         rate, seed)
                 _, _, dv = da._bwd_cuda(zeros, zeros, ones, ones, lse, out,
                                         att, 0.2, 1, rate, seed)
-        for name, got in (("K7", out[dst] != 0), ("K8", dv[slot] != 0)):
+        for name, got in (("K7", out[dst] != 0), ("K8", dv[dv_row] != 0)):
             if not torch.equal(got, want):
                 raise AssertionError(
                     f"{name} keep bits differ from the plain mask in "
@@ -1951,8 +1985,6 @@ def phase_unimp_small(dev, dedup=False):
     launched = {k: v for k, v in all_launches().items() if v}
     kernels = DDOT_KERNELS if dedup else DOT_KERNELS
     want = {(k, 2, 16, 16): 2 for k in kernels}
-    if dedup:
-        want["uniq_reduce", 32] = 4
     if launched != want:
         raise AssertionError(f"small UniMP launched {launched}")
     reset_all_launches()
@@ -2082,7 +2114,7 @@ def phase_dot_timing(graphs, dev, runs, errs):
                     "" if tag == "unimp" else f"_{tag}")
                 rows.append({
                     "name": f"{kernel}_h{H}_s{dsh}_d{dvh}{suffix}",
-                    "route": "cuda", "source": ATTN_SOURCE,
+                    "route": "cuda", "source": DOT_SOURCE,
                     "replaces": DOT_REPLACES[kernel],
                     "launches": launches.get((kernel, *shape), 0),
                     "max_abs_err": errs[tag, kernel], "ms": ms,
@@ -2171,39 +2203,37 @@ def phase_unimp(dev):
 
 # -- phase 8: the UniMP dedup path (count-matrix attention in dot mode) ------
 
-def run_dedup_dot(att, ins, shape, rate, seed):
-    """The dot-mode K7, K8 and K1's two folds of K8's slot rows on float32
-    ``ins``: ``(out, lse, dq, dk slots, dv slots, dk, dv)``."""
+def run_dedup_dot(att, ins, shape, rate, seed, leaky=0.0):
+    """The dot-mode K7 and K8 on float32 ``ins``: ``(out, lse, dq, dk,
+    dv)``, dk and dv on node rows (K8's node walk)."""
     import torch
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
-    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
     q, k, v, g = ins
     H, dsh, dvh = shape
     with torch.no_grad():
-        out, lse = da._dot_fwd_cuda(q, k, v, att, 0.0, dsh, dvh, rate, seed)
+        out, lse = da._dot_fwd_cuda(q, k, v, att, leaky, dsh, dvh, rate,
+                                    seed)
         delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
-        bwd = da._dot_bwd_cuda(q, k, v, g, lse, delta, att, 0.0, dsh, dvh,
-                               rate, seed)
-        return (out, lse) + bwd + (sk._spmm_cuda(bwd[1], att.red),
-                                   sk._spmm_cuda(bwd[2], att.red))
+        return (out, lse) + da._dot_bwd_cuda(q, k, v, g, lse, delta, att,
+                                             leaky, dsh, dvh, rate, seed)
 
 
-def check_dedup_dot(tag, att, ins, shape, rate, seed, got):
+def check_dedup_dot(tag, att, ins, shape, rate, seed, got, leaky=0.0):
     """``got`` of :func:`run_dedup_dot` against the plain versions in
     float64 on the same inputs (the backward on the kernel's lse and
-    delta), with ``check``'s rule; dq and the dk and dv slot rows scaled by
-    the 2-norm of the terms each element sums, the folds by
-    ``check_spmm``. Returns the max |err| of K7, K8 and the folds."""
+    delta), with ``check``'s rule; dq, dk and dv (node rows) scaled by the
+    2-norm of the terms each element sums. Returns the max |err| of K7 and
+    K8."""
     import torch
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
-    out, lse, dq, dk, dv, fold_k, fold_v = got
+    out, lse, dq, dk, dv = got
     H, dsh, dvh = shape
     lay = att.layout
-    name = f"{tag} H={H} dsh={dsh} dvh={dvh} rate={rate}"
+    name = f"{tag} H={H} dsh={dsh} dvh={dvh} leaky={leaky} rate={rate}"
     with torch.no_grad():
         q, k, v, g = (t.double() for t in ins)
-        out_p, lse_p = da.dedup_dot_reference(q, k, v, lay, dsh, dvh, 0.0,
+        out_p, lse_p = da.dedup_dot_reference(q, k, v, lay, dsh, dvh, leaky,
                                               rate, seed)
         errs = {"dedup_dot_fwd": max(check(f"{name} K7 out", out, out_p),
                                      check(f"{name} K7 lse", lse, lse_p))}
@@ -2211,34 +2241,110 @@ def check_dedup_dot(tag, att, ins, shape, rate, seed, got):
         delta = (g.reshape(-1, H, dvh)
                  * out.double().reshape(-1, H, dvh)).sum(-1)
         bwd = (q, k, v, g, lse.double(), delta)
-        dst, urow, slot = da._edge_slots(lay)
+        dst, urow, _ = da._edge_slots(lay)
         src = lay.uv.long()[urow]
         qe, ds, g_e = ak.edge_grads(*bwd, dst, src, da.cell_idx(dst, urow),
-                                    0.0, dvh, rate, seed, dsh)
-        n, S = q.shape[0], att.num_slots
+                                    leaky, dvh, rate, seed, dsh)
+        n = q.shape[0]
         scale_q = ak.head_scatter(ds * ds, k[src] ** 2, dst, n).sqrt()
-        scale_k = ak.head_scatter(ds * ds, q[dst] ** 2, slot, S).sqrt()
-        scale_v = ak.head_scatter(qe * qe, g_e.reshape(len(dst), -1) ** 2,
-                                  slot, S).sqrt()
+        scale_k = ak.head_scatter(ds * ds, q[dst] ** 2, src, n).sqrt()
+        scale_v = ak.head_scatter(qe * qe, g_e.flatten(1) ** 2, src,
+                                  n).sqrt()
         del qe, ds, g_e
         dq_p, dk_p, dv_p = da.dedup_dot_bwd_reference(*bwd, lay, dsh, dvh,
-                                                      0.0, rate, seed)
+                                                      leaky, rate, seed)
         errs["dedup_dot_bwd"] = max(
             check(f"{name} K8 dq", dq, dq_p, scale_q),
-            check(f"{name} K8 dk slots", dk, dk_p, scale_k),
-            check(f"{name} K8 dv slots", dv, dv_p, scale_v))
-        errs["uniq_reduce"] = max(
-            check_spmm(f"{name} fold dk", fold_k, dk, att.red),
-            check_spmm(f"{name} fold dv", fold_v, dv, att.red))
+            check(f"{name} K8 dk", dk, dk_p, scale_k),
+            check(f"{name} K8 dv", dv, dv_p, scale_v))
     return errs
 
 
+# The bits of the dot-mode K7 (out, lse) and K8's row pass (dq) before the
+# cell form, pinned: the sha256 of out | lse | dq (float32 bytes) on each
+# case of ``parent_bits_case`` from the kernels of 12a5247
+# (``dedup_dot_fwd``, ``dedup_dot_bwd_rows``), as
+# experiments/torch_spmm/k1_k10_before_after.py --only k7 printed them on
+# an H100 80GB HBM3. The cell form keeps the cells' order, the score's tree
+# and the place of the multiplicity, so it must give the same bits.
+PARENT_BITS_CASES = (((2, 128, 128), 0.0, 0.0), ((2, 128, 128), 0.0, 0.3),
+                     ((8, 16, 16), 0.0, 0.3), ((43, 2, 4), 0.2, 0.3),
+                     ((4, 128, 128), 0.0, 0.0), ((3, 8, 5), 0.0, 0.3))
+PARENT_BITS = {
+    ((2, 128, 128), 0.0, 0.0):
+        "c5191302e8bf229b60433d297e172334355137e65de371bc0fe2a4a1b5c4dae2",
+    ((2, 128, 128), 0.0, 0.3):
+        "33e1d4a30e2cab293da76dc39da98e6a40eb4ab4d4b0eb1bd0a792d4887e73fa",
+    ((8, 16, 16), 0.0, 0.3):
+        "370bf329f6716eed9662f5f57f5a7729575fa35300f15b8f5967d9668e1f2b6b",
+    ((43, 2, 4), 0.2, 0.3):
+        "c94d4d7a24136a94dff2e65ec5a6f9cd54be9a7d6034e79d3227d22b39a75330",
+    ((4, 128, 128), 0.0, 0.0):
+        "97cbfe3509a4732dc0b76649e9a6ab6224044403bb6bd7ccc3ccd4ac7a23dfb7",
+    ((3, 8, 5), 0.0, 0.3):
+        "18a9052d0816e8663ebe7b528f5410e2ac5043ffdd1737d1e9b6240f7438960b"}
+
+
+def parent_bits_graph(dev):
+    """The small skewed multigraph of the pinned bits (hub destination and
+    hub source split), as K7/K8's work lists on ``dev``."""
+    from pgl_tpu_torch import Graph
+    edges = attention_graph(3000, 40000, seed=4)
+    edges[-4000:] = edges[:4000]        # duplicate edges: counts of 2 and up
+    return dedup_attention_of(Graph(edges, num_nodes=3000).tensor(dev), dev,
+                              counts=False)
+
+
+def parent_bits_case(att, shape, rate, dev):
+    """q, k, v, g (numpy draws, so every torch build gets the same bits)
+    and the seed of one pinned case."""
+    import torch
+    H, dsh, dvh = shape
+    rng = np.random.default_rng(H * 10000 + dsh * 100 + dvh)
+    n = att.num_rows
+    ins = [rng.standard_normal((n, H * w), dtype=np.float32)
+           for w in (dsh, dsh, dvh, dvh)]
+    ins[0] *= np.float32(dsh ** -0.5)
+    seed = torch.tensor([-12345 if rate else 0], dtype=torch.int32,
+                        device=dev)
+    return tuple(torch.from_numpy(x).to(dev) for x in ins), seed
+
+
+def bits_digest(*tensors):
+    """sha256 of the tensors' float32 bytes, one after the other."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_parent_bits(dev):
+    """K7-dot's out and lse and K8-dot's dq on each pinned case, digested
+    and held against ``PARENT_BITS``; returns the digests."""
+    att = parent_bits_graph(dev)
+    got = {}
+    for shape, leaky, rate in PARENT_BITS_CASES:
+        ins, seed = parent_bits_case(att, shape, rate, dev)
+        out, lse, dq, _, _ = run_dedup_dot(att, ins, shape, rate, seed,
+                                           leaky)
+        got[shape, leaky, rate] = bits_digest(out, lse, dq)
+    bad = [c for c, d in got.items() if PARENT_BITS.get(c) != d]
+    if bad:
+        raise AssertionError(f"dot-mode K7/K8 bits differ from 12a5247's "
+                             f"on {bad}: {got}")
+    reset_all_launches()
+    return got
+
+
 def phase_dedup_dot_kernels(g_gat, dev):
-    """The dot-mode K7, K8 and the folds against their float64 plain
-    versions at rates 0 and 0.3 (seed drawn per case): on the small graph
-    at UniMP's shape, (8, 16, 16) and (4, 64, 8) (dsh != dvh), and on the
-    bench GAT graph at UniMP's shape; a second run and a layout without
-    counts give the same bits. Returns the max |err| per (tag, kernel)."""
+    """The dot-mode K7 and K8 against their float64 plain versions at rates
+    0 and 0.3 (seed drawn per case): on the small graph at UniMP's shape,
+    (8, 16, 16), (4, 64, 8) (dsh != dvh) and GATConv's (43, 2, 4) with a
+    leaky relu, and on the bench GAT graph at UniMP's shape; a second run
+    and a layout without counts give the same bits; out, lse and dq have
+    12a5247's bits on the pinned cases. Returns the max |err| per (tag,
+    kernel)."""
     import torch
     from pgl_tpu_torch import Graph
 
@@ -2246,80 +2352,110 @@ def phase_dedup_dot_kernels(g_gat, dev):
                   ).tensor(dev)
     atts = {"small": dedup_attention_of(small, dev),
             "headline": g_gat._dedup_attn_aux()}
-    if not (atts["small"].num_partials and atts["headline"].num_partials):
-        raise AssertionError("both graphs must split rows into pieces")
+    if not (atts["small"].num_partials and atts["headline"].num_partials
+            and atts["small"].num_node_partials):
+        raise AssertionError("both graphs must split rows, and the small "
+                             "one a node, into pieces")
     bare = {tag: without_counts(att) for tag, att in atts.items()}
     gen = torch.Generator(device=dev).manual_seed(11)
     errs = {}
-    cases = [("small", shape) for shape in (UNIMP_SHAPE, (8, 16, 16),
-                                            (4, 64, 8))]
-    cases += [("headline", UNIMP_SHAPE)]
-    for tag, shape in cases:
+    cases = [("small", shape, 0.0) for shape in (UNIMP_SHAPE, (8, 16, 16),
+                                                 (4, 64, 8))]
+    cases += [("small", (43, 2, 4), 0.2), ("headline", UNIMP_SHAPE, 0.0)]
+    for tag, shape, leaky in cases:
         att = atts[tag]
         ins = dot_inputs(att.num_rows, shape, dev, gen)
         for rate in (0.0, 0.3):
             seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
                                  generator=gen, device=dev)
-            got = run_dedup_dot(att, ins, shape, rate, seed)
+            got = run_dedup_dot(att, ins, shape, rate, seed, leaky)
             for what, other in (("a second run", att),
                                 ("the layout without counts", bare[tag])):
                 if not all(map(torch.equal, got, run_dedup_dot(
-                        other, ins, shape, rate, seed))):
+                        other, ins, shape, rate, seed, leaky))):
                     raise AssertionError(f"{tag} {shape} rate={rate}: "
                                          f"{what} differs")
-            e = check_dedup_dot(tag, att, ins, shape, rate, seed, got)
+            e = check_dedup_dot(tag, att, ins, shape, rate, seed, got, leaky)
             del got
             for k, v in e.items():
                 errs[tag, k] = max(errs.get((tag, k), 0.0), v)
             print(f"[dedup dot attention] {tag} N={att.num_rows} E="
                   f"{att.layout.num_edges} cells={att.num_cells} (H, dsh, "
-                  f"dvh)={shape} rate={rate}: max |err| K7 "
-                  f"{e['dedup_dot_fwd']:.3e} K8 {e['dedup_dot_bwd']:.3e} "
-                  f"folds {e['uniq_reduce']:.3e}; same bits on a second run "
-                  "and without counts", flush=True)
+                  f"dvh)={shape} leaky={leaky} rate={rate}: max |err| K7 "
+                  f"{e['dedup_dot_fwd']:.3e} K8 {e['dedup_dot_bwd']:.3e}; "
+                  "same bits on a second run and without counts",
+                  flush=True)
+    digests = check_parent_bits(dev)
+    print(f"[dedup dot attention] out, lse and dq have 12a5247's bits on "
+          f"{len(digests)} pinned cases", flush=True)
     reset_all_launches()
     return errs
 
 
 def unimp_dedup_per_step(g):
     """Launches per UniMP step on the dedup route: K7 and K8 in dot mode
-    for layers 0 and 1 (with their second launches where rows split), and
-    K1 over ``red`` for each layer's dk and dv."""
+    for layers 0 and 1 (with their second launches where rows or nodes
+    split); no fold (K8's node walk writes dk and dv on node rows)."""
     att = g._dedup_attn_aux()
-    H, dsh, dvh = UNIMP_SHAPE
     per = {}
     for kernel in DDOT_KERNELS:
         per[(kernel, *UNIMP_SHAPE)] = 2
         if att.num_partials:
             per[(f"{kernel}_combine", *UNIMP_SHAPE)] = 2
-    for d in (H * dsh, H * dvh):
-        per["uniq_reduce", d] = per.get(("uniq_reduce", d), 0) + 2
+    if att.num_node_partials:
+        per[("dedup_dot_bwd_node_combine", *UNIMP_SHAPE)] = 2
     return per
+
+
+def kernel_split_ms(fn, iters=10):
+    """Device ms per call of ``fn`` by kernel (torch.profiler over
+    ``iters`` warm calls), keyed by the kernel's name and template
+    arguments."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = kernel_name(e.key)
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            split[name] = split.get(name, 0.0) + us / 1e3 / iters
+    return split
 
 
 def phase_dedup_dot_timing(g, dev, runs, errs):
     """Rows at UniMP's shape on the bench GAT graph's dedup route: the dot
     K7 and K8 (each wrapper's launches, merges included) at rates 0 and
-    0.3, and K1 over ``red`` at D = H·dsh, beside the plain versions, the
-    table bound (each input read once, each output written once), the
-    gather bound (the rows each cell gathers, read once a cell, and K8's
-    slot rows written) and, for K1, ``torch.sparse.mm``. ``runs`` maps a
-    rate to the launches of its training run."""
+    0.3, beside the plain versions, the table bound (each input read once,
+    each output written once) and the gather bound (the rows each cell
+    gathers, read once a cell: k | v in K7 and K8's row pass, q | g | lse |
+    delta in K8's node walk); K8's time split by kernel (torch.profiler),
+    each pass beside its own gather bound. ``runs`` maps a rate to the
+    launches of its training run."""
     import torch
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
 
     att = g._dedup_attn_aux()
     lay = att.layout
-    N, n, S = g.num_nodes, att.num_cells, att.num_slots
+    N, n = g.num_nodes, att.num_cells
     H, dsh, dvh = shape = UNIMP_SHAPE
     DS, C = H * dsh, H * dvh
     n_pieces = int(att.pieces.shape[0])
+    n_node_pieces = int(att.node_pieces.shape[0])
     gen = torch.Generator(device=dev).manual_seed(12)
     seed = torch.tensor([12345], dtype=torch.int32, device=dev)
     info = {"rows": N, "edges": lay.num_edges, "cells": n,
             "pieces": n_pieces, "split_rows": int(att.split_rows.shape[0]),
-            "pairs": lay.num_pairs, "slots": S, "H": H, "dsh": dsh,
-            "dvh": dvh}
+            "node_pieces": n_node_pieces,
+            "split_nodes": int(att.node_split_rows.shape[0]), "H": H,
+            "dsh": dsh, "dvh": dvh}
     rows = []
 
     q, k, v, g_out = dot_inputs(N, shape, dev, gen)
@@ -2339,16 +2475,17 @@ def phase_dedup_dot_timing(g, dev, runs, errs):
                                                       *args), 20)
             bwd_plain = time_ms(lambda: da.dedup_dot_bwd_reference(
                 *bwd, lay, dsh, dvh, 0.0, rate, seed), 3)
+            split = kernel_split_ms(lambda: da._dot_bwd_cuda(
+                *bwd, att, 0.0, *args))
         del out, lse, delta, bwd
         # bytes: each input read once (the node tables; 3 ints a cell and 4
-        # a piece in row order; K8 also 2 ints a cell, the slot pointers,
-        # pairs and uv in column order), each output written once (out and
-        # lse; dq and the slot rows)
+        # a piece in row order; K8 also 3 ints a cell and 4 a piece in node
+        # order), each output written once (out and lse; dq, dk and dv)
         row_ints = 3 * n + 4 * n_pieces
+        node_ints = 3 * n + 4 * n_node_pieces
         fwd_bytes = 4 * (N * (2 * DS + C) + row_ints + N * (C + H))
-        bwd_bytes = 4 * (N * (2 * DS + 2 * C + 2 * H) + row_ints + 2 * n
-                         + S + 1 + 4 * lay.num_pairs + lay.uv.numel()
-                         + N * DS + S * (DS + C))
+        bwd_bytes = 4 * (N * (2 * DS + 2 * C + 2 * H) + row_ints + node_ints
+                         + N * (2 * DS + C))
         # operations a cell: the score (2 a score column), 2 a value
         # column (K7's fma; K8's g.v in both passes, dv), 2 a score column
         # for dq and dk; a head: max, 2 exp, 2 scale, count multiply, the
@@ -2357,9 +2494,10 @@ def phase_dedup_dot_timing(g, dev, runs, errs):
         fwd_ops = n * (2 * DS + 2 * C + H * per_head)
         bwd_ops = n * (8 * DS + 6 * C + 2 * H * (per_head + 3))
         # gathered a cell: k|v rows (K7, K8's row pass), q|g rows, lse and
-        # delta (K8's slot pass); K8 also writes its slot rows
+        # delta (K8's node walk)
         fwd_gather = 4 * n * (DS + C)
-        bwd_gather = 4 * (n * (2 * DS + 2 * C + 2 * H) + S * (DS + C))
+        walk_gather = 4 * n * (DS + C + 2 * H)
+        bwd_gather = fwd_gather + walk_gather
         suffix = f"_drop{rate:g}" if drop else ""
         for kernel, ms, plain_ms, nbytes, ops, gathered in (
                 ("dedup_dot_fwd", fwd_ms, fwd_plain, fwd_bytes, fwd_ops,
@@ -2367,13 +2505,24 @@ def phase_dedup_dot_timing(g, dev, runs, errs):
                 ("dedup_dot_bwd", bwd_ms, bwd_plain, bwd_bytes, bwd_ops,
                  bwd_gather)):
             timing_row(rows, info, f"{kernel}_h{H}_s{dsh}_d{dvh}{suffix}",
-                       kernel, DATTN_SOURCE, DDOT_REPLACES[kernel],
+                       kernel, DOT_SOURCE, DDOT_REPLACES[kernel],
                        launches.get((kernel, *shape), 0),
                        errs["headline", kernel], ms, plain_ms, nbytes, ops,
                        None, gathered, rate=rate)
-    for d in sorted({DS, C}):
-        time_uniq_reduce(rows, info, att.red, d,
-                         runs[0.0].get(("uniq_reduce", d), 0), dev, gen, 20)
+        passes = {"row pass": fwd_gather, "node walk": walk_gather}
+        parts = []
+        for name, part_ms in sorted(split.items()):
+            what = ("row pass" if name.startswith("dot_dq_staged") else
+                    "node walk" if name.startswith("dot_dkv_staged") else
+                    name)
+            bound = passes.get(what)
+            parts.append(f"{what} ({name}) {part_ms:.5f} ms" + (
+                "" if bound is None else
+                f", gather bound {bound / HBM_BYTES_PER_S * 1e3:.5f} ms "
+                f"({bound / HBM_BYTES_PER_S * 1e3 / part_ms:.3f} of it)"))
+        rows[-1]["split_ms"] = split
+        print(f"[timing] dedup_dot_bwd rate={rate} by kernel: "
+              + "; ".join(parts), flush=True)
     reset_all_launches()
     return rows
 
@@ -2403,12 +2552,19 @@ def phase_unimp_dedup(dev, edge_route_ms):
     att = g._dedup_attn_aux()
     torch.cuda.synchronize()
     t_att = time.perf_counter() - t0
+    # the node order's one sort, timed alone on keys of the same size and
+    # spread (the row-ordered cells' nodes)
+    nodes = att.cell_src.cpu().numpy()
+    t0 = time.perf_counter()
+    np.argsort(nodes, kind="stable")
+    t_sort = time.perf_counter() - t0
     print(f"[graph] UniMP dedup: bench GAT graph N={g.num_nodes} "
           f"E={g.num_edges} under DEDUP, tensor() {t_tensor:.3f} s (K4 "
-          f"included), K7/K8 work lists and red {t_att:.3f} s; "
-          f"{att.num_cells} cells, {att.pieces.shape[0]} pieces, "
-          f"{att.split_rows.shape[0]} split rows, {att.num_slots} slots",
-          flush=True)
+          f"included), K7/K8 work lists and red {t_att:.3f} s (the node "
+          f"order's sort {t_sort:.4f} s); {att.num_cells} cells, "
+          f"{att.pieces.shape[0]} pieces, {att.split_rows.shape[0]} split "
+          f"rows, {att.node_pieces.shape[0]} node pieces, "
+          f"{att.node_split_rows.shape[0]} split nodes", flush=True)
     errs = phase_dedup_dot_kernels(g, dev)
     phase_dedup_attention_mask(dev, dot=True)
     phase_unimp_small(dev, dedup=True)
@@ -2425,16 +2581,14 @@ def phase_unimp_dedup(dev, edge_route_ms):
     prof = phase_gat_profile(g, "UniMP dedup",
                              lambda g: unimp_trainer(g, labels, mode="cell"))
     rows = phase_dedup_dot_timing(g, dev, {0.0: by0, 0.3: by3}, errs)
-    folds_ms = sum(r["ms"] * per["uniq_reduce", r["shape"]["D"]]
-                   for r in rows if r["shape"]["kernel"] == "uniq_reduce")
-    attn = {rate: folds_ms + 2 * sum(r["ms"] for r in rows
-                                     if r["shape"].get("rate") == rate)
+    attn = {rate: 2 * sum(r["ms"] for r in rows
+                          if r["shape"].get("rate") == rate)
             for rate in (0.0, 0.3)}
     gather = 2 * sum(r["gather_bound_ms"] for r in rows
                      if r["shape"].get("rate") == 0.0)
     lower = "dedup" if attn[0.0] < edge_route_ms else "per-edge"
     print(f"[default] attention device ms per UniMP step on the bench GAT "
-          f"graph: dedup route (K7, K8 dot, 4 folds) {attn[0.0]:.5f} (no "
+          f"graph: dedup route (K7, K8 dot) {attn[0.0]:.5f} (no "
           f"dropout), {attn[0.3]:.5f} (rate 0.3, cell mode); per-edge route "
           f"(K9, K10 dot) {edge_route_ms:.5f}; lower: {lower}; gather bound "
           f"of the dedup route {gather:.5f} ms; step median "
@@ -2444,7 +2598,7 @@ def phase_unimp_dedup(dev, edge_route_ms):
         "UniMP_dedup": dict(train, attention_ms_per_step=attn[0.0],
                             gather_bound_ms_per_step=gather,
                             tensor_s=t_tensor, work_lists_s=t_att,
-                            profile=prof),
+                            node_sort_s=t_sort, profile=prof),
         "UniMP_dedup_cell": dict(train_c, attention_ms_per_step=attn[0.3]),
         "unimp_attention_route_lower": lower}
 
@@ -3428,7 +3582,7 @@ def main():
     for line in apply_report(
             libs["dedup_kernels"].with_suffix(".log").read_text()):
         print(line, flush=True)
-    for name in ("segment_kernels", "attention_kernels"):
+    for name in ("segment_kernels", "attention_kernels", "dedup_attention"):
         for line in register_report(
                 libs[name].with_suffix(".log").read_text()):
             print(line, flush=True)

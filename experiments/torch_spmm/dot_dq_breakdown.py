@@ -5,9 +5,11 @@ revision's kernel, side by side.
 
 This script compiles patched copies of ``csrc/attention_kernels.cu`` (one
 ``nvcc`` each, in parallel, into the git-ignored build directory): the
-tree's (``dot_dq_staged``) and the revision's (default ``b8eb749``, whose
+tree's (``dot_dq_staged``, patched in ``csrc/dot_staged.cuh``, which the
+copy includes) and the revision's (default ``b8eb749``, whose
 ``dot_dq_pieces`` loaded each edge's k and v columns straight from global
-memory; its sources come from ``k1_k10_before_after.py --extract``). Each
+memory; its sources come from ``k1_k10_before_after.py --extract --rev
+b8eb749``). Each
 variant removes one part of the K10-dq kernel, and only of it, so the time
 it saves is that part's cost where the parts do not overlap:
 
@@ -29,7 +31,8 @@ revision's bit for bit. The ``ptxas`` registers and spills of each
 variant's K10-dq kernels print first, and one JSON line of all times ends
 the output, after the card's name and power limit. Needs one CUDA card:
 
-    python3 experiments/torch_spmm/k1_k10_before_after.py --extract
+    python3 experiments/torch_spmm/k1_k10_before_after.py --extract \
+        --rev b8eb749
     python3 experiments/torch_spmm/dot_dq_breakdown.py [--rev R]
 """
 
@@ -57,8 +60,8 @@ TREE = {
                   "      head_sum<NC, WIDE ? kWide : kNarrow>(gv[e], wp);\n",
                   "      for (int c = 0; c < NC; ++c) sd[e][c] = qr[c] * "
                   "kd[e][c];\n")],
-    "no_exp": [("const float p = expf(leaky(sd[e][c], slope) - lse_h);",
-                "const float p = leaky(sd[e][c], slope) - lse_h;")],
+    "no_exp": [(": expf(leaky(sd[e][c], slope) - lse_h);",
+                ": leaky(sd[e][c], slope) - lse_h;")],
     "no_sync": [("    cp_async_wait<S - 1>();\n    __syncwarp();\n", ""),
                 ("    __syncwarp();  // every lane is done with this ring "
                  "slot before it refills\n", "")],
@@ -76,8 +79,10 @@ OLD = {
     "no_exp": [("const float p = expf(leaky(sd[c], slope) - ls[c]);",
                 "const float p = leaky(sd[c], slope) - ls[c];")],
 }
-# where each source's K10-dq kernel starts and the next kernel begins
-BODY = {"tree": ("dot_dq_staged(const float*", "// Dot-mode K10-dkv"),
+# the file that holds each source's K10-dq kernel, where the kernel starts
+# and where the next one begins
+FILE = {"tree": "dot_staged.cuh", "old": "attention_kernels.cu"}
+BODY = {"tree": ("dot_dq_staged(const float*", "// The dkv pass"),
         "old": ("dot_dq_pieces(const float*", "// Dot-mode K10-dkv")}
 
 
@@ -103,12 +108,19 @@ def build(rev):
                          "k1_k10_before_after.py --extract first")
     procs = {}
     for which, variants in (("tree", TREE), ("old", OLD)):
-        text = (sources[which] / "attention_kernels.cu").read_text()
+        text = (sources[which] / FILE[which]).read_text()
         for name, patches in variants.items():
             tag = f"{which}/{name}"
-            cu = out / f"attention_{which}_{name}.cu"
-            cu.write_text(patched(text, BODY[which], patches, tag))
-            so = out / f"libattention_{which}_{name}.so"
+            # a directory a variant: a source's own directory comes first
+            # in its quoted includes, so the patched file shadows the tree's
+            d = out / f"{which}_{name}"
+            d.mkdir(exist_ok=True)
+            (d / FILE[which]).write_text(patched(text, BODY[which], patches,
+                                                 tag))
+            cu = d / "attention_kernels.cu"
+            if FILE[which] != cu.name:
+                cu.write_text((sources[which] / cu.name).read_text())
+            so = d / "libattention.so"
             procs[tag] = (so, subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-I",
                  str(sources[which]), "-o", str(so), str(cu)],

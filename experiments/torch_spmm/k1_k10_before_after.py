@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K1 (the sorted SpMM), K1w and the dot-mode K9, K10-dq and K10-dkv of a
-git revision beside this tree's, timed in one process on one card.
+"""K1 (the sorted SpMM), K1w, the dot-mode K9, K10-dq and K10-dkv, and the
+dot-mode K7 and K8 of a git revision beside this tree's, timed in one
+process on one card.
 
     # with git (the card's copy of the repo has none): write the
     # revision's sources into _archive/before_<rev>/ (git-ignored)
@@ -8,11 +9,11 @@ git revision beside this tree's, timed in one process on one card.
     # on the card: build both, check, time in turns
     python experiments/torch_spmm/k1_k10_before_after.py [--rev R]
 
-The revision (default ``b8eb749``) gives ``segment_kernels.cu``,
-``attention_kernels.cu`` and ``attention_common.cuh`` (``git show
-<rev>:<path>``); they are compiled with ``_build.NVCC_FLAGS`` into
-``_archive/before_<rev>/build/`` and loaded with ctypes beside the tree's
-libraries. Every shape is timed old, new, new, old (CUDA events, each a
+The revision (default ``12a5247``) gives ``segment_kernels.cu``,
+``attention_kernels.cu``, ``dedup_attention.cu`` and
+``attention_common.cuh`` (``git show <rev>:<path>``); they are compiled
+with ``_build.NVCC_FLAGS`` into ``_archive/before_<rev>/build/`` and
+loaded with ctypes beside the tree's libraries. Every shape is timed old, new, new, old (CUDA events, each a
 mean over warm launches) and the two runs of each averaged, so "no slower
 than before" is a comparison on one card. Shapes: K1 on the bench headline
 (CSC and CSR at D = 128, 16, 64), on the bench GAT graph (D = 64, 16), over
@@ -21,12 +22,17 @@ than before" is a comparison on one card. Shapes: K1 on the bench headline
 = 128), each beside ``torch.sparse.mm``; K1w at FAGCN's and GATv2's shapes;
 K10-dkv-dot (``k10``), K9-dot (``k9``) and K10-dq-dot (``k10dq``) at
 UniMP's (2, 128, 128) on the UniMP stand-in and on the bench GAT graph at
-rates 0 and 0.3, K9-dot and K10-dq-dot also at GATConv's many-head
-(43, 2, 8) with leaky 0.2 on the bench GAT graph (``--only`` picks among
-k1, k1w, k10, k9, k10dq). New results are held against the float64 plain
-version (``chip_smoke.check_spmm``) and old against new (the dot kernels:
-the largest difference, and whether the bits agree; ``chip_smoke.py``
-holds them against float64). The ``ptxas`` registers and spills of both
+rates 0 and 0.3, and at GATConv's many-head (43, 2, 8) with leaky 0.2 on
+the bench GAT graph; K7-dot (``k7``) and K8-dot (``k8``; the revision's
+counted with its two K1 folds of the slot rows over ``red``, which the
+tree's node walk replaces) at UniMP's shape on the bench GAT graph's
+count matrix at rates 0 and 0.3, and ``k7`` also prints both builds'
+digests of out | lse | dq on ``chip_smoke.PARENT_BITS_CASES`` (the
+revision's are the pinned ``PARENT_BITS``). ``--only`` picks among k1,
+k1w, k10, k9, k10dq, k7, k8. New results are held against the float64
+plain version (``chip_smoke.check_spmm``) and old against new (the dot
+kernels: the largest difference, and whether the bits agree;
+``chip_smoke.py`` holds them against float64). The ``ptxas`` registers and spills of both
 versions' kernels print first. One JSON line of all rows ends the output,
 after the card's name and power limit.
 """
@@ -43,7 +49,8 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 CSRC = "pgl_tpu_torch/ops/kernels/csrc"
 SOURCES = ("segment_kernels.cu", "attention_kernels.cu",
-           "attention_common.cuh")
+           "dedup_attention.cu", "attention_common.cuh")
+LIBS = ("segment_kernels", "attention_kernels", "dedup_attention")
 
 
 def old_dir(rev):
@@ -62,15 +69,15 @@ def extract(rev):
 
 
 def build_old(rev):
-    """Compile the revision's two sources in parallel; returns {name: CDLL}
-    and the ptxas logs."""
+    """Compile the revision's three sources in parallel; returns {name:
+    CDLL} and the ptxas logs."""
     from pgl_tpu_torch.ops.kernels import _build
     d = old_dir(rev)
     if not (d / SOURCES[0]).exists():
         raise SystemExit(f"{d} has no sources: run with --extract first")
     (d / "build").mkdir(exist_ok=True)
     procs = {}
-    for name in ("segment_kernels", "attention_kernels"):
+    for name in LIBS:
         so = d / "build" / f"lib{name}.so"
         procs[name] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
@@ -109,9 +116,9 @@ def registers(log, pattern):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--rev", default="b8eb749")
+    ap.add_argument("--rev", default="12a5247")
     ap.add_argument("--extract", action="store_true")
-    kinds = ("k1", "k1w", "k10", "k9", "k10dq")
+    kinds = ("k1", "k1w", "k10", "k9", "k10dq", "k7", "k8")
     ap.add_argument("--only", choices=kinds, nargs="+", default=kinds,
                     help="the kernels to time (default: all)")
     a = ap.parse_args()
@@ -123,11 +130,14 @@ def main():
     if not torch.cuda.is_available():
         print("k1_k10_before_after: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import (UNIMP_SHAPE, check_spmm,
-                            dedup_attention_of, dispatch_settings, dot_inputs,
-                            gat_host, headline_host, time_ms, unimp_host)
+    from chip_smoke import (PARENT_BITS_CASES, UNIMP_SHAPE, bits_digest,
+                            check_spmm, dedup_attention_of, dispatch_settings,
+                            dot_inputs, gat_host, headline_host,
+                            parent_bits_case, parent_bits_graph,
+                            run_dedup_dot, time_ms, unimp_host)
     from pgl_tpu_torch.ops.kernels import _build
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -136,8 +146,10 @@ def main():
     print(smi, flush=True)
     dev = torch.device("cuda")
     old, old_logs = build_old(a.rev)
-    new = _build.build("segment_kernels", "attention_kernels")
+    new = _build.build(*LIBS)
     new_logs = {n: p.with_suffix(".log").read_text() for n, p in new.items()}
+    lib_of = {"K1": "segment_kernels", "K7-dot": "dedup_attention",
+              "K8-dot": "dedup_attention"}
     for tag, logs, pat in (
             ("old K1", old_logs, r"spmm_piecesILi\dELi\d+ELi0ELi0E"),
             ("new K1", new_logs, r"spmm_(rows|packs)"),
@@ -146,10 +158,13 @@ def main():
             ("old K9-dot", old_logs, r"dot_fwd_(pieces|staged)"),
             ("new K9-dot", new_logs, r"dot_fwd_staged"),
             ("old K10-dq-dot", old_logs, r"dot_dq_(pieces|staged)"),
-            ("new K10-dq-dot", new_logs, r"dot_dq_staged")):
+            ("new K10-dq-dot", new_logs, r"dot_dq_staged"),
+            ("old K7-dot", old_logs, r"dedup_dot_fwd"),
+            ("new K7-dot", new_logs, r"dot_fwd_staged"),
+            ("old K8-dot", old_logs, r"dedup_dot_bwd_(rows|slots)"),
+            ("new K8-dot", new_logs, r"dot_(dq|dkv)_staged")):
         for args, regs, spill in registers(
-                logs["segment_kernels" if tag.split()[1] == "K1" else
-                     "attention_kernels"], pat):
+                logs[lib_of.get(tag.split()[1], "attention_kernels")], pat):
             print(f"[ptxas] {tag} {args}: {regs} registers, {spill} B "
                   "spilled", flush=True)
 
@@ -167,6 +182,14 @@ def main():
     att = old["attention_kernels"]
     for fn in ("pgl_dot_fwd_f32", "pgl_dot_dq_f32", "pgl_dot_dkv_f32"):
         getattr(att, fn).argtypes = getattr(ak._lib(), fn).argtypes
+    ded = old["dedup_attention"]
+    f = ctypes.c_float
+    cells = [p] * 3 + [p, i, p, p, i]   # node, unique row, count; pieces
+    dot = [i, i, i, f, p, i, f]          # H, dsh, dvh, slope, seed, ...
+    slots = [p] * 5 + [i]
+    ded.pgl_dedup_dot_fwd_f32.argtypes = [i] + [p] * 3 + cells + dot + [p] * 4
+    ded.pgl_dedup_dot_bwd_f32.argtypes = ([i] + [p] * 6 + cells + slots + dot
+                                          + [p] * 5)
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -254,15 +277,15 @@ def main():
             turns(f"K1w {tag} {op} H={H} D={D} {kind}",
                   lambda: launch(seg), lambda: launch(sk._lib()), 50)
 
-    def dkv_rows(tag, g, rates):
-        H, dsh, dvh = shape = UNIMP_SHAPE
+    def dkv_rows(tag, g, rates, shape=UNIMP_SHAPE, leaky=0.0):
+        H, dsh, dvh = shape
         csc, csr = g._attention_layouts()
         N = g.num_nodes
         q, k, v, g_out = dot_inputs(N, shape, dev, gen)
         seed = torch.tensor([12345], dtype=torch.int32, device=dev)
         for rate in rates:
             with torch.no_grad():
-                out, lse = ak._dot_fwd_cuda(q, k, v, csc, 0.0, dsh, dvh,
+                out, lse = ak._dot_fwd_cuda(q, k, v, csc, leaky, dsh, dvh,
                                             rate, seed)
                 delta = (g_out.reshape(N, H, dvh)
                          * out.reshape(N, H, dvh)).sum(-1)
@@ -280,14 +303,14 @@ def main():
                     csr.eidx.data_ptr(), csr.pieces.data_ptr(),
                     csr.pieces.shape[0], csr.split_rows.data_ptr(),
                     csr.split_ptr.data_ptr(), csr.split_rows.shape[0], H,
-                    dsh, dvh, 0.0, seed.data_ptr(), thresh, inv_keep,
+                    dsh, dvh, leaky, seed.data_ptr(), thresh, inv_keep,
                     dk.data_ptr(), dv.data_ptr(), part.data_ptr(), stream())
                 assert rc == 0, rc
                 res["old"] = dk, dv
 
             def new_dkv():
-                res["new"] = ak._dot_dkv_cuda(*ins, csr, 0.0, dsh, dvh, rate,
-                                              seed)
+                res["new"] = ak._dot_dkv_cuda(*ins, csr, leaky, dsh, dvh,
+                                              rate, seed)
             old_dkv()
             new_dkv()
             with torch.no_grad():
@@ -295,8 +318,9 @@ def main():
                            for o, n_ in zip(res["old"], res["new"]))
                 same = all(torch.equal(o, n_)
                            for o, n_ in zip(res["old"], res["new"]))
-            turns(f"K10-dkv-dot {tag} {shape} rate={rate}", old_dkv,
-                  new_dkv, 20, old_new_max_diff=diff, same_bits_as_old=same)
+            turns(f"K10-dkv-dot {tag} {shape} leaky={leaky} rate={rate}",
+                  old_dkv, new_dkv, 20, old_new_max_diff=diff,
+                  same_bits_as_old=same)
 
     def fwd_dq_rows(tag, g, shape, leaky, rates):
         """K9-dot and K10-dq-dot of both builds on the same inputs (dq on
@@ -368,6 +392,119 @@ def main():
             del out, lse, delta
             res.clear()
 
+    def old_k7(att, q, k, v, shape, leaky, rate, seed):
+        """The revision's dot-mode K7: (out, lse)."""
+        H, dsh, dvh = shape
+        N = q.shape[0]
+        thresh, inv_keep = ak._drop_args(rate)
+        out = torch.empty(N, H * dvh, device=dev)
+        lse = torch.empty(N, H, device=dev)
+        part = torch.empty(att.num_partials, H * dvh + 2 * H, device=dev)
+        rc = ded.pgl_dedup_dot_fwd_f32(
+            0, q.data_ptr(), k.data_ptr(), v.data_ptr(), *old_cells(att), H,
+            dsh, dvh, leaky, seed.data_ptr(), thresh, inv_keep,
+            out.data_ptr(), lse.data_ptr(), part.data_ptr(), stream())
+        assert rc == 0, rc
+        return out, lse
+
+    def old_k8(att, bwd, shape, leaky, rate, seed):
+        """The revision's dot-mode K8 and its two folds over ``red`` (this
+        tree's K1): (dq, dk, dv) on node rows."""
+        H, dsh, dvh = shape
+        N, S, lay = bwd[0].shape[0], att.num_slots, att.layout
+        thresh, inv_keep = ak._drop_args(rate)
+        dq = torch.empty(N, H * dsh, device=dev)
+        dk = torch.empty(S, H * dsh, device=dev)
+        dv = torch.empty(S, H * dvh, device=dev)
+        part = torch.empty(att.num_partials, H * dsh, device=dev)
+        rc = ded.pgl_dedup_dot_bwd_f32(
+            0, *(t.data_ptr() for t in bwd), *old_cells(att),
+            lay.uv.data_ptr(), lay.pairs.data_ptr(), att.slot_ptr.data_ptr(),
+            att.slot_dst.data_ptr(), att.slot_cnt.data_ptr(), S, H, dsh, dvh,
+            leaky, seed.data_ptr(), thresh, inv_keep, dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), part.data_ptr(), stream())
+        assert rc == 0, rc
+        return dq, sk._spmm_cuda(dk, att.red), sk._spmm_cuda(dv, att.red)
+
+    def old_cells(att):
+        return (att.cell_src.data_ptr(), att.cell_urow.data_ptr(),
+                att.cell_cnt.data_ptr(), att.pieces.data_ptr(),
+                att.pieces.shape[0], att.split_rows.data_ptr(),
+                att.split_ptr.data_ptr(), att.split_rows.shape[0])
+
+    def dedup_dot_rows(tag, att, shape, leaky, rates):
+        """K7-dot and K8-dot of both builds on the same inputs (K8 on the
+        new K7's lse and delta), timed in turns; the revision's K8 with
+        its two folds."""
+        H, dsh, dvh = shape
+        N = att.num_rows
+        q, k, v, g_out = dot_inputs(N, shape, dev, gen)
+        seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+        for rate in rates:
+            with torch.no_grad():
+                out, lse = da._dot_fwd_cuda(q, k, v, att, leaky, dsh, dvh,
+                                            rate, seed)
+                delta = (g_out.reshape(N, H, dvh)
+                         * out.reshape(N, H, dvh)).sum(-1)
+            bwd = (q, k, v, g_out, lse, delta)
+            res = {}
+
+            def old_fwd():
+                res["old"] = old_k7(att, q, k, v, shape, leaky, rate, seed)
+
+            def new_fwd():
+                res["new"] = da._dot_fwd_cuda(q, k, v, att, leaky, dsh, dvh,
+                                              rate, seed)
+
+            def old_bwd():
+                res["old"] = old_k8(att, bwd, shape, leaky, rate, seed)
+
+            def new_bwd():
+                res["new"] = da._dot_bwd_cuda(*bwd, att, leaky, dsh, dvh,
+                                              rate, seed)
+
+            # the outputs that keep the revision's bits: out and lse (K7),
+            # dq (K8); dk and dv are summed in another order
+            for kind, name, fo, fn, n_same in (
+                    ("k7", "K7-dot", old_fwd, new_fwd, 2),
+                    ("k8", "K8-dot", old_bwd, new_bwd, 1)):
+                if kind not in only:
+                    continue
+                fo()
+                fn()
+                with torch.no_grad():
+                    pairs = list(zip(res["old"], res["new"]))
+                    diff = [float((o - n_).abs().max()) for o, n_ in pairs]
+                    same = all(torch.equal(o, n_)
+                               for o, n_ in pairs[:n_same])
+                extra = {"dk_dv_max_diff": max(diff[1:])} \
+                    if kind == "k8" else {}
+                turns(f"{name} {tag} {shape} leaky={leaky} rate={rate}", fo,
+                      fn, 20, old_new_max_diff=max(diff),
+                      same_bits_as_old=same, **extra)
+            del out, lse, delta, bwd
+            res.clear()
+
+    def parent_digests():
+        """Both builds' digests of out | lse | dq on the pinned cases."""
+        att = parent_bits_graph(dev)
+        for shape, leaky, rate in PARENT_BITS_CASES:
+            ins, seed = parent_bits_case(att, shape, rate, dev)
+            q, k, v, g_out = ins
+            H, dsh, dvh = shape
+            with torch.no_grad():
+                out, lse = old_k7(att, q, k, v, shape, leaky, rate, seed)
+                delta = (g_out.reshape(-1, H, dvh)
+                         * out.reshape(-1, H, dvh)).sum(-1)
+                dq = old_k8(att, (q, k, v, g_out, lse, delta), shape, leaky,
+                            rate, seed)[0]
+                new = run_dedup_dot(att, ins, shape, rate, seed, leaky)
+            old_d, new_d = bits_digest(out, lse, dq), bits_digest(*new[:3])
+            rows.append(dict(name=f"digest {shape} {leaky} {rate}",
+                             old=old_d, new=new_d, same=old_d == new_d))
+            print(f"[digest] {(shape, leaky, rate)!r}: {old_d!r} old, "
+                  f"{new_d!r} new, same {old_d == new_d}", flush=True)
+
     only = set(a.only)
     if only & {"k1", "k1w"}:
         g = headline_host().tensor(dev)
@@ -401,9 +538,15 @@ def main():
         del red
     if "k10" in only:
         dkv_rows("bench GAT graph", g, (0.0, 0.3))
+        dkv_rows("bench GAT graph", g, (0.0, 0.3), (43, 2, 8), 0.2)
     if only & {"k9", "k10dq"}:
         fwd_dq_rows("bench GAT graph", g, UNIMP_SHAPE, 0.0, (0.0, 0.3))
         fwd_dq_rows("bench GAT graph", g, (43, 2, 8), 0.2, (0.0, 0.3))
+    if only & {"k7", "k8"}:
+        if "k7" in only:
+            parent_digests()
+        dedup_dot_rows("bench GAT graph", dedup_attention_of(g, dev, False),
+                       UNIMP_SHAPE, 0.0, (0.0, 0.3))
     del g, csc, csr
     torch.cuda.empty_cache()
 

@@ -28,9 +28,9 @@ segment op. ``send_uv`` is the reference's gathers (``:433-437``).
 
 The attention layouts of ``ops/kernels/attention_kernels.py`` (K9/K10) and
 the count-matrix attention's work lists of ``ops/kernels/dedup_attention.py``
-(K7/K8, with the fold ``red``) are built on the first attention call that
-needs them and kept on the device graph: ``tensor()`` alone does not build
-them.
+(K7/K8: cell lists in row, column and node order, and the additive mode's
+fold ``red``) are built on the first attention call that needs them and
+kept on the device graph: ``tensor()`` alone does not build them.
 """
 
 from __future__ import annotations
@@ -457,9 +457,9 @@ class Graph:
 
     def _dedup_attn_aux(self):
         """The count-matrix attention's view of the CSC dedup layout (K7/K8's
-        cell lists and ``red``, the fold of K8's slot rows), built from the
-        layout on the first call and kept on this device graph; None when
-        the graph has no dedup layouts."""
+        cell lists and ``red``, the fold of the additive K8's slot rows),
+        built from the layout on the first call and kept on this device
+        graph; None when the graph has no dedup layouts."""
         self._require_tensor()
         if self._dedup_layouts is None:
             return None

@@ -291,7 +291,7 @@ def gat_dkv_reference(a_dst, a_src, v, g, lse, delta,
                             layout.positions(), leaky_slope, dvh, attn_drop,
                             seed)
     return (ds.new_zeros(N, H).index_add_(0, src, ds),
-            head_scatter(q, g_e.reshape(len(src), -1), src, N))
+            head_scatter(q, g_e.flatten(1), src, N))
 
 
 def head_scatter(ds, x_e, rows, num_rows: int):
@@ -299,7 +299,8 @@ def head_scatter(ds, x_e, rows, num_rows: int):
     the per-head sum of edge rows ``x_e`` [E, H·w] weighted by ``ds``
     [E, H], into [num_rows, H·w]."""
     E, H = ds.shape
-    terms = (ds[..., None] * x_e.reshape(E, H, -1)).reshape(E, -1)
+    terms = (ds[..., None] * x_e.reshape(E, H, x_e.shape[1] // H)
+             ).reshape(E, x_e.shape[1])
     return terms.new_zeros(num_rows, terms.shape[1]).index_add_(0, rows,
                                                                 terms)
 
@@ -339,7 +340,7 @@ def dot_dkv_reference(q, k, v, g, lse, delta, layout: AttentionLayout,
                              layout.positions(), leaky_slope, dvh, attn_drop,
                              seed, dsh)
     return (head_scatter(ds, q[dst], src, N),
-            head_scatter(qe, g_e.reshape(dst.shape[0], -1), src, N))
+            head_scatter(qe, g_e.flatten(1), src, N))
 
 
 # -- CUDA --------------------------------------------------------------------

@@ -13,18 +13,22 @@
 //   additive: d a_dst[r] = sum_u ds;   slot (p, c) of unique row u:
 //             d a_src = sum_r ds,      dv = sum_r keep * p * g[r] / (1 - rate)
 //   dot:      dq[r] = sum_u ds * k[uv[u]] per head (a vector, dsh wide);
-//             slot (p, c): dk = sum_r ds * q[r],  dv as above
+//             node s: dk = sum ds * q[r],  dv = sum keep * p * g[r] /
+//             (1 - rate), over the cells whose unique row is node s
 //
 // Replaces the TPU kernels of pgl_tpu/ops/pallas/dedup_attention.py in
 // both modes: `_attn_fwd_kernel` (:102, K7) and `_attn_bwd_kernel` (:285,
-// K8). As there, d a_src (dk) and dv land in the pair's own slot rows
-// [P * 128, .] (row p * 128 + c belongs to unique row wb_p + c of pair p)
-// and K1 over `build_uniq_reduce`'s layout folds them onto nodes. The dot
-// mode has entry points of its own (`pgl_dedup_dot_fwd_f32`,
-// `pgl_dedup_dot_bwd_f32`, which take dsh); its heads hold score and value
-// columns in one group of slots (`DotSlots`), and K7, K8's row pass and
-// K8's slot pass all form a cell's score with `head_dot`, q first, so the
-// three passes see the same bits (attention_common.cuh).
+// K8). In additive mode, as there, d a_src and dv land in the pair's own
+// slot rows [P * 128, .] (row p * 128 + c belongs to unique row wb_p + c
+// of pair p) and K1 over `build_uniq_reduce`'s layout folds them onto
+// nodes. The dot mode (`pgl_dedup_dot_fwd_f32`, `pgl_dedup_dot_bwd_f32`)
+// runs the staged dot kernels of the per-edge attention in their cell form
+// (dot_staged.cuh): K7 and K8's row pass are the forward and the dq pass
+// over the cells in row order, and K8's dk and dv come from the dkv pass
+// over the cells in node order, a walk of each node's cells with its k | v
+// rows resident that writes node rows, so the dot mode has no slot rows
+// and no fold. All three form a cell's score with `head_dot`, q first, so
+// they see the same bits (attention_common.cuh).
 //
 // The reference has two forms of each kernel, one reading the cached bf16
 // counts (K4's), one rebuilding C from the pair's edges. Here both are one
@@ -39,9 +43,10 @@
 // 48 MB (K7) and 96 MB (K8: the slot rows are 39 MB of it) at the bench GAT
 // graph's (H, dvh) = (8, 8), 0.014 and 0.029 ms at 3.35 TB/s. In dot mode
 // at UniMP's (H, dsh, dvh) = (2, 128, 128) each cell gathers 2 KB of rows
-// (k|v; q|g in the slot pass), so the gathers set a floor above the table
-// bound. The dense TPU tile does 256 x 128 cells a pair though 1.6% of them
-// are nonzero there; the design:
+// (k|v; q|g in the node walk), so the gathers set a floor above the table
+// bound (dot_staged.cuh's note gives that design). The dense TPU tile does
+// 256 x 128 cells a pair though 1.6% of them are nonzero there; the
+// additive design:
 //   * work per nonzero cell, never per dense tile cell. A cell is visited
 //     once with its multiplicity, so a multigraph costs per distinct
 //     (dst, src) pair (552,791 cells for 1,048,576 edges on the bench GAT
@@ -54,8 +59,7 @@
 //   * K8's slot pass walks the cells in column order, one warp per slot of
 //     the [P * 128] slot rows: the cells of unique row wb_p + c in pair p,
 //     a run of the layout's dedup order, with the slot's node rows (a_src
-//     and v; k and v in dot mode) held in registers; an empty slot writes
-//     zeros;
+//     and v) held in registers; an empty slot writes zeros;
 //   * no float atomics: every run gives the same bits.
 // Staging each window's 128 source rows in shared memory (the TPU kernel's
 // gather saving) is left to a later optimisation: the row order visits
@@ -64,13 +68,16 @@
 // Dropout is the reference's cell key `_cell_idx` = dst * 0x9E3779B1 +
 // unique row (uint32 wrap-around, the reference's int32), hashed by
 // `drop_keep` with the seed and the head: a cell's duplicate edges drop
-// together. The softmax sum stays undropped.
+// together. The additive kernels form it from the row and the unique row;
+// the dot mode reads it from the work lists' per-cell key arrays. The
+// softmax sum stays undropped.
 //
 // Calling convention: launches on the given stream, does not synchronise,
 // allocates nothing (the caller passes outputs and partials), and returns
 // cudaGetLastError(). `thresh` < 0 turns dropout off.
 
 #include "attention_common.cuh"
+#include "dot_staged.cuh"
 
 namespace {
 
@@ -390,341 +397,6 @@ dedup_attn_bwd_slots(const float* __restrict__ a_dst,
   }
 }
 
-// Dot-mode K7, one warp per piece (row, begin, end, slot) of the
-// row-ordered cells: q's row is resident, each cell gathers k's and v's
-// rows of its node.
-template <int NC, int U>
-__global__ void __launch_bounds__(kWarps * 32)
-dedup_dot_fwd(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int* __restrict__ cell_src,
-              const int* __restrict__ cell_urow,
-              const int* __restrict__ cell_cnt,
-              const int4* __restrict__ pieces, int n_pieces, int H, int dsh,
-              int dvh, int wp, float slope, const int* __restrict__ seed_p,
-              int thresh, float inv_keep, float* __restrict__ out,
-              float* __restrict__ lse, float* __restrict__ partials) {
-  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (warp >= n_pieces) return;  // uniform across the warp
-  const int lane = threadIdx.x & 31;
-  const int DS = H * dsh;
-  const int C = H * dvh;
-  const int4 pc = pieces[warp];
-  const DotSlots<NC> sl(lane, H, dsh, dvh, wp);
-  const bool drop = thresh >= 0;
-  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
-  const uint32_t row_key = static_cast<uint32_t>(pc.x) * kCellMul;
-
-  float qr[NC], m[NC], l[NC], acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    qr[c] = sl.scol[c] >= 0
-                ? __ldg(q + static_cast<size_t>(pc.x) * DS + sl.scol[c])
-                : 0.f;
-    m[c] = kMaskValue;
-    l[c] = 0.f;
-    acc[c] = 0.f;
-  }
-  // each lane holds one cell (node, unique row, count) of the 32-cell batch
-  const bool has = lane < pc.z - pc.y;
-  int ms = has ? __ldg(cell_src + pc.y + lane) : 0;
-  int mu = has ? __ldg(cell_urow + pc.y + lane) : 0;
-  int mc = has ? __ldg(cell_cnt + pc.y + lane) : 0;
-  for (int base = pc.y; base < pc.z; base += 32) {
-    const int n = min(32, pc.z - base);
-    const int nx = base + 32 + lane;
-    const bool nhas = nx < pc.z;
-    const int ns = nhas ? __ldg(cell_src + nx) : 0;
-    const int nu = nhas ? __ldg(cell_urow + nx) : 0;
-    const int nc = nhas ? __ldg(cell_cnt + nx) : 0;
-    for (int j0 = 0; j0 < n; j0 += U) {
-      float kk[U][NC], vv[U][NC], cnt[U];
-      uint32_t key[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        const int s = __shfl_sync(kFull, ms, j & 31);
-        cnt[u] = static_cast<float>(__shfl_sync(kFull, mc, j & 31));
-        key[u] = row_key + static_cast<uint32_t>(__shfl_sync(kFull, mu, j & 31));
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          kk[u][c] = (j < n && sl.scol[c] >= 0)
-                         ? __ldg(k + static_cast<size_t>(s) * DS + sl.scol[c])
-                         : 0.f;
-          vv[u][c] = (j < n && sl.vcol[c] >= 0)
-                         ? __ldg(v + static_cast<size_t>(s) * C + sl.vcol[c])
-                         : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        if (j >= n) break;  // uniform
-        float sd[NC];
-        head_dot<NC>(qr, kk[u], wp, sd);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float s = leaky(sd[c], slope);
-          const float mn = fmaxf(m[c], s);
-          const float sc = expf(m[c] - mn);
-          const float p = cnt[u] * expf(s - mn);
-          l[c] = l[c] * sc + p;
-          const float pk =
-              (!drop || drop_keep(key[u], seed, sl.hc[c], thresh)) ? p : 0.f;
-          acc[c] = acc[c] * sc + pk * vv[u][c];
-          m[c] = mn;
-        }
-      }
-    }
-    ms = ns;
-    mu = nu;
-    mc = nc;
-  }
-  if (pc.w < 0) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const bool row = l[c] > 0.f;  // a row without cells stores zeros
-      if (sl.vcol[c] >= 0)
-        out[static_cast<size_t>(pc.x) * C + sl.vcol[c]] =
-            row ? acc[c] * (inv_keep / fmaxf(l[c], 1e-30f)) : 0.f;
-      if (sl.lead[c])
-        lse[static_cast<size_t>(pc.x) * H + sl.head[c]] =
-            row ? m[c] + logf(l[c]) : 0.f;
-    }
-  } else {
-    // partial row: acc [C] | m [H] | l [H], the additive mode's (merged by
-    // gat_fwd_combine)
-    float* part = partials + static_cast<size_t>(pc.w) * (C + 2 * H);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if (sl.vcol[c] >= 0) part[sl.vcol[c]] = acc[c];
-      if (sl.lead[c]) {
-        part[C + sl.head[c]] = m[c];
-        part[C + H + sl.head[c]] = l[c];
-      }
-    }
-  }
-}
-
-// Dot-mode K8's row pass, one warp per piece of the row-ordered cells:
-// dq[r, h-slice] = sum_u ds * k[uv[u], h-slice], with q's and g's rows and
-// lse and delta resident.
-template <int NC, int U>
-__global__ void __launch_bounds__(kWarps * 32)
-dedup_dot_bwd_rows(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ g,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   const int* __restrict__ cell_src,
-                   const int* __restrict__ cell_urow,
-                   const int* __restrict__ cell_cnt,
-                   const int4* __restrict__ pieces, int n_pieces, int H,
-                   int dsh, int dvh, int wp, float slope,
-                   const int* __restrict__ seed_p, int thresh,
-                   float inv_keep, float* __restrict__ dq,
-                   float* __restrict__ partials) {
-  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (warp >= n_pieces) return;
-  const int lane = threadIdx.x & 31;
-  const int DS = H * dsh;
-  const int C = H * dvh;
-  const int4 pc = pieces[warp];
-  const DotSlots<NC> sl(lane, H, dsh, dvh, wp);
-  const bool drop = thresh >= 0;
-  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
-  const uint32_t row_key = static_cast<uint32_t>(pc.x) * kCellMul;
-
-  float qr[NC], gr[NC], ls[NC], dl[NC], acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const size_t rh = static_cast<size_t>(pc.x) * H + sl.head[c];
-    qr[c] = sl.scol[c] >= 0
-                ? __ldg(q + static_cast<size_t>(pc.x) * DS + sl.scol[c])
-                : 0.f;
-    gr[c] = sl.vcol[c] >= 0
-                ? __ldg(g + static_cast<size_t>(pc.x) * C + sl.vcol[c])
-                : 0.f;
-    ls[c] = __ldg(lse + rh);
-    dl[c] = __ldg(delta + rh);
-    acc[c] = 0.f;
-  }
-  const bool has = lane < pc.z - pc.y;
-  int ms = has ? __ldg(cell_src + pc.y + lane) : 0;
-  int mu = has ? __ldg(cell_urow + pc.y + lane) : 0;
-  int mc = has ? __ldg(cell_cnt + pc.y + lane) : 0;
-  for (int base = pc.y; base < pc.z; base += 32) {
-    const int n = min(32, pc.z - base);
-    const int nx = base + 32 + lane;
-    const bool nhas = nx < pc.z;
-    const int ns = nhas ? __ldg(cell_src + nx) : 0;
-    const int nu = nhas ? __ldg(cell_urow + nx) : 0;
-    const int nc = nhas ? __ldg(cell_cnt + nx) : 0;
-    for (int j0 = 0; j0 < n; j0 += U) {
-      float kk[U][NC], vv[U][NC], cnt[U];
-      uint32_t key[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        const int s = __shfl_sync(kFull, ms, j & 31);
-        cnt[u] = static_cast<float>(__shfl_sync(kFull, mc, j & 31));
-        key[u] = row_key + static_cast<uint32_t>(__shfl_sync(kFull, mu, j & 31));
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          kk[u][c] = (j < n && sl.scol[c] >= 0)
-                         ? __ldg(k + static_cast<size_t>(s) * DS + sl.scol[c])
-                         : 0.f;
-          vv[u][c] = (j < n && sl.vcol[c] >= 0)
-                         ? __ldg(v + static_cast<size_t>(s) * C + sl.vcol[c])
-                         : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        if (j >= n) break;  // uniform
-        float sd[NC], gv[NC];
-        head_dot<NC>(qr, kk[u], wp, sd);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) gv[c] = gr[c] * vv[u][c];
-        head_sum<NC>(gv, wp);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float p =
-              cnt[u] * expf(fminf(leaky(sd[c], slope) - ls[c], 80.f));
-          const float qe =
-              drop ? (drop_keep(key[u], seed, sl.hc[c], thresh) ? p * inv_keep
-                                                                : 0.f)
-                   : p;
-          const float ds =
-              (qe * gv[c] - p * dl[c]) * leaky_grad(sd[c], slope);
-          acc[c] += ds * kk[u][c];
-        }
-      }
-    }
-    ms = ns;
-    mu = nu;
-    mc = nc;
-  }
-  float* dst = pc.w < 0 ? dq + static_cast<size_t>(pc.x) * DS
-                        : partials + static_cast<size_t>(pc.w) * DS;
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-    if (sl.scol[c] >= 0) dst[sl.scol[c]] = acc[c];
-}
-
-// Dot-mode K8's slot pass, one warp per slot t = p * 128 + c: the cells
-// (r, count) of unique row u = wb_p + c in pair p, in column order, with
-// the slot's node rows of k and v resident; each cell gathers q's and g's
-// rows of r, and lse and delta. Writes dk[t, h-slice] = sum_r ds * q[r,
-// h-slice] and dv[t, h-slice] = sum_r keep * p * g[r, h-slice] / (1 -
-// rate), zeros when the slot has no cells.
-template <int NC, int U>
-__global__ void __launch_bounds__(kWarps * 32)
-dedup_dot_bwd_slots(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ g,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const int* __restrict__ uv,
-                    const int4* __restrict__ pairs,
-                    const int* __restrict__ slot_ptr,
-                    const int* __restrict__ slot_dst,
-                    const int* __restrict__ slot_cnt, int n_slots, int H,
-                    int dsh, int dvh, int wp, float slope,
-                    const int* __restrict__ seed_p, int thresh,
-                    float inv_keep, float* __restrict__ dk,
-                    float* __restrict__ dv) {
-  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (warp >= n_slots) return;
-  const int lane = threadIdx.x & 31;
-  const int DS = H * dsh;
-  const int C = H * dvh;
-  const DotSlots<NC> sl(lane, H, dsh, dvh, wp);
-  const bool drop = thresh >= 0;
-  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
-  const int urow = pairs[warp / kWindow].y + warp % kWindow;
-  const int node = __ldg(uv + urow);
-
-  float kr[NC], vr[NC], dka[NC], dva[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    kr[c] = sl.scol[c] >= 0
-                ? __ldg(k + static_cast<size_t>(node) * DS + sl.scol[c])
-                : 0.f;
-    vr[c] = sl.vcol[c] >= 0
-                ? __ldg(v + static_cast<size_t>(node) * C + sl.vcol[c])
-                : 0.f;
-    dka[c] = 0.f;
-    dva[c] = 0.f;
-  }
-  const int b = __ldg(slot_ptr + warp);
-  const int e = __ldg(slot_ptr + warp + 1);
-  const bool has = lane < e - b;
-  int md = has ? __ldg(slot_dst + b + lane) : 0;
-  int mc = has ? __ldg(slot_cnt + b + lane) : 0;
-  for (int base = b; base < e; base += 32) {
-    const int n = min(32, e - base);
-    const int nx = base + 32 + lane;
-    const bool nhas = nx < e;
-    const int nd = nhas ? __ldg(slot_dst + nx) : 0;
-    const int nc = nhas ? __ldg(slot_cnt + nx) : 0;
-    for (int j0 = 0; j0 < n; j0 += U) {
-      float qd[U][NC], gd[U][NC], ls[U][NC], dl[U][NC], cnt[U];
-      uint32_t key[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        const int d = __shfl_sync(kFull, md, j & 31);
-        cnt[u] = static_cast<float>(__shfl_sync(kFull, mc, j & 31));
-        key[u] = static_cast<uint32_t>(d) * kCellMul +
-                 static_cast<uint32_t>(urow);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const size_t dh = static_cast<size_t>(d) * H + sl.head[c];
-          qd[u][c] = (j < n && sl.scol[c] >= 0)
-                         ? __ldg(q + static_cast<size_t>(d) * DS + sl.scol[c])
-                         : 0.f;
-          gd[u][c] = (j < n && sl.vcol[c] >= 0)
-                         ? __ldg(g + static_cast<size_t>(d) * C + sl.vcol[c])
-                         : 0.f;
-          ls[u][c] = j < n ? __ldg(lse + dh) : 0.f;
-          dl[u][c] = j < n ? __ldg(delta + dh) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        if (j >= n) break;  // uniform
-        float sd[NC], gv[NC];
-        head_dot<NC>(qd[u], kr, wp, sd);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) gv[c] = gd[u][c] * vr[c];
-        head_sum<NC>(gv, wp);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float p =
-              cnt[u] * expf(fminf(leaky(sd[c], slope) - ls[u][c], 80.f));
-          const float qe =
-              drop ? (drop_keep(key[u], seed, sl.hc[c], thresh) ? p * inv_keep
-                                                                : 0.f)
-                   : p;
-          const float ds =
-              (qe * gv[c] - p * dl[u][c]) * leaky_grad(sd[c], slope);
-          dka[c] += ds * qd[u][c];
-          dva[c] += qe * gd[u][c];
-        }
-      }
-    }
-    md = nd;
-    mc = nc;
-  }
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    if (sl.scol[c] >= 0)
-      dk[static_cast<size_t>(warp) * DS + sl.scol[c]] = dka[c];
-    if (sl.vcol[c] >= 0)
-      dv[static_cast<size_t>(warp) * C + sl.vcol[c]] = dva[c];
-  }
-}
-
 }  // namespace
 
 // K7: out [N, H * dvh] and lse [N, H]; partials [n_partials, C + 2H].
@@ -800,78 +472,50 @@ extern "C" int pgl_dedup_attn_bwd_f32(
 }
 
 // Dot-mode K7: out [N, H * dvh] and lse [N, H] from q, k [N, H * dsh] and v
-// [N, H * dvh]; partials [n_partials, H * dvh + 2H].
+// [N, H * dvh]; the cells in row order (node, count, key); partials
+// [n_partials, H * dvh + 2H].
 extern "C" int pgl_dedup_dot_fwd_f32(
     int device, const float* q, const float* k, const float* v,
-    const int* cell_src, const int* cell_urow, const int* cell_cnt,
+    const int* cell_src, const int* cell_cnt, const int* cell_key,
     const int* pieces, int n_pieces, const int* split_rows,
     const int* split_ptr, int n_split, int H, int dsh, int dvh, float slope,
     const int* seed, int thresh, float inv_keep, float* out, float* lse,
     float* partials, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int wp = 0;
-  const int nc = dot_slots(H, dsh, dvh, &wp);
-  const int dvh_p = pow2_at_least(dvh);
-  const int ncv = slots_per_lane(H, dvh_p);
-  if (nc == 0 || H <= 0 || dsh <= 0 || dvh <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* pc = reinterpret_cast<const int4*>(pieces);
-  PGL_NC_SWITCH(nc, {
-    dedup_dot_fwd<NC, unroll_for(NC)><<<blocks_for(n_pieces), kWarps * 32, 0,
-                                        s>>>(
-        q, k, v, cell_src, cell_urow, cell_cnt, pc, n_pieces, H, dsh, dvh, wp,
-        slope, seed, thresh, inv_keep, out, lse, partials);
-  })
-  if (n_split > 0) {
-    PGL_NC_SWITCH(ncv, {
-      gat_fwd_combine<NC><<<n_split, CombineWarps<NC>::value * 32, 0, s>>>(
-          partials, split_rows, split_ptr, H, dvh, dvh_p, inv_keep, out,
-          lse);
-    })
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dot_fwd_run<true>(q, k, v, cell_src, cell_cnt, cell_key, pieces,
+                           n_pieces, split_rows, split_ptr, n_split, H, dsh,
+                           dvh, slope, seed, thresh, inv_keep, out, lse,
+                           partials, static_cast<cudaStream_t>(stream));
 }
 
-// Dot-mode K8: dq [N, H * dsh] (row pass, partials [n_partials, H * dsh]
-// summed by a second launch), and the slot rows dk [n_slots, H * dsh] and
-// dv [n_slots, H * dvh] (slot pass; n_slots = P * 128).
+// Dot-mode K8: dq [N, H * dsh] (row pass over the cells in row order;
+// partials [n_partials, H * dsh] summed by a second launch), then dk
+// [N, H * dsh] and dv [N, H * dvh] (node walk over the cells in node order:
+// destination, count, key; node_partials [n_node_partials, H * (dsh + dvh)]
+// summed by a second launch).
 extern "C" int pgl_dedup_dot_bwd_f32(
     int device, const float* q, const float* k, const float* v,
     const float* g, const float* lse, const float* delta,
-    const int* cell_src, const int* cell_urow, const int* cell_cnt,
+    const int* cell_src, const int* cell_cnt, const int* cell_key,
     const int* pieces, int n_pieces, const int* split_rows,
-    const int* split_ptr, int n_split, const int* uv, const int* pairs,
-    const int* slot_ptr, const int* slot_dst, const int* slot_cnt,
-    int n_slots, int H, int dsh, int dvh, float slope, const int* seed,
+    const int* split_ptr, int n_split, const int* node_dst,
+    const int* node_cnt, const int* node_key, const int* node_pieces,
+    int n_node_pieces, const int* node_split_rows, const int* node_split_ptr,
+    int n_node_split, int H, int dsh, int dvh, float slope, const int* seed,
     int thresh, float inv_keep, float* dq, float* dk, float* dv,
-    float* partials, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+    float* partials, float* node_partials, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int wp = 0;
-  const int nc = dot_slots(H, dsh, dvh, &wp);
-  if (nc == 0 || H <= 0 || dsh <= 0 || dvh <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* pc = reinterpret_cast<const int4*>(pieces);
-  const auto* pr = reinterpret_cast<const int4*>(pairs);
-  PGL_NC_SWITCH(nc, {
-    if (n_pieces > 0)
-      dedup_dot_bwd_rows<NC, unroll_for(NC)><<<blocks_for(n_pieces),
-                                               kWarps * 32, 0, s>>>(
-          q, k, v, g, lse, delta, cell_src, cell_urow, cell_cnt, pc,
-          n_pieces, H, dsh, dvh, wp, slope, seed, thresh, inv_keep, dq,
-          partials);
-    if (n_slots > 0)
-      dedup_dot_bwd_slots<NC, unroll_for(NC)><<<blocks_for(n_slots),
-                                                kWarps * 32, 0, s>>>(
-          q, k, v, g, lse, delta, uv, pr, slot_ptr, slot_dst, slot_cnt,
-          n_slots, H, dsh, dvh, wp, slope, seed, thresh, inv_keep, dk, dv);
-  })
-  if (n_pieces > 0 && n_split > 0)
-    sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
-        partials, split_rows, split_ptr, H * dsh, 0, dq, nullptr);
-  return static_cast<int>(cudaGetLastError());
+  const int rc = dot_dq_run<true>(
+      q, k, v, g, lse, delta, cell_src, cell_cnt, cell_key, pieces, n_pieces,
+      split_rows, split_ptr, n_split, H, dsh, dvh, slope, seed, thresh,
+      inv_keep, dq, partials, s);
+  if (rc != 0) return rc;
+  return dot_dkv_run<true>(
+      q, k, v, g, lse, delta, node_dst, nullptr, node_cnt, node_key,
+      node_pieces, n_node_pieces, node_split_rows, node_split_ptr,
+      n_node_split, H, dsh, dvh, slope, seed, thresh, inv_keep, dk, dv,
+      node_partials, s);
 }

@@ -14,17 +14,22 @@ the CSC dedup layout (``dedup_kernels.py``) stands for the ``C[r, u]``
 edges into row r from unique row u (node ``uv[u]``), which share one score.
 
 * :func:`build_dedup_attention` builds, once on the host (numpy), what the
-  kernels walk: the nonzero cells with their multiplicities, in row order
-  (cut into pieces of at most ``ET`` cells by ``segment_kernels.cut_rows``)
-  and in column order (the layout's dedup order, by slot ``p·W + c``), and
-  :func:`build_uniq_reduce`, the reference's K1 layout that folds the
-  backward's pair-slot rows onto nodes.
+  kernels walk: the nonzero cells with their multiplicities and dropout
+  keys, in row order (cut into pieces of at most ``ET`` cells by
+  ``segment_kernels.cut_rows``), in column order (the layout's dedup
+  order, by slot ``p·W + c``; the additive K8) and in node order (by the
+  node of the cell's unique row, then slot, then row; the dot-mode K8,
+  cut into pieces the same way), and :func:`build_uniq_reduce`, the
+  reference's K1 layout that folds the additive backward's pair-slot rows
+  onto nodes.
 * :func:`dedup_gat_attention` and :func:`dedup_dot_attention` are autograd
   ``Function``s with the reference's contracts (``:727-768`` and
   ``:771-805``): the forward (K7) saves ``lse``; the backward computes
-  ``delta = Σ g·out`` in torch, runs K8 (``d a_dst`` or ``dq`` per row,
-  ``d a_src`` or ``dk``, and ``dv``, per pair slot), then K1 over ``red``
-  twice. The dropout seed is saved, so every pass draws the same mask.
+  ``delta = Σ g·out`` in torch and runs K8. In additive mode K8 gives ``d
+  a_dst`` per row and ``d a_src`` and ``dv`` per pair slot, then K1 folds
+  the slot rows over ``red``; in dot mode it gives ``dq`` per row and
+  ``dk`` and ``dv`` per node (the node walk), with no slot rows and no
+  fold. The dropout seed is saved, so every pass draws the same mask.
 * :func:`dedup_attention_reference` and :func:`dedup_bwd_reference`
   (additive), :func:`dedup_dot_reference` and :func:`dedup_dot_bwd_reference`
   (dot) are the plain PyTorch versions, in edge space over the dedup order
@@ -36,9 +41,11 @@ edges into row r from unique row u (node ``uv[u]``), which share one score.
 ``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, H, dvh)`` in additive
 mode, kernel one of ``dedup_fwd`` (K7) and ``dedup_bwd`` (K8: its row and
 slot passes), and by ``(kernel, H, dsh, dvh)`` in dot mode, kernel one of
-``dedup_dot_fwd`` and ``dedup_dot_bwd``; where a row has several pieces,
-each kernel's second launch counts under its name with ``_combine``. The
-fold counts in ``segment_kernels`` as ``("uniq_reduce", D)``.
+``dedup_dot_fwd`` and ``dedup_dot_bwd`` (K8: its row pass and node walk);
+where a row has several pieces, each kernel's second launch counts under
+its name with ``_combine``, and where a node's cells have several,
+K8-dot's under ``dedup_dot_bwd_node_combine``. The additive fold counts
+in ``segment_kernels`` as ``("uniq_reduce", D)``.
 """
 
 from __future__ import annotations
@@ -95,30 +102,45 @@ def build_uniq_reduce(layout: DedupLayout, num_nodes: int) -> sk.SpmmLayout:
 class DedupAttention:
     """What K7 and K8 read of a CSC dedup layout (int32 tensors on one
     device), with the layout itself (the plain versions' edge space) and
-    ``red``, the fold of the slot rows.
+    ``red``, the additive mode's fold of the slot rows.
 
     Row order (K7, K8's row pass): the nonzero cells sorted by (dst, unique
     row); ``cell_src`` [n] the cell's node ``uv[u]``, ``cell_urow`` [n] its
-    unique row u, ``cell_cnt`` [n] its multiplicity; ``pieces``,
-    ``split_rows``, ``split_ptr``: the work list of ``cut_rows``.
-    Column order (K8's slot pass): the cells by slot ``p·W + c``, in the
-    layout's dedup order; ``slot_ptr`` [P·W + 1] their ranges,
+    unique row u, ``cell_cnt`` [n] its multiplicity, ``cell_key`` [n] its
+    dropout key (:func:`cell_idx`); ``pieces``, ``split_rows``,
+    ``split_ptr``: the work list of ``cut_rows``.
+    Column order (the additive K8's slot pass): the cells by slot ``p·W +
+    c``, in the layout's dedup order; ``slot_ptr`` [P·W + 1] their ranges,
     ``slot_dst`` [n] and ``slot_cnt`` [n] the cells' rows and
     multiplicities.
+    Node order (the dot-mode K8's node walk): the cells sorted by (node
+    ``uv[u]``, slot, dst), so a node's terms come in the order the slot
+    rows and their fold would sum them; ``node_dst`` [n], ``node_cnt``
+    [n] and ``node_key`` [n] the cells' rows, multiplicities and keys;
+    ``node_pieces``, ``node_split_rows``, ``node_split_ptr``: ``cut_rows``
+    over the nodes' cell counts.
     """
     layout: DedupLayout
     red: sk.SpmmLayout
     num_cells: int
     num_partials: int
+    num_node_partials: int
     cell_src: torch.Tensor
     cell_urow: torch.Tensor
     cell_cnt: torch.Tensor
+    cell_key: torch.Tensor
     pieces: torch.Tensor
     split_rows: torch.Tensor
     split_ptr: torch.Tensor
     slot_ptr: torch.Tensor
     slot_dst: torch.Tensor
     slot_cnt: torch.Tensor
+    node_dst: torch.Tensor
+    node_cnt: torch.Tensor
+    node_key: torch.Tensor
+    node_pieces: torch.Tensor
+    node_split_rows: torch.Tensor
+    node_split_ptr: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -164,11 +186,16 @@ def build_dedup_attention(layout: DedupLayout,
     cnt = np.diff(np.append(starts, E))
     c_slot, c_dst, c_urow = slot[starts], dst[starts], urow[starts]
     slot_ptr = np.searchsorted(c_slot, np.arange(layout.num_pairs * W + 1))
-    by_row = np.lexsort((c_urow, c_dst))
-    indptr = np.concatenate([[0], np.cumsum(np.bincount(c_dst,
-                                                        minlength=N))])
-    pieces, split_rows, split_ptr = sk.cut_rows(indptr, ET)
     uv = layout.uv.cpu().numpy().astype(np.int64)
+    c_node = uv[c_urow]
+    c_key = cell_idx(*map(torch.from_numpy, (c_dst, c_urow))).numpy()
+    by_row = np.lexsort((c_urow, c_dst))
+    pieces, split_rows, split_ptr = sk.cut_rows(_row_ptr(c_dst, N), ET)
+    # the cells are in (slot, dst) order, so a stable sort by node gives
+    # (node, slot, dst)
+    by_node = np.argsort(c_node, kind="stable")
+    node_pieces, node_split_rows, node_split_ptr = sk.cut_rows(
+        _row_ptr(c_node, N), ET)
     device = layout.device
 
     def put(a):
@@ -178,10 +205,22 @@ def build_dedup_attention(layout: DedupLayout,
     return DedupAttention(
         layout=layout, red=build_uniq_reduce(layout, N),
         num_cells=len(starts), num_partials=int(split_ptr[-1]),
-        cell_src=put(uv[c_urow[by_row]]), cell_urow=put(c_urow[by_row]),
-        cell_cnt=put(cnt[by_row]), pieces=put(pieces),
-        split_rows=put(split_rows), split_ptr=put(split_ptr),
-        slot_ptr=put(slot_ptr), slot_dst=put(c_dst), slot_cnt=put(cnt))
+        num_node_partials=int(node_split_ptr[-1]),
+        cell_src=put(c_node[by_row]), cell_urow=put(c_urow[by_row]),
+        cell_cnt=put(cnt[by_row]), cell_key=put(c_key[by_row]),
+        pieces=put(pieces), split_rows=put(split_rows),
+        split_ptr=put(split_ptr), slot_ptr=put(slot_ptr),
+        slot_dst=put(c_dst), slot_cnt=put(cnt),
+        node_dst=put(c_dst[by_node]), node_cnt=put(cnt[by_node]),
+        node_key=put(c_key[by_node]), node_pieces=put(node_pieces),
+        node_split_rows=put(node_split_rows),
+        node_split_ptr=put(node_split_ptr))
+
+
+def _row_ptr(rows, num_rows):
+    """CSR pointer [num_rows + 1] of items sorted by ``rows``."""
+    return np.concatenate([[0], np.cumsum(np.bincount(
+        rows, minlength=num_rows))]).astype(np.int64)
 
 
 def cell_idx(dst: torch.Tensor, urow: torch.Tensor) -> torch.Tensor:
@@ -242,19 +281,19 @@ def dedup_dot_reference(q, k, v, layout: DedupLayout, dsh: int, dvh: int,
 def dedup_dot_bwd_reference(q, k, v, g, lse, delta, layout: DedupLayout,
                             dsh: int, dvh: int, leaky_slope: float = 0.0,
                             attn_drop: float = 0.0, seed=None):
-    """The plain dot-mode K8: ``(dq [N, H·dsh], dk slots [P·W, H·dsh], dv
-    slots [P·W, H·dvh])``, per head ``Σ ds·k[src]`` into rows and ``Σ
-    ds·q[dst]``, ``Σ keep·p·g[dst]`` into pair slots, the slot rows before
-    the fold."""
-    dst, urow, slot = _edge_slots(layout)
+    """The plain dot-mode K8: ``(dq [N, H·dsh], dk [N, H·dsh], dv [N,
+    H·dvh])``, per head ``Σ ds·k[src]`` into destination rows and ``Σ
+    ds·q[dst]``, ``Σ keep·p·g[dst]`` into source nodes, as the kernels'
+    node walk writes them (no slot rows, no fold)."""
+    dst, urow, _ = _edge_slots(layout)
     src = layout.uv.long()[urow]
     qe, ds, g_e = edge_grads(q, k, v, g, lse, delta, dst, src,
                              cell_idx(dst, urow), leaky_slope, dvh, attn_drop,
                              seed, dsh)
-    S = layout.num_pairs * W
-    return (head_scatter(ds, k[src], dst, q.shape[0]),
-            head_scatter(ds, q[dst], slot, S),
-            head_scatter(qe, g_e.reshape(dst.shape[0], -1), slot, S))
+    N = q.shape[0]
+    return (head_scatter(ds, k[src], dst, N),
+            head_scatter(ds, q[dst], src, N),
+            head_scatter(qe, g_e.flatten(1), src, N))
 
 
 # -- CUDA --------------------------------------------------------------------
@@ -267,12 +306,13 @@ def _lib():
     tail = [i, i, f, p, i, f]     # H, dvh, slope, seed, thresh, inv_keep
     dot = [i] + tail              # H, dsh, dvh, ...
     slots = [p] * 5 + [i]         # uv, pairs, slot_ptr/dst/cnt, n_slots
+    cells = [p] * 3 + rows        # (node or dst, count, key), the work list
     sigs = {"pgl_dedup_attn_fwd_f32": [i] + [p] * 6 + rows + tail + [p] * 4,
             "pgl_dedup_attn_bwd_f32": [i] + [p] * 9 + rows + slots + tail
             + [p] * 5,
-            "pgl_dedup_dot_fwd_f32": [i] + [p] * 6 + rows + dot + [p] * 4,
-            "pgl_dedup_dot_bwd_f32": [i] + [p] * 9 + rows + slots + dot
-            + [p] * 5}
+            "pgl_dedup_dot_fwd_f32": [i] + [p] * 3 + cells + dot + [p] * 4,
+            "pgl_dedup_dot_bwd_f32": [i] + [p] * 6 + cells + cells + dot
+            + [p] * 6}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -298,6 +338,24 @@ def _rows(att):
             att.cell_cnt.data_ptr(), att.pieces.data_ptr(),
             att.pieces.shape[0], att.split_rows.data_ptr(),
             att.split_ptr.data_ptr(), att.split_rows.shape[0])
+
+
+def _cells(att):
+    """The row-ordered cells as the dot-mode entry points take them: nodes,
+    counts, keys, then the work list."""
+    return (att.cell_src.data_ptr(), att.cell_cnt.data_ptr(),
+            att.cell_key.data_ptr(), att.pieces.data_ptr(),
+            att.pieces.shape[0], att.split_rows.data_ptr(),
+            att.split_ptr.data_ptr(), att.split_rows.shape[0])
+
+
+def _node_cells(att):
+    """The node-ordered cells (K8-dot's node walk): rows, counts, keys,
+    then the work list."""
+    return (att.node_dst.data_ptr(), att.node_cnt.data_ptr(),
+            att.node_key.data_ptr(), att.node_pieces.data_ptr(),
+            att.node_pieces.shape[0], att.node_split_rows.data_ptr(),
+            att.node_split_ptr.data_ptr(), att.node_split_rows.shape[0])
 
 
 def _slots(att):
@@ -419,7 +477,7 @@ def _dot_fwd_cuda(q, k, v, att, slope, dsh, dvh, rate, seed):
     thresh, inv_keep = _drop_args(rate)
     _raise_on(_lib().pgl_dedup_dot_fwd_f32(
         v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *_rows(att), H, dsh, dvh, slope, seed.data_ptr(), thresh, inv_keep,
+        *_cells(att), H, dsh, dvh, slope, seed.data_ptr(), thresh, inv_keep,
         out.data_ptr(), lse.data_ptr(), part.data_ptr(), _stream(v)),
         "dot forward")
     _count("dedup_dot_fwd", att, H, dsh, dvh)
@@ -427,24 +485,28 @@ def _dot_fwd_cuda(q, k, v, att, slope, dsh, dvh, rate, seed):
 
 
 def _dot_bwd_cuda(q, k, v, g, lse, delta, att, slope, dsh, dvh, rate, seed):
-    """Dot-mode K8 (row pass, slot pass, the sum of split rows): ``(dq, dk
-    slots, dv slots)``; the row pass's partials are ``H·dsh`` wide."""
+    """Dot-mode K8 (row pass, node walk, the sums of split rows and split
+    nodes): ``(dq, dk, dv)``, all on node rows; the row pass's partials
+    are ``H·dsh`` wide, the node walk's ``H·(dsh + dvh)``."""
     N, H = q.shape[0], q.shape[1] // dsh
     _check(att, H, dvh, q, k, v, g, lse, delta, dsh=dsh)
-    S = att.num_slots
-    dq = torch.empty(N, H * dsh, dtype=v.dtype, device=v.device)
-    dk = torch.empty(S, H * dsh, dtype=v.dtype, device=v.device)
-    dv = torch.empty(S, H * dvh, dtype=v.dtype, device=v.device)
+    dq, dk = (torch.empty(N, H * dsh, dtype=v.dtype, device=v.device)
+              for _ in range(2))
+    dv = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
     part = torch.empty(att.num_partials, H * dsh, dtype=v.dtype,
                        device=v.device)
+    node_part = torch.empty(att.num_node_partials, H * (dsh + dvh),
+                            dtype=v.dtype, device=v.device)
     thresh, inv_keep = _drop_args(rate)
     _raise_on(_lib().pgl_dedup_dot_bwd_f32(
         v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_rows(att),
-        *_slots(att), H, dsh, dvh, slope, seed.data_ptr(), thresh, inv_keep,
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
-        _stream(v)), "dot backward")
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_cells(att),
+        *_node_cells(att), H, dsh, dvh, slope, seed.data_ptr(), thresh,
+        inv_keep, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        part.data_ptr(), node_part.data_ptr(), _stream(v)), "dot backward")
     _count("dedup_dot_bwd", att, H, dsh, dvh)
+    if att.num_node_partials:
+        LAUNCHES_BY_SHAPE[("dedup_dot_bwd_node_combine", H, dsh, dvh)] += 1
     return dq, dk, dv
 
 
@@ -475,10 +537,7 @@ class _DedupDotAttention(torch.autograd.Function):
         else:
             dq, dk, dv = dedup_dot_bwd_reference(*ins, att.layout, dsh, dvh,
                                                  slope, rate, seed)
-        # fold the pair-slot rows onto nodes (K1 over ``red``), dk and dv
-        # apart
-        return (dq, sk._spmm_one(dk, att.red), sk._spmm_one(dv, att.red),
-                None, None, None, None, None, None)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def dedup_dot_attention(q, k, v, att: DedupAttention, num_heads: int,
@@ -494,7 +553,8 @@ def dedup_dot_attention(q, k, v, att: DedupAttention, num_heads: int,
       k: [N, H·dsh] source-side score features.
       v: [N, H·dvh] values (no lane padding, unlike the reference's).
       att: the graph's :func:`build_dedup_attention` (``Graph.
-        _dedup_attn_aux()``), which carries the CSC dedup layout and ``red``.
+        _dedup_attn_aux()``), which carries the CSC dedup layout and the
+        cell lists.
       num_heads: H.
       dsh, dvh: per-head score and value widths (default ``q.shape[1] //
         H`` and ``v.shape[1] // H``).

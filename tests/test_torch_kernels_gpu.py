@@ -18,8 +18,11 @@ their outputs are convex combinations or sums of bounded terms) and must
 give the same bits on two runs; in dot mode through ``check_dot`` (dq, dk
 and dv with the terms scale); the count-matrix attention (K7, K8, and K1
 over ``red``) through ``check_dedup_attention``, and in dot mode through
-``check_dedup_dot`` (dq and the dk and dv slot rows with the terms scale),
-with the same bits on two runs and on a layout without counts. K1w and the
+``check_dedup_dot`` (dq, dk and dv with the terms scale; dk and dv on node
+rows), with the same bits on two runs and on a layout without counts; in
+dot mode the cell form of the staged kernels must also give the per-edge
+form's bits at count one, and 12a5247's bits on the pinned cases
+(``check_parent_bits``). K1w and the
 weighted K6 go through ``check_weighted`` (forward, dx and dw with the
 terms scale) and must give the same bits on two runs. K11, the dedup SDDMM,
 must equal its plain version bit for bit (``check_sddmm``: one IEEE
@@ -38,7 +41,7 @@ from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS, SDDMM_OPS,
                         attention_graph, attention_inputs, check,
                         check_attention, check_counts, check_dedup,
                         check_dedup_attention, check_dedup_dot,
-                        check_dedup_exact, check_dot,
+                        check_dedup_exact, check_dot, check_parent_bits,
                         check_sddmm, check_sddmm_grad, check_spmm,
                         check_weighted, dedup_attention_of,
                         dedup_case_edges, dedup_case_facts, dedup_layouts,
@@ -766,13 +769,13 @@ def test_dot_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("H,dsh,dvh", [(2, 128, 128), (8, 16, 16), (4, 64, 8)])
 def test_dedup_dot_kernels_match_plain_version(cuda, H, dsh, dvh, rate):
-    """The dot-mode K7, K8 and the folds on a graph whose hub destination
-    is split across pieces; two runs, and the layout without counts, give
-    the same bits."""
+    """The dot-mode K7 and K8 on a graph whose hub destination and hub
+    source are split across pieces; two runs, and the layout without
+    counts, give the same bits."""
     g = Graph(attention_graph(3000, 40000, seed=4), num_nodes=3000
               ).tensor(cuda)
     att = dedup_attention_of(g, cuda)
-    assert att.num_partials > 0
+    assert att.num_partials > 0 and att.num_node_partials > 0
     shape = (H, dsh, dvh)
     gen = torch.Generator(device=cuda).manual_seed(H * dsh * dvh)
     ins = dot_inputs(3000, shape, cuda, gen)
@@ -784,11 +787,146 @@ def test_dedup_dot_kernels_match_plain_version(cuda, H, dsh, dvh, rate):
         assert all(map(torch.equal, got,
                        run_dedup_dot(other, ins, shape, rate, seed)))
     torch.cuda.synchronize()
-    assert dict(da.LAUNCHES_BY_SHAPE) == {
-        (k + c, *shape): 3 for k in DDOT_KERNELS for c in ("", "_combine")}
+    want = {(k + c, *shape): 3 for k in DDOT_KERNELS
+            for c in ("", "_combine")}
+    want["dedup_dot_bwd_node_combine", *shape] = 3
+    assert dict(da.LAUNCHES_BY_SHAPE) == want
     check_dedup_dot("small", att, ins, shape, rate, seed, got)
     out, lse = got[:2]
     assert (out[1:1500] == 0).all() and (lse[1:1500] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("instance", sorted(DOT_STAGED_CASES))
+def test_dedup_dot_every_slot_count(cuda, instance, rate, aligned):
+    """The dot-mode K7 and K8 (the staged kernels' cell form) in every
+    instantiation (NC, FULL, WIDE) of ``DOT_STAGED_CASES``, 16- and 4-byte
+    staging, against float64 on a multigraph whose hub destination and hub
+    source split; two runs and a layout without counts give the same
+    bits."""
+    nc, full, wide = instance
+    *shape, leaky = DOT_STAGED_CASES[instance]
+    shape = tuple(shape)
+    edges = attention_graph(3000, 40000, seed=6)
+    edges[-4000:] = edges[:4000]
+    g = Graph(edges, num_nodes=3000).tensor(cuda)
+    att = dedup_attention_of(g, cuda)
+    assert att.num_partials > 0 and att.num_node_partials > 0
+    assert int(att.cell_cnt.max()) > 1
+    gen = torch.Generator(device=cuda).manual_seed(nc + 100 * full
+                                                   + 1000 * wide)
+    ins = dot_inputs(3000, shape, cuda, gen)
+    if not aligned:
+        ins = tuple(_misaligned(t) for t in ins)
+    seed = torch.tensor([-123456789], dtype=torch.int32, device=cuda)
+    got = run_dedup_dot(att, ins, shape, rate, seed, leaky)
+    for other in (att, without_counts(att)):
+        assert all(map(torch.equal, got, run_dedup_dot(
+            other, ins, shape, rate, seed, leaky)))
+    torch.cuda.synchronize()
+    check_dedup_dot(f"NC={nc}", att, ins, shape, rate, seed, got, leaky)
+
+
+def _cells_as_edge_layouts(att):
+    """Per-edge work lists (``ak.AttentionLayout``) over K7/K8's cell lists:
+    the row-ordered cells as CSC edges, the node-ordered cells as CSR edges
+    whose ``eidx`` is the cells' keys."""
+    def rows_of(pieces):
+        row, begin, end, _ = pieces.long().T
+        return torch.repeat_interleave(row, end - begin).int()
+
+    n, N = att.num_cells, att.num_rows
+    csc = ak.AttentionLayout(
+        "csc", N, n, int(att.cell_src.max()), att.num_partials,
+        att.cell_src, rows_of(att.pieces), None, att.pieces, att.split_rows,
+        att.split_ptr)
+    csr = ak.AttentionLayout(
+        "csr", N, n, int(att.node_dst.max()), att.num_node_partials,
+        att.node_dst, rows_of(att.node_pieces), att.node_key,
+        att.node_pieces, att.node_split_rows, att.node_split_ptr)
+    return csc, csr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("instance", sorted(DOT_STAGED_CASES))
+def test_dedup_dot_cell_form_is_the_edge_form_at_count_one(cuda, instance):
+    """On a simple graph (every count 1) the cell form of the three staged
+    kernels gives the per-edge form's bits over the same lists: K7's out
+    and lse and K8's dq at rate 0 (K9 and K10-dq key the dropout by
+    position), K8's dk and dv at rate 0.3 too (K10-dkv reads its keys from
+    ``eidx``, here the cells'). So the count and the key enter where the
+    per-edge arithmetic has its 1 and its position, and nowhere else."""
+    nc, full, wide = instance
+    *shape, leaky = DOT_STAGED_CASES[instance]
+    H, dsh, dvh = shape = tuple(shape)
+    edges = np.unique(attention_graph(3000, 40000, seed=6), axis=0)
+    g = Graph(edges, num_nodes=3000).tensor(cuda)
+    att = dedup_attention_of(g, cuda)
+    assert int(att.cell_cnt.max()) == 1 and att.num_node_partials > 0
+    csc, csr = _cells_as_edge_layouts(att)
+    gen = torch.Generator(device=cuda).manual_seed(nc)
+    q, k, v, g_out = dot_inputs(3000, shape, cuda, gen)
+    for rate in (0.0, 0.3):
+        seed = torch.tensor([-5555], dtype=torch.int32, device=cuda)
+        out, lse, dq, dk, dv = run_dedup_dot(att, (q, k, v, g_out), shape,
+                                             rate, seed, leaky)
+        with torch.no_grad():
+            delta = (g_out.reshape(-1, H, dvh)
+                     * out.reshape(-1, H, dvh)).sum(-1)
+            bwd = (q, k, v, g_out, lse, delta)
+            dk_e, dv_e = ak._dot_dkv_cuda(*bwd, csr, leaky, dsh, dvh, rate,
+                                          seed)
+            assert torch.equal(dk, dk_e) and torch.equal(dv, dv_e)
+            if rate == 0:
+                out_e, lse_e = ak._dot_fwd_cuda(q, k, v, csc, leaky, dsh,
+                                                dvh, rate, seed)
+                dq_e = ak._dot_dq_cuda(*bwd, csc, leaky, dsh, dvh, rate,
+                                       seed)
+                assert torch.equal(out, out_e) and torch.equal(lse, lse_e)
+                assert torch.equal(dq, dq_e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc", sorted(DOT_NC_SHAPES))
+def test_dedup_dot_keep_masks_are_the_plain_cell_mask(cuda, nc):
+    """On a permutation graph (one cell a row and a node): with q = k = 0
+    and v = 1, K7's out is 1 / (1 - rate) where the cell is kept and 0
+    where it is dropped; with q = 0, k = g = v = 1 and lse = delta = 0, K8's
+    dq is dvh / (1 - rate) and its dv (the node walk, on the cell's node)
+    1 / (1 - rate) where kept, 0 where dropped. All three keep bits equal
+    ``drop_keep`` of the cell key ``cell_idx`` for every head."""
+    n, rate = 4096, 0.3
+    H, dsh, dvh = shape = DOT_NC_SHAPES[nc]
+    g, _ = _permutation_graph(n, cuda)
+    att = dedup_attention_of(g, cuda, counts=False)
+    lay = att.layout
+    dst, urow, _ = da._edge_slots(lay)
+    key = da.cell_idx(dst, urow)
+    zeros = torch.zeros(n, H * dsh, device=cuda)
+    ones_s = torch.ones(n, H * dsh, device=cuda)
+    ones = torch.ones(n, H * dvh, device=cuda)
+    zero_h = torch.zeros(n, H, device=cuda)
+    seed = torch.tensor([-1640531535], dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        out, _ = da._dot_fwd_cuda(zeros, zeros, ones, att, 0.0, dsh, dvh,
+                                  rate, seed)
+        dq, _, dv = da._dot_bwd_cuda(zeros, ones_s, ones, ones, zero_h,
+                                     zero_h, att, 0.0, dsh, dvh, rate, seed)
+    want = torch.stack([ak.drop_keep(key, seed, h, rate) for h in range(H)],
+                       dim=1)
+    for got, rows, w in ((out, dst, dvh), (dq, dst, dsh),
+                         (dv, lay.uv.long()[urow], dvh)):
+        assert torch.equal(got.reshape(n, H, w)[rows] != 0,
+                           want[:, :, None].expand(n, H, w))
+
+
+@pytest.mark.gpu
+def test_dedup_dot_keeps_the_parent_bits(cuda):
+    """K7-dot's out and lse and K8-dot's dq equal 12a5247's bits on the
+    pinned cases (``chip_smoke.PARENT_BITS``)."""
+    assert len(check_parent_bits(cuda)) == 6
 
 
 @pytest.mark.gpu
@@ -796,7 +934,8 @@ def test_dedup_dot_kernels_match_plain_version(cuda, H, dsh, dvh, rate):
 def test_transformer_on_dedup_graph_on_cuda_matches_cpu(cuda, kind):
     """A small TransformerConv (3 heads of 8) and UniMP (2 heads of 16) on
     a graph with dedup layouts (the band opened to it): the dot-mode K7/K8
-    and the folds against the CPU's plain versions with the same weights,
+    (dk and dv on node rows) against the CPU's plain versions with the
+    same weights,
     logits and every parameter gradient at ``check``'s rule."""
     g, labels = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
                                 avg_degree=8, seed=5)
