@@ -11,11 +11,12 @@ there is no card or any phase fails. Phases:
    ``pgl_tpu_torch/ops/kernels/csrc`` (one ``nvcc`` per source, in
    parallel) and print the build time and ``ptxas`` report, and for each
    instantiation of the dedup apply (K5, K6, the weighted K6) its
-   registers, spills and dynamic shared memory, and of K1 (``spmm_rows``,
-   ``spmm_packs``) and the staged dot kernels (``dot_fwd_staged``,
-   ``dot_dq_staged``, ``dot_dkv_staged``: K9 and K10 per edge, K7 and K8
-   per cell) its registers and spills, failing if a staged dot kernel
-   spills;
+   registers, spills and dynamic shared memory, and of K1 and K1w
+   (``spmm_rows``, ``spmm_packs``; K1w's by its weight and weight-gradient
+   ops), the additive K8's node walk (``dedup_attn_bwd_nodes``) and the
+   staged dot kernels (``dot_fwd_staged``, ``dot_dq_staged``,
+   ``dot_dkv_staged``: K9 and K10 per edge, K7 and K8 per cell) its
+   registers and spills, failing if a staged dot kernel spills;
 2. every kernel against its plain PyTorch version on the card, forward and
    backward: the plain version runs in float64 on the same inputs, and
    ``|kernel - plain| <= 1e-4 * max(1, |plain|, ||terms||_2)`` elementwise,
@@ -65,22 +66,22 @@ there is no card or any phase fails. Phases:
    rows split, no SpMM) and a finite, falling loss; a torch.profiler trace
    of the bench GAT step gives its device time by kernel and idle share;
    and the kernels are timed as in 4;
-6. the dedup GAT path (count-matrix attention, K7 and K8, then K1 over
-   ``build_uniq_reduce``'s layout): the bench GAT graph under
-   ``dispatch.DEDUP`` (K4 twice at ``tensor()``; K7/K8's work lists built
-   at the first attention call); K7, K8 and the two K1 folds against their
-   float64 plain versions at rates 0 and 0.6 on the skewed small graph
-   (seven head shapes, 3·H > 128 among them) and on the bench GAT graph,
-   two runs and a layout without counts giving the same bits; the keep
-   bits of K7 and K8 equal the plain cell mask exactly (a permutation
-   graph); the small GAT through the dedup path, CUDA against CPU; then
-   three training runs of 20 timed steps, asserting their launches per
-   step (K7, K8 and their merges at each of (H, dvh) = (8, 8) and (1, 16),
-   the four folds, nothing else): the bench GAT, the same graph over a
-   zero counts budget, and GAT's default dropouts with
-   ``attn_drop_mode="cell"``; a torch.profiler trace of the step; the
-   kernels timed as in 4; and the attention device time per step of this
-   route beside the per-edge route's;
+6. the dedup GAT path (count-matrix attention, K7 and K8; K8's node walk
+   writes d a_src and dv on node rows, with no fold): the bench GAT graph
+   under ``dispatch.DEDUP`` (K4 twice at ``tensor()``; K7/K8's work lists
+   built at the first attention call); K7 and K8 against their float64
+   plain versions at rates 0 and 0.6 on the skewed small graph (seven head
+   shapes, 3·H > 128 among them) and on the bench GAT graph, two runs and
+   a layout without counts giving the same bits; the keep bits of K7 and
+   K8 equal the plain cell mask exactly (a permutation graph); the small
+   GAT through the dedup path, CUDA against CPU; then three training runs
+   of 20 timed steps, asserting their launches per step (K7, K8 and their
+   merges at each of (H, dvh) = (8, 8) and (1, 16), nothing else): the
+   bench GAT, the same graph over a zero counts budget, and GAT's default
+   dropouts with ``attn_drop_mode="cell"``; a torch.profiler trace of the
+   step; the kernels timed as in 4, K8 beside its byte bound and the
+   bound of the rows its passes gather; and the attention device time per
+   step of this route beside the per-edge route's;
 7. the UniMP path (per-edge attention in dot mode, K9 and K10 on q·k
    scores): the dot-mode K9, K10-dq and K10-dkv against their float64
    plain versions at rates 0 and 0.3 (dq, dk and dv with the terms scale),
@@ -121,11 +122,15 @@ there is no card or any phase fails. Phases:
    UniMP step of this route beside the per-edge route's on the same graph
    (phase 7's dot kernels there);
 9. the edge-weighted path (``send_ue_recv``: K1w, the sorted SpMM on
-   weighted messages, and the weighted K6): K1w forward, dx and dw (one
-   launch over CSR) against their float64 plain versions with the terms
-   scale, for mul and add, one weight an edge or 8 a head, D in (16, 64,
-   128), on the skewed small graph and the headline graph, two runs giving
-   the same bits, and each gradient alone; the weighted K6 forward, dx and
+   weighted messages over K1's work list, and the weighted K6): K1w
+   forward, dx with dw and dw alone over every kind of work item (the K1
+   case graph) at D in (1, 3, 8, 16, 64, 128) with every head count of
+   ``K1W_ITEM_CASES``, mul and add, on 16-byte and unaligned tables; then
+   forward, dx and dw (one launch over CSR) against their float64 plain
+   versions with the terms scale, for mul and add, one weight an edge or 8
+   a head, D in (16, 64, 128), on the skewed small graph and the headline
+   graph, two runs giving the same bits, and each gradient alone; the
+   weighted K6 forward, dx and
    dw (K1w's pass) on the headline graph under ``DEDUP`` against float64,
    the same bits twice, forward and dx within tolerance of K1w, at D = 16
    and 64 and with weights over six orders of magnitude; small
@@ -249,11 +254,22 @@ def apply_report(log):
 # argument is CELLS, 0 per edge (K9, K10) and 1 per count-matrix cell (K7,
 # K8 in dot mode)
 _STAGED = r"ILi(\d+)ELb(\d)ELb(\d)ELb{}E"
+# K1's items kernels are K1w's with no weight op (WOP = DWOP = 0)
+_ITEMS = r"ILi(\d+)ELi(\d+)ELi(\d+)ELi{}ELi{}E"
 REGISTER_REPORT = (
-    ("K1 spmm_rows", r"spmm_rowsILi(\d+)ELi(\d+)ELi(\d+)E",
+    ("K1 spmm_rows", "spmm_rows" + _ITEMS.format(0, 0), ("VEC", "L", "NV")),
+    ("K1 spmm_packs", "spmm_packs" + _ITEMS.format(0, 0),
      ("VEC", "L", "NV")),
-    ("K1 spmm_packs", r"spmm_packsILi(\d+)ELi(\d+)ELi(\d+)E",
-     ("VEC", "L", "NV")),
+    ("K1w spmm_rows", "spmm_rows" + _ITEMS.format(r"([12])", r"(\d)"),
+     ("VEC", "L", "NV", "WOP", "DWOP")),
+    ("K1w spmm_rows", "spmm_rows" + _ITEMS.format("(0)", r"([12])"),
+     ("VEC", "L", "NV", "WOP", "DWOP")),
+    ("K1w spmm_packs", "spmm_packs" + _ITEMS.format(r"([12])", r"(\d)"),
+     ("VEC", "L", "NV", "WOP", "DWOP")),
+    ("K1w spmm_packs", "spmm_packs" + _ITEMS.format("(0)", r"([12])"),
+     ("VEC", "L", "NV", "WOP", "DWOP")),
+    ("K8 node walk dedup_attn_bwd_nodes",
+     r"dedup_attn_bwd_nodesILi(\d+)ELi(\d+)ELi(\d+)E", ("NC", "U", "G")),
     ("K9-dot dot_fwd_staged", "dot_fwd_staged" + _STAGED.format(0),
      ("NC", "FULL", "WIDE")),
     ("K10-dq-dot dot_dq_staged", "dot_dq_staged" + _STAGED.format(0),
@@ -269,10 +285,10 @@ REGISTER_REPORT = (
 
 
 def register_report(log):
-    """Lines on K1's and the staged dot kernels' instantiations (K9, K10
-    per edge; K7, K8 per cell) from ``nvcc -Xptxas -v``'s report ``log``:
-    registers and spilled bytes of each. Raises if a staged dot kernel
-    spills."""
+    """Lines on K1's, K1w's, the additive K8 node walk's and the staged dot
+    kernels' instantiations (K9, K10 per edge; K7, K8 per cell) from ``nvcc
+    -Xptxas -v``'s report ``log``: registers and spilled bytes of each.
+    Raises if a staged dot kernel spills."""
     import re
     lines, entry, spills, spilled, spill_bytes = [], None, "", [], 0
     for line in log.splitlines():
@@ -693,9 +709,8 @@ def phase_timing(g, dev, by_shape):
                 "library_ms": lib_ms, "share": bound_ms / ms,
                 "shape": {"layout": kind, "rows": lay.num_rows,
                           "edges": lay.num_edges, "D": d,
-                          "pieces": int(lay.pieces.shape[0]),
                           "items": int(lay.items.shape[0]),
-                          "split_rows": int(lay.split_rows.shape[0])}})
+                          "split_rows": int(lay.item_split_rows.shape[0])}})
             print(f"[timing] {kind} D={d}: kernel {ms:.5f} ms, plain "
                   f"{plain_ms:.5f} ms, torch.sparse.mm {lib_ms:.5f} ms, "
                   f"bound {bound_ms:.5f} ms ({bound_ms / ms:.3f} of it)",
@@ -1413,30 +1428,27 @@ def without_counts(att):
 
 
 def run_dedup_attention(att, ins, rate, seed):
-    """K7, K8 and K1's two folds of K8's slot rows on float32 ``ins``:
-    ``(out, lse, d a_dst, d a_src slots, dv slots, d a_src, dv)``."""
+    """K7 and K8 on float32 ``ins``: ``(out, lse, d a_dst, d a_src, dv)``,
+    all on node rows."""
     import torch
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
-    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
     a_dst, a_src, v, g = ins
     H = a_dst.shape[1]
     dvh = v.shape[1] // H
     with torch.no_grad():
         out, lse = da._fwd_cuda(a_dst, a_src, v, att, 0.2, dvh, rate, seed)
         delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
-        bwd = da._bwd_cuda(a_dst, a_src, v, g, lse, delta, att, 0.2, dvh,
-                           rate, seed)
-        return (out, lse) + bwd + (sk._spmm_cuda(bwd[1], att.red),
-                                   sk._spmm_cuda(bwd[2], att.red))
+        return (out, lse) + da._bwd_cuda(a_dst, a_src, v, g, lse, delta,
+                                         att, 0.2, dvh, rate, seed)
 
 
 def check_dedup_attention(tag, att, ins, rate, seed, got):
     """``got`` of :func:`run_dedup_attention` against the plain versions in
-    float64 on the same inputs (the folds by ``check_spmm``); returns the
-    max |err| of K7, K8 and the folds."""
+    float64 on the same inputs (d a_src and dv with the terms scale: a hub
+    source sums thousands of them); returns the max |err| of K7 and K8."""
     import torch
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
-    out, lse, da_dst, dsrc, dv, fold_src, fold_v = got
+    out, lse, da_dst, dsrc, dv = got
     a_dst, a_src, v, g = ins
     H = a_dst.shape[1]
     dvh = v.shape[1] // H
@@ -1447,26 +1459,41 @@ def check_dedup_attention(tag, att, ins, rate, seed, got):
                                                     0.2, dvh, rate, seed)
         delta = (d64[3].reshape(-1, H, dvh)
                  * out.double().reshape(-1, H, dvh)).sum(-1)
-        dq_p, dsrc_p, dv_p = da.dedup_bwd_reference(
-            *d64, lse.double(), delta, att.layout, 0.2, dvh, rate, seed)
+        bwd = (*d64, lse.double(), delta, att.layout, 0.2, dvh, rate, seed)
+        dq_p, dsrc_p, dv_p = da.dedup_bwd_reference(*bwd)
+        terms = dedup_bwd_terms(*bwd)
         return {"dedup_fwd": max(check(f"{name} K7 out", out, out_p),
                                  check(f"{name} K7 lse", lse, lse_p)),
                 "dedup_bwd": max(check(f"{name} K8 d a_dst", da_dst, dq_p),
-                                 check(f"{name} K8 d a_src slots", dsrc,
-                                       dsrc_p),
-                                 check(f"{name} K8 dv slots", dv, dv_p)),
-                "uniq_reduce": max(check_spmm(f"{name} fold d a_src",
-                                              fold_src, dsrc, att.red),
-                                   check_spmm(f"{name} fold dv", fold_v, dv,
-                                              att.red))}
+                                 check(f"{name} K8 d a_src", dsrc, dsrc_p,
+                                       terms[0]),
+                                 check(f"{name} K8 dv", dv, dv_p,
+                                       terms[1]))}
+
+
+def dedup_bwd_terms(a_dst, a_src, v, g, lse, delta, layout, slope, dvh,
+                    rate, seed):
+    """The 2-norm of the terms each node's d a_src and dv sum (``check``'s
+    scale for the node walk's sums), in float64."""
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+    N, H = a_dst.shape
+    dst, urow, _ = da._edge_slots(layout)
+    src = layout.uv.long()[urow]
+    q, ds, g_e = ak.edge_grads(a_dst, a_src, v, g, lse, delta, dst, src,
+                               da.cell_idx(dst, urow), slope, dvh, rate,
+                               seed)
+    dv = (q[..., None] * g_e).reshape(-1, H * dvh)
+    return (ds.new_zeros(N, H).index_add_(0, src, ds * ds).sqrt(),
+            dv.new_zeros(N, H * dvh).index_add_(0, src, dv * dv).sqrt())
 
 
 def phase_dedup_attention_kernels(g_gat, dev):
-    """K7, K8 and the folds against their float64 plain versions at rates 0
-    and 0.6 (seed drawn per case), on the small graph at several head
-    shapes and on the bench GAT graph at the GAT's; a second run and a
-    layout without counts give the same bits. Returns the max |err| per
-    (kernel, H, dvh) on the bench graph."""
+    """K7 and K8 against their float64 plain versions at rates 0 and 0.6
+    (seed drawn per case), on the small graph at several head shapes and
+    on the bench GAT graph at the GAT's; a second run and a layout without
+    counts give the same bits. Returns the max |err| per (kernel, H, dvh)
+    on the bench graph."""
     import torch
     from pgl_tpu_torch import Graph
 
@@ -1474,8 +1501,10 @@ def phase_dedup_attention_kernels(g_gat, dev):
                   ).tensor(dev)
     atts = {"small": dedup_attention_of(small, dev),
             "headline": g_gat._dedup_attn_aux()}
-    if not (atts["small"].num_partials and atts["headline"].num_partials):
-        raise AssertionError("both graphs must split rows into pieces")
+    if not (atts["small"].num_partials and atts["headline"].num_partials
+            and atts["small"].num_node_partials):
+        raise AssertionError("both graphs must split rows into pieces, and "
+                             "the small graph's hub source its cells")
     bare = {tag: without_counts(att) for tag, att in atts.items()}
     gen = torch.Generator(device=dev).manual_seed(6)
     errs = {}
@@ -1502,21 +1531,18 @@ def phase_dedup_attention_kernels(g_gat, dev):
             print(f"[dedup attention] {tag} N={att.num_rows} E="
                   f"{att.layout.num_edges} cells={att.num_cells} H={H} "
                   f"dvh={dvh} rate={rate}: max |err| K7 "
-                  f"{e['dedup_fwd']:.3e} K8 {e['dedup_bwd']:.3e} folds "
-                  f"{e['uniq_reduce']:.3e}; same bits on a second run and "
-                  "without counts", flush=True)
+                  f"{e['dedup_fwd']:.3e} K8 {e['dedup_bwd']:.3e}; same bits "
+                  "on a second run and without counts", flush=True)
     reset_all_launches()
     return errs
 
 
 def phase_dedup_attention_mask(dev, n=1 << 20, dot=False):
     """The keep bits of K7 and K8 equal the plain cell mask exactly: on a
-    permutation graph every row has one cell and every nonempty slot (every
-    node, in dot mode) one, so with a_dst = a_src = 0 (``dot``: q = k = 0
-    with dsh = 2), v = g = 1 and dvh = 1, K7's out and K8's dv slot rows
-    (dot: dv node rows, from the node walk) are 1 / (1 - rate) where the
-    cell is kept and 0 where it is dropped, and every other slot row is
-    0."""
+    permutation graph every row has one cell and every node one, so with
+    a_dst = a_src = 0 (``dot``: q = k = 0 with dsh = 2), v = g = 1 and dvh
+    = 1, K7's out and K8's dv node rows (from the node walk) are 1 / (1 -
+    rate) where the cell is kept and 0 where it is dropped."""
     import torch
     from pgl_tpu_torch import Graph
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
@@ -1530,10 +1556,9 @@ def phase_dedup_attention_mask(dev, n=1 << 20, dot=False):
     lay = att.layout
     if not lay.simple:
         raise AssertionError("a permutation graph is simple")
-    dst, urow, slot = da._edge_slots(lay)
+    dst, urow, _ = da._edge_slots(lay)
     key = da.cell_idx(dst, urow)
-    # where K8 writes a cell's dv: its pair slot, or (dot) its node
-    dv_row = lay.uv.long()[urow] if dot else slot
+    dv_row = lay.uv.long()[urow]   # where K8 writes a cell's dv: its node
     zeros = torch.zeros(n, 2 * H if dot else H, device=dev)
     ones = torch.ones(n, H, device=dev)
     for seed_v in (-1640531535, 12345):
@@ -1557,7 +1582,7 @@ def phase_dedup_attention_mask(dev, n=1 << 20, dot=False):
                     f"{name} keep bits differ from the plain mask in "
                     f"{int((got != want).sum())} of {want.numel()}")
         if int((dv != 0).sum()) != int(want.sum()):
-            raise AssertionError("K8 wrote to a slot row without cells")
+            raise AssertionError("K8 wrote to a node row without cells")
     reset_all_launches()
     mode = "dot " if dot else ""
     print(f"[dedup {mode}attention] keep bits of K7 and K8 equal the plain "
@@ -1567,8 +1592,8 @@ def phase_dedup_attention_mask(dev, n=1 << 20, dot=False):
 
 def dedup_gat_per_step(g):
     """Launches per GAT step on the dedup route: K7 and K8 once at each
-    shape (with their second launches where rows split), and K1 over
-    ``red`` at D = H and D = H·dvh."""
+    shape, with their second launches where rows (and for K8's node walk,
+    nodes) split; no fold (the node walk writes node rows)."""
     att = g._dedup_attn_aux()
     per = {}
     for H, dvh in GAT_SHAPES:
@@ -1576,8 +1601,8 @@ def dedup_gat_per_step(g):
             per[kernel, H, dvh] = 1
             if att.num_partials:
                 per[f"{kernel}_combine", H, dvh] = 1
-        for d in (H, H * dvh):
-            per["uniq_reduce", d] = 1
+        if att.num_node_partials:
+            per["dedup_bwd_node_combine", H, dvh] = 1
     return per
 
 
@@ -1614,47 +1639,27 @@ def timing_row(rows, info, name, kernel, source, replaces, launches, err,
           f"{bound_ms / ms:.3f} of it){gather}", flush=True)
 
 
-def time_uniq_reduce(rows, info, red, d, launches, dev, gen, iters):
-    """Time K1 over ``red`` (the fold of K8's slot rows) at width ``d``
-    beside its plain version and ``torch.sparse.mm``, check it, and add its
-    row."""
-    import torch
-    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
-    N, S = red.num_rows, red.num_edges
-    A = torch.sparse_csr_tensor(red.indptr, red.indices,
-                                torch.ones(S, device=dev), size=(N, S))
-    x = torch.randn(S, d, device=dev, generator=gen)
-    out = torch.empty(N, d, device=dev)
-    part = torch.empty(red.item_partials, d, device=dev)
-    ms = time_ms(lambda: sk._launch(x, red, out, part), iters)
-    plain_ms = time_ms(lambda: sk.spmm_reference(x, red), 10)
-    lib_ms = time_ms(lambda: torch.sparse.mm(A, x), iters)
-    with torch.no_grad():
-        err = check_spmm(f"timed uniq_reduce D={d}", out, x, red)
-    nbytes = 4 * (S * d + S + N + 1 + N * d)
-    timing_row(rows, info, f"spmm_uniq_reduce_d{d}", "uniq_reduce", SOURCE,
-               REPLACES, launches, err, ms, plain_ms, nbytes, S * d, lib_ms,
-               D=d)
-
-
 def phase_dedup_attention_timing(g, dev, runs, errs):
     """Rows at the GAT's shapes on the dedup route: K7 and K8 (each
-    wrapper's launches, merges included) at rate 0 and 0.6, and K1 over
-    ``red`` at D = H and H·dvh, beside the plain versions, the bound and,
-    for K1, ``torch.sparse.mm``. ``runs`` maps a rate to the launches of its
-    training run."""
+    wrapper's launches, merges included) at rate 0 and 0.6, beside the
+    plain versions, the byte bound and, for K8, the bound of the rows its
+    passes gather, with K8 split by kernel (row pass, node walk). ``runs``
+    maps a rate to the launches of its training run."""
     import torch
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
 
     att = g._dedup_attn_aux()
     lay = att.layout
-    N, n, S = g.num_nodes, att.num_cells, att.num_slots
+    N, n = g.num_nodes, att.num_cells
     n_pieces = int(att.pieces.shape[0])
+    n_node_pieces = int(att.node_pieces.shape[0])
     gen = torch.Generator(device=dev).manual_seed(7)
     seed = torch.tensor([12345], dtype=torch.int32, device=dev)
     shape = {"rows": N, "edges": lay.num_edges, "cells": n,
              "pieces": n_pieces, "split_rows": int(att.split_rows.shape[0]),
-             "pairs": lay.num_pairs, "slots": S}
+             "node_pieces": n_node_pieces,
+             "split_nodes": int(att.node_split_rows.shape[0]),
+             "pairs": lay.num_pairs}
     rows = []
     for H, dvh in GAT_SHAPES:
         C = H * dvh
@@ -1675,16 +1680,18 @@ def phase_dedup_attention_timing(g, dev, runs, errs):
                     *bwd, att, 0.2, dvh, rate, seed), 50)
                 bwd_plain = time_ms(lambda: da.dedup_bwd_reference(
                     *bwd, lay, 0.2, dvh, rate, seed), 3)
+                split = kernel_split_ms(lambda: da._bwd_cuda(
+                    *bwd, att, 0.2, dvh, rate, seed))
             suffix = f"_drop{rate:g}" if rate else ""
             # bytes: each input read once (the node tables; 3 ints a cell
-            # and 4 a piece in row order; K8 also 2 ints a cell, the slot
-            # pointers, pairs and uv in column order), each output written
-            # once (out and lse; d a_dst and the slot rows)
+            # and 4 a piece in row order; K8 also 3 ints a cell and 4 a
+            # piece in node order), each output written once (out and lse;
+            # d a_dst, d a_src and dv)
             row_ints = 3 * n + 4 * n_pieces
+            node_ints = 3 * n + 4 * n_node_pieces
             fwd_bytes = 4 * (N * (2 * H + C) + row_ints + N * (C + H))
-            bwd_bytes = 4 * (N * (4 * H + 2 * C) + row_ints + 2 * n + S + 1
-                             + 4 * lay.num_pairs + lay.uv.numel()
-                             + N * H + S * (H + C))
+            bwd_bytes = 4 * (N * (4 * H + 2 * C) + row_ints + node_ints
+                             + N * (2 * H + C))
             # operations a cell and head: add, leaky, max, 2 exp, 2 scale,
             # count multiply (K8: clamp, leaky slope, 2 multiply-adds, each
             # pass), the hash (8 integer ops); a cell and column: 2 (K7's
@@ -1692,18 +1699,35 @@ def phase_dedup_attention_timing(g, dev, runs, errs):
             per_head = 8 + 8 * drop
             fwd_ops = n * (H * per_head + 2 * C)
             bwd_ops = n * (2 * H * (per_head + 2) + 6 * C)
-            for kernel, ms, plain_ms, nbytes, ops in (
-                    ("dedup_fwd", fwd_ms, fwd_plain, fwd_bytes, fwd_ops),
-                    ("dedup_bwd", bwd_ms, bwd_plain, bwd_bytes, bwd_ops)):
+            # gathered a cell: a_src | v (K8's row pass), a_dst, lse,
+            # delta | g (its node walk)
+            rows_gather = 4 * n * (H + C)
+            walk_gather = 4 * n * (3 * H + C)
+            for kernel, ms, plain_ms, nbytes, ops, gathered in (
+                    ("dedup_fwd", fwd_ms, fwd_plain, fwd_bytes, fwd_ops,
+                     None),
+                    ("dedup_bwd", bwd_ms, bwd_plain, bwd_bytes, bwd_ops,
+                     rows_gather + walk_gather)):
                 timing_row(rows, shape, f"{kernel}_h{H}_d{dvh}{suffix}",
                            kernel, DATTN_SOURCE, DATTN_REPLACES[kernel],
                            launches.get((kernel, H, dvh), 0),
                            errs[kernel, H, dvh], ms, plain_ms, nbytes, ops,
-                           None, H=H, dvh=dvh, rate=rate)
-        for d in (H, C):
-            time_uniq_reduce(rows, shape, att.red, d,
-                             runs[0.0].get(("uniq_reduce", d), 0), dev, gen,
-                             50)
+                           None, gathered, H=H, dvh=dvh, rate=rate)
+            passes = {"row pass": rows_gather, "node walk": walk_gather}
+            parts = []
+            for name, part_ms in sorted(split.items()):
+                what = ("row pass" if name.startswith("dedup_attn_bwd_rows")
+                        else "node walk"
+                        if name.startswith("dedup_attn_bwd_nodes") else name)
+                bound = passes.get(what)
+                parts.append(f"{what} ({name}) {part_ms:.5f} ms" + (
+                    "" if bound is None else
+                    f", gather bound {bound / HBM_BYTES_PER_S * 1e3:.5f} "
+                    f"ms ({bound / HBM_BYTES_PER_S * 1e3 / part_ms:.3f} of "
+                    "it)"))
+            rows[-1]["split_ms"] = split
+            print(f"[timing] dedup_bwd H={H} dvh={dvh} rate={rate} by "
+                  "kernel: " + "; ".join(parts), flush=True)
     reset_all_launches()
     return rows
 
@@ -1736,7 +1760,7 @@ def phase_dedup_gat(dev, edge_route_ms):
     t_att = time.perf_counter() - t0
     csc_d, csr_d = g._dedup_layouts
     print(f"[graph] GAT under DEDUP: tensor() {t_tensor:.3f} s (generator, "
-          f"layouts and K4 included); K7/K8 work lists and red {t_att:.3f} "
+          f"layouts and K4 included); K7/K8 work lists {t_att:.3f} "
           f"s on the host. CSC {csc_d.num_pairs} pairs, "
           f"{csc_d.groups.shape[0]} groups, {csc_d.num_partials} partials in "
           f"{csc_d.split_blocks.shape[0]} split blocks, simple "
@@ -1745,7 +1769,8 @@ def phase_dedup_gat(dev, edge_route_ms):
           f"CSR {csr_d.num_pairs} pairs, counts "
           f"{csr_d.counts_bytes / 1e6:.1f} MB; {att.num_cells} nonzero "
           f"cells, {att.pieces.shape[0]} pieces, {att.split_rows.shape[0]} "
-          f"split rows, {att.num_slots} slots", flush=True)
+          f"split rows; node order {att.node_pieces.shape[0]} pieces, "
+          f"{att.node_split_rows.shape[0]} split nodes", flush=True)
     errs = phase_dedup_attention_kernels(g, dev)
     phase_dedup_attention_mask(dev)
     phase_gat_small(dev, dedup=True)
@@ -1765,15 +1790,13 @@ def phase_dedup_gat(dev, edge_route_ms):
         lambda g: gat_trainer(g, defaults=True, mode="cell"))
     prof = phase_gat_profile(g, "GAT dedup")
     rows = phase_dedup_attention_timing(g, dev, {0.0: by0, 0.6: by6}, errs)
-    # K7 and K8 once a step at each shape, and the four folds
-    folds_ms = sum(r["ms"] for r in rows
-                   if r["shape"]["kernel"] == "uniq_reduce")
-    attn = {rate: folds_ms + sum(r["ms"] for r in rows
-                                 if r["shape"].get("rate") == rate)
+    # K7 and K8 once a step at each shape
+    attn = {rate: sum(r["ms"] for r in rows
+                      if r["shape"].get("rate") == rate)
             for rate in (0.0, 0.6)}
     lower = "dedup" if attn[0.0] < edge_route_ms else "per-edge"
     print(f"[default] attention device ms per bench GAT step: dedup route "
-          f"(K7, K8, folds) {attn[0.0]:.5f}, per-edge route (K9, K10) "
+          f"(K7, K8) {attn[0.0]:.5f}, per-edge route (K9, K10) "
           f"{edge_route_ms:.5f}; lower: {lower}; dedup route at rate 0.6 "
           f"(cell mode) {attn[0.6]:.5f}", flush=True)
     return rows, {
@@ -2560,7 +2583,7 @@ def phase_unimp_dedup(dev, edge_route_ms):
     t_sort = time.perf_counter() - t0
     print(f"[graph] UniMP dedup: bench GAT graph N={g.num_nodes} "
           f"E={g.num_edges} under DEDUP, tensor() {t_tensor:.3f} s (K4 "
-          f"included), K7/K8 work lists and red {t_att:.3f} s (the node "
+          f"included), K7/K8 work lists {t_att:.3f} s (the node "
           f"order's sort {t_sort:.4f} s); {att.num_cells} cells, "
           f"{att.pieces.shape[0]} pieces, {att.split_rows.shape[0]} split "
           f"rows, {att.node_pieces.shape[0]} node pieces, "
@@ -2673,10 +2696,55 @@ def run_weighted(x, w, g, csc, csr, op, need_dx=True, need_dw=True):
     return out.detach(), xr.grad, wr.grad
 
 
+# K1w on every kind of work item: widths and the heads that divide them
+K1W_ITEM_CASES = {1: (1,), 3: (1, 3), 8: (1, 2, 8), 16: (1, 4),
+                  64: (1, 8), 128: (1, 2)}
+
+
+def check_k1w_items(case, D, aligned, dev, gen):
+    """K1w over every kind of work item of ``case`` (the graph of
+    ``k1_case_edges`` on the card: a hub's pieces, rows of their own,
+    packs of short rows, empty rows) at width D for each head count of
+    ``K1W_ITEM_CASES``, mul and add, on 16-byte or unaligned tables (the
+    scalar path): the forward, dx with dw and dw alone against float64,
+    each the same bits twice. Returns the max |err|."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    csc, csr = case._spmm_layouts
+    n, E = case.num_nodes, case.num_edges
+    err = 0.0
+    for H in K1W_ITEM_CASES[D]:
+        for op in ("mul", "add"):
+            x, cot = (k1_features(n, D, dev, gen, aligned) for _ in range(2))
+            w = torch.randn(E, H, device=dev, generator=gen)
+
+            def run():
+                out = sk._weighted_forward(x, w, csc, op)
+                dx, dw = sk._weighted_backward(cot, x, w, csr, op, True,
+                                               True)
+                return out, dx, dw, sk._weighted_backward(
+                    cot, x, w, csr, op, False, True)[1]
+
+            first, again = run(), run()
+            torch.cuda.synchronize()
+            if not all(map(torch.equal, first, again)):
+                raise AssertionError(f"K1w items {op} H={H} D={D} aligned="
+                                     f"{aligned}: two runs differ")
+            tag = f"K1w items {op} H={H} D={D} aligned={aligned}"
+            e = check_weighted(tag, x, w, cot, csc, csr, op, *first[:3])
+            e["dw alone"] = check_weighted(f"{tag} dw alone", x, w, cot,
+                                           csc, csr, op, None, None,
+                                           first[3])["dw"]
+            err = max(err, *e.values())
+    return err
+
+
 def phase_weighted_kernels(g_head, g_dedup, dev):
-    """K1w against float64 at every case of ``K1W_CASES`` on the skewed
-    small graph and the headline graph, and with one gradient alone (dx,
-    then dw); two runs give the same bits. Then the weighted K6 on the
+    """K1w against float64 over every kind of work item (``check_k1w_items``
+    at each width of ``K1W_ITEM_CASES``), at every case of ``K1W_CASES`` on
+    the skewed small graph and the headline graph, and with one gradient
+    alone (dx, then dw); two runs give the same bits. Then the weighted K6
+    on the
     headline graph under ``DEDUP``: forward, dx and dw against float64,
     the same bits twice, and forward and dx within the tolerance of K1w on
     the same inputs (its dw is K1w's own pass)."""
@@ -2684,9 +2752,20 @@ def phase_weighted_kernels(g_head, g_dedup, dev):
     from pgl_tpu_torch import Graph
     from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
 
+    gen = torch.Generator(device=dev).manual_seed(9)
+    edges, n = k1_case_edges()
+    case = Graph(edges, num_nodes=n).tensor(dev)
+    err = max(check_k1w_items(case, D, aligned, dev, gen)
+              for D in K1W_ITEM_CASES for aligned in (True, False))
+    kinds = case._spmm_layouts[0].items[:, 3].cpu()
+    print(f"[weighted] K1w work items (CSC: {int((kinds >= 0).sum())} "
+          f"pieces of split rows, {int((kinds == -1).sum())} whole rows, "
+          f"{int((kinds < -1).sum())} packs) at D in "
+          f"{tuple(K1W_ITEM_CASES)} with every H of each, mul and add, "
+          f"vector and scalar loads: max |err| {err:.3e} (forward, dx with "
+          "dw, dw alone); same bits on a second run", flush=True)
     small = Graph(skewed_graph(3000, 40000, seed=1), num_nodes=3000
                   ).tensor(dev)
-    gen = torch.Generator(device=dev).manual_seed(9)
     for tag, g in (("small", small), ("headline", g_head)):
         csc, csr = g._spmm_layouts
         for op, H, D in K1W_CASES:
@@ -2958,8 +3037,7 @@ def weighted_timing(rows, g, dev, gen, op, H, D, launches, name, graph):
     table = 4 * N * D
     for kind, lay, bwd in (("csc", csc, False), ("csr", csr, True)):
         out = torch.empty(N, D, device=dev)
-        part = torch.empty(max(lay.num_partials, lay.item_partials), D,
-                           device=dev)
+        part = torch.empty(lay.item_partials, D, device=dev)
         dw = torch.empty(E, H, device=dev) if bwd else None
         if bwd:
             args = (cot, w, lay, out, part, 1 if mul else 0, wop,
@@ -2986,9 +3064,9 @@ def weighted_timing(rows, g, dev, gen, op, H, D, launches, name, graph):
                                op, None if bwd else out,
                                out if bwd else None, dw)
         # bytes: the gathered table (and on the backward of mul the row
-        # table x), indices, edge ids and pieces, the weights (not read by
-        # add's backward), out (and dw) written once
-        struct = 8 * E + 16 * lay.pieces.shape[0]
+        # table x), indices, edge ids and work items, the weights (not read
+        # by add's backward), out (and dw) written once
+        struct = 8 * E + 16 * lay.items.shape[0]
         reads = table * (2 if bwd and mul else 1) + struct + (
             4 * E * H if mul or not bwd else 0)
         nbytes = reads + table + (4 * E * H if bwd else 0)
@@ -3081,8 +3159,8 @@ def phase_weighted_timing(g_head, g_dedup, g_gat, dev, runs):
                              None, None, dw)["dw"]
     lib_ms = time_ms(dw_library(csr, N, 1, cot, x), 50)
     # bytes: the two tables, indices, edge ids and dw written (no weights:
-    # the launch without dx does not read them), the pieces
-    nbytes = 2 * 4 * N * D + 12 * E + 16 * csr.pieces.shape[0]
+    # the launch without dx does not read them), the work items
+    nbytes = 2 * 4 * N * D + 12 * E + 16 * csr.items.shape[0]
     timing_row(rows, {"graph": "headline", "rows": N, "edges": E, "D": D,
                       "op": "mul", "H": 1},
                "fagcn_dedup_k1w_dw_csr", "k1w_dw", SOURCE, K1W_REPLACES,
@@ -3445,8 +3523,8 @@ def phase_sddmm_timing(g, lay, dev, launches):
                    "spmm", SOURCE, SDDMM_REPLACES,
                    launches.get((k1.kind, D), 0), err, ms, plain_ms, k1_bytes,
                    E * D, lib_ms, layout=k1.kind,
-                   pieces=int(k1.pieces.shape[0]),
-                   split_rows=int(k1.split_rows.shape[0]))
+                   items=int(k1.items.shape[0]),
+                   split_rows=int(k1.item_split_rows.shape[0]))
     return rows
 
 
@@ -3511,8 +3589,8 @@ def phase_sddmm(dev, host):
     print(f"[sddmm] sddmm_layout() {t_layout:.3f} s on the host: S="
           f"{lay.slots} slots for E={lay.num_edges} edges "
           f"({lay.slots - lay.num_edges} pads), {lay.uv.size} window rows "
-          f"with the tail, by_src {lay.by_src.pieces.shape[0]} pieces, "
-          f"by_dst {lay.by_dst.pieces.shape[0]} pieces", flush=True)
+          f"with the tail, by_src {lay.by_src.items.shape[0]} work items, "
+          f"by_dst {lay.by_dst.items.shape[0]} work items", flush=True)
     err = phase_sddmm_kernels(g, lay, dev)
     phase_graph_small(dev)
 

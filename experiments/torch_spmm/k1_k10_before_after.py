@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""K1 (the sorted SpMM), K1w, the dot-mode K9, K10-dq and K10-dkv, and the
-dot-mode K7 and K8 of a git revision beside this tree's, timed in one
-process on one card.
+"""K1 (the sorted SpMM), K1w, the dot-mode K9, K10-dq and K10-dkv, the
+dot-mode K7 and K8, and the additive K8 of a git revision beside this
+tree's, timed in one process on one card.
 
     # with git (the card's copy of the repo has none): write the
     # revision's sources into _archive/before_<rev>/ (git-ignored)
@@ -9,27 +9,38 @@ process on one card.
     # on the card: build both, check, time in turns
     python experiments/torch_spmm/k1_k10_before_after.py [--rev R]
 
-The revision (default ``12a5247``) gives ``segment_kernels.cu``,
-``attention_kernels.cu``, ``dedup_attention.cu`` and
-``attention_common.cuh`` (``git show <rev>:<path>``); they are compiled
+The revision (default ``38de6bd``) gives ``segment_kernels.cu``,
+``attention_kernels.cu``, ``dedup_attention.cu``, ``attention_common.cuh``
+and, where it has one, ``dot_staged.cuh`` (``git show <rev>:<path>``); they
+are compiled
 with ``_build.NVCC_FLAGS`` into ``_archive/before_<rev>/build/`` and
 loaded with ctypes beside the tree's libraries. Every shape is timed old, new, new, old (CUDA events, each a
 mean over warm launches) and the two runs of each averaged, so "no slower
 than before" is a comparison on one card. Shapes: K1 on the bench headline
 (CSC and CSR at D = 128, 16, 64), on the bench GAT graph (D = 64, 16), over
-``red`` (K8's slot rows folded onto nodes, bench GAT graph; D = 1, 8, 16,
-64, 256) and over ``by_src``/``by_dst`` (K11's backward on the headline, D
-= 128), each beside ``torch.sparse.mm``; K1w at FAGCN's and GATv2's shapes;
+``build_uniq_reduce``'s layout (the reference's fold of pair-slot rows
+onto nodes, bench GAT graph; D = 1, 8, 16, 64, 256) and over ``by_src``/``by_dst`` (K11's backward on the headline, D
+= 128), each beside ``torch.sparse.mm``; K1w (``k1w``) at FAGCN's and
+GATv2's shapes, forward, dx with dw and dw alone (the revision's on the
+pieces of ``cut_rows`` at 512 edges, which it walked; both against float64
+and each other);
 K10-dkv-dot (``k10``), K9-dot (``k9``) and K10-dq-dot (``k10dq``) at
 UniMP's (2, 128, 128) on the UniMP stand-in and on the bench GAT graph at
 rates 0 and 0.3, and at GATConv's many-head (43, 2, 8) with leaky 0.2 on
-the bench GAT graph; K7-dot (``k7``) and K8-dot (``k8``; the revision's
-counted with its two K1 folds of the slot rows over ``red``, which the
-tree's node walk replaces) at UniMP's shape on the bench GAT graph's
+the bench GAT graph; K7-dot (``k7``) and K8-dot (``k8``: against a
+revision that had the dot slot pass, before fd49ea7, such as ``--rev
+12a5247``; the revision's counted with its two K1 folds of the slot rows
+over ``build_uniq_reduce``'s layout, which the tree's node walk replaces)
+at UniMP's shape on the bench GAT graph's
 count matrix at rates 0 and 0.3, and ``k7`` also prints both builds'
 digests of out | lse | dq on ``chip_smoke.PARENT_BITS_CASES`` (the
-revision's are the pinned ``PARENT_BITS``). ``--only`` picks among k1,
-k1w, k10, k9, k10dq, k7, k8. New results are held against the float64
+revision's are the pinned ``PARENT_BITS``); the additive K8 (``k8add``) at
+the GAT's (8, 8) and (1, 16) on the bench GAT graph's count matrix at
+rates 0 and 0.6, the revision's counted with its slot pass's two K1 folds
+over ``build_uniq_reduce``'s layout (this tree's K1), whether d a_dst and
+K7's out and lse keep the revision's bits, and both against float64.
+``--only`` picks among k1, k1w, k10, k9, k10dq, k7, k8, k8add. New results
+are held against the float64
 plain version (``chip_smoke.check_spmm``) and old against new (the dot
 kernels: the largest difference, and whether the bits agree;
 ``chip_smoke.py`` holds them against float64). The ``ptxas`` registers and spills of both
@@ -45,11 +56,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 CSRC = "pgl_tpu_torch/ops/kernels/csrc"
 SOURCES = ("segment_kernels.cu", "attention_kernels.cu",
-           "dedup_attention.cu", "attention_common.cuh")
+           "dedup_attention.cu", "attention_common.cuh", "dot_staged.cuh")
 LIBS = ("segment_kernels", "attention_kernels", "dedup_attention")
 
 
@@ -60,12 +73,15 @@ def old_dir(rev):
 def extract(rev):
     d = old_dir(rev)
     d.mkdir(parents=True, exist_ok=True)
+    wrote = []
     for name in SOURCES:
-        text = subprocess.run(["git", "show", f"{rev}:{CSRC}/{name}"],
-                              cwd=ROOT, check=True, capture_output=True,
-                              text=True).stdout
-        (d / name).write_text(text)
-    print(f"wrote {', '.join(SOURCES)} of {rev} to {d}")
+        got = subprocess.run(["git", "show", f"{rev}:{CSRC}/{name}"],
+                             cwd=ROOT, capture_output=True, text=True)
+        if got.returncode:      # a header the revision did not have yet
+            continue
+        (d / name).write_text(got.stdout)
+        wrote.append(name)
+    print(f"wrote {', '.join(wrote)} of {rev} to {d}")
 
 
 def build_old(rev):
@@ -116,9 +132,9 @@ def registers(log, pattern):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--rev", default="12a5247")
+    ap.add_argument("--rev", default="38de6bd")
     ap.add_argument("--extract", action="store_true")
-    kinds = ("k1", "k1w", "k10", "k9", "k10dq", "k7", "k8")
+    kinds = ("k1", "k1w", "k10", "k9", "k10dq", "k7", "k8", "k8add")
     ap.add_argument("--only", choices=kinds, nargs="+", default=kinds,
                     help="the kernels to time (default: all)")
     a = ap.parse_args()
@@ -130,11 +146,16 @@ def main():
     if not torch.cuda.is_available():
         print("k1_k10_before_after: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import (PARENT_BITS_CASES, UNIMP_SHAPE, bits_digest,
-                            check_spmm, dedup_attention_of, dispatch_settings,
-                            dot_inputs, gat_host, headline_host,
-                            parent_bits_case, parent_bits_graph,
+    from chip_smoke import (GAT_SHAPES, PARENT_BITS_CASES, UNIMP_SHAPE,
+                            attention_inputs, bits_digest,
+                            check_dedup_attention, check_spmm,
+                            check_weighted, dedup_attention_of,
+                            dispatch_settings, dot_inputs, gat_host,
+                            headline_host, kernel_split_ms,
+                            parent_bits_case,
+                            parent_bits_graph, run_dedup_attention,
                             run_dedup_dot, time_ms, unimp_host)
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
     from pgl_tpu_torch.ops.kernels import _build
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
@@ -148,11 +169,18 @@ def main():
     old, old_logs = build_old(a.rev)
     new = _build.build(*LIBS)
     new_logs = {n: p.with_suffix(".log").read_text() for n, p in new.items()}
-    lib_of = {"K1": "segment_kernels", "K7-dot": "dedup_attention",
-              "K8-dot": "dedup_attention"}
+    lib_of = {"K1": "segment_kernels", "K1w": "segment_kernels",
+              "K7-dot": "dedup_attention", "K8-dot": "dedup_attention",
+              "K8": "dedup_attention"}
     for tag, logs, pat in (
-            ("old K1", old_logs, r"spmm_piecesILi\dELi\d+ELi0ELi0E"),
-            ("new K1", new_logs, r"spmm_(rows|packs)"),
+            ("old K1", old_logs, r"spmm_(rows|packs)ILi\d+ELi\d+ELi\d+EE"),
+            ("new K1", new_logs,
+             r"spmm_(rows|packs)ILi\d+ELi\d+ELi\d+ELi0ELi0E"),
+            ("old K1w", old_logs, r"spmm_pieces"),
+            ("new K1w", new_logs,
+             r"spmm_(rows|packs)ILi\d+ELi\d+ELi\d+E(?!Li0ELi0E)"),
+            ("old K8", old_logs, r"dedup_attn_bwd_(rows|slots)"),
+            ("new K8", new_logs, r"dedup_attn_bwd_(rows|nodes)"),
             ("old K10-dkv-dot", old_logs, r"dot_dkv_(pieces|staged)"),
             ("new K10-dkv-dot", new_logs, r"dot_dkv_staged"),
             ("old K9-dot", old_logs, r"dot_fwd_(pieces|staged)"),
@@ -177,8 +205,9 @@ def main():
     seg.pgl_spmm_f32.argtypes = (sk._lib().pgl_spmm_f32.argtypes
                                  if old_k1_new_abi else
                                  [i, p, p, p, i, p, p, i, i, p, p, p])
-    seg.pgl_spmm_weighted_f32.argtypes = sk._lib(
-        ).pgl_spmm_weighted_f32.argtypes
+    # the revision's K1w: one warp a piece of cut_rows at 512 edges
+    seg.pgl_spmm_weighted_f32.argtypes = [i, i, i, p, p, p, p, i, p, i, p,
+                                          p, i, i, p, p, p, p, p]
     att = old["attention_kernels"]
     for fn in ("pgl_dot_fwd_f32", "pgl_dot_dq_f32", "pgl_dot_dkv_f32"):
         getattr(att, fn).argtypes = getattr(ak._lib(), fn).argtypes
@@ -190,6 +219,25 @@ def main():
     ded.pgl_dedup_dot_fwd_f32.argtypes = [i] + [p] * 3 + cells + dot + [p] * 4
     ded.pgl_dedup_dot_bwd_f32.argtypes = ([i] + [p] * 6 + cells + slots + dot
                                           + [p] * 5)
+    # the revision's additive K7 (this tree's ABI) and K8 (its row pass
+    # and slot pass)
+    ded.pgl_dedup_attn_fwd_f32.argtypes = da._lib(
+        ).pgl_dedup_attn_fwd_f32.argtypes
+    ded.pgl_dedup_attn_bwd_f32.argtypes = ([i] + [p] * 9 + [p, i, p, p, i]
+                                           + slots + dot[1:] + [p] * 5)
+
+    pieces_of = {}
+
+    def old_pieces(lay):
+        """The revision's K1w work list: ``cut_rows`` at 512 edges (pieces,
+        split rows, their pointer, the partial count), on the card."""
+        key = id(lay)
+        if key not in pieces_of:
+            pc, rows_, ptr = sk.cut_rows(lay.indptr.cpu().numpy(), 512)
+            pieces_of[key] = tuple(
+                torch.as_tensor(a.astype(np.int32), device=dev)
+                for a in (pc, rows_, ptr)) + (int(ptr[-1]),)
+        return pieces_of[key]
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -202,9 +250,9 @@ def main():
                     lay.item_split_ptr.data_ptr(),
                     lay.item_split_rows.shape[0])
         else:
-            work = (lay.pieces.data_ptr(), lay.pieces.shape[0],
-                    lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
-                    lay.split_rows.shape[0])
+            pc, rows_, ptr, _ = old_pieces(lay)
+            work = (pc.data_ptr(), pc.shape[0], rows_.data_ptr(),
+                    ptr.data_ptr(), rows_.shape[0])
         rc = seg.pgl_spmm_f32(
             0, x.data_ptr(), lay.indices.data_ptr(), *work, x.shape[1],
             out.data_ptr(), part.data_ptr(), stream())
@@ -233,8 +281,8 @@ def main():
             x = torch.randn(n_src, d, device=dev, generator=gen)
             outs = [torch.empty(lay.num_rows, d, device=dev)
                     for _ in range(2)]
-            part = torch.empty(max(lay.num_partials, lay.item_partials), d,
-                               device=dev)
+            part = torch.empty(max(old_pieces(lay)[3], lay.item_partials),
+                               d, device=dev)
             old_k1(x, lay, outs[0], part)
             sk._launch(x, lay, outs[1], part)
             with torch.no_grad():
@@ -245,37 +293,67 @@ def main():
             turns(f"K1 {tag} D={d}", lambda: old_k1(x, lay, outs[0], part),
                   lambda: sk._launch(x, lay, outs[1], part), 100,
                   library_ms=lib, max_abs_err=err, old_new_max_diff=diff,
-                  items=int(lay.items.shape[0]),
-                  pieces=int(lay.pieces.shape[0]))
+                  items=int(lay.items.shape[0]))
 
     def k1w_rows(tag, g, op, H, D):
+        """K1w of both builds at (op, H, D): the forward over CSC, dx with
+        dw and dw alone over CSR, timed in turns; the new held against
+        float64 and both against each other."""
         csc, csr = g._spmm_layouts
         N, E = g.num_nodes, g.num_edges
         x = torch.randn(N, D, device=dev, generator=gen)
         w = torch.randn(E, H, device=dev, generator=gen)
         cot = torch.randn(N, D, device=dev, generator=gen)
-        out = torch.empty(N, D, device=dev)
-        part = torch.empty(max(csc.num_partials, csr.num_partials), D,
-                           device=dev)
-        dw = torch.empty(E, H, device=dev)
         wop = sk._OPS[op]
-        cases = {"fwd csc": (x, w, csc, out, part, wop),
-                 "dx+dw csr": (cot, w, csr, out, part, 1, wop, x, dw),
-                 "dw csr": (cot, w, csr, None, None, 0, wop, x, dw)}
-        for kind, args in cases.items():
-            def launch(lib, args=args):
-                x_, w_, lay, o, pt, wo, *rest = args
-                dwop, xrow, dw_ = rest if rest else (0, None, None)
-                rc = lib.pgl_spmm_weighted_f32(
-                    0, wo, dwop, x_.data_ptr(), lay.indices.data_ptr(),
-                    lay.edge_id.data_ptr(), w_.data_ptr(), w_.shape[1],
-                    lay.pieces.data_ptr(), lay.pieces.shape[0],
-                    lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
-                    lay.split_rows.shape[0], x_.shape[1], sk._ptr(o),
-                    sk._ptr(pt), sk._ptr(xrow), sk._ptr(dw_), stream())
+        mul = op == "mul"
+        cases = {"fwd csc": (x, csc, wop, 0, None, True),
+                 "dx+dw csr": (cot, csr, 1 if mul else 0, wop, x, True),
+                 "dw csr": (cot, csr, 0, wop, x, False)}
+        for kind, (src, lay, wo, dwo, xrow, with_out) in cases.items():
+            res = {}
+
+            def buffers(n_part):
+                out = torch.empty(N, D, device=dev) if with_out else None
+                part = (torch.empty(n_part, D, device=dev) if with_out
+                        else None)
+                dw = torch.empty(E, H, device=dev) if dwo else None
+                return out, part, dw
+
+            def old_run():
+                pc, rows_, ptr, n_part = old_pieces(lay)
+                out, part, dw = buffers(n_part)
+                rc = seg.pgl_spmm_weighted_f32(
+                    0, wo, dwo, src.data_ptr(), lay.indices.data_ptr(),
+                    lay.edge_id.data_ptr(), w.data_ptr(), H, pc.data_ptr(),
+                    pc.shape[0], rows_.data_ptr(), ptr.data_ptr(),
+                    rows_.shape[0], D, sk._ptr(out), sk._ptr(part),
+                    sk._ptr(xrow if mul else None), sk._ptr(dw), stream())
                 assert rc == 0, rc
-            turns(f"K1w {tag} {op} H={H} D={D} {kind}",
-                  lambda: launch(seg), lambda: launch(sk._lib()), 50)
+                res["old"] = out, dw
+
+            def new_run():
+                out, part, dw = buffers(lay.item_partials)
+                sk._launch_weighted(src, w, lay, out, part, wo, dwo,
+                                    xrow if mul else None, dw)
+                res["new"] = out, dw
+
+            old_run()
+            new_run()
+            torch.cuda.synchronize()
+            (o_out, o_dw), (n_out, n_dw) = res["old"], res["new"]
+            with torch.no_grad():
+                fwd = kind.startswith("fwd")
+                err = max(check_weighted(
+                    f"{tag} {op} H={H} D={D} {kind}", x, w, cot, csc, csr,
+                    op, n_out if fwd else None,
+                    n_out if not fwd else None, n_dw).values())
+                diff = max(float((a - b).abs().max())
+                           for a, b in ((o_out, n_out), (o_dw, n_dw))
+                           if a is not None and a.numel())
+            turns(f"K1w {tag} {op} H={H} D={D} {kind}", old_run, new_run,
+                  50, max_abs_err=err, old_new_max_diff=diff,
+                  items=int(lay.items.shape[0]),
+                  old_pieces=int(old_pieces(lay)[0].shape[0]))
 
     def dkv_rows(tag, g, rates, shape=UNIMP_SHAPE, leaky=0.0):
         H, dsh, dvh = shape
@@ -411,7 +489,8 @@ def main():
         """The revision's dot-mode K8 and its two folds over ``red`` (this
         tree's K1): (dq, dk, dv) on node rows."""
         H, dsh, dvh = shape
-        N, S, lay = bwd[0].shape[0], att.num_slots, att.layout
+        N, lay = bwd[0].shape[0], att.layout
+        S, slot_lists, red = slot_view(att)
         thresh, inv_keep = ak._drop_args(rate)
         dq = torch.empty(N, H * dsh, device=dev)
         dk = torch.empty(S, H * dsh, device=dev)
@@ -419,12 +498,12 @@ def main():
         part = torch.empty(att.num_partials, H * dsh, device=dev)
         rc = ded.pgl_dedup_dot_bwd_f32(
             0, *(t.data_ptr() for t in bwd), *old_cells(att),
-            lay.uv.data_ptr(), lay.pairs.data_ptr(), att.slot_ptr.data_ptr(),
-            att.slot_dst.data_ptr(), att.slot_cnt.data_ptr(), S, H, dsh, dvh,
+            lay.uv.data_ptr(), lay.pairs.data_ptr(),
+            *(t.data_ptr() for t in slot_lists), S, H, dsh, dvh,
             leaky, seed.data_ptr(), thresh, inv_keep, dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), part.data_ptr(), stream())
         assert rc == 0, rc
-        return dq, sk._spmm_cuda(dk, att.red), sk._spmm_cuda(dv, att.red)
+        return dq, sk._spmm_cuda(dk, red), sk._spmm_cuda(dv, red)
 
     def old_cells(att):
         return (att.cell_src.data_ptr(), att.cell_urow.data_ptr(),
@@ -485,6 +564,110 @@ def main():
             del out, lse, delta, bwd
             res.clear()
 
+    slot_views = {}
+
+    def slot_view(att):
+        """What the revision's slot passes read and their folds: the slot
+        count S, the cells by pair slot (slot_ptr, slot_dst, slot_cnt) and
+        ``build_uniq_reduce``'s layout."""
+        if id(att) not in slot_views:
+            lay = att.layout
+            dst, urow, slot = (t.cpu().numpy()
+                               for t in da._edge_slots(lay))
+            first = np.ones(len(dst), dtype=bool)
+            first[1:] = (slot[1:] != slot[:-1]) | (dst[1:] != dst[:-1])
+            starts = np.flatnonzero(first)
+            S = lay.num_pairs * dk.W
+            lists = tuple(
+                torch.as_tensor(a.astype(np.int32), device=dev)
+                for a in (np.searchsorted(slot[starts], np.arange(S + 1)),
+                          dst[starts], np.diff(np.append(starts, len(dst)))))
+            slot_views[id(att)] = (S, lists,
+                                   da.build_uniq_reduce(lay, att.num_rows))
+        return slot_views[id(att)]
+
+    def k8add_rows(tag, att, rates):
+        """The additive K7 and K8 of both builds at the GAT's shapes (K8 on
+        the new K7's lse and delta; the revision's K8 with its slot pass
+        and its two K1 folds over ``build_uniq_reduce``'s layout), timed in
+        turns; whether K7's out and lse and K8's d a_dst keep the
+        revision's bits; the new held against float64."""
+        lay, N = att.layout, att.num_rows
+        S, slot_lists, red = slot_view(att)
+        seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+        for H, dvh in GAT_SHAPES:
+            ins = attention_inputs(N, H, dvh, dev, gen)
+            for rate in rates:
+                thresh, inv_keep = ak._drop_args(rate)
+                with torch.no_grad():
+                    new = run_dedup_attention(att, ins, rate, seed)
+                    err = max(check_dedup_attention(
+                        tag, att, ins, rate, seed, new).values())
+                out, lse = new[:2]
+                a_dst, a_src, v, g_out = ins
+                delta = (g_out.reshape(N, H, dvh)
+                         * out.reshape(N, H, dvh)).sum(-1)
+                bwd = (a_dst, a_src, v, g_out, lse, delta)
+                res = {}
+
+                def old_fwd():
+                    o = torch.empty(N, H * dvh, device=dev)
+                    ls = torch.empty(N, H, device=dev)
+                    part = torch.empty(att.num_partials, H * dvh + 2 * H,
+                                       device=dev)
+                    rc = ded.pgl_dedup_attn_fwd_f32(
+                        0, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
+                        *old_cells(att), H, dvh, 0.2, seed.data_ptr(),
+                        thresh, inv_keep, o.data_ptr(), ls.data_ptr(),
+                        part.data_ptr(), stream())
+                    assert rc == 0, rc
+                    res["old"] = o, ls
+
+                def new_fwd():
+                    res["new"] = da._fwd_cuda(a_dst, a_src, v, att, 0.2,
+                                              dvh, rate, seed)
+
+                def old_bwd():
+                    da_ = torch.empty(N, H, device=dev)
+                    dsrc = torch.empty(S, H, device=dev)
+                    dv = torch.empty(S, H * dvh, device=dev)
+                    part = torch.empty(att.num_partials, H, device=dev)
+                    rc = ded.pgl_dedup_attn_bwd_f32(
+                        0, *(t.data_ptr() for t in bwd), *old_cells(att),
+                        lay.uv.data_ptr(), lay.pairs.data_ptr(),
+                        *(t.data_ptr() for t in slot_lists), S, H, dvh, 0.2,
+                        seed.data_ptr(), thresh, inv_keep, da_.data_ptr(),
+                        dsrc.data_ptr(), dv.data_ptr(), part.data_ptr(),
+                        stream())
+                    assert rc == 0, rc
+                    res["old"] = (da_, sk._spmm_cuda(dsrc, red),
+                                  sk._spmm_cuda(dv, red))
+
+                def new_bwd():
+                    res["new"] = da._bwd_cuda(*bwd, att, 0.2, dvh, rate,
+                                              seed)
+
+                for name, fo, fn, n_same in (("K7", old_fwd, new_fwd, 2),
+                                             ("K8", old_bwd, new_bwd, 1)):
+                    fo()
+                    fn()
+                    with torch.no_grad():
+                        pairs = list(zip(res["old"], res["new"]))
+                        diff = [float((o - n_).abs().max()) for o, n_ in
+                                pairs]
+                        same = all(torch.equal(o, n_)
+                                   for o, n_ in pairs[:n_same])
+                    extra = {"dsrc_dv_max_diff": max(diff[1:])} \
+                        if name == "K8" else {}
+                    if name == "K8":   # device ms by kernel, both builds
+                        extra["old_split_ms"] = kernel_split_ms(fo)
+                        extra["new_split_ms"] = kernel_split_ms(fn)
+                    turns(f"{name} additive {tag} H={H} dvh={dvh} "
+                          f"rate={rate}", fo, fn, 20, max_abs_err=err,
+                          old_new_max_diff=max(diff),
+                          same_bits_as_old=same, **extra)
+                res.clear()
+
     def parent_digests():
         """Both builds' digests of out | lse | dq on the pinned cases."""
         att = parent_bits_graph(dev)
@@ -533,9 +716,10 @@ def main():
         k1w_rows("GATv2 layer 0", g, "mul", 8, 64)
         k1w_rows("GATv2 layer 1", g, "mul", 1, 16)
     if "k1" in only:
-        red = dedup_attention_of(g, dev).red
+        att = dedup_attention_of(g, dev)
+        red = da.build_uniq_reduce(att.layout, att.num_rows)
         k1_rows("red", red, red.max_index + 1, (1, 8, 16, 64, 256))
-        del red
+        del red, att
     if "k10" in only:
         dkv_rows("bench GAT graph", g, (0.0, 0.3))
         dkv_rows("bench GAT graph", g, (0.0, 0.3), (43, 2, 8), 0.2)
@@ -547,6 +731,9 @@ def main():
             parent_digests()
         dedup_dot_rows("bench GAT graph", dedup_attention_of(g, dev, False),
                        UNIMP_SHAPE, 0.0, (0.0, 0.3))
+    if "k8add" in only:
+        k8add_rows("bench GAT graph", dedup_attention_of(g, dev, False),
+                   (0.0, 0.6))
     del g, csc, csr
     torch.cuda.empty_cache()
 

@@ -57,8 +57,7 @@ def main():
         w = torch.randn(E, 1, device=dev, generator=gen)
         cot = torch.randn(N, D, device=dev, generator=gen)
         out = torch.empty(N, D, device=dev)
-        part = torch.empty(max(csc.num_partials, csr.num_partials,
-                               csc.item_partials, csr.item_partials), D,
+        part = torch.empty(max(csc.item_partials, csr.item_partials), D,
                            device=dev)
         dw = torch.empty(E, 1, device=dev)
         runs = {

@@ -34,7 +34,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from chip_smoke import headline_graph, headline_trainer  # noqa: E402
 
 STEPS = 10
-KINDS = (("spmm", ("spmm_pieces", "spmm_combine", "dedup_apply",
+KINDS = (("spmm", ("spmm_rows", "spmm_packs", "spmm_combine", "dedup_apply",
                    "dedup_combine")),
          ("gemm", ("gemm", "cutlass", "cublas", "sm90_xmma", "Kernel2")),
          ("optimizer", ("multi_tensor", "adam", "Adam")),

@@ -10,7 +10,8 @@ packed with its neighbours). This times K1 for several settings at the
 shapes of the main paths: the bench headline graph
 (``powerlaw_graph(131072, 16, seed=0)``, CSC and CSR at D = 128, 16, 64),
 the bench GAT graph (``powerlaw_graph(65536, 16, seed=1)``, D = 64, 16) and
-``red`` on it (K8's slot rows folded onto nodes, D = 1, 8, 16, 64, 256),
+``build_uniq_reduce``'s layout on it (the reference's fold of pair-slot
+rows onto nodes, D = 1, 8, 16, 64, 256),
 with CUDA events over 50 warm launches, each result checked against the
 plain version in float64 with chip_smoke.py's ``check_spmm``. Needs one
 CUDA card:
@@ -29,6 +30,7 @@ import torch  # noqa: E402
 
 from chip_smoke import (check_spmm, dedup_attention_of,  # noqa: E402
                         dispatch_settings, gat_host, headline_host, time_ms)
+from pgl_tpu_torch.ops.kernels import dedup_attention as da  # noqa: E402
 from pgl_tpu_torch.ops.kernels import segment_kernels as sk  # noqa: E402
 
 # (MIN_PIECE, ROW_PIECES, PACK_ROW); the first is the module's default,
@@ -47,7 +49,8 @@ def shapes(head, gat, dev):
                                        kind=kind, device=dev)
             out += [(f"{name} {kind}", lay, g.num_nodes, d) for d in widths]
     with dispatch_settings(DEDUP=False):
-        red = dedup_attention_of(gat.tensor(dev), dev).red
+        att = dedup_attention_of(gat.tensor(dev), dev)
+    red = da.build_uniq_reduce(att.layout, att.num_rows)
     out += [("red", red, red.max_index + 1, d) for d in (1, 8, 16, 64, 256)]
     return out
 

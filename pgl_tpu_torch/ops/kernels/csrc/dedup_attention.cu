@@ -10,24 +10,25 @@
 // and its flash backward, with delta = sum g * out per (row, head):
 //   p       = C * exp(min(S - lse, 80))
 //   ds      = p * (keep * (g . v) / (1 - rate) - delta) * leaky'(S)
-//   additive: d a_dst[r] = sum_u ds;   slot (p, c) of unique row u:
-//             d a_src = sum_r ds,      dv = sum_r keep * p * g[r] / (1 - rate)
+//   additive: d a_dst[r] = sum_u ds;
+//             node s: d a_src = sum ds,  dv = sum keep * p * g[r] / (1 - rate)
 //   dot:      dq[r] = sum_u ds * k[uv[u]] per head (a vector, dsh wide);
 //             node s: dk = sum ds * q[r],  dv = sum keep * p * g[r] /
-//             (1 - rate), over the cells whose unique row is node s
+//             (1 - rate)
+// where a node's sums run over the cells whose unique row is node s.
 //
 // Replaces the TPU kernels of pgl_tpu/ops/pallas/dedup_attention.py in
 // both modes: `_attn_fwd_kernel` (:102, K7) and `_attn_bwd_kernel` (:285,
-// K8). In additive mode, as there, d a_src and dv land in the pair's own
-// slot rows [P * 128, .] (row p * 128 + c belongs to unique row wb_p + c
-// of pair p) and K1 over `build_uniq_reduce`'s layout folds them onto
-// nodes. The dot mode (`pgl_dedup_dot_fwd_f32`, `pgl_dedup_dot_bwd_f32`)
-// runs the staged dot kernels of the per-edge attention in their cell form
-// (dot_staged.cuh): K7 and K8's row pass are the forward and the dq pass
-// over the cells in row order, and K8's dk and dv come from the dkv pass
-// over the cells in node order, a walk of each node's cells with its k | v
-// rows resident that writes node rows, so the dot mode has no slot rows
-// and no fold. All three form a cell's score with `head_dot`, q first, so
+// K8). There d a_src and dv (dk and dv) land in the pair's own slot rows
+// [P * 128, .] (row p * 128 + c belongs to unique row wb_p + c of pair p),
+// which `build_uniq_reduce`'s layout folds onto nodes; here both modes
+// walk each node's cells in node order with the node's rows resident and
+// write node rows, so there are no slot rows and no fold. The dot mode
+// (`pgl_dedup_dot_fwd_f32`, `pgl_dedup_dot_bwd_f32`) runs the staged dot
+// kernels of the per-edge attention in their cell form (dot_staged.cuh):
+// K7 and K8's row pass are the forward and the dq pass over the cells in
+// row order, and K8's dk and dv come from the dkv pass over the cells in
+// node order. All three form a cell's score with `head_dot`, q first, so
 // they see the same bits (attention_common.cuh).
 //
 // The reference has two forms of each kernel, one reading the cached bf16
@@ -40,11 +41,13 @@
 //
 // What bounds it on this card: bytes and latency, not arithmetic. The byte
 // bound counts the node tables, the cell lists and the outputs once: about
-// 48 MB (K7) and 96 MB (K8: the slot rows are 39 MB of it) at the bench GAT
-// graph's (H, dvh) = (8, 8), 0.014 and 0.029 ms at 3.35 TB/s. In dot mode
-// at UniMP's (H, dsh, dvh) = (2, 128, 128) each cell gathers 2 KB of rows
-// (k|v; q|g in the node walk), so the gathers set a floor above the table
-// bound (dot_staged.cuh's note gives that design). The dense TPU tile does
+// 48 MB (K7) and 78 MB (K8) at the bench GAT graph's (H, dvh) = (8, 8),
+// 0.014 and 0.023 ms at 3.35 TB/s; K8's node walk gathers a_dst, lse,
+// delta and g of each cell's row (352 B a cell there, 76 B at (1, 16)),
+// which sets a gather bound above it. In dot mode at UniMP's (H, dsh, dvh)
+// = (2, 128, 128) each cell gathers 2 KB of rows (k|v; q|g in the node
+// walk), so the gathers set a floor above the table bound (dot_staged.cuh's
+// note gives that design). The dense TPU tile does
 // 256 x 128 cells a pair though 1.6% of them are nonzero there; the
 // additive design:
 //   * work per nonzero cell, never per dense tile cell. A cell is visited
@@ -56,10 +59,17 @@
 //     over per-head "slots" as in K9/K10 (attention_common.cuh); a row of
 //     several pieces (the bench graph's hub has 65k cells) writes partials
 //     that a second launch merges (K7) or sums (K8) in piece order;
-//   * K8's slot pass walks the cells in column order, one warp per slot of
-//     the [P * 128] slot rows: the cells of unique row wb_p + c in pair p,
-//     a run of the layout's dedup order, with the slot's node rows (a_src
-//     and v) held in registers; an empty slot writes zeros;
+//   * K8's d a_src and dv come from a walk of each node's cells (node
+//     order: by node, then pair slot, then row, so a node's terms come in
+//     the order the reference's slot rows and their fold sum them), one
+//     warp per piece of at most ET cells of one node, the node's a_src and
+//     v held in registers; a node of several pieces (a hub source) writes
+//     partials that a second launch sums in piece order, a node without
+//     cells writes zeros. A warp walks 65,536 nodes of 8.4 cells on the
+//     bench GAT graph where the slot pass it replaces walked 135,424 slots
+//     (24,960 empty) and wrote 39 MB of slot rows for two K1 folds. The
+//     cells' gathered rows are small (352 B a cell at (8, 8)), so they are
+//     loaded straight into registers, U cells in flight, not staged;
 //   * no float atomics: every run gives the same bits.
 // Staging each window's 128 source rows in shared memory (the TPU kernel's
 // gather saving) is left to a later optimisation: the row order visits
@@ -82,7 +92,6 @@
 namespace {
 
 constexpr uint32_t kCellMul = 0x9E3779B1u;  // `_cell_idx`'s row multiplier
-constexpr int kWindow = 128;                // unique rows per window (W)
 
 // K7, one warp per piece (row, begin, end, slot) of the row-ordered cells.
 template <int NC, int U>
@@ -293,82 +302,100 @@ dedup_attn_bwd_rows(const float* __restrict__ a_dst,
     if (sl.lead[k]) dst[sl.head[k]] = da[k];
 }
 
-// K8's slot pass, one warp per slot t = p * 128 + c: the cells (r, count)
-// of unique row u = wb_p + c in pair p, in column order. Writes
-// dsrc[t, h] = sum_r ds and dv[t, :] = sum_r q * g[r, :], zeros when the
-// slot has no cells.
-template <int NC, int U>
+// Cells in flight a lane group in K8's node walk: fewer than the row pass
+// takes ran faster where measured (experiments/torch_spmm/k1w_k8_variants.py,
+// H100): one at two slots a lane ((H, dvh) = (8, 8): K8 0.291 ms against
+// 0.310 at two and 0.366 at four, which held 80 registers and spilled 12
+// B), two where a half warp walks cells ((1, 16): 0.175 against 0.187 at
+// four); else as the row pass.
+template <int NC, int G>
+struct NodeUnroll {
+  static constexpr int value = NC == 2 ? 1 : G == 2 ? 2 : unroll_for(NC);
+};
+
+// K8's node walk, one warp per piece (node, begin, end, slot) of the cells
+// in node order: the cells (dst, count, key) whose unique row is node s's,
+// by (slot, dst), with a_src[s] and v[s] held in registers; per cell it
+// gathers a_dst, lse, delta and g of the cell's row. Writes d a_src[s, h] =
+// sum ds and dv[s, :] = sum q * g[dst, :] (zeros for a node without
+// cells), or for a piece of a split node its partial row d a_src | dv.
+// Where one head group's H * dvh_p slots fit in half a warp (G = 2: at
+// (H, dvh) = (1, 16) the other half would idle), the two halves take
+// alternate cells and are summed by one shuffle at the end.
+template <int NC, int U, int G>
 __global__ void __launch_bounds__(kWarps * 32)
-dedup_attn_bwd_slots(const float* __restrict__ a_dst,
+dedup_attn_bwd_nodes(const float* __restrict__ a_dst,
                      const float* __restrict__ a_src,
                      const float* __restrict__ v, const float* __restrict__ g,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const int* __restrict__ uv,
-                     const int4* __restrict__ pairs,
-                     const int* __restrict__ slot_ptr,
-                     const int* __restrict__ slot_dst,
-                     const int* __restrict__ slot_cnt, int n_slots, int H,
+                     const int* __restrict__ node_dst,
+                     const int* __restrict__ node_cnt,
+                     const int* __restrict__ node_key,
+                     const int4* __restrict__ pieces, int n_pieces, int H,
                      int dvh, int dvh_p, float slope,
                      const int* __restrict__ seed_p, int thresh,
                      float inv_keep, float* __restrict__ dsrc,
-                     float* __restrict__ dv) {
+                     float* __restrict__ dv, float* __restrict__ partials) {
+  static_assert(G == 1 || NC == 1, "lane groups hold one slot a lane");
+  constexpr int GW = 32 / G;  // lanes of a group
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (warp >= n_slots) return;
+  if (warp >= n_pieces) return;  // uniform across the warp
   const int lane = threadIdx.x & 31;
+  const int grp = lane / GW;
   const int C = H * dvh;
-  const Slots<NC> sl(lane, H, dvh, dvh_p);
+  const int4 pc = pieces[warp];
+  const Slots<NC> sl(lane % GW, H, dvh, dvh_p);
   const bool drop = thresh >= 0;
   const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
-  const int urow = pairs[warp / kWindow].y + warp % kWindow;
-  const int node = __ldg(uv + urow);
 
   float as[NC], vs[NC], da[NC], dva[NC];
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
-    as[k] = __ldg(a_src + static_cast<size_t>(node) * H + sl.head[k]);
+    as[k] = __ldg(a_src + static_cast<size_t>(pc.x) * H + sl.head[k]);
     vs[k] = sl.col[k] >= 0
-                ? __ldg(v + static_cast<size_t>(node) * C + sl.col[k])
+                ? __ldg(v + static_cast<size_t>(pc.x) * C + sl.col[k])
                 : 0.f;
     da[k] = 0.f;
     dva[k] = 0.f;
   }
-  const int b = __ldg(slot_ptr + warp);
-  const int e = __ldg(slot_ptr + warp + 1);
-  const bool has = lane < e - b;
-  int md = has ? __ldg(slot_dst + b + lane) : 0;
-  int mc = has ? __ldg(slot_cnt + b + lane) : 0;
-  for (int base = b; base < e; base += 32) {
-    const int n = min(32, e - base);
+  // each lane holds one cell (row, count, key) of the 32-cell batch
+  const bool has = lane < pc.z - pc.y;
+  int md = has ? __ldg(node_dst + pc.y + lane) : 0;
+  int mc = has ? __ldg(node_cnt + pc.y + lane) : 0;
+  int mk = has ? __ldg(node_key + pc.y + lane) : 0;
+  for (int base = pc.y; base < pc.z; base += 32) {
+    const int n = min(32, pc.z - base);
     const int nx = base + 32 + lane;
-    const bool nhas = nx < e;
-    const int nd = nhas ? __ldg(slot_dst + nx) : 0;
-    const int nc = nhas ? __ldg(slot_cnt + nx) : 0;
-    for (int j0 = 0; j0 < n; j0 += U) {
+    const bool nhas = nx < pc.z;
+    const int nd = nhas ? __ldg(node_dst + nx) : 0;
+    const int nc = nhas ? __ldg(node_cnt + nx) : 0;
+    const int nk = nhas ? __ldg(node_key + nx) : 0;
+    for (int j0 = 0; j0 < n; j0 += U * G) {
       float ad[U][NC], ls[U][NC], dl[U][NC], gd[U][NC], cnt[U];
       uint32_t key[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
+        const int j = j0 + u * G + grp;
+        const bool live = j < n;
         const int d = __shfl_sync(kFull, md, j & 31);
-        cnt[u] = static_cast<float>(__shfl_sync(kFull, mc, j & 31));
-        key[u] = static_cast<uint32_t>(d) * kCellMul +
-                 static_cast<uint32_t>(urow);
+        const int c = __shfl_sync(kFull, mc, j & 31);
+        // a cell past the batch counts 0: its p, q and terms are 0
+        cnt[u] = live ? static_cast<float>(c) : 0.f;
+        key[u] = static_cast<uint32_t>(__shfl_sync(kFull, mk, j & 31));
 #pragma unroll
         for (int k = 0; k < NC; ++k) {
           const size_t dh = static_cast<size_t>(d) * H + sl.head[k];
-          ad[u][k] = j < n ? __ldg(a_dst + dh) : 0.f;
-          ls[u][k] = j < n ? __ldg(lse + dh) : 0.f;
-          dl[u][k] = j < n ? __ldg(delta + dh) : 0.f;
-          gd[u][k] = (j < n && sl.col[k] >= 0)
+          ad[u][k] = live ? __ldg(a_dst + dh) : 0.f;
+          ls[u][k] = live ? __ldg(lse + dh) : 0.f;
+          dl[u][k] = live ? __ldg(delta + dh) : 0.f;
+          gd[u][k] = (live && sl.col[k] >= 0)
                          ? __ldg(g + static_cast<size_t>(d) * C + sl.col[k])
                          : 0.f;
         }
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        if (j >= n) break;  // uniform
         float gv[NC];
 #pragma unroll
         for (int k = 0; k < NC; ++k) gv[k] = gd[u][k] * vs[k];
@@ -389,11 +416,26 @@ dedup_attn_bwd_slots(const float* __restrict__ a_dst,
     }
     md = nd;
     mc = nc;
+    mk = nk;
   }
+  if constexpr (G > 1) {
+#pragma unroll
+    for (int off = GW; off < 32; off <<= 1)
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        da[k] += __shfl_xor_sync(kFull, da[k], off);
+        dva[k] += __shfl_xor_sync(kFull, dva[k], off);
+      }
+    if (grp != 0) return;
+  }
+  // partial row: d a_src [H] | dv [C] (summed by sum_combine)
+  float* part = partials + static_cast<size_t>(max(pc.w, 0)) * (H + C);
+  float* ds_row = pc.w < 0 ? dsrc + static_cast<size_t>(pc.x) * H : part;
+  float* dv_row = pc.w < 0 ? dv + static_cast<size_t>(pc.x) * C : part + H;
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
-    if (sl.lead[k]) dsrc[static_cast<size_t>(warp) * H + sl.head[k]] = da[k];
-    if (sl.col[k] >= 0) dv[static_cast<size_t>(warp) * C + sl.col[k]] = dva[k];
+    if (sl.lead[k]) ds_row[sl.head[k]] = da[k];
+    if (sl.col[k] >= 0) dv_row[sl.col[k]] = dva[k];
   }
 }
 
@@ -429,19 +471,21 @@ extern "C" int pgl_dedup_attn_fwd_f32(
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8: d a_dst [N, H] (row pass, partials [n_partials, H] summed by a second
-// launch), and the slot rows dsrc [n_slots, H] and dv [n_slots, H * dvh]
-// (slot pass; n_slots = P * 128).
+// K8: d a_dst [N, H] (row pass over the cells in row order; partials
+// [n_partials, H] summed by a second launch), then d a_src [N, H] and dv
+// [N, H * dvh] (node walk over the cells in node order: row, count, key;
+// node_partials [n_node_partials, H + H * dvh] summed by a second launch).
 extern "C" int pgl_dedup_attn_bwd_f32(
     int device, const float* a_dst, const float* a_src, const float* v,
     const float* g, const float* lse, const float* delta,
     const int* cell_src, const int* cell_urow, const int* cell_cnt,
     const int* pieces, int n_pieces, const int* split_rows,
-    const int* split_ptr, int n_split, const int* uv, const int* pairs,
-    const int* slot_ptr, const int* slot_dst, const int* slot_cnt,
-    int n_slots, int H, int dvh, float slope, const int* seed, int thresh,
-    float inv_keep, float* da_dst, float* dsrc, float* dv, float* partials,
-    void* stream) {
+    const int* split_ptr, int n_split, const int* node_dst,
+    const int* node_cnt, const int* node_key, const int* node_pieces,
+    int n_node_pieces, const int* node_split_rows, const int* node_split_ptr,
+    int n_node_split, int H, int dvh, float slope, const int* seed,
+    int thresh, float inv_keep, float* da_dst, float* dsrc, float* dv,
+    float* partials, float* node_partials, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int dvh_p = pow2_at_least(dvh);
@@ -450,7 +494,9 @@ extern "C" int pgl_dedup_attn_bwd_f32(
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* pc = reinterpret_cast<const int4*>(pieces);
-  const auto* pr = reinterpret_cast<const int4*>(pairs);
+  const auto* npc = reinterpret_cast<const int4*>(node_pieces);
+  // lane groups a warp in the node walk: two where a head group fits in 16
+  const bool halves = H * dvh_p <= 16;
   PGL_NC_SWITCH(nc, {
     if (n_pieces > 0)
       dedup_attn_bwd_rows<NC, unroll_for(NC)><<<blocks_for(n_pieces),
@@ -458,16 +504,31 @@ extern "C" int pgl_dedup_attn_bwd_f32(
           a_dst, a_src, v, g, lse, delta, cell_src, cell_urow, cell_cnt, pc,
           n_pieces, H, dvh, dvh_p, slope, seed, thresh, inv_keep, da_dst,
           partials);
-    if (n_slots > 0)
-      dedup_attn_bwd_slots<NC, unroll_for(NC)><<<blocks_for(n_slots),
-                                                 kWarps * 32, 0, s>>>(
-          a_dst, a_src, v, g, lse, delta, uv, pr, slot_ptr, slot_dst,
-          slot_cnt, n_slots, H, dvh, dvh_p, slope, seed, thresh, inv_keep,
-          dsrc, dv);
+    if (n_node_pieces > 0) {
+      if constexpr (NC == 1) {
+        if (halves) {
+          dedup_attn_bwd_nodes<NC, NodeUnroll<NC, 2>::value, 2>
+              <<<blocks_for(n_node_pieces), kWarps * 32, 0, s>>>(
+                  a_dst, a_src, v, g, lse, delta, node_dst, node_cnt,
+                  node_key, npc, n_node_pieces, H, dvh, dvh_p, slope, seed,
+                  thresh, inv_keep, dsrc, dv, node_partials);
+        }
+      }
+      if (!(NC == 1 && halves))
+        dedup_attn_bwd_nodes<NC, NodeUnroll<NC, 1>::value, 1>
+            <<<blocks_for(n_node_pieces), kWarps * 32, 0, s>>>(
+                a_dst, a_src, v, g, lse, delta, node_dst, node_cnt, node_key,
+                npc, n_node_pieces, H, dvh, dvh_p, slope, seed, thresh,
+                inv_keep, dsrc, dv, node_partials);
+    }
   })
   if (n_pieces > 0 && n_split > 0)
     sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
         partials, split_rows, split_ptr, H, 0, da_dst, nullptr);
+  if (n_node_pieces > 0 && n_node_split > 0)
+    sum_combine<<<n_node_split, kSumWarps * 32, 0, s>>>(
+        node_partials, node_split_rows, node_split_ptr, H, H * dvh, dsrc,
+        dv);
   return static_cast<int>(cudaGetLastError());
 }
 

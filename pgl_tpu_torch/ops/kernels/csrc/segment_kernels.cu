@@ -9,23 +9,25 @@
 // layout (backward), and `sorted_segment_sum` runs it with the identity
 // gather (indices = arange(E)), which is the pre-gathered contract.
 //
-// K1w, the same kernel on weighted messages, replaces `_kernel` run on
+// K1w, the same kernels on weighted messages, replaces `_kernel` run on
 // `_weighted_msgs` (the TPU path's `spmm_weighted`, the fused
 // `send_ue_recv`): out[d] = sum_e x[src_e] (*|+) w_e, with w [E] or per head
 // [E, H]. Each lane combines its gathered columns with its edge's weight in
 // registers, so no [E, D] message tensor exists. Its gradient is one pass of
-// the same kernel over the CSR layout: dx is the weighted (mul) or plain
-// (add) transposed sum, and the warp that gathers g[dst_e] for dx also
-// reduces dw_e per head (<g[dst_e], x[s]>, or the sum of g[dst_e]) with
-// shuffles and writes it once at the edge's original id. The reference
-// materialises two [E, D] tensors for dw outside its kernel.
+// the same kernels over the CSR layout: dx is the weighted (mul) or plain
+// (add) transposed sum, and the lane group that gathers g[dst_e] for dx
+// also reduces dw_e per head (<g[dst_e], x[s]>, or the sum of g[dst_e]) by
+// a fixed shuffle tree and writes it once at the edge's original id. The
+// reference materialises two [E, D] tensors for dw outside its kernel.
 //
 // What bounds it: bytes, and the latency of the loads that lead to them. Per
 // call it must read x once ([N, D] f32), the indices ([E] i32) and the row
 // pointer, and write out ([N, D] f32); the E*D additions are far below the
 // card's f32 rate. Each source row is read straight from x for each edge:
 // there is no [E, D] message buffer in device memory (the TPU path
-// materialises one). K1's design (`spmm_rows`, `spmm_packs`):
+// materialises one). K1w adds the weights and edge ids ([E, H] f32, [E] i32:
+// 4-byte reads in the caller's edge order, each to its own sector) and dw.
+// The design (`spmm_rows`, `spmm_packs`, both for K1 and K1w):
 //   * one walk of a work item at every width up to 512 columns: a lane keeps
 //     all its columns of the row in registers (NV vectors of VEC = 4 floats,
 //     or of one float where D % 4 != 0 or a pointer is not 16-byte aligned),
@@ -56,14 +58,27 @@
 //     `spmm_packs` for the packs, the packs on a side stream so the two
 //     overlap: in one kernel the packs' code slowed the other items;
 //   * an empty row stores 0. No atomics, and the order of every sum depends
-//     only on D: every run gives the same bits.
-// K1w keeps its own structure (`spmm_pieces`: one warp per piece of at
-// most ET edges, 128 columns a pass).
+//     only on the layout, D and whether the tables are 16-byte aligned:
+//     every run gives the same bits.
+// K1w's template arguments WOP and DWOP (`Op`) add the weights and the
+// weight gradient to the same walk; K1 is WOP = DWOP = kNone, where every
+// line they add compiles away. VEC divides the head width dh, so a vector
+// lies in one head (`Heads`): a lane reads one weight per edge and head its
+// vectors touch, beside the gathered row. Those reads set K1w's pace: with
+// every weight taken as 1 and none read, the forward ran at K1's time (1.4x
+// faster at one head, 2.2x at 8; experiments/torch_spmm/k1w_k8_variants.py)
+// whatever the edge order. dw's per-head partials are summed over the
+// head's slots by `head_tree`, whose first slot writes dw[eid, h] once.
+// K1w holds half of K1's gathered rows in flight (its weights, edge ids and
+// dw partials take registers too: at K1's count the weighted kernels
+// spilled 48-260 B, or at 80 registers ran slower; same script).
+// Past 512 columns a row takes several passes, and a head that crosses a
+// pass is finished by the later one, which adds to what the earlier wrote.
 //
-// Calling convention: launches on the given stream (K1's packs on a side
+// Calling convention: launches on the given stream (the packs on a side
 // stream forked from it and joined back, so what the caller queues after
 // the call sees them done), does not synchronise, allocates nothing (the
-// caller passes `out` [N, D] and `partials` [num_partials, D]), and returns
+// caller passes `out` [N, D] and `partials` [n_partials, D]), and returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -74,16 +89,21 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kPieceWarps = 8;     // warps per block in the piece launch
-constexpr int kItemWarps = 8;      // warps per block in K1's item launch
+constexpr int kItemWarps = 8;      // warps per block in the item launches
 constexpr int kCombineWarps = 16;  // warps per block in the combine launch
 constexpr int kPack = 32;          // most edges and rows of a packed item
-// gathered rows in flight per lane for K1w: its weights, edge ids and
-// weight-gradient scan hold more registers, and at 8 its backward took 101
-// (2 blocks an SM) and 1.75x to 1.8x the time it takes at 4, with 64
-// (experiments/torch_spmm/k1w_dw_variants.py)
-constexpr int kUnrollWeighted = 4;
 enum Op { kNone = 0, kMul = 1, kAdd = 2 };
+
+// K1w's weighted operands: w [E, H] and the edge ids that index it, and for
+// the weight gradient dw [E, H] and (mul) the row table xrow. K1 passes
+// none of them.
+struct Weighted {
+  const int* eid;
+  const float* w;
+  int H, dh;
+  const float* xrow;
+  float* dw;
+};
 
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
@@ -107,17 +127,23 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
   }
 }
 
-// K1's rows in flight per lane: eight vectors of loads (32 registers at
-// VEC = 4), at least two rows
-template <int NV>
+// Rows in flight per lane: K1 eight vectors of loads (32 registers at VEC =
+// 4), at least two rows; K1w half that, at least one, and one where dw is
+// written at more than one vector a lane (at two, 64 registers spilled
+// 100 B).
+template <int NV, int WOP, int DWOP>
 struct ItemUnroll {
-  static constexpr int value = NV >= 4 ? 2 : 8 / NV;
+  static constexpr int k1 = NV >= 4 ? 2 : 8 / NV;
+  static constexpr int value =
+      WOP == kNone && DWOP == kNone ? k1
+      : DWOP != kNone && NV > 1     ? 1
+                                    : (k1 > 1 ? k1 / 2 : 1);
 };
 
-// K1's blocks an SM: four (64 registers) up to 8 columns a lane (at 8, D =
-// 256, the rows' kernel spills 12 B and still ran faster than at three
-// blocks without), two (128) for 16 columns (D > 256) and for the scalar
-// path's 8 or 16, which spilled up to 164 B at 64
+// Blocks an SM: four (64 registers) up to 8 columns a lane (at 8, D = 256,
+// K1's rows kernel spills 12 B and still ran faster than at three blocks
+// without), two (128) for 16 columns (D > 256) and for the scalar path's 8
+// or 16, which spilled up to 164 B at 64
 template <int VEC, int NV>
 struct ItemBlocks {
   static constexpr int value = VEC * NV >= 16 || (VEC == 1 && NV >= 8) ? 2
@@ -163,21 +189,173 @@ __device__ __forceinline__ void zero(float (&a)[NV][VEC]) {
     for (int c = 0; c < VEC; ++c) a[k][c] = 0.f;
 }
 
-// K1's kernels run over the two parts of the work list of `pack_rows`, one
-// warp an item, with a minimum of blocks an SM set (with the block size
+// K1w: the heads of lane l's NV vectors in the column pass from c0 (slot s
+// = k * L + l of the lane group, columns c0 + s * VEC; head = column / dh,
+// clamped to H - 1 past D), which vectors read the weight of the vector
+// before them, and for dw the masks of `head_tree` (bit j of same[k]: slot
+// s + 2^j of this pass lies in slot s's head), of the slots that write
+// (first: a head's first slot in the pass) and of those that add to what an
+// earlier pass wrote (cont: the head began before c0, past 512 columns
+// only). ON false (K1) computes nothing.
+template <int VEC, int L, int NV, bool ON>
+struct Heads {
+  int head[NV];
+  unsigned same[NV];
+  unsigned reuse = 0, first = 0, cont = 0;
+
+  __device__ __forceinline__ Heads(int c0, int l, int D, int H, int dh) {
+    if constexpr (ON) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int s = k * L + l;
+        const int col = c0 + s * VEC;
+        const bool live = col < D;
+        const int h = live ? col / dh : H - 1;
+        const int h0 = h * dh;
+        const int hend = min(D, h0 + dh);
+        head[k] = h;
+        same[k] = 0;
+#pragma unroll
+        for (int j = 0; (1 << j) < L * NV; ++j)
+          if (live && s + (1 << j) < L * NV && col + (1 << j) * VEC < hend)
+            same[k] |= 1u << j;
+        if (k > 0 && h == head[k > 0 ? k - 1 : 0]) reuse |= 1u << k;
+        if (live && (s == 0 || col == h0)) first |= 1u << k;
+        if (live && s == 0 && col != h0) cont |= 1u << k;
+      }
+    }
+  }
+};
+
+// K1w: wv[k] <- edge e's weight for vector k's head (0 where `live` is
+// false), read once per head the lane's vectors touch.
+template <int VEC, int L, int NV>
+__device__ __forceinline__ void load_weights(
+    const Weighted& wt, int e, const Heads<VEC, L, NV, true>& hd, bool live,
+    float (&wv)[NV]) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    if (!live) {
+      wv[k] = 0.f;
+    } else if (k > 0 && (hd.reuse >> k & 1u)) {
+      wv[k] = wv[k > 0 ? k - 1 : 0];
+    } else {
+      wv[k] = __ldg(wt.w + static_cast<size_t>(e) * wt.H + hd.head[k]);
+    }
+  }
+}
+
+// acc += the gathered vector v combined with its weight by WOP
+template <int WOP, int NV, int VEC>
+__device__ __forceinline__ void accumulate(float (&acc)[NV][VEC],
+                                           const float (&v)[NV][VEC],
+                                           const float (&wv)[NV]) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) {
+      if constexpr (WOP == kMul) {
+        acc[k][c] += v[k][c] * wv[k];
+      } else if constexpr (WOP == kAdd) {
+        acc[k][c] += v[k][c] + wv[k];
+      } else {
+        acc[k][c] += v[k][c];
+      }
+    }
+}
+
+// K1w's dw partial of one vector: <g, xrow> (mul) or the sum of g (add,
+// which leaves xr unread)
+template <int DWOP, int VEC>
+__device__ __forceinline__ float dw_part(const float (&v)[VEC],
+                                         const float (&xr)[VEC]) {
+  float p = 0.f;
+#pragma unroll
+  for (int c = 0; c < VEC; ++c) {
+    if constexpr (DWOP == kMul) {
+      p += v[c] * xr[c];
+    } else {
+      p += v[c];
+    }
+  }
+  return p;
+}
+
+// p[u][k] <- at each head's first slot of the pass, the sum of p over the
+// head's slots in this pass (elsewhere partial sums): a segmented tree over
+// the lane group's slots s = k * L + l in a fixed order, level j adding
+// slot s + 2^j where it lies in s's head (`Heads::same`); slot s + 2^j is
+// lane l + 2^j of vector k, lane l + 2^j - L of vector k + 1, or, from 2^j
+// = L on, this lane's vector k + 2^j / L. Every lane calls it. (Skipping
+// the levels past a head's dh / VEC slots with a uniform break slowed dx
+// with dw at one head by 15%: experiments/torch_spmm/k1w_k8_variants.py.)
+template <int U, int L, int NV>
+__device__ __forceinline__ void head_tree(float (&p)[U][NV],
+                                          const unsigned (&same)[NV], int l) {
+#pragma unroll
+  for (int j = 0; (1 << j) < L * NV; ++j) {
+    const int o = 1 << j;
+    float t[U][NV];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        if (o < L) {
+          const float dn = __shfl_down_sync(kFull, p[u][k], o, L);
+          const float up = __shfl_up_sync(
+              kFull, p[u][k + 1 < NV ? k + 1 : k], L - o, L);
+          t[u][k] = l + o < L ? dn : up;
+        } else {
+          const int k2 = k + o / L;
+          t[u][k] = p[u][k2 < NV ? k2 : NV - 1];
+        }
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        if (same[k] >> j & 1u) p[u][k] += t[u][k];
+  }
+}
+
+// K1w: the lanes whose slot is its head's first write edge e's dw of the
+// head (adding to an earlier pass's part where the head began there).
+template <int VEC, int L, int NV>
+__device__ __forceinline__ void store_dw(const Weighted& wt, int e,
+                                         const Heads<VEC, L, NV, true>& hd,
+                                         const float (&p)[NV]) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    if (hd.first >> k & 1u) {
+      float* o = wt.dw + static_cast<size_t>(e) * wt.H + hd.head[k];
+      *o = (hd.cont >> k & 1u) ? *o + p[k] : p[k];
+    }
+  }
+}
+
+// The item kernels run over the two parts of the work list of `pack_rows`,
+// one warp an item, with a minimum of blocks an SM set (with the block size
 // alone ptxas held some instantiations to 32 to 64 registers and spilled the
-// gathered rows, which serialised their loads).
+// gathered rows, which serialised their loads). WOP combines each gathered
+// row with its edge's weight (K1w: kMul, kAdd; kNone for K1 and for the
+// unweighted dx beside a DWOP); DWOP adds the weight gradient of the
+// transposed pass (K1w over CSR, where the gathered rows are the cotangent
+// g[dst_e] and the item's row is the source s): kMul dw[eid, h] = <g[dst_e],
+// xrow[s]> over head h's columns, kAdd their sum of g[dst_e]. The sum for
+// `out` is skipped when it is null (the weight gradient alone).
 
 // Items (x, y, z, w) of one row: edges [y, z) of row x, a piece (w >= 0:
 // its partial slot) or the whole row (w == -1). The lane groups take
 // interleaved edges and are summed by a fixed shuffle tree.
-template <int VEC, int L, int NV>
+template <int VEC, int L, int NV, int WOP, int DWOP>
 __global__ void __launch_bounds__(kItemWarps * 32, ItemBlocks<VEC, NV>::value)
 spmm_rows(const float* __restrict__ x, const int* __restrict__ indices,
           const int4* __restrict__ items, int n_items, int D,
-          float* __restrict__ out, float* __restrict__ partials) {
+          float* __restrict__ out, float* __restrict__ partials,
+          const Weighted wt) {
+  constexpr bool kW = WOP != kNone || DWOP != kNone;
   constexpr int G = 32 / L;
-  constexpr int U = ItemUnroll<NV>::value;
+  constexpr int U = ItemUnroll<NV, WOP, DWOP>::value;
   constexpr int CW = L * NV * VEC;  // columns a pass
   const int lane = threadIdx.x & 31;
   const int g = lane / L;
@@ -185,59 +363,95 @@ spmm_rows(const float* __restrict__ x, const int* __restrict__ indices,
   const int it = blockIdx.x * kItemWarps + (threadIdx.x >> 5);
   if (it >= n_items) return;  // uniform across the warp
   const int4 pc = __ldg(items + it);
-  // the first 32 indices, a lane each (64-bit offsets: y + 32 + lane may
-  // pass INT_MAX near E = 2^31)
-  const int mine = lane < pc.z - pc.y ? __ldg(indices + pc.y + lane) : 0;
+  // the first 32 indices (and edge ids), a lane each (64-bit offsets: y +
+  // 32 + lane may pass INT_MAX near E = 2^31)
+  const bool has = lane < pc.z - pc.y;
+  const int mine = has ? __ldg(indices + pc.y + lane) : 0;
+  int mine_e = 0;
+  if constexpr (kW) mine_e = has ? __ldg(wt.eid + pc.y + lane) : 0;
+  // a launch without dw always stores (known at compile time: K1 and the
+  // forward keep their sum free of the branch)
+  const bool store = DWOP == kNone || out != nullptr;
   float* dst = pc.w >= 0 ? partials + static_cast<size_t>(pc.w) * D
                          : out + static_cast<size_t>(pc.x) * D;
   for (int c0 = 0; c0 < D; c0 += CW) {
+    const Heads<VEC, L, NV, kW> hd(c0, l, D, wt.H, wt.dh);
     float acc[NV][VEC];
     zero(acc);
-    int cur = mine;
+    float xr[NV][VEC];  // the row's own x (mul's dw)
+    if constexpr (DWOP == kMul)
+      gather_row<VEC, L, NV>(wt.xrow, pc.x, D, c0, l, true, xr);
+    int cur = mine, cur_e = mine_e;
     for (long long base = pc.y; base < pc.z; base += 32) {
       const int n = static_cast<int>(min(32LL, pc.z - base));
       const long long next_e = base + 32 + lane;
       const int next = next_e < pc.z ? __ldg(indices + next_e) : 0;
+      int next_id = 0;
+      if constexpr (kW) next_id = next_e < pc.z ? __ldg(wt.eid + next_e) : 0;
       for (int j0 = 0; j0 < n; j0 += U * G) {
         float v[U][NV][VEC];
+        float wv[U][NV];
+        int ev[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int j = j0 + u * G + g;
           const int s = __shfl_sync(kFull, cur, j & 31);
           gather_row<VEC, L, NV>(x, s, D, c0, l, j < n, v[u]);
+          if constexpr (kW) ev[u] = __shfl_sync(kFull, cur_e, j & 31);
+          if constexpr (WOP != kNone)
+            load_weights(wt, ev[u], hd, j < n && store, wv[u]);
         }
+        if (store) {  // uniform across the warp
 #pragma unroll
-        for (int u = 0; u < U; ++u)
+          for (int u = 0; u < U; ++u) accumulate<WOP>(acc, v[u], wv[u]);
+        }
+        if constexpr (DWOP != kNone) {
+          float p[U][NV];
 #pragma unroll
-          for (int k = 0; k < NV; ++k)
+          for (int u = 0; u < U; ++u)
 #pragma unroll
-            for (int c = 0; c < VEC; ++c) acc[k][c] += v[u][k][c];
+            for (int k = 0; k < NV; ++k)
+              p[u][k] = dw_part<DWOP>(v[u][k], xr[k]);
+          head_tree<U, L, NV>(p, hd.same, l);
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (j0 + u * G + g < n) store_dw(wt, ev[u], hd, p[u]);
+        }
       }
       cur = next;
+      if constexpr (kW) cur_e = next_id;
     }
+    if (store) {  // uniform across the warp
 #pragma unroll
-    for (int off = 16; off >= L; off >>= 1)
+      for (int off = 16; off >= L; off >>= 1)
 #pragma unroll
-      for (int k = 0; k < NV; ++k)
+        for (int k = 0; k < NV; ++k)
 #pragma unroll
-        for (int c = 0; c < VEC; ++c)
-          acc[k][c] += __shfl_xor_sync(kFull, acc[k][c], off);
-    if (g == 0) store_row<VEC, L, NV>(dst, D, c0, l, acc);
+          for (int c = 0; c < VEC; ++c)
+            acc[k][c] += __shfl_xor_sync(kFull, acc[k][c], off);
+      if (g == 0) store_row<VEC, L, NV>(dst, D, c0, l, acc);
+    }
+    if constexpr (DWOP != kNone) __syncwarp();  // dw of this pass visible
   }
 }
 
 // Packs (x, y, z, -nr): the nr consecutive rows from x, edges [y, z), at
-// most kPack of each; their indices and row pointers are loaded together.
-template <int VEC, int L, int NV>
+// most kPack of each; their indices (and edge ids) and row pointers are
+// loaded together.
+template <int VEC, int L, int NV, int WOP, int DWOP>
 __global__ void __launch_bounds__(kItemWarps * 32, ItemBlocks<VEC, NV>::value)
 spmm_packs(const float* __restrict__ x, const int* __restrict__ indices,
            const int* __restrict__ indptr, const int4* __restrict__ items,
-           int n_items, int D, float* __restrict__ out) {
+           int n_items, int D, float* __restrict__ out, const Weighted wt) {
+  constexpr bool kW = WOP != kNone || DWOP != kNone;
   constexpr int G = 32 / L;
-  constexpr int U = ItemUnroll<NV>::value;
+  // mul's dw gathers the edge's row of xrow beside it: half the rows again
+  constexpr int U0 = ItemUnroll<NV, WOP, DWOP>::value;
+  constexpr int U = DWOP == kMul && U0 > 1 ? U0 / 2 : U0;
   constexpr int CW = L * NV * VEC;  // columns a pass
   __shared__ int s_idx[kItemWarps][kPack];
   __shared__ int s_ptr[kItemWarps][kPack + 1];
+  __shared__ int s_eid[kW ? kItemWarps : 1][kW ? kPack : 1];
   const int wb = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane / L;
@@ -257,9 +471,13 @@ spmm_packs(const float* __restrict__ x, const int* __restrict__ indices,
   const int nr = -pc.w;
   int* sx = s_idx[wb];
   int* sp = s_ptr[wb];
+  int* se = s_eid[kW ? wb : 0];
   if (lane < n) sx[lane] = mine;
   if (lane < nr) sp[lane] = ptr - pc.y;
   if (lane == 0) sp[nr] = n;
+  if constexpr (kW) {
+    if (lane < n) se[lane] = __ldg(wt.eid + pc.y + lane);
+  }
   __syncwarp();
   const int a = g * n / G;
   const int b = (g + 1) * n / G;
@@ -274,244 +492,121 @@ spmm_packs(const float* __restrict__ x, const int* __restrict__ indices,
   }
   // row r0 began in an earlier chunk (never with one group)
   const bool open_left = G > 1 && r0 < nr && sp[r0] < a;
+  const bool store = DWOP == kNone || out != nullptr;
+  // dw's shuffles need the whole warp: every group takes as many steps as
+  // the longest chunk
+  const int kend = DWOP == kNone ? b : a + (n + G - 1) / G;
   for (int c0 = 0; c0 < D; c0 += CW) {
+    const Heads<VEC, L, NV, kW> hd(c0, l, D, wt.H, wt.dh);
     float acc[NV][VEC], head[NV][VEC];
     zero(acc);
     zero(head);
-    if (g == 0)
+    if (store && g == 0)
       for (int r = 0; r < r0; ++r)
         store_row<VEC, L, NV>(out + static_cast<size_t>(pc.x + r) * D,
                               D, c0, l, acc);
     int r = r0;
     int rend = r0 < nr ? sp[r0 + 1] : 0;
-    for (int k0 = a; k0 < b; k0 += U) {
+    int dr = r, drend = rend;  // mul's dw: the row of the edge gathered
+    for (int k0 = a; k0 < kend; k0 += U) {
       float v[U][NV][VEC];
+      float wv[U][NV];
+      float xr[U][NV][VEC];
+      int ev[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int e = k0 + u;
-        gather_row<VEC, L, NV>(x, e < b ? sx[e] : 0, D, c0, l, e < b,
-                               v[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int e = k0 + u;
-        if (e < b) {
-          while (e >= rend) {  // row r ended before edge e
-            if (open_left && r == r0) {
-#pragma unroll
-              for (int k = 0; k < NV; ++k)
-#pragma unroll
-                for (int c = 0; c < VEC; ++c) head[k][c] = acc[k][c];
-              zero(acc);
-            } else {
-              store_row<VEC, L, NV>(
-                  out + static_cast<size_t>(pc.x + r) * D, D, c0, l,
-                  acc);
+        const bool live = e < b;
+        gather_row<VEC, L, NV>(x, live ? sx[e] : 0, D, c0, l, live, v[u]);
+        if constexpr (kW) ev[u] = live ? se[e] : 0;
+        if constexpr (WOP != kNone)
+          load_weights(wt, ev[u], hd, live && store, wv[u]);
+        if constexpr (DWOP == kMul) {
+          if (live) {
+            while (e >= drend) {
+              ++dr;
+              drend = sp[dr + 1];
             }
-            ++r;
-            rend = sp[r + 1];
           }
+          gather_row<VEC, L, NV>(wt.xrow, pc.x + dr, D, c0, l, live, xr[u]);
+        }
+      }
+      if (store) {  // uniform across the warp
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = k0 + u;
+          if (e < b) {
+            while (e >= rend) {  // row r ended before edge e
+              if (open_left && r == r0) {
+#pragma unroll
+                for (int k = 0; k < NV; ++k)
+#pragma unroll
+                  for (int c = 0; c < VEC; ++c) head[k][c] = acc[k][c];
+                zero(acc);
+              } else {
+                store_row<VEC, L, NV>(
+                    out + static_cast<size_t>(pc.x + r) * D, D, c0, l,
+                    acc);
+              }
+              ++r;
+              rend = sp[r + 1];
+            }
+            accumulate<WOP>(acc, v[u], wv[u]);
+          }
+        }
+      }
+      if constexpr (DWOP != kNone) {
+        float p[U][NV];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int k = 0; k < NV; ++k)
+            p[u][k] = dw_part<DWOP>(v[u][k], xr[u][k]);
+        head_tree<U, L, NV>(p, hd.same, l);
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (k0 + u < b) store_dw(wt, ev[u], hd, p[u]);
+      }
+    }
+    if (store) {  // uniform across the warp
+      // rows that end at b (the empty ones there too)
+      while (r < nr && rend <= b) {
+        if (open_left && r == r0) {
 #pragma unroll
           for (int k = 0; k < NV; ++k)
 #pragma unroll
-            for (int c = 0; c < VEC; ++c) acc[k][c] += v[u][k][c];
+            for (int c = 0; c < VEC; ++c) head[k][c] = acc[k][c];
+          zero(acc);
+        } else {
+          store_row<VEC, L, NV>(out + static_cast<size_t>(pc.x + r) * D,
+                                D, c0, l, acc);
         }
+        ++r;
+        rend = r < nr ? sp[r + 1] : 0;
       }
-    }
-    // rows that end at b (the empty ones there too)
-    while (r < nr && rend <= b) {
-      if (open_left && r == r0) {
+      if constexpr (G > 1) {
+        // acc: the partial of the row still open at b, passed right; a
+        // chunk inside one row adds what it received before passing on
+        const bool through = open_left && r == r0;
+        for (int k = 1; k < G; ++k) {
 #pragma unroll
-        for (int k = 0; k < NV; ++k)
+          for (int q = 0; q < NV; ++q)
 #pragma unroll
-          for (int c = 0; c < VEC; ++c) head[k][c] = acc[k][c];
-        zero(acc);
-      } else {
-        store_row<VEC, L, NV>(out + static_cast<size_t>(pc.x + r) * D,
-                              D, c0, l, acc);
-      }
-      ++r;
-      rend = r < nr ? sp[r + 1] : 0;
-    }
-    if constexpr (G > 1) {
-      // acc: the partial of the row still open at b, passed right; a
-      // chunk inside one row adds what it received before passing on
-      const bool through = open_left && r == r0;
-      for (int k = 1; k < G; ++k) {
-#pragma unroll
-        for (int q = 0; q < NV; ++q)
-#pragma unroll
-          for (int c = 0; c < VEC; ++c) {
-            const float cin = __shfl_up_sync(kFull, acc[q][c], L);
-            if (g == k && open_left) {
-              if (through) {
-                acc[q][c] = cin + acc[q][c];
-              } else {
-                head[q][c] = cin + head[q][c];
+            for (int c = 0; c < VEC; ++c) {
+              const float cin = __shfl_up_sync(kFull, acc[q][c], L);
+              if (g == k && open_left) {
+                if (through) {
+                  acc[q][c] = cin + acc[q][c];
+                } else {
+                  head[q][c] = cin + head[q][c];
+                }
               }
             }
-          }
-      }
-      if (open_left && !through)
-        store_row<VEC, L, NV>(out + static_cast<size_t>(pc.x + r0) * D,
-                              D, c0, l, head);
-    }
-  }
-}
-
-// K1w: one warp per piece (row, begin, end, slot). LPR lanes cover VEC * LPR
-// columns of one edge's row; the warp's 32 / LPR lane groups take
-// interleaved edges of the piece and are summed by a fixed shuffle tree.
-//
-// WOP combines each gathered row with its edge's weight before the sum
-// (K1w): kMul multiplies, kAdd adds, kNone leaves it (only beside a DWOP:
-// the weight gradient alone, or with the unweighted dx). The weight of
-// layout position e is w[eid[e] * H + head], head = col / dh: w stays in
-// the caller's edge order. VEC divides dh on weighted launches, so a lane's
-// columns lie in one head.
-//
-// DWOP adds the weight gradient of the transposed pass (K1w over CSR, where
-// the gathered rows are the cotangent g[dst_e] and the piece's row is the
-// source s): kMul dw[eid, head] = <g[dst_e], xrow[s]> over the head's
-// columns, kAdd dw[eid, head] = sum of g[dst_e] over them. A lane's partial
-// is summed over the lanes of its head by a segmented shuffle scan; the
-// head's first lane in this column pass writes it (a head wider than the
-// pass is finished by the later passes, read back after a __syncwarp). The
-// sum for `out` is skipped when it is null (weight gradient alone).
-template <int VEC, int LPR, int WOP, int DWOP>
-__global__ void __launch_bounds__(kPieceWarps * 32)
-spmm_pieces(const float* __restrict__ x, const int* __restrict__ indices,
-            const int* __restrict__ eid, const float* __restrict__ w, int H,
-            int dh, const int4* __restrict__ pieces, int n_pieces, int D,
-            float* __restrict__ out, float* __restrict__ partials,
-            const float* __restrict__ xrow, float* dw) {
-  static_assert(WOP != kNone || DWOP != kNone, "K1 is spmm_rows");
-  constexpr int G = 32 / LPR;
-  // the summation order of a lane group (edges g, g + G, g + 2G, ...) does
-  // not depend on U
-  constexpr int U = kUnrollWeighted;
-  const int warp = blockIdx.x * kPieceWarps + (threadIdx.x >> 5);
-  if (warp >= n_pieces) return;  // uniform across the warp
-  const int lane = threadIdx.x & 31;
-  const int g = lane / LPR;
-  const int l = lane % LPR;
-  const int4 pc = pieces[warp];  // x: row, y: begin, z: end, w: slot or -1
-  // a launch without dw always stores (known here at compile time: the
-  // forward and dx keep their sum free of the branch)
-  const bool store = DWOP == kNone || out != nullptr;
-  float* dst = pc.w < 0 ? out + static_cast<size_t>(pc.x) * D
-                        : partials + static_cast<size_t>(pc.w) * D;
-
-  for (int c0 = 0; c0 < D; c0 += LPR * VEC) {
-    const int col = c0 + l * VEC;
-    const bool active = col < D;  // D % VEC == 0, so the whole vector fits
-    // head of lane k of this group (-1 past D)
-    auto head_of = [&](int k) {
-      const int c = c0 + k * VEC;
-      return c < D ? c / dh : -1;
-    };
-    const int hd = head_of(l);
-    float acc[VEC];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-
-    // the weight-gradient scan: bit k set when lane l + 2^k shares this
-    // lane's head; the head's first lane in this pass writes, adding to
-    // what an earlier pass wrote when the head began there
-    unsigned same = 0;
-    bool first = false, cont = false;
-    float xr[VEC];
-    if constexpr (DWOP != kNone) {
-#pragma unroll
-      for (int k = 0; (1 << k) < LPR; ++k) {
-        const int o = l + (1 << k);
-        if (o < LPR && head_of(o) == hd) same |= 1u << k;
-      }
-      first = active && (l == 0 || head_of(l - 1) != hd);
-      cont = col % dh != 0;
-      if (DWOP == kMul && active) {
-        load_vec<VEC>(xrow + static_cast<size_t>(pc.x) * D + col, xr);
-      } else {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) xr[k] = 0.f;
-      }
-    }
-
-    // each lane holds one index (and edge id) of the current 32-edge
-    // batch; the next batch's load while this batch's rows are gathered
-    // (64-bit edge offsets: begin + 32 + lane may pass INT_MAX near E = 2^31)
-    const bool have = lane < pc.z - pc.y;
-    int mine = have ? __ldg(indices + pc.y + lane) : 0;
-    int mine_e = have ? __ldg(eid + pc.y + lane) : 0;
-    for (long long base = pc.y; base < pc.z; base += 32) {
-      const int n = static_cast<int>(min(32LL, pc.z - base));
-      const long long next_e = base + 32 + lane;
-      const int next = next_e < pc.z ? __ldg(indices + next_e) : 0;
-      const int next_id = next_e < pc.z ? __ldg(eid + next_e) : 0;
-      for (int j0 = 0; j0 < n; j0 += U * G) {
-        float v[U][VEC];
-        float wv[U];
-        int ev[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int j = j0 + u * G + g;
-          const int s = __shfl_sync(kFull, mine, j & 31);
-          ev[u] = __shfl_sync(kFull, mine_e, j & 31);
-          wv[u] = 0.f;
-          if (active && j < n) {
-            load_vec<VEC>(x + static_cast<size_t>(s) * D + col, v[u]);
-            if constexpr (WOP != kNone)
-              wv[u] = __ldg(w + static_cast<size_t>(ev[u]) * H + hd);
-          } else {
-#pragma unroll
-            for (int k = 0; k < VEC; ++k) v[u][k] = 0.f;
-          }
         }
-        if (store) {  // uniform across the warp
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-#pragma unroll
-            for (int k = 0; k < VEC; ++k) {
-              if constexpr (WOP == kMul) {
-                acc[k] += v[u][k] * wv[u];
-              } else if constexpr (WOP == kAdd) {
-                acc[k] += v[u][k] + wv[u];
-              } else {
-                acc[k] += v[u][k];
-              }
-            }
-          }
-        }
-        if constexpr (DWOP != kNone) {
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            float p = 0.f;
-#pragma unroll
-            for (int k = 0; k < VEC; ++k)
-              p += DWOP == kMul ? v[u][k] * xr[k] : v[u][k];
-#pragma unroll
-            for (int k = 0; (1 << k) < LPR; ++k) {
-              const float t = __shfl_down_sync(kFull, p, 1 << k, LPR);
-              if (same >> k & 1u) p += t;
-            }
-            if (first && j0 + u * G + g < n) {
-              float* o = dw + static_cast<size_t>(ev[u]) * H + hd;
-              *o = cont ? *o + p : p;
-            }
-          }
-        }
+        if (open_left && !through)
+          store_row<VEC, L, NV>(out + static_cast<size_t>(pc.x + r0) * D,
+                                D, c0, l, head);
       }
-      mine = next;
-      mine_e = next_id;
-    }
-    if (store) {  // uniform across the warp
-#pragma unroll
-      for (int off = 16; off >= LPR; off >>= 1) {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k)
-          acc[k] += __shfl_xor_sync(kFull, acc[k], off);
-      }
-      if (g == 0 && active) store_vec<VEC>(dst + col, acc);
     }
     if constexpr (DWOP != kNone) __syncwarp();  // dw of this pass visible
   }
@@ -550,90 +645,7 @@ spmm_combine(const float* __restrict__ partials,
   }
 }
 
-struct Args {
-  const float* x;
-  const int* indices;
-  const int* eid;
-  const float* w;
-  int H, dh;
-  const int4* pieces;
-  int n_pieces, D;
-  float* out;
-  float* partials;
-  const float* xrow;
-  float* dw;
-};
-
-template <int VEC, int WOP, int DWOP>
-void launch_pieces(int lpr, int blocks, cudaStream_t stream, const Args& a) {
-  const int threads = kPieceWarps * 32;
-#define PGL_SPMM_CASE(L)                                                    \
-  case L:                                                                   \
-    spmm_pieces<VEC, L, WOP, DWOP><<<blocks, threads, 0, stream>>>(         \
-        a.x, a.indices, a.eid, a.w, a.H, a.dh, a.pieces, a.n_pieces, a.D,   \
-        a.out, a.partials, a.xrow, a.dw);                                   \
-    break;
-  switch (lpr) {
-    PGL_SPMM_CASE(1)
-    PGL_SPMM_CASE(2)
-    PGL_SPMM_CASE(4)
-    PGL_SPMM_CASE(8)
-    PGL_SPMM_CASE(16)
-    default:
-      PGL_SPMM_CASE(32)
-  }
-#undef PGL_SPMM_CASE
-}
-
-template <int WOP, int DWOP>
-void launch_vec(bool vec4, int lpr, int blocks, cudaStream_t s,
-                const Args& a) {
-  if (vec4) {
-    launch_pieces<4, WOP, DWOP>(lpr, blocks, s, a);
-  } else {
-    launch_pieces<1, WOP, DWOP>(lpr, blocks, s, a);
-  }
-}
-
-// K1w's piece launch and, where rows split, the combine launch.
-int run(int device, int wop, int dwop, const Args& a, const int* split_rows,
-        const int* split_ptr, int n_split, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (a.n_pieces <= 0 || a.D <= 0)
-    return static_cast<int>(cudaGetLastError());
-  const auto s = static_cast<cudaStream_t>(stream);
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.x) |
-                         reinterpret_cast<uintptr_t>(a.out) |
-                         reinterpret_cast<uintptr_t>(a.partials) |
-                         reinterpret_cast<uintptr_t>(a.xrow);
-  const bool vec4 = a.D % 4 == 0 && a.dh % 4 == 0 && (ptrs & 15) == 0;
-  const int vec = vec4 ? 4 : 1;
-  const int lanes = (a.D + vec - 1) / vec;
-  int lpr = 1;
-  while (lpr < lanes && lpr < 32) lpr <<= 1;
-  const int blocks = (a.n_pieces + kPieceWarps - 1) / kPieceWarps;
-  if (wop == kMul && dwop == kNone) {
-    launch_vec<kMul, kNone>(vec4, lpr, blocks, s, a);
-  } else if (wop == kAdd && dwop == kNone) {
-    launch_vec<kAdd, kNone>(vec4, lpr, blocks, s, a);
-  } else if (wop == kMul && dwop == kMul) {
-    launch_vec<kMul, kMul>(vec4, lpr, blocks, s, a);
-  } else if (wop == kNone && dwop == kMul) {
-    launch_vec<kNone, kMul>(vec4, lpr, blocks, s, a);
-  } else if (wop == kNone && dwop == kAdd) {
-    launch_vec<kNone, kAdd>(vec4, lpr, blocks, s, a);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_split > 0 && a.out != nullptr) {
-    spmm_combine<<<n_split, kCombineWarps * 32, 0, s>>>(
-        a.partials, split_rows, split_ptr, a.D, a.out);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The side stream of each device for K1's packs and the two events that
+// The side stream of each device for the packs and the two events that
 // fork it from and join it back to the caller's stream, made at first use
 // and reused (their record-wait pairs run under `lock`, one call at a time).
 struct Side {
@@ -658,24 +670,34 @@ cudaError_t side_of(int device, Side** side) {
   return err;
 }
 
-// K1's two item launches, one warp an item: the rows' items on `s`, the
+// What one call walks: the work list (n_rows items of one row, then n_packs
+// packs), the tables and the outputs.
+struct Walk {
+  const float* x;
+  const int* indices;
+  const int* indptr;
+  const int4* items;
+  int n_rows, n_packs, D;
+  float* out;
+  float* partials;
+};
+
+// The two item launches, one warp an item: the rows' items on `s`, the
 // packs (at items + n_rows) on the device's side stream, forked from and
 // joined back to `s`, so the two kernels overlap (a hub's pieces beside the
 // short rows) and `s` sees both done.
-template <int VEC, int L, int NV>
-cudaError_t launch_items(int device, const float* x, const int* indices,
-                         const int* indptr, const int4* items, int n_rows,
-                         int n_packs, int D, float* out, float* partials,
+template <int VEC, int L, int NV, int WOP, int DWOP>
+cudaError_t launch_items(int device, const Walk& a, const Weighted& wt,
                          cudaStream_t s) {
   const dim3 threads(kItemWarps * 32);
   const auto blocks = [](int n) { return (n + kItemWarps - 1) / kItemWarps; };
-  if (n_rows == 0 || n_packs == 0) {
-    if (n_packs > 0)
-      spmm_packs<VEC, L, NV><<<blocks(n_packs), threads, 0, s>>>(
-          x, indices, indptr, items, n_packs, D, out);
-    if (n_rows > 0)
-      spmm_rows<VEC, L, NV><<<blocks(n_rows), threads, 0, s>>>(
-          x, indices, items, n_rows, D, out, partials);
+  if (a.n_rows == 0 || a.n_packs == 0) {
+    if (a.n_packs > 0)
+      spmm_packs<VEC, L, NV, WOP, DWOP><<<blocks(a.n_packs), threads, 0, s>>>(
+          a.x, a.indices, a.indptr, a.items, a.n_packs, a.D, a.out, wt);
+    if (a.n_rows > 0)
+      spmm_rows<VEC, L, NV, WOP, DWOP><<<blocks(a.n_rows), threads, 0, s>>>(
+          a.x, a.indices, a.items, a.n_rows, a.D, a.out, a.partials, wt);
     return cudaSuccess;
   }
   std::lock_guard<std::mutex> guard(side_lock);
@@ -685,10 +707,12 @@ cudaError_t launch_items(int device, const float* x, const int* indices,
   if (err == cudaSuccess)
     err = cudaStreamWaitEvent(side->stream, side->fork, 0);
   if (err != cudaSuccess) return err;
-  spmm_packs<VEC, L, NV><<<blocks(n_packs), threads, 0, side->stream>>>(
-      x, indices, indptr, items + n_rows, n_packs, D, out);
-  spmm_rows<VEC, L, NV><<<blocks(n_rows), threads, 0, s>>>(
-      x, indices, items, n_rows, D, out, partials);
+  spmm_packs<VEC, L, NV, WOP, DWOP>
+      <<<blocks(a.n_packs), threads, 0, side->stream>>>(
+          a.x, a.indices, a.indptr, a.items + a.n_rows, a.n_packs, a.D,
+          a.out, wt);
+  spmm_rows<VEC, L, NV, WOP, DWOP><<<blocks(a.n_rows), threads, 0, s>>>(
+      a.x, a.indices, a.items, a.n_rows, a.D, a.out, a.partials, wt);
   err = cudaEventRecord(side->join, side->stream);
   if (err == cudaSuccess) err = cudaStreamWaitEvent(s, side->join, 0);
   return err;
@@ -707,42 +731,61 @@ int items_config(int D, bool vec4, int* nv) {
   return lanes;
 }
 
-// K1 and, where rows split, the combine launch.
-int run_items(int device, const float* x, const int* indices,
-              const int* indptr, const int4* items, int n_rows, int n_packs,
-              const int* split_rows, const int* split_ptr, int n_split, int D,
-              float* out, float* partials, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rows < 0 || n_packs < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows + n_packs == 0 || D <= 0)
-    return static_cast<int>(cudaGetLastError());
-  const auto s = static_cast<cudaStream_t>(stream);
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) |
-                         reinterpret_cast<uintptr_t>(out) |
-                         reinterpret_cast<uintptr_t>(partials);
-  const bool vec4 = D % 4 == 0 && (ptrs & 15) == 0;
-  int nv = 1;
-  const int lanes = items_config(D, vec4, &nv);
-#define PGL_ITEMS(V, L, N)                                                  \
-  if (vec4 == (V == 4) && lanes == L && nv == N) {                          \
-    err = launch_items<V, L, N>(device, x, indices, indptr, items, n_rows,  \
-                                n_packs, D, out, partials, s);              \
-  } else
+// The item launches of one (WOP, DWOP) at the configuration (vec4, lanes,
+// nv) that `items_config` chose.
+template <int WOP, int DWOP>
+cudaError_t launch_config(int device, bool vec4, int lanes, int nv,
+                          const Walk& a, const Weighted& wt, cudaStream_t s) {
+#define PGL_ITEMS(V, L, N)                                       \
+  if (vec4 == (V == 4) && lanes == L && nv == N)                 \
+    return launch_items<V, L, N, WOP, DWOP>(device, a, wt, s);
   PGL_ITEMS(4, 1, 1) PGL_ITEMS(4, 2, 1) PGL_ITEMS(4, 4, 1) PGL_ITEMS(4, 8, 1)
   PGL_ITEMS(4, 16, 1) PGL_ITEMS(4, 32, 1) PGL_ITEMS(4, 32, 2)
   PGL_ITEMS(4, 32, 4)
   PGL_ITEMS(1, 1, 1) PGL_ITEMS(1, 2, 1) PGL_ITEMS(1, 4, 1) PGL_ITEMS(1, 8, 1)
   PGL_ITEMS(1, 16, 1) PGL_ITEMS(1, 32, 1) PGL_ITEMS(1, 32, 2)
-  PGL_ITEMS(1, 32, 4) PGL_ITEMS(1, 32, 8) PGL_ITEMS(1, 32, 16) {
+  PGL_ITEMS(1, 32, 4) PGL_ITEMS(1, 32, 8) PGL_ITEMS(1, 32, 16)
+#undef PGL_ITEMS
+  return cudaErrorInvalidValue;
+}
+
+// K1 (wop = dwop = kNone) or K1w over the work list, and, where rows split
+// and out is written, the combine launch.
+int run_items(int device, int wop, int dwop, const Walk& a,
+              const Weighted& wt, const int* split_rows,
+              const int* split_ptr, int n_split, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.n_rows < 0 || a.n_packs < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.n_rows + a.n_packs == 0 || a.D <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.x) |
+                         reinterpret_cast<uintptr_t>(a.out) |
+                         reinterpret_cast<uintptr_t>(a.partials) |
+                         reinterpret_cast<uintptr_t>(wt.xrow);
+  // a weighted vector lies in one head (K1 passes dh = 0)
+  const bool vec4 = a.D % 4 == 0 && wt.dh % 4 == 0 && (ptrs & 15) == 0;
+  int nv = 1;
+  const int lanes = items_config(a.D, vec4, &nv);
+  if (wop == kNone && dwop == kNone) {
+    err = launch_config<kNone, kNone>(device, vec4, lanes, nv, a, wt, s);
+  } else if (wop == kMul && dwop == kNone) {
+    err = launch_config<kMul, kNone>(device, vec4, lanes, nv, a, wt, s);
+  } else if (wop == kAdd && dwop == kNone) {
+    err = launch_config<kAdd, kNone>(device, vec4, lanes, nv, a, wt, s);
+  } else if (wop == kMul && dwop == kMul) {
+    err = launch_config<kMul, kMul>(device, vec4, lanes, nv, a, wt, s);
+  } else if (wop == kNone && dwop == kAdd) {
+    err = launch_config<kNone, kAdd>(device, vec4, lanes, nv, a, wt, s);
+  } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef PGL_ITEMS
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_split > 0) {
+  if (n_split > 0 && a.out != nullptr) {
     spmm_combine<<<n_split, kCombineWarps * 32, 0, s>>>(
-        partials, split_rows, split_ptr, D, out);
+        a.partials, split_rows, split_ptr, a.D, a.out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -757,30 +800,33 @@ extern "C" int pgl_spmm_f32(int device, const float* x, const int* indices,
                             int n_packs, const int* split_rows,
                             const int* split_ptr, int n_split, int D,
                             float* out, float* partials, void* stream) {
-  return run_items(device, x, indices, indptr,
-                   reinterpret_cast<const int4*>(items), n_rows, n_packs,
-                   split_rows, split_ptr, n_split, D, out, partials, stream);
+  const Walk a{x,      indices, indptr, reinterpret_cast<const int4*>(items),
+               n_rows, n_packs, D,      out,
+               partials};
+  return run_items(device, kNone, kNone, a, Weighted{}, split_rows,
+                   split_ptr, n_split, stream);
 }
 
-// K1w: out [R, D] = sum over the row's edges of x[indices[e]] (wop 1: times,
-// wop 2: plus) w[eid[e], col / (D / H)], w [E, H] f32 in the caller's edge
-// order (wop 0: unweighted, taken only with a dwop: K1 is pgl_spmm_f32).
-// dwop 1 (with xrow [R, D]) or 2 also writes dw [E, H] at eid; `out` may
-// then be null (no combine launch either), and with wop 0 w is not read.
-extern "C" int pgl_spmm_weighted_f32(int device, int wop, int dwop,
-                                     const float* x, const int* indices,
-                                     const int* eid, const float* w, int H,
-                                     const int* pieces, int n_pieces,
-                                     const int* split_rows,
-                                     const int* split_ptr, int n_split, int D,
-                                     float* out, float* partials,
-                                     const float* xrow, float* dw,
-                                     void* stream) {
+// K1w over the same work list: out [R, D] = sum over the row's edges of
+// x[indices[e]] (wop 1: times, wop 2: plus) w[eid[e], col / (D / H)], w
+// [E, H] f32 in the caller's edge order (wop 0: unweighted, taken only with
+// dwop 2, add's dx; K1 is pgl_spmm_f32). dwop 1 (with xrow [R, D]: wop must
+// be 1) or 2 also writes dw [E, H] at eid. With a dwop, `out` may be null:
+// dw alone, no combine launch, and w is not read.
+extern "C" int pgl_spmm_weighted_f32(
+    int device, int wop, int dwop, const float* x, const int* indices,
+    const int* indptr, const int* eid, const float* w, int H,
+    const int* items, int n_rows, int n_packs, const int* split_rows,
+    const int* split_ptr, int n_split, int D, float* out, float* partials,
+    const float* xrow, float* dw, void* stream) {
   if (H <= 0 || D % H != 0 || (wop == kNone && dwop == kNone))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x,       indices, eid,  w,
-               H,       D / H,   reinterpret_cast<const int4*>(pieces),
-               n_pieces, D,      out,  partials,
-               xrow,    dw};
-  return run(device, wop, dwop, a, split_rows, split_ptr, n_split, stream);
+  if (out == nullptr && dwop != kNone)
+    wop = dwop == kMul ? kMul : kNone;  // dw alone: the weights go unread
+  const Walk a{x,      indices, indptr, reinterpret_cast<const int4*>(items),
+               n_rows, n_packs, D,      out,
+               partials};
+  const Weighted wt{eid, w, H, D / H, xrow, dw};
+  return run_items(device, wop, dwop, a, wt, split_rows, split_ptr, n_split,
+                   stream);
 }

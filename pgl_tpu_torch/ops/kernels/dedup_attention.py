@@ -16,20 +16,18 @@ edges into row r from unique row u (node ``uv[u]``), which share one score.
 * :func:`build_dedup_attention` builds, once on the host (numpy), what the
   kernels walk: the nonzero cells with their multiplicities and dropout
   keys, in row order (cut into pieces of at most ``ET`` cells by
-  ``segment_kernels.cut_rows``), in column order (the layout's dedup
-  order, by slot ``p·W + c``; the additive K8) and in node order (by the
-  node of the cell's unique row, then slot, then row; the dot-mode K8,
-  cut into pieces the same way), and :func:`build_uniq_reduce`, the
-  reference's K1 layout that folds the additive backward's pair-slot rows
-  onto nodes.
+  ``segment_kernels.cut_rows``) and in node order (by the node of the
+  cell's unique row, then slot, then row; K8's node walk, cut into pieces
+  the same way). :func:`build_uniq_reduce` is the reference's K1 layout
+  that folds pair-slot rows onto nodes; the node walk writes node rows, so
+  the port's kernels need no fold.
 * :func:`dedup_gat_attention` and :func:`dedup_dot_attention` are autograd
   ``Function``s with the reference's contracts (``:727-768`` and
   ``:771-805``): the forward (K7) saves ``lse``; the backward computes
-  ``delta = Σ g·out`` in torch and runs K8. In additive mode K8 gives ``d
-  a_dst`` per row and ``d a_src`` and ``dv`` per pair slot, then K1 folds
-  the slot rows over ``red``; in dot mode it gives ``dq`` per row and
-  ``dk`` and ``dv`` per node (the node walk), with no slot rows and no
-  fold. The dropout seed is saved, so every pass draws the same mask.
+  ``delta = Σ g·out`` in torch and runs K8: ``d a_dst`` (dot: ``dq``) per
+  row from the row pass, ``d a_src`` and ``dv`` (dot: ``dk`` and ``dv``)
+  per node from the node walk, with no slot rows and no fold. The dropout
+  seed is saved, so every pass draws the same mask.
 * :func:`dedup_attention_reference` and :func:`dedup_bwd_reference`
   (additive), :func:`dedup_dot_reference` and :func:`dedup_dot_bwd_reference`
   (dot) are the plain PyTorch versions, in edge space over the dedup order
@@ -39,13 +37,12 @@ edges into row r from unique row u (node ``uv[u]``), which share one score.
   shared by its duplicate edges.
 
 ``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, H, dvh)`` in additive
-mode, kernel one of ``dedup_fwd`` (K7) and ``dedup_bwd`` (K8: its row and
-slot passes), and by ``(kernel, H, dsh, dvh)`` in dot mode, kernel one of
-``dedup_dot_fwd`` and ``dedup_dot_bwd`` (K8: its row pass and node walk);
-where a row has several pieces, each kernel's second launch counts under
-its name with ``_combine``, and where a node's cells have several,
-K8-dot's under ``dedup_dot_bwd_node_combine``. The additive fold counts
-in ``segment_kernels`` as ``("uniq_reduce", D)``.
+mode, kernel one of ``dedup_fwd`` (K7) and ``dedup_bwd`` (K8: its row pass
+and node walk), and by ``(kernel, H, dsh, dvh)`` in dot mode, kernel one of
+``dedup_dot_fwd`` and ``dedup_dot_bwd``; where a row has several pieces,
+each kernel's second launch counts under its name with ``_combine``, and
+where a node's cells have several, K8's under ``dedup_bwd_node_combine``
+(dot: ``dedup_dot_bwd_node_combine``).
 """
 
 from __future__ import annotations
@@ -101,27 +98,21 @@ def build_uniq_reduce(layout: DedupLayout, num_nodes: int) -> sk.SpmmLayout:
 @dataclass(frozen=True)
 class DedupAttention:
     """What K7 and K8 read of a CSC dedup layout (int32 tensors on one
-    device), with the layout itself (the plain versions' edge space) and
-    ``red``, the additive mode's fold of the slot rows.
+    device), with the layout itself (the plain versions' edge space).
 
     Row order (K7, K8's row pass): the nonzero cells sorted by (dst, unique
     row); ``cell_src`` [n] the cell's node ``uv[u]``, ``cell_urow`` [n] its
     unique row u, ``cell_cnt`` [n] its multiplicity, ``cell_key`` [n] its
     dropout key (:func:`cell_idx`); ``pieces``, ``split_rows``,
     ``split_ptr``: the work list of ``cut_rows``.
-    Column order (the additive K8's slot pass): the cells by slot ``p·W +
-    c``, in the layout's dedup order; ``slot_ptr`` [P·W + 1] their ranges,
-    ``slot_dst`` [n] and ``slot_cnt`` [n] the cells' rows and
-    multiplicities.
-    Node order (the dot-mode K8's node walk): the cells sorted by (node
-    ``uv[u]``, slot, dst), so a node's terms come in the order the slot
-    rows and their fold would sum them; ``node_dst`` [n], ``node_cnt``
-    [n] and ``node_key`` [n] the cells' rows, multiplicities and keys;
-    ``node_pieces``, ``node_split_rows``, ``node_split_ptr``: ``cut_rows``
-    over the nodes' cell counts.
+    Node order (K8's node walk, both modes): the cells sorted by (node
+    ``uv[u]``, slot ``p·W + c``, dst), so a node's terms come in the order
+    the reference's slot rows and their fold sum them; ``node_dst`` [n],
+    ``node_cnt`` [n] and ``node_key`` [n] the cells' rows, multiplicities
+    and keys; ``node_pieces``, ``node_split_rows``, ``node_split_ptr``:
+    ``cut_rows`` over the nodes' cell counts.
     """
     layout: DedupLayout
-    red: sk.SpmmLayout
     num_cells: int
     num_partials: int
     num_node_partials: int
@@ -132,9 +123,6 @@ class DedupAttention:
     pieces: torch.Tensor
     split_rows: torch.Tensor
     split_ptr: torch.Tensor
-    slot_ptr: torch.Tensor
-    slot_dst: torch.Tensor
-    slot_cnt: torch.Tensor
     node_dst: torch.Tensor
     node_cnt: torch.Tensor
     node_key: torch.Tensor
@@ -153,10 +141,6 @@ class DedupAttention:
     @property
     def max_index(self) -> int:
         return self.layout.max_index
-
-    @property
-    def num_slots(self) -> int:
-        return self.layout.num_pairs * W
 
 
 def _edge_slots(layout: DedupLayout):
@@ -184,8 +168,7 @@ def build_dedup_attention(layout: DedupLayout,
     first[1:] = (slot[1:] != slot[:-1]) | (dst[1:] != dst[:-1])
     starts = np.flatnonzero(first)
     cnt = np.diff(np.append(starts, E))
-    c_slot, c_dst, c_urow = slot[starts], dst[starts], urow[starts]
-    slot_ptr = np.searchsorted(c_slot, np.arange(layout.num_pairs * W + 1))
+    c_dst, c_urow = dst[starts], urow[starts]
     uv = layout.uv.cpu().numpy().astype(np.int64)
     c_node = uv[c_urow]
     c_key = cell_idx(*map(torch.from_numpy, (c_dst, c_urow))).numpy()
@@ -203,16 +186,15 @@ def build_dedup_attention(layout: DedupLayout,
                                device=device)
 
     return DedupAttention(
-        layout=layout, red=build_uniq_reduce(layout, N),
-        num_cells=len(starts), num_partials=int(split_ptr[-1]),
+        layout=layout, num_cells=len(starts),
+        num_partials=int(split_ptr[-1]),
         num_node_partials=int(node_split_ptr[-1]),
         cell_src=put(c_node[by_row]), cell_urow=put(c_urow[by_row]),
         cell_cnt=put(cnt[by_row]), cell_key=put(c_key[by_row]),
         pieces=put(pieces), split_rows=put(split_rows),
-        split_ptr=put(split_ptr), slot_ptr=put(slot_ptr),
-        slot_dst=put(c_dst), slot_cnt=put(cnt),
-        node_dst=put(c_dst[by_node]), node_cnt=put(cnt[by_node]),
-        node_key=put(c_key[by_node]), node_pieces=put(node_pieces),
+        split_ptr=put(split_ptr), node_dst=put(c_dst[by_node]),
+        node_cnt=put(cnt[by_node]), node_key=put(c_key[by_node]),
+        node_pieces=put(node_pieces),
         node_split_rows=put(node_split_rows),
         node_split_ptr=put(node_split_ptr))
 
@@ -250,19 +232,21 @@ def dedup_attention_reference(a_dst, a_src, v, layout: DedupLayout,
 def dedup_bwd_reference(a_dst, a_src, v, g, lse, delta, layout: DedupLayout,
                         leaky_slope: float = 0.2, dvh=None,
                         attn_drop: float = 0.0, seed=None):
-    """The plain K8: ``(d a_dst [N, H], d a_src slots [P·W, H], dv slots
-    [P·W, H·dvh])``, the slot rows before the fold."""
+    """The plain K8: ``(d a_dst [N, H], d a_src [N, H], dv [N, H·dvh])``,
+    ``Σ ds`` into destination rows and ``Σ ds``, ``Σ keep·p·g[dst]`` into
+    source nodes, as the kernels' node walk writes them (no slot rows, no
+    fold)."""
     N, H = a_dst.shape
     dvh = dvh or v.shape[1] // H
-    dst, urow, slot = _edge_slots(layout)
-    q, ds, g_e = edge_grads(a_dst, a_src, v, g, lse, delta, dst,
-                            layout.uv.long()[urow], cell_idx(dst, urow),
-                            leaky_slope, dvh, attn_drop, seed)
-    S = layout.num_pairs * W
+    dst, urow, _ = _edge_slots(layout)
+    src = layout.uv.long()[urow]
+    q, ds, g_e = edge_grads(a_dst, a_src, v, g, lse, delta, dst, src,
+                            cell_idx(dst, urow), leaky_slope, dvh, attn_drop,
+                            seed)
     dv = (q[..., None] * g_e).reshape(-1, H * dvh)
     return (ds.new_zeros(N, H).index_add_(0, dst, ds),
-            ds.new_zeros(S, H).index_add_(0, slot, ds),
-            dv.new_zeros(S, H * dvh).index_add_(0, slot, dv))
+            ds.new_zeros(N, H).index_add_(0, src, ds),
+            dv.new_zeros(N, H * dvh).index_add_(0, src, dv))
 
 
 def dedup_dot_reference(q, k, v, layout: DedupLayout, dsh: int, dvh: int,
@@ -305,11 +289,10 @@ def _lib():
     rows = [p, i, p, p, i]
     tail = [i, i, f, p, i, f]     # H, dvh, slope, seed, thresh, inv_keep
     dot = [i] + tail              # H, dsh, dvh, ...
-    slots = [p] * 5 + [i]         # uv, pairs, slot_ptr/dst/cnt, n_slots
     cells = [p] * 3 + rows        # (node or dst, count, key), the work list
     sigs = {"pgl_dedup_attn_fwd_f32": [i] + [p] * 6 + rows + tail + [p] * 4,
-            "pgl_dedup_attn_bwd_f32": [i] + [p] * 9 + rows + slots + tail
-            + [p] * 5,
+            "pgl_dedup_attn_bwd_f32": [i] + [p] * 6 + cells + cells + tail
+            + [p] * 6,
             "pgl_dedup_dot_fwd_f32": [i] + [p] * 3 + cells + dot + [p] * 4,
             "pgl_dedup_dot_bwd_f32": [i] + [p] * 6 + cells + cells + dot
             + [p] * 6}
@@ -327,10 +310,14 @@ def _raise_on(rc, name):
                            f"error {rc}")
 
 
-def _count(name, att, *shape):
+def _count(name, att, *shape, nodes=False):
+    """One launch of ``name``, its merge where rows split, and (``nodes``:
+    K8) the node walk's where nodes split."""
     LAUNCHES_BY_SHAPE[(name, *shape)] += 1
     if att.num_partials:
         LAUNCHES_BY_SHAPE[(f"{name}_combine", *shape)] += 1
+    if nodes and att.num_node_partials:
+        LAUNCHES_BY_SHAPE[(f"{name}_node_combine", *shape)] += 1
 
 
 def _rows(att):
@@ -350,18 +337,12 @@ def _cells(att):
 
 
 def _node_cells(att):
-    """The node-ordered cells (K8-dot's node walk): rows, counts, keys,
-    then the work list."""
+    """The node-ordered cells (K8's node walk): rows, counts, keys, then
+    the work list."""
     return (att.node_dst.data_ptr(), att.node_cnt.data_ptr(),
             att.node_key.data_ptr(), att.node_pieces.data_ptr(),
             att.node_pieces.shape[0], att.node_split_rows.data_ptr(),
             att.node_split_ptr.data_ptr(), att.node_split_rows.shape[0])
-
-
-def _slots(att):
-    lay = att.layout
-    return (lay.uv.data_ptr(), lay.pairs.data_ptr(), att.slot_ptr.data_ptr(),
-            att.slot_dst.data_ptr(), att.slot_cnt.data_ptr(), att.num_slots)
 
 
 def _fwd_cuda(a_dst, a_src, v, att, slope, dvh, rate, seed):
@@ -383,23 +364,25 @@ def _fwd_cuda(a_dst, a_src, v, att, slope, dvh, rate, seed):
 
 
 def _bwd_cuda(a_dst, a_src, v, g, lse, delta, att, slope, dvh, rate, seed):
-    """K8 (row pass, slot pass, the sum of split rows): ``(d a_dst, d a_src
-    slots, dv slots)``."""
+    """K8 (row pass, node walk, the sums of split rows and split nodes):
+    ``(d a_dst, d a_src, dv)``, all on node rows; the row pass's partials
+    are ``H`` wide, the node walk's ``H + H·dvh``."""
     N, H = a_dst.shape
     _check(att, H, dvh, a_dst, a_src, v, g, lse, delta)
-    S = att.num_slots
-    da = torch.empty(N, H, dtype=v.dtype, device=v.device)
-    dsrc = torch.empty(S, H, dtype=v.dtype, device=v.device)
-    dv = torch.empty(S, H * dvh, dtype=v.dtype, device=v.device)
+    da, dsrc = (torch.empty(N, H, dtype=v.dtype, device=v.device)
+                for _ in range(2))
+    dv = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
     part = torch.empty(att.num_partials, H, dtype=v.dtype, device=v.device)
+    node_part = torch.empty(att.num_node_partials, H * (1 + dvh),
+                            dtype=v.dtype, device=v.device)
     thresh, inv_keep = _drop_args(rate)
     _raise_on(_lib().pgl_dedup_attn_bwd_f32(
         v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_rows(att),
-        *_slots(att), H, dvh, slope, seed.data_ptr(), thresh, inv_keep,
+        *_node_cells(att), H, dvh, slope, seed.data_ptr(), thresh, inv_keep,
         da.data_ptr(), dsrc.data_ptr(), dv.data_ptr(), part.data_ptr(),
-        _stream(v)), "backward")
-    _count("dedup_bwd", att, H, dvh)
+        node_part.data_ptr(), _stream(v)), "backward")
+    _count("dedup_bwd", att, H, dvh, nodes=True)
     return da, dsrc, dv
 
 
@@ -429,9 +412,7 @@ class _DedupGatAttention(torch.autograd.Function):
         else:
             da_dst, dsrc, dv = dedup_bwd_reference(*ins, att.layout, slope,
                                                    dvh, rate, seed)
-        # fold the pair-slot rows onto nodes (K1 over ``red``)
-        return (da_dst, sk._spmm_one(dsrc, att.red),
-                sk._spmm_one(dv, att.red), None, None, None, None, None)
+        return da_dst, dsrc, dv, None, None, None, None, None
 
 
 def dedup_gat_attention(a_dst, a_src, v, att: DedupAttention,
@@ -448,7 +429,8 @@ def dedup_gat_attention(a_dst, a_src, v, att: DedupAttention,
       a_dst, a_src: [N, H] attention coefficients of destination and source.
       v: [N, H·dvh] values (no lane padding, unlike the reference's).
       att: the graph's :func:`build_dedup_attention` (``Graph.
-        _dedup_attn_aux()``), which carries the CSC dedup layout and ``red``.
+        _dedup_attn_aux()``), which carries the CSC dedup layout and the
+        cell lists.
       dvh: per-head value width (default ``v.shape[1] // H``).
     Returns [N, H·dvh]; rows with no incoming edge are 0.
     """
@@ -504,9 +486,7 @@ def _dot_bwd_cuda(q, k, v, g, lse, delta, att, slope, dsh, dvh, rate, seed):
         *_node_cells(att), H, dsh, dvh, slope, seed.data_ptr(), thresh,
         inv_keep, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         part.data_ptr(), node_part.data_ptr(), _stream(v)), "dot backward")
-    _count("dedup_dot_bwd", att, H, dsh, dvh)
-    if att.num_node_partials:
-        LAUNCHES_BY_SHAPE[("dedup_dot_bwd_node_combine", H, dsh, dvh)] += 1
+    _count("dedup_dot_bwd", att, H, dsh, dvh, nodes=True)
     return dq, dk, dv
 
 

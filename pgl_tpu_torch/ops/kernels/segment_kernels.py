@@ -18,8 +18,9 @@ gives the design.
 * :func:`spmm_weighted` (K1w) is an autograd ``Function`` on weighted
   messages, ``out[d] = Σ_e x[src_e] ⊛ w_e`` with ⊛ mul or add and ``w``
   scalar ``[E, 1]`` or per head ``[E, H]`` (H | D) in the graph's original
-  edge order: the forward over CSC, the backward one launch over CSR that
-  gives dx and dw (in the original edge order) together.
+  edge order: the same kernels over the same work list, the forward over
+  CSC, the backward one launch over CSR that gives dx and dw (in the
+  original edge order) together.
 * :func:`spmm_reference`, :func:`spmm_weighted_reference` and
   :func:`weight_grad_reference` are the plain PyTorch versions. CPU tensors
   run them; CUDA tensors launch the kernel or raise.
@@ -53,15 +54,13 @@ __all__ = ["SpmmLayout", "build_spmm_layout", "cut_rows", "cut_spmm_rows",
            "sorted_segment_sum", "ET", "MIN_PIECE", "ROW_PIECES", "PACK",
            "PACK_ROW", "LAUNCHES", "LAUNCHES_BY_SHAPE", "reset_launches"]
 
-# ET: the piece length of K1w's work list (:func:`cut_rows`; 512 was the
-# fastest of 256..2048 over the GCN step's CSC shapes for the one-warp-a-
-# piece design) and the longest of K1's pieces. K1's (:func:`cut_spmm_rows`):
-# a row of more than MIN_PIECE edges is cut into about ROW_PIECES pieces of
-# MIN_PIECE to ET edges. Shorter pieces spread a row over more warps, so a
-# row of a few thousand edges is no longer one warp's chain of gathers;
-# longer ones cut the partials that the second launch sums in order, which
-# a hub of 800k edges needs (experiments/torch_spmm/sweep.py). Read when a
-# layout is built.
+# The pieces of K1's work list (:func:`cut_spmm_rows`, K1w's too): a row of
+# more than MIN_PIECE edges is cut into about ROW_PIECES pieces of MIN_PIECE
+# to ET edges. Shorter pieces spread a row over more warps, so a row of a
+# few thousand edges is no longer one warp's chain of gathers; longer ones
+# cut the partials that the second launch sums in order, which a hub of
+# 800k edges needs (experiments/torch_spmm/sweep.py). Read when a layout is
+# built.
 ET = 512
 MIN_PIECE = 64
 ROW_PIECES = 128
@@ -96,20 +95,15 @@ class SpmmLayout:
     indices:     [E]   gather ids (the source node of each edge for CSC),
                  ascending within each row
     seg_ids:     [E]   row of each edge (the plain version's scatter ids)
-    pieces:      [P, 4] (row, begin, end, slot): K1w's work list, every
-                 row cut into pieces of at most ``ET`` edges
-                 (:func:`cut_rows`); an empty row is one empty piece;
-                 ``slot`` is the piece's partial-sum row, or -1 when the row
-                 has one piece and the kernel stores its sum directly
-    split_rows:  [S]   rows of more than one piece
-    split_ptr:   [S+1] their ranges of partial slots, in piece order
-    items:       [I, 4] K1's work list (:func:`pack_rows`): the pieces of
-                 :func:`cut_spmm_rows` of rows longer than ``PACK_ROW``
-                 edges, then the last ``item_packs`` items, packs of
-                 consecutive short rows (row0, begin, end, -rows); each
-                 part in row order (one kernel each)
-    item_split_rows, item_split_ptr: ``split_rows`` and ``split_ptr`` of
-                 K1's pieces
+    items:       [I, 4] K1's and K1w's work list (:func:`pack_rows`): the
+                 pieces (row, begin, end, slot) of :func:`cut_spmm_rows` of
+                 rows longer than ``PACK_ROW`` edges (``slot`` the piece's
+                 partial-sum row, or -1 for a whole row), then the last
+                 ``item_packs`` items, packs of consecutive short rows
+                 (row0, begin, end, -rows); each part in row order (one
+                 kernel each)
+    item_split_rows: [S] rows of more than one piece
+    item_split_ptr:  [S+1] their ranges of partial slots, in piece order
     edge_id:     [E]   original edge id of each position (None when built
                  without edge ids): K1w reads ``w`` and writes ``dw``
                  through it
@@ -118,15 +112,11 @@ class SpmmLayout:
     num_rows: int
     num_edges: int
     max_index: int        # largest gather id (-1 without edges)
-    num_partials: int     # K1w's partial rows
-    item_partials: int    # K1's
+    item_partials: int    # partial rows of the split rows' pieces
     item_packs: int       # packs at the end of ``items``
     indptr: torch.Tensor
     indices: torch.Tensor
     seg_ids: torch.Tensor
-    pieces: torch.Tensor
-    split_rows: torch.Tensor
-    split_ptr: torch.Tensor
     items: torch.Tensor
     item_split_rows: torch.Tensor
     item_split_ptr: torch.Tensor
@@ -166,9 +156,8 @@ def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
     # L2 (the sum is the same up to float32 rounding order)
     order = np.lexsort((indices, seg_ids))
     indices = indices[order]
-    pieces, split_rows, split_ptr = cut_rows(indptr, ET)
-    k1_pieces, item_split_rows, item_split_ptr = cut_spmm_rows(indptr)
-    items = pack_rows(indptr, k1_pieces)
+    pieces, item_split_rows, item_split_ptr = cut_spmm_rows(indptr)
+    items = pack_rows(indptr, pieces)
     packs = items[:, 3] < -1
     items = np.concatenate([items[~packs], items[packs]])
 
@@ -181,13 +170,11 @@ def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
     return SpmmLayout(
         kind=kind, num_rows=R, num_edges=E,
         max_index=int(indices.max()) if E else -1,
-        num_partials=int(split_ptr[-1]),
         item_partials=int(item_split_ptr[-1]),
         item_packs=int(packs.sum()),
         indptr=put(indptr), indices=put(indices),
-        seg_ids=put(seg_ids), pieces=put(pieces),
-        split_rows=put(split_rows), split_ptr=put(split_ptr),
-        items=put(items), item_split_rows=put(item_split_rows),
+        seg_ids=put(seg_ids), items=put(items),
+        item_split_rows=put(item_split_rows),
         item_split_ptr=put(item_split_ptr),
         edge_id=(None if edge_id is None
                  else put(np.asarray(edge_id, dtype=np.int64)[order])))
@@ -325,8 +312,9 @@ def _lib():
         lib.pgl_spmm_f32.argtypes = [i, p, p, p, p, i, i, p, p, i, i, p,
                                        p, p]
         lib.pgl_spmm_f32.restype = ctypes.c_int
-        lib.pgl_spmm_weighted_f32.argtypes = [i, i, i, p, p, p, p, i, p, i,
-                                              p, p, i, i, p, p, p, p, p]
+        lib.pgl_spmm_weighted_f32.argtypes = [i, i, i, p, p, p, p, p, i, p,
+                                              i, i, p, p, i, i, p, p, p, p,
+                                              p]
         lib.pgl_spmm_weighted_f32.restype = ctypes.c_int
     return lib
 
@@ -337,18 +325,20 @@ def _ptr(t):
 
 def _launch_weighted(x, w, layout, out, partials, wop, dwop=0, xrow=None,
                      dw=None):
-    """One K1w launch on the current stream: ``wop`` 1 (mul), 2 (add) or 0
-    (unweighted, only beside a ``dwop``) into preallocated ``out`` (None:
-    dw alone, with ``wop`` 0) and ``partials``; ``dwop`` 1 (mul, with
-    ``xrow``) or 2 (add) also writes ``dw`` [E, H]. Raises when the launch
-    is refused."""
+    """One K1w launch over ``layout.items`` on the current stream: ``wop``
+    1 (mul), 2 (add) or 0 (unweighted, only beside ``dwop`` 2) into
+    preallocated ``out`` (None: dw alone, with ``wop`` 0) and ``partials``
+    [item_partials, D]; ``dwop`` 1 (mul, with ``xrow``) or 2 (add) also
+    writes ``dw`` [E, H]. Raises when the launch is refused."""
     rc = _lib().pgl_spmm_weighted_f32(
         x.device.index, wop, dwop, x.data_ptr(), layout.indices.data_ptr(),
-        layout.edge_id.data_ptr(), w.data_ptr(), w.shape[1],
-        layout.pieces.data_ptr(), layout.pieces.shape[0],
-        layout.split_rows.data_ptr(), layout.split_ptr.data_ptr(),
-        layout.split_rows.shape[0], x.shape[1], _ptr(out), _ptr(partials),
-        _ptr(xrow), _ptr(dw), torch.cuda.current_stream(x.device).cuda_stream)
+        layout.indptr.data_ptr(), layout.edge_id.data_ptr(), w.data_ptr(),
+        w.shape[1], layout.items.data_ptr(),
+        layout.items.shape[0] - layout.item_packs, layout.item_packs,
+        layout.item_split_rows.data_ptr(), layout.item_split_ptr.data_ptr(),
+        layout.item_split_rows.shape[0], x.shape[1], _ptr(out),
+        _ptr(partials), _ptr(xrow), _ptr(dw),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_kernels weighted SpMM launch failed: "
                            f"CUDA error {rc}")
@@ -448,7 +438,7 @@ def _weighted_forward(x, w, layout, msg_op):
         raise ValueError("the CUDA weighted SpMM takes contiguous weights")
     D, H = x.shape[1], w.shape[1]
     out = torch.empty(layout.num_rows, D, dtype=x.dtype, device=x.device)
-    partials = torch.empty(layout.num_partials, D, dtype=x.dtype,
+    partials = torch.empty(layout.item_partials, D, dtype=x.dtype,
                            device=x.device)
     _launch_weighted(x, w, layout, out, partials, _OPS[msg_op])
     LAUNCHES_BY_SHAPE[(msg_op, layout.kind, D, H)] += 1
@@ -476,7 +466,7 @@ def _weighted_backward(g, x, w, csr, msg_op, need_dx, need_dw):
     dx = partials = dw = None
     if need_dx:
         dx = torch.empty(csr.num_rows, D, dtype=g.dtype, device=g.device)
-        partials = torch.empty(csr.num_partials, D, dtype=g.dtype,
+        partials = torch.empty(csr.item_partials, D, dtype=g.dtype,
                                device=g.device)
     if need_dw:
         dw = torch.empty(csr.num_edges, H, dtype=g.dtype, device=g.device)

@@ -2,11 +2,13 @@
 ``pgl_tpu_torch/ops/kernels/dedup_attention.py``) with ``pgl_tpu``'s
 ``dedup_gat_attention`` run in interpret mode, on the CPU, each on its own
 dedup layout of the same numpy edges: the forward and its ``lse``, the
-gradients (through the fold over ``build_uniq_reduce``), the cell dropout,
-the cell key ``_cell_idx`` bit for bit, and the fold layout array for array.
-The work lists that the CUDA kernels walk are held against the plain
-versions here too, evaluated in cell space; the kernels themselves are held
-against the plain versions in ``tests/test_torch_kernels_gpu.py``."""
+gradients (the port's on node rows, the reference's through its fold over
+``build_uniq_reduce``), the cell dropout, the cell key ``_cell_idx`` bit for
+bit, and the fold layout array for array. The work lists that the CUDA
+kernels walk (the cells in row order, and in node order for K8's node walk)
+are held against the plain versions here too, evaluated in cell space; the
+kernels themselves are held against the plain versions in
+``tests/test_torch_kernels_gpu.py``."""
 
 import dataclasses
 
@@ -28,6 +30,7 @@ from pgl_tpu.ops.pallas.dedup_attention import (
 from pgl_tpu_torch.ops.kernels import attention_kernels as ak
 from pgl_tpu_torch.ops.kernels import dedup_attention as da
 from pgl_tpu_torch.ops.kernels import dedup_kernels as tdk
+from pgl_tpu_torch.ops.kernels import segment_kernels as sk
 from pgl_tpu_torch.utils.edge_index import EdgeIndex
 
 # one intra-op thread: the test files run in parallel worker processes,
@@ -225,17 +228,16 @@ def test_counts_or_none_give_the_same_bits():
             assert torch.equal(x, y), f.name
 
 
-def _pieces_rows(att):
-    """The row of every row-ordered cell, from the pieces; checks that the
-    pieces cover the cells once, in order, at most ``ET`` each, and every
-    row."""
-    pieces = att.pieces.long()
-    row, begin, end, slot = pieces.T
+def _pieces_rows(att, pieces, num_partials):
+    """The row (or node) of every cell of a cell list, from its ``cut_rows``
+    pieces; checks that the pieces cover the cells once, in order, at most
+    ``ET`` each, and every row."""
+    row, begin, end, slot = pieces.long().T
     assert begin[0] == 0 and end[-1] == att.num_cells
     assert torch.equal(begin[1:], end[:-1])
     assert int((end - begin).max()) <= da.ET
     assert torch.equal(torch.unique(row), torch.arange(att.num_rows))
-    assert int((slot >= 0).sum()) == att.num_partials
+    assert int((slot >= 0).sum()) == num_partials
     return torch.repeat_interleave(row, end - begin)
 
 
@@ -243,9 +245,9 @@ def _pieces_rows(att):
 @pytest.mark.parametrize("rate", [0.0, 0.6])
 def test_work_lists_compute_the_plain_function(kind, rate):
     """The kernels' arithmetic, evaluated in float64 over the work lists
-    (cells with counts in row order; cells by slot in column order), equals
-    the plain versions in edge space: forward and lse, d a_dst, and the
-    slot rows of d a_src and dv."""
+    (cells with counts in row order; in node order with their keys, K8's
+    node walk), equals the plain versions in edge space: forward and lse,
+    d a_dst, and d a_src and dv on node rows."""
     H, dvh = 3, 5
     N, _, lay, a_dst, a_src, v, g = _case(kind, H, dvh)
     att = da.build_dedup_attention(lay, N)
@@ -257,12 +259,11 @@ def test_work_lists_compute_the_plain_function(kind, rate):
     delta = (g.reshape(N, H, dvh) * out_p.reshape(N, H, dvh)).sum(-1)
     bwd = (a_dst, a_src, v, g, lse_p, delta)
     want = da.dedup_bwd_reference(*bwd, lay, 0.2, dvh, rate, seed)
-    assert int(att.cell_cnt.sum()) == int(att.slot_cnt.sum()) == E
+    assert int(att.cell_cnt.sum()) == int(att.node_cnt.sum()) == E
     if kind == "multi":
         assert int(att.cell_cnt.max()) > 1 and att.num_cells < E
 
-    def keep(dst, urow):
-        key = da.cell_idx(dst, urow)
+    def keep(key):
         k = torch.stack([ak.drop_keep(key, seed, h, rate)
                          for h in range(H)], 1)
         return k.double() / (1 - rate) if rate else torch.ones_like(
@@ -272,7 +273,7 @@ def test_work_lists_compute_the_plain_function(kind, rate):
         return torch.where(s >= 0, s, 0.2 * s)
 
     # row order: K7 and K8's row pass
-    dst = _pieces_rows(att)
+    dst = _pieces_rows(att, att.pieces, att.num_partials)
     src, urow = att.cell_src.long(), att.cell_urow.long()
     cnt = att.cell_cnt.double()[:, None]
     s = leaky(a_dst[dst] + a_src[src])
@@ -280,7 +281,7 @@ def test_work_lists_compute_the_plain_function(kind, rate):
         0, dst[:, None].expand(-1, H), s, "amax")
     p = cnt * torch.exp(s - m[dst])
     l = torch.zeros(N, H, dtype=torch.float64).index_add_(0, dst, p)
-    kp = keep(dst, urow)
+    kp = keep(da.cell_idx(dst, urow))
     acc = torch.zeros(N, H, dvh, dtype=torch.float64).index_add_(
         0, dst, (kp * p)[..., None] * v[src].reshape(-1, H, dvh))
     has = l > 0
@@ -290,38 +291,89 @@ def test_work_lists_compute_the_plain_function(kind, rate):
     torch.testing.assert_close(out, out_p, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(lse, lse_p, rtol=1e-12, atol=1e-12)
 
-    def cell_grads(dst, src, urow, cnt):
+    def cell_grads(dst, src, key, cnt):
         sr = a_dst[dst] + a_src[src]
         p = cnt * torch.exp(torch.clamp(leaky(sr) - lse_p[dst], max=80.0))
-        q = keep(dst, urow) * p
+        q = keep(key) * p
         gv = (g[dst].reshape(-1, H, dvh) * v[src].reshape(-1, H, dvh)).sum(-1)
         ds = q * gv - p * delta[dst]
         return torch.where(sr >= 0, ds, 0.2 * ds), q
 
-    ds, _ = cell_grads(dst, src, urow, cnt)
+    ds, _ = cell_grads(dst, src, da.cell_idx(dst, urow), cnt)
     da_dst = torch.zeros(N, H, dtype=torch.float64).index_add_(0, dst, ds)
     torch.testing.assert_close(da_dst, want[0], rtol=1e-12, atol=1e-12)
 
-    # column order: K8's slot pass
-    ptr = att.slot_ptr.long()
-    S = att.num_slots
-    assert ptr.shape == (S + 1,) and ptr[-1] == att.num_cells
-    slot = torch.repeat_interleave(torch.arange(S), ptr[1:] - ptr[:-1])
-    surow = lay.pairs[slot // tdk.W, 1].long() + slot % tdk.W
-    ds, q = cell_grads(att.slot_dst.long(), lay.uv.long()[surow], surow,
-                       att.slot_cnt.double()[:, None])
-    dsrc = torch.zeros(S, H, dtype=torch.float64).index_add_(0, slot, ds)
-    dv = torch.zeros(S, H * dvh, dtype=torch.float64).index_add_(
-        0, slot, (q[..., None] * g[att.slot_dst.long()].reshape(-1, H, dvh)
-                  ).reshape(-1, H * dvh))
-    torch.testing.assert_close(dsrc, want[1], rtol=1e-12, atol=1e-12)
-    torch.testing.assert_close(dv, want[2], rtol=1e-12, atol=1e-12)
+    # node order: K8's node walk, each cell's key from the list, summed
+    # piece by piece, then the pieces onto their nodes in order
+    node = _pieces_rows(att, att.node_pieces, att.num_node_partials)
+    ndst = att.node_dst.long()
+    ds, q = cell_grads(ndst, node, att.node_key,
+                       att.node_cnt.double()[:, None])
+    row, begin, end, _ = att.node_pieces.long().T
+    piece = torch.repeat_interleave(torch.arange(len(row)), end - begin)
+    dv_cell = (q[..., None] * g[ndst].reshape(-1, H, dvh)).reshape(-1,
+                                                                  H * dvh)
+    got = [x.new_zeros(N, x.shape[1]).index_add_(
+        0, row, x.new_zeros(len(row), x.shape[1]).index_add_(0, piece, x))
+        for x in (ds, dv_cell)]
+    torch.testing.assert_close(got[0], want[1], rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(got[1], want[2], rtol=1e-12, atol=1e-12)
+    if kind == "hub":
+        assert att.num_node_partials > 0     # the hub source's cells split
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_node_rows_are_the_fold_of_the_slot_rows(rate):
+    """d a_src and dv on node rows (the plain K8, as the node walk writes
+    them) equal, in float64, the reference's pair-slot rows (``Σ ds`` and
+    ``Σ keep·p·g[dst]`` into slot ``p·W + c``) folded onto nodes by K1's
+    plain version over ``build_uniq_reduce``'s layout."""
+    H, dvh = 3, 5
+    N, _, lay, a_dst, a_src, v, g = _case("dups", H, dvh)
+    a_dst, a_src, v, g = (torch.tensor(x, dtype=torch.float64)
+                          for x in (a_dst, a_src, v, g))
+    out, lse = da.dedup_attention_reference(a_dst, a_src, v, lay, 0.2, dvh,
+                                            rate, 7)
+    delta = (g.reshape(N, H, dvh) * out.reshape(N, H, dvh)).sum(-1)
+    ins = (a_dst, a_src, v, g, lse, delta)
+    _, dsrc, dv = da.dedup_bwd_reference(*ins, lay, 0.2, dvh, rate, 7)
+    dst, urow, slot = da._edge_slots(lay)
+    q, ds, g_e = ak.edge_grads(*ins, dst, lay.uv.long()[urow],
+                               da.cell_idx(dst, urow), 0.2, dvh, rate, 7)
+    S = lay.num_pairs * tdk.W
+    red = da.build_uniq_reduce(lay, N)
+    dsrc_slots = ds.new_zeros(S, H).index_add_(0, slot, ds)
+    dv_slots = ds.new_zeros(S, H * dvh).index_add_(
+        0, slot, (q[..., None] * g_e).reshape(-1, H * dvh))
+    torch.testing.assert_close(dsrc, sk.spmm_reference(dsrc_slots, red),
+                               rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(dv, sk.spmm_reference(dv_slots, red),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_zero_edge_graph_gives_zeros(rate):
+    """A 50-node graph without edges: zeros out and zero gradients (the
+    kernels' empty pieces store zeros; the plain versions scatter
+    nothing), as the reference returns."""
+    N, H, dvh = 50, 2, 3
+    lay = tdk.build_dedup_layout(np.zeros(N + 1, np.int64),
+                                 np.zeros(0, np.int64), N, device="cpu")
+    att = da.build_dedup_attention(lay, N)
+    assert att.num_cells == 0 and att.node_pieces.shape[0] == N
+    rng = np.random.default_rng(0)
+    t = [torch.tensor(rng.normal(size=(N, w)).astype(np.float32),
+                      requires_grad=True) for w in (H, H, H * dvh)]
+    out = da.dedup_gat_attention(*t, att, 0.2, dvh, rate, 5)
+    out.square().sum().backward()
+    assert out.shape == (N, H * dvh) and not out.any()
+    assert not any(x.grad.any() for x in t)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.6])
 def test_backward_is_autograd_of_plain_forward(rate):
-    """``dedup_gat_attention``'s backward (the plain K8, then the fold over
-    ``red``) against torch autograd of the plain forward, in float64."""
+    """``dedup_gat_attention``'s backward (the plain K8, on node rows)
+    against torch autograd of the plain forward, in float64."""
     H, dvh = 3, 5
     N, _, lay, a_dst, a_src, v, g = _case("multi", H, dvh)
     att = da.build_dedup_attention(lay, N)

@@ -386,7 +386,8 @@ def test_cell_walks_compute_the_plain_backward(kind, rate):
 def test_node_rows_are_the_fold_of_the_slot_rows(rate):
     """dk and dv on node rows equal, in float64, the reference's pair-slot
     rows (per head ``Σ ds·q[dst]`` and ``Σ keep·p·g[dst]`` into slot ``p·W
-    + c``) folded onto nodes by K1's plain version over ``red``."""
+    + c``) folded onto nodes by K1's plain version over ``build_uniq_reduce``'s
+    layout."""
     H, dsh, dvh = 2, 8, 4
     N, _, lay, q, k, v, g = _case("dups", H, dsh, dvh)
     att = da.build_dedup_attention(lay, N)
@@ -399,10 +400,11 @@ def test_node_rows_are_the_fold_of_the_slot_rows(rate):
     src = lay.uv.long()[urow]
     qe, ds, g_e = ak.edge_grads(*ins, dst, src, da.cell_idx(dst, urow), 0.0,
                                 dvh, rate, 7, dsh)
-    S = att.num_slots
+    S = lay.num_pairs * tdk.W
+    red = da.build_uniq_reduce(lay, N)
     dk_slots = ak.head_scatter(ds, q[dst], slot, S)
     dv_slots = ak.head_scatter(qe, g_e.reshape(len(dst), -1), slot, S)
-    torch.testing.assert_close(dk, sk.spmm_reference(dk_slots, att.red),
+    torch.testing.assert_close(dk, sk.spmm_reference(dk_slots, red),
                                rtol=1e-12, atol=1e-12)
-    torch.testing.assert_close(dv, sk.spmm_reference(dv_slots, att.red),
+    torch.testing.assert_close(dv, sk.spmm_reference(dv_slots, red),
                                rtol=1e-12, atol=1e-12)

@@ -222,13 +222,14 @@ def test_tensor_builds_no_attention_layout():
 
 
 def test_tensor_builds_no_dedup_attention():
-    """``tensor()`` builds the dedup layouts but not K7/K8's work lists or
-    ``red``; the first count-matrix call builds them once."""
+    """``tensor()`` builds the dedup layouts but not K7/K8's work lists;
+    the first count-matrix call builds them once (both cell orders)."""
     _, _, gt, _ = _graphs(dedup=True)
     assert gt._dedup_attn is None
     GATConv(16, 8, device="cpu")(gt, gt.node_feat["h"])
     att = gt._dedup_attn
-    assert att.red.kind == "uniq_reduce" and gt._attn_layouts is None
+    assert att.num_cells == att.node_dst.shape[0] == att.cell_src.shape[0]
+    assert gt._attn_layouts is None
     assert gt._dedup_attn_aux() is att
 
 

@@ -16,15 +16,17 @@ nonzero. The
 attention kernels (K9, K10) go through ``check_attention`` (no terms scale:
 their outputs are convex combinations or sums of bounded terms) and must
 give the same bits on two runs; in dot mode through ``check_dot`` (dq, dk
-and dv with the terms scale); the count-matrix attention (K7, K8, and K1
-over ``red``) through ``check_dedup_attention``, and in dot mode through
-``check_dedup_dot`` (dq, dk and dv with the terms scale; dk and dv on node
-rows), with the same bits on two runs and on a layout without counts; in
+and dv with the terms scale); the count-matrix attention (K7, K8) through
+``check_dedup_attention`` (d a_src and dv on node rows, with the terms
+scale), and in dot mode through ``check_dedup_dot`` (dq, dk and dv with the
+terms scale; dk and dv on node rows), with the same bits on two runs and on
+a layout without counts; in
 dot mode the cell form of the staged kernels must also give the per-edge
 form's bits at count one, and 12a5247's bits on the pinned cases
 (``check_parent_bits``). K1w and the
 weighted K6 go through ``check_weighted`` (forward, dx and dw with the
-terms scale) and must give the same bits on two runs. K11, the dedup SDDMM,
+terms scale) and must give the same bits on two runs; K1w also over every
+kind of work item (``check_k1w_items``). K11, the dedup SDDMM,
 must equal its plain version bit for bit (``check_sddmm``: one IEEE
 operation a value, pads +0), and its backward (K1 over ``by_src`` and
 ``by_dst``) goes through ``check_sddmm_grad`` (float64 with the terms scale,
@@ -41,7 +43,8 @@ from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS, SDDMM_OPS,
                         attention_graph, attention_inputs, check,
                         check_attention, check_counts, check_dedup,
                         check_dedup_attention, check_dedup_dot,
-                        check_dedup_exact, check_dot, check_parent_bits,
+                        check_dedup_exact, check_dot, check_k1w_items,
+                        check_parent_bits,
                         check_sddmm, check_sddmm_grad, check_spmm,
                         check_weighted, dedup_attention_of,
                         dedup_case_edges, dedup_case_facts, dedup_layouts,
@@ -80,7 +83,7 @@ def cuda():
 def test_spmm_kernel_matches_plain_version(cuda, D):
     g = Graph(skewed_graph(3000, 40000, seed=4), num_nodes=3000).tensor(cuda)
     csc, csr = g._spmm_layouts
-    assert csc.num_partials > 0
+    assert csc.item_partials > 0
     gen = torch.Generator(device=cuda).manual_seed(D)
     x = torch.randn(3000, D, device=cuda, generator=gen, requires_grad=True)
     w = torch.randn(3000, D, device=cuda, generator=gen)
@@ -129,11 +132,13 @@ def test_k1_work_items_match_plain_version(cuda, D, aligned):
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [8, 64, 256])
 def test_k1_fold_over_red_matches_plain_version(cuda, D):
-    """K1 over ``red``, the fold of K8's slot rows onto nodes (short rows
-    of a few slots each), on a real dedup layout; the same bits twice."""
+    """K1 over ``build_uniq_reduce``'s layout, the reference's fold of
+    pair-slot rows onto nodes (short rows of a few slots each), on a real
+    dedup layout; the same bits twice."""
     g = Graph(attention_graph(3000, 40000, seed=4), num_nodes=3000
               ).tensor(cuda)
-    red = dedup_attention_of(g, cuda).red
+    att = dedup_attention_of(g, cuda)
+    red = da.build_uniq_reduce(att.layout, att.num_rows)
     gen = torch.Generator(device=cuda).manual_seed(D)
     x = torch.randn(red.max_index + 1, D, device=cuda, generator=gen)
     sk.reset_launches()
@@ -154,7 +159,7 @@ def test_sorted_segment_sum_kernel_matches_plain_version(cuda):
     (out * w).sum().backward()
     ident = sk.build_spmm_layout(idx.indptr.cpu(), np.arange(6000), 500,
                                  device=cuda)
-    assert ident.num_partials > 0
+    assert ident.item_partials > 0
     with torch.no_grad():
         check_spmm("segment_sum", out, msgs, ident)
     assert torch.equal(msgs.grad, w[idx.segment_ids])
@@ -334,13 +339,13 @@ def test_attention_kernels_match_plain_version(cuda, H, dvh, rate):
 @pytest.mark.parametrize("rate", [0.0, 0.6])
 @pytest.mark.parametrize("H,dvh", [(8, 8), (1, 16), (3, 5), (43, 2)])
 def test_dedup_attention_kernels_match_plain_version(cuda, H, dvh, rate):
-    """K7, K8 and the folds on a graph whose hub destination is split
-    across pieces; two runs, and the layout without counts, give the same
-    bits."""
+    """K7 and K8 on a graph whose hub destination and hub source are split
+    across pieces (K8's d a_src and dv on node rows); two runs, and the
+    layout without counts, give the same bits."""
     g = Graph(attention_graph(3000, 40000, seed=4), num_nodes=3000
               ).tensor(cuda)
     att = dedup_attention_of(g, cuda)
-    assert att.num_partials > 0
+    assert att.num_partials > 0 and att.num_node_partials > 0
     gen = torch.Generator(device=cuda).manual_seed(H * dvh)
     ins = attention_inputs(3000, H, dvh, cuda, gen)
     seed = torch.tensor([-987654321], dtype=torch.int32, device=cuda)
@@ -353,7 +358,8 @@ def test_dedup_attention_kernels_match_plain_version(cuda, H, dvh, rate):
     torch.cuda.synchronize()
     assert dict(da.LAUNCHES_BY_SHAPE) == {
         (k, H, dvh): 3 for k in ("dedup_fwd", "dedup_fwd_combine",
-                                 "dedup_bwd", "dedup_bwd_combine")}
+                                 "dedup_bwd", "dedup_bwd_combine",
+                                 "dedup_bwd_node_combine")}
     check_dedup_attention("small", att, ins, rate, seed, got)
     out, lse = got[:2]
     assert (out[1:1500] == 0).all() and (lse[1:1500] == 0).all()
@@ -992,12 +998,14 @@ def test_dedup_dot_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", ["mul", "add"])
 @pytest.mark.parametrize("H,D", [(1, 1), (1, 64), (8, 64), (8, 16), (3, 9),
-                                 (16, 16), (2, 200)])
+                                 (16, 16), (2, 200), (1, 600), (3, 600)])
 def test_k1w_matches_plain_version(cuda, op, H, D):
     """K1w forward, dx and dw (one launch over CSR) on the skewed graph
     (split rows both ways): scalar and per-head weights, vector and scalar
-    loads (dh % 4), a head wider than one column pass (D = 200, dh = 100);
-    two runs give the same bits."""
+    loads (dh % 4), heads that span two vectors a lane (D = 200, dh = 100),
+    and past 512 columns, where a row takes two column passes and a head
+    crosses from the first into the second (D = 600); two runs give the
+    same bits."""
     g = Graph(skewed_graph(3000, 40000, seed=7), num_nodes=3000).tensor(cuda)
     csc, csr = g._spmm_layouts
     gen = torch.Generator(device=cuda).manual_seed(H * 1000 + D)
@@ -1011,6 +1019,22 @@ def test_k1w_matches_plain_version(cuda, op, H, D):
     again = run_weighted(x, w, cot, csc, csr, op)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     check_weighted(f"{op} H={H} D={D}", x, w, cot, csc, csr, op, *first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False], ids=["vec", "unaligned"])
+@pytest.mark.parametrize("D", [1, 3, 8, 16, 64, 128])
+def test_k1w_work_items_match_plain_version(cuda, D, aligned):
+    """K1w over every kind of work item (a hub's pieces, rows of their own,
+    packs of short rows, empty rows) at every head count that divides D,
+    mul and add, on 16-byte vectors and on the scalar path: forward, dx
+    with dw and dw alone against float64, the same bits twice."""
+    edges, n = k1_case_edges()
+    g = Graph(edges, num_nodes=n).tensor(cuda)
+    kinds = g._spmm_layouts[0].items[:, 3].cpu().numpy()
+    assert (kinds >= 0).any() and (kinds == -1).any() and (kinds < -1).any()
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    check_k1w_items(g, D, aligned, cuda, gen)
 
 
 @pytest.mark.gpu
@@ -1044,7 +1068,7 @@ def test_k1w_launch_refuses_an_unweighted_pass(cuda):
     x = torch.randn(300, 16, device=cuda)
     w = torch.randn(4000, 1, device=cuda)
     out = torch.empty(300, 16, device=cuda)
-    part = torch.empty(max(csr.num_partials, 1), 16, device=cuda)
+    part = torch.empty(max(csr.item_partials, 1), 16, device=cuda)
     with pytest.raises(RuntimeError, match="CUDA error"):
         sk._launch_weighted(x, w, csr, out, part, 0)
 

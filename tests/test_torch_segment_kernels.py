@@ -162,13 +162,17 @@ def test_spmm_matches_pallas_fused_gather():
     [0, 5, 0, 7],                          # no row split
 ], ids=["three_pieces", "piece_edges", "no_split"])
 def test_layout_covers_every_edge_once(deg):
+    """``cut_rows`` (the pieces of the attention and dedup work lists, and
+    at its own lengths of K1's) cuts every row into pieces of at most
+    ``ET`` edges in order, an empty row one empty piece, split rows owning
+    contiguous partial slots; the layout's work list (``items``) and
+    ``seg_ids`` cover every edge once."""
     et = tsk.ET
     deg = np.array(deg)
     indptr = np.concatenate([[0], np.cumsum(deg)])
     E = int(indptr[-1])
-    lay = tsk.build_spmm_layout(indptr, np.arange(E)[::-1], len(deg),
-                                device="cpu")
-    row, begin, end, slot = lay.pieces.numpy().T
+    pieces, split_rows, split_ptr = tsk.cut_rows(indptr, et)
+    row, begin, end, slot = pieces.T
     covered = np.concatenate([np.arange(b, e) for b, e in zip(begin, end)])
     np.testing.assert_array_equal(np.sort(covered), np.arange(E))
     assert len(covered) == E
@@ -182,13 +186,18 @@ def test_layout_covers_every_edge_once(deg):
                                   end[np.isin(row, empty)])
     # split rows own contiguous partial slots in piece order; others store
     split = np.flatnonzero(n_pc > 1)
-    np.testing.assert_array_equal(lay.split_rows.numpy(), split)
-    ptr = lay.split_ptr.numpy()
+    np.testing.assert_array_equal(split_rows, split)
     for i, r in enumerate(split):
         np.testing.assert_array_equal(slot[row == r],
-                                      np.arange(ptr[i], ptr[i + 1]))
+                                      np.arange(split_ptr[i],
+                                                split_ptr[i + 1]))
     assert (slot[~np.isin(row, split)] == -1).all()
-    assert lay.num_partials == ptr[-1] == (slot >= 0).sum()
+    assert split_ptr[-1] == (slot >= 0).sum()
+    lay = tsk.build_spmm_layout(indptr, np.arange(E)[::-1], len(deg),
+                                device="cpu")
+    items = lay.items.numpy()
+    covered = np.concatenate([np.arange(b, e) for _, b, e, _ in items])
+    np.testing.assert_array_equal(np.sort(covered), np.arange(E))
     np.testing.assert_array_equal(lay.seg_ids.numpy(),
                                   np.repeat(np.arange(len(deg)), deg))
 

@@ -1,7 +1,7 @@
 """K1's packed work list (``segment_kernels.pack_rows``, built at
-``build_spmm_layout``), on the CPU.
+``build_spmm_layout``), which K1w walks too, on the CPU.
 
-The CUDA kernel walks ``SpmmLayout.items``: rows longer than ``PACK_ROW``
+The CUDA kernels walk ``SpmmLayout.items``: rows longer than ``PACK_ROW``
 edges as items of their own, cut into pieces past ``MIN_PIECE`` edges (a
 split row's pieces write partials that a second launch sums in piece
 order), and packs of consecutive short rows. Here the list's structure
@@ -11,6 +11,14 @@ graphs), and a walk of the list in numpy, item by item as the kernel does,
 is held against the Pallas kernels in interpret mode: ``spmm`` (K1) and
 ``sorted_segment_sum`` (K2's contract). Tolerance rtol 1e-5, atol 1e-3, as
 ``test_torch_segment_kernels.py``: float32 sums taken in another order.
+
+K1w's walk of the same list (forward, dx with dw, dw alone; weights and dw
+through the layout's edge ids) is modelled in float64 and held against the
+plain versions at 1e-12 (one sum order against another), every dw written
+once; ``spmm_weighted`` on these lists against the Pallas kernel; and the
+kernel's per-head reduction of dw (``head_tree`` over ``Heads`` in
+``csrc/segment_kernels.cu``) is modelled lane by lane on integers, so its
+sums are exact, at every lane configuration ``items_config`` picks.
 """
 
 import numpy as np
@@ -151,7 +159,8 @@ def test_packs_are_greedy():
 def test_piece_length_follows_the_row(d):
     """A row of more than ``MIN_PIECE`` edges is cut into pieces of
     ``clip(ceil(d / ROW_PIECES), MIN_PIECE, ET)`` edges in order (partial
-    slots in piece order); K1w's pieces stay ``cut_rows``' of ``ET``."""
+    slots in piece order), and a row past ``PACK_ROW`` edges keeps them
+    in the layout's work list, which K1 and K1w walk."""
     indptr = np.array([0, 3, 3 + d, 3 + d + 5])
     pieces, split_rows, split_ptr = tsk.cut_spmm_rows(indptr)
     mine = pieces[pieces[:, 0] == 1]
@@ -169,8 +178,9 @@ def test_piece_length_follows_the_row(d):
         assert len(split_rows) == 0 and (pieces[:, 3] == -1).all()
     lay = tsk.build_spmm_layout(indptr, np.arange(3 + d + 5), 3,
                                 device="cpu")
-    k1w, _, _ = tsk.cut_rows(indptr, tsk.ET)
-    np.testing.assert_array_equal(lay.pieces.numpy(), k1w)
+    items = lay.items.numpy()
+    if d > tsk.PACK_ROW:
+        np.testing.assert_array_equal(items[items[:, 0] == 1], mine)
     assert lay.item_partials == (n if n > 1 else 0)
 
 
@@ -233,7 +243,7 @@ def test_spmm_and_item_walk_match_pallas(D):
     lays = [tsk.build_spmm_layout(i.indptr, i.sorted_v, N, kind=k,
                                   device="cpu")
             for k, i in (("csc", csc), ("csr", csr))]
-    assert lays[0].num_partials > 0 and (lays[0].items[:, 3] < -1).any()
+    assert lays[0].item_partials > 0 and (lays[0].items[:, 3] < -1).any()
     f = torch.tensor(x, requires_grad=True)
     out = tsk.spmm(f, *lays)
     (out * torch.as_tensor(w)).sum().backward()
@@ -265,3 +275,225 @@ def test_sorted_segment_sum_and_item_walk_match_pallas(D):
                                 device="cpu")
     np.testing.assert_allclose(walk_items(msgs, lay), want, rtol=RTOL,
                                atol=ATOL)
+
+
+# -- K1w ---------------------------------------------------------------------
+
+def weighted_layout_of(deg, seed=1):
+    """A layout of one kind of work list over a square table (sources in
+    [0, R)) with its edges' original ids a random permutation."""
+    deg = np.asarray(deg, dtype=np.int64)
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    E, R = int(indptr[-1]), len(deg)
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, R, E)
+    return tsk.build_spmm_layout(indptr, src, R, device="cpu",
+                                 edge_id=rng.permutation(E))
+
+
+def walk_k1w(x, w, lay, wop, dwop=None, xrow=None, store=True):
+    """K1w's walk of ``lay.items`` in float64, as the kernels take it: each
+    item's edges in order, every message ``x[indices[e]]`` combined with its
+    weight ``w[edge_id[e]]`` by ``wop`` ("mul", "add", or None for the
+    unweighted dx beside ``dwop``) into its row or its partial slot (split
+    rows then sum their partials in slot order); with ``dwop`` each edge's
+    dw per head (``<g, xrow[row]>`` for "mul", the sum of g for "add") at
+    its original id, checked to be written exactly once. ``store=False`` is
+    dw alone. Returns (out or None, dw or None)."""
+    x = np.asarray(x, dtype=np.float64)
+    w = np.asarray(w, dtype=np.float64)
+    H, D = w.shape[1], x.shape[1]
+    dh = D // H
+    indptr, idx = lay.indptr.numpy(), lay.indices.numpy()
+    eid = lay.edge_id.numpy()
+    out = np.full((lay.num_rows, D), np.nan) if store else None
+    part = np.full((lay.item_partials, D), np.nan)
+    dw = np.full((lay.num_edges, H), np.nan) if dwop else None
+    written = np.zeros(lay.num_edges, dtype=np.int64)
+
+    def msgs(b, e):
+        m = x[idx[b:e]].reshape(-1, H, dh)
+        we = w[eid[b:e]][:, :, None]
+        if wop == "mul":
+            m = m * we
+        elif wop == "add":
+            m = m + we
+        return m.reshape(-1, D)
+
+    for row, begin, end, k in lay.items.numpy():
+        if k >= -1:
+            spans = [(row, begin, end)]
+        else:
+            spans = [(r, indptr[r], indptr[r + 1])
+                     for r in range(row, row - k)]
+        for r, b, e in spans:
+            if store:
+                (part[k] if k >= 0 else out[r])[:] = msgs(b, e).sum(0)
+            if dwop:
+                ge = x[idx[b:e]].reshape(-1, H, dh)
+                if dwop == "mul":
+                    ge = ge * np.asarray(xrow, np.float64)[r].reshape(H, dh)
+                dw[eid[b:e]] = ge.sum(-1)
+                written[eid[b:e]] += 1
+    if store:
+        ptr = lay.item_split_ptr.numpy()
+        for i, r in enumerate(lay.item_split_rows.numpy()):
+            out[r] = part[ptr[i]:ptr[i + 1]].sum(0)
+    if dwop:
+        assert (written == 1).all()
+    return out, dw
+
+
+@pytest.mark.parametrize("op", ["mul", "add"])
+@pytest.mark.parametrize("H,D", [(1, 3), (2, 8)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_k1w_item_walk_is_the_plain_function(kind, H, D, op):
+    """Forward, dx with dw, and dw alone over every kind of item (packs,
+    split rows, empty rows) against ``spmm_weighted_reference``,
+    ``spmm_reference`` (add's dx) and ``weight_grad_reference``."""
+    lay = weighted_layout_of(degrees(kind))
+    rng = np.random.default_rng(H * 10 + D)
+    N, E = lay.num_rows, lay.num_edges
+    x, g = (rng.normal(size=(N, D)) for _ in range(2))
+    w = rng.normal(size=(E, H))
+    xt, gt, wt = (torch.as_tensor(a) for a in (x, g, w))
+    tol = dict(rtol=1e-12, atol=1e-12)
+
+    out, _ = walk_k1w(x, w, lay, op)
+    np.testing.assert_allclose(
+        out, tsk.spmm_weighted_reference(xt, wt, lay, op).numpy(), **tol)
+    mul = op == "mul"
+    dx, dw = walk_k1w(g, w, lay, op if mul else None, op, x)
+    want_dx = (tsk.spmm_weighted_reference(gt, wt, lay, "mul") if mul
+               else tsk.spmm_reference(gt, lay))
+    want_dw = tsk.weight_grad_reference(gt, xt, lay, H, op).numpy()
+    np.testing.assert_allclose(dx, want_dx.numpy(), **tol)
+    np.testing.assert_allclose(dw, want_dw, **tol)
+    none, dw_alone = walk_k1w(g, w, lay, None, op, x, store=False)
+    assert none is None
+    np.testing.assert_allclose(dw_alone, want_dw, **tol)
+
+
+@pytest.mark.parametrize("op", ["mul", "add"])
+@pytest.mark.parametrize("H,D", [(1, 16), (4, 16), (3, 9)])
+def test_k1w_on_the_item_list_matches_pallas(H, D, op):
+    """``spmm_weighted`` (the plain version here) on a graph whose layouts
+    hold every kind of item, against the Pallas ``spmm_weighted`` in
+    interpret mode: forward, dx and dw in the original edge order."""
+    import jax
+
+    N, E = 400, 3000
+    csc_i, csr_i, _, _ = graph(N, E, 1, seed=H + D)
+    lays = [tsk.build_spmm_layout(i.indptr, i.sorted_v, N, kind=k,
+                                  device="cpu", edge_id=i.sorted_eid)
+            for k, i in (("csc", csc_i), ("csr", csr_i))]
+    assert lays[0].item_partials > 0 and (lays[0].items[:, 3] < -1).any()
+    jl = [jsk.build_blocked_layout(i.indptr, i.sorted_v, N, NB, ET)
+          for i in (csc_i, csr_i)]
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(N, D)).astype(np.float32)
+    w = rng.normal(size=(E, H)).astype(np.float32)
+    cot = rng.normal(size=(N, D)).astype(np.float32)
+
+    def padded(jlay, idx):
+        out = np.zeros((len(np.asarray(jlay.padded_v)), H), np.float32)
+        out[:E] = w[idx.sorted_eid]
+        return jnp.asarray(out)
+
+    w_csc, w_csr = padded(jl[0], csc_i), padded(jl[1], csr_i)
+
+    def loss(a, wc):
+        return (jsk.spmm_weighted(a, wc, w_csr, jl[0], jl[1], NB, ET, True,
+                                  op) * cot).sum()
+
+    want = jsk.spmm_weighted(jnp.asarray(x), w_csc, w_csr, jl[0], jl[1], NB,
+                             ET, True, op)
+    gx, gw_csc = jax.grad(loss, (0, 1))(jnp.asarray(x), w_csc)
+    gw = np.zeros((E, H), np.float32)
+    gw[csc_i.sorted_eid] = np.asarray(gw_csc)[:E]
+    xt = torch.tensor(x, requires_grad=True)
+    wt = torch.tensor(w, requires_grad=True)
+    out = tsk.spmm_weighted(xt, wt, *lays, op)
+    (out * torch.as_tensor(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(wt.grad.numpy(), gw, rtol=1e-4, atol=1e-4)
+
+
+def items_config(D, vec4):
+    """``items_config`` of ``csrc/segment_kernels.cu``: (L lanes a row, NV
+    vectors a lane) at width D."""
+    vecs = D // 4 if vec4 else D
+    lanes = 1
+    while lanes < vecs and lanes < 32:
+        lanes <<= 1
+    cap = 4 if vec4 else 16
+    nv = 1
+    while nv < cap and lanes * nv < vecs:
+        nv <<= 1
+    return lanes, nv
+
+
+def head_tree_dw(vals, D, H, vec4):
+    """The kernel's dw of one edge from per-column values ``vals`` [D]: for
+    each column pass, lane l of the group holds slot s = k·L + l (vector k,
+    columns c0 + s·VEC), each slot's partial the sum of its vector; the
+    masks of ``Heads`` and the levels of ``head_tree`` (shuffle down within
+    the vector, up from vector k + 1, or this lane's vector k + 2^j / L),
+    then the stores of ``store_dw`` (a head's first slot writes, adding
+    where the head began in an earlier pass)."""
+    vec = 4 if vec4 else 1
+    L, NV = items_config(D, vec4)
+    dh = D // H
+    dw = np.full(H, np.nan)
+    for c0 in range(0, D, L * NV * vec):
+        col = c0 + (np.arange(NV)[:, None] * L + np.arange(L)) * vec
+        live = col < D
+        p = np.array([[vals[c:c + vec].sum() if c < D else 0 for c in row]
+                      for row in col], dtype=np.float64)
+        head = np.where(live, col // max(dh, 1), H - 1)
+        hend = np.minimum(D, head * dh + dh)
+        s = np.arange(NV)[:, None] * L + np.arange(L)
+        j = 0
+        while (1 << j) < L * NV:
+            o = 1 << j
+            same = live & (s + o < L * NV) & (col + o * vec < hend)
+            t = np.zeros_like(p)
+            for k in range(NV):
+                for l in range(L):
+                    if o < L:
+                        if l + o < L:
+                            t[k, l] = p[k, l + o]
+                        elif k + 1 < NV:
+                            t[k, l] = p[k + 1, l + o - L]
+                    elif k + o // L < NV:
+                        t[k, l] = p[k + o // L, l]
+            p = p + np.where(same, t, 0.0)
+            j += 1
+        first = live & ((s == 0) | (col == head * dh))
+        cont = live & (s == 0) & (col != head * dh)
+        for k, l in zip(*np.nonzero(first)):
+            h = head[k, l]
+            dw[h] = dw[h] + p[k, l] if cont[k, l] else p[k, l]
+    return dw
+
+
+@pytest.mark.parametrize("D,H", [(1, 1), (3, 1), (3, 3), (8, 2), (9, 3),
+                                 (16, 1), (16, 4), (64, 1), (64, 8),
+                                 (96, 48), (100, 4), (128, 2), (200, 2),
+                                 (256, 1), (512, 8), (600, 1), (600, 3),
+                                 (1024, 2)])
+def test_head_tree_sums_each_head_once(D, H):
+    """The model of K1w's per-head reduction gives each head's sum exactly
+    (integer values), on 16-byte vectors where the kernel takes them (4 |
+    D / H) and on the scalar path; past 512 columns a head crosses a column
+    pass and is finished by the later one."""
+    vals = np.random.default_rng(D * 7 + H).integers(-9, 10, D).astype(
+        np.float64)
+    want = vals.reshape(H, D // H).sum(-1)
+    for vec4 in (False, True):
+        if vec4 and (D // H) % 4:
+            continue
+        np.testing.assert_array_equal(head_tree_dw(vals, D, H, vec4), want)
