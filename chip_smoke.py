@@ -270,6 +270,10 @@ REGISTER_REPORT = (
      ("VEC", "L", "NV", "WOP", "DWOP")),
     ("K8 node walk dedup_attn_bwd_nodes",
      r"dedup_attn_bwd_nodesILi(\d+)ELi(\d+)ELi(\d+)E", ("NC", "U", "G")),
+    ("K10-dq additive gat_dq_groups", r"gat_dq_groupsILi(\d+)ELi(\d+)ELb(\d)E",
+     ("VEC", "NV", "V4")),
+    ("K10-dkv additive gat_dkv_groups",
+     r"gat_dkv_groupsILi(\d+)ELi(\d+)ELb(\d)E", ("VEC", "NV", "V4")),
     ("K9-dot dot_fwd_staged", "dot_fwd_staged" + _STAGED.format(0),
      ("NC", "FULL", "WIDE")),
     ("K10-dq-dot dot_dq_staged", "dot_dq_staged" + _STAGED.format(0),
@@ -285,8 +289,8 @@ REGISTER_REPORT = (
 
 
 def register_report(log):
-    """Lines on K1's, K1w's, the additive K8 node walk's and the staged dot
-    kernels' instantiations (K9, K10 per edge; K7, K8 per cell) from ``nvcc
+    """Lines on K1's, K1w's, the additive K8 node walk's and K10's, and the
+    staged dot kernels' instantiations (K9, K10 per edge; K7, K8 per cell) from ``nvcc
     -Xptxas -v``'s report ``log``: registers and spilled bytes of each.
     Raises if a staged dot kernel spills."""
     import re
@@ -1009,10 +1013,10 @@ def attention_inputs(n, H, dvh, dev, gen):
                  for w in (H, H, H * dvh, H * dvh))
 
 
-def check_attention(tag, lays, ins, rate, seed):
+def check_attention(tag, lays, ins, rate, seed, slope=0.2):
     """K9, K10-dq and K10-dkv (float32) against their plain versions in
-    float64 on the same inputs; returns the max |err| of each and the
-    kernels' outputs."""
+    float64 on the same inputs, with leaky slope ``slope``; returns the max
+    |err| of each and the kernels' outputs."""
     import torch
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     csc, csr = lays
@@ -1020,17 +1024,18 @@ def check_attention(tag, lays, ins, rate, seed):
     H = a_dst.shape[1]
     dvh = v.shape[1] // H
     with torch.no_grad():
-        out, lse = ak._fwd_cuda(a_dst, a_src, v, csc, 0.2, dvh, rate, seed)
+        out, lse = ak._fwd_cuda(a_dst, a_src, v, csc, slope, dvh, rate, seed)
         delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
         bwd = (a_dst, a_src, v, g, lse, delta)
-        da_dst = ak._dq_cuda(*bwd, csc, 0.2, dvh, rate, seed)
-        da_src, dv = ak._dkv_cuda(*bwd, csr, 0.2, dvh, rate, seed)
+        da_dst = ak._dq_cuda(*bwd, csc, slope, dvh, rate, seed)
+        da_src, dv = ak._dkv_cuda(*bwd, csr, slope, dvh, rate, seed)
         d64 = [t.double() for t in bwd]
-        out_p, lse_p = ak.gat_attention_reference(*d64[:3], csc, 0.2, dvh,
+        out_p, lse_p = ak.gat_attention_reference(*d64[:3], csc, slope, dvh,
                                                   rate, seed)
-        dq_p = ak.gat_dq_reference(*d64, csc, 0.2, dvh, rate, seed)
-        dsrc_p, dv_p = ak.gat_dkv_reference(*d64, csr, 0.2, dvh, rate, seed)
-        name = f"{tag} H={H} dvh={dvh} rate={rate}"
+        dq_p = ak.gat_dq_reference(*d64, csc, slope, dvh, rate, seed)
+        dsrc_p, dv_p = ak.gat_dkv_reference(*d64, csr, slope, dvh, rate,
+                                            seed)
+        name = f"{tag} H={H} dvh={dvh} rate={rate} leaky={slope}"
         return {"gat_fwd": max(check(f"{name} K9 out", out, out_p),
                                check(f"{name} K9 lse", lse, lse_p)),
                 "gat_dq": check(f"{name} K10-dq", da_dst, dq_p),
@@ -1040,12 +1045,67 @@ def check_attention(tag, lays, ins, rate, seed):
             (out, lse, da_dst, da_src, dv)
 
 
+# the additive K10's shapes held on every run: GAT's two, a head of 32
+# columns, ragged widths (no multiple of 4), one column, 16 heads of 32
+# (four vectors a lane) and a head of 512 columns (across the warp)
+K10_SHAPES = ((8, 8), (1, 16), (4, 32), (3, 5), (2, 3), (1, 1), (16, 32),
+              (1, 512))
+
+
+def k10_case_graphs(dev):
+    """The graphs the additive K10 is held on: ``hub`` (a hub destination
+    and a hub source split over pieces on both sides, empty rows),
+    ``sixteen`` (every source sends 16 edges, the bench GAT graph's CSR
+    rows) and ``no_edges`` (every row empty)."""
+    from pgl_tpu_torch import Graph
+    rng = np.random.default_rng(21)
+    n = 4096
+    sixteen = np.stack([np.repeat(np.arange(n), 16),
+                        rng.integers(0, n, 16 * n)], axis=1)
+    graphs = {"hub": Graph(attention_graph(3000, 40000, seed=1),
+                           num_nodes=3000),
+              "sixteen": Graph(sixteen, num_nodes=n),
+              "no_edges": Graph(np.zeros((0, 2), dtype=np.int64),
+                                num_nodes=500)}
+    graphs = {k: g.tensor(dev) for k, g in graphs.items()}
+    csc, csr = graphs["hub"]._attention_layouts()
+    if not (csc.num_partials and csr.num_partials
+            and csc.empty_rows.shape[0]):
+        raise AssertionError("the hub graph must split rows on both sides "
+                             "and have empty rows")
+    return graphs
+
+
+def check_k10_case(tag, g, H, dvh, rate, slope, dev, gen):
+    """K9 and the additive K10 on ``g`` at (H, dvh) against float64, the
+    same bits on a second run, and zeros on the rows without edges (d
+    a_dst on CSC's, d a_src and dv on CSR's). Returns the max |err| of
+    each kernel."""
+    import torch
+    lays = g._attention_layouts()
+    ins = attention_inputs(g.num_nodes, H, dvh, dev, gen)
+    seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                         generator=gen, device=dev)
+    e, got = check_attention(tag, lays, ins, rate, seed, slope)
+    _, again = check_attention(tag, lays, ins, rate, seed, slope)
+    if not all(map(torch.equal, got, again)):
+        raise AssertionError(f"{tag} H={H} dvh={dvh} rate={rate} leaky="
+                             f"{slope}: two runs differ")
+    da_dst, da_src, dv = got[2:]
+    for t, lay in ((da_dst, lays[0]), (da_src, lays[1]), (dv, lays[1])):
+        if t[lay.empty_rows.long()].any():
+            raise AssertionError(f"{tag} H={H} dvh={dvh}: an empty row is "
+                                 "not zero")
+    return e
+
+
 def phase_attention_kernels(g_gat, dev):
     """Every attention kernel against its float64 plain version at rates 0
     and 0.6 (seed drawn per case), on the small graph at several head
     shapes and on the GAT headline graph at the GAT's; and the runs are
-    bit-identical. Returns the max |err| per (kernel, H, dvh) on the
-    headline graph."""
+    bit-identical. Then the additive K10 at ``K10_SHAPES``, rates 0 and
+    0.6, leaky 0 and 0.2, on ``k10_case_graphs`` (``check_k10_case``).
+    Returns the max |err| per (kernel, H, dvh) on the headline graph."""
     import torch
     from pgl_tpu_torch import Graph
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
@@ -1079,6 +1139,21 @@ def phase_attention_kernels(g_gat, dev):
                   f"H={H} dvh={dvh} rate={rate}: max |err| K9 "
                   f"{e['gat_fwd']:.3e} K10-dq {e['gat_dq']:.3e} K10-dkv "
                   f"{e['gat_dkv']:.3e}", flush=True)
+    # the additive K10 at every lane map, rate and slope, on a split hub,
+    # 16-edge rows and no edges
+    k10 = {}
+    for tag, g in k10_case_graphs(dev).items():
+        for H, dvh in K10_SHAPES:
+            for rate in (0.0, 0.6):
+                for slope in (0.0, 0.2):
+                    e = check_k10_case(tag, g, H, dvh, rate, slope, dev, gen)
+                    for k in ("gat_dq", "gat_dkv"):
+                        k10[k] = max(k10.get(k, 0.0), e[k])
+        print(f"[attention] K10 {tag} N={g.num_nodes} E={g.num_edges} at "
+              f"(H, dvh) in {K10_SHAPES}, rates 0 and 0.6, leaky 0 and "
+              f"0.2: max |err| K10-dq {k10['gat_dq']:.3e} K10-dkv "
+              f"{k10['gat_dkv']:.3e}; same bits twice; empty rows zero",
+              flush=True)
     ak.reset_launches()
     return errs
 
@@ -1215,8 +1290,9 @@ def gat_per_step(g):
 
 def phase_attention_timing(g, dev, runs, errs):
     """Rows at the GAT's shapes: each kernel's ms (the wrapper's launches,
-    combine included), its plain version's, and its bound, at rate 0 (the
-    bench GAT) and 0.6 (GAT's defaults). ``runs`` maps a rate to the
+    combine included; and the device's ms by kernel, torch.profiler), its
+    plain version's, its bound and the bound of the rows it gathers, at
+    rate 0 (the bench GAT) and 0.6 (GAT's defaults). ``runs`` maps a rate to the
     launches of its training run."""
     import torch
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
@@ -1257,12 +1333,19 @@ def phase_attention_timing(g, dev, runs, errs):
                 with torch.no_grad():
                     ms = time_ms(fn, 50)
                     plain_ms = time_ms(plain, 3)
+                    # the device's own time (a call at (1, 16) is shorter
+                    # than the host's time to launch it, which `ms` holds)
+                    split = kernel_split_ms(fn)
                 # each input read once: the node tables, the edge list
                 # (and the CSC positions where the CSR pass drops), the
-                # pieces; each output written once
+                # work list (K9's pieces; K10's items and empty rows);
+                # each output written once
                 edge_ints = 1 + (kernel == "gat_dkv" and rate > 0)
+                work = (4 * lay.pieces.shape[0] if kernel == "gat_fwd"
+                        else 4 * lay.k10_items.shape[0]
+                        + lay.empty_rows.shape[0])
                 nbytes = 4 * (N * (cols_in + cols_out) + E * edge_ints
-                              + 4 * lay.pieces.shape[0])
+                              + work)
                 # per edge and head: add, leaky, max, 2 exp, 2 scale, the
                 # dropout hash (8 integer ops); per column: 2 (fma) in K9,
                 # 4 (g.v product and sum, dv) in K10
@@ -1270,6 +1353,12 @@ def phase_attention_timing(g, dev, runs, errs):
                 ops = E * (H * (7 + 8 * (rate > 0)) + per_col * C)
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
                 bound_ms = max(t_bytes, t_ops) * 1e3
+                # the rows each edge gathers, read once: a_src | v (K9,
+                # K10-dq), a_dst, lse, delta | g and the CSC position
+                # under dropout (K10-dkv)
+                gathered = 4 * E * (H + C if kernel != "gat_dkv"
+                                    else 3 * H + C + (rate > 0))
+                gather_ms = gathered / HBM_BYTES_PER_S * 1e3
                 suffix = f"_drop{rate:g}" if rate else ""
                 rows.append({
                     "name": f"{kernel}_h{H}_d{dvh}{suffix}", "route": "cuda",
@@ -1279,15 +1368,26 @@ def phase_attention_timing(g, dev, runs, errs):
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "library_ms": None, "share": bound_ms / ms,
+                    "gather_bound_ms": gather_ms,
+                    "gather_share": gather_ms / ms,
+                    "device_ms": sum(split.values()), "split_ms": split,
                     "shape": {"kernel": kernel, "H": H, "dvh": dvh,
                               "rate": rate, "rows": N, "edges": E,
                               "pieces": int(lay.pieces.shape[0]),
                               "split_rows": int(lay.split_rows.shape[0])}})
+                if kernel != "gat_fwd":
+                    rows[-1]["shape"].update(
+                        k10_items=int(lay.k10_items.shape[0]),
+                        k10_long=lay.k10_long,
+                        empty_rows=int(lay.empty_rows.shape[0]))
                 print(f"[timing] {kernel} H={H} dvh={dvh} rate={rate}: "
                       f"kernel {ms:.5f} ms ({rows[-1]['launches']} launches "
                       f"in its run), plain {plain_ms:.5f} ms, bound "
                       f"{bound_ms:.5f} ms ({rows[-1]['bound_by']}; "
-                      f"{bound_ms / ms:.3f} of it)", flush=True)
+                      f"{bound_ms / ms:.3f} of it), gather bound "
+                      f"{gather_ms:.5f} ms ({gather_ms / ms:.3f} of it); "
+                      f"device {rows[-1]['device_ms']:.5f} ms by kernel "
+                      f"{split}", flush=True)
     ak.reset_launches()
     return rows
 
@@ -1396,12 +1496,17 @@ def phase_gat(dev):
                                lambda g: gat_trainer(g, defaults=True))
     prof = phase_gat_profile(g)
     rows = phase_attention_timing(g, dev, {0.0: by0, 0.6: by6}, errs)
-    attn = {rate: sum(r["ms"] for r in rows if r["shape"]["rate"] == rate)
-            for rate in (0.0, 0.6)}
+    # the device's time (torch.profiler): K10 at (1, 16) takes less than
+    # the host's time to launch it, which the rows' events hold
+    attn = {rate: sum(r["device_ms"] for r in rows
+                      if r["shape"]["rate"] == rate) for rate in (0.0, 0.6)}
+    events = sum(r["ms"] for r in rows if r["shape"]["rate"] == 0.0)
     print(f"[default] attention device ms per GAT step: {attn[0.0]:.5f} "
-          f"(no dropout), {attn[0.6]:.5f} (rate 0.6)", flush=True)
+          f"(no dropout), {attn[0.6]:.5f} (rate 0.6); by CUDA events "
+          f"around each call {events:.5f} (no dropout)", flush=True)
     return rows, {
         "GAT": dict(train, attention_ms_per_step=attn[0.0],
+                    attention_event_ms_per_step=events,
                     tensor_s=t_tensor, attention_layouts_s=t_layouts,
                     profile=prof),
         "GAT_defaults": dict(train_d, attention_ms_per_step=attn[0.6])}
@@ -1642,8 +1747,8 @@ def timing_row(rows, info, name, kernel, source, replaces, launches, err,
 def phase_dedup_attention_timing(g, dev, runs, errs):
     """Rows at the GAT's shapes on the dedup route: K7 and K8 (each
     wrapper's launches, merges included) at rate 0 and 0.6, beside the
-    plain versions, the byte bound and, for K8, the bound of the rows its
-    passes gather, with K8 split by kernel (row pass, node walk). ``runs``
+    plain versions, the byte bound and the bound of the rows each gathers,
+    with K8 split by kernel (row pass, node walk). ``runs``
     maps a rate to the launches of its training run."""
     import torch
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
@@ -1699,13 +1804,13 @@ def phase_dedup_attention_timing(g, dev, runs, errs):
             per_head = 8 + 8 * drop
             fwd_ops = n * (H * per_head + 2 * C)
             bwd_ops = n * (2 * H * (per_head + 2) + 6 * C)
-            # gathered a cell: a_src | v (K8's row pass), a_dst, lse,
-            # delta | g (its node walk)
+            # gathered a cell: a_src | v (K7, K8's row pass), a_dst, lse,
+            # delta | g (K8's node walk)
             rows_gather = 4 * n * (H + C)
             walk_gather = 4 * n * (3 * H + C)
             for kernel, ms, plain_ms, nbytes, ops, gathered in (
                     ("dedup_fwd", fwd_ms, fwd_plain, fwd_bytes, fwd_ops,
-                     None),
+                     rows_gather),
                     ("dedup_bwd", bwd_ms, bwd_plain, bwd_bytes, bwd_ops,
                      rows_gather + walk_gather)):
                 timing_row(rows, shape, f"{kernel}_h{H}_d{dvh}{suffix}",

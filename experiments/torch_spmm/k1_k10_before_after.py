@@ -38,8 +38,15 @@ revision's are the pinned ``PARENT_BITS``); the additive K8 (``k8add``) at
 the GAT's (8, 8) and (1, 16) on the bench GAT graph's count matrix at
 rates 0 and 0.6, the revision's counted with its slot pass's two K1 folds
 over ``build_uniq_reduce``'s layout (this tree's K1), whether d a_dst and
-K7's out and lse keep the revision's bits, and both against float64.
-``--only`` picks among k1, k1w, k10, k9, k10dq, k7, k8, k8add. New results
+K7's out and lse keep the revision's bits, and both against float64;
+the additive K10 (``k10add``: K10-dq over CSC and K10-dkv over CSR, both
+on this tree's K9's lse and delta) at the GAT's (8, 8) and (1, 16) on the
+bench GAT graph at rates 0 and 0.6, both builds against float64, with
+each build's K10 a GAT step at rate 0 (both kernels at both shapes);
+against a4b9325, the last revision with the one-warp-a-piece K10
+(``--extract --rev a4b9325``, then ``--rev a4b9325 --only k10add``).
+``--only`` picks among k1, k1w, k10, k9, k10dq, k7, k8, k8add, k10add.
+New results
 are held against the float64
 plain version (``chip_smoke.check_spmm``) and old against new (the dot
 kernels: the largest difference, and whether the bits agree;
@@ -109,13 +116,16 @@ def build_old(rev):
 
 
 def registers(log, pattern):
-    """(kernel template arguments, registers, spill bytes) of each entry
-    of ``log`` whose mangled name matches ``pattern``."""
+    """(the kernel's match of ``pattern`` and its template arguments,
+    registers, spill bytes) of each entry of ``log`` whose mangled name
+    matches ``pattern``."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1) if re.search(pattern, m.group(1)) else None
+            k = re.search(pattern, m.group(1))
+            name = m.group(1) if k else None
+            kernel = k.group(0) if k else ""
             spill = 0
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -124,8 +134,8 @@ def registers(log, pattern):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             args = re.search(r"I(?:L[ib][^E]*E)+", name)
-            out.append((args.group(0) if args else name, int(m.group(1)),
-                        spill))
+            out.append((kernel + (args.group(0) if args else name),
+                        int(m.group(1)), spill))
             name = None
     return out
 
@@ -134,7 +144,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rev", default="38de6bd")
     ap.add_argument("--extract", action="store_true")
-    kinds = ("k1", "k1w", "k10", "k9", "k10dq", "k7", "k8", "k8add")
+    kinds = ("k1", "k1w", "k10", "k9", "k10dq", "k7", "k8", "k8add",
+             "k10add")
     ap.add_argument("--only", choices=kinds, nargs="+", default=kinds,
                     help="the kernels to time (default: all)")
     a = ap.parse_args()
@@ -147,7 +158,7 @@ def main():
         print("k1_k10_before_after: no CUDA device", file=sys.stderr)
         return 1
     from chip_smoke import (GAT_SHAPES, PARENT_BITS_CASES, UNIMP_SHAPE,
-                            attention_inputs, bits_digest,
+                            attention_inputs, bits_digest, check,
                             check_dedup_attention, check_spmm,
                             check_weighted, dedup_attention_of,
                             dispatch_settings, dot_inputs, gat_host,
@@ -190,7 +201,9 @@ def main():
             ("old K7-dot", old_logs, r"dedup_dot_fwd"),
             ("new K7-dot", new_logs, r"dot_fwd_staged"),
             ("old K8-dot", old_logs, r"dedup_dot_bwd_(rows|slots)"),
-            ("new K8-dot", new_logs, r"dot_(dq|dkv)_staged")):
+            ("new K8-dot", new_logs, r"dot_(dq|dkv)_staged"),
+            ("old K10 additive", old_logs, r"gat_(dq|dkv)_pieces"),
+            ("new K10 additive", new_logs, r"gat_(dq|dkv)_groups")):
         for args, regs, spill in registers(
                 logs[lib_of.get(tag.split()[1], "attention_kernels")], pat):
             print(f"[ptxas] {tag} {args}: {regs} registers, {spill} B "
@@ -225,6 +238,11 @@ def main():
         ).pgl_dedup_attn_fwd_f32.argtypes
     ded.pgl_dedup_attn_bwd_f32.argtypes = ([i] + [p] * 9 + [p, i, p, p, i]
                                            + slots + dot[1:] + [p] * 5)
+
+    # the revision's additive K10: one warp a piece of cut_rows
+    work = [p, i, p, p, i, i, i, f, p, i, f]
+    att.pgl_gat_dq_f32.argtypes = [i] + [p] * 7 + work + [p] * 3
+    att.pgl_gat_dkv_f32.argtypes = [i] + [p] * 8 + work + [p] * 4
 
     pieces_of = {}
 
@@ -668,6 +686,93 @@ def main():
                           same_bits_as_old=same, **extra)
                 res.clear()
 
+    def k10add_rows(tag, g, rates):
+        """The additive K10-dq and K10-dkv of both builds at the GAT's
+        shapes, both on this tree's K9's lse and delta, timed in turns
+        (and split by kernel, device ms by torch.profiler); both held
+        against float64."""
+        csc, csr = g._attention_layouts()
+        N = g.num_nodes
+        seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+        for H, dvh in GAT_SHAPES:
+            a_dst, a_src, v, g_out = attention_inputs(N, H, dvh, dev, gen)
+            for rate in rates:
+                thresh, inv_keep = ak._drop_args(rate)
+                with torch.no_grad():
+                    out, lse = ak._fwd_cuda(a_dst, a_src, v, csc, 0.2, dvh,
+                                            rate, seed)
+                    delta = (g_out.reshape(N, H, dvh)
+                             * out.reshape(N, H, dvh)).sum(-1)
+                    bwd = (a_dst, a_src, v, g_out, lse, delta)
+                    d64 = [t.double() for t in bwd]
+                    want = {"dq": (ak.gat_dq_reference(
+                        *d64, csc, 0.2, dvh, rate, seed),),
+                        "dkv": ak.gat_dkv_reference(*d64, csr, 0.2, dvh,
+                                                    rate, seed)}
+                ptrs = [t.data_ptr() for t in bwd]
+                res = {}
+
+                def old_run(lay, key):
+                    da_ = torch.empty(N, H, device=dev)
+                    dv = torch.empty(N, H * dvh, device=dev)
+                    width = H if key == "dq" else H + H * dvh
+                    part = torch.empty(lay.num_partials, width, device=dev)
+                    work_args = (lay.pieces.data_ptr(), lay.pieces.shape[0],
+                                 lay.split_rows.data_ptr(),
+                                 lay.split_ptr.data_ptr(),
+                                 lay.split_rows.shape[0], H, dvh, 0.2,
+                                 seed.data_ptr(), thresh, inv_keep)
+                    if key == "dq":
+                        rc = att.pgl_gat_dq_f32(
+                            0, *ptrs, lay.indices.data_ptr(), *work_args,
+                            da_.data_ptr(), part.data_ptr(), stream())
+                        res["old"] = (da_,)
+                    else:
+                        rc = att.pgl_gat_dkv_f32(
+                            0, *ptrs, lay.indices.data_ptr(),
+                            lay.eidx.data_ptr(), *work_args, da_.data_ptr(),
+                            dv.data_ptr(), part.data_ptr(), stream())
+                        res["old"] = (da_, dv)
+                    assert rc == 0, rc
+
+                def new_dq():
+                    res["new"] = (ak._dq_cuda(*bwd, csc, 0.2, dvh, rate,
+                                              seed),)
+
+                def new_dkv():
+                    res["new"] = ak._dkv_cuda(*bwd, csr, 0.2, dvh, rate,
+                                              seed)
+
+                for name, key, lay, fn in (("K10-dq", "dq", csc, new_dq),
+                                           ("K10-dkv", "dkv", csr,
+                                            new_dkv)):
+                    def fo(lay=lay, key=key):
+                        old_run(lay, key)
+                    fo()
+                    fn()
+                    torch.cuda.synchronize()
+                    label = f"{name} additive {tag} H={H} dvh={dvh} rate={rate}"
+                    with torch.no_grad():
+                        errs = {b: max(check(f"{b} {label}", t, w)
+                                       for t, w in zip(res[b], want[key]))
+                                for b in ("old", "new")}
+                        diff = max(float((o - n_).abs().max())
+                                   for o, n_ in zip(res["old"], res["new"]))
+                    turns(label, fo, fn, 50, max_abs_err=errs["new"],
+                          old_max_abs_err=errs["old"],
+                          old_new_max_diff=diff, H=H, dvh=dvh, rate=rate,
+                          kernel=name, old_split_ms=kernel_split_ms(fo),
+                          new_split_ms=kernel_split_ms(fn))
+                res.clear()
+        step = {b: sum(r[f"{b}_ms"] for r in rows
+                       if r.get("kernel", "").startswith("K10-")
+                       and r.get("rate") == 0.0) for b in ("old", "new")}
+        rows.append(dict(name="K10 additive a GAT step, rate 0", **step))
+        print(f"[before/after] K10 additive a GAT step (dq and dkv at both "
+              f"shapes, rate 0): old {step['old']:.5f} ms, new "
+              f"{step['new']:.5f} ms (new/old "
+              f"{step['new'] / step['old']:.3f})", flush=True)
+
     def parent_digests():
         """Both builds' digests of out | lse | dq on the pinned cases."""
         att = parent_bits_graph(dev)
@@ -734,6 +839,8 @@ def main():
     if "k8add" in only:
         k8add_rows("bench GAT graph", dedup_attention_of(g, dev, False),
                    (0.0, 0.6))
+    if "k10add" in only:
+        k10add_rows("bench GAT graph", g, (0.0, 0.6))
     del g, csc, csr
     torch.cuda.empty_cache()
 

@@ -9,11 +9,18 @@ K10) in both of its score modes onto hand-written CUDA kernels for Hopper,
 (``fused_graph_attention``, per-head ``q·k``).
 
 * :func:`build_attention_layouts` builds, once on the host (numpy), the
-  two work lists the kernels walk: CSC (rows are destinations, edges in the
+  two sides the kernels walk: CSC (rows are destinations, edges in the
   reference's CSC order, so an edge's position is the dropout hash's
   counter) and CSR (rows are sources), which carries for every edge its CSC
-  position, the reference's ``perm`` (``pgl_tpu/graph.py:569-574``). Rows
-  are cut into pieces of at most ``ET`` edges by ``segment_kernels.cut_rows``.
+  position, the reference's ``perm`` (``pgl_tpu/graph.py:569-574``). Each
+  side has two work lists: K9's and the dot kernels', every row cut into
+  pieces of at most ``ET`` edges by ``segment_kernels.cut_rows``; and the
+  additive K10's (:func:`k10_work_list`): the pieces of the rows longer
+  than ``PACK_ROW`` edges, then the other nonempty rows by length, and the
+  empty rows apart, which the kernel only zeroes.
+* :func:`k10_lanes` chooses how the additive K10 lays a row's columns over
+  a lane group (16-byte vectors of one head), and so how many edges a warp
+  takes at once.
 * :func:`fused_gat_attention` and :func:`fused_graph_attention` are
   autograd ``Function``s with the reference's contracts (``:855-938`` and
   ``:756-777``): the forward (K9) saves ``lse``; the backward computes
@@ -63,11 +70,16 @@ __all__ = ["AttentionLayout", "build_attention_layouts", "drop_keep",
            "gat_dkv_reference", "fused_gat_attention", "head_scatter",
            "dot_attention_reference", "dot_dq_reference",
            "dot_dkv_reference", "fused_graph_attention",
-           "gat_score_features", "ET", "MAX_SLOTS", "LAUNCHES_BY_SHAPE",
-           "reset_launches"]
+           "gat_score_features", "k10_work_list", "k10_lanes", "ET",
+           "PACK_ROW", "MAX_SLOTS", "LAUNCHES_BY_SHAPE", "reset_launches"]
 
 # most edges in one piece (one warp's work); read when a layout is built
 ET = 256
+# the longest row that one lane group of the additive K10 walks alone
+# (several such rows a warp, one a group); longer rows are pieces of ET
+# edges whose edges the warp's groups share. At most ET; read when a layout
+# is built
+PACK_ROW = 32
 
 # the kernels hold H heads of dvh_p slots (additive) or of max(dsh_p,
 # dvh_p) slots (dot; widths rounded up to powers of two) in at most 16
@@ -94,19 +106,27 @@ class AttentionLayout:
     seg_ids:     [E] row of each edge (the plain versions' scatter ids)
     eidx:        [E] CSR only: each edge's CSC position (the dropout
                  hash's counter); None for CSC, where it is the position
-    pieces, split_rows, split_ptr: the work list of ``cut_rows``
+    pieces, split_rows, split_ptr: the work list of ``cut_rows`` (K9, the
+                 dot kernels), whose split rows the additive K10 shares
+    k10_items:   [P, 4] the additive K10's work list
+                 (:func:`k10_work_list`): ``k10_long`` pieces (row, begin,
+                 end, slot), then whole rows (row, begin, end, -1)
+    empty_rows:  [Z] the rows without edges, which K10 zeroes
     """
     kind: str
     num_rows: int
     num_edges: int
     max_index: int        # largest gather id (-1 without edges)
     num_partials: int
+    k10_long: int         # pieces at the head of ``k10_items``
     indices: torch.Tensor
     seg_ids: torch.Tensor
     eidx: Optional[torch.Tensor]
     pieces: torch.Tensor
     split_rows: torch.Tensor
     split_ptr: torch.Tensor
+    k10_items: torch.Tensor
+    empty_rows: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -141,15 +161,66 @@ def build_attention_layouts(dst_index, src_index, num_nodes: int,
         indptr = np.asarray(idx.indptr, dtype=np.int64)
         indices = np.asarray(idx.sorted_v, dtype=np.int64)
         pieces, split_rows, split_ptr = cut_rows(indptr, ET)
+        items, n_long, empty = k10_work_list(indptr, pieces)
         return AttentionLayout(
             kind=kind, num_rows=N, num_edges=E,
             max_index=int(indices.max()) if E else -1,
-            num_partials=int(split_ptr[-1]), indices=put(indices),
+            num_partials=int(split_ptr[-1]), k10_long=n_long,
+            indices=put(indices),
             seg_ids=put(np.repeat(np.arange(N), np.diff(indptr))),
             eidx=None if eidx is None else put(eidx), pieces=put(pieces),
-            split_rows=put(split_rows), split_ptr=put(split_ptr))
+            split_rows=put(split_rows), split_ptr=put(split_ptr),
+            k10_items=put(items), empty_rows=put(empty))
 
     return one("csc", dst_index, None), one("csr", src_index, perm)
+
+
+def k10_work_list(indptr, pieces):
+    """The additive K10's work list over the rows of ``indptr``, from
+    ``pieces`` (``cut_rows(indptr, ET)``): ``(items [P, 4], n_long,
+    empty_rows)``.
+
+    ``items`` holds first the ``n_long`` pieces (row, begin, end, slot) of
+    the rows of more than ``PACK_ROW`` edges, in piece order, each a warp's
+    (its lane groups take even shares of its edges), then every other
+    nonempty row as (row, begin, end, -1), by edge count descending and
+    then by row, a lane group's each (so the rows a warp takes together
+    are about as long). ``empty_rows`` lists the rows without edges. The
+    split rows and partial slots are ``cut_rows``': a row of at most
+    ``PACK_ROW <= ET`` edges is never split.
+    """
+    if not 0 < PACK_ROW <= ET:
+        raise ValueError(f"PACK_ROW = {PACK_ROW} must be in [1, ET = {ET}]")
+    indptr = np.asarray(indptr, dtype=np.int64)
+    pieces = np.asarray(pieces, dtype=np.int64).reshape(-1, 4)
+    deg = np.diff(indptr)
+    long_ = pieces[deg[pieces[:, 0]] > PACK_ROW]
+    short = np.flatnonzero((deg > 0) & (deg <= PACK_ROW))
+    short = short[np.argsort(-deg[short], kind="stable")]
+    rows = np.stack([short, indptr[short], indptr[short + 1],
+                     np.full(len(short), -1)], axis=1)
+    return (np.concatenate([long_, rows]).reshape(-1, 4), len(long_),
+            np.flatnonzero(deg == 0))
+
+
+def k10_lanes(H: int, dvh: int):
+    """How the additive K10 holds H heads of ``dvh`` columns: ``(vec, lh,
+    group, nv)``. A lane holds vectors of ``vec`` consecutive columns of
+    one head (4 where ``dvh`` rounds up to 4 or more, else 1; columns past
+    ``dvh`` are masked); head h owns the ``lh = dvh_p / vec`` vector slots
+    ``h * lh ...`` (``dvh_p``: ``dvh`` rounded up to a power of two), slot
+    ``s`` lying in lane ``s % 32`` of the group as its vector ``s // 32``;
+    a lane group is ``group`` lanes (the power of two that holds the H *
+    lh slots, at most 32), so a warp takes ``32 / group`` edges at once,
+    and a lane holds ``nv`` vectors (more than one only where ``group`` is
+    32)."""
+    dvh_p = _dvh_p(dvh)
+    vec = 4 if dvh_p >= 4 else 1
+    lh = dvh_p // vec
+    slots = H * lh
+    group = min(32, _dvh_p(slots))
+    nv = _dvh_p(-(-slots // 32))
+    return vec, lh, group, nv
 
 
 # -- dropout ---------------------------------------------------------------
@@ -354,9 +425,13 @@ def _lib():
     # (dot mode: H, dsh, dvh)
     work = [p, i, p, p, i, i, i, f, p, i, f]
     dot = [p, i, p, p, i, i, i, i, f, p, i, f]
+    # the additive K10: (items, n_long, n_short, empty_rows, n_empty,
+    # split_rows, split_ptr, n_split, H, dvh, vec, lh, group, nv, slope,
+    # seed, thresh, inv_keep)
+    k10 = [p, i, i, p, i, p, p, i] + [i] * 6 + [f, p, i, f]
     sigs = {"pgl_gat_fwd_f32": [i] + [p] * 4 + work + [p] * 4,
-            "pgl_gat_dq_f32": [i] + [p] * 7 + work + [p] * 3,
-            "pgl_gat_dkv_f32": [i] + [p] * 8 + work + [p] * 4,
+            "pgl_gat_dq_f32": [i] + [p] * 7 + k10 + [p] * 3,
+            "pgl_gat_dkv_f32": [i] + [p] * 8 + k10 + [p] * 4,
             "pgl_dot_fwd_f32": [i] + [p] * 4 + dot + [p] * 4,
             "pgl_dot_dq_f32": [i] + [p] * 7 + dot + [p] * 3,
             "pgl_dot_dkv_f32": [i] + [p] * 8 + dot + [p] * 4}
@@ -442,19 +517,27 @@ def _fwd_cuda(a_dst, a_src, v, lay, slope, dvh, rate, seed):
     return out, lse
 
 
+def _k10_args(lay, H, dvh, slope, rate, seed):
+    """The additive K10's arguments from its work list to ``inv_keep``."""
+    thresh, inv_keep = _drop_args(rate)
+    n = lay.k10_items.shape[0]
+    return (lay.k10_items.data_ptr(), lay.k10_long, n - lay.k10_long,
+            lay.empty_rows.data_ptr(), lay.empty_rows.shape[0],
+            lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
+            lay.split_rows.shape[0], H, dvh, *k10_lanes(H, dvh), slope,
+            seed.data_ptr(), thresh, inv_keep)
+
+
 def _dq_cuda(a_dst, a_src, v, g, lse, delta, lay, slope, dvh, rate, seed):
     N, H = a_dst.shape
     _check(lay, H, dvh, a_dst, a_src, v, g, lse, delta)
     da = torch.empty(N, H, dtype=v.dtype, device=v.device)
     part = torch.empty(lay.num_partials, H, dtype=v.dtype, device=v.device)
-    thresh, inv_keep = _drop_args(rate)
     _raise_on(_lib().pgl_gat_dq_f32(
         v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        lay.indices.data_ptr(), lay.pieces.data_ptr(), lay.pieces.shape[0],
-        lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
-        lay.split_rows.shape[0], H, dvh, slope, seed.data_ptr(), thresh,
-        inv_keep, da.data_ptr(), part.data_ptr(), _stream(v)), "dq")
+        lay.indices.data_ptr(), *_k10_args(lay, H, dvh, slope, rate, seed),
+        da.data_ptr(), part.data_ptr(), _stream(v)), "dq")
     _count("gat_dq", lay, H, dvh)
     return da
 
@@ -466,15 +549,12 @@ def _dkv_cuda(a_dst, a_src, v, g, lse, delta, lay, slope, dvh, rate, seed):
     dv = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
     part = torch.empty(lay.num_partials, H + H * dvh, dtype=v.dtype,
                        device=v.device)
-    thresh, inv_keep = _drop_args(rate)
     _raise_on(_lib().pgl_gat_dkv_f32(
         v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        lay.indices.data_ptr(), lay.eidx.data_ptr(), lay.pieces.data_ptr(),
-        lay.pieces.shape[0], lay.split_rows.data_ptr(),
-        lay.split_ptr.data_ptr(), lay.split_rows.shape[0], H, dvh, slope,
-        seed.data_ptr(), thresh, inv_keep, da.data_ptr(), dv.data_ptr(),
-        part.data_ptr(), _stream(v)), "dkv")
+        lay.indices.data_ptr(), lay.eidx.data_ptr(),
+        *_k10_args(lay, H, dvh, slope, rate, seed), da.data_ptr(),
+        dv.data_ptr(), part.data_ptr(), _stream(v)), "dkv")
     _count("gat_dkv", lay, H, dvh)
     return da, dv
 

@@ -15,7 +15,9 @@ same bits on two runs, on features whose three bf16 planes are all
 nonzero. The
 attention kernels (K9, K10) go through ``check_attention`` (no terms scale:
 their outputs are convex combinations or sums of bounded terms) and must
-give the same bits on two runs; in dot mode through ``check_dot`` (dq, dk
+give the same bits on two runs, the additive K10 also at every lane map
+and on graphs with split rows, 16-edge rows and no edges
+(``check_k10_case``, with zeros on the rows without edges); in dot mode through ``check_dot`` (dq, dk
 and dv with the terms scale); the count-matrix attention (K7, K8) through
 ``check_dedup_attention`` (d a_src and dv on node rows, with the terms
 scale), and in dot mode through ``check_dedup_dot`` (dq, dk and dv with the
@@ -39,17 +41,18 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS, SDDMM_OPS,
+from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS,
+                        K10_SHAPES, SDDMM_OPS,
                         attention_graph, attention_inputs, check,
                         check_attention, check_counts, check_dedup,
                         check_dedup_attention, check_dedup_dot,
-                        check_dedup_exact, check_dot, check_k1w_items,
-                        check_parent_bits,
+                        check_dedup_exact, check_dot, check_k10_case,
+                        check_k1w_items, check_parent_bits,
                         check_sddmm, check_sddmm_grad, check_spmm,
                         check_weighted, dedup_attention_of,
                         dedup_case_edges, dedup_case_facts, dedup_layouts,
                         dispatch_settings, dot_inputs, hard_features,
-                        k1_case_edges, k1_features,
+                        k10_case_graphs, k1_case_edges, k1_features,
                         no_dropout, run_dedup_attention, run_dedup_dot,
                         run_dedup_twice, run_dot, run_weighted, sddmm_inputs,
                         skewed_graph, spread_weights, weighted_terms,
@@ -333,6 +336,32 @@ def test_attention_kernels_match_plain_version(cuda, H, dvh, rate):
                                  "gat_dkv_combine")}
     out, lse = got[:2]
     assert (out[1:1500] == 0).all() and (lse[1:1500] == 0).all()
+
+
+_K10_GRAPHS = {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slope", [0.0, 0.2])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+@pytest.mark.parametrize("H,dvh", K10_SHAPES)
+@pytest.mark.parametrize("graph", ["hub", "sixteen", "no_edges"])
+def test_k10_additive_matches_plain_version(cuda, graph, H, dvh, rate,
+                                            slope):
+    """The additive K10 (with K9 before it) at every lane map: GAT's
+    shapes, ragged and one-column heads, four vectors a lane and a head
+    across the warp; on a graph with split hub rows on both sides and
+    empty rows, one of 16-edge source rows, and one without edges: within
+    tolerance of float64, the same bits twice, empty rows zero."""
+    if not _K10_GRAPHS:
+        _K10_GRAPHS.update(k10_case_graphs(cuda))
+    g = _K10_GRAPHS[graph]
+    gen = torch.Generator(device=cuda).manual_seed(H * dvh)
+    ak.reset_launches()
+    check_k10_case(graph, g, H, dvh, rate, slope, cuda, gen)
+    torch.cuda.synchronize()
+    for k in ("gat_dq", "gat_dkv"):
+        assert ak.LAUNCHES_BY_SHAPE[(k, H, dvh)] == 2
 
 
 @pytest.mark.gpu
