@@ -13,8 +13,11 @@ there is no card or any phase fails. Phases:
    instantiation of the dedup apply (K5, K6, the weighted K6) its
    registers, spills and dynamic shared memory, and of K1 and K1w
    (``spmm_rows``, ``spmm_packs``; K1w's by its weight and weight-gradient
-   ops), the additive K8's node walk (``dedup_attn_bwd_nodes``) and the
-   staged dot kernels (``dot_fwd_staged``, ``dot_dq_staged``,
+   ops), the additive K8's node walk (``dedup_attn_bwd_nodes``), the
+   additive lane-group kernels (``gat_fwd_groups``: K9 per edge, K7 per
+   cell; their merge ``gat_fwd_combine``; K10's ``gat_dq_groups``,
+   ``gat_dkv_groups``) and the staged dot kernels (``dot_fwd_staged``,
+   ``dot_dq_staged``,
    ``dot_dkv_staged``: K9 and K10 per edge, K7 and K8 per cell) its
    registers and spills, failing if a staged dot kernel spills;
 2. every kernel against its plain PyTorch version on the card, forward and
@@ -55,9 +58,12 @@ there is no card or any phase fails. Phases:
    skewed small graph with a hub destination and a hub source and on the
    bench GAT graph (``bench.py``: ``powerlaw_graph(65536, 16,
    feat_dim=128, seed=1)``), with the tolerance above (no terms scale:
-   every output is a convex combination or a sum of bounded terms); the
-   keep bits of K9 and K10-dkv equal the plain mask exactly (a permutation
-   graph, where each row has one edge); the small GAT, CUDA against CPU;
+   every output is a convex combination or a sum of bounded terms), and
+   at every lane map of ``K10_SHAPES`` (rates 0 and 0.6, leaky 0 and 0.2)
+   on a split hub, 16-edge rows and no edges, the same bits twice and
+   zeros on empty rows; the keep bits of K9 and K10-dkv equal the plain
+   mask exactly (a permutation graph, where each row has one edge); the
+   small GAT, CUDA against CPU;
    then the bench GAT (``GAT(128, 16, num_heads=8, hidden_size=8,
    feat_drop=0, attn_drop=0)``, Adam at lr 1e-3) and ``GAT`` with its
    default dropouts (0.6, training) each train 3 warm-up and 20 timed
@@ -72,8 +78,12 @@ there is no card or any phase fails. Phases:
    built at the first attention call); K7 and K8 against their float64
    plain versions at rates 0 and 0.6 on the skewed small graph (seven head
    shapes, 3·H > 128 among them) and on the bench GAT graph, two runs and
-   a layout without counts giving the same bits; the keep bits of K7 and
-   K8 equal the plain cell mask exactly (a permutation graph); the small
+   a layout without counts giving the same bits; K7 (with K8) at every
+   lane map of ``K10_SHAPES``, rates 0 and 0.6, leaky 0 and 0.2, on a
+   multigraph whose cells count 2 to 4 edges (a split hub, rows without
+   cells) and on no edges, the same bits twice and zeros on the rows
+   without cells; the keep bits of K7 and K8 equal the plain cell mask
+   exactly (a permutation graph); the small
    GAT through the dedup path, CUDA against CPU; then three training runs
    of 20 timed steps, asserting their launches per step (K7, K8 and their
    merges at each of (H, dvh) = (8, 8) and (1, 16), nothing else): the
@@ -270,6 +280,11 @@ REGISTER_REPORT = (
      ("VEC", "L", "NV", "WOP", "DWOP")),
     ("K8 node walk dedup_attn_bwd_nodes",
      r"dedup_attn_bwd_nodesILi(\d+)ELi(\d+)ELi(\d+)E", ("NC", "U", "G")),
+    ("K9 additive gat_fwd_groups",
+     r"gat_fwd_groupsILi(\d+)ELi(\d+)ELb(\d)ELb0E", ("VEC", "NV", "V4")),
+    ("K7 additive gat_fwd_groups cells",
+     r"gat_fwd_groupsILi(\d+)ELi(\d+)ELb(\d)ELb1E", ("VEC", "NV", "V4")),
+    ("K9 / K7 merge gat_fwd_combine", r"gat_fwd_combineILi(\d+)E", ("NC",)),
     ("K10-dq additive gat_dq_groups", r"gat_dq_groupsILi(\d+)ELi(\d+)ELb(\d)E",
      ("VEC", "NV", "V4")),
     ("K10-dkv additive gat_dkv_groups",
@@ -1045,7 +1060,8 @@ def check_attention(tag, lays, ins, rate, seed, slope=0.2):
             (out, lse, da_dst, da_src, dv)
 
 
-# the additive K10's shapes held on every run: GAT's two, a head of 32
+# the additive K9's, K10's and K7's shapes held on every run (one lane
+# map each): GAT's two, a head of 32
 # columns, ragged widths (no multiple of 4), one column, 16 heads of 32
 # (four vectors a lane) and a head of 512 columns (across the warp)
 K10_SHAPES = ((8, 8), (1, 16), (4, 32), (3, 5), (2, 3), (1, 1), (16, 32),
@@ -1053,10 +1069,10 @@ K10_SHAPES = ((8, 8), (1, 16), (4, 32), (3, 5), (2, 3), (1, 1), (16, 32),
 
 
 def k10_case_graphs(dev):
-    """The graphs the additive K10 is held on: ``hub`` (a hub destination
-    and a hub source split over pieces on both sides, empty rows),
-    ``sixteen`` (every source sends 16 edges, the bench GAT graph's CSR
-    rows) and ``no_edges`` (every row empty)."""
+    """The graphs K9 and the additive K10 are held on: ``hub`` (a hub
+    destination and a hub source split over pieces on both sides, empty
+    rows), ``sixteen`` (every source sends 16 edges, the bench GAT graph's
+    CSR rows) and ``no_edges`` (every row empty)."""
     from pgl_tpu_torch import Graph
     rng = np.random.default_rng(21)
     n = 4096
@@ -1078,9 +1094,9 @@ def k10_case_graphs(dev):
 
 def check_k10_case(tag, g, H, dvh, rate, slope, dev, gen):
     """K9 and the additive K10 on ``g`` at (H, dvh) against float64, the
-    same bits on a second run, and zeros on the rows without edges (d
-    a_dst on CSC's, d a_src and dv on CSR's). Returns the max |err| of
-    each kernel."""
+    same bits on a second run, and zeros on the rows without edges (out,
+    lse and d a_dst on CSC's, d a_src and dv on CSR's). Returns the max
+    |err| of each kernel."""
     import torch
     lays = g._attention_layouts()
     ins = attention_inputs(g.num_nodes, H, dvh, dev, gen)
@@ -1091,8 +1107,9 @@ def check_k10_case(tag, g, H, dvh, rate, slope, dev, gen):
     if not all(map(torch.equal, got, again)):
         raise AssertionError(f"{tag} H={H} dvh={dvh} rate={rate} leaky="
                              f"{slope}: two runs differ")
-    da_dst, da_src, dv = got[2:]
-    for t, lay in ((da_dst, lays[0]), (da_src, lays[1]), (dv, lays[1])):
+    out, lse, da_dst, da_src, dv = got
+    for t, lay in ((out, lays[0]), (lse, lays[0]), (da_dst, lays[0]),
+                   (da_src, lays[1]), (dv, lays[1])):
         if t[lay.empty_rows.long()].any():
             raise AssertionError(f"{tag} H={H} dvh={dvh}: an empty row is "
                                  "not zero")
@@ -1103,8 +1120,8 @@ def phase_attention_kernels(g_gat, dev):
     """Every attention kernel against its float64 plain version at rates 0
     and 0.6 (seed drawn per case), on the small graph at several head
     shapes and on the GAT headline graph at the GAT's; and the runs are
-    bit-identical. Then the additive K10 at ``K10_SHAPES``, rates 0 and
-    0.6, leaky 0 and 0.2, on ``k10_case_graphs`` (``check_k10_case``).
+    bit-identical. Then K9 and the additive K10 at ``K10_SHAPES``, rates 0
+    and 0.6, leaky 0 and 0.2, on ``k10_case_graphs`` (``check_k10_case``).
     Returns the max |err| per (kernel, H, dvh) on the headline graph."""
     import torch
     from pgl_tpu_torch import Graph
@@ -1139,21 +1156,21 @@ def phase_attention_kernels(g_gat, dev):
                   f"H={H} dvh={dvh} rate={rate}: max |err| K9 "
                   f"{e['gat_fwd']:.3e} K10-dq {e['gat_dq']:.3e} K10-dkv "
                   f"{e['gat_dkv']:.3e}", flush=True)
-    # the additive K10 at every lane map, rate and slope, on a split hub,
-    # 16-edge rows and no edges
+    # K9 and the additive K10 at every lane map, rate and slope, on a split
+    # hub, 16-edge rows and no edges
     k10 = {}
     for tag, g in k10_case_graphs(dev).items():
         for H, dvh in K10_SHAPES:
             for rate in (0.0, 0.6):
                 for slope in (0.0, 0.2):
                     e = check_k10_case(tag, g, H, dvh, rate, slope, dev, gen)
-                    for k in ("gat_dq", "gat_dkv"):
+                    for k in e:
                         k10[k] = max(k10.get(k, 0.0), e[k])
-        print(f"[attention] K10 {tag} N={g.num_nodes} E={g.num_edges} at "
-              f"(H, dvh) in {K10_SHAPES}, rates 0 and 0.6, leaky 0 and "
-              f"0.2: max |err| K10-dq {k10['gat_dq']:.3e} K10-dkv "
-              f"{k10['gat_dkv']:.3e}; same bits twice; empty rows zero",
-              flush=True)
+        print(f"[attention] K9 and K10 {tag} N={g.num_nodes} E="
+              f"{g.num_edges} at (H, dvh) in {K10_SHAPES}, rates 0 and 0.6, "
+              f"leaky 0 and 0.2: max |err| K9 {k10['gat_fwd']:.3e} K10-dq "
+              f"{k10['gat_dq']:.3e} K10-dkv {k10['gat_dkv']:.3e}; same bits "
+              "twice; empty rows zero", flush=True)
     ak.reset_launches()
     return errs
 
@@ -1338,12 +1355,10 @@ def phase_attention_timing(g, dev, runs, errs):
                     split = kernel_split_ms(fn)
                 # each input read once: the node tables, the edge list
                 # (and the CSC positions where the CSR pass drops), the
-                # work list (K9's pieces; K10's items and empty rows);
-                # each output written once
+                # work list (items and empty rows; the split rows' list
+                # is a few ints); each output written once
                 edge_ints = 1 + (kernel == "gat_dkv" and rate > 0)
-                work = (4 * lay.pieces.shape[0] if kernel == "gat_fwd"
-                        else 4 * lay.k10_items.shape[0]
-                        + lay.empty_rows.shape[0])
+                work = 4 * lay.k10_items.shape[0] + lay.empty_rows.shape[0]
                 nbytes = 4 * (N * (cols_in + cols_out) + E * edge_ints
                               + work)
                 # per edge and head: add, leaky, max, 2 exp, 2 scale, the
@@ -1360,6 +1375,9 @@ def phase_attention_timing(g, dev, runs, errs):
                                     else 3 * H + C + (rate > 0))
                 gather_ms = gathered / HBM_BYTES_PER_S * 1e3
                 suffix = f"_drop{rate:g}" if rate else ""
+                merge_ms = sum(v for k, v in split.items()
+                               if k.startswith(("gat_fwd_combine",
+                                                "sum_combine")))
                 rows.append({
                     "name": f"{kernel}_h{H}_d{dvh}{suffix}", "route": "cuda",
                     "source": ATTN_SOURCE, "replaces": ATTN_REPLACES[kernel],
@@ -1371,23 +1389,24 @@ def phase_attention_timing(g, dev, runs, errs):
                     "gather_bound_ms": gather_ms,
                     "gather_share": gather_ms / ms,
                     "device_ms": sum(split.values()), "split_ms": split,
+                    "merge_ms": merge_ms,
                     "shape": {"kernel": kernel, "H": H, "dvh": dvh,
                               "rate": rate, "rows": N, "edges": E,
-                              "pieces": int(lay.pieces.shape[0]),
-                              "split_rows": int(lay.split_rows.shape[0])}})
-                if kernel != "gat_fwd":
-                    rows[-1]["shape"].update(
-                        k10_items=int(lay.k10_items.shape[0]),
-                        k10_long=lay.k10_long,
-                        empty_rows=int(lay.empty_rows.shape[0]))
+                              "split_rows": int(lay.split_rows.shape[0]),
+                              "items": int(lay.k10_items.shape[0]),
+                              "long_items": lay.k10_long,
+                              "empty_rows": int(lay.empty_rows.shape[0])}})
                 print(f"[timing] {kernel} H={H} dvh={dvh} rate={rate}: "
                       f"kernel {ms:.5f} ms ({rows[-1]['launches']} launches "
                       f"in its run), plain {plain_ms:.5f} ms, bound "
                       f"{bound_ms:.5f} ms ({rows[-1]['bound_by']}; "
                       f"{bound_ms / ms:.3f} of it), gather bound "
                       f"{gather_ms:.5f} ms ({gather_ms / ms:.3f} of it); "
-                      f"device {rows[-1]['device_ms']:.5f} ms by kernel "
-                      f"{split}", flush=True)
+                      f"device {rows[-1]['device_ms']:.5f} ms, the merge of "
+                      f"split rows {merge_ms:.5f} of it, by kernel {split}; "
+                      f"work list {lay.k10_items.shape[0]} items ("
+                      f"{lay.k10_long} long), {lay.empty_rows.shape[0]} "
+                      "empty rows", flush=True)
     ak.reset_launches()
     return rows
 
@@ -1484,9 +1503,12 @@ def phase_gat(dev):
           f"{t_layouts:.3f} s on the host; largest in-degree "
           f"{int(deg.max())}, empty rows {int((deg == 0).sum())}, largest "
           f"out-degree {int(g.outdegree().max())}; CSC {csc.pieces.shape[0]} "
-          f"pieces, {csc.split_rows.shape[0]} split rows; CSR "
+          f"pieces, {csc.split_rows.shape[0]} split rows, additive work "
+          f"list {csc.k10_items.shape[0]} items ({csc.k10_long} long), "
+          f"{csc.empty_rows.shape[0]} empty rows; CSR "
           f"{csr.pieces.shape[0]} pieces, {csr.split_rows.shape[0]} split "
-          f"rows", flush=True)
+          f"rows, {csr.k10_items.shape[0]} items ({csr.k10_long} long)",
+          flush=True)
     errs = phase_attention_kernels(g, dev)
     phase_attention_mask(dev)
     phase_gat_small(dev)
@@ -1532,22 +1554,23 @@ def without_counts(att):
         dataclasses.replace(att.layout, counts=None), att.num_rows)
 
 
-def run_dedup_attention(att, ins, rate, seed):
-    """K7 and K8 on float32 ``ins``: ``(out, lse, d a_dst, d a_src, dv)``,
-    all on node rows."""
+def run_dedup_attention(att, ins, rate, seed, slope=0.2):
+    """K7 and K8 on float32 ``ins`` with leaky slope ``slope``: ``(out,
+    lse, d a_dst, d a_src, dv)``, all on node rows."""
     import torch
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
     a_dst, a_src, v, g = ins
     H = a_dst.shape[1]
     dvh = v.shape[1] // H
     with torch.no_grad():
-        out, lse = da._fwd_cuda(a_dst, a_src, v, att, 0.2, dvh, rate, seed)
+        out, lse = da._fwd_cuda(a_dst, a_src, v, att, slope, dvh, rate,
+                                seed)
         delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
         return (out, lse) + da._bwd_cuda(a_dst, a_src, v, g, lse, delta,
-                                         att, 0.2, dvh, rate, seed)
+                                         att, slope, dvh, rate, seed)
 
 
-def check_dedup_attention(tag, att, ins, rate, seed, got):
+def check_dedup_attention(tag, att, ins, rate, seed, got, slope=0.2):
     """``got`` of :func:`run_dedup_attention` against the plain versions in
     float64 on the same inputs (d a_src and dv with the terms scale: a hub
     source sums thousands of them); returns the max |err| of K7 and K8."""
@@ -1557,14 +1580,15 @@ def check_dedup_attention(tag, att, ins, rate, seed, got):
     a_dst, a_src, v, g = ins
     H = a_dst.shape[1]
     dvh = v.shape[1] // H
-    name = f"{tag} H={H} dvh={dvh} rate={rate}"
+    name = f"{tag} H={H} dvh={dvh} rate={rate} leaky={slope}"
     with torch.no_grad():
         d64 = [t.double() for t in ins]
         out_p, lse_p = da.dedup_attention_reference(*d64[:3], att.layout,
-                                                    0.2, dvh, rate, seed)
+                                                    slope, dvh, rate, seed)
         delta = (d64[3].reshape(-1, H, dvh)
                  * out.double().reshape(-1, H, dvh)).sum(-1)
-        bwd = (*d64, lse.double(), delta, att.layout, 0.2, dvh, rate, seed)
+        bwd = (*d64, lse.double(), delta, att.layout, slope, dvh, rate,
+               seed)
         dq_p, dsrc_p, dv_p = da.dedup_bwd_reference(*bwd)
         terms = dedup_bwd_terms(*bwd)
         return {"dedup_fwd": max(check(f"{name} K7 out", out, out_p),
@@ -1591,6 +1615,51 @@ def dedup_bwd_terms(a_dst, a_src, v, g, lse, delta, layout, slope, dvh,
     dv = (q[..., None] * g_e).reshape(-1, H * dvh)
     return (ds.new_zeros(N, H).index_add_(0, src, ds * ds).sqrt(),
             dv.new_zeros(N, H * dvh).index_add_(0, src, dv * dv).sqrt())
+
+
+def k7_case_atts(dev):
+    """The count matrices K7 is held on at every lane map (K8 beside it):
+    ``multi``, every edge of ``attention_graph(3000, 20000)`` sent two to
+    four times (each cell counts at least 2 edges; the hub destination's
+    cells split over pieces; rows without cells), and ``no_edges`` (every
+    row without cells)."""
+    from pgl_tpu_torch import Graph
+    rng = np.random.default_rng(22)
+    base = attention_graph(3000, 20000, seed=2)
+    multi = np.repeat(base, rng.integers(2, 5, len(base)), axis=0)
+    atts = {"multi": dedup_attention_of(Graph(
+                multi[rng.permutation(len(multi))], num_nodes=3000
+            ).tensor(dev), dev),
+            "no_edges": dedup_attention_of(Graph(
+                np.zeros((0, 2), dtype=np.int64), num_nodes=500
+            ).tensor(dev), dev, counts=False)}
+    att = atts["multi"]
+    if not (att.num_partials and att.k10_long and att.empty_rows.shape[0]
+            and int(att.cell_cnt.min()) >= 2):
+        raise AssertionError("the multigraph must split a row into pieces, "
+                             "have rows without cells and count >= 2 a "
+                             "cell")
+    return atts
+
+
+def check_k7_case(tag, att, H, dvh, rate, slope, dev, gen):
+    """K7 (and K8) on ``att`` at (H, dvh) against float64, the same bits on
+    a second run, and zeros on the rows without cells (out, lse and d
+    a_dst). Returns the max |err| of each kernel."""
+    import torch
+    ins = attention_inputs(att.num_rows, H, dvh, dev, gen)
+    seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                         generator=gen, device=dev)
+    got = run_dedup_attention(att, ins, rate, seed, slope)
+    again = run_dedup_attention(att, ins, rate, seed, slope)
+    if not all(map(torch.equal, got, again)):
+        raise AssertionError(f"{tag} H={H} dvh={dvh} rate={rate} leaky="
+                             f"{slope}: two runs differ")
+    empty = att.empty_rows.long()
+    if any(t[empty].any() for t in got[:3]):
+        raise AssertionError(f"{tag} H={H} dvh={dvh}: a row without cells "
+                             "is not zero")
+    return check_dedup_attention(tag, att, ins, rate, seed, got, slope)
 
 
 def phase_dedup_attention_kernels(g_gat, dev):
@@ -1638,6 +1707,24 @@ def phase_dedup_attention_kernels(g_gat, dev):
                   f"dvh={dvh} rate={rate}: max |err| K7 "
                   f"{e['dedup_fwd']:.3e} K8 {e['dedup_bwd']:.3e}; same bits "
                   "on a second run and without counts", flush=True)
+    # K7 at every lane map, rate and slope, on a multigraph with a split
+    # hub and rows without cells, and on no cells at all
+    for tag, att in k7_case_atts(dev).items():
+        k7 = {}
+        for H, dvh in K10_SHAPES:
+            for rate in (0.0, 0.6):
+                for slope in (0.0, 0.2):
+                    e = check_k7_case(tag, att, H, dvh, rate, slope, dev,
+                                      gen)
+                    for k in e:
+                        k7[k] = max(k7.get(k, 0.0), e[k])
+        print(f"[dedup attention] K7 {tag} N={att.num_rows} E="
+              f"{att.layout.num_edges} cells={att.num_cells} items="
+              f"{att.k10_items.shape[0]} (long {att.k10_long}) rows without "
+              f"cells={att.empty_rows.shape[0]} at (H, dvh) in "
+              f"{K10_SHAPES}, rates 0 and 0.6, leaky 0 and 0.2: max |err| "
+              f"K7 {k7['dedup_fwd']:.3e} K8 {k7['dedup_bwd']:.3e}; same "
+              "bits twice; rows without cells zero", flush=True)
     reset_all_launches()
     return errs
 
@@ -1748,8 +1835,9 @@ def phase_dedup_attention_timing(g, dev, runs, errs):
     """Rows at the GAT's shapes on the dedup route: K7 and K8 (each
     wrapper's launches, merges included) at rate 0 and 0.6, beside the
     plain versions, the byte bound and the bound of the rows each gathers,
-    with K8 split by kernel (row pass, node walk). ``runs``
-    maps a rate to the launches of its training run."""
+    each split by kernel (K7: the forward and its merge; K8: row pass,
+    node walk) with its device ms (torch.profiler). ``runs`` maps a rate
+    to the launches of its training run."""
     import torch
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
 
@@ -1760,8 +1848,12 @@ def phase_dedup_attention_timing(g, dev, runs, errs):
     n_node_pieces = int(att.node_pieces.shape[0])
     gen = torch.Generator(device=dev).manual_seed(7)
     seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+    n_items = int(att.k10_items.shape[0])
+    n_empty = int(att.empty_rows.shape[0])
     shape = {"rows": N, "edges": lay.num_edges, "cells": n,
              "pieces": n_pieces, "split_rows": int(att.split_rows.shape[0]),
+             "items": n_items, "long_items": att.k10_long,
+             "empty_rows": n_empty,
              "node_pieces": n_node_pieces,
              "split_nodes": int(att.node_split_rows.shape[0]),
              "pairs": lay.num_pairs}
@@ -1787,14 +1879,18 @@ def phase_dedup_attention_timing(g, dev, runs, errs):
                     *bwd, lay, 0.2, dvh, rate, seed), 3)
                 split = kernel_split_ms(lambda: da._bwd_cuda(
                     *bwd, att, 0.2, dvh, rate, seed))
+                fwd_split = kernel_split_ms(lambda: da._fwd_cuda(
+                    a_dst, a_src, v, att, 0.2, dvh, rate, seed))
             suffix = f"_drop{rate:g}" if rate else ""
             # bytes: each input read once (the node tables; 3 ints a cell
-            # and 4 a piece in row order; K8 also 3 ints a cell and 4 a
-            # piece in node order), each output written once (out and lse;
-            # d a_dst, d a_src and dv)
+            # in row order, K7's 4 an item and 1 an empty row, K8's row
+            # pass 4 a piece; K8 also 3 ints a cell and 4 a piece in node
+            # order), each output written once (out and lse; d a_dst, d
+            # a_src and dv)
             row_ints = 3 * n + 4 * n_pieces
             node_ints = 3 * n + 4 * n_node_pieces
-            fwd_bytes = 4 * (N * (2 * H + C) + row_ints + N * (C + H))
+            fwd_bytes = 4 * (N * (2 * H + C) + 3 * n + 4 * n_items + n_empty
+                             + N * (C + H))
             bwd_bytes = 4 * (N * (4 * H + 2 * C) + row_ints + node_ints
                              + N * (2 * H + C))
             # operations a cell and head: add, leaky, max, 2 exp, 2 scale,
@@ -1818,6 +1914,17 @@ def phase_dedup_attention_timing(g, dev, runs, errs):
                            launches.get((kernel, H, dvh), 0),
                            errs[kernel, H, dvh], ms, plain_ms, nbytes, ops,
                            None, gathered, H=H, dvh=dvh, rate=rate)
+                by_kernel = fwd_split if kernel == "dedup_fwd" else split
+                rows[-1]["split_ms"] = by_kernel
+                rows[-1]["device_ms"] = sum(by_kernel.values())
+            merge_ms = sum(v for k, v in fwd_split.items()
+                           if k.startswith("gat_fwd_combine"))
+            rows[-2]["merge_ms"] = merge_ms
+            print(f"[timing] dedup_fwd H={H} dvh={dvh} rate={rate} by "
+                  f"kernel: device {rows[-2]['device_ms']:.5f} ms, the "
+                  f"merge of split rows {merge_ms:.5f} of it: {fwd_split}; "
+                  f"work list {n_items} items ({att.k10_long} long), "
+                  f"{n_empty} rows without cells", flush=True)
             passes = {"row pass": rows_gather, "node walk": walk_gather}
             parts = []
             for name, part_ms in sorted(split.items()):
@@ -1830,7 +1937,6 @@ def phase_dedup_attention_timing(g, dev, runs, errs):
                     f", gather bound {bound / HBM_BYTES_PER_S * 1e3:.5f} "
                     f"ms ({bound / HBM_BYTES_PER_S * 1e3 / part_ms:.3f} of "
                     "it)"))
-            rows[-1]["split_ms"] = split
             print(f"[timing] dedup_bwd H={H} dvh={dvh} rate={rate} by "
                   "kernel: " + "; ".join(parts), flush=True)
     reset_all_launches()
@@ -1895,17 +2001,20 @@ def phase_dedup_gat(dev, edge_route_ms):
         lambda g: gat_trainer(g, defaults=True, mode="cell"))
     prof = phase_gat_profile(g, "GAT dedup")
     rows = phase_dedup_attention_timing(g, dev, {0.0: by0, 0.6: by6}, errs)
-    # K7 and K8 once a step at each shape
-    attn = {rate: sum(r["ms"] for r in rows
-                      if r["shape"].get("rate") == rate)
-            for rate in (0.0, 0.6)}
+    # K7 and K8 once a step at each shape: the device's time
+    # (torch.profiler), as the per-edge route's, and CUDA events
+    attn, events = ({rate: sum(r[key] for r in rows
+                               if r["shape"].get("rate") == rate)
+                     for rate in (0.0, 0.6)} for key in ("device_ms", "ms"))
     lower = "dedup" if attn[0.0] < edge_route_ms else "per-edge"
     print(f"[default] attention device ms per bench GAT step: dedup route "
           f"(K7, K8) {attn[0.0]:.5f}, per-edge route (K9, K10) "
           f"{edge_route_ms:.5f}; lower: {lower}; dedup route at rate 0.6 "
-          f"(cell mode) {attn[0.6]:.5f}", flush=True)
+          f"(cell mode) {attn[0.6]:.5f}; by CUDA events around each call "
+          f"{events[0.0]:.5f} (no dropout)", flush=True)
     return rows, {
         "GAT_dedup": dict(train, attention_ms_per_step=attn[0.0],
+                          attention_event_ms_per_step=events[0.0],
                           tensor_s=t_tensor, work_lists_s=t_att,
                           profile=prof),
         "GAT_dedup_uncached": train_bare,

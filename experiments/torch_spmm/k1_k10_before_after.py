@@ -44,8 +44,16 @@ on this tree's K9's lse and delta) at the GAT's (8, 8) and (1, 16) on the
 bench GAT graph at rates 0 and 0.6, both builds against float64, with
 each build's K10 a GAT step at rate 0 (both kernels at both shapes);
 against a4b9325, the last revision with the one-warp-a-piece K10
-(``--extract --rev a4b9325``, then ``--rev a4b9325 --only k10add``).
-``--only`` picks among k1, k1w, k10, k9, k10dq, k7, k8, k8add, k10add.
+(``--extract --rev a4b9325``, then ``--rev a4b9325 --only k10add``); the
+additive K9 (``k9add``, over CSC) and K7 (``k7add``, over the bench GAT
+graph's count matrix) at the GAT's (8, 8) and (1, 16), rates 0 and 0.6,
+both builds against float64 and each other, split by kernel (the forward
+and its merge of split rows apart, device ms by torch.profiler), with
+each build's K9 and K7 a GAT step at rate 0; against e1f22d9, the last
+revision with the one-warp-a-piece forward (``--extract --rev e1f22d9``,
+then ``--rev e1f22d9 --only k9add k7add``).
+``--only`` picks among k1, k1w, k10, k9, k10dq, k7, k8, k8add, k10add,
+k9add, k7add.
 New results
 are held against the float64
 plain version (``chip_smoke.check_spmm``) and old against new (the dot
@@ -145,7 +153,7 @@ def main():
     ap.add_argument("--rev", default="38de6bd")
     ap.add_argument("--extract", action="store_true")
     kinds = ("k1", "k1w", "k10", "k9", "k10dq", "k7", "k8", "k8add",
-             "k10add")
+             "k10add", "k9add", "k7add")
     ap.add_argument("--only", choices=kinds, nargs="+", default=kinds,
                     help="the kernels to time (default: all)")
     a = ap.parse_args()
@@ -182,7 +190,7 @@ def main():
     new_logs = {n: p.with_suffix(".log").read_text() for n, p in new.items()}
     lib_of = {"K1": "segment_kernels", "K1w": "segment_kernels",
               "K7-dot": "dedup_attention", "K8-dot": "dedup_attention",
-              "K8": "dedup_attention"}
+              "K8": "dedup_attention", "K7": "dedup_attention"}
     for tag, logs, pat in (
             ("old K1", old_logs, r"spmm_(rows|packs)ILi\d+ELi\d+ELi\d+EE"),
             ("new K1", new_logs,
@@ -203,7 +211,13 @@ def main():
             ("old K8-dot", old_logs, r"dedup_dot_bwd_(rows|slots)"),
             ("new K8-dot", new_logs, r"dot_(dq|dkv)_staged"),
             ("old K10 additive", old_logs, r"gat_(dq|dkv)_pieces"),
-            ("new K10 additive", new_logs, r"gat_(dq|dkv)_groups")):
+            ("new K10 additive", new_logs, r"gat_(dq|dkv)_groups"),
+            ("old K9 additive", old_logs, r"gat_fwd_(pieces|combine)"),
+            ("new K9 additive", new_logs,
+             r"gat_fwd_(groups\w*ELb0E|combine)"),
+            ("old K7 additive", old_logs, r"(dedup_attn_fwd|gat_fwd_combine)"),
+            ("new K7 additive", new_logs,
+             r"gat_fwd_(groups\w*ELb1E|combine)")):
         for args, regs, spill in registers(
                 logs[lib_of.get(tag.split()[1], "attention_kernels")], pat):
             print(f"[ptxas] {tag} {args}: {regs} registers, {spill} B "
@@ -232,15 +246,18 @@ def main():
     ded.pgl_dedup_dot_fwd_f32.argtypes = [i] + [p] * 3 + cells + dot + [p] * 4
     ded.pgl_dedup_dot_bwd_f32.argtypes = ([i] + [p] * 6 + cells + slots + dot
                                           + [p] * 5)
-    # the revision's additive K7 (this tree's ABI) and K8 (its row pass
-    # and slot pass)
-    ded.pgl_dedup_attn_fwd_f32.argtypes = da._lib(
-        ).pgl_dedup_attn_fwd_f32.argtypes
+    # the revision's additive K7 (one warp a piece of the cells in row
+    # order, as every revision before the lane-group forward) and K8 (its
+    # row pass and slot pass)
+    ded.pgl_dedup_attn_fwd_f32.argtypes = ([i] + [p] * 6 + [p, i, p, p, i]
+                                           + dot[1:] + [p] * 4)
     ded.pgl_dedup_attn_bwd_f32.argtypes = ([i] + [p] * 9 + [p, i, p, p, i]
                                            + slots + dot[1:] + [p] * 5)
 
-    # the revision's additive K10: one warp a piece of cut_rows
+    # the revision's additive K9 and K10: one warp a piece of cut_rows
+    # (K10 before a4b9325's child, K9 to e1f22d9)
     work = [p, i, p, p, i, i, i, f, p, i, f]
+    att.pgl_gat_fwd_f32.argtypes = [i] + [p] * 4 + work + [p] * 4
     att.pgl_gat_dq_f32.argtypes = [i] + [p] * 7 + work + [p] * 3
     att.pgl_gat_dkv_f32.argtypes = [i] + [p] * 8 + work + [p] * 4
 
@@ -773,6 +790,94 @@ def main():
               f"{step['new']:.5f} ms (new/old "
               f"{step['new'] / step['old']:.3f})", flush=True)
 
+    def fwd_add_rows(kernel, tag, lay, rates, new_fwd, old_fwd, plain):
+        """The additive forward (K9 over ``lay``'s CSC edges, or K7 over its
+        cells) of both builds at the GAT's shapes, timed in turns and split
+        by kernel; both held against float64 (``plain``) and each other."""
+        N = lay.num_rows
+        seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+        for H, dvh in GAT_SHAPES:
+            a_dst, a_src, v, _ = attention_inputs(N, H, dvh, dev, gen)
+            ins = (a_dst, a_src, v)
+            for rate in rates:
+                res = {}
+
+                def fo():
+                    res["old"] = old_fwd(ins, lay, H, dvh, rate, seed)
+
+                def fn():
+                    res["new"] = new_fwd(*ins, lay, 0.2, dvh, rate, seed)
+
+                fo()
+                fn()
+                torch.cuda.synchronize()
+                label = (f"{kernel} additive {tag} H={H} dvh={dvh} "
+                         f"rate={rate}")
+                with torch.no_grad():
+                    want = plain(*(t.double() for t in ins), lay, 0.2, dvh,
+                                 rate, seed)
+                    errs = {b: max(check(f"{b} {label}", t, w)
+                                   for t, w in zip(res[b], want))
+                            for b in ("old", "new")}
+                    diff = max(float((o - n_).abs().max())
+                               for o, n_ in zip(res["old"], res["new"]))
+                    same = all(map(torch.equal, res["old"], res["new"]))
+                turns(label, fo, fn, 50, max_abs_err=errs["new"],
+                      old_max_abs_err=errs["old"], old_new_max_diff=diff,
+                      same_bits_as_old=same, H=H, dvh=dvh, rate=rate,
+                      kernel=kernel, old_split_ms=kernel_split_ms(fo),
+                      new_split_ms=kernel_split_ms(fn))
+                res.clear()
+        step = {b: sum(r[f"{b}_ms"] for r in rows
+                       if r.get("kernel") == kernel
+                       and r.get("rate") == 0.0) for b in ("old", "new")}
+        dev_ms = {b: sum(sum(r[f"{b}_split_ms"].values()) for r in rows
+                         if r.get("kernel") == kernel
+                         and r.get("rate") == 0.0) for b in ("old", "new")}
+        rows.append(dict(name=f"{kernel} additive a GAT step, rate 0",
+                         device_old=dev_ms["old"], device_new=dev_ms["new"],
+                         **step))
+        print(f"[before/after] {kernel} additive a GAT step (both shapes, "
+              f"rate 0): old {step['old']:.5f} ms, new {step['new']:.5f} "
+              f"ms (new/old {step['new'] / step['old']:.3f}); device old "
+              f"{dev_ms['old']:.5f} ms, new {dev_ms['new']:.5f} ms "
+              f"(new/old {dev_ms['new'] / dev_ms['old']:.3f})", flush=True)
+
+    def old_fwd_out(H, dvh, n_part, N):
+        return (torch.empty(N, H * dvh, device=dev),
+                torch.empty(N, H, device=dev),
+                torch.empty(n_part, H * dvh + 2 * H, device=dev))
+
+    def old_k9add(ins, lay, H, dvh, rate, seed):
+        """The revision's K9: one warp a piece of ``cut_rows``."""
+        thresh, inv_keep = ak._drop_args(rate)
+        out, lse, part = old_fwd_out(H, dvh, lay.num_partials, lay.num_rows)
+        rc = att.pgl_gat_fwd_f32(
+            0, *(t.data_ptr() for t in ins), lay.indices.data_ptr(),
+            lay.pieces.data_ptr(), lay.pieces.shape[0],
+            lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
+            lay.split_rows.shape[0], H, dvh, 0.2, seed.data_ptr(), thresh,
+            inv_keep, out.data_ptr(), lse.data_ptr(), part.data_ptr(),
+            stream())
+        assert rc == 0, rc
+        return out, lse
+
+    def old_k7add(ins, cells, H, dvh, rate, seed):
+        """The revision's K7: one warp a piece of the row-ordered cells."""
+        thresh, inv_keep = ak._drop_args(rate)
+        out, lse, part = old_fwd_out(H, dvh, cells.num_partials,
+                                     cells.num_rows)
+        rc = ded.pgl_dedup_attn_fwd_f32(
+            0, *(t.data_ptr() for t in ins), *old_cells(cells), H, dvh,
+            0.2, seed.data_ptr(), thresh, inv_keep, out.data_ptr(),
+            lse.data_ptr(), part.data_ptr(), stream())
+        assert rc == 0, rc
+        return out, lse
+
+    def k7_plain(a_dst, a_src, v, cells, *args):
+        return da.dedup_attention_reference(a_dst, a_src, v, cells.layout,
+                                            *args)
+
     def parent_digests():
         """Both builds' digests of out | lse | dq on the pinned cases."""
         att = parent_bits_graph(dev)
@@ -841,6 +946,14 @@ def main():
                    (0.0, 0.6))
     if "k10add" in only:
         k10add_rows("bench GAT graph", g, (0.0, 0.6))
+    if "k9add" in only:
+        fwd_add_rows("K9", "bench GAT graph", g._attention_layouts()[0],
+                     (0.0, 0.6), ak._fwd_cuda, old_k9add,
+                     ak.gat_attention_reference)
+    if "k7add" in only:
+        fwd_add_rows("K7", "bench GAT graph",
+                     dedup_attention_of(g, dev, False), (0.0, 0.6),
+                     da._fwd_cuda, old_k7add, k7_plain)
     del g, csc, csr
     torch.cuda.empty_cache()
 

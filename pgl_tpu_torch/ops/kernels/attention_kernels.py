@@ -13,14 +13,15 @@ K10) in both of its score modes onto hand-written CUDA kernels for Hopper,
   reference's CSC order, so an edge's position is the dropout hash's
   counter) and CSR (rows are sources), which carries for every edge its CSC
   position, the reference's ``perm`` (``pgl_tpu/graph.py:569-574``). Each
-  side has two work lists: K9's and the dot kernels', every row cut into
-  pieces of at most ``ET`` edges by ``segment_kernels.cut_rows``; and the
-  additive K10's (:func:`k10_work_list`): the pieces of the rows longer
+  side has two work lists: the dot kernels', every row cut into pieces of
+  at most ``ET`` edges by ``segment_kernels.cut_rows``; and the additive
+  K9's and K10's (:func:`k10_work_list`): the pieces of the rows longer
   than ``PACK_ROW`` edges, then the other nonempty rows by length, and the
-  empty rows apart, which the kernel only zeroes.
-* :func:`k10_lanes` chooses how the additive K10 lays a row's columns over
-  a lane group (16-byte vectors of one head), and so how many edges a warp
-  takes at once.
+  empty rows apart, which the kernels only zero. The count-matrix K7
+  (``dedup_attention.py``) walks the same kind of list over its cells.
+* :func:`k10_lanes` chooses how the additive K9 and K10 lay a row's
+  columns over a lane group (16-byte vectors of one head), and so how many
+  edges a warp takes at once.
 * :func:`fused_gat_attention` and :func:`fused_graph_attention` are
   autograd ``Function``s with the reference's contracts (``:855-938`` and
   ``:756-777``): the forward (K9) saves ``lse``; the backward computes
@@ -106,12 +107,12 @@ class AttentionLayout:
     seg_ids:     [E] row of each edge (the plain versions' scatter ids)
     eidx:        [E] CSR only: each edge's CSC position (the dropout
                  hash's counter); None for CSC, where it is the position
-    pieces, split_rows, split_ptr: the work list of ``cut_rows`` (K9, the
-                 dot kernels), whose split rows the additive K10 shares
-    k10_items:   [P, 4] the additive K10's work list
+    pieces, split_rows, split_ptr: the work list of ``cut_rows`` (the dot
+                 kernels), whose split rows the additive K9 and K10 share
+    k10_items:   [P, 4] the additive K9's and K10's work list
                  (:func:`k10_work_list`): ``k10_long`` pieces (row, begin,
                  end, slot), then whole rows (row, begin, end, -1)
-    empty_rows:  [Z] the rows without edges, which K10 zeroes
+    empty_rows:  [Z] the rows without edges, which K9 and K10 zero
     """
     kind: str
     num_rows: int
@@ -176,7 +177,8 @@ def build_attention_layouts(dst_index, src_index, num_nodes: int,
 
 
 def k10_work_list(indptr, pieces):
-    """The additive K10's work list over the rows of ``indptr``, from
+    """The additive K9's and K10's work list (and K7's, over the rows'
+    cells) over the rows of ``indptr``, from
     ``pieces`` (``cut_rows(indptr, ET)``): ``(items [P, 4], n_long,
     empty_rows)``.
 
@@ -204,7 +206,7 @@ def k10_work_list(indptr, pieces):
 
 
 def k10_lanes(H: int, dvh: int):
-    """How the additive K10 holds H heads of ``dvh`` columns: ``(vec, lh,
+    """How the additive K9 and K10 (and K7) hold H heads of ``dvh`` columns: ``(vec, lh,
     group, nv)``. A lane holds vectors of ``vec`` consecutive columns of
     one head (4 where ``dvh`` rounds up to 4 or more, else 1; columns past
     ``dvh`` are masked); head h owns the ``lh = dvh_p / vec`` vector slots
@@ -419,17 +421,16 @@ def dot_dkv_reference(q, k, v, g, lse, delta, layout: AttentionLayout,
 def _lib():
     lib = _build.load("attention_kernels")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # (device, tables..., indices[, eidx], pieces, n_pieces, split_rows,
-    #  split_ptr, n_split, H, dvh, slope, seed, thresh, inv_keep,
-    #  outputs..., partials, stream)
-    # (dot mode: H, dsh, dvh)
-    work = [p, i, p, p, i, i, i, f, p, i, f]
+    # the dot mode: (device, tables..., indices[, eidx], pieces, n_pieces,
+    #  split_rows, split_ptr, n_split, H, dsh, dvh, slope, seed, thresh,
+    #  inv_keep, outputs..., partials, stream)
     dot = [p, i, p, p, i, i, i, i, f, p, i, f]
-    # the additive K10: (items, n_long, n_short, empty_rows, n_empty,
-    # split_rows, split_ptr, n_split, H, dvh, vec, lh, group, nv, slope,
-    # seed, thresh, inv_keep)
+    # the additive K9 and K10: (device, tables..., indices[, eidx], items,
+    # n_long, n_short, empty_rows, n_empty, split_rows, split_ptr, n_split,
+    # H, dvh, vec, lh, group, nv, slope, seed, thresh, inv_keep,
+    # outputs..., partials, stream)
     k10 = [p, i, i, p, i, p, p, i] + [i] * 6 + [f, p, i, f]
-    sigs = {"pgl_gat_fwd_f32": [i] + [p] * 4 + work + [p] * 4,
+    sigs = {"pgl_gat_fwd_f32": [i] + [p] * 4 + k10 + [p] * 4,
             "pgl_gat_dq_f32": [i] + [p] * 7 + k10 + [p] * 3,
             "pgl_gat_dkv_f32": [i] + [p] * 8 + k10 + [p] * 4,
             "pgl_dot_fwd_f32": [i] + [p] * 4 + dot + [p] * 4,
@@ -505,20 +506,19 @@ def _fwd_cuda(a_dst, a_src, v, lay, slope, dvh, rate, seed):
     lse = torch.empty(N, H, dtype=v.dtype, device=v.device)
     part = torch.empty(lay.num_partials, H * dvh + 2 * H, dtype=v.dtype,
                        device=v.device)
-    thresh, inv_keep = _drop_args(rate)
     _raise_on(_lib().pgl_gat_fwd_f32(
         v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
-        lay.indices.data_ptr(), lay.pieces.data_ptr(), lay.pieces.shape[0],
-        lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
-        lay.split_rows.shape[0], H, dvh, slope, seed.data_ptr(), thresh,
-        inv_keep, out.data_ptr(), lse.data_ptr(), part.data_ptr(),
-        _stream(v)), "forward")
+        lay.indices.data_ptr(), *_k10_args(lay, H, dvh, slope, rate, seed),
+        out.data_ptr(), lse.data_ptr(), part.data_ptr(), _stream(v)),
+        "forward")
     _count("gat_fwd", lay, H, dvh)
     return out, lse
 
 
 def _k10_args(lay, H, dvh, slope, rate, seed):
-    """The additive K10's arguments from its work list to ``inv_keep``."""
+    """The additive K9's, K10's and K7's arguments from their work list to
+    ``inv_keep``: ``lay`` is an :class:`AttentionLayout` or a
+    ``dedup_attention.DedupAttention``."""
     thresh, inv_keep = _drop_args(rate)
     n = lay.k10_items.shape[0]
     return (lay.k10_items.data_ptr(), lay.k10_long, n - lay.k10_long,

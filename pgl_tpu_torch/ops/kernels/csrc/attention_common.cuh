@@ -1,7 +1,8 @@
 // Device code shared by the attention sources: attention_kernels.cu (the
 // per-edge kernels K9/K10) and dedup_attention.cu (the count-matrix kernels
-// K7/K8). `_build.py` hashes every header of this directory into each
-// library's name, so an edit here rebuilds both.
+// K7/K8), through dot_staged.cuh and additive_groups.cuh too. `_build.py`
+// hashes every header of this directory into each library's name, so an
+// edit here rebuilds both.
 //
 // * `drop_keep`: the reference's counter hash `_drop_keep`
 //   (pgl_tpu/ops/pallas/attention_kernels.py) in uint32 arithmetic, which is
@@ -14,9 +15,9 @@
 //   (`dot_slots` sizes it), and `head_dot`, the one per-head score q . k
 //   of every dot pass, per-edge (K9/K10) and count-matrix (K7/K8) alike;
 // * the second launches that finish rows split over several warps:
-//   `gat_fwd_combine` merges online-softmax partials (m, l, acc),
-//   `sum_combine` adds plain partials, both in a fixed order (no float
-//   atomics, so every run gives the same bits);
+//   `gat_fwd_combine` merges online-softmax partials (m, l, acc), a few
+//   pieces' loads in flight, `sum_combine` adds plain partials, both in a
+//   fixed order (no float atomics, so every run gives the same bits);
 // * the staging of gathered rows that the dot-mode per-edge kernels (K9,
 //   K10-dq, K10-dkv) share: a per-warp shared-memory ring filled by
 //   cp.async (`kStageSteps`, `StageEdges`, `StageBlocks`, `stage_row`),
@@ -190,19 +191,35 @@ struct CombineWarps {
   static constexpr int value = NC >= 4 ? 64 / NC : 16;
 };
 
+// Pieces whose partials a combine warp loads before it merges them: 4 up
+// to four slots a lane, then 16 / NC (at most 48 registers of loads in
+// flight). Measured with the additive forward's 32 warps a row on the
+// bench GAT graph's split rows (experiments/torch_spmm/fwd_variants.py,
+// H100): K9 with its combine 0.098 device ms at (8, 8) against 0.121 at 8
+// ahead (140 B spilled at 32 warps' 64 registers), 0.119 at 16 and 0.138
+// at 1.
+template <int NC>
+struct CombineAhead {
+  static constexpr int value = NC >= 8 ? 16 / NC : 4;
+};
+
 // Merge of the softmax partials of split rows (flash decoding), one block
 // per row. A partial row is acc [C] | m [H] | l [H]. Warp w merges pieces
 // p0 + w, p0 + w + W, ... in order, then warp 0 merges the W warp states in
 // order, and writes out [R, C] (scaled by inv_keep / l) and lse [R, H]; a
-// row with l = 0 writes zeros to both.
-template <int NC>
-__global__ void __launch_bounds__(CombineWarps<NC>::value * 32)
+// row with l = 0 writes zeros to both. A warp loads the partials of B =
+// CombineAhead pieces at once and then merges them one by one, so their
+// loads are in flight together; the merges and their order are those of a
+// walk of one piece at a time (the same bits). The dot mode takes W =
+// CombineWarps (its pinned bits are of that order), the additive forward
+// more (additive_groups.cuh).
+template <int NC, int W = CombineWarps<NC>::value>
+__global__ void __launch_bounds__(W * 32)
 gat_fwd_combine(const float* __restrict__ partials,
                 const int* __restrict__ split_rows,
                 const int* __restrict__ split_ptr, int H, int dvh, int dvh_p,
                 float inv_keep, float* __restrict__ out,
                 float* __restrict__ lse) {
-  constexpr int W = CombineWarps<NC>::value;
   __shared__ float state[W][3][NC * 32];
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -219,13 +236,27 @@ gat_fwd_combine(const float* __restrict__ partials,
     L[k] = 0.f;
     A[k] = 0.f;
   }
-  for (int p = p0 + w; p < p1; p += W) {
-    const float* part = partials + p * P;
+  constexpr int B = CombineAhead<NC>::value;
+  for (int p = p0 + w; p < p1; p += B * W) {
+    float pm[B][NC], pl[B][NC], pa[B][NC];
 #pragma unroll
-    for (int k = 0; k < NC; ++k)
-      merge(M[k], L[k], A[k], part[C + sl.head[k]],
-            part[C + H + sl.head[k]],
-            sl.col[k] >= 0 ? part[sl.col[k]] : 0.f);
+    for (int b = 0; b < B; ++b) {
+      const bool on = p + b * W < p1;
+      const float* part = partials + (p + b * W) * P;
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        pm[b][k] = on ? part[C + sl.head[k]] : 0.f;
+        pl[b][k] = on ? part[C + H + sl.head[k]] : 0.f;
+        pa[b][k] = on && sl.col[k] >= 0 ? part[sl.col[k]] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      if (p + b * W >= p1) break;  // uniform across the warp
+#pragma unroll
+      for (int k = 0; k < NC; ++k)
+        merge(M[k], L[k], A[k], pm[b][k], pl[b][k], pa[b][k]);
+    }
   }
 #pragma unroll
   for (int k = 0; k < NC; ++k) {

@@ -54,11 +54,17 @@
 //     once with its multiplicity, so a multigraph costs per distinct
 //     (dst, src) pair (552,791 cells for 1,048,576 edges on the bench GAT
 //     graph), and the gather of a cell is of its unique row's node;
-//   * K7 and K8's row pass walk the cells in row order, one warp per piece
-//     of at most ET cells of one row (`segment_kernels.cut_rows`), lanes
-//     over per-head "slots" as in K9/K10 (attention_common.cuh); a row of
-//     several pieces (the bench graph's hub has 65k cells) writes partials
-//     that a second launch merges (K7) or sums (K8) in piece order;
+//   * K7 is the per-edge K9 in its cell form (`gat_fwd_groups<..., CELLS>`,
+//     additive_groups.cuh): lane groups of 16-byte columns over the cells
+//     in row order, a warp a piece of ET cells of a row past PACK_ROW
+//     cells, a group each other nonempty row, no warp for a row without
+//     cells; a cell's count multiplies p, its key `cell_key` keys the
+//     dropout. K8's row pass walks the same cells, one warp per piece of
+//     at most ET cells of one row (`segment_kernels.cut_rows`), lanes over
+//     per-head "slots" as in the dot kernels (attention_common.cuh); a row
+//     of several pieces (the bench graph's hub has 65k cells) writes
+//     partials that a second launch merges (K7) or sums (K8) in piece
+//     order;
 //   * K8's d a_src and dv come from a walk of each node's cells (node
 //     order: by node, then pair slot, then row, so a node's terms come in
 //     the order the reference's slot rows and their fold sum them), one
@@ -78,128 +84,21 @@
 // Dropout is the reference's cell key `_cell_idx` = dst * 0x9E3779B1 +
 // unique row (uint32 wrap-around, the reference's int32), hashed by
 // `drop_keep` with the seed and the head: a cell's duplicate edges drop
-// together. The additive kernels form it from the row and the unique row;
-// the dot mode reads it from the work lists' per-cell key arrays. The
-// softmax sum stays undropped.
+// together. K8's additive row pass forms it from the row and the unique
+// row; K7 and the dot mode read it from the work lists' per-cell key
+// arrays. The softmax sum stays undropped.
 //
 // Calling convention: launches on the given stream, does not synchronise,
 // allocates nothing (the caller passes outputs and partials), and returns
 // cudaGetLastError(). `thresh` < 0 turns dropout off.
 
+#include "additive_groups.cuh"
 #include "attention_common.cuh"
 #include "dot_staged.cuh"
 
 namespace {
 
 constexpr uint32_t kCellMul = 0x9E3779B1u;  // `_cell_idx`'s row multiplier
-
-// K7, one warp per piece (row, begin, end, slot) of the row-ordered cells.
-template <int NC, int U>
-__global__ void __launch_bounds__(kWarps * 32)
-dedup_attn_fwd(const float* __restrict__ a_dst,
-               const float* __restrict__ a_src, const float* __restrict__ v,
-               const int* __restrict__ cell_src,
-               const int* __restrict__ cell_urow,
-               const int* __restrict__ cell_cnt,
-               const int4* __restrict__ pieces, int n_pieces, int H, int dvh,
-               int dvh_p, float slope, const int* __restrict__ seed_p,
-               int thresh, float inv_keep, float* __restrict__ out,
-               float* __restrict__ lse, float* __restrict__ partials) {
-  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (warp >= n_pieces) return;  // uniform across the warp
-  const int lane = threadIdx.x & 31;
-  const int C = H * dvh;
-  const int4 pc = pieces[warp];
-  const Slots<NC> sl(lane, H, dvh, dvh_p);
-  const bool drop = thresh >= 0;
-  const uint32_t seed = drop ? static_cast<uint32_t>(__ldg(seed_p)) : 0u;
-  const uint32_t row_key = static_cast<uint32_t>(pc.x) * kCellMul;
-
-  float ad[NC], m[NC], l[NC], acc[NC];
-#pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    ad[k] = __ldg(a_dst + static_cast<size_t>(pc.x) * H + sl.head[k]);
-    m[k] = kMaskValue;
-    l[k] = 0.f;
-    acc[k] = 0.f;
-  }
-  // each lane holds one cell (node, unique row, count) of the 32-cell batch
-  const bool has = lane < pc.z - pc.y;
-  int ms = has ? __ldg(cell_src + pc.y + lane) : 0;
-  int mu = has ? __ldg(cell_urow + pc.y + lane) : 0;
-  int mc = has ? __ldg(cell_cnt + pc.y + lane) : 0;
-  for (int base = pc.y; base < pc.z; base += 32) {
-    const int n = min(32, pc.z - base);
-    const int nx = base + 32 + lane;
-    const bool nhas = nx < pc.z;
-    const int ns = nhas ? __ldg(cell_src + nx) : 0;
-    const int nu = nhas ? __ldg(cell_urow + nx) : 0;
-    const int nc = nhas ? __ldg(cell_cnt + nx) : 0;
-    for (int j0 = 0; j0 < n; j0 += U) {
-      float as[U][NC], vv[U][NC], cnt[U];
-      uint32_t key[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        const int s = __shfl_sync(kFull, ms, j & 31);
-        cnt[u] = static_cast<float>(__shfl_sync(kFull, mc, j & 31));
-        key[u] = row_key + static_cast<uint32_t>(__shfl_sync(kFull, mu, j & 31));
-#pragma unroll
-        for (int k = 0; k < NC; ++k) {
-          as[u][k] = j < n ? __ldg(a_src + static_cast<size_t>(s) * H +
-                                   sl.head[k])
-                           : 0.f;
-          vv[u][k] = (j < n && sl.col[k] >= 0)
-                         ? __ldg(v + static_cast<size_t>(s) * C + sl.col[k])
-                         : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        if (j >= n) break;  // uniform
-#pragma unroll
-        for (int k = 0; k < NC; ++k) {
-          const float s = leaky(ad[k] + as[u][k], slope);
-          const float mn = fmaxf(m[k], s);
-          const float sc = expf(m[k] - mn);
-          const float p = cnt[u] * expf(s - mn);
-          l[k] = l[k] * sc + p;
-          const float pk =
-              (!drop || drop_keep(key[u], seed, sl.hc[k], thresh)) ? p : 0.f;
-          acc[k] = acc[k] * sc + pk * vv[u][k];
-          m[k] = mn;
-        }
-      }
-    }
-    ms = ns;
-    mu = nu;
-    mc = nc;
-  }
-  if (pc.w < 0) {
-#pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      const bool row = l[k] > 0.f;  // a row without cells stores zeros
-      if (sl.col[k] >= 0)
-        out[static_cast<size_t>(pc.x) * C + sl.col[k]] =
-            row ? acc[k] * (inv_keep / fmaxf(l[k], 1e-30f)) : 0.f;
-      if (sl.lead[k])
-        lse[static_cast<size_t>(pc.x) * H + sl.head[k]] =
-            row ? m[k] + logf(l[k]) : 0.f;
-    }
-  } else {
-    // partial row: acc [C] | m [H] | l [H] (merged by gat_fwd_combine)
-    float* part = partials + static_cast<size_t>(pc.w) * (C + 2 * H);
-#pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      if (sl.col[k] >= 0) part[sl.col[k]] = acc[k];
-      if (sl.lead[k]) {
-        part[C + sl.head[k]] = m[k];
-        part[C + H + sl.head[k]] = l[k];
-      }
-    }
-  }
-}
 
 // K8's row pass, one warp per piece of the row-ordered cells:
 // d a_dst[r, h] = sum_u ds.
@@ -441,34 +340,25 @@ dedup_attn_bwd_nodes(const float* __restrict__ a_dst,
 
 }  // namespace
 
-// K7: out [N, H * dvh] and lse [N, H]; partials [n_partials, C + 2H].
+// K7: out [N, H * dvh] and lse [N, H] over the cells in row order (node,
+// count, key) and their work list (`dedup_attention.build_dedup_attention`:
+// `attention_kernels.k10_work_list` over the rows' cells); partials
+// [n_partials, C + 2H] of the split rows merged by a second launch.
 extern "C" int pgl_dedup_attn_fwd_f32(
     int device, const float* a_dst, const float* a_src, const float* v,
-    const int* cell_src, const int* cell_urow, const int* cell_cnt,
-    const int* pieces, int n_pieces, const int* split_rows,
-    const int* split_ptr, int n_split, int H, int dvh, float slope,
+    const int* cell_src, const int* cell_cnt, const int* cell_key,
+    const int* items, int n_long, int n_short, const int* empty,
+    int n_empty, const int* split_rows, const int* split_ptr, int n_split,
+    int H, int dvh, int vec, int lh, int group, int nv, float slope,
     const int* seed, int thresh, float inv_keep, float* out, float* lse,
     float* partials, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int dvh_p = pow2_at_least(dvh);
-  const int nc = slots_per_lane(H, dvh_p);
-  if (nc == 0 || H <= 0 || dvh <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* pc = reinterpret_cast<const int4*>(pieces);
-  PGL_NC_SWITCH(nc, {
-    dedup_attn_fwd<NC, unroll_for(NC)><<<blocks_for(n_pieces), kWarps * 32,
-                                         0, s>>>(
-        a_dst, a_src, v, cell_src, cell_urow, cell_cnt, pc, n_pieces, H, dvh,
-        dvh_p, slope, seed, thresh, inv_keep, out, lse, partials);
-    if (n_split > 0)
-      gat_fwd_combine<NC><<<n_split, CombineWarps<NC>::value * 32, 0, s>>>(
-          partials, split_rows, split_ptr, H, dvh, dvh_p, inv_keep, out,
-          lse);
-  })
-  return static_cast<int>(cudaGetLastError());
+  return fwd_groups_run<true>(
+      a_dst, a_src, v, cell_src, cell_cnt, cell_key, items, n_long, n_short,
+      empty, n_empty, split_rows, split_ptr, n_split, H, dvh, vec, lh, group,
+      nv, slope, seed, thresh, inv_keep, out, lse, partials,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K8: d a_dst [N, H] (row pass over the cells in row order; partials

@@ -16,9 +16,10 @@ edges into row r from unique row u (node ``uv[u]``), which share one score.
 * :func:`build_dedup_attention` builds, once on the host (numpy), what the
   kernels walk: the nonzero cells with their multiplicities and dropout
   keys, in row order (cut into pieces of at most ``ET`` cells by
-  ``segment_kernels.cut_rows``) and in node order (by the node of the
-  cell's unique row, then slot, then row; K8's node walk, cut into pieces
-  the same way). :func:`build_uniq_reduce` is the reference's K1 layout
+  ``segment_kernels.cut_rows``; the additive K7 walks them by
+  ``attention_kernels.k10_work_list``, as the per-edge K9 walks its edges)
+  and in node order (by the node of the cell's unique row, then slot, then
+  row; K8's node walk, cut into pieces the same way). :func:`build_uniq_reduce` is the reference's K1 layout
   that folds pair-slot rows onto nodes; the node walk writes node rows, so
   the port's kernels need no fold.
 * :func:`dedup_gat_attention` and :func:`dedup_dot_attention` are autograd
@@ -57,8 +58,10 @@ import torch
 from ..dispatch import use_attention_kernel
 from . import _build
 from . import segment_kernels as sk
-from .attention_kernels import (_check, _drop_args, _seed_tensor, _stream,
-                                edge_grads, head_scatter, plain_attention)
+from .attention_kernels import (_check, _drop_args, _k10_args,
+                                _seed_tensor, _stream, edge_grads,
+                                head_scatter, k10_work_list,
+                                plain_attention)
 from .dedup_kernels import W, DedupLayout
 
 __all__ = ["DedupAttention", "build_dedup_attention", "build_uniq_reduce",
@@ -104,7 +107,12 @@ class DedupAttention:
     row); ``cell_src`` [n] the cell's node ``uv[u]``, ``cell_urow`` [n] its
     unique row u, ``cell_cnt`` [n] its multiplicity, ``cell_key`` [n] its
     dropout key (:func:`cell_idx`); ``pieces``, ``split_rows``,
-    ``split_ptr``: the work list of ``cut_rows``.
+    ``split_ptr``: the work list of ``cut_rows`` (K8's row pass and the
+    dot mode); ``k10_items`` [P, 4], ``k10_long`` and ``empty_rows`` [Z]:
+    the additive K7's (``attention_kernels.k10_work_list`` over the rows'
+    cells: ``k10_long`` pieces of the rows past ``PACK_ROW`` cells, then
+    the other rows with cells whole, and the rows without cells, which K7
+    zeroes).
     Node order (K8's node walk, both modes): the cells sorted by (node
     ``uv[u]``, slot ``p·W + c``, dst), so a node's terms come in the order
     the reference's slot rows and their fold sum them; ``node_dst`` [n],
@@ -116,6 +124,7 @@ class DedupAttention:
     num_cells: int
     num_partials: int
     num_node_partials: int
+    k10_long: int
     cell_src: torch.Tensor
     cell_urow: torch.Tensor
     cell_cnt: torch.Tensor
@@ -123,6 +132,8 @@ class DedupAttention:
     pieces: torch.Tensor
     split_rows: torch.Tensor
     split_ptr: torch.Tensor
+    k10_items: torch.Tensor
+    empty_rows: torch.Tensor
     node_dst: torch.Tensor
     node_cnt: torch.Tensor
     node_key: torch.Tensor
@@ -173,7 +184,9 @@ def build_dedup_attention(layout: DedupLayout,
     c_node = uv[c_urow]
     c_key = cell_idx(*map(torch.from_numpy, (c_dst, c_urow))).numpy()
     by_row = np.lexsort((c_urow, c_dst))
-    pieces, split_rows, split_ptr = sk.cut_rows(_row_ptr(c_dst, N), ET)
+    row_ptr = _row_ptr(c_dst, N)
+    pieces, split_rows, split_ptr = sk.cut_rows(row_ptr, ET)
+    items, n_long, empty = k10_work_list(row_ptr, pieces)
     # the cells are in (slot, dst) order, so a stable sort by node gives
     # (node, slot, dst)
     by_node = np.argsort(c_node, kind="stable")
@@ -188,11 +201,12 @@ def build_dedup_attention(layout: DedupLayout,
     return DedupAttention(
         layout=layout, num_cells=len(starts),
         num_partials=int(split_ptr[-1]),
-        num_node_partials=int(node_split_ptr[-1]),
+        num_node_partials=int(node_split_ptr[-1]), k10_long=n_long,
         cell_src=put(c_node[by_row]), cell_urow=put(c_urow[by_row]),
         cell_cnt=put(cnt[by_row]), cell_key=put(c_key[by_row]),
         pieces=put(pieces), split_rows=put(split_rows),
-        split_ptr=put(split_ptr), node_dst=put(c_dst[by_node]),
+        split_ptr=put(split_ptr), k10_items=put(items),
+        empty_rows=put(empty), node_dst=put(c_dst[by_node]),
         node_cnt=put(cnt[by_node]), node_key=put(c_key[by_node]),
         node_pieces=put(node_pieces),
         node_split_rows=put(node_split_rows),
@@ -290,7 +304,11 @@ def _lib():
     tail = [i, i, f, p, i, f]     # H, dvh, slope, seed, thresh, inv_keep
     dot = [i] + tail              # H, dsh, dvh, ...
     cells = [p] * 3 + rows        # (node or dst, count, key), the work list
-    sigs = {"pgl_dedup_attn_fwd_f32": [i] + [p] * 6 + rows + tail + [p] * 4,
+    # K7: (items, n_long, n_short, empty_rows, n_empty, split_rows,
+    # split_ptr, n_split, H, dvh, vec, lh, group, nv, slope, seed, thresh,
+    # inv_keep)
+    k7 = [p, i, i, p, i, p, p, i] + [i] * 6 + [f, p, i, f]
+    sigs = {"pgl_dedup_attn_fwd_f32": [i] + [p] * 6 + k7 + [p] * 4,
             "pgl_dedup_attn_bwd_f32": [i] + [p] * 6 + cells + cells + tail
             + [p] * 6,
             "pgl_dedup_dot_fwd_f32": [i] + [p] * 3 + cells + dot + [p] * 4,
@@ -353,10 +371,10 @@ def _fwd_cuda(a_dst, a_src, v, att, slope, dvh, rate, seed):
     lse = torch.empty(N, H, dtype=v.dtype, device=v.device)
     part = torch.empty(att.num_partials, H * dvh + 2 * H, dtype=v.dtype,
                        device=v.device)
-    thresh, inv_keep = _drop_args(rate)
     _raise_on(_lib().pgl_dedup_attn_fwd_f32(
         v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
-        *_rows(att), H, dvh, slope, seed.data_ptr(), thresh, inv_keep,
+        att.cell_src.data_ptr(), att.cell_cnt.data_ptr(),
+        att.cell_key.data_ptr(), *_k10_args(att, H, dvh, slope, rate, seed),
         out.data_ptr(), lse.data_ptr(), part.data_ptr(), _stream(v)),
         "forward")
     _count("dedup_fwd", att, H, dvh)

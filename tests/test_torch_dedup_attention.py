@@ -291,6 +291,48 @@ def test_work_lists_compute_the_plain_function(kind, rate):
     torch.testing.assert_close(out, out_p, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(lse, lse_p, rtol=1e-12, atol=1e-12)
 
+    # K7's list (``k10_items``): every cell in one item, the rows without
+    # cells apart; each item's softmax state (m, l, acc) from its cells with
+    # their keys, a split row's partials merged in slot order
+    items = att.k10_items.long()
+    b, e = items[:, 1], items[:, 2]
+    order = torch.argsort(b)
+    assert torch.equal(b[order][1:], e[order][:-1])
+    assert int(e.max()) == att.num_cells and int(b.min()) == 0
+    assert torch.equal(torch.repeat_interleave(items[order, 0],
+                                               (e - b)[order]), dst)
+    assert set(att.empty_rows.tolist()) == set(range(N)) - set(
+        dst.tolist())
+    kkey = keep(att.cell_key)
+    got_out = torch.zeros(N, H, dvh, dtype=torch.float64)
+    got_lse = torch.zeros(N, H, dtype=torch.float64)
+    parts = {}
+    for r, b_, e_, slot in items.tolist():
+        si = s[b_:e_]
+        mi = si.max(0).values
+        pi = cnt[b_:e_] * torch.exp(si - mi)
+        state = (mi, pi.sum(0), ((kkey[b_:e_] * pi)[..., None]
+                                 * v[src[b_:e_]].reshape(-1, H, dvh)).sum(0))
+        if slot < 0:
+            parts[-1 - r] = state
+        else:
+            parts[slot] = state
+    finals = {-1 - k: st for k, st in parts.items() if k < 0}
+    ptr = att.split_ptr.tolist()
+    for j, r in enumerate(att.split_rows.tolist()):
+        ms = torch.stack([parts[p][0] for p in range(ptr[j], ptr[j + 1])])
+        mx = ms.max(0).values
+        finals[r] = (mx, sum(parts[p][1] * torch.exp(parts[p][0] - mx)
+                             for p in range(ptr[j], ptr[j + 1])),
+                     sum(parts[p][2] * torch.exp(parts[p][0] - mx)[:, None]
+                         for p in range(ptr[j], ptr[j + 1])))
+    for r, (mi, li, ai) in finals.items():
+        got_out[r] = ai / li[:, None]
+        got_lse[r] = mi + torch.log(li)
+    torch.testing.assert_close(got_out.reshape(N, H * dvh), out_p,
+                               rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(got_lse, lse_p, rtol=1e-12, atol=1e-12)
+
     def cell_grads(dst, src, key, cnt):
         sr = a_dst[dst] + a_src[src]
         p = cnt * torch.exp(torch.clamp(leaky(sr) - lse_p[dst], max=80.0))

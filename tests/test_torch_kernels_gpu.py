@@ -15,9 +15,11 @@ same bits on two runs, on features whose three bf16 planes are all
 nonzero. The
 attention kernels (K9, K10) go through ``check_attention`` (no terms scale:
 their outputs are convex combinations or sums of bounded terms) and must
-give the same bits on two runs, the additive K10 also at every lane map
-and on graphs with split rows, 16-edge rows and no edges
-(``check_k10_case``, with zeros on the rows without edges); in dot mode through ``check_dot`` (dq, dk
+give the same bits on two runs, the additive K9 and K10 also at every lane
+map and on graphs with split rows, 16-edge rows and no edges
+(``check_k10_case``, with zeros on the rows without edges), and the
+additive K7 at every lane map on a multigraph with split rows and rows
+without cells (``check_k7_case``); in dot mode through ``check_dot`` (dq, dk
 and dv with the terms scale); the count-matrix attention (K7, K8) through
 ``check_dedup_attention`` (d a_src and dv on node rows, with the terms
 scale), and in dot mode through ``check_dedup_dot`` (dq, dk and dv with the
@@ -47,13 +49,15 @@ from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS,
                         check_attention, check_counts, check_dedup,
                         check_dedup_attention, check_dedup_dot,
                         check_dedup_exact, check_dot, check_k10_case,
-                        check_k1w_items, check_parent_bits,
+                        check_k1w_items, check_k7_case, check_parent_bits,
                         check_sddmm, check_sddmm_grad, check_spmm,
                         check_weighted, dedup_attention_of,
                         dedup_case_edges, dedup_case_facts, dedup_layouts,
                         dispatch_settings, dot_inputs, hard_features,
                         k10_case_graphs, k1_case_edges, k1_features,
-                        no_dropout, run_dedup_attention, run_dedup_dot,
+                        k7_case_atts, no_dropout, phase_attention_mask,
+                        phase_dedup_attention_mask, run_dedup_attention,
+                        run_dedup_dot,
                         run_dedup_twice, run_dot, run_weighted, sddmm_inputs,
                         skewed_graph, spread_weights, weighted_terms,
                         without_counts)
@@ -348,11 +352,11 @@ _K10_GRAPHS = {}
 @pytest.mark.parametrize("graph", ["hub", "sixteen", "no_edges"])
 def test_k10_additive_matches_plain_version(cuda, graph, H, dvh, rate,
                                             slope):
-    """The additive K10 (with K9 before it) at every lane map: GAT's
-    shapes, ragged and one-column heads, four vectors a lane and a head
-    across the warp; on a graph with split hub rows on both sides and
-    empty rows, one of 16-edge source rows, and one without edges: within
-    tolerance of float64, the same bits twice, empty rows zero."""
+    """The additive K9 and K10 at every lane map: GAT's shapes, ragged and
+    one-column heads, four vectors a lane and a head across the warp; on a
+    graph with split hub rows on both sides and empty rows, one of 16-edge
+    source rows, and one without edges: within tolerance of float64, the
+    same bits twice, empty rows zero (out and lse too)."""
     if not _K10_GRAPHS:
         _K10_GRAPHS.update(k10_case_graphs(cuda))
     g = _K10_GRAPHS[graph]
@@ -360,8 +364,41 @@ def test_k10_additive_matches_plain_version(cuda, graph, H, dvh, rate,
     ak.reset_launches()
     check_k10_case(graph, g, H, dvh, rate, slope, cuda, gen)
     torch.cuda.synchronize()
-    for k in ("gat_dq", "gat_dkv"):
+    for k in ("gat_fwd", "gat_dq", "gat_dkv"):
         assert ak.LAUNCHES_BY_SHAPE[(k, H, dvh)] == 2
+
+
+_K7_ATTS = {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slope", [0.0, 0.2])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+@pytest.mark.parametrize("H,dvh", K10_SHAPES)
+@pytest.mark.parametrize("graph", ["multi", "no_edges"])
+def test_k7_additive_matches_plain_version(cuda, graph, H, dvh, rate,
+                                           slope):
+    """The additive K7 (with K8 after it) at every lane map of K9's, on a
+    multigraph whose cells count 2 to 4 edges, with a hub row split over
+    pieces and rows without cells, and on a graph without edges: within
+    tolerance of float64, the same bits twice, rows without cells zero."""
+    if not _K7_ATTS:
+        _K7_ATTS.update(k7_case_atts(cuda))
+    gen = torch.Generator(device=cuda).manual_seed(H * dvh)
+    da.reset_launches()
+    check_k7_case(graph, _K7_ATTS[graph], H, dvh, rate, slope, cuda, gen)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES_BY_SHAPE[("dedup_fwd", H, dvh)] == 2
+    if graph == "multi":
+        assert da.LAUNCHES_BY_SHAPE[("dedup_fwd_combine", H, dvh)] == 2
+
+
+@pytest.mark.gpu
+def test_additive_keep_bits_are_the_plain_masks(cuda):
+    """K9's keep bits (and K10-dkv's) equal the plain edge mask, K7's (and
+    K8's) the plain cell mask, on permutation graphs."""
+    phase_attention_mask(cuda)
+    phase_dedup_attention_mask(cuda, n=1 << 16)
 
 
 @pytest.mark.gpu
@@ -868,20 +905,31 @@ def _cells_as_edge_layouts(att):
     """Per-edge work lists (``ak.AttentionLayout``) over K7/K8's cell lists:
     the row-ordered cells as CSC edges, the node-ordered cells as CSR edges
     whose ``eidx`` is the cells' keys."""
-    def rows_of(pieces):
-        row, begin, end, _ = pieces.long().T
-        return torch.repeat_interleave(row, end - begin).int()
-
     n, N = att.num_cells, att.num_rows
-    csc = ak.AttentionLayout(
-        "csc", N, n, int(att.cell_src.max()), att.num_partials,
-        att.cell_src, rows_of(att.pieces), None, att.pieces, att.split_rows,
-        att.split_ptr)
-    csr = ak.AttentionLayout(
-        "csr", N, n, int(att.node_dst.max()), att.num_node_partials,
-        att.node_dst, rows_of(att.node_pieces), att.node_key,
-        att.node_pieces, att.node_split_rows, att.node_split_ptr)
-    return csc, csr
+
+    def layout(kind, indices, eidx, pieces, split_rows, split_ptr,
+               num_partials):
+        row, begin, end, _ = pieces.long().T
+        rows = torch.repeat_interleave(row, end - begin)
+        indptr = torch.cat([rows.new_zeros(1), torch.cumsum(torch.bincount(
+            rows, minlength=N), 0)])
+        items, n_long, empty = ak.k10_work_list(indptr.cpu().numpy(),
+                                                pieces.cpu().numpy())
+        return ak.AttentionLayout(
+            kind=kind, num_rows=N, num_edges=n,
+            max_index=int(indices.max()), num_partials=num_partials,
+            k10_long=n_long, indices=indices, seg_ids=rows.int(), eidx=eidx,
+            pieces=pieces, split_rows=split_rows, split_ptr=split_ptr,
+            k10_items=torch.as_tensor(items.astype(np.int32),
+                                      device=pieces.device),
+            empty_rows=torch.as_tensor(empty.astype(np.int32),
+                                       device=pieces.device))
+
+    return (layout("csc", att.cell_src, None, att.pieces, att.split_rows,
+                   att.split_ptr, att.num_partials),
+            layout("csr", att.node_dst, att.node_key, att.node_pieces,
+                   att.node_split_rows, att.node_split_ptr,
+                   att.num_node_partials))
 
 
 @pytest.mark.gpu
