@@ -183,7 +183,30 @@ there is no card or any phase fails. Phases:
    and K11 timed for each op beside its plain version, a byte bound, a
    gather bound and ``send_uv`` (no single library call computes it:
    ``torch.sparse.sampled_addmm`` sums over D), K1 over ``by_src`` and
-   ``by_dst`` beside its plain version and ``torch.sparse.mm``.
+   ``by_dst`` beside its plain version and ``torch.sparse.mm``;
+11. the layer zoo (``nn``'s conv layers and the models on them, whose
+   sums and means are K1): every layer (``GraphSageConv`` with each
+   ``aggr_func``, ``APPNP``, ``LightGCNConv``, ``SGCConv``, ``SSGCConv``,
+   ``GPRConv``, ``GCNII``, ``GINConv``, ``NGCFConv``, ``BernProp``,
+   ``ChebProp``, ``GraphPool`` with each pool, ``GraphNorm``) and model
+   (``GraphSage`` with each ``aggr_func``, ``GIN``, ``DeepGCNII``,
+   ``APPNPModel``, ``SGC``, ``SSGC``, ``GPRGNN``, ``BernNet``,
+   ``ChebNetII``) on a small graph, CUDA against CPU with the same weights,
+   output and every gradient at ``1e-4 * max(1, |cpu|)``, K1 launched where
+   a sum or mean runs and nowhere else; ``remat=True`` against
+   ``remat=False`` for ``GCN``, ``GraphSage`` and ``DeepGCNII`` training at
+   dropout 0.6, the same bits over two steps; then on the headline
+   ``GraphSage(128, 16, num_layers=2, hidden_size=128, aggr_func="mean")``
+   (``bench.py:370``'s widths, full batch) and ``DeepGCNII(128, 16,
+   hidden_size=64, k_hop=16)`` (the citation benchmark's, dropout 0.6),
+   also with ``remat``, train 3 warm-up and 20 timed steps (Adam at lr
+   1e-3) asserting their K1 launches a step (``ZOO_PER_STEP``), a finite,
+   falling loss and printing the peak memory, with torch.profiler traces
+   (K1's device time a step, the idle share); and ``APPNPModel``,
+   ``GPRGNN``, ``ChebNetII``, ``BernNet``, ``SGC``, ``SSGC`` on the
+   headline and ``GIN`` on a ``disjoint`` of 64 powerlaw graphs of 2,048
+   nodes with graph labels take 3 steps each at the reference's defaults,
+   asserting their K1 launches a step.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -3848,6 +3871,315 @@ def phase_sddmm(dev, host):
         "send_uv_profile": prof_uv}}
 
 
+# -- phase 11: the layer zoo (nn's conv layers and their models) on K1 ------
+
+# the models of phase 11, 128 features in and 16 classes out as the
+# headline: (b) GraphSage at bench.py:370's widths and the citation
+# benchmark's GCNII (examples/citation_benchmark/train.py:46); (c) the rest
+# at the reference's defaults. The keyword arguments of the
+# pgl_tpu_torch.models class that the name's first word names.
+ZOO_MODELS = {
+    "GraphSage": dict(num_layers=2, hidden_size=128, aggr_func="mean"),
+    "DeepGCNII": dict(hidden_size=64, k_hop=16),
+    "DeepGCNII remat": dict(hidden_size=64, k_hop=16, remat=True),
+    "APPNPModel": {}, "GPRGNN": {}, "ChebNetII": {}, "BernNet": {},
+    "SGC": {}, "SSGC": {}, "GIN": {},
+}
+# K1 launches a training step, from the code (counted on the CPU by
+# tests/test_torch_models_zoo.py): every hop one K1 over CSC forward and,
+# where its input carries a gradient, one over CSR backward; a layer whose
+# input is the data (GraphSage's and GIN's first, SGC's and SSGC's hops)
+# has none; remat recomputes GCNII's 16 forwards in the backward. BernNet:
+# 10 hops of (I + Â), then 1 + 2 + ... + 10 of (I - Â).
+ZOO_PER_STEP = {
+    "GraphSage": {("csc", 128): 2, ("csr", 128): 1},
+    "DeepGCNII": {("csc", 64): 16, ("csr", 64): 16},
+    "DeepGCNII remat": {("csc", 64): 32, ("csr", 64): 16},
+    "APPNPModel": {("csc", 16): 10, ("csr", 16): 10},
+    "GPRGNN": {("csc", 16): 10, ("csr", 16): 10},
+    "ChebNetII": {("csc", 16): 10, ("csr", 16): 10},
+    "BernNet": {("csc", 16): 65, ("csr", 16): 65},
+    "SGC": {("csc", 128): 2},
+    "SSGC": {("csc", 128): 16},
+    "GIN": {("csc", 128): 1, ("csc", 64): 4, ("csr", 64): 4},
+}
+
+
+def zoo_model(name, device):
+    """Phase 11's model ``name`` (``ZOO_MODELS``) on ``device``, weights
+    and dropout generators from seed 0."""
+    import torch
+    from pgl_tpu_torch import models
+    return getattr(models, name.split()[0])(
+        128, 16, generator=torch.Generator().manual_seed(0), device=device,
+        **ZOO_MODELS[name])
+
+
+def gin_host(num_graphs=64, num_nodes=2048):
+    """A ``disjoint`` batch of ``num_graphs`` powerlaw graphs of
+    ``num_nodes`` nodes, degree 16 and 128 features (seeds 0, 1, ...) and
+    its graph labels (16 classes, seed 0)."""
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.datasets import powerlaw_graph
+    g = Graph.disjoint([powerlaw_graph(num_nodes, 16, feat_dim=128, seed=s)
+                        for s in range(num_graphs)])
+    return g, np.random.default_rng(0).integers(0, 16, num_graphs)
+
+
+def zoo_trainer(name, labels=None):
+    """A trainer for ``phase_train``: model ``name`` on the graph's device
+    and a function that takes one Adam step (lr 1e-3, training, the
+    reference's dropouts) and returns its loss. Labels: ``labels`` (GIN's
+    graph labels) or the headline's (seed 0)."""
+    def trainer(g):
+        import torch
+        from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+        x = g.node_feat["h"]
+        y = labels if labels is not None else np.random.default_rng(
+            0).integers(0, 16, g.num_nodes)
+        y = torch.as_tensor(np.asarray(y, np.int64), device=x.device)
+        model = zoo_model(name, x.device)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = ce(model(g, x, True), y).mean()
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return model, step
+    return trainer
+
+
+def zoo_layer_cases():
+    """(name, make(device), call(module, graph, x)) for every layer of the
+    zoo on a 16-wide feature."""
+    import torch
+    from pgl_tpu_torch import nn as gnn
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    cases = [(f"GraphSageConv {a}",
+              lambda d, a=a: gnn.GraphSageConv(16, 8, aggr_func=a,
+                                               generator=gen(), device=d),
+              lambda m, g, x: m(g, x, "relu"))
+             for a in ("sum", "mean", "max", "min")]
+    cases += [
+        ("APPNP", lambda d: gnn.APPNP(k_hop=4), None),
+        ("LightGCNConv", lambda d: gnn.LightGCNConv(), None),
+        ("SGCConv", lambda d: gnn.SGCConv(16, 8, k_hop=3, generator=gen(),
+                                          device=d), None),
+        ("SSGCConv", lambda d: gnn.SSGCConv(16, 8, k_hop=4, bias=True,
+                                            generator=gen(), device=d),
+         None),
+        ("GPRConv", lambda d: gnn.GPRConv(16, 12, 8, k_hop=4,
+                                          generator=gen(), device=d), None),
+        ("GCNII", lambda d: gnn.GCNII(16, activation="relu", k_hop=4,
+                                      generator=gen(), device=d), None),
+        ("GINConv", lambda d: gnn.GINConv(16, 8, activation="relu",
+                                          init_eps=0.3, train_eps=True,
+                                          generator=gen(), device=d), None),
+        ("NGCFConv", lambda d: gnn.NGCFConv(16, 8, generator=gen(),
+                                            device=d), None),
+        ("BernProp", lambda d: gnn.BernProp(k_hop=4, device=d), None),
+        ("ChebProp", lambda d: gnn.ChebProp(k_hop=4, device=d), None)]
+    cases += [(f"GraphPool {p}", lambda d, p=p: gnn.GraphPool(p), None)
+              for p in ("sum", "mean", "max", "min")]
+    cases.append(("GraphNorm", lambda d: gnn.GraphNorm(), None))
+    return cases
+
+
+def zoo_small_models():
+    """(name, make(device)) for every model of the zoo at small widths
+    (16 features, 3 classes), GraphSage with each ``aggr_func``."""
+    import torch
+    from pgl_tpu_torch import models
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    cases = [(f"GraphSage {a}",
+              lambda d, a=a: models.GraphSage(16, 3, hidden_size=16,
+                                              aggr_func=a, generator=gen(),
+                                              device=d))
+             for a in ("sum", "mean", "max", "min")]
+    for cls, kw in (("GIN", dict(num_layers=3, hidden_size=16)),
+                    ("DeepGCNII", dict(hidden_size=16, k_hop=6)),
+                    ("APPNPModel", dict(hidden_size=16)),
+                    ("SGC", {}), ("SSGC", {}),
+                    ("GPRGNN", dict(hidden_size=16)),
+                    ("BernNet", dict(hidden_size=16, k_hop=5)),
+                    ("ChebNetII", dict(hidden_size=16, k_hop=5))):
+        cases.append((cls, lambda d, cls=cls, kw=kw: getattr(models, cls)(
+            16, 3, generator=gen(), device=d, **kw)))
+    return cases
+
+
+def _zoo_run(make, call, host, dev, x_grad=True):
+    """Output and gradients (parameters, and the input with ``x_grad``)
+    of ``make(dev)`` on ``host`` under a fixed cotangent (seed 2), moved
+    to the CPU."""
+    import torch
+    g = host.tensor(dev)
+    module = make(dev)
+    x = g.node_feat["h"].clone().requires_grad_(x_grad)
+    out = call(module, g, x) if call is not None else module(g, x)
+    w = torch.as_tensor(np.random.default_rng(2).normal(
+        size=tuple(out.shape)).astype(np.float32), device=dev)
+    (out * w).sum().backward()
+    grads = {k: p.grad.cpu() for k, p in module.named_parameters()}
+    if x_grad:
+        grads["input"] = x.grad.cpu()
+    return out.detach().cpu(), grads
+
+
+def phase_zoo_small(dev):
+    """(a) The loss on a label outside the classes; every layer and model
+    of the zoo, CUDA against the CPU with the same weights (evaluation: no
+    dropout), output and gradients at ``1e-4 * max(1, |cpu|)``, on the 300-node community graph (pools and GIN on a
+    ``disjoint`` of three); then ``remat`` against none for ``GCN``,
+    ``GraphSage`` and ``DeepGCNII`` on the card, training at dropout 0.6:
+    two steps' outputs and gradients the same bits."""
+    import torch
+    from pgl_tpu_torch import Graph, models
+    from pgl_tpu_torch.datasets import community_graph
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+
+    # a label outside the classes selects no logit: the row's log-sum-exp,
+    # and no device-side assert
+    got = ce(torch.tensor([[1.0, 2.0, 3.0], [0.0, 0.0, 1.0]], device=dev),
+             torch.tensor([2, -1], device=dev)).cpu()
+    check("cross-entropy, label -1", got,
+          torch.tensor([0.4076059, 1.5514448]))
+
+    single, _ = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                                avg_degree=8, seed=5)
+    batched = Graph.disjoint([community_graph(n, 3, 16, 6, seed=s)[0]
+                              for n, s in ((90, 1), (120, 2), (60, 3))])
+    cases = [(name, make, call, batched if name.startswith("Graph")
+              and not name.startswith("GraphSage") else single)
+             for name, make, call in zoo_layer_cases()]
+    cases += [(name, make, lambda m, g, x: m(g, x),
+               batched if name == "GIN" else single)
+              for name, make in zoo_small_models()]
+    for name, make, call, host in cases:
+        reset_all_launches()
+        cpu = _zoo_run(make, call, host, "cpu")
+        gpu = _zoo_run(make, call, host, dev)
+        # sum and mean reach K1; max, min and the pools the segment path
+        k1 = sum(v for k, v in all_launches().items()
+                 if k[0] in ("csc", "csr"))
+        plain = name.endswith(("max", "min")) or name.startswith(
+            ("GraphPool", "GraphNorm"))
+        if bool(k1) == plain:
+            raise AssertionError(f"small {name}: K1 launched {k1} times")
+        e = check(f"small {name} output", gpu[0], cpu[0])
+        for k in cpu[1]:
+            e = max(e, check(f"small {name} grad {k}", gpu[1][k], cpu[1][k]))
+        print(f"[zoo] small {name}, CUDA vs CPU: max |err| {e:.3e}",
+              flush=True)
+    reset_all_launches()
+
+    host = single
+    for cls, kw in (("GCN", dict(num_layers=3, hidden_size=16)),
+                    ("GraphSage", dict(hidden_size=16)),
+                    ("DeepGCNII", dict(hidden_size=16, k_hop=6))):
+        runs = []
+        for remat in (False, True):
+            g = host.tensor(dev)
+            model = getattr(models, cls)(
+                16, 3, dropout=0.6, remat=remat, generator=torch.Generator(
+                    ).manual_seed(0), device=dev, **kw)
+            steps = []
+            for _ in range(2):
+                model.zero_grad(set_to_none=True)
+                out = model(g, g.node_feat["h"], True)
+                out.square().sum().backward()
+                steps.append((out.detach().clone(),
+                              {k: p.grad.clone()
+                               for k, p in model.named_parameters()}))
+            runs.append(steps)
+        for (o0, g0), (o1, g1) in zip(*runs):
+            if not torch.equal(o0, o1) or any(not torch.equal(g0[k], g1[k])
+                                              for k in g0):
+                raise AssertionError(f"{cls} remat=True differs from "
+                                     "remat=False at dropout 0.6")
+        print(f"[zoo] {cls} remat=True against remat=False, training at "
+              f"dropout 0.6, two steps: the same bits (output and "
+              f"{len(runs[0][0][1])} gradients)", flush=True)
+
+
+def zoo_steps(g, name, trainer, steps=3):
+    """(c) ``steps`` Adam steps of ``name`` on ``g``: asserts its K1
+    launches a step (``ZOO_PER_STEP``) and finite losses; returns the
+    losses and the median step ms."""
+    import torch
+    _, step = trainer(g)
+    reset_all_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    got = {k: v for k, v in all_launches().items() if v}
+    want = {k: v * steps for k, v in ZOO_PER_STEP[name].items()}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses not finite: {losses}")
+    step_ms = float(np.median(times)) * 1e3
+    print(f"[zoo {name}] {steps} steps: loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; median step {step_ms:.4f} ms (the first "
+          f"{times[0] * 1e3:.4f}); K1 launches a step "
+          f"{dict(sorted(ZOO_PER_STEP[name].items()))}", flush=True)
+    return {"step_ms": step_ms, "losses": losses}
+
+
+def phase_zoo(dev, host, smi):
+    """The layer zoo: (a) small parity and remat; (b) GraphSage and
+    DeepGCNII (also with remat) trained at full width on the headline with
+    profiles; (c) the other models 3 steps each. Returns the step line's
+    entries."""
+    import torch
+
+    phase_zoo_small(dev)
+    g = headline_graph(False, host)
+    steps = {}
+    for name in ("GraphSage", "DeepGCNII", "DeepGCNII remat"):
+        train, _ = phase_train(g, name, ZOO_PER_STEP[name],
+                               zoo_trainer(name))
+        steps[name] = train
+    for name in ("GraphSage", "DeepGCNII"):
+        prof = phase_gat_profile(g, name, zoo_trainer(name))
+        k1 = sum(v for k, v in prof["attention_kernels_ms"].items()
+                 if k.startswith("spmm_"))
+        steps[name].update(profile=prof, k1_ms_per_step=k1)
+        print(f"[zoo {name}] {smi}: step {steps[name]['step_ms']:.4f} ms, "
+              f"K1 device {k1:.5f} ms a step, device busy "
+              f"{prof['device_busy_ms_per_step']:.5f} ms, idle share "
+              f"{prof['idle_share']:.4f}, peak memory "
+              f"{steps[name]['peak_mib']:.1f} MiB", flush=True)
+    print(f"[zoo DeepGCNII remat] {smi}: step "
+          f"{steps['DeepGCNII remat']['step_ms']:.4f} ms, peak memory "
+          f"{steps['DeepGCNII remat']['peak_mib']:.1f} MiB against "
+          f"{steps['DeepGCNII']['peak_mib']:.1f} MiB without", flush=True)
+    for name in ("APPNPModel", "GPRGNN", "ChebNetII", "BernNet", "SGC",
+                 "SSGC"):
+        steps[name] = zoo_steps(g, name, zoo_trainer(name))
+    del g
+    torch.cuda.empty_cache()
+    gin, labels = gin_host()
+    g = gin.tensor()
+    steps["GIN"] = zoo_steps(g, "GIN", zoo_trainer("GIN", labels))
+    print(f"[zoo GIN] a disjoint of {g.num_graph} graphs, N={g.num_nodes} "
+          f"E={g.num_edges}, GraphPool over each", flush=True)
+    reset_all_launches()
+    return {f"zoo {k}": v for k, v in steps.items()}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3974,6 +4306,8 @@ def main():
     torch.cuda.empty_cache()
     sddmm_rows, sddmm_steps = phase_sddmm(dev, host)
     rows += sddmm_rows
+    torch.cuda.empty_cache()
+    zoo_steps = phase_zoo(dev, host, smi)
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -3982,7 +4316,7 @@ def main():
                                spmm_ms_per_step=spmm["dedup_uncached"],
                                tensor_s=t_6),
         **gat_steps, **dedup_steps, **unimp_steps, **ddot_steps,
-        **weighted_steps, **sddmm_steps, "device": smi}}),
+        **weighted_steps, **sddmm_steps, **zoo_steps, "device": smi}}),
         flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

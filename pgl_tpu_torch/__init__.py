@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "Graph"]
+__all__ = ["resolve_device", "Graph", "Message", "math", "ops", "nn",
+           "utils", "datasets", "models", "native"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -41,4 +42,13 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-from .graph import Graph  # noqa: E402  (needs resolve_device defined)
+# the submodules import resolve_device from here: bind it first
+from .graph import Graph  # noqa: E402
+from .message import Message  # noqa: E402
+from . import math  # noqa: E402
+from . import ops  # noqa: E402
+from . import nn  # noqa: E402
+from . import utils  # noqa: E402
+from . import datasets  # noqa: E402
+from . import models  # noqa: E402
+from . import native  # noqa: E402

@@ -1,4 +1,7 @@
-from .gnn import FAGCN, GAT, GATv2, GCN
+from .gnn import (GCN, GAT, GraphSage, GIN, DeepGCNII, APPNPModel, SGC,
+                  SSGC, GATv2, GPRGNN, FAGCN, BernNet, ChebNetII)
 from .unimp import UniMP
 
-__all__ = ["GCN", "GAT", "GATv2", "FAGCN", "UniMP"]
+__all__ = ["GCN", "GAT", "GraphSage", "GIN", "DeepGCNII", "APPNPModel",
+           "SGC", "SSGC", "GATv2", "GPRGNN", "FAGCN", "BernNet",
+           "ChebNetII", "UniMP"]

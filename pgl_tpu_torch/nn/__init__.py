@@ -1,6 +1,18 @@
-from .conv import (FAConv, GATConv, GATv2Conv, GCNConv, PinSageConv,
-                   TransformerConv)
-from . import functional
+"""Graph neural network layers (port of ``pgl_tpu/nn``)."""
 
-__all__ = ["GCNConv", "GATConv", "GATv2Conv", "PinSageConv", "FAConv",
-           "TransformerConv", "functional"]
+from . import functional
+from .conv import (
+    GCNConv, GATConv, GATv2Conv, APPNP, GPRConv, GCNII, TransformerConv,
+    GINConv, GraphSageConv, PinSageConv, SGCConv, SSGCConv, NGCFConv,
+    LightGCNConv, FAConv, BernProp, ChebProp,
+)
+from .pool import GraphPool, GraphNorm
+
+__all__ = [
+    "functional",
+    "GCNConv", "GATConv", "GATv2Conv", "APPNP", "GPRConv", "GCNII",
+    "TransformerConv", "GINConv", "GraphSageConv", "PinSageConv",
+    "SGCConv", "SSGCConv", "NGCFConv", "LightGCNConv", "FAConv",
+    "BernProp", "ChebProp",
+    "GraphPool", "GraphNorm",
+]

@@ -10,8 +10,10 @@ biases) with an explicit ``torch.Generator``, and live on ``device``
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -25,8 +27,11 @@ from ..ops.kernels.dedup_attention import (dedup_dot_attention,
 from ..ops.segment import segment_softmax, segment_sum
 from .functional import graph_op as GF
 
-__all__ = ["GCNConv", "GATConv", "GATv2Conv", "PinSageConv", "FAConv",
-           "TransformerConv", "lecun_normal_"]
+__all__ = ["GCNConv", "GATConv", "GATv2Conv", "APPNP", "GPRConv", "GCNII",
+           "TransformerConv", "GINConv", "GraphSageConv", "PinSageConv",
+           "SGCConv", "SSGCConv", "NGCFConv", "LightGCNConv", "FAConv",
+           "BernProp", "ChebProp", "gpr_init_weights", "sgc_precompute",
+           "ssgc_precompute", "lecun_normal_"]
 
 # std of a unit normal truncated to [-2, 2]; flax's lecun_normal divides by
 # it so that the truncated draw keeps variance 1 / fan_in
@@ -481,3 +486,423 @@ class TransformerConv(nn.Module):
         msg = v_e * alpha[..., None]
         msg = msg.reshape(-1, H * D) if self.concat else msg.mean(dim=1)
         return segment_sum(msg, dst, graph.num_nodes)
+
+
+# -- the propagation zoo: every aggregation is Graph.send_recv, so K1 on the
+# card for a float32 sum or mean
+
+def _propagate(graph, x, norm):
+    """``Â x`` with ``Â = D^-1/2 A D^-1/2``: one sum over the in-edges."""
+    return graph.send_recv(x * norm, "sum") * norm
+
+
+def _no_self_loop(name: str, self_loop: bool):
+    if self_loop:
+        raise ValueError(
+            f"{name}(self_loop=True): adding self loops rebuilds the edge "
+            "set; build the graph with them before tensor()")
+
+
+class GraphSageConv(nn.Module):
+    """GraphSAGE: a Dense on the node's own feature plus one on its
+    neighbours' ``aggr_func`` (``sum`` or ``mean``: K1 on the card;
+    ``max`` or ``min``: the segment path), the activation, then L2
+    normalisation when ``normalize`` (``pgl_tpu/nn/conv.py:59-81``).
+    ``feature`` is one tensor or a ``(source, self)`` pair."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 aggr_func: str = "sum", normalize: bool = True, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if aggr_func not in ("sum", "mean", "max", "min"):
+            raise ValueError(f"aggr_func must be sum, mean, max or min, got "
+                             f"{aggr_func!r}")
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        self.aggr_func = aggr_func
+        self.normalize = normalize
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.self_linear = _dense(input_size, hidden_size, gen)
+        self.neigh_linear = _dense(input_size, hidden_size, gen)
+        self.to(resolve_device(device))
+
+    def forward(self, graph, feature, act=None):
+        if not isinstance(feature, (tuple, list)):
+            feature = (feature, feature)
+        neigh = self.neigh_linear(graph.send_recv(feature[0], self.aggr_func))
+        output = self.self_linear(feature[1]) + neigh
+        act = _resolve_act(act)
+        if act is not None:
+            output = act(output)
+        return _l2_normalize(output) if self.normalize else output
+
+
+class APPNP(nn.Module):
+    """Personalized-PageRank propagation: ``k_hop`` hops of ``Â``, each
+    blended with the input by ``alpha`` (``pgl_tpu/nn/conv.py:321-346``).
+    No parameters. Self loops are added to the graph before ``tensor()``,
+    as in the reference."""
+
+    def __init__(self, alpha: float = 0.2, k_hop: int = 10,
+                 self_loop: bool = False):
+        super().__init__()
+        self.alpha = alpha
+        self.k_hop = k_hop
+        self.self_loop = self_loop
+
+    def forward(self, graph, feature, norm=None):
+        _no_self_loop("APPNP", self.self_loop)
+        if norm is None:
+            norm = GF.degree_norm(graph, dtype=feature.dtype)
+        h0 = feature
+        for _ in range(self.k_hop):
+            feature = _propagate(graph, feature, norm)
+            feature = self.alpha * h0 + (1 - self.alpha) * feature
+        return feature
+
+
+def gpr_init_weights(init_method: str, alpha: float, k_hop: int,
+                     gamma=None, seed: int = 0) -> np.ndarray:
+    """The five GPR-GNN hop-weight initialisations (``SGC``, ``PPR``,
+    ``NPPR``, ``Random`` from ``np.random.default_rng(seed)``, ``WS``),
+    float32 [k_hop + 1]: the port's copy of ``pgl_tpu/nn/conv.py:349-370``,
+    the same numbers for the same arguments."""
+    if init_method == "SGC":
+        temp = np.zeros(k_hop + 1)
+        temp[int(alpha)] = 1.0
+    elif init_method == "PPR":
+        temp = alpha * (1 - alpha) ** np.arange(k_hop + 1)
+        temp[-1] = (1 - alpha) ** k_hop
+    elif init_method == "NPPR":
+        temp = alpha ** np.arange(k_hop + 1)
+        temp = temp / np.sum(np.abs(temp))
+    elif init_method == "Random":
+        bound = np.sqrt(3 / (k_hop + 1))
+        temp = np.random.default_rng(seed).uniform(-bound, bound, k_hop + 1)
+        temp = temp / np.sum(np.abs(temp))
+    elif init_method == "WS":
+        temp = np.asarray(gamma)
+    else:
+        raise ValueError(f"unknown init_method {init_method}")
+    return temp.astype(np.float32)
+
+
+class GPRConv(nn.Module):
+    """GPR-GNN: a two-layer MLP (``linear_1``, ``linear_2``), then
+    ``k_hop`` hops of ``Â`` summed with the learnable weights ``temp``
+    (``pgl_tpu/nn/conv.py:373-412``). Dropout draws from the layer's own
+    generator."""
+
+    def __init__(self, input_size: int, hidden_size: int, output_size: int,
+                 drop: float = 0.5, dprate: float = 0.5,
+                 activation: Any = "relu", self_loop: bool = False,
+                 alpha: float = 0.1, k_hop: int = 10,
+                 init_method: str = "PPR", gamma: Any = None, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.drop = drop
+        self.dprate = dprate
+        self.activation = _resolve_act(activation)
+        self.self_loop = self_loop
+        self.k_hop = k_hop
+        device = resolve_device(device)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.temp = nn.Parameter(torch.as_tensor(
+            gpr_init_weights(init_method, alpha, k_hop, gamma)))
+        self.linear_1 = _dense(input_size, hidden_size, gen)
+        self.linear_2 = _dense(hidden_size, output_size, gen)
+        self.generator = _layer_generator(gen, device)
+        self.to(device)
+
+    def _drop(self, x, rate, training):
+        if training and rate > 0.0:
+            return _dropout(x, rate, self.generator)
+        return x
+
+    def forward(self, graph, feature, norm=None, training: bool = False):
+        _no_self_loop("GPRConv", self.self_loop)
+        feature = self._drop(feature, self.drop, training)
+        feature = self.activation(self.linear_1(feature))
+        feature = self._drop(feature, self.drop, training)
+        feature = self._drop(self.linear_2(feature), self.dprate, training)
+        if norm is None:
+            norm = GF.degree_norm(graph, dtype=feature.dtype)
+        hidden = feature * self.temp[0]
+        for k in range(self.k_hop):
+            feature = _propagate(graph, feature, norm)
+            hidden = hidden + self.temp[k + 1] * feature
+        return hidden
+
+
+class GCNII(nn.Module):
+    """GCNII: ``k_hop`` hops, each dropout (training), ``Â``, the initial
+    residual ``alpha``, and the identity map ``beta_i`` with the Dense
+    ``mlp_{i}``, then the activation (``pgl_tpu/nn/conv.py:415-441``).
+    The input is ``hidden_size`` wide. Dropout draws from the layer's own
+    generator."""
+
+    def __init__(self, hidden_size: int, activation: Any = None,
+                 lambda_l: float = 0.5, alpha: float = 0.2, k_hop: int = 10,
+                 dropout: float = 0.6, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.activation = _resolve_act(activation)
+        self.lambda_l = lambda_l
+        self.alpha = alpha
+        self.k_hop = k_hop
+        self.dropout = dropout
+        device = resolve_device(device)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        for i in range(k_hop):
+            self.add_module(f"mlp_{i}", _dense(hidden_size, hidden_size, gen))
+        self.generator = _layer_generator(gen, device)
+        self.to(device)
+
+    def forward(self, graph, feature, norm=None, training: bool = False):
+        if norm is None:
+            norm = GF.degree_norm(graph, dtype=feature.dtype)
+        h0 = feature
+        for i in range(self.k_hop):
+            beta_i = float(np.log(1.0 * self.lambda_l / (i + 1) + 1))
+            if training and self.dropout > 0.0:
+                feature = _dropout(feature, self.dropout, self.generator)
+            feature = _propagate(graph, feature, norm)
+            feature = self.alpha * h0 + (1 - self.alpha) * feature
+            transed = getattr(self, f"mlp_{i}")(feature)
+            feature = beta_i * transed + (1 - beta_i) * feature
+            if self.activation is not None:
+                feature = self.activation(feature)
+        return feature
+
+
+class GINConv(nn.Module):
+    """GIN: ``(1 + eps) x`` plus the neighbours' sum, then ``linear1``,
+    ``layer_norm`` (flax's epsilon, 1e-6), the activation and ``linear2``
+    (``pgl_tpu/nn/conv.py:584-609``). ``epsilon`` is a ``(1, 1)``
+    parameter only with ``train_eps``."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 activation: Any = None, init_eps: float = 0.0,
+                 train_eps: bool = False, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.input_size = input_size
+        self.output_size = output_size
+        self.activation = _resolve_act(activation)
+        self.init_eps = init_eps
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.epsilon = nn.Parameter(torch.full((1, 1), float(init_eps))) \
+            if train_eps else None
+        self.linear1 = _dense(input_size, output_size, gen)
+        self.layer_norm = nn.LayerNorm(output_size, eps=1e-6)
+        self.linear2 = _dense(output_size, output_size, gen)
+        self.to(resolve_device(device))
+
+    def forward(self, graph, feature):
+        eps = self.epsilon if self.epsilon is not None else self.init_eps
+        output = graph.send_recv(feature, "sum") + feature * (eps + 1.0)
+        output = self.layer_norm(self.linear1(output))
+        if self.activation is not None:
+            output = self.activation(output)
+        return self.linear2(output)
+
+
+class _CachedPropagation(nn.Module):
+    """A propagation with no parameters (``_precompute``), then the Dense
+    ``linear`` without bias, an optional ``bias`` and the activation: SGC
+    and SSGC (``pgl_tpu/nn/conv.py:643-727``).
+
+    With ``cached`` the propagated features are kept on the module for the
+    graph they came from (held weakly), and reused while the same graph
+    comes back; another graph recomputes them, and ``clear_cache()`` drops
+    them. The kept copy is detached: the first call's gradient reaches the
+    input, later calls read a constant, as the reference's ``'cache'``
+    collection is one."""
+
+    def __init__(self, input_size: int, output_size: int, cached: bool,
+                 activation: Any, bias: bool, generator, device):
+        super().__init__()
+        self.input_size = input_size
+        self.output_size = output_size
+        self.cached = cached
+        self.activation = _resolve_act(activation)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.linear = nn.Linear(input_size, output_size, bias=False)
+        lecun_normal_(self.linear.weight, gen)
+        self.bias = nn.Parameter(torch.zeros(output_size)) if bias else None
+        self._cache = None           # (weakref to the graph, features)
+        self.to(resolve_device(device))
+
+    def clear_cache(self):
+        """Drop the propagated features kept by ``cached``."""
+        self._cache = None
+
+    def forward(self, graph, feature):
+        if not self.cached:
+            feature = self._precompute(graph, feature)
+        elif self._cache is not None and self._cache[0]() is graph:
+            feature = self._cache[1]
+        else:
+            feature = self._precompute(graph, feature)
+            self._cache = (weakref.ref(graph), feature.detach())
+        output = self.linear(feature)
+        if self.bias is not None:
+            output = output + self.bias
+        if self.activation is not None:
+            output = self.activation(output)
+        return output
+
+
+def sgc_precompute(graph, feature, k_hop: int):
+    """``Â^k_hop x`` (``pgl_tpu/nn/conv.py:679-683``)."""
+    norm = GF.degree_norm(graph, dtype=feature.dtype)
+    for _ in range(k_hop):
+        feature = _propagate(graph, feature, norm)
+    return feature
+
+
+class SGCConv(_CachedPropagation):
+    """SGC: ``k_hop`` hops of ``Â``, then the Dense (``pgl_tpu/nn/
+    conv.py:643-676``); ``cached`` as in :class:`_CachedPropagation`."""
+
+    def __init__(self, input_size: int, output_size: int, k_hop: int = 2,
+                 cached: bool = True, activation: Any = None,
+                 bias: bool = False, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(input_size, output_size, cached, activation, bias,
+                         generator, device)
+        self.k_hop = k_hop
+
+    def _precompute(self, graph, feature):
+        return sgc_precompute(graph, feature, self.k_hop)
+
+
+def ssgc_precompute(graph, feature, k_hop: int, alpha: float):
+    """The mean of ``k_hop`` hops of ``(1 - alpha) Â`` and the input, plus
+    ``alpha`` times the input (``pgl_tpu/nn/conv.py:718-726``)."""
+    norm = GF.degree_norm(graph, dtype=feature.dtype)
+    ori = acc = feature
+    for _ in range(k_hop):
+        feature = (1 - alpha) * _propagate(graph, feature, norm)
+        acc = acc + feature
+    return acc / k_hop + alpha * ori
+
+
+class SSGCConv(_CachedPropagation):
+    """SSGC: ``ssgc_precompute``, then the Dense (``pgl_tpu/nn/
+    conv.py:686-715``); ``cached`` as in :class:`_CachedPropagation`."""
+
+    def __init__(self, input_size: int, output_size: int, k_hop: int = 16,
+                 alpha: float = 0.05, cached: bool = True,
+                 activation: Any = None, bias: bool = False, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(input_size, output_size, cached, activation, bias,
+                         generator, device)
+        self.k_hop = k_hop
+        self.alpha = alpha
+
+    def _precompute(self, graph, feature):
+        return ssgc_precompute(graph, feature, self.k_hop, self.alpha)
+
+
+class NGCFConv(nn.Module):
+    """NGCF: ``o = (Σ neighbours + x) · norm``, then ``linear(o) +
+    linear2(x ⊙ o)`` and leaky relu at slope 0.2 (``pgl_tpu/nn/
+    conv.py:729-743``)."""
+
+    def __init__(self, input_size: int, output_size: int, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.input_size = input_size
+        self.output_size = output_size
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.linear = _dense(input_size, output_size, gen)
+        self.linear2 = _dense(input_size, output_size, gen)
+        self.to(resolve_device(device))
+
+    def forward(self, graph, feature):
+        norm = GF.degree_norm(graph, dtype=feature.dtype)
+        output = (graph.send_recv(feature, "sum") + feature) * norm
+        output = self.linear(output) + self.linear2(feature * output)
+        return nn.functional.leaky_relu(output, 0.2)
+
+
+class LightGCNConv(nn.Module):
+    """LightGCN: ``Â x``, no parameters (``pgl_tpu/nn/conv.py:746-753``)."""
+
+    def forward(self, graph, feature):
+        return _propagate(graph, feature,
+                          GF.degree_norm(graph, dtype=feature.dtype))
+
+
+class BernProp(nn.Module):
+    """BernNet's propagation: the Bernstein basis of the normalised
+    Laplacian from chains of ``(I + Â)`` and ``(I - Â)``, weighted by
+    ``relu(temp)`` (``pgl_tpu/nn/conv.py:781-810``): ``k_hop`` + ``k_hop
+    (k_hop + 1) / 2`` hops."""
+
+    def __init__(self, k_hop: int = 10, *, device=None):
+        super().__init__()
+        self.k_hop = k_hop
+        self.temp = nn.Parameter(torch.ones(k_hop + 1,
+                                            device=resolve_device(device)))
+
+    def forward(self, graph, feature, norm=None):
+        K = self.k_hop
+        temp = torch.relu(self.temp)
+        if norm is None:
+            norm = GF.degree_norm(graph, dtype=feature.dtype)
+        tmp = [feature]
+        for _ in range(K):
+            feature = feature + _propagate(graph, feature, norm)
+            tmp.append(feature)
+        out = (math.comb(K, 0) / (2 ** K)) * temp[0] * tmp[K]
+        for i in range(K):
+            feature = tmp[K - i - 1]
+            for _ in range(i + 1):
+                feature = feature - _propagate(graph, feature, norm)
+            out = out + (math.comb(K, i + 1) / (2 ** K)) * temp[i + 1] \
+                * feature
+        return out
+
+
+class ChebProp(nn.Module):
+    """ChebNetII's propagation: learnable values ``relu(temp)`` at the
+    Chebyshev nodes, interpolated into coefficients of ``T_k(Â)`` and
+    summed by the three-term recurrence (``pgl_tpu/nn/conv.py:813-851``):
+    ``k_hop`` hops."""
+
+    def __init__(self, k_hop: int = 10, *, device=None):
+        super().__init__()
+        self.k_hop = k_hop
+        self.temp = nn.Parameter(torch.ones(k_hop + 1,
+                                            device=resolve_device(device)))
+
+    def forward(self, graph, feature, norm=None):
+        K = self.k_hop
+        temp = torch.relu(self.temp)
+        # the Chebyshev nodes x_j, j = K..0, in the reference's order
+        xs = [math.cos((K - j + 0.5) * math.pi / (K + 1))
+              for j in range(K + 1)]
+        coes = []
+        for i in range(K + 1):
+            c = sum(temp[j] * math.cos(i * math.acos(xs[K - j]))
+                    for j in range(K + 1))
+            coes.append(2.0 * c / (K + 1))
+        if norm is None:
+            norm = GF.degree_norm(graph, dtype=feature.dtype)
+        tx0 = feature
+        tx1 = _propagate(graph, feature, norm)
+        out = coes[0] / 2 * tx0 + coes[1] * tx1
+        for i in range(2, K + 1):
+            tx2 = 2 * _propagate(graph, tx1, norm) - tx0
+            out = out + coes[i] * tx2
+            tx0, tx1 = tx1, tx2
+        return out

@@ -1,3 +1,3 @@
-from .graph_op import degree_norm, edge_softmax
+from .graph_op import degree_norm, graph_pool, graph_norm, edge_softmax
 
-__all__ = ["degree_norm", "edge_softmax"]
+__all__ = ["degree_norm", "graph_pool", "graph_norm", "edge_softmax"]

@@ -5,9 +5,9 @@ from __future__ import annotations
 
 import torch
 
-from ...ops.segment import segment_softmax
+from ...ops.segment import segment_count, segment_pool, segment_softmax
 
-__all__ = ["degree_norm", "edge_softmax"]
+__all__ = ["degree_norm", "graph_pool", "graph_norm", "edge_softmax"]
 
 
 def degree_norm(graph, mode: str = "indegree", dtype=torch.float32):
@@ -20,7 +20,26 @@ def degree_norm(graph, mode: str = "indegree", dtype=torch.float32):
         raise ValueError(
             "The degree_norm mode should be in ['indegree', 'outdegree']. "
             f"But receive mode={mode}")
-    return degree.to(dtype).clamp(min=1.0).pow(-0.5).unsqueeze(-1)
+    # a host graph's degrees are numpy, as ``jnp.asarray`` takes them there
+    degree = torch.as_tensor(degree).to(dtype)
+    return degree.clamp(min=1.0).pow(-0.5).unsqueeze(-1)
+
+
+def graph_pool(graph, feature, pool_type: str):
+    """Pool node features per subgraph (``sum``, ``mean``, ``max`` or
+    ``min``) into ``[num_graph, ...]`` (``pgl_tpu/nn/functional/
+    graph_op.py:36-41``)."""
+    return segment_pool(feature, graph.graph_node_id, pool_type,
+                        num_segments=graph.num_graph)
+
+
+def graph_norm(graph, feature):
+    """Divide each node's features by the square root of its subgraph's
+    node count (``pgl_tpu/nn/functional/graph_op.py:44-51``)."""
+    ids = graph.graph_node_id
+    counts = segment_count(ids, num_segments=graph.num_graph)
+    norm = counts.to(feature.dtype).sqrt()
+    return feature / norm[ids][:, None]
 
 
 def edge_softmax(graph, logits, norm_by: str = "dst"):

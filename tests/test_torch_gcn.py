@@ -156,6 +156,44 @@ def test_cross_entropy_matches_reference():
         rtol=1e-6, atol=1e-6)
 
 
+def test_cross_entropy_with_a_label_outside_the_classes():
+    """A label outside ``[0, C)`` selects no logit, as the reference's
+    one-hot mask (``pgl_tpu/ops/losses.py:28-32``): its loss is the row's
+    log-sum-exp, and its gradient the row's softmax."""
+    logits = np.array([[1, 2, 3], [0, 0, 1]], np.float32)
+    labels = np.array([2, -1], np.int32)
+    want = np.asarray(j_ce(jnp.asarray(logits), jnp.asarray(labels)))
+    np.testing.assert_allclose(want, [0.4076059, 1.5514448], rtol=1e-6)
+    x = torch.as_tensor(logits).requires_grad_()
+    got = ce(x, torch.as_tensor(labels))
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6)
+    got.sum().backward()
+    np.testing.assert_allclose(
+        x.grad.numpy(), np.asarray(jax.grad(lambda v: j_ce(
+            v, jnp.asarray(labels)).sum())(jnp.asarray(logits))),
+        rtol=1e-6, atol=1e-7)
+
+
+def test_degree_norm_on_a_host_graph():
+    """``degree_norm`` on a graph that was not ``tensor()``ed takes its
+    numpy degrees, as the reference's ``jnp.asarray`` does
+    (``pgl_tpu/nn/functional/graph_op.py:30``)."""
+    import pgl_tpu
+    import pgl_tpu_torch
+    from pgl_tpu.nn.functional import degree_norm as j_degree_norm
+    from pgl_tpu_torch.nn.functional import degree_norm
+
+    edges = np.array([[0, 1], [2, 1]])
+    got = degree_norm(pgl_tpu_torch.Graph(edges, num_nodes=3))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), [[1.0], [0.70710677], [1.0]],
+                               rtol=1e-7)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(j_degree_norm(pgl_tpu.Graph(edges,
+                                                            num_nodes=3))),
+        rtol=1e-7)
+
+
 def test_init_follows_flax_defaults():
     """lecun-normal kernel (truncated at ±2 std, variance 1/fan_in), zero
     bias, reproducible from the generator's seed."""

@@ -112,6 +112,25 @@ def test_send_u_recv_keeps_trailing_feature_shape():
         g.send_recv(x.reshape(40, 6), "sum").reshape(40, 2, 3).numpy())
 
 
+def test_mean_of_a_three_dim_feature_divides_each_row():
+    """Departure: ``send_u_recv(x, "mean")`` on an ``[N, H, D]`` feature
+    divides each node's row by its in-degree (floored at 1) in the port,
+    and raises in the reference, whose ``deg[:, None]`` does not broadcast
+    against the 3-D sum (``pgl_tpu/graph.py:340-341``)."""
+    edges = random_edges(40, 300, seed=7)
+    x = np.random.default_rng(8).normal(size=(40, 2, 3)).astype(np.float32)
+    with pytest.raises(Exception, match="broadcast"):
+        pgl_tpu.Graph(edges, num_nodes=40).tensor().send_recv(
+            jnp.asarray(x), "mean")
+    g = pgl_tpu_torch.Graph(edges, num_nodes=40).tensor("cpu")
+    got = g.send_recv(torch.as_tensor(x), "mean")
+    deg = np.maximum(np.bincount(edges[:, 1], minlength=40), 1)
+    want = np.zeros((40, 2, 3))
+    np.add.at(want, edges[:, 1], x[edges[:, 0]])
+    np.testing.assert_allclose(got.numpy(), want / deg[:, None, None],
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_degree_norm_matches_reference():
     edges = random_edges(60, 500, seed=6)
     jg = pgl_tpu.Graph(edges, num_nodes=60).tensor()

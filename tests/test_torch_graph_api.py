@@ -62,6 +62,43 @@ def same_ragged(got, want):
         np.testing.assert_array_equal(a, b)
 
 
+def test_namespaces_bind_the_reference_names():
+    """The package binds the reference's ported names
+    (``pgl_tpu/__init__.py:12-29``), ``ops`` exports its message passing
+    (``pgl_tpu/ops/__init__.py:4-11``), and ``nn``, ``nn.functional`` and
+    ``models`` export what is ported of the reference's ``__all__``."""
+    import pgl_tpu.models
+    import pgl_tpu.nn
+    import pgl_tpu.nn.functional
+    import pgl_tpu.ops
+    import pgl_tpu_torch
+
+    for name in ("Graph", "Message", "math", "ops", "nn", "utils",
+                 "datasets", "models", "native"):
+        assert getattr(pgl_tpu_torch, name) is not None, name
+        assert name in pgl_tpu_torch.__all__ and name in pgl_tpu.__all__
+    assert pgl_tpu_torch.Message is Message
+    ops = pgl_tpu_torch.ops
+    assert set(ops.__all__) == set(pgl_tpu.ops.__all__)
+    for name in ops.__all__:
+        assert getattr(ops, name) is not None, name
+    edges, nf, _ = make_graph()
+    x = nf["h"]
+    close(ops.send_u_recv(torch.as_tensor(x), torch.as_tensor(edges[:, 0]),
+                          torch.as_tensor(edges[:, 1]), 60),
+          pgl_tpu.ops.send_u_recv(jnp.asarray(x), jnp.asarray(edges[:, 0]),
+                                  jnp.asarray(edges[:, 1]), 60))
+    waiting = {"RGCNConv", "Set2Set", "GlobalAttention", "SAGPool",
+               "GraphMultisetTransformer", "LSTMAggregation", "LSTMSage",
+               "RUniMP", "label_propagation_smooth", "BipartiteSAGE", "kg"}
+    for mine, ref in ((pgl_tpu_torch.nn, pgl_tpu.nn),
+                      (pgl_tpu_torch.nn.functional, pgl_tpu.nn.functional),
+                      (pgl_tpu_torch.models, pgl_tpu.models)):
+        assert set(mine.__all__) == set(ref.__all__) - waiting
+        for name in mine.__all__:
+            assert getattr(mine, name) is not None, name
+
+
 # -- native host kernels ----------------------------------------------------
 
 @pytest.mark.parametrize("N,E", [(50, 600), (9, 0), (1, 5)])

@@ -56,6 +56,7 @@ from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS,
                         dispatch_settings, dot_inputs, hard_features,
                         k10_case_graphs, k1_case_edges, k1_features,
                         k7_case_atts, no_dropout, phase_attention_mask,
+                        phase_zoo_small,
                         phase_dedup_attention_mask, run_dedup_attention,
                         run_dedup_dot,
                         run_dedup_twice, run_dot, run_weighted, sddmm_inputs,
@@ -1314,3 +1315,13 @@ def test_sddmm_wrapper_rejects_what_the_kernel_does_not_take(cuda,
         sdk.sddmm_dedup(torch.randn(8, g.num_nodes, device=cuda).t(), x, lay)
     with pytest.raises(ValueError, match="layout"):
         sdk.sddmm_dedup(x.cpu(), x.cpu(), lay)
+
+
+@pytest.mark.gpu
+def test_zoo_on_cuda_matches_cpu(cuda):
+    """``chip_smoke.phase_zoo_small``: the loss on a label outside the
+    classes; every layer and model of the conv-layer zoo, CUDA against CPU
+    with the same weights (output and every gradient), K1 launched where a
+    sum or mean runs and nowhere else; ``remat`` bit for bit at dropout
+    0.6 for GCN, GraphSage and DeepGCNII."""
+    phase_zoo_small(cuda)
