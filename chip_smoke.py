@@ -206,7 +206,40 @@ there is no card or any phase fails. Phases:
    ``GPRGNN``, ``ChebNetII``, ``BernNet``, ``SGC``, ``SSGC`` on the
    headline and ``GIN`` on a ``disjoint`` of 64 powerlaw graphs of 2,048
    nodes with graph labels take 3 steps each at the reference's defaults,
-   asserting their K1 launches a step.
+   asserting their K1 launches a step;
+12. the heterogeneous path, readouts and LSTM aggregation: an
+   ogbn-mag-shaped ``HeterGraph`` (``mag_host``: the UniMP graph's 169,343
+   papers with their ``cites``, 260,000 authors, 1,642,627 ``writes`` and
+   their reverse ``writed_by``; one 128-wide feature table, authors the
+   mean of their papers', put on the card once for the three relations);
+   the dot-mode K9/K10 at UniMP's shape on each relation against float64
+   (``writes`` at rates 0 and 0.3, the others at 0.3), with exact zeros
+   on the rows without edges; ``RUniMP(128, 40, num_layers=2,
+   hidden_size=128, num_heads=2, dropout=0.3)``, the reference's defaults,
+   trains 3 warm-up and 20 timed steps (AdamW, a fresh 60% of the train
+   papers' labels fed each step) asserting one K9, K10-dq and K10-dkv a
+   relation a step (``RUNIMP_PER_STEP``; the last layer, ``concat=False``,
+   runs none) and a falling loss, with a torch.profiler trace (the dot
+   kernels' and ``q[dst]``'s gather backward's device ms) and the dot
+   kernels timed on each relation; ``examples/rgcn/train.py``'s RGCN
+   (hidden 32, two bases) trains 20 steps asserting K1's launches
+   (``RGCN_PER_STEP``), with its trace and K1 timed at D = 32 and 40 on
+   each relation; ``label_propagation_smooth`` on ``cites`` (40 classes,
+   3 hops, three K1 launches) CUDA against CPU; the ``writes`` edges as a
+   ``BiGraph`` of authors -> papers, K1 over its rectangular layouts at D
+   = 128 for sum and mean against float64 (output and gradient, zeros on
+   the rows without edges) and timed; then, on a ``disjoint`` of 4,096
+   motif graphs (``examples/global_pool/train.py``'s generator and
+   widths), GIN with each readout (sum, mean, max, ``GlobalAttention``,
+   ``Set2Set``, the Graph Multiset Transformer) and GCN, ``SAGPool``, GCN
+   in both modes (CUDA against a float64 CPU run with the same weights on
+   that batch, gradients with the terms scale; the max and top-k readouts
+   on its features plus seeded noise, which breaks their ties), and
+   ``LSTMSage`` at its defaults on the headline (CUDA against float64 CPU
+   on a powerlaw graph of 4,096 nodes), each 3 steps asserting its K1
+   launches (``READOUT_PER_STEP``; LSTMSage none). The launches of the
+   per-relation rows are read on each relation's layouts
+   (``LAUNCHES_BY_LAYOUT``), the BiGraph rows' in its checks' runs.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -378,6 +411,17 @@ def check(name, got, want, scale=None):
         raise AssertionError(f"{name}: {int(bad.sum())} elements off, "
                              f"max |err| {max_err:.3e}")
     return max_err
+
+
+def bound_share(got, want, scale=None):
+    """The largest |got - want| as a share of ``check``'s bound."""
+    import torch
+    want = want.double()
+    bound = want.abs().clamp(min=1.0)
+    if scale is not None:
+        bound = torch.maximum(bound, scale)
+    share = (got.double() - want).abs() / (1e-4 * bound)
+    return float(share.max()) if share.numel() else 0.0
 
 
 def skewed_graph(num_nodes, num_edges, seed):
@@ -653,11 +697,29 @@ def all_launches():
             for k, v in module.LAUNCHES_BY_SHAPE.items()}
 
 
-def phase_train(g, path="K1", per_step=None, trainer=None, num_class=16):
+def launches_on(layouts):
+    """The K1 and attention launches counted on ``layouts`` (by the
+    wrappers' ``LAUNCHES_BY_LAYOUT``), keyed as ``all_launches``."""
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    ids = {id(lay) for lay in layouts}
+    got = {}
+    for module in (sk, ak):
+        for (key, lid), v in module.LAUNCHES_BY_LAYOUT.items():
+            if lid in ids and v:
+                got[key] = got.get(key, 0) + v
+    return got
+
+
+def phase_train(g, path="K1", per_step=None, trainer=None, num_class=16,
+                parts=None):
     """The main path: a model trains on the card (default: the bench
     headline GCN). Asserts the launches of every kernel: ``per_step``
     (default: K1's ``PER_STEP``) times the step count, and no other; and
-    finite logits [N, ``num_class``] after the steps."""
+    finite logits [N, ``num_class``] after the steps. With ``parts`` (tag
+    -> layouts, e.g. the relations of a heterogeneous graph) it also
+    returns the launches of the timed steps on each tag's layouts, which
+    must add up to all of them."""
     import torch
 
     per_step = PER_STEP if per_step is None else per_step
@@ -675,6 +737,15 @@ def phase_train(g, path="K1", per_step=None, trainer=None, num_class=16):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     by_shape = {k: v for k, v in all_launches().items() if v}
+    by_part = {t: launches_on(lays) for t, lays in (parts or {}).items()}
+    if parts is not None:
+        summed = {}
+        for got in by_part.values():
+            for k, v in got.items():
+                summed[k] = summed.get(k, 0) + v
+        if summed != by_shape:
+            raise AssertionError(f"{path}: launches on the parts {by_part} "
+                                 f"do not add up to {by_shape}")
     launches = sum(by_shape.values())
     losses = [float(v) for v in losses]
     want = {k: v * STEPS for k, v in per_step.items()}
@@ -697,9 +768,11 @@ def phase_train(g, path="K1", per_step=None, trainer=None, num_class=16):
           f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before the "
           f"steps); kernel launches {launches} = {launches / STEPS:g}/step",
           flush=True)
-    return {"step_ms": step_ms, "peak_mib": peak / 2**20,
-            "held_mib": held / 2**20, "loss_first": losses[0],
-            "loss_last": losses[-1]}, by_shape
+    train = {"step_ms": step_ms, "peak_mib": peak / 2**20,
+             "held_mib": held / 2**20, "loss_first": losses[0],
+             "loss_last": losses[-1]}
+    return (train, by_shape) if parts is None else (train, by_shape,
+                                                   by_part)
 
 
 def time_ms(fn, iters):
@@ -718,42 +791,54 @@ def time_ms(fn, iters):
 
 
 def phase_timing(g, dev, by_shape):
+    return k1_rows("", g._spmm_layouts, (g.num_nodes, g.num_nodes),
+                   (128, 16), dev, by_shape)
+
+
+def k1_rows(tag, lays, tables, dims, dev, by_shape):
+    """K1's rows (CUDA-event ms over warm launches, the plain version's,
+    ``torch.sparse.mm`` on a CSR tensor of the layout, the bound, the max
+    |err| against float64) over each layout of ``lays`` gathering a table
+    of ``tables[i]`` rows, at each width of ``dims``; ``by_shape[(kind,
+    D)]`` is the launches in the run the row stands for. Rows are named
+    ``spmm_<kind>_d<D>`` and ``_<tag>``."""
     import torch
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
 
     rows = []
     gen = torch.Generator(device=dev).manual_seed(1)
-    for kind, lay in zip(("csc", "csr"), g._spmm_layouts):
+    for lay, n in zip(lays, tables):
+        kind = lay.kind
         A = torch.sparse_csr_tensor(lay.indptr, lay.indices,
                                     torch.ones(lay.num_edges, device=dev),
-                                    size=(lay.num_rows, g.num_nodes))
-        for d in (128, 16):
-            x = torch.randn(g.num_nodes, d, device=dev, generator=gen)
+                                    size=(lay.num_rows, n))
+        for d in dims:
+            x = torch.randn(n, d, device=dev, generator=gen)
             out = torch.empty(lay.num_rows, d, device=dev)
             part = torch.empty(lay.item_partials, d, device=dev)
             ms = time_ms(lambda: sk._launch(x, lay, out, part), 100)
             plain_ms = time_ms(lambda: sk.spmm_reference(x, lay), 20)
             lib_ms = time_ms(lambda: torch.sparse.mm(A, x), 50)
             with torch.no_grad():
-                err = check_spmm(f"timed {kind} D={d}", out, x, lay)
-            nbytes = 4 * (g.num_nodes * d + lay.num_edges
+                err = check_spmm(f"timed {kind} D={d} {tag}", out, x, lay)
+            nbytes = 4 * (n * d + lay.num_edges
                           + lay.num_rows + 1 + lay.num_rows * d)
             ops = lay.num_edges * d
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
             bound_ms = max(t_bytes, t_ops) * 1e3
             rows.append({
-                "name": f"spmm_{kind}_d{d}", "route": "cuda",
-                "source": SOURCE, "replaces": REPLACES,
+                "name": f"spmm_{kind}_d{d}" + (f"_{tag}" if tag else ""),
+                "route": "cuda", "source": SOURCE, "replaces": REPLACES,
                 "launches": by_shape.get((kind, d), 0),
                 "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": lib_ms, "share": bound_ms / ms,
                 "shape": {"layout": kind, "rows": lay.num_rows,
-                          "edges": lay.num_edges, "D": d,
+                          "table_rows": n, "edges": lay.num_edges, "D": d,
                           "items": int(lay.items.shape[0]),
                           "split_rows": int(lay.item_split_rows.shape[0])}})
-            print(f"[timing] {kind} D={d}: kernel {ms:.5f} ms, plain "
+            print(f"[timing] {kind} D={d} {tag}: kernel {ms:.5f} ms, plain "
                   f"{plain_ms:.5f} ms, torch.sparse.mm {lib_ms:.5f} ms, "
                   f"bound {bound_ms:.5f} ms ({bound_ms / ms:.3f} of it)",
                   flush=True)
@@ -1492,6 +1577,8 @@ def phase_gat_profile(g, tag="GAT", trainer=None):
         "attention_ms_per_step": sum(attn.values()),
         "other_ms_per_step": busy - sum(attn.values()),
         "idle_share": 1 - busy / chained_ms, "attention_kernels_ms": attn,
+        "indexing_backward_ms": sum(v for k, v in device.items()
+                                    if "indexing_backward" in k),
         "device_top_ms": dict(sorted(device.items(),
                                      key=lambda kv: -kv[1])[:8]),
         "host_ms_per_step": sum(host.values()),
@@ -4180,6 +4267,663 @@ def phase_zoo(dev, host, smi):
     return {f"zoo {k}": v for k, v in steps.items()}
 
 
+# -- phase 12: the heterogeneous path, readouts, pooling, LSTM aggregation ---
+
+MAG_ETYPES = ("cites", "writes", "writed_by")
+# 260,000 authors at the UniMP graph's 169,343 papers (ogbn-mag has
+# 1,134,649 for 736,389: 1.54 a paper) and ogbn-mag's author-writes-paper
+# edges (7,145,660: 9.7 a paper)
+MAG_AUTHORS_PER_PAPER = 260_000 / UNIMP_NODES
+MAG_WRITES_PER_PAPER = 9.7
+# dot-kernel launches an R-UniMP step: layer 0 (concat) runs K9, K10-dq and
+# K10-dkv once per edge type; the last layer (concat=False) takes the
+# edge-space composition, no kernel
+RUNIMP_PER_STEP = {(k, *UNIMP_SHAPE): len(MAG_ETYPES) for k in DOT_KERNELS}
+# K1 an RGCN step (hidden 32, 40 classes): each layer's mean is K1 over CSC
+# once per edge type, and its gradient over CSR (layer 0's too: its input
+# x @ W carries W's gradient)
+RGCN_PER_STEP = {("csc", 32): 3, ("csr", 32): 3, ("csc", 40): 3,
+                 ("csr", 40): 3}
+# K1 a step of the readout models on motif graphs (8 features, hidden 32):
+# GIN's first sum runs on the data (no gradient), its other two each way;
+# GMT's GMPool_G adds layer_k's and layer_v's GCNConv at 32 each way;
+# SAGPool's score GCNConv(32, 1) runs at width 1, and the second GCN at 32
+READOUT_GIN = {("csc", 8): 1, ("csc", 32): 2, ("csr", 32): 2}
+READOUT_PER_STEP = {
+    **{p: READOUT_GIN for p in ("sum", "mean", "max", "GlobalAttention",
+                                "Set2Set")},
+    "GMT": {("csc", 8): 1, ("csc", 32): 4, ("csr", 32): 4},
+    **{f"SAGPool {m}": {("csc", 8): 1, ("csc", 1): 1, ("csr", 1): 1,
+                        ("csc", 32): 1, ("csr", 32): 1}
+       for m in ("dynamic", "static")}}
+MOTIF_GRAPHS = 4096
+
+
+def mag_host(num_papers=UNIMP_NODES, avg_degree=116, seed=0):
+    """An ogbn-mag-shaped HeterGraph (``examples/r_unimp/train.py:35-63``'s
+    relations) and its labels: the UniMP graph's papers (``community_graph
+    (num_papers, 40, feat_dim=128, avg_degree)``, their labels and
+    ``cites``), then ``MAG_AUTHORS_PER_PAPER`` authors a paper after them
+    in the same node space, each of the community of a random paper;
+    ``writes`` draws
+    ``MAG_WRITES_PER_PAPER`` edges a paper, author (uniform) -> a paper of
+    the author's community, ``writed_by`` reverses them. An author's
+    features are the mean of its papers' (zeros for one without papers,
+    as R-UniMP's MAG240M pipeline fills authors); its label is -1.
+    Returns ``(hg, labels, num_papers)``."""
+    import torch
+    from pgl_tpu_torch import HeterGraph
+    from pgl_tpu_torch.datasets import community_graph
+
+    papers, labels = community_graph(num_nodes=num_papers, num_classes=40,
+                                     feat_dim=128, avg_degree=avg_degree,
+                                     seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    num_authors = round(MAG_AUTHORS_PER_PAPER * num_papers)
+    E = round(MAG_WRITES_PER_PAPER * num_papers)
+    comm = labels[rng.integers(0, num_papers, num_authors)]
+    author = rng.integers(0, num_authors, E)
+    order = np.argsort(labels, kind="stable")
+    count = np.bincount(labels, minlength=40)
+    start = np.cumsum(count) - count
+    c = comm[author]
+    paper = order[start[c] + (rng.random(E) * count[c]).astype(np.int64)]
+    pfeat = torch.as_tensor(papers.node_feat["h"])
+    a = torch.as_tensor(author)
+    afeat = torch.zeros(num_authors, 128).index_add_(
+        0, a, pfeat.index_select(0, torch.as_tensor(paper)))
+    afeat /= torch.bincount(a, minlength=num_authors).clamp(min=1)[:, None]
+    writes = np.stack([num_papers + author, paper], axis=1)
+    hg = HeterGraph({"cites": papers.edges, "writes": writes,
+                     "writed_by": writes[:, ::-1].copy()},
+                    num_nodes=num_papers + num_authors,
+                    node_feat={"h": np.concatenate(
+                        [papers.node_feat["h"], afeat.numpy()])})
+    return hg, np.concatenate([labels.astype(np.int64),
+                               np.full(num_authors, -1)]), num_papers
+
+
+def mag_train_mask(n, num_papers, dev):
+    """The train papers: ogbn-arxiv's share (``UNIMP_TRAIN`` of
+    ``UNIMP_NODES``) of a seeded permutation of the papers."""
+    import torch
+    train = torch.zeros(n, dtype=torch.bool, device=dev)
+    train[torch.as_tensor(np.random.default_rng(0).permutation(num_papers)[
+        :num_papers * UNIMP_TRAIN // UNIMP_NODES], device=dev)] = True
+    return train
+
+
+def runimp_trainer(labels, num_papers, hidden=128):
+    """A trainer for ``phase_train``: ``RUniMP(128, 40, MAG_ETYPES,
+    num_layers=2, hidden_size, num_heads=2, dropout=0.3)`` (the reference's
+    defaults at ``hidden=128``; weights from seed 0) on the graph's device
+    and one AdamW step (lr 5e-3, weight decay 5e-4) as ``unimp_trainer``'s:
+    a fresh seeded 60% of the train papers' labels fed, the loss over the
+    train papers not fed."""
+    def trainer(hg):
+        import torch
+        from pgl_tpu_torch.models import RUniMP
+        from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+
+        x = hg.node_feat["h"]
+        dev, n = x.device, hg.num_nodes
+        y = torch.as_tensor(labels, device=dev)
+        train = mag_train_mask(n, num_papers, dev)
+        model = RUniMP(128, 40, MAG_ETYPES, num_layers=2,
+                       hidden_size=hidden, num_heads=2, dropout=0.3,
+                       generator=torch.Generator().manual_seed(0),
+                       device=dev)
+        opt = torch.optim.AdamW(model.parameters(), lr=5e-3,
+                                weight_decay=5e-4)
+        gen = torch.Generator(device=dev).manual_seed(7)
+
+        def step():
+            feed = train & (torch.rand(n, generator=gen, device=dev) < 0.6)
+            rest = (train & ~feed).float()
+            opt.zero_grad(set_to_none=True)
+            losses = ce(model(hg, x, y, feed, training=True), y)
+            loss = (losses * rest).sum() / rest.sum().clamp(min=1.0)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return model, step
+    return trainer
+
+
+def rgcn_trainer(labels, num_papers):
+    """A trainer for ``phase_train``: ``examples/rgcn/train.py``'s RGCN
+    (``RGCNConv(128, 32, num_bases=2)``, relu, ``RGCNConv(32, 40,
+    num_bases=2)`` over ``MAG_ETYPES``; weights from seed 0) and one Adam
+    step (lr 0.01) on the train papers."""
+    def trainer(hg):
+        import torch
+        from pgl_tpu_torch.nn import RGCNConv
+        from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+
+        x = hg.node_feat["h"]
+        dev = x.device
+        gen = torch.Generator().manual_seed(0)
+
+        class RGCN(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.l1 = RGCNConv(128, 32, MAG_ETYPES, 2, generator=gen,
+                                   device=dev)
+                self.l2 = RGCNConv(32, 40, MAG_ETYPES, 2, generator=gen,
+                                   device=dev)
+
+            def forward(self, graph, feat):
+                return self.l2(graph, torch.relu(self.l1(graph, feat)))
+
+        model = RGCN()
+        y = torch.as_tensor(labels, device=dev)
+        train = mag_train_mask(hg.num_nodes, num_papers, dev)
+        opt = torch.optim.Adam(model.parameters(), lr=0.01)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = ce(model(hg, x)[train], y[train]).mean()
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return model, step
+    return trainer
+
+
+def check_rect_spmm(tag, bg, reduce, dev, gen):
+    """``bg.send_recv`` (K1 over the rectangular layouts) with ``reduce``
+    (sum or mean) against float64 on a random table and cotangent: the
+    output and the table's gradient at ``check``'s rule with the terms
+    scale, exact zeros on destinations without edges and on sources
+    without edges' gradient rows, one launch each way. Returns the max
+    |err| by layout and the launches read."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+
+    csc, csr = bg._spmm_layouts
+    D = 128
+    x = torch.randn(bg.src_num_nodes, D, device=dev,
+                    generator=gen).requires_grad_()
+    g = torch.randn(bg.dst_num_nodes, D, device=dev, generator=gen)
+    reset_all_launches()
+    out = bg.send_recv(x, reduce)
+    out.backward(g)
+    launched = {k: v for k, v in all_launches().items() if v}
+    if launched != {("csc", D): 1, ("csr", D): 1} or launches_on(
+            (csc, csr)) != launched:
+        raise AssertionError(f"{tag} {reduce}: launched {launched}, on its "
+                             f"layouts {launches_on((csc, csr))}")
+    reset_all_launches()
+    indeg = bg.indegree().double()[:, None]
+    div = indeg.clamp(min=1) if reduce == "mean" else torch.ones_like(indeg)
+    with torch.no_grad():
+        x64 = x.detach().double()
+        errs = {"csc": check(
+            f"{tag} {reduce} out", out, sk.spmm_reference(x64, csc) / div,
+            sk.spmm_reference(x64 * x64, csc).sqrt() / div)}
+        g64 = g.double() / div
+        errs["csr"] = check(f"{tag} {reduce} grad", x.grad,
+                            sk.spmm_reference(g64, csr),
+                            sk.spmm_reference(g64 * g64, csr).sqrt())
+        for name, t, deg in (("out", out, bg.indegree()),
+                             ("grad", x.grad, bg.outdegree())):
+            if bool(t[deg == 0].any()):
+                raise AssertionError(f"{tag} {reduce}: {name} not zero on "
+                                     "rows without edges")
+    return errs, launched
+
+
+def check_empty_rows_dot(tag, g, rate, dev, gen):
+    """The dot-mode K9/K10 at UniMP's shape on relation graph ``g`` against
+    float64 (``check_dot``), and exact zeros where a row has no edge: out
+    and dq on destinations without incoming edges, dk and dv on sources
+    without outgoing ones. Returns the max |err| by kernel."""
+    import torch
+    lays = g._attention_layouts()
+    ins = dot_inputs(g.num_nodes, UNIMP_SHAPE, dev, gen)
+    seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                         generator=gen, device=dev)
+    got = run_dot(lays, ins, UNIMP_SHAPE, 0.0, rate, seed)
+    errs = check_dot(tag, lays, ins, UNIMP_SHAPE, 0.0, rate, seed, got)
+    out, _, dq, dk, dv = got
+    indeg, outdeg = g.indegree(), g.outdegree()
+    for name, t, deg in (("out", out, indeg), ("dq", dq, indeg),
+                         ("dk", dk, outdeg), ("dv", dv, outdeg)):
+        if bool(t[deg == 0].any()):
+            raise AssertionError(f"{tag} rate={rate}: {name} not zero on "
+                                 "rows without edges")
+    reset_all_launches()
+    return errs
+
+
+def phase_hetero(dev, smi):
+    """R-UniMP at full width on the ogbn-mag-shaped graph (the slice's main
+    path), RGCN, label propagation and the rectangular K1 of a BiGraph:
+    returns (rows, the step line's entries)."""
+    import torch
+    from pgl_tpu_torch import BiGraph, Graph
+    from pgl_tpu_torch.models import label_propagation_smooth
+
+    t0 = time.perf_counter()
+    host, labels, P = mag_host()
+    t_host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    hg = host.tensor()
+    torch.cuda.synchronize()
+    t_tensor = time.perf_counter() - t0
+    table = hg.node_feat["h"]
+    if {hg[t].node_feat["h"].data_ptr() for t in MAG_ETYPES} != {
+            table.data_ptr()}:
+        raise AssertionError("the relations do not share one feature table")
+    held = torch.cuda.memory_allocated() - before
+    facts = {t: (hg[t].num_edges, int((hg[t].indegree() == 0).sum()))
+             for t in MAG_ETYPES}
+    print(f"[hetero] ogbn-mag-shaped HeterGraph: {P} papers, "
+          f"{hg.num_nodes - P} authors, N={hg.num_nodes}, "
+          f"E={hg.num_edges} (edges, rows without in-edges by type: "
+          f"{facts}); host build {t_host:.2f} s, tensor() {t_tensor:.2f} s; "
+          f"one feature table of {table.numel() * 4 / 2**20:.1f} MiB shared "
+          f"by the {len(MAG_ETYPES)} relations; {held / 2**20:.1f} MiB on "
+          f"the card after tensor()", flush=True)
+
+    # the dot kernels on each relation at this size, zeros on empty rows
+    gen = torch.Generator(device=dev).manual_seed(12)
+    errs = {}
+    for t in MAG_ETYPES:
+        for rate in ((0.0, 0.3) if t == "writes" else (0.3,)):
+            e = check_empty_rows_dot(f"mag {t}", hg[t], rate, dev, gen)
+            for k, v in e.items():
+                errs[f"mag_{t}", k] = max(errs.get((f"mag_{t}", k), 0.0), v)
+            print(f"[hetero dot] {t} rate={rate}: max |err| K9 "
+                  f"{e['dot_fwd']:.3e} K10-dq {e['dot_dq']:.3e} K10-dkv "
+                  f"{e['dot_dkv']:.3e}; zeros on the rows without edges",
+                  flush=True)
+
+    steps = {}
+    train, _, by_r = phase_train(
+        hg, "R-UniMP", RUNIMP_PER_STEP, runimp_trainer(labels, P), 40,
+        {t: hg[t]._attention_layouts() for t in MAG_ETYPES})
+    prof = phase_gat_profile(hg, "R-UniMP", runimp_trainer(labels, P))
+    dot_ms = sum(v for k, v in prof["attention_kernels_ms"].items()
+                 if k.startswith("dot_"))
+    busy = prof["device_busy_ms_per_step"]
+    steps["R-UniMP"] = dict(train, tensor_s=t_tensor, host_build_s=t_host,
+                            feature_table_mib=table.numel() * 4 / 2**20,
+                            dot_ms_per_step=dot_ms, profile=prof)
+    print(f"[hetero R-UniMP] {smi}: step {train['step_ms']:.4f} ms, dot "
+          f"kernels {dot_ms:.5f} device ms a step, device busy "
+          f"{prof['device_busy_ms_per_step']:.5f} ms, idle share "
+          f"{prof['idle_share']:.4f}, q[dst] gather backward "
+          f"(indexing_backward_kernel) {prof['indexing_backward_ms']:.5f} ms "
+          f"({prof['indexing_backward_ms'] / busy:.4f} of the device "
+          f"time), peak memory {train['peak_mib']:.1f} MiB",
+          flush=True)
+    rows = phase_dot_timing({f"mag_{t}": hg[t] for t in MAG_ETYPES}, dev,
+                            {f"mag_{t}": {0.3: by_r[t]} for t in MAG_ETYPES},
+                            errs)
+
+    train, _, by_g = phase_train(
+        hg, "RGCN", RGCN_PER_STEP, rgcn_trainer(labels, P), 40,
+        {t: hg[t]._spmm_layouts for t in MAG_ETYPES})
+    prof = phase_gat_profile(hg, "RGCN", rgcn_trainer(labels, P))
+    k1 = sum(v for k, v in prof["attention_kernels_ms"].items()
+             if k.startswith("spmm_"))
+    steps["RGCN"] = dict(train, k1_ms_per_step=k1, profile=prof)
+    print(f"[hetero RGCN] {smi}: step {train['step_ms']:.4f} ms, K1 "
+          f"{k1:.5f} device ms a step ({sum(RGCN_PER_STEP.values())} "
+          f"launches), device busy {prof['device_busy_ms_per_step']:.5f} ms, "
+          f"idle share {prof['idle_share']:.4f}", flush=True)
+    for t in MAG_ETYPES:
+        g = hg[t]
+        rows += k1_rows(f"mag_{t}", g._spmm_layouts,
+                        (g.num_nodes, g.num_nodes), (32, 40), dev, by_g[t])
+
+    # label propagation on cites, C = 40, 3 hops: K1 once a hop
+    rng = np.random.default_rng(3)
+    n = hg.num_nodes
+    probs = rng.random((n, 40)).astype(np.float32)
+    probs /= probs.sum(-1, keepdims=True)
+    train_np = mag_train_mask(n, P, "cpu").numpy()
+    gold = np.zeros((n, 40), np.float32)
+    gold[np.flatnonzero(train_np), labels[train_np]] = 1.0
+    ins = [torch.as_tensor(a) for a in (probs, gold, train_np)]
+    reset_all_launches()
+    with torch.no_grad():
+        got = label_propagation_smooth(hg["cites"],
+                                       *(a.to(dev) for a in ins))
+    launched = {k: v for k, v in all_launches().items() if v}
+    if launched != {("csc", 40): 3}:
+        raise AssertionError(f"label propagation launched {launched}")
+    cites_cpu = Graph(host["cites"].edges, num_nodes=n).tensor("cpu")
+    with torch.no_grad():
+        want = label_propagation_smooth(cites_cpu, *ins)
+    err = check("label propagation, CUDA vs CPU", got.cpu(), want)
+    print(f"[hetero] label_propagation_smooth on cites (C=40, 3 hops, 3 K1 "
+          f"launches): CUDA vs CPU max |err| {err:.3e}", flush=True)
+    reset_all_launches()
+    del hg, got, table
+    torch.cuda.empty_cache()
+
+    # writes as a BiGraph: authors -> papers
+    w = host["writes"].edges
+    bg = BiGraph(np.stack([w[:, 0] - P, w[:, 1]], axis=1),
+                 src_num_nodes=host.num_nodes - P, dst_num_nodes=P).tensor()
+    csc, csr = bg._spmm_layouts
+    errs, launches = {}, {}
+    for reduce in ("sum", "mean"):
+        e, launched = check_rect_spmm("BiGraph writes", bg, reduce, dev, gen)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"[hetero BiGraph] writes, {bg.src_num_nodes} authors -> "
+              f"{bg.dst_num_nodes} papers, D=128, {reduce}: max |err| out "
+              f"{e['csc']:.3e}, grad {e['csr']:.3e}; zeros on the "
+              f"{int((bg.indegree() == 0).sum())} papers and "
+              f"{int((bg.outdegree() == 0).sum())} authors without edges",
+              flush=True)
+    rect = k1_rows("bigraph_writes", (csc, csr),
+                   (bg.src_num_nodes, bg.dst_num_nodes), (128,), dev,
+                   launches)
+    for r in rect:
+        r["max_abs_err"] = max(r["max_abs_err"], errs[r["shape"]["layout"]])
+    rows += rect
+    reset_all_launches()
+    return rows, {f"hetero {k}": v for k, v in steps.items()}
+
+
+def motif_host(num_graphs=MOTIF_GRAPHS, seed=0):
+    """``examples/global_pool/train.py``'s motifs (a cycle, star or ladder
+    of 6 to 13 nodes, both edge directions, constant 8 features), a
+    ``disjoint`` of ``num_graphs`` of them, and their kinds as labels."""
+    from pgl_tpu_torch import Graph
+    rng = np.random.default_rng(seed)
+    graphs, labels = [], []
+    for _ in range(num_graphs):
+        kind, n = int(rng.integers(0, 3)), int(rng.integers(6, 14))
+        if kind == 0:
+            src = np.arange(n)
+            dst = (src + 1) % n
+        elif kind == 1:
+            src = np.concatenate([np.zeros(n - 1, int), np.arange(1, n)])
+            dst = np.concatenate([np.arange(1, n), np.zeros(n - 1, int)])
+        else:
+            half = max(n // 2, 2)
+            n = 2 * half
+            rail = np.arange(half - 1)
+            src = np.concatenate([rail, rail + half, np.arange(half)])
+            dst = np.concatenate([rail + 1, rail + half + 1,
+                                  np.arange(half) + half])
+        edges = np.stack([np.concatenate([src, dst]),
+                          np.concatenate([dst, src])], 1)
+        graphs.append(Graph(edges, num_nodes=n,
+                            node_feat={"h": np.ones((n, 8), np.float32)}))
+        labels.append(kind)
+    return Graph.disjoint(graphs), np.asarray(labels)
+
+
+def noisy_features(host, seed=1):
+    """``host`` with a seeded normal of 0.1 added to its features. On the
+    motifs' constant features symmetric nodes tie, and which of them wins
+    a max or a top-k follows the sums' rounding, which differs between
+    devices: the parity runs break the ties."""
+    from pgl_tpu_torch import Graph
+    x = host.node_feat["h"]
+    return Graph(host.edges, num_nodes=host.num_nodes, node_feat={
+        "h": x + 0.1 * np.random.default_rng(seed).normal(
+            size=x.shape).astype(np.float32)},
+        _graph_node_index=host._graph_node_index,
+        _graph_edge_index=host._graph_edge_index, _num_graph=host.num_graph)
+
+
+def readout_model(name, device):
+    """Phase 12's graph classifiers at ``examples/global_pool/train.py``'s
+    widths (8 features, hidden 32, 3 classes; weights from seed 0): GIN (3
+    ``GINConv``, relu) then the readout ``name`` (``GraphPool`` sum, mean
+    or max, ``GlobalAttention`` with a Dense gate, ``Set2Set`` of 2
+    iterations, or ``GraphMultisetTransformer`` of 4 heads and 32 nodes),
+    a relu Dense and the classifier; or, for ``SAGPool <mode>``, GCN,
+    ``SAGPool(ratio=0.5)``, GCN and the mean and max readouts
+    concatenated."""
+    import torch
+    from pgl_tpu_torch import nn as gnn
+    from pgl_tpu_torch.nn.conv import _dense
+    from pgl_tpu_torch.nn.functional import graph_pool
+
+    gen = torch.Generator().manual_seed(0)
+    H = 32
+
+    class Classifier(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            if name.startswith("SAGPool"):
+                self.conv1 = gnn.GCNConv(8, H, "relu", generator=gen,
+                                         device=device)
+                self.pool = gnn.SAGPool(H, ratio=0.5,
+                                        static=name.endswith("static"),
+                                        generator=gen, device=device)
+                self.conv2 = gnn.GCNConv(H, H, "relu", generator=gen,
+                                         device=device)
+                width = 2 * H
+            else:
+                for i in range(3):
+                    self.add_module(f"gin_{i}", gnn.GINConv(
+                        8 if i == 0 else H, H, activation="relu",
+                        generator=gen, device=device))
+                width = 2 * H if name == "Set2Set" else H
+                if name in ("sum", "mean", "max"):
+                    self.readout = gnn.GraphPool(name)
+                elif name == "GlobalAttention":
+                    self.readout = gnn.GlobalAttention(_dense(H, 1, gen))
+                elif name == "Set2Set":
+                    self.readout = gnn.Set2Set(H, n_iters=2, generator=gen,
+                                               device=device)
+                else:
+                    self.readout = gnn.GraphMultisetTransformer(
+                        H, H, H, num_heads=4, num_nodes=32, generator=gen,
+                        device=device)
+            self.head = _dense(width, H, gen)
+            self.classifier = _dense(H, 3, gen)
+            self.to(device)
+
+        def forward(self, graph, x, training=False):
+            if name.startswith("SAGPool"):
+                x, kept, g = self.pool(graph, self.conv1(graph, x))
+                x = self.conv2(g, x)
+                if g is graph:      # static: readouts over the kept rows
+                    keep = kept[:, None]
+                    mean = graph_pool(g, x * keep, "sum") / graph_pool(
+                        g, keep.to(x.dtype), "sum").clamp(min=1)
+                    x = torch.where(keep, x, float("-inf"))
+                else:
+                    mean = graph_pool(g, x, "mean")
+                h = torch.cat([mean, graph_pool(g, x, "max")], dim=-1)
+            else:
+                for i in range(3):
+                    x = getattr(self, f"gin_{i}")(graph, x)
+                h = self.readout(graph, x)
+            return self.classifier(torch.relu(self.head(h)))
+
+    return Classifier()
+
+
+def readout_trainer(name, labels):
+    """A trainer: ``readout_model(name)`` on the graph's device and one
+    Adam step (lr 5e-3) of the mean cross-entropy over the graphs."""
+    def trainer(g):
+        import torch
+        from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+        x = g.node_feat["h"]
+        model = readout_model(name, x.device)
+        y = torch.as_tensor(labels, device=x.device).long()
+        opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = ce(model(g, x, True), y).mean()
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return model, step
+    return trainer
+
+
+def lstmsage_model(device):
+    """``LSTMSage(128, 16)`` at its defaults (2 layers, hidden 16, at most
+    32 messages a node, dropout 0.5; weights from seed 0)."""
+    import torch
+    from pgl_tpu_torch.models import LSTMSage
+    return LSTMSage(128, 16, generator=torch.Generator().manual_seed(0),
+                    device=device)
+
+
+def lstmsage_trainer(labels):
+    """A trainer: ``lstmsage_model`` and one Adam step (lr 1e-3), training
+    (dropout on)."""
+    def trainer(g):
+        import torch
+        from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+        x = g.node_feat["h"]
+        model = lstmsage_model(x.device)
+        y = torch.as_tensor(labels, device=x.device).long()
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = ce(model(g, x, True), y).mean()
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return model, step
+    return trainer
+
+
+def parity(tag, ref, make, dev, blocks=64):
+    """``make(device)`` from one seed on the card and, in float64, on the
+    CPU, evaluated on the graph ``ref``: the output and every parameter
+    gradient under a fixed random cotangent, the card's against float64 at
+    ``check``'s rule. A gradient sums a term an output row, so its scale is
+    the 2-norm of those terms, taken over ``blocks`` blocks of the output's
+    rows: the float64 gradient of each block's share of the cotangent (the
+    rows' cotangents are independent and of mean 0, so the blocks' squares
+    sum to the rows' in expectation). Returns (max |err|, the largest
+    share of its bound an error takes, the gradients held)."""
+    import torch
+    got, want = {}, {}
+    for d, dtype, res in ((dev, torch.float32, got),
+                          ("cpu", torch.float64, want)):
+        g = ref.tensor(d)
+        model = make(d).to(dtype)
+        out = model(g, g.node_feat["h"].to(dtype))
+        w = torch.as_tensor(np.random.default_rng(2).normal(
+            size=tuple(out.shape)).astype(np.float32), dtype=dtype,
+            device=d)
+        params = {k: p for k, p in model.named_parameters()
+                  if p.requires_grad}
+        grads = torch.autograd.grad((out * w).sum(), list(params.values()),
+                                    retain_graph=d == "cpu",
+                                    allow_unused=True)
+        res["out"] = out.detach().cpu()
+        res.update((k, v.cpu()) for k, v in zip(params, grads)
+                   if v is not None)
+    # out, w and params are the CPU's now, in float64
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: gradients of {sorted(got)} on the "
+                             f"card, {sorted(want)} on the CPU")
+    names = [k for k in want if k != "out"]
+    sq = {k: torch.zeros_like(want[k]) for k in names}
+    for rows in np.array_split(np.arange(out.shape[0]), blocks):
+        part = torch.zeros_like(w)
+        part[rows] = w[rows]
+        grads = torch.autograd.grad((out * part).sum(),
+                                    [params[k] for k in names],
+                                    retain_graph=True)
+        for k, v in zip(names, grads):
+            sq[k] += v * v
+    err = check(f"{tag} output", got["out"], want["out"])
+    share = bound_share(got["out"], want["out"])
+    for k in names:
+        scale = sq[k].sqrt()
+        err = max(err, check(f"{tag} grad {k}", got[k], want[k], scale))
+        share = max(share, bound_share(got[k], want[k], scale))
+    return err, share, len(names)
+
+
+def parity_and_steps(tag, ref, host, make, trainer, per_step, dev,
+                     steps=3):
+    """(a) ``parity`` of ``make`` on the graph ``ref``; (b) ``steps``
+    training steps on the card on ``host`` asserting ``per_step`` launches
+    a step (and no other) and finite losses. Returns the step line's
+    entry."""
+    import torch
+    err, share, held = parity(tag, ref, make, dev)
+    g = host.tensor(dev)
+    _, step = trainer(g)
+    reset_all_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    got = {k: v for k, v in all_launches().items() if v}
+    want = {k: v * steps for k, v in per_step.items()}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: losses not finite: {losses}")
+    reset_all_launches()
+    step_ms = float(np.median(times)) * 1e3
+    print(f"[readout {tag}] CUDA vs float64 CPU max |err| {err:.3e}, "
+          f"{share:.4f} of its bound at most (output and {held} gradients "
+          f"on N={ref.num_nodes}); {steps} "
+          f"steps on N={host.num_nodes}: loss {losses[0]:.6f} "
+          f"-> {losses[-1]:.6f}, median step {step_ms:.4f} ms; launches a "
+          f"step {dict(sorted(per_step.items()))}", flush=True)
+    return {"step_ms": step_ms, "losses": losses, "max_abs_err": err,
+            "bound_share": share}
+
+
+def phase_readouts(dev, head_host):
+    """GIN with each readout and GCN-SAGPool-GCN in both modes on a
+    ``disjoint`` of ``MOTIF_GRAPHS`` motif graphs: ``parity`` on that batch,
+    then 3 steps on it. The readouts that pick nodes, max and SAGPool's
+    top-k, take their ``parity`` on 64 motif graphs with
+    ``noisy_features``: the constant features tie, and on 4,096 graphs
+    even the noisy ones leave pairs within float32 rounding of each other,
+    whose winner differs between float32 and float64. ``LSTMSage`` at its
+    defaults, ``parity``
+    on a powerlaw graph of 4,096 nodes (its hub takes 25,407 messages; the
+    headline is too large for a float64 CPU run), then 3 steps on the
+    headline (in-degree up to 803,866): the 32-message cap bites in both.
+    Each asserts its launches a step. Returns the step line's entries."""
+    import torch
+    from pgl_tpu_torch.datasets import powerlaw_graph
+
+    host, labels = motif_host()
+    noisy = noisy_features(motif_host(num_graphs=64, seed=2)[0])
+    print(f"[readout] {MOTIF_GRAPHS} motif graphs: N={host.num_nodes} "
+          f"E={host.num_edges}", flush=True)
+    steps = {}
+    for name, per_step in READOUT_PER_STEP.items():
+        ref = noisy if name == "max" or name.startswith("SAGPool") else host
+        steps[name] = parity_and_steps(
+            name, ref, host, lambda d, name=name: readout_model(name, d),
+            readout_trainer(name, labels), per_step, dev)
+    y = np.random.default_rng(0).integers(0, 16, head_host.num_nodes)
+    steps["LSTMSage"] = parity_and_steps(
+        "LSTMSage", powerlaw_graph(4096, 16, feat_dim=128, seed=3),
+        head_host, lstmsage_model, lstmsage_trainer(y), {}, dev)
+    torch.cuda.empty_cache()
+    return {f"readout {k}": v for k, v in steps.items()}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4308,6 +5052,11 @@ def main():
     rows += sddmm_rows
     torch.cuda.empty_cache()
     zoo_steps = phase_zoo(dev, host, smi)
+    torch.cuda.empty_cache()
+    hetero_rows, hetero_steps = phase_hetero(dev, smi)
+    rows += hetero_rows
+    torch.cuda.empty_cache()
+    readout_steps = phase_readouts(dev, host)
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -4316,7 +5065,8 @@ def main():
                                spmm_ms_per_step=spmm["dedup_uncached"],
                                tensor_s=t_6),
         **gat_steps, **dedup_steps, **unimp_steps, **ddot_steps,
-        **weighted_steps, **sddmm_steps, **zoo_steps, "device": smi}}),
+        **weighted_steps, **sddmm_steps, **zoo_steps, **hetero_steps,
+        **readout_steps, "device": smi}}),
         flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "Graph", "Message", "math", "ops", "nn",
-           "utils", "datasets", "models", "native"]
+__all__ = ["resolve_device", "Graph", "BiGraph", "HeterGraph", "Message",
+           "math", "ops", "nn", "utils", "datasets", "models", "native"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -44,6 +44,8 @@ def resolve_device(device=None) -> torch.device:
 
 # the submodules import resolve_device from here: bind it first
 from .graph import Graph  # noqa: E402
+from .bigraph import BiGraph  # noqa: E402
+from .heter_graph import HeterGraph  # noqa: E402
 from .message import Message  # noqa: E402
 from . import math  # noqa: E402
 from . import ops  # noqa: E402

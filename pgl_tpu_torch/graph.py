@@ -152,26 +152,14 @@ class Graph:
     @property
     def graph_node_id(self):
         """[N] the subgraph each node belongs to."""
-        return self._subgraph_ids(self._graph_node_index, self._num_nodes)
+        return _subgraph_ids(self._graph_node_index, self._num_nodes,
+                             self._edges)
 
     @property
     def graph_edge_id(self):
         """[E] the subgraph each edge belongs to."""
-        return self._subgraph_ids(self._graph_edge_index, self._num_edges)
-
-    def _subgraph_ids(self, indptr, total):
-        """Subgraph ids from an indptr over subgraphs (int32 on the host,
-        int64 on the device, as the indexes)."""
-        if self._is_tensor:
-            device = self._edges.device
-            if indptr is None:
-                return torch.zeros(total, dtype=torch.int64, device=device)
-            pos = torch.arange(total, device=device)
-            return torch.searchsorted(indptr, pos, right=True) - 1
-        if indptr is None:
-            return np.zeros(total, dtype=np.int32)
-        counts = np.diff(np.asarray(indptr))
-        return np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+        return _subgraph_ids(self._graph_edge_index, self._num_edges,
+                             self._edges)
 
     @property
     def node_feat(self) -> Dict:
@@ -480,32 +468,17 @@ class Graph:
         host = self.numpy()
         dst_idx, src_idx = host.adj_dst_index, host.adj_src_index
 
-        def put(x, dtype=None):
-            a = np.asarray(x, dtype=dtype)
-            if not a.flags.writeable:   # a memory map (``load``): copy
-                a = np.array(a)
-            return torch.as_tensor(a, device=device)
-
-        def put_index(indptr):
-            return None if indptr is None else put(indptr, np.int64)
-
-        def put_feat(x):
-            # float64 becomes float32, as the reference's jnp.asarray gives
-            # in JAX's 32-bit mode; integers keep their dtype (int64 stays
-            # int64, where the reference gives int32: torch's losses and
-            # index ops take int64)
-            a = np.asarray(x)
-            return put(a, np.float32 if a.dtype == np.float64 else None)
-
         return Graph(
-            put(host.edges, np.int64),
+            _put(host.edges, device, np.int64),
             num_nodes=self._num_nodes,
-            node_feat={k: put_feat(v) for k, v in host.node_feat.items()},
-            edge_feat={k: put_feat(v) for k, v in host.edge_feat.items()},
+            node_feat={k: _put_feat(v, device)
+                       for k, v in host.node_feat.items()},
+            edge_feat={k: _put_feat(v, device)
+                       for k, v in host.edge_feat.items()},
             adj_src_index=src_idx.tensor(device),
             adj_dst_index=dst_idx.tensor(device),
-            _graph_node_index=put_index(host._graph_node_index),
-            _graph_edge_index=put_index(host._graph_edge_index),
+            _graph_node_index=_put_index(host._graph_node_index, device),
+            _graph_edge_index=_put_index(host._graph_edge_index, device),
             _num_graph=self._num_graph,
             _spmm_layouts=host._build_spmm_layouts(device),
             _dedup_layouts=host._build_dedup_layouts(device))
@@ -551,22 +524,16 @@ class Graph:
         if not self._is_tensor:
             return self
 
-        def get(x):
-            return x.detach().cpu().numpy()
-
-        def get_index(indptr):
-            return None if indptr is None else get(indptr).astype(np.int32)
-
         return Graph(
-            get(self._edges), num_nodes=self._num_nodes,
-            node_feat={k: get(v) for k, v in self._node_feat.items()},
-            edge_feat={k: get(v) for k, v in self._edge_feat.items()},
+            _get(self._edges), num_nodes=self._num_nodes,
+            node_feat={k: _get(v) for k, v in self._node_feat.items()},
+            edge_feat={k: _get(v) for k, v in self._edge_feat.items()},
             adj_src_index=(self._adj_src_index.numpy()
                            if self._adj_src_index is not None else None),
             adj_dst_index=(self._adj_dst_index.numpy()
                            if self._adj_dst_index is not None else None),
-            _graph_node_index=get_index(self._graph_node_index),
-            _graph_edge_index=get_index(self._graph_edge_index),
+            _graph_node_index=_get_index(self._graph_node_index),
+            _graph_edge_index=_get_index(self._graph_edge_index),
             _num_graph=self._num_graph)
 
     # -- batching -----------------------------------------------------------
@@ -682,6 +649,52 @@ class Graph:
                 f"num_edges={self._num_edges}, num_graph={self._num_graph}, "
                 f"mode={mode}, node_feat={list(self._node_feat)}, "
                 f"edge_feat={list(self._edge_feat)})")
+
+
+def _subgraph_ids(indptr, total, like):
+    """Subgraph ids from an indptr over subgraphs: int64 on ``like``'s
+    device where ``like`` is a tensor, as the indexes, int32 numpy
+    otherwise."""
+    if isinstance(like, torch.Tensor):
+        device = like.device
+        if indptr is None:
+            return torch.zeros(total, dtype=torch.int64, device=device)
+        pos = torch.arange(total, device=device)
+        return torch.searchsorted(indptr, pos, right=True) - 1
+    if indptr is None:
+        return np.zeros(total, dtype=np.int32)
+    counts = np.diff(np.asarray(indptr))
+    return np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+
+
+def _put(x, device, dtype=None):
+    """A host array as a tensor on ``device`` (a copy of a read-only memory
+    map, as ``load`` gives)."""
+    a = np.asarray(x, dtype=dtype)
+    if not a.flags.writeable:
+        a = np.array(a)
+    return torch.as_tensor(a, device=device)
+
+
+def _put_index(indptr, device):
+    return None if indptr is None else _put(indptr, device, np.int64)
+
+
+def _put_feat(x, device):
+    """A feature on ``device``: float64 becomes float32, as the reference's
+    ``jnp.asarray`` gives in JAX's 32-bit mode; integers keep their dtype
+    (int64 stays int64, where the reference gives int32: torch's losses and
+    index ops take int64)."""
+    a = np.asarray(x)
+    return _put(a, device, np.float32 if a.dtype == np.float64 else None)
+
+
+def _get(x):
+    return x.detach().cpu().numpy()
+
+
+def _get_index(indptr):
+    return None if indptr is None else _get(indptr).astype(np.int32)
 
 
 def _concat_feats(feat_dicts, cat):

@@ -11,12 +11,12 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..nn import (APPNP, BernProp, ChebProp, FAConv, GATConv, GATv2Conv,
                   GCNConv, GCNII, GINConv, GPRConv, GraphPool, GraphSageConv,
-                  SGCConv, SSGCConv)
+                  LSTMAggregation, SGCConv, SSGCConv)
 from ..nn.conv import _dense, _dropout, _layer_generator
 
 __all__ = ["GCN", "GAT", "GraphSage", "GIN", "DeepGCNII", "APPNPModel",
            "SGC", "SSGC", "GATv2", "GPRGNN", "FAGCN", "BernNet",
-           "ChebNetII"]
+           "ChebNetII", "LSTMSage"]
 
 
 def _remat(fn, *args, generator: Optional[torch.Generator] = None):
@@ -408,3 +408,44 @@ class GPRGNN(nn.Module):
 
     def forward(self, graph, feature, training: bool = False):
         return self.gpr(graph, feature, training=training)
+
+
+class LSTMSage(_Dropout, nn.Module):
+    """GraphSAGE with LSTM aggregation (``pgl_tpu/models/gnn.py:304-336``):
+    each layer projects (``proj_{i}``), sends each edge its source's row,
+    aggregates each destination's messages with ``lstm_{i}``
+    (``LSTMAggregation``, at most ``max_degree`` a node) and applies
+    ``out_{i}`` to ``[h | aggregate]``, relu between layers; dropout on
+    each layer's input when training, from the model's own generator."""
+
+    def __init__(self, input_size: int, num_class: int, num_layers: int = 2,
+                 hidden_size: int = 16, max_degree: int = 32,
+                 dropout: float = 0.5, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.num_layers = num_layers
+        self.dropout = dropout
+        for i in range(num_layers):
+            last = i == num_layers - 1
+            self.add_module(f"proj_{i}", _dense(
+                input_size if i == 0 else hidden_size, hidden_size, gen))
+            self.add_module(f"lstm_{i}", LSTMAggregation(
+                hidden_size, max_degree, generator=gen, device=device))
+            self.add_module(f"out_{i}", _dense(
+                2 * hidden_size, num_class if last else hidden_size, gen))
+        self.generator = _layer_generator(gen, device)
+        self.to(device)
+
+    def forward(self, graph, feature, training: bool = False):
+        src = graph.edges[:, 0]
+        for i in range(self.num_layers):
+            feature = self._drop(feature, training)
+            h = getattr(self, f"proj_{i}")(feature)
+            agg = getattr(self, f"lstm_{i}")(graph, h.index_select(0, src))
+            feature = getattr(self, f"out_{i}")(torch.cat([h, agg], dim=-1))
+            if i < self.num_layers - 1:
+                feature = torch.relu(feature)
+        return feature

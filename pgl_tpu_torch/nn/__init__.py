@@ -3,16 +3,19 @@
 from . import functional
 from .conv import (
     GCNConv, GATConv, GATv2Conv, APPNP, GPRConv, GCNII, TransformerConv,
-    GINConv, GraphSageConv, PinSageConv, SGCConv, SSGCConv, NGCFConv,
-    LightGCNConv, FAConv, BernProp, ChebProp,
+    GINConv, GraphSageConv, PinSageConv, RGCNConv, SGCConv, SSGCConv,
+    NGCFConv, LightGCNConv, FAConv, BernProp, ChebProp,
 )
-from .pool import GraphPool, GraphNorm
+from .pool import GraphPool, GraphNorm, Set2Set, GlobalAttention, SAGPool
+from .gmt_pool import GraphMultisetTransformer
+from .aggregation import LSTMAggregation
 
 __all__ = [
     "functional",
     "GCNConv", "GATConv", "GATv2Conv", "APPNP", "GPRConv", "GCNII",
-    "TransformerConv", "GINConv", "GraphSageConv", "PinSageConv",
+    "TransformerConv", "GINConv", "GraphSageConv", "PinSageConv", "RGCNConv",
     "SGCConv", "SSGCConv", "NGCFConv", "LightGCNConv", "FAConv",
     "BernProp", "ChebProp",
-    "GraphPool", "GraphNorm",
+    "GraphPool", "GraphNorm", "Set2Set", "GlobalAttention", "SAGPool",
+    "GraphMultisetTransformer", "LSTMAggregation",
 ]

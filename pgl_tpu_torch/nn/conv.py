@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from ..ops.dispatch import plain_on_cuda
+from ..ops.dispatch import fused_attention_graph, plain_on_cuda
 from ..ops.kernels.attention_kernels import (fused_gat_attention,
                                              fused_graph_attention,
                                              gat_score_features)
@@ -29,7 +29,7 @@ from .functional import graph_op as GF
 
 __all__ = ["GCNConv", "GATConv", "GATv2Conv", "APPNP", "GPRConv", "GCNII",
            "TransformerConv", "GINConv", "GraphSageConv", "PinSageConv",
-           "SGCConv", "SSGCConv", "NGCFConv", "LightGCNConv", "FAConv",
+           "RGCNConv", "SGCConv", "SSGCConv", "NGCFConv", "LightGCNConv", "FAConv",
            "BernProp", "ChebProp", "gpr_init_weights", "sgc_precompute",
            "ssgc_precompute", "lecun_normal_"]
 
@@ -278,9 +278,11 @@ class GATConv(nn.Module):
         it takes K9/K10 in that mode, ``"unfused"`` where it leaves the
         fused kernels (attention dropout at ``3·H > 128``, or ``inputs``,
         the projected feature and scores that the kernels would receive,
-        that ``dispatch.plain_on_cuda`` leaves to the plain path)."""
+        that ``dispatch.plain_on_cuda`` leaves to the plain path, or a graph
+        without attention work lists: a ``BiGraph``)."""
         H = self.num_heads
-        if (rate > 1e-15 and 3 * H > 128) or plain_on_cuda(*inputs):
+        if ((rate > 1e-15 and 3 * H > 128) or plain_on_cuda(*inputs)
+                or not fused_attention_graph(graph)):
             return "unfused"
         if _dedup_route(graph, rate, self.attn_drop_mode):
             return "dedup"
@@ -439,7 +441,8 @@ class TransformerConv(nn.Module):
         k = self.k(feature)
         v = self.v(feature)
         fused = (edge_feat is None and self.concat
-                 and not plain_on_cuda(q, k, v))
+                 and not plain_on_cuda(q, k, v)
+                 and fused_attention_graph(graph))
         dedup = fused and _dedup_route(graph, rate, self.attn_drop_mode)
         if edge_feat is not None and dropping:
             edge_feat = _dropout(edge_feat, self.feat_drop, self.generator)
@@ -500,7 +503,9 @@ def _no_self_loop(name: str, self_loop: bool):
     if self_loop:
         raise ValueError(
             f"{name}(self_loop=True): adding self loops rebuilds the edge "
-            "set; build the graph with them before tensor()")
+            "set; rebuild the host graph with "
+            "pgl_tpu_torch.utils.transform.add_self_loops(replace=True) "
+            "before tensor()")
 
 
 class GraphSageConv(nn.Module):
@@ -710,6 +715,51 @@ class GINConv(nn.Module):
         if self.activation is not None:
             output = self.activation(output)
         return self.linear2(output)
+
+
+def _xavier_uniform(shape, generator: torch.Generator) -> torch.Tensor:
+    """flax ``xavier_uniform`` on ``shape``: the last axis is fan out, the
+    second last fan in, each times the product of the others."""
+    receptive = math.prod(shape[:-2])
+    fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+class RGCNConv(nn.Module):
+    """R-GCN: for each edge type ``r`` of ``etypes``, the mean over the
+    in-edges of ``feat @ weight[r]``, summed over the types
+    (``pgl_tpu/nn/conv.py:612-643``). With ``0 < num_bases < len(etypes)``
+    the weights are ``w_comp`` [R, B] combinations of ``weight`` [B, in,
+    out] (basis decomposition); otherwise ``weight`` is [R, in, out].
+    ``graph`` is a ``HeterGraph`` or a dict etype -> ``Graph``; each mean
+    is K1 on the card, once a type each way."""
+
+    def __init__(self, in_dim: int, out_dim: int, etypes, num_bases: int = 0,
+                 *, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        self.in_dim = in_dim
+        self.out_dim = out_dim
+        self.etypes = list(etypes)
+        num_rels = len(self.etypes)
+        if num_bases <= 0 or num_bases >= num_rels:
+            num_bases = num_rels
+        self.num_bases = num_bases
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.weight = nn.Parameter(_xavier_uniform(
+            (num_bases, in_dim, out_dim), gen))
+        self.w_comp = nn.Parameter(_xavier_uniform(
+            (num_rels, num_bases), gen)) if num_bases < num_rels else None
+        self.to(resolve_device(device))
+
+    def forward(self, graph, feat):
+        weight = self.weight
+        if self.w_comp is not None:
+            weight = torch.einsum("rb,bio->rio", self.w_comp, weight)
+        return sum(graph[etype].send_recv(feat @ weight[i], "mean")
+                   for i, etype in enumerate(self.etypes))
 
 
 class _CachedPropagation(nn.Module):

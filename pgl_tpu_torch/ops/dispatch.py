@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["plain_on_cuda", "use_spmm_kernel",
+__all__ = ["plain_on_cuda", "use_spmm_kernel", "fused_attention_graph",
            "use_attention_kernel", "use_sddmm_kernel", "DEDUP",
            "DEDUP_MIN_EDGES", "DEDUP_MAX_EDGES",
            "DEDUP_MAX_RATIO", "COUNTS_MAX", "COUNTS_BUDGET_BYTES"]
@@ -92,6 +92,14 @@ def use_spmm_kernel(feature: torch.Tensor) -> bool:
     any device other than CUDA or the CPU.
     """
     return _use_kernel(feature, "SpMM")
+
+
+def fused_attention_graph(graph) -> bool:
+    """True where ``graph`` has the attention kernels' work lists (a
+    ``Graph``); False for a ``BiGraph``, whose source and destination
+    spaces differ, so the attention layers take their unfused path on it
+    (``pgl_tpu/ops/dispatch.py:51-55``)."""
+    return hasattr(graph, "_attention_layouts")
 
 
 def use_attention_kernel(tensor: torch.Tensor) -> bool:

@@ -47,6 +47,9 @@ mode, kernel one of ``gat_fwd``, ``gat_dq``, ``gat_dkv``, and by
 ``(kernel, H, dsh, dvh)`` in dot mode, kernel one of ``dot_fwd``,
 ``dot_dq``, ``dot_dkv``; where a layout has split rows, each kernel's
 second launch counts under its name with ``_combine``.
+``LAUNCHES_BY_LAYOUT`` counts them again by ``(key, id(layout))``, so that
+the launches on each of several graphs of one shape (the relations of a
+heterogeneous graph) are read apart.
 """
 
 from __future__ import annotations
@@ -72,7 +75,8 @@ __all__ = ["AttentionLayout", "build_attention_layouts", "drop_keep",
            "dot_attention_reference", "dot_dq_reference",
            "dot_dkv_reference", "fused_graph_attention",
            "gat_score_features", "k10_work_list", "k10_lanes", "ET",
-           "PACK_ROW", "MAX_SLOTS", "LAUNCHES_BY_SHAPE", "reset_launches"]
+           "PACK_ROW", "MAX_SLOTS", "LAUNCHES_BY_SHAPE", "LAUNCHES_BY_LAYOUT",
+           "reset_launches"]
 
 # most edges in one piece (one warp's work); read when a layout is built
 ET = 256
@@ -88,6 +92,7 @@ PACK_ROW = 32
 MAX_SLOTS = 512
 
 LAUNCHES_BY_SHAPE: Counter = Counter()
+LAUNCHES_BY_LAYOUT: Counter = Counter()
 
 _MASK32 = 0xFFFFFFFF
 
@@ -95,6 +100,7 @@ _MASK32 = 0xFFFFFFFF
 def reset_launches():
     """Set the launch counts to 0."""
     LAUNCHES_BY_SHAPE.clear()
+    LAUNCHES_BY_LAYOUT.clear()
 
 
 @dataclass(frozen=True)
@@ -490,9 +496,12 @@ def _raise_on(rc, name):
 
 
 def _count(name, layout, *shape):
-    LAUNCHES_BY_SHAPE[(name, *shape)] += 1
+    keys = [(name, *shape)]
     if layout.split_rows.shape[0]:
-        LAUNCHES_BY_SHAPE[(f"{name}_combine", *shape)] += 1
+        keys.append((f"{name}_combine", *shape))
+    for key in keys:
+        LAUNCHES_BY_SHAPE[key] += 1
+        LAUNCHES_BY_LAYOUT[key, id(layout)] += 1
 
 
 def _stream(t):

@@ -31,7 +31,10 @@ backward launch, dx with or without dw, is keyed by the CSR layout; add's
 dx alone is K1's unweighted sum and counts as K1), and ``"mul_dw"`` or
 ``"add_dw"`` for a launch that gives dw alone; one per call, which is two
 CUDA launches when a row was split and dx is written.
-``LAUNCHES`` is their sum.
+``LAUNCHES`` is their sum. ``LAUNCHES_BY_LAYOUT`` counts K1's launches
+again by ``((layout.kind, D), id(layout))``, so that the launches on each of
+several graphs of one shape (the relations of a heterogeneous graph) are
+read apart.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ __all__ = ["SpmmLayout", "build_spmm_layout", "cut_rows", "cut_spmm_rows",
            "pack_rows", "spmm", "spmm_reference", "spmm_weighted",
            "spmm_weighted_reference", "weight_grad_reference",
            "sorted_segment_sum", "ET", "MIN_PIECE", "ROW_PIECES", "PACK",
-           "PACK_ROW", "LAUNCHES", "LAUNCHES_BY_SHAPE", "reset_launches"]
+           "PACK_ROW", "LAUNCHES", "LAUNCHES_BY_SHAPE", "LAUNCHES_BY_LAYOUT",
+           "reset_launches"]
 
 # The pieces of K1's work list (:func:`cut_spmm_rows`, K1w's too): a row of
 # more than MIN_PIECE edges is cut into about ROW_PIECES pieces of MIN_PIECE
@@ -74,6 +78,7 @@ PACK = 32
 PACK_ROW = 8
 
 LAUNCHES_BY_SHAPE: Counter = Counter()
+LAUNCHES_BY_LAYOUT: Counter = Counter()
 
 
 def __getattr__(name):
@@ -85,6 +90,7 @@ def __getattr__(name):
 def reset_launches():
     """Set the launch counts to 0."""
     LAUNCHES_BY_SHAPE.clear()
+    LAUNCHES_BY_LAYOUT.clear()
 
 
 @dataclass(frozen=True)
@@ -383,6 +389,7 @@ def _spmm_cuda(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
                            device=x.device)
     _launch(x, layout, out, partials)
     LAUNCHES_BY_SHAPE[(layout.kind, D)] += 1
+    LAUNCHES_BY_LAYOUT[((layout.kind, D), id(layout))] += 1
     return out
 
 

@@ -65,16 +65,17 @@ def same_ragged(got, want):
 def test_namespaces_bind_the_reference_names():
     """The package binds the reference's ported names
     (``pgl_tpu/__init__.py:12-29``), ``ops`` exports its message passing
-    (``pgl_tpu/ops/__init__.py:4-11``), and ``nn``, ``nn.functional`` and
-    ``models`` export what is ported of the reference's ``__all__``."""
+    (``pgl_tpu/ops/__init__.py:4-11``), ``utils`` its ``transform``, and
+    ``nn``, ``nn.functional`` and ``models`` export what is ported of the
+    reference's ``__all__``."""
     import pgl_tpu.models
     import pgl_tpu.nn
     import pgl_tpu.nn.functional
     import pgl_tpu.ops
     import pgl_tpu_torch
 
-    for name in ("Graph", "Message", "math", "ops", "nn", "utils",
-                 "datasets", "models", "native"):
+    for name in ("Graph", "BiGraph", "HeterGraph", "Message", "math", "ops",
+                 "nn", "utils", "datasets", "models", "native"):
         assert getattr(pgl_tpu_torch, name) is not None, name
         assert name in pgl_tpu_torch.__all__ and name in pgl_tpu.__all__
     assert pgl_tpu_torch.Message is Message
@@ -88,9 +89,12 @@ def test_namespaces_bind_the_reference_names():
                           torch.as_tensor(edges[:, 1]), 60),
           pgl_tpu.ops.send_u_recv(jnp.asarray(x), jnp.asarray(edges[:, 0]),
                                   jnp.asarray(edges[:, 1]), 60))
-    waiting = {"RGCNConv", "Set2Set", "GlobalAttention", "SAGPool",
-               "GraphMultisetTransformer", "LSTMAggregation", "LSTMSage",
-               "RUniMP", "label_propagation_smooth", "BipartiteSAGE", "kg"}
+    assert pgl_tpu_torch.BiGraph is not None
+    assert pgl_tpu_torch.utils.transform is not None
+    assert "transform" in pgl_tpu_torch.utils.__all__
+    assert set(pgl_tpu_torch.utils.transform.__all__) == set(
+        pgl_tpu.utils.transform.__all__)
+    waiting = {"BipartiteSAGE", "kg"}
     for mine, ref in ((pgl_tpu_torch.nn, pgl_tpu.nn),
                       (pgl_tpu_torch.nn.functional, pgl_tpu.nn.functional),
                       (pgl_tpu_torch.models, pgl_tpu.models)):

@@ -34,7 +34,10 @@ kind of work item (``check_k1w_items``). K11, the dedup SDDMM,
 must equal its plain version bit for bit (``check_sddmm``: one IEEE
 operation a value, pads +0), and its backward (K1 over ``by_src`` and
 ``by_dst``) goes through ``check_sddmm_grad`` (float64 with the terms scale,
-the same bits twice, its launches).
+the same bits twice, its launches). K1 over a BiGraph's rectangular
+layouts goes through ``check_rect_spmm``, and the dot K9/K10 on a relation
+whose rows are mostly empty through ``check_empty_rows_dot``, each with
+exact zeros on the rows without edges.
 """
 
 import dataclasses
@@ -44,9 +47,10 @@ import pytest
 import torch
 
 from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS,
-                        K10_SHAPES, SDDMM_OPS,
+                        K10_SHAPES, READOUT_PER_STEP, SDDMM_OPS,
                         attention_graph, attention_inputs, check,
                         check_attention, check_counts, check_dedup,
+                        check_empty_rows_dot, check_rect_spmm,
                         check_dedup_attention, check_dedup_dot,
                         check_dedup_exact, check_dot, check_k10_case,
                         check_k1w_items, check_k7_case, check_parent_bits,
@@ -55,14 +59,16 @@ from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS,
                         dedup_case_edges, dedup_case_facts, dedup_layouts,
                         dispatch_settings, dot_inputs, hard_features,
                         k10_case_graphs, k1_case_edges, k1_features,
-                        k7_case_atts, no_dropout, phase_attention_mask,
+                        k7_case_atts, mag_host, motif_host, no_dropout,
+                        parity_and_steps, phase_attention_mask,
+                        noisy_features, readout_model, readout_trainer,
                         phase_zoo_small,
                         phase_dedup_attention_mask, run_dedup_attention,
                         run_dedup_dot,
                         run_dedup_twice, run_dot, run_weighted, sddmm_inputs,
                         skewed_graph, spread_weights, weighted_terms,
                         without_counts)
-from pgl_tpu_torch import Graph
+from pgl_tpu_torch import BiGraph, Graph
 from pgl_tpu_torch.datasets import community_graph
 from pgl_tpu_torch.models import FAGCN, GAT, GATv2, GCN, UniMP
 from pgl_tpu_torch.nn import GATConv, TransformerConv
@@ -101,6 +107,8 @@ def test_spmm_kernel_matches_plain_version(cuda, D):
     torch.cuda.synchronize()
     assert sk.LAUNCHES == 2
     assert dict(sk.LAUNCHES_BY_SHAPE) == {("csc", D): 1, ("csr", D): 1}
+    assert dict(sk.LAUNCHES_BY_LAYOUT) == {(("csc", D), id(csc)): 1,
+                                           (("csr", D), id(csr)): 1}
     with torch.no_grad():
         check_spmm("csc", out, x, csc)
         check_spmm("csr", x.grad, w, csr)
@@ -1325,3 +1333,51 @@ def test_zoo_on_cuda_matches_cpu(cuda):
     sum or mean runs and nowhere else; ``remat`` bit for bit at dropout
     0.6 for GCN, GraphSage and DeepGCNII."""
     phase_zoo_small(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_k1_over_a_rectangular_layout_with_empty_rows(cuda, reduce):
+    """A BiGraph of 3,000 sources -> 8,000 destinations whose edges reach
+    only the first 2,000 (three quarters of the rows empty) and whose
+    source 7 sends 40% of them (a split row on the gradient's layout): K1
+    both ways against float64, zeros on the empty rows."""
+    rng = np.random.default_rng(9)
+    E = 30000
+    src = rng.integers(0, 3000, E)
+    src[:E * 2 // 5] = 7
+    edges = np.stack([src, rng.integers(0, 2000, E)], axis=1)
+    bg = BiGraph(edges, src_num_nodes=3000, dst_num_nodes=8000).tensor(cuda)
+    csc, csr = bg._spmm_layouts
+    assert (csc.num_rows, csr.num_rows) == (8000, 3000)
+    assert csr.item_partials > 0
+    check_rect_spmm("bigraph", bg, reduce, cuda,
+                    torch.Generator(device=cuda).manual_seed(3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("etype", ["writes", "writed_by"])
+def test_dot_kernels_on_a_relation_with_empty_rows(cuda, etype, rate):
+    """The dot-mode K9/K10 at UniMP's shape on a small ogbn-mag-shaped
+    relation (``writes``: no author receives an edge; ``writed_by``: no
+    paper), against float64, zeros on the rows without edges."""
+    hg, _, P = mag_host(num_papers=3000, avg_degree=16)
+    g = hg.tensor(cuda)[etype]
+    empty = int((g.indegree() == 0).sum())
+    assert empty > g.num_nodes // 3
+    check_empty_rows_dot(etype, g, rate, cuda,
+                         torch.Generator(device=cuda).manual_seed(4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(READOUT_PER_STEP))
+def test_readouts_on_cuda_match_cpu(cuda, name):
+    """``chip_smoke.parity_and_steps`` on 64 motif graphs: each readout
+    model CUDA against a float64 CPU run, then 3 steps with its K1 launches
+    asserted."""
+    host, labels = motif_host(num_graphs=64)
+    host = noisy_features(host)
+    parity_and_steps(name, host, host, lambda d: readout_model(name, d),
+                     readout_trainer(name, labels), READOUT_PER_STEP[name],
+                     cuda)
