@@ -240,6 +240,35 @@ there is no card or any phase fails. Phases:
    launches (``READOUT_PER_STEP``; LSTMSage none). The launches of the
    per-relation rows are read on each relation's layouts
    (``LAUNCHES_BY_LAYOUT``), the BiGraph rows' in its checks' runs.
+13. sampling, the data pipeline, walks and partitioning, on the UniMP
+   graph (``unimp_host``, 2,404,895 edges, in-degree up to 33; the
+   sampler's copy holds the edges alone, its CSC built before the workers
+   fork): (a) host-sampled minibatch GraphSAGE (``bench.py:354-485``'s
+   pipeline at the arxiv stand-in's size): ``make_padded_batch_fn(...,
+   (25, 10), 2^17, 2^17, pack=True, layouts=True)`` in the port's
+   ``Dataloader`` with 4 forked workers, each batch of 512 seeds (drawn
+   from the first 90,941 nodes) sampled, padded (the sentinel row takes
+   the pad edges) and given both K1 layouts on the host, sent through a
+   pinned buffer by one non-blocking copy, its graph rebuilt on the card
+   by ``padded_batch_graph`` and the features gathered there by ``sidx``;
+   K1 on the host-built layouts against float64; ``GraphSage(128, 40, 2
+   layers, 128 hidden, dropout 0)`` with Adam at lr 1e-3 takes 3 warm-up
+   and 20 timed batches asserting 2 CSC and 1 CSR K1 launches at D = 128
+   a step and a finite, falling loss; the breakdown of ``bench.py:443-482``
+   (the pipeline ms a batch; sample and collate with 4 workers and in 1
+   process; the copy plus the step) and a torch.profiler trace (device
+   time, K1's, the idle share); K1's rows at these shapes; (b)
+   ``NeighborSampler`` + ``BipartiteSAGE`` at the same seeds and samples,
+   one generator on the card, 3 warm-up and 20 timed steps (every sampled
+   neighbour an in-neighbour, masks where the degree is 0, a finite,
+   falling loss), the device time by kind (GEMMs, gathers, the rest; the
+   sampler alone), the idle share and the peak memory; (c) ``DeviceWalker``
+   from every node: ``random_walk`` (length 20, DeepWalk's) and
+   ``node2vec_walk`` (p = 0.25, q = 4, node2vec's), every hop checked on
+   the card as an edge by a binary search over the neighbour-sorted CSR
+   and every dead end -1 to the end, walks per second; ``skipgram_pairs``
+   (window 5) on the node2vec block; (d) on the host, ``metis_partition``
+   into 16 parts and ``reorder_graph``: seconds and the edge cut.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -800,8 +829,11 @@ def k1_rows(tag, lays, tables, dims, dev, by_shape):
     ``torch.sparse.mm`` on a CSR tensor of the layout, the bound, the max
     |err| against float64) over each layout of ``lays`` gathering a table
     of ``tables[i]`` rows, at each width of ``dims``; ``by_shape[(kind,
-    D)]`` is the launches in the run the row stands for. Rows are named
-    ``spmm_<kind>_d<D>`` and ``_<tag>``."""
+    D)]`` is the launches in the run the row stands for. The bound reads
+    the table's distinct gathered rows once (a batch graph gathers a few
+    of its bucket's rows), the indices and row pointer once, and writes
+    every output row. Rows are named ``spmm_<kind>_d<D>`` and
+    ``_<tag>``."""
     import torch
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
 
@@ -812,6 +844,7 @@ def k1_rows(tag, lays, tables, dims, dev, by_shape):
         A = torch.sparse_csr_tensor(lay.indptr, lay.indices,
                                     torch.ones(lay.num_edges, device=dev),
                                     size=(lay.num_rows, n))
+        gathered = int(torch.unique(lay.indices).numel())
         for d in dims:
             x = torch.randn(n, d, device=dev, generator=gen)
             out = torch.empty(lay.num_rows, d, device=dev)
@@ -821,7 +854,7 @@ def k1_rows(tag, lays, tables, dims, dev, by_shape):
             lib_ms = time_ms(lambda: torch.sparse.mm(A, x), 50)
             with torch.no_grad():
                 err = check_spmm(f"timed {kind} D={d} {tag}", out, x, lay)
-            nbytes = 4 * (n * d + lay.num_edges
+            nbytes = 4 * (gathered * d + lay.num_edges
                           + lay.num_rows + 1 + lay.num_rows * d)
             ops = lay.num_edges * d
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -835,13 +868,14 @@ def k1_rows(tag, lays, tables, dims, dev, by_shape):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": lib_ms, "share": bound_ms / ms,
                 "shape": {"layout": kind, "rows": lay.num_rows,
-                          "table_rows": n, "edges": lay.num_edges, "D": d,
+                          "table_rows": n, "gathered_rows": gathered,
+                          "edges": lay.num_edges, "D": d,
                           "items": int(lay.items.shape[0]),
                           "split_rows": int(lay.item_split_rows.shape[0])}})
             print(f"[timing] {kind} D={d} {tag}: kernel {ms:.5f} ms, plain "
                   f"{plain_ms:.5f} ms, torch.sparse.mm {lib_ms:.5f} ms, "
-                  f"bound {bound_ms:.5f} ms ({bound_ms / ms:.3f} of it)",
-                  flush=True)
+                  f"bound {bound_ms:.5f} ms ({bound_ms / ms:.3f} of it; "
+                  f"{gathered} of {n} table rows gathered)", flush=True)
     return rows
 
 
@@ -1535,8 +1569,8 @@ def phase_gat_profile(g, tag="GAT", trainer=None):
     torch.profiler; prints the device time per step by kernel (attention
     kernels by name, with K1's folds on the dedup route; the rest by sum),
     the idle share 1 - busy / back-to-back step time, the eight largest
-    device kernels, and the host's own time per step (all and the eight
-    largest operators)."""
+    device kernels, the device time by kind (``device_kinds``), and the
+    host's own time per step (all and the eight largest operators)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1581,6 +1615,7 @@ def phase_gat_profile(g, tag="GAT", trainer=None):
                                     if "indexing_backward" in k),
         "device_top_ms": dict(sorted(device.items(),
                                      key=lambda kv: -kv[1])[:8]),
+        "device_ms_by_kind": device_kinds(device),
         "host_ms_per_step": sum(host.values()),
         "host_top_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:8])}
     print(f"[profile] {tag} step: {json.dumps(profile_line)}", flush=True)
@@ -4924,6 +4959,425 @@ def phase_readouts(dev, head_host):
     return {f"readout {k}": v for k, v in steps.items()}
 
 
+# -- phase 13: sampling, the data pipeline, walks and partitioning ----------
+
+SAGE_B, SAGE_SAMPLES = 512, (25, 10)
+SAGE_BUCKETS = (1 << 17, 1 << 17)
+SAGE_PER_STEP = {("csc", 128): 2, ("csr", 128): 1}
+SAGE_WORKERS = 4
+WALK_LEN, WALK_P, WALK_Q, WALK_WIN = 20, 0.25, 4.0, 5
+PARTS = 16
+
+
+def sage_items(labels, n, seed=0):
+    """``n`` (node, label) items, nodes drawn from the first
+    ``UNIMP_TRAIN`` (the train split's size), as a ``Dataset``."""
+    from pgl_tpu_torch.utils.data import Dataset
+    nodes = np.random.default_rng(seed).choice(UNIMP_TRAIN, n)
+
+    class Items(Dataset):
+        def __getitem__(self, i):
+            return int(nodes[i]), int(labels[nodes[i]])
+
+        def __len__(self):
+            return n
+
+    return Items()
+
+
+class PinnedCopy:
+    """Host batches to the card through one pinned buffer of ``words``
+    int32 words: each batch is copied into it, once the last batch's copy
+    has finished, and sent by one non-blocking copy."""
+
+    def __init__(self, dev, words):
+        import torch
+        self.dev = dev
+        self.buf = torch.empty(words, dtype=torch.int32, pin_memory=True)
+        self.done = None
+
+    def __call__(self, batch):
+        import torch
+        n = batch.shape[0]
+        if n > self.buf.shape[0]:
+            raise ValueError(f"a batch of {n} words; the pinned buffer "
+                             f"holds {self.buf.shape[0]}")
+        if self.done is not None:
+            self.done.synchronize()
+        self.buf[:n].copy_(torch.from_numpy(batch))
+        out = self.buf[:n].to(self.dev, non_blocking=True)
+        self.done = torch.cuda.Event()
+        self.done.record()
+        return out
+
+
+def sage_minibatch_trainer(feat, dev):
+    """``GraphSage(128, 40, 2 layers, 128 hidden, dropout 0)`` and Adam at
+    lr 1e-3 on the card (weights from seed 0), and a step that takes a
+    host batch of the ``layouts=True`` collate: one pinned copy, the batch
+    graph with its K1 layouts, features gathered by ``sidx`` on the card,
+    the masked mean cross entropy. Returns (model, step(batch) -> loss)."""
+    import torch
+    from pgl_tpu_torch.models import GraphSage
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+    from pgl_tpu_torch.sampling import max_batch_words, padded_batch_graph
+
+    NB, EB = SAGE_BUCKETS
+    model = GraphSage(128, 40, num_layers=2, hidden_size=128, dropout=0.0,
+                      generator=torch.Generator().manual_seed(0), device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    copy = PinnedCopy(dev, max_batch_words(NB, EB))
+
+    def step(batch):
+        buf = copy(batch)
+        graph, sidx, smask, y, mask = padded_batch_graph(buf, NB, EB,
+                                                         host=batch)
+        x = feat.index_select(0, sidx.long()) * smask
+        opt.zero_grad(set_to_none=True)
+        loss = (ce(model(graph, x), y.long()) * mask).sum() / \
+            mask.sum().clamp(min=1.0)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return model, step
+
+
+def check_batch_graph_k1(batch, dev, tag="minibatch"):
+    """A ``layouts=True`` batch on the card: the K1 layouts that came from
+    the host (CSC and CSR) against K1's plain version in float64 at D =
+    128, the sentinel row's pad edges split into pieces (``check_spmm``:
+    within 1e-4 of the terms' 2-norm; the sentinel sums some 56,000
+    copies of one row, so its absolute error is of order 1); returns (max
+    |err|, the largest error as a share of that bound, the batch
+    graph)."""
+    import torch
+    from pgl_tpu_torch.sampling import padded_batch_graph
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+
+    NB, EB = SAGE_BUCKETS
+    buf = torch.as_tensor(batch).to(dev)
+    graph, *_ = padded_batch_graph(buf, NB, EB, host=batch)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    err = share = 0.0
+    for lay in graph._spmm_layouts:
+        if lay.item_split_rows.shape[0] < 1:
+            raise AssertionError(f"{tag}: the {lay.kind} layout has no "
+                                 "split row (the sentinel's pad edges)")
+        x = torch.randn(NB, 128, device=dev, generator=gen)
+        got = sk._spmm_one(x, lay)
+        err = max(err, check_spmm(f"{tag} {lay.kind}", got, x, lay))
+        x64 = x.double()
+        share = max(share, bound_share(
+            got, sk.spmm_reference(x64, lay),
+            sk.spmm_reference(x64 * x64, lay).sqrt()))
+    return err, share, graph
+
+
+def check_device_samples(sampler, layers, tag):
+    """Every sampled neighbour of a node with in-edges is one of its
+    in-neighbours (a binary search of ``(node, neighbour)`` over the CSC's
+    ``dst * N + src`` keys); masks are 1 exactly where the frontier holds a
+    node with in-edges (a zero-degree node's slots hold fill ids, which
+    the next layer masks); on the card."""
+    import torch
+    ip = sampler.indptr.long()
+    N = ip.shape[0] - 1
+    deg = ip[1:] - ip[:-1]
+    owner = torch.repeat_interleave(torch.arange(N, device=ip.device), deg)
+    keys = owner * N + sampler.sorted_v.long()
+    keys = torch.sort(keys).values
+    for frontier, neigh, mask in layers:
+        f = frontier.long()
+        inside = (f >= 0) & (f < N)
+        has = inside & (deg[f.clamp(0, N - 1)] > 0)
+        if not bool((mask == has[:, None]).all()):
+            raise AssertionError(f"{tag}: masks disagree with the degrees")
+        q = (f[:, None] * N + neigh.long())[mask]
+        pos = torch.searchsorted(keys, q).clamp(max=keys.shape[0] - 1)
+        if not bool((keys[pos] == q).all()):
+            raise AssertionError(f"{tag}: a sampled neighbour is not an "
+                                 "in-neighbour")
+    return True
+
+
+def check_walks(walker, walks, tag):
+    """Every hop of ``walks`` (until its -1) is an edge of the graph (a
+    binary search over the neighbour-sorted CSR, on the card), and a walk
+    that reached -1 stays -1 to its end; returns the number of hops
+    checked and of walks that hit a dead end."""
+    import torch
+    from pgl_tpu_torch.sampling import device_walk as dw
+    w = walks.long()
+    a, b = w[:, :-1], w[:, 1:]
+    live = b >= 0
+    if bool((live & (a < 0)).any()):
+        raise AssertionError(f"{tag}: a walk resumes after its -1")
+    ok = dw._is_neighbor(walker._nbr_key, walker.num_nodes, a[live],
+                         b[live])
+    if not bool(ok.all()):
+        raise AssertionError(f"{tag}: {int((~ok).sum())} hops are not "
+                             "edges")
+    return int(live.sum()), int((w[:, -1] < 0).sum())
+
+
+def phase_sampling(dev, smi, rows):
+    """Phase 13: (a) host-sampled minibatch GraphSAGE, (b) device-sampled
+    ``NeighborSampler`` + ``BipartiteSAGE``, (c) device walks and skip-gram
+    pairs, (d) METIS-style partitioning and reordering on the host, all on
+    the UniMP graph. Appends K1's rows at the minibatch shapes to
+    ``rows``; returns the step line's entries."""
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.models import BipartiteSAGE
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+    from pgl_tpu_torch.partition import metis_partition, reorder_graph
+    from pgl_tpu_torch.sampling import (DeviceWalker, NeighborSampler,
+                                        make_padded_batch_fn,
+                                        skipgram_pairs)
+    from pgl_tpu_torch.utils.data import Dataloader
+
+    NB, EB = SAGE_BUCKETS
+    t0 = time.perf_counter()
+    host, labels = unimp_host()
+    feat = torch.as_tensor(host.node_feat["h"]).to(dev)
+    y_dev = torch.as_tensor(labels.astype(np.int64), device=dev)
+    # the sampler's graph: the edges alone (features stay on the card), its
+    # CSC built before the workers fork
+    sg = Graph(host.edges, num_nodes=host.num_nodes)
+    sg.adj_dst_index
+    print(f"[sampling] graph N={host.num_nodes} E={host.num_edges}, "
+          f"largest in-degree {int(sg.indegree().max())}, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out = {}
+
+    # (a) host-sampled: workers sample, pad and build K1's layouts
+    fn = make_padded_batch_fn(sg, SAGE_SAMPLES, NB, EB, pack=True,
+                              layouts=True)
+    n_batches = WARMUP + STEPS
+    items = sage_items(labels, SAGE_B * STEPS)
+    t0 = time.perf_counter()
+    first = fn([items[i] for i in range(SAGE_B)])
+    t_first = time.perf_counter() - t0
+    err, share, g0 = check_batch_graph_k1(first, dev)
+    c0, r0 = g0._spmm_layouts
+    ns = int(first[0])
+    pads = int(g0.indegree()[NB - 1])
+    print(f"[sampling a] a batch of {SAGE_B} seeds, samples "
+          f"{SAGE_SAMPLES}: {ns} nodes, {EB - pads} edges in buckets of "
+          f"{NB} / {EB} ({pads} pad edges in the sentinel row); "
+          f"{first.nbytes / 2**20:.2f} MiB a batch with both layouts "
+          f"({c0.items.shape[0]} / {r0.items.shape[0]} items, {c0.item_split_rows.shape[0]} / "
+          f"{r0.item_split_rows.shape[0]} split rows); collate "
+          f"{t_first * 1e3:.2f} ms in this process; K1 on the host "
+          f"layouts against float64: max |err| {err:.3e}, {share:.4f} of "
+          f"the bound", flush=True)
+    del g0
+    model, step = sage_minibatch_trainer(feat, dev)
+    losses = [step(first) for _ in range(WARMUP)]
+    torch.cuda.synchronize()
+    reset_all_launches()
+    # the pipeline as bench.py times it: from the loader's start (the
+    # workers fork) to the last step's end
+    t0 = time.perf_counter()
+    for batch in Dataloader(items, batch_size=SAGE_B,
+                            num_workers=SAGE_WORKERS, collate_fn=fn):
+        losses.append(step(batch))
+    torch.cuda.synchronize()
+    pipeline_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    launches = {k: v for k, v in all_launches().items() if v}
+    want = {k: v * STEPS for k, v in SAGE_PER_STEP.items()}
+    losses = [float(v) for v in losses]
+    if len(losses) != n_batches or launches != want:
+        raise AssertionError(f"host-sampled SAGE: {len(losses)} batches, "
+                             f"launches {launches}, expected {want}")
+    if not all(np.isfinite(losses)) or not (np.mean(losses[-5:])
+                                            < np.mean(losses[:5])):
+        raise AssertionError(f"host-sampled SAGE: losses not finite and "
+                             f"falling: {losses}")
+    # sample and collate alone: 4 workers, then 1 process
+    t0 = time.perf_counter()
+    nb = sum(1 for _ in Dataloader(sage_items(labels, SAGE_B * STEPS, 1),
+                                   batch_size=SAGE_B,
+                                   num_workers=SAGE_WORKERS, collate_fn=fn))
+    collate_4_ms = (time.perf_counter() - t0) * 1e3 / nb
+    t0 = time.perf_counter()
+    for i in range(4):
+        fn([items[i * SAGE_B + j] for j in range(SAGE_B)])
+    collate_1_ms = (time.perf_counter() - t0) * 1e3 / 4
+    # the copy and the step alone, on one host batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        step(first)
+    torch.cuda.synchronize()
+    copy_step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    prof = phase_gat_profile(None, "minibatch GraphSage",
+                             lambda _: (model, lambda: step(first)))
+    k1_ms = sum(v for k, v in prof["attention_kernels_ms"].items()
+                if k.startswith("spmm_"))
+    out["sage host-sampled"] = {
+        "pipeline_ms": pipeline_ms, "sample_collate_4worker_ms":
+        collate_4_ms, "sample_collate_1proc_ms": collate_1_ms,
+        "copy_plus_step_ms": copy_step_ms,
+        "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+        "idle_share": prof["idle_share"], "k1_ms_per_step": k1_ms,
+        "batch_mib": first.nbytes / 2**20, "nodes": ns,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "launches_per_step": {f"{k[0]} D={k[1]}": v
+                              for k, v in SAGE_PER_STEP.items()}}
+    print(f"[sampling a] {smi}: pipeline {pipeline_ms:.4f} ms a batch "
+          f"({SAGE_WORKERS} workers, {STEPS} batches, from the loader's "
+          f"start); sample + collate "
+          f"{collate_4_ms:.4f} ms a batch with {SAGE_WORKERS} workers, "
+          f"{collate_1_ms:.4f} ms in 1 process; copy + step "
+          f"{copy_step_ms:.4f} ms; device busy "
+          f"{prof['device_busy_ms_per_step']:.5f} ms a step, K1 "
+          f"{k1_ms:.5f}, idle share {prof['idle_share']:.4f}; loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; K1 launches a step "
+          f"{SAGE_PER_STEP}", flush=True)
+    _, _, g1 = check_batch_graph_k1(first, dev)
+    rows += k1_rows("minibatch", g1._spmm_layouts, (NB, NB), (128,), dev,
+                    launches)
+    del g1, model, step
+    torch.cuda.empty_cache()
+
+    # (b) device-sampled: NeighborSampler + BipartiteSAGE, one generator
+    sampler = NeighborSampler(sg, SAGE_SAMPLES, device=dev)
+    dmodel = BipartiteSAGE(128, 40, num_layers=2, hidden_size=128,
+                           generator=torch.Generator().manual_seed(0),
+                           device=dev)
+    dopt = torch.optim.Adam(dmodel.parameters(), lr=1e-3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def dstep():
+        seeds = torch.randint(0, UNIMP_TRAIN, (SAGE_B,), generator=gen,
+                              device=dev)
+        sampled, _ = sampler.sample(seeds, gen)
+        dopt.zero_grad(set_to_none=True)
+        loss = ce(dmodel(feat, seeds, sampled), y_dev[seeds]).mean()
+        loss.backward()
+        dopt.step()
+        return loss.detach()
+
+    seeds = torch.randint(0, UNIMP_TRAIN, (SAGE_B,), generator=gen,
+                          device=dev)
+    layers, _ = sampler.sample(seeds, gen)
+    check_device_samples(sampler, layers, "NeighborSampler")
+    rows_gathered = SAGE_B + sum(n.numel() for _, n, _ in layers)
+    for _ in range(WARMUP):
+        dstep()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dlosses, times = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        dlosses.append(float(dstep()))
+        times.append(time.perf_counter() - t0)
+    dstep_ms = float(np.median(times)) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if not all(np.isfinite(dlosses)) or not (np.mean(dlosses[-5:])
+                                             < np.mean(dlosses[:5])):
+        raise AssertionError(f"device-sampled SAGE: losses not finite and "
+                             f"falling: {dlosses}")
+    dprof = phase_gat_profile(None, "device-sampled SAGE",
+                              lambda _: (dmodel, dstep))
+    sprof = phase_gat_profile(None, "NeighborSampler.sample", lambda _: (
+        None, lambda: sampler.sample(torch.randint(
+            0, UNIMP_TRAIN, (SAGE_B,), generator=gen, device=dev), gen)))
+    kinds = dprof["device_ms_by_kind"]
+    out["sage device-sampled"] = {
+        "step_ms": dstep_ms, "device_busy_ms_per_step":
+        dprof["device_busy_ms_per_step"], "idle_share": dprof["idle_share"],
+        "sampling_device_ms": sprof["device_busy_ms_per_step"],
+        "device_ms_by_kind": kinds, "peak_mib": peak,
+        "rows_gathered": rows_gathered, "loss_first": dlosses[0],
+        "loss_last": dlosses[-1]}
+    print(f"[sampling b] {smi}: step {dstep_ms:.4f} ms (median of "
+          f"{STEPS}); device busy {dprof['device_busy_ms_per_step']:.5f} ms "
+          f"a step, idle share {dprof['idle_share']:.4f}; by kind "
+          f"{json.dumps(kinds)}; the sampler alone "
+          f"{sprof['device_busy_ms_per_step']:.5f} device ms; "
+          f"{rows_gathered} rows of 128 gathered a step; peak "
+          f"{peak:.1f} MiB; loss {dlosses[0]:.6f} -> {dlosses[-1]:.6f}",
+          flush=True)
+    del sampler, dmodel, dopt
+    torch.cuda.empty_cache()
+
+    # (c) walks on the card from every node
+    walker = DeviceWalker(sg, neighbor_sorted=True, device=dev)
+    wgen = torch.Generator(device=dev).manual_seed(5)
+    starts = torch.arange(host.num_nodes, device=dev)
+    walks_out = {}
+    for name, call in (
+            ("random_walk", lambda: walker.random_walk(starts, WALK_LEN,
+                                                       wgen)),
+            ("node2vec_walk", lambda: walker.node2vec_walk(
+                starts, WALK_LEN, wgen, p=WALK_P, q=WALK_Q))):
+        walks = call()
+        hops, dead = check_walks(walker, walks, name)
+        ms = median_ms(call, 5)
+        walks_out[name] = {"ms": ms, "walks_per_s": host.num_nodes / ms
+                           * 1e3, "hops_checked": hops,
+                           "dead_ends": dead}
+        print(f"[sampling c] {smi}: {name} from {host.num_nodes} nodes, "
+              f"length {WALK_LEN}: {ms:.4f} ms, "
+              f"{host.num_nodes / ms * 1e3:.1f} walks/s; {hops} hops "
+              f"checked against the graph, {dead} dead ends", flush=True)
+    src, dst, valid = skipgram_pairs(walks, WALK_WIN, wgen)
+    pairs = int(valid.sum())
+    pair_ms = median_ms(lambda: skipgram_pairs(walks, WALK_WIN, wgen), 5)
+    walks_out["skipgram_pairs"] = {"ms": pair_ms, "pairs_per_block": pairs,
+                                   "slots": int(valid.numel())}
+    print(f"[sampling c] skipgram_pairs win={WALK_WIN} on the node2vec "
+          f"block [{host.num_nodes}, {WALK_LEN}]: {pairs} pairs of "
+          f"{valid.numel()} slots, {pair_ms:.4f} ms", flush=True)
+    out["walks"] = walks_out
+    del walker, walks, src, dst, valid
+    torch.cuda.empty_cache()
+
+    # (d) on the host: METIS-style partition and reorder
+    t0 = time.perf_counter()
+    parts = metis_partition(sg, PARTS, seed=0)
+    t_part = time.perf_counter() - t0
+    e = np.asarray(host.edges)
+    cut = int((parts[e[:, 0]] != parts[e[:, 1]]).sum())
+    sizes = np.bincount(parts, minlength=PARTS)
+    t0 = time.perf_counter()
+    g2, order = reorder_graph(host, parts=parts)
+    t_reorder = time.perf_counter() - t0
+    if sorted(order.tolist()) != list(range(host.num_nodes)) or \
+            g2.num_edges != host.num_edges:
+        raise AssertionError("reorder_graph lost nodes or edges")
+    out["partition"] = {"metis_s": t_part, "reorder_s": t_reorder,
+                        "edge_cut": cut, "cut_share": cut / len(e),
+                        "largest_part": int(sizes.max()),
+                        "smallest_part": int(sizes.min())}
+    print(f"[sampling d] host: metis_partition into {PARTS} parts "
+          f"{t_part:.3f} s, edge cut {cut} of {len(e)} "
+          f"({cut / len(e):.4f}), parts of {sizes.min()} to {sizes.max()} "
+          f"nodes; reorder_graph {t_reorder:.3f} s", flush=True)
+    return out
+
+
+def device_kinds(device_ms):
+    """Device ms a step by kind, from kernel names: the GEMMs, the row
+    gathers (``index_select`` and its kin), K1, and the rest."""
+    kinds = {"gemm": 0.0, "gather": 0.0, "k1": 0.0, "other": 0.0}
+    for name, ms in device_ms.items():
+        low = name.lower()
+        if any(s in low for s in ("gemm", "cutlass", "xmma", "gemv")):
+            kinds["gemm"] += ms
+        elif "indexselect" in low or "index_select" in low or \
+                "index_elementwise" in low or "gather" in low:
+            kinds["gather"] += ms
+        elif low.startswith("void spmm_") or "spmm_" in low:
+            kinds["k1"] += ms
+        else:
+            kinds["other"] += ms
+    return kinds
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5057,6 +5511,8 @@ def main():
     rows += hetero_rows
     torch.cuda.empty_cache()
     readout_steps = phase_readouts(dev, host)
+    torch.cuda.empty_cache()
+    sampling_steps = phase_sampling(dev, smi, rows)
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -5066,7 +5522,7 @@ def main():
                                tensor_s=t_6),
         **gat_steps, **dedup_steps, **unimp_steps, **ddot_steps,
         **weighted_steps, **sddmm_steps, **zoo_steps, **hetero_steps,
-        **readout_steps, "device": smi}}),
+        **readout_steps, **sampling_steps, "device": smi}}),
         flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["resolve_device", "Graph", "BiGraph", "HeterGraph", "Message",
-           "math", "ops", "nn", "utils", "datasets", "models", "native"]
+           "math", "ops", "nn", "utils", "sampling", "datasets", "models",
+           "partition", "native"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -51,6 +52,8 @@ from . import math  # noqa: E402
 from . import ops  # noqa: E402
 from . import nn  # noqa: E402
 from . import utils  # noqa: E402
+from . import sampling  # noqa: E402
 from . import datasets  # noqa: E402
 from . import models  # noqa: E402
+from . import partition  # noqa: E402
 from . import native  # noqa: E402

@@ -458,15 +458,23 @@ class Graph:
 
     # -- conversion ---------------------------------------------------------
 
-    def tensor(self, device=None) -> "Graph":
+    def tensor(self, device=None, build_adj: bool = True) -> "Graph":
         """Device copy on ``device`` (default: the CUDA card; raises when
         there is none). float64 features become float32, integer features
         keep their dtype. Builds the CSC/CSR indexes, the K1 SpMM layouts
         and, where ``ops/dispatch.py`` admits the graph, the dedup layouts
-        with their counts (K4)."""
+        with their counts (K4). With ``build_adj=False`` it builds none of
+        them: the indexes already built on this graph go over, and the
+        first message passing builds what it needs."""
         device = resolve_device(device)
         host = self.numpy()
-        dst_idx, src_idx = host.adj_dst_index, host.adj_src_index
+        if build_adj:
+            dst_idx, src_idx = host.adj_dst_index, host.adj_src_index
+            layouts = dict(_spmm_layouts=host._build_spmm_layouts(device),
+                           _dedup_layouts=host._build_dedup_layouts(device))
+        else:
+            dst_idx, src_idx = host._adj_dst_index, host._adj_src_index
+            layouts = {}
 
         return Graph(
             _put(host.edges, device, np.int64),
@@ -475,13 +483,11 @@ class Graph:
                        for k, v in host.node_feat.items()},
             edge_feat={k: _put_feat(v, device)
                        for k, v in host.edge_feat.items()},
-            adj_src_index=src_idx.tensor(device),
-            adj_dst_index=dst_idx.tensor(device),
+            adj_src_index=None if src_idx is None else src_idx.tensor(device),
+            adj_dst_index=None if dst_idx is None else dst_idx.tensor(device),
             _graph_node_index=_put_index(host._graph_node_index, device),
             _graph_edge_index=_put_index(host._graph_edge_index, device),
-            _num_graph=self._num_graph,
-            _spmm_layouts=host._build_spmm_layouts(device),
-            _dedup_layouts=host._build_dedup_layouts(device))
+            _num_graph=self._num_graph, **layouts)
 
     def _build_spmm_layouts(self, device):
         """The SpMM layouts on ``device``: CSC for the forward, CSR for the

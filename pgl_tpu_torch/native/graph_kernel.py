@@ -1,14 +1,21 @@
 """ctypes bindings for the C++ host graph kernels (``graph_kernel.cc``).
 
-Port of ``pgl_tpu/native/graph_kernel.py:1-145`` for what ``Graph`` calls:
-:func:`build_index` and :func:`sample_subset_with_eid`. The library is
+Port of ``pgl_tpu/native/graph_kernel.py``: :func:`build_index`,
+:func:`map_nodes`, :func:`sample_subset_with_eid`, the walks
+(:func:`random_walk`, :func:`node2vec_walk`, :func:`node2vec_walk_plus`),
+:func:`skip_gram_gen_pair`, the alias tables
+(:func:`alias_sample_build_table`, :func:`alias_sample`),
+:func:`extract_edges_from_nodes` and :func:`metis_partition`. The library is
 compiled with ``g++`` at first use (never at import) into
 ``build/libgraph_kernel-<hash>.so``, where the hash covers the source and
 the flags; a temporary name renamed atomically lets several processes build
 at once. A failed build raises with the compiler's output. The reference
-falls back to numpy when its build fails; the port does not, so a sample
-never depends on whether the compiler ran. :func:`build_index_reference` is
-the plain numpy version the tests hold the native build against.
+falls back to numpy when its build fails (a BFS partition for
+``metis_partition``, ``pgl_tpu/native/graph_kernel.py:409-436``), and
+partitions without vertex weights when its library predates the weighted
+partitioner; the port does neither, so a sample or a partition never
+depends on whether the compiler ran. :func:`build_index_reference` is the
+plain numpy version the tests hold the native build against.
 """
 
 from __future__ import annotations
@@ -22,8 +29,12 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["build_index", "build_index_reference", "sample_subset_with_eid",
-           "build", "CXX", "CXX_FLAGS"]
+__all__ = ["build_index", "build_index_reference", "map_nodes",
+           "sample_subset_with_eid", "random_walk", "node2vec_walk",
+           "node2vec_walk_plus", "skip_gram_gen_pair",
+           "alias_sample_build_table", "alias_sample",
+           "extract_edges_from_nodes", "metis_partition", "build", "CXX",
+           "CXX_FLAGS"]
 
 SOURCE = Path(__file__).resolve().parent / "graph_kernel.cc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -34,7 +45,28 @@ _lib = None
 _lock = threading.Lock()
 
 _i64 = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
+_f64 = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 _ll = ctypes.c_longlong
+_d = ctypes.c_double
+
+# each symbol's (argument types, result type)
+_SIGNATURES = {
+    "build_index": ([_i64, _i64, _ll, _ll, _i64, _i64, _i64, _i64], None),
+    "map_nodes": ([_i64, _ll, _i64, _ll, _i64], None),
+    "sample_subset_with_eid": (
+        [_i64, _i64, _i64, _i64, _ll, _ll, _ll, _i64, _i64, _i64], None),
+    "random_walk": ([_i64, _i64, _i64, _ll, _ll, _ll, _i64], None),
+    "node2vec_walk": ([_i64, _i64, _i64, _ll, _ll, _d, _d, _ll, _i64], None),
+    "node2vec_walk_plus": (
+        [_i64, _i64, _i64, _ll, _ll, _d, _d, _ll, _i64], None),
+    "skip_gram_gen_pair": ([_i64, _ll, _ll, _ll, _ll, _i64, _i64], _ll),
+    "alias_sample_build_table": ([_f64, _ll, _f64, _i64], None),
+    "extract_edges_from_nodes": (
+        [_i64, _i64, _i64, _ll, _i64, _ll, _i64], _ll),
+    "metis_style_partition": ([_i64, _i64, _ll, _ll, _ll, _i64], None),
+    "metis_style_partition_w": (
+        [_i64, _i64, _i64, _ll, _ll, _ll, _i64], None),
+}
 
 
 def build() -> Path:
@@ -65,12 +97,9 @@ def _load():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.build_index.argtypes = [_i64, _i64, _ll, _ll, _i64, _i64,
-                                        _i64, _i64]
-            lib.build_index.restype = None
-            lib.sample_subset_with_eid.argtypes = [
-                _i64, _i64, _i64, _i64, _ll, _ll, _ll, _i64, _i64, _i64]
-            lib.sample_subset_with_eid.restype = None
+            for name, (args, res) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = args, res
             _lib = lib
         return _lib
 
@@ -138,3 +167,122 @@ def sample_subset_with_eid(indptr, sorted_v, sorted_eid, query, max_degree,
                                out_eid)
     n = out_indptr[-1]
     return out_indptr, out_v[:n], out_eid[:n]
+
+
+def map_nodes(nodes, query):
+    """Position of each ``query`` id in ``nodes`` (the first one when an id
+    repeats), -1 where it is absent."""
+    nodes, query = _c(nodes), _c(query)
+    out = np.empty(len(query), dtype=np.int64)
+    _load().map_nodes(nodes, len(nodes), query, len(query), out)
+    return out
+
+
+def _check_walk_len(walk_len):
+    if int(walk_len) < 1:
+        raise ValueError(f"walk_len must be >= 1, got {walk_len}")
+
+
+def _walk(name, indptr, sorted_v, starts, walk_len, *args):
+    _check_walk_len(walk_len)
+    indptr, sorted_v, starts = map(_c, (indptr, sorted_v, starts))
+    _check_ids("start", starts, len(indptr) - 1)
+    lib = _load()
+    W = len(starts)
+    walks = np.empty(W * int(walk_len), dtype=np.int64)
+    getattr(lib, name)(indptr, sorted_v, starts, W, int(walk_len), *args,
+                       walks)
+    return walks.reshape(W, int(walk_len))
+
+
+def random_walk(indptr, sorted_v, starts, walk_len, seed=0):
+    """First-order uniform walks ``[num_starts, walk_len]`` over the CSR
+    (``indptr``, ``sorted_v``); -1 from a dead end on."""
+    return _walk("random_walk", indptr, sorted_v, starts, walk_len,
+                 int(seed))
+
+
+def node2vec_walk(indptr, sorted_v, starts, walk_len, p=1.0, q=1.0, seed=0):
+    """Second-order walks biased by the return parameter ``p`` and the
+    in-out parameter ``q``, by rejection sampling."""
+    return _walk("node2vec_walk", indptr, sorted_v, starts, walk_len,
+                 float(p), float(q), int(seed))
+
+
+def node2vec_walk_plus(indptr, sorted_v, starts, walk_len, p=1.0, q=1.0,
+                       seed=0):
+    """node2vec+ walks: the distance-1 class is the union of every
+    neighbourhood the walk has seen so far, not the previous node's
+    alone."""
+    return _walk("node2vec_walk_plus", indptr, sorted_v, starts, walk_len,
+                 float(p), float(q), int(seed))
+
+
+def skip_gram_gen_pair(walks, max_win, seed=0):
+    """(src, dst) positive pairs of ``walks`` [W, L], each centre drawing
+    its window in [1, ``max_win``]; a walk stops at its first -1."""
+    walks = _c(walks)
+    W, L = walks.shape
+    cap = W * L * int(max_win)
+    src = np.empty(cap, dtype=np.int64)
+    dst = np.empty(cap, dtype=np.int64)
+    n = _load().skip_gram_gen_pair(walks.reshape(-1), W, L, int(max_win),
+                                   int(seed), src, dst)
+    return src[:n], dst[:n]
+
+
+def alias_sample_build_table(weights):
+    """O(n) alias table of ``weights``: (events float64 [n], alias int64
+    [n])."""
+    weights = np.ascontiguousarray(weights, dtype=np.float64)
+    n = len(weights)
+    events = np.empty(n, dtype=np.float64)
+    alias = np.empty(n, dtype=np.int64)
+    _load().alias_sample_build_table(weights, n, events, alias)
+    return events, alias
+
+
+def alias_sample(events, alias, num, seed=0):
+    """``num`` indices drawn from an alias table (numpy's generator, as the
+    reference draws them)."""
+    rng = np.random.default_rng(seed)
+    n = len(events)
+    idx = rng.integers(0, n, size=num)
+    coin = rng.random(num)
+    return np.where(coin < events[idx], idx, alias[idx])
+
+
+def extract_edges_from_nodes(indptr, sorted_v, sorted_eid, num_nodes_graph,
+                             nodes):
+    """Ids of the edges whose two endpoints both lie in ``nodes`` (the
+    induced subgraph), in the CSR's order."""
+    indptr, sorted_v, sorted_eid, nodes = map(_c, (indptr, sorted_v,
+                                                   sorted_eid, nodes))
+    _check_ids("node", nodes, len(indptr) - 1)
+    cap = int((indptr[nodes + 1] - indptr[nodes]).sum())
+    out = np.empty(max(cap, 1), dtype=np.int64)
+    n = _load().extract_edges_from_nodes(indptr, sorted_v, sorted_eid,
+                                         int(num_nodes_graph), nodes,
+                                         len(nodes), out)
+    return out[:n]
+
+
+def metis_partition(indptr, adj, nparts, seed=0, vwgt=None):
+    """Multilevel k-way partition of the symmetric adjacency (``indptr``,
+    ``adj``): heavy-edge-matching coarsening, greedy growth, boundary
+    refinement. ``vwgt``: optional int64 [num_nodes] balance weights.
+    Returns the part of each node, int64 [num_nodes]."""
+    indptr, adj = _c(indptr), _c(adj)
+    n = len(indptr) - 1
+    parts = np.empty(n, dtype=np.int64)
+    lib = _load()
+    if vwgt is not None:
+        vwgt = _c(vwgt)
+        if vwgt.shape != (n,):
+            raise ValueError(f"vwgt of shape {vwgt.shape} for {n} nodes")
+        lib.metis_style_partition_w(indptr, adj, vwgt, n, int(nparts),
+                                    int(seed), parts)
+    else:
+        lib.metis_style_partition(indptr, adj, n, int(nparts), int(seed),
+                                  parts)
+    return parts

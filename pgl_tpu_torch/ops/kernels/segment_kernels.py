@@ -10,7 +10,11 @@ gives the design.
   every row longer than ``MIN_PIECE`` edges cut into pieces
   (:func:`cut_spmm_rows`), runs of short rows packed into items of at most
   ``PACK`` edges and rows (:func:`pack_rows`); a warp walks one item at a
-  time.
+  time. It is :func:`build_spmm_layout_host` (numpy arrays only: a
+  dataloader worker builds a minibatch's layouts in its collate) followed
+  by :meth:`SpmmLayout.to`; :func:`pack_spmm_layout` puts a host layout
+  into one int32 array and :func:`unpack_spmm_layout` reads it back, as
+  views of one device buffer.
 * :func:`spmm` is an autograd ``Function``: forward over the CSC layout,
   backward the same kernel over the CSR layout (the transposed SpMM).
 * :func:`sorted_segment_sum` is the same kernel with the identity gather;
@@ -41,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -51,7 +55,10 @@ from ... import resolve_device
 from ..dispatch import use_spmm_kernel
 from . import _build
 
-__all__ = ["SpmmLayout", "build_spmm_layout", "cut_rows", "cut_spmm_rows",
+__all__ = ["SpmmLayout", "build_spmm_layout", "build_spmm_layout_host",
+           "pack_spmm_layout", "unpack_spmm_layout",
+           "packed_layout_words_max", "cut_rows",
+           "cut_spmm_rows",
            "pack_rows", "spmm", "spmm_reference", "spmm_weighted",
            "spmm_weighted_reference", "weight_grad_reference",
            "sorted_segment_sum", "ET", "MIN_PIECE", "ROW_PIECES", "PACK",
@@ -95,7 +102,8 @@ def reset_launches():
 
 @dataclass(frozen=True)
 class SpmmLayout:
-    """A sorted adjacency as the kernel reads it (all int32 on one device).
+    """A sorted adjacency as the kernel reads it (all int32 on one device,
+    or int32 numpy arrays in the host form of :func:`build_spmm_layout_host`).
 
     indptr:      [R+1] row pointer
     indices:     [E]   gather ids (the source node of each edge for CSC),
@@ -132,10 +140,36 @@ class SpmmLayout:
     def device(self) -> torch.device:
         return self.indices.device
 
+    def to(self, device) -> "SpmmLayout":
+        """This layout's arrays on ``device`` (a host layout's put there
+        once, as int32 tensors)."""
+        device = resolve_device(device)
+
+        def put(a):
+            if a is None:
+                return None
+            if isinstance(a, torch.Tensor):
+                return a.to(device)
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
+                                   device=device)
+
+        return replace(self, **{name: put(getattr(self, name))
+                                for name in _ARRAYS})
+
+
+# the array fields of a layout, in the order pack_spmm_layout writes them
+_ARRAYS = ("indptr", "indices", "seg_ids", "items", "item_split_rows",
+           "item_split_ptr", "edge_id")
+# the integer fields a packed layout's header carries, before the arrays'
+# lengths
+_SCALARS = ("num_rows", "num_edges", "max_index", "item_partials",
+            "item_packs")
+
 
 def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
                       device=None, edge_id=None) -> SpmmLayout:
-    """Host-side (numpy) build; call once, at ``Graph.tensor()`` time.
+    """Host-side (numpy) build put on ``device``; call once, at
+    ``Graph.tensor()`` time.
 
     ``indptr`` [R+1] and ``indices`` [E] are a sorted adjacency (CSC:
     ``indices`` are the sources grouped by destination row). ``kind`` names
@@ -143,6 +177,16 @@ def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
     of each position (the index's ``sorted_eid``), follows the positions
     and lets K1w run on the layout.
     """
+    device = resolve_device(device)
+    return build_spmm_layout_host(indptr, indices, num_rows, kind,
+                                  edge_id).to(device)
+
+
+def build_spmm_layout_host(indptr, indices, num_rows: int,
+                           kind: str = "csc", edge_id=None) -> SpmmLayout:
+    """:func:`build_spmm_layout` with int32 numpy arrays for fields: numpy
+    only, no torch call, so a forked dataloader worker can run it. Put it
+    on a device with :meth:`SpmmLayout.to`."""
     indptr = np.asarray(indptr, dtype=np.int64)
     indices = np.asarray(indices, dtype=np.int64)
     E, R = len(indices), int(num_rows)
@@ -167,11 +211,8 @@ def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
     packs = items[:, 3] < -1
     items = np.concatenate([items[~packs], items[packs]])
 
-    device = resolve_device(device)
-
     def put(a):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
-                               device=device)
+        return np.ascontiguousarray(a, dtype=np.int32)
 
     return SpmmLayout(
         kind=kind, num_rows=R, num_edges=E,
@@ -184,6 +225,78 @@ def build_spmm_layout(indptr, indices, num_rows: int, kind: str = "csc",
         item_split_ptr=put(item_split_ptr),
         edge_id=(None if edge_id is None
                  else put(np.asarray(edge_id, dtype=np.int64)[order])))
+
+
+def _words16(n: int) -> int:
+    """``n`` int32 words rounded up to 16 bytes."""
+    return -(-n // 4) * 4
+
+
+def pack_spmm_layout(layout: SpmmLayout) -> np.ndarray:
+    """A host layout as one int32 array: a header of 12 words
+    (``_SCALARS``, then each array's length, -1 for a missing
+    ``edge_id``), then the arrays of ``_ARRAYS`` in order, each padded to
+    16 bytes: the kernel loads its work list in 16-byte vectors, so each
+    array must start 16-byte aligned in the buffer, and the buffer at a
+    16-byte offset."""
+    arrays = [getattr(layout, name) for name in _ARRAYS]
+    if any(isinstance(a, torch.Tensor) for a in arrays):
+        raise ValueError("pack_spmm_layout takes a host layout "
+                         "(build_spmm_layout_host)")
+    head = [getattr(layout, name) for name in _SCALARS]
+    head += [-1 if a is None else np.size(a) for a in arrays]
+    parts = [np.asarray(head, dtype=np.int32)]
+    for a in arrays:
+        if a is not None:
+            a = np.asarray(a, dtype=np.int32).reshape(-1)
+            parts += [a, np.zeros(_words16(a.size) - a.size, np.int32)]
+    return np.concatenate(parts)
+
+
+def packed_layout_words_max(num_rows: int, num_edges: int) -> int:
+    """The most int32 words :func:`pack_spmm_layout` writes for a layout of
+    ``num_rows`` rows and ``num_edges`` edges (edge ids included), so a
+    buffer reused for many batches is sized once. A row of ``d`` edges is
+    at most ``ceil(d / MIN_PIECE) <= d // MIN_PIECE + 1`` pieces (a pack
+    joins pieces, so the items are no more), and only a row of more than
+    ``MIN_PIECE`` edges splits."""
+    R, E = int(num_rows), int(num_edges)
+    items = R + E // MIN_PIECE
+    split = E // (MIN_PIECE + 1)
+    return (_words16(len(_SCALARS) + len(_ARRAYS)) + _words16(R + 1)
+            + 3 * _words16(E) + _words16(4 * items) + _words16(split)
+            + _words16(split + 1))
+
+
+def unpack_spmm_layout(buf, kind: str, offset: int = 0, host=None):
+    """The layout :func:`pack_spmm_layout` wrote at ``buf[offset:]``, ``buf``
+    a 1-D int32 tensor (its arrays become views of it) or numpy array, and
+    ``offset`` a multiple of 4 words. The header is read from ``host``, a
+    host copy of ``buf`` (default ``buf`` itself), so a buffer on a card is
+    read without a copy back: a buffer off the CPU needs it. Returns
+    ``(layout, the offset past it)``."""
+    if host is None and isinstance(buf, torch.Tensor) and \
+            buf.device.type != "cpu":
+        raise ValueError(f"a packed layout on {buf.device} is read through "
+                         "its host copy: pass host= (the buffer as it was "
+                         "before the copy)")
+    if offset % 4:
+        raise ValueError(f"a packed layout starts 16-byte aligned; offset "
+                         f"{offset} words is not")
+    host = buf if host is None else host
+    n_s = len(_SCALARS)
+    head = [int(v) for v in np.asarray(host[offset:offset + n_s
+                                            + len(_ARRAYS)])]
+    fields = dict(zip(_SCALARS, head[:n_s]))
+    o = offset + _words16(n_s + len(_ARRAYS))
+    for name, n in zip(_ARRAYS, head[n_s:]):
+        if n < 0:
+            fields[name] = None
+            continue
+        fields[name] = buf[o:o + n]
+        o += _words16(n)
+    fields["items"] = fields["items"].reshape(-1, 4)
+    return SpmmLayout(kind=kind, **fields), o
 
 
 def cut_rows(indptr, size):

@@ -6,7 +6,10 @@ Takes the parameter tree as nested dicts of numpy arrays (e.g.
 ``nn.Linear`` weight ``<path>.weight`` of shape [out, in]; a ``LayerNorm``
 ``scale`` and an ``Embed`` ``embedding`` [num, features] become the
 ``weight`` of ``nn.LayerNorm`` and ``nn.Embedding``, shape kept; every other
-leaf (``bias`` and friends) keeps its name and shape.
+leaf (``bias`` and friends) keeps its name and shape. So a model whose
+submodules carry flax's names takes the tree as it is: ``BipartiteSAGE``'s
+``self_{l}`` and ``neigh_{l}`` Denses become its ``nn.Linear`` layers of
+the same names.
 
 A flax ``OptimizedLSTMCell`` at ``<path>`` (eight Denses: ``ii``, ``if``,
 ``ig``, ``io`` without bias on the input, ``hi``, ``hf``, ``hg``, ``ho``

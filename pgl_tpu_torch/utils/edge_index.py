@@ -69,6 +69,20 @@ class EdgeIndex:
         sorted_u = np.repeat(np.arange(num_nodes, dtype=_ID_DTYPE), degree)
         return cls(degree, sorted_u, sorted_v, sorted_eid, indptr)
 
+    @classmethod
+    def from_edges_device(cls, u, v, num_nodes: int) -> "EdgeIndex":
+        """Device build (on ``u``'s device) by a stable ``torch.sort`` of
+        ``u``, a ``bincount`` for the degrees and a ``cumsum`` for
+        ``indptr``: int64 tensors, the device form. The same arrays as
+        :meth:`from_edges` (ids outside ``[0, num_nodes)`` are not
+        counted, as the reference's segment sum drops them)."""
+        u = torch.as_tensor(u).to(torch.int64)
+        v = torch.as_tensor(v, device=u.device).to(torch.int64)
+        sorted_u, order = torch.sort(u, stable=True)
+        degree = torch.bincount(u, minlength=num_nodes)[:num_nodes]
+        indptr = torch.cat([degree.new_zeros(1), torch.cumsum(degree, 0)])
+        return cls(degree, sorted_u, v[order], order, indptr)
+
     def view_v(self, u=None):
         """Ragged neighbour view: a list of each node's ``sorted_v`` slice
         (all nodes, or those of ``u``)."""

@@ -227,7 +227,11 @@ def test_import_leaves_jax_out():
             "pgl_tpu_torch.ops.kernels.sddmm_kernels, "
             "pgl_tpu_torch.message, pgl_tpu_torch.math, "
             "pgl_tpu_torch.native, pgl_tpu_torch.native.graph_kernel, "
-            "pgl_tpu_torch.ops.dispatch, chip_smoke\n"
+            "pgl_tpu_torch.ops.dispatch, pgl_tpu_torch.sampling, "
+            "pgl_tpu_torch.sampling.device_walk, pgl_tpu_torch.partition, "
+            "pgl_tpu_torch.utils.data, pgl_tpu_torch.utils.mp_reader, "
+            "pgl_tpu_torch.models.sampled_sage, "
+            "pgl_tpu_torch.datasets.loaders, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'pgl_tpu')]\n"
             "assert not bad, bad\n")

@@ -75,7 +75,8 @@ def test_namespaces_bind_the_reference_names():
     import pgl_tpu_torch
 
     for name in ("Graph", "BiGraph", "HeterGraph", "Message", "math", "ops",
-                 "nn", "utils", "datasets", "models", "native"):
+                 "nn", "utils", "sampling", "datasets", "models",
+                 "partition", "native"):
         assert getattr(pgl_tpu_torch, name) is not None, name
         assert name in pgl_tpu_torch.__all__ and name in pgl_tpu.__all__
     assert pgl_tpu_torch.Message is Message
@@ -94,13 +95,21 @@ def test_namespaces_bind_the_reference_names():
     assert "transform" in pgl_tpu_torch.utils.__all__
     assert set(pgl_tpu_torch.utils.transform.__all__) == set(
         pgl_tpu.utils.transform.__all__)
-    waiting = {"BipartiteSAGE", "kg"}
+    waiting = {"kg", "metapath_randomwalk_dist"}
+    import pgl_tpu.datasets
+    import pgl_tpu.sampling
+    import pgl_tpu.utils.data
     for mine, ref in ((pgl_tpu_torch.nn, pgl_tpu.nn),
                       (pgl_tpu_torch.nn.functional, pgl_tpu.nn.functional),
-                      (pgl_tpu_torch.models, pgl_tpu.models)):
+                      (pgl_tpu_torch.models, pgl_tpu.models),
+                      (pgl_tpu_torch.datasets, pgl_tpu.datasets),
+                      (pgl_tpu_torch.utils.data, pgl_tpu.utils.data)):
         assert set(mine.__all__) == set(ref.__all__) - waiting
         for name in mine.__all__:
             assert getattr(mine, name) is not None, name
+    assert set(pgl_tpu.sampling.__all__) - waiting <= set(
+        pgl_tpu_torch.sampling.__all__)
+    assert "data" in pgl_tpu_torch.utils.__all__
 
 
 # -- native host kernels ----------------------------------------------------

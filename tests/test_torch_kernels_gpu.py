@@ -37,7 +37,11 @@ operation a value, pads +0), and its backward (K1 over ``by_src`` and
 the same bits twice, its launches). K1 over a BiGraph's rectangular
 layouts goes through ``check_rect_spmm``, and the dot K9/K10 on a relation
 whose rows are mostly empty through ``check_empty_rows_dot``, each with
-exact zeros on the rows without edges.
+exact zeros on the rows without edges. The device samplers and walks
+go through ``check_device_samples`` (every sampled neighbour an
+in-neighbour, masks where the degree is 0) and ``check_walks`` (every hop
+an edge, -1 to the end after a dead end); a minibatch graph whose K1
+layouts were built on the host through ``check_batch_graph_k1``.
 """
 
 import dataclasses
@@ -47,8 +51,10 @@ import pytest
 import torch
 
 from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS,
-                        K10_SHAPES, READOUT_PER_STEP, SDDMM_OPS,
-                        attention_graph, attention_inputs, check,
+                        K10_SHAPES, READOUT_PER_STEP, SAGE_BUCKETS,
+                        SDDMM_OPS, attention_graph, attention_inputs, check,
+                        check_batch_graph_k1, check_device_samples,
+                        check_walks,
                         check_attention, check_counts, check_dedup,
                         check_empty_rows_dot, check_rect_spmm,
                         check_dedup_attention, check_dedup_dot,
@@ -1381,3 +1387,103 @@ def test_readouts_on_cuda_match_cpu(cuda, name):
     parity_and_steps(name, host, host, lambda d: readout_model(name, d),
                      readout_trainer(name, labels), READOUT_PER_STEP[name],
                      cuda)
+
+
+def _sampling_graph(n=3000, seed=6):
+    """A community graph whose top tenth sends no edge (dead ends for the
+    walks, zero in-degrees for the sampler's frontier)."""
+    g, y = community_graph(num_nodes=n, num_classes=8, feat_dim=4,
+                           avg_degree=12, seed=seed)
+    e = np.asarray(g.edges)
+    e = e[e[:, 0] < n - n // 10]
+    return Graph(e, num_nodes=n), y
+
+
+@pytest.mark.gpu
+def test_device_samplers_on_cuda(cuda):
+    """``NeighborSampler`` and ``HeteroNeighborSampler`` on the card, one
+    generator there: every sampled neighbour an in-neighbour of its node,
+    masks 1 exactly where the node has in-edges."""
+    from pgl_tpu_torch import HeterGraph
+    from pgl_tpu_torch.sampling import HeteroNeighborSampler, NeighborSampler
+    g, _ = _sampling_graph()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    sampler = NeighborSampler(g, (25, 10), device=cuda)
+    seeds = torch.arange(2800, 3000, device=cuda)
+    layers, frontier = sampler.sample(seeds, gen)
+    assert frontier.shape == (200 * 250,) and frontier.is_cuda
+    check_device_samples(sampler, layers, "NeighborSampler")
+    e = np.asarray(g.edges)
+    hg = HeterGraph({"a": e, "b": e[::-1].copy()}, num_nodes=g.num_nodes)
+    hs = HeteroNeighborSampler(hg, (5, 3), device=cuda)
+    hlayers, _ = hs.sample(seeds, gen)
+    for frontier, per in hlayers:
+        for et, (neigh, mask) in per.items():
+            sub = NeighborSampler(hg[et], (1,), device=cuda)
+            check_device_samples(sub, [(frontier, neigh, mask)], et)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("walk", ["random_walk", "node2vec_walk"])
+def test_device_walks_on_cuda(cuda, walk):
+    """``DeviceWalker`` on the card from every node: every hop an edge,
+    dead ends -1 to the end."""
+    from pgl_tpu_torch.sampling import DeviceWalker, skipgram_pairs
+    g, _ = _sampling_graph()
+    w = DeviceWalker(g, neighbor_sorted=True, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    starts = torch.arange(g.num_nodes, device=cuda)
+    walks = getattr(w, walk)(starts, 12, gen)
+    hops, dead = check_walks(w, walks, walk)
+    assert hops > 0 and dead >= g.num_nodes // 10
+    src, dst, valid = skipgram_pairs(walks, 5, gen)
+    assert bool((src[valid] >= 0).all()) and bool((dst[valid] >= 0).all())
+
+
+@pytest.mark.gpu
+def test_batch_graph_with_host_layouts_runs_k1(cuda):
+    """A minibatch of the ``layouts=True`` collate at phase 13's buckets:
+    K1 over the CSC and CSR layouts built on the host (the sentinel row's
+    pad edges split) against float64, within ``check_spmm``'s bound of
+    1e-4 times the terms' 2-norm (the sentinel row sums ~56,000 copies of
+    one row, so its absolute error is of order 1, not under 1e-3)."""
+    from pgl_tpu_torch.sampling import make_padded_batch_fn
+    g, y = _sampling_graph(n=20000)
+    NB, EB = SAGE_BUCKETS
+    batch = make_padded_batch_fn(g, (25, 10), NB, EB, pack=True,
+                                 layouts=True)([(i, y[i])
+                                                for i in range(512)])
+    err, share, graph = check_batch_graph_k1(batch, cuda, "gpu test")
+    assert np.isfinite(err) and share <= 1.0 and graph.num_nodes == NB
+    assert int(graph.indegree()[NB - 1]) > EB // 4
+
+
+@pytest.mark.gpu
+def test_worker_refuses_a_cuda_tensor(cuda):
+    """A Dataloader worker (forked after CUDA is up) handed a CUDA tensor
+    raises a clear error instead of touching the parent's context; the
+    loader is drained in a thread joined with its own timeout."""
+    import threading
+    from pgl_tpu_torch.utils.data import Dataloader, Dataset
+    held = torch.zeros(4, device=cuda)
+
+    class Held(Dataset):
+        def __getitem__(self, i):
+            return held
+
+        def __len__(self):
+            return 4
+
+    out = {}
+
+    def run():
+        try:
+            list(Dataloader(Held(), batch_size=2, num_workers=2))
+        except RuntimeError as e:
+            out["error"] = str(e)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(120)
+    assert not th.is_alive(), "the workers hung"
+    assert "tensor on cuda" in out.get("error", ""), out
