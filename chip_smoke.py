@@ -268,7 +268,32 @@ there is no card or any phase fails. Phases:
    the card as an edge by a binary search over the neighbour-sorted CSR
    and every dead end -1 to the end, walks per second; ``skipgram_pairs``
    (window 5) on the node2vec block; (d) on the host, ``metis_partition``
-   into 16 parts and ``reorder_graph``: seconds and the edge cut.
+   into 16 parts and ``reorder_graph``: seconds and the edge cut;
+14. the out-of-core path: (a) ``Graph.streamed_send_u_recv`` on a uniform
+   graph of 2^22 nodes with 16 in-edges each (``stream_host``) over a
+   float32 host table of D = 128 (2 GiB), at ``chunk_rows`` 2^16 and 2^18
+   on both routes (K1 over each chunk's distinct sources; K6 over its
+   dedup layout under ``DEDUP``): one launch a chunk asserted, the output
+   against the in-memory ``send_u_recv`` on the card (K1) within
+   ``check_spmm``'s bound and against float64 on 4,096 seeded rows, the
+   call's peak device memory below the table's at 2^16; the build's
+   seconds, ms a call, GB staged and GB/s beside a pinned ``copy_``'s, the
+   device ms by kind (torch.profiler), the peak predicted and measured,
+   and K1 or K6 timed at the first chunk's shape; (b) GNNAutoScale on the
+   UniMP graph: phase 13's 16 METIS parts as batches (an empty part runs
+   to ``(0, C)``), a 3-layer ``GCNConv`` stack (128 hidden, 40 classes,
+   Adam at lr 1e-3) for 1 warm-up and 3 timed epochs through
+   ``iter_batches`` and ``push_fresh_async``: K1's launches a batch
+   (``GAS_PER_BATCH``), a falling loss, the prefetched halos equal to the
+   blocking ``pull_halo``, ``inference_full`` against float64 on the CPU;
+   ms a batch, blocking pull and push ms, the idle share (torch.profiler),
+   the peak memory, K1 timed at the largest batch's shapes; (c) PGLBox on
+   the UniMP graph dumped and reopened memory-mapped, ``PGLBoxTrainer`` at
+   its defaults, 8 passes with the resident table and device walks, then
+   8 with the mmap table and host walks: finite losses, each pass's
+   written rows equal to its trained working set, every other row
+   unchanged bit for bit, the ``infer`` shards equal to ``embeddings()``;
+   passes a second and the ms of a pass's parts.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -824,16 +849,24 @@ def phase_timing(g, dev, by_shape):
                    (128, 16), dev, by_shape)
 
 
+def k1_bytes(lay, d):
+    """K1's bytes at width ``d`` over ``lay``, and the rows it gathers: each
+    distinct gathered row read once (not the whole table: a layout may
+    gather a few of its table's rows), the indices and the row pointer
+    once, every output row written once."""
+    import torch
+    gathered = int(torch.unique(lay.indices).numel())
+    return 4 * (gathered * d + lay.num_edges + lay.num_rows + 1
+                + lay.num_rows * d), gathered
+
+
 def k1_rows(tag, lays, tables, dims, dev, by_shape):
     """K1's rows (CUDA-event ms over warm launches, the plain version's,
     ``torch.sparse.mm`` on a CSR tensor of the layout, the bound, the max
     |err| against float64) over each layout of ``lays`` gathering a table
     of ``tables[i]`` rows, at each width of ``dims``; ``by_shape[(kind,
-    D)]`` is the launches in the run the row stands for. The bound reads
-    the table's distinct gathered rows once (a batch graph gathers a few
-    of its bucket's rows), the indices and row pointer once, and writes
-    every output row. Rows are named ``spmm_<kind>_d<D>`` and
-    ``_<tag>``."""
+    D)]`` is the launches in the run the row stands for. The bound is
+    ``k1_bytes``'. Rows are named ``spmm_<kind>_d<D>`` and ``_<tag>``."""
     import torch
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
 
@@ -844,7 +877,6 @@ def k1_rows(tag, lays, tables, dims, dev, by_shape):
         A = torch.sparse_csr_tensor(lay.indptr, lay.indices,
                                     torch.ones(lay.num_edges, device=dev),
                                     size=(lay.num_rows, n))
-        gathered = int(torch.unique(lay.indices).numel())
         for d in dims:
             x = torch.randn(n, d, device=dev, generator=gen)
             out = torch.empty(lay.num_rows, d, device=dev)
@@ -854,8 +886,7 @@ def k1_rows(tag, lays, tables, dims, dev, by_shape):
             lib_ms = time_ms(lambda: torch.sparse.mm(A, x), 50)
             with torch.no_grad():
                 err = check_spmm(f"timed {kind} D={d} {tag}", out, x, lay)
-            nbytes = 4 * (gathered * d + lay.num_edges
-                          + lay.num_rows + 1 + lay.num_rows * d)
+            nbytes, gathered = k1_bytes(lay, d)
             ops = lay.num_edges * d
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
             bound_ms = max(t_bytes, t_ops) * 1e3
@@ -1108,8 +1139,7 @@ def phase_dedup_timing(g, launches, dev, cells):
             ops = 2 * cells[lay.kind] * d
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
             bound_ms = max(t_bytes, t_ops) * 1e3
-            k1_bound_ms = 4 * (2 * N * d + k1.num_edges + N + 1) \
-                / HBM_BYTES_PER_S * 1e3
+            k1_bound_ms = k1_bytes(k1, d)[0] / HBM_BYTES_PER_S * 1e3
             rows.append(dedup_row(
                 f"spmm_{kernel}_{lay.kind}_d{d}", kernel, launches,
                 (kernel, lay.kind, d), err, ms, plain_ms, bound_ms,
@@ -3443,11 +3473,12 @@ def weighted_timing(rows, g, dev, gen, op, H, D, launches, name, graph):
         k1_lib = time_ms(lambda: torch.sparse.mm(A1, x), 50)
         with torch.no_grad():
             k1_err = check_spmm(f"timed K1 {kind} D={D}", out, x, lay)
-        k1_bytes = 2 * table + 4 * E + 16 * lay.items.shape[0]
+        k1_b, gathered = k1_bytes(lay, D)
         timing_row(rows, dict(info, op=None, H=None), f"{name}_k1_{kind}",
                    "spmm", SOURCE, REPLACES, launches.get((kind, D), 0),
-                   k1_err, k1_ms, k1_plain, k1_bytes, E * D, k1_lib,
-                   k1_bytes - table + 4 * E * D, layout=kind)
+                   k1_err, k1_ms, k1_plain, k1_b, E * D, k1_lib,
+                   k1_b + 4 * (E - gathered) * D, layout=kind,
+                   gathered_rows=gathered)
 
 
 def phase_weighted_timing(g_head, g_dedup, g_gat, dev, runs):
@@ -3877,11 +3908,11 @@ def phase_sddmm_timing(g, lay, dev, launches):
         lib_ms = median_ms(lambda: torch.sparse.mm(A, t), 20)
         with torch.no_grad():
             err = check_spmm(f"timed K1 {k1.kind}", res, t, k1)
-        k1_bytes = 4 * (E * D + E + N + 1 + N * D) + 16 * k1.items.shape[0]
+        k1_b, gathered = k1_bytes(k1, D)
         timing_row(rows, dict(info, op=None), f"{k1.kind}_k1_d{D}",
                    "spmm", SOURCE, SDDMM_REPLACES,
-                   launches.get((k1.kind, D), 0), err, ms, plain_ms, k1_bytes,
-                   E * D, lib_ms, layout=k1.kind,
+                   launches.get((k1.kind, D), 0), err, ms, plain_ms, k1_b,
+                   E * D, lib_ms, layout=k1.kind, gathered_rows=gathered,
                    items=int(k1.items.shape[0]),
                    split_rows=int(k1.item_split_rows.shape[0]))
     return rows
@@ -5126,7 +5157,7 @@ def phase_sampling(dev, smi, rows):
     ``NeighborSampler`` + ``BipartiteSAGE``, (c) device walks and skip-gram
     pairs, (d) METIS-style partitioning and reordering on the host, all on
     the UniMP graph. Appends K1's rows at the minibatch shapes to
-    ``rows``; returns the step line's entries."""
+    ``rows``; returns the step line's entries and the partition."""
     import torch
     from pgl_tpu_torch import Graph
     from pgl_tpu_torch.models import BipartiteSAGE
@@ -5357,6 +5388,604 @@ def phase_sampling(dev, smi, rows):
           f"{t_part:.3f} s, edge cut {cut} of {len(e)} "
           f"({cut / len(e):.4f}), parts of {sizes.min()} to {sizes.max()} "
           f"nodes; reorder_graph {t_reorder:.3f} s", flush=True)
+    return out, parts
+
+
+# -- phase 14: the out-of-core path ------------------------------------------
+
+# (a) the streamed SpMM: a uniform graph of 2^22 nodes, 16 in-edges a node
+# (ogbn-papers100M averages about 14), and a float32 host table of D = 128
+# (2 GiB), at two chunk sizes (2^18 is the reference's default)
+STREAM_NODES, STREAM_DEG, STREAM_D = 1 << 22, 16, 128
+STREAM_CHUNKS = (1 << 16, 1 << 18)
+STREAM_CHECK_ROWS = 4096
+# (b) GNNAutoScale: K1's launches a nonempty batch of the 3-layer GCN
+# (128 -> 128 -> 128 -> 40): layers 0 and 1 sum at 128 after their linear,
+# layer 2 at 40 before it (CSC); the backward runs through layers 1 and 2
+# (CSR); layer 0's input has no gradient
+GAS_LAYERS = ((128, 128, "relu"), (128, 128, "relu"), (128, 40, None))
+GAS_PER_BATCH = {("csc", 128): 2, ("csc", 40): 1, ("csr", 128): 1,
+                 ("csr", 40): 1}
+GAS_EPOCHS = 3
+# (c) PGLBox passes a run. A sound run at the trainer's defaults starts at
+# the untrained table's loss, 6 ln 2, within PGLBOX_START_TOL, then rises
+# pass by pass as pgl_tpu's does (tests/test_torch_pglbox.py), and the mmap
+# tier's passes equal the port's CPU trainer's on the same walks and draws
+# within PGLBOX_TWIN_TOL (float32 rounding carried through Adam)
+PGLBOX_PASSES = 8
+PGLBOX_START_TOL = 0.02
+PGLBOX_TWIN_TOL = 2e-3
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the block; restored after."""
+    import os
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def stream_host(n=STREAM_NODES, deg=STREAM_DEG, d=STREAM_D, seed=0):
+    """A uniform random graph of ``n`` nodes with ``deg`` in-edges each
+    (sources drawn uniformly, edges made in numpy in destination order, as
+    ``k1_case_edges`` does) with its CSC index, and a host float32 table
+    ``[n, d]`` drawn from ``seed``."""
+    from pgl_tpu_torch import Graph
+    rng = np.random.default_rng(seed)
+    edges = np.empty((n * deg, 2), np.int64)
+    edges[:, 0] = rng.integers(0, n, n * deg)
+    edges[:, 1] = np.repeat(np.arange(n, dtype=np.int64), deg)
+    g = Graph(edges, num_nodes=n)
+    g.adj_dst_index
+    return g, rng.standard_normal((n, d), dtype=np.float32)
+
+
+def streamed_profile(call):
+    """Device ms of one ``call`` by kind (torch.profiler): the SpMM kernels
+    (K1's ``spmm_*``, K6's ``dedup_apply`` and ``dedup_combine``), the
+    host-to-device and device-to-host copies, and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    ms = {"kernel": 0.0, "h2d": 0.0, "d2h": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = kernel_name(e.key)
+        kind = ("kernel" if name.startswith(("spmm_", "dedup_apply",
+                                             "dedup_combine"))
+                else "h2d" if "HtoD" in e.key
+                else "d2h" if "DtoH" in e.key else "other")
+        ms[kind] += us / 1e3
+    return ms
+
+
+def streamed_k6_row(sp, c, launches, dev):
+    """K6 over one streamed chunk's dedup layout (its staged table of
+    ``len(uv)`` rows): CUDA events, the plain version, ``torch.sparse.mm``
+    on the chunk's (destination, staged row) matrix, the bound (the edges'
+    ``dst`` and ``urow``, the staged rows and ``uv`` read once, the pairs
+    and groups once, the output blocks written once; the nonzero cells'
+    FLOPs) and the max |err| against float64."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    D, U = STREAM_D, len(c.rows)
+    words = torch.as_tensor(c.words).to(dev)
+    lay = sp._layout(c, words, torch.arange(U, dtype=torch.int32,
+                                            device=dev))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(U, D, device=dev, generator=gen)
+    out = torch.empty(lay.n_pad, D, device=dev)
+    part = torch.empty(lay.num_partials * dk.NB, D, device=dev)
+    ms = time_ms(lambda: dk._launch_apply(x, lay, None, out, part), 10)
+    plain_ms = time_ms(lambda: dk.apply_reference(x, lay), 2)
+    A = torch.sparse_coo_tensor(
+        torch.stack([lay.dst.long(), lay.urow.long()]),
+        torch.ones(lay.num_edges, device=dev),
+        (lay.num_segments, U)).coalesce()
+    cells = A._nnz()
+    A = A.to_sparse_csr()
+    lib_ms = time_ms(lambda: torch.sparse.mm(A, x), 10)
+    with torch.no_grad():
+        err = check_dedup(f"streamed K6 chunk of {c.r1 - c.r0} rows",
+                          out[:lay.num_segments], x, lay)
+    nbytes = (8 * lay.num_edges + 4 * (U * D + lay.n_pad * D + U)
+              + 16 * (lay.num_pairs + lay.groups.shape[0]))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * cells * D / F32_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    row = dedup_row(f"spmm_dedup_streamed_d{D}_c{c.r1 - c.r0}", "dedup",
+                    launches, ("dedup", "streamed", D), err, ms, plain_ms,
+                    bound_ms, "bytes" if t_bytes >= t_ops else "operations",
+                    lib_ms, lay, D, cells=cells, staged_rows=U)
+    print(f"[timing] K6 streamed chunk ({c.r1 - c.r0} rows, {U} staged "
+          f"rows, {lay.num_edges} edges, {lay.num_pairs} pairs): kernel "
+          f"{ms:.5f} ms, plain {plain_ms:.5f} ms, torch.sparse.mm "
+          f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_ms / ms:.3f} "
+          f"of it); {launches.get(('dedup', 'streamed', D), 0)} launches "
+          f"in its run", flush=True)
+    return row
+
+
+def phase_streamed(dev, smi, rows):
+    """Phase 14 (a): ``Graph.streamed_send_u_recv`` over a 2 GiB host table
+    on both routes (K1; K6 under ``DEDUP``) at each of ``STREAM_CHUNKS``,
+    held to the in-memory ``send_u_recv`` on the card (``check_spmm``'s
+    bound) and to float64 on ``STREAM_CHECK_ROWS`` seeded rows, one kernel
+    launch a chunk asserted, the peak device memory of a call below the
+    table's size at 2^16. Appends the kernels' rows at the first chunk's
+    shape to ``rows``; returns the step line's entry."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import streaming
+
+    D, N = STREAM_D, STREAM_NODES
+    t0 = time.perf_counter()
+    g, table = stream_host()
+    idx = g.adj_dst_index
+    host_s = time.perf_counter() - t0
+    table_gib = table.nbytes / 2**30
+    print(f"[stream] graph N={N} E={g.num_edges}, table [{N}, {D}] float32 "
+          f"({table_gib:.2f} GiB) made on the host in {host_s:.2f} s",
+          flush=True)
+    # float64 on seeded rows: each row's sum and its terms' 2-norm
+    pick = np.sort(np.random.default_rng(7).choice(N, STREAM_CHECK_ROWS,
+                                                   replace=False))
+    exact = np.zeros((len(pick), D))
+    sq = np.zeros((len(pick), D))
+    for i, r in enumerate(pick):
+        t = table[idx.sorted_v[idx.indptr[r]:idx.indptr[r + 1]]].astype(
+            np.float64)
+        exact[i], sq[i] = t.sum(0), (t * t).sum(0)
+    exact, scale64 = torch.as_tensor(exact), torch.as_tensor(sq).sqrt()
+
+    # the in-memory SpMM on the card: the table and graph put there, K1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gt = g.tensor(dev)
+    x = torch.as_tensor(table).to(dev)
+    torch.cuda.synchronize()
+    tensor_s = time.perf_counter() - t0
+    with torch.no_grad():
+        ref = gt.send_u_recv(x, "sum")
+        mem_ms = median_ms(lambda: gt.send_u_recv(x, "sum"), 3)
+        terms = gt.send_u_recv(x * x, "sum").sqrt_()
+    ref_h, terms_h = ref.cpu().numpy(), terms.cpu().numpy()
+    del gt, x, ref, terms
+    torch.cuda.empty_cache()
+    print(f"[stream] in memory on the card: tensor() and the table's copy "
+          f"{tensor_s:.2f} s, send_u_recv (K1) {mem_ms:.4f} ms", flush=True)
+
+    # the link's yardstick: one pinned 1 GiB copy_ to the card
+    pinned = torch.ones(1 << 28, pin_memory=True)
+    on_card = torch.empty(1 << 28, device=dev)
+    link_ms = median_ms(lambda: on_card.copy_(pinned, non_blocking=True), 5)
+    link_gbs = pinned.nbytes / link_ms / 1e6
+    del pinned, on_card
+    print(f"[stream] {smi}: a pinned copy_ of 1 GiB to the card "
+          f"{link_ms:.4f} ms, {link_gbs:.2f} GB/s", flush=True)
+
+    out_runs = {}
+    for dedup in (False, True):
+        route = "K6" if dedup else "K1"
+        key = ("dedup", streaming.KIND, D) if dedup else (streaming.KIND, D)
+        for chunk in STREAM_CHUNKS:
+            tag = f"{route} chunk_rows={chunk}"
+            with dispatch_settings(DEDUP=dedup):
+                call = lambda: g.streamed_send_u_recv(
+                    table, "sum", chunk_rows=chunk, device=dev)
+                torch.cuda.synchronize()
+                reset_all_launches()
+                t0 = time.perf_counter()
+                out = call()                     # builds the chunks first
+                first_s = time.perf_counter() - t0
+                launches = {k: v for k, v in all_launches().items() if v}
+                sp = g._streamed[1]
+                want = {key: len(sp.chunks)}
+                if launches != want:
+                    raise AssertionError(f"streamed {tag}: launches "
+                                         f"{launches}, expected {want}")
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = call()
+                call_s = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - held
+                prof = streamed_profile(call)
+            sizes = sp.chunk_bytes(D)
+            predicted = max(a + b for a, b in zip(sizes, sizes[1:] + [0]))
+            staged = sp.staged_rows * D * 4 + sum(c.words.nbytes
+                                                  for c in sp.chunks)
+            # held to the in-memory K1 and to float64
+            with torch.no_grad():
+                got = torch.as_tensor(out).to(dev)
+                err = check(f"streamed {tag} vs in-memory K1", got,
+                            torch.as_tensor(ref_h).to(dev),
+                            torch.as_tensor(terms_h).to(dev).double())
+                del got
+                torch.cuda.empty_cache()
+                err64 = check(f"streamed {tag} vs float64",
+                              torch.as_tensor(out[pick]), exact, scale64)
+            if chunk == STREAM_CHUNKS[0] and peak >= table.nbytes:
+                raise AssertionError(f"streamed {tag}: peak device memory "
+                                     f"{peak / 2**20:.1f} MiB, not below "
+                                     f"the table's {table.nbytes / 2**20} "
+                                     "MiB")
+            out_runs[tag] = run = {
+                "chunks": len(sp.chunks), "build_s": sp.build_s,
+                "first_call_s": first_s, "call_ms": call_s * 1e3,
+                "staged_gb": staged / 1e9,
+                "staged_gb_per_s": staged / call_s / 1e9,
+                "link_gb_per_s": link_gbs,
+                "device_ms": prof, "peak_mib": peak / 2**20,
+                "peak_mib_predicted": predicted / 2**20,
+                "in_memory_ms": mem_ms, "max_abs_err": err,
+                "max_abs_err_float64": err64, "launches": launches[key]}
+            print(f"[stream {tag}] {smi}: {len(sp.chunks)} chunks built in "
+                  f"{sp.build_s:.2f} s (first call {first_s:.2f} s); a call "
+                  f"{call_s * 1e3:.1f} ms, {staged / 1e9:.2f} GB staged, "
+                  f"{staged / call_s / 1e9:.2f} GB/s (pinned copy_ "
+                  f"{link_gbs:.2f}); device ms {json.dumps(prof)}; peak "
+                  f"{peak / 2**20:.1f} MiB (predicted {predicted / 2**20:.1f}"
+                  f"); in-memory K1 {mem_ms:.4f} ms; max |err| {err:.3e} vs "
+                  f"the in-memory K1, {err64:.3e} vs float64; "
+                  f"{launches[key]} launches", flush=True)
+            # the kernel at the first chunk's shape
+            c = sp.chunks[0]
+            if dedup:
+                rows.append(streamed_k6_row(sp, c, launches, dev))
+            else:
+                from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+                lay = sk.unpack_spmm_layout(torch.as_tensor(c.words).to(dev),
+                                            streaming.KIND, host=c.words)[0]
+                rows += k1_rows(f"c{chunk}", [lay], [len(c.rows)], (D,),
+                                dev, launches)
+            del out, sp
+            torch.cuda.empty_cache()
+    return out_runs
+
+
+def gas_model(dev):
+    """The 3-layer GCN of ``GAS_LAYERS`` (weights from seed 0), each layer
+    normalised by the full graph's in-degrees (GAS's GCN): a batch's
+    subgraph carries them (``FULL_NORM``), where its own degrees would
+    leave the halo's messages unnormalised (a halo node has no in-edge in
+    it); the full graph normalises by its own. Returns the convs, the
+    layers ``ScalableGNN`` calls and Adam at lr 1e-3."""
+    import torch
+    from pgl_tpu_torch.apps.gnn_autoscale import FULL_NORM
+    from pgl_tpu_torch.nn import GCNConv
+    gen = torch.Generator().manual_seed(0)
+    convs = [GCNConv(i, o, activation=a, generator=gen, device=dev)
+             for i, o, a in GAS_LAYERS]
+    layers = [lambda g, x, c=c: c(g, x, norm=g.node_feat.get(FULL_NORM))
+              for c in convs]
+    opt = torch.optim.Adam([p for c in convs for p in c.parameters()],
+                           lr=1e-3)
+    return convs, layers, opt
+
+
+def phase_gas(dev, smi, rows, host, labels, parts):
+    """Phase 14 (b): GNNAutoScale on the UniMP graph, ``PARTS`` METIS parts
+    (phase 13's), 1 warm-up and ``GAS_EPOCHS`` timed epochs through
+    ``iter_batches`` and ``push_fresh_async``: K1's launches a batch, a
+    falling loss, the halos yielded equal the blocking ``pull_halo``, the
+    full-graph inference against float64 on the CPU; ms a batch, pull and
+    push ms, the idle share, the peak memory. Appends K1's rows at the
+    largest batch's shapes to ``rows``; returns the step line's entry."""
+    import copy
+    import torch
+    from pgl_tpu_torch.apps.gnn_autoscale import (ScalableGNN,
+                                                  partition_batches)
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+
+    t0 = time.perf_counter()
+    batches = partition_batches(host, PARTS, parts=parts)
+    split_s = time.perf_counter() - t0
+    sizes = [b["batch_size"] for b in batches]
+    full = sum(1 for s in sizes if s)
+    convs, layers, opt = gas_model(dev)
+    gnn = ScalableGNN(host.num_nodes, layers, [o for _, o, _ in
+                                              GAS_LAYERS[:-1]], device=dev)
+    feat = torch.as_tensor(host.node_feat["h"]).to(dev)
+    y = torch.as_tensor(labels.astype(np.int64)).to(dev)
+    nodes = [torch.as_tensor(b["nodes"]).to(dev) for b in batches]
+    t0 = time.perf_counter()
+    for b in batches:
+        gnn.batch_graph(b)
+    torch.cuda.synchronize()
+    to_card_s = time.perf_counter() - t0
+    C = GAS_LAYERS[-1][1]
+
+    def train_batch(i, b, halo):
+        out, fresh = gnn.forward_batch(b, feat.index_select(0, nodes[i]),
+                                       halo)
+        loss = None
+        if b["batch_size"]:
+            loss = ce(out, y[nodes[i][:b["batch_size"]]]).mean()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+        elif tuple(out.shape) != (0, C):
+            raise AssertionError(f"GAS: an empty part gave {out.shape}")
+        gnn.push_fresh_async(b, fresh)
+        return loss
+
+    def epoch():
+        losses = [train_batch(i, b, halo) for i, (b, halo) in
+                  enumerate(gnn.iter_batches(batches))]
+        gnn.pool.synchronize()
+        return float(torch.stack([v.detach() for v in losses
+                                  if v is not None]).mean())
+
+    t0 = time.perf_counter()
+    losses = [epoch()]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    for _ in range(GAS_EPOCHS):
+        losses.append(epoch())
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3 / (GAS_EPOCHS * len(batches))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    launches = {k: v for k, v in all_launches().items() if v}
+    want = {k: v * full * GAS_EPOCHS for k, v in GAS_PER_BATCH.items()}
+    if launches != want:
+        raise AssertionError(f"GAS: launches {launches}, expected {want} "
+                             f"({full} nonempty batches of {len(batches)})")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"GAS: epoch losses not finite and falling: "
+                             f"{losses}")
+    # the halos iter_batches yields equal the blocking pull
+    for b, halo in gnn.iter_batches(batches):
+        for a, r in zip(halo, gnn.pull_halo(b)):
+            if not torch.equal(a, r):
+                raise AssertionError("GAS: a prefetched halo differs from "
+                                     "pull_halo")
+    # blocking pull and push of each nonempty batch
+    pull_s = push_s = 0.0
+    with torch.no_grad():
+        for i, b in enumerate(batches):
+            if not b["batch_size"]:
+                continue
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            halo = gnn.pull_halo(b)
+            torch.cuda.synchronize()
+            pull_s += time.perf_counter() - t0
+            _, fresh = gnn.forward_batch(b, feat.index_select(0, nodes[i]),
+                                         halo)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gnn.push_fresh(b, fresh)
+            push_s += time.perf_counter() - t0
+
+    def cycle():
+        while True:
+            for i, (b, halo) in enumerate(gnn.iter_batches(batches)):
+                yield i, b, halo
+            gnn.pool.synchronize()
+
+    batch_iter = cycle()
+    prof = phase_gat_profile(None, "GAS batch", lambda _: (
+        None, lambda: train_batch(*next(batch_iter))))
+    gnn.pool.synchronize()
+    # full-graph inference (K1 on the whole graph) against float64 on the CPU
+    gt = host.tensor(dev)
+    reset_all_launches()
+    logits = gnn.inference_full(gt, feat)
+    inf_launches = {k: v for k, v in all_launches().items() if v}
+    if inf_launches != {("csc", 128): 2, ("csc", 40): 1}:
+        raise AssertionError(f"GAS inference: launches {inf_launches}")
+    g64 = host.tensor("cpu")
+    h = torch.as_tensor(host.node_feat["h"], dtype=torch.float64)
+    with torch.no_grad():
+        for conv in convs:
+            h = copy.deepcopy(conv).to("cpu", torch.float64)(g64, h)
+    inf_err = check("GAS inference_full vs float64", logits.cpu(), h)
+    inf_share = bound_share(logits.cpu(), h)
+    big = max(range(len(batches)), key=lambda i: sizes[i])
+    sg = gnn.batch_graph(batches[big])
+    rows += k1_rows("gas", sg._spmm_layouts, (sg.num_nodes, sg.num_nodes),
+                    (128, 40), dev, launches)
+    gnn.pool.close()
+    n_full = max(full, 1)
+    out = {"batch_ms": batch_ms, "pull_ms": pull_s * 1e3 / n_full,
+           "push_ms": push_s * 1e3 / n_full, "warm_epoch_s": warm_s,
+           "batch_graphs_to_card_s": to_card_s,
+           "partition_batches_s": split_s, "epoch_losses": losses,
+           "device_busy_ms_per_batch": prof["device_busy_ms_per_step"],
+           "idle_share": prof["idle_share"], "peak_mib": peak,
+           "batch_sizes": sizes,
+           "halo_sizes": [len(b["nodes"]) - b["batch_size"]
+                          for b in batches],
+           "inference_max_abs_err": inf_err, "inference_bound_share":
+           inf_share, "launches_per_batch": {
+               f"{k[0]} D={k[1]}": v for k, v in GAS_PER_BATCH.items()}}
+    print(f"[gas] {smi}: {len(batches)} parts ({len(batches) - full} "
+          f"empty), batches of {min(sizes)} to {max(sizes)} nodes; "
+          f"{batch_ms:.4f} ms a batch over {GAS_EPOCHS} epochs (warm-up "
+          f"epoch {warm_s:.2f} s, the batch graphs put on the card in "
+          f"{to_card_s:.2f} s); blocking pull {out['pull_ms']:.4f} ms, "
+          f"push {out['push_ms']:.4f} ms a batch; device busy "
+          f"{prof['device_busy_ms_per_step']:.4f} ms a batch, idle share "
+          f"{prof['idle_share']:.4f}; peak {peak:.1f} MiB; epoch losses "
+          f"{[round(v, 6) for v in losses]}; inference_full vs float64 max "
+          f"|err| {inf_err:.3e} ({inf_share:.4f} of the bound); K1 "
+          f"launches a batch {GAS_PER_BATCH}", flush=True)
+    return out
+
+
+def pglbox_cpu_twin(path, emb_path, draws):
+    """The mmap tier's passes again with the port's CPU trainer (which the
+    CPU tests hold to pgl_tpu's pass by pass) on the graph dumped at
+    ``path``: the same host walks, and ``draws``, the card's negative
+    permutations, in order. Returns its pass losses."""
+    from pgl_tpu_torch.apps.pglbox import DistGraph, PGLBoxTrainer
+    with environ(PGL_TPU_PGLBOX_EMB_RESIDENT="0",
+                 PGL_TPU_PGLBOX_DEVICE_WALKS="0"):
+        dg = DistGraph(path, device="cpu")
+        tr = PGLBoxTrainer(dg, emb_path, device="cpu")
+        feed = iter(draws)
+        tr._draw = lambda generator, n: next(feed)
+        batches = dg.node_batch_iter(tr.cfg["pass_nodes"], seed=0)
+        losses = [tr._train_pass(p, next(batches), None)
+                  for p in range(PGLBOX_PASSES)]
+    if next(feed, None) is not None:
+        raise AssertionError("PGLBox CPU twin: draws left over")
+    return losses
+
+
+def phase_pglbox(dev, smi, host):
+    """Phase 14 (c): PGLBox on the UniMP graph (its edges dumped and
+    reopened memory-mapped) at ``PGLBoxTrainer``'s defaults,
+    ``PGLBOX_PASSES`` passes with the resident table and device walks (the
+    card's default), then with the mmap tier and host walks: finite
+    losses, the first pass's within ``PGLBOX_START_TOL`` of 6 ln 2, every
+    pass's written rows equal to its trained working set, the rows no pass
+    touched unchanged bit for bit, the ``infer`` shards equal to
+    ``embeddings()``; the mmap tier's pass losses equal to the port's CPU
+    trainer's on the same walks and draws (:func:`pglbox_cpu_twin`) within
+    ``PGLBOX_TWIN_TOL``; passes a second and the ms of a pass's parts."""
+    import os
+    import tempfile
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.apps.pglbox import DistGraph, PGLBoxTrainer
+
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        dg = DistGraph.from_graph(Graph(host.edges, num_nodes=host.num_nodes),
+                                  os.path.join(work, "g"), device=dev)
+        dump_s = time.perf_counter() - t0
+        for k, (tag, env) in enumerate((
+                ("resident table, device walks", {}),
+                ("mmap table, host walks",
+                 {"PGL_TPU_PGLBOX_EMB_RESIDENT": "0",
+                  "PGL_TPU_PGLBOX_DEVICE_WALKS": "0"}))):
+            with environ(**env):
+                tr = PGLBoxTrainer(dg, os.path.join(work, f"emb{k}"),
+                                   device=dev)
+                emb = tr.embedding
+                if emb._resident != (not env) or \
+                        dg._use_device_walks() != (not env):
+                    raise AssertionError(f"PGLBox {tag}: resident "
+                                         f"{emb._resident}, device walks "
+                                         f"{dg._use_device_walks()}")
+                initial = np.array(emb.table.weight)
+                last = initial.copy()
+                touched = np.zeros(host.num_nodes, bool)
+                orig, check_s = emb.end_pass, [0.0]
+
+                def end_pass(table):
+                    ids = emb._ids.copy()
+                    trained = table.detach()[:len(ids)].cpu().numpy()
+                    orig(table)
+                    t1 = time.perf_counter()
+                    back = (emb._dev_table[torch.as_tensor(ids, device=dev)]
+                            .cpu().numpy() if emb._resident
+                            else np.asarray(emb.table.weight[ids]))
+                    if not np.array_equal(back, trained):
+                        raise AssertionError(f"PGLBox {tag}: the rows "
+                                             "written back differ from the "
+                                             "trained working set")
+                    last[ids] = trained
+                    touched[ids] = True
+                    check_s[0] += time.perf_counter() - t1
+
+                emb.end_pass = end_pass
+                draws, card_draw = [], tr._draw
+                if env:    # the mmap tier's draws go to the CPU twin
+                    tr._draw = lambda g, n: draws.append(card_draw(g, n)) \
+                        or draws[-1]
+                gen = torch.Generator(device=dev).manual_seed(7)
+                batches = dg.node_batch_iter(tr.cfg["pass_nodes"], seed=0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = [tr._train_pass(p, next(batches), gen)
+                          for p in range(PGLBOX_PASSES)]
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0 - check_s[0]
+                tr.embedding.flush_to_store()
+                final = tr.embeddings()
+                if not np.isfinite(losses).all() or \
+                        abs(losses[0] - 6 * np.log(2)) > PGLBOX_START_TOL:
+                    raise AssertionError(f"PGLBox {tag}: losses {losses}, "
+                                         "not finite from 6 ln 2")
+                twin, twin_err = None, None
+                if env:
+                    twin = pglbox_cpu_twin(dg.path, os.path.join(
+                        work, "emb_cpu"), [d.cpu() for d in draws])
+                    twin_err = float(np.abs(np.subtract(losses,
+                                                        twin)).max())
+                    if not twin_err <= PGLBOX_TWIN_TOL:
+                        raise AssertionError(
+                            f"PGLBox {tag}: pass losses {losses} on the "
+                            f"card, {twin} on the CPU")
+                if not (np.array_equal(final[~touched], initial[~touched])
+                        and np.array_equal(final[touched], last[touched])):
+                    raise AssertionError(f"PGLBox {tag}: rows outside the "
+                                         "passes' working sets changed, or "
+                                         "a written row was lost")
+                shards = tr.infer(os.path.join(work, f"infer{k}"))
+                inferred = np.concatenate([np.load(os.path.join(
+                    work, f"infer{k}", f"part-{i:05d}.npz"))["emb"]
+                    for i in range(shards)])
+                if not np.array_equal(inferred, final):
+                    raise AssertionError(f"PGLBox {tag}: infer shards "
+                                         "differ from embeddings()")
+                t = dict(tr.timings)
+                t["end_pass"] -= check_s[0]
+                per_pass = {f"{k2}_ms": v * 1e3 / PGLBOX_PASSES
+                            for k2, v in t.items()}
+                out[tag] = dict(per_pass, passes_per_s=PGLBOX_PASSES / secs,
+                                losses=losses, cpu_losses=twin,
+                                cpu_max_abs_diff=twin_err, rows_touched=int(
+                                    touched.sum()), capacity=emb.capacity)
+                print(f"[pglbox {tag}] {smi}: {PGLBOX_PASSES} passes of "
+                      f"{tr.cfg['pass_nodes']} nodes, "
+                      f"{PGLBOX_PASSES / secs:.3f} passes/s; a pass: walk "
+                      f"and pairs {per_pass['walk_ms']:.2f} ms, begin_pass "
+                      f"{per_pass['begin_pass_ms']:.2f}, steps "
+                      f"{per_pass['steps_ms']:.2f}, end_pass "
+                      f"{per_pass['end_pass_ms']:.2f}; losses "
+                      f"{[round(v, 5) for v in losses]}"
+                      + ("" if twin is None else
+                         f" (the CPU trainer's on the same walks and draws"
+                         f" {[round(v, 5) for v in twin]}, max |diff| "
+                         f"{twin_err:.3e})")
+                      + f"; {int(touched.sum())}"
+                      f" rows trained, the other "
+                      f"{int((~touched).sum())} unchanged; {shards} infer "
+                      f"shards equal embeddings() (graph dumped in "
+                      f"{dump_s:.2f} s)", flush=True)
+    return out
+
+
+def phase_out_of_core(dev, smi, rows, parts):
+    """Phase 14: the streamed SpMM, GNNAutoScale and PGLBox."""
+    import torch
+    out = {"streamed": phase_streamed(dev, smi, rows)}
+    torch.cuda.empty_cache()
+    host, labels = unimp_host()
+    out["gas"] = phase_gas(dev, smi, rows, host, labels, parts)
+    torch.cuda.empty_cache()
+    out["pglbox"] = phase_pglbox(dev, smi, host)
     return out
 
 
@@ -5512,7 +6141,9 @@ def main():
     torch.cuda.empty_cache()
     readout_steps = phase_readouts(dev, host)
     torch.cuda.empty_cache()
-    sampling_steps = phase_sampling(dev, smi, rows)
+    sampling_steps, parts = phase_sampling(dev, smi, rows)
+    torch.cuda.empty_cache()
+    out_of_core = phase_out_of_core(dev, smi, rows, parts)
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -5522,7 +6153,8 @@ def main():
                                tensor_s=t_6),
         **gat_steps, **dedup_steps, **unimp_steps, **ddot_steps,
         **weighted_steps, **sddmm_steps, **zoo_steps, **hetero_steps,
-        **readout_steps, **sampling_steps, "device": smi}}),
+        **readout_steps, **sampling_steps, "out_of_core": out_of_core,
+        "device": smi}}),
         flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

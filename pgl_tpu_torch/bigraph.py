@@ -29,7 +29,7 @@ import torch
 
 from . import resolve_device
 from .graph import (_check_feat_dict, _concat_feats, _get, _get_index,
-                    _put, _put_feat, _put_index, _sample_from_index,
+                    _put, _put_feat, _put_index, _rows, _sample_from_index,
                     _subgraph_ids)
 from .message import Message
 from .ops import dispatch
@@ -294,7 +294,7 @@ class BiGraph:
             if self._spmm_layouts is None:
                 self._spmm_layouts = self._build_spmm_layouts(
                     self._edges.device)
-            flat = feature.reshape(feature.shape[0], -1).contiguous()
+            flat = _rows(feature)
             out = spmm(flat, *self._spmm_layouts).reshape(
                 (self._dst_num_nodes,) + feature.shape[1:])
             if reduce_func == "mean":

@@ -1,14 +1,14 @@
 """Graph — host (numpy) or device (torch) graph with node/edge features.
 
-Port of ``pgl_tpu/graph.py`` but for ``streamed_send_u_recv``:
-construction, degrees, the CSC/CSR indexes (built by the native counting
-sort), the host neighbour queries and sampling, ``tensor``/``numpy``
-conversion, the message passing (the UDF ``send``/``recv`` with
-:class:`~pgl_tpu_torch.message.Message`, the built-in sends and
-``sddmm_csc``), batching (``disjoint``, ``node_batch_iter``) and
-persistence (``dump``/``to_mmap``/``load``, the reference's directory
-format). As in the reference, edges are sorted by destination once, at
-conversion time, so every receive is a sorted segment reduce; and
+Port of ``pgl_tpu/graph.py``: construction, degrees, the CSC/CSR indexes
+(built by the native counting sort), the host neighbour queries and
+sampling, ``tensor``/``numpy`` conversion, the message passing (the UDF
+``send``/``recv`` with :class:`~pgl_tpu_torch.message.Message`, the
+built-in sends and ``sddmm_csc``), batching (``disjoint``,
+``node_batch_iter``), the out-of-core ``streamed_send_u_recv`` over a host
+table, and persistence (``dump``/``to_mmap``/``load``, the reference's
+directory format). As in the reference, edges are sorted by destination
+once, at conversion time, so every receive is a sorted segment reduce; and
 ``tensor()`` returns a new Graph instead of mutating this one.
 
 ``send_u_recv`` with sum or mean runs the dedup SpMM of
@@ -122,6 +122,7 @@ class Graph:
         self._attn_layouts = None
         self._dedup_attn = None
         self._sddmm_layout = None        # (layout,) once built
+        self._streamed = None            # (key, StreamedSpMM) once built
 
     # -- basic accessors ----------------------------------------------------
 
@@ -330,7 +331,7 @@ class Graph:
             if self._spmm_layouts is None:
                 self._spmm_layouts = self._build_spmm_layouts(
                     self._edges.device)
-            flat = feature.reshape(feature.shape[0], -1).contiguous()
+            flat = _rows(feature)
             if self._dedup_layouts is not None:
                 out = dk.spmm_dedup(flat, *self._dedup_layouts)
             else:
@@ -373,7 +374,7 @@ class Graph:
             if self._spmm_layouts is None:
                 self._spmm_layouts = self._build_spmm_layouts(
                     self._edges.device)
-            flat = feature.reshape(feature.shape[0], -1).contiguous()
+            flat = _rows(feature)
             w = w.to(flat.dtype).contiguous()
             if (self._dedup_layouts is not None and message_op == "mul"
                     and w.shape[1] == 1):
@@ -455,6 +456,38 @@ class Graph:
             self._dedup_attn = build_dedup_attention(self._dedup_layouts[0],
                                                      self._num_nodes)
         return self._dedup_attn
+
+    def streamed_send_u_recv(self, feature_host, reduce_op: str = "sum",
+                             chunk_rows: int = 1 << 18, device=None):
+        """The SpMM of a host-resident table (numpy or memmap ``[N, D]``)
+        that need not fit on the card (the reference's UVA graphs,
+        ``pgl/graph.py:227-247``): ``ops/kernels/streaming.py``'s
+        :class:`~pgl_tpu_torch.ops.kernels.streaming.StreamedSpMM` runs it
+        destination chunk by chunk on ``device`` (default: the card),
+        staging each chunk's source rows and writing its rows back. Returns
+        a host array. "sum" or "mean" (divided by ``max(in-degree, 1)``);
+        anything else raises ``NotImplementedError``, as in the reference.
+        The chunks' layouts are built once and kept on the numpy graph
+        under ``(chunk_rows, device, dispatch.DEDUP)``, one entry at a
+        time (a tensor graph's ``numpy()`` copy is new on every call)."""
+        if reduce_op not in ("sum", "mean"):
+            raise NotImplementedError(
+                "the streamed path supports sum and mean (the SpMM is a sum "
+                "machine; stage max and min through the device path)")
+        from .ops.kernels.streaming import StreamedSpMM
+        g = self.numpy()
+        device = resolve_device(device)
+        key = (int(chunk_rows), str(device), bool(dispatch.DEDUP))
+        if g._streamed is None or g._streamed[0] != key:
+            idx = g.adj_dst_index
+            g._streamed = (key, StreamedSpMM(idx.indptr, idx.sorted_v,
+                                             g.num_nodes, chunk_rows,
+                                             device))
+        out = g._streamed[1](feature_host)
+        if reduce_op == "mean":
+            deg = np.maximum(np.asarray(g.adj_dst_index.degree), 1)
+            out /= deg[:, None].astype(out.dtype)
+        return out
 
     # -- conversion ---------------------------------------------------------
 
@@ -655,6 +688,12 @@ class Graph:
                 f"num_edges={self._num_edges}, num_graph={self._num_graph}, "
                 f"mode={mode}, node_feat={list(self._node_feat)}, "
                 f"edge_feat={list(self._edge_feat)})")
+
+
+def _rows(feature):
+    """``feature`` as a contiguous ``[N, D]`` tensor (N may be 0)."""
+    return feature.reshape(feature.shape[0],
+                           int(np.prod(feature.shape[1:]))).contiguous()
 
 
 def _subgraph_ids(indptr, total, like):

@@ -231,7 +231,14 @@ def test_import_leaves_jax_out():
             "pgl_tpu_torch.sampling.device_walk, pgl_tpu_torch.partition, "
             "pgl_tpu_torch.utils.data, pgl_tpu_torch.utils.mp_reader, "
             "pgl_tpu_torch.models.sampled_sage, "
-            "pgl_tpu_torch.datasets.loaders, chip_smoke\n"
+            "pgl_tpu_torch.datasets.loaders, "
+            "pgl_tpu_torch.ops.kernels.streaming, "
+            "pgl_tpu_torch.utils.stream_pool, "
+            "pgl_tpu_torch.utils.shared_embedding, "
+            "pgl_tpu_torch.utils.logger, pgl_tpu_torch.apps, "
+            "pgl_tpu_torch.apps.common, pgl_tpu_torch.apps.gnn_autoscale, "
+            "pgl_tpu_torch.apps.ingest, pgl_tpu_torch.apps.pglbox, "
+            "pgl_tpu_torch.apps.unsupervised, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'pgl_tpu')]\n"
             "assert not bad, bad\n")

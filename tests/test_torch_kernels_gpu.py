@@ -1487,3 +1487,115 @@ def test_worker_refuses_a_cuda_tensor(cuda):
     th.join(120)
     assert not th.is_alive(), "the workers hung"
     assert "tensor on cuda" in out.get("error", ""), out
+
+
+@pytest.mark.gpu
+def test_stream_pool_orders_copies_on_the_card(cuda):
+    """A push's copy waits for the kernel that writes its values on the
+    producer's stream; a pulled tensor is ready on the consumer's stream
+    once ``result()`` returns; and a pulled tensor freed while the consumer
+    still reads it is not handed to the next pull's copy (its
+    ``record_stream``)."""
+    from pgl_tpu_torch.utils.stream_pool import StreamPool
+    n, d = 1 << 20, 64                       # 256 MiB a copy
+    src = np.random.default_rng(0).normal(size=(n, d)).astype(np.float32)
+    pool = StreamPool(1, device=cuda)
+    vals = torch.zeros(n, d, device=cuda)
+    torch.cuda._sleep(200_000_000)           # the producer's stream is busy
+    vals.fill_(7.0)
+    host = np.zeros((n, d), np.float32)
+    pool.async_push(host, slice(None), vals)
+    del vals
+    pool.synchronize()
+    assert (host == 7.0).all()
+    rev = np.arange(n)[::-1].copy()
+    rows = pool.async_pull(src, rev).result()
+    assert torch.equal(rows.cpu(), torch.as_tensor(src[rev]))
+    a = pool.async_pull(src).result()
+    torch.cuda._sleep(200_000_000)           # the consumer's stream is busy
+    total = a.sum(dtype=torch.float64)
+    del a
+    pool.async_pull(np.zeros_like(src)).result()
+    assert float(total) == pytest.approx(float(src.sum(dtype=np.float64)),
+                                         rel=1e-9)
+    pool.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dedup", [False, True], ids=["k1", "k6"])
+def test_streamed_routes_match_in_memory_k1(cuda, dedup):
+    """``streamed_send_u_recv`` over a host table (a third of the edges from
+    16 hub sources, so chunks share rows; empty destinations) on each route
+    against the in-memory ``send_u_recv`` (K1) within ``check_spmm``'s
+    bound, one launch a chunk, and mean's zero rows."""
+    from pgl_tpu_torch.ops.kernels import streaming
+    rng = np.random.default_rng(3)
+    N, E, D = 60000, 480000, 128
+    src = np.concatenate([rng.integers(0, 16, E // 3),
+                          rng.integers(0, N, E - E // 3)])
+    dst = rng.integers(0, N - 500, E)
+    g = Graph(np.stack([src, dst], axis=1), num_nodes=N)
+    table = rng.normal(size=(N, D)).astype(np.float32)
+    x = torch.as_tensor(table).to(cuda)
+    gt = g.tensor(cuda)
+    with dispatch_settings(DEDUP=dedup):
+        sk.reset_launches()
+        dk.reset_launches()
+        out = g.streamed_send_u_recv(table, chunk_rows=1 << 13, device=cuda)
+        chunks = len(g._streamed[1].chunks)
+        key = ("dedup", streaming.KIND, D) if dedup else (streaming.KIND, D)
+        got = {**sk.LAUNCHES_BY_SHAPE, **dk.LAUNCHES_BY_SHAPE}
+        assert {k: v for k, v in got.items() if v} == {key: chunks}
+        mean = g.streamed_send_u_recv(table, "mean", chunk_rows=1 << 13,
+                                      device=cuda)
+    assert chunks == 8 and (mean[N - 500:] == 0).all()
+    with torch.no_grad():
+        ref = gt.send_u_recv(x, "sum")
+        check("streamed", torch.as_tensor(out).to(cuda), ref,
+              gt.send_u_recv(x * x, "sum").sqrt().double())
+
+
+@pytest.mark.gpu
+def test_resident_end_pass_on_the_card(cuda, tmp_path):
+    """The resident tier on the card (its default for a small table), a
+    capacity of 16 over a working set of 3: ``end_pass`` writes the three
+    rows and nothing else (scattering the pad slots out of bounds, as the
+    JAX version does, would be a device-side assert)."""
+    from pgl_tpu_torch.apps.pglbox import DistEmbedding
+    emb = DistEmbedding(50, 4, str(tmp_path / "e"), capacity=16,
+                        device=cuda)
+    assert emb._resident
+    t = emb.begin_pass([7, 2, 30])
+    before = emb.dump_to_mem().copy()
+    emb.end_pass(t + 10)
+    after = emb.dump_to_mem()
+    torch.cuda.synchronize()
+    keep = np.setdiff1d(np.arange(50), [2, 7, 30])
+    np.testing.assert_array_equal(after[keep], before[keep])
+    np.testing.assert_array_equal(after[[2, 7, 30]],
+                                  before[[2, 7, 30]] + 10)
+
+
+@pytest.mark.gpu
+def test_gas_empty_part_launches_nothing(cuda):
+    """A GNNAutoScale batch of no nodes runs to ``(0, C)`` on the card with
+    no K1 launch (no zero-size grid); a nonempty one launches K1."""
+    from pgl_tpu_torch.apps.gnn_autoscale import (ScalableGNN,
+                                                  partition_batches)
+    from pgl_tpu_torch.nn import GCNConv
+    g, _ = community_graph(num_nodes=30, num_classes=3, feat_dim=12,
+                           avg_degree=8, seed=3)
+    batches = partition_batches(g, 40, method="random", seed=0)
+    convs = [GCNConv(12, 16, activation="relu", device=cuda),
+             GCNConv(16, 3, device=cuda)]
+    gnn = ScalableGNN(30, convs, [16], device=cuda)
+    feat = torch.as_tensor(np.asarray(g.node_feat["h"], np.float32)).to(cuda)
+    for b in batches:
+        sk.reset_launches()
+        out, fresh = gnn.forward_batch(
+            b, feat[torch.as_tensor(b["nodes"]).to(cuda)], gnn.pull_halo(b))
+        torch.cuda.synchronize()
+        assert tuple(out.shape) == (b["batch_size"], 3)
+        assert (sk.LAUNCHES > 0) == (b["batch_size"] > 0)
+        gnn.push_fresh_async(b, fresh)
+    gnn.pool.close()
