@@ -293,7 +293,34 @@ there is no card or any phase fails. Phases:
    8 with the mmap table and host walks: finite losses, each pass's
    written rows equal to its trained working set, every other row
    unchanged bit for bit, the ``infer`` shards equal to ``embeddings()``;
-   passes a second and the ms of a pass's parts.
+   passes a second and the ms of a pass's parts;
+15. the parallel layer (``pgl_tpu_torch.parallel``): the parent computes
+   METIS parts (4, balanced by in-edges) once, writes the graphs to a
+   temporary directory and starts 4 ranks (this script with
+   ``--parallel-rank``, each a process on ``cuda:0`` under gloo, which
+   takes the CUDA tensors itself); each rank builds its shard and
+   (a) trains the headline GCN on its ``HaloGraph`` shard, (b) the bench
+   GAT (K9/K10 over its owned rows and the halo; the attention dropout's
+   keep bits on a permutation graph equal the plain mask with seed ^
+   rank, and a ``GATConv`` at rate 0.6 the plain composition), (c) the
+   GCN on its ``ShardedGraph`` edge shard (dst_range), each 3 warm-up and
+   20 timed steps asserting its K1 (and K9/K10) launches a step on its
+   own layouts, a finite falling global loss, its step ms, the exchange's
+   ms and bytes a step (timed, synchronized, over 3 more steps), its
+   peak memory and its kernels' device ms a step (timed in turn, the
+   other ranks at a barrier); (d) 3 steps each of RGCN on a
+   ``HaloHeterGraph`` of an ogbn-mag-shaped graph at 16,384 papers,
+   ``TransformerConv`` at UniMP's (2, 128, 128) on the GAT shard (the
+   dot-mode K9/K10), ``ShardedEmbedding`` lookups and an update, and the
+   halo UDF send/recv; (f) on rank 0, K1 over each halo layout and K9/K10
+   over the halo attention layouts (additive at the GAT's shapes, timed;
+   dot mode at UniMP's) against float64. The first
+   step's outputs and summed gradients of (a), (b) and (c) are held to
+   the single-graph port on the card from the same weights (``check``,
+   the gradients with ``parity``'s terms scale), and (d)'s outputs, the
+   embedding's rows, gradient and update likewise; (e) the halo GCN under
+   NCCL at one rank beside phase 3's GCN step. The step times are of 4
+   ranks time-sharing one H100, not a scaling figure.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -860,6 +887,17 @@ def k1_bytes(lay, d):
                 + lay.num_rows * d), gathered
 
 
+def k1_call(lay, n, d, dev, gen):
+    """K1's launch over ``lay`` at width ``d`` on a random table of ``n``
+    rows: ``(call, x, out)``."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    x = torch.randn(n, d, device=dev, generator=gen)
+    out = torch.empty(lay.num_rows, d, device=dev)
+    part = torch.empty(lay.item_partials, d, device=dev)
+    return (lambda: sk._launch(x, lay, out, part)), x, out
+
+
 def k1_rows(tag, lays, tables, dims, dev, by_shape):
     """K1's rows (CUDA-event ms over warm launches, the plain version's,
     ``torch.sparse.mm`` on a CSR tensor of the layout, the bound, the max
@@ -878,10 +916,8 @@ def k1_rows(tag, lays, tables, dims, dev, by_shape):
                                     torch.ones(lay.num_edges, device=dev),
                                     size=(lay.num_rows, n))
         for d in dims:
-            x = torch.randn(n, d, device=dev, generator=gen)
-            out = torch.empty(lay.num_rows, d, device=dev)
-            part = torch.empty(lay.item_partials, d, device=dev)
-            ms = time_ms(lambda: sk._launch(x, lay, out, part), 100)
+            call, x, out = k1_call(lay, n, d, dev, gen)
+            ms = time_ms(call, 100)
             plain_ms = time_ms(lambda: sk.spmm_reference(x, lay), 20)
             lib_ms = time_ms(lambda: torch.sparse.mm(A, x), 50)
             with torch.no_grad():
@@ -1477,48 +1513,62 @@ def gat_per_step(g):
     return per
 
 
-def phase_attention_timing(g, dev, runs, errs):
+def attention_calls(lays, ins, dvh, rate, seed):
+    """K9, K10-dq and K10-dkv (leaky slope 0.2) on float32 ``ins`` =
+    (a_dst, a_src, v, g), the backward on K9's lse and delta: each
+    kernel's call, its plain version's and its layout, by name."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    csc, csr = lays
+    a_dst, a_src, v, g = ins
+    H = a_dst.shape[1]
+    with torch.no_grad():
+        out, lse = ak._fwd_cuda(a_dst, a_src, v, csc, 0.2, dvh, rate, seed)
+        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+    bwd = (a_dst, a_src, v, g, lse, delta)
+    return {
+        "gat_fwd": (lambda: ak._fwd_cuda(a_dst, a_src, v, csc, 0.2, dvh,
+                                         rate, seed),
+                    lambda: ak.gat_attention_reference(
+                        a_dst, a_src, v, csc, 0.2, dvh, rate, seed), csc),
+        "gat_dq": (lambda: ak._dq_cuda(*bwd, csc, 0.2, dvh, rate, seed),
+                   lambda: ak.gat_dq_reference(*bwd, csc, 0.2, dvh, rate,
+                                               seed), csc),
+        "gat_dkv": (lambda: ak._dkv_cuda(*bwd, csr, 0.2, dvh, rate, seed),
+                    lambda: ak.gat_dkv_reference(*bwd, csr, 0.2, dvh, rate,
+                                                 seed), csr)}
+
+
+def phase_attention_timing(g, dev, runs, errs, charged=None):
     """Rows at the GAT's shapes: each kernel's ms (the wrapper's launches,
     combine included; and the device's ms by kernel, torch.profiler), its
     plain version's, its bound and the bound of the rows it gathers, at
     rate 0 (the bench GAT) and 0.6 (GAT's defaults). ``runs`` maps a rate to the
-    launches of its training run."""
+    launches of its training run. The bound charges every row of the
+    destination-side tables (a_dst, g, lse, delta, out, d a_dst) and of
+    the source-side ones (a_src, v, d a_src, dv), or ``charged`` = (dst
+    rows, src rows): a halo shard's rows that hold edges on each side,
+    its square layout's other rows being padding that the function never
+    needs (nor their work-list entries)."""
     import torch
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
 
     csc, csr = g._attention_layouts()
     N, E = g.num_nodes, g.num_edges
+    rows_dst, rows_src = charged or (N, N)
     gen = torch.Generator(device=dev).manual_seed(5)
     seed = torch.tensor([12345], dtype=torch.int32, device=dev)
     rows = []
     for H, dvh in GAT_SHAPES:
         C = H * dvh
-        a_dst, a_src, v, g_out = attention_inputs(N, H, dvh, dev, gen)
+        ins = attention_inputs(N, H, dvh, dev, gen)
+        # each kernel's columns on the destination side and the source side
+        cols = {"gat_fwd": (2 * H + C, H + C), "gat_dq": (4 * H + C, H + C),
+                "gat_dkv": (3 * H + C, 2 * H + 2 * C)}
         for rate, launches in runs.items():
-            with torch.no_grad():
-                out, lse = ak._fwd_cuda(a_dst, a_src, v, csc, 0.2, dvh, rate,
-                                        seed)
-                delta = (g_out.reshape(N, H, dvh)
-                         * out.reshape(N, H, dvh)).sum(-1)
-            bwd = (a_dst, a_src, v, g_out, lse, delta)
-            cases = {
-                "gat_fwd": (lambda: ak._fwd_cuda(a_dst, a_src, v, csc, 0.2,
-                                                 dvh, rate, seed),
-                            lambda: ak.gat_attention_reference(
-                                a_dst, a_src, v, csc, 0.2, dvh, rate, seed),
-                            csc, 2 * H + C, C + H),
-                "gat_dq": (lambda: ak._dq_cuda(*bwd, csc, 0.2, dvh, rate,
-                                               seed),
-                           lambda: ak.gat_dq_reference(*bwd, csc, 0.2, dvh,
-                                                       rate, seed),
-                           csc, 4 * H + 2 * C, H),
-                "gat_dkv": (lambda: ak._dkv_cuda(*bwd, csr, 0.2, dvh, rate,
-                                                 seed),
-                            lambda: ak.gat_dkv_reference(*bwd, csr, 0.2, dvh,
-                                                         rate, seed),
-                            csr, 4 * H + 2 * C, H + C),
-            }
-            for kernel, (fn, plain, lay, cols_in, cols_out) in cases.items():
+            calls = attention_calls((csc, csr), ins, dvh, rate, seed)
+            for kernel, (fn, plain, lay) in calls.items():
+                dst_cols, src_cols = cols[kernel]
                 with torch.no_grad():
                     ms = time_ms(fn, 50)
                     plain_ms = time_ms(plain, 3)
@@ -1530,9 +1580,10 @@ def phase_attention_timing(g, dev, runs, errs):
                 # work list (items and empty rows; the split rows' list
                 # is a few ints); each output written once
                 edge_ints = 1 + (kernel == "gat_dkv" and rate > 0)
-                work = 4 * lay.k10_items.shape[0] + lay.empty_rows.shape[0]
-                nbytes = 4 * (N * (cols_in + cols_out) + E * edge_ints
-                              + work)
+                work = 4 * lay.k10_items.shape[0] + (
+                    0 if charged else lay.empty_rows.shape[0])
+                nbytes = 4 * (rows_dst * dst_cols + rows_src * src_cols
+                              + E * edge_ints + work)
                 # per edge and head: add, leaky, max, 2 exp, 2 scale, the
                 # dropout hash (8 integer ops); per column: 2 (fma) in K9,
                 # 4 (g.v product and sum, dv) in K10
@@ -1564,6 +1615,7 @@ def phase_attention_timing(g, dev, runs, errs):
                     "merge_ms": merge_ms,
                     "shape": {"kernel": kernel, "H": H, "dvh": dvh,
                               "rate": rate, "rows": N, "edges": E,
+                              "charged_rows": [rows_dst, rows_src],
                               "split_rows": int(lay.split_rows.shape[0]),
                               "items": int(lay.k10_items.shape[0]),
                               "long_items": lay.k10_long,
@@ -6007,8 +6059,854 @@ def device_kinds(device_ms):
     return kinds
 
 
+# -- phase 15: the parallel layer ------------------------------------------
+
+PARALLEL_RANKS = 4
+# the halo GCN's K1 launches a step on each rank, by (layout kind, D): the
+# forward's local and remote sums of layers 0 and 1 at D = 128 and of layer
+# 2 at D = 16; the backward's transposes and the exchange's backward
+# (``halo_send``) of layers 2 (D = 16) and 1 (D = 128); layer 0's input
+# has no gradient
+HALO_GCN_PER_STEP = {("halo_local", 128): 2, ("halo_local", 16): 1,
+                     ("halo_remote", 128): 2, ("halo_remote", 16): 1,
+                     ("halo_local_t", 128): 1, ("halo_local_t", 16): 1,
+                     ("halo_remote_t", 128): 1, ("halo_remote_t", 16): 1,
+                     ("halo_send", 128): 1, ("halo_send", 16): 1}
+# the ShardedGraph GCN's K1 launches a step on each rank: PER_STEP's
+SHARDED_PER_STEP = {("shard" if k == "csc" else "shard_t", d): v
+                    for (k, d), v in PER_STEP.items()}
+# the halo GAT's exchange backward a step: the a_src | v payload of layer 0
+# (8 + 64 columns) and of layer 1 (1 + 16)
+HALO_GAT_SEND = {("halo_send", 72): 1, ("halo_send", 17): 1}
+# the hetero halo run: ogbn-mag-shaped at 16,384 papers of in-degree 16
+PARALLEL_MAG = (16384, 16)
+EMB_ROWS, EMB_DIM, EMB_IDS = 1 << 18, 64, 1 << 16
+PARALLEL_TIMEOUT = 900
+
+
+def attention_per_step(lays, shapes, kernels=("gat_fwd", "gat_dq",
+                                              "gat_dkv")):
+    """Attention launches a step over ``lays`` = (csc, csr): each kernel
+    once at each shape (a tuple of its key's head and widths), and its
+    second launch where its layout splits rows."""
+    csc, csr = lays
+    per = {}
+    for shape in shapes:
+        for kernel, lay in zip(kernels, (csc, csc, csr)):
+            per[(kernel, *shape)] = 1
+            if lay.num_partials:
+                per[(f"{kernel}_combine", *shape)] = 1
+    return per
+
+
+def flat_all_reduce(params):
+    """Sum the gradients of ``params`` over the ranks in one collective
+    (the trainer's convention: replicated parameters, summed gradients)."""
+    import torch
+    from pgl_tpu_torch.parallel import comm
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    comm.all_reduce_(flat)
+    at = 0
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+
+
+def rank_trainer(model, graph, x, y, weight, count, lr=1e-3):
+    """One Adam step of ``model`` on this rank's rows: the loss is Σ weight ·
+    CE over this rank's rows / ``count`` (the ranks' losses sum to the
+    global loss), the gradients summed over the ranks. ``step(capture)``
+    returns the global loss; with ``capture`` it keeps the output and the
+    summed gradients of that step in ``captured``."""
+    import torch
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+    from pgl_tpu_torch.parallel import comm
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    captured = {}
+
+    def step(capture=False):
+        opt.zero_grad(set_to_none=True)
+        out = model(graph, x)
+        loss = (ce(out, y) * weight).sum() / count
+        loss.backward()
+        flat_all_reduce(list(model.parameters()))
+        if capture:
+            captured["out"] = out.detach().clone()
+            captured["grads"] = {k: p.grad.detach().clone()
+                                 for k, p in model.named_parameters()}
+        opt.step()
+        return comm.all_reduce_(loss.detach().clone())
+
+    return step, captured
+
+
+def rank_steps(tag, step, layouts, per_step, rank,
+               note="4 ranks time-sharing one H100"):
+    """WARMUP steps (the first captured), STEPS timed steps asserting this
+    rank's launches (``per_step`` a step on ``layouts``, and no other), a
+    finite falling global loss; then 3 steps with the exchanges timed on
+    the host clock (synchronized). Returns the rank's step line."""
+    import torch
+    from pgl_tpu_torch.parallel import comm
+    for i in range(WARMUP):
+        step(capture=i == 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    losses, times = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    by_shape = {k: v for k, v in all_launches().items() if v}
+    on = launches_on(layouts)
+    want = {k: v * STEPS for k, v in per_step.items()}
+    if by_shape != want or on != want:
+        raise AssertionError(f"{tag} rank {rank}: launches {by_shape} "
+                             f"({on} on its layouts), expected {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} rank {rank}: losses not finite and "
+                             f"falling: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    comm.STATS.clear()
+    comm.TIMING = True
+    try:
+        for _ in range(3):
+            step()
+    finally:
+        comm.TIMING = False
+    line = {"step_ms": float(np.median(times)) * 1e3,
+            "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "peak_mib": peak / 2**20,
+            "exchange_ms_per_step": comm.STATS["seconds"] / 3 * 1e3,
+            "exchange_bytes_per_step": comm.STATS["bytes"] / 3,
+            "exchanges_per_step": comm.STATS["calls"] / 3,
+            "all_reduce_ms_per_step": comm.STATS["allreduce_seconds"] / 3
+            * 1e3,
+            "all_reduce_bytes_per_step": comm.STATS["allreduce_bytes"] / 3,
+            "launches_per_step": {str(k): v for k, v in per_step.items()}}
+    print(f"[parallel {tag} rank {rank}] {STEPS} steps ({note}): loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}"
+          f"; median step {line['step_ms']:.3f} ms (min "
+          f"{line['step_ms_min']:.3f}, max {line['step_ms_max']:.3f}); "
+          f"exchange {line['exchange_ms_per_step']:.3f} ms and "
+          f"{line['exchange_bytes_per_step'] / 2**20:.3f} MiB sent a step "
+          f"over {line['exchanges_per_step']:g} all-to-alls; all-reduces "
+          f"{line['all_reduce_ms_per_step']:.3f} ms and "
+          f"{line['all_reduce_bytes_per_step'] / 2**20:.3f} MiB a step "
+          "(partial sums, gradients, the loss); peak "
+          f"{line['peak_mib']:.1f} MiB; launches a step "
+          f"{sum(per_step.values())}", flush=True)
+    return line
+
+
+def in_turn(rank, size, fn):
+    """``fn()`` on each rank in turn (the others wait at a barrier), so a
+    rank's kernels are timed with the card to itself; returns its
+    result."""
+    import torch
+    out = None
+    for r in range(size):
+        if r == rank:
+            out = fn()
+            torch.cuda.synchronize()
+        torch.distributed.barrier()
+    return out
+
+
+def k1_ms_per_step(per_step, layouts, dev):
+    """The device ms of a step's K1 launches on this rank: CUDA-event ms of
+    each (layout, D) of ``per_step`` (``k1_call``) times its count."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(3)
+    return sum(count * time_ms(k1_call(layouts[kind],
+                                       layouts[kind].max_index + 1, d, dev,
+                                       gen)[0], 30)
+               for (kind, d), count in per_step.items())
+
+
+def gat_ms_per_step(lays, n_loc, dev):
+    """The device ms of a GAT step's attention kernels on this rank (K9,
+    K10-dq and K10-dkv at each GAT shape, their merges included;
+    ``attention_calls``, CUDA events)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    seed = torch.zeros(1, dtype=torch.int32, device=dev)
+    total = 0.0
+    for H, dvh in GAT_SHAPES:
+        calls = attention_calls(lays, attention_inputs(n_loc, H, dvh, dev,
+                                                       gen), dvh, 0.0, seed)
+        with torch.no_grad():
+            total += sum(time_ms(fn, 20) for fn, _, _ in calls.values())
+    return total
+
+
+class _HaloAttention:
+    """The attention view of a halo shard that ``phase_attention_timing``
+    reads: its layouts, rows (``n_loc``) and edges, and the rows that hold
+    edges on each side (``charged``: the destinations with an in-edge,
+    the distinct sources gathered)."""
+
+    def __init__(self, hg):
+        import torch
+        self._lays = hg._attention_layouts()
+        csc = self._lays[0]
+        self.num_nodes = csc.num_rows
+        self.num_edges = csc.num_edges
+        self.charged = (int(torch.unique(csc.seg_ids).numel()),
+                        int(torch.unique(csc.indices).numel()))
+
+    def _attention_layouts(self):
+        return self._lays
+
+
+def rank_halo_gcn(z, rank, dev, arrays):
+    """(a): the headline GCN on this rank's halo shard."""
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.models import GCN
+    from pgl_tpu_torch.parallel import HaloGraph
+    t0 = time.perf_counter()
+    host = Graph(z["head_edges"], num_nodes=int(z["head_n"]),
+                 node_feat={"h": z["head_feat"]})
+    hg = HaloGraph.from_graph(host, parts=z["head_parts"], device=dev,
+                              attention_layouts=False)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hg._build_layouts()         # again, timed alone: K1's five layouts
+    layouts_s = time.perf_counter() - t0
+    y = hg.shard_node_values(z["head_labels"])
+    model = GCN(input_size=128, num_class=16, num_layers=3, hidden_size=128,
+                dropout=0.0, generator=torch.Generator().manual_seed(0),
+                device=dev)
+    step, cap = rank_trainer(model, hg, hg.node_feat["h"], y, hg.node_mask,
+                             hg.num_nodes)
+    lays = (*hg._local, *hg._remote, hg._send_layout)
+    line = rank_steps("halo GCN", step, lays, HALO_GCN_PER_STEP, rank)
+    arrays["gcn_out"] = hg.unshard_node_values(cap["out"])
+    arrays.update({f"gcn_grad/{k}": v.cpu().numpy()
+                   for k, v in cap["grads"].items()})
+    rep = hg.scaling_report()
+    by_kind = {lay.kind: lay for lay in lays}
+    line.update(
+        from_graph_s=build_s, layouts_s=layouts_s,
+        halo_rows_recv=rep["halo_rows_recv"][rank],
+        halo_slots=hg.num_shards * hg.h_pad, owned=int(hg.node_mask.sum()),
+        edges=hg.kl + hg.kr, local_edges=hg.kl, remote_edges=hg.kr,
+        halo_size=hg.halo_size, k1_ms_per_step=in_turn(
+            rank, hg.num_shards, lambda: k1_ms_per_step(
+                HALO_GCN_PER_STEP, by_kind, dev)))
+    print(f"[parallel halo GCN rank {rank}] from_graph {build_s:.3f} s "
+          f"(K1's layouts {layouts_s:.3f} s of it); "
+          f"owns {line['owned']} nodes, {line['edges']} edges "
+          f"({hg.kr} with a remote source), receives "
+          f"{line['halo_rows_recv']} halo rows ({line['halo_slots']} "
+          f"slots); K1 device {line['k1_ms_per_step']:.4f} ms a step",
+          flush=True)
+    return hg, line
+
+
+def rank_halo_gat(z, rank, dev, arrays):
+    """(b): the bench GAT on this rank's halo shard; a GATConv forward at
+    attention dropout 0.6 against the plain composition with seed ^ rank,
+    and its kept counts exactly."""
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.models import GAT
+    from pgl_tpu_torch.nn import GATConv
+    from pgl_tpu_torch.nn.conv import _attn_seed
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    from pgl_tpu_torch.parallel import HaloGraph
+    t0 = time.perf_counter()
+    host = Graph(z["gat_edges"], num_nodes=int(z["gat_n"]),
+                 node_feat={"h": z["gat_feat"]})
+    hg = HaloGraph.from_graph(host, parts=z["gat_parts"], device=dev)
+    lays = hg._attention_layouts()
+    build_s = time.perf_counter() - t0
+    y = hg.shard_node_values(z["gat_labels"])
+    model = GAT(input_size=128, num_class=16, num_heads=8, hidden_size=8,
+                feat_drop=0.0, attn_drop=0.0,
+                generator=torch.Generator().manual_seed(0), device=dev)
+    step, cap = rank_trainer(model, hg, hg.node_feat["h"], y, hg.node_mask,
+                             hg.num_nodes)
+    per_step = {**attention_per_step(lays, GAT_SHAPES), **HALO_GAT_SEND}
+    line = rank_steps("halo GAT", step, (*lays, hg._send_layout), per_step,
+                      rank)
+    arrays["gat_out"] = hg.unshard_node_values(cap["out"])
+    arrays.update({f"gat_grad/{k}": v.cpu().numpy()
+                   for k, v in cap["grads"].items()})
+    # attention dropout 0.6, bit for bit: on a permutation graph (one
+    # in-edge a node, range-partitioned, so many sources are remote) with
+    # zero scores and ones for values, each output is its edge's keep bit
+    # times 1 / (1 - rate)
+    H, rate, seed = 8, 0.6, 1234
+    n = 4096
+    perm = np.random.default_rng(3).permutation(n)
+    pg = HaloGraph.from_graph(Graph(np.stack([perm, np.arange(n)], 1),
+                                    num_nodes=n), device=dev)
+    zeros = torch.zeros(pg.n_pad, H, device=dev)
+    with torch.no_grad():
+        out = pg.gat_attention(zeros, zeros, torch.ones(pg.n_pad, H,
+                                                        device=dev), 0.0,
+                               rate, seed)
+    pcsc = pg._attention_layouts()[0]
+    rows = pcsc.seg_ids.long()
+    bits = out[rows] * (1 - rate) > 0.5
+
+    def keep(s):
+        return torch.stack([ak.drop_keep(pcsc.positions(), s, h, rate)
+                            for h in range(H)], dim=1)
+
+    if not torch.equal(bits, keep(seed ^ rank)):
+        raise AssertionError(f"halo GAT rank {rank}: kept bits differ from "
+                             "the plain mask with seed ^ rank")
+    if rank and torch.equal(bits, keep(seed)):
+        raise AssertionError(f"halo GAT rank {rank}: the mask ignores the "
+                             "rank")
+    x = hg.node_feat["h"]
+    csc = lays[0]
+    keys = csc.positions()
+    # the layer at rate 0.6 against the plain composition
+    layer = GATConv(128, 8, num_heads=8, feat_drop=0.0, attn_drop=rate,
+                    generator=torch.Generator().manual_seed(0), device=dev)
+    probe = torch.Generator(device=dev)
+    probe.set_state(layer.generator.get_state())
+    s = _attn_seed(probe, rate)
+    with torch.no_grad():
+        got = layer(hg, x, training=True)
+        feat = layer.linear(x)
+        heads = feat.reshape(-1, H, 8)
+        a_src = (heads * layer.weight_src).sum(-1)
+        a_dst = (heads * layer.weight_dst).sum(-1)
+        payload = torch.cat([a_src, feat], dim=1)
+        tbl = torch.cat([payload, hg._exchange(payload)])
+        want, _ = ak.plain_attention(
+            a_dst, tbl[:, :H], tbl[:, H:], csc.seg_ids.long(),
+            csc.indices.long(), keys, 0.2, 8, rate, s ^ rank)
+    err = check(f"halo GATConv at rate 0.6 rank {rank}", got, want)
+    line.update(from_graph_s=build_s, drop_err=err,
+                edges=hg.kl + hg.kr, owned=int(hg.node_mask.sum()),
+                halo_rows_recv=hg.scaling_report()["halo_rows_recv"][rank],
+                attention_ms_per_step=in_turn(
+                    rank, hg.num_shards, lambda: gat_ms_per_step(
+                        lays, hg.n_pad + hg.num_shards * hg.h_pad, dev)))
+    print(f"[parallel halo GAT rank {rank}] from_graph with attention "
+          f"layouts {build_s:.3f} s; {line['edges']} edges; the 0.6 mask's "
+          f"kept bits on {pcsc.num_edges} edges of a permutation graph "
+          f"equal the plain mask with seed ^ {rank}; GATConv "
+          f"at 0.6 against the plain composition max |err| {err:.3e}; "
+          f"K9/K10 device {line['attention_ms_per_step']:.4f} ms a step",
+          flush=True)
+    return hg, line
+
+
+def rank_sharded_gcn(z, rank, size, dev, arrays):
+    """(c): the headline GCN on this rank's edge shard (dst_range), the
+    loss every rank computes whole divided by the size."""
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.models import GCN
+    from pgl_tpu_torch.parallel import ShardedGraph
+    t0 = time.perf_counter()
+    host = Graph(z["head_edges"], num_nodes=int(z["head_n"]),
+                 node_feat={"h": z["head_feat"]})
+    sg = ShardedGraph.from_graph(host, device=dev)
+    build_s = time.perf_counter() - t0
+    y = torch.as_tensor(z["head_labels"], device=dev)
+    model = GCN(input_size=128, num_class=16, num_layers=3, hidden_size=128,
+                dropout=0.0, generator=torch.Generator().manual_seed(0),
+                device=dev)
+    step, cap = rank_trainer(model, sg, sg.node_feat["h"], y, 1.0,
+                             sg.num_nodes * size)
+    line = rank_steps("ShardedGraph GCN", step, sg._layouts,
+                      SHARDED_PER_STEP, rank)
+    arrays["sharded_out"] = cap["out"].cpu().numpy()
+    arrays.update({f"sharded_grad/{k}": v.cpu().numpy()
+                   for k, v in cap["grads"].items()})
+    line.update(from_graph_s=build_s, edges=sg.k, k1_ms_per_step=in_turn(
+        rank, size, lambda: k1_ms_per_step(
+            SHARDED_PER_STEP, {"shard": sg._layouts[0],
+                               "shard_t": sg._layouts[1]}, dev)))
+    return line
+
+
+def rank_small_runs(z, rank, size, dev, head, gat, arrays):
+    """(d): the hetero halo RGCN, TransformerConv's dot attention on the
+    bench GAT shard, ShardedEmbedding, and the UDF send/recv; 3 steps
+    each."""
+    import torch
+    from pgl_tpu_torch import HeterGraph
+    from pgl_tpu_torch.nn import RGCNConv, TransformerConv
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+    from pgl_tpu_torch.parallel import (HaloHeterGraph, ShardedEmbedding,
+                                        comm)
+    lines = {}
+    # hetero: RGCN (examples/rgcn's widths) over the three relations
+    etypes = list(MAG_ETYPES)
+    hhg = HaloHeterGraph.from_heter_graph(
+        HeterGraph({t: z[f"mag_{t}"] for t in etypes},
+                   num_nodes=int(z["mag_n"]), node_feat={"h": z["mag_feat"]}),
+        parts=z["mag_parts"], device=dev)
+    gen = torch.Generator().manual_seed(0)
+    l1 = RGCNConv(128, 32, etypes, 2, generator=gen, device=dev)
+    l2 = RGCNConv(32, 40, etypes, 2, generator=gen, device=dev)
+    params = list(l1.parameters()) + list(l2.parameters())
+    opt = torch.optim.Adam(params, lr=0.01)
+    y = hhg.shard_node_values(z["mag_labels"])
+    train = hhg.shard_node_values(z["mag_train"])
+    count = float(z["mag_train"].sum())
+    x = hhg.node_feat["h"]
+    reset_all_launches()
+    losses = []
+    for i in range(3):
+        opt.zero_grad(set_to_none=True)
+        out = l2(hhg, torch.relu(l1(hhg, x)))
+        loss = (ce(out, y) * train).sum() / count
+        loss.backward()
+        flat_all_reduce(params)
+        opt.step()
+        if i == 0:
+            arrays["rgcn_out"] = hhg.unshard_node_values(out)
+        losses.append(float(comm.all_reduce_(loss.detach().clone())))
+    for t in etypes:
+        sub = hhg[t]
+        got = launches_on((*sub._local, *sub._remote, sub._send_layout))
+        want = {(f"halo_{k}", d): 3 for k in ("local", "remote", "local_t",
+                                              "remote_t", "send")
+                for d in (32, 40)}
+        if got != want:
+            raise AssertionError(f"hetero RGCN rank {rank} {t}: launches "
+                                 f"{got}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"hetero RGCN: losses {losses}")
+    lines["hetero_rgcn"] = {"losses": losses, "halo_size": hhg.halo_size}
+    # TransformerConv at UniMP's shape through dot_attention
+    hg = gat
+    layer = TransformerConv(128, 128, num_heads=2, feat_drop=0.0,
+                            attn_drop=0.0,
+                            generator=torch.Generator().manual_seed(0),
+                            device=dev)
+    opt = torch.optim.Adam(layer.parameters(), lr=1e-3)
+    reset_all_launches()
+    losses = []
+    for i in range(3):
+        opt.zero_grad(set_to_none=True)
+        out = layer(hg, hg.node_feat["h"])
+        loss = ((out ** 2).sum(-1) * hg.node_mask).sum() / hg.num_nodes
+        loss.backward()
+        flat_all_reduce(list(layer.parameters()))
+        opt.step()
+        if i == 0:
+            arrays["tc_out"] = hg.unshard_node_values(out)
+        losses.append(float(comm.all_reduce_(loss.detach().clone())))
+    lays = hg._attention_layouts()
+    want = {k: 3 * v for k, v in {
+        **attention_per_step(lays, (UNIMP_SHAPE,), DOT_KERNELS),
+        ("halo_send", 512): 1}.items()}
+    got = {k: v for k, v in all_launches().items() if v}
+    if got != want:
+        raise AssertionError(f"halo TransformerConv rank {rank}: launches "
+                             f"{got}, expected {want}")
+    lines["halo_transformer"] = {"losses": losses}
+    # ShardedEmbedding: lookup, its gradient, an update
+    emb = ShardedEmbedding(EMB_ROWS, EMB_DIM, seed=0, device=dev)
+    ids = torch.as_tensor(np.random.default_rng(10 + rank).integers(
+        0, EMB_ROWS, EMB_IDS), device=dev)
+    grad = torch.as_tensor(np.random.default_rng(20 + rank).normal(
+        size=(EMB_IDS, EMB_DIM)).astype(np.float32), device=dev)
+    rows = emb.lookup(ids)
+    (rows * grad).sum().backward()
+    arrays[f"emb_rows_{rank}"] = rows.detach().cpu().numpy()
+    arrays[f"emb_grad_{rank}"] = emb.table.grad.cpu().numpy()
+    emb.apply_sparse_grad(ids, grad, 0.1)
+    arrays[f"emb_after_{rank}"] = emb.table.detach().cpu().numpy()
+    # the UDF send/recv on the headline shard
+    x = head.node_feat["h"][:, :16]
+
+    def message(src, dst, edge):
+        return {"m": src["h"] * 0.5 + dst["h"].sum(-1, keepdim=True)}
+
+    msg = head.send(message, src_feat={"h": x}, dst_feat={"h": x})
+    for op in ("sum", "max"):
+        arrays[f"udf_{op}"] = head.unshard_node_values(head.recv(op, msg))
+    return lines
+
+
+def rank_kernel_rows(head, gat, lines, dev):
+    """(f), on rank 0: K1 over every halo layout of the headline shard and
+    K9/K10 (additive at the GAT's shapes, timed; dot mode at UniMP's)
+    over the bench GAT shard's attention layouts, each against its
+    float64 plain version (``k1_rows``, ``phase_attention_timing``,
+    ``check_dot``)."""
+    import torch
+    rows = []
+    launches = {tuple(json.loads(k)): v * STEPS
+                for k, v in lines["halo_gcn_keys"].items()}
+    n_halo = head.num_shards * head.h_pad
+    for lay, table in ((head._local[0], head.n_pad),
+                       (head._local[1], head.n_pad),
+                       (head._remote[0], n_halo),
+                       (head._remote[1], head.n_pad),
+                       (head._send_layout, n_halo)):
+        rows += k1_rows("rank0", [lay], [table], (128, 16), dev, launches)
+    view = _HaloAttention(gat)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    errs = {}
+    for H, dvh in GAT_SHAPES:
+        for rate in (0.0, 0.6):
+            got, _ = check_attention(
+                f"halo rank 0 (n_loc {view.num_nodes})", view._lays,
+                attention_inputs(view.num_nodes, H, dvh, dev, gen), rate,
+                seed)
+            for k, v in got.items():
+                errs[k, H, dvh] = max(errs.get((k, H, dvh), 0.0), v)
+    # the dot mode at UniMP's shape, as TransformerConv runs it in (d)
+    ins = dot_inputs(view.num_nodes, UNIMP_SHAPE, dev, gen)
+    dot_errs = {}
+    for rate in (0.0, 0.3):
+        got = run_dot(view._lays, ins, UNIMP_SHAPE, 0.0, rate, seed)
+        e = check_dot(f"halo rank 0 (n_loc {view.num_nodes})", view._lays,
+                      ins, UNIMP_SHAPE, 0.0, rate, seed, got)
+        del got
+        for k, v in e.items():
+            dot_errs[k] = max(dot_errs.get(k, 0.0), v)
+    del ins
+    print(f"[parallel kernels] dot-mode K9/K10 at {UNIMP_SHAPE} over rank "
+          f"0's halo attention layouts (n_loc {view.num_nodes}), rates 0 "
+          f"and 0.3, against float64: max |err| {dot_errs}", flush=True)
+    lines["halo_dot_errs"] = dot_errs
+    gat_launches = {tuple(json.loads(k)): v * STEPS
+                    for k, v in lines["halo_gat_keys"].items()}
+    att = phase_attention_timing(view, dev, {0.0: gat_launches}, errs,
+                                 charged=view.charged)
+    for r in att:
+        r["name"] += "_halo"
+        r["shape"]["graph"] = "bench GAT halo shard, rank 0"
+    return rows + att
+
+
+def parallel_rank(rank, size, port, tmp):
+    """One rank of phase 15 (a process of its own; every rank on cuda:0
+    under gloo): (a), (b), (c), (d), and on rank 0 (f). Writes its step
+    lines to ``rank<r>.json`` and its arrays to ``rank<r>.npz``."""
+    import datetime
+    import torch
+    from pgl_tpu_torch.parallel import comm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    comm.init(backend="gloo", init_method=f"tcp://127.0.0.1:{port}",
+              world_size=size, rank=rank,
+              timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT))
+    z = np.load(f"{tmp}/inputs.npz")
+    arrays, lines = {}, {}
+    head, lines["halo_gcn"] = rank_halo_gcn(z, rank, dev, arrays)
+    lines["halo_gcn_keys"] = {json.dumps(list(k)): v
+                              for k, v in HALO_GCN_PER_STEP.items()}
+    gat, lines["halo_gat"] = rank_halo_gat(z, rank, dev, arrays)
+    lines["halo_gat_keys"] = {json.dumps(list(k)): v for k, v in {
+        **attention_per_step(gat._attention_layouts(), GAT_SHAPES)}.items()}
+    lines["sharded_gcn"] = rank_sharded_gcn(z, rank, size, dev, arrays)
+    lines.update(rank_small_runs(z, rank, size, dev, head, gat, arrays))
+    if rank == 0:
+        lines["rows"] = rank_kernel_rows(head, gat, lines, dev)
+    torch.distributed.barrier()
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(lines, f)
+    np.savez(f"{tmp}/rank{rank}.npz", **arrays)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(f"[parallel rank {rank}] done", flush=True)
+    return 0
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def single_reference(tag, make, host, labels, dev, blocks=64):
+    """The single-graph port on the card from the same weights: the first
+    step's output and gradients (float32, the mean cross-entropy), and
+    each gradient's terms scale (``parity``'s: the float64 gradients of 64
+    blocks of rows' shares of the loss, the 2-norm over the blocks)."""
+    import torch
+    from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+    g = host.tensor(dev)
+    y = torch.as_tensor(labels, device=dev)
+    got = {}
+    for dtype in (torch.float32, torch.float64):
+        model = make(dev).to(dtype)
+        out = model(g, g.node_feat["h"].to(dtype))
+        per = ce(out, y)
+        params = dict(model.named_parameters())
+        if dtype == torch.float32:
+            grads = torch.autograd.grad(per.mean(), list(params.values()))
+            got["out"] = out.detach()
+            got["grads"] = dict(zip(params, grads))
+            continue
+        sq = {k: torch.zeros_like(p) for k, p in params.items()}
+        for rows in np.array_split(np.arange(out.shape[0]), blocks):
+            part = per[torch.as_tensor(rows, device=dev)].sum() / len(per)
+            for k, v in zip(params, torch.autograd.grad(
+                    part, list(params.values()), retain_graph=True)):
+                sq[k] += v * v
+        got["scales"] = {k: v.sqrt() for k, v in sq.items()}
+    del g
+    torch.cuda.empty_cache()
+    return got
+
+
+def check_against(tag, out, grads, ref):
+    """``check`` of a parallel run's first-step output and summed
+    gradients against ``single_reference``'s; returns the max |err|."""
+    import torch
+    err = check(f"{tag} output", torch.as_tensor(out), ref["out"].cpu())
+    for k, want in ref["grads"].items():
+        err = max(err, check(f"{tag} grad {k}", torch.as_tensor(grads[k]),
+                             want.cpu(), ref["scales"][k].cpu()))
+    return err
+
+
+def nccl_world_of_one(host, labels, dev, gcn_step_ms, ref,
+                      backend="nccl"):
+    """(e): the halo GCN of (a) on one rank under NCCL; its step beside
+    phase 3's GCN step on the same graph and model."""
+    import datetime
+    import torch
+    from pgl_tpu_torch.models import GCN
+    from pgl_tpu_torch.parallel import HaloGraph, comm
+    comm.init(backend=backend,
+              init_method=f"tcp://127.0.0.1:{free_port()}",
+              world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        hg = HaloGraph.from_graph(host, device=dev, attention_layouts=False)
+        y = hg.shard_node_values(labels)
+        model = GCN(input_size=128, num_class=16, num_layers=3,
+                    hidden_size=128, dropout=0.0,
+                    generator=torch.Generator().manual_seed(0), device=dev)
+        step, cap = rank_trainer(model, hg, hg.node_feat["h"], y,
+                                 hg.node_mask, hg.num_nodes)
+        line = rank_steps("halo GCN, NCCL", step,
+                          (*hg._local, *hg._remote, hg._send_layout),
+                          HALO_GCN_PER_STEP, 0, note="one rank, one card")
+        line["max_abs_err"] = check_against(
+            "halo GCN (NCCL, 1 rank)", hg.unshard_node_values(cap["out"]),
+            {k: v.cpu().numpy() for k, v in cap["grads"].items()}, ref)
+    finally:
+        torch.distributed.destroy_process_group()
+    line["plain_gcn_step_ms"] = gcn_step_ms
+    line["overhead_ms"] = line["step_ms"] - gcn_step_ms
+    print(f"[parallel NCCL world of one] halo GCN step {line['step_ms']:.4f}"
+          f" ms beside phase 3's GCN step {gcn_step_ms:.4f} ms: the halo "
+          f"machinery costs {line['overhead_ms']:.4f} ms a step on one "
+          f"card; output and gradients max |err| {line['max_abs_err']:.3e} "
+          "against the single graph", flush=True)
+    return line
+
+
+def phase_parallel(dev, smi, head_host, gcn_step_ms):
+    """Phase 15: the parallel layer (see the module doc). Returns (rows,
+    step lines)."""
+    import shutil
+    import tempfile
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.models import GAT, GCN
+    from pgl_tpu_torch.nn import RGCNConv, TransformerConv
+    from pgl_tpu_torch.parallel import build_halo_partition
+    from pgl_tpu_torch.partition import metis_partition
+
+    S = PARALLEL_RANKS
+    gat = gat_host()
+    head_labels = np.random.default_rng(0).integers(0, 16, head_host
+                                                    .num_nodes)
+    gat_labels = np.random.default_rng(1).integers(0, 16, gat.num_nodes)
+    mag, mag_labels, papers = mag_host(*PARALLEL_MAG)
+    mag_train = np.zeros(mag.num_nodes, np.float32)
+    mag_train[np.random.default_rng(0).permutation(papers)[
+        :papers * UNIMP_TRAIN // UNIMP_NODES]] = 1.0
+    t0 = time.perf_counter()
+    head_parts = metis_partition(head_host, S, balance="in_edges")
+    metis_s = time.perf_counter() - t0
+    gat_parts = metis_partition(gat, S, balance="in_edges")
+    union = np.concatenate([np.asarray(mag[t].edges) for t in MAG_ETYPES])
+    mag_parts = metis_partition(Graph(union, num_nodes=mag.num_nodes), S)
+    t0 = time.perf_counter()
+    built = build_halo_partition(np.asarray(head_host.edges),
+                                 head_host.num_nodes, S, head_parts)
+    build_s = time.perf_counter() - t0
+    cut = float((head_parts[head_host.edges[:, 0]]
+                 != head_parts[head_host.edges[:, 1]]).mean())
+    print(f"[parallel] headline METIS into {S} parts (in-edge balance) "
+          f"{metis_s:.3f} s, edge cut {cut:.4f}; build_halo_partition "
+          f"{build_s:.3f} s on the host: N_pad {built['node_perm'].shape[1]}"
+          f", H_pad {built['h_pad']}, halo rows {built['halo_size']} "
+          f"({built['halo_size'] / head_host.num_nodes:.3f} of N)",
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="pgl_parallel_")
+    try:
+        np.savez(f"{tmp}/inputs.npz", head_n=head_host.num_nodes,
+                 head_edges=np.asarray(head_host.edges),
+                 head_feat=np.asarray(head_host.node_feat["h"]),
+                 head_labels=head_labels, head_parts=head_parts,
+                 gat_n=gat.num_nodes, gat_edges=np.asarray(gat.edges),
+                 gat_feat=np.asarray(gat.node_feat["h"]),
+                 gat_labels=gat_labels, gat_parts=gat_parts,
+                 mag_n=mag.num_nodes, mag_feat=np.asarray(
+                     mag.node_feat["h"]), mag_labels=mag_labels,
+                 mag_parts=mag_parts, mag_train=mag_train,
+                 **{f"mag_{t}": np.asarray(mag[t].edges)
+                    for t in MAG_ETYPES})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--parallel-rank", str(r), str(S),
+             str(port), tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(S)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=PARALLEL_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        failed = []
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            print("\n".join(line for line in out.splitlines()
+                            if line.startswith("[parallel")), flush=True)
+            if p.returncode != 0:
+                failed.append(f"rank {r} exited {p.returncode}:\n"
+                              f"{out[-3000:]}")
+        if failed:
+            raise AssertionError("phase 15: " + "\n".join(failed))
+        ranks_s = time.perf_counter() - t0
+        lines = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(S)]
+        arrays = dict(np.load(f"{tmp}/rank0.npz"))
+        for r in range(1, S):
+            z = np.load(f"{tmp}/rank{r}.npz")
+            arrays.update({k: z[k] for k in z.files if k.startswith("emb_")})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def grads(prefix):
+        return {k[len(prefix):]: v for k, v in arrays.items()
+                if k.startswith(prefix)}
+
+    # the single graph on the card, from the same weights
+    def gcn(d):
+        return GCN(input_size=128, num_class=16, num_layers=3,
+                   hidden_size=128, dropout=0.0,
+                   generator=torch.Generator().manual_seed(0), device=d)
+
+    def gat_model(d):
+        return GAT(input_size=128, num_class=16, num_heads=8, hidden_size=8,
+                   feat_drop=0.0, attn_drop=0.0,
+                   generator=torch.Generator().manual_seed(0), device=d)
+
+    ref_gcn = single_reference("GCN", gcn, head_host, head_labels, dev)
+    errs = {"halo_gcn": check_against("halo GCN (4 ranks)",
+                                      arrays["gcn_out"], grads("gcn_grad/"),
+                                      ref_gcn),
+            "sharded_gcn": check_against(
+                "ShardedGraph GCN (4 ranks)", arrays["sharded_out"],
+                grads("sharded_grad/"), ref_gcn)}
+    ref_gat = single_reference("GAT", gat_model, gat, gat_labels, dev)
+    errs["halo_gat"] = check_against("halo GAT (4 ranks)", arrays["gat_out"],
+                                     grads("gat_grad/"), ref_gat)
+    with torch.no_grad():
+        g = gat.tensor(dev)
+        layer = TransformerConv(128, 128, num_heads=2, feat_drop=0.0,
+                                attn_drop=0.0,
+                                generator=torch.Generator().manual_seed(0),
+                                device=dev)
+        errs["halo_transformer"] = check(
+            "halo TransformerConv", torch.as_tensor(arrays["tc_out"]),
+            layer(g, g.node_feat["h"]).cpu())
+        del g
+        hg1 = mag.tensor(dev)
+        gen = torch.Generator().manual_seed(0)
+        l1 = RGCNConv(128, 32, list(MAG_ETYPES), 2, generator=gen,
+                      device=dev)
+        l2 = RGCNConv(32, 40, list(MAG_ETYPES), 2, generator=gen,
+                      device=dev)
+        errs["hetero_rgcn"] = check(
+            "halo hetero RGCN", torch.as_tensor(arrays["rgcn_out"]),
+            l2(hg1, torch.relu(l1(hg1, hg1.node_feat["h"]))).cpu())
+        del hg1
+        g = head_host.tensor(dev)
+        x = g.node_feat["h"][:, :16]
+
+        def message(src, dst, edge):
+            return {"m": src["h"] * 0.5 + dst["h"].sum(-1, keepdim=True)}
+
+        msg = g.send(message, src_feat={"h": x}, dst_feat={"h": x})
+        errs["udf"] = max(check(f"halo UDF {op}", torch.as_tensor(
+            arrays[f"udf_{op}"]), g.recv(op, msg).cpu())
+            for op in ("sum", "max"))
+        del g, msg
+    table = np.random.default_rng(0).uniform(
+        -1 / np.sqrt(EMB_DIM), 1 / np.sqrt(EMB_DIM),
+        (EMB_ROWS, EMB_DIM)).astype(np.float32)
+    ids = [np.random.default_rng(10 + r).integers(0, EMB_ROWS, EMB_IDS)
+           for r in range(S)]
+    gr = [np.random.default_rng(20 + r).normal(size=(EMB_IDS, EMB_DIM))
+          .astype(np.float32) for r in range(S)]
+    for r in range(S):
+        if not np.array_equal(arrays[f"emb_rows_{r}"], table[ids[r]]):
+            raise AssertionError(f"ShardedEmbedding rank {r}: looked-up "
+                                 "rows differ from the table's")
+    summed = np.zeros((EMB_ROWS, EMB_DIM), np.float64)
+    np.add.at(summed, np.concatenate(ids), np.concatenate(gr))
+    got_grad = np.concatenate([arrays[f"emb_grad_{r}"] for r in range(S)])
+    errs["embedding"] = max(
+        check("ShardedEmbedding gradient", torch.as_tensor(got_grad),
+              torch.as_tensor(summed)),
+        check("ShardedEmbedding update", torch.as_tensor(np.concatenate(
+            [arrays[f"emb_after_{r}"] for r in range(S)])),
+            torch.as_tensor(table - 0.1 * summed)))
+    nccl = nccl_world_of_one(head_host, head_labels, dev, gcn_step_ms,
+                             ref_gcn)
+    per_rank = {k: [ln[k] for ln in lines]
+                for k in ("halo_gcn", "halo_gat", "sharded_gcn")}
+    for k, v in per_rank.items():
+        print(f"[parallel {k}] per rank (4 ranks time-sharing one H100, "
+              f"{smi}): step ms {[round(x['step_ms'], 3) for x in v]}, "
+              f"exchange ms a step "
+              f"{[round(x['exchange_ms_per_step'], 3) for x in v]}, bytes "
+              f"sent a step {[int(x['exchange_bytes_per_step']) for x in v]}"
+              f", peak MiB {[round(x['peak_mib'], 1) for x in v]}",
+              flush=True)
+    print(f"[parallel] against the single graph on the card, max |err|: "
+          f"{errs}; the ranks' run took "
+          f"{ranks_s:.1f} s", flush=True)
+    rows = lines[0]["rows"]
+    return rows, {"parallel": {
+        "device": smi, "note": "4 ranks time-sharing one H100 (gloo): not "
+        "a scaling figure", "metis_s": metis_s, "build_halo_partition_s":
+        build_s, "edge_cut": cut, "ranks_s": ranks_s, "max_abs_err": errs,
+        "halo_dot_errs": lines[0]["halo_dot_errs"],
+        "nccl_world_of_one": nccl, **per_rank,
+        "small_runs": {k: lines[0][k] for k in ("hetero_rgcn",
+                                                 "halo_transformer")}}}
+
+
+
 def main():
     import torch
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
+        return parallel_rank(*map(int, sys.argv[2:5]), sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6144,6 +7042,10 @@ def main():
     sampling_steps, parts = phase_sampling(dev, smi, rows)
     torch.cuda.empty_cache()
     out_of_core = phase_out_of_core(dev, smi, rows, parts)
+    torch.cuda.empty_cache()
+    parallel_rows, parallel_steps = phase_parallel(dev, smi, host,
+                                                   train["step_ms"])
+    rows += parallel_rows
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -6154,6 +7056,7 @@ def main():
         **gat_steps, **dedup_steps, **unimp_steps, **ddot_steps,
         **weighted_steps, **sddmm_steps, **zoo_steps, **hetero_steps,
         **readout_steps, **sampling_steps, "out_of_core": out_of_core,
+        **parallel_steps,
         "device": smi}}),
         flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

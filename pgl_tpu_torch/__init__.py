@@ -20,7 +20,7 @@ import torch
 
 __all__ = ["resolve_device", "Graph", "BiGraph", "HeterGraph", "Message",
            "math", "ops", "nn", "utils", "sampling", "datasets", "models",
-           "partition", "native"]
+           "partition", "native", "parallel"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -57,3 +57,4 @@ from . import datasets  # noqa: E402
 from . import models  # noqa: E402
 from . import partition  # noqa: E402
 from . import native  # noqa: E402
+from . import parallel  # noqa: E402

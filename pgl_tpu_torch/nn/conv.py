@@ -236,6 +236,11 @@ class GATConv(nn.Module):
     whose mask drops a cell's duplicate edges together (the same
     expectation as edge dropout).
 
+    On a ``HaloGraph`` the attention is the graph's ``gat_attention``
+    (``pgl_tpu/nn/conv.py:181-197``): one exchange of the ``a_src | v``
+    rows, then the same route over the shard's owned rows, the mask
+    seeded ``seed ^ rank``.
+
     Training with attention dropout at ``3·H > 128`` takes the reference's
     unfused path (``:258-266``): ``send_uv`` scores, ``edge_softmax``,
     dropout on the probabilities and ``send_ue_recv``, whose per-head
@@ -297,6 +302,13 @@ class GATConv(nn.Module):
         heads = feature.reshape(-1, H, Dh)
         attn_src = (heads * self.weight_src).sum(-1)
         attn_dst = (heads * self.weight_dst).sum(-1)
+        if hasattr(graph, "gat_attention"):
+            # a HaloGraph: one exchange, then the attention per shard (its
+            # own route; dropout keyed by the shard's CSC positions)
+            out = graph.gat_attention(attn_dst, attn_src, feature, 0.2, rate,
+                                      _attn_seed(self.generator, rate))
+            return _merge_heads(out.reshape(-1, H, Dh), self.concat,
+                                self.activation)
         route = self._route(graph, (feature, attn_src, attn_dst), rate)
         if route == "unfused":
             alpha = graph.send_uv(attn_src, attn_dst, "add")
@@ -391,6 +403,11 @@ class TransformerConv(nn.Module):
       q, k, v that ``dispatch.plain_on_cuda`` leaves to the plain path):
       the reference's edge-space composition (``:545-565``) in torch.
 
+    On a ``HaloGraph`` (``:483-512``): ``graph.dot_attention`` (the dot
+    K9/K10 over the shard's owned rows and its halo) without
+    ``edge_feat``, ``concat=False`` averaging the heads after; with
+    ``edge_feat``, the composition in the rank's edge layout.
+
     The reference keeps ``(H·D) % 128 != 0`` off its fused kernels even on
     a dedup-layout graph; the port takes K7/K8 there too: the same
     function, with the dropout mask keyed by cell. Dropout draws from the
@@ -440,13 +457,16 @@ class TransformerConv(nn.Module):
         q = self.q(feature) / D ** 0.5
         k = self.k(feature)
         v = self.v(feature)
-        fused = (edge_feat is None and self.concat
+        halo = hasattr(graph, "dot_attention")
+        fused = (edge_feat is None and self.concat and not halo
                  and not plain_on_cuda(q, k, v)
                  and fused_attention_graph(graph))
         dedup = fused and _dedup_route(graph, rate, self.attn_drop_mode)
         if edge_feat is not None and dropping:
             edge_feat = _dropout(edge_feat, self.feat_drop, self.generator)
-        if dedup:
+        if halo:
+            output = self._halo_attention(graph, q, k, v, edge_feat, rate)
+        elif dedup:
             output = dedup_dot_attention(
                 q, k, v, graph._dedup_attn_aux(), H, D, D, 0.0,
                 attn_drop=rate, drop_seed=_attn_seed(self.generator, rate))
@@ -468,6 +488,30 @@ class TransformerConv(nn.Module):
             output = self.ln(output)
         if self.activation is not None:
             output = self.activation(output)
+        return output
+
+    def _halo_attention(self, graph, q, k, v, edge_feat, rate: float):
+        """On a HaloGraph (``pgl_tpu/nn/conv.py:483-512``): the shards' dot
+        attention without ``edge_feat``; with it, the composition in the
+        rank's edge layout (one exchange of the ``k | v`` rows, the
+        destination side local, ``recv_edge_values``). ``concat=False``
+        averages the heads after."""
+        H, D = self.num_heads, self.hidden_size
+        if edge_feat is None:
+            output = graph.dot_attention(q, k, v, H, rate,
+                                         _attn_seed(self.generator, rate))
+        else:
+            kv_e = graph.gather_src_values(torch.cat([k, v], dim=-1))
+            q_e = graph.gather_dst_values(q).reshape(-1, H, D)
+            k_e = (kv_e[:, :H * D] + edge_feat).reshape(-1, H, D)
+            v_e = (kv_e[:, H * D:] + edge_feat).reshape(-1, H, D)
+            alpha = GF.edge_softmax(graph, (q_e * k_e).sum(-1))
+            if rate > 1e-15:
+                alpha = _dropout(alpha, rate, self.generator)
+            output = graph.recv_edge_values(
+                (v_e * alpha[..., None]).reshape(-1, H * D))
+        if not self.concat:
+            output = output.reshape(-1, H, D).mean(dim=1)
         return output
 
     def _edge_attention(self, graph, q, k, v, edge_feat, rate: float):

@@ -45,7 +45,17 @@ def graph_norm(graph, feature):
 def edge_softmax(graph, logits, norm_by: str = "dst"):
     """Softmax of per-edge ``logits`` ([E] or [E, ...]) over each node's
     incoming (``norm_by="dst"``) or outgoing (``"src"``) edges, in the
-    original edge order (``pgl_tpu/nn/functional/graph_op.py:54-66``)."""
+    original edge order (``pgl_tpu/nn/functional/graph_op.py:54-66``). On a
+    ``HaloGraph`` or ``ShardedGraph`` (which carry their own
+    ``edge_softmax``) ``logits`` is the rank's ``[E_pad, ...]`` edge layout,
+    normalised over incoming edges only, as in the reference."""
+    if hasattr(graph, "edge_softmax"):
+        if norm_by != "dst":
+            raise NotImplementedError(
+                "a partitioned graph's edge_softmax normalizes over "
+                "incoming edges (each shard owns all in-edges of its dst "
+                "rows); norm_by='src' would need a second exchange")
+        return graph.edge_softmax(logits)
     if norm_by not in ("dst", "src"):
         raise ValueError(f"norm_by must be 'dst' or 'src', got {norm_by!r}")
     seg = graph.edges[:, 1 if norm_by == "dst" else 0].contiguous()
