@@ -311,8 +311,11 @@ there is no card or any phase fails. Phases:
    other ranks at a barrier); (d) 3 steps each of RGCN on a
    ``HaloHeterGraph`` of an ogbn-mag-shaped graph at 16,384 papers,
    ``TransformerConv`` at UniMP's (2, 128, 128) on the GAT shard (the
-   dot-mode K9/K10), ``ShardedEmbedding`` lookups and an update, and the
-   halo UDF send/recv; (f) on rank 0, K1 over each halo layout and K9/K10
+   dot-mode K9/K10), ``ShardedEmbedding`` lookups and an update, the
+   halo UDF send/recv, and TransE at FB15k's counts with its entity table
+   a ``ShardedEmbedding`` over the 4 ranks (``sharded_kg_params``, 3 Adam
+   steps, the first step's losses and gradients held to the
+   single-process port on the card); (f) on rank 0, K1 over each halo layout and K9/K10
    over the halo attention layouts (additive at the GAT's shapes, timed;
    dot mode at UniMP's) against float64. The first
    step's outputs and summed gradients of (a), (b) and (c) are held to
@@ -321,6 +324,35 @@ there is no card or any phase fails. Phases:
    embedding's rows, gradient and update likewise; (e) the halo GCN under
    NCCL at one rank beside phase 3's GCN step. The step times are of 4
    ranks time-sharing one H100, not a scaling figure.
+16. Graph4Rec and KGE (``pgl_tpu_torch.distributed``,
+   ``apps/graph4rec.py``, ``models/kg.py``; no kernel of ours): (a) two
+   ``DistGraphServer`` processes (``multiprocessing`` spawn, a dict
+   config: no PyYAML) load a seeded u2i graph of 100,000 users, 50,000
+   items and 2,000,000 edges with its reverse; their
+   ``sample_successor``, ``sample_predecessor``, ``random_sample_nodes``,
+   ``node_batch_iter`` and ``get_node_feat`` answers equal an in-process
+   cluster's on the same files, and ``metapath_randomwalk_dist``'s walks
+   too, timed a hop; (b) the ``metapath2vec`` preset over that cluster at
+   its widths, about 50 steps with the tables on the card under Adam, then
+   with the tables on 2 PS shard processes under their adagrad (pull and
+   push timed): finite falling losses, tables moved, step ms and peak
+   memory; (c) each of the ten presets 20 steps at its widths (deepwalk
+   and node2vec on a BlogCatalog-sized graph, 10,312 nodes and 333,983
+   edges; the others on (a)'s graph held as a ``HeterGraph``, with a
+   64-wide feature for ``*_with_features``), the first step's loss and
+   gradients held to the CPU trainer in float64 from the same weights (a
+   seeded nonzero ctx, so that every gradient is nonzero), batch and
+   draws (``check``, each gradient's scale the 2-norm of 16 blocks of
+   rows' float64 gradients); (d) the six KGE scores at FB15k's counts
+   (14,951 entities, 1,345 relations, 483,142 seeded training triples)
+   and ``examples/kg/train.py``'s defaults, 20 Adam steps in each negative
+   mode, the first step held to float64 on the CPU (the card's float64 run
+   of it always; its float32 run too, but TransE's and OTE's, whose
+   float32 error float32 itself shows on the CPU, to within twice the
+   CPU's float32 run's count and share), and the filtered ranks of 256
+   held-out triples on the card equal to the CPU's but where a near tie
+   lets the two orders differ. Every child process is killed at the end
+   of its part, every wait bounded.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -474,19 +506,32 @@ def register_report(log):
     return sorted(lines)
 
 
-def check(name, got, want, scale=None):
-    """Max |got - want|; raises unless |got - want| <= 1e-4 * max(1, |want|,
-    scale) everywhere."""
+def past_bound(got, want, scale=None, floor=1.0):
+    """(|got - want|, ``check``'s bound ``1e-4 * max(|want|, floor,
+    scale)``), elementwise in float64."""
+    import torch
+    want = want.double()
+    bound = want.abs().clamp(min=floor)
+    if scale is not None:
+        bound = torch.maximum(bound, scale)
+    return (got.double() - want).abs(), 1e-4 * bound
+
+
+def small_floor(want):
+    """``check``'s floor for a tensor far below 1 (a gradient): 0.1 of its
+    largest |want|, a bound of at least 1e-5 of it."""
+    return 0.1 * float(want.double().abs().max()) if want.numel() else 0.0
+
+
+def check(name, got, want, scale=None, floor=1.0):
+    """Max |got - want|; raises unless |got - want| <= 1e-4 * max(floor,
+    |want|, scale) everywhere (``floor``: 1, or ``small_floor(want)``)."""
     import torch
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
-    want = want.double()
-    err = (got.double() - want).abs()
-    bound = want.abs().clamp(min=1.0)
-    if scale is not None:
-        bound = torch.maximum(bound, scale)
-    bad = ~(err <= 1e-4 * bound)
+    err, bound = past_bound(got, want, scale, floor)
+    bad = ~(err <= bound)
     max_err = float(err.max()) if err.numel() else 0.0
     if bool(bad.any()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: {int(bad.sum())} elements off, "
@@ -496,12 +541,8 @@ def check(name, got, want, scale=None):
 
 def bound_share(got, want, scale=None):
     """The largest |got - want| as a share of ``check``'s bound."""
-    import torch
-    want = want.double()
-    bound = want.abs().clamp(min=1.0)
-    if scale is not None:
-        bound = torch.maximum(bound, scale)
-    share = (got.double() - want).abs() / (1e-4 * bound)
+    err, bound = past_bound(got, want, scale)
+    share = err / bound
     return float(share.max()) if share.numel() else 0.0
 
 
@@ -6532,7 +6573,53 @@ def rank_small_runs(z, rank, size, dev, head, gat, arrays):
     msg = head.send(message, src_feat={"h": x}, dst_feat={"h": x})
     for op in ("sum", "max"):
         arrays[f"udf_{op}"] = head.unshard_node_values(head.recv(op, msg))
+    lines["sharded_transe"] = rank_sharded_transe(rank, dev, arrays)
     return lines
+
+
+def sharded_transe_batch(rank, step):
+    """Rank ``rank``'s TransE batch of step ``step`` (FB15k's counts):
+    ``KGE_BATCH`` triples and ``KGE_NEG`` negatives a row."""
+    n_ent, n_rel, _ = FB15K
+    g = np.random.default_rng(1000 * step + rank)
+    return (g.integers(0, n_ent, KGE_BATCH), g.integers(0, n_rel, KGE_BATCH),
+            g.integers(0, n_ent, KGE_BATCH),
+            g.integers(0, n_ent, (KGE_BATCH, KGE_NEG)))
+
+
+def rank_sharded_transe(rank, dev, arrays, steps=3):
+    """(d): TransE at FB15k's counts with its entity table a
+    ``ShardedEmbedding`` (``sharded_kg_params``: each rank a block of rows,
+    the relation table replicated and its gradient summed), ``steps`` Adam
+    steps on each rank's own batches; the first step's loss and gradients
+    kept for the parent."""
+    import torch
+    from pgl_tpu_torch.models.kg import KGEModel, sharded_kg_params
+    from pgl_tpu_torch.parallel import comm
+    n_ent, n_rel, _ = FB15K
+    model = KGEModel(n_ent, n_rel, KGE_DIM, score="transe", gamma=KGE_GAMMA,
+                     seed=0, device=dev)
+    params = sharded_kg_params(model, device=dev)
+    del model.params
+    opt = torch.optim.Adam([params["ent"].table, params["rel"]], lr=KGE_LR)
+    losses = []
+    for i in range(steps):
+        args = [torch.as_tensor(a).to(dev)
+                for a in sharded_transe_batch(rank, i)]
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss_fn(params, *args)
+        loss.backward()
+        params["rel"].grad = comm.all_reduce_(params["rel"].grad)
+        if i == 0:
+            arrays[f"kg_loss_{rank}"] = loss.detach().cpu().numpy()
+            arrays[f"kg_ent_grad_{rank}"] = \
+                params["ent"].table.grad.cpu().numpy()
+            arrays["kg_rel_grad"] = params["rel"].grad.cpu().numpy()
+        opt.step()
+        losses.append(float(comm.all_reduce_(loss.detach().clone())))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"sharded TransE: losses {losses}")
+    return {"losses": losses, "block_rows": params["ent"].block_rows}
 
 
 def rank_kernel_rows(head, gat, lines, dev):
@@ -6712,6 +6799,44 @@ def nccl_world_of_one(host, labels, dev, gcn_step_ms, ref,
     return line
 
 
+def check_sharded_transe(arrays, dev):
+    """(d)'s sharded TransE against the single-process port on the card
+    from the same weights: each rank's first-step loss on its batch, the
+    entity gradient (the ranks' blocks, the pad rows 0) and the relation
+    gradient of the ranks' summed losses (``check``, the gradients with
+    ``small_floor``). Returns the max |err|."""
+    import torch
+    from pgl_tpu_torch.models.kg import KGEModel
+    n_ent, n_rel, _ = FB15K
+    model = KGEModel(n_ent, n_rel, KGE_DIM, score="transe", gamma=KGE_GAMMA,
+                     seed=0, device=dev)
+    err = 0.0
+    total = 0.0
+    for r in range(PARALLEL_RANKS):
+        args = [torch.as_tensor(a).to(dev)
+                for a in sharded_transe_batch(r, 0)]
+        loss = model.loss_fn(model.params, *args)
+        err = max(err, check(f"sharded TransE rank {r} loss",
+                             torch.as_tensor(arrays[f"kg_loss_{r}"])
+                             .reshape(1), loss.detach().cpu().reshape(1)))
+        total = total + loss
+    total.backward()
+    ent = np.concatenate([arrays[f"kg_ent_grad_{r}"]
+                          for r in range(PARALLEL_RANKS)])
+    if ent[n_ent:].any():
+        raise AssertionError("sharded TransE: a pad row has a gradient")
+    # a gradient element is about 1e-4: the bound's floor is 0.1 of the
+    # largest, not 1
+    for what, got, want in (
+            ("entity", ent[:n_ent], model.params["ent"].grad.cpu()),
+            ("relation", arrays["kg_rel_grad"],
+             model.params["rel"].grad.cpu())):
+        err = max(err, check(f"sharded TransE {what} gradient",
+                             torch.as_tensor(got), want,
+                             floor=small_floor(want)))
+    return err
+
+
 def phase_parallel(dev, smi, head_host, gcn_step_ms):
     """Phase 15: the parallel layer (see the module doc). Returns (rows,
     step lines)."""
@@ -6796,7 +6921,8 @@ def phase_parallel(dev, smi, head_host, gcn_step_ms):
         arrays = dict(np.load(f"{tmp}/rank0.npz"))
         for r in range(1, S):
             z = np.load(f"{tmp}/rank{r}.npz")
-            arrays.update({k: z[k] for k in z.files if k.startswith("emb_")})
+            arrays.update({k: z[k] for k in z.files
+                           if k.startswith(("emb_", "kg_"))})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -6876,6 +7002,7 @@ def phase_parallel(dev, smi, head_host, gcn_step_ms):
         check("ShardedEmbedding update", torch.as_tensor(np.concatenate(
             [arrays[f"emb_after_{r}"] for r in range(S)])),
             torch.as_tensor(table - 0.1 * summed)))
+    errs["sharded_transe"] = check_sharded_transe(arrays, dev)
     nccl = nccl_world_of_one(head_host, head_labels, dev, gcn_step_ms,
                              ref_gcn)
     per_rank = {k: [ln[k] for ln in lines]
@@ -6899,8 +7026,750 @@ def phase_parallel(dev, smi, head_host, gcn_step_ms):
         "halo_dot_errs": lines[0]["halo_dot_errs"],
         "nccl_world_of_one": nccl, **per_rank,
         "small_runs": {k: lines[0][k] for k in ("hetero_rgcn",
-                                                 "halo_transformer")}}}
+                                                 "halo_transformer",
+                                                 "sharded_transe")}}}
 
+
+
+# -- phase 16: Graph4Rec and KGE ----------------------------------------------
+
+G4R_USERS, G4R_ITEMS, G4R_EDGES = 100_000, 50_000, 2_000_000
+G4R_FEAT = 64
+G4R_CLUSTER_STEPS = 50
+G4R_TIMEOUT = 120               # every wait of phase 16, in seconds
+G4R_QUERY = 4096
+# the service reverses only three-part edge types (``helper.reverse_etype``:
+# "u2click2i" -> "i2click2u"; a two-part "u2i" reverses into itself)
+G4R_ETYPE, G4R_METAPATH = "u2click2i", "u2click2i-i2click2u"
+BLOG_NODES, BLOG_EDGES, BLOG_GROUPS = 10_312, 333_983, 39
+FB15K = (14_951, 1_345, 483_142)
+KGE_DIM, KGE_GAMMA, KGE_BATCH, KGE_NEG, KGE_LR = 128, 12.0, 1024, 64, 1e-2
+KGE_SCORES = ("transe", "distmult", "complex", "rotate", "quate", "ote")
+KGE_MODES = (("batch", 1), ("full", 1), ("chunk", 16))
+KGE_EVAL = 256
+TERM_BLOCKS = 16
+
+
+def write_pairs(path, src, dst):
+    """``src\\tdst`` lines, the graph service's edge file format."""
+    with open(path, "w") as f:
+        f.write("\n".join(map("{}\t{}".format, src.tolist(), dst.tolist())))
+        f.write("\n")
+
+
+def g4r_files(tmp, seed=0):
+    """The u2i bipartite graph's files under ``tmp`` (users ``[0, U)``,
+    items ``[U, U + I)``, seeded uniform edges): (the service's dict
+    config, src, dst)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, G4R_USERS, G4R_EDGES)
+    dst = G4R_USERS + rng.integers(0, G4R_ITEMS, G4R_EDGES)
+    write_pairs(f"{tmp}/u2i.txt", src, dst)
+    with open(f"{tmp}/nodes.txt", "w") as f:
+        f.write("".join(f"u\t{i}\n" for i in range(G4R_USERS)))
+        f.write("".join(f"i\t{G4R_USERS + i}\n" for i in range(G4R_ITEMS)))
+    config = {"etype2files": f"{G4R_ETYPE}:{tmp}/u2i.txt", "symmetry": True,
+              "ntype2files": f"u:{tmp}/nodes.txt,i:{tmp}/nodes.txt",
+              "nfeat_info": [["u", "emb", "float32", 4]]}
+    return config, src, dst
+
+
+def g4r_heter(src, dst, feat=False):
+    """(a)'s graph held locally: a ``HeterGraph`` with u2i and i2u, typed
+    nodes, and (``feat``) a seeded 64-wide node feature ``h``."""
+    from pgl_tpu_torch import HeterGraph
+    n = G4R_USERS + G4R_ITEMS
+    types = np.array(["u"] * G4R_USERS + ["i"] * G4R_ITEMS, dtype=object)
+    nf = ({"h": np.random.default_rng(1).normal(size=(n, G4R_FEAT)).astype(
+        np.float32)} if feat else {})
+    return HeterGraph({"u2i": np.stack([src, dst], 1),
+                       "i2u": np.stack([dst, src], 1)}, num_nodes=n,
+                      node_types=types, node_feat=nf)
+
+
+def blogcatalog_host():
+    """A BlogCatalog-sized graph (10,312 nodes, 333,983 undirected edges,
+    39 groups): ``blogcatalog_shaped_graph``'s planted groups, its first
+    333,983 distinct one-way edges kept, both directions stored."""
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.datasets import blogcatalog_shaped_graph
+    g, _ = blogcatalog_shaped_graph(num_nodes=BLOG_NODES,
+                                    num_groups=BLOG_GROUPS,
+                                    avg_degree=400, seed=0)
+    e = np.asarray(g.edges)[:g.num_edges // 2]
+    e = e[e[:, 0] != e[:, 1]]
+    key = np.minimum(e[:, 0], e[:, 1]) * BLOG_NODES + np.maximum(e[:, 0],
+                                                                 e[:, 1])
+    _, first = np.unique(key, return_index=True)
+    e = e[np.sort(first)]
+    if len(e) < BLOG_EDGES:
+        raise AssertionError(f"BlogCatalog stand-in: {len(e)} edges")
+    e = e[:BLOG_EDGES]
+    return Graph(np.concatenate([e, e[:, ::-1]]), num_nodes=BLOG_NODES)
+
+
+def wait_children(ips, children):
+    """Wait at most ``G4R_TIMEOUT`` seconds for the servers at ``ips``;
+    raises at once if one of ``children`` has died."""
+    from pgl_tpu_torch.distributed.launch import wait_server_ready
+    deadline = time.perf_counter() + G4R_TIMEOUT
+    while True:
+        try:
+            return wait_server_ready(ips, timeout=1.0)
+        except TimeoutError:
+            dead = [p.exitcode for p in children if p.exitcode is not None]
+            if dead or time.perf_counter() > deadline:
+                raise AssertionError(f"phase 16: servers not up (exit codes "
+                                     f"{dead})")
+
+
+def equal_samples(tag, got, want):
+    """Raises unless two query results (arrays, lists of arrays or None)
+    are equal element for element."""
+    if isinstance(want, tuple) or isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{tag}: {len(got)} != {len(want)} parts")
+        for a, b in zip(got, want):
+            equal_samples(tag, a, b)
+        return
+    if (got is None) != (want is None) or (
+            want is not None and not np.array_equal(got, want)):
+        raise AssertionError(f"{tag}: the two clusters differ")
+
+
+def cluster_queries(client, local, seed=0):
+    """``sample_successor`` (lists and packed), ``sample_predecessor``,
+    ``random_sample_nodes``, ``node_batch_iter`` and ``get_node_feat`` of
+    the process cluster against the in-process one: equal. Returns the
+    number of query results compared."""
+    rng = np.random.default_rng(seed)
+    users = rng.integers(0, G4R_USERS, G4R_QUERY)
+    items = G4R_USERS + rng.integers(0, G4R_ITEMS, G4R_QUERY)
+    nodes = np.concatenate([users, items])
+    feat = rng.normal(size=(10_000, 4)).astype(np.float32)
+    for c in (client, local):
+        c.set_node_feat("u", "emb", np.arange(10_000), list(feat))
+    n = 0
+    for s in (1, 2):
+        for packed in (False, True):
+            equal_samples("sample_successor", *(c.sample_successor(
+                nodes, 10, G4R_ETYPE, seed=s, packed=packed)
+                for c in (client, local)))
+            n += 1
+        equal_samples("sample_predecessor", *(c.sample_predecessor(
+            items, 10, G4R_ETYPE, seed=s) for c in (client, local)))
+        for ntype in ("u", "i"):
+            equal_samples("random_sample_nodes", *(c.random_sample_nodes(
+                ntype, 1000, seed=s) for c in (client, local)))
+        n += 3
+    for shuffle in (True, False):
+        equal_samples("node_batch_iter", *(list(c.node_batch_iter(
+            G4R_QUERY, "i", shuffle=shuffle, shuffle_size=20_000, seed=3))
+            for c in (client, local)))
+        n += 1
+    got = client.get_node_feat(users, "u", "emb")
+    equal_samples("get_node_feat", got,
+                  local.get_node_feat(users, "u", "emb"))
+    have = users < 10_000
+    if not np.array_equal(np.stack([got[i] for i in np.flatnonzero(have)]),
+                          feat[users[have]]):
+        raise AssertionError("get_node_feat: not the rows set")
+    return n + 1
+
+
+def timed_calls(table, timing):
+    """Wrap a ``PSEmbedding``'s ``pull`` and ``push`` to append their host
+    seconds to ``timing[name]``."""
+    for name in ("pull", "push"):
+        fn = getattr(table, name)
+
+        def timed(*args, _fn=fn, _name=name):
+            t0 = time.perf_counter()
+            out = _fn(*args)
+            timing[_name].append(time.perf_counter() - t0)
+            return out
+
+        setattr(table, name, timed)
+
+
+def g4r_held_loss(tr, batch, draws):
+    """The loss of ``batch`` at ``draws`` on ``tr``'s tables as they are now
+    (no step; a PS trainer's pushes flushed and its rows pulled)."""
+    import torch
+    bs, bd, valid = batch
+    dev = tr.device
+    v = torch.as_tensor(valid).to(dev)
+    with torch.no_grad():
+        if tr.ps is None:
+            return float(tr.loss(torch.as_tensor(bs).to(dev),
+                                 torch.as_tensor(bd).to(dev), v, *draws))
+        for table in tr.ps.values():
+            table.flush()
+        u_src, inv_src = np.unique(bs, return_inverse=True)
+        u_dst, inv_dst = np.unique(bd, return_inverse=True)
+        er = torch.as_tensor(tr.ps["emb"].pull(u_src)).to(dev)
+        cr = torch.as_tensor(tr.ps["ctx"].pull(u_dst)).to(dev)
+        return float(tr.ps_loss(er, cr, torch.as_tensor(inv_src).to(dev),
+                                torch.as_tensor(inv_dst).to(dev), v,
+                                draws[1]))
+
+
+def g4r_steps(tr, batches, tag, held=True):
+    """Train ``tr`` on ``batches`` (numpy), each step synchronized, the
+    first at draws kept for it: finite losses, and (``held``) the first
+    batch's loss at those draws lower after the steps than at the first
+    step. Returns (losses, median step ms, peak MiB, the first batch's
+    loss after the steps or None)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    draws0 = tr._draws(len(batches[0][0]))
+    losses, times = [], []
+    for i, (bs, bd, valid) in enumerate(batches):
+        t0 = time.perf_counter()
+        losses.append(float(tr.step(bs, bd, valid,
+                                    draws0 if i == 0 else None)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    after = g4r_held_loss(tr, batches[0], draws0) if held else None
+    if not np.all(np.isfinite(losses)) or (held and not after < losses[0]):
+        raise AssertionError(f"{tag}: losses {losses}, the first batch's "
+                             f"after them {after}: not finite or not "
+                             "falling")
+    return losses, float(np.median(times[1:])) * 1e3, peak, after
+
+
+def skipgram_row_terms(h, pos_ctx, perm, neg_num, valid):
+    """``_inbatch_skipgram_loss``'s mean form as one term a row (the terms
+    sum to the loss)."""
+    import torch.nn.functional as F
+    B = h.shape[0]
+    nv = valid.sum().to(perm.dtype).clamp(min=1)
+    neg_ctx = pos_ctx[perm % nv].reshape(B, neg_num, -1)
+    denom = valid.sum().clamp(min=1.0)
+    pos = -F.logsigmoid((h * pos_ctx).sum(-1)) * valid / denom
+    negs = -F.logsigmoid(-(h[:, None] * neg_ctx).sum(-1))
+    return pos + negs.sum(-1) * valid / (denom * neg_num)
+
+
+def held_first_step(tag, cpu_terms, params64, runs):
+    """First-step losses and gradients against float64 on the CPU:
+    ``cpu_terms()`` gives one term a row (summing to the loss) from
+    ``params64``; each gradient's scale is the 2-norm over
+    ``TERM_BLOCKS`` blocks of rows of the blocks' float64 gradients (a
+    row's own terms can cancel, which no block scale sees), and each
+    tensor is held by ``check`` with ``small_floor`` (these gradients are
+    far below 1). Every float64 gradient must be nonzero, or nothing would
+    be compared. ``runs`` maps a label to ``(loss, grads, strict)``: a
+    strict run must pass, the others are measured only. Returns, by label,
+    (max |err|, the largest share of its bound, the elements past it, and
+    those three by tensor)."""
+    import torch
+    terms = cpu_terms()
+    names = list(params64)
+    want = torch.autograd.grad(terms.sum(), [params64[k] for k in names],
+                               retain_graph=True, allow_unused=True)
+    sq = {k: torch.zeros_like(params64[k]) for k in names}
+    for rows in np.array_split(np.arange(terms.shape[0]), TERM_BLOCKS):
+        part = torch.autograd.grad(terms[rows].sum(),
+                                   [params64[k] for k in names],
+                                   retain_graph=True, allow_unused=True)
+        for k, v in zip(names, part):
+            if v is not None:
+                sq[k] += v * v
+    for k, w in zip(names, want):
+        if w is None or not bool((w != 0).any()):
+            raise AssertionError(f"{tag}: the float64 gradient of {k} is 0,"
+                                 " so the step would compare nothing")
+    pairs = [("loss", terms.sum().detach().reshape(1), None)] + [
+        (k, w, sq[k].sqrt()) for k, w in zip(names, want)]
+    out = {}
+    for label, (loss, grads, strict) in runs.items():
+        got = {"loss": loss.detach().cpu().double().reshape(1),
+               **{k: grads[k].cpu() for k in names}}
+        by = {}
+        for k, w, scale in pairs:
+            floor = small_floor(w)
+            if strict:
+                check(f"{tag} {label} {k}", got[k], w, scale, floor)
+            diff, bound = past_bound(got[k], w, scale, floor)
+            by[k] = (float(diff.max()), float((diff / bound.clamp(
+                min=torch.finfo(torch.float64).tiny)).max()),
+                int((~(diff <= bound)).sum()))
+        out[label] = (max(v[0] for v in by.values()),
+                      max(v[1] for v in by.values()),
+                      sum(v[2] for v in by.values()), by)
+    return out
+
+
+def g4r_preset(name, graph, dev, steps=STEPS):
+    """(c): one in-memory preset at its widths on ``graph``: the first
+    step's loss and gradients against the CPU trainer in float64 from the
+    same weights (a seeded nonzero ctx), batch and draws, then ``steps``
+    steps in all. Returns its step line entry."""
+    import torch
+    from pgl_tpu_torch.apps.graph4rec import Graph4RecTrainer
+    tr = Graph4RecTrainer.from_preset(name, graph=graph, device=dev)
+    cpu = Graph4RecTrainer.from_preset(name, graph=graph, device="cpu")
+    for k, p in tr.params.items():
+        if not torch.equal(p.detach().cpu(), cpu.params[k].detach()):
+            raise AssertionError(f"{name}: the card's initial {k} is not "
+                                 "the CPU's")
+    # ctx starts at zeros, where the loss reaches the encoder only through
+    # h · ctx and every gradient but ctx's is 0: both take a seeded one
+    ctx = torch.as_tensor((np.random.default_rng(1).normal(
+        size=tuple(cpu.params["ctx"].shape)) * 0.1).astype(np.float32))
+    with torch.no_grad():
+        for trainer in (tr, cpu):
+            trainer.params["ctx"].copy_(ctx)
+    if cpu._feat is not None:
+        cpu._feat = cpu._feat.double()
+    batches = tr.batches(0)
+    bs, bd, valid = next(batches)
+    uniforms, perm = tr._draws(len(bs))
+    t = [torch.as_tensor(a).to(dev) for a in (bs, bd, valid)]
+    tr.opt.zero_grad(set_to_none=True)
+    loss = tr.loss(*t, uniforms, perm)
+    loss.backward()
+    grads = {k: p.grad.detach().clone() for k, p in tr.params.items()}
+    tr.opt.step()
+    p64 = {k: p.detach().double().requires_grad_(True)
+           for k, p in cpu.params.items()}
+    src, dst, v = (torch.as_tensor(a) for a in (bs, bd, valid))
+    u_cpu = [u.cpu() for u in uniforms]
+
+    def terms():
+        h = cpu._encode(p64, src, u_cpu)
+        return skipgram_row_terms(h, p64["ctx"][dst], perm.cpu(),
+                                  cpu.neg_num, v.double())
+
+    err, share = held_first_step(f"graph4rec {name}", terms, p64, {
+        "float32": (loss, grads, True)})["float32"][:2]
+    rest = [next(batches) for _ in range(steps - 1)]
+    losses, step_ms, peak, _ = g4r_steps(tr, rest, f"graph4rec {name}",
+                                         held=False)
+    losses = [float(loss.detach())] + losses
+    after = g4r_held_loss(tr, (bs, bd, valid), (uniforms, perm))
+    if not after < losses[0]:
+        raise AssertionError(f"graph4rec {name}: the first batch's loss "
+                             f"{losses[0]} -> {after} after {steps} steps")
+    return {"step_ms": step_ms, "peak_mib": peak, "losses": losses,
+            "first_batch_after": after, "max_abs_err": err,
+            "bound_share": share, "num_nodes": graph.num_nodes,
+            "num_edges": graph.num_edges}
+
+
+def kge_triples(seed=0, clusters=64):
+    """FB15k's counts (14,951 entities, 1,345 relations, 483,142 training
+    triples) with ``KGE_EVAL`` more held out, seeded: each entity in one of
+    ``clusters`` clusters, each relation a shift of clusters, a triple's
+    tail uniform in its head's cluster shifted by its relation's."""
+    n_ent, n_rel, n_train = FB15K
+    rng = np.random.default_rng(seed)
+    cluster = rng.integers(0, clusters, n_ent)
+    order = np.argsort(cluster, kind="stable")
+    count = np.bincount(cluster, minlength=clusters)
+    start = np.concatenate([[0], np.cumsum(count)[:-1]])
+    shift = rng.integers(0, clusters, n_rel)
+    n = n_train + KGE_EVAL
+    h = rng.integers(0, n_ent, n)
+    r = rng.integers(0, n_rel, n)
+    tc = (cluster[h] + shift[r]) % clusters
+    t = order[start[tc] + (rng.random(n) * count[tc]).astype(np.int64)]
+    tri = np.stack([h, r, t], 1)
+    return tri[:n_train], tri[n_train:]
+
+
+def kge_filter(train, test):
+    """``[len(test), num_ents]`` bool: the known tails of each test row's
+    (h, r) among the training and test triples."""
+    n_ent, n_rel, _ = FB15K
+    allt = np.concatenate([train, test])
+    key = allt[:, 0] * n_rel + allt[:, 1]
+    qkey = test[:, 0] * n_rel + test[:, 1]
+    hit = np.isin(key, qkey)
+    mask = np.zeros((len(test), n_ent), bool)
+    rows = {k: i for i, k in enumerate(qkey.tolist())}
+    for k, tail in zip(key[hit].tolist(), allt[hit, 2].tolist()):
+        mask[rows[k], tail] = True
+    # a (h, r) asked twice: both rows know every tail
+    for i, k in enumerate(qkey.tolist()):
+        mask[i] |= mask[rows[k]]
+    return mask
+
+
+def kge_rel_dim(score):
+    return 4 * (KGE_DIM // 4) ** 2 if score == "ote" else None
+
+
+# scores whose float32 step float32 itself cannot resolve to check's bound
+# at these weights (the CPU's float32 step shows it against float64): an
+# L1 distance, whose |x| flips its gradient where float32 rounds x across
+# 0, and for OTE a QR of 32 x 32 blocks, whose float32 rounding (and its
+# backward's) grows with the block's condition number
+KGE_KINKED = ("transe", "ote")
+KGE_WITNESS_FACTOR = 2
+
+
+def kge_run(score, mode, chunks, train, dev, seed):
+    """(d): one score in one negative mode at ``examples/kg/train.py``'s
+    defaults, ``STEPS`` Adam steps, and the first step's loss and
+    gradients against float64 on the CPU (one term a row: the loss is the
+    mean of the rows' terms): the card's float64 run of the step must
+    pass ``check``, and its float32 run too but for ``KGE_KINKED``. Those
+    are held to the CPU's float32 step from the same weights and batch
+    (the witness of what float32 resolves at these shapes): in each
+    tensor, no more than ``KGE_WITNESS_FACTOR`` times the witness's
+    elements past the bound, and where any, no more than that factor
+    times the witness's largest share of it. Returns (the model, its step
+    line entry)."""
+    import torch
+    from pgl_tpu_torch.models.kg import KGEModel, sample_negatives
+    n_ent, n_rel, _ = FB15K
+    model = KGEModel(n_ent, n_rel, KGE_DIM, score=score, gamma=KGE_GAMMA,
+                     rel_dim=kge_rel_dim(score), seed=0, device=dev)
+    init = {k: p.detach().double().clone().requires_grad_(True)
+            for k, p in model.params.items()}
+    opt = torch.optim.Adam(list(model.params.values()), lr=KGE_LR)
+    rng = np.random.default_rng(seed)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(STEPS):
+        b = train[rng.integers(0, len(train), KGE_BATCH)]
+        neg = sample_negatives(b[:, 0], b[:, 2], n_ent, mode, KGE_NEG, rng,
+                               num_chunks=chunks)
+        args = [torch.as_tensor(a).to(dev)
+                for a in (b[:, 0], b[:, 1], b[:, 2], neg)]
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss_fn(model.params, *args)
+        loss.backward()
+        if i == 0:
+            grads = {k: p.grad.detach().clone()
+                     for k, p in model.params.items()}
+            first = (loss.detach(), args, b, neg)
+        opt.step()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    loss32, args, b, neg = first
+    with torch.no_grad():
+        after = float(model.loss_fn(model.params, *args))
+    loss64 = model.loss_fn(init, *args)
+    grads64 = dict(zip(init, torch.autograd.grad(loss64,
+                                                 list(init.values()))))
+    cpu = KGEModel(n_ent, n_rel, KGE_DIM, score=score, gamma=KGE_GAMMA,
+                   rel_dim=kge_rel_dim(score), seed=0, device="cpu")
+    p64 = {k: p.detach().double().requires_grad_(True)
+           for k, p in cpu.params.items()}
+    h, r, t = (torch.as_tensor(b[:, j]) for j in range(3))
+    neg = torch.as_tensor(neg)
+
+    def terms():
+        # the loss is a mean over rows: a block's rows (with its chunk's
+        # negatives in chunk mode) give its share
+        out = []
+        for j, rows in enumerate(np.array_split(np.arange(KGE_BATCH),
+                                                TERM_BLOCKS)):
+            nb = neg[j:j + 1] if mode == "chunk" else neg[rows]
+            out.append(cpu.loss_fn(p64, h[rows], r[rows], t[rows], nb)
+                       * (len(rows) / KGE_BATCH))
+        return torch.stack(out)
+
+    if mode == "chunk" and chunks != TERM_BLOCKS:
+        raise AssertionError("a term block must be a chunk")
+    p32 = {k: p.detach().clone().requires_grad_(True)
+           for k, p in cpu.params.items()}
+    cpu32 = cpu.loss_fn(p32, h, r, t, neg)
+    held = held_first_step(f"kge {score} {mode}", terms, p64, {
+        "float64": (loss64, grads64, True),
+        "float32": (loss32, grads, score not in KGE_KINKED),
+        "cpu float32": (cpu32, dict(zip(p32, torch.autograd.grad(
+            cpu32, list(p32.values())))), False)})
+    if score in KGE_KINKED:
+        for k, (_, share, off) in held["float32"][3].items():
+            _, w_share, w_off = held["cpu float32"][3][k]
+            if off > KGE_WITNESS_FACTOR * w_off or (
+                    off and share > KGE_WITNESS_FACTOR * w_share):
+                raise AssertionError(
+                    f"kge {score} {mode} float32 {k}: {off} elements past "
+                    f"the bound, the largest {share:.4f} of it; the CPU's "
+                    f"float32 {w_off}, {w_share:.4f}")
+    if not np.all(np.isfinite(losses)) or not after < losses[0]:
+        raise AssertionError(f"kge {score} {mode}: losses {losses}, the "
+                             f"first batch's {after} after them")
+    return model, {"step_ms": float(np.median(times[1:])) * 1e3,
+                   "peak_mib": peak, "losses": losses,
+                   "first_batch_after": after,
+                   "max_abs_err": held["float32"][0],
+                   "bound_share": held["float32"][1],
+                   "elements_past_bound": held["float32"][2],
+                   "float64_max_abs_err": held["float64"][0],
+                   "float64_bound_share": held["float64"][1],
+                   "cpu_float32_max_abs_err": held["cpu float32"][0],
+                   "cpu_float32_bound_share": held["cpu float32"][1],
+                   "cpu_float32_elements_past_bound":
+                       held["cpu float32"][2]}
+
+
+def kge_eval(model, test, mask, dev, rows=64):
+    """``predict_all_tails`` of the held-out triples on the card and on the
+    CPU (the card's trained tables, float32 both), then filtered ranks.
+    The ranks must be equal but where a candidate's CPU score lies within
+    twice the row's largest card-to-CPU difference of the true tail's,
+    where the two float32 sums may order the pair either way. Returns (card metrics, CPU metrics, rows
+    whose rank differs, rows with such a near tie)."""
+    import torch
+    from pgl_tpu_torch.models.kg import filtered_ranks, mrr_hits
+    params_cpu = {k: p.detach().cpu() for k, p in model.params.items()}
+    got, want, near = [], [], []
+    with torch.no_grad():
+        for lo in range(0, len(test), rows):
+            b = test[lo:lo + rows]
+            m = torch.as_tensor(mask[lo:lo + rows])
+            s_card = model.predict_all_tails(
+                model.params, torch.as_tensor(b[:, 0]).to(dev),
+                torch.as_tensor(b[:, 1]).to(dev))
+            s_cpu = model.predict_all_tails(params_cpu, torch.as_tensor(
+                b[:, 0]), torch.as_tensor(b[:, 1]))
+            true = torch.as_tensor(b[:, 2])
+            got.append(filtered_ranks(s_card, true.to(dev), m.to(dev))
+                       .cpu())
+            want.append(filtered_ranks(s_cpu, true, m))
+            ts = s_cpu[torch.arange(len(b)), true]
+            # a pair can swap when its gap is within the two sides'
+            # largest disagreement on the row, counted twice
+            tol = 2 * (s_card.cpu() - s_cpu).abs().amax(-1)
+            tie = ((s_cpu - ts[:, None]).abs() <= tol[:, None]) & ~m
+            tie[torch.arange(len(b)), true] = False
+            near.append(tie.sum(-1))
+    got, want, near = (torch.cat(x) for x in (got, want, near))
+    diff = got != want
+    if bool(((got - want).abs() > near)[diff].any()):
+        raise AssertionError(f"kge eval: ranks differ past the near ties: "
+                             f"{got[diff].tolist()} vs {want[diff].tolist()}")
+    return (mrr_hits(got), mrr_hits(want), int(diff.sum()),
+            int((near > 0).sum()))
+
+
+def phase_graph4rec(dev, smi):
+    """Phase 16: Graph4Rec and KGE (see the module doc). Returns the step
+    line's entries."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+    import torch
+    from itertools import chain, islice
+    from pgl_tpu_torch.apps.graph4rec import PRESETS, Graph4RecTrainer
+    from pgl_tpu_torch.distributed import DistGraphClient
+    from pgl_tpu_torch.distributed.launch import (launch_graph_service,
+                                                  launch_local_cluster)
+    from pgl_tpu_torch.distributed.ps import run_shard_server
+    from pgl_tpu_torch.sampling import metapath_randomwalk_dist
+
+    out = {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pgl_g4r_")
+    ctx = mp.get_context("spawn")
+    children, local_servers, clients = [], [], []
+    try:
+        # (a) two graph servers as processes, one in-process twin cluster
+        t0 = time.perf_counter()
+        config, src, dst = g4r_files(tmp)
+        files_s = time.perf_counter() - t0
+        ips = [f"127.0.0.1:{free_port()}" for _ in range(2)]
+        for i in range(2):
+            p = ctx.Process(target=launch_graph_service,
+                            args=(config, ips, i), kwargs={"block": True},
+                            daemon=True)
+            p.start()
+            children.append(p)
+        wait_children(ips, children)
+        t0 = time.perf_counter()
+        client = DistGraphClient(config, 100, ips, client_id=0)
+        clients.append(client)
+        client.load_edges()
+        client.load_node_types()
+        load_s = time.perf_counter() - t0
+        local_servers, local, _ = launch_local_cluster(config, 2)
+        clients.append(local)
+        n_cmp = cluster_queries(client, local)
+        starts = np.random.default_rng(4).integers(0, G4R_USERS, 10_240)
+        t0 = time.perf_counter()
+        walks = metapath_randomwalk_dist(client, starts, G4R_METAPATH, 12,
+                                         seed=0)
+        hop_ms = (time.perf_counter() - t0) * 1e3 / 11
+        if not (walks[:, -1] >= 0).all():
+            raise AssertionError("metapath_randomwalk_dist: a walk ended")
+        equal_samples("metapath_randomwalk_dist", walks,
+                      metapath_randomwalk_dist(local, starts, G4R_METAPATH,
+                                               12, seed=0))
+        print(f"[graph4rec a] 2 graph server processes: u2i of "
+              f"{G4R_USERS} users, {G4R_ITEMS} items, {G4R_EDGES} edges "
+              f"(symmetry); files {files_s:.2f} s, load {load_s:.2f} s; "
+              f"{n_cmp} query results equal to an in-process cluster's on "
+              f"the same files; metapath_randomwalk_dist of {len(starts)} "
+              f"walks x 12: {hop_ms:.3f} ms a hop (one batched RPC a hop, "
+              f"{smi})", flush=True)
+        out["cluster"] = {"load_s": load_s, "rpc_ms_per_hop": hop_ms,
+                          "walks_per_hop": len(starts),
+                          "queries_equal": n_cmp}
+
+        # (b) metapath2vec over the cluster: dense on the card, then PS
+        n = G4R_USERS + G4R_ITEMS
+
+        def cluster_batches(tr):
+            t0 = time.perf_counter()
+            got = list(islice(chain.from_iterable(
+                tr.batches(e) for e in range(4)), G4R_CLUSTER_STEPS))
+            return got, time.perf_counter() - t0
+
+        tr = Graph4RecTrainer.from_preset("metapath2vec", client=client,
+                                          num_nodes=n, device=dev,
+                                          metapath=G4R_METAPATH)
+        emb0 = tr.params["emb"].detach().clone()
+        batches, walk_s = cluster_batches(tr)
+        losses, step_ms, peak, after = g4r_steps(
+            tr, batches, "metapath2vec cluster")
+        moved = float((tr.params["emb"].detach() != emb0).any(1).float()
+                      .mean())
+        if not moved > 0:
+            raise AssertionError("metapath2vec cluster: table unmoved")
+        print(f"[graph4rec b] metapath2vec over the cluster, tables on the "
+              f"card (Adam): {len(batches)} steps of {1024} pairs, walks "
+              f"and pairs {walk_s:.2f} s, loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f} (the first batch's {after:.5f} after), "
+              f"median step {step_ms:.3f} ms, peak "
+              f"{peak:.1f} MiB, rows moved {moved:.4f} ({smi})", flush=True)
+        out["cluster_dense"] = {"step_ms": step_ms, "peak_mib": peak,
+                                "losses": losses, "walk_s": walk_s,
+                                "first_batch_after": after,
+                                "rows_moved": moved}
+        ready = ctx.Queue()
+        for s in range(2):
+            p = ctx.Process(target=run_shard_server,
+                            args=(s, 2, 0, "127.0.0.1", ready), daemon=True)
+            p.start()
+            children.append(p)
+        ports = dict(ready.get(timeout=G4R_TIMEOUT) for _ in range(2))
+        addrs = [f"127.0.0.1:{ports[s]}" for s in range(2)]
+        tr = Graph4RecTrainer.from_preset("metapath2vec", client=client,
+                                          num_nodes=n, device=dev,
+                                          metapath=G4R_METAPATH,
+                                          ps_addresses=addrs)
+        emb0 = tr.ps["emb"].dump()
+        timing = {"pull": [], "push": []}
+        for table in tr.ps.values():
+            timed_calls(table, timing)
+        batches, walk_s = cluster_batches(tr)
+        losses, step_ms, peak, after = g4r_steps(tr, batches,
+                                                 "metapath2vec PS")
+        t0 = time.perf_counter()
+        for table in tr.ps.values():
+            table.flush()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        moved = float((tr.ps["emb"].dump() != emb0).any(1).mean())
+        if not moved > 0:
+            raise AssertionError("metapath2vec PS: table unmoved")
+        pull_ms = float(np.median(timing["pull"])) * 1e3
+        push_ms = float(np.median(timing["push"])) * 1e3
+        print(f"[graph4rec b] metapath2vec over the cluster, tables on 2 PS "
+              f"shard processes (adagrad), step on the card: "
+              f"{len(batches)} steps, loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f} (the first batch's {after:.5f} after), "
+              f"median step {step_ms:.3f} ms, pull "
+              f"{pull_ms:.3f} ms and push {push_ms:.3f} ms a table a step "
+              f"(median; the push queued, its sends on a thread), final "
+              f"flush {flush_ms:.2f} ms, peak {peak:.1f} MiB, rows moved "
+              f"{moved:.4f} ({smi})", flush=True)
+        out["cluster_ps"] = {"step_ms": step_ms, "pull_ms": pull_ms,
+                             "push_ms": push_ms, "flush_ms": flush_ms,
+                             "peak_mib": peak, "losses": losses,
+                             "first_batch_after": after,
+                             "rows_moved": moved}
+        for table in tr.ps.values():
+            table.close()
+        del tr
+    finally:
+        for c in clients:
+            c.stop_server()
+        for s in local_servers:
+            s.stop()
+        for p in children:
+            p.kill()
+        for p in children:
+            p.join(timeout=30)
+            if p.is_alive():
+                raise AssertionError("phase 16: a child process outlived "
+                                     "its kill")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) every in-memory preset at its widths
+    blog = blogcatalog_host()
+    bip = g4r_heter(src, dst)
+    bip_feat = g4r_heter(src, dst, feat=True)
+    presets = {}
+    for name in sorted(PRESETS):
+        graph = (blog if name in ("deepwalk", "node2vec") else
+                 bip_feat if name.endswith("_with_features") else bip)
+        t0 = time.perf_counter()
+        presets[name] = line = g4r_preset(name, graph, dev)
+        print(f"[graph4rec c] {name} on N={graph.num_nodes} "
+              f"E={graph.num_edges}: first step against float64 on the CPU"
+              f" max |err| {line['max_abs_err']:.3e} "
+              f"({line['bound_share']:.4f} of its bound); {STEPS} steps, loss "
+              f"{line['losses'][0]:.5f} -> {line['losses'][-1]:.5f}, median"
+              f" step {line['step_ms']:.3f} ms (the first batch's "
+              f"{line['first_batch_after']:.5f} after), peak "
+              f"{line['peak_mib']:.1f} "
+              f"MiB ({time.perf_counter() - t0:.1f} s with walks, "
+              f"{smi})", flush=True)
+    out["presets"] = presets
+
+    # (d) the six KGE scores at FB15k's counts, three negative modes
+    train, test = kge_triples()
+    mask = kge_filter(train, test)
+    kge = {}
+    for i, score in enumerate(KGE_SCORES):
+        for j, (mode, chunks) in enumerate(KGE_MODES):
+            model, line = kge_run(score, mode, chunks, train, dev,
+                                  seed=10 * i + j)
+            if mode == "batch":
+                card, cpu, ndiff, nnear = kge_eval(model, test, mask, dev)
+                line.update(eval_card=card, eval_cpu=cpu,
+                            ranks_differing=ndiff, near_ties=nnear)
+            kge[f"{score}_{mode}"] = line
+            del model
+            print(f"[kge] {score} {mode}: first step against float64 on "
+                  f"the CPU: the card in float64 max |err| "
+                  f"{line['float64_max_abs_err']:.3e} "
+                  f"({line['float64_bound_share']:.4f} of its bound), in "
+                  f"float32 {line['max_abs_err']:.3e} "
+                  f"({line['bound_share']:.4f}, "
+                  f"{line['elements_past_bound']} elements past it, "
+                  + (f"held to the CPU's float32: "
+                     f"{line['cpu_float32_max_abs_err']:.3e} "
+                     f"({line['cpu_float32_bound_share']:.4f}, "
+                     f"{line['cpu_float32_elements_past_bound']} past)"
+                     if score in KGE_KINKED else "held") + f"); {STEPS} "
+                  f"steps, loss {line['losses'][0]:.5f} -> "
+                  f"{line['losses'][-1]:.5f} (the first batch's "
+                  f"{line['first_batch_after']:.5f} after), median step "
+                  f"{line['step_ms']:.3f} ms, peak {line['peak_mib']:.1f} "
+                  f"MiB" + (f"; filtered eval of {KGE_EVAL} held-out "
+                            f"triples: card {line['eval_card']}, CPU "
+                            f"{line['eval_cpu']}, {ndiff} ranks differ "
+                            f"({nnear} rows with a near tie)"
+                            if mode == "batch" else "") + f" ({smi})",
+                  flush=True)
+        torch.cuda.empty_cache()
+    out["kge"] = kge
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[graph4rec] phase 16 took {out['seconds']:.1f} s", flush=True)
+    return {"graph4rec": out}
 
 
 def main():
@@ -7046,6 +7915,8 @@ def main():
     parallel_rows, parallel_steps = phase_parallel(dev, smi, host,
                                                    train["step_ms"])
     rows += parallel_rows
+    torch.cuda.empty_cache()
+    g4r_lines = phase_graph4rec(dev, smi)
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -7056,7 +7927,7 @@ def main():
         **gat_steps, **dedup_steps, **unimp_steps, **ddot_steps,
         **weighted_steps, **sddmm_steps, **zoo_steps, **hetero_steps,
         **readout_steps, **sampling_steps, "out_of_core": out_of_core,
-        **parallel_steps,
+        **parallel_steps, **g4r_lines,
         "device": smi}}),
         flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

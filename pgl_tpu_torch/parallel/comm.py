@@ -243,24 +243,32 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
 
 class _AllReduceExtreme(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, op, group):
+    def forward(ctx, x, counts, op, group):
         out = all_reduce_(x.clone(), op=op, group=group)
+        mine = torch.where(x == out, counts.to(x.dtype),
+                           torch.zeros_like(x))
+        total = all_reduce_(mine.clone(), group=group)
         ctx.group = group
-        ctx.save_for_backward(x == out)
+        ctx.save_for_backward(torch.where(
+            total > 0, mine / total.clamp(min=1), torch.zeros_like(mine)))
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (hit,) = ctx.saved_tensors
+        (share,) = ctx.saved_tensors
         g = all_reduce_(g.clone(), group=ctx.group)
-        return torch.where(hit, g, torch.zeros_like(g)), None, None
+        return g * share, None, None, None
 
 
 def all_reduce_extreme(x: torch.Tensor, reduce_op: str,
-                       group=None) -> torch.Tensor:
-    """Elementwise max (``"max"``) or min (``"min"``) of the ranks' ``x``;
-    the gradient (the summed cotangents) goes to every rank whose ``x``
-    holds the extreme."""
+                       counts: torch.Tensor, group=None) -> torch.Tensor:
+    """Elementwise max (``"max"``) or min (``"min"``) of the ranks' ``x``.
+
+    The gradient (the summed cotangents) is shared over the ranks whose
+    ``x`` holds the extreme, in proportion to ``counts`` (``x``'s shape:
+    how many tied terms each rank's ``x`` stands for, e.g. its in-edges
+    whose message equals the extreme). An element whose ranks all count 0
+    gets no gradient. A max with no gradient is ``all_reduce_`` alone."""
     group, _, _ = world(group)
     op = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[reduce_op]
-    return _AllReduceExtreme.apply(x, op, group)
+    return _AllReduceExtreme.apply(x, counts, op, group)

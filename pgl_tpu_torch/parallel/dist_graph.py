@@ -29,6 +29,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import dispatch
 from ..ops import message_passing as mp
@@ -158,8 +159,18 @@ class ShardedGraph:
         return out.scatter_reduce(0, idx, msg, "amax" if reduce_op == "max"
                                   else "amin", include_self=True)
 
-    def _combine_extreme(self, partial, reduce_op):
-        out = comm.all_reduce_extreme(partial, reduce_op, self.group)
+    def _combine_extreme(self, msg, reduce_op):
+        """The global max (min) of ``msg`` at each destination, 0 where no
+        rank has an in-edge. A tie's gradient is shared evenly over the
+        tied edges of every rank, as on one graph: each rank's share is its
+        count of tied edges over the ranks' total."""
+        partial = self._partial_extreme(msg, reduce_op)
+        idx = self.dst.reshape((-1,) + (1,) * (msg.ndim - 1)).expand_as(msg)
+        tied = (msg.detach() == partial.detach().gather(0, idx)).to(
+            msg.dtype)
+        counts = torch.zeros_like(partial).scatter_add_(0, idx, tied)
+        out = comm.all_reduce_extreme(partial, reduce_op, counts,
+                                      self.group)
         return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
     def send_u_recv(self, feature, reduce_op: str = "sum"):
@@ -170,8 +181,7 @@ class ShardedGraph:
             raise ValueError(reduce_op)
         if reduce_op in ("max", "min"):
             msg = feature.index_select(0, self.src)
-            return self._combine_extreme(
-                self._partial_extreme(msg, reduce_op), reduce_op)
+            return self._combine_extreme(msg, reduce_op)
         if dispatch.plain_on_cuda(feature):
             partial = S.segment_sum(feature.index_select(0, self.src),
                                     self.dst, self._num_nodes)
@@ -201,8 +211,7 @@ class ShardedGraph:
         w = edge_feat[:self.k]
         msg = mp._COMBINE[message_op](msg, mp._broadcast_edge(w, msg.ndim))
         if reduce_op in ("max", "min"):
-            return self._combine_extreme(
-                self._partial_extreme(msg, reduce_op), reduce_op)
+            return self._combine_extreme(msg, reduce_op)
         out = comm.all_reduce_sum(
             S.segment_sum(msg, self.dst, self._num_nodes), self.group)
         if reduce_op == "mean":
@@ -229,8 +238,8 @@ class ShardedGraph:
         sum all-reduced."""
         x = logits[:self.k]
         N = self._num_nodes
-        m = self._partial_extreme(x.detach(), "max")
-        m = comm.all_reduce_extreme(m, "max", self.group)
+        m = comm.all_reduce_(self._partial_extreme(x.detach(), "max"),
+                             dist.ReduceOp.MAX, self.group)
         m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
         ex = torch.exp(x - m.index_select(0, self.dst))
         den = comm.all_reduce_sum(S.segment_sum(ex, self.dst, N), self.group)

@@ -4,8 +4,8 @@
 port's C++ host kernels, ``metapath_randomwalk`` on numpy's generator; each
 returns a dense ``[num_starts, walk_len]`` int64 array padded with -1 from a
 dead end on (or ragged lists with ``as_list=True``), the reference's walks
-for a seed. ``metapath_randomwalk_dist`` walks through a distributed graph
-client and comes with the distributed layer.
+for a seed. ``metapath_randomwalk_dist`` walks through a
+``distributed.DistGraphClient``, one batched RPC a hop.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ import numpy as np
 from ..native import graph_kernel as native
 
 __all__ = ["random_walk", "node2vec_walk", "node2vec_walk_plus",
-           "walks_to_lists", "metapath_randomwalk"]
+           "walks_to_lists", "metapath_randomwalk",
+           "metapath_randomwalk_dist"]
 
 
 def _csr(graph):
@@ -113,4 +114,35 @@ def metapath_randomwalk(graph, start_nodes, metapath, walk_length: int,
             offs = rng.integers(0, deg[has])
             cur[sel] = sorted_v[lo[has] + offs]
             walks[sel, step] = cur[sel]
+    return walks
+
+
+def metapath_randomwalk_dist(client, start_nodes, metapath,
+                             walk_length: int, seed: int = 0):
+    """Metapath walk against a :class:`~pgl_tpu_torch.distributed.
+    DistGraphClient` — one batched ``sample_successor(..., packed=True)``
+    RPC per hop (reference walk-over-graph-engine pattern,
+    ``examples/metapath2vec/utils/walk.py:32-90``); hop ``step`` seeds its
+    request with ``seed + step``. ``[num_starts, walk_length]`` int64,
+    -1 from a dead end on."""
+    etypes = metapath.split("-")
+    starts = np.asarray(start_nodes, dtype=np.int64)
+    W = len(starts)
+    walks = np.full((W, walk_length), -1, dtype=np.int64)
+    walks[:, 0] = starts
+    cur = starts.copy()
+    alive = np.ones(W, dtype=bool)
+    for step in range(1, walk_length):
+        etype = etypes[(step - 1) % len(etypes)]
+        live_idx = np.nonzero(alive)[0]
+        if live_idx.size == 0:
+            break
+        vals, counts = client.sample_successor(
+            cur[live_idx], max_degree=1, edge_type=etype,
+            seed=seed + step, packed=True)
+        got = counts > 0          # max_degree=1: one value per hit node
+        alive[live_idx[~got]] = False
+        hit = live_idx[got]
+        cur[hit] = vals
+        walks[hit, step] = vals
     return walks

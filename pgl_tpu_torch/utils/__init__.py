@@ -1,3 +1,4 @@
+from . import config
 from . import edge_index
 from . import transform
 from . import data
@@ -7,5 +8,5 @@ from . import stream_pool
 from .edge_index import EdgeIndex
 from .logger import log
 
-__all__ = ["edge_index", "transform", "data", "mp_reader",
+__all__ = ["config", "edge_index", "transform", "data", "mp_reader",
            "shared_embedding", "stream_pool", "EdgeIndex", "log"]

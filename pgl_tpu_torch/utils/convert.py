@@ -17,6 +17,11 @@ with bias on the hidden state) becomes the ``nn.LSTMCell`` at ``<path>``:
 ``weight_ih`` and ``weight_hh`` stack the transposed kernels in torch's
 gate order (i, f, g, o), ``bias_hh`` the hidden biases, and ``bias_ih`` is
 0 (``nn/aggregation.py``'s cells keep it there).
+
+The two apps that keep plain parameter dicts, not flax modules, take theirs
+by name: :func:`load_graph4rec_params` (``Graph4RecTrainer.params``) and
+:func:`load_kge_params` (``KGEModel.params``) copy the reference's arrays
+into the port's tensors in place, names and shapes held equal.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 
 from .. import resolve_device
 
-__all__ = ["flax_to_state_dict"]
+__all__ = ["flax_to_state_dict", "load_graph4rec_params",
+           "load_kge_params"]
 
 
 _GATES = "ifgo"
@@ -78,3 +84,34 @@ def flax_to_state_dict(params: Mapping,
         path = f"{head}.{leaf}" if head else leaf
         out[path] = torch.tensor(array, device=device)
     return out
+
+
+def _load_dict(mine: Dict[str, torch.Tensor], params: Mapping, what: str):
+    """Copy ``params`` (numpy arrays by name) into the tensors of ``mine``
+    in place (an optimizer built on them keeps them); the names and
+    shapes must be the same."""
+    if set(mine) != set(params):
+        raise ValueError(f"{what}: parameters {sorted(params)} do not match "
+                         f"the port's {sorted(mine)}")
+    with torch.no_grad():
+        for name, tensor in mine.items():
+            array = np.asarray(params[name])
+            if tuple(array.shape) != tuple(tensor.shape):
+                raise ValueError(f"{what}: {name} has shape {array.shape}, "
+                                 f"the port's {tuple(tensor.shape)}")
+            tensor.copy_(torch.as_tensor(np.array(array),
+                                         dtype=tensor.dtype))
+
+
+def load_graph4rec_params(trainer, params: Mapping):
+    """A reference ``Graph4RecTrainer.params`` dict (numpy arrays: ``emb``,
+    ``ctx``, the encoder's weights, gatne's ``edge_emb`` [N, R, de],
+    ``w_att``, ``v_att`` and ``w_out``, ``w_feat``) into the port
+    trainer's ``params``."""
+    _load_dict(trainer.params, params, "Graph4RecTrainer")
+
+
+def load_kge_params(model, params: Mapping):
+    """A reference ``KGEModel.params`` dict (``ent``, ``rel``) into the
+    port model's ``params``."""
+    _load_dict(model.params, params, "KGEModel")

@@ -864,3 +864,86 @@ def test_no_jax_in_parallel():
                 top = name.split(".")[0]
                 assert top not in ("jax", "flax", "optax", "pgl_tpu"), \
                     f"{path.name} imports {name}"
+
+
+# -- a max/min tie across the ranks (ShardedGraph, round_robin) ----------------
+
+TIE_CASES = {
+    # two edges 0 -> 1, one a rank: x[0] ties with itself across the ranks
+    "pair": (np.array([[0, 1], [0, 1]]), np.array([[2.0], [0.5]],
+                                                   np.float32)),
+    # three sources of one value into node 3: two edges on rank 0, one on 1
+    "uneven": (np.array([[0, 3], [1, 3], [2, 3]]),
+               np.array([[2.0], [2.0], [2.0], [0.5]], np.float32)),
+}
+
+
+KG_SHAPE = (37, 5, 8)            # entities (not a multiple of 2), rels, D
+KG_BATCH = [np.random.default_rng(40 + r) for r in range(2)]
+KG = {k: np.stack([g.integers(0, n, shape) for g in KG_BATCH])
+      for k, n, shape in (("H", 37, 6), ("R", 5, 6), ("T", 37, 6),
+                          ("NEG", 37, (6, 4)))}
+
+
+@pytest.fixture(scope="module")
+def two_ranks():
+    """The ``two`` suite on 2 gloo ranks."""
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = {"KG_SHAPE": np.array(KG_SHAPE)}
+        inputs.update({f"KG_{k}": v for k, v in KG.items()})
+        for case, (edges, x) in TIE_CASES.items():
+            inputs.update({f"TIE_{case}_EDGES": edges, f"TIE_{case}_X": x,
+                           f"TIE_{case}_N": x.shape[0]})
+        np.savez(os.path.join(tmp, "inputs.npz"), **inputs)
+        yield ranks.finish(ranks.start("two", 2, tmp), tmp)
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("case", sorted(TIE_CASES))
+def test_sharded_extreme_tie_gradient(two_ranks, case, op):
+    """A tie split over the ranks shares the cotangent evenly over the tied
+    edges, as ``Graph.send_u_recv`` (and the reference's ``segment_max``)
+    does on one graph: ``[1, 0]`` on the pair, a third each on the uneven
+    tie (two tied edges on rank 0, one on rank 1). The reference's
+    ``ShardedGraph`` cannot differentiate ``pmax`` at all."""
+    edges, x = TIE_CASES[case]
+    if case == "uneven":
+        assert [int(two_ranks[f"tie_uneven_edges_{r}"]) for r in (0, 1)] \
+            == [2, 1]
+    g = pgl_torch.Graph(edges, num_nodes=x.shape[0]).tensor("cpu")
+    xg = torch.as_tensor(x).requires_grad_(True)
+    out = g.send_recv(xg, op)
+    out.sum().backward()
+    want = {"pair": [[1.0], [0.0]],
+            "uneven": [[1 / 3], [1 / 3], [1 / 3], [0.0]]}[case]
+    np.testing.assert_allclose(xg.grad.numpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(two_ranks[f"tie_{case}_{op}"],
+                                  out.detach().numpy())
+    np.testing.assert_allclose(two_ranks[f"tie_{case}_{op}_grad"], want,
+                               rtol=1e-6)
+
+
+def test_sharded_kg_params_two_ranks(two_ranks):
+    """A TransE loss over ``sharded_kg_params`` on 2 ranks (the entity
+    rows split, the relation table replicated; each rank its own batch)
+    against the port's dense model on each rank's batch: the losses, the
+    entity gradient (each rank's block, the pad row 0) and the summed
+    relation gradient, and ``predict_all_tails`` over the gathered
+    table."""
+    from pgl_tpu_torch.models.kg import KGEModel
+    model = KGEModel(*KG_SHAPE, score="transe", seed=3, device="cpu")
+    for r in range(2):
+        h, rel, t, neg = (torch.as_tensor(KG[k][r])
+                          for k in ("H", "R", "T", "NEG"))
+        loss = model.loss_fn(model.params, h, rel, t, neg)
+        loss.backward()
+        close(two_ranks[f"kg_loss_{r}"], loss.detach().numpy())
+        with torch.no_grad():
+            close(two_ranks[f"kg_pred_{r}"],
+                  model.predict_all_tails(model.params, h, rel).numpy())
+    ent = np.concatenate([two_ranks["kg_ent_grad_0"],
+                          two_ranks["kg_ent_grad_1"]])
+    assert ent.shape == (38, 8) and not ent[37].any()
+    close(ent[:37], model.params["ent"].grad.numpy(), GRAD_RTOL)
+    close(two_ranks["kg_rel_grad"], model.params["rel"].grad.numpy(),
+          GRAD_RTOL)

@@ -833,12 +833,11 @@ def test_bipartite_sage_layer_count_mismatch_raises():
 
 
 def test_namespaces_of_sampling():
-    """``sampling`` binds every name of the reference's but
-    ``metapath_randomwalk_dist`` (the distributed layer's), plus
+    """``sampling`` binds every name of the reference's, plus
     ``walks_to_lists``, ``padded_batch_graph`` and ``max_batch_words``;
     ``utils.data`` binds the reference's."""
     import pgl_tpu.utils.data
-    ref = set(jsampling.__all__) - {"metapath_randomwalk_dist"}
+    ref = set(jsampling.__all__)
     assert ref <= set(sampling.__all__)
     assert set(sampling.__all__) - ref == {"walks_to_lists",
                                            "padded_batch_graph",

@@ -290,10 +290,17 @@ def test_stream_pool_history_rows_never_torn():
                                   vals)
     np.testing.assert_array_equal(h.pull(idx).numpy(), vals)
     row = np.arange(1)
+    # row 0 still holds vals[0], whose values differ: make it whole first,
+    # so a pull that overtakes the loop's first push reads a whole row
+    h.async_push(row, torch.full((1, 8), -1.0), pool)
+    pool.synchronize()
     for k in range(50):
-        h.async_push(row, torch.full((1, 8), float(k)), pool)
+        pushed = h.async_push(row, torch.full((1, 8), float(k)), pool)
         got = h.async_pull(row, pool).result().numpy()[0]
         assert (got == got[0]).all(), got
+        # the pool orders no two pushes (two workers): the next push waits
+        # for this one, so the last to land is the last pushed
+        pushed.result()
     pool.synchronize()
     assert (h.emb[0] == 49.0).all()
     pool.close()

@@ -7,7 +7,7 @@ joins a gloo group of SIZE ranks on ``tcp://127.0.0.1:PORT`` (one torch
 thread, every collective bounded by a 120 s timeout), reads its inputs
 from ``DIR/inputs.npz`` (made from a seed with numpy by the test, flax
 parameters carried as state dicts under ``sd/<layer>/<name>``), runs every
-case of SUITE ("halo" or "heter") on ``device="cpu"`` ("gpu": a halo GCN and GAT on ``cuda:0``, every rank
+case of SUITE ("halo", "heter" or "two") on ``device="cpu"`` ("gpu": a halo GCN and GAT on ``cuda:0``, every rank
 on the one card) and writes ``DIR/rank<RANK>.npz``: the unsharded results
 (the same on every rank) and this rank's own shards. Imports torch and the
 port only. :func:`start` and :func:`finish` launch and collect the ranks
@@ -457,6 +457,37 @@ def gpu_suite(inp, rank, size, res):
                 res[f"{name}_one_grad/{k}"] = p.grad.cpu().numpy()
 
 
+def two_suite(inp, rank, size, res):
+    """On 2 ranks: ``ShardedGraph`` max and min under ``round_robin``,
+    whose edges into one destination tie across the ranks (each case's
+    feature gradient of Σ out / size, summed over the ranks), and a KGE
+    loss over ``sharded_kg_params`` (each rank its own batch)."""
+    for case in ("pair", "uneven"):
+        g = Graph(inp[f"TIE_{case}_EDGES"], num_nodes=int(
+            inp[f"TIE_{case}_N"]))
+        sg = ShardedGraph.from_graph(g, strategy="round_robin", device=CPU)
+        res[f"tie_{case}_edges_{rank}"] = np.array(sg.k)
+        for op in ("max", "min"):
+            xg = torch.as_tensor(inp[f"TIE_{case}_X"]).requires_grad_(True)
+            out = sg.send_u_recv(xg, op)
+            (out.sum() / size).backward()
+            res[f"tie_{case}_{op}"] = out.detach().numpy()
+            res[f"tie_{case}_{op}_grad"] = comm.all_reduce_(
+                xg.grad.clone()).numpy()
+    from pgl_tpu_torch.models.kg import KGEModel, sharded_kg_params
+    model = KGEModel(*inp["KG_SHAPE"], score="transe", seed=3, device=CPU)
+    params = sharded_kg_params(model, device=CPU)
+    h, r, t, neg = (torch.as_tensor(inp[f"KG_{k}"][rank])
+                    for k in ("H", "R", "T", "NEG"))
+    loss = model.loss_fn(params, h, r, t, neg)
+    loss.backward()
+    res[f"kg_loss_{rank}"] = loss.detach().numpy()
+    res[f"kg_ent_grad_{rank}"] = params["ent"].table.grad.numpy()
+    res["kg_rel_grad"] = comm.all_reduce_(params["rel"].grad.clone()).numpy()
+    with torch.no_grad():
+        res[f"kg_pred_{rank}"] = model.predict_all_tails(params, h, r)
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -507,7 +538,7 @@ def main():
               timeout=datetime.timedelta(seconds=120))
     inp = np.load(os.path.join(out_dir, "inputs.npz"))
     res = {}
-    {"halo": halo_suite, "heter": heter_suite,
+    {"halo": halo_suite, "heter": heter_suite, "two": two_suite,
      "gpu": gpu_suite}[suite](inp, rank, size, res)
     out = {k: np.asarray(v.detach().cpu().numpy() if torch.is_tensor(v)
                          else v) for k, v in res.items()}
