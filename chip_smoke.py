@@ -353,6 +353,35 @@ there is no card or any phase fails. Phases:
    held-out triples on the card equal to the CPU's but where a near tie
    lets the two orders differ. Every child process is killed at the end
    of its part, every wait bounded.
+17. the utilities and the PGLBox model (``utils/amp.py``,
+   ``checkpoint.py``, ``export.py``, ``profiler.py``, ``platform.py``,
+   ``apps/pglbox_model.py``): (a) the bf16 K1 (``pgl_spmm_bf16``: f32
+   sums, each row rounded once) over every kind of work item at D in (1,
+   3, 8, 16, 64, 128, 130, 256, 512) on 16-byte and unaligned tables, and
+   on the headline at CSC and CSR D = 128 and 16, within ``|kernel - f64|
+   <= 2^-8 |f64| + 1e-4 ||terms||_2`` (``check_spmm_bf16``) with the same
+   bits twice, timed beside the float32 K1, the plain version and
+   ``torch.sparse.mm`` on a bf16 CSR tensor (or the error it raises); (b)
+   the headline GCN under ``utils.amp`` (bf16 features and
+   ``bf16_params_policy``; float32 masters and Adam state): its first
+   loss within 2e-2 relative of the float32 step's, then 3 warm-up and 20
+   timed steps asserting five bf16 K1 launches a step and no float32 one;
+   (c) the float32 GCN and its Adam state saved by ``CheckpointManager``
+   (two kept) at steps 8-10, restored into a fresh model and optimizer and
+   trained on to step 20, the losses equal to the uninterrupted run's bit
+   for bit; (d) its inference exported (``export_model``: K1 as the
+   custom op ``pgl_tpu_torch::spmm``) and served by ``Predictor`` in a
+   fresh process (this script with ``--serve``, its device from
+   ``PGL_TPU_PLATFORM`` through ``select_platform``), the logits equal to
+   the eager model's bit for bit and three K1 launches counted there; (e)
+   two amp steps under ``utils.profiler.trace`` with ``StageTimer``
+   stages, the Chrome trace naming K1's three kernels; (f)
+   ``PGLBoxGNNModel`` at ``emb_size`` 64 on phase 16's graph (2,000,000
+   ``u2click2i`` edges and their reverse), 2 layers sampled (25, 10) on
+   the card, two slot tables, batches of 1,024 edges, ``neg_num`` 5, each
+   of the six layer types with each interaction mode 3 warm-up and 20
+   timed Adam steps: the first step's loss and gradients against a
+   float64 twin on the card (``check``), the first batch's loss falling.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -433,12 +462,17 @@ def apply_report(log):
 # argument is CELLS, 0 per edge (K9, K10) and 1 per count-matrix cell (K7,
 # K8 in dot mode)
 _STAGED = r"ILi(\d+)ELb(\d)ELb(\d)ELb{}E"
-# K1's items kernels are K1w's with no weight op (WOP = DWOP = 0)
-_ITEMS = r"ILi(\d+)ELi(\d+)ELi(\d+)ELi{}ELi{}E"
+# K1's items kernels are K1w's with no weight op (WOP = DWOP = 0), on float
+# tables ("f", optional: a build from before the element type) or on bf16
+_ITEMS = r"I(?:f)?Li(\d+)ELi(\d+)ELi(\d+)ELi{}ELi{}E"
+_ITEMS_BF16 = r"I13__nv_bfloat16Li(\d+)ELi(\d+)ELi(\d+)ELi0ELi0E"
 REGISTER_REPORT = (
     ("K1 spmm_rows", "spmm_rows" + _ITEMS.format(0, 0), ("VEC", "L", "NV")),
     ("K1 spmm_packs", "spmm_packs" + _ITEMS.format(0, 0),
      ("VEC", "L", "NV")),
+    ("K1 bf16 spmm_rows", "spmm_rows" + _ITEMS_BF16, ("VEC", "L", "NV")),
+    ("K1 bf16 spmm_packs", "spmm_packs" + _ITEMS_BF16, ("VEC", "L", "NV")),
+    ("K1 spmm_combine", r"spmm_combineI(f|13__nv_bfloat16)E", ("T",)),
     ("K1w spmm_rows", "spmm_rows" + _ITEMS.format(r"([12])", r"(\d)"),
      ("VEC", "L", "NV", "WOP", "DWOP")),
     ("K1w spmm_rows", "spmm_rows" + _ITEMS.format("(0)", r"([12])"),
@@ -539,9 +573,9 @@ def check(name, got, want, scale=None, floor=1.0):
     return max_err
 
 
-def bound_share(got, want, scale=None):
+def bound_share(got, want, scale=None, floor=1.0):
     """The largest |got - want| as a share of ``check``'s bound."""
-    err, bound = past_bound(got, want, scale)
+    err, bound = past_bound(got, want, scale, floor)
     share = err / bound
     return float(share.max()) if share.numel() else 0.0
 
@@ -592,6 +626,31 @@ def check_spmm(name, got, x, layout):
     x = x.detach().double()
     return check(name, got, sk.spmm_reference(x, layout),
                  sk.spmm_reference(x * x, layout).sqrt())
+
+
+def check_spmm_bf16(name, got, x, layout):
+    """The bf16 K1's rule: ``|got - f64| <= 2^-8 |f64| + 1e-4 ||terms||_2``
+    elementwise against the float64 sum of the same bf16 terms (a float32
+    sum rounded once to bf16 is off by at most half an ulp, 2^-8 of the
+    value, plus the float32 sum's own error). Returns (max |err|, the
+    largest share of the bound)."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    if got.dtype != torch.bfloat16 or got.shape != (layout.num_rows,
+                                                    x.shape[1]):
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
+    x = x.detach().double()
+    want = sk.spmm_reference(x, layout)
+    bound = 2.0 ** -8 * want.abs() + 1e-4 * sk.spmm_reference(
+        x * x, layout).sqrt()
+    err = (got.double() - want).abs()
+    bad = ~(err <= bound)
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements off, max "
+                             f"|err| {float(err.max()):.3e}")
+    share = err / bound.clamp(min=1e-300)
+    return (float(err.max()) if err.numel() else 0.0,
+            float(share.max()) if share.numel() else 0.0)
 
 
 def phase_kernels(g_head, dev):
@@ -715,11 +774,14 @@ def phase_model_small(dev):
 
 
 def phase_dtype_route(dev):
-    """The dtype rule of ``Graph`` (``dispatch.plain_on_cuda``): an int64
-    feature on a CUDA graph takes the segment path, launches no kernel and
-    gives the CPU graph's sums exactly; the same feature in float32 still
-    launches K1 (sum, then mean); in bf16 it reaches the wrapper, which
-    raises (no kernel has a bf16 instantiation yet)."""
+    """The dtype rule of ``Graph`` (``dispatch.plain_on_cuda``, the
+    reference's gate): an int64 or fp16 feature on a CUDA graph takes the
+    segment path, launches no kernel and gives the CPU graph's sums
+    exactly (fp16 on the rows of at most 2048 in-edges, whose sums it
+    adds exactly); the same feature in float32 launches K1 (sum, then
+    mean), in bf16 the bf16 K1 (the CPU's sums exactly: integers); a bf16
+    ``send_ue_recv`` reaches K1w, which has no bf16 instantiation, and
+    raises without a launch."""
     import torch
     from pgl_tpu_torch import Graph
 
@@ -742,19 +804,41 @@ def phase_dtype_route(dev):
     if k1 != 2:
         raise AssertionError(f"a float32 send_u_recv launched K1 {k1} "
                              "times, expected 2")
+    for dtype, launched in ((torch.float16, {}),
+                            (torch.bfloat16, {("bf16", "csc", 2): 1})):
+        reset_all_launches()
+        got = g.send_u_recv(ones.to(dev, dtype), "sum")
+        torch.cuda.synchronize()
+        if {k: v for k, v in all_launches().items() if v} != launched:
+            raise AssertionError(f"a {dtype} send_u_recv launched "
+                                 f"{all_launches()}, expected {launched}")
+        # the segment path adds in fp16, exact while a sum stays within
+        # 2048; the bf16 K1 adds in float32 and rounds once
+        rows = (torch.as_tensor(host.indegree()) <= 2048
+                if dtype == torch.float16 else slice(None))
+        if got.dtype != dtype or not torch.equal(
+                got.cpu()[rows], want.to(dtype)[rows]):
+            raise AssertionError(f"a {dtype} send_u_recv on the card "
+                                 "differs from the CPU's sums")
     reset_all_launches()
     try:
-        g.send_u_recv(ones.to(dev, torch.bfloat16), "sum")
+        g.send_ue_recv(ones.to(dev, torch.bfloat16),
+                       torch.ones(g.num_edges, device=dev,
+                                  dtype=torch.bfloat16), "mul", "sum")
     except TypeError:
         pass
     else:
-        raise AssertionError("a bf16 send_u_recv on the card did not raise")
+        raise AssertionError("a bf16 send_ue_recv on the card did not "
+                             "raise")
     if any(all_launches().values()):
-        raise AssertionError("a bf16 send_u_recv launched a kernel")
+        raise AssertionError("a bf16 send_ue_recv launched a kernel")
     print(f"[graph] int64 send_u_recv on the card: the CPU's sums exactly "
           f"(N={g.num_nodes}, E={g.num_edges}, largest sum "
           f"{int(want.max())}), no kernel launched; float32 launched K1 "
-          f"twice (sum, mean); bf16 raised", flush=True)
+          f"twice (sum, mean); fp16 took the segment path (the CPU's sums "
+          f"on rows of up to 2048 in-edges), bf16 the bf16 K1 (the CPU's "
+          f"sums); a bf16 send_ue_recv raised",
+          flush=True)
 
 
 def headline_host():
@@ -771,12 +855,18 @@ def headline_graph(dedup=False, host=None, **settings):
         return (host if host is not None else headline_host()).tensor()
 
 
-def headline_trainer(g):
+def headline_trainer(g, bf16=False):
     """The bench headline GCN on ``g``'s device (weights and labels from
-    seed 0) and a function that takes one Adam step and returns its loss."""
+    seed 0) and a function that takes one Adam step and returns its loss
+    (its ``optimizer`` attribute the Adam). With ``bf16`` the step is
+    ``utils.amp``'s recipe: the model evaluated at bf16 copies of its
+    float32 parameters (``bf16_params_policy`` over ``functional_call``) on
+    the bf16 features, the loss in float32, the gradients, masters and Adam
+    state float32."""
     import torch
     from pgl_tpu_torch.models import GCN
     from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
+    from pgl_tpu_torch.utils import amp
 
     x = g.node_feat["h"]
     y = torch.as_tensor(np.random.default_rng(0).integers(
@@ -793,6 +883,20 @@ def headline_trainer(g):
         opt.step()
         return loss.detach()
 
+    if bf16:
+        masters = dict(model.named_parameters())
+        xb = x.to(torch.bfloat16)
+        policy = amp.bf16_params_policy(lambda p: ce(
+            torch.func.functional_call(model, p, (g, xb)).float(),
+            y).mean())
+
+        def step():   # noqa: F811
+            opt.zero_grad(set_to_none=True)
+            loss, _ = policy(masters)
+            opt.step()
+            return loss
+
+    step.optimizer = opt
     return model, step
 
 
@@ -811,12 +915,15 @@ def reset_all_launches():
 
 
 def all_launches():
-    """Launch counts of every kernel module: K1's keyed ``(kind, D)``, the
-    dedup kernels' ``(kernel, kind, D)``, the two attention modules'
-    ``(kernel, H, dvh)`` (dot mode ``(kernel, H, dsh, dvh)``), K11's
-    ``("sddmm", op, D)``."""
-    return {k: v for module in _kernel_modules()
-            for k, v in module.LAUNCHES_BY_SHAPE.items()}
+    """Launch counts of every kernel module: K1's keyed ``(kind, D)`` and
+    its bf16 instantiation's ``("bf16", kind, D)``, the dedup kernels'
+    ``(kernel, kind, D)``, the two attention modules' ``(kernel, H, dvh)``
+    (dot mode ``(kernel, H, dsh, dvh)``), K11's ``("sddmm", op, D)``."""
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    got = {k: v for module in _kernel_modules()
+           for k, v in module.LAUNCHES_BY_SHAPE.items()}
+    got.update({("bf16",) + k: v for k, v in sk.LAUNCHES_BF16.items()})
+    return got
 
 
 def launches_on(layouts):
@@ -7057,13 +7164,18 @@ def write_pairs(path, src, dst):
         f.write("\n")
 
 
-def g4r_files(tmp, seed=0):
-    """The u2i bipartite graph's files under ``tmp`` (users ``[0, U)``,
-    items ``[U, U + I)``, seeded uniform edges): (the service's dict
-    config, src, dst)."""
+def g4r_edges(seed=0):
+    """The u2i bipartite graph's edges (users ``[0, U)``, items ``[U, U +
+    I)``, seeded uniform): (src, dst)."""
     rng = np.random.default_rng(seed)
     src = rng.integers(0, G4R_USERS, G4R_EDGES)
-    dst = G4R_USERS + rng.integers(0, G4R_ITEMS, G4R_EDGES)
+    return src, G4R_USERS + rng.integers(0, G4R_ITEMS, G4R_EDGES)
+
+
+def g4r_files(tmp, seed=0):
+    """The u2i bipartite graph's files under ``tmp`` (:func:`g4r_edges`):
+    (the service's dict config, src, dst)."""
+    src, dst = g4r_edges(seed)
     write_pairs(f"{tmp}/u2i.txt", src, dst)
     with open(f"{tmp}/nodes.txt", "w") as f:
         f.write("".join(f"u\t{i}\n" for i in range(G4R_USERS)))
@@ -7772,10 +7884,606 @@ def phase_graph4rec(dev, smi):
     return {"graph4rec": out}
 
 
+# -- phase 17: the utilities and the PGLBox model ---------------------------
+
+# bf16 K1 launches a step of the headline GCN under amp: PER_STEP's shapes
+BF16_PER_STEP = {("bf16",) + k: v for k, v in PER_STEP.items()}
+AMP_LOSS_RTOL = 2e-2       # first amp step's loss against the float32 one
+CKPT_STEP, CKPT_KEEP = 10, 2
+SERVE_TIMEOUT = 300        # seconds the export's serving process may take
+# the PGLBox model at full width: PGLBoxTrainer's emb_size
+# (pgl_tpu/apps/pglbox.py:263), Adam at the reference model test's 2e-2
+# (tests/test_pglbox_model.py:151; at PGLBoxTrainer's 0.05 GIN diverged:
+# its unnormalised sums over 25 neighbours), samples (25, 10), batches of
+# 1,024 edges, neg_num 5, two slot tables
+PGLBOX_EMB, PGLBOX_LR = 64, 2e-2
+PGLBOX_SAMPLES, PGLBOX_BATCH, PGLBOX_NEG = (25, 10), 1024, 5
+PGLBOX_SLOTS = {"slot_a": 1000, "slot_b": 100}
+PGLBOX_ETYPES = ("u2click2i", "i2click2u")
+
+
+def bf16_case_check(dev, gen):
+    """The bf16 K1 over every kind of work item (the K1 case graph, both
+    layouts) at D in (1, 3, 8, 16, 64, 128, 130, 256, 512) on 16-byte and
+    unaligned tables: ``check_spmm_bf16`` and the same bits twice. Returns
+    (max |err|, largest share of the bound)."""
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+
+    edges, n = k1_case_edges()
+    case = Graph(edges, num_nodes=n).tensor(dev)
+    err = share = 0.0
+    for d in (1, 3, 8, 16, 64, 128, 130, 256, 512):
+        for aligned in (True, False):
+            flat = torch.randn(n * d + 1, device=dev, generator=gen).to(
+                torch.bfloat16)
+            x = flat[:n * d].view(n, d) if aligned else flat[1:].view(n, d)
+            for lay in case._spmm_layouts:
+                out = sk._spmm_cuda(x, lay)
+                if not torch.equal(out.view(torch.int16),
+                                   sk._spmm_cuda(x, lay).view(torch.int16)):
+                    raise AssertionError(f"bf16 K1 case {lay.kind} D={d}: "
+                                         "two runs differ")
+                e, sh = check_spmm_bf16(f"bf16 case {lay.kind} D={d} "
+                                        f"aligned={aligned}", out, x, lay)
+                err, share = max(err, e), max(share, sh)
+    return err, share
+
+
+def bf16_rows(g, dev, launches):
+    """The bf16 K1 at the amp step's four shapes on the headline: held to
+    float64 (``check_spmm_bf16``), the same bits twice, and timed (CUDA
+    events) beside the float32 K1, its plain version and
+    ``torch.sparse.mm`` on a bf16 CSR tensor (or the error it raises);
+    ``launches[("bf16", kind, D)]`` is the amp run's. The byte bound:
+    each distinct gathered bf16 row once, the indices and row pointer,
+    each bf16 output row once."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for lay in g._spmm_layouts:
+        A = torch.sparse_csr_tensor(
+            lay.indptr, lay.indices,
+            torch.ones(lay.num_edges, device=dev, dtype=torch.bfloat16),
+            size=(lay.num_rows, g.num_nodes))
+        for d in (128, 16):
+            x = torch.randn(g.num_nodes, d, device=dev, generator=gen).to(
+                torch.bfloat16)
+            out = torch.empty(lay.num_rows, d, device=dev,
+                              dtype=torch.bfloat16)
+            part = torch.empty(lay.item_partials, d, device=dev)
+            ms = time_ms(lambda: sk._launch(x, lay, out, part), 100)
+            again = sk._spmm_cuda(x, lay)
+            if not torch.equal(out.view(torch.int16),
+                               again.view(torch.int16)):
+                raise AssertionError(f"bf16 K1 {lay.kind} D={d}: two runs "
+                                     "differ")
+            err, share = check_spmm_bf16(f"bf16 {lay.kind} D={d}", out, x,
+                                         lay)
+            plain = sk.spmm_reference(x, lay)
+            plain_ulps = int((out.float() != plain.float()).sum())
+            xf = x.float()
+            out32 = torch.empty(lay.num_rows, d, device=dev)
+            f32_ms = time_ms(lambda: sk._launch(xf, lay, out32, part), 100)
+            plain_ms = time_ms(lambda: sk.spmm_reference(x, lay), 20)
+            lib_ms = lib_error = None
+            try:
+                torch.sparse.mm(A, x)
+                lib_ms = time_ms(lambda: torch.sparse.mm(A, x), 50)
+            except (RuntimeError, NotImplementedError, TypeError) as exc:
+                lib_error = f"{type(exc).__name__}: {exc}"[:300]
+            gathered = int(torch.unique(lay.indices).numel())
+            nbytes = (2 * (gathered * d + lay.num_rows * d)
+                      + 4 * (lay.num_edges + lay.num_rows + 1))
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = lay.num_edges * d / F32_OPS_PER_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            key = ("bf16", lay.kind, d)
+            rows.append({
+                "name": f"spmm_bf16_{lay.kind}_d{d}", "route": "cuda",
+                "source": SOURCE, "replaces": REPLACES,
+                "launches": launches.get(key, 0), "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib_ms, "library_error": lib_error,
+                "f32_ms": f32_ms, "share": bound_ms / ms,
+                "bound_share_of_err": share,
+                "shape": {"kernel": "spmm_bf16", "layout": lay.kind,
+                          "rows": lay.num_rows, "gathered_rows": gathered,
+                          "edges": lay.num_edges, "D": d}})
+            print(f"[bf16 K1] {lay.kind} D={d}: kernel {ms:.5f} ms (float32 "
+                  f"K1 {f32_ms:.5f}), plain {plain_ms:.5f}, torch.sparse.mm "
+                  + (f"{lib_ms:.5f}" if lib_ms is not None else
+                     f"none ({lib_error})")
+                  + f", bound {bound_ms:.5f} ({bound_ms / ms:.3f} of it); "
+                  f"max |err| vs float64 {err:.3e} ({share:.3f} of the "
+                  f"bound), {plain_ulps} elements off the plain version; "
+                  f"launches {launches.get(key, 0)}", flush=True)
+    return rows
+
+
+def phase_amp(g, train_f32):
+    """(b) The headline GCN under amp: the first step's loss within
+    ``AMP_LOSS_RTOL`` of the float32 step's from the same weights, then 3
+    warm-up and 20 timed steps asserting 5 bf16 K1 launches a step and no
+    other (no float32 K1), a finite, falling loss, float32 masters and
+    Adam state."""
+    import torch
+
+    _, step32 = headline_trainer(g)
+    l32 = float(step32())
+    _, step16 = headline_trainer(g, bf16=True)
+    l16 = float(step16())
+    rel = abs(l16 - l32) / abs(l32)
+    if not rel <= AMP_LOSS_RTOL:
+        raise AssertionError(f"amp: first loss {l16} against float32's "
+                             f"{l32} ({rel:.3e} relative)")
+    made = {}
+
+    def trainer(g):
+        made["model"], step = headline_trainer(g, bf16=True)
+        made["opt"] = step.optimizer
+        return made["model"], step
+
+    train, by_shape = phase_train(g, "amp bf16", BF16_PER_STEP, trainer)
+    dtypes = {p.dtype for p in made["model"].parameters()} | {
+        v.dtype for st in made["opt"].state.values() for v in st.values()
+        if v.is_floating_point() and v.numel() > 1}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"amp: masters or Adam state in {dtypes}")
+    print(f"[amp] first step: loss {l16:.6f} under amp, {l32:.6f} in "
+          f"float32 ({rel:.3e} relative); masters and Adam state float32; "
+          f"step {train['step_ms']:.4f} ms against float32's "
+          f"{train_f32['step_ms']:.4f}, peak {train['peak_mib']:.1f} MiB "
+          f"against {train_f32['peak_mib']:.1f}", flush=True)
+    return dict(train, first_loss=l16, first_loss_f32=l32,
+                first_loss_rel=rel), by_shape
+
+
+def phase_checkpoint(g, tmp):
+    """(c) The float32 headline GCN saved with its Adam state through
+    ``CheckpointManager(max_to_keep=CKPT_KEEP)`` at steps 8 to
+    ``CKPT_STEP``, restored into a fresh model and optimizer, and trained
+    on to step 20: the losses equal the uninterrupted run's bit for bit,
+    and only the newest ``CKPT_KEEP`` steps remain. Returns the restored
+    model and the seconds."""
+    import os
+    from pgl_tpu_torch.utils.checkpoint import CheckpointManager
+
+    _, step = headline_trainer(g)
+    want = [float(step()) for _ in range(STEPS)]
+    model, step = headline_trainer(g)
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"), max_to_keep=CKPT_KEEP)
+    got, save_s = [], 0.0
+    for i in range(1, CKPT_STEP + 1):
+        got.append(float(step()))
+        if i >= CKPT_STEP - CKPT_KEEP:
+            t0 = time.perf_counter()
+            mgr.save(i, {"model": model.state_dict(),
+                         "opt": step.optimizer.state_dict(), "step": i})
+            save_s += time.perf_counter() - t0
+    kept = sorted(os.listdir(mgr.directory), key=int)
+    want_kept = [str(i) for i in range(CKPT_STEP - CKPT_KEEP + 1,
+                                       CKPT_STEP + 1)]
+    if mgr.all_steps() != list(map(int, want_kept)) or kept != want_kept:
+        raise AssertionError(f"checkpoint: kept {kept}, expected "
+                             f"{want_kept}")
+    model, step = headline_trainer(g)
+    t0 = time.perf_counter()
+    state = mgr.restore(target={"model": model.state_dict()})
+    model.load_state_dict(state["model"])
+    step.optimizer.load_state_dict(state["opt"])
+    restore_s = time.perf_counter() - t0
+    got += [float(step()) for _ in range(STEPS - CKPT_STEP)]
+    if got != want or state["step"] != CKPT_STEP:
+        raise AssertionError(f"checkpoint: resumed losses {got} differ "
+                             f"from the uninterrupted run's {want}")
+    print(f"[checkpoint] saved steps {CKPT_STEP - CKPT_KEEP}-{CKPT_STEP} "
+          f"(kept {kept}; {save_s / (CKPT_KEEP + 1):.3f} s a save), "
+          f"restored step {CKPT_STEP} in {restore_s:.3f} s: losses of "
+          f"steps 1-{STEPS} equal the uninterrupted run's bit for bit "
+          f"({want[0]:.6f} -> {want[-1]:.6f})", flush=True)
+    return model, {"save_s": save_s / (CKPT_KEEP + 1), "restore_s":
+                   restore_s}
+
+
+def serve(path, inputs, outputs):
+    """The export's serving process (``chip_smoke.py --serve``): its device
+    from ``PGL_TPU_PLATFORM`` (``select_platform``), the program loaded
+    by ``Predictor``, run once on the saved input; writes the logits and
+    prints its own K1 launches a call, load seconds and the ms of its first
+    and second call."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    from pgl_tpu_torch.utils.export import Predictor
+    from pgl_tpu_torch.utils.platform import select_platform
+
+    dev = select_platform()
+    t0 = time.perf_counter()
+    pred = Predictor(path)
+    load_s = time.perf_counter() - t0
+    x = torch.load(inputs).to(dev)
+    times = []
+    for i in range(2):     # the first call loads the kernels' library
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        out = pred.run(x)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {f"{k}:{d}": v for (k, d), v in sk.LAUNCHES_BY_SHAPE.items()}
+    torch.save(out.cpu(), outputs)
+    print(json.dumps({"device": str(dev), "launches": sk.LAUNCHES,
+                      "by_shape": launches, "load_s": load_s,
+                      "first_ms": times[0], "run_ms": times[1]}),
+          flush=True)
+    return 0
+
+
+def phase_export(g, model, tmp):
+    """(d) The headline GCN's float32 inference exported
+    (``export_model``) and served by ``Predictor`` in a fresh process on
+    the card: the served logits equal the eager model's bit for bit, and
+    the process launched K1 three times (two CSC at D = 128, one at 16)."""
+    import os
+    import torch
+    from pgl_tpu_torch.utils.export import export_model
+
+    x = g.node_feat["h"]
+    path = os.path.join(tmp, "gcn.pt2")
+    t0 = time.perf_counter()
+    program = export_model(lambda x: model(g, x), [x], path)
+    export_s = time.perf_counter() - t0
+    ops = sum(1 for n in program.graph.nodes if n.op == "call_function"
+              and "pgl_tpu_torch" in str(n.target))
+    with torch.no_grad():
+        eager = model(g, x).cpu()
+    inputs, outputs = os.path.join(tmp, "x.pt"), os.path.join(tmp, "y.pt")
+    torch.save(x.cpu(), inputs)
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--serve", path, inputs,
+         outputs], env=dict(os.environ, PGL_TPU_PLATFORM="cuda"),
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=SERVE_TIMEOUT)
+    if child.returncode != 0:
+        raise AssertionError(f"serving process exit {child.returncode}: "
+                             f"{child.stderr[-2000:]}")
+    got = json.loads(child.stdout.strip().splitlines()[-1])
+    served = torch.load(outputs)
+    if not torch.equal(served, eager):
+        raise AssertionError(f"export: served logits differ from the eager "
+                             f"model's (max |diff| "
+                             f"{float((served - eager).abs().max()):.3e})")
+    if got["launches"] != 3 or got["by_shape"] != {"csc:128": 2,
+                                                   "csc:16": 1}:
+        raise AssertionError(f"export: the serving process launched "
+                             f"{got['by_shape']}")
+    size = os.path.getsize(path)
+    print(f"[export] {ops} K1 op calls in the program; artifact "
+          f"{size / 2**20:.2f} MiB, exported in {export_s:.2f} s; served on "
+          f"{got['device']} in a fresh process: loaded in "
+          f"{got['load_s']:.2f} s, first call {got['first_ms']:.3f} ms, "
+          f"the second {got['run_ms']:.3f} ms, K1 "
+          f"{got['by_shape']}; logits equal the eager model's bit for bit",
+          flush=True)
+    return {"artifact_mib": size / 2**20, "export_s": export_s,
+            "load_s": got["load_s"], "serve_first_ms": got["first_ms"],
+            "serve_ms": got["run_ms"],
+            "serve_launches": got["launches"]}
+
+
+def phase_profiler(g, tmp):
+    """(e) Two amp steps under ``utils.profiler.trace`` with
+    ``StageTimer`` stages: the Chrome trace names K1's three kernels, and
+    ``report`` gives each stage's totals."""
+    import os
+    from pgl_tpu_torch.utils.profiler import StageTimer, annotate, trace
+
+    _, step = headline_trainer(g, bf16=True)
+    float(step())
+    timer = StageTimer()
+    x = g.node_feat["h"]
+    log_dir = os.path.join(tmp, "trace")
+    with trace(log_dir):
+        for _ in range(2):
+            with timer.stage("amp_step", sync_value=x), annotate("amp_step"):
+                loss = step()
+            with timer.stage("loss_read"):
+                float(loss)
+    totals = timer.report()
+    files = os.listdir(log_dir)
+    text = open(os.path.join(log_dir, files[0])).read()
+    names = {k: text.count(k) for k in ("spmm_rows", "spmm_packs",
+                                        "spmm_combine", "amp_step")}
+    if len(files) != 1 or not all(names.values()):
+        raise AssertionError(f"trace: {files}, names {names}")
+    if set(totals) != {"amp_step", "loss_read"} or timer.counts[
+            "amp_step"] != 2:
+        raise AssertionError(f"StageTimer: {totals} {dict(timer.counts)}")
+    print(f"[profiler] Chrome trace {len(text) / 2**20:.2f} MiB naming "
+          f"{names}; stages {({k: round(v * 1e3, 4) for k, v in totals.items()})}"
+          f" ms in all", flush=True)
+    return {"trace_mib": len(text) / 2**20, "names": names,
+            "stage_ms": {k: v * 1e3 for k, v in totals.items()}}
+
+
+def pglbox_batch(pairs, sampler, b, gen, dev):
+    """A batch of edges ``pairs[b]`` as the model's input: the sampled
+    blocks of its sources then destinations, and ``PGLBOX_NEG``
+    permutations, all drawn from ``gen``."""
+    import torch
+    nodes = torch.as_tensor(np.concatenate([pairs[b, 0], pairs[b, 1]])
+                            .astype(np.int32), device=dev)
+    sampled, fin = sampler.sample(nodes, gen)
+    perms = [torch.randperm(len(b), generator=gen, device=dev)
+             for _ in range(PGLBOX_NEG)]
+    return sampled, fin, perms
+
+
+def pglbox_loss(model, slots, batch):
+    from pgl_tpu_torch.apps.pglbox_model import inbatch_negative_loss
+    sampled, fin, perms = batch
+    emb = model(slots, sampled, fin)
+    B = emb.shape[0] // 2
+    return inbatch_negative_loss(emb[:B], emb[B:], neg_num=PGLBOX_NEG,
+                                 perms=perms)
+
+
+class Branches:
+    """The branches a float32 forward of the PGLBox model takes at its
+    kinks (each ReLU of a relation layer, GAT's leaky score, sage_max's
+    neighbour maxima), recorded, then replayed by its float64 twin: an
+    input within rounding of 0 (or of a tie) may fall on either side in
+    the two precisions, and a different branch moves a gradient by a
+    whole term, which no rounding bound covers. ``flips`` counts the
+    twin's inputs whose own branch differs from the recorded one."""
+
+    def __init__(self):
+        self.masks, self.at, self.flips = [], None, 0
+
+    def _mask(self, x):
+        if self.at is None:
+            self.masks.append(x > 0)
+            return self.masks[-1]
+        m = self.masks[self.at]
+        self.at += 1
+        self.flips += int(((x > 0) != m).sum())
+        return m
+
+    def relu(self, x):
+        return x * self._mask(x)
+
+    def leaky_relu(self, x, negative_slope=0.01):
+        import torch
+        return torch.where(self._mask(x), x, x * negative_slope)
+
+    def neighbour_max(self, h_neigh, m):
+        """``_neighbour_max`` recording which neighbours hold each
+        column's maximum, or taking the mean of the recorded ones (the
+        maximum, its gradient split over ties as ``amax``'s)."""
+        import torch
+        x = torch.where(m > 0, h_neigh, torch.full_like(
+            h_neigh, torch.finfo(h_neigh.dtype).min))
+        top = x.amax(1, keepdim=True)
+        if self.at is None:
+            self.masks.append(x == top)
+            return top.squeeze(1)
+        eq = self.masks[self.at]
+        self.at += 1
+        self.flips += int((eq != (x == top)).any(1).sum())
+        return (x * eq).sum(1) / eq.sum(1)
+
+    @contextlib.contextmanager
+    def on(self, model, replay):
+        """Route ``model``'s kinks through this log (recording, or with
+        ``replay`` replaying from the first) for the block."""
+        import types
+        import torch.nn.functional as F
+        from pgl_tpu_torch.apps import pglbox_model as pm
+        self.at = 0 if replay else None
+        layers = [m for m in model.modules()
+                  if isinstance(m, pm.RelationLayer) and m.act is F.relu]
+        for m in layers:
+            m.act = self.relu
+        functional, neighbour_max = pm.F, pm._neighbour_max
+        pm.F = types.SimpleNamespace(**{**vars(F),
+                                        "leaky_relu": self.leaky_relu})
+        pm._neighbour_max = self.neighbour_max
+        try:
+            yield
+        finally:
+            pm.F, pm._neighbour_max = functional, neighbour_max
+            for m in layers:
+                m.act = F.relu
+
+
+def pglbox_terms(model, slots, batch):
+    """``pglbox_loss``'s per-row terms, each a row's cross entropy over B
+    (their sum is the loss): the twin's gradients are taken block by
+    block of them."""
+    import torch
+    sampled, fin, perms = batch
+    emb = model(slots, sampled, fin)
+    B = emb.shape[0] // 2
+    src, dst = emb[:B], emb[B:]
+    cands = torch.stack([dst] + [dst[p] for p in perms], dim=1)
+    logits = torch.einsum("bd,bkd->bk", src, cands)
+    return -torch.log_softmax(logits, -1)[:, 0] / B
+
+
+def phase_pglbox_model(dev):
+    """(f) ``PGLBoxGNNModel`` at full width on phase 16's graph (100,000
+    users, 50,000 items, 2,000,000 ``u2click2i`` edges and their reverse):
+    ``emb_size`` 64, 2 layers, ``HeteroNeighborSampler`` samples (25, 10)
+    on the card, two slot tables, batches of 1,024 edges, ``neg_num`` 5;
+    each layer type with each interaction mode trains 3 warm-up and 20
+    timed steps under Adam. The first step's loss and every gradient are
+    held to a float64 twin on the card (``check``; each gradient with
+    ``small_floor`` and the 2-norm over ``TERM_BLOCKS`` blocks of the
+    batch's rows of the blocks' float64 gradients, as phase 16; an
+    analytically zero one at the model's floor; the twin takes the
+    float32 forward's branch at each kink, ``Branches``), and the first batch's loss at its draws must fall
+    over the run (a held-out batch's is printed beside it: the edges are
+    uniform, so there is little to generalise in 20 steps)."""
+    import copy
+    import torch
+    from pgl_tpu_torch import HeterGraph
+    from pgl_tpu_torch.apps.pglbox_model import LAYER_TYPES, PGLBoxGNNModel
+    from pgl_tpu_torch.sampling import HeteroNeighborSampler
+
+    src, dst = g4r_edges()
+    n = G4R_USERS + G4R_ITEMS
+    pairs = np.stack([src, dst], 1)
+    t0 = time.perf_counter()
+    hg = HeterGraph({PGLBOX_ETYPES[0]: pairs, PGLBOX_ETYPES[1]:
+                     pairs[:, ::-1]}, num_nodes=n)
+    sampler = HeteroNeighborSampler(hg, PGLBOX_SAMPLES, device=dev)
+    rng = np.random.default_rng(0)
+    slots = {k: torch.as_tensor(rng.integers(0, v, n), device=dev)
+             for k, v in PGLBOX_SLOTS.items()}
+    batches = [rng.integers(0, len(pairs), PGLBOX_BATCH)
+               for _ in range(WARMUP + STEPS + 1)]
+    print(f"[pglbox model] graph of {n} nodes, {2 * len(pairs)} edges and "
+          f"its device sampler built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    held = pglbox_batch(pairs, sampler, batches[-1],
+                        torch.Generator(device=dev).manual_seed(2), dev)
+    runs = {}
+    for layer_type in LAYER_TYPES:
+        for interact in ("sum", "gatne"):
+            tag = f"{layer_type}/{interact}"
+            model = PGLBoxGNNModel(
+                n, PGLBOX_EMB, PGLBOX_ETYPES, 2, PGLBOX_SLOTS, layer_type,
+                interact_mode=interact,
+                generator=torch.Generator().manual_seed(0), device=dev)
+            twin = copy.deepcopy(model).double()
+            opt = torch.optim.Adam(model.parameters(), lr=PGLBOX_LR)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            with torch.no_grad():
+                held_before = float(pglbox_loss(model, slots, held))
+            first = pglbox_batch(pairs, sampler, batches[0], gen, dev)
+            branches = Branches()
+            with branches.on(model, replay=False):
+                loss32 = pglbox_loss(model, slots, first)
+            loss32.backward()
+            with branches.on(twin, replay=True):
+                terms = pglbox_terms(twin, slots, first)
+            if branches.at != len(branches.masks):
+                raise AssertionError(f"pglbox {tag}: the twin passed "
+                                     f"{branches.at} kinks, float32 "
+                                     f"{len(branches.masks)}")
+            names, params64 = zip(*twin.named_parameters())
+            want = dict(zip(names, torch.autograd.grad(
+                terms.sum(), params64, retain_graph=True)))
+            sq = {k: torch.zeros_like(w) for k, w in want.items()}
+            for rows in np.array_split(np.arange(terms.shape[0]),
+                                       TERM_BLOCKS):
+                part = torch.autograd.grad(terms[rows].sum(), params64,
+                                           retain_graph=True)
+                for k, v in zip(names, part):
+                    sq[k] += v * v
+            err = check(f"pglbox {tag} loss", loss32.detach(),
+                        terms.sum().detach())
+            shares = []
+            branches_flips = branches.flips
+            top = max(float(w.abs().max()) for w in want.values())
+            for k, p in model.named_parameters():
+                w = want[k]
+                # gatne's score bias has an analytically zero gradient (a
+                # softmax is shift-invariant): float64 leaves ~1e-19 of
+                # it, float32 ~1e-11, the cancelled terms' rounding; it is
+                # held at the floor of the model's gradients
+                floor = (small_floor(w) if float(w.abs().max()) > 1e-12 * top
+                         else 0.1 * top)
+                scale = sq[k].sqrt()
+                err = max(err, check(f"pglbox {tag} grad {k}", p.grad, w,
+                                     scale, floor))
+                shares.append(bound_share(p.grad, w, scale, floor))
+            del twin, terms, sq, want, branches
+            opt.step()
+            losses, times = [float(loss32.detach())], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for i, b in enumerate(batches[1:WARMUP + STEPS], start=1):
+                t0 = time.perf_counter()
+                opt.zero_grad(set_to_none=True)
+                batch = pglbox_batch(pairs, sampler, b, gen, dev)
+                loss = pglbox_loss(model, slots, batch)
+                loss.backward()
+                opt.step()
+                losses.append(float(loss.detach()))
+                if i >= WARMUP:
+                    times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            with torch.no_grad():
+                held_after = float(pglbox_loss(model, slots, held))
+                first_after = float(pglbox_loss(model, slots, first))
+            if not (np.isfinite(losses).all() and first_after < losses[0]):
+                raise AssertionError(f"pglbox {tag}: first batch's loss "
+                                     f"{losses[0]} -> {first_after}, "
+                                     f"losses {losses}")
+            step_ms = float(np.median(times)) * 1e3
+            runs[tag] = {"step_ms": step_ms, "peak_mib": peak / 2**20,
+                         "loss_first": losses[0], "loss_last": losses[-1],
+                         "first_after": first_after,
+                         "held_before": held_before,
+                         "held_after": held_after, "twin_err": err,
+                         "twin_share": max(shares),
+                         "branch_flips": branches_flips}
+            print(f"[pglbox model] {tag}: first step within float64's bound "
+                  f"(max |err| {err:.3e}, {max(shares):.4f} of it; "
+                  f"{branches_flips} kink inputs on the other side in "
+                  f"float64); "
+                  f"{len(times)} steps median {step_ms:.4f} ms, peak "
+                  f"{peak / 2**20:.1f} MiB; loss {losses[0]:.5f} -> "
+                  f"{losses[-1]:.5f}, first batch -> {first_after:.5f}, "
+                  f"held-out batch {held_before:.5f} -> {held_after:.5f}",
+                  flush=True)
+            del model, opt
+            torch.cuda.empty_cache()
+    return runs
+
+
+def phase_utilities(dev, host, train_f32):
+    """Phase 17: the bf16 K1 (a), ``utils.amp`` (b), ``utils.checkpoint``
+    (c), ``utils.export`` (d), ``utils.profiler`` (e) and the PGLBox model
+    (f) on the card. Returns (the bf16 K1's kernel rows, the step lines)."""
+    import tempfile
+    import torch
+
+    t0 = time.perf_counter()
+    g = headline_graph(False, host)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err, share = bf16_case_check(dev, gen)
+    print(f"[bf16 K1] every kind of work item at D in (1, 3, 8, 16, 64, "
+          f"128, 130, 256, 512), vector and scalar loads, both layouts: max "
+          f"|err| vs float64 {err:.3e} ({share:.3f} of the bound); same "
+          f"bits on a second run", flush=True)
+    train, launches = phase_amp(g, train_f32)
+    rows = bf16_rows(g, dev, launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        model, ckpt = phase_checkpoint(g, tmp)
+        export = phase_export(g, model, tmp)
+        profile = phase_profiler(g, tmp)
+    del g, model
+    torch.cuda.empty_cache()
+    pglbox = phase_pglbox_model(dev)
+    seconds = time.perf_counter() - t0
+    print(f"[phase 17] {seconds:.1f} s", flush=True)
+    return rows, {"amp": train, "checkpoint": ckpt, "export": export,
+                  "profiler": profile, "pglbox_model": pglbox,
+                  "phase17_s": seconds}
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
         return parallel_rank(*map(int, sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--serve":
+        return serve(*sys.argv[2:5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -7917,6 +8625,9 @@ def main():
     rows += parallel_rows
     torch.cuda.empty_cache()
     g4r_lines = phase_graph4rec(dev, smi)
+    torch.cuda.empty_cache()
+    util_rows, util_steps = phase_utilities(dev, host, train)
+    rows += util_rows
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -7927,7 +8638,7 @@ def main():
         **gat_steps, **dedup_steps, **unimp_steps, **ddot_steps,
         **weighted_steps, **sddmm_steps, **zoo_steps, **hetero_steps,
         **readout_steps, **sampling_steps, "out_of_core": out_of_core,
-        **parallel_steps, **g4r_lines,
+        **parallel_steps, **g4r_lines, **util_steps,
         "device": smi}}),
         flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -284,8 +284,8 @@ class BiGraph:
         """``out[d]`` = ``reduce_func`` over the edges s -> d of
         ``feature[s]``: ``feature`` on the source nodes, the output on the
         destination nodes (zeros where none arrives). sum and mean run K1
-        over the rectangular layout, except on an integer or float64 CUDA
-        feature (``dispatch.plain_on_cuda``), which takes the segment path
+        over the rectangular layout, except on an integer, float16 or
+        float64 CUDA feature (``dispatch.plain_on_cuda``), which takes the segment path
         as max and min do."""
         self._require_tensor()
         idx = self.adj_dst_index

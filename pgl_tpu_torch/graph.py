@@ -321,7 +321,7 @@ class Graph:
         """SpMM: ``out[d]`` = ``reduce_op`` over incoming edges of
         ``feature[s]``; nodes with no incoming edge give 0. sum and mean
         run the SpMM (the CUDA kernel, or its plain version on the CPU)
-        except on an integer or float64 CUDA feature
+        except on an integer, float16 or float64 CUDA feature
         (``dispatch.plain_on_cuda``), which takes the segment path as max
         and min do."""
         self._require_tensor()
@@ -358,9 +358,10 @@ class Graph:
         ``[E, H]`` or ``[E, H, 1]`` on ``[N, H, Dh]``), run K1w (the CUDA
         kernel, or its plain version on the CPU); a scalar mul on a graph
         with dedup layouts runs the weighted K6. The weights take the
-        feature's dtype there, so the feature alone decides: an integer or
-        float64 CUDA feature (``dispatch.plain_on_cuda``) takes the segment
-        path. Two departures from the reference's rule
+        feature's dtype there, so the feature alone decides: an integer,
+        float16 or float64 CUDA feature (``dispatch.plain_on_cuda``) takes
+        the segment path, and a bf16 one reaches K1w, which raises (it has
+        no bf16 instantiation). Two departures from the reference's rule
         (``pgl_tpu/graph.py:358-419``), each the same function: no ``D %
         128`` gate or lane padding, and an ``[N, H, Dh]`` feature takes
         K1w (the reference sends every 3-D feature to its segment path)."""

@@ -245,7 +245,7 @@ class GATConv(nn.Module):
     unfused path (``:258-266``): ``send_uv`` scores, ``edge_softmax``,
     dropout on the probabilities and ``send_ue_recv``, whose per-head
     weights run K1w. So does a projected feature that the kernels leave to
-    the plain path (an integer or float64 one on the card,
+    the plain path (an integer, float16 or float64 one on the card,
     ``dispatch.plain_on_cuda``), whose ``send_ue_recv`` then takes the
     segment path.
     """

@@ -8,11 +8,14 @@ threshold (``_MIN_EDGES``, for K1 and the attention alike) and its lane
 padding to 128 are TPU matters and are not carried over. Its dtype gate
 (``pgl_tpu/ops/dispatch.py:29-30``: float32 and bfloat16 to the kernel,
 every other dtype to the segment path) is :func:`plain_on_cuda` for
-integers and float64, which ``Graph`` and the layers read to route such a
-CUDA tensor to the plain path. The wrappers take float32 only and raise
-on any other dtype, so a bf16 or fp16 tensor on the card raises until the
-kernels have a half-precision instantiation (a departure for fp16, which
-the reference's SpMM sends to its segment path).
+integers, float16 and float64, which ``Graph`` and the layers read to
+route such a CUDA tensor to the plain path. Each wrapper names the dtypes
+its kernel takes and raises on any other: K1 (:func:`use_spmm_kernel`)
+float32 and bf16; K1w (:func:`use_weighted_spmm_kernel`), K4–K6
+(:func:`use_dedup_kernel`), the attention kernels and K11 float32 only, so
+a bf16 tensor on the card raises there until those kernels have a bf16
+instantiation. :func:`traced` tells a wrapper that ``torch.export`` or
+``torch.compile`` is tracing it.
 
 Which SpMM family a graph uses is decided once, at ``Graph.tensor()`` time,
 from the module constants below (read there, so tests and ``chip_smoke.py``
@@ -24,9 +27,11 @@ measurement sets them; ``DEDUP`` itself was set on the card.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-__all__ = ["plain_on_cuda", "use_spmm_kernel", "fused_attention_graph",
-           "use_attention_kernel", "use_sddmm_kernel", "DEDUP",
+__all__ = ["plain_on_cuda", "use_spmm_kernel", "use_weighted_spmm_kernel",
+           "use_dedup_kernel", "fused_attention_graph",
+           "use_attention_kernel", "use_sddmm_kernel", "traced", "DEDUP",
            "DEDUP_MIN_EDGES", "DEDUP_MAX_EDGES",
            "DEDUP_MAX_RATIO", "COUNTS_MAX", "COUNTS_BUDGET_BYTES"]
 
@@ -61,37 +66,55 @@ COUNTS_BUDGET_BYTES = 512_000_000
 
 
 def plain_on_cuda(*tensors) -> bool:
-    """True where one of ``tensors`` (None ignored) lies on the card as an
-    integer (or bool) or float64 tensor, dtypes the reference sends to its
-    segment path. ``Graph`` and the layers then take the plain path
-    (the segment path, the edge-space attention) with the tensors that the
-    kernel wrappers would have received. A float32 CUDA tensor still
-    launches the kernel, a bf16 or fp16 one reaches the wrapper and raises,
-    and a CPU tensor runs the wrapper's plain version."""
+    """True where one of ``tensors`` (None ignored) lies on the card as a
+    tensor of a dtype the reference sends to its segment path: integer (or
+    bool), float16 or float64. ``Graph`` and the layers then take the plain
+    path (the segment path, the edge-space attention) with the tensors that
+    the kernel wrappers would have received. A float32 or bf16 CUDA tensor
+    reaches the wrapper, which launches its kernel or (bf16 where the
+    kernel has no bf16 instantiation) raises, and a CPU tensor runs the
+    wrapper's plain version."""
     return any(t is not None and t.device.type == "cuda"
-               and (t.dtype == torch.float64 or not t.dtype.is_floating_point)
+               and t.dtype not in (torch.float32, torch.bfloat16)
                for t in tensors)
 
 
-def _use_kernel(tensor: torch.Tensor, what: str) -> bool:
+def _use_kernel(tensor: torch.Tensor, what: str,
+                dtypes=(torch.float32,)) -> bool:
     kind = tensor.device.type
     if kind == "cpu":
         return False
     if kind != "cuda":
         raise ValueError(f"no {what} for device {tensor.device}")
-    if tensor.dtype != torch.float32:
+    if tensor.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
         raise TypeError(
-            f"the CUDA {what} takes float32 features, got {tensor.dtype}")
+            f"the CUDA {what} takes {names} features, got {tensor.dtype}")
     return True
 
 
 def use_spmm_kernel(feature: torch.Tensor) -> bool:
-    """True to launch the CUDA SpMM, False to run its plain version.
+    """True to launch the CUDA SpMM (K1, float32 or bf16), False to run its
+    plain version.
 
     Raises for a CUDA tensor of a dtype the kernel does not take, and for
     any device other than CUDA or the CPU.
     """
-    return _use_kernel(feature, "SpMM")
+    return _use_kernel(feature, "SpMM", (torch.float32, torch.bfloat16))
+
+
+def use_weighted_spmm_kernel(feature: torch.Tensor) -> bool:
+    """True to launch the CUDA weighted SpMM (K1w, float32), False to run
+    its plain version; raises as :func:`use_spmm_kernel` does."""
+    return _use_kernel(feature, "weighted SpMM")
+
+
+def use_dedup_kernel(feature: torch.Tensor) -> bool:
+    """True to launch the CUDA dedup SpMM (K5/K6, float32), False to run
+    its plain version; raises as :func:`use_spmm_kernel` does."""
+    return _use_kernel(feature, "dedup SpMM")
+
+    return torch.compiler.is_compiling() or is_fake(tensor)
 
 
 def fused_attention_graph(graph) -> bool:
@@ -114,3 +137,10 @@ def use_sddmm_kernel(tensor: torch.Tensor) -> bool:
     raises as :func:`use_spmm_kernel` does. The reference's other gate, the
     TPU backend (``pgl_tpu/graph.py:458``), is the device here."""
     return _use_kernel(tensor, "SDDMM")
+
+
+def traced(tensor: torch.Tensor) -> bool:
+    """True while ``torch.export`` or ``torch.compile`` traces the call
+    that received ``tensor`` (a fake stand-in, or dynamo's): no kernel can
+    be launched on it, nor a collective run."""
+    return torch.compiler.is_compiling() or is_fake(tensor)

@@ -75,16 +75,35 @@
 // Past 512 columns a row takes several passes, and a head that crosses a
 // pass is finished by the later one, which adds to what the earlier wrote.
 //
+// bf16 (K1 only; `pgl_spmm_bf16`): the same kernels instantiated on the
+// element type T. The reference sends bf16 features to its kernel, which
+// accumulates each ET-edge tile in f32 and rounds the running sum to bf16
+// once a tile; here a lane converts each gathered bf16 to f32, sums in f32
+// registers, and rounds once (to nearest even) when the row is stored. A
+// split row's per-piece partials stay f32 whatever T is, and `spmm_combine`
+// sums them in f32 and rounds once. A 16-byte vector holds 8 bf16, so the
+// vector path takes D % 8 == 0 (VEC = 8) and `items_config` keeps 16 f32
+// columns a lane a pass (two vectors of 8; NV <= 2): a lane holds as many
+// f32 sums as the float32 kernel's four vectors of 4. The scalar path (VEC
+// = 1) loads one bf16 a column. With half the row bytes, a lane group of
+// width D covers half the lanes, so twice the groups share an item, and
+// ItemUnroll halves the rows each holds in flight (32 f32 values a lane):
+// a warp keeps as many gathered rows in flight as the float32 kernel's at
+// the same D, each half the bytes. The order of every sum is the float32
+// kernel's, so every run gives the same bits.
+//
 // Calling convention: launches on the given stream (the packs on a side
 // stream forked from it and joined back, so what the caller queues after
 // the call sees them done), does not synchronise, allocates nothing (the
 // caller passes `out` [N, D] and `partials` [n_partials, D]), and returns
 // cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 namespace {
 
@@ -105,35 +124,88 @@ struct Weighted {
   float* dw;
 };
 
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
+// bf16 -> f32 is exact: the bf16 bits are the top half of the f32's
+__device__ __forceinline__ float lo_bf16(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_bf16(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+// two f32 rounded to nearest even into one word of two bf16 (a low)
+__device__ __forceinline__ unsigned pack_bf16(float a, float b) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(b)))
+             << 16;
+}
+
+// v <- VEC elements of T at p, as f32: float4 or one float; 8 bf16 (one
+// 16-byte load) or one bf16
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[VEC]) {
+  if constexpr (std::is_same_v<T, float> && VEC == 4) {
     const float4 t = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = t.x;
     v[1] = t.y;
     v[2] = t.z;
     v[3] = t.w;
-  } else {
+  } else if constexpr (std::is_same_v<T, float>) {
+    static_assert(VEC == 1, "float loads 4 or 1");
     v[0] = __ldg(p);
+  } else if constexpr (VEC == 8) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = lo_bf16(w[i]);
+      v[2 * i + 1] = hi_bf16(w[i]);
+    }
+  } else {
+    static_assert(VEC == 1, "bf16 loads 8 or 1");
+    v[0] = lo_bf16(__ldg(reinterpret_cast<const unsigned short*>(p)));
   }
 }
 
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
+// VEC f32 values stored at p as T (bf16 rounded to nearest even): float
+// stores 4 (one float4), 8 (two: a bf16 kernel's f32 partials) or 1
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[VEC]) {
+  if constexpr (std::is_same_v<T, float> && VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4)
+      reinterpret_cast<float4*>(p)[i / 4] =
+          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else if constexpr (std::is_same_v<T, float>) {
+    static_assert(VEC == 1, "float stores 8, 4 or 1");
     p[0] = v[0];
+  } else if constexpr (VEC == 8) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  } else {
+    static_assert(VEC == 1, "bf16 stores 8 or 1");
+    p[0] = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// one f32 as T
+template <typename T>
+__device__ __forceinline__ T to_elem(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
   }
 }
 
 // Rows in flight per lane: K1 eight vectors of loads (32 registers at VEC =
-// 4), at least two rows; K1w half that, at least one, and one where dw is
-// written at more than one vector a lane (at two, 64 registers spilled
-// 100 B).
-template <int NV, int WOP, int DWOP>
+// 4), at least two rows, and at VEC = 8 (bf16) 32 f32 values, at least two
+// rows; K1w half that, at least one, and one where dw is written at more
+// than one vector a lane (at two, 64 registers spilled 100 B).
+template <int VEC, int NV, int WOP, int DWOP>
 struct ItemUnroll {
-  static constexpr int k1 = NV >= 4 ? 2 : 8 / NV;
+  static constexpr int k1 = VEC == 8 ? (NV >= 2 ? 2 : 4)
+                            : NV >= 4 ? 2
+                                      : 8 / NV;
   static constexpr int value =
       WOP == kNone && DWOP == kNone ? k1
       : DWOP != kNone && NV > 1     ? 1
@@ -151,16 +223,16 @@ struct ItemBlocks {
 };
 
 // Loads lane (g, l)'s NV vectors of source row s (zeros where `live` is
-// false or past D): vector k covers columns c0 + (k * L + l) * VEC.
-template <int VEC, int L, int NV>
-__device__ __forceinline__ void gather_row(const float* __restrict__ x,
+// false or past D), as f32: vector k covers columns c0 + (k * L + l) * VEC.
+template <typename T, int VEC, int L, int NV>
+__device__ __forceinline__ void gather_row(const T* __restrict__ x,
                                            long long s, int D, int c0, int l,
                                            bool live, float (&v)[NV][VEC]) {
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int col = c0 + (k * L + l) * VEC;
     if (live && col < D) {
-      load_vec<VEC>(x + s * D + col, v[k]);
+      load_vec<T, VEC>(x + s * D + col, v[k]);
     } else {
 #pragma unroll
       for (int c = 0; c < VEC; ++c) v[k][c] = 0.f;
@@ -168,14 +240,14 @@ __device__ __forceinline__ void gather_row(const float* __restrict__ x,
   }
 }
 
-template <int VEC, int L, int NV>
-__device__ __forceinline__ void store_row(float* __restrict__ dst, int D,
+template <typename T, int VEC, int L, int NV>
+__device__ __forceinline__ void store_row(T* __restrict__ dst, int D,
                                           int c0, int l,
                                           float (&acc)[NV][VEC]) {
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int col = c0 + (k * L + l) * VEC;
-    if (col < D) store_vec<VEC>(dst + col, acc[k]);
+    if (col < D) store_vec<T, VEC>(dst + col, acc[k]);
 #pragma unroll
     for (int c = 0; c < VEC; ++c) acc[k][c] = 0.f;
   }
@@ -346,16 +418,17 @@ __device__ __forceinline__ void store_dw(const Weighted& wt, int e,
 
 // Items (x, y, z, w) of one row: edges [y, z) of row x, a piece (w >= 0:
 // its partial slot) or the whole row (w == -1). The lane groups take
-// interleaved edges and are summed by a fixed shuffle tree.
-template <int VEC, int L, int NV, int WOP, int DWOP>
+// interleaved edges and are summed by a fixed shuffle tree. A piece's sum
+// goes to its f32 partial row, a whole row's to out as T.
+template <typename T, int VEC, int L, int NV, int WOP, int DWOP>
 __global__ void __launch_bounds__(kItemWarps * 32, ItemBlocks<VEC, NV>::value)
-spmm_rows(const float* __restrict__ x, const int* __restrict__ indices,
+spmm_rows(const T* __restrict__ x, const int* __restrict__ indices,
           const int4* __restrict__ items, int n_items, int D,
-          float* __restrict__ out, float* __restrict__ partials,
+          T* __restrict__ out, float* __restrict__ partials,
           const Weighted wt) {
   constexpr bool kW = WOP != kNone || DWOP != kNone;
   constexpr int G = 32 / L;
-  constexpr int U = ItemUnroll<NV, WOP, DWOP>::value;
+  constexpr int U = ItemUnroll<VEC, NV, WOP, DWOP>::value;
   constexpr int CW = L * NV * VEC;  // columns a pass
   const int lane = threadIdx.x & 31;
   const int g = lane / L;
@@ -372,15 +445,16 @@ spmm_rows(const float* __restrict__ x, const int* __restrict__ indices,
   // a launch without dw always stores (known at compile time: K1 and the
   // forward keep their sum free of the branch)
   const bool store = DWOP == kNone || out != nullptr;
-  float* dst = pc.w >= 0 ? partials + static_cast<size_t>(pc.w) * D
-                         : out + static_cast<size_t>(pc.x) * D;
+  float* const part =
+      pc.w >= 0 ? partials + static_cast<size_t>(pc.w) * D : nullptr;
+  T* const row = out + static_cast<size_t>(pc.x) * D;
   for (int c0 = 0; c0 < D; c0 += CW) {
     const Heads<VEC, L, NV, kW> hd(c0, l, D, wt.H, wt.dh);
     float acc[NV][VEC];
     zero(acc);
     float xr[NV][VEC];  // the row's own x (mul's dw)
     if constexpr (DWOP == kMul)
-      gather_row<VEC, L, NV>(wt.xrow, pc.x, D, c0, l, true, xr);
+      gather_row<float, VEC, L, NV>(wt.xrow, pc.x, D, c0, l, true, xr);
     int cur = mine, cur_e = mine_e;
     for (long long base = pc.y; base < pc.z; base += 32) {
       const int n = static_cast<int>(min(32LL, pc.z - base));
@@ -396,7 +470,7 @@ spmm_rows(const float* __restrict__ x, const int* __restrict__ indices,
         for (int u = 0; u < U; ++u) {
           const int j = j0 + u * G + g;
           const int s = __shfl_sync(kFull, cur, j & 31);
-          gather_row<VEC, L, NV>(x, s, D, c0, l, j < n, v[u]);
+          gather_row<T, VEC, L, NV>(x, s, D, c0, l, j < n, v[u]);
           if constexpr (kW) ev[u] = __shfl_sync(kFull, cur_e, j & 31);
           if constexpr (WOP != kNone)
             load_weights(wt, ev[u], hd, j < n && store, wv[u]);
@@ -429,7 +503,16 @@ spmm_rows(const float* __restrict__ x, const int* __restrict__ indices,
 #pragma unroll
           for (int c = 0; c < VEC; ++c)
             acc[k][c] += __shfl_xor_sync(kFull, acc[k][c], off);
-      if (g == 0) store_row<VEC, L, NV>(dst, D, c0, l, acc);
+      if (g == 0) {
+        if constexpr (std::is_same_v<T, float>) {
+          store_row<float, VEC, L, NV>(part != nullptr ? part : row, D, c0, l,
+                                       acc);
+        } else if (part != nullptr) {
+          store_row<float, VEC, L, NV>(part, D, c0, l, acc);
+        } else {
+          store_row<T, VEC, L, NV>(row, D, c0, l, acc);
+        }
+      }
     }
     if constexpr (DWOP != kNone) __syncwarp();  // dw of this pass visible
   }
@@ -438,15 +521,15 @@ spmm_rows(const float* __restrict__ x, const int* __restrict__ indices,
 // Packs (x, y, z, -nr): the nr consecutive rows from x, edges [y, z), at
 // most kPack of each; their indices (and edge ids) and row pointers are
 // loaded together.
-template <int VEC, int L, int NV, int WOP, int DWOP>
+template <typename T, int VEC, int L, int NV, int WOP, int DWOP>
 __global__ void __launch_bounds__(kItemWarps * 32, ItemBlocks<VEC, NV>::value)
-spmm_packs(const float* __restrict__ x, const int* __restrict__ indices,
+spmm_packs(const T* __restrict__ x, const int* __restrict__ indices,
            const int* __restrict__ indptr, const int4* __restrict__ items,
-           int n_items, int D, float* __restrict__ out, const Weighted wt) {
+           int n_items, int D, T* __restrict__ out, const Weighted wt) {
   constexpr bool kW = WOP != kNone || DWOP != kNone;
   constexpr int G = 32 / L;
   // mul's dw gathers the edge's row of xrow beside it: half the rows again
-  constexpr int U0 = ItemUnroll<NV, WOP, DWOP>::value;
+  constexpr int U0 = ItemUnroll<VEC, NV, WOP, DWOP>::value;
   constexpr int U = DWOP == kMul && U0 > 1 ? U0 / 2 : U0;
   constexpr int CW = L * NV * VEC;  // columns a pass
   __shared__ int s_idx[kItemWarps][kPack];
@@ -503,7 +586,7 @@ spmm_packs(const float* __restrict__ x, const int* __restrict__ indices,
     zero(head);
     if (store && g == 0)
       for (int r = 0; r < r0; ++r)
-        store_row<VEC, L, NV>(out + static_cast<size_t>(pc.x + r) * D,
+        store_row<T, VEC, L, NV>(out + static_cast<size_t>(pc.x + r) * D,
                               D, c0, l, acc);
     int r = r0;
     int rend = r0 < nr ? sp[r0 + 1] : 0;
@@ -517,7 +600,8 @@ spmm_packs(const float* __restrict__ x, const int* __restrict__ indices,
       for (int u = 0; u < U; ++u) {
         const int e = k0 + u;
         const bool live = e < b;
-        gather_row<VEC, L, NV>(x, live ? sx[e] : 0, D, c0, l, live, v[u]);
+        gather_row<T, VEC, L, NV>(x, live ? sx[e] : 0, D, c0, l, live,
+                                  v[u]);
         if constexpr (kW) ev[u] = live ? se[e] : 0;
         if constexpr (WOP != kNone)
           load_weights(wt, ev[u], hd, live && store, wv[u]);
@@ -528,7 +612,8 @@ spmm_packs(const float* __restrict__ x, const int* __restrict__ indices,
               drend = sp[dr + 1];
             }
           }
-          gather_row<VEC, L, NV>(wt.xrow, pc.x + dr, D, c0, l, live, xr[u]);
+          gather_row<float, VEC, L, NV>(wt.xrow, pc.x + dr, D, c0, l, live,
+                                        xr[u]);
         }
       }
       if (store) {  // uniform across the warp
@@ -544,7 +629,7 @@ spmm_packs(const float* __restrict__ x, const int* __restrict__ indices,
                   for (int c = 0; c < VEC; ++c) head[k][c] = acc[k][c];
                 zero(acc);
               } else {
-                store_row<VEC, L, NV>(
+                store_row<T, VEC, L, NV>(
                     out + static_cast<size_t>(pc.x + r) * D, D, c0, l,
                     acc);
               }
@@ -578,7 +663,7 @@ spmm_packs(const float* __restrict__ x, const int* __restrict__ indices,
             for (int c = 0; c < VEC; ++c) head[k][c] = acc[k][c];
           zero(acc);
         } else {
-          store_row<VEC, L, NV>(out + static_cast<size_t>(pc.x + r) * D,
+          store_row<T, VEC, L, NV>(out + static_cast<size_t>(pc.x + r) * D,
                                 D, c0, l, acc);
         }
         ++r;
@@ -604,7 +689,7 @@ spmm_packs(const float* __restrict__ x, const int* __restrict__ indices,
             }
         }
         if (open_left && !through)
-          store_row<VEC, L, NV>(out + static_cast<size_t>(pc.x + r0) * D,
+          store_row<T, VEC, L, NV>(out + static_cast<size_t>(pc.x + r0) * D,
                                 D, c0, l, head);
       }
     }
@@ -613,18 +698,19 @@ spmm_packs(const float* __restrict__ x, const int* __restrict__ indices,
 }
 
 // One block per split row: warp w sums partial slots p0 + w, p0 + w + W, ...
-// in order, then warp 0 adds the W warp sums in order.
+// in order, then warp 0 adds the W warp sums in order, in f32, and stores
+// the row as T.
+template <typename T>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 spmm_combine(const float* __restrict__ partials,
              const int* __restrict__ split_rows,
-             const int* __restrict__ split_ptr, int D,
-             float* __restrict__ out) {
+             const int* __restrict__ split_ptr, int D, T* __restrict__ out) {
   __shared__ float sums[kCombineWarps][32];
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int p0 = split_ptr[blockIdx.x];
   const int p1 = split_ptr[blockIdx.x + 1];
-  float* o = out + static_cast<size_t>(split_rows[blockIdx.x]) * D;
+  T* o = out + static_cast<size_t>(split_rows[blockIdx.x]) * D;
   for (int c0 = 0; c0 < D; c0 += 32) {
     const int col = c0 + lane;
     float acc = 0.f;
@@ -639,7 +725,7 @@ spmm_combine(const float* __restrict__ partials,
       float total = 0.f;
 #pragma unroll
       for (int k = 0; k < kCombineWarps; ++k) total += sums[k][lane];
-      o[col] = total;
+      o[col] = to_elem<T>(total);
     }
     __syncthreads();
   }
@@ -671,14 +757,15 @@ cudaError_t side_of(int device, Side** side) {
 }
 
 // What one call walks: the work list (n_rows items of one row, then n_packs
-// packs), the tables and the outputs.
+// packs), the tables and the outputs (the partials f32 whatever T is).
+template <typename T>
 struct Walk {
-  const float* x;
+  const T* x;
   const int* indices;
   const int* indptr;
   const int4* items;
   int n_rows, n_packs, D;
-  float* out;
+  T* out;
   float* partials;
 };
 
@@ -686,18 +773,22 @@ struct Walk {
 // packs (at items + n_rows) on the device's side stream, forked from and
 // joined back to `s`, so the two kernels overlap (a hub's pieces beside the
 // short rows) and `s` sees both done.
-template <int VEC, int L, int NV, int WOP, int DWOP>
-cudaError_t launch_items(int device, const Walk& a, const Weighted& wt,
+template <typename T, int VEC, int L, int NV, int WOP, int DWOP>
+cudaError_t launch_items(int device, const Walk<T>& a, const Weighted& wt,
                          cudaStream_t s) {
   const dim3 threads(kItemWarps * 32);
   const auto blocks = [](int n) { return (n + kItemWarps - 1) / kItemWarps; };
   if (a.n_rows == 0 || a.n_packs == 0) {
     if (a.n_packs > 0)
-      spmm_packs<VEC, L, NV, WOP, DWOP><<<blocks(a.n_packs), threads, 0, s>>>(
-          a.x, a.indices, a.indptr, a.items, a.n_packs, a.D, a.out, wt);
+      spmm_packs<T, VEC, L, NV, WOP, DWOP>
+          <<<blocks(a.n_packs), threads, 0, s>>>(a.x, a.indices, a.indptr,
+                                                 a.items, a.n_packs, a.D,
+                                                 a.out, wt);
     if (a.n_rows > 0)
-      spmm_rows<VEC, L, NV, WOP, DWOP><<<blocks(a.n_rows), threads, 0, s>>>(
-          a.x, a.indices, a.items, a.n_rows, a.D, a.out, a.partials, wt);
+      spmm_rows<T, VEC, L, NV, WOP, DWOP>
+          <<<blocks(a.n_rows), threads, 0, s>>>(a.x, a.indices, a.items,
+                                                a.n_rows, a.D, a.out,
+                                                a.partials, wt);
     return cudaSuccess;
   }
   std::lock_guard<std::mutex> guard(side_lock);
@@ -707,41 +798,49 @@ cudaError_t launch_items(int device, const Walk& a, const Weighted& wt,
   if (err == cudaSuccess)
     err = cudaStreamWaitEvent(side->stream, side->fork, 0);
   if (err != cudaSuccess) return err;
-  spmm_packs<VEC, L, NV, WOP, DWOP>
+  spmm_packs<T, VEC, L, NV, WOP, DWOP>
       <<<blocks(a.n_packs), threads, 0, side->stream>>>(
           a.x, a.indices, a.indptr, a.items + a.n_rows, a.n_packs, a.D,
           a.out, wt);
-  spmm_rows<VEC, L, NV, WOP, DWOP><<<blocks(a.n_rows), threads, 0, s>>>(
+  spmm_rows<T, VEC, L, NV, WOP, DWOP><<<blocks(a.n_rows), threads, 0, s>>>(
       a.x, a.indices, a.items, a.n_rows, a.D, a.out, a.partials, wt);
   err = cudaEventRecord(side->join, side->stream);
   if (err == cudaSuccess) err = cudaStreamWaitEvent(s, side->join, 0);
   return err;
 }
 
-// Lanes a row (L) and vectors a lane (NV) at width D: L covers D in one
-// vector a lane up to 32 vectors, then NV grows to 4 vectors of 4 floats
-// (16 of one float on the scalar path): one pass up to 512 columns.
-int items_config(int D, bool vec4, int* nv) {
-  const int vecs = vec4 ? D / 4 : D;
+// Lanes a row (L) and vectors a lane (NV) at width D, for vectors of `vec`
+// elements (4 floats, 8 bf16, or 1 on the scalar path): L covers D in one
+// vector a lane up to 32 vectors, then NV grows to 16 / vec vectors, 16
+// columns a lane: one pass up to 512 columns.
+int items_config(int D, int vec, int* nv) {
+  const int vecs = D / vec;
   int lanes = 1;
   while (lanes < vecs && lanes < 32) lanes <<= 1;
-  const int cap = vec4 ? 4 : 16;
+  const int cap = 16 / vec;
   *nv = 1;
   while (*nv < cap && lanes * *nv < vecs) *nv <<= 1;
   return lanes;
 }
 
-// The item launches of one (WOP, DWOP) at the configuration (vec4, lanes,
+// The item launches of one (T, WOP, DWOP) at the configuration (vec, lanes,
 // nv) that `items_config` chose.
-template <int WOP, int DWOP>
-cudaError_t launch_config(int device, bool vec4, int lanes, int nv,
-                          const Walk& a, const Weighted& wt, cudaStream_t s) {
-#define PGL_ITEMS(V, L, N)                                       \
-  if (vec4 == (V == 4) && lanes == L && nv == N)                 \
-    return launch_items<V, L, N, WOP, DWOP>(device, a, wt, s);
-  PGL_ITEMS(4, 1, 1) PGL_ITEMS(4, 2, 1) PGL_ITEMS(4, 4, 1) PGL_ITEMS(4, 8, 1)
-  PGL_ITEMS(4, 16, 1) PGL_ITEMS(4, 32, 1) PGL_ITEMS(4, 32, 2)
-  PGL_ITEMS(4, 32, 4)
+template <typename T, int WOP, int DWOP>
+cudaError_t launch_config(int device, int vec, int lanes, int nv,
+                          const Walk<T>& a, const Weighted& wt,
+                          cudaStream_t s) {
+#define PGL_ITEMS(V, L, N)                             \
+  if (vec == V && lanes == L && nv == N)               \
+    return launch_items<T, V, L, N, WOP, DWOP>(device, a, wt, s);
+  if constexpr (std::is_same_v<T, float>) {
+    PGL_ITEMS(4, 1, 1) PGL_ITEMS(4, 2, 1) PGL_ITEMS(4, 4, 1)
+    PGL_ITEMS(4, 8, 1) PGL_ITEMS(4, 16, 1) PGL_ITEMS(4, 32, 1)
+    PGL_ITEMS(4, 32, 2) PGL_ITEMS(4, 32, 4)
+  } else {
+    PGL_ITEMS(8, 1, 1) PGL_ITEMS(8, 2, 1) PGL_ITEMS(8, 4, 1)
+    PGL_ITEMS(8, 8, 1) PGL_ITEMS(8, 16, 1) PGL_ITEMS(8, 32, 1)
+    PGL_ITEMS(8, 32, 2)
+  }
   PGL_ITEMS(1, 1, 1) PGL_ITEMS(1, 2, 1) PGL_ITEMS(1, 4, 1) PGL_ITEMS(1, 8, 1)
   PGL_ITEMS(1, 16, 1) PGL_ITEMS(1, 32, 1) PGL_ITEMS(1, 32, 2)
   PGL_ITEMS(1, 32, 4) PGL_ITEMS(1, 32, 8) PGL_ITEMS(1, 32, 16)
@@ -749,9 +848,10 @@ cudaError_t launch_config(int device, bool vec4, int lanes, int nv,
   return cudaErrorInvalidValue;
 }
 
-// K1 (wop = dwop = kNone) or K1w over the work list, and, where rows split
-// and out is written, the combine launch.
-int run_items(int device, int wop, int dwop, const Walk& a,
+// K1 (wop = dwop = kNone) or, on float, K1w over the work list, and, where
+// rows split and out is written, the combine launch.
+template <typename T>
+int run_items(int device, int wop, int dwop, const Walk<T>& a,
               const Weighted& wt, const int* split_rows,
               const int* split_ptr, int n_split, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -765,26 +865,34 @@ int run_items(int device, int wop, int dwop, const Walk& a,
                          reinterpret_cast<uintptr_t>(a.out) |
                          reinterpret_cast<uintptr_t>(a.partials) |
                          reinterpret_cast<uintptr_t>(wt.xrow);
-  // a weighted vector lies in one head (K1 passes dh = 0)
-  const bool vec4 = a.D % 4 == 0 && wt.dh % 4 == 0 && (ptrs & 15) == 0;
+  // a 16-byte vector: 4 floats or 8 bf16; a weighted vector lies in one
+  // head (K1 passes dh = 0)
+  constexpr int kVec = std::is_same_v<T, float> ? 4 : 8;
+  const int vec = a.D % kVec == 0 && wt.dh % kVec == 0 && (ptrs & 15) == 0
+                      ? kVec
+                      : 1;
   int nv = 1;
-  const int lanes = items_config(a.D, vec4, &nv);
+  const int lanes = items_config(a.D, vec, &nv);
   if (wop == kNone && dwop == kNone) {
-    err = launch_config<kNone, kNone>(device, vec4, lanes, nv, a, wt, s);
-  } else if (wop == kMul && dwop == kNone) {
-    err = launch_config<kMul, kNone>(device, vec4, lanes, nv, a, wt, s);
-  } else if (wop == kAdd && dwop == kNone) {
-    err = launch_config<kAdd, kNone>(device, vec4, lanes, nv, a, wt, s);
-  } else if (wop == kMul && dwop == kMul) {
-    err = launch_config<kMul, kMul>(device, vec4, lanes, nv, a, wt, s);
-  } else if (wop == kNone && dwop == kAdd) {
-    err = launch_config<kNone, kAdd>(device, vec4, lanes, nv, a, wt, s);
+    err = launch_config<T, kNone, kNone>(device, vec, lanes, nv, a, wt, s);
+  } else if constexpr (std::is_same_v<T, float>) {
+    if (wop == kMul && dwop == kNone) {
+      err = launch_config<T, kMul, kNone>(device, vec, lanes, nv, a, wt, s);
+    } else if (wop == kAdd && dwop == kNone) {
+      err = launch_config<T, kAdd, kNone>(device, vec, lanes, nv, a, wt, s);
+    } else if (wop == kMul && dwop == kMul) {
+      err = launch_config<T, kMul, kMul>(device, vec, lanes, nv, a, wt, s);
+    } else if (wop == kNone && dwop == kAdd) {
+      err = launch_config<T, kNone, kAdd>(device, vec, lanes, nv, a, wt, s);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaErrorInvalidValue);  // K1w is float only
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_split > 0 && a.out != nullptr) {
-    spmm_combine<<<n_split, kCombineWarps * 32, 0, s>>>(
+    spmm_combine<T><<<n_split, kCombineWarps * 32, 0, s>>>(
         a.partials, split_rows, split_ptr, a.D, a.out);
   }
   return static_cast<int>(cudaGetLastError());
@@ -800,9 +908,31 @@ extern "C" int pgl_spmm_f32(int device, const float* x, const int* indices,
                             int n_packs, const int* split_rows,
                             const int* split_ptr, int n_split, int D,
                             float* out, float* partials, void* stream) {
-  const Walk a{x,      indices, indptr, reinterpret_cast<const int4*>(items),
-               n_rows, n_packs, D,      out,
-               partials};
+  const Walk<float> a{x,       indices, indptr,
+                      reinterpret_cast<const int4*>(items),
+                      n_rows,  n_packs, D,
+                      out,     partials};
+  return run_items(device, kNone, kNone, a, Weighted{}, split_rows,
+                   split_ptr, n_split, stream);
+}
+
+// K1 on bf16 tables: x [N, D] and out [R, D] bf16 (passed as raw 16-bit
+// words), partials [n_partials, D] f32; the sums f32, each row rounded once
+// to nearest even.
+extern "C" int pgl_spmm_bf16(int device, const void* x, const int* indices,
+                             const int* indptr, const int* items, int n_rows,
+                             int n_packs, const int* split_rows,
+                             const int* split_ptr, int n_split, int D,
+                             void* out, float* partials, void* stream) {
+  const Walk<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(x),
+                              indices,
+                              indptr,
+                              reinterpret_cast<const int4*>(items),
+                              n_rows,
+                              n_packs,
+                              D,
+                              static_cast<__nv_bfloat16*>(out),
+                              partials};
   return run_items(device, kNone, kNone, a, Weighted{}, split_rows,
                    split_ptr, n_split, stream);
 }
@@ -823,9 +953,10 @@ extern "C" int pgl_spmm_weighted_f32(
     return static_cast<int>(cudaErrorInvalidValue);
   if (out == nullptr && dwop != kNone)
     wop = dwop == kMul ? kMul : kNone;  // dw alone: the weights go unread
-  const Walk a{x,      indices, indptr, reinterpret_cast<const int4*>(items),
-               n_rows, n_packs, D,      out,
-               partials};
+  const Walk<float> a{x,       indices, indptr,
+                      reinterpret_cast<const int4*>(items),
+                      n_rows,  n_packs, D,
+                      out,     partials};
   const Weighted wt{eid, w, H, D / H, xrow, dw};
   return run_items(device, wop, dwop, a, wt, split_rows, split_ptr, n_split,
                    stream);

@@ -66,7 +66,7 @@ import numpy as np
 import torch
 
 from ... import resolve_device
-from ..dispatch import COUNTS_MAX, use_spmm_kernel
+from ..dispatch import COUNTS_MAX, use_dedup_kernel
 from . import _build
 from .segment_kernels import SpmmLayout, _weighted_backward, cut_rows
 
@@ -432,7 +432,7 @@ def _apply_cuda(x: torch.Tensor, layout: DedupLayout,
 
 def _apply_one(x: torch.Tensor, layout: DedupLayout,
                w: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if use_spmm_kernel(x):
+    if use_dedup_kernel(x):
         return _apply_cuda(x, layout, w)
     if w is not None:
         return apply_weighted_reference(x, w, layout)

@@ -16,7 +16,15 @@ gives the design.
   into one int32 array and :func:`unpack_spmm_layout` reads it back, as
   views of one device buffer.
 * :func:`spmm` is an autograd ``Function``: forward over the CSC layout,
-  backward the same kernel over the CSR layout (the transposed SpMM).
+  backward the same kernel over the CSR layout (the transposed SpMM). K1
+  takes float32 and bf16 features (``pgl_spmm_bf16``: the sums f32, each
+  row rounded once to bf16; K1w takes float32 only). A K1 call that
+  ``torch.export`` or ``torch.compile`` traces is the custom op
+  ``torch.ops.pgl_tpu_torch.spmm`` (its CUDA implementation the launch,
+  its CPU implementation the plain version, its fake one the shape), so
+  an exported program calls K1 (``utils/export.py``); an eager call
+  launches directly, since the op's dispatch costs host time a step
+  (``PERF.md``, ``experiments/torch_spmm/custom_op_step.py``).
 * :func:`sorted_segment_sum` is the same kernel with the identity gather;
   its backward is a gather.
 * :func:`spmm_weighted` (K1w) is an autograd ``Function`` on weighted
@@ -27,7 +35,9 @@ gives the design.
   original edge order) together.
 * :func:`spmm_reference`, :func:`spmm_weighted_reference` and
   :func:`weight_grad_reference` are the plain PyTorch versions. CPU tensors
-  run them; CUDA tensors launch the kernel or raise.
+  run them; CUDA tensors launch the kernel or raise. On a bf16 (or fp16)
+  table :func:`spmm_reference` sums in float32 and rounds once, K1's
+  contract.
 
 ``LAUNCHES_BY_SHAPE`` counts kernel launches: K1's by ``(layout.kind, D)``,
 K1w's by ``(op, layout.kind, D, H)`` with op ``"mul"`` or ``"add"`` (the
@@ -36,10 +46,11 @@ dx alone is K1's unweighted sum and counts as K1), and ``"mul_dw"`` or
 ``"add_dw"`` for a launch that gives dw alone; one per call, which is two
 CUDA launches when a row was split and dx is written. K1 on a layout of no
 rows (a graph of no nodes) launches nothing and counts nothing.
-``LAUNCHES`` is their sum. ``LAUNCHES_BY_LAYOUT`` counts K1's launches
-again by ``((layout.kind, D), id(layout))``, so that the launches on each of
-several graphs of one shape (the relations of a heterogeneous graph) are
-read apart.
+``LAUNCHES_BF16`` counts K1's bf16 launches apart, by ``(layout.kind, D)``.
+``LAUNCHES`` is the sum of both. ``LAUNCHES_BY_LAYOUT`` counts K1's float32
+launches again by ``((layout.kind, D), id(layout))``, so that the launches
+on each of several graphs of one shape (the relations of a heterogeneous
+graph) are read apart.
 """
 
 from __future__ import annotations
@@ -53,7 +64,7 @@ import numpy as np
 import torch
 
 from ... import resolve_device
-from ..dispatch import use_spmm_kernel
+from ..dispatch import traced, use_spmm_kernel, use_weighted_spmm_kernel
 from . import _build
 
 __all__ = ["SpmmLayout", "build_spmm_layout", "build_spmm_layout_host",
@@ -63,8 +74,8 @@ __all__ = ["SpmmLayout", "build_spmm_layout", "build_spmm_layout_host",
            "pack_rows", "spmm", "spmm_reference", "spmm_weighted",
            "spmm_weighted_reference", "weight_grad_reference",
            "sorted_segment_sum", "ET", "MIN_PIECE", "ROW_PIECES", "PACK",
-           "PACK_ROW", "LAUNCHES", "LAUNCHES_BY_SHAPE", "LAUNCHES_BY_LAYOUT",
-           "reset_launches"]
+           "PACK_ROW", "LAUNCHES", "LAUNCHES_BY_SHAPE", "LAUNCHES_BF16",
+           "LAUNCHES_BY_LAYOUT", "reset_launches"]
 
 # The pieces of K1's work list (:func:`cut_spmm_rows`, K1w's too): a row of
 # more than MIN_PIECE edges is cut into about ROW_PIECES pieces of MIN_PIECE
@@ -86,18 +97,20 @@ PACK = 32
 PACK_ROW = 8
 
 LAUNCHES_BY_SHAPE: Counter = Counter()
+LAUNCHES_BF16: Counter = Counter()
 LAUNCHES_BY_LAYOUT: Counter = Counter()
 
 
 def __getattr__(name):
     if name == "LAUNCHES":
-        return sum(LAUNCHES_BY_SHAPE.values())
+        return sum(LAUNCHES_BY_SHAPE.values()) + sum(LAUNCHES_BF16.values())
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_launches():
     """Set the launch counts to 0."""
     LAUNCHES_BY_SHAPE.clear()
+    LAUNCHES_BF16.clear()
     LAUNCHES_BY_LAYOUT.clear()
 
 
@@ -404,9 +417,14 @@ def pack_rows(indptr, pieces):
 
 
 def spmm_reference(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
-    """The plain version: ``out[r] = Σ_{e in row r} x[indices[e]]``."""
-    return x.new_zeros(layout.num_rows, x.shape[1]).index_add_(
-        0, layout.seg_ids, x.index_select(0, layout.indices))
+    """The plain version: ``out[r] = Σ_{e in row r} x[indices[e]]``; a
+    bf16 or fp16 ``x`` is summed in float32 and each sum rounded once to
+    ``x``'s dtype (K1's bf16 contract)."""
+    acc = torch.float32 if x.dtype in _HALF else x.dtype
+    return torch.zeros(layout.num_rows, x.shape[1], dtype=acc,
+                       device=x.device).index_add_(
+        0, layout.seg_ids, x.index_select(0, layout.indices).to(acc)
+    ).to(x.dtype)
 
 
 def spmm_weighted_reference(x: torch.Tensor, w: torch.Tensor,
@@ -439,6 +457,7 @@ def weight_grad_reference(g: torch.Tensor, x: torch.Tensor,
 
 
 _OPS = {"mul": 1, "add": 2}
+_HALF = (torch.bfloat16, torch.float16)
 
 
 def _lib():
@@ -448,6 +467,8 @@ def _lib():
         lib.pgl_spmm_f32.argtypes = [i, p, p, p, p, i, i, p, p, i, i, p,
                                        p, p]
         lib.pgl_spmm_f32.restype = ctypes.c_int
+        lib.pgl_spmm_bf16.argtypes = lib.pgl_spmm_f32.argtypes
+        lib.pgl_spmm_bf16.restype = ctypes.c_int
         lib.pgl_spmm_weighted_f32.argtypes = [i, i, i, p, p, p, p, p, i, p,
                                               i, i, p, p, i, i, p, p, p, p,
                                               p]
@@ -482,9 +503,11 @@ def _launch_weighted(x, w, layout, out, partials, wop, dwop=0, xrow=None,
 
 def _launch(x, layout, out, partials):
     """One SpMM (K1, over ``layout.items``) on the current stream into
-    preallocated ``out`` and ``partials``; raises when the launch is
-    refused."""
-    rc = _lib().pgl_spmm_f32(
+    preallocated ``out`` (``x``'s dtype, float32 or bf16) and ``partials``
+    (float32); raises when the launch is refused."""
+    lib = _lib()
+    fn = lib.pgl_spmm_bf16 if x.dtype == torch.bfloat16 else lib.pgl_spmm_f32
+    rc = fn(
         x.device.index, x.data_ptr(), layout.indices.data_ptr(),
         layout.indptr.data_ptr(), layout.items.data_ptr(),
         layout.items.shape[0] - layout.item_packs, layout.item_packs,
@@ -511,21 +534,83 @@ def _check_features(x: torch.Tensor, layout: SpmmLayout):
                          f"gathers row {layout.max_index}")
 
 
-def _spmm_cuda(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
+def _spmm_cuda(x: torch.Tensor, layout: SpmmLayout,
+               layout_id: Optional[int] = None) -> torch.Tensor:
+    """K1's launch on a float32 or bf16 ``x`` (the dtype rule is
+    ``use_spmm_kernel``'s); ``layout_id`` keys ``LAUNCHES_BY_LAYOUT``
+    (default ``id(layout)``)."""
     _check_features(x, layout)
     D = x.shape[1]
     out = torch.empty(layout.num_rows, D, dtype=x.dtype, device=x.device)
     if layout.num_rows == 0:
         return out          # a graph of no nodes: no grid to launch
-    partials = torch.empty(layout.item_partials, D, dtype=x.dtype,
+    # a split row's partial sums stay float32 whatever x's dtype
+    partials = torch.empty(layout.item_partials, D, dtype=torch.float32,
                            device=x.device)
     _launch(x, layout, out, partials)
-    LAUNCHES_BY_SHAPE[(layout.kind, D)] += 1
-    LAUNCHES_BY_LAYOUT[((layout.kind, D), id(layout))] += 1
+    if x.dtype == torch.bfloat16:
+        LAUNCHES_BF16[(layout.kind, D)] += 1
+    else:
+        LAUNCHES_BY_SHAPE[(layout.kind, D)] += 1
+        LAUNCHES_BY_LAYOUT[((layout.kind, D), id(layout) if layout_id is None
+                            else layout_id)] += 1
     return out
 
 
+# the custom op's arguments: the feature, the layout's tensors (no edge
+# ids: K1 reads none) and ints, its kind, and the id that keys
+# LAUNCHES_BY_LAYOUT
+_OP_TENSORS = ("indptr", "indices", "seg_ids", "items", "item_split_rows",
+               "item_split_ptr")
+
+
+def _op_layout(tensors, ints, kind) -> SpmmLayout:
+    return SpmmLayout(kind, *ints, **dict(zip(_OP_TENSORS, tensors)))
+
+
+@torch.library.custom_op("pgl_tpu_torch::spmm", mutates_args=(),
+                         device_types="cpu")
+def _spmm_op(x: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
+             seg_ids: torch.Tensor, items: torch.Tensor,
+             item_split_rows: torch.Tensor, item_split_ptr: torch.Tensor,
+             num_rows: int, num_edges: int, max_index: int,
+             item_partials: int, item_packs: int, kind: str,
+             layout_id: int) -> torch.Tensor:
+    """K1 as an operator: the plain version on the CPU."""
+    return spmm_reference(x, _op_layout(
+        (indptr, indices, seg_ids, items, item_split_rows, item_split_ptr),
+        (num_rows, num_edges, max_index, item_partials, item_packs), kind))
+
+
+@_spmm_op.register_kernel("cuda")
+def _spmm_op_cuda(x, indptr, indices, seg_ids, items, item_split_rows,
+                  item_split_ptr, num_rows, num_edges, max_index,
+                  item_partials, item_packs, kind, layout_id):
+    use_spmm_kernel(x)      # raises on a dtype K1 does not take
+    return _spmm_cuda(x, _op_layout(
+        (indptr, indices, seg_ids, items, item_split_rows, item_split_ptr),
+        (num_rows, num_edges, max_index, item_partials, item_packs), kind),
+        layout_id)
+
+
+@_spmm_op.register_fake
+def _spmm_op_fake(x, indptr, indices, seg_ids, items, item_split_rows,
+                  item_split_ptr, num_rows, num_edges, max_index,
+                  item_partials, item_packs, kind, layout_id):
+    return x.new_empty(num_rows, x.shape[1])
+
+
+def _spmm_op_call(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
+    """K1 through its custom op, as a trace records it."""
+    use_spmm_kernel(x)      # raises on a CUDA dtype K1 does not take
+    return _spmm_op(x, *(getattr(layout, name) for name in _OP_TENSORS),
+                    *(getattr(layout, name) for name in _SCALARS),
+                    layout.kind, id(layout))
+
+
 def _spmm_one(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
+    if traced(x):
+        return _spmm_op_call(x, layout)
     if use_spmm_kernel(x):
         return _spmm_cuda(x, layout)
     return spmm_reference(x, layout)
@@ -570,7 +655,7 @@ def _check_weights(x: torch.Tensor, w: torch.Tensor, layout: SpmmLayout,
 
 
 def _weighted_forward(x, w, layout, msg_op):
-    if not use_spmm_kernel(x):
+    if not use_weighted_spmm_kernel(x):
         return spmm_weighted_reference(x, w, layout, msg_op)
     _check_features(x, layout)
     if not w.is_contiguous():
@@ -589,7 +674,7 @@ def _weighted_backward(g, x, w, csr, msg_op, need_dx, need_dw):
     CUDA tensor, the plain versions on a CPU one; None for a gradient not
     needed."""
     H = w.shape[1]
-    if not use_spmm_kernel(g):
+    if not use_weighted_spmm_kernel(g):
         dx = dw = None
         if need_dx:
             dx = (spmm_weighted_reference(g, w, csr, "mul")

@@ -28,7 +28,10 @@ the mesh axis.
 Every collective is the ``torch.distributed`` call on the tensors as they
 are: gloo takes CUDA tensors itself (it copies them through host memory),
 so several ranks can share one card. A failed call raises, naming the
-backend and the call. ``STATS`` counts the exchanges (``calls``, ``bytes``
+backend and the call. A collective reached while ``torch.export`` or
+``torch.compile`` traces raises ``NotImplementedError``: a halo-sharded or
+edge-sharded function does not export yet (the reference exports one
+with its collectives inside). ``STATS`` counts the exchanges (``calls``, ``bytes``
 sent by this rank) and the all-reduces (``allreduce_calls``,
 ``allreduce_bytes``); with
 ``TIMING`` set, each all-to-all and all-reduce of a CUDA tensor is timed
@@ -46,6 +49,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from ..ops.dispatch import traced
 
 __all__ = ["init", "rank_device", "world", "halo_exchange",
            "all_to_all", "all_to_all_v", "all_reduce_sum",
@@ -108,6 +113,16 @@ def world(group=None):
     return group, dist.get_world_size(group), dist.get_rank(group)
 
 
+def _untraced(x: torch.Tensor, what: str):
+    """Raise where ``x`` is a tracer's stand-in: a collective cannot run
+    on one, and the port has no traceable collective."""
+    if traced(x):
+        raise NotImplementedError(
+            f"{what} under torch.export / torch.compile: a function that "
+            "runs a collective (a HaloGraph's halo exchange, a "
+            "ShardedGraph's all-reduce) does not export")
+
+
 def _call(op, group, what: str):
     """``op()``, a collective on ``group``; the error names the backend and
     the call."""
@@ -123,6 +138,7 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """``all_to_all_single`` with equal splits of ``x``'s rows: block j of
     ``x`` goes to rank j, block j of the result came from rank j."""
     group, size, _ = world(group)
+    _untraced(x, "all_to_all_single")
     x = x.contiguous()
     out = torch.empty_like(x)
     timed = TIMING and x.device.type == "cuda"
@@ -144,6 +160,7 @@ def all_to_all_v(x: torch.Tensor, send_counts, recv_counts,
     """``all_to_all_single`` with uneven splits: ``send_counts[j]`` rows of
     ``x`` (in rank order) go to rank j, ``recv_counts[j]`` come from it."""
     group, _, _ = world(group)
+    _untraced(x, "all_to_all_single")
     x = x.contiguous()
     send_counts = [int(c) for c in send_counts]
     recv_counts = [int(c) for c in recv_counts]
@@ -158,6 +175,7 @@ def all_reduce_(x: torch.Tensor, op=dist.ReduceOp.SUM,
                 group=None) -> torch.Tensor:
     """In-place all-reduce of ``x`` (no gradient)."""
     group, _, _ = world(group)
+    _untraced(x, "all_reduce")
     timed = TIMING and x.device.type == "cuda"
     if timed:
         torch.cuda.synchronize(x.device)
@@ -176,6 +194,7 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """``[size, *x.shape]``: every rank's ``x``, stacked in rank order (no
     gradient). Every rank's ``x`` has the same shape."""
     group, size, _ = world(group)
+    _untraced(x, "all_gather")
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(size)]
     _call(lambda: dist.all_gather(parts, x, group=group), group,

@@ -470,8 +470,8 @@ class HaloGraph:
         """``out[v] = reduce over in-edges (u, v) of feature[u]`` on this
         rank's ``[N_pad, ...]`` rows; one exchange of the boundary rows.
         sum and mean are K1 over the local and the remote layouts (the
-        plain versions on the CPU; the segment path for an integer or
-        float64 CUDA feature, as ``Graph``), max and min the segment path;
+        plain versions on the CPU; the segment path for an integer,
+        float16 or float64 CUDA feature, as ``Graph``), max and min the segment path;
         a node without in-edges gives 0."""
         if reduce_op not in ("sum", "mean", "max", "min"):
             raise ValueError(reduce_op)

@@ -22,6 +22,9 @@ The two apps that keep plain parameter dicts, not flax modules, take theirs
 by name: :func:`load_graph4rec_params` (``Graph4RecTrainer.params``) and
 :func:`load_kge_params` (``KGEModel.params``) copy the reference's arrays
 into the port's tensors in place, names and shapes held equal.
+:func:`load_pglbox_model_params` does the same for a ``PGLBoxGNNModel``'s
+flax tree (``id_emb``, ``slot_*``, ``gnn/rel_{l}_{etype}``,
+``gnn/interact_{l}``), through :func:`flax_to_state_dict`.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 from .. import resolve_device
 
 __all__ = ["flax_to_state_dict", "load_graph4rec_params",
-           "load_kge_params"]
+           "load_kge_params", "load_pglbox_model_params"]
 
 
 _GATES = "ifgo"
@@ -115,3 +118,12 @@ def load_kge_params(model, params: Mapping):
     """A reference ``KGEModel.params`` dict (``ent``, ``rel``) into the
     port model's ``params``."""
     _load_dict(model.params, params, "KGEModel")
+
+
+def load_pglbox_model_params(model, params: Mapping):
+    """A reference ``PGLBoxGNNModel`` parameter tree (numpy arrays, with or
+    without its ``{"params": ...}`` wrapper) into the port model's
+    parameters in place: ``id_emb`` and ``slot_{name}`` as they are, each
+    relation layer's and interaction's Dense kernels transposed."""
+    _load_dict(dict(model.named_parameters()),
+               flax_to_state_dict(params, "cpu"), "PGLBoxGNNModel")

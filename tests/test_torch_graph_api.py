@@ -437,28 +437,37 @@ def test_message_reductions_match_reference():
                                    torch.bfloat16, torch.float16,
                                    torch.int64, torch.int32])
 def test_cuda_dtype_rule(dtype, device_type):
-    """The reference's dtype gate (``pgl_tpu/ops/dispatch.py:29-30``) on
-    the card: ``dispatch.plain_on_cuda`` sends integer and float64 CUDA
-    tensors to the plain path, as the reference sends them to its segment
-    path; float32 launches the kernel; bf16 and fp16 reach the wrapper and
-    raise until the kernels have a half-precision instantiation (the
-    reference's kernels take bf16). A CPU tensor is never plain-on-CUDA:
-    it runs the wrappers' plain versions. A stand-in with a CUDA device
-    holds the rule without a card."""
+    """The reference's dtype gate (``pgl_tpu/ops/dispatch.py:29-30``: float32
+    and bf16 to the kernel, every other dtype to the segment path) on the
+    card: ``dispatch.plain_on_cuda`` sends integer, float16 and float64
+    CUDA tensors to the plain path; float32 launches every kernel; bf16
+    launches K1 (``use_spmm_kernel``) and raises at every wrapper whose
+    kernel has no bf16 instantiation yet (K1w, K4-K6, the attention
+    kernels, K11); float16 raises at every wrapper, which the plain path
+    keeps it from reaching. A CPU tensor is never plain-on-CUDA: it runs
+    the wrappers' plain versions. A stand-in with a CUDA device holds the
+    rule without a card."""
     from types import SimpleNamespace
 
     from pgl_tpu_torch.ops import dispatch
     t = SimpleNamespace(device=torch.device(device_type), dtype=dtype)
-    plain = dtype in (torch.float64, torch.int64, torch.int32)
+    plain = dtype in (torch.float64, torch.float16, torch.int64,
+                      torch.int32)
     assert dispatch.plain_on_cuda(t) is (device_type == "cuda" and plain)
     assert dispatch.plain_on_cuda(None, t) is dispatch.plain_on_cuda(t)
-    if device_type == "cpu":
-        assert dispatch.use_spmm_kernel(t) is False
-    elif dtype == torch.float32:
-        assert dispatch.use_spmm_kernel(t) is True
-    else:
-        with pytest.raises(TypeError):
-            dispatch.use_spmm_kernel(t)
+    wrappers = (dispatch.use_spmm_kernel, dispatch.use_weighted_spmm_kernel,
+                dispatch.use_dedup_kernel, dispatch.use_attention_kernel,
+                dispatch.use_sddmm_kernel)
+    for use in wrappers:
+        takes = dtype == torch.float32 or (
+            dtype == torch.bfloat16 and use is dispatch.use_spmm_kernel)
+        if device_type == "cpu":
+            assert use(t) is False
+        elif takes:
+            assert use(t) is True
+        else:
+            with pytest.raises(TypeError):
+                use(t)
 
 
 @pytest.mark.parametrize("entry", ["send_u_recv_sum", "send_u_recv_mean",

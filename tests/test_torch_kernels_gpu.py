@@ -41,7 +41,11 @@ exact zeros on the rows without edges. The device samplers and walks
 go through ``check_device_samples`` (every sampled neighbour an
 in-neighbour, masks where the degree is 0) and ``check_walks`` (every hop
 an edge, -1 to the end after a dead end); a minibatch graph whose K1
-layouts were built on the host through ``check_batch_graph_k1``.
+layouts were built on the host through ``check_batch_graph_k1``. The
+bf16 K1 goes through ``check_spmm_bf16`` (``|kernel - f64| <= 2^-8 |f64| +
+1e-4 ||terms||_2``: a float32 sum rounded once to bf16) and must give the
+same bits on two runs; an exported program's K1 is the custom op, whose
+CUDA implementation launches the kernel.
 """
 
 import dataclasses
@@ -61,6 +65,7 @@ from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS,
                         check_dedup_exact, check_dot, check_k10_case,
                         check_k1w_items, check_k7_case, check_parent_bits,
                         check_sddmm, check_sddmm_grad, check_spmm,
+                        check_spmm_bf16,
                         check_weighted, dedup_attention_of,
                         dedup_case_edges, dedup_case_facts, dedup_layouts,
                         dispatch_settings, dot_inputs, hard_features,
@@ -763,16 +768,85 @@ def test_send_u_recv_of_an_int64_feature_on_cuda(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_half_precision_on_cuda_raises(cuda, dtype):
-    """No kernel has a half-precision instantiation yet, and the reference
-    sends bf16 to its kernels: a bf16 or fp16 feature on a CUDA graph
-    reaches the wrapper, which raises rather than running the plain
-    version, with no launch counted."""
+    """The reference's dtype gate on the card: a bf16 ``send_u_recv``
+    launches the bf16 K1 (counted in ``LAUNCHES_BF16``) and equals its
+    plain version (float32 sums rounded once); an fp16 one takes the
+    segment path and launches nothing; a bf16 ``send_ue_recv`` reaches
+    K1w, which has no bf16 instantiation, and raises rather than running
+    the plain version, with no launch counted. The features are small
+    integers, whose sums both half types hold exactly, so either path
+    equals the CPU graph's sums."""
     host = Graph(skewed_graph(100, 800, seed=6), num_nodes=100)
     g = host.tensor(cuda)
+    x = torch.randint(-3, 4, (100, 16), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(0)
+                      ).float()
     sk.reset_launches()
-    with pytest.raises(TypeError):
-        g.send_u_recv(torch.ones(100, 2, dtype=dtype, device=cuda), "sum")
+    got = g.send_u_recv(x.to(dtype), "sum")
+    assert got.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert dict(sk.LAUNCHES_BF16) == {("csc", 16): 1}
+        assert not sk.LAUNCHES_BY_SHAPE
+        want = sk.spmm_reference(x.to(dtype), g._spmm_layouts[0])
+        assert torch.equal(got, want)
+        sk.reset_launches()
+        with pytest.raises(TypeError):
+            g.send_ue_recv(x.to(dtype), torch.ones(800, device=cuda,
+                                                   dtype=dtype), "mul",
+                           "sum")
     assert sk.LAUNCHES == 0
+    want = host.tensor("cpu").send_u_recv(x.cpu().to(dtype), "sum")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 3, 8, 16, 128, 130, 512])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_bf16_k1_on_every_work_item(cuda, D, aligned):
+    """The bf16 K1 over every kind of work item (the K1 case graph, both
+    layouts; 8 bf16 a 16-byte vector, or the scalar path on an unaligned
+    table or D % 8 != 0): within ``check_spmm_bf16``'s bound of float64,
+    the same bits twice, counted in ``LAUNCHES_BF16`` only."""
+    edges, n = k1_case_edges()
+    case = Graph(edges, num_nodes=n).tensor(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    flat = torch.randn(n * D + 1, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    x = flat[:n * D].view(n, D) if aligned else flat[1:].view(n, D)
+    for lay in case._spmm_layouts:
+        sk.reset_launches()
+        out = sk._spmm_cuda(x, lay)
+        assert torch.equal(out.view(torch.int16),
+                           sk._spmm_cuda(x, lay).view(torch.int16))
+        assert dict(sk.LAUNCHES_BF16) == {(lay.kind, D): 2}
+        assert not sk.LAUNCHES_BY_SHAPE
+        check_spmm_bf16(f"bf16 case {lay.kind} D={D}", out, x, lay)
+
+
+@pytest.mark.gpu
+def test_exported_program_launches_k1(cuda, tmp_path):
+    """A GCN exported on the card (``utils.export``) and served by
+    ``Predictor``: the program calls K1 as its custom op, whose CUDA
+    implementation launches the kernel once a layer, and its logits equal
+    the eager model's bit for bit."""
+    from pgl_tpu_torch.utils.export import Predictor, export_model
+    g, _ = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                           avg_degree=8, seed=5)
+    g = g.tensor(cuda)
+    model = GCN(16, 3, num_layers=3, hidden_size=24, dropout=0.0,
+                device=cuda)
+    x = g.node_feat["h"]
+    path = str(tmp_path / "gcn.pt2")
+    export_model(lambda x: model(g, x), [x], path)
+    with torch.no_grad():
+        eager = model(g, x)
+    pred = Predictor(path)
+    sk.reset_launches()
+    out = pred.run(x)
+    torch.cuda.synchronize()
+    assert dict(sk.LAUNCHES_BY_SHAPE) == {("csc", 16): 1, ("csc", 24): 1,
+                                          ("csc", 3): 1}
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.gpu
