@@ -8,8 +8,9 @@ Needs one CUDA card and ``nvcc``; exits non-zero, printing no result, when
 there is no card or any phase fails. Phases:
 
 1. the card's name and power limit (``nvidia-smi``); build the kernels from
-   ``pgl_tpu_torch/ops/kernels/csrc`` (one ``nvcc`` per source, in
-   parallel) and print the build time and ``ptxas`` report, and for each
+   ``pgl_tpu_torch/ops/kernels/csrc`` (one ``nvcc`` per library, in
+   parallel; the bf16 entry points of ``segment_kernels.cu`` and
+   ``attention_kernels.cu`` are libraries of their own) and print the build time and ``ptxas`` report, and for each
    instantiation of the dedup apply (K5, K6, the weighted K6) its
    registers, spills and dynamic shared memory, and of K1 and K1w
    (``spmm_rows``, ``spmm_packs``; K1w's by its weight and weight-gradient
@@ -18,8 +19,9 @@ there is no card or any phase fails. Phases:
    cell; their merge ``gat_fwd_combine``; K10's ``gat_dq_groups``,
    ``gat_dkv_groups``) and the staged dot kernels (``dot_fwd_staged``,
    ``dot_dq_staged``,
-   ``dot_dkv_staged``: K9 and K10 per edge, K7 and K8 per cell) its
-   registers and spills, failing if a staged dot kernel spills;
+   ``dot_dkv_staged``: K9 and K10 per edge, K7 and K8 per cell), each on
+   float and (K1, K1w, K9, K10) bf16 tables, its registers and spills,
+   failing if a staged dot kernel spills;
 2. every kernel against its plain PyTorch version on the card, forward and
    backward: the plain version runs in float64 on the same inputs, and
    ``|kernel - plain| <= 1e-4 * max(1, |plain|, ||terms||_2)`` elementwise,
@@ -382,6 +384,30 @@ there is no card or any phase fails. Phases:
    of the six layer types with each interaction mode 3 warm-up and 20
    timed Adam steps: the first step's loss and gradients against a
    float64 twin on the card (``check``), the first batch's loss falling.
+18. mixed-precision attention (``utils.amp`` on the bf16 K9/K10 and K1w):
+   (a) the bf16 kernels against float64 of the same bf16 values by
+   ``check_bf16`` (the float32 kernels' rule plus ``2^-8 |f64|``, the one
+   rounding to bf16), the same bits twice: the additive K9/K10 at
+   ``AMP_K10_SHAPES`` on ``k10_case_graphs`` (rates 0 and 0.6, zeros on
+   empty rows), the dot mode at ``AMP_DOT_SHAPES`` on the skewed small
+   graph (rates 0 and 0.3), K1w over every kind of work item at
+   ``AMP_K1W_D`` on 16-byte and unaligned tables; (b) ``GAT`` (the bench
+   GAT) and ``GATv2`` on the bench GAT graph, ``FAGCN`` on the headline
+   and ``UniMP`` (dropout 0.3) on the UniMP graph, each 20 float32 steps
+   and then under ``utils.amp`` (bf16 features and ``bf16_params_policy``,
+   float32 masters and optimizer state): the first amp loss within
+   ``AMP_LOSS_RTOL`` of the float32 one from the same weights, 3 warm-up
+   and 20 timed steps asserting the bf16 launches a step (K9, K10-dq,
+   K10-dkv at each shape with their merges, or K1w) and no float32
+   attention or K1w launch, a finite, falling loss, the step ms and peak
+   MiB beside float32's, and a torch.profiler trace of the amp step; (c)
+   the bf16 kernels at the path's shapes
+   (``AMP_K1W``, GAT's (8, 8) and (1, 16), UniMP's (2, 128, 128) at rate
+   0.3) against float64, timed (CUDA events) beside the float32 kernel
+   on the same values, the plain version and (K1w) ``torch.sparse.mm`` on
+   a bf16 CSR matrix or batched bf16 COO ``torch.bmm`` (or the error it
+   raises), with the byte bound of bf16 tables. The step line's
+   ``seconds`` is the whole script's time.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -458,20 +484,24 @@ def apply_report(log):
 
 
 # ptxas entries reported one line each: (label, the mangled name with the
-# template arguments as groups, their names); the staged dot kernels' last
-# argument is CELLS, 0 per edge (K9, K10) and 1 per count-matrix cell (K7,
-# K8 in dot mode)
-_STAGED = r"ILi(\d+)ELb(\d)ELb(\d)ELb{}E"
+# template arguments as groups, their names); the attention kernels' first
+# argument is the element type T (float or bf16), the staged dot kernels'
+# last CELLS, 0 per edge (K9, K10) and 1 per count-matrix cell (K7, K8 in
+# dot mode)
+_T = r"I(f|13__nv_bfloat16)"
+_STAGED = _T + r"Li(\d+)ELb(\d)ELb(\d)ELb{}E"
 # K1's items kernels are K1w's with no weight op (WOP = DWOP = 0), on float
 # tables ("f", optional: a build from before the element type) or on bf16
 _ITEMS = r"I(?:f)?Li(\d+)ELi(\d+)ELi(\d+)ELi{}ELi{}E"
-_ITEMS_BF16 = r"I13__nv_bfloat16Li(\d+)ELi(\d+)ELi(\d+)ELi0ELi0E"
+_ITEMS_BF16 = r"I13__nv_bfloat16Li(\d+)ELi(\d+)ELi(\d+)ELi{}ELi{}E"
 REGISTER_REPORT = (
     ("K1 spmm_rows", "spmm_rows" + _ITEMS.format(0, 0), ("VEC", "L", "NV")),
     ("K1 spmm_packs", "spmm_packs" + _ITEMS.format(0, 0),
      ("VEC", "L", "NV")),
-    ("K1 bf16 spmm_rows", "spmm_rows" + _ITEMS_BF16, ("VEC", "L", "NV")),
-    ("K1 bf16 spmm_packs", "spmm_packs" + _ITEMS_BF16, ("VEC", "L", "NV")),
+    ("K1 bf16 spmm_rows", "spmm_rows" + _ITEMS_BF16.format(0, 0),
+     ("VEC", "L", "NV")),
+    ("K1 bf16 spmm_packs", "spmm_packs" + _ITEMS_BF16.format(0, 0),
+     ("VEC", "L", "NV")),
     ("K1 spmm_combine", r"spmm_combineI(f|13__nv_bfloat16)E", ("T",)),
     ("K1w spmm_rows", "spmm_rows" + _ITEMS.format(r"([12])", r"(\d)"),
      ("VEC", "L", "NV", "WOP", "DWOP")),
@@ -481,29 +511,49 @@ REGISTER_REPORT = (
      ("VEC", "L", "NV", "WOP", "DWOP")),
     ("K1w spmm_packs", "spmm_packs" + _ITEMS.format("(0)", r"([12])"),
      ("VEC", "L", "NV", "WOP", "DWOP")),
+    ("K1w bf16 spmm_rows", "spmm_rows" + _ITEMS_BF16.format(r"([12])",
+                                                            r"(\d)"),
+     ("VEC", "L", "NV", "WOP", "DWOP")),
+    ("K1w bf16 spmm_rows", "spmm_rows" + _ITEMS_BF16.format("(0)",
+                                                            r"([12])"),
+     ("VEC", "L", "NV", "WOP", "DWOP")),
+    ("K1w bf16 spmm_packs", "spmm_packs" + _ITEMS_BF16.format(r"([12])",
+                                                              r"(\d)"),
+     ("VEC", "L", "NV", "WOP", "DWOP")),
+    ("K1w bf16 spmm_packs", "spmm_packs" + _ITEMS_BF16.format("(0)",
+                                                              r"([12])"),
+     ("VEC", "L", "NV", "WOP", "DWOP")),
     ("K8 node walk dedup_attn_bwd_nodes",
      r"dedup_attn_bwd_nodesILi(\d+)ELi(\d+)ELi(\d+)E", ("NC", "U", "G")),
     ("K9 additive gat_fwd_groups",
-     r"gat_fwd_groupsILi(\d+)ELi(\d+)ELb(\d)ELb0E", ("VEC", "NV", "V4")),
+     r"gat_fwd_groups" + _T + r"Li(\d+)ELi(\d+)ELb(\d)ELb0E",
+     ("T", "VEC", "NV", "V4")),
     ("K7 additive gat_fwd_groups cells",
-     r"gat_fwd_groupsILi(\d+)ELi(\d+)ELb(\d)ELb1E", ("VEC", "NV", "V4")),
-    ("K9 / K7 merge gat_fwd_combine", r"gat_fwd_combineILi(\d+)E", ("NC",)),
-    ("K10-dq additive gat_dq_groups", r"gat_dq_groupsILi(\d+)ELi(\d+)ELb(\d)E",
-     ("VEC", "NV", "V4")),
+     r"gat_fwd_groups" + _T + r"Li(\d+)ELi(\d+)ELb(\d)ELb1E",
+     ("T", "VEC", "NV", "V4")),
+    ("K9 / K7 merge gat_fwd_combine", r"gat_fwd_combine" + _T + r"Li(\d+)E",
+     ("T", "NC")),
+    ("K10-dq additive gat_dq_groups",
+     r"gat_dq_groups" + _T + r"Li(\d+)ELi(\d+)ELb(\d)E",
+     ("T", "VEC", "NV", "V4")),
     ("K10-dkv additive gat_dkv_groups",
-     r"gat_dkv_groupsILi(\d+)ELi(\d+)ELb(\d)E", ("VEC", "NV", "V4")),
+     r"gat_dkv_groups" + _T + r"Li(\d+)ELi(\d+)ELb(\d)E",
+     ("T", "VEC", "NV", "V4")),
     ("K9-dot dot_fwd_staged", "dot_fwd_staged" + _STAGED.format(0),
-     ("NC", "FULL", "WIDE")),
+     ("T", "NC", "FULL", "WIDE")),
     ("K10-dq-dot dot_dq_staged", "dot_dq_staged" + _STAGED.format(0),
-     ("NC", "FULL", "WIDE")),
+     ("T", "NC", "FULL", "WIDE")),
     ("K10-dkv-dot dot_dkv_staged", "dot_dkv_staged" + _STAGED.format(0),
-     ("NC", "FULL", "WIDE")),
+     ("T", "NC", "FULL", "WIDE")),
     ("K7-dot dot_fwd_staged cells", "dot_fwd_staged" + _STAGED.format(1),
-     ("NC", "FULL", "WIDE")),
+     ("T", "NC", "FULL", "WIDE")),
     ("K8-dot row pass dot_dq_staged cells",
-     "dot_dq_staged" + _STAGED.format(1), ("NC", "FULL", "WIDE")),
+     "dot_dq_staged" + _STAGED.format(1), ("T", "NC", "FULL", "WIDE")),
     ("K8-dot node walk dot_dkv_staged cells",
-     "dot_dkv_staged" + _STAGED.format(1), ("NC", "FULL", "WIDE")))
+     "dot_dkv_staged" + _STAGED.format(1), ("T", "NC", "FULL", "WIDE")))
+
+# the element types as ptxas's mangled names give them
+_TYPE_NAMES = {"f": "float", "13__nv_bfloat16": "bf16"}
 
 
 def register_report(log):
@@ -521,7 +571,8 @@ def register_report(log):
                 k = re.search(pattern, m.group(1))
                 if k:
                     entry = label + " " + ", ".join(
-                        f"{n}={v}" for n, v in zip(names, k.groups()))
+                        f"{n}={_TYPE_NAMES.get(v, v)}"
+                        for n, v in zip(names, k.groups()))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -608,6 +659,15 @@ def k1_case_edges(seed=11, n=2000):
     src = rng.integers(0, n, len(dst))
     src[rng.choice(len(dst), 1200, replace=False)] = 5
     return np.stack([src, dst], axis=1), n
+
+
+def bf16_table(n, d, dev, gen, aligned=True):
+    """A contiguous bf16 [n, d] table; ``aligned=False`` starts it one bf16
+    past a 16-byte boundary (the scalar path at any width)."""
+    import torch
+    flat = torch.randn(n * d + 1, device=dev, generator=gen).to(
+        torch.bfloat16)
+    return flat[:n * d].view(n, d) if aligned else flat[1:].view(n, d)
 
 
 def k1_features(n, d, dev, gen, aligned=True):
@@ -780,8 +840,10 @@ def phase_dtype_route(dev):
     exactly (fp16 on the rows of at most 2048 in-edges, whose sums it
     adds exactly); the same feature in float32 launches K1 (sum, then
     mean), in bf16 the bf16 K1 (the CPU's sums exactly: integers); a bf16
-    ``send_ue_recv`` reaches K1w, which has no bf16 instantiation, and
-    raises without a launch."""
+    ``send_ue_recv`` launches the bf16 K1w (the CPU's sums exactly); bf16
+    at K11 (``sddmm_csc``) and on a graph with dedup layouts (K5/K6 and the
+    count-matrix attention K7), which have no bf16 instantiation, raises
+    without a launch."""
     import torch
     from pgl_tpu_torch import Graph
 
@@ -821,24 +883,46 @@ def phase_dtype_route(dev):
             raise AssertionError(f"a {dtype} send_u_recv on the card "
                                  "differs from the CPU's sums")
     reset_all_launches()
-    try:
-        g.send_ue_recv(ones.to(dev, torch.bfloat16),
-                       torch.ones(g.num_edges, device=dev,
-                                  dtype=torch.bfloat16), "mul", "sum")
-    except TypeError:
-        pass
-    else:
-        raise AssertionError("a bf16 send_ue_recv on the card did not "
-                             "raise")
-    if any(all_launches().values()):
-        raise AssertionError("a bf16 send_ue_recv launched a kernel")
+    bones = ones.to(dev, torch.bfloat16)
+    got = g.send_ue_recv(bones, torch.ones(g.num_edges, device=dev,
+                                           dtype=torch.bfloat16), "mul",
+                         "sum")
+    launched = {k: v for k, v in all_launches().items() if v}
+    if launched != {("bf16", "mul", "csc", 2, 1): 1} or got.dtype != \
+            torch.bfloat16 or not torch.equal(got.cpu(),
+                                              want.to(torch.bfloat16)):
+        raise AssertionError(f"a bf16 send_ue_recv launched {launched}, "
+                             "expected the bf16 K1w once, and the CPU's sums")
+    from pgl_tpu_torch.nn import GATConv
+    with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0,
+                           DEDUP_MAX_RATIO=float("inf")):
+        g_d = host.tensor(dev)
+    if g_d._dedup_layouts is None:
+        raise AssertionError("the dtype route's graph has no dedup layouts")
+    conv = GATConv(2, 2, num_heads=1, feat_drop=0.0, attn_drop=0.0,
+                   device=dev).to(torch.bfloat16)
+    for what, call in (
+            ("sddmm_csc", lambda: g.sddmm_csc(bones, bones, "mul")),
+            ("send_u_recv under DEDUP", lambda: g_d.send_u_recv(bones,
+                                                                "sum")),
+            ("GATConv under DEDUP", lambda: conv(g_d, bones))):
+        reset_all_launches()
+        try:
+            call()
+        except TypeError:
+            pass
+        else:
+            raise AssertionError(f"a bf16 {what} on the card did not raise")
+        if any(all_launches().values()):
+            raise AssertionError(f"a bf16 {what} launched a kernel")
     print(f"[graph] int64 send_u_recv on the card: the CPU's sums exactly "
           f"(N={g.num_nodes}, E={g.num_edges}, largest sum "
           f"{int(want.max())}), no kernel launched; float32 launched K1 "
           f"twice (sum, mean); fp16 took the segment path (the CPU's sums "
           f"on rows of up to 2048 in-edges), bf16 the bf16 K1 (the CPU's "
-          f"sums); a bf16 send_ue_recv raised",
-          flush=True)
+          f"sums); a bf16 send_ue_recv launched the bf16 K1w (the CPU's "
+          f"sums); bf16 at sddmm_csc, send_u_recv and GATConv under DEDUP "
+          f"raised", flush=True)
 
 
 def headline_host():
@@ -866,7 +950,6 @@ def headline_trainer(g, bf16=False):
     import torch
     from pgl_tpu_torch.models import GCN
     from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
-    from pgl_tpu_torch.utils import amp
 
     x = g.node_feat["h"]
     y = torch.as_tensor(np.random.default_rng(0).integers(
@@ -875,29 +958,43 @@ def headline_trainer(g, bf16=False):
                 dropout=0.0, generator=torch.Generator().manual_seed(0),
                 device=x.device)
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    xin = x.to(torch.bfloat16) if bf16 else x
+    return model, model_step(
+        model, opt, lambda call: ce(call(g, xin).float(), y).mean(), bf16)
 
-    def step():
-        opt.zero_grad(set_to_none=True)
-        loss = ce(model(g, x), y).mean()
-        loss.backward()
-        opt.step()
-        return loss.detach()
+
+def model_step(model, opt, loss_of, bf16=False):
+    """A function that takes one step of ``opt`` on ``loss_of(call)`` and
+    returns its loss (its ``optimizer`` attribute ``opt``), where
+    ``call(*args, **kwargs)`` runs ``model``. With ``bf16`` the step is
+    ``utils.amp``'s recipe: ``call`` evaluates the model at bf16 copies of
+    its float32 parameters (``bf16_params_policy`` over
+    ``functional_call``), and the gradients, masters and optimizer state
+    stay float32; ``loss_of`` then feeds bf16 features and returns a
+    float32 loss."""
+    import torch
+    from pgl_tpu_torch.utils import amp
 
     if bf16:
         masters = dict(model.named_parameters())
-        xb = x.to(torch.bfloat16)
-        policy = amp.bf16_params_policy(lambda p: ce(
-            torch.func.functional_call(model, p, (g, xb)).float(),
-            y).mean())
+        policy = amp.bf16_params_policy(lambda p: loss_of(
+            lambda *a, **k: torch.func.functional_call(model, p, a, k)))
 
-        def step():   # noqa: F811
+        def step():
             opt.zero_grad(set_to_none=True)
             loss, _ = policy(masters)
             opt.step()
             return loss
+    else:
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = loss_of(model)
+            loss.backward()
+            opt.step()
+            return loss.detach()
 
     step.optimizer = opt
-    return model, step
+    return step
 
 
 def _kernel_modules():
@@ -915,14 +1012,17 @@ def reset_all_launches():
 
 
 def all_launches():
-    """Launch counts of every kernel module: K1's keyed ``(kind, D)`` and
-    its bf16 instantiation's ``("bf16", kind, D)``, the dedup kernels'
-    ``(kernel, kind, D)``, the two attention modules' ``(kernel, H, dvh)``
-    (dot mode ``(kernel, H, dsh, dvh)``), K11's ``("sddmm", op, D)``."""
+    """Launch counts of every kernel module: K1's keyed ``(kind, D)``,
+    K1w's ``(op, kind, D, H)``, the dedup kernels' ``(kernel, kind, D)``,
+    the two attention modules' ``(kernel, H, dvh)`` (dot mode ``(kernel, H,
+    dsh, dvh)``), K11's ``("sddmm", op, D)``; a bf16 launch (K1, K1w, K9,
+    K10) under its key with ``"bf16"`` first."""
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
     got = {k: v for module in _kernel_modules()
            for k, v in module.LAUNCHES_BY_SHAPE.items()}
-    got.update({("bf16",) + k: v for k, v in sk.LAUNCHES_BF16.items()})
+    got.update({("bf16",) + k: v for module in (sk, ak)
+                for k, v in module.LAUNCHES_BF16.items()})
     return got
 
 
@@ -1384,10 +1484,12 @@ def attention_inputs(n, H, dvh, dev, gen):
                  for w in (H, H, H * dvh, H * dvh))
 
 
-def check_attention(tag, lays, ins, rate, seed, slope=0.2):
-    """K9, K10-dq and K10-dkv (float32) against their plain versions in
-    float64 on the same inputs, with leaky slope ``slope``; returns the max
-    |err| of each and the kernels' outputs."""
+def check_attention(tag, lays, ins, rate, seed, slope=0.2, rule=None):
+    """K9, K10-dq and K10-dkv (on ``ins``' dtype, float32 or bf16) against
+    their plain versions in float64 on the same inputs, with leaky slope
+    ``slope``, by ``rule`` (``check``; ``check_bf16`` on bf16 inputs; lse,
+    float32 either way, by ``check``); returns the max |err| of each and
+    the kernels' outputs."""
     import torch
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     csc, csr = lays
@@ -1396,7 +1498,7 @@ def check_attention(tag, lays, ins, rate, seed, slope=0.2):
     dvh = v.shape[1] // H
     with torch.no_grad():
         out, lse = ak._fwd_cuda(a_dst, a_src, v, csc, slope, dvh, rate, seed)
-        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+        delta = ak._delta(g, out, H, dvh)
         bwd = (a_dst, a_src, v, g, lse, delta)
         da_dst = ak._dq_cuda(*bwd, csc, slope, dvh, rate, seed)
         da_src, dv = ak._dkv_cuda(*bwd, csr, slope, dvh, rate, seed)
@@ -1407,12 +1509,13 @@ def check_attention(tag, lays, ins, rate, seed, slope=0.2):
         dsrc_p, dv_p = ak.gat_dkv_reference(*d64, csr, slope, dvh, rate,
                                             seed)
         name = f"{tag} H={H} dvh={dvh} rate={rate} leaky={slope}"
-        return {"gat_fwd": max(check(f"{name} K9 out", out, out_p),
+        rule = rule or check
+        return {"gat_fwd": max(rule(f"{name} K9 out", out, out_p),
                                check(f"{name} K9 lse", lse, lse_p)),
-                "gat_dq": check(f"{name} K10-dq", da_dst, dq_p),
-                "gat_dkv": max(check(f"{name} K10-dkv d a_src", da_src,
-                                     dsrc_p),
-                               check(f"{name} K10-dkv dv", dv, dv_p))}, \
+                "gat_dq": rule(f"{name} K10-dq", da_dst, dq_p),
+                "gat_dkv": max(rule(f"{name} K10-dkv d a_src", da_src,
+                                    dsrc_p),
+                               rule(f"{name} K10-dkv dv", dv, dv_p))}, \
             (out, lse, da_dst, da_src, dv)
 
 
@@ -1448,18 +1551,21 @@ def k10_case_graphs(dev):
     return graphs
 
 
-def check_k10_case(tag, g, H, dvh, rate, slope, dev, gen):
-    """K9 and the additive K10 on ``g`` at (H, dvh) against float64, the
-    same bits on a second run, and zeros on the rows without edges (out,
-    lse and d a_dst on CSC's, d a_src and dv on CSR's). Returns the max
-    |err| of each kernel."""
+def check_k10_case(tag, g, H, dvh, rate, slope, dev, gen, bf16=False):
+    """K9 and the additive K10 on ``g`` at (H, dvh) against float64 (on
+    bf16 tables with ``check_bf16``), the same bits on a second run, and
+    zeros on the rows without edges (out, lse and d a_dst on CSC's, d a_src
+    and dv on CSR's). Returns the max |err| of each kernel."""
     import torch
     lays = g._attention_layouts()
     ins = attention_inputs(g.num_nodes, H, dvh, dev, gen)
+    if bf16:
+        ins = bf16_inputs(ins)
     seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
                          generator=gen, device=dev)
-    e, got = check_attention(tag, lays, ins, rate, seed, slope)
-    _, again = check_attention(tag, lays, ins, rate, seed, slope)
+    rule = check_bf16 if bf16 else None
+    e, got = check_attention(tag, lays, ins, rate, seed, slope, rule)
+    _, again = check_attention(tag, lays, ins, rate, seed, slope, rule)
     if not all(map(torch.equal, got, again)):
         raise AssertionError(f"{tag} H={H} dvh={dvh} rate={rate} leaky="
                              f"{slope}: two runs differ")
@@ -1616,12 +1722,12 @@ def gat_host():
                           seed=1)
 
 
-def gat_trainer(g, defaults=False, mode="edge"):
+def gat_trainer(g, defaults=False, mode="edge", bf16=False):
     """The bench GAT (``defaults=False``: no dropout, evaluation mode as in
     the bench) or ``GAT`` with its default dropouts, training, on ``g``'s
     device (weights from seed 0, labels from seed 1), its two GATConvs in
     attention dropout ``mode``, and a function that takes one Adam step and
-    returns its loss."""
+    returns its loss (``bf16``: under ``utils.amp``, ``model_step``)."""
     import torch
     from pgl_tpu_torch.models import GAT
     from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
@@ -1636,15 +1742,10 @@ def gat_trainer(g, defaults=False, mode="edge"):
     for layer in (model.gat_0, model.gat_1):
         layer.attn_drop_mode = mode
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-
-    def step():
-        opt.zero_grad(set_to_none=True)
-        loss = ce(model(g, x, defaults), y).mean()
-        loss.backward()
-        opt.step()
-        return loss.detach()
-
-    return model, step
+    xin = x.to(torch.bfloat16) if bf16 else x
+    return model, model_step(
+        model, opt, lambda call: ce(call(g, xin, defaults).float(), y).mean(),
+        bf16)
 
 
 def gat_per_step(g):
@@ -2420,8 +2521,8 @@ def dot_inputs(n, shape, dev, gen):
 
 
 def run_dot(lays, ins, shape, leaky, rate, seed):
-    """The dot-mode K9, K10-dq and K10-dkv on float32 ``ins``: ``(out, lse,
-    dq, dk, dv)``."""
+    """The dot-mode K9, K10-dq and K10-dkv on ``ins`` (float32 or bf16):
+    ``(out, lse, dq, dk, dv)``."""
     import torch
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     csc, csr = lays
@@ -2430,18 +2531,18 @@ def run_dot(lays, ins, shape, leaky, rate, seed):
     with torch.no_grad():
         out, lse = ak._dot_fwd_cuda(q, k, v, csc, leaky, dsh, dvh, rate,
                                     seed)
-        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
-        bwd = (q, k, v, g, lse, delta)
+        bwd = (q, k, v, g, lse, ak._delta(g, out, H, dvh))
         dq = ak._dot_dq_cuda(*bwd, csc, leaky, dsh, dvh, rate, seed)
         dk, dv = ak._dot_dkv_cuda(*bwd, csr, leaky, dsh, dvh, rate, seed)
     return out, lse, dq, dk, dv
 
 
-def check_dot(tag, lays, ins, shape, leaky, rate, seed, got):
+def check_dot(tag, lays, ins, shape, leaky, rate, seed, got, rule=None):
     """``got`` of :func:`run_dot` against the plain versions in float64 on
     the same inputs (the backward on the kernel's lse and delta), with
-    ``check``'s rule; dq, dk and dv scaled by the 2-norm of the terms each
-    element sums. Returns the max |err| of each kernel."""
+    ``rule`` (``check``; ``check_bf16`` on bf16 inputs; lse by ``check``);
+    dq, dk and dv scaled by the 2-norm of the terms each element sums.
+    Returns the max |err| of each kernel."""
     import torch
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     csc, csr = lays
@@ -2450,9 +2551,10 @@ def check_dot(tag, lays, ins, shape, leaky, rate, seed, got):
     name = f"{tag} H={H} dsh={dsh} dvh={dvh} rate={rate}"
     with torch.no_grad():
         q, k, v, g = (t.double() for t in ins)
+        rule = rule or check
         out_p, lse_p = ak.dot_attention_reference(q, k, v, csc, dsh, dvh,
                                                   leaky, rate, seed)
-        errs = {"dot_fwd": max(check(f"{name} K9 out", out, out_p),
+        errs = {"dot_fwd": max(rule(f"{name} K9 out", out, out_p),
                                check(f"{name} K9 lse", lse, lse_p))}
         del out_p, lse_p
         delta = (g.reshape(-1, H, dvh)
@@ -2470,16 +2572,16 @@ def check_dot(tag, lays, ins, shape, leaky, rate, seed, got):
         dst, src, (_, ds, _) = grads(csc)
         scale = ak.head_scatter(ds * ds, k[src] ** 2, dst, n).sqrt()
         del ds
-        errs["dot_dq"] = check(f"{name} K10-dq", dq,
-                               ak.dot_dq_reference(*bwd, csc, *args), scale)
+        errs["dot_dq"] = rule(f"{name} K10-dq", dq,
+                              ak.dot_dq_reference(*bwd, csc, *args), scale)
         dst, src, (qe, ds, g_e) = grads(csr)
         scale_k = ak.head_scatter(ds * ds, q[dst] ** 2, src, n).sqrt()
         scale_v = ak.head_scatter(qe * qe, g_e.reshape(len(dst), -1) ** 2,
                                   src, n).sqrt()
         del qe, ds, g_e
         dk_p, dv_p = ak.dot_dkv_reference(*bwd, csr, *args)
-        errs["dot_dkv"] = max(check(f"{name} K10-dkv dk", dk, dk_p, scale_k),
-                              check(f"{name} K10-dkv dv", dv, dv_p, scale_v))
+        errs["dot_dkv"] = max(rule(f"{name} K10-dkv dk", dk, dk_p, scale_k),
+                              rule(f"{name} K10-dkv dv", dv, dv_p, scale_v))
     return errs
 
 
@@ -2619,7 +2721,7 @@ def unimp_host():
                            feat_dim=128, avg_degree=116, seed=0)
 
 
-def unimp_trainer(g, labels, training=True, mode="edge"):
+def unimp_trainer(g, labels, training=True, mode="edge", bf16=False):
     """UniMP at the reference's defaults (``pgl_tpu/models/unimp.py:65-71``:
     3 layers, 2 heads of 128, dropout 0.3; weights from seed 0) on ``g``'s
     device, its two attention layers in attention dropout ``mode``, and a
@@ -2627,7 +2729,8 @@ def unimp_trainer(g, labels, training=True, mode="edge"):
     ``examples/unimp/train.py:65-92``: the train nodes are the first
     ogbn-arxiv share (``UNIMP_TRAIN`` of ``UNIMP_NODES``) of a seeded
     permutation, each step feeds a fresh seeded 60% of their labels, and
-    the loss is over the train nodes not fed."""
+    the loss is over the train nodes not fed (``bf16``: under
+    ``utils.amp``, ``model_step``)."""
     import torch
     from pgl_tpu_torch.models import UniMP
     from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
@@ -2645,18 +2748,15 @@ def unimp_trainer(g, labels, training=True, mode="edge"):
         layer.attn_drop_mode = mode
     opt = torch.optim.AdamW(model.parameters(), lr=5e-3, weight_decay=5e-4)
     gen = torch.Generator(device=dev).manual_seed(7)
+    xin = x.to(torch.bfloat16) if bf16 else x
 
-    def step():
+    def loss_of(call):
         feed = train & (torch.rand(n, generator=gen, device=dev) < 0.6)
         rest = (train & ~feed).float()
-        opt.zero_grad(set_to_none=True)
-        losses = ce(model(g, x, y, feed, training=training), y)
-        loss = (losses * rest).sum() / rest.sum().clamp(min=1.0)
-        loss.backward()
-        opt.step()
-        return loss.detach()
+        losses = ce(call(g, xin, y, feed, training=training).float(), y)
+        return (losses * rest).sum() / rest.sum().clamp(min=1.0)
 
-    return model, step
+    return model, model_step(model, opt, loss_of, bf16)
 
 
 def phase_dot_timing(graphs, dev, runs, errs):
@@ -3236,30 +3336,33 @@ def weighted_terms(x, w, lay, op):
             z.index_add(0, lay.seg_ids, m * m).sqrt())
 
 
-def check_weighted(tag, x, w, g, csc, csr, op, out, dx, dw):
-    """K1w's forward, dx and dw (float32, any of them None when not run)
-    against their float64 plain versions at ``check``'s tolerance with the
-    terms scale; returns the max |err| of each."""
+def check_weighted(tag, x, w, g, csc, csr, op, out, dx, dw, rule=None):
+    """K1w's forward, dx and dw (any of them None when not run) against
+    their float64 plain versions with the terms scale, by ``rule``
+    (``check`` on float32; ``check_bf16`` on bf16); returns the max |err|
+    of each."""
     import torch
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
     H = w.shape[1]
+    rule = rule or check
     errs = {}
     with torch.no_grad():
+        g64, x64 = g.double(), x.double()
         if out is not None:
             want, scale = weighted_terms(x, w, csc, op)
-            errs["fwd"] = check(f"{tag} K1w fwd", out, want, scale)
+            errs["fwd"] = rule(f"{tag} K1w fwd", out, want, scale)
         if dx is not None:
             if op == "mul":
                 want, scale = weighted_terms(g, w, csr, op)
-                errs["dx"] = check(f"{tag} K1w dx", dx, want, scale)
             else:
-                errs["dx"] = check_spmm(f"{tag} K1w dx", dx, g, csr)
+                want = sk.spmm_reference(g64, csr)
+                scale = sk.spmm_reference(g64 * g64, csr).sqrt()
+            errs["dx"] = rule(f"{tag} K1w dx", dx, want, scale)
         if dw is not None:
-            g64, x64 = g.double(), x.double()
             want = sk.weight_grad_reference(g64, x64, csr, H, op)
             scale = sk.weight_grad_reference(g64 * g64, x64 * x64, csr, H,
                                              op).sqrt()
-            errs["dw"] = check(f"{tag} K1w dw", dw, want, scale)
+            errs["dw"] = rule(f"{tag} K1w dw", dw, want, scale)
     return errs
 
 
@@ -3290,12 +3393,13 @@ K1W_ITEM_CASES = {1: (1,), 3: (1, 3), 8: (1, 2, 8), 16: (1, 4),
                   64: (1, 8), 128: (1, 2)}
 
 
-def check_k1w_items(case, D, aligned, dev, gen):
+def check_k1w_items(case, D, aligned, dev, gen, bf16=False):
     """K1w over every kind of work item of ``case`` (the graph of
     ``k1_case_edges`` on the card: a hub's pieces, rows of their own,
     packs of short rows, empty rows) at width D for each head count of
     ``K1W_ITEM_CASES``, mul and add, on 16-byte or unaligned tables (the
-    scalar path): the forward, dx with dw and dw alone against float64,
+    scalar path), float32 or (``bf16``) bf16 tables against
+    ``check_bf16``: the forward, dx with dw and dw alone against float64,
     each the same bits twice. Returns the max |err|."""
     import torch
     from pgl_tpu_torch.ops.kernels import segment_kernels as sk
@@ -3304,8 +3408,15 @@ def check_k1w_items(case, D, aligned, dev, gen):
     err = 0.0
     for H in K1W_ITEM_CASES[D]:
         for op in ("mul", "add"):
-            x, cot = (k1_features(n, D, dev, gen, aligned) for _ in range(2))
-            w = torch.randn(E, H, device=dev, generator=gen)
+            if bf16:
+                x, cot = (bf16_table(n, D, dev, gen, aligned)
+                          for _ in range(2))
+                w = torch.randn(E, H, device=dev, generator=gen).to(
+                    torch.bfloat16)
+            else:
+                x, cot = (k1_features(n, D, dev, gen, aligned)
+                          for _ in range(2))
+                w = torch.randn(E, H, device=dev, generator=gen)
 
             def run():
                 out = sk._weighted_forward(x, w, csc, op)
@@ -3319,11 +3430,14 @@ def check_k1w_items(case, D, aligned, dev, gen):
             if not all(map(torch.equal, first, again)):
                 raise AssertionError(f"K1w items {op} H={H} D={D} aligned="
                                      f"{aligned}: two runs differ")
-            tag = f"K1w items {op} H={H} D={D} aligned={aligned}"
-            e = check_weighted(tag, x, w, cot, csc, csr, op, *first[:3])
+            tag = (f"K1w items {op} H={H} D={D} aligned={aligned}"
+                   + (" bf16" if bf16 else ""))
+            rule = check_bf16 if bf16 else check
+            e = check_weighted(tag, x, w, cot, csc, csr, op, *first[:3],
+                               rule=rule)
             e["dw alone"] = check_weighted(f"{tag} dw alone", x, w, cot,
                                            csc, csr, op, None, None,
-                                           first[3])["dw"]
+                                           first[3], rule=rule)["dw"]
             err = max(err, *e.values())
     return err
 
@@ -3486,11 +3600,12 @@ def phase_weighted_small(dev):
               flush=True)
 
 
-def fagcn_trainer(g, dropout=0.6):
+def fagcn_trainer(g, dropout=0.6, bf16=False):
     """FAGCN at the reference's widths (``FAGCN(128, 16, hidden_size=64,
     num_layer=3, eps=0.2, dropout)``) on ``g``'s device, weights from seed
     0, the headline's labels (seed 0), training; and a function that takes
-    one Adam step (lr 1e-3, as the headline) and returns its loss."""
+    one Adam step (lr 1e-3, as the headline) and returns its loss
+    (``bf16``: under ``utils.amp``, ``model_step``)."""
     import torch
     from pgl_tpu_torch.models import FAGCN
     from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
@@ -3502,23 +3617,18 @@ def fagcn_trainer(g, dropout=0.6):
                   dropout=dropout, generator=torch.Generator().manual_seed(0),
                   device=x.device)
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-
-    def step():
-        opt.zero_grad(set_to_none=True)
-        loss = ce(model(g, x, True), y).mean()
-        loss.backward()
-        opt.step()
-        return loss.detach()
-
-    return model, step
+    xin = x.to(torch.bfloat16) if bf16 else x
+    return model, model_step(
+        model, opt, lambda call: ce(call(g, xin, True).float(), y).mean(),
+        bf16)
 
 
-def gatv2_trainer(g):
+def gatv2_trainer(g, bf16=False):
     """GATv2 at the reference's defaults (``GATv2(128, 16, num_heads=8,
     hidden_size=8, feat_drop=0.6, attn_drop=0.6)``) on ``g``'s device,
     weights from seed 0, labels from seed 1 (as the bench GAT), training,
     and a function that takes one Adam step (lr 1e-3) and returns its
-    loss."""
+    loss (``bf16``: under ``utils.amp``, ``model_step``)."""
     import torch
     from pgl_tpu_torch.models import GATv2
     from pgl_tpu_torch.ops import softmax_cross_entropy_integer as ce
@@ -3530,15 +3640,10 @@ def gatv2_trainer(g):
                   attn_drop=0.6, generator=torch.Generator().manual_seed(0),
                   device=x.device)
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-
-    def step():
-        opt.zero_grad(set_to_none=True)
-        loss = ce(model(g, x, True), y).mean()
-        loss.backward()
-        opt.step()
-        return loss.detach()
-
-    return model, step
+    xin = x.to(torch.bfloat16) if bf16 else x
+    return model, model_step(
+        model, opt, lambda call: ce(call(g, xin, True).float(), y).mean(),
+        bf16)
 
 
 # launches a step, from the code: FAGCN's three FAConv layers each run one
@@ -3839,9 +3944,11 @@ def sddmm_inputs(n, D, dev, gen, zeros=False):
 
 
 def same_bits(a, b):
+    """``a`` and ``b`` (float32 or bf16) equal bit for bit."""
     import torch
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(view), b.view(view)))
 
 
 def check_sddmm(tag, lay, x, y, op):
@@ -8478,6 +8585,410 @@ def phase_utilities(dev, host, train_f32):
                   "phase17_s": seconds}
 
 
+# -- phase 18: mixed-precision attention and K1w under utils.amp -------------
+
+# the bf16 kernels' shapes on the amp path: GAT's additive (H, dvh) on the
+# bench GAT graph, UniMP's dot (H, dsh, dvh) on the UniMP graph at its
+# attention dropout, and K1w's (op, H, D): FAGCN's on the headline, GATv2's
+# two on the bench GAT graph
+AMP_UNIMP_RATE = 0.3
+AMP_K1W = (("fagcn", "headline", "mul", 1, 64),
+           ("gatv2_h8", "gat_graph", "mul", 8, 64),
+           ("gatv2_h1", "gat_graph", "mul", 1, 16))
+
+
+def check_bf16(name, got, want, scale=None, floor=1.0):
+    """A bf16 kernel output against float64 of the same bf16 inputs: the
+    float32 kernel's rule (``check``: ``1e-4 max(floor, |want|, scale)``,
+    the float32 arithmetic the bf16 kernel also does) plus ``2^-8 |want|``,
+    the one rounding of its float32 result to bf16 (half an ulp). Returns
+    the max |err|."""
+    import torch
+    if got.dtype != torch.bfloat16 or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}, "
+                             f"expected bf16 {tuple(want.shape)}")
+    err, bound = past_bound(got, want, scale, floor)
+    bound = bound + 2.0 ** -8 * want.double().abs()
+    bad = ~(err <= bound)
+    max_err = float(err.max()) if err.numel() else 0.0
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements off, "
+                             f"max |err| {max_err:.3e}")
+    return max_err
+
+
+def same_bits_all(tag, a, b):
+    """Raise unless the tensors of ``a`` and ``b`` are equal bit for
+    bit."""
+    if not all(map(same_bits, a, b)):
+        raise AssertionError(f"{tag}: two runs differ")
+
+
+def bf16_inputs(tensors):
+    """``tensors`` rounded to bf16 (the tables an amp step feeds)."""
+    import torch
+    return tuple(t.to(torch.bfloat16) for t in tensors)
+
+
+def bf16_attention_check(tag, lays, ins, rate, seed, shape=None,
+                         slope=0.2):
+    """The bf16 K9, K10-dq and K10-dkv on bf16 ``ins`` (additive, or dot
+    mode at ``shape`` = (H, dsh, dvh)) against float64 of the same bf16
+    values with ``check_bf16`` (lse, float32, with ``check``), the same
+    bits on a second run. Returns the max |err| by kernel."""
+    import torch
+    if shape is None:
+        def run():
+            return check_attention(tag, lays, ins, rate, seed, slope,
+                                   rule=check_bf16)
+    else:
+        def run():
+            got = run_dot(lays, ins, shape, slope, rate, seed)
+            return check_dot(tag, lays, ins, shape, slope, rate, seed, got,
+                             rule=check_bf16), got
+    errs, got = run()
+    _, again = run()
+    same_bits_all(f"bf16 {tag} rate={rate}", got, again)
+    if got[0].dtype != torch.bfloat16 or got[1].dtype != torch.float32:
+        raise AssertionError(f"bf16 {tag}: out {got[0].dtype}, lse "
+                             f"{got[1].dtype}")
+    return errs
+
+
+def bf16_attention_rows(rows, tag, g, lays, ins, rate, seed, launches,
+                        shape=None, slope=0.2):
+    """Rows of the bf16 attention kernels on ``g`` (additive at (H, dvh)
+    from ``ins``, or dot at ``shape``): CUDA-event ms of the bf16 kernel
+    and of the float32 one on the same values, the plain version's on the
+    bf16 tables, and the byte bound with bf16 tables (each input read
+    once, each output written once: bf16 columns at 2 bytes, lse and delta
+    at 4; the edge list, the CSC positions where the CSR pass drops, the
+    work list). No one PyTorch call computes graph attention: library
+    none. ``launches`` are the amp run's, keyed as ``all_launches``; the
+    bf16 kernels' device ms a step are the amp profile's."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    csc, csr = lays
+    N, E = g.num_nodes, g.num_edges
+    f32 = tuple(t.float() for t in ins)
+    dot = shape is not None
+    if dot:
+        H, dsh, dvh = shape
+        DS = H * dsh
+    else:
+        H, dvh = ins[0].shape[1], ins[2].shape[1] // ins[0].shape[1]
+        DS = H
+    C = H * dvh
+
+    def calls(tables):
+        a, b, v, gr = tables
+        with torch.no_grad():
+            if dot:
+                out, lse = ak._dot_fwd_cuda(a, b, v, csc, slope, dsh, dvh,
+                                            rate, seed)
+            else:
+                out, lse = ak._fwd_cuda(a, b, v, csc, slope, dvh, rate, seed)
+        bwd = (a, b, v, gr, lse, ak._delta(gr, out, H, dvh))
+        if dot:
+            args = (slope, dsh, dvh, rate, seed)
+            pargs = (dsh, dvh, slope, rate, seed)
+            return {
+                "dot_fwd": (lambda: ak._dot_fwd_cuda(a, b, v, csc, *args),
+                            lambda: ak.dot_attention_reference(
+                                a, b, v, csc, *pargs), csc),
+                "dot_dq": (lambda: ak._dot_dq_cuda(*bwd, csc, *args),
+                           lambda: ak.dot_dq_reference(*bwd, csc, *pargs),
+                           csc),
+                "dot_dkv": (lambda: ak._dot_dkv_cuda(*bwd, csr, *args),
+                            lambda: ak.dot_dkv_reference(*bwd, csr, *pargs),
+                            csr)}
+        args = (slope, dvh, rate, seed)
+        return {
+            "gat_fwd": (lambda: ak._fwd_cuda(a, b, v, csc, *args),
+                        lambda: ak.gat_attention_reference(a, b, v, csc,
+                                                           *args), csc),
+            "gat_dq": (lambda: ak._dq_cuda(*bwd, csc, *args),
+                       lambda: ak.gat_dq_reference(*bwd, csc, *args), csc),
+            "gat_dkv": (lambda: ak._dkv_cuda(*bwd, csr, *args),
+                        lambda: ak.gat_dkv_reference(*bwd, csr, *args),
+                        csr)}
+
+    bf, fl = calls(ins), calls(f32)
+    # (bf16 columns read, float32 columns read, bf16 columns written,
+    # float32 columns written) of a node's rows, and the operations an edge
+    per_head = 7 + 8 * (rate > 0)
+    cols = {"fwd": (2 * DS + C, 0, C, H), "dq": (2 * DS + 2 * C, 2 * H, DS, 0),
+            "dkv": (2 * DS + 2 * C, 2 * H, DS + C, 0)}
+    per_col = {"fwd": 2, "dq": 4, "dkv": 4}
+    errs = bf16_attention_check(tag, lays, ins, rate, seed, shape, slope)
+    for kernel, (fn, plain, lay) in bf.items():
+        part = kernel.split("_")[1]
+        with torch.no_grad():
+            ms = time_ms(fn, 50)
+            f32_ms = time_ms(fl[kernel][0], 50)
+            plain_ms = time_ms(plain, 3)
+        b_in, f_in, b_out, f_out = cols[part]
+        work = (4 * lay.pieces.shape[0] if dot else
+                4 * lay.k10_items.shape[0] + lay.empty_rows.shape[0])
+        edge_ints = 1 + (part == "dkv" and rate > 0)
+        nbytes = (N * (2 * (b_in + b_out) + 4 * (f_in + f_out))
+                  + 4 * (E * edge_ints + work))
+        ops = E * (H * per_head + (2 * DS if dot else 0)
+                   + per_col[part] * C)
+        name = (f"{kernel}_h{H}_s{dsh}_d{dvh}" if dot
+                else f"{kernel}_h{H}_d{dvh}") + (
+            f"_drop{rate:g}" if rate else "") + "_bf16"
+        key = ("bf16", kernel, *(shape if dot else (H, dvh)))
+        timing_row(rows, {"graph": tag, "H": H, "dvh": dvh, "rate": rate,
+                          "rows": N, "edges": E, "dtype": "bf16"},
+                   name, kernel, DOT_SOURCE if dot else ATTN_SOURCE,
+                   (DOT_REPLACES if dot else ATTN_REPLACES)[kernel],
+                   launches.get(key, 0), errs[kernel], ms, plain_ms, nbytes,
+                   ops, None)
+        rows[-1]["f32_ms"] = f32_ms
+        print(f"[amp kernels] {name}: bf16 {ms:.5f} ms, float32 "
+              f"{f32_ms:.5f} ms ({ms / f32_ms:.3f}x); max |err| vs float64 "
+              f"{errs[kernel]:.3e}", flush=True)
+
+
+def bf16_k1w_rows(rows, g, tag, name, op, H, D, launches, dev, gen):
+    """Rows of the bf16 K1w at (op, H, D) on ``g``: the forward over CSC
+    and the backward over CSR (dx and dw in one launch), against float64
+    of the same bf16 values (``check_weighted`` with ``check_bf16``), the
+    same bits twice, and CUDA-event ms beside the float32 K1w on the same
+    values, the plain version on the bf16 tables and the library (one
+    weight an edge: ``torch.sparse.mm`` on a bf16 CSR matrix of the
+    weights; a weight a head: ``torch.bmm`` on batched bf16 COO matrices;
+    or the error it raises). The byte bound: the bf16 table (and on mul's
+    backward the row table), weights, out and dw at 2 bytes, the indices,
+    edge ids and work items at 4."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
+    csc, csr = g._spmm_layouts
+    N, E = g.num_nodes, g.num_edges
+    x, w, cot = bf16_inputs((torch.randn(N, D, device=dev, generator=gen),
+                             torch.randn(E, H, device=dev, generator=gen),
+                             torch.randn(N, D, device=dev, generator=gen)))
+    got = run_weighted(x, w, cot, csc, csr, op)
+    same_bits_all(f"bf16 K1w {name}", got,
+                  run_weighted(x, w, cot, csc, csr, op))
+    errs = check_weighted(f"bf16 {name}", x, w, cot, csc, csr, op, *got,
+                          rule=check_bf16)
+    mul = op == "mul"
+    wop = 1 if mul else 2
+    table = 2 * N * D
+    for kind, lay, bwd in (("csc", csc, False), ("csr", csr, True)):
+        def tables(dtype):
+            t = [a.to(dtype) for a in (x, w, cot)]
+            out = torch.empty(N, D, device=dev, dtype=dtype)
+            part = torch.empty(lay.item_partials, D, device=dev)
+            dw = torch.empty(E, H, device=dev, dtype=dtype) if bwd else None
+            if bwd:
+                return (t[2], t[1], lay, out, part, 1 if mul else 0, wop,
+                        t[0] if mul else None, dw)
+            return (t[0], t[1], lay, out, part, wop)
+        b_args, f_args = tables(torch.bfloat16), tables(torch.float32)
+        ms = time_ms(lambda: sk._launch_weighted(*b_args), 50)
+        f32_ms = time_ms(lambda: sk._launch_weighted(*f_args), 50)
+        if bwd:
+            plain = lambda: ((sk.spmm_weighted_reference(cot, w, lay, "mul")
+                              if mul else sk.spmm_reference(cot, lay)),
+                             sk.weight_grad_reference(cot, x, lay, H, op))
+        else:
+            plain = lambda: sk.spmm_weighted_reference(x, w, lay, op)
+        plain_ms = time_ms(plain, 5)
+        lib_ms = lib_error = lib_name = None
+        try:
+            lib, lib_name = k1w_library(lay, N, w, cot if bwd else x)
+            lib()
+            lib_ms = time_ms(lib, 50)
+        except (RuntimeError, NotImplementedError, TypeError) as exc:
+            lib_error = f"{type(exc).__name__}: {exc}"[:300]
+        struct = 8 * E + 16 * lay.items.shape[0]
+        reads = table * (2 if bwd and mul else 1) + struct + 2 * E * H
+        nbytes = reads + table + (2 * E * H if bwd else 0)
+        kernel = "k1w_bwd" if bwd else "k1w_fwd"
+        err = max(errs["dx"], errs["dw"]) if bwd else errs["fwd"]
+        timing_row(rows, {"graph": tag, "rows": N, "edges": E, "op": op,
+                          "H": H, "D": D, "dtype": "bf16"},
+                   f"{name}_{kernel}_{kind}_bf16", kernel, SOURCE,
+                   K1W_REPLACES, launches.get(("bf16", op, kind, D, H), 0),
+                   err, ms, plain_ms, nbytes, 2 * E * D * (2 if bwd else 1),
+                   lib_ms, lib_name=lib_name or "none", layout=kind)
+        rows[-1].update(f32_ms=f32_ms, library_error=lib_error)
+        print(f"[amp kernels] {name} {kernel} {kind}: bf16 {ms:.5f} ms, "
+              f"float32 {f32_ms:.5f} ms ({ms / f32_ms:.3f}x); library "
+              + (f"{lib_ms:.5f} ms" if lib_ms is not None
+                 else f"none ({lib_error})")
+              + f"; max |err| vs float64 {err:.3e}", flush=True)
+
+
+# the bf16 kernels' case shapes: the additive lane maps of the path and
+# two ragged ones (scalar loads), the dot mode's UniMP, a narrow and a
+# many-head shape, K1w's widths (8 bf16 a vector at 8 and past, scalar
+# below)
+AMP_K10_SHAPES = ((8, 8), (1, 16), (4, 32), (3, 5), (1, 1))
+AMP_DOT_SHAPES = ((2, 128, 128), (8, 16, 16), (43, 2, 4))
+AMP_K1W_D = (1, 3, 8, 16, 64, 128)
+
+
+def phase_amp_kernel_cases(dev):
+    """The bf16 K9/K10 and K1w on the case graphs, each against float64 of
+    the same bf16 values (``check_bf16``) with the same bits twice: the
+    additive kernels at ``AMP_K10_SHAPES`` on ``k10_case_graphs`` (a split
+    hub, 16-edge rows, no edges; rates 0 and 0.6, zeros on the rows
+    without edges), the dot kernels at ``AMP_DOT_SHAPES`` on the skewed
+    small graph (rates 0 and 0.3; a leaky relu at many heads), K1w over
+    every kind of work item at ``AMP_K1W_D`` on 16-byte and unaligned
+    tables. Returns the max |err|."""
+    import torch
+    from pgl_tpu_torch import Graph
+    gen = torch.Generator(device=dev).manual_seed(29)
+    err = 0.0
+    for tag, g in k10_case_graphs(dev).items():
+        for H, dvh in AMP_K10_SHAPES:
+            for rate in (0.0, 0.6):
+                e = check_k10_case(f"bf16 {tag}", g, H, dvh, rate, 0.2, dev,
+                                   gen, bf16=True)
+                err = max(err, *e.values())
+    small = Graph(attention_graph(3000, 40000, seed=2),
+                  num_nodes=3000).tensor(dev)
+    lays = small._attention_layouts()
+    seed = torch.tensor([-777], dtype=torch.int32, device=dev)
+    for shape in AMP_DOT_SHAPES:
+        for rate in (0.0, 0.3):
+            ins = bf16_inputs(dot_inputs(3000, shape, dev, gen))
+            e = bf16_attention_check("small dot", lays, ins, rate, seed,
+                                     shape, 0.2 if shape[0] > 8 else 0.0)
+            err = max(err, *e.values())
+    edges, n = k1_case_edges()
+    case = Graph(edges, num_nodes=n).tensor(dev)
+    for D in AMP_K1W_D:
+        for aligned in (True, False):
+            err = max(err, check_k1w_items(case, D, aligned, dev, gen,
+                                           bf16=True))
+    print(f"[amp kernels] bf16 K9/K10 at {len(AMP_K10_SHAPES)} additive "
+          f"lane maps on 3 case graphs (rates 0, 0.6), the dot mode at "
+          f"{AMP_DOT_SHAPES} (rates 0, 0.3), K1w over every work item at D "
+          f"in {AMP_K1W_D}, vector and scalar loads: max |err| vs float64 "
+          f"{err:.3e}; same bits on a second run", flush=True)
+    reset_all_launches()
+    return err
+
+
+def amp_steps(tag, g, trainer, per_step, num_class, train_f32):
+    """One model under ``utils.amp`` (``trainer(g, bf16)``): the first
+    step's loss within ``AMP_LOSS_RTOL`` of the float32 step's from the
+    same weights, then ``phase_train``'s 3 warm-up and 20 timed steps
+    asserting ``per_step`` (bf16 keys only: no float32 attention or K1w
+    launch) and a finite, falling loss; masters and optimizer state
+    float32; then a torch.profiler trace of the amp step
+    (``phase_gat_profile``). Returns the step line's entry and the
+    launches."""
+    import torch
+    l32 = float(trainer(g, False)[1]())
+    l16 = float(trainer(g, True)[1]())
+    rel = abs(l16 - l32) / abs(l32)
+    if not rel <= AMP_LOSS_RTOL:
+        raise AssertionError(f"amp {tag}: first loss {l16} against "
+                             f"float32's {l32} ({rel:.3e} relative)")
+    made = {}
+
+    def make(g):
+        made["model"], step = trainer(g, True)
+        made["opt"] = step.optimizer
+        return made["model"], step
+
+    train, by_shape = phase_train(g, f"amp {tag}", per_step, make, num_class)
+    dtypes = {p.dtype for p in made["model"].parameters()} | {
+        v.dtype for st in made["opt"].state.values() for v in st.values()
+        if v.is_floating_point() and v.numel() > 1}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"amp {tag}: masters or optimizer state in "
+                             f"{dtypes}")
+    print(f"[amp {tag}] first step: loss {l16:.6f} under amp, {l32:.6f} in "
+          f"float32 ({rel:.3e} relative); masters and optimizer state "
+          f"float32; step {train['step_ms']:.4f} ms against float32's "
+          f"{train_f32['step_ms']:.4f}, peak {train['peak_mib']:.1f} MiB "
+          f"against {train_f32['peak_mib']:.1f}", flush=True)
+    prof = phase_gat_profile(g, f"amp {tag}", lambda g: trainer(g, True))
+    return dict(train, first_loss=l16, first_loss_f32=l32,
+                first_loss_rel=rel, step_ms_f32=train_f32["step_ms"],
+                peak_mib_f32=train_f32["peak_mib"], profile=prof), by_shape
+
+
+def bf16_keys(per_step):
+    return {("bf16",) + k: v for k, v in per_step.items()}
+
+
+def phase_amp_attention(dev, host):
+    """Phase 18: the bf16 kernels' cases (``phase_amp_kernel_cases``);
+    GAT, UniMP, FAGCN and GATv2 under ``utils.amp`` on the bf16 K9/K10
+    (additive and dot) and K1w: each model's float32 run and amp run
+    (``amp_steps``), then the bf16 kernels at the path's shapes against
+    float64 and timed beside the float32 kernels. Returns (the kernel
+    rows, the step line's entries)."""
+    import torch
+    t0 = time.perf_counter()
+    phase_amp_kernel_cases(dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+    rows, steps, runs = [], {}, {}
+
+    g_gat = gat_host().tensor()
+    lays = g_gat._attention_layouts()
+    for tag, g, trainer, per, ncls in (
+            ("GAT", g_gat, lambda g, b: gat_trainer(g, bf16=b),
+             gat_per_step(g_gat), 16),
+            ("GATv2", g_gat, gatv2_trainer, GATV2_PER_STEP, 16)):
+        f32, _ = phase_train(g, f"{tag} float32", per,
+                             lambda g: trainer(g, False), ncls)
+        steps[f"amp_{tag}"], runs[tag] = amp_steps(
+            tag, g, trainer, bf16_keys(per), ncls, f32)
+    for H, dvh in GAT_SHAPES:
+        ins = bf16_inputs(attention_inputs(g_gat.num_nodes, H, dvh, dev,
+                                           gen))
+        bf16_attention_rows(rows, "gat_graph", g_gat, lays, ins, 0.0, seed,
+                            runs["GAT"])
+    for name, graph, op, H, D in AMP_K1W[1:]:
+        bf16_k1w_rows(rows, g_gat, graph, name, op, H, D, runs["GATv2"],
+                      dev, gen)
+    del g_gat, lays
+    torch.cuda.empty_cache()
+
+    g = headline_graph(False, host)
+    f32, _ = phase_train(g, "FAGCN float32", FAGCN_PER_STEP,
+                         lambda g: fagcn_trainer(g), 16)
+    steps["amp_FAGCN"], runs["FAGCN"] = amp_steps(
+        "FAGCN", g, lambda g, b: fagcn_trainer(g, bf16=b),
+        bf16_keys(FAGCN_PER_STEP), 16, f32)
+    name, graph, op, H, D = AMP_K1W[0]
+    bf16_k1w_rows(rows, g, graph, name, op, H, D, runs["FAGCN"], dev, gen)
+    del g
+    torch.cuda.empty_cache()
+
+    host_u, labels = unimp_host()
+    g_u = host_u.tensor()
+    lays = g_u._attention_layouts()
+    per = {k: 2 * v for k, v in attention_per_step(
+        lays, (UNIMP_SHAPE,), DOT_KERNELS).items()}
+    f32, _ = phase_train(g_u, "UniMP float32", per,
+                         lambda g: unimp_trainer(g, labels), 40)
+    steps["amp_UniMP"], runs["UniMP"] = amp_steps(
+        "UniMP", g_u, lambda g, b: unimp_trainer(g, labels, bf16=b),
+        bf16_keys(per), 40, f32)
+    ins = bf16_inputs(dot_inputs(g_u.num_nodes, UNIMP_SHAPE, dev, gen))
+    bf16_attention_rows(rows, "unimp", g_u, lays, ins, AMP_UNIMP_RATE, seed,
+                        runs["UniMP"], UNIMP_SHAPE, slope=0.0)
+    del g_u, lays, ins
+    reset_all_launches()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"[phase 18] {seconds:.1f} s", flush=True)
+    steps["phase18_s"] = seconds
+    return rows, steps
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
@@ -8498,9 +9009,10 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    t0 = time.perf_counter()
-    libs = _build.build("segment_kernels", "dedup_kernels",
-                        "attention_kernels", "dedup_attention",
+    t_start = t0 = time.perf_counter()
+    libs = _build.build("segment_kernels", "segment_kernels_bf16",
+                        "dedup_kernels", "attention_kernels",
+                        "attention_kernels_bf16", "dedup_attention",
                         "sddmm_kernels")
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
     for path in libs.values():
@@ -8508,7 +9020,9 @@ def main():
     for line in apply_report(
             libs["dedup_kernels"].with_suffix(".log").read_text()):
         print(line, flush=True)
-    for name in ("segment_kernels", "attention_kernels", "dedup_attention"):
+    for name in ("segment_kernels", "segment_kernels_bf16",
+                 "attention_kernels", "attention_kernels_bf16",
+                 "dedup_attention"):
         for line in register_report(
                 libs[name].with_suffix(".log").read_text()):
             print(line, flush=True)
@@ -8628,6 +9142,9 @@ def main():
     torch.cuda.empty_cache()
     util_rows, util_steps = phase_utilities(dev, host, train)
     rows += util_rows
+    torch.cuda.empty_cache()
+    amp_rows, amp_steps_ = phase_amp_attention(dev, host)
+    rows += amp_rows
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -8638,9 +9155,11 @@ def main():
         **gat_steps, **dedup_steps, **unimp_steps, **ddot_steps,
         **weighted_steps, **sddmm_steps, **zoo_steps, **hetero_steps,
         **readout_steps, **sampling_steps, "out_of_core": out_of_core,
-        **parallel_steps, **g4r_lines, **util_steps,
-        "device": smi}}),
+        **parallel_steps, **g4r_lines, **util_steps, **amp_steps_,
+        "seconds": time.perf_counter() - t_start, "device": smi}}),
         flush=True)
+    print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,7 +82,7 @@ OLD = {
 # the file that holds each source's K10-dq kernel, where the kernel starts
 # and where the next one begins
 FILE = {"tree": "dot_staged.cuh", "old": "attention_kernels.cu"}
-BODY = {"tree": ("dot_dq_staged(const float*", "// The dkv pass"),
+BODY = {"tree": ("dot_dq_staged(const T*", "// The dkv pass"),
         "old": ("dot_dq_pieces(const float*", "// Dot-mode K10-dkv")}
 
 

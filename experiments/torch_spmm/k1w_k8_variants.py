@@ -79,8 +79,8 @@ VARIANTS = {
         "unroll2": [(K1W_UNROLL, "      : 2;")],
         "k1_u4": [(K1_UNROLL,
                    "      WOP == kNone && DWOP == kNone ? k1 / 2\n")],
-        "w_const": [("wv[k] = __ldg(wt.w + static_cast<size_t>(e) * wt.H + "
-                     "hd.head[k]);", "wv[k] = 1.f;")],
+        "w_const": [("load_vec<T, 1>(wt.w + static_cast<size_t>(e) * wt.H "
+                     "+ hd.head[k], w1);", "w1[0] = 1.f;")],
         "no_eid": [("mine_e = has ? __ldg(wt.eid + pc.y + lane) : 0;",
                     "mine_e = has ? pc.y + lane : 0;"),
                    ("next_id = next_e < pc.z ? __ldg(wt.eid + next_e) : 0;",
@@ -92,8 +92,9 @@ VARIANTS = {
                   ("gather_row<VEC, L, NV>(wt.xrow, pc.x + dr, D, c0, l, "
                    "live, xr[u]);", "zero(xr[u]);")],
         "no_tree": [("head_tree<U, L, NV>(p, hd.same, l);", "", 2)],
-        "no_store": [("*o = (hd.cont >> k & 1u) ? *o + p[k] : p[k];",
-                      "if (p[k] == 1234.5f) *o = p[k];")],
+        "no_store": [("*o = to_elem<T>((hd.cont >> k & 1u) ? elem_f32(*o) "
+                      "+ p[k] : p[k]);",
+                      "if (p[k] == 1234.5f) *o = to_elem<T>(p[k]);")],
     },
     "dedup_attention": {
         "as_is": [],

@@ -10,12 +10,16 @@ padding to 128 are TPU matters and are not carried over. Its dtype gate
 every other dtype to the segment path) is :func:`plain_on_cuda` for
 integers, float16 and float64, which ``Graph`` and the layers read to
 route such a CUDA tensor to the plain path. Each wrapper names the dtypes
-its kernel takes and raises on any other: K1 (:func:`use_spmm_kernel`)
-float32 and bf16; K1w (:func:`use_weighted_spmm_kernel`), K4–K6
-(:func:`use_dedup_kernel`), the attention kernels and K11 float32 only, so
-a bf16 tensor on the card raises there until those kernels have a bf16
-instantiation. :func:`traced` tells a wrapper that ``torch.export`` or
-``torch.compile`` is tracing it.
+its kernel takes and raises on any other: float32 and bf16 at K1
+(:func:`use_spmm_kernel`), K1w (:func:`use_weighted_spmm_kernel`) and the
+per-edge attention K9/K10 (:func:`use_attention_kernel`), whose bf16
+instantiations load bf16 tables, compute in float32 and round each stored
+value once; float32 only at K4–K6 (:func:`use_dedup_kernel`), the
+count-matrix attention K7/K8 (:func:`use_dedup_attention_kernel`) and K11
+(:func:`use_sddmm_kernel`), so a bf16 tensor on the card raises there until
+those kernels have a bf16 instantiation. Nothing casts a bf16 tensor to
+float32 to reach a kernel. :func:`traced` tells a wrapper that
+``torch.export`` or ``torch.compile`` is tracing it.
 
 Which SpMM family a graph uses is decided once, at ``Graph.tensor()`` time,
 from the module constants below (read there, so tests and ``chip_smoke.py``
@@ -31,7 +35,8 @@ from torch._subclasses.fake_tensor import is_fake
 
 __all__ = ["plain_on_cuda", "use_spmm_kernel", "use_weighted_spmm_kernel",
            "use_dedup_kernel", "fused_attention_graph",
-           "use_attention_kernel", "use_sddmm_kernel", "traced", "DEDUP",
+           "use_attention_kernel", "use_dedup_attention_kernel",
+           "use_sddmm_kernel", "traced", "DEDUP",
            "DEDUP_MIN_EDGES", "DEDUP_MAX_EDGES",
            "DEDUP_MAX_RATIO", "COUNTS_MAX", "COUNTS_BUDGET_BYTES"]
 
@@ -72,8 +77,8 @@ def plain_on_cuda(*tensors) -> bool:
     path (the segment path, the edge-space attention) with the tensors that
     the kernel wrappers would have received. A float32 or bf16 CUDA tensor
     reaches the wrapper, which launches its kernel or (bf16 where the
-    kernel has no bf16 instantiation) raises, and a CPU tensor runs the
-    wrapper's plain version."""
+    kernel has no bf16 instantiation: K4–K8, K11) raises, and a CPU tensor
+    runs the wrapper's plain version."""
     return any(t is not None and t.device.type == "cuda"
                and t.dtype not in (torch.float32, torch.bfloat16)
                for t in tensors)
@@ -104,17 +109,16 @@ def use_spmm_kernel(feature: torch.Tensor) -> bool:
 
 
 def use_weighted_spmm_kernel(feature: torch.Tensor) -> bool:
-    """True to launch the CUDA weighted SpMM (K1w, float32), False to run
-    its plain version; raises as :func:`use_spmm_kernel` does."""
-    return _use_kernel(feature, "weighted SpMM")
+    """True to launch the CUDA weighted SpMM (K1w, float32 or bf16), False
+    to run its plain version; raises as :func:`use_spmm_kernel` does."""
+    return _use_kernel(feature, "weighted SpMM",
+                       (torch.float32, torch.bfloat16))
 
 
 def use_dedup_kernel(feature: torch.Tensor) -> bool:
     """True to launch the CUDA dedup SpMM (K5/K6, float32), False to run
     its plain version; raises as :func:`use_spmm_kernel` does."""
     return _use_kernel(feature, "dedup SpMM")
-
-    return torch.compiler.is_compiling() or is_fake(tensor)
 
 
 def fused_attention_graph(graph) -> bool:
@@ -126,10 +130,18 @@ def fused_attention_graph(graph) -> bool:
 
 
 def use_attention_kernel(tensor: torch.Tensor) -> bool:
-    """True to launch the CUDA attention kernels (K9/K10), False to run
-    their plain versions; raises as :func:`use_spmm_kernel` does (the port
-    of ``use_fused_attention``, whose other gates are the TPU's)."""
-    return _use_kernel(tensor, "attention")
+    """True to launch the CUDA per-edge attention kernels (K9/K10, float32
+    or bf16), False to run their plain versions; raises as
+    :func:`use_spmm_kernel` does (the port of ``use_fused_attention``,
+    whose other gates are the TPU's)."""
+    return _use_kernel(tensor, "attention", (torch.float32, torch.bfloat16))
+
+
+def use_dedup_attention_kernel(tensor: torch.Tensor) -> bool:
+    """True to launch the CUDA count-matrix attention kernels (K7/K8,
+    float32), False to run their plain versions; raises as
+    :func:`use_spmm_kernel` does."""
+    return _use_kernel(tensor, "count-matrix attention")
 
 
 def use_sddmm_kernel(tensor: torch.Tensor) -> bool:

@@ -3,7 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled into
 ``build/lib<name>-<hash>.so`` on first use, where the hash covers the
 source, the headers of ``csrc/`` and the flags, so an edited source or
-header is rebuilt. The library is
+header is rebuilt. A library of ``VARIANTS`` is another source compiled
+with extra flags: ``<name>_bf16`` holds the bf16 entry points of
+``<name>.cu`` (``-DPGL_BF16``), so each half of a source's instantiations
+is its own ``nvcc``, the two built in parallel. The library is
 loaded with ctypes; no PyTorch headers are compiled. A failed build raises
 with the compiler's output. ``nvcc``'s own report (``-Xptxas -v``:
 registers, shared memory, spills per kernel) is kept beside the library as
@@ -29,6 +32,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# library -> (source, extra flags)
+VARIANTS = {"segment_kernels_bf16": ("segment_kernels", ("-DPGL_BF16",)),
+            "attention_kernels_bf16": ("attention_kernels", ("-DPGL_BF16",))}
+
 _LOADED: dict = {}
 
 
@@ -44,11 +51,18 @@ def _nvcc() -> str:
     return found
 
 
+def _source(name: str):
+    """(the source of library ``name``, its nvcc flags)."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", (*NVCC_FLAGS, *extra)
+
+
 def _target(name: str) -> Path:
     # the headers are shared, so each of them is part of every source
-    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    source, flags = _source(name)
+    parts = [source, *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -63,8 +77,9 @@ def build(*names: str) -> dict:
         procs = {}
         for n, t in todo.items():
             tmp = t.with_name(f"{t.name}.{os.getpid()}.tmp")
+            source, flags = _source(n)
             procs[n] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                [nvcc, *flags, "-o", str(tmp), str(source)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         failed = []
         for n, (tmp, proc) in procs.items():
@@ -72,7 +87,7 @@ def build(*names: str) -> dict:
             t = todo[n]
             t.with_suffix(".log").write_text(log)
             if proc.returncode != 0:
-                failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+                failed.append(f"{n} (nvcc exit {proc.returncode}):\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, t)  # atomic: concurrent builds agree

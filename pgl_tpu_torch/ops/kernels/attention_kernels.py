@@ -20,22 +20,27 @@ K10) in both of its score modes onto hand-written CUDA kernels for Hopper,
   empty rows apart, which the kernels only zero. The count-matrix K7
   (``dedup_attention.py``) walks the same kind of list over its cells.
 * :func:`k10_lanes` chooses how the additive K9 and K10 lay a row's
-  columns over a lane group (16-byte vectors of one head), and so how many
-  edges a warp takes at once.
+  columns over a lane group (16-byte vectors of one head: 4 floats or 8
+  bf16), and so how many edges a warp takes at once.
 * :func:`fused_gat_attention` and :func:`fused_graph_attention` are
   autograd ``Function``s with the reference's contracts (``:855-938`` and
   ``:756-777``): the forward (K9) saves ``lse``; the backward computes
   ``delta = Σ g·out`` per (row, head) in torch, then runs K10-dq over the
   CSC layout (``d a_dst`` or ``dq``) and K10-dkv over the CSR layout
   (``d a_src`` or ``dk``, and ``dv``). The dropout seed is saved, so all
-  three passes draw the same mask.
+  three passes draw the same mask. The kernels take float32 or bf16
+  tables (``pgl_*_bf16``: loaded as bf16, computed in float32, each
+  stored value rounded once to bf16); ``lse`` and ``delta`` are float32
+  either way.
 * The plain PyTorch versions, in edge space with ``index_add_``, over
   :func:`plain_attention` and :func:`edge_grads` (which the count-matrix
   attention's plain versions share): :func:`gat_attention_reference`,
   :func:`gat_dq_reference` and :func:`gat_dkv_reference` (additive),
   :func:`dot_attention_reference`, :func:`dot_dq_reference` and
   :func:`dot_dkv_reference` (dot). CPU tensors run them; CUDA tensors
-  launch the kernels or raise.
+  launch the kernels or raise. On bf16 (or fp16) tables they compute in
+  float32 and round each output once, ``lse`` staying float32: the
+  kernels' contract.
 * :func:`gat_score_features` writes GAT's additive score as a dot
   (``:941-954``), for ``GATConv``'s many-head fallback.
 * :func:`drop_keep` and :func:`apply_hash_dropout` are the reference's
@@ -49,7 +54,9 @@ mode, kernel one of ``gat_fwd``, ``gat_dq``, ``gat_dkv``, and by
 second launch counts under its name with ``_combine``.
 ``LAUNCHES_BY_LAYOUT`` counts them again by ``(key, id(layout))``, so that
 the launches on each of several graphs of one shape (the relations of a
-heterogeneous graph) are read apart.
+heterogeneous graph) are read apart. ``LAUNCHES_BF16`` counts the bf16
+launches apart, by the same keys; the other two count float32 launches
+only.
 """
 
 from __future__ import annotations
@@ -66,7 +73,7 @@ from ... import resolve_device
 from ..dispatch import use_attention_kernel
 from ..segment import segment_max, segment_softmax, segment_sum
 from . import _build
-from .segment_kernels import cut_rows
+from .segment_kernels import _HALF, cut_rows
 
 __all__ = ["AttentionLayout", "build_attention_layouts", "drop_keep",
            "apply_hash_dropout", "plain_attention", "edge_grads",
@@ -76,7 +83,7 @@ __all__ = ["AttentionLayout", "build_attention_layouts", "drop_keep",
            "dot_dkv_reference", "fused_graph_attention",
            "gat_score_features", "k10_work_list", "k10_lanes", "ET",
            "PACK_ROW", "MAX_SLOTS", "LAUNCHES_BY_SHAPE", "LAUNCHES_BY_LAYOUT",
-           "reset_launches"]
+           "LAUNCHES_BF16", "reset_launches"]
 
 # most edges in one piece (one warp's work); read when a layout is built
 ET = 256
@@ -93,14 +100,17 @@ MAX_SLOTS = 512
 
 LAUNCHES_BY_SHAPE: Counter = Counter()
 LAUNCHES_BY_LAYOUT: Counter = Counter()
+LAUNCHES_BF16: Counter = Counter()
 
 _MASK32 = 0xFFFFFFFF
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launches():
     """Set the launch counts to 0."""
     LAUNCHES_BY_SHAPE.clear()
     LAUNCHES_BY_LAYOUT.clear()
+    LAUNCHES_BF16.clear()
 
 
 @dataclass(frozen=True)
@@ -211,11 +221,13 @@ def k10_work_list(indptr, pieces):
             np.flatnonzero(deg == 0))
 
 
-def k10_lanes(H: int, dvh: int):
-    """How the additive K9 and K10 (and K7) hold H heads of ``dvh`` columns: ``(vec, lh,
-    group, nv)``. A lane holds vectors of ``vec`` consecutive columns of
-    one head (4 where ``dvh`` rounds up to 4 or more, else 1; columns past
-    ``dvh`` are masked); head h owns the ``lh = dvh_p / vec`` vector slots
+def k10_lanes(H: int, dvh: int, dtype=torch.float32):
+    """How the additive K9 and K10 (and K7) hold H heads of ``dvh`` columns
+    of ``dtype``: ``(vec, lh, group, nv)``. A lane holds vectors of ``vec``
+    consecutive columns of one head, a 16-byte vector where ``dvh`` rounds
+    up to one (4 float32 where it rounds up to 4 or more, 8 bf16 where to
+    8 or more), else 1 (columns past ``dvh`` are masked); head h owns the
+    ``lh = dvh_p / vec`` vector slots
     ``h * lh ...`` (``dvh_p``: ``dvh`` rounded up to a power of two), slot
     ``s`` lying in lane ``s % 32`` of the group as its vector ``s // 32``;
     a lane group is ``group`` lanes (the power of two that holds the H *
@@ -223,7 +235,8 @@ def k10_lanes(H: int, dvh: int):
     and a lane holds ``nv`` vectors (more than one only where ``group`` is
     32)."""
     dvh_p = _dvh_p(dvh)
-    vec = 4 if dvh_p >= 4 else 1
+    width = 16 // torch.empty((), dtype=dtype).element_size()
+    vec = width if dvh_p >= width else 1
     lh = dvh_p // vec
     slots = H * lh
     group = min(32, _dvh_p(slots))
@@ -270,6 +283,11 @@ def apply_hash_dropout(p, rate: float, seed, positions) -> torch.Tensor:
 
 
 # -- plain versions ----------------------------------------------------------
+
+def _f32(*tables):
+    """``tables`` as the plain versions compute them: bf16 and fp16 widened
+    to float32 (the kernels' arithmetic), other dtypes as they are."""
+    return tuple(t.float() if t.dtype in _HALF else t for t in tables)
 
 def _leaky(s, slope):
     return torch.where(s >= 0, s, s * slope) if slope else s
@@ -320,11 +338,15 @@ def gat_attention_reference(a_dst, a_src, v, layout: AttentionLayout,
     """The plain forward: ``(out [N, H·dvh], lse [N, H])`` over the CSC
     ``layout`` (``_xla_additive_reference``, ``:699-721``, with the hash
     dropout, plus the log-sum-exp of each row's scores; an empty row gives
-    zeros in both)."""
-    return plain_attention(a_dst, a_src, v, *_ends(layout),
-                           layout.positions(), leaky_slope,
-                           dvh or v.shape[1] // a_dst.shape[1], attn_drop,
-                           seed)
+    zeros in both). bf16 tables: computed in float32, ``out`` rounded once,
+    ``lse`` float32."""
+    dtype = v.dtype
+    a_dst, a_src, v = _f32(a_dst, a_src, v)
+    out, lse = plain_attention(a_dst, a_src, v, *_ends(layout),
+                               layout.positions(), leaky_slope,
+                               dvh or v.shape[1] // a_dst.shape[1], attn_drop,
+                               seed)
+    return out.to(dtype), lse
 
 
 def edge_grads(a_dst, a_src, v, g, lse, delta, dst, src, keys, leaky_slope,
@@ -349,28 +371,34 @@ def edge_grads(a_dst, a_src, v, g, lse, delta, dst, src, keys, leaky_slope,
 def gat_dq_reference(a_dst, a_src, v, g, lse, delta,
                      layout: AttentionLayout, leaky_slope: float = 0.2,
                      dvh=None, attn_drop: float = 0.0, seed=None):
-    """The plain K10-dq: ``d a_dst [N, H]`` over the CSC ``layout``."""
+    """The plain K10-dq: ``d a_dst [N, H]`` over the CSC ``layout``
+    (bf16 tables: computed in float32, rounded once)."""
     N, H = a_dst.shape
+    dtype = v.dtype
+    a_dst, a_src, v, g = _f32(a_dst, a_src, v, g)
     dst, src = _ends(layout)
     _, ds, _ = edge_grads(a_dst, a_src, v, g, lse, delta, dst, src,
                           layout.positions(), leaky_slope,
                           dvh or v.shape[1] // H, attn_drop, seed)
-    return ds.new_zeros(N, H).index_add_(0, dst, ds)
+    return ds.new_zeros(N, H).index_add_(0, dst, ds).to(dtype)
 
 
 def gat_dkv_reference(a_dst, a_src, v, g, lse, delta,
                       layout: AttentionLayout, leaky_slope: float = 0.2,
                       dvh=None, attn_drop: float = 0.0, seed=None):
     """The plain K10-dkv: ``(d a_src [N, H], dv [N, H·dvh])`` over the CSR
-    ``layout``, whose ``eidx`` gives the dropout hash its CSC positions."""
+    ``layout``, whose ``eidx`` gives the dropout hash its CSC positions
+    (bf16 tables: computed in float32, each output rounded once)."""
     N, H = a_src.shape
     dvh = dvh or v.shape[1] // H
+    dtype = v.dtype
+    a_dst, a_src, v, g = _f32(a_dst, a_src, v, g)
     dst, src = _ends(layout)
     q, ds, g_e = edge_grads(a_dst, a_src, v, g, lse, delta, dst, src,
                             layout.positions(), leaky_slope, dvh, attn_drop,
                             seed)
-    return (ds.new_zeros(N, H).index_add_(0, src, ds),
-            head_scatter(q, g_e.flatten(1), src, N))
+    return (ds.new_zeros(N, H).index_add_(0, src, ds).to(dtype),
+            head_scatter(q, g_e.flatten(1), src, N).to(dtype))
 
 
 def head_scatter(ds, x_e, rows, num_rows: int):
@@ -390,21 +418,28 @@ def dot_attention_reference(q, k, v, layout: AttentionLayout, dsh: int,
     """The plain dot-mode forward: ``(out [N, H·dvh], lse [N, H])`` over the
     CSC ``layout`` (``_xla_reference``, ``:724-751``, with the hash dropout,
     plus the log-sum-exp of each row's scores; an empty row gives zeros in
-    both)."""
-    return plain_attention(q, k, v, *_ends(layout), layout.positions(),
-                           leaky_slope, dvh, attn_drop, seed, dsh)
+    both). bf16 tables: computed in float32, ``out`` rounded once, ``lse``
+    float32."""
+    dtype = v.dtype
+    q, k, v = _f32(q, k, v)
+    out, lse = plain_attention(q, k, v, *_ends(layout), layout.positions(),
+                               leaky_slope, dvh, attn_drop, seed, dsh)
+    return out.to(dtype), lse
 
 
 def dot_dq_reference(q, k, v, g, lse, delta, layout: AttentionLayout,
                      dsh: int, dvh: int, leaky_slope: float = 0.0,
                      attn_drop: float = 0.0, seed=None):
     """The plain dot-mode K10-dq: ``dq [N, H·dsh]``, per head ``Σ_e ds_e ·
-    k[src_e]`` over the CSC ``layout``."""
+    k[src_e]`` over the CSC ``layout`` (bf16 tables: computed in float32,
+    rounded once)."""
+    dtype = v.dtype
+    q, k, v, g = _f32(q, k, v, g)
     dst, src = _ends(layout)
     _, ds, _ = edge_grads(q, k, v, g, lse, delta, dst, src,
                           layout.positions(), leaky_slope, dvh, attn_drop,
                           seed, dsh)
-    return head_scatter(ds, k[src], dst, q.shape[0])
+    return head_scatter(ds, k[src], dst, q.shape[0]).to(dtype)
 
 
 def dot_dkv_reference(q, k, v, g, lse, delta, layout: AttentionLayout,
@@ -412,20 +447,28 @@ def dot_dkv_reference(q, k, v, g, lse, delta, layout: AttentionLayout,
                       attn_drop: float = 0.0, seed=None):
     """The plain dot-mode K10-dkv: ``(dk [N, H·dsh], dv [N, H·dvh])``, per
     head ``Σ_e ds_e · q[dst_e]`` and ``Σ_e q_e · g[dst_e]`` over the CSR
-    ``layout``, whose ``eidx`` gives the dropout hash its CSC positions."""
+    ``layout``, whose ``eidx`` gives the dropout hash its CSC positions
+    (bf16 tables: computed in float32, each output rounded once)."""
     N = k.shape[0]
+    dtype = v.dtype
+    q, k, v, g = _f32(q, k, v, g)
     dst, src = _ends(layout)
     qe, ds, g_e = edge_grads(q, k, v, g, lse, delta, dst, src,
                              layout.positions(), leaky_slope, dvh, attn_drop,
                              seed, dsh)
-    return (head_scatter(ds, q[dst], src, N),
-            head_scatter(qe, g_e.flatten(1), src, N))
+    return (head_scatter(ds, q[dst], src, N).to(dtype),
+            head_scatter(qe, g_e.flatten(1), src, N).to(dtype))
 
 
 # -- CUDA --------------------------------------------------------------------
 
-def _lib():
-    lib = _build.load("attention_kernels")
+def _lib(dtype=torch.float32):
+    """The library of the entry points on ``dtype``: ``attention_kernels``
+    (``pgl_*_f32``) or, for bf16, ``attention_kernels_bf16`` (``pgl_*_bf16``:
+    the same source built apart, so the two build in parallel)."""
+    suffix = _SUFFIX[dtype]
+    lib = _build.load("attention_kernels" if suffix == "f32"
+                      else "attention_kernels_bf16")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # the dot mode: (device, tables..., indices[, eidx], pieces, n_pieces,
     #  split_rows, split_ptr, n_split, H, dsh, dvh, slope, seed, thresh,
@@ -436,18 +479,23 @@ def _lib():
     # H, dvh, vec, lh, group, nv, slope, seed, thresh, inv_keep,
     # outputs..., partials, stream)
     k10 = [p, i, i, p, i, p, p, i] + [i] * 6 + [f, p, i, f]
-    sigs = {"pgl_gat_fwd_f32": [i] + [p] * 4 + k10 + [p] * 4,
-            "pgl_gat_dq_f32": [i] + [p] * 7 + k10 + [p] * 3,
-            "pgl_gat_dkv_f32": [i] + [p] * 8 + k10 + [p] * 4,
-            "pgl_dot_fwd_f32": [i] + [p] * 4 + dot + [p] * 4,
-            "pgl_dot_dq_f32": [i] + [p] * 7 + dot + [p] * 3,
-            "pgl_dot_dkv_f32": [i] + [p] * 8 + dot + [p] * 4}
+    sigs = {"pgl_gat_fwd": [i] + [p] * 4 + k10 + [p] * 4,
+            "pgl_gat_dq": [i] + [p] * 7 + k10 + [p] * 3,
+            "pgl_gat_dkv": [i] + [p] * 8 + k10 + [p] * 4,
+            "pgl_dot_fwd": [i] + [p] * 4 + dot + [p] * 4,
+            "pgl_dot_dq": [i] + [p] * 7 + dot + [p] * 3,
+            "pgl_dot_dkv": [i] + [p] * 8 + dot + [p] * 4}
     for name, argtypes in sigs.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, f"{name}_{suffix}")
         if fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def _entry(name, t):
+    """The entry point ``name`` for the tables' dtype of ``t``."""
+    return getattr(_lib(t.dtype), f"{name}_{_SUFFIX[t.dtype]}")
 
 
 def _dvh_p(dvh: int) -> int:
@@ -456,7 +504,9 @@ def _dvh_p(dvh: int) -> int:
 
 def _check(layout, H, dvh, *tensors, dsh=None):
     """Raise on what the kernels do not take (``dsh``: dot mode, whose
-    heads hold score and value columns in the same slots)."""
+    heads hold score and value columns in the same slots). ``tensors`` are
+    the tables, then (the backward) g, lse and delta: the tables and g of
+    one dtype, float32 or bf16; lse and delta float32."""
     width = _dvh_p(dvh) if dsh is None else max(_dvh_p(dsh), _dvh_p(dvh))
     if H * width > MAX_SLOTS:
         what = f"width {dvh}" if dsh is None \
@@ -473,13 +523,19 @@ def _check(layout, H, dvh, *tensors, dsh=None):
         if not t.is_contiguous():
             raise ValueError("the CUDA attention takes contiguous tensors, "
                              f"got strides {t.stride()}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA attention takes float32, got "
-                            f"{t.dtype}")
+        if t.dtype not in _SUFFIX:
+            raise TypeError(f"the CUDA attention takes float32 or bf16, "
+                            f"got {t.dtype}")
         if t.shape[0] != layout.num_rows or t.shape[0] <= layout.max_index:
             raise ValueError(f"table of {t.shape[0]} rows; the layout has "
                              f"{layout.num_rows} rows and gathers row "
                              f"{layout.max_index}")
+    tables, stats = tensors[:4], tensors[4:]
+    if len({t.dtype for t in tables}) > 1 or any(
+            t.dtype != torch.float32 for t in stats):
+        raise TypeError("the CUDA attention takes tables of one dtype and "
+                        "float32 lse and delta, got "
+                        f"{[str(t.dtype) for t in tensors]}")
 
 
 def _drop_args(rate: float):
@@ -495,59 +551,70 @@ def _raise_on(rc, name):
                            f"error {rc}")
 
 
-def _count(name, layout, *shape):
+def _count(name, layout, t, *shape):
+    """Count a pass's launches on the tables' dtype of ``t``."""
     keys = [(name, *shape)]
     if layout.split_rows.shape[0]:
         keys.append((f"{name}_combine", *shape))
     for key in keys:
-        LAUNCHES_BY_SHAPE[key] += 1
-        LAUNCHES_BY_LAYOUT[key, id(layout)] += 1
+        if t.dtype == torch.bfloat16:
+            LAUNCHES_BF16[key] += 1
+        else:
+            LAUNCHES_BY_SHAPE[key] += 1
+            LAUNCHES_BY_LAYOUT[key, id(layout)] += 1
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _f32_empty(*shape, like):
+    """A float32 tensor on ``like``'s device: lse and the split rows'
+    partials, float32 whatever the tables' dtype."""
+    return torch.empty(*shape, dtype=torch.float32, device=like.device)
+
+
 def _fwd_cuda(a_dst, a_src, v, lay, slope, dvh, rate, seed):
     N, H = a_dst.shape
     _check(lay, H, dvh, a_dst, a_src, v)
     out = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
-    lse = torch.empty(N, H, dtype=v.dtype, device=v.device)
-    part = torch.empty(lay.num_partials, H * dvh + 2 * H, dtype=v.dtype,
-                       device=v.device)
-    _raise_on(_lib().pgl_gat_fwd_f32(
+    lse = _f32_empty(N, H, like=v)
+    part = _f32_empty(lay.num_partials, H * dvh + 2 * H, like=v)
+    _raise_on(_entry("pgl_gat_fwd", v)(
         v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
-        lay.indices.data_ptr(), *_k10_args(lay, H, dvh, slope, rate, seed),
+        lay.indices.data_ptr(),
+        *_k10_args(lay, H, dvh, slope, rate, seed, v.dtype),
         out.data_ptr(), lse.data_ptr(), part.data_ptr(), _stream(v)),
         "forward")
-    _count("gat_fwd", lay, H, dvh)
+    _count("gat_fwd", lay, v, H, dvh)
     return out, lse
 
 
-def _k10_args(lay, H, dvh, slope, rate, seed):
+def _k10_args(lay, H, dvh, slope, rate, seed, dtype=torch.float32):
     """The additive K9's, K10's and K7's arguments from their work list to
     ``inv_keep``: ``lay`` is an :class:`AttentionLayout` or a
-    ``dedup_attention.DedupAttention``."""
+    ``dedup_attention.DedupAttention``, ``dtype`` the tables'."""
     thresh, inv_keep = _drop_args(rate)
     n = lay.k10_items.shape[0]
     return (lay.k10_items.data_ptr(), lay.k10_long, n - lay.k10_long,
             lay.empty_rows.data_ptr(), lay.empty_rows.shape[0],
             lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
-            lay.split_rows.shape[0], H, dvh, *k10_lanes(H, dvh), slope,
-            seed.data_ptr(), thresh, inv_keep)
+            lay.split_rows.shape[0], H, dvh, *k10_lanes(H, dvh, dtype),
+            slope, seed.data_ptr(), thresh, inv_keep)
 
 
 def _dq_cuda(a_dst, a_src, v, g, lse, delta, lay, slope, dvh, rate, seed):
     N, H = a_dst.shape
     _check(lay, H, dvh, a_dst, a_src, v, g, lse, delta)
     da = torch.empty(N, H, dtype=v.dtype, device=v.device)
-    part = torch.empty(lay.num_partials, H, dtype=v.dtype, device=v.device)
-    _raise_on(_lib().pgl_gat_dq_f32(
+    part = _f32_empty(lay.num_partials, H, like=v)
+    _raise_on(_entry("pgl_gat_dq", v)(
         v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        lay.indices.data_ptr(), *_k10_args(lay, H, dvh, slope, rate, seed),
+        lay.indices.data_ptr(),
+        *_k10_args(lay, H, dvh, slope, rate, seed, v.dtype),
         da.data_ptr(), part.data_ptr(), _stream(v)), "dq")
-    _count("gat_dq", lay, H, dvh)
+    _count("gat_dq", lay, v, H, dvh)
     return da
 
 
@@ -556,16 +623,23 @@ def _dkv_cuda(a_dst, a_src, v, g, lse, delta, lay, slope, dvh, rate, seed):
     _check(lay, H, dvh, a_dst, a_src, v, g, lse, delta)
     da = torch.empty(N, H, dtype=v.dtype, device=v.device)
     dv = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
-    part = torch.empty(lay.num_partials, H + H * dvh, dtype=v.dtype,
-                       device=v.device)
-    _raise_on(_lib().pgl_gat_dkv_f32(
+    part = _f32_empty(lay.num_partials, H + H * dvh, like=v)
+    _raise_on(_entry("pgl_gat_dkv", v)(
         v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         lay.indices.data_ptr(), lay.eidx.data_ptr(),
-        *_k10_args(lay, H, dvh, slope, rate, seed), da.data_ptr(),
+        *_k10_args(lay, H, dvh, slope, rate, seed, v.dtype), da.data_ptr(),
         dv.data_ptr(), part.data_ptr(), _stream(v)), "dkv")
-    _count("gat_dkv", lay, H, dvh)
+    _count("gat_dkv", lay, v, H, dvh)
     return da, dv
+
+
+def _delta(g, out, H, dvh):
+    """``delta = Σ g·out`` per (row, head), float32 on bf16 (or fp16)
+    tables, the tables' dtype otherwise."""
+    acc = torch.float32 if out.dtype in _HALF else out.dtype
+    return (g.reshape(-1, H, dvh).to(acc)
+            * out.reshape(-1, H, dvh).to(acc)).sum(-1)
 
 
 def _seed_tensor(seed, device) -> torch.Tensor:
@@ -596,8 +670,7 @@ class _GatAttention(torch.autograd.Function):
         csc, csr, slope, dvh, rate = ctx.meta
         H = a_dst.shape[1]
         g = g.contiguous()
-        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
-        ins = (a_dst, a_src, v, g, lse, delta)
+        ins = (a_dst, a_src, v, g, lse, _delta(g, out, H, dvh))
         if use_attention_kernel(v):
             da_dst = _dq_cuda(*ins, csc, slope, dvh, rate, seed)
             da_src, dv = _dkv_cuda(*ins, csr, slope, dvh, rate, seed)
@@ -642,18 +715,17 @@ def _dot_fwd_cuda(q, k, v, lay, slope, dsh, dvh, rate, seed):
     N, H = q.shape[0], q.shape[1] // dsh
     _check(lay, H, dvh, q, k, v, dsh=dsh)
     out = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
-    lse = torch.empty(N, H, dtype=v.dtype, device=v.device)
-    part = torch.empty(lay.num_partials, H * dvh + 2 * H, dtype=v.dtype,
-                       device=v.device)
+    lse = _f32_empty(N, H, like=v)
+    part = _f32_empty(lay.num_partials, H * dvh + 2 * H, like=v)
     thresh, inv_keep = _drop_args(rate)
-    _raise_on(_lib().pgl_dot_fwd_f32(
+    _raise_on(_entry("pgl_dot_fwd", v)(
         v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lay.indices.data_ptr(), lay.pieces.data_ptr(), lay.pieces.shape[0],
         lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
         lay.split_rows.shape[0], H, dsh, dvh, slope, seed.data_ptr(), thresh,
         inv_keep, out.data_ptr(), lse.data_ptr(), part.data_ptr(),
         _stream(v)), "dot forward")
-    _count("dot_fwd", lay, H, dsh, dvh)
+    _count("dot_fwd", lay, v, H, dsh, dvh)
     return out, lse
 
 
@@ -661,17 +733,16 @@ def _dot_dq_cuda(q, k, v, g, lse, delta, lay, slope, dsh, dvh, rate, seed):
     N, H = q.shape[0], q.shape[1] // dsh
     _check(lay, H, dvh, q, k, v, g, lse, delta, dsh=dsh)
     dq = torch.empty(N, H * dsh, dtype=v.dtype, device=v.device)
-    part = torch.empty(lay.num_partials, H * dsh, dtype=v.dtype,
-                       device=v.device)
+    part = _f32_empty(lay.num_partials, H * dsh, like=v)
     thresh, inv_keep = _drop_args(rate)
-    _raise_on(_lib().pgl_dot_dq_f32(
+    _raise_on(_entry("pgl_dot_dq", v)(
         v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         lay.indices.data_ptr(), lay.pieces.data_ptr(), lay.pieces.shape[0],
         lay.split_rows.data_ptr(), lay.split_ptr.data_ptr(),
         lay.split_rows.shape[0], H, dsh, dvh, slope, seed.data_ptr(), thresh,
         inv_keep, dq.data_ptr(), part.data_ptr(), _stream(v)), "dot dq")
-    _count("dot_dq", lay, H, dsh, dvh)
+    _count("dot_dq", lay, v, H, dsh, dvh)
     return dq
 
 
@@ -681,10 +752,9 @@ def _dot_dkv_cuda(q, k, v, g, lse, delta, lay, slope, dsh, dvh, rate,
     _check(lay, H, dvh, q, k, v, g, lse, delta, dsh=dsh)
     dk = torch.empty(N, H * dsh, dtype=v.dtype, device=v.device)
     dv = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
-    part = torch.empty(lay.num_partials, H * (dsh + dvh), dtype=v.dtype,
-                       device=v.device)
+    part = _f32_empty(lay.num_partials, H * (dsh + dvh), like=v)
     thresh, inv_keep = _drop_args(rate)
-    _raise_on(_lib().pgl_dot_dkv_f32(
+    _raise_on(_entry("pgl_dot_dkv", v)(
         v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         lay.indices.data_ptr(), lay.eidx.data_ptr(), lay.pieces.data_ptr(),
@@ -692,7 +762,7 @@ def _dot_dkv_cuda(q, k, v, g, lse, delta, lay, slope, dsh, dvh, rate,
         lay.split_ptr.data_ptr(), lay.split_rows.shape[0], H, dsh, dvh,
         slope, seed.data_ptr(), thresh, inv_keep, dk.data_ptr(),
         dv.data_ptr(), part.data_ptr(), _stream(v)), "dot dkv")
-    _count("dot_dkv", lay, H, dsh, dvh)
+    _count("dot_dkv", lay, v, H, dsh, dvh)
     return dk, dv
 
 
@@ -715,8 +785,7 @@ class _DotAttention(torch.autograd.Function):
         csc, csr, slope, dsh, dvh, rate = ctx.meta
         H = q.shape[1] // dsh
         g = g.contiguous()
-        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
-        ins = (q, k, v, g, lse, delta)
+        ins = (q, k, v, g, lse, _delta(g, out, H, dvh))
         if use_attention_kernel(v):
             dq = _dot_dq_cuda(*ins, csc, slope, dsh, dvh, rate, seed)
             dk, dv = _dot_dkv_cuda(*ins, csr, slope, dsh, dvh, rate, seed)

@@ -27,6 +27,14 @@
 // stores per-piece partials acc | m | l that `gat_fwd_combine` merges in
 // piece order (32 warps where the dot mode takes 16). No float atomics:
 // every run gives the same bits.
+//
+// On bf16 tables (T = __nv_bfloat16, K9 and K10 only; the cell form K7 is
+// float only) a 16-byte vector holds 8 bf16, widened to f32 as it is
+// loaded: at GAT's (8, 8) a head is one vector, a lane group 8 lanes and a
+// warp 4 edges at once (2 on float), at (1, 16) 16 (8). The online max and
+// sum, the exps, p and the products are f32 as on float; out and the
+// gradients are rounded once to bf16 when stored, lse and the split rows'
+// partials stay f32.
 
 #pragma once
 
@@ -41,7 +49,8 @@ namespace {
 // A lane group of G lanes (a power of two up to 32) holds one row's C = H *
 // dvh columns as vectors of VEC consecutive columns of one head: head h owns
 // the lh = dvh_p / VEC vector slots h * lh ... (dvh_p: dvh rounded up to a
-// power of two; VEC = 4 where dvh_p >= 4, else 1), slot s lies in lane
+// power of two; VEC = 4 where dvh_p >= 4, else 1, on float; on bf16 VEC = 8
+// where dvh_p >= 8, else 1: a 16-byte vector either way), slot s lies in lane
 // s % 32 of the group as its vector s / 32, and a lane holds NV vectors (NV
 // > 1 only where G = 32). The host chooses (VEC, lh, G, NV)
 // (`attention_kernels.k10_lanes`). So a vector lies in one head: a lane
@@ -78,19 +87,33 @@ struct VecSlots {
 };
 
 // x <- the vector of `row` (a row of the table) at `col` with `live`
-// columns (zeros past them, and everywhere where `on` is false); V4: one
-// 16-byte load (every vector live whole: dvh % 4 == 0, rows aligned).
-template <int VEC, bool V4>
-__device__ __forceinline__ void load_vec(const float* __restrict__ row,
+// columns, as f32 (zeros past them, and everywhere where `on` is false);
+// V4: one 16-byte load of VEC = kVecElems<T> elements (every vector live
+// whole: dvh % VEC == 0, rows aligned).
+template <typename T, int VEC, bool V4>
+__device__ __forceinline__ void load_vec(const T* __restrict__ row,
                                          int col, int live, bool on,
                                          float (&x)[VEC]) {
   if constexpr (V4) {
+    static_assert(VEC == kVecElems<T>, "a 16-byte vector");
     if (on && col >= 0) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(row + col));
-      x[0] = t.x;
-      x[1] = t.y;
-      x[2] = t.z;
-      x[3] = t.w;
+      if constexpr (std::is_same_v<T, float>) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(row + col));
+        x[0] = t.x;
+        x[1] = t.y;
+        x[2] = t.z;
+        x[3] = t.w;
+      } else {
+        const uint4 t = __ldg(reinterpret_cast<const uint4*>(row + col));
+        const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 p = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+          x[2 * i] = p.x;
+          x[2 * i + 1] = p.y;
+        }
+      }
     } else {
 #pragma unroll
       for (int c = 0; c < VEC; ++c) x[c] = 0.f;
@@ -98,7 +121,32 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ row,
   } else {
 #pragma unroll
     for (int c = 0; c < VEC; ++c)
-      x[c] = on && c < live ? __ldg(row + col + c) : 0.f;
+      x[c] = on && c < live ? ld_f(row + col + c) : 0.f;
+  }
+}
+
+// The vector x times `scale` stored at `o` as T, each value rounded once:
+// V4 one 16-byte store, else the `live` first columns one by one.
+template <typename T, int VEC, bool V4>
+__device__ __forceinline__ void store_vec(T* __restrict__ o,
+                                          const float (&x)[VEC], float scale,
+                                          int live) {
+  if constexpr (V4 && std::is_same_v<T, float>) {
+    *reinterpret_cast<float4*>(o) =
+        make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
+  } else if constexpr (V4) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 p =
+          __floats2bfloat162_rn(x[2 * i] * scale, x[2 * i + 1] * scale);
+      w[i] = *reinterpret_cast<const unsigned*>(&p);
+    }
+    *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < VEC; ++c)
+      if (c < live) o[c] = from_f<T>(x[c] * scale);
   }
 }
 
@@ -150,11 +198,12 @@ __device__ __forceinline__ GroupTask group_task(const K10Work& w, int warp,
   return {pc.x, pc.y, pc.z, -1, false};
 }
 
-// The blocks past the items' zero the empty rows: `width` floats a row, the
+// The blocks past the items' zero the empty rows: `width` values a row, the
 // first n1 into out1 [., n1], the rest into out2 [., width - n1].
+template <typename T1, typename T2>
 __device__ __forceinline__ void zero_empty(const K10Work& w, int width,
-                                           int n1, float* __restrict__ out1,
-                                           float* __restrict__ out2) {
+                                           int n1, T1* __restrict__ out1,
+                                           T2* __restrict__ out2) {
   const long long t =
       static_cast<long long>(blockIdx.x - w.item_blocks) * blockDim.x +
       threadIdx.x;
@@ -162,10 +211,10 @@ __device__ __forceinline__ void zero_empty(const K10Work& w, int width,
   const size_t r = __ldg(w.empty + t / width);
   const int c = static_cast<int>(t % width);
   if (c < n1) {
-    out1[r * n1 + c] = 0.f;
+    out1[r * n1 + c] = from_f<T1>(0.f);
   } else {
     const int n2 = width - n1;
-    out2[r * n2 + (c - n1)] = 0.f;
+    out2[r * n2 + (c - n1)] = from_f<T2>(0.f);
   }
 }
 
@@ -253,19 +302,20 @@ __device__ __forceinline__ void merge_vec(float& M, float& L, float (&A)[VEC],
 // matrix's cells in row order, `src` their nodes, `cnt` their counts,
 // `key` their dropout keys `_cell_idx`) over the work list `w`: out [N, C]
 // and lse [N, H], or a split row's partial rows acc [C] | m [H] | l [H].
-template <int VEC, int NV, bool V4, bool CELLS>
+template <typename T, int VEC, int NV, bool V4, bool CELLS>
 __global__ void __launch_bounds__(kWarps * 32)
-gat_fwd_groups(const float* __restrict__ a_dst,
-               const float* __restrict__ a_src, const float* __restrict__ v,
-               const int* __restrict__ src, const int* __restrict__ cnt,
-               const int* __restrict__ key, const K10Work w, int H, int dvh,
-               float slope, const int* __restrict__ seed_p, int thresh,
-               float inv_keep, float* __restrict__ out,
-               float* __restrict__ lse, float* __restrict__ partials) {
+gat_fwd_groups(const T* __restrict__ a_dst, const T* __restrict__ a_src,
+               const T* __restrict__ v, const int* __restrict__ src,
+               const int* __restrict__ cnt, const int* __restrict__ key,
+               const K10Work w, int H, int dvh, float slope,
+               const int* __restrict__ seed_p, int thresh, float inv_keep,
+               T* __restrict__ out, float* __restrict__ lse,
+               float* __restrict__ partials) {
+  static_assert(!CELLS || std::is_same_v<T, float>, "K7 is float only");
   constexpr int U = FwdUnroll<VEC, NV, CELLS>::value;
   const int C = H * dvh;
   if (static_cast<int>(blockIdx.x) >= w.item_blocks) {
-    zero_empty(w, C + H, C, out, lse);
+    zero_empty<T, float>(w, C + H, C, out, lse);
     return;
   }
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -281,7 +331,7 @@ gat_fwd_groups(const float* __restrict__ a_dst,
   float ad[NV], m[NV], l[NV], acc[NV][VEC];
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
-    ad[k] = __ldg(a_dst + r * H + sl.head[k]);
+    ad[k] = ld_f(a_dst + r * H + sl.head[k]);
     m[k] = kMaskValue;
     l[k] = 0.f;
 #pragma unroll
@@ -314,9 +364,9 @@ gat_fwd_groups(const float* __restrict__ a_dst,
       const size_t s = cur[u];
 #pragma unroll
       for (int k = 0; k < NV; ++k) {
-        as[u][k] = u < left ? __ldg(a_src + s * H + sl.head[k]) : 0.f;
-        load_vec<VEC, V4>(v + s * C, sl.col[k], sl.live[k], u < left,
-                          vv[u][k]);
+        as[u][k] = u < left ? ld_f(a_src + s * H + sl.head[k]) : 0.f;
+        load_vec<T, VEC, V4>(v + s * C, sl.col[k], sl.live[k], u < left,
+                             vv[u][k]);
       }
     }
 #pragma unroll
@@ -362,17 +412,9 @@ gat_fwd_groups(const float* __restrict__ a_dst,
     for (int k = 0; k < NV; ++k) {
       const bool row = l[k] > 0.f;  // a row without edges stores zeros
       const float sc = row ? inv_keep / fmaxf(l[k], 1e-30f) : 0.f;
-      float* o = out + r * C + max(sl.col[k], 0);
-      if constexpr (V4) {
-        if (sl.col[k] >= 0)
-          *reinterpret_cast<float4*>(o) =
-              make_float4(acc[k][0] * sc, acc[k][1] * sc, acc[k][2] * sc,
-                          acc[k][3] * sc);
-      } else {
-#pragma unroll
-        for (int c = 0; c < VEC; ++c)
-          if (c < sl.live[k]) o[c] = acc[k][c] * sc;
-      }
+      T* o = out + r * C + max(sl.col[k], 0);
+      if (!V4 || sl.col[k] >= 0)
+        store_vec<T, VEC, V4>(o, acc[k], sc, sl.live[k]);
       if (sl.lead[k]) lse[r * H + sl.head[k]] = row ? m[k] + logf(l[k]) : 0.f;
     }
   } else {
@@ -392,20 +434,22 @@ gat_fwd_groups(const float* __restrict__ a_dst,
 }
 
 // Calls f(VEC, NV, V4) as compile-time constants at the lane map's (vec,
-// nv) and the load path v4; false where no instantiation matches.
+// nv) and the load path v4; false where no instantiation matches. vec is a
+// 16-byte vector of T (4 floats, 8 bf16) or 1.
 template <int A>
 using IntC = std::integral_constant<int, A>;
 template <bool A>
 using BoolC = std::integral_constant<bool, A>;
 
-template <typename F>
+template <typename T, typename F>
 bool k10_dispatch(int vec, int nv, bool v4, F&& f) {
-  if (vec == 4) {
+  constexpr int VW = kVecElems<T>;
+  if (vec == VW) {
     const auto pick = [&](auto NVc) {
       if (v4) {
-        f(IntC<4>{}, NVc, BoolC<true>{});
+        f(IntC<VW>{}, NVc, BoolC<true>{});
       } else {
-        f(IntC<4>{}, NVc, BoolC<false>{});
+        f(IntC<VW>{}, NVc, BoolC<false>{});
       }
     };
     switch (nv) {
@@ -469,14 +513,14 @@ struct FwdCombineWarps {
 // n_long long pieces then n_short whole rows; n_empty empty rows zeroed by
 // the grid's tail), then gat_fwd_combine over the n_split split rows.
 // `cnt` and `key` are the cells' (CELLS) or null.
-template <bool CELLS>
-int fwd_groups_run(const float* a_dst, const float* a_src, const float* v,
+template <bool CELLS, typename T>
+int fwd_groups_run(const T* a_dst, const T* a_src, const T* v,
                    const int* src, const int* cnt, const int* key,
                    const int* items, int n_long, int n_short,
                    const int* empty, int n_empty, const int* split_rows,
                    const int* split_ptr, int n_split, int H, int dvh,
                    int vec, int lh, int group, int nv, float slope,
-                   const int* seed, int thresh, float inv_keep, float* out,
+                   const int* seed, int thresh, float inv_keep, T* out,
                    float* lse, float* partials, cudaStream_t s) {
   const int dvh_p = pow2_at_least(dvh);
   const int nc = slots_per_lane(H, dvh_p);  // the combine's slots a lane
@@ -486,10 +530,10 @@ int fwd_groups_run(const float* a_dst, const float* a_src, const float* v,
                            vec, lh, group, nv, H * dvh + H, &w, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks > 0) {
-    const bool v4 =
-        vec == 4 && dvh % 4 == 0 && aligned16(v) && aligned16(out);
-    if (!k10_dispatch(vec, nv, v4, [&](auto VEC, auto NV, auto V4) {
-          gat_fwd_groups<decltype(VEC)::value, decltype(NV)::value,
+    const bool v4 = vec == kVecElems<T> && dvh % vec == 0 && aligned16(v) &&
+                    aligned16(out);
+    if (!k10_dispatch<T>(vec, nv, v4, [&](auto VEC, auto NV, auto V4) {
+          gat_fwd_groups<T, decltype(VEC)::value, decltype(NV)::value,
                          decltype(V4)::value, CELLS>
               <<<blocks, kWarps * 32, 0, s>>>(
                   a_dst, a_src, v, src, cnt, key, w, H, dvh, slope, seed,
@@ -500,7 +544,7 @@ int fwd_groups_run(const float* a_dst, const float* a_src, const float* v,
   if (n_split > 0) {
     PGL_NC_SWITCH(nc, {
       constexpr int W = FwdCombineWarps<NC>::value;
-      gat_fwd_combine<NC, W><<<n_split, W * 32, 0, s>>>(
+      gat_fwd_combine<T, NC, W><<<n_split, W * 32, 0, s>>>(
           partials, split_rows, split_ptr, H, dvh, dvh_p, inv_keep, out,
           lse);
     })

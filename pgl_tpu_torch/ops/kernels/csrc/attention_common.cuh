@@ -22,19 +22,46 @@
 //   K10-dq, K10-dkv) share: a per-warp shared-memory ring filled by
 //   cp.async (`kStageSteps`, `StageEdges`, `StageBlocks`, `stage_row`),
 //   the piece's edge list read a 32-entry batch ahead (`PieceList`), and
-//   DotSlots' slot map computed rather than held (`dot_col`, `dot_head`).
+//   DotSlots' slot map computed rather than held (`dot_col`, `dot_head`);
+// * the element type T of the tables (float, or __nv_bfloat16 under amp):
+//   `ld_f` reads one element as f32, `from_f` rounds an f32 once to T (to
+//   nearest even), `stage_row` widens a staged bf16 row to f32. Every
+//   kernel computes in f32 whatever T is; lse, delta and the split rows'
+//   partials are f32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;              // warps per block of the piece kernels
 constexpr float kMaskValue = -1e30f;   // the reference's running-max start
+
+// one element of a table of T as f32 (exact)
+__device__ __forceinline__ float ld_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_f(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// an f32 value stored as T: itself, or rounded once to nearest even
+template <typename T>
+__device__ __forceinline__ T from_f(float x) {
+  if constexpr (std::is_same_v<T, float>) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// elements of T in a 16-byte vector: 4 floats, 8 bf16
+template <typename T>
+constexpr int kVecElems = 16 / static_cast<int>(sizeof(T));
 
 __device__ __forceinline__ bool drop_keep(uint32_t idx, uint32_t seed,
                                           uint32_t hc, int thresh) {
@@ -213,12 +240,12 @@ struct CombineAhead {
 // walk of one piece at a time (the same bits). The dot mode takes W =
 // CombineWarps (its pinned bits are of that order), the additive forward
 // more (additive_groups.cuh).
-template <int NC, int W = CombineWarps<NC>::value>
+template <typename T, int NC, int W = CombineWarps<NC>::value>
 __global__ void __launch_bounds__(W * 32)
 gat_fwd_combine(const float* __restrict__ partials,
                 const int* __restrict__ split_rows,
                 const int* __restrict__ split_ptr, int H, int dvh, int dvh_p,
-                float inv_keep, float* __restrict__ out,
+                float inv_keep, T* __restrict__ out,
                 float* __restrict__ lse) {
   __shared__ float state[W][3][NC * 32];
   const int w = threadIdx.x >> 5;
@@ -277,7 +304,7 @@ gat_fwd_combine(const float* __restrict__ partials,
     const bool row = L[k] > 0.f;
     if (sl.col[k] >= 0)
       out[static_cast<size_t>(r) * C + sl.col[k]] =
-          row ? A[k] * (inv_keep / fmaxf(L[k], 1e-30f)) : 0.f;
+          from_f<T>(row ? A[k] * (inv_keep / fmaxf(L[k], 1e-30f)) : 0.f);
     if (sl.lead[k])
       lse[static_cast<size_t>(r) * H + sl.head[k]] =
           row ? M[k] + logf(L[k]) : 0.f;
@@ -285,16 +312,17 @@ gat_fwd_combine(const float* __restrict__ partials,
 }
 
 // Sum of the plain partials of split rows, one block per row: partial rows
-// [n1 | n2], 32 columns at a time; warp w sums pieces p0 + w, p0 + w + W,
-// ... in order, then warp 0 adds the W warp sums in order, into out1
-// [R, n1] and out2 [R, n2].
+// [n1 | n2] (f32), 32 columns at a time; warp w sums pieces p0 + w, p0 + w +
+// W, ... in order, then warp 0 adds the W warp sums in order, into out1
+// [R, n1] and out2 [R, n2] of T (each sum rounded once).
 constexpr int kSumWarps = 16;
 
+template <typename T>
 __global__ void __launch_bounds__(kSumWarps * 32)
 sum_combine(const float* __restrict__ partials,
             const int* __restrict__ split_rows,
             const int* __restrict__ split_ptr, int n1, int n2,
-            float* __restrict__ out1, float* __restrict__ out2) {
+            T* __restrict__ out1, T* __restrict__ out2) {
   __shared__ float sums[kSumWarps][32];
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -316,9 +344,9 @@ sum_combine(const float* __restrict__ partials,
 #pragma unroll
       for (int v = 0; v < kSumWarps; ++v) total += sums[v][lane];
       if (c < n1)
-        out1[r * n1 + c] = total;
+        out1[r * n1 + c] = from_f<T>(total);
       else
-        out2[r * n2 + (c - n1)] = total;
+        out2[r * n2 + (c - n1)] = from_f<T>(total);
     }
     __syncthreads();
   }
@@ -394,13 +422,44 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The warp copies n floats from src to dst (both 16-byte aligned when vec).
+// The warp copies n floats from src to dst (both 16-byte aligned when vec)
+// by cp.async.
 __device__ __forceinline__ void stage_row(float* dst, const float* src, int n,
                                           bool vec, int lane) {
   if (vec) {
     for (int c = lane; c < n / 4; c += 32) cp_async16(dst + 4 * c, src + 4 * c);
   } else {
     for (int c = lane; c < n; c += 32) cp_async4(dst + c, src + c);
+  }
+}
+
+// The warp widens n bf16 of src into n floats at dst (src 16-byte aligned
+// and n a multiple of 8 when vec): plain loads and shared stores, not
+// cp.async, which copies bytes and cannot widen. The ring keeps f32, so
+// the compute reads it as on float tables; the step's loads are waited
+// for here rather than kStageSteps - 1 steps later, and the __syncwarp
+// after cp_async_wait makes them visible to the warp as the copies are.
+__device__ __forceinline__ void stage_row(float* dst,
+                                          const __nv_bfloat16* src, int n,
+                                          bool vec, int lane) {
+  if (vec) {
+    for (int c = lane; c < n / 8; c += 32) {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(src) + c);
+      const unsigned w[4] = {t.x, t.y, t.z, t.w};
+      float f[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 p =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+        f[2 * i] = p.x;
+        f[2 * i + 1] = p.y;
+      }
+      float4* d = reinterpret_cast<float4*>(dst + 8 * c);
+      d[0] = make_float4(f[0], f[1], f[2], f[3]);
+      d[1] = make_float4(f[4], f[5], f[6], f[7]);
+    }
+  } else {
+    for (int c = lane; c < n; c += 32) dst[c] = ld_f(src + c);
   }
 }
 

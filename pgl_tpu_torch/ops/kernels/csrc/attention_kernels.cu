@@ -77,6 +77,23 @@
 // The softmax sum stays undropped; `acc`, the dv term and the g.v term use
 // the dropped probability, the delta term the undropped one.
 //
+// bf16 (`pgl_gat_*_bf16`, `pgl_dot_*_bf16`, in the library
+// attention_kernels_bf16 built from this source): every kernel here and
+// its combine is instantiated on the tables' element type T. The reference
+// takes bf16 tables into the same kernels: it rounds p to the value dtype
+// before p . v, forms its dot scores in f32 at HIGHEST precision, keeps
+// lse f32, forms delta from bf16 g and out, and rounds lse and delta to
+// bf16 in its CSR pass's `ld` stream. Here the tables (a_dst, a_src or q,
+// k; v; g) are loaded as bf16 and widened to f32; scores, exps, the online
+// max and sum, p, p . v and the gradients' products and sums are f32; lse
+// and delta are f32 tensors, the split rows' partials f32; out, d a_dst or
+// dq, d a_src or dk, and dv are each rounded once to bf16 when stored. So
+// the port rounds less often than the reference. The dropout hash is
+// integer arithmetic on the CSC position, the same on both types. The
+// dot kernels stage a bf16 row by plain loads widened into their f32 ring
+// (`stage_row`), not by cp.async; the additive ones load 16-byte vectors
+// of 8 bf16.
+//
 // Calling convention: launches on the given stream, does not synchronise,
 // allocates nothing (the caller passes outputs and partials), and returns
 // cudaGetLastError(). `thresh` < 0 turns dropout off.
@@ -88,19 +105,18 @@
 namespace {
 
 // K10-dq over the CSC side: d a_dst[r, h] = sum over r's edges of ds_e.
-template <int VEC, int NV, bool V4>
+template <typename T, int VEC, int NV, bool V4>
 __global__ void __launch_bounds__(kWarps * 32)
-gat_dq_groups(const float* __restrict__ a_dst,
-              const float* __restrict__ a_src, const float* __restrict__ v,
-              const float* __restrict__ g, const float* __restrict__ lse,
-              const float* __restrict__ delta,
+gat_dq_groups(const T* __restrict__ a_dst, const T* __restrict__ a_src,
+              const T* __restrict__ v, const T* __restrict__ g,
+              const float* __restrict__ lse, const float* __restrict__ delta,
               const int* __restrict__ indices, const K10Work w, int H,
               int dvh, float slope, const int* __restrict__ seed_p,
-              int thresh, float inv_keep, float* __restrict__ da_dst,
+              int thresh, float inv_keep, T* __restrict__ da_dst,
               float* __restrict__ partials) {
   constexpr int U = K10Unroll<VEC, NV, false>::value;
   if (static_cast<int>(blockIdx.x) >= w.item_blocks) {
-    zero_empty(w, H, H, da_dst, nullptr);
+    zero_empty<T, T>(w, H, H, da_dst, nullptr);
     return;
   }
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -118,10 +134,10 @@ gat_dq_groups(const float* __restrict__ a_dst,
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const size_t rh = r * H + sl.head[k];
-    ad[k] = __ldg(a_dst + rh);
+    ad[k] = ld_f(a_dst + rh);
     ls[k] = __ldg(lse + rh);
     dl[k] = __ldg(delta + rh);
-    load_vec<VEC, V4>(g + r * C, sl.col[k], sl.live[k], true, gr[k]);
+    load_vec<T, VEC, V4>(g + r * C, sl.col[k], sl.live[k], true, gr[k]);
     da[k] = 0.f;
   }
   walk_task<U>(
@@ -133,9 +149,9 @@ gat_dq_groups(const float* __restrict__ a_dst,
           const size_t s = src[u];
 #pragma unroll
           for (int k = 0; k < NV; ++k) {
-            as[u][k] = u < left ? __ldg(a_src + s * H + sl.head[k]) : 0.f;
-            load_vec<VEC, V4>(v + s * C, sl.col[k], sl.live[k], u < left,
-                              vv[u][k]);
+            as[u][k] = u < left ? ld_f(a_src + s * H + sl.head[k]) : 0.f;
+            load_vec<T, VEC, V4>(v + s * C, sl.col[k], sl.live[k], u < left,
+                                 vv[u][k]);
           }
         }
 #pragma unroll
@@ -169,32 +185,34 @@ gat_dq_groups(const float* __restrict__ a_dst,
       for (int k = 0; k < NV; ++k) da[k] += __shfl_xor_sync(kFull, da[k], off);
   }
   if (t.row < 0 || (t.merge && grp != 0)) return;
-  float* dst = t.slot < 0 ? da_dst + r * H
-                          : partials + static_cast<size_t>(t.slot) * H;
 #pragma unroll
-  for (int k = 0; k < NV; ++k)
-    if (sl.lead[k]) dst[sl.head[k]] = da[k];
+  for (int k = 0; k < NV; ++k) {
+    if (!sl.lead[k]) continue;
+    if (t.slot < 0)
+      da_dst[r * H + sl.head[k]] = from_f<T>(da[k]);
+    else
+      partials[static_cast<size_t>(t.slot) * H + sl.head[k]] = da[k];
+  }
 }
 
 // K10-dkv over the CSR side (the row is the source node s): d a_src[s, h] =
 // sum over s's out-edges of ds_e, dv[s, c] = sum of q_e * g[dst_e, c]. Every
 // edge gathers its destination's a_dst, lse, delta and g row, and its CSC
 // position from eidx for the dropout hash.
-template <int VEC, int NV, bool V4>
+template <typename T, int VEC, int NV, bool V4>
 __global__ void __launch_bounds__(kWarps * 32)
-gat_dkv_groups(const float* __restrict__ a_dst,
-               const float* __restrict__ a_src, const float* __restrict__ v,
-               const float* __restrict__ g, const float* __restrict__ lse,
-               const float* __restrict__ delta,
+gat_dkv_groups(const T* __restrict__ a_dst, const T* __restrict__ a_src,
+               const T* __restrict__ v, const T* __restrict__ g,
+               const float* __restrict__ lse, const float* __restrict__ delta,
                const int* __restrict__ indices, const int* __restrict__ eidx,
                const K10Work w, int H, int dvh, float slope,
                const int* __restrict__ seed_p, int thresh, float inv_keep,
-               float* __restrict__ da_src, float* __restrict__ dv,
+               T* __restrict__ da_src, T* __restrict__ dv,
                float* __restrict__ partials) {
   constexpr int U = K10Unroll<VEC, NV, true>::value;
   const int C = H * dvh;
   if (static_cast<int>(blockIdx.x) >= w.item_blocks) {
-    zero_empty(w, H + C, H, da_src, dv);
+    zero_empty<T, T>(w, H + C, H, da_src, dv);
     return;
   }
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -210,8 +228,8 @@ gat_dkv_groups(const float* __restrict__ a_dst,
   float as[NV], vs[NV][VEC], da[NV], dva[NV][VEC];
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
-    as[k] = __ldg(a_src + r * H + sl.head[k]);
-    load_vec<VEC, V4>(v + r * C, sl.col[k], sl.live[k], true, vs[k]);
+    as[k] = ld_f(a_src + r * H + sl.head[k]);
+    load_vec<T, VEC, V4>(v + r * C, sl.col[k], sl.live[k], true, vs[k]);
     da[k] = 0.f;
 #pragma unroll
     for (int c = 0; c < VEC; ++c) dva[k][c] = 0.f;
@@ -227,11 +245,11 @@ gat_dkv_groups(const float* __restrict__ a_dst,
           for (int k = 0; k < NV; ++k) {
             const size_t dh = d * H + sl.head[k];
             const bool on = u < left;
-            ad[u][k] = on ? __ldg(a_dst + dh) : 0.f;
+            ad[u][k] = on ? ld_f(a_dst + dh) : 0.f;
             ls[u][k] = on ? __ldg(lse + dh) : 0.f;
             dl[u][k] = on ? __ldg(delta + dh) : 0.f;
-            load_vec<VEC, V4>(g + d * C, sl.col[k], sl.live[k], on,
-                              gd[u][k]);
+            load_vec<T, VEC, V4>(g + d * C, sl.col[k], sl.live[k], on,
+                                 gd[u][k]);
           }
         }
 #pragma unroll
@@ -272,172 +290,242 @@ gat_dkv_groups(const float* __restrict__ a_dst,
       }
   }
   if (t.row < 0 || (t.merge && grp != 0)) return;
+  if (t.slot < 0) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      if (sl.lead[k]) da_src[r * H + sl.head[k]] = from_f<T>(da[k]);
+      if (!V4 || sl.col[k] >= 0)
+        store_vec<T, VEC, V4>(dv + r * C + max(sl.col[k], 0), dva[k], 1.f,
+                              sl.live[k]);
+    }
+    return;
+  }
   // partial row: d a_src [H] | dv [C] (summed by sum_combine)
-  float* part = partials + static_cast<size_t>(max(t.slot, 0)) * (H + C);
-  float* ds_row = t.slot < 0 ? da_src + r * H : part;
-  float* dv_row = t.slot < 0 ? dv + r * C : part + H;
+  float* part = partials + static_cast<size_t>(t.slot) * (H + C);
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
-    if (sl.lead[k]) ds_row[sl.head[k]] = da[k];
-    if (V4 && t.slot < 0) {
-      if (sl.col[k] >= 0)
-        *reinterpret_cast<float4*>(dv_row + sl.col[k]) =
-            make_float4(dva[k][0], dva[k][1], dva[k][2], dva[k][3]);
-    } else {
+    if (sl.lead[k]) part[sl.head[k]] = da[k];
 #pragma unroll
-      for (int c = 0; c < VEC; ++c)
-        if (c < sl.live[k]) dv_row[sl.col[k] + c] = dva[k][c];
-    }
+    for (int c = 0; c < VEC; ++c)
+      if (c < sl.live[k]) part[H + sl.col[k] + c] = dva[k][c];
   }
 }
 
-
-}  // namespace
-
-// K9 additive: out [N, H * dvh] and lse [N, H] over the work list of
-// `attention_kernels.k10_work_list` (the additive K10's); partials
-// [n_partials, H * dvh + 2H] of the split rows merged by a second launch.
-extern "C" int pgl_gat_fwd_f32(int device, const float* a_dst,
-                               const float* a_src, const float* v,
-                               const int* indices, const int* items,
-                               int n_long, int n_short, const int* empty,
-                               int n_empty, const int* split_rows,
-                               const int* split_ptr, int n_split, int H,
-                               int dvh, int vec, int lh, int group, int nv,
-                               float slope, const int* seed, int thresh,
-                               float inv_keep, float* out, float* lse,
-                               float* partials, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return fwd_groups_run<false>(
-      a_dst, a_src, v, indices, nullptr, nullptr, items, n_long, n_short,
-      empty, n_empty, split_rows, split_ptr, n_split, H, dvh, vec, lh, group,
-      nv, slope, seed, thresh, inv_keep, out, lse, partials,
-      static_cast<cudaStream_t>(stream));
-}
-
-// K10-dq additive: d a_dst [N, H]; partials [n_partials, H] of the split
-// rows (K9's) summed by a second launch.
-extern "C" int pgl_gat_dq_f32(int device, const float* a_dst,
-                              const float* a_src, const float* v,
-                              const float* g, const float* lse,
-                              const float* delta, const int* indices,
-                              const int* items, int n_long, int n_short,
-                              const int* empty, int n_empty,
-                              const int* split_rows, const int* split_ptr,
-                              int n_split, int H, int dvh, int vec, int lh,
-                              int group, int nv, float slope,
-                              const int* seed, int thresh, float inv_keep,
-                              float* da_dst, float* partials, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// The launches of K10-dq over one work list: gat_dq_groups, then
+// sum_combine over the split rows.
+template <typename T>
+int dq_groups_run(const T* a_dst, const T* a_src, const T* v, const T* g,
+                  const float* lse, const float* delta, const int* indices,
+                  const int* items, int n_long, int n_short,
+                  const int* empty, int n_empty, const int* split_rows,
+                  const int* split_ptr, int n_split, int H, int dvh, int vec,
+                  int lh, int group, int nv, float slope, const int* seed,
+                  int thresh, float inv_keep, T* da_dst, float* partials,
+                  cudaStream_t s) {
   K10Work w;
   int blocks = 0;
   if (!k10_work(items, n_long, n_short, empty, n_empty, H, dvh, vec, lh,
                 group, nv, H, &w, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bool v4 = vec == 4 && dvh % 4 == 0 && aligned16(v) && aligned16(g);
-  if (!k10_dispatch(vec, nv, v4, [&](auto VEC, auto NV, auto V4) {
-        gat_dq_groups<decltype(VEC)::value, decltype(NV)::value,
+  const bool v4 = vec == kVecElems<T> && dvh % vec == 0 && aligned16(v) &&
+                  aligned16(g);
+  if (!k10_dispatch<T>(vec, nv, v4, [&](auto VEC, auto NV, auto V4) {
+        gat_dq_groups<T, decltype(VEC)::value, decltype(NV)::value,
                       decltype(V4)::value><<<blocks, kWarps * 32, 0, s>>>(
             a_dst, a_src, v, g, lse, delta, indices, w, H, dvh, slope, seed,
             thresh, inv_keep, da_dst, partials);
       }))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_split > 0)
-    sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
+    sum_combine<T><<<n_split, kSumWarps * 32, 0, s>>>(
         partials, split_rows, split_ptr, H, 0, da_dst, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10-dkv additive: d a_src [N, H] and dv [N, H * dvh]; partials
-// [n_partials, H + H * dvh] of the split rows summed by a second launch.
-extern "C" int pgl_gat_dkv_f32(int device, const float* a_dst,
-                               const float* a_src, const float* v,
-                               const float* g, const float* lse,
-                               const float* delta, const int* indices,
-                               const int* eidx, const int* items, int n_long,
-                               int n_short, const int* empty, int n_empty,
-                               const int* split_rows, const int* split_ptr,
-                               int n_split, int H, int dvh, int vec, int lh,
-                               int group, int nv, float slope,
-                               const int* seed, int thresh, float inv_keep,
-                               float* da_src, float* dv, float* partials,
-                               void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// The launches of K10-dkv over one work list: gat_dkv_groups, then
+// sum_combine over the split rows.
+template <typename T>
+int dkv_groups_run(const T* a_dst, const T* a_src, const T* v, const T* g,
+                   const float* lse, const float* delta, const int* indices,
+                   const int* eidx, const int* items, int n_long,
+                   int n_short, const int* empty, int n_empty,
+                   const int* split_rows, const int* split_ptr, int n_split,
+                   int H, int dvh, int vec, int lh, int group, int nv,
+                   float slope, const int* seed, int thresh, float inv_keep,
+                   T* da_src, T* dv, float* partials, cudaStream_t s) {
   K10Work w;
   int blocks = 0;
   if (!k10_work(items, n_long, n_short, empty, n_empty, H, dvh, vec, lh,
                 group, nv, H + H * dvh, &w, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bool v4 = vec == 4 && dvh % 4 == 0 && aligned16(v) && aligned16(g) &&
-                  aligned16(dv);
-  if (!k10_dispatch(vec, nv, v4, [&](auto VEC, auto NV, auto V4) {
-        gat_dkv_groups<decltype(VEC)::value, decltype(NV)::value,
+  const bool v4 = vec == kVecElems<T> && dvh % vec == 0 && aligned16(v) &&
+                  aligned16(g) && aligned16(dv);
+  if (!k10_dispatch<T>(vec, nv, v4, [&](auto VEC, auto NV, auto V4) {
+        gat_dkv_groups<T, decltype(VEC)::value, decltype(NV)::value,
                        decltype(V4)::value><<<blocks, kWarps * 32, 0, s>>>(
             a_dst, a_src, v, g, lse, delta, indices, eidx, w, H, dvh, slope,
             seed, thresh, inv_keep, da_src, dv, partials);
       }))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_split > 0)
-    sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
+    sum_combine<T><<<n_split, kSumWarps * 32, 0, s>>>(
         partials, split_rows, split_ptr, H, H * dvh, da_src, dv);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int pgl_dot_fwd_f32(int device, const float* q, const float* k,
-                               const float* v, const int* indices,
-                               const int* pieces, int n_pieces,
-                               const int* split_rows, const int* split_ptr,
-                               int n_split, int H, int dsh, int dvh,
-                               float slope, const int* seed, int thresh,
-                               float inv_keep, float* out, float* lse,
-                               float* partials, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return dot_fwd_run<false>(q, k, v, indices, nullptr, nullptr, pieces,
-                            n_pieces, split_rows, split_ptr, n_split, H, dsh,
-                            dvh, slope, seed, thresh, inv_keep, out, lse,
-                            partials, static_cast<cudaStream_t>(stream));
-}
 
-extern "C" int pgl_dot_dq_f32(int device, const float* q, const float* k,
-                              const float* v, const float* g,
-                              const float* lse, const float* delta,
-                              const int* indices, const int* pieces,
-                              int n_pieces, const int* split_rows,
-                              const int* split_ptr, int n_split, int H,
-                              int dsh, int dvh, float slope, const int* seed,
-                              int thresh, float inv_keep, float* dq,
-                              float* partials, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return dot_dq_run<false>(q, k, v, g, lse, delta, indices, nullptr, nullptr,
-                           pieces, n_pieces, split_rows, split_ptr, n_split,
-                           H, dsh, dvh, slope, seed, thresh, inv_keep, dq,
-                           partials, static_cast<cudaStream_t>(stream));
-}
+}  // namespace
 
-extern "C" int pgl_dot_dkv_f32(int device, const float* q, const float* k,
-                               const float* v, const float* g,
-                               const float* lse, const float* delta,
-                               const int* indices, const int* eidx,
-                               const int* pieces, int n_pieces,
-                               const int* split_rows, const int* split_ptr,
-                               int n_split, int H, int dsh, int dvh,
-                               float slope, const int* seed, int thresh,
-                               float inv_keep, float* dk, float* dv,
-                               float* partials, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return dot_dkv_run<false>(q, k, v, g, lse, delta, indices, eidx, nullptr,
-                            nullptr, pieces, n_pieces, split_rows, split_ptr,
-                            n_split, H, dsh, dvh, slope, seed, thresh,
-                            inv_keep, dk, dv, partials,
-                            static_cast<cudaStream_t>(stream));
-}
+// Each entry point sets the device and launches its pass's kernels on
+// `stream`: the _f32 ones on float tables, the _bf16 ones on bf16 tables
+// (passed as raw 16-bit words; lse, delta and partials f32 either way).
+#define PGL_ON_DEVICE(device)                          \
+  do {                                                 \
+    const cudaError_t err_ = cudaSetDevice(device);    \
+    if (err_ != cudaSuccess) return static_cast<int>(err_); \
+  } while (0)
+
+// K9 additive: out [N, H * dvh] and lse [N, H] over the work list of
+// `attention_kernels.k10_work_list` (the additive K10's); partials
+// [n_partials, H * dvh + 2H] of the split rows merged by a second launch.
+#define PGL_GAT_FWD(NAME, T, P)                                              \
+  extern "C" int NAME(int device, const P* a_dst, const P* a_src,           \
+                      const P* v, const int* indices, const int* items,      \
+                      int n_long, int n_short, const int* empty,             \
+                      int n_empty, const int* split_rows,                    \
+                      const int* split_ptr, int n_split, int H, int dvh,     \
+                      int vec, int lh, int group, int nv, float slope,       \
+                      const int* seed, int thresh, float inv_keep, P* out,   \
+                      float* lse, float* partials, void* stream) {           \
+    PGL_ON_DEVICE(device);                                                   \
+    return fwd_groups_run<false>(                                            \
+        static_cast<const T*>(a_dst), static_cast<const T*>(a_src),          \
+        static_cast<const T*>(v), indices, nullptr, nullptr, items, n_long,  \
+        n_short, empty, n_empty, split_rows, split_ptr, n_split, H, dvh,     \
+        vec, lh, group, nv, slope, seed, thresh, inv_keep,                   \
+        static_cast<T*>(out), lse, partials,                                 \
+        static_cast<cudaStream_t>(stream));                                  \
+  }
+
+// K10-dq additive: d a_dst [N, H]; partials [n_partials, H] of the split
+// rows (K9's) summed by a second launch.
+#define PGL_GAT_DQ(NAME, T, P)                                               \
+  extern "C" int NAME(int device, const P* a_dst, const P* a_src,           \
+                      const P* v, const P* g, const float* lse,              \
+                      const float* delta, const int* indices,                \
+                      const int* items, int n_long, int n_short,             \
+                      const int* empty, int n_empty, const int* split_rows,  \
+                      const int* split_ptr, int n_split, int H, int dvh,     \
+                      int vec, int lh, int group, int nv, float slope,       \
+                      const int* seed, int thresh, float inv_keep,           \
+                      P* da_dst, float* partials, void* stream) {            \
+    PGL_ON_DEVICE(device);                                                   \
+    return dq_groups_run(                                                    \
+        static_cast<const T*>(a_dst), static_cast<const T*>(a_src),          \
+        static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,      \
+        indices, items, n_long, n_short, empty, n_empty, split_rows,         \
+        split_ptr, n_split, H, dvh, vec, lh, group, nv, slope, seed, thresh, \
+        inv_keep, static_cast<T*>(da_dst), partials,                         \
+        static_cast<cudaStream_t>(stream));                                  \
+  }
+
+// K10-dkv additive: d a_src [N, H] and dv [N, H * dvh]; partials
+// [n_partials, H + H * dvh] of the split rows summed by a second launch.
+#define PGL_GAT_DKV(NAME, T, P)                                              \
+  extern "C" int NAME(int device, const P* a_dst, const P* a_src,           \
+                      const P* v, const P* g, const float* lse,              \
+                      const float* delta, const int* indices,                \
+                      const int* eidx, const int* items, int n_long,         \
+                      int n_short, const int* empty, int n_empty,            \
+                      const int* split_rows, const int* split_ptr,           \
+                      int n_split, int H, int dvh, int vec, int lh,          \
+                      int group, int nv, float slope, const int* seed,       \
+                      int thresh, float inv_keep, P* da_src, P* dv,          \
+                      float* partials, void* stream) {                       \
+    PGL_ON_DEVICE(device);                                                   \
+    return dkv_groups_run(                                                   \
+        static_cast<const T*>(a_dst), static_cast<const T*>(a_src),          \
+        static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,      \
+        indices, eidx, items, n_long, n_short, empty, n_empty, split_rows,   \
+        split_ptr, n_split, H, dvh, vec, lh, group, nv, slope, seed, thresh, \
+        inv_keep, static_cast<T*>(da_src), static_cast<T*>(dv), partials,    \
+        static_cast<cudaStream_t>(stream));                                  \
+  }
+
+// K9 dot: out [N, H * dvh] and lse [N, H] over the pieces of `cut_rows`;
+// partials [n_partials, H * dvh + 2H] merged by gat_fwd_combine.
+#define PGL_DOT_FWD(NAME, T, P)                                              \
+  extern "C" int NAME(int device, const P* q, const P* k, const P* v,       \
+                      const int* indices, const int* pieces, int n_pieces,   \
+                      const int* split_rows, const int* split_ptr,           \
+                      int n_split, int H, int dsh, int dvh, float slope,     \
+                      const int* seed, int thresh, float inv_keep, P* out,   \
+                      float* lse, float* partials, void* stream) {           \
+    PGL_ON_DEVICE(device);                                                   \
+    return dot_fwd_run<false>(                                               \
+        static_cast<const T*>(q), static_cast<const T*>(k),                  \
+        static_cast<const T*>(v), indices, nullptr, nullptr, pieces,         \
+        n_pieces, split_rows, split_ptr, n_split, H, dsh, dvh, slope, seed,  \
+        thresh, inv_keep, static_cast<T*>(out), lse, partials,               \
+        static_cast<cudaStream_t>(stream));                                  \
+  }
+
+// K10-dq dot: dq [N, H * dsh]; partials [n_partials, H * dsh].
+#define PGL_DOT_DQ(NAME, T, P)                                               \
+  extern "C" int NAME(int device, const P* q, const P* k, const P* v,       \
+                      const P* g, const float* lse, const float* delta,      \
+                      const int* indices, const int* pieces, int n_pieces,   \
+                      const int* split_rows, const int* split_ptr,           \
+                      int n_split, int H, int dsh, int dvh, float slope,     \
+                      const int* seed, int thresh, float inv_keep, P* dq,    \
+                      float* partials, void* stream) {                       \
+    PGL_ON_DEVICE(device);                                                   \
+    return dot_dq_run<false>(                                                \
+        static_cast<const T*>(q), static_cast<const T*>(k),                  \
+        static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,      \
+        indices, nullptr, nullptr, pieces, n_pieces, split_rows, split_ptr,  \
+        n_split, H, dsh, dvh, slope, seed, thresh, inv_keep,                 \
+        static_cast<T*>(dq), partials, static_cast<cudaStream_t>(stream));   \
+  }
+
+// K10-dkv dot: dk [N, H * dsh] and dv [N, H * dvh]; partials
+// [n_partials, H * (dsh + dvh)].
+#define PGL_DOT_DKV(NAME, T, P)                                              \
+  extern "C" int NAME(int device, const P* q, const P* k, const P* v,       \
+                      const P* g, const float* lse, const float* delta,      \
+                      const int* indices, const int* eidx,                   \
+                      const int* pieces, int n_pieces,                       \
+                      const int* split_rows, const int* split_ptr,           \
+                      int n_split, int H, int dsh, int dvh, float slope,     \
+                      const int* seed, int thresh, float inv_keep, P* dk,    \
+                      P* dv, float* partials, void* stream) {                \
+    PGL_ON_DEVICE(device);                                                   \
+    return dot_dkv_run<false>(                                               \
+        static_cast<const T*>(q), static_cast<const T*>(k),                  \
+        static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,      \
+        indices, eidx, nullptr, nullptr, pieces, n_pieces, split_rows,       \
+        split_ptr, n_split, H, dsh, dvh, slope, seed, thresh, inv_keep,      \
+        static_cast<T*>(dk), static_cast<T*>(dv), partials,                  \
+        static_cast<cudaStream_t>(stream));                                  \
+  }
+
+// The float32 entry points, or (built with -DPGL_BF16, the library
+// attention_kernels_bf16) the bf16 ones: each half instantiates only its
+// element type, so the two build in parallel.
+#ifndef PGL_BF16
+PGL_GAT_FWD(pgl_gat_fwd_f32, float, float)
+PGL_GAT_DQ(pgl_gat_dq_f32, float, float)
+PGL_GAT_DKV(pgl_gat_dkv_f32, float, float)
+PGL_DOT_FWD(pgl_dot_fwd_f32, float, float)
+PGL_DOT_DQ(pgl_dot_dq_f32, float, float)
+PGL_DOT_DKV(pgl_dot_dkv_f32, float, float)
+#else
+PGL_GAT_FWD(pgl_gat_fwd_bf16, __nv_bfloat16, void)
+PGL_GAT_DQ(pgl_gat_dq_bf16, __nv_bfloat16, void)
+PGL_GAT_DKV(pgl_gat_dkv_bf16, __nv_bfloat16, void)
+PGL_DOT_FWD(pgl_dot_fwd_bf16, __nv_bfloat16, void)
+PGL_DOT_DQ(pgl_dot_dq_bf16, __nv_bfloat16, void)
+PGL_DOT_DKV(pgl_dot_dkv_bf16, __nv_bfloat16, void)
+#endif  // PGL_BF16

@@ -413,10 +413,10 @@ extern "C" int pgl_dedup_attn_bwd_f32(
     }
   })
   if (n_pieces > 0 && n_split > 0)
-    sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
+    sum_combine<float><<<n_split, kSumWarps * 32, 0, s>>>(
         partials, split_rows, split_ptr, H, 0, da_dst, nullptr);
   if (n_node_pieces > 0 && n_node_split > 0)
-    sum_combine<<<n_node_split, kSumWarps * 32, 0, s>>>(
+    sum_combine<float><<<n_node_split, kSumWarps * 32, 0, s>>>(
         node_partials, node_split_rows, node_split_ptr, H, H * dvh, dsrc,
         dv);
   return static_cast<int>(cudaGetLastError());

@@ -56,6 +56,12 @@
 // a pair of ints after the warp's ring, in the step's commit group, so no
 // register holds them in flight. The per-edge instantiations compile as
 // they did before the form existed (`CELLS` false removes every branch).
+//
+// T, the tables' element type: float, or bf16 for the per-edge kernels
+// (the cell form is float only). A bf16 row is widened to f32 as it is
+// staged (`stage_row`, by plain loads rather than cp.async) or loaded, so
+// the ring and every sum are f32; lse and delta are f32 tensors, the
+// partials f32, and out, dq, dk and dv are rounded once to T when stored.
 
 #pragma once
 
@@ -135,16 +141,17 @@ __device__ __forceinline__ int kv_v(uint32_t w, int j, int o_v) {
 // resident in registers; each item's k and v source rows are staged. Per
 // head: the leaky score, the online (max, sum) with its two exps, and the
 // keep bit; per slot: acc = acc * rescale + kept p * v.
-template <int NC, bool FULL, bool WIDE, bool CELLS>
+template <typename T, int NC, bool FULL, bool WIDE, bool CELLS>
 __global__ void __launch_bounds__(kWarps * 32, KvBlocks<NC, FULL, WIDE>::value)
-dot_fwd_staged(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const int* __restrict__ indices,
+dot_fwd_staged(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const int* __restrict__ indices,
                const int* __restrict__ cnt, const int* __restrict__ keys,
                const int4* __restrict__ pieces, int n_pieces, int H, int dsh,
                int dvh, int wp, bool vec1, bool vec2, float slope,
                const int* __restrict__ seed_p, int thresh, float inv_keep,
-               float* __restrict__ out, float* __restrict__ lse,
+               T* __restrict__ out, float* __restrict__ lse,
                float* __restrict__ partials) {
+  static_assert(!CELLS || std::is_same_v<T, float>, "K7 is float only");
   constexpr int P = StageEdges<NC>::value;
   constexpr int S = kStageSteps;
   extern __shared__ float4 kv_smem[];
@@ -174,7 +181,7 @@ dot_fwd_staged(const float* __restrict__ q, const float* __restrict__ k,
     const int j = lane + 32 * c;
     const int sc = dot_col<FULL>(j, lwp, H, dsh);
     sw[c] = kv_slot<FULL>(j, lwp, H, dsh, dvh, DS, o_v);
-    qr[c] = sc >= 0 ? __ldg(q + static_cast<size_t>(pc.x) * DS + sc) : 0.f;
+    qr[c] = sc >= 0 ? ld_f(q + static_cast<size_t>(pc.x) * DS + sc) : 0.f;
     m[c] = kMaskValue;
     l[c] = 0.f;
     acc[c] = 0.f;
@@ -263,7 +270,7 @@ dot_fwd_staged(const float* __restrict__ q, const float* __restrict__ k,
       const bool row = lh > 0.f;  // an empty row stores zeros
       if (vc >= 0)
         out[static_cast<size_t>(pc.x) * C + vc] =
-            row ? acc[c] * (inv_keep / fmaxf(lh, 1e-30f)) : 0.f;
+            from_f<T>(row ? acc[c] * (inv_keep / fmaxf(lh, 1e-30f)) : 0.f);
       if (lead)
         lse[static_cast<size_t>(pc.x) * H + h] = row ? mh + logf(lh) : 0.f;
     } else {
@@ -292,20 +299,25 @@ __host__ __device__ __forceinline__ int dq_warp_floats(int DS, int C, int H) {
   return kv_warp_floats<NC>(DS, C) + 2 * up4(H);
 }
 
-template <int NC, bool FULL, bool WIDE, bool CELLS>
+template <typename T, int NC, bool FULL, bool WIDE, bool CELLS>
 __global__ void __launch_bounds__(kWarps * 32, KvBlocks<NC, FULL, WIDE>::value)
-dot_dq_staged(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ g,
+dot_dq_staged(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ g,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const int* __restrict__ indices, const int* __restrict__ cnt,
               const int* __restrict__ keys, const int4* __restrict__ pieces,
               int n_pieces, int H, int dsh, int dvh, int wp, bool vec1,
               bool vec2, float slope, const int* __restrict__ seed_p,
-              int thresh, float inv_keep, float* __restrict__ dq,
+              int thresh, float inv_keep, T* __restrict__ dq,
               float* __restrict__ partials) {
+  static_assert(!CELLS || std::is_same_v<T, float>, "K8 is float only");
   constexpr int P = StageEdges<NC>::value;
   constexpr int S = kStageSteps;
-  constexpr int NL = WIDE ? 1 : NC;  // lse and delta held a slot
+  // lse and delta a head in the warp's shared memory where a slot's own
+  // registers do not fit: heads wider than a warp, and bf16 tables at 16
+  // slots a lane (held a slot there, they spilled 32 B at 255 registers)
+  constexpr bool SHARED_LD = WIDE || (NC >= 16 && !std::is_same_v<T, float>);
+  constexpr int NL = SHARED_LD ? 1 : NC;  // lse and delta held a slot
   extern __shared__ float4 kv_smem[];
   const int wb = threadIdx.x >> 5;
   const int warp = blockIdx.x * kWarps + wb;
@@ -318,7 +330,7 @@ dot_dq_staged(const float* __restrict__ q, const float* __restrict__ k,
   float* ring = reinterpret_cast<float*>(kv_smem) +
                 static_cast<size_t>(wb) * (dq_warp_floats<NC>(DS, C, H) +
                                            cell_pair_floats<NC, CELLS>());
-  float* lsh = ring + S * P * ES;  // WIDE: the row's lse [H], delta [H]
+  float* lsh = ring + S * P * ES;  // SHARED_LD: the row's lse, delta [H]
   float* dlh = lsh + up4(H);
   int* pairs = reinterpret_cast<int*>(ring + dq_warp_floats<NC>(DS, C, H));
   const int4 pc = pieces[warp];
@@ -335,9 +347,9 @@ dot_dq_staged(const float* __restrict__ q, const float* __restrict__ k,
     const int sc = dot_col<FULL>(j, lwp, H, dsh);
     const int vc = dot_col<FULL>(j, lwp, H, dvh);
     sw[c] = kv_slot<FULL>(j, lwp, H, dsh, dvh, DS, o_v);
-    qr[c] = sc >= 0 ? __ldg(q + static_cast<size_t>(pc.x) * DS + sc) : 0.f;
-    gr[c] = vc >= 0 ? __ldg(g + static_cast<size_t>(pc.x) * C + vc) : 0.f;
-    if (!WIDE) {
+    qr[c] = sc >= 0 ? ld_f(q + static_cast<size_t>(pc.x) * DS + sc) : 0.f;
+    gr[c] = vc >= 0 ? ld_f(g + static_cast<size_t>(pc.x) * C + vc) : 0.f;
+    if (!SHARED_LD) {
       const size_t rh =
           static_cast<size_t>(pc.x) * H + dot_head<FULL>(j, lwp, H);
       ls[c % NL] = __ldg(lse + rh);
@@ -345,7 +357,7 @@ dot_dq_staged(const float* __restrict__ q, const float* __restrict__ k,
     }
     acc[c] = 0.f;
   }
-  if (WIDE) {
+  if (SHARED_LD) {
     for (int h = lane; h < H; h += 32) {
       lsh[h] = __ldg(lse + static_cast<size_t>(pc.x) * H + h);
       dlh[h] = __ldg(delta + static_cast<size_t>(pc.x) * H + h);
@@ -404,8 +416,8 @@ dot_dq_staged(const float* __restrict__ q, const float* __restrict__ k,
         const int j = lane + 32 * c;
         if ((c & (kph - 1)) == 0) {  // uniform
           const int hd = dot_head<FULL>(j, lwp, H);
-          const float lse_h = WIDE ? lsh[hd] : ls[c % NL];
-          const float delta_h = WIDE ? dlh[hd] : dl[c % NL];
+          const float lse_h = SHARED_LD ? lsh[hd] : ls[c % NL];
+          const float delta_h = SHARED_LD ? dlh[hd] : dl[c % NL];
           const float p =
               CELLS ? mult * expf(fminf(leaky(sd[e][c], slope) - lse_h, 80.f))
                     : expf(leaky(sd[e][c], slope) - lse_h);
@@ -426,12 +438,32 @@ dot_dq_staged(const float* __restrict__ q, const float* __restrict__ k,
   }
   cp_async_wait<0>();
 
-  float* dst = pc.w < 0 ? dq + static_cast<size_t>(pc.x) * DS
-                        : partials + static_cast<size_t>(pc.w) * DS;
+  // a whole row stores to dq as T, a piece to its f32 partial row: one
+  // pointer on float; on bf16 the branch (uniform across the warp) outside
+  // the slots' loop, one pointer each (two in the loop spilled 32 B at
+  // NC = 16)
+  if constexpr (std::is_same_v<T, float>) {
+    float* dst = pc.w < 0 ? dq + static_cast<size_t>(pc.x) * DS
+                          : partials + static_cast<size_t>(pc.w) * DS;
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int sc = dot_col<FULL>(lane + 32 * c, lwp, H, dsh);
-    if (sc >= 0) dst[sc] = acc[c];
+    for (int c = 0; c < NC; ++c) {
+      const int sc = dot_col<FULL>(lane + 32 * c, lwp, H, dsh);
+      if (sc >= 0) dst[sc] = acc[c];
+    }
+  } else if (pc.w < 0) {
+    T* row = dq + static_cast<size_t>(pc.x) * DS;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int sc = dot_col<FULL>(lane + 32 * c, lwp, H, dsh);
+      if (sc >= 0) row[sc] = from_f<T>(acc[c]);
+    }
+  } else {
+    float* part = partials + static_cast<size_t>(pc.w) * DS;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int sc = dot_col<FULL>(lane + 32 * c, lwp, H, dsh);
+      if (sc >= 0) part[sc] = acc[c];
+    }
   }
 }
 
@@ -468,18 +500,19 @@ __host__ __device__ __forceinline__ int dkv_warp_floats(int DS, int C, int H) {
 // FULL: every slot is a real score and value column (dsh == dvh == wp and
 // H * wp == 32 NC, as at UniMP's shape), so a slot's column is its index
 // and no slot is masked. WIDE: wp > 32.
-template <int NC, bool FULL, bool WIDE, bool CELLS>
+template <typename T, int NC, bool FULL, bool WIDE, bool CELLS>
 __global__ void __launch_bounds__(kWarps * 32, StageBlocks<NC>::value)
-dot_dkv_staged(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ g,
+dot_dkv_staged(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ g,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const int* __restrict__ indices, const int* __restrict__ eidx,
                const int* __restrict__ cnt, const int* __restrict__ keys,
                const int4* __restrict__ pieces, int n_pieces, int H, int dsh,
                int dvh, int wp, bool vec, float slope,
                const int* __restrict__ seed_p, int thresh, float inv_keep,
-               float* __restrict__ dk, float* __restrict__ dv,
+               T* __restrict__ dk, T* __restrict__ dv,
                float* __restrict__ partials) {
+  static_assert(!CELLS || std::is_same_v<T, float>, "K8 is float only");
   constexpr int P = StageEdges<NC>::value;
   constexpr int S = kStageSteps;
   extern __shared__ float4 dkv_smem[];
@@ -511,12 +544,12 @@ dot_dkv_staged(const float* __restrict__ q, const float* __restrict__ k,
   for (int c = 0; c < NC; ++c) {
     const int j = lane + 32 * c, h = j >> lwp, w = j & (wp - 1);
     kr[c] = FULL || (h < H && w < dsh)
-                ? __ldg(k + static_cast<size_t>(pc.x) * DS +
-                        (FULL ? j : h * dsh + w))
+                ? ld_f(k + static_cast<size_t>(pc.x) * DS +
+                       (FULL ? j : h * dsh + w))
                 : 0.f;
     vr[c] = FULL || (h < H && w < dvh)
-                ? __ldg(v + static_cast<size_t>(pc.x) * C +
-                        (FULL ? j : h * dvh + w))
+                ? ld_f(v + static_cast<size_t>(pc.x) * C +
+                       (FULL ? j : h * dvh + w))
                 : 0.f;
     dka[c] = 0.f;
     dva[c] = 0.f;
@@ -626,14 +659,37 @@ dot_dkv_staged(const float* __restrict__ q, const float* __restrict__ k,
   }
   cp_async_wait<0>();
 
-  float* pdk = pc.w < 0 ? dk + static_cast<size_t>(pc.x) * DS
-                        : partials + static_cast<size_t>(pc.w) * (DS + C);
-  float* pdv = pc.w < 0 ? dv + static_cast<size_t>(pc.x) * C : pdk + DS;
+  // as the dq pass: one pointer a table on float
+  if constexpr (std::is_same_v<T, float>) {
+    float* pdk = pc.w < 0 ? dk + static_cast<size_t>(pc.x) * DS
+                          : partials + static_cast<size_t>(pc.w) * (DS + C);
+    float* pdv = pc.w < 0 ? dv + static_cast<size_t>(pc.x) * C : pdk + DS;
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int j = lane + 32 * c, h = j >> lwp, w = j & (wp - 1);
-    if (FULL || (h < H && w < dsh)) pdk[FULL ? j : h * dsh + w] = dka[c];
-    if (FULL || (h < H && w < dvh)) pdv[FULL ? j : h * dvh + w] = dva[c];
+    for (int c = 0; c < NC; ++c) {
+      const int j = lane + 32 * c, h = j >> lwp, w = j & (wp - 1);
+      if (FULL || (h < H && w < dsh)) pdk[FULL ? j : h * dsh + w] = dka[c];
+      if (FULL || (h < H && w < dvh)) pdv[FULL ? j : h * dvh + w] = dva[c];
+    }
+  } else if (pc.w < 0) {
+    T* rdk = dk + static_cast<size_t>(pc.x) * DS;
+    T* rdv = dv + static_cast<size_t>(pc.x) * C;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int j = lane + 32 * c, h = j >> lwp, w = j & (wp - 1);
+      if (FULL || (h < H && w < dsh))
+        rdk[FULL ? j : h * dsh + w] = from_f<T>(dka[c]);
+      if (FULL || (h < H && w < dvh))
+        rdv[FULL ? j : h * dvh + w] = from_f<T>(dva[c]);
+    }
+  } else {
+    float* pdk = partials + static_cast<size_t>(pc.w) * (DS + C);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int j = lane + 32 * c, h = j >> lwp, w = j & (wp - 1);
+      if (FULL || (h < H && w < dsh)) pdk[FULL ? j : h * dsh + w] = dka[c];
+      if (FULL || (h < H && w < dvh))
+        pdk[DS + (FULL ? j : h * dvh + w)] = dva[c];
+    }
   }
 }
 
@@ -651,11 +707,13 @@ cudaError_t launch_staged(void (*kernel)(KArgs...), size_t smem,
 }
 
 // Whether every row of a staged tensor is 16-byte aligned (its width a
-// multiple of 4 floats, the tensor 16-byte aligned): then it is staged by
-// 16-byte copies, else by 4-byte ones; each of a kernel's two staged
-// tensors is decided alone.
-bool row_vec(int width, const float* a) {
-  return width % 4 == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+// multiple of a 16-byte vector of T, the tensor 16-byte aligned): then it
+// is staged by 16-byte vectors, else element by element; each of a
+// kernel's two staged tensors is decided alone.
+template <typename T>
+bool row_vec(int width, const T* a) {
+  return width % kVecElems<T> == 0 &&
+         (reinterpret_cast<uintptr_t>(a) & 15) == 0;
 }
 
 // Whether every slot is a real score and value column (FULL).
@@ -667,24 +725,24 @@ bool dot_full(int H, int dsh, int dvh, int wp, int nc) {
 
 // The instantiation of a staged dot kernel for `full` and `wide`
 // (wp > 32, never at NC = 1, which holds at most 32 slots)
-#define PGL_DOT_PICK(KERNEL, NC, CELLS)                                  \
-  (full ? (wide ? KERNEL<NC, true, (NC > 1), CELLS>                     \
-                : KERNEL<NC, true, false, CELLS>)                        \
-        : (wide ? KERNEL<NC, false, (NC > 1), CELLS>                    \
-                : KERNEL<NC, false, false, CELLS>))
+#define PGL_DOT_PICK(KERNEL, T, NC, CELLS)                               \
+  (full ? (wide ? KERNEL<T, NC, true, (NC > 1), CELLS>                  \
+                : KERNEL<T, NC, true, false, CELLS>)                     \
+        : (wide ? KERNEL<T, NC, false, (NC > 1), CELLS>                 \
+                : KERNEL<T, NC, false, false, CELLS>))
 
 namespace {
 
 // The launches of each pass over one work list, the second launch that
 // finishes split rows included; `cnt` and `keys` are the cells' (CELLS),
 // null per edge. Each returns cudaGetLastError() or the first error.
-template <bool CELLS>
-int dot_fwd_run(const float* q, const float* k, const float* v,
-                const int* indices, const int* cnt, const int* keys,
-                const int* pieces, int n_pieces, const int* split_rows,
-                const int* split_ptr, int n_split, int H, int dsh, int dvh,
-                float slope, const int* seed, int thresh, float inv_keep,
-                float* out, float* lse, float* partials, cudaStream_t s) {
+template <bool CELLS, typename T>
+int dot_fwd_run(const T* q, const T* k, const T* v, const int* indices,
+                const int* cnt, const int* keys, const int* pieces,
+                int n_pieces, const int* split_rows, const int* split_ptr,
+                int n_split, int H, int dsh, int dvh, float slope,
+                const int* seed, int thresh, float inv_keep, T* out,
+                float* lse, float* partials, cudaStream_t s) {
   int wp = 0;
   const int nc = dot_slots(H, dsh, dvh, &wp);
   const int dvh_p = pow2_at_least(dvh);
@@ -701,14 +759,16 @@ int dot_fwd_run(const float* q, const float* k, const float* v,
         sizeof(float) * kWarps *
         (kv_warp_floats<NC>(H * dsh, H * dvh) + cell_pair_floats<NC, CELLS>());
     err = launch_staged(
-        PGL_DOT_PICK(dot_fwd_staged, NC, CELLS), smem, n_pieces, s, q, k, v,
+        PGL_DOT_PICK(dot_fwd_staged, T, NC, CELLS), smem, n_pieces, s, q, k,
+        v,
         indices, cnt, keys, pc, n_pieces, H, dsh, dvh, wp, vec1, vec2, slope,
         seed, thresh, inv_keep, out, lse, partials);
     if (err != cudaSuccess) return static_cast<int>(err);
   })
   if (n_split > 0) {
     PGL_NC_SWITCH(ncv, {
-      gat_fwd_combine<NC><<<n_split, CombineWarps<NC>::value * 32, 0, s>>>(
+      gat_fwd_combine<T, NC>
+          <<<n_split, CombineWarps<NC>::value * 32, 0, s>>>(
           partials, split_rows, split_ptr, H, dvh, dvh_p, inv_keep, out,
           lse);
     })
@@ -716,14 +776,14 @@ int dot_fwd_run(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool CELLS>
-int dot_dq_run(const float* q, const float* k, const float* v,
-               const float* g, const float* lse, const float* delta,
-               const int* indices, const int* cnt, const int* keys,
-               const int* pieces, int n_pieces, const int* split_rows,
-               const int* split_ptr, int n_split, int H, int dsh, int dvh,
-               float slope, const int* seed, int thresh, float inv_keep,
-               float* dq, float* partials, cudaStream_t s) {
+template <bool CELLS, typename T>
+int dot_dq_run(const T* q, const T* k, const T* v, const T* g,
+               const float* lse, const float* delta, const int* indices,
+               const int* cnt, const int* keys, const int* pieces,
+               int n_pieces, const int* split_rows, const int* split_ptr,
+               int n_split, int H, int dsh, int dvh, float slope,
+               const int* seed, int thresh, float inv_keep, T* dq,
+               float* partials, cudaStream_t s) {
   int wp = 0;
   const int nc = dot_slots(H, dsh, dvh, &wp);
   if (nc == 0 || H <= 0 || dsh <= 0 || dvh <= 0)
@@ -738,26 +798,26 @@ int dot_dq_run(const float* q, const float* k, const float* v,
                         (dq_warp_floats<NC>(H * dsh, H * dvh, H) +
                          cell_pair_floats<NC, CELLS>());
     err = launch_staged(
-        PGL_DOT_PICK(dot_dq_staged, NC, CELLS), smem, n_pieces, s, q, k, v,
+        PGL_DOT_PICK(dot_dq_staged, T, NC, CELLS), smem, n_pieces, s, q, k,
+        v,
         g, lse, delta, indices, cnt, keys, pc, n_pieces, H, dsh, dvh, wp,
         vec1, vec2, slope, seed, thresh, inv_keep, dq, partials);
     if (err != cudaSuccess) return static_cast<int>(err);
   })
   if (n_split > 0)
-    sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
+    sum_combine<T><<<n_split, kSumWarps * 32, 0, s>>>(
         partials, split_rows, split_ptr, H * dsh, 0, dq, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool CELLS>
-int dot_dkv_run(const float* q, const float* k, const float* v,
-                const float* g, const float* lse, const float* delta,
-                const int* indices, const int* eidx, const int* cnt,
-                const int* keys, const int* pieces, int n_pieces,
-                const int* split_rows, const int* split_ptr, int n_split,
-                int H, int dsh, int dvh, float slope, const int* seed,
-                int thresh, float inv_keep, float* dk, float* dv,
-                float* partials, cudaStream_t s) {
+template <bool CELLS, typename T>
+int dot_dkv_run(const T* q, const T* k, const T* v, const T* g,
+                const float* lse, const float* delta, const int* indices,
+                const int* eidx, const int* cnt, const int* keys,
+                const int* pieces, int n_pieces, const int* split_rows,
+                const int* split_ptr, int n_split, int H, int dsh, int dvh,
+                float slope, const int* seed, int thresh, float inv_keep,
+                T* dk, T* dv, float* partials, cudaStream_t s) {
   int wp = 0;
   const int nc = dot_slots(H, dsh, dvh, &wp);
   if (nc == 0 || H <= 0 || dsh <= 0 || dvh <= 0)
@@ -771,13 +831,14 @@ int dot_dkv_run(const float* q, const float* k, const float* v,
     const size_t smem = sizeof(float) * kWarps *
                         dkv_warp_floats<NC, CELLS>(H * dsh, H * dvh, H);
     err = launch_staged(
-        PGL_DOT_PICK(dot_dkv_staged, NC, CELLS), smem, n_pieces, s, q, k, v,
+        PGL_DOT_PICK(dot_dkv_staged, T, NC, CELLS), smem, n_pieces, s, q, k,
+        v,
         g, lse, delta, indices, eidx, cnt, keys, pc, n_pieces, H, dsh, dvh,
         wp, vec, slope, seed, thresh, inv_keep, dk, dv, partials);
     if (err != cudaSuccess) return static_cast<int>(err);
   })
   if (n_split > 0)
-    sum_combine<<<n_split, kSumWarps * 32, 0, s>>>(
+    sum_combine<T><<<n_split, kSumWarps * 32, 0, s>>>(
         partials, split_rows, split_ptr, H * dsh, H * dvh, dk, dv);
   return static_cast<int>(cudaGetLastError());
 }

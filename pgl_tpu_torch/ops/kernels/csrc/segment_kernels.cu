@@ -75,11 +75,16 @@
 // Past 512 columns a row takes several passes, and a head that crosses a
 // pass is finished by the later one, which adds to what the earlier wrote.
 //
-// bf16 (K1 only; `pgl_spmm_bf16`): the same kernels instantiated on the
-// element type T. The reference sends bf16 features to its kernel, which
-// accumulates each ET-edge tile in f32 and rounds the running sum to bf16
-// once a tile; here a lane converts each gathered bf16 to f32, sums in f32
-// registers, and rounds once (to nearest even) when the row is stored. A
+// bf16 (K1: `pgl_spmm_bf16`; K1w: `pgl_spmm_weighted_bf16`, in the library
+// segment_kernels_bf16 built from this source): the same kernels
+// instantiated on the element type T. The reference sends bf16
+// features to its kernel, which accumulates each ET-edge tile in f32 and
+// rounds the running sum to bf16 once a tile (K1w also forms each message
+// x * w in bf16 before its tile sum, and takes the weights in the
+// feature's dtype); here a lane converts each gathered bf16 (and K1w's
+// bf16 weight and row of xrow) to f32, forms the message and sums in f32
+// registers, and rounds once (to nearest even) when the row, or dw, is
+// stored. A
 // split row's per-piece partials stay f32 whatever T is, and `spmm_combine`
 // sums them in f32 and rounds once. A 16-byte vector holds 8 bf16, so the
 // vector path takes D % 8 == 0 (VEC = 8) and `items_config` keeps 16 f32
@@ -90,7 +95,10 @@
 // ItemUnroll halves the rows each holds in flight (32 f32 values a lane):
 // a warp keeps as many gathered rows in flight as the float32 kernel's at
 // the same D, each half the bytes. The order of every sum is the float32
-// kernel's, so every run gives the same bits.
+// kernel's, so every run gives the same bits. K1w's dw on bf16 is reduced
+// by `head_tree` in f32 and rounded once when stored; past 512 columns a
+// head that crosses a pass adds its later part to the bf16 value the
+// earlier pass stored (a second rounding, at D > 512 only).
 //
 // Calling convention: launches on the given stream (the packs on a side
 // stream forked from it and joined back, so what the caller queues after
@@ -114,14 +122,15 @@ constexpr int kPack = 32;          // most edges and rows of a packed item
 enum Op { kNone = 0, kMul = 1, kAdd = 2 };
 
 // K1w's weighted operands: w [E, H] and the edge ids that index it, and for
-// the weight gradient dw [E, H] and (mul) the row table xrow. K1 passes
-// none of them.
+// the weight gradient dw [E, H] and (mul) the row table xrow, all of the
+// feature's element type T. K1 passes none of them.
+template <typename T>
 struct Weighted {
   const int* eid;
-  const float* w;
+  const T* w;
   int H, dh;
-  const float* xrow;
-  float* dw;
+  const T* xrow;
+  T* dw;
 };
 
 // bf16 -> f32 is exact: the bf16 bits are the top half of the f32's
@@ -197,19 +206,31 @@ __device__ __forceinline__ T to_elem(float v) {
   }
 }
 
+// one T as f32 (exact)
+template <typename T>
+__device__ __forceinline__ float elem_f32(T v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __bfloat162float(v);
+  }
+}
+
 // Rows in flight per lane: K1 eight vectors of loads (32 registers at VEC =
 // 4), at least two rows, and at VEC = 8 (bf16) 32 f32 values, at least two
 // rows; K1w half that, at least one, and one where dw is written at more
-// than one vector a lane (at two, 64 registers spilled 100 B).
+// than one vector a lane (at two, 64 registers spilled 100 B) or at 8 bf16
+// a lane (at two, the rows kernel of dx with mul's dw spilled 28-44 B in
+// 64 registers).
 template <int VEC, int NV, int WOP, int DWOP>
 struct ItemUnroll {
   static constexpr int k1 = VEC == 8 ? (NV >= 2 ? 2 : 4)
                             : NV >= 4 ? 2
                                       : 8 / NV;
   static constexpr int value =
-      WOP == kNone && DWOP == kNone ? k1
-      : DWOP != kNone && NV > 1     ? 1
-                                    : (k1 > 1 ? k1 / 2 : 1);
+      WOP == kNone && DWOP == kNone       ? k1
+      : DWOP != kNone && (NV > 1 || VEC == 8) ? 1
+                                          : (k1 > 1 ? k1 / 2 : 1);
 };
 
 // Blocks an SM: four (64 registers) up to 8 columns a lane (at 8, D = 256,
@@ -301,10 +322,10 @@ struct Heads {
 
 // K1w: wv[k] <- edge e's weight for vector k's head (0 where `live` is
 // false), read once per head the lane's vectors touch.
-template <int VEC, int L, int NV>
+template <typename T, int VEC, int L, int NV>
 __device__ __forceinline__ void load_weights(
-    const Weighted& wt, int e, const Heads<VEC, L, NV, true>& hd, bool live,
-    float (&wv)[NV]) {
+    const Weighted<T>& wt, int e, const Heads<VEC, L, NV, true>& hd,
+    bool live, float (&wv)[NV]) {
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     if (!live) {
@@ -312,7 +333,9 @@ __device__ __forceinline__ void load_weights(
     } else if (k > 0 && (hd.reuse >> k & 1u)) {
       wv[k] = wv[k > 0 ? k - 1 : 0];
     } else {
-      wv[k] = __ldg(wt.w + static_cast<size_t>(e) * wt.H + hd.head[k]);
+      float w1[1];
+      load_vec<T, 1>(wt.w + static_cast<size_t>(e) * wt.H + hd.head[k], w1);
+      wv[k] = w1[0];
     }
   }
 }
@@ -392,15 +415,15 @@ __device__ __forceinline__ void head_tree(float (&p)[U][NV],
 
 // K1w: the lanes whose slot is its head's first write edge e's dw of the
 // head (adding to an earlier pass's part where the head began there).
-template <int VEC, int L, int NV>
-__device__ __forceinline__ void store_dw(const Weighted& wt, int e,
+template <typename T, int VEC, int L, int NV>
+__device__ __forceinline__ void store_dw(const Weighted<T>& wt, int e,
                                          const Heads<VEC, L, NV, true>& hd,
                                          const float (&p)[NV]) {
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     if (hd.first >> k & 1u) {
-      float* o = wt.dw + static_cast<size_t>(e) * wt.H + hd.head[k];
-      *o = (hd.cont >> k & 1u) ? *o + p[k] : p[k];
+      T* o = wt.dw + static_cast<size_t>(e) * wt.H + hd.head[k];
+      *o = to_elem<T>((hd.cont >> k & 1u) ? elem_f32(*o) + p[k] : p[k]);
     }
   }
 }
@@ -425,7 +448,7 @@ __global__ void __launch_bounds__(kItemWarps * 32, ItemBlocks<VEC, NV>::value)
 spmm_rows(const T* __restrict__ x, const int* __restrict__ indices,
           const int4* __restrict__ items, int n_items, int D,
           T* __restrict__ out, float* __restrict__ partials,
-          const Weighted wt) {
+          const Weighted<T> wt) {
   constexpr bool kW = WOP != kNone || DWOP != kNone;
   constexpr int G = 32 / L;
   constexpr int U = ItemUnroll<VEC, NV, WOP, DWOP>::value;
@@ -454,7 +477,7 @@ spmm_rows(const T* __restrict__ x, const int* __restrict__ indices,
     zero(acc);
     float xr[NV][VEC];  // the row's own x (mul's dw)
     if constexpr (DWOP == kMul)
-      gather_row<float, VEC, L, NV>(wt.xrow, pc.x, D, c0, l, true, xr);
+      gather_row<T, VEC, L, NV>(wt.xrow, pc.x, D, c0, l, true, xr);
     int cur = mine, cur_e = mine_e;
     for (long long base = pc.y; base < pc.z; base += 32) {
       const int n = static_cast<int>(min(32LL, pc.z - base));
@@ -525,7 +548,7 @@ template <typename T, int VEC, int L, int NV, int WOP, int DWOP>
 __global__ void __launch_bounds__(kItemWarps * 32, ItemBlocks<VEC, NV>::value)
 spmm_packs(const T* __restrict__ x, const int* __restrict__ indices,
            const int* __restrict__ indptr, const int4* __restrict__ items,
-           int n_items, int D, T* __restrict__ out, const Weighted wt) {
+           int n_items, int D, T* __restrict__ out, const Weighted<T> wt) {
   constexpr bool kW = WOP != kNone || DWOP != kNone;
   constexpr int G = 32 / L;
   // mul's dw gathers the edge's row of xrow beside it: half the rows again
@@ -612,8 +635,8 @@ spmm_packs(const T* __restrict__ x, const int* __restrict__ indices,
               drend = sp[dr + 1];
             }
           }
-          gather_row<float, VEC, L, NV>(wt.xrow, pc.x + dr, D, c0, l, live,
-                                        xr[u]);
+          gather_row<T, VEC, L, NV>(wt.xrow, pc.x + dr, D, c0, l, live,
+                                    xr[u]);
         }
       }
       if (store) {  // uniform across the warp
@@ -774,8 +797,8 @@ struct Walk {
 // joined back to `s`, so the two kernels overlap (a hub's pieces beside the
 // short rows) and `s` sees both done.
 template <typename T, int VEC, int L, int NV, int WOP, int DWOP>
-cudaError_t launch_items(int device, const Walk<T>& a, const Weighted& wt,
-                         cudaStream_t s) {
+cudaError_t launch_items(int device, const Walk<T>& a,
+                         const Weighted<T>& wt, cudaStream_t s) {
   const dim3 threads(kItemWarps * 32);
   const auto blocks = [](int n) { return (n + kItemWarps - 1) / kItemWarps; };
   if (a.n_rows == 0 || a.n_packs == 0) {
@@ -827,7 +850,7 @@ int items_config(int D, int vec, int* nv) {
 // nv) that `items_config` chose.
 template <typename T, int WOP, int DWOP>
 cudaError_t launch_config(int device, int vec, int lanes, int nv,
-                          const Walk<T>& a, const Weighted& wt,
+                          const Walk<T>& a, const Weighted<T>& wt,
                           cudaStream_t s) {
 #define PGL_ITEMS(V, L, N)                             \
   if (vec == V && lanes == L && nv == N)               \
@@ -848,11 +871,11 @@ cudaError_t launch_config(int device, int vec, int lanes, int nv,
   return cudaErrorInvalidValue;
 }
 
-// K1 (wop = dwop = kNone) or, on float, K1w over the work list, and, where
-// rows split and out is written, the combine launch.
+// K1 (wop = dwop = kNone) or K1w over the work list, and, where rows split
+// and out is written, the combine launch.
 template <typename T>
 int run_items(int device, int wop, int dwop, const Walk<T>& a,
-              const Weighted& wt, const int* split_rows,
+              const Weighted<T>& wt, const int* split_rows,
               const int* split_ptr, int n_split, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -875,20 +898,16 @@ int run_items(int device, int wop, int dwop, const Walk<T>& a,
   const int lanes = items_config(a.D, vec, &nv);
   if (wop == kNone && dwop == kNone) {
     err = launch_config<T, kNone, kNone>(device, vec, lanes, nv, a, wt, s);
-  } else if constexpr (std::is_same_v<T, float>) {
-    if (wop == kMul && dwop == kNone) {
-      err = launch_config<T, kMul, kNone>(device, vec, lanes, nv, a, wt, s);
-    } else if (wop == kAdd && dwop == kNone) {
-      err = launch_config<T, kAdd, kNone>(device, vec, lanes, nv, a, wt, s);
-    } else if (wop == kMul && dwop == kMul) {
-      err = launch_config<T, kMul, kMul>(device, vec, lanes, nv, a, wt, s);
-    } else if (wop == kNone && dwop == kAdd) {
-      err = launch_config<T, kNone, kAdd>(device, vec, lanes, nv, a, wt, s);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+  } else if (wop == kMul && dwop == kNone) {
+    err = launch_config<T, kMul, kNone>(device, vec, lanes, nv, a, wt, s);
+  } else if (wop == kAdd && dwop == kNone) {
+    err = launch_config<T, kAdd, kNone>(device, vec, lanes, nv, a, wt, s);
+  } else if (wop == kMul && dwop == kMul) {
+    err = launch_config<T, kMul, kMul>(device, vec, lanes, nv, a, wt, s);
+  } else if (wop == kNone && dwop == kAdd) {
+    err = launch_config<T, kNone, kAdd>(device, vec, lanes, nv, a, wt, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);  // K1w is float only
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_split > 0 && a.out != nullptr) {
@@ -898,7 +917,38 @@ int run_items(int device, int wop, int dwop, const Walk<T>& a,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1w over the same work list: out [R, D] = sum over the row's edges of
+// x[indices[e]] (wop 1: times, wop 2: plus) w[eid[e], col / (D / H)], w
+// [E, H] of x's type in the caller's edge order (wop 0: unweighted, taken
+// only with dwop 2, add's dx; K1 is pgl_spmm_f32). dwop 1 (with xrow [R, D]:
+// wop must be 1) or 2 also writes dw [E, H] at eid. With a dwop, `out` may
+// be null: dw alone, no combine launch, and w is not read.
+template <typename T>
+int run_weighted(int device, int wop, int dwop, const T* x,
+                 const int* indices, const int* indptr, const int* eid,
+                 const T* w, int H, const int* items, int n_rows,
+                 int n_packs, const int* split_rows, const int* split_ptr,
+                 int n_split, int D, T* out, float* partials, const T* xrow,
+                 T* dw, void* stream) {
+  if (H <= 0 || D % H != 0 || (wop == kNone && dwop == kNone))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (out == nullptr && dwop != kNone)
+    wop = dwop == kMul ? kMul : kNone;  // dw alone: the weights go unread
+  const Walk<T> a{x,       indices, indptr,
+                  reinterpret_cast<const int4*>(items),
+                  n_rows,  n_packs, D,
+                  out,     partials};
+  const Weighted<T> wt{eid, w, H, D / H, xrow, dw};
+  return run_items(device, wop, dwop, a, wt, split_rows, split_ptr, n_split,
+                   stream);
+}
+
 }  // namespace
+
+// The float32 entry points, or (built with -DPGL_BF16, the library
+// segment_kernels_bf16) the bf16 ones: each half instantiates only its
+// element type, so the two build in parallel.
+#ifndef PGL_BF16
 
 // K1: out [R, D] = the sorted-segment sum of x [N, D] over the layout's
 // work list `items` (pack_rows): n_rows items of one row, then n_packs
@@ -912,9 +962,23 @@ extern "C" int pgl_spmm_f32(int device, const float* x, const int* indices,
                       reinterpret_cast<const int4*>(items),
                       n_rows,  n_packs, D,
                       out,     partials};
-  return run_items(device, kNone, kNone, a, Weighted{}, split_rows,
+  return run_items(device, kNone, kNone, a, Weighted<float>{}, split_rows,
                    split_ptr, n_split, stream);
 }
+
+// K1w (run_weighted) on float tables.
+extern "C" int pgl_spmm_weighted_f32(
+    int device, int wop, int dwop, const float* x, const int* indices,
+    const int* indptr, const int* eid, const float* w, int H,
+    const int* items, int n_rows, int n_packs, const int* split_rows,
+    const int* split_ptr, int n_split, int D, float* out, float* partials,
+    const float* xrow, float* dw, void* stream) {
+  return run_weighted(device, wop, dwop, x, indices, indptr, eid, w, H,
+                      items, n_rows, n_packs, split_rows, split_ptr, n_split,
+                      D, out, partials, xrow, dw, stream);
+}
+
+#else
 
 // K1 on bf16 tables: x [N, D] and out [R, D] bf16 (passed as raw 16-bit
 // words), partials [n_partials, D] f32; the sums f32, each row rounded once
@@ -933,31 +997,26 @@ extern "C" int pgl_spmm_bf16(int device, const void* x, const int* indices,
                               D,
                               static_cast<__nv_bfloat16*>(out),
                               partials};
-  return run_items(device, kNone, kNone, a, Weighted{}, split_rows,
-                   split_ptr, n_split, stream);
+  return run_items(device, kNone, kNone, a, Weighted<__nv_bfloat16>{},
+                   split_rows, split_ptr, n_split, stream);
 }
 
-// K1w over the same work list: out [R, D] = sum over the row's edges of
-// x[indices[e]] (wop 1: times, wop 2: plus) w[eid[e], col / (D / H)], w
-// [E, H] f32 in the caller's edge order (wop 0: unweighted, taken only with
-// dwop 2, add's dx; K1 is pgl_spmm_f32). dwop 1 (with xrow [R, D]: wop must
-// be 1) or 2 also writes dw [E, H] at eid. With a dwop, `out` may be null:
-// dw alone, no combine launch, and w is not read.
-extern "C" int pgl_spmm_weighted_f32(
-    int device, int wop, int dwop, const float* x, const int* indices,
-    const int* indptr, const int* eid, const float* w, int H,
+// K1w on bf16 tables: x, w, xrow, out and dw bf16 (raw 16-bit words),
+// partials f32; messages and sums f32, each stored value rounded once to
+// nearest even.
+extern "C" int pgl_spmm_weighted_bf16(
+    int device, int wop, int dwop, const void* x, const int* indices,
+    const int* indptr, const int* eid, const void* w, int H,
     const int* items, int n_rows, int n_packs, const int* split_rows,
-    const int* split_ptr, int n_split, int D, float* out, float* partials,
-    const float* xrow, float* dw, void* stream) {
-  if (H <= 0 || D % H != 0 || (wop == kNone && dwop == kNone))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (out == nullptr && dwop != kNone)
-    wop = dwop == kMul ? kMul : kNone;  // dw alone: the weights go unread
-  const Walk<float> a{x,       indices, indptr,
-                      reinterpret_cast<const int4*>(items),
-                      n_rows,  n_packs, D,
-                      out,     partials};
-  const Weighted wt{eid, w, H, D / H, xrow, dw};
-  return run_items(device, wop, dwop, a, wt, split_rows, split_ptr, n_split,
-                   stream);
+    const int* split_ptr, int n_split, int D, void* out, float* partials,
+    const void* xrow, void* dw, void* stream) {
+  using B = __nv_bfloat16;
+  return run_weighted(device, wop, dwop, static_cast<const B*>(x), indices,
+                      indptr, eid, static_cast<const B*>(w), H, items,
+                      n_rows, n_packs, split_rows, split_ptr, n_split, D,
+                      static_cast<B*>(out), partials,
+                      static_cast<const B*>(xrow), static_cast<B*>(dw),
+                      stream);
 }
+
+#endif  // PGL_BF16

@@ -55,7 +55,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..dispatch import use_attention_kernel
+from ..dispatch import use_dedup_attention_kernel
 from . import _build
 from . import segment_kernels as sk
 from .attention_kernels import (_check, _drop_args, _k10_args,
@@ -408,7 +408,7 @@ class _DedupGatAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a_dst, a_src, v, att, leaky_slope, dvh, rate, seed):
         args = (leaky_slope, dvh, rate, seed)
-        if use_attention_kernel(v):
+        if use_dedup_attention_kernel(v):
             out, lse = _fwd_cuda(a_dst, a_src, v, att, *args)
         else:
             out, lse = dedup_attention_reference(a_dst, a_src, v, att.layout,
@@ -425,7 +425,7 @@ class _DedupGatAttention(torch.autograd.Function):
         g = g.contiguous()
         delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
         ins = (a_dst, a_src, v, g, lse, delta)
-        if use_attention_kernel(v):
+        if use_dedup_attention_kernel(v):
             da_dst, dsrc, dv = _bwd_cuda(*ins, att, slope, dvh, rate, seed)
         else:
             da_dst, dsrc, dv = dedup_bwd_reference(*ins, att.layout, slope,
@@ -511,7 +511,7 @@ def _dot_bwd_cuda(q, k, v, g, lse, delta, att, slope, dsh, dvh, rate, seed):
 class _DedupDotAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, att, leaky_slope, dsh, dvh, rate, seed):
-        if use_attention_kernel(v):
+        if use_dedup_attention_kernel(v):
             out, lse = _dot_fwd_cuda(q, k, v, att, leaky_slope, dsh, dvh,
                                      rate, seed)
         else:
@@ -529,7 +529,7 @@ class _DedupDotAttention(torch.autograd.Function):
         g = g.contiguous()
         delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
         ins = (q, k, v, g, lse, delta)
-        if use_attention_kernel(v):
+        if use_dedup_attention_kernel(v):
             dq, dk, dv = _dot_bwd_cuda(*ins, att, slope, dsh, dvh, rate,
                                        seed)
         else:

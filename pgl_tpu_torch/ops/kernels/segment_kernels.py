@@ -18,7 +18,9 @@ gives the design.
 * :func:`spmm` is an autograd ``Function``: forward over the CSC layout,
   backward the same kernel over the CSR layout (the transposed SpMM). K1
   takes float32 and bf16 features (``pgl_spmm_bf16``: the sums f32, each
-  row rounded once to bf16; K1w takes float32 only). A K1 call that
+  row rounded once to bf16), and so does K1w (``pgl_spmm_weighted_bf16``:
+  bf16 weights, f32 messages and sums, out, dx and dw each rounded once).
+  A K1 call that
   ``torch.export`` or ``torch.compile`` traces is the custom op
   ``torch.ops.pgl_tpu_torch.spmm`` (its CUDA implementation the launch,
   its CPU implementation the plain version, its fake one the shape), so
@@ -36,8 +38,8 @@ gives the design.
 * :func:`spmm_reference`, :func:`spmm_weighted_reference` and
   :func:`weight_grad_reference` are the plain PyTorch versions. CPU tensors
   run them; CUDA tensors launch the kernel or raise. On a bf16 (or fp16)
-  table :func:`spmm_reference` sums in float32 and rounds once, K1's
-  contract.
+  table each of them computes in float32 and rounds each output value
+  once, the kernels' contract.
 
 ``LAUNCHES_BY_SHAPE`` counts kernel launches: K1's by ``(layout.kind, D)``,
 K1w's by ``(op, layout.kind, D, H)`` with op ``"mul"`` or ``"add"`` (the
@@ -46,7 +48,8 @@ dx alone is K1's unweighted sum and counts as K1), and ``"mul_dw"`` or
 ``"add_dw"`` for a launch that gives dw alone; one per call, which is two
 CUDA launches when a row was split and dx is written. K1 on a layout of no
 rows (a graph of no nodes) launches nothing and counts nothing.
-``LAUNCHES_BF16`` counts K1's bf16 launches apart, by ``(layout.kind, D)``.
+``LAUNCHES_BF16`` counts the bf16 launches apart, K1's by ``(layout.kind,
+D)`` and K1w's by K1w's keys.
 ``LAUNCHES`` is the sum of both. ``LAUNCHES_BY_LAYOUT`` counts K1's float32
 launches again by ``((layout.kind, D), id(layout))``, so that the launches
 on each of several graphs of one shape (the relations of a heterogeneous
@@ -416,6 +419,9 @@ def pack_rows(indptr, pieces):
     return items[np.argsort(items[:, 0], kind="stable")]
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
 def spmm_reference(x: torch.Tensor, layout: SpmmLayout) -> torch.Tensor:
     """The plain version: ``out[r] = Σ_{e in row r} x[indices[e]]``; a
     bf16 or fp16 ``x`` is summed in float32 and each sum rounded once to
@@ -432,13 +438,16 @@ def spmm_weighted_reference(x: torch.Tensor, w: torch.Tensor,
                             msg_op: str = "mul") -> torch.Tensor:
     """The plain version of K1w: ``out[r] = Σ_{e in row r} x[indices[e]] ⊛
     w[edge_id[e]]``, ``w`` [E, H] broadcast over each head's ``D / H``
-    columns, ⊛ mul or add."""
+    columns, ⊛ mul or add; on bf16 (or fp16) tables the messages and sums
+    are float32 and each sum is rounded once (K1w's bf16 contract)."""
     E, H, D = layout.num_edges, w.shape[1], x.shape[1]
-    msgs = x.index_select(0, layout.indices).reshape(E, H, D // H)
-    we = w.index_select(0, layout.edge_id).unsqueeze(-1)
+    acc = torch.float32 if x.dtype in _HALF else x.dtype
+    msgs = x.index_select(0, layout.indices).to(acc).reshape(E, H, D // H)
+    we = w.index_select(0, layout.edge_id).to(acc).unsqueeze(-1)
     msgs = msgs * we if msg_op == "mul" else msgs + we
-    return x.new_zeros(layout.num_rows, D).index_add_(
-        0, layout.seg_ids, msgs.reshape(E, D))
+    return torch.zeros(layout.num_rows, D, dtype=acc,
+                       device=x.device).index_add_(
+        0, layout.seg_ids, msgs.reshape(E, D)).to(x.dtype)
 
 
 def weight_grad_reference(g: torch.Tensor, x: torch.Tensor,
@@ -447,32 +456,39 @@ def weight_grad_reference(g: torch.Tensor, x: torch.Tensor,
     """The plain version of K1w's dw, over the transposed (CSR) layout,
     whose rows are the sources: ``dw[edge_id[e], h]`` is the sum over head
     h's columns of ``g[indices[e]] · x[seg_ids[e]]`` (mul) or of
-    ``g[indices[e]]`` (add); [E, H] in the original edge order."""
+    ``g[indices[e]]`` (add); [E, H] in the original edge order. On bf16
+    (or fp16) tables the products and sums are float32 and each dw is
+    rounded once."""
     E, D = layout.num_edges, g.shape[1]
-    ge = g.index_select(0, layout.indices)
+    acc = torch.float32 if g.dtype in _HALF else g.dtype
+    ge = g.index_select(0, layout.indices).to(acc)
     if msg_op == "mul":
-        ge = ge * x.index_select(0, layout.seg_ids)
+        ge = ge * x.index_select(0, layout.seg_ids).to(acc)
     dw = ge.reshape(E, H, D // H).sum(-1)
-    return torch.empty_like(dw).index_copy_(0, layout.edge_id.long(), dw)
+    return torch.empty_like(dw).index_copy_(0, layout.edge_id.long(),
+                                            dw).to(g.dtype)
 
 
 _OPS = {"mul": 1, "add": 2}
-_HALF = (torch.bfloat16, torch.float16)
 
 
-def _lib():
-    lib = _build.load("segment_kernels")
-    if lib.pgl_spmm_f32.argtypes is None:
+def _lib(dtype=torch.float32):
+    """The library of the entry points on ``dtype``: ``segment_kernels``
+    (``pgl_spmm_f32``, ``pgl_spmm_weighted_f32``) or, for bf16,
+    ``segment_kernels_bf16`` (``pgl_spmm_bf16``, ``pgl_spmm_weighted_bf16``:
+    the same source built apart, so the two build in parallel)."""
+    bf16 = dtype == torch.bfloat16
+    lib = _build.load("segment_kernels_bf16" if bf16 else "segment_kernels")
+    suffix = "bf16" if bf16 else "f32"
+    spmm = getattr(lib, f"pgl_spmm_{suffix}")
+    if spmm.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pgl_spmm_f32.argtypes = [i, p, p, p, p, i, i, p, p, i, i, p,
-                                       p, p]
-        lib.pgl_spmm_f32.restype = ctypes.c_int
-        lib.pgl_spmm_bf16.argtypes = lib.pgl_spmm_f32.argtypes
-        lib.pgl_spmm_bf16.restype = ctypes.c_int
-        lib.pgl_spmm_weighted_f32.argtypes = [i, i, i, p, p, p, p, p, i, p,
-                                              i, i, p, p, i, i, p, p, p, p,
-                                              p]
-        lib.pgl_spmm_weighted_f32.restype = ctypes.c_int
+        spmm.argtypes = [i, p, p, p, p, i, i, p, p, i, i, p, p, p]
+        spmm.restype = ctypes.c_int
+        weighted = getattr(lib, f"pgl_spmm_weighted_{suffix}")
+        weighted.argtypes = [i, i, i, p, p, p, p, p, i, p, i, i, p, p, i, i,
+                             p, p, p, p, p]
+        weighted.restype = ctypes.c_int
     return lib
 
 
@@ -485,9 +501,13 @@ def _launch_weighted(x, w, layout, out, partials, wop, dwop=0, xrow=None,
     """One K1w launch over ``layout.items`` on the current stream: ``wop``
     1 (mul), 2 (add) or 0 (unweighted, only beside ``dwop`` 2) into
     preallocated ``out`` (None: dw alone, with ``wop`` 0) and ``partials``
-    [item_partials, D]; ``dwop`` 1 (mul, with ``xrow``) or 2 (add) also
-    writes ``dw`` [E, H]. Raises when the launch is refused."""
-    rc = _lib().pgl_spmm_weighted_f32(
+    [item_partials, D] (float32); ``dwop`` 1 (mul, with ``xrow``) or 2
+    (add) also writes ``dw`` [E, H]. ``x``, ``w``, ``out``, ``xrow`` and
+    ``dw`` are float32 or all bf16. Raises when the launch is refused."""
+    lib = _lib(x.dtype)
+    fn = (lib.pgl_spmm_weighted_bf16 if x.dtype == torch.bfloat16
+          else lib.pgl_spmm_weighted_f32)
+    rc = fn(
         x.device.index, wop, dwop, x.data_ptr(), layout.indices.data_ptr(),
         layout.indptr.data_ptr(), layout.edge_id.data_ptr(), w.data_ptr(),
         w.shape[1], layout.items.data_ptr(),
@@ -505,7 +525,7 @@ def _launch(x, layout, out, partials):
     """One SpMM (K1, over ``layout.items``) on the current stream into
     preallocated ``out`` (``x``'s dtype, float32 or bf16) and ``partials``
     (float32); raises when the launch is refused."""
-    lib = _lib()
+    lib = _lib(x.dtype)
     fn = lib.pgl_spmm_bf16 if x.dtype == torch.bfloat16 else lib.pgl_spmm_f32
     rc = fn(
         x.device.index, x.data_ptr(), layout.indices.data_ptr(),
@@ -662,11 +682,17 @@ def _weighted_forward(x, w, layout, msg_op):
         raise ValueError("the CUDA weighted SpMM takes contiguous weights")
     D, H = x.shape[1], w.shape[1]
     out = torch.empty(layout.num_rows, D, dtype=x.dtype, device=x.device)
-    partials = torch.empty(layout.item_partials, D, dtype=x.dtype,
+    # a split row's partial sums stay float32 whatever x's dtype
+    partials = torch.empty(layout.item_partials, D, dtype=torch.float32,
                            device=x.device)
     _launch_weighted(x, w, layout, out, partials, _OPS[msg_op])
-    LAUNCHES_BY_SHAPE[(msg_op, layout.kind, D, H)] += 1
+    _count_weighted((msg_op, layout.kind, D, H), x)
     return out
+
+
+def _count_weighted(key, x):
+    (LAUNCHES_BF16 if x.dtype == torch.bfloat16
+     else LAUNCHES_BY_SHAPE)[key] += 1
 
 
 def _weighted_backward(g, x, w, csr, msg_op, need_dx, need_dw):
@@ -690,7 +716,7 @@ def _weighted_backward(g, x, w, csr, msg_op, need_dx, need_dw):
     dx = partials = dw = None
     if need_dx:
         dx = torch.empty(csr.num_rows, D, dtype=g.dtype, device=g.device)
-        partials = torch.empty(csr.item_partials, D, dtype=g.dtype,
+        partials = torch.empty(csr.item_partials, D, dtype=torch.float32,
                                device=g.device)
     if need_dw:
         dw = torch.empty(csr.num_edges, H, dtype=g.dtype, device=g.device)
@@ -698,7 +724,7 @@ def _weighted_backward(g, x, w, csr, msg_op, need_dx, need_dw):
                      _OPS[msg_op] if need_dw else 0,
                      x if mul and need_dw else None, dw)
     key = msg_op if need_dx else f"{msg_op}_dw"
-    LAUNCHES_BY_SHAPE[(key, csr.kind, D, H)] += 1
+    _count_weighted((key, csr.kind, D, H), g)
     return dx, dw
 
 

@@ -1,10 +1,12 @@
 """Mixed-precision helpers for bf16 training on the card (port of
 ``pgl_tpu/utils/amp.py``).
 
-K1, the SpMM behind every sum and mean, takes bf16 features
-(``ops/kernels/segment_kernels.py``: f32 sums, each row rounded once), so
-the recipe is the reference's: parameters and activations in bf16, the
-master weights, the optimizer's state and the loss in float32.
+K1, the SpMM behind every sum and mean, K1w behind ``send_ue_recv`` and
+the per-edge attention K9/K10 behind ``GATConv`` and ``TransformerConv``
+take bf16 tables (``ops/kernels/``: f32 arithmetic, each stored value
+rounded once), so the recipe is the reference's: parameters and
+activations in bf16, the master weights, the optimizer's state and the
+loss in float32.
 """
 
 from __future__ import annotations

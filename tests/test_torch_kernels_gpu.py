@@ -59,7 +59,9 @@ from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS,
                         SDDMM_OPS, attention_graph, attention_inputs, check,
                         check_batch_graph_k1, check_device_samples,
                         check_walks,
-                        check_attention, check_counts, check_dedup,
+                        bf16_attention_check, bf16_inputs,
+                        check_attention, check_counts,
+                        check_dedup,
                         check_empty_rows_dot, check_rect_spmm,
                         check_dedup_attention, check_dedup_dot,
                         check_dedup_exact, check_dot, check_k10_case,
@@ -771,11 +773,13 @@ def test_half_precision_on_cuda_raises(cuda, dtype):
     """The reference's dtype gate on the card: a bf16 ``send_u_recv``
     launches the bf16 K1 (counted in ``LAUNCHES_BF16``) and equals its
     plain version (float32 sums rounded once); an fp16 one takes the
-    segment path and launches nothing; a bf16 ``send_ue_recv`` reaches
-    K1w, which has no bf16 instantiation, and raises rather than running
-    the plain version, with no launch counted. The features are small
-    integers, whose sums both half types hold exactly, so either path
-    equals the CPU graph's sums."""
+    segment path and launches nothing; a bf16 ``send_ue_recv`` launches
+    the bf16 K1w (counted in ``LAUNCHES_BF16``) and equals its plain
+    version. bf16 raises where a kernel has no bf16 instantiation, with no
+    launch counted: at K11 (``sddmm_csc``) and on a graph with dedup
+    layouts (K5/K6 for ``send_u_recv``). The features are small integers,
+    whose sums both half types hold exactly, so either path equals the CPU
+    graph's sums."""
     host = Graph(skewed_graph(100, 800, seed=6), num_nodes=100)
     g = host.tensor(cuda)
     x = torch.randint(-3, 4, (100, 16), device=cuda,
@@ -790,10 +794,26 @@ def test_half_precision_on_cuda_raises(cuda, dtype):
         want = sk.spmm_reference(x.to(dtype), g._spmm_layouts[0])
         assert torch.equal(got, want)
         sk.reset_launches()
-        with pytest.raises(TypeError):
-            g.send_ue_recv(x.to(dtype), torch.ones(800, device=cuda,
-                                                   dtype=dtype), "mul",
-                           "sum")
+        w = torch.ones(800, device=cuda, dtype=dtype)
+        weighted = g.send_ue_recv(x.to(dtype), w, "mul", "sum")
+        assert dict(sk.LAUNCHES_BF16) == {("mul", "csc", 16, 1): 1}
+        assert not sk.LAUNCHES_BY_SHAPE
+        assert torch.equal(weighted, sk.spmm_weighted_reference(
+            x.to(dtype), w.reshape(-1, 1), g._spmm_layouts[0]))
+        assert torch.equal(weighted, got)
+        with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0,
+                               DEDUP_MAX_RATIO=float("inf")):
+            g_d = host.tensor(cuda)
+        assert g_d._dedup_layouts is not None
+        for call in (lambda: g.sddmm_csc(x.to(dtype), x.to(dtype), "mul"),
+                     lambda: g_d.send_u_recv(x.to(dtype), "sum")):
+            sk.reset_launches()
+            sdk.reset_launches()
+            dk.reset_launches()
+            with pytest.raises(TypeError):
+                call()
+            assert not any(m.LAUNCHES_BY_SHAPE for m in (sk, sdk, dk))
+        sk.reset_launches()
     assert sk.LAUNCHES == 0
     want = host.tensor("cpu").send_u_recv(x.cpu().to(dtype), "sum")
     assert torch.equal(got.cpu(), want)
@@ -821,6 +841,114 @@ def test_bf16_k1_on_every_work_item(cuda, D, aligned):
         assert dict(sk.LAUNCHES_BF16) == {(lay.kind, D): 2}
         assert not sk.LAUNCHES_BY_SHAPE
         check_spmm_bf16(f"bf16 case {lay.kind} D={D}", out, x, lay)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+@pytest.mark.parametrize("H,dvh", K10_SHAPES)
+@pytest.mark.parametrize("graph", ["hub", "sixteen", "no_edges"])
+def test_bf16_k10_additive_matches_plain_version(cuda, graph, H, dvh, rate):
+    """The bf16 additive K9 and K10 at every lane map (8 bf16 a 16-byte
+    vector, or scalar loads below 8 columns a head) on the three case
+    graphs: within ``check_bf16``'s bound of float64 of the same bf16
+    values (the float32 rule plus 2^-8 |f64|, the one rounding), the same
+    bits twice, empty rows zero, and counted in ``LAUNCHES_BF16`` only."""
+    if not _K10_GRAPHS:
+        _K10_GRAPHS.update(k10_case_graphs(cuda))
+    gen = torch.Generator(device=cuda).manual_seed(H * dvh + 1)
+    ak.reset_launches()
+    check_k10_case(graph, _K10_GRAPHS[graph], H, dvh, rate, 0.2, cuda, gen,
+                   bf16=True)
+    torch.cuda.synchronize()
+    assert not ak.LAUNCHES_BY_SHAPE
+    for k in ("gat_fwd", "gat_dq", "gat_dkv"):
+        assert ak.LAUNCHES_BF16[(k, H, dvh)] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("H,dsh,dvh,leaky", [(2, 128, 128, 0.0),
+                                             (8, 16, 16, 0.0),
+                                             (43, 2, 8, 0.2),
+                                             (3, 5, 7, 0.0)])
+def test_bf16_dot_attention_matches_plain_version(cuda, H, dsh, dvh, leaky,
+                                                  rate):
+    """The bf16 dot-mode K9, K10-dq and K10-dkv at UniMP's shape, (8, 16,
+    16), a many-head shape and ragged widths (rows staged element by
+    element) on a graph whose hub rows split on both sides: within
+    ``check_bf16``'s bound of float64, the same bits twice, out bf16 and
+    lse float32, counted in ``LAUNCHES_BF16`` only."""
+    g = Graph(attention_graph(3000, 40000, seed=4), num_nodes=3000
+              ).tensor(cuda)
+    shape = (H, dsh, dvh)
+    gen = torch.Generator(device=cuda).manual_seed(H * dsh * dvh + 1)
+    ins = bf16_inputs(dot_inputs(3000, shape, cuda, gen))
+    seed = torch.tensor([-987654321], dtype=torch.int32, device=cuda)
+    ak.reset_launches()
+    bf16_attention_check("bf16 dot", g._attention_layouts(), ins, rate,
+                         seed, shape, leaky)
+    assert not ak.LAUNCHES_BY_SHAPE
+    assert dict(ak.LAUNCHES_BF16) == {
+        (k + c, *shape): 2 for k in DOT_KERNELS for c in ("", "_combine")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False], ids=["vec", "unaligned"])
+@pytest.mark.parametrize("D", [1, 3, 8, 16, 64, 128])
+def test_bf16_k1w_work_items_match_plain_version(cuda, D, aligned):
+    """The bf16 K1w over every kind of work item at every head count that
+    divides D, mul and add, on 16-byte vectors of 8 bf16 and on the scalar
+    path: forward, dx with dw and dw alone within ``check_bf16``'s bound
+    of float64, the same bits twice."""
+    edges, n = k1_case_edges()
+    g = Graph(edges, num_nodes=n).tensor(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(D + 1)
+    sk.reset_launches()
+    check_k1w_items(g, D, aligned, cuda, gen, bf16=True)
+    assert not sk.LAUNCHES_BY_SHAPE and sk.LAUNCHES_BF16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["GATConv", "TransformerConv", "GATv2Conv",
+                                  "FAConv"])
+def test_bf16_layers_launch_the_bf16_kernels(cuda, kind):
+    """A bf16 GATConv (additive K9/K10), TransformerConv (dot K9/K10),
+    GATv2Conv and FAConv (K1w) forward and backward on the card: bf16
+    output and gradients, only bf16 launches of their kernels, and the
+    output within 2^-5 of its largest |value| (four bf16 ulps: the layer's
+    bf16 projections round before the kernels do) of the layer run in
+    float64 on the CPU from the same bf16-valued weights and features."""
+    from pgl_tpu_torch.nn import FAConv, GATv2Conv
+    g, _ = community_graph(num_nodes=300, num_classes=3, feat_dim=16,
+                           avg_degree=8, seed=5)
+    make = {"GATConv": lambda d: GATConv(16, 8, num_heads=4, feat_drop=0.0,
+                                         attn_drop=0.0, device=d),
+            "TransformerConv": lambda d: TransformerConv(
+                16, 8, num_heads=2, feat_drop=0.0, attn_drop=0.0, device=d),
+            "GATv2Conv": lambda d: GATv2Conv(16, 8, num_heads=4,
+                                             feat_drop=0.0, attn_drop=0.0,
+                                             device=d),
+            "FAConv": lambda d: FAConv(16, drop=0.0, device=d)}[kind]
+    outs = {}
+    for dev, dtype in ((cuda, torch.bfloat16), ("cpu", torch.float64)):
+        torch.manual_seed(0)
+        layer = make(dev).to(torch.bfloat16).to(dtype)
+        gt = g.tensor(dev)
+        x = gt.node_feat["h"].to(torch.bfloat16).to(dtype).requires_grad_()
+        sk.reset_launches()
+        ak.reset_launches()
+        out = layer(gt, x)
+        out.float().square().sum().backward()
+        outs[str(dev)] = out.detach()
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert out.dtype == torch.bfloat16
+            assert x.grad.dtype == torch.bfloat16
+            assert not sk.LAUNCHES_BY_SHAPE and not ak.LAUNCHES_BY_SHAPE
+            assert sk.LAUNCHES_BF16 or ak.LAUNCHES_BF16
+    want = outs["cpu"]
+    err = (outs[str(cuda)].cpu().double() - want).abs().max()
+    assert err <= 2.0 ** -5 * want.abs().max(), (kind, float(err))
 
 
 @pytest.mark.gpu
