@@ -406,8 +406,24 @@ there is no card or any phase fails. Phases:
    0.3) against float64, timed (CUDA events) beside the float32 kernel
    on the same values, the plain version and (K1w) ``torch.sparse.mm`` on
    a bf16 CSR matrix or batched bf16 COO ``torch.bmm`` (or the error it
-   raises), with the byte bound of bf16 tables. The step line's
-   ``seconds`` is the whole script's time.
+   raises), with the byte bound of bf16 tables;
+19. the examples: every script of ``examples_torch/`` through its
+   ``main(argv)`` at ``EXAMPLES``' flags (the reference's defaults; ogb at
+   ``--full-scale``, the ogbn-arxiv-shaped graph of 169,343 nodes, with
+   GCN and UniMP for 100 epochs; the citation benchmark with GCN, GAT,
+   FAGCN and GATv2; the halo-sharded GCN and the multi-chip R-UniMP on 4
+   gloo ranks sharing the card, and the distributed DeepWalk with 3 shard
+   servers and 4 trainers, each rank or trainer a process of its script,
+   these three at once after the others, so their times are contended):
+   each prints its metric line, wall seconds, ms a step and launches by
+   family and shape, and must launch its kernel families, end with a
+   finite loss below its first, and clear its metric's floor (the
+   reference's CPU test's where it sets one, else chance level); then the
+   dot K9/K10 at every (H, dsh, dvh) those runs launched that
+   ``KNOWN_DOT_SHAPES`` lacks, on the full-scale graph, against float64
+   at rates 0 and 0.1 by ``check_dot`` and timed with CUDA events beside
+   their bounds (``phase_dot_timing``). The step line's ``seconds`` is the
+   whole script's time.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -2759,8 +2775,9 @@ def unimp_trainer(g, labels, training=True, mode="edge", bf16=False):
     return model, model_step(model, opt, loss_of, bf16)
 
 
-def phase_dot_timing(graphs, dev, runs, errs):
-    """Rows at UniMP's shape for each of ``graphs`` (tag -> graph): each
+def phase_dot_timing(graphs, dev, runs, errs, shape=UNIMP_SHAPE):
+    """Rows at ``shape`` (H, dsh, dvh; UniMP's unless given) for each of
+    ``graphs`` (tag -> graph): each
     dot kernel's ms (the wrapper's launches, merges included), its plain
     version's, and two bounds: the table's (each input read once, each
     output written once) and the gather bound (the rows each edge gathers
@@ -2769,7 +2786,7 @@ def phase_dot_timing(graphs, dev, runs, errs):
     import torch
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
 
-    H, dsh, dvh = shape = UNIMP_SHAPE
+    H, dsh, dvh = shape
     DS, C = H * dsh, H * dvh
     gen = torch.Generator(device=dev).manual_seed(9)
     seed = torch.tensor([12345], dtype=torch.int32, device=dev)
@@ -8989,6 +9006,227 @@ def phase_amp_attention(dev, host):
     return rows, steps
 
 
+# -- phase 19: the examples --------------------------------------------------
+
+# (script under examples_torch/, argv, the metric its main returns, the
+# floor it must clear, the kernel families it must launch). The reference's
+# defaults, but ogb at --full-scale with both models, the citation
+# benchmark with each model whose kernel family no other script launches,
+# and the multi-rank scripts on 4 gloo ranks that share the card. A floor
+# is the reference's CPU test's where it sets one (the halo-sharded GCN's
+# test acc > 0.7), else the task's chance level (1 / classes, an AUC's
+# 0.5), else 0.
+EXAMPLES = (
+    ("citation_benchmark/train.py", ("--model", "GCN"), "test_acc", 1 / 7,
+     {"K1"}),
+    ("citation_benchmark/train.py", ("--model", "GAT"), "test_acc", 1 / 7,
+     {"K9/K10 additive"}),
+    ("citation_benchmark/train.py", ("--model", "FAGCN"), "test_acc",
+     1 / 7, {"K1w"}),
+    ("citation_benchmark/train.py", ("--model", "GATv2"), "test_acc",
+     1 / 7, {"K1w"}),
+    ("ogb/train.py", ("--full-scale", "--model", "GCN"), "test_acc",
+     1 / 40, {"K1"}),
+    ("ogb/train.py", ("--full-scale", "--model", "UniMP"), "test_acc",
+     1 / 40, {"K9/K10 dot"}),
+    ("unimp/train.py", (), "test_acc", 1 / 5, {"K9/K10 dot"}),
+    ("deploy/export_and_serve.py", (), "acc_serve", 1 / 4, {"K1"}),
+    ("link_prediction/train.py", (), "auc", 0.5, {"K1"}),
+    ("lightgcn/train.py", (), "recall@20", 0.0, {"K1"}),
+    ("ngcf/train.py", (), "recall@20", 0.0, {"K1"}),
+    ("gin/train.py", (), "test_acc", 1 / 2, {"K1"}),
+    ("global_pool/train.py", (), "test_acc", 1 / 3, {"K1"}),
+    ("sag_pool/train.py", (), "test_acc", 1 / 2, {"K1"}),
+    ("rgcn/train.py", (), "test_acc", 1 / 4, {"K1"}),
+    ("r_unimp/train.py", (), "val_acc", 1 / 4, {"K9/K10 dot"}),
+    ("graphsage/train.py", (), "test_acc", 1 / 5, {"K1"}),
+    ("graphsage/train.py", ("--device-sampler",), "test_acc", 1 / 5,
+     set()),
+    ("gnn_autoscale/train.py", (), "acc", 1 / 4, {"K1"}),
+    ("deepwalk/train.py", (), "nn_agreement", 1 / 4, set()),
+    ("node2vec/train.py", (), "probe_acc", 1 / 4, set()),
+    ("clustering/train.py", (), "nmi", 0.0, set()),
+    ("metapath2vec/train.py", (), "nn_agreement", 1 / 4, set()),
+    ("kg/train.py", (), "mrr", 0.0, set()),
+)
+# the scripts that start their ranks or trainers as processes: run at once,
+# each from a thread of this process (their ranks time-share the card and
+# the host's cores, so their times are contended); their launches are
+# rank 0's, which it returns
+EXAMPLE_PROCS = (
+    ("citation_benchmark/multi_chip_train.py", ("--nprocs", "4"),
+     "test_acc", 0.7, {"K1"}),
+    ("r_unimp/train.py", ("--multi-chip", "--nprocs", "4"), "val_acc",
+     1 / 4, {"K9/K10 dot"}),
+    ("deepwalk/train_distributed_cpu.py", (), "macro_f1", 0.0, set()),
+)
+# the dot shapes (H, dsh, dvh) that PERF.md's kernel table timed before
+KNOWN_DOT_SHAPES = {UNIMP_SHAPE, (43, 2, 8)}
+# the attention dropout of every example that runs the dot kernels
+EXAMPLE_DOT_RATE = 0.1
+
+
+def example_module(rel):
+    """``examples_torch/<rel>`` imported by path."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent / "examples_torch" / rel
+    spec = importlib.util.spec_from_file_location(
+        "examples_torch_" + rel[:-3].replace("/", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def launch_family(key):
+    """The kernel family of a launch key of ``all_launches`` (or of an
+    example's ``launches``, whose keys are the same fields joined by
+    spaces)."""
+    if isinstance(key, str):
+        key = tuple(key.split())
+    if key[0] == "bf16":
+        return "bf16 " + launch_family(key[1:])
+    name = key[0]
+    if name.startswith("gat_"):
+        return "K9/K10 additive"
+    if name.startswith("dot_"):
+        return "K9/K10 dot"
+    if name.startswith("dedup_dot"):
+        return "K7/K8 dot"
+    if name.startswith("dedup_gat"):
+        return "K7/K8 additive"
+    return {"mul": "K1w", "add": "K1w", "counts": "K4",
+            "dedup_cached": "K5", "dedup": "K6",
+            "dedup_weighted": "K6w", "sddmm": "K11"}.get(name, "K1")
+
+
+def example_step_ms(res):
+    """The ms a step (or an epoch of full-batch training) a script
+    reports, or None."""
+    for key in ("ms_per_epoch", "ms_per_step"):
+        if key in res:
+            return res[key]
+    if "s_per_epoch" in res:
+        return res["s_per_epoch"] * 1e3 / res["steps_per_epoch"]
+    return None
+
+
+def check_example(case, res, wall, launches, smi, lines, dot_launches,
+                  note=""):
+    """Print one example's line and hold it to its case of ``EXAMPLES``:
+    its kernel families launched, its metric above its floor, a finite
+    loss below its first. ``launches`` maps "kernel fields" to counts; the
+    dot ones add to ``dot_launches`` by (kernel, H, dsh, dvh)."""
+    import math
+    from collections import Counter
+
+    rel, argv, metric, floor, families = case
+    tag = " ".join((rel, *argv))
+    by_family = Counter()
+    for key, n in launches.items():
+        by_family[launch_family(key)] += n
+        if launch_family(key) == "K9/K10 dot":
+            name, *shape = key.split()
+            dot_launches[(name, *map(int, shape))] += n
+    value = res[metric]
+    first, last = res["loss_first"], res["loss_last"]
+    ms = example_step_ms(res)
+    print(f"[examples] {tag}: {metric} {value:.4f} (floor {floor:.4f}), "
+          f"loss {first:.4f} -> {last:.4f}, wall {wall:.2f} s{note}"
+          + (f", {ms:.3f} ms a step" if ms is not None else "")
+          + f"; launches {dict(by_family)} by shape {launches} ({smi})",
+          flush=True)
+    missing = families - set(by_family)
+    if missing:
+        raise AssertionError(f"{tag}: no launch of {sorted(missing)}")
+    if not (math.isfinite(value) and value > floor):
+        raise AssertionError(f"{tag}: {metric} {value} not above {floor}")
+    if not (math.isfinite(first) and math.isfinite(last) and last < first):
+        raise AssertionError(f"{tag}: loss {first} -> {last}")
+    lines[tag] = {"metric": metric, "value": value, "wall_s": wall,
+                  "ms_per_step": ms, "loss_first": first, "loss_last": last,
+                  "launches": dict(by_family), "concurrent": bool(note)}
+
+
+def phase_examples(dev, smi):
+    """Every script of ``examples_torch/`` through its ``main(argv)``:
+    ``EXAMPLES`` one after another, then ``EXAMPLE_PROCS`` (which start
+    their ranks and trainers as processes) at once; each held by
+    ``check_example``. Then the dot K9/K10 at every (H, dsh, dvh) those
+    runs launched that ``KNOWN_DOT_SHAPES`` lacks, on the full-scale
+    ogbn-arxiv-shaped graph: against float64 at rates 0 and
+    ``EXAMPLE_DOT_RATE`` (``check_dot``) and timed with CUDA events beside
+    the bounds (``phase_dot_timing``). Returns (rows, the step line's
+    entries)."""
+    from collections import Counter
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    lines, dot_launches = {}, Counter()
+    t_phase = time.perf_counter()
+    for case in EXAMPLES:
+        rel, argv = case[:2]
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = example_module(rel).main(list(argv))
+        torch.cuda.synchronize()
+        launches = {" ".join(map(str, k)): v
+                    for k, v in all_launches().items() if v}
+        check_example(case, res, time.perf_counter() - t0, launches, smi,
+                      lines, dot_launches)
+    t_serial = time.perf_counter() - t_phase
+
+    def timed(rel, argv):
+        t0 = time.perf_counter()
+        res = example_module(rel).main(list(argv))
+        return res, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(EXAMPLE_PROCS)) as pool:
+        runs = [pool.submit(timed, *case[:2]) for case in EXAMPLE_PROCS]
+        done = [run.result() for run in runs]
+    for case, (res, wall) in zip(EXAMPLE_PROCS, done):
+        check_example(case, res, wall, res.get("launches", {}), smi, lines,
+                      dot_launches, note=" (the three ran at once)")
+    t_runs = time.perf_counter() - t_phase
+
+    shapes = sorted({k[1:] for k in dot_launches} - KNOWN_DOT_SHAPES)
+    host = example_module("ogb/train.py").load_data(True)[0]
+    g = host.tensor(dev)
+    lays = g._attention_layouts()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = []
+    for shape in shapes:
+        errs = {}
+        ins = dot_inputs(g.num_nodes, shape, dev, gen)
+        for rate in (0.0, EXAMPLE_DOT_RATE):
+            seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                                 generator=gen, device=dev)
+            e = check_dot("ogb_full", lays, ins, shape, 0.0, rate, seed,
+                          run_dot(lays, ins, shape, 0.0, rate, seed))
+            for k, v in e.items():
+                errs["ogb_full", k] = max(errs.get(("ogb_full", k), 0.0), v)
+            print(f"[examples dot] ogb full-scale N={g.num_nodes} "
+                  f"E={g.num_edges} (H, dsh, dvh)={shape} rate={rate}: max "
+                  f"|err| K9 {e['dot_fwd']:.3e} K10-dq {e['dot_dq']:.3e} "
+                  f"K10-dkv {e['dot_dkv']:.3e}", flush=True)
+        del ins
+        rows += phase_dot_timing(
+            {"ogb_full": g}, dev,
+            {"ogb_full": {EXAMPLE_DOT_RATE: dot_launches}}, errs, shape)
+    del g, lays
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[examples] {len(EXAMPLES)} runs in {t_serial:.1f} s, "
+          f"{len(EXAMPLE_PROCS)} multi-process runs at once in "
+          f"{t_runs - t_serial:.1f} s, the dot kernels at {shapes} in "
+          f"{seconds - t_runs:.1f} s; phase {seconds:.1f} s ({smi})",
+          flush=True)
+    return rows, {"examples": dict(runs=lines, seconds=seconds,
+                                   new_dot_shapes=[list(s)
+                                                   for s in shapes])}
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
@@ -9145,6 +9383,9 @@ def main():
     torch.cuda.empty_cache()
     amp_rows, amp_steps_ = phase_amp_attention(dev, host)
     rows += amp_rows
+    torch.cuda.empty_cache()
+    example_rows, example_steps = phase_examples(dev, smi)
+    rows += example_rows
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -9156,6 +9397,7 @@ def main():
         **weighted_steps, **sddmm_steps, **zoo_steps, **hetero_steps,
         **readout_steps, **sampling_steps, "out_of_core": out_of_core,
         **parallel_steps, **g4r_lines, **util_steps, **amp_steps_,
+        **example_steps,
         "seconds": time.perf_counter() - t_start, "device": smi}}),
         flush=True)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s",

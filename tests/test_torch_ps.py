@@ -5,8 +5,10 @@ tables through the same pull and push sequence (equal bit for bit: the
 same numpy draw and server-side adagrad), and the reference's multi-process
 deepwalk run as the port's: 2 shard-server processes and 2 Graph4Rec
 trainer processes (``tests/torch_ps_procs.py``), whose table must move
-and whose losses must fall. The reference's MacroF1 probe needs
-``examples/deepwalk/``, which the port has not reached yet.
+and whose losses must fall. The reference's MacroF1 probe and the whole
+run are ported as ``examples_torch/deepwalk/train_distributed_cpu.py``:
+``tests/test_torch_examples_parity.py`` holds the probe to the reference's
+and ``tests/test_torch_examples_graph.py`` runs the script.
 """
 
 import tempfile
