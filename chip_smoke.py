@@ -424,6 +424,26 @@ there is no card or any phase fails. Phases:
    at rates 0 and 0.1 by ``check_dot`` and timed with CUDA events beside
    their bounds (``phase_dot_timing``). The step line's ``seconds`` is the
    whole script's time.
+20. serving (``utils/export.py``: every forward kernel a custom op, the
+   halo all-to-all and the all-reduces too), under PyTorch's
+   deterministic algorithms (warn only) in every process: FAGCN and
+   ``sddmm_csc(x, x, "mul")`` on the headline at D = 128, the headline GCN
+   under ``DEDUP`` with counts (K5) and without (``COUNTS_BUDGET_BYTES =
+   0``, K6), the bench GAT and GATv2 on the bench GAT graph, and under
+   ``DEDUP`` there the bench GAT (K7 additive) and UniMP (K7 dot), and
+   UniMP at the reference's defaults on the UniMP graph, each exported at
+   full width (``export_model``) and served twice by one fresh process
+   (this script with ``--serve MANIFEST``); then four gloo ranks sharing
+   the card each export the halo GCN on the headline's METIS shards (phase
+   15's parts), the halo GAT on the bench GAT graph's and the
+   ``ShardedGraph`` GCN, and four fresh rank processes (``--serving-rank
+   serve``) form a new group and serve them. Each output equals the eager
+   ``no_grad`` one bit for bit (``bits_digest``), each served call
+   launches what the eager call launched by family and shape and makes the
+   same kernel calls and collectives, no plain version runs, and the
+   program holds one op node a forward kernel call; printed per model:
+   artifact MiB, export s, load s, first and second served ms, eager ms,
+   and the serving process's import and load seconds.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -7070,7 +7090,8 @@ def check_sharded_transe(arrays, dev):
 
 def phase_parallel(dev, smi, head_host, gcn_step_ms):
     """Phase 15: the parallel layer (see the module doc). Returns (rows,
-    step lines)."""
+    step lines, the METIS parts of the headline and the bench GAT graph:
+    ``{"head": ..., "gat": ...}``)."""
     import shutil
     import tempfile
     import torch
@@ -7258,7 +7279,8 @@ def phase_parallel(dev, smi, head_host, gcn_step_ms):
         "nccl_world_of_one": nccl, **per_rank,
         "small_runs": {k: lines[0][k] for k in ("hetero_rgcn",
                                                  "halo_transformer",
-                                                 "sharded_transe")}}}
+                                                 "sharded_transe")}}}, {
+        "head": head_parts, "gat": gat_parts}
 
 
 
@@ -8214,37 +8236,158 @@ def phase_checkpoint(g, tmp):
                    restore_s}
 
 
-def serve(path, inputs, outputs):
-    """The export's serving process (``chip_smoke.py --serve``): its device
-    from ``PGL_TPU_PLATFORM`` (``select_platform``), the program loaded
-    by ``Predictor``, run once on the saved input; writes the logits and
-    prints its own K1 launches a call, load seconds and the ms of its first
-    and second call."""
+def serve(manifest, torch_s):
+    """The exports' serving process (``chip_smoke.py --serve MANIFEST``):
+    its device from ``PGL_TPU_PLATFORM`` (``select_platform``). It waits
+    (at most ``SERVE_TIMEOUT``) for the manifest, a JSON file that lists
+    the artifacts (``name``, ``path``, ``inputs``: saved tensors), so it can
+    be started before they exist; each is loaded by ``Predictor`` and
+    called twice on its inputs, counting launches by family and shape
+    (``all_launches``), the forward kernel calls by op (``kernel_calls``)
+    and the plain versions' calls (``counted_plain_versions``). Prints
+    one JSON line: the seconds of ``import torch`` (``torch_s``), of the
+    wait, of the port's imports and of the card's first allocation, and
+    per artifact the seconds of ``torch.export.load`` and of ``.module()``,
+    the ms of the first and second call (synchronized), each call's
+    counts, and the output's ``bits_digest``. ``deterministic`` in the
+    manifest runs PyTorch's deterministic algorithms, as the exporting
+    process did."""
+    wait_s = wait_for(manifest)
+    with open(manifest) as f:
+        plan = json.load(f)
+    t0 = time.perf_counter()
     import torch
-    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
-    from pgl_tpu_torch.utils.export import Predictor
+    import pgl_tpu_torch.utils.export as export
     from pgl_tpu_torch.utils.platform import select_platform
-
+    import_s = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = False   # as the exporter's
+    torch.backends.cudnn.allow_tf32 = False
     dev = select_platform()
     t0 = time.perf_counter()
-    pred = Predictor(path)
-    load_s = time.perf_counter() - t0
-    x = torch.load(inputs).to(dev)
-    times = []
-    for i in range(2):     # the first call loads the kernels' library
-        sk.reset_launches()
-        t0 = time.perf_counter()
-        out = pred.run(x)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = {f"{k}:{d}": v for (k, d), v in sk.LAUNCHES_BY_SHAPE.items()}
-    torch.save(out.cpu(), outputs)
-    print(json.dumps({"device": str(dev), "launches": sk.LAUNCHES,
-                      "by_shape": launches, "load_s": load_s,
-                      "first_ms": times[0], "run_ms": times[1]}),
-          flush=True)
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
+    cuda_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if plan.get("deterministic"):
+        # its first call imports what torch.export.load's first call would
+        # (sympy, torch.distributed.tensor): timed apart
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    deterministic_s = time.perf_counter() - t0
+    loaded = torch.export.load
+    out = {}
+    for entry in plan["models"]:
+        split = {}
+
+        def timed_load(*args, **kwargs):
+            t = time.perf_counter()
+            program = loaded(*args, **kwargs)
+            split["export_load_s"] = time.perf_counter() - t
+            return program
+
+        torch.export.load = timed_load
+        try:
+            t0 = time.perf_counter()
+            pred = export.Predictor(entry["path"])
+            load_s = time.perf_counter() - t0
+        finally:
+            torch.export.load = loaded
+        inputs = [torch.load(p).to(dev) for p in entry["inputs"]]
+        out[entry["name"]] = dict(
+            load_s=load_s, module_s=load_s - split["export_load_s"],
+            **served_calls(pred, inputs, dev), **split)
+        del pred, inputs
+    print(json.dumps({"device": str(dev), "torch_import_s": torch_s,
+                      "wait_s": wait_s, "import_s": import_s,
+                      "cuda_s": cuda_s, "deterministic_s": deterministic_s,
+                      "models": out}), flush=True)
     return 0
+
+
+def wait_for(path):
+    """Wait (at most ``SERVE_TIMEOUT``) until ``path`` exists; the
+    seconds waited."""
+    import os
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > SERVE_TIMEOUT:
+            raise TimeoutError(f"no {path}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def served_calls(pred, inputs, dev):
+    """``pred`` (a ``Predictor``) called twice on ``inputs``, no output
+    held across calls: the ms of each (synchronized; the first loads the
+    kernels' libraries), each call's launches by family and shape, kernel
+    calls by op and plain versions' calls, and the output's digest."""
+    import torch
+    times, counts = [], []
+    y = None
+    for _ in range(2):
+        y = None
+        reset_counts()
+        with counted_plain_versions() as plain:
+            t0 = time.perf_counter()
+            y = pred.run(*inputs)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts.append({"launches": key_strings(all_launches()),
+                       "calls": kernel_calls(), "plain": dict(plain)})
+    return dict(first_ms=times[0], run_ms=times[1], counts=counts,
+                digest=bits_digest(y))
+
+
+def key_strings(counts):
+    """Launch counts keyed ``"kind:D"`` (each key's parts joined), for
+    JSON."""
+    return {":".join(map(str, k)): v for k, v in counts.items() if v}
+
+
+def start_serving(tmp, tag):
+    """A fresh process of this script (``--serve``, ``PGL_TPU_PLATFORM``
+    ``cuda``) that serves the manifest ``<tmp>/<tag>.json`` once
+    :func:`finish_serving` writes it."""
+    import os
+    manifest = os.path.join(tmp, f"{tag}.json")
+    return manifest, subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve", manifest],
+        env=dict(os.environ, PGL_TPU_PLATFORM="cuda"),
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_serving(started, entries, deterministic=False):
+    """Write the manifest of ``entries`` (``name``, ``path``, ``inputs``)
+    for the process of :func:`start_serving` and wait for it (at most
+    ``SERVE_TIMEOUT``, killed after); its JSON line, with ``wall_s`` the
+    seconds from the manifest to its end."""
+    import os
+    manifest, proc = started
+    try:
+        with open(f"{manifest}.tmp", "w") as f:
+            json.dump({"models": entries, "deterministic": deterministic},
+                      f)
+        t0 = time.perf_counter()
+        os.replace(f"{manifest}.tmp", manifest)
+        out, err = proc.communicate(timeout=SERVE_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"serving process exit {proc.returncode}: "
+                             f"{err[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    got["wall_s"] = time.perf_counter() - t0
+    return got
+
+
+def run_serving(tmp, entries, tag, deterministic=False):
+    """Serve ``entries`` in one fresh process (:func:`start_serving`,
+    :func:`finish_serving`)."""
+    return finish_serving(start_serving(tmp, tag), entries, deterministic)
 
 
 def phase_export(g, model, tmp):
@@ -8254,49 +8397,43 @@ def phase_export(g, model, tmp):
     the process launched K1 three times (two CSC at D = 128, one at 16)."""
     import os
     import torch
-    from pgl_tpu_torch.utils.export import export_model
+    from pgl_tpu_torch.utils.export import export_model, op_calls
 
     x = g.node_feat["h"]
     path = os.path.join(tmp, "gcn.pt2")
     t0 = time.perf_counter()
     program = export_model(lambda x: model(g, x), [x], path)
     export_s = time.perf_counter() - t0
-    ops = sum(1 for n in program.graph.nodes if n.op == "call_function"
-              and "pgl_tpu_torch" in str(n.target))
+    ops = op_calls(program).get("spmm", 0)
     with torch.no_grad():
-        eager = model(g, x).cpu()
-    inputs, outputs = os.path.join(tmp, "x.pt"), os.path.join(tmp, "y.pt")
+        eager = bits_digest(model(g, x))
+    inputs = os.path.join(tmp, "x.pt")
     torch.save(x.cpu(), inputs)
-    child = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--serve", path, inputs,
-         outputs], env=dict(os.environ, PGL_TPU_PLATFORM="cuda"),
-        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-        text=True, timeout=SERVE_TIMEOUT)
-    if child.returncode != 0:
-        raise AssertionError(f"serving process exit {child.returncode}: "
-                             f"{child.stderr[-2000:]}")
-    got = json.loads(child.stdout.strip().splitlines()[-1])
-    served = torch.load(outputs)
-    if not torch.equal(served, eager):
-        raise AssertionError(f"export: served logits differ from the eager "
-                             f"model's (max |diff| "
-                             f"{float((served - eager).abs().max()):.3e})")
-    if got["launches"] != 3 or got["by_shape"] != {"csc:128": 2,
-                                                   "csc:16": 1}:
+    got = run_serving(tmp, [{"name": "gcn", "path": path,
+                             "inputs": [inputs]}], "gcn")
+    res = got["models"]["gcn"]
+    if res["digest"] != eager:
+        raise AssertionError("export: served logits differ from the eager "
+                             "model's")
+    by_shape = res["counts"][1]["launches"]
+    if by_shape != {"csc:128": 2, "csc:16": 1}:
         raise AssertionError(f"export: the serving process launched "
-                             f"{got['by_shape']}")
+                             f"{by_shape}")
     size = os.path.getsize(path)
     print(f"[export] {ops} K1 op calls in the program; artifact "
           f"{size / 2**20:.2f} MiB, exported in {export_s:.2f} s; served on "
-          f"{got['device']} in a fresh process: loaded in "
-          f"{got['load_s']:.2f} s, first call {got['first_ms']:.3f} ms, "
-          f"the second {got['run_ms']:.3f} ms, K1 "
-          f"{got['by_shape']}; logits equal the eager model's bit for bit",
+          f"{got['device']} in a fresh process: import torch "
+          f"{got['torch_import_s']:.2f} s, the port "
+          f"{got['import_s']:.2f} s, the card's first allocation "
+          f"{got['cuda_s']:.2f} s, loaded in {res['load_s']:.2f} s "
+          f"(torch.export.load {res['export_load_s']:.2f} s), first call "
+          f"{res['first_ms']:.3f} ms, the second {res['run_ms']:.3f} ms, "
+          f"K1 {by_shape}; logits equal the eager model's bit for bit",
           flush=True)
     return {"artifact_mib": size / 2**20, "export_s": export_s,
-            "load_s": got["load_s"], "serve_first_ms": got["first_ms"],
-            "serve_ms": got["run_ms"],
-            "serve_launches": got["launches"]}
+            "load_s": res["load_s"], "serve_first_ms": res["first_ms"],
+            "serve_ms": res["run_ms"],
+            "serve_launches": sum(by_shape.values())}
 
 
 def phase_profiler(g, tmp):
@@ -9227,12 +9364,439 @@ def phase_examples(dev, smi):
                                                    for s in shapes])}
 
 
-def main():
+# -- phase 20: every trained model exported and served on the card ---------
+
+# each kernel module's plain versions, counted where they run: no eager or
+# served call on the card may run one
+PLAIN_VERSIONS = {
+    "segment_kernels": ("spmm_reference", "spmm_weighted_reference"),
+    "attention_kernels": ("gat_attention_reference",
+                          "dot_attention_reference"),
+    "dedup_kernels": ("apply_reference", "apply_weighted_reference"),
+    "dedup_attention": ("dedup_attention_reference", "dedup_dot_reference"),
+    "sddmm_kernels": ("sddmm_reference",)}
+# the op that records each forward kernel's calls in an exported program,
+# by the kernel's first launch key (K1 and K1w by the key's length)
+OP_OF_KERNEL = {"dedup_cached": "spmm_dedup", "dedup": "spmm_dedup",
+                "dedup_weighted": "spmm_dedup", "gat_fwd": "gat_attention",
+                "dot_fwd": "dot_attention",
+                "dedup_fwd": "dedup_gat_attention",
+                "dedup_dot_fwd": "dedup_dot_attention", "sddmm": "sddmm"}
+SERVE_RANK_MODELS = ("halo_gcn", "halo_gat", "sharded_gcn")
+
+
+@contextlib.contextmanager
+def counted_plain_versions():
+    """Each kernel's plain version counted while inside: yields a dict of
+    calls by name, filled as they happen."""
+    import importlib
+    calls, saved = {}, []
+    for mod_name, names in PLAIN_VERSIONS.items():
+        mod = importlib.import_module(f"pgl_tpu_torch.ops.kernels.{mod_name}")
+        for name in names:
+            fn = getattr(mod, name)
+
+            def spy(*args, _fn=fn, _name=name, **kwargs):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*args, **kwargs)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, spy)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def kernel_calls():
+    """The forward kernel calls and collectives counted since the last
+    reset (``reset_all_launches``, ``comm.STATS.clear()``), by the custom
+    op that records each in an exported program: one call is one launch
+    key's count (a merge's ``_combine`` launch is part of its call)."""
+    from pgl_tpu_torch.parallel import comm
+    sk, dk, ak, da, sdk = _kernel_modules()
+    out = {}
+
+    def add(name, v):
+        if name and v:
+            out[name] = out.get(name, 0) + v
+
+    for counts in (sk.LAUNCHES_BY_SHAPE, sk.LAUNCHES_BF16):
+        for key, v in counts.items():
+            add("spmm" if len(key) == 2 else "spmm_weighted"
+                if key[0] in ("mul", "add") else None, v)
+    for module in (dk, ak, da, sdk):
+        for key, v in module.LAUNCHES_BY_SHAPE.items():
+            add(OP_OF_KERNEL.get(key[0]), v)
+    for key, v in ak.LAUNCHES_BF16.items():
+        add(OP_OF_KERNEL.get(key[0]), v)
+    add("all_to_all", comm.STATS["calls"])
+    add("all_reduce", comm.STATS["allreduce_calls"])
+    return out
+
+
+def reset_counts():
+    from pgl_tpu_torch.parallel import comm
+    reset_all_launches()
+    comm.STATS.clear()
+
+
+def eager_case(fn, inputs, dev):
+    """``fn`` run eagerly without gradients, a first call and then one
+    timed and counted: its ms, launches by family and shape, kernel calls
+    by op, the plain versions' calls and the output's digest."""
     import torch
+    with torch.no_grad():
+        fn(*inputs)
+        torch.cuda.synchronize(dev)
+        reset_counts()
+        with counted_plain_versions() as plain:
+            t0 = time.perf_counter()
+            y = fn(*inputs)
+            torch.cuda.synchronize(dev)
+            eager_ms = (time.perf_counter() - t0) * 1e3
+    return dict(eager_ms=eager_ms, launches=key_strings(all_launches()),
+                calls=kernel_calls(), plain=dict(plain),
+                digest=bits_digest(y))
+
+
+def export_case(fn, inputs, path):
+    """``fn`` exported to ``path`` (``export_model``): its seconds, the
+    program's op calls and the artifact's MiB."""
+    import os
+    from pgl_tpu_torch.utils.export import export_model, op_calls
+    t0 = time.perf_counter()
+    program = export_model(fn, inputs, path)
+    return dict(export_s=time.perf_counter() - t0, ops=op_calls(program),
+                mib=os.path.getsize(path) / 2**20)
+
+
+def check_served(tag, eager, served):
+    """Served against eager: the same bits, launches by family and shape
+    and kernel calls on each of the two calls, no plain version, and one
+    op node in the program for each forward kernel call."""
+    problems = []
+    if served["digest"] != eager["digest"]:
+        problems.append("output bits differ")
+    for i, call in enumerate(served["counts"]):
+        if call["launches"] != eager["launches"]:
+            problems.append(f"call {i} launched {call['launches']}, eager "
+                            f"{eager['launches']}")
+        if call["calls"] != eager["calls"]:
+            problems.append(f"call {i} made calls {call['calls']}, eager "
+                            f"{eager['calls']}")
+        if call["plain"]:
+            problems.append(f"call {i} ran plain versions {call['plain']}")
+    if eager["plain"]:
+        problems.append(f"eager ran plain versions {eager['plain']}")
+    if eager["ops"] != eager["calls"]:
+        problems.append(f"the program's op nodes {eager['ops']} against "
+                        f"the eager kernel calls {eager['calls']}")
+    if not eager["calls"]:
+        problems.append("no kernel call")
+    if problems:
+        raise AssertionError(f"[serve] {tag}: " + "; ".join(problems))
+
+
+def serving_cases(host, dev):
+    """``[(name, fn, inputs)]``: each model of an earlier phase on its
+    graph and at its widths (weights from the phase's seeds), every graph
+    built on the card once and kept by the functions."""
+    import torch
+    cases = []
+    g = headline_graph(False, host)
+    model, _ = fagcn_trainer(g)
+    cases += [("fagcn", lambda x, m=model, g=g: m(g, x), [g.node_feat["h"]]),
+              ("sddmm", lambda x, g=g: g.sddmm_csc(x, x, "mul"),
+               [g.node_feat["h"]])]
+    for name, settings in (("gcn_dedup", {}),
+                           ("gcn_dedup_no_counts",
+                            {"COUNTS_BUDGET_BYTES": 0})):
+        g = headline_graph(True, host, **settings)
+        model, _ = headline_trainer(g)
+        cases.append((name, lambda x, m=model, g=g: m(g, x),
+                      [g.node_feat["h"]]))
+    gat = gat_host()
+    g = gat.tensor(dev)
+    for name, trainer in (("gat", gat_trainer), ("gatv2", gatv2_trainer)):
+        model, _ = trainer(g)
+        cases.append((name, lambda x, m=model, g=g: m(g, x),
+                      [g.node_feat["h"]]))
+    with dispatch_settings(DEDUP=True):
+        g = gat.tensor(dev)
+    model, _ = gat_trainer(g)
+    cases.append(("gat_dedup", lambda x, m=model, g=g: m(g, x),
+                  [g.node_feat["h"]]))
+    labels, feed = serving_labels(g.num_nodes, dev)
+    model, _ = unimp_trainer(g, labels.cpu().numpy())
+    cases.append(("unimp_dedup",
+                  lambda x, m=model, g=g, y=labels, f=feed: m(g, x, y, f),
+                  [g.node_feat["h"]]))
+    uhost, ulabels = unimp_host()
+    g = uhost.tensor(dev)
+    labels = torch.as_tensor(ulabels, device=dev).long()
+    _, feed = serving_labels(g.num_nodes, dev)
+    model, _ = unimp_trainer(g, ulabels)
+    cases.append(("unimp",
+                  lambda x, m=model, g=g, y=labels, f=feed: m(g, x, y, f),
+                  [g.node_feat["h"]]))
+    return cases
+
+
+def serving_labels(n, dev):
+    """UniMP's inputs beside the features on a graph without labels:
+    seeded 40-class labels and a seeded half of them fed."""
+    import torch
+    rng = np.random.default_rng(3)
+    return (torch.as_tensor(rng.integers(0, 40, n), device=dev),
+            torch.as_tensor(rng.random(n) < 0.5, device=dev))
+
+
+def serving_rank(role, rank, size, port, tmp):
+    """One rank of phase 20's parallel part (a process of its own, every
+    rank on cuda:0 under gloo). ``export``: builds its shards of the
+    headline (``HaloGraph`` on the METIS parts, GCN; ``ShardedGraph``,
+    GCN) and of the bench GAT graph (``HaloGraph``, GAT), runs each model
+    eagerly (``eager_case``) and exports it; ``serve``: a fresh rank that
+    waits (at most ``SERVE_TIMEOUT``) for ``<tmp>/exported``, then serves
+    its own artifacts (``Predictor``) twice each. Writes
+    ``<role><rank>.json``."""
+    import datetime
+    import os
+    import torch
+    from pgl_tpu_torch.parallel import comm
+    if role == "serve":
+        wait_for(f"{tmp}/exported")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    comm.init(backend="gloo", init_method=f"tcp://127.0.0.1:{port}",
+              world_size=size, rank=rank,
+              timeout=datetime.timedelta(seconds=SERVE_TIMEOUT))
+    out = {}
+    if role == "export":
+        z = np.load(f"{tmp}/inputs.npz")
+        for name, fn, x in serving_rank_cases(z, dev):
+            torch.save(x.cpu(), os.path.join(tmp, f"{name}_x{rank}.pt"))
+            out[name] = eager_case(fn, [x], dev)
+            out[name].update(export_case(
+                fn, [x], os.path.join(tmp, f"{name}_r{rank}.pt2")))
+            torch.distributed.barrier()
+    else:
+        from pgl_tpu_torch.utils.export import Predictor
+        for name in SERVE_RANK_MODELS:
+            t0 = time.perf_counter()
+            pred = Predictor(os.path.join(tmp, f"{name}_r{rank}.pt2"))
+            load_s = time.perf_counter() - t0
+            x = torch.load(os.path.join(tmp, f"{name}_x{rank}.pt")).to(dev)
+            out[name] = dict(load_s=load_s, **served_calls(pred, [x], dev))
+            torch.distributed.barrier()
+    with open(f"{tmp}/{role}{rank}.json", "w") as f:
+        json.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def serving_rank_cases(z, dev):
+    """Yield this rank's ``(name, fn, input)``: the headline GCN on its
+    ``HaloGraph`` shard (METIS parts), the bench GAT on its shard of the
+    bench GAT graph, the headline GCN on its ``ShardedGraph`` edge shard
+    (phase 15's models and seeds)."""
+    import torch
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.models import GAT, GCN
+    from pgl_tpu_torch.parallel import HaloGraph, ShardedGraph
+
+    def gcn():
+        return GCN(input_size=128, num_class=16, num_layers=3,
+                   hidden_size=128, dropout=0.0,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+
+    head = Graph(z["head_edges"], num_nodes=int(z["head_n"]),
+                 node_feat={"h": z["head_feat"]})
+    hg = HaloGraph.from_graph(head, parts=z["head_parts"], device=dev,
+                              attention_layouts=False)
+    model = gcn()
+    yield "halo_gcn", lambda x: model(hg, x), hg.node_feat["h"]
+    gat = HaloGraph.from_graph(
+        Graph(z["gat_edges"], num_nodes=int(z["gat_n"]),
+              node_feat={"h": z["gat_feat"]}), parts=z["gat_parts"],
+        device=dev)
+    model_gat = GAT(input_size=128, num_class=16, num_heads=8, hidden_size=8,
+                    feat_drop=0.0, attn_drop=0.0,
+                    generator=torch.Generator().manual_seed(0), device=dev)
+    yield "halo_gat", lambda x: model_gat(gat, x), gat.node_feat["h"]
+    sg = ShardedGraph.from_graph(head, device=dev)
+    model_sg = gcn()
+    yield ("sharded_gcn", lambda x: model_sg(sg, x),
+           torch.as_tensor(z["head_feat"], device=dev))
+
+
+def start_ranks(role, size, tmp):
+    """``size`` processes of ``serving_rank`` (``role``) on a free port."""
+    port = free_port()
+    return [subprocess.Popen(
+        [sys.executable, __file__, "--serving-rank", role, str(r), str(size),
+         str(port), tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(size)]
+
+
+def finish_ranks(procs, role, tmp):
+    """Wait for :func:`start_ranks`' processes (at most ``SERVE_TIMEOUT``
+    each, killed after); each rank's JSON."""
+    outs = []
+    try:
+        outs = [p.communicate(timeout=SERVE_TIMEOUT)[0] for p in procs]
+    finally:
+        stop(procs)
+    failed = [f"rank {r} exited {p.returncode}:\n{out[-3000:]}"
+              for r, (p, out) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"phase 20 {role}: " + "\n".join(failed))
+    return [json.load(open(f"{tmp}/{role}{r}.json"))
+            for r in range(len(procs))]
+
+
+def stop(procs):
+    """Kill the processes of ``procs`` still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def serve_line(tag, eager, served, smi):
+    print(f"[serve] {tag}: artifact {eager['mib']:.2f} MiB, export "
+          f"{eager['export_s']:.2f} s, load {served['load_s']:.2f} s, served "
+          f"{served['first_ms']:.3f} ms first, {served['run_ms']:.3f} ms "
+          f"second, eager {eager['eager_ms']:.3f} ms; ops {eager['ops']}; "
+          f"launches {served['counts'][1]['launches']} equal eager's, no "
+          f"plain version, bits equal ({smi})", flush=True)
+
+
+def phase_serving(dev, smi, host, parts=None):
+    """Phase 20: every model the port trains exported on the card and
+    served in fresh processes (see the module doc). The four export ranks,
+    the four serving ranks and the serving process start together; the
+    serving ones wait for their files, and the parent builds and exports
+    the single-card models while the ranks export, then times each model
+    eagerly once they are done, alone on the card. ``parts``: phase 15's
+    METIS parts (``phase_parallel``), computed here when None. Returns the
+    step lines."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from pgl_tpu_torch.partition import metis_partition
+
+    t_phase = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    tmp = tempfile.mkdtemp(prefix="pgl_serve_")
+    S = PARALLEL_RANKS
+    lines, procs = {}, []
+    try:
+        gat = gat_host()
+        if parts is None:
+            parts = {k: metis_partition(g, S, balance="in_edges")
+                     for k, g in (("head", host), ("gat", gat))}
+        np.savez(f"{tmp}/inputs.npz", head_n=host.num_nodes,
+                 head_edges=np.asarray(host.edges),
+                 head_feat=np.asarray(host.node_feat["h"]),
+                 head_parts=parts["head"], gat_n=gat.num_nodes,
+                 gat_edges=np.asarray(gat.edges),
+                 gat_feat=np.asarray(gat.node_feat["h"]),
+                 gat_parts=parts["gat"])
+        exporters = start_ranks("export", S, tmp)
+        servers = start_ranks("serve", S, tmp)
+        serving = start_serving(tmp, "all")
+        procs = exporters + servers + [serving[1]]
+
+        # the single-card models, exported while the ranks export
+        cases = serving_cases(host, dev)
+        eager, entries = {}, []
+        for name, fn, inputs in cases:
+            paths = []
+            for i, x in enumerate(inputs):
+                paths.append(os.path.join(tmp, f"{name}_in{i}.pt"))
+                torch.save(x.cpu(), paths[-1])
+            path = os.path.join(tmp, f"{name}.pt2")
+            eager[name] = export_case(fn, inputs, path)
+            entries.append({"name": name, "path": path, "inputs": paths})
+        exports_s = time.perf_counter() - t_phase
+        exported = finish_ranks(exporters, "export", tmp)
+        ranks_export_s = time.perf_counter() - t_phase
+
+        # alone on the card: each model eagerly, then the serving process
+        for name, fn, inputs in cases:
+            eager[name].update(eager_case(fn, inputs, dev))
+        del cases
+        torch.cuda.empty_cache()
+        served = finish_serving(serving, entries, deterministic=True)
+        for name in eager:
+            check_served(name, eager[name], served["models"][name])
+            serve_line(name, eager[name], served["models"][name], smi)
+            lines[name] = dict(eager[name], **{
+                k: v for k, v in served["models"][name].items()
+                if k != "counts"})
+        first = served["models"][entries[0]["name"]]
+        print(f"[serve] one fresh process served {len(entries)} artifacts "
+              f"in {served['wall_s']:.2f} s from their manifest: its "
+              f"import torch {served['torch_import_s']:.2f} s (before the "
+              f"wait), the port's imports {served['import_s']:.2f} s, the "
+              f"card's first allocation {served['cuda_s']:.2f} s, "
+              f"use_deterministic_algorithms {served['deterministic_s']:.2f}"
+              f" s (the one-time imports of the first torch.export.load), "
+              f"then per artifact torch.export.load and .module() (the first: "
+              f"{first['export_load_s']:.2f} + {first['module_s']:.2f} s); "
+              f"the single-card exports ended {exports_s:.1f} s into the "
+              f"phase, the ranks' at {ranks_export_s:.1f} s", flush=True)
+        lines["process"] = {k: served[k] for k in (
+            "torch_import_s", "wait_s", "import_s", "cuda_s",
+            "deterministic_s", "wall_s")}
+
+        # the fresh ranks, started with the exporters, serve now
+        t0 = time.perf_counter()
+        open(f"{tmp}/exported", "w").close()
+        served_r = finish_ranks(servers, "serve", tmp)
+        serve_s = time.perf_counter() - t0
+        for r in range(S):
+            for name in SERVE_RANK_MODELS:
+                tag = f"{name} rank {r}"
+                check_served(tag, exported[r][name], served_r[r][name])
+                serve_line(tag, exported[r][name], served_r[r][name], smi)
+        lines["ranks"] = {f"{name}_r{r}": dict(
+            exported[r][name], **{k: v for k, v in served_r[r][name].items()
+                                  if k != "counts"})
+            for r in range(S) for name in SERVE_RANK_MODELS}
+        print(f"[serve] {S} gloo ranks sharing the card exported in "
+              f"{ranks_export_s:.1f} s from the phase's start (beside the "
+              f"single-card exports); {S} fresh ranks served in "
+              f"{serve_s:.1f} s", flush=True)
+    finally:
+        stop(procs)
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 20] {lines['seconds']:.1f} s ({smi})", flush=True)
+    return {"serving": lines}
+
+
+def main():
+    t0 = time.perf_counter()
+    import torch
+    torch_s = time.perf_counter() - t0
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
         return parallel_rank(*map(int, sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--serve":
-        return serve(*sys.argv[2:5])
+        return serve(sys.argv[2], torch_s)
+    if len(sys.argv) > 1 and sys.argv[1] == "--serving-rank":
+        return serving_rank(sys.argv[2], *map(int, sys.argv[3:6]),
+                            sys.argv[6])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -9372,8 +9936,8 @@ def main():
     torch.cuda.empty_cache()
     out_of_core = phase_out_of_core(dev, smi, rows, parts)
     torch.cuda.empty_cache()
-    parallel_rows, parallel_steps = phase_parallel(dev, smi, host,
-                                                   train["step_ms"])
+    parallel_rows, parallel_steps, parts = phase_parallel(
+        dev, smi, host, train["step_ms"])
     rows += parallel_rows
     torch.cuda.empty_cache()
     g4r_lines = phase_graph4rec(dev, smi)
@@ -9386,6 +9950,8 @@ def main():
     torch.cuda.empty_cache()
     example_rows, example_steps = phase_examples(dev, smi)
     rows += example_rows
+    torch.cuda.empty_cache()
+    serving_steps = phase_serving(dev, smi, host, parts)
     print(json.dumps({"step": {
         "K1": dict(train, spmm_ms_per_step=spmm["K1"], tensor_s=t_k1),
         "dedup": dict(train_d, spmm_ms_per_step=spmm["dedup"],
@@ -9397,7 +9963,7 @@ def main():
         **weighted_steps, **sddmm_steps, **zoo_steps, **hetero_steps,
         **readout_steps, **sampling_steps, "out_of_core": out_of_core,
         **parallel_steps, **g4r_lines, **util_steps, **amp_steps_,
-        **example_steps,
+        **example_steps, **serving_steps,
         "seconds": time.perf_counter() - t_start, "device": smi}}),
         flush=True)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s",

@@ -41,6 +41,13 @@ K10) in both of its score modes onto hand-written CUDA kernels for Hopper,
   launch the kernels or raise. On bf16 (or fp16) tables they compute in
   float32 and round each output once, ``lse`` staying float32: the
   kernels' contract.
+* A forward that ``torch.export`` or ``torch.compile`` traces
+  (``dispatch.traced``) is a custom op, ``torch.ops.pgl_tpu_torch.
+  gat_attention`` or ``::dot_attention`` (the CSC layout's tensors and
+  integers as its arguments; its CUDA implementation the launch of K9 and
+  its merge, its CPU one the plain version, its fake one the shapes of
+  ``(out, lse)``), so an exported program calls K9 (``utils/export.py``);
+  an eager call launches directly, as K1's does.
 * :func:`gat_score_features` writes GAT's additive score as a dot
   (``:941-954``), for ``GATConv``'s many-head fallback.
 * :func:`drop_keep` and :func:`apply_hash_dropout` are the reference's
@@ -64,13 +71,13 @@ from __future__ import annotations
 import ctypes
 from collections import Counter
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ... import resolve_device
-from ..dispatch import use_attention_kernel
+from ..dispatch import traced, use_attention_kernel
 from ..segment import segment_max, segment_softmax, segment_sum
 from . import _build
 from .segment_kernels import _HALF, cut_rows
@@ -551,8 +558,9 @@ def _raise_on(rc, name):
                            f"error {rc}")
 
 
-def _count(name, layout, t, *shape):
-    """Count a pass's launches on the tables' dtype of ``t``."""
+def _count(name, layout, t, *shape, layout_id=None):
+    """Count a pass's launches on the tables' dtype of ``t``;
+    ``layout_id`` keys ``LAUNCHES_BY_LAYOUT`` (default ``id(layout)``)."""
     keys = [(name, *shape)]
     if layout.split_rows.shape[0]:
         keys.append((f"{name}_combine", *shape))
@@ -561,7 +569,8 @@ def _count(name, layout, t, *shape):
             LAUNCHES_BF16[key] += 1
         else:
             LAUNCHES_BY_SHAPE[key] += 1
-            LAUNCHES_BY_LAYOUT[key, id(layout)] += 1
+            LAUNCHES_BY_LAYOUT[key, id(layout) if layout_id is None
+                               else layout_id] += 1
 
 
 def _stream(t):
@@ -574,7 +583,7 @@ def _f32_empty(*shape, like):
     return torch.empty(*shape, dtype=torch.float32, device=like.device)
 
 
-def _fwd_cuda(a_dst, a_src, v, lay, slope, dvh, rate, seed):
+def _fwd_cuda(a_dst, a_src, v, lay, slope, dvh, rate, seed, layout_id=None):
     N, H = a_dst.shape
     _check(lay, H, dvh, a_dst, a_src, v)
     out = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
@@ -586,7 +595,7 @@ def _fwd_cuda(a_dst, a_src, v, lay, slope, dvh, rate, seed):
         *_k10_args(lay, H, dvh, slope, rate, seed, v.dtype),
         out.data_ptr(), lse.data_ptr(), part.data_ptr(), _stream(v)),
         "forward")
-    _count("gat_fwd", lay, v, H, dvh)
+    _count("gat_fwd", lay, v, H, dvh, layout_id=layout_id)
     return out, lse
 
 
@@ -651,12 +660,94 @@ def _seed_tensor(seed, device) -> torch.Tensor:
                            device=device).reshape(1)
 
 
+# -- K9's forward as custom ops ---------------------------------------------
+
+# the ops' layout arguments: the CSC layout's tensors and integers (the
+# forward reads no eidx), then the id that keys LAUNCHES_BY_LAYOUT
+_OP_TENSORS = ("indices", "seg_ids", "pieces", "split_rows", "split_ptr",
+               "k10_items", "empty_rows")
+_OP_INTS = ("num_rows", "num_edges", "max_index", "num_partials", "k10_long")
+
+
+def _op_args(csc: AttentionLayout):
+    return ([getattr(csc, n) for n in _OP_TENSORS],
+            [getattr(csc, n) for n in _OP_INTS], id(csc))
+
+
+def _op_layout(tensors, ints) -> AttentionLayout:
+    return AttentionLayout("csc", eidx=None, **dict(zip(_OP_INTS, ints)),
+                           **dict(zip(_OP_TENSORS, tensors)))
+
+
+def _lse_like(t: torch.Tensor, N: int, H: int) -> torch.Tensor:
+    """An empty lse [N, H]: float32 on bf16 (or fp16) tables."""
+    return t.new_empty(N, H, dtype=torch.float32 if t.dtype in _HALF
+                       else t.dtype)
+
+
+@torch.library.custom_op("pgl_tpu_torch::gat_attention", mutates_args=(),
+                         device_types="cpu")
+def _gat_op(a_dst: torch.Tensor, a_src: torch.Tensor, v: torch.Tensor,
+            layout: List[torch.Tensor], ints: List[int], layout_id: int,
+            leaky_slope: float, dvh: int, rate: float,
+            seed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The additive K9 as an operator: the plain version on the CPU."""
+    return gat_attention_reference(a_dst, a_src, v,
+                                   _op_layout(layout, ints), leaky_slope,
+                                   dvh, rate, seed)
+
+
+@_gat_op.register_kernel("cuda")
+def _gat_op_cuda(a_dst, a_src, v, layout, ints, layout_id, leaky_slope, dvh,
+                 rate, seed):
+    use_attention_kernel(v)
+    return _fwd_cuda(a_dst, a_src, v, _op_layout(layout, ints), leaky_slope,
+                     dvh, rate, seed, layout_id)
+
+
+@_gat_op.register_fake
+def _gat_op_fake(a_dst, a_src, v, layout, ints, layout_id, leaky_slope, dvh,
+                 rate, seed):
+    N, H = a_dst.shape
+    return v.new_empty(N, H * dvh), _lse_like(v, N, H)
+
+
+@torch.library.custom_op("pgl_tpu_torch::dot_attention", mutates_args=(),
+                         device_types="cpu")
+def _dot_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            layout: List[torch.Tensor], ints: List[int], layout_id: int,
+            leaky_slope: float, dsh: int, dvh: int, rate: float,
+            seed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dot-mode K9 as an operator: the plain version on the CPU."""
+    return dot_attention_reference(q, k, v, _op_layout(layout, ints), dsh,
+                                   dvh, leaky_slope, rate, seed)
+
+
+@_dot_op.register_kernel("cuda")
+def _dot_op_cuda(q, k, v, layout, ints, layout_id, leaky_slope, dsh, dvh,
+                 rate, seed):
+    use_attention_kernel(v)
+    return _dot_fwd_cuda(q, k, v, _op_layout(layout, ints), leaky_slope, dsh,
+                         dvh, rate, seed, layout_id)
+
+
+@_dot_op.register_fake
+def _dot_op_fake(q, k, v, layout, ints, layout_id, leaky_slope, dsh, dvh,
+                 rate, seed):
+    N, H = q.shape[0], q.shape[1] // dsh
+    return v.new_empty(N, H * dvh), _lse_like(v, N, H)
+
+
 class _GatAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a_dst, a_src, v, csc, csr, leaky_slope, dvh, rate,
                 seed):
         args = (csc, leaky_slope, dvh, rate, seed)
-        if use_attention_kernel(v):
+        if traced(v):
+            use_attention_kernel(v)     # raises on what K9 does not take
+            out, lse = _gat_op(a_dst, a_src, v, *_op_args(csc),
+                               float(leaky_slope), dvh, rate, seed)
+        elif use_attention_kernel(v):
             out, lse = _fwd_cuda(a_dst, a_src, v, *args)
         else:
             out, lse = gat_attention_reference(a_dst, a_src, v, *args)
@@ -711,7 +802,8 @@ def fused_gat_attention(a_dst, a_src, v, csc: AttentionLayout,
 
 # -- dot mode ----------------------------------------------------------------
 
-def _dot_fwd_cuda(q, k, v, lay, slope, dsh, dvh, rate, seed):
+def _dot_fwd_cuda(q, k, v, lay, slope, dsh, dvh, rate, seed,
+                  layout_id=None):
     N, H = q.shape[0], q.shape[1] // dsh
     _check(lay, H, dvh, q, k, v, dsh=dsh)
     out = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
@@ -725,7 +817,7 @@ def _dot_fwd_cuda(q, k, v, lay, slope, dsh, dvh, rate, seed):
         lay.split_rows.shape[0], H, dsh, dvh, slope, seed.data_ptr(), thresh,
         inv_keep, out.data_ptr(), lse.data_ptr(), part.data_ptr(),
         _stream(v)), "dot forward")
-    _count("dot_fwd", lay, v, H, dsh, dvh)
+    _count("dot_fwd", lay, v, H, dsh, dvh, layout_id=layout_id)
     return out, lse
 
 
@@ -770,7 +862,11 @@ class _DotAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, csc, csr, leaky_slope, dsh, dvh, rate, seed):
         args = (csc, leaky_slope, dsh, dvh, rate, seed)
-        if use_attention_kernel(v):
+        if traced(v):
+            use_attention_kernel(v)     # raises on what K9 does not take
+            out, lse = _dot_op(q, k, v, *_op_args(csc), float(leaky_slope),
+                               dsh, dvh, rate, seed)
+        elif use_attention_kernel(v):
             out, lse = _dot_fwd_cuda(q, k, v, *args)
         else:
             out, lse = dot_attention_reference(q, k, v, csc, dsh, dvh,

@@ -36,6 +36,13 @@ edges into row r from unique row u (node ``uv[u]``), which share one score.
   launch the kernels or raise.
 * :func:`cell_idx` is ``_cell_idx`` per edge: the dropout key of a cell,
   shared by its duplicate edges.
+* A forward that ``torch.export`` or ``torch.compile`` traces
+  (``dispatch.traced``) is a custom op, ``torch.ops.pgl_tpu_torch.
+  dedup_gat_attention`` or ``::dedup_dot_attention`` (the row-ordered
+  cells and the dedup layout's tensors as its arguments; its CUDA
+  implementation the launch of K7 and its merge, its CPU one the plain
+  version, its fake one the shapes of ``(out, lse)``), so an exported
+  program calls K7; an eager call launches directly.
 
 ``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, H, dvh)`` in additive
 mode, kernel one of ``dedup_fwd`` (K7) and ``dedup_bwd`` (K8: its row pass
@@ -51,11 +58,12 @@ from __future__ import annotations
 import ctypes
 from collections import Counter
 from dataclasses import dataclass
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from ..dispatch import use_dedup_attention_kernel
+from ..dispatch import traced, use_dedup_attention_kernel
 from . import _build
 from . import segment_kernels as sk
 from .attention_kernels import (_check, _drop_args, _k10_args,
@@ -404,11 +412,102 @@ def _bwd_cuda(a_dst, a_src, v, g, lse, delta, att, slope, dvh, rate, seed):
     return da, dsrc, dv
 
 
+# -- K7's forward as custom ops ---------------------------------------------
+
+# the ops' arguments: what the forward reads of the row-ordered cells and of
+# the dedup layout (its plain version walks the layout's edges), and their
+# integers (the layout's rows, edges and largest source, the cells, the
+# split rows' partials, the work list's long pieces)
+_OP_CELLS = ("cell_src", "cell_cnt", "cell_key", "pieces", "split_rows",
+             "split_ptr", "k10_items", "empty_rows")
+_OP_LAYOUT = ("uv", "pairs", "dst", "urow")
+
+
+def _op_args(att: DedupAttention):
+    lay = att.layout
+    return ([getattr(att, n) for n in _OP_CELLS]
+            + [getattr(lay, n) for n in _OP_LAYOUT],
+            [lay.num_segments, lay.num_edges, lay.max_index, att.num_cells,
+             att.num_partials, att.k10_long])
+
+
+def _op_att(tensors, ints) -> DedupAttention:
+    """The forward's view of the cells and the layout, rebuilt from the
+    op's arguments (the node-ordered cells, which only K8 reads, absent)."""
+    cells = dict(zip(_OP_CELLS, tensors))
+    N, E, max_index, num_cells, num_partials, k10_long = ints
+    layout = DedupLayout(
+        kind="csc", num_segments=N, num_edges=E, max_index=max_index,
+        simple=False, max_count=0, num_partials=0, eid=None, groups=None,
+        split_blocks=None, split_ptr=None,
+        **dict(zip(_OP_LAYOUT, tensors[len(_OP_CELLS):])))
+    return DedupAttention(
+        layout=layout, num_cells=num_cells, num_partials=num_partials,
+        num_node_partials=0, k10_long=k10_long, cell_urow=None,
+        node_dst=None, node_cnt=None, node_key=None, node_pieces=None,
+        node_split_rows=None, node_split_ptr=None, **cells)
+
+
+@torch.library.custom_op("pgl_tpu_torch::dedup_gat_attention",
+                         mutates_args=(), device_types="cpu")
+def _gat_op(a_dst: torch.Tensor, a_src: torch.Tensor, v: torch.Tensor,
+            tensors: List[torch.Tensor], ints: List[int], leaky_slope: float,
+            dvh: int, rate: float,
+            seed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The additive K7 as an operator: the plain version on the CPU."""
+    return dedup_attention_reference(a_dst, a_src, v,
+                                     _op_att(tensors, ints).layout,
+                                     leaky_slope, dvh, rate, seed)
+
+
+@_gat_op.register_kernel("cuda")
+def _gat_op_cuda(a_dst, a_src, v, tensors, ints, leaky_slope, dvh, rate,
+                 seed):
+    use_dedup_attention_kernel(v)
+    return _fwd_cuda(a_dst, a_src, v, _op_att(tensors, ints), leaky_slope,
+                     dvh, rate, seed)
+
+
+@_gat_op.register_fake
+def _gat_op_fake(a_dst, a_src, v, tensors, ints, leaky_slope, dvh, rate,
+                 seed):
+    N, H = a_dst.shape
+    return v.new_empty(N, H * dvh), v.new_empty(N, H)
+
+
+@torch.library.custom_op("pgl_tpu_torch::dedup_dot_attention",
+                         mutates_args=(), device_types="cpu")
+def _dot_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            tensors: List[torch.Tensor], ints: List[int], leaky_slope: float,
+            dsh: int, dvh: int, rate: float,
+            seed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dot-mode K7 as an operator: the plain version on the CPU."""
+    return dedup_dot_reference(q, k, v, _op_att(tensors, ints).layout, dsh,
+                               dvh, leaky_slope, rate, seed)
+
+
+@_dot_op.register_kernel("cuda")
+def _dot_op_cuda(q, k, v, tensors, ints, leaky_slope, dsh, dvh, rate, seed):
+    use_dedup_attention_kernel(v)
+    return _dot_fwd_cuda(q, k, v, _op_att(tensors, ints), leaky_slope, dsh,
+                         dvh, rate, seed)
+
+
+@_dot_op.register_fake
+def _dot_op_fake(q, k, v, tensors, ints, leaky_slope, dsh, dvh, rate, seed):
+    N, H = q.shape[0], q.shape[1] // dsh
+    return v.new_empty(N, H * dvh), v.new_empty(N, H)
+
+
 class _DedupGatAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a_dst, a_src, v, att, leaky_slope, dvh, rate, seed):
         args = (leaky_slope, dvh, rate, seed)
-        if use_dedup_attention_kernel(v):
+        if traced(v):
+            use_dedup_attention_kernel(v)   # raises on what K7 does not take
+            out, lse = _gat_op(a_dst, a_src, v, *_op_args(att),
+                               float(leaky_slope), dvh, rate, seed)
+        elif use_dedup_attention_kernel(v):
             out, lse = _fwd_cuda(a_dst, a_src, v, att, *args)
         else:
             out, lse = dedup_attention_reference(a_dst, a_src, v, att.layout,
@@ -511,7 +610,11 @@ def _dot_bwd_cuda(q, k, v, g, lse, delta, att, slope, dsh, dvh, rate, seed):
 class _DedupDotAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, att, leaky_slope, dsh, dvh, rate, seed):
-        if use_dedup_attention_kernel(v):
+        if traced(v):
+            use_dedup_attention_kernel(v)   # raises on what K7 does not take
+            out, lse = _dot_op(q, k, v, *_op_args(att), float(leaky_slope),
+                               dsh, dvh, rate, seed)
+        elif use_dedup_attention_kernel(v):
             out, lse = _dot_fwd_cuda(q, k, v, att, leaky_slope, dsh, dvh,
                                      rate, seed)
         else:

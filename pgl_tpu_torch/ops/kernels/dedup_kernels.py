@@ -42,6 +42,12 @@ the number of its edges with destination ``blk_p·NB + r`` whose source is
   the graph's original edge order, C[r, c] the sum of the cell's weights.
   Its backward is the weighted K6 over the CSR layout for dx and K1w's
   weight-gradient pass over the K1 CSR layout for dw.
+* An apply that ``torch.export`` or ``torch.compile`` traces
+  (``dispatch.traced``) is the custom op ``torch.ops.pgl_tpu_torch.
+  spmm_dedup``: K5 given the counts, K6 without them, the weighted K6 given
+  weights (its CUDA implementation the launch, its CPU one the plain
+  version), so an exported program calls the apply; K4 stays set-up work,
+  its counts a constant of the program.
 * :func:`counts_reference`, :func:`apply_reference` and
   :func:`apply_weighted_reference` are the plain PyTorch versions
   (``bincount``; ``bmm`` and ``index_add_``; ``index_select``, a product and
@@ -60,13 +66,13 @@ import ctypes
 import dataclasses
 from collections import Counter
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ... import resolve_device
-from ..dispatch import COUNTS_MAX, use_dedup_kernel
+from ..dispatch import COUNTS_MAX, traced, use_dedup_kernel
 from . import _build
 from .segment_kernels import SpmmLayout, _weighted_backward, cut_rows
 
@@ -430,13 +436,63 @@ def _apply_cuda(x: torch.Tensor, layout: DedupLayout,
     return out[:layout.num_segments]
 
 
-def _apply_one(x: torch.Tensor, layout: DedupLayout,
-               w: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if use_dedup_kernel(x):
-        return _apply_cuda(x, layout, w)
+def _apply_plain(x: torch.Tensor, layout: DedupLayout,
+                 w: Optional[torch.Tensor] = None) -> torch.Tensor:
     if w is not None:
         return apply_weighted_reference(x, w, layout)
     return apply_reference(x, layout, layout.counts)
+
+
+def _apply_one(x: torch.Tensor, layout: DedupLayout,
+               w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if traced(x):
+        use_dedup_kernel(x)         # raises on what K5/K6 do not take
+        return _apply_op(x, [getattr(layout, n) for n in _OP_TENSORS],
+                         [getattr(layout, n) for n in _OP_INTS],
+                         layout.counts,
+                         None if w is None else layout.edge_id, w,
+                         layout.kind)
+    if use_dedup_kernel(x):
+        return _apply_cuda(x, layout, w)
+    return _apply_plain(x, layout, w)
+
+
+# the apply op's arguments: the layout's tensors and ints (its counts, and
+# for the weighted K6 its edge ids and the weights, apart: either may be
+# absent), its kind
+_OP_TENSORS = ("uv", "pairs", "dst", "urow", "groups", "split_blocks",
+               "split_ptr")
+_OP_INTS = ("num_segments", "num_edges", "max_index", "max_count",
+            "num_partials")
+
+
+def _op_layout(tensors, ints, counts, edge_id, kind) -> DedupLayout:
+    """The layout the apply reads (no ``eid``; ``simple`` unread)."""
+    return DedupLayout(kind=kind, simple=False, eid=None, counts=counts,
+                       edge_id=edge_id, **dict(zip(_OP_INTS, ints)),
+                       **dict(zip(_OP_TENSORS, tensors)))
+
+
+@torch.library.custom_op("pgl_tpu_torch::spmm_dedup", mutates_args=(),
+                         device_types="cpu")
+def _apply_op(x: torch.Tensor, layout: List[torch.Tensor], ints: List[int],
+              counts: Optional[torch.Tensor], edge_id: Optional[torch.Tensor],
+              w: Optional[torch.Tensor], kind: str) -> torch.Tensor:
+    """K5, K6 or the weighted K6 as an operator: the plain version on the
+    CPU."""
+    return _apply_plain(x, _op_layout(layout, ints, counts, edge_id, kind),
+                        w)
+
+
+@_apply_op.register_kernel("cuda")
+def _apply_op_cuda(x, layout, ints, counts, edge_id, w, kind):
+    use_dedup_kernel(x)
+    return _apply_cuda(x, _op_layout(layout, ints, counts, edge_id, kind), w)
+
+
+@_apply_op.register_fake
+def _apply_op_fake(x, layout, ints, counts, edge_id, w, kind):
+    return x.new_empty(ints[0], x.shape[1])
 
 
 class _SpMMDedup(torch.autograd.Function):

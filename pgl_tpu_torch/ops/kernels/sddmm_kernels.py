@@ -27,7 +27,11 @@ edge position (-1 at pads).
   reference's math (``_sddmm_bwd``) and sums the per-slot factors with K1
   over ``by_src`` and ``by_dst`` (the reference: ``segment_sum``), which
   cuts a hub into pieces without atomics, so the gradient has the same bits
-  on every run.
+  on every run. A forward that ``torch.export`` or ``torch.compile``
+  traces (``dispatch.traced``) is the custom op
+  ``torch.ops.pgl_tpu_torch.sddmm`` (the slot tables as its arguments; its
+  CUDA implementation K11's launch, its CPU one the plain version), so an
+  exported program calls K11.
 
 ``LAUNCHES_BY_SHAPE`` counts K11's launches by ``("sddmm", op, D)``; the
 backward's K1 launches are counted by ``segment_kernels`` under
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 
 from ... import resolve_device
-from ..dispatch import use_sddmm_kernel
+from ..dispatch import traced, use_sddmm_kernel
 from ..message_passing import _COMBINE
 from . import _build
 from .dedup_kernels import _LayoutPrefix
@@ -163,6 +167,15 @@ def build_sddmm_layout(indptr, sorted_v, num_segments: int,
                                  device=device))
 
 
+def _slots_layout(slot_src, slot_dst, num_segments: int) -> SddmmLayout:
+    """A layout of the slot tables alone: what K11 and its plain version
+    read (the custom op's arguments)."""
+    return SddmmLayout(num_segments=num_segments, num_edges=-1,
+                       slots=slot_src.shape[0], n_pad=-1, uv=None,
+                       slot_src=slot_src, slot_dst=slot_dst, eid=None,
+                       by_src=None, by_dst=None)
+
+
 def _gather_dst(dst: torch.Tensor, layout: SddmmLayout) -> torch.Tensor:
     """``dst[slot_dst]`` with pads reading the last row (the reference's
     ``min(ids, N - 1)``)."""
@@ -203,8 +216,16 @@ def _launch(src, dst, layout: SddmmLayout, op: str, out):
 
 
 def _forward(src, dst, layout: SddmmLayout, op: str) -> torch.Tensor:
+    if traced(src):
+        use_sddmm_kernel(src)       # raises on what K11 does not take
+        return _sddmm_op(src, dst, layout.slot_src, layout.slot_dst,
+                         layout.num_segments, op)
     if not use_sddmm_kernel(src):
         return sddmm_reference(src, dst, layout, op)
+    return _forward_cuda(src, dst, layout, op)
+
+
+def _forward_cuda(src, dst, layout: SddmmLayout, op: str) -> torch.Tensor:
     if not (src.is_contiguous() and dst.is_contiguous()):
         raise ValueError("the CUDA SDDMM takes contiguous [N, D] tensors")
     D = src.shape[1]
@@ -212,6 +233,29 @@ def _forward(src, dst, layout: SddmmLayout, op: str) -> torch.Tensor:
     _launch(src, dst, layout, op, out)
     LAUNCHES_BY_SHAPE[("sddmm", op, D)] += 1
     return out
+
+
+@torch.library.custom_op("pgl_tpu_torch::sddmm", mutates_args=(),
+                         device_types="cpu")
+def _sddmm_op(src: torch.Tensor, dst: torch.Tensor, slot_src: torch.Tensor,
+              slot_dst: torch.Tensor, num_segments: int,
+              op: str) -> torch.Tensor:
+    """K11 as an operator: the plain version on the CPU."""
+    return sddmm_reference(src, dst, _slots_layout(slot_src, slot_dst,
+                                                   num_segments), op)
+
+
+@_sddmm_op.register_kernel("cuda")
+def _sddmm_op_cuda(src, dst, slot_src, slot_dst, num_segments, op):
+    use_sddmm_kernel(src)
+    return _forward_cuda(src, dst, _slots_layout(slot_src, slot_dst,
+                                                 num_segments), op)
+
+
+@_sddmm_op.register_fake
+def _sddmm_op_fake(src, dst, slot_src, slot_dst, num_segments, op):
+    return src.new_empty(slot_src.shape[0], src.shape[1],
+                         dtype=torch.float32)
 
 
 class _SddmmDedup(torch.autograd.Function):

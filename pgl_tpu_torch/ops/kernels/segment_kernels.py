@@ -26,7 +26,9 @@ gives the design.
   its CPU implementation the plain version, its fake one the shape), so
   an exported program calls K1 (``utils/export.py``); an eager call
   launches directly, since the op's dispatch costs host time a step
-  (``PERF.md``, ``experiments/torch_spmm/custom_op_step.py``).
+  (``PERF.md``, ``experiments/torch_spmm/custom_op_step.py``). K1w's
+  forward is the op ``torch.ops.pgl_tpu_torch.spmm_weighted`` the same
+  way.
 * :func:`sorted_segment_sum` is the same kernel with the identity gather;
   its backward is a gather.
 * :func:`spmm_weighted` (K1w) is an autograd ``Function`` on weighted
@@ -61,7 +63,7 @@ from __future__ import annotations
 import ctypes
 from collections import Counter
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -675,8 +677,18 @@ def _check_weights(x: torch.Tensor, w: torch.Tensor, layout: SpmmLayout,
 
 
 def _weighted_forward(x, w, layout, msg_op):
+    if traced(x):
+        use_weighted_spmm_kernel(x)  # raises on what K1w does not take
+        return _spmm_weighted_op(
+            x, w, [getattr(layout, n) for n in _W_TENSORS],
+            [getattr(layout, n) for n in _SCALARS], layout.kind, msg_op)
     if not use_weighted_spmm_kernel(x):
         return spmm_weighted_reference(x, w, layout, msg_op)
+    return _weighted_cuda(x, w, layout, msg_op)
+
+
+def _weighted_cuda(x, w, layout, msg_op):
+    """K1w's forward launch on a float32 or bf16 ``x``."""
     _check_features(x, layout)
     if not w.is_contiguous():
         raise ValueError("the CUDA weighted SpMM takes contiguous weights")
@@ -688,6 +700,36 @@ def _weighted_forward(x, w, layout, msg_op):
     _launch_weighted(x, w, layout, out, partials, _OPS[msg_op])
     _count_weighted((msg_op, layout.kind, D, H), x)
     return out
+
+
+# K1w's op's arguments: the layout's tensors (its edge ids too) and ints,
+# its kind, and the message op
+_W_TENSORS = _OP_TENSORS + ("edge_id",)
+
+
+def _op_layout_w(tensors, ints, kind) -> SpmmLayout:
+    return SpmmLayout(kind, *ints, **dict(zip(_W_TENSORS, tensors)))
+
+
+@torch.library.custom_op("pgl_tpu_torch::spmm_weighted", mutates_args=(),
+                         device_types="cpu")
+def _spmm_weighted_op(x: torch.Tensor, w: torch.Tensor,
+                      layout: List[torch.Tensor], ints: List[int], kind: str,
+                      msg_op: str) -> torch.Tensor:
+    """K1w's forward as an operator: the plain version on the CPU."""
+    return spmm_weighted_reference(x, w, _op_layout_w(layout, ints, kind),
+                                   msg_op)
+
+
+@_spmm_weighted_op.register_kernel("cuda")
+def _spmm_weighted_op_cuda(x, w, layout, ints, kind, msg_op):
+    use_weighted_spmm_kernel(x)
+    return _weighted_cuda(x, w, _op_layout_w(layout, ints, kind), msg_op)
+
+
+@_spmm_weighted_op.register_fake
+def _spmm_weighted_op_fake(x, w, layout, ints, kind, msg_op):
+    return x.new_empty(ints[0], x.shape[1])
 
 
 def _count_weighted(key, x):

@@ -28,15 +28,28 @@ the mesh axis.
 Every collective is the ``torch.distributed`` call on the tensors as they
 are: gloo takes CUDA tensors itself (it copies them through host memory),
 so several ranks can share one card. A failed call raises, naming the
-backend and the call. A collective reached while ``torch.export`` or
-``torch.compile`` traces raises ``NotImplementedError``: a halo-sharded or
-edge-sharded function does not export yet (the reference exports one
-with its collectives inside). ``STATS`` counts the exchanges (``calls``, ``bytes``
-sent by this rank) and the all-reduces (``allreduce_calls``,
-``allreduce_bytes``); with
-``TIMING`` set, each all-to-all and all-reduce of a CUDA tensor is timed
-on the host clock between two ``torch.cuda.synchronize()`` calls
-(``seconds``, ``allreduce_seconds``).
+backend and the call.
+
+Under ``torch.export`` or ``torch.compile`` (``dispatch.traced``) the
+equal-split all-to-all (the halo exchange's) and the all-reduces are the
+custom ops ``torch.ops.pgl_tpu_torch.all_to_all`` and ``::all_reduce``
+(functional: an in-place all-reduce copies the op's result back), so an
+exported ``HaloGraph`` or ``ShardedGraph`` function records its
+collectives (``utils/export.py``). Each op takes the world size it was
+traced in and raises when run in a world of another size; its
+implementation is the eager call on the default (world) group, which a
+fresh serving process joins by ``init``, and its fake one returns the
+shape. These are the port's own ops, not PyTorch's functional collectives:
+those name their group by a string that a fresh process must register
+again, where the world group is found by ``init`` alone, and the eager
+call keeps ``STATS`` and ``TIMING``. A collective on a group other than
+the world raises under a trace, as do ``all_to_all_v`` and
+``all_gather``, which no inference path runs. ``STATS`` counts the
+exchanges (``calls``, ``bytes`` sent by this rank) and the all-reduces
+(``allreduce_calls``, ``allreduce_bytes``); with ``TIMING`` set, each
+all-to-all and all-reduce of a CUDA tensor is timed on the host clock
+between two ``torch.cuda.synchronize()`` calls (``seconds``,
+``allreduce_seconds``).
 """
 
 from __future__ import annotations
@@ -114,13 +127,70 @@ def world(group=None):
 
 
 def _untraced(x: torch.Tensor, what: str):
-    """Raise where ``x`` is a tracer's stand-in: a collective cannot run
-    on one, and the port has no traceable collective."""
+    """Raise where ``x`` is a tracer's stand-in: ``all_to_all_v`` and
+    ``all_gather`` have no op (no inference path runs them)."""
     if traced(x):
         raise NotImplementedError(
-            f"{what} under torch.export / torch.compile: a function that "
-            "runs a collective (a HaloGraph's halo exchange, a "
-            "ShardedGraph's all-reduce) does not export")
+            f"{what} under torch.export / torch.compile: only the "
+            "equal-split all_to_all (the halo exchange) and the all-reduces "
+            "are traceable collectives")
+
+
+def _traced_world(group, what: str) -> int:
+    """The world size a traced collective records; raises for a group
+    other than the world, which a serving process could not find again."""
+    if group is not dist.group.WORLD:
+        raise NotImplementedError(
+            f"{what} on a process group other than the world under "
+            "torch.export / torch.compile: an exported program runs its "
+            "collectives on the world group of the serving processes")
+    return dist.get_world_size()
+
+
+def _check_world(world_size: int, what: str):
+    """Raise unless this process's world has ``world_size`` ranks (an
+    exported collective run in another world)."""
+    _, size, _ = world()
+    if size != world_size:
+        raise RuntimeError(f"{what} traced in a world of {world_size} ranks "
+                           f"runs in one of {size}")
+
+
+@torch.library.custom_op("pgl_tpu_torch::all_to_all", mutates_args=())
+def _all_to_all_op(x: torch.Tensor, world_size: int) -> torch.Tensor:
+    """The equal-split ``all_to_all`` on the world group as an operator."""
+    _check_world(world_size, "all_to_all")
+    return all_to_all(x)
+
+
+@_all_to_all_op.register_fake
+def _all_to_all_op_fake(x, world_size):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}
+
+
+@torch.library.custom_op("pgl_tpu_torch::all_reduce", mutates_args=())
+def _all_reduce_op(x: torch.Tensor, op: str, world_size: int) -> torch.Tensor:
+    """A functional all-reduce (``op`` "sum", "max" or "min") on the world
+    group as an operator: the reduced copy of ``x``."""
+    _check_world(world_size, "all_reduce")
+    return all_reduce_(x.clone(), _REDUCE_OPS[op])
+
+
+@_all_reduce_op.register_fake
+def _all_reduce_op_fake(x, op, world_size):
+    return torch.empty_like(x)
+
+
+def _op_name(op) -> str:
+    for name, value in _REDUCE_OPS.items():
+        if op == value:
+            return name
+    raise NotImplementedError(f"all_reduce {op} under torch.export / "
+                              "torch.compile: sum, max and min are traceable")
 
 
 def _call(op, group, what: str):
@@ -138,7 +208,8 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """``all_to_all_single`` with equal splits of ``x``'s rows: block j of
     ``x`` goes to rank j, block j of the result came from rank j."""
     group, size, _ = world(group)
-    _untraced(x, "all_to_all_single")
+    if traced(x):
+        return _all_to_all_op(x, _traced_world(group, "all_to_all"))
     x = x.contiguous()
     out = torch.empty_like(x)
     timed = TIMING and x.device.type == "cuda"
@@ -175,7 +246,8 @@ def all_reduce_(x: torch.Tensor, op=dist.ReduceOp.SUM,
                 group=None) -> torch.Tensor:
     """In-place all-reduce of ``x`` (no gradient)."""
     group, _, _ = world(group)
-    _untraced(x, "all_reduce")
+    if traced(x):
+        return x.copy_(_all_reduce(x, op, group))
     timed = TIMING and x.device.type == "cuda"
     if timed:
         torch.cuda.synchronize(x.device)
@@ -242,11 +314,20 @@ def halo_exchange(owned: torch.Tensor, send_idx: torch.Tensor, back_layout,
                                wire_dtype)
 
 
+def _all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
+    """The all-reduced copy of ``x``: the op under a trace, else an
+    in-place all-reduce of a clone."""
+    if traced(x):
+        return _all_reduce_op(x, _op_name(op),
+                              _traced_world(group, "all_reduce"))
+    return all_reduce_(x.clone(), op=op, group=group)
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return all_reduce_(x.clone(), group=group)
+        return _all_reduce(x, dist.ReduceOp.SUM, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -263,10 +344,10 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
 class _AllReduceExtreme(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, counts, op, group):
-        out = all_reduce_(x.clone(), op=op, group=group)
+        out = _all_reduce(x, op, group)
         mine = torch.where(x == out, counts.to(x.dtype),
                            torch.zeros_like(x))
-        total = all_reduce_(mine.clone(), group=group)
+        total = _all_reduce(mine, dist.ReduceOp.SUM, group)
         ctx.group = group
         ctx.save_for_backward(torch.where(
             total > 0, mine / total.clamp(min=1), torch.zeros_like(mine)))

@@ -45,7 +45,10 @@ layouts were built on the host through ``check_batch_graph_k1``. The
 bf16 K1 goes through ``check_spmm_bf16`` (``|kernel - f64| <= 2^-8 |f64| +
 1e-4 ||terms||_2``: a float32 sum rounded once to bf16) and must give the
 same bits on two runs; an exported program's K1 is the custom op, whose
-CUDA implementation launches the kernel.
+CUDA implementation launches the kernel. Every forward kernel's custom op
+(K1w, K9 in both modes, K5/K6 and the weighted K6, K7 in both modes, K11)
+gives the direct launch's bits and launch counts on the card, and an
+exported GAT served in the process launches K9 and no plain version.
 """
 
 import dataclasses
@@ -974,6 +977,152 @@ def test_exported_program_launches_k1(cuda, tmp_path):
     torch.cuda.synchronize()
     assert dict(sk.LAUNCHES_BY_SHAPE) == {("csc", 16): 1, ("csc", 24): 1,
                                           ("csc", 3): 1}
+    assert torch.equal(out, eager)
+
+
+def _op_pairs(cuda):
+    """``{name: (the op's call, the direct launch)}`` of each forward
+    kernel's custom op on a skewed graph (a hub row split into pieces,
+    empty rows), float32 and (K1w, K9) bf16, dropout off and on."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    host = Graph(skewed_graph(400, 6000, seed=7), num_nodes=400)
+    g = host.tensor(cuda)
+    with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0):
+        gd = host.tensor(cuda)
+    with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0,
+                           COUNTS_BUDGET_BYTES=0):
+        g6 = host.tensor(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def t(cols, dtype=f32, rows=400):
+        return torch.randn(rows, cols, generator=gen, device=cuda).to(dtype)
+
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    csc = g._spmm_layouts[0]
+    lay = g._attention_layouts()[0]
+    out = {}
+    for dtype in (f32, bf16):
+        tag = str(dtype).replace("torch.", "")
+        for op, H in (("mul", 1), ("add", 4)):
+            x, w = t(16, dtype), t(H, dtype, rows=g.num_edges)
+            out[f"k1w-{op}-{tag}"] = (
+                lambda x=x, w=w, op=op: sk._spmm_weighted_op(
+                    x, w, [getattr(csc, n) for n in sk._W_TENSORS],
+                    [getattr(csc, n) for n in sk._SCALARS], csc.kind, op),
+                lambda x=x, w=w, op=op: sk._weighted_cuda(x, w, csc, op))
+        for rate in (0.0, 0.5):
+            a, b, v = t(8, dtype), t(8, dtype), t(64, dtype)
+            out[f"k9-{rate}-{tag}"] = (
+                lambda a=a, b=b, v=v, rate=rate: ak._gat_op(
+                    a, b, v, *ak._op_args(lay), 0.2, 8, rate, seed),
+                lambda a=a, b=b, v=v, rate=rate: ak._fwd_cuda(
+                    a, b, v, lay, 0.2, 8, rate, seed))
+            q, k, v = t(64, dtype), t(64, dtype), t(64, dtype)
+            out[f"k9dot-{rate}-{tag}"] = (
+                lambda q=q, k=k, v=v, rate=rate: ak._dot_op(
+                    q, k, v, *ak._op_args(lay), 0.0, 32, 32, rate, seed),
+                lambda q=q, k=k, v=v, rate=rate: ak._dot_fwd_cuda(
+                    q, k, v, lay, 0.0, 32, 32, rate, seed))
+    sl = g.sddmm_layout()
+    for op in SDDMM_OPS:
+        x, y = t(16), t(16)
+        out[f"k11-{op}"] = (
+            lambda x=x, y=y, op=op: sdk._sddmm_op(
+                x, y, sl.slot_src, sl.slot_dst, sl.num_segments, op),
+            lambda x=x, y=y, op=op: sdk._forward_cuda(x, y, sl, op))
+    for tag, graph, weighted in (("k5", gd, False), ("k6", g6, False),
+                                 ("k6w", gd, True)):
+        lay_d = graph._dedup_layouts[0]
+        x = t(64)
+        w = t(1, rows=graph.num_edges).reshape(-1) if weighted else None
+        out[tag] = (
+            lambda x=x, w=w, lay_d=lay_d: dk._apply_op(
+                x, [getattr(lay_d, n) for n in dk._OP_TENSORS],
+                [getattr(lay_d, n) for n in dk._OP_INTS], lay_d.counts,
+                None if w is None else lay_d.edge_id, w, lay_d.kind),
+            lambda x=x, w=w, lay_d=lay_d: dk._apply_cuda(x, lay_d, w))
+    att = gd._dedup_attn_aux()
+    for rate in (0.0, 0.5):
+        a, b, v = t(8), t(8), t(64)
+        out[f"k7-{rate}"] = (
+            lambda a=a, b=b, v=v, rate=rate: da._gat_op(
+                a, b, v, *da._op_args(att), 0.2, 8, rate, seed),
+            lambda a=a, b=b, v=v, rate=rate: da._fwd_cuda(
+                a, b, v, att, 0.2, 8, rate, seed))
+        q, k, v = t(64), t(64), t(64)
+        out[f"k7dot-{rate}"] = (
+            lambda q=q, k=k, v=v, rate=rate: da._dot_op(
+                q, k, v, *da._op_args(att), 0.0, 32, 32, rate, seed),
+            lambda q=q, k=k, v=v, rate=rate: da._dot_fwd_cuda(
+                q, k, v, att, 0.0, 32, 32, rate, seed))
+    return out
+
+
+OP_PAIRS = ("k1w-mul-float32", "k1w-add-float32", "k1w-mul-bfloat16",
+            "k1w-add-bfloat16", "k9-0.0-float32", "k9-0.5-float32",
+            "k9-0.0-bfloat16", "k9-0.5-bfloat16", "k9dot-0.0-float32",
+            "k9dot-0.5-float32", "k9dot-0.0-bfloat16", "k9dot-0.5-bfloat16",
+            "k11-add", "k11-sub", "k11-mul", "k11-div", "k5", "k6", "k6w",
+            "k7-0.0", "k7-0.5", "k7dot-0.0", "k7dot-0.5")
+
+
+def _launched(call):
+    """``call()``'s outputs (a tuple) and the launches it counted."""
+    from chip_smoke import all_launches, reset_all_launches
+    reset_all_launches()
+    got = call()
+    torch.cuda.synchronize()
+    return (got if isinstance(got, tuple) else (got,)), all_launches()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OP_PAIRS)
+def test_custom_op_equals_the_direct_launch(cuda, name):
+    """The op's CUDA implementation launches the same kernel as the eager
+    wrapper: the same bits, the same launch counts."""
+    op_call, direct = _op_pairs(cuda)[name]
+    got, got_launches = _launched(op_call)
+    want, want_launches = _launched(direct)
+    assert got_launches == want_launches and sum(got_launches.values())
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_exported_gat_serves_k9_and_no_plain_version(cuda, tmp_path,
+                                                     monkeypatch):
+    """A GAT exported on the card and served by ``Predictor`` in the same
+    process: the program calls K9's op once a layer, its CUDA
+    implementation launches K9 (and its merge where rows split), no plain
+    version runs, and the logits equal the eager model's bit for bit."""
+    from pgl_tpu_torch.utils.export import Predictor, export_model, op_calls
+    g = Graph(skewed_graph(400, 6000, seed=8), num_nodes=400,
+              node_feat={"h": np.random.default_rng(0).normal(
+                  size=(400, 16)).astype(np.float32)}).tensor(cuda)
+    model = GAT(16, 3, num_heads=8, hidden_size=8, device=cuda)
+    x = g.node_feat["h"]
+    path = str(tmp_path / "gat.pt2")
+    program = export_model(lambda x: model(g, x), [x], path)
+    assert op_calls(program) == {"gat_attention": 2}
+    with torch.no_grad():
+        eager = model(g, x)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran")
+
+    for name in ("gat_attention_reference", "dot_attention_reference",
+                 "plain_attention"):
+        monkeypatch.setattr(ak, name, plain)
+    pred = Predictor(path)
+    ak.reset_launches()
+    out = pred.run(x)
+    torch.cuda.synchronize()
+    # the hub row is split into pieces: each forward merges them
+    assert dict(ak.LAUNCHES_BY_SHAPE) == {
+        ("gat_fwd", 8, 8): 1, ("gat_fwd_combine", 8, 8): 1,
+        ("gat_fwd", 1, 3): 1, ("gat_fwd_combine", 1, 3): 1}
     assert torch.equal(out, eager)
 
 

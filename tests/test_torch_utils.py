@@ -8,7 +8,7 @@ from. A resumed training run's losses equal the uninterrupted run's bit
 for bit. Where the reference checkpoints a mesh-sharded array, the port
 saves one rank's shard on its device (a world of one, gloo, in this
 process); where it exports a halo-sharded function with its collectives,
-the port's trace raises ``NotImplementedError`` at the first collective.
+the port's rank exports its own shard's program, the halo exchange an op.
 """
 
 import logging
@@ -209,23 +209,47 @@ def test_export_roundtrip(tmp_path):
     assert sk.LAUNCHES == 0                    # the CPU runs no kernel
 
 
-def test_export_halo_sharded_inference_raises(tmp_path, world_of_one):
-    """``tests/test_utils.py:171-201`` exports a halo-sharded GCN layer
-    with its collectives; the port's export stops at the halo exchange
-    with ``NotImplementedError`` (no traceable collective yet), and the
-    eager layer still runs."""
+def test_export_halo_sharded_inference(tmp_path, world_of_one):
+    """``tests/test_utils.py:171-201`` on both packages from the same
+    parameters: a halo-sharded GCN layer exports with its halo exchange
+    (the op ``pgl_tpu_torch::all_to_all``) and K1's calls, and serves
+    through ``Predictor``; the served output equals the eager layer's bit
+    for bit, and unsharded the reference's served output at its rtol 1e-5,
+    atol 1e-6. The reference exports one program over its mesh; the port's
+    rank exports its own shard's (a world of one here)."""
+    from jax.sharding import Mesh
+    from pgl_tpu.nn import GCNConv as JGCNConv
+    from pgl_tpu.parallel import HaloGraph as JHaloGraph
     from pgl_tpu_torch.nn import GCNConv
     from pgl_tpu_torch.parallel import HaloGraph
+    from pgl_tpu_torch.utils.export import op_calls
     rng = np.random.default_rng(0)
-    g = Graph(rng.integers(0, 64, (200, 2)), num_nodes=64,
-              node_feat={"h": rng.normal(size=(64, 8)).astype(np.float32)})
-    hg = HaloGraph.from_graph(g, device="cpu")
+    edges = rng.integers(0, 64, (200, 2))
+    feat = rng.normal(size=(64, 8)).astype(np.float32)
+    jg = __import__("pgl_tpu").Graph(edges, num_nodes=64,
+                                     node_feat={"h": feat})
+    jhg = JHaloGraph.from_graph(jg, Mesh(np.array(jax.devices()), ("node",)))
+    jx = jhg.shard_node_values(feat)
+    jlayer = JGCNConv(input_size=8, output_size=4)
+    params = jlayer.init(jax.random.key(0), jhg, jx)
+    jpath = str(tmp_path / "halo_model.bin")
+    j_export_model(lambda x: jlayer.apply(params, jhg, x), (jx,), jpath)
+    want = jhg.unshard_node_values(JPredictor(jpath).run(jx))
+
+    hg = HaloGraph.from_graph(Graph(edges, num_nodes=64,
+                                    node_feat={"h": feat}), device="cpu")
     layer = GCNConv(8, 4, device="cpu")
+    layer.load_state_dict(flax_to_state_dict(
+        jax.tree.map(np.asarray, params), "cpu"))
     x = hg.node_feat["h"]
-    assert layer(hg, x).shape == (hg.n_pad, 4)
-    with pytest.raises(NotImplementedError, match="does not export"):
-        export_model(lambda x: layer(hg, x), (x,),
-                     str(tmp_path / "halo.pt2"))
+    path = str(tmp_path / "halo.pt2")
+    program = export_model(lambda x: layer(hg, x), (x,), path)
+    assert op_calls(program) == {"spmm": 2, "all_to_all": 1}
+    out = Predictor(path).run(x)
+    with torch.no_grad():
+        assert torch.equal(out, layer(hg, x))
+    np.testing.assert_allclose(hg.unshard_node_values(out), want,
+                               rtol=1e-5, atol=1e-6)
 
 
 # -- profiler and platform ----------------------------------------------------

@@ -8,7 +8,9 @@ thread, every collective bounded by a 120 s timeout), reads its inputs
 from ``DIR/inputs.npz`` (made from a seed with numpy by the test, flax
 parameters carried as state dicts under ``sd/<layer>/<name>``), runs every
 case of SUITE ("halo", "heter" or "two") on ``device="cpu"`` ("gpu": a halo GCN and GAT on ``cuda:0``, every rank
-on the one card) and writes ``DIR/rank<RANK>.npz``: the unsharded results
+on the one card; "export" exports a halo and a ``ShardedGraph`` GCN, each
+rank its own artifact in DIR, which the fresh ranks of "serve" load and
+run) and writes ``DIR/rank<RANK>.npz``: the unsharded results
 (the same on every rank) and this rank's own shards. Imports torch and the
 port only. :func:`start` and :func:`finish` launch and collect the ranks
 for the tests.
@@ -488,6 +490,62 @@ def two_suite(inp, rank, size, res):
         res[f"kg_pred_{rank}"] = model.predict_all_tails(params, h, r)
 
 
+EXPORTED = ("halo_gcn", "sharded_gcn")
+
+
+def _export_graphs(inp, rank):
+    """The halo and edge shards of the inputs' graph and each one's input
+    feature."""
+    g = Graph(inp["EDGES"], num_nodes=int(inp["N"]),
+              node_feat={"h": inp["FEAT"]})
+    hg = HaloGraph.from_graph(g, device=CPU)
+    sg = ShardedGraph.from_graph(g, device=CPU)
+    return {"halo_gcn": (hg, hg.node_feat["h"]),
+            "sharded_gcn": (sg, torch.as_tensor(inp["FEAT"]))}
+
+
+def export_suite(inp, rank, size, res):
+    """The reference GCN's carried weights on each shard: the eager
+    output (this rank's, and unsharded), and the program each rank exports
+    (``DIR/<model>_r<RANK>.pt2``, with its input) and its op calls."""
+    from pgl_tpu_torch.models import GCN
+    from pgl_tpu_torch.utils.export import export_model, op_calls
+    tmp = os.environ["PGL_TEST_DIR"]
+    for name, (graph, x) in _export_graphs(inp, rank).items():
+        model = GCN(inp["FEAT"].shape[1], 3, hidden_size=16, device=CPU)
+        model.load_state_dict(state(inp, "gcn"), strict=True)
+        program = export_model(lambda x: model(graph, x), (x,),
+                               os.path.join(tmp, f"{name}_r{rank}.pt2"))
+        torch.save(x, os.path.join(tmp, f"{name}_x{rank}.pt"))
+        calls = op_calls(program)
+        res[f"{name}_op_names_{rank}"] = np.array(sorted(calls))
+        res[f"{name}_op_calls_{rank}"] = np.array(
+            [calls[k] for k in sorted(calls)])
+        with torch.no_grad():
+            out = model(graph, x)
+        res[f"{name}_eager_{rank}"] = out.numpy()
+        res[f"{name}_out"] = (graph.unshard_node_values(out)
+                              if name == "halo_gcn" else out.numpy())
+
+
+def serve_suite(inp, rank, size, res):
+    """Fresh ranks: each serves its own artifacts (``Predictor`` in the
+    world of the export) and refuses the next rank's."""
+    from pgl_tpu_torch.utils.export import Predictor
+    tmp = os.environ["PGL_TEST_DIR"]
+    for name in EXPORTED:
+        x = torch.load(os.path.join(tmp, f"{name}_x{rank}.pt"))
+        res[f"{name}_served_{rank}"] = Predictor(os.path.join(
+            tmp, f"{name}_r{rank}.pt2")).run(x).numpy()
+        try:
+            Predictor(os.path.join(tmp, f"{name}_r{(rank + 1) % size}.pt2"))
+        except RuntimeError as err:
+            res[f"{name}_refused_{rank}"] = np.array(
+                f"exported by rank {(rank + 1) % size}" in str(err))
+        else:
+            res[f"{name}_refused_{rank}"] = np.array(False)
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -539,7 +597,8 @@ def main():
     inp = np.load(os.path.join(out_dir, "inputs.npz"))
     res = {}
     {"halo": halo_suite, "heter": heter_suite, "two": two_suite,
-     "gpu": gpu_suite}[suite](inp, rank, size, res)
+     "gpu": gpu_suite, "export": export_suite,
+     "serve": serve_suite}[suite](inp, rank, size, res)
     out = {k: np.asarray(v.detach().cpu().numpy() if torch.is_tensor(v)
                          else v) for k, v in res.items()}
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
