@@ -9,19 +9,20 @@ there is no card or any phase fails. Phases:
 
 1. the card's name and power limit (``nvidia-smi``); build the kernels from
    ``pgl_tpu_torch/ops/kernels/csrc`` (one ``nvcc`` per library, in
-   parallel; the bf16 entry points of ``segment_kernels.cu`` and
-   ``attention_kernels.cu`` are libraries of their own) and print the build time and ``ptxas`` report, and for each
-   instantiation of the dedup apply (K5, K6, the weighted K6) its
-   registers, spills and dynamic shared memory, and of K1 and K1w
+   parallel; the bf16 entry points of ``segment_kernels.cu``,
+   ``attention_kernels.cu``, ``dedup_kernels.cu`` and
+   ``dedup_attention.cu`` are libraries of their own) and print the build
+   time and ``ptxas`` report, and for each instantiation of the dedup
+   apply (K5, K6, the weighted K6; float and bf16) its registers, spills
+   and dynamic shared memory, and of K1 and K1w
    (``spmm_rows``, ``spmm_packs``; K1w's by its weight and weight-gradient
    ops), the additive K8's node walk (``dedup_attn_bwd_nodes``), the
    additive lane-group kernels (``gat_fwd_groups``: K9 per edge, K7 per
    cell; their merge ``gat_fwd_combine``; K10's ``gat_dq_groups``,
-   ``gat_dkv_groups``) and the staged dot kernels (``dot_fwd_staged``,
-   ``dot_dq_staged``,
-   ``dot_dkv_staged``: K9 and K10 per edge, K7 and K8 per cell), each on
-   float and (K1, K1w, K9, K10) bf16 tables, its registers and spills,
-   failing if a staged dot kernel spills;
+   ``gat_dkv_groups``), K8's row pass and node walk and the staged dot
+   kernels (``dot_fwd_staged``, ``dot_dq_staged``, ``dot_dkv_staged``: K9
+   and K10 per edge, K7 and K8 per cell), each on float and bf16 tables,
+   its registers and spills, failing if a staged dot kernel spills;
 2. every kernel against its plain PyTorch version on the card, forward and
    backward: the plain version runs in float64 on the same inputs, and
    ``|kernel - plain| <= 1e-4 * max(1, |plain|, ||terms||_2)`` elementwise,
@@ -444,6 +445,26 @@ there is no card or any phase fails. Phases:
    program holds one op node a forward kernel call; printed per model:
    artifact MiB, export s, load s, first and second served ms, eager ms,
    and the serving process's import and load seconds.
+21. the dedup route under ``utils.amp`` (run after phase 18): (a) the
+   bf16 K5, K6 and weighted K6 (``pgl_dedup_apply_bf16``) on the dedup
+   case graphs (a count of 256: K5 and K6, windows past their block's
+   unique run, split and empty blocks; a count of 300: C in float32) at D
+   in ``AMP_DEDUP_D``, forward, dx and dw, and the bf16 K7/K8 on a
+   multigraph, additive at (8, 8) and (1, 16) (rates 0 and 0.6) and dot
+   at (2, 128, 128) (rates 0 and 0.3), against float64 of the same bf16
+   values by ``check_bf16``, the same bits twice, bf16 K5 and K6 bit for
+   bit; (b) the headline GCN on K5 (cached counts) and on K6 (a zero
+   counts budget), FAGCN on the weighted K6, the bench GAT on the
+   additive K7/K8 and UniMP at the reference's defaults (dropout 0.3 in
+   cell mode) on the dot K7/K8 under ``utils.amp``: the first amp loss
+   within ``AMP_LOSS_RTOL`` of the float32 step's from the same weights,
+   3 warm-up and 20 timed steps asserting only bf16 launches of the dedup
+   family, the step ms and peak MiB beside the float32 run's of phases 3,
+   6, 8 and 9, a torch.profiler trace of the amp step; (c) the bf16
+   kernels at the path's shapes against float64 and timed (CUDA events)
+   beside the float32 kernel on the same values, the plain version and
+   (K5, K6, the weighted K6) ``torch.sparse.mm`` on a bf16 CSR matrix or
+   the error it raises, with the byte bound of bf16 tables.
 
 The second-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -486,20 +507,23 @@ PER_STEP = {("csc", 128): 2, ("csc", 16): 1, ("csr", 128): 1, ("csr", 16): 1}
 DEDUP_CASE_D = (1, 3, 8, 16, 64, 128, 130, 256)
 
 
-def apply_report(log):
-    """Lines on the dedup apply kernels (K5, K6, the weighted K6) from
-    ``nvcc -Xptxas -v``'s report ``log``: each instantiation's registers
-    and spills beside the dynamic shared memory its launch asks for."""
+def apply_report(log, bf16=False):
+    """Lines on the dedup apply kernels (K5, K6, the weighted K6; with
+    ``bf16`` their bf16 instantiations, ``dedup_apply_bf16``) from ``nvcc
+    -Xptxas -v``'s report ``log``: each instantiation's registers and
+    spills beside the dynamic shared memory its launch asks for."""
     import re
+    import torch
     from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
-    lib = dk._lib()
+    lib = dk._lib(torch.bfloat16 if bf16 else torch.float32)
     names = {(0, 0): ("K5", 0, 1), (1, 0): ("K6", 1, 1),
              (1, 1): ("K6, counts > 256", 1, 257),
              (2, 1): ("weighted K6", 2, 1)}
+    entry = "dedup_apply_bf16" if bf16 else "dedup_apply"
     lines, kernel, spills = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*dedup_applyILi(\d)ELb(\d)"
-                      r"ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\S*" + entry +
+                      r"ILi(\d)ELb(\d)ELi(\d+)E", line)
         if m:
             kernel = tuple(int(v) for v in m.groups())
             continue
@@ -511,8 +535,9 @@ def apply_report(log):
         if m and kernel is not None:
             mode, fa, dt = kernel
             name, mode_arg, max_count = names[mode, fa]
-            smem = lib.pgl_dedup_apply_smem(mode_arg, max_count, dt)
-            lines.append(f"[build] dedup_apply {name}, column tile {dt}: "
+            smem = lib.pgl_dedup_apply_smem(int(bf16), mode_arg, max_count,
+                                            dt)
+            lines.append(f"[build] {entry} {name}, column tile {dt}: "
                          f"{m.group(1)} registers, {spills}, dynamic shared "
                          f"memory {smem} B")
             kernel = None
@@ -559,8 +584,11 @@ REGISTER_REPORT = (
     ("K1w bf16 spmm_packs", "spmm_packs" + _ITEMS_BF16.format("(0)",
                                                               r"([12])"),
      ("VEC", "L", "NV", "WOP", "DWOP")),
+    ("K8 row pass dedup_attn_bwd_rows",
+     r"dedup_attn_bwd_rows" + _T + r"Li(\d+)ELi(\d+)E", ("T", "NC", "U")),
     ("K8 node walk dedup_attn_bwd_nodes",
-     r"dedup_attn_bwd_nodesILi(\d+)ELi(\d+)ELi(\d+)E", ("NC", "U", "G")),
+     r"dedup_attn_bwd_nodes" + _T + r"Li(\d+)ELi(\d+)ELi(\d+)E",
+     ("T", "NC", "U", "G")),
     ("K9 additive gat_fwd_groups",
      r"gat_fwd_groups" + _T + r"Li(\d+)ELi(\d+)ELb(\d)ELb0E",
      ("T", "VEC", "NV", "V4")),
@@ -876,10 +904,12 @@ def phase_dtype_route(dev):
     exactly (fp16 on the rows of at most 2048 in-edges, whose sums it
     adds exactly); the same feature in float32 launches K1 (sum, then
     mean), in bf16 the bf16 K1 (the CPU's sums exactly: integers); a bf16
-    ``send_ue_recv`` launches the bf16 K1w (the CPU's sums exactly); bf16
-    at K11 (``sddmm_csc``) and on a graph with dedup layouts (K5/K6 and the
-    count-matrix attention K7), which have no bf16 instantiation, raises
-    without a launch."""
+    ``send_ue_recv`` launches the bf16 K1w (the CPU's sums exactly); on a
+    graph with dedup layouts a bf16 ``send_u_recv`` launches the bf16 K5
+    once (the CPU's sums exactly) and a bf16 ``GATConv`` the bf16 K7
+    (with its merge where rows split) and nothing else; bf16 at K11
+    (``sddmm_csc``), which has no bf16 instantiation (the reference's
+    kernel raises on bf16 too), raises without a launch."""
     import torch
     from pgl_tpu_torch import Graph
 
@@ -935,30 +965,48 @@ def phase_dtype_route(dev):
         g_d = host.tensor(dev)
     if g_d._dedup_layouts is None:
         raise AssertionError("the dtype route's graph has no dedup layouts")
+    reset_all_launches()
+    got = g_d.send_u_recv(bones, "sum")
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in all_launches().items() if v}
+    if launched != {("bf16", "dedup_cached", "csc", 2): 1} or got.dtype != \
+            torch.bfloat16 or not torch.equal(got.cpu(),
+                                              want.to(torch.bfloat16)):
+        raise AssertionError(f"a bf16 send_u_recv under DEDUP launched "
+                             f"{launched}, expected the bf16 K5 once, and "
+                             "the CPU's sums")
     conv = GATConv(2, 2, num_heads=1, feat_drop=0.0, attn_drop=0.0,
                    device=dev).to(torch.bfloat16)
-    for what, call in (
-            ("sddmm_csc", lambda: g.sddmm_csc(bones, bones, "mul")),
-            ("send_u_recv under DEDUP", lambda: g_d.send_u_recv(bones,
-                                                                "sum")),
-            ("GATConv under DEDUP", lambda: conv(g_d, bones))):
-        reset_all_launches()
-        try:
-            call()
-        except TypeError:
-            pass
-        else:
-            raise AssertionError(f"a bf16 {what} on the card did not raise")
-        if any(all_launches().values()):
-            raise AssertionError(f"a bf16 {what} launched a kernel")
+    reset_all_launches()
+    with torch.no_grad():
+        out = conv(g_d, bones)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in all_launches().items() if v}
+    k7 = {("bf16", "dedup_fwd", 1, 2), ("bf16", "dedup_fwd_combine", 1, 2)}
+    if launched.get(("bf16", "dedup_fwd", 1, 2)) != 1 or not set(
+            launched) <= k7 or out.dtype != torch.bfloat16 or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"a bf16 GATConv under DEDUP launched "
+                             f"{launched} ({out.dtype}), expected the bf16 "
+                             "K7 once")
+    reset_all_launches()
+    try:
+        g.sddmm_csc(bones, bones, "mul")
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("a bf16 sddmm_csc on the card did not raise")
+    if any(all_launches().values()):
+        raise AssertionError("a bf16 sddmm_csc launched a kernel")
     print(f"[graph] int64 send_u_recv on the card: the CPU's sums exactly "
           f"(N={g.num_nodes}, E={g.num_edges}, largest sum "
           f"{int(want.max())}), no kernel launched; float32 launched K1 "
           f"twice (sum, mean); fp16 took the segment path (the CPU's sums "
           f"on rows of up to 2048 in-edges), bf16 the bf16 K1 (the CPU's "
           f"sums); a bf16 send_ue_recv launched the bf16 K1w (the CPU's "
-          f"sums); bf16 at sddmm_csc, send_u_recv and GATConv under DEDUP "
-          f"raised", flush=True)
+          f"sums); under DEDUP a bf16 send_u_recv launched the bf16 K5 "
+          f"once (the CPU's sums) and a bf16 GATConv the bf16 K7; bf16 at "
+          f"sddmm_csc raised", flush=True)
 
 
 def headline_host():
@@ -1051,13 +1099,14 @@ def all_launches():
     """Launch counts of every kernel module: K1's keyed ``(kind, D)``,
     K1w's ``(op, kind, D, H)``, the dedup kernels' ``(kernel, kind, D)``,
     the two attention modules' ``(kernel, H, dvh)`` (dot mode ``(kernel, H,
-    dsh, dvh)``), K11's ``("sddmm", op, D)``; a bf16 launch (K1, K1w, K9,
-    K10) under its key with ``"bf16"`` first."""
-    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
-    from pgl_tpu_torch.ops.kernels import segment_kernels as sk
-    got = {k: v for module in _kernel_modules()
+    dsh, dvh)``), K11's ``("sddmm", op, D)``; a bf16 launch (K1, K1w, K5,
+    K6, K9, K10, K7, K8: every module but K11's) under its key with
+    ``"bf16"`` first."""
+    modules = _kernel_modules()
+    got = {k: v for module in modules
            for k, v in module.LAUNCHES_BY_SHAPE.items()}
-    got.update({("bf16",) + k: v for module in (sk, ak)
+    got.update({("bf16",) + k: v for module in modules
+                if hasattr(module, "LAUNCHES_BF16")
                 for k, v in module.LAUNCHES_BF16.items()})
     return got
 
@@ -1230,13 +1279,14 @@ def k1_rows(tag, lays, tables, dims, dev, by_shape):
     return rows
 
 
-def check_dedup(name, got, x, layout):
-    """``check`` of a dedup kernel result against the plain version in
-    float64, with the 2-norm scale of ``check_spmm``."""
+def check_dedup(name, got, x, layout, rule=None):
+    """A dedup kernel result against the plain version in float64, with
+    the 2-norm scale of ``check_spmm``, by ``rule`` (``check``;
+    ``check_bf16`` on bf16 inputs)."""
     from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
     x = x.detach().double()
-    return check(name, got, dk.apply_reference(x, layout),
-                 dk.apply_reference(x * x, layout).sqrt())
+    return (rule or check)(name, got, dk.apply_reference(x, layout),
+                           dk.apply_reference(x * x, layout).sqrt())
 
 
 def check_counts(name, got, layout):
@@ -2067,9 +2117,11 @@ def without_counts(att):
 
 
 def run_dedup_attention(att, ins, rate, seed, slope=0.2):
-    """K7 and K8 on float32 ``ins`` with leaky slope ``slope``: ``(out,
-    lse, d a_dst, d a_src, dv)``, all on node rows."""
+    """K7 and K8 on float32 or bf16 ``ins`` with leaky slope ``slope``:
+    ``(out, lse, d a_dst, d a_src, dv)``, all on node rows (delta float32,
+    as the autograd function forms it)."""
     import torch
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
     a_dst, a_src, v, g = ins
     H = a_dst.shape[1]
@@ -2077,21 +2129,25 @@ def run_dedup_attention(att, ins, rate, seed, slope=0.2):
     with torch.no_grad():
         out, lse = da._fwd_cuda(a_dst, a_src, v, att, slope, dvh, rate,
                                 seed)
-        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+        delta = ak._delta(g, out, H, dvh)
         return (out, lse) + da._bwd_cuda(a_dst, a_src, v, g, lse, delta,
                                          att, slope, dvh, rate, seed)
 
 
-def check_dedup_attention(tag, att, ins, rate, seed, got, slope=0.2):
+def check_dedup_attention(tag, att, ins, rate, seed, got, slope=0.2,
+                          rule=None):
     """``got`` of :func:`run_dedup_attention` against the plain versions in
     float64 on the same inputs (d a_src and dv with the terms scale: a hub
-    source sums thousands of them); returns the max |err| of K7 and K8."""
+    source sums thousands of them), by ``rule`` (``check``; ``check_bf16``
+    on bf16 inputs; lse, float32, by ``check``); returns the max |err| of
+    K7 and K8."""
     import torch
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
     out, lse, da_dst, dsrc, dv = got
     a_dst, a_src, v, g = ins
     H = a_dst.shape[1]
     dvh = v.shape[1] // H
+    rule = rule or check
     name = f"{tag} H={H} dvh={dvh} rate={rate} leaky={slope}"
     with torch.no_grad():
         d64 = [t.double() for t in ins]
@@ -2103,13 +2159,13 @@ def check_dedup_attention(tag, att, ins, rate, seed, got, slope=0.2):
                seed)
         dq_p, dsrc_p, dv_p = da.dedup_bwd_reference(*bwd)
         terms = dedup_bwd_terms(*bwd)
-        return {"dedup_fwd": max(check(f"{name} K7 out", out, out_p),
+        return {"dedup_fwd": max(rule(f"{name} K7 out", out, out_p),
                                  check(f"{name} K7 lse", lse, lse_p)),
-                "dedup_bwd": max(check(f"{name} K8 d a_dst", da_dst, dq_p),
-                                 check(f"{name} K8 d a_src", dsrc, dsrc_p,
-                                       terms[0]),
-                                 check(f"{name} K8 dv", dv, dv_p,
-                                       terms[1]))}
+                "dedup_bwd": max(rule(f"{name} K8 d a_dst", da_dst, dq_p),
+                                 rule(f"{name} K8 d a_src", dsrc, dsrc_p,
+                                      terms[0]),
+                                 rule(f"{name} K8 dv", dv, dv_p,
+                                      terms[1]))}
 
 
 def dedup_bwd_terms(a_dst, a_src, v, g, lse, delta, layout, slope, dvh,
@@ -2953,38 +3009,41 @@ def phase_unimp(dev):
 # -- phase 8: the UniMP dedup path (count-matrix attention in dot mode) ------
 
 def run_dedup_dot(att, ins, shape, rate, seed, leaky=0.0):
-    """The dot-mode K7 and K8 on float32 ``ins``: ``(out, lse, dq, dk,
-    dv)``, dk and dv on node rows (K8's node walk)."""
+    """The dot-mode K7 and K8 on float32 or bf16 ``ins``: ``(out, lse, dq,
+    dk, dv)``, dk and dv on node rows (K8's node walk; delta float32)."""
     import torch
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
     q, k, v, g = ins
     H, dsh, dvh = shape
     with torch.no_grad():
         out, lse = da._dot_fwd_cuda(q, k, v, att, leaky, dsh, dvh, rate,
                                     seed)
-        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
+        delta = ak._delta(g, out, H, dvh)
         return (out, lse) + da._dot_bwd_cuda(q, k, v, g, lse, delta, att,
                                              leaky, dsh, dvh, rate, seed)
 
 
-def check_dedup_dot(tag, att, ins, shape, rate, seed, got, leaky=0.0):
+def check_dedup_dot(tag, att, ins, shape, rate, seed, got, leaky=0.0,
+                    rule=None):
     """``got`` of :func:`run_dedup_dot` against the plain versions in
     float64 on the same inputs (the backward on the kernel's lse and
-    delta), with ``check``'s rule; dq, dk and dv (node rows) scaled by the
-    2-norm of the terms each element sums. Returns the max |err| of K7 and
-    K8."""
+    delta), by ``rule`` (``check``; ``check_bf16`` on bf16 inputs; lse by
+    ``check``); dq, dk and dv (node rows) scaled by the 2-norm of the terms
+    each element sums. Returns the max |err| of K7 and K8."""
     import torch
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
     out, lse, dq, dk, dv = got
     H, dsh, dvh = shape
     lay = att.layout
+    rule = rule or check
     name = f"{tag} H={H} dsh={dsh} dvh={dvh} leaky={leaky} rate={rate}"
     with torch.no_grad():
         q, k, v, g = (t.double() for t in ins)
         out_p, lse_p = da.dedup_dot_reference(q, k, v, lay, dsh, dvh, leaky,
                                               rate, seed)
-        errs = {"dedup_dot_fwd": max(check(f"{name} K7 out", out, out_p),
+        errs = {"dedup_dot_fwd": max(rule(f"{name} K7 out", out, out_p),
                                      check(f"{name} K7 lse", lse, lse_p))}
         del out_p, lse_p
         delta = (g.reshape(-1, H, dvh)
@@ -3003,9 +3062,9 @@ def check_dedup_dot(tag, att, ins, shape, rate, seed, got, leaky=0.0):
         dq_p, dk_p, dv_p = da.dedup_dot_bwd_reference(*bwd, lay, dsh, dvh,
                                                       leaky, rate, seed)
         errs["dedup_dot_bwd"] = max(
-            check(f"{name} K8 dq", dq, dq_p, scale_q),
-            check(f"{name} K8 dk", dk, dk_p, scale_k),
-            check(f"{name} K8 dv", dv, dv_p, scale_v))
+            rule(f"{name} K8 dq", dq, dq_p, scale_q),
+            rule(f"{name} K8 dk", dk, dk_p, scale_k),
+            rule(f"{name} K8 dv", dv, dv_p, scale_v))
     return errs
 
 
@@ -9143,6 +9202,450 @@ def phase_amp_attention(dev, host):
     return rows, steps
 
 
+# -- phase 21: the dedup route under utils.amp -------------------------------
+
+# the bf16 K5/K6 case widths: one, odd, a 16-byte vector, each column tile,
+# past one tile
+AMP_DEDUP_D = (1, 3, 8, 16, 64, 128, 130)
+BF16_OPS_PER_S = 989e12        # H100 SXM, bf16 on the tensor cores, dense
+
+
+def library_ms_or_error(call, iters=20):
+    """``(ms, None)`` of one PyTorch call (CUDA events), or ``(None, the
+    error it raises)``."""
+    try:
+        call()
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        return None, f"{type(exc).__name__}: {exc}"[:300]
+    return time_ms(call, iters), None
+
+
+def bf16_dedup_graphs(dev):
+    """Phase 2's dedup case graphs under ``DEDUP`` on the card, with both
+    dedup layouts and K1's (edge ids included): ``count 256`` (K4's counts
+    cached, so K5 runs; windows past their block's unique run, split and
+    empty blocks) and ``count 300`` (no counts: K6 keeps C in float32)."""
+    from pgl_tpu_torch import Graph
+    graphs = {}
+    for copies in (256, 300):
+        with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0,
+                               DEDUP_MAX_RATIO=float("inf")):
+            g = Graph(dedup_case_edges(copies=copies), num_nodes=3000
+                      ).tensor(dev)
+        csc = g._dedup_layouts[0]
+        facts = dedup_case_facts(csc)
+        if (csc.counts is None) is (copies <= 256) or not all(
+                facts.values()):
+            raise AssertionError(f"the dedup case graph of a count of "
+                                 f"{copies} misses a case: counts "
+                                 f"{csc.counts is not None}, {facts}")
+        graphs[f"count {copies}"] = g
+    return graphs
+
+
+def check_bf16_dedup(tag, g, D, dev, gen):
+    """The bf16 K6 (and K5 where ``g``'s layouts hold counts), forward over
+    CSC and dx over CSR, and the bf16 weighted K6 (forward, dx, and dw by
+    K1w's pass) with weights over six orders of magnitude, on ``g`` at
+    width D: against float64 of the same bf16 values by ``check_bf16``
+    with the terms scale, the same bits twice, K5 and K6 bit for bit.
+    Returns the max |err| by kernel."""
+    import dataclasses
+
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    csc, csr = g._dedup_layouts
+    x, cot = bf16_inputs(tuple(
+        torch.randn(g.num_nodes, D, device=dev, generator=gen)
+        for _ in range(2)))
+    w = spread_weights(g.num_edges, dev, gen).to(torch.bfloat16)
+    runs = {"dedup": run_dedup_twice(x, cot, [
+        dataclasses.replace(lay, counts=None) for lay in (csc, csr)])}
+    if csc.counts is not None:
+        runs["dedup_cached"] = run_dedup_twice(x, cot, (csc, csr))
+        if not all(map(same_bits, runs["dedup"], runs["dedup_cached"])):
+            raise AssertionError(f"{tag} D={D}: the bf16 K5 and K6 differ")
+    errs = {}
+    with torch.no_grad():
+        for kernel, (out, dx) in runs.items():
+            if out.dtype != torch.bfloat16 or dx.dtype != torch.bfloat16:
+                raise AssertionError(f"{tag} bf16 {kernel}: out {out.dtype}"
+                                     f", dx {dx.dtype}")
+            errs[kernel] = max(
+                check_dedup(f"{tag} bf16 {kernel} csc D={D}", out, x, csc,
+                            check_bf16),
+                check_dedup(f"{tag} bf16 {kernel} csr D={D}", dx, cot, csr,
+                            check_bf16))
+    wruns = []
+    for _ in range(2):
+        xr = x.clone().requires_grad_(True)
+        wr = w.clone().requires_grad_(True)
+        out = dk.spmm_dedup_weighted(xr, wr, csc, csr, g._spmm_layouts[1])
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        wruns.append((out.detach(), xr.grad, wr.grad))
+    same_bits_all(f"{tag} bf16 weighted K6 D={D}", *wruns)
+    out, dx, dw = wruns[0]
+    e = check_weighted(f"{tag} bf16 weighted K6 D={D}", x, w[:, None], cot,
+                       *g._spmm_layouts, "mul", out, dx, dw[:, None],
+                       rule=check_bf16)
+    errs["dedup_weighted"] = max(e.values())
+    return errs
+
+
+def run_bf16_dedup_attention(tag, att, ins, shape, rate, seed):
+    """The bf16 K7 and K8 on bf16 ``ins`` (additive at (H, dvh), leaky 0.2;
+    dot at (H, dsh, dvh), no leaky relu) against float64 of the same bf16
+    values (``check_bf16``; lse, float32, by ``check``), the same bits on a
+    second run, out and the gradients bf16. Returns the max |err| by
+    kernel."""
+    import torch
+    if len(shape) == 3:
+        def run():
+            return run_dedup_dot(att, ins, shape, rate, seed)
+    else:
+        def run():
+            return run_dedup_attention(att, ins, rate, seed)
+    got = run()
+    same_bits_all(f"bf16 {tag} {shape} rate={rate}", got, run())
+    if got[1].dtype != torch.float32 or any(
+            t.dtype != torch.bfloat16 for t in (got[0], *got[2:])):
+        raise AssertionError(f"bf16 {tag} {shape}: dtypes "
+                             f"{[str(t.dtype) for t in got]}")
+    if len(shape) == 3:
+        return check_dedup_dot(tag, att, ins, shape, rate, seed, got,
+                               rule=check_bf16)
+    return check_dedup_attention(tag, att, ins, rate, seed, got,
+                                 rule=check_bf16)
+
+
+def phase_amp_dedup_cases(dev):
+    """(a) The bf16 dedup kernels against float64 of the same bf16 values
+    (``check_bf16``), the same bits twice: K5, K6 and the weighted K6 on
+    ``bf16_dedup_graphs`` at ``AMP_DEDUP_D``; K7/K8 on phase 6's multigraph
+    (a split hub, rows without cells, counts 2 to 4) additive at
+    ``GAT_SHAPES``, rates 0 and 0.6, and in dot mode at UniMP's shape,
+    rates 0 and 0.3. Returns the max |err| by kernel."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(31)
+    errs = {}
+
+    def keep(got):
+        for k, v in got.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    for tag, g in bf16_dedup_graphs(dev).items():
+        for D in AMP_DEDUP_D:
+            keep(check_bf16_dedup(tag, g, D, dev, gen))
+    att = k7_case_atts(dev)["multi"]
+    for shape, rates in [(s, (0.0, 0.6)) for s in GAT_SHAPES] + [
+            (UNIMP_SHAPE, (0.0, 0.3))]:
+        for rate in rates:
+            seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                                 generator=gen, device=dev)
+            ins = bf16_inputs(
+                attention_inputs(att.num_rows, *shape, dev, gen)
+                if len(shape) == 2 else
+                dot_inputs(att.num_rows, shape, dev, gen))
+            keep(run_bf16_dedup_attention("multi", att, ins, shape, rate,
+                                          seed))
+    print(f"[amp dedup kernels] bf16 K5, K6 and the weighted K6 on the case "
+          f"graphs (a count of 256 and of 300) at D in {AMP_DEDUP_D}; K7/K8 "
+          f"on the multigraph additive at {GAT_SHAPES} (rates 0, 0.6) and "
+          f"dot at {UNIMP_SHAPE} (rates 0, 0.3): max |err| vs float64 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(errs.items()))
+          + "; same bits on a second run", flush=True)
+    reset_all_launches()
+    return errs
+
+
+def bf16_dedup_rows(rows, g, dev, gen, launches, cells):
+    """Rows of the bf16 K5 (``g``'s layouts hold counts) or K6 at the
+    headline's four shapes (CSC and CSR at D = 128 and 16): against float64
+    (``check_bf16``), CUDA-event ms beside the float32 kernel on the same
+    values, the plain version on the bf16 table and ``torch.sparse.mm`` on
+    a bf16 CSR matrix (or the error it raises). The byte bound with bf16
+    tables: the counts (K5) or each edge's two ints (K6), the table's rows
+    and the output once at 2 bytes, uv, pairs and groups; the operations
+    2 a nonzero cell (``cells``, phase 4's) and column at the bf16
+    tensor-core rate."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    N = g.num_nodes
+    cached = g._dedup_layouts[0].counts is not None
+    kernel = "dedup_cached" if cached else "dedup"
+    for lay, k1 in zip(g._dedup_layouts, g._spmm_layouts):
+        A = torch.sparse_csr_tensor(
+            k1.indptr, k1.indices,
+            torch.ones(k1.num_edges, device=dev, dtype=torch.bfloat16),
+            size=(k1.num_rows, N))
+        for d in (128, 16):
+            x = torch.randn(N, d, device=dev, generator=gen).to(
+                torch.bfloat16)
+            out = torch.empty(lay.n_pad, d, device=dev, dtype=torch.bfloat16)
+            part = torch.empty(lay.num_partials * dk.NB, d, device=dev)
+            ms = time_ms(lambda: dk._launch_apply(x, lay, lay.counts, out,
+                                                  part), 20)
+            with torch.no_grad():
+                err = check_dedup(f"timed bf16 {kernel} {lay.kind} D={d}",
+                                  out[:N], x, lay, check_bf16)
+            xf = x.float()
+            out32 = torch.empty(lay.n_pad, d, device=dev)
+            f32_ms = time_ms(lambda: dk._launch_apply(xf, lay, lay.counts,
+                                                      out32, part), 20)
+            plain_ms = time_ms(
+                lambda: dk.apply_reference(x, lay, lay.counts), 3)
+            lib_ms, lib_error = library_ms_or_error(
+                lambda: torch.sparse.mm(A, x))
+            structure = lay.counts_bytes if cached else 8 * lay.num_edges
+            nbytes = (structure + 2 * 2 * N * d + 4 * lay.uv.numel()
+                      + 16 * (lay.num_pairs + lay.groups.shape[0]))
+            ops = 2 * cells[lay.kind] * d
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            rows.append(dedup_row(
+                f"spmm_{kernel}_{lay.kind}_d{d}_bf16", kernel, launches,
+                ("bf16", kernel, lay.kind, d), err, ms, plain_ms, bound_ms,
+                "bytes" if t_bytes >= t_ops else "operations", lib_ms, lay,
+                d, f32_ms=f32_ms, library_error=lib_error))
+            rows[-1]["shape"]["dtype"] = "bf16"
+            print(f"[amp dedup kernels] bf16 {kernel} {lay.kind} D={d}: "
+                  f"kernel {ms:.5f} ms (float32 {f32_ms:.5f}, "
+                  f"{ms / f32_ms:.3f}x), plain {plain_ms:.5f} ms, "
+                  "torch.sparse.mm "
+                  + (f"{lib_ms:.5f} ms" if lib_ms is not None
+                     else f"none ({lib_error})")
+                  + f", bound {bound_ms:.5f} ms ({bound_ms / ms:.3f} of "
+                  f"it); max |err| vs float64 {err:.3e}; launches "
+                  f"{launches.get(('bf16', kernel, lay.kind, d), 0)}",
+                  flush=True)
+
+
+def bf16_weighted_dedup_rows(rows, g, dev, gen, launches, D=64):
+    """Rows of the bf16 weighted K6 at FAGCN's D = 64 on the headline under
+    ``DEDUP``: the forward over CSC and dx over CSR, against float64
+    (``check_bf16`` with the terms scale), CUDA-event ms beside the float32
+    kernel on the same values, the plain version and ``torch.sparse.mm``
+    on a bf16 CSR matrix of the weights (or the error it raises). The byte
+    bound with bf16 tables: the table and the output at 2 bytes, the
+    weights at 2, dst, urow and edge ids, uv, pairs and groups."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import dedup_kernels as dk
+    N, E = g.num_nodes, g.num_edges
+    x, cot = bf16_inputs(tuple(torch.randn(N, D, device=dev, generator=gen)
+                               for _ in range(2)))
+    w = torch.randn(E, device=dev, generator=gen).to(torch.bfloat16)
+    wf = w.float()
+    for lay, k1, src in zip(g._dedup_layouts, g._spmm_layouts, (x, cot)):
+        cell = torch.ones(E, dtype=torch.bool, device=dev)
+        cell[1:] = (lay.dst[1:] != lay.dst[:-1]) | (lay.urow[1:]
+                                                   != lay.urow[:-1])
+        cells = int(cell.sum())
+        out = torch.empty(lay.n_pad, D, device=dev, dtype=torch.bfloat16)
+        part = torch.empty(lay.num_partials * dk.NB, D, device=dev)
+        ms = time_ms(lambda: dk._launch_apply(src, lay, None, out, part, w),
+                     20)
+        with torch.no_grad():
+            want, scale = weighted_terms(src, w[:, None], k1, "mul")
+            err = check_bf16(f"timed bf16 weighted K6 {lay.kind}", out[:N],
+                             want, scale)
+        srcf = src.float()
+        out32 = torch.empty(lay.n_pad, D, device=dev)
+        f32_ms = time_ms(lambda: dk._launch_apply(srcf, lay, None, out32,
+                                                  part, wf), 20)
+        plain_ms = time_ms(lambda: dk.apply_weighted_reference(src, w, lay),
+                           5)
+        A = torch.sparse_csr_tensor(k1.indptr, k1.indices,
+                                    w.index_select(0, k1.edge_id),
+                                    size=(N, N))
+        lib_ms, lib_error = library_ms_or_error(
+            lambda: torch.sparse.mm(A, src))
+        nbytes = (2 * 2 * N * D + 4 * lay.uv.numel() + 14 * E
+                  + 16 * (lay.num_pairs + lay.groups.shape[0]))
+        info = {"graph": "headline", "rows": N, "edges": E, "D": D,
+                "pairs": lay.num_pairs, "groups": int(lay.groups.shape[0]),
+                "cells": cells, "dtype": "bf16"}
+        key = ("bf16", "dedup_weighted", lay.kind, D)
+        timing_row(rows, info, f"fagcn_dedup_weighted_{lay.kind}_bf16",
+                   "dedup_weighted", DEDUP_SOURCE, K6W_REPLACES,
+                   launches.get(key, 0), err, ms, plain_ms, nbytes,
+                   2 * cells * D + E, lib_ms, layout=lay.kind)
+        rows[-1].update(f32_ms=f32_ms, library_error=lib_error)
+        print(f"[amp dedup kernels] bf16 weighted K6 {lay.kind} D={D}: "
+              f"bf16 {ms:.5f} ms, float32 {f32_ms:.5f} ms "
+              f"({ms / f32_ms:.3f}x); torch.sparse.mm "
+              + (f"{lib_ms:.5f} ms" if lib_ms is not None
+                 else f"none ({lib_error})")
+              + f"; max |err| vs float64 {err:.3e}", flush=True)
+
+
+def bf16_dedup_attention_rows(rows, g, shape, rate, seed, launches, dev,
+                              gen):
+    """Rows of the bf16 K7 and K8 on ``g``'s dedup route at ``shape``
+    (additive (H, dvh), leaky 0.2; dot (H, dsh, dvh)): against float64 of
+    the same bf16 values, the same bits twice, and CUDA-event ms beside
+    the float32 kernels on the same values and the plain versions on the
+    bf16 tables. The byte bound with bf16 tables: each node table read
+    once and each output written once at 2 bytes (lse and delta at 4), the
+    cell lists and work lists at 4 bytes an int. No one PyTorch call
+    computes graph attention: library none."""
+    import torch
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+    att = g._dedup_attn_aux()
+    lay = att.layout
+    N, n = g.num_nodes, att.num_cells
+    dot = len(shape) == 3
+    if dot:
+        H, dsh, dvh = shape
+        DS = H * dsh
+        ins = bf16_inputs(dot_inputs(N, shape, dev, gen))
+    else:
+        H, dvh = shape
+        DS = H
+        ins = bf16_inputs(attention_inputs(N, H, dvh, dev, gen))
+    C = H * dvh
+    slope = 0.0 if dot else 0.2
+    errs = run_bf16_dedup_attention("gat_graph", att, ins, shape, rate,
+                                    seed)
+
+    def calls(tables):
+        a, b, v, gr = tables
+        with torch.no_grad():
+            if dot:
+                out, lse = da._dot_fwd_cuda(a, b, v, att, slope, dsh, dvh,
+                                            rate, seed)
+            else:
+                out, lse = da._fwd_cuda(a, b, v, att, slope, dvh, rate, seed)
+        bwd = (a, b, v, gr, lse, ak._delta(gr, out, H, dvh))
+        if dot:
+            args = (slope, dsh, dvh, rate, seed)
+            pargs = (dsh, dvh, slope, rate, seed)
+            return {"dedup_dot_fwd": (
+                        lambda: da._dot_fwd_cuda(a, b, v, att, *args),
+                        lambda: da.dedup_dot_reference(a, b, v, lay,
+                                                       *pargs)),
+                    "dedup_dot_bwd": (
+                        lambda: da._dot_bwd_cuda(*bwd, att, *args),
+                        lambda: da.dedup_dot_bwd_reference(*bwd, lay,
+                                                           *pargs))}
+        args = (slope, dvh, rate, seed)
+        return {"dedup_fwd": (
+                    lambda: da._fwd_cuda(a, b, v, att, *args),
+                    lambda: da.dedup_attention_reference(a, b, v, lay,
+                                                         *args)),
+                "dedup_bwd": (
+                    lambda: da._bwd_cuda(*bwd, att, *args),
+                    lambda: da.dedup_bwd_reference(*bwd, lay, *args))}
+
+    bf, fl = calls(ins), calls(tuple(t.float() for t in ins))
+    n_pieces = int(att.pieces.shape[0])
+    n_node_pieces = int(att.node_pieces.shape[0])
+    row_ints = 3 * n + 4 * n_pieces
+    node_ints = 3 * n + 4 * n_node_pieces
+    fwd_ints = (row_ints if dot else 3 * n + 4 * int(att.k10_items.shape[0])
+                + int(att.empty_rows.shape[0]))
+    # (bytes, operations) of each kernel: bf16 tables in, bf16 outputs,
+    # lse and delta float32; the operations as phases 6 and 8 count them
+    per_head = (6 if dot else 8) + 8 * (rate > 0)
+    cost = {
+        "fwd": (2 * N * (2 * DS + C) + 4 * fwd_ints + 2 * N * C + 4 * N * H,
+                n * (2 * DS + 2 * C + H * per_head) if dot
+                else n * (H * per_head + 2 * C)),
+        "bwd": (2 * N * (2 * DS + 2 * C) + 4 * 2 * N * H
+                + 4 * (row_ints + node_ints) + 2 * N * (2 * DS + C),
+                n * (8 * DS + 6 * C + 2 * H * (per_head + 3)) if dot
+                else n * (2 * H * (per_head + 2) + 6 * C))}
+    info = {"graph": "gat_graph", "rows": N, "edges": lay.num_edges,
+            "cells": n, "H": H, "dvh": dvh, "rate": rate, "dtype": "bf16"}
+    if dot:
+        info["dsh"] = dsh
+    for kernel, (fn, plain) in bf.items():
+        with torch.no_grad():
+            ms = time_ms(fn, 20)
+            f32_ms = time_ms(fl[kernel][0], 20)
+            plain_ms = time_ms(plain, 3)
+        nbytes, ops = cost[kernel.rsplit("_", 1)[1]]
+        name = (f"{kernel}_h{H}_s{dsh}_d{dvh}" if dot
+                else f"{kernel}_h{H}_d{dvh}") + (
+            f"_drop{rate:g}" if rate else "") + "_bf16"
+        timing_row(rows, info, name, kernel,
+                   DOT_SOURCE if dot else DATTN_SOURCE,
+                   (DDOT_REPLACES if dot else DATTN_REPLACES)[kernel],
+                   launches.get(("bf16", kernel, *shape), 0), errs[kernel],
+                   ms, plain_ms, nbytes, ops, None)
+        rows[-1]["f32_ms"] = f32_ms
+        print(f"[amp dedup kernels] {name}: bf16 {ms:.5f} ms, float32 "
+              f"{f32_ms:.5f} ms ({ms / f32_ms:.3f}x); max |err| vs float64 "
+              f"{errs[kernel]:.3e}", flush=True)
+
+
+def phase_amp_dedup(dev, host, f32_runs, cells):
+    """Phase 21: the dedup route under ``utils.amp``. (a) The bf16 K5, K6,
+    weighted K6 and K7/K8 cases (``phase_amp_dedup_cases``); (b) four
+    models under amp at their float32 phases' sizes, each's first amp loss
+    within ``AMP_LOSS_RTOL`` of its float32 step from the same weights,
+    then 3 warm-up and 20 timed steps asserting the bf16 launches a step
+    and no float32 launch (``amp_steps``): the headline GCN on K5 (cached
+    counts) and on K6 (a zero counts budget), FAGCN on the weighted K6
+    (and K1w's dw pass), the bench GAT on the additive K7/K8 and UniMP at
+    the reference's defaults (dropout 0.3, cell mode) on the dot K7/K8;
+    (c) the bf16 kernels at the path's shapes timed beside the float32
+    ones. ``f32_runs`` are the float32 runs of those models from phases 3,
+    6, 8 and 9 (the step ms the amp steps are printed beside), ``cells``
+    the headline layouts' nonzero cells (phase 4). Returns (the kernel
+    rows, the step line's entries)."""
+    import torch
+    t0 = time.perf_counter()
+    phase_amp_dedup_cases(dev)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+    rows, steps, runs = [], {}, {}
+
+    def amp(tag, g, trainer, per, ncls, f32):
+        steps[f"amp_{tag.replace(' ', '_')}"], runs[tag] = amp_steps(
+            tag, g, trainer, bf16_keys(per), ncls, f32_runs[f32])
+
+    g = headline_graph(True, host)
+    amp("GCN dedup", g, lambda g, b: headline_trainer(g, bf16=b),
+        {("dedup_cached", k, d): v for (k, d), v in PER_STEP.items()}, 16,
+        "GCN dedup")
+    bf16_dedup_rows(rows, g, dev, gen, runs["GCN dedup"], cells)
+    amp("FAGCN dedup", g, lambda g, b: fagcn_trainer(g, bf16=b),
+        FAGCN_DEDUP_PER_STEP, 16, "FAGCN dedup")
+    bf16_weighted_dedup_rows(rows, g, dev, gen, runs["FAGCN dedup"])
+    del g
+    torch.cuda.empty_cache()
+    g = headline_graph(True, host, COUNTS_BUDGET_BYTES=0)
+    amp("GCN dedup uncached", g, lambda g, b: headline_trainer(g, bf16=b),
+        {("dedup", k, d): v for (k, d), v in PER_STEP.items()}, 16,
+        "GCN dedup uncached")
+    bf16_dedup_rows(rows, g, dev, gen, runs["GCN dedup uncached"], cells)
+    del g
+    torch.cuda.empty_cache()
+
+    with dispatch_settings(DEDUP=True):
+        g = gat_host().tensor()
+    amp("GAT dedup", g, lambda g, b: gat_trainer(g, bf16=b),
+        dedup_gat_per_step(g), 16, "GAT dedup")
+    for shape in GAT_SHAPES:
+        bf16_dedup_attention_rows(rows, g, shape, 0.0, seed,
+                                  runs["GAT dedup"], dev, gen)
+    labels = np.random.default_rng(2).integers(0, 40, g.num_nodes)
+    amp("UniMP dedup", g,
+        lambda g, b: unimp_trainer(g, labels, mode="cell", bf16=b),
+        unimp_dedup_per_step(g), 40, "UniMP dedup cell")
+    bf16_dedup_attention_rows(rows, g, UNIMP_SHAPE, AMP_UNIMP_RATE, seed,
+                              runs["UniMP dedup"], dev, gen)
+    del g
+    reset_all_launches()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"[phase 21] {seconds:.1f} s", flush=True)
+    steps["phase21_s"] = seconds
+    return rows, steps
+
+
 # -- phase 19: the examples --------------------------------------------------
 
 # (script under examples_torch/, argv, the metric its main returns, the
@@ -9813,18 +10316,21 @@ def main():
 
     t_start = t0 = time.perf_counter()
     libs = _build.build("segment_kernels", "segment_kernels_bf16",
-                        "dedup_kernels", "attention_kernels",
-                        "attention_kernels_bf16", "dedup_attention",
+                        "dedup_kernels", "dedup_kernels_bf16",
+                        "attention_kernels", "attention_kernels_bf16",
+                        "dedup_attention", "dedup_attention_bf16",
                         "sddmm_kernels")
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
     for path in libs.values():
         print(path.with_suffix(".log").read_text().strip(), flush=True)
-    for line in apply_report(
-            libs["dedup_kernels"].with_suffix(".log").read_text()):
-        print(line, flush=True)
+    for name in ("dedup_kernels", "dedup_kernels_bf16"):
+        for line in apply_report(
+                libs[name].with_suffix(".log").read_text(),
+                bf16=name.endswith("_bf16")):
+            print(line, flush=True)
     for name in ("segment_kernels", "segment_kernels_bf16",
                  "attention_kernels", "attention_kernels_bf16",
-                 "dedup_attention"):
+                 "dedup_attention", "dedup_attention_bf16"):
         for line in register_report(
                 libs[name].with_suffix(".log").read_text()):
             print(line, flush=True)
@@ -9948,6 +10454,13 @@ def main():
     amp_rows, amp_steps_ = phase_amp_attention(dev, host)
     rows += amp_rows
     torch.cuda.empty_cache()
+    amp_dedup_rows, amp_dedup_steps = phase_amp_dedup(dev, host, {
+        "GCN dedup": train_d, "GCN dedup uncached": train_6,
+        "FAGCN dedup": weighted_steps["FAGCN_dedup"],
+        "GAT dedup": dedup_steps["GAT_dedup"],
+        "UniMP dedup cell": ddot_steps["UniMP_dedup_cell"]}, cells)
+    rows += amp_dedup_rows
+    torch.cuda.empty_cache()
     example_rows, example_steps = phase_examples(dev, smi)
     rows += example_rows
     torch.cuda.empty_cache()
@@ -9963,7 +10476,7 @@ def main():
         **weighted_steps, **sddmm_steps, **zoo_steps, **hetero_steps,
         **readout_steps, **sampling_steps, "out_of_core": out_of_core,
         **parallel_steps, **g4r_lines, **util_steps, **amp_steps_,
-        **example_steps, **serving_steps,
+        **amp_dedup_steps, **example_steps, **serving_steps,
         "seconds": time.perf_counter() - t_start, "device": smi}}),
         flush=True)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s",

@@ -360,8 +360,8 @@ class Graph:
         with dedup layouts runs the weighted K6. The weights take the
         feature's dtype there, so the feature alone decides: an integer,
         float16 or float64 CUDA feature (``dispatch.plain_on_cuda``) takes
-        the segment path, and a bf16 one runs K1w's bf16 instantiation (the
-        weighted K6 on a graph with dedup layouts has none and raises). Two
+        the segment path, and a bf16 one runs K1w's bf16 instantiation (on
+        a graph with dedup layouts the weighted K6's). Two
         departures from the reference's rule
         (``pgl_tpu/graph.py:358-419``), each the same function: no ``D %
         128`` gate or lane padding, and an ``[N, H, Dh]`` feature takes

@@ -11,13 +11,15 @@ every other dtype to the segment path) is :func:`plain_on_cuda` for
 integers, float16 and float64, which ``Graph`` and the layers read to
 route such a CUDA tensor to the plain path. Each wrapper names the dtypes
 its kernel takes and raises on any other: float32 and bf16 at K1
-(:func:`use_spmm_kernel`), K1w (:func:`use_weighted_spmm_kernel`) and the
-per-edge attention K9/K10 (:func:`use_attention_kernel`), whose bf16
+(:func:`use_spmm_kernel`), K1w (:func:`use_weighted_spmm_kernel`), the
+per-edge attention K9/K10 (:func:`use_attention_kernel`), the dedup SpMM
+K5/K6 (:func:`use_dedup_kernel`; K4 reads no feature) and the count-matrix
+attention K7/K8 (:func:`use_dedup_attention_kernel`), whose bf16
 instantiations load bf16 tables, compute in float32 and round each stored
-value once; float32 only at K4–K6 (:func:`use_dedup_kernel`), the
-count-matrix attention K7/K8 (:func:`use_dedup_attention_kernel`) and K11
-(:func:`use_sddmm_kernel`), so a bf16 tensor on the card raises there until
-those kernels have a bf16 instantiation. Nothing casts a bf16 tensor to
+value once; float32 only at K11 (:func:`use_sddmm_kernel`), whose reference
+kernel takes float32 alone (its float32 scratch,
+``pgl_tpu/ops/pallas/sddmm_kernels.py:397-398``, takes no bf16 rows), so a
+bf16 tensor on the card raises there. Nothing casts a bf16 tensor to
 float32 to reach a kernel. :func:`traced` tells a wrapper that
 ``torch.export`` or ``torch.compile`` is tracing it.
 
@@ -76,9 +78,9 @@ def plain_on_cuda(*tensors) -> bool:
     bool), float16 or float64. ``Graph`` and the layers then take the plain
     path (the segment path, the edge-space attention) with the tensors that
     the kernel wrappers would have received. A float32 or bf16 CUDA tensor
-    reaches the wrapper, which launches its kernel or (bf16 where the
-    kernel has no bf16 instantiation: K4–K8, K11) raises, and a CPU tensor
-    runs the wrapper's plain version."""
+    reaches the wrapper, which launches its kernel or (bf16 at K11, the one
+    kernel without a bf16 instantiation) raises, and a CPU tensor runs the
+    wrapper's plain version."""
     return any(t is not None and t.device.type == "cuda"
                and t.dtype not in (torch.float32, torch.bfloat16)
                for t in tensors)
@@ -116,9 +118,10 @@ def use_weighted_spmm_kernel(feature: torch.Tensor) -> bool:
 
 
 def use_dedup_kernel(feature: torch.Tensor) -> bool:
-    """True to launch the CUDA dedup SpMM (K5/K6, float32), False to run
-    its plain version; raises as :func:`use_spmm_kernel` does."""
-    return _use_kernel(feature, "dedup SpMM")
+    """True to launch the CUDA dedup SpMM (K5/K6, float32 or bf16), False
+    to run its plain version; raises as :func:`use_spmm_kernel` does."""
+    return _use_kernel(feature, "dedup SpMM",
+                       (torch.float32, torch.bfloat16))
 
 
 def fused_attention_graph(graph) -> bool:
@@ -139,15 +142,17 @@ def use_attention_kernel(tensor: torch.Tensor) -> bool:
 
 def use_dedup_attention_kernel(tensor: torch.Tensor) -> bool:
     """True to launch the CUDA count-matrix attention kernels (K7/K8,
-    float32), False to run their plain versions; raises as
+    float32 or bf16), False to run their plain versions; raises as
     :func:`use_spmm_kernel` does."""
-    return _use_kernel(tensor, "count-matrix attention")
+    return _use_kernel(tensor, "count-matrix attention",
+                       (torch.float32, torch.bfloat16))
 
 
 def use_sddmm_kernel(tensor: torch.Tensor) -> bool:
-    """True to launch the CUDA SDDMM (K11), False to run its plain version;
-    raises as :func:`use_spmm_kernel` does. The reference's other gate, the
-    TPU backend (``pgl_tpu/graph.py:458``), is the device here."""
+    """True to launch the CUDA SDDMM (K11, float32 only: the reference's
+    kernel raises on bf16), False to run its plain version; raises as
+    :func:`use_spmm_kernel` does. The reference's other gate, the TPU
+    backend (``pgl_tpu/graph.py:458``), is the device here."""
     return _use_kernel(tensor, "SDDMM")
 
 

@@ -34,7 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # library -> (source, extra flags)
 VARIANTS = {"segment_kernels_bf16": ("segment_kernels", ("-DPGL_BF16",)),
-            "attention_kernels_bf16": ("attention_kernels", ("-DPGL_BF16",))}
+            "attention_kernels_bf16": ("attention_kernels", ("-DPGL_BF16",)),
+            "dedup_kernels_bf16": ("dedup_kernels", ("-DPGL_BF16",)),
+            "dedup_attention_bf16": ("dedup_attention", ("-DPGL_BF16",))}
 
 _LOADED: dict = {}
 

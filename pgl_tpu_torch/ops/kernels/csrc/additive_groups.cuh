@@ -28,8 +28,8 @@
 // piece order (32 warps where the dot mode takes 16). No float atomics:
 // every run gives the same bits.
 //
-// On bf16 tables (T = __nv_bfloat16, K9 and K10 only; the cell form K7 is
-// float only) a 16-byte vector holds 8 bf16, widened to f32 as it is
+// On bf16 tables (T = __nv_bfloat16: K9, K10 and the cell form K7) a
+// 16-byte vector holds 8 bf16, widened to f32 as it is
 // loaded: at GAT's (8, 8) a head is one vector, a lane group 8 lanes and a
 // warp 4 edges at once (2 on float), at (1, 16) 16 (8). The online max and
 // sum, the exps, p and the products are f32 as on float; out and the
@@ -311,7 +311,6 @@ gat_fwd_groups(const T* __restrict__ a_dst, const T* __restrict__ a_src,
                const int* __restrict__ seed_p, int thresh, float inv_keep,
                T* __restrict__ out, float* __restrict__ lse,
                float* __restrict__ partials) {
-  static_assert(!CELLS || std::is_same_v<T, float>, "K7 is float only");
   constexpr int U = FwdUnroll<VEC, NV, CELLS>::value;
   const int C = H * dvh;
   if (static_cast<int>(blockIdx.x) >= w.item_blocks) {

@@ -88,6 +88,17 @@
 // row; K7 and the dot mode read it from the work lists' per-cell key
 // arrays. The softmax sum stays undropped.
 //
+// On bf16 tables (the `_bf16` entry points, the library
+// dedup_attention_bf16: this source built with -DPGL_BF16; the reference's
+// kernels take bf16 too, their out and dv in v's dtype, d a_dst and d
+// a_src in the scores', `:579`, `:713`, `:724`) every kernel above runs on
+// T = bf16: a table element is widened to f32 as it is loaded (the
+// additive lane groups by 16-byte vectors of 8 bf16, the dot kernels'
+// rows by plain loads into their f32 ring, `stage_row`), the scores, exps
+// and sums are f32 as on float, lse, delta and the partials stay f32, and
+// out, d a_dst, d a_src (dq, dk) and dv are each rounded once to bf16
+// when stored. The dropout keys are the cells', so the masks are float's.
+//
 // Calling convention: launches on the given stream, does not synchronise,
 // allocates nothing (the caller passes outputs and partials), and returns
 // cudaGetLastError(). `thresh` < 0 turns dropout off.
@@ -101,12 +112,12 @@ namespace {
 constexpr uint32_t kCellMul = 0x9E3779B1u;  // `_cell_idx`'s row multiplier
 
 // K8's row pass, one warp per piece of the row-ordered cells:
-// d a_dst[r, h] = sum_u ds.
-template <int NC, int U>
+// d a_dst[r, h] = sum_u ds. T: the tables' element type (float or bf16,
+// widened to f32 as loaded; d a_dst rounded once when stored).
+template <typename T, int NC, int U>
 __global__ void __launch_bounds__(kWarps * 32)
-dedup_attn_bwd_rows(const float* __restrict__ a_dst,
-                    const float* __restrict__ a_src,
-                    const float* __restrict__ v, const float* __restrict__ g,
+dedup_attn_bwd_rows(const T* __restrict__ a_dst, const T* __restrict__ a_src,
+                    const T* __restrict__ v, const T* __restrict__ g,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const int* __restrict__ cell_src,
@@ -115,7 +126,7 @@ dedup_attn_bwd_rows(const float* __restrict__ a_dst,
                     const int4* __restrict__ pieces, int n_pieces, int H,
                     int dvh, int dvh_p, float slope,
                     const int* __restrict__ seed_p, int thresh,
-                    float inv_keep, float* __restrict__ da_dst,
+                    float inv_keep, T* __restrict__ da_dst,
                     float* __restrict__ partials) {
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (warp >= n_pieces) return;
@@ -131,11 +142,11 @@ dedup_attn_bwd_rows(const float* __restrict__ a_dst,
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
     const size_t rh = static_cast<size_t>(pc.x) * H + sl.head[k];
-    ad[k] = __ldg(a_dst + rh);
+    ad[k] = ld_f(a_dst + rh);
     ls[k] = __ldg(lse + rh);
     dl[k] = __ldg(delta + rh);
     gr[k] = sl.col[k] >= 0
-                ? __ldg(g + static_cast<size_t>(pc.x) * C + sl.col[k])
+                ? ld_f(g + static_cast<size_t>(pc.x) * C + sl.col[k])
                 : 0.f;
     da[k] = 0.f;
   }
@@ -161,11 +172,11 @@ dedup_attn_bwd_rows(const float* __restrict__ a_dst,
         key[u] = row_key + static_cast<uint32_t>(__shfl_sync(kFull, mu, j & 31));
 #pragma unroll
         for (int k = 0; k < NC; ++k) {
-          as[u][k] = j < n ? __ldg(a_src + static_cast<size_t>(s) * H +
-                                   sl.head[k])
+          as[u][k] = j < n ? ld_f(a_src + static_cast<size_t>(s) * H +
+                                  sl.head[k])
                            : 0.f;
           vv[u][k] = (j < n && sl.col[k] >= 0)
-                         ? __ldg(v + static_cast<size_t>(s) * C + sl.col[k])
+                         ? ld_f(v + static_cast<size_t>(s) * C + sl.col[k])
                          : 0.f;
         }
       }
@@ -194,11 +205,25 @@ dedup_attn_bwd_rows(const float* __restrict__ a_dst,
     mu = nu;
     mc = nc;
   }
-  float* dst = pc.w < 0 ? da_dst + static_cast<size_t>(pc.x) * H
-                        : partials + static_cast<size_t>(pc.w) * H;
+  // a whole row stores d a_dst as T, a piece its f32 partial row: one
+  // pointer on float
+  if constexpr (std::is_same_v<T, float>) {
+    float* dst = pc.w < 0 ? da_dst + static_cast<size_t>(pc.x) * H
+                          : partials + static_cast<size_t>(pc.w) * H;
 #pragma unroll
-  for (int k = 0; k < NC; ++k)
-    if (sl.lead[k]) dst[sl.head[k]] = da[k];
+    for (int k = 0; k < NC; ++k)
+      if (sl.lead[k]) dst[sl.head[k]] = da[k];
+  } else if (pc.w < 0) {
+    T* dst = da_dst + static_cast<size_t>(pc.x) * H;
+#pragma unroll
+    for (int k = 0; k < NC; ++k)
+      if (sl.lead[k]) dst[sl.head[k]] = from_f<T>(da[k]);
+  } else {
+    float* dst = partials + static_cast<size_t>(pc.w) * H;
+#pragma unroll
+    for (int k = 0; k < NC; ++k)
+      if (sl.lead[k]) dst[sl.head[k]] = da[k];
+  }
 }
 
 // Cells in flight a lane group in K8's node walk: fewer than the row pass
@@ -220,12 +245,12 @@ struct NodeUnroll {
 // cells), or for a piece of a split node its partial row d a_src | dv.
 // Where one head group's H * dvh_p slots fit in half a warp (G = 2: at
 // (H, dvh) = (1, 16) the other half would idle), the two halves take
-// alternate cells and are summed by one shuffle at the end.
-template <int NC, int U, int G>
+// alternate cells and are summed by one shuffle at the end. T as the row
+// pass's.
+template <typename T, int NC, int U, int G>
 __global__ void __launch_bounds__(kWarps * 32)
-dedup_attn_bwd_nodes(const float* __restrict__ a_dst,
-                     const float* __restrict__ a_src,
-                     const float* __restrict__ v, const float* __restrict__ g,
+dedup_attn_bwd_nodes(const T* __restrict__ a_dst, const T* __restrict__ a_src,
+                     const T* __restrict__ v, const T* __restrict__ g,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      const int* __restrict__ node_dst,
@@ -234,8 +259,8 @@ dedup_attn_bwd_nodes(const float* __restrict__ a_dst,
                      const int4* __restrict__ pieces, int n_pieces, int H,
                      int dvh, int dvh_p, float slope,
                      const int* __restrict__ seed_p, int thresh,
-                     float inv_keep, float* __restrict__ dsrc,
-                     float* __restrict__ dv, float* __restrict__ partials) {
+                     float inv_keep, T* __restrict__ dsrc,
+                     T* __restrict__ dv, float* __restrict__ partials) {
   static_assert(G == 1 || NC == 1, "lane groups hold one slot a lane");
   constexpr int GW = 32 / G;  // lanes of a group
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -251,9 +276,9 @@ dedup_attn_bwd_nodes(const float* __restrict__ a_dst,
   float as[NC], vs[NC], da[NC], dva[NC];
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
-    as[k] = __ldg(a_src + static_cast<size_t>(pc.x) * H + sl.head[k]);
+    as[k] = ld_f(a_src + static_cast<size_t>(pc.x) * H + sl.head[k]);
     vs[k] = sl.col[k] >= 0
-                ? __ldg(v + static_cast<size_t>(pc.x) * C + sl.col[k])
+                ? ld_f(v + static_cast<size_t>(pc.x) * C + sl.col[k])
                 : 0.f;
     da[k] = 0.f;
     dva[k] = 0.f;
@@ -285,11 +310,11 @@ dedup_attn_bwd_nodes(const float* __restrict__ a_dst,
 #pragma unroll
         for (int k = 0; k < NC; ++k) {
           const size_t dh = static_cast<size_t>(d) * H + sl.head[k];
-          ad[u][k] = live ? __ldg(a_dst + dh) : 0.f;
+          ad[u][k] = live ? ld_f(a_dst + dh) : 0.f;
           ls[u][k] = live ? __ldg(lse + dh) : 0.f;
           dl[u][k] = live ? __ldg(delta + dh) : 0.f;
           gd[u][k] = (live && sl.col[k] >= 0)
-                         ? __ldg(g + static_cast<size_t>(d) * C + sl.col[k])
+                         ? ld_f(g + static_cast<size_t>(d) * C + sl.col[k])
                          : 0.f;
         }
       }
@@ -327,77 +352,68 @@ dedup_attn_bwd_nodes(const float* __restrict__ a_dst,
       }
     if (grp != 0) return;
   }
-  // partial row: d a_src [H] | dv [C] (summed by sum_combine)
+  // partial row: d a_src [H] | dv [C] (summed by sum_combine); a whole
+  // node stores as T, as the row pass
   float* part = partials + static_cast<size_t>(max(pc.w, 0)) * (H + C);
-  float* ds_row = pc.w < 0 ? dsrc + static_cast<size_t>(pc.x) * H : part;
-  float* dv_row = pc.w < 0 ? dv + static_cast<size_t>(pc.x) * C : part + H;
+  if constexpr (std::is_same_v<T, float>) {
+    float* ds_row = pc.w < 0 ? dsrc + static_cast<size_t>(pc.x) * H : part;
+    float* dv_row = pc.w < 0 ? dv + static_cast<size_t>(pc.x) * C : part + H;
 #pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    if (sl.lead[k]) ds_row[sl.head[k]] = da[k];
-    if (sl.col[k] >= 0) dv_row[sl.col[k]] = dva[k];
+    for (int k = 0; k < NC; ++k) {
+      if (sl.lead[k]) ds_row[sl.head[k]] = da[k];
+      if (sl.col[k] >= 0) dv_row[sl.col[k]] = dva[k];
+    }
+  } else if (pc.w < 0) {
+    T* ds_row = dsrc + static_cast<size_t>(pc.x) * H;
+    T* dv_row = dv + static_cast<size_t>(pc.x) * C;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      if (sl.lead[k]) ds_row[sl.head[k]] = from_f<T>(da[k]);
+      if (sl.col[k] >= 0) dv_row[sl.col[k]] = from_f<T>(dva[k]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      if (sl.lead[k]) part[sl.head[k]] = da[k];
+      if (sl.col[k] >= 0) part[H + sl.col[k]] = dva[k];
+    }
   }
 }
 
-}  // namespace
-
-// K7: out [N, H * dvh] and lse [N, H] over the cells in row order (node,
-// count, key) and their work list (`dedup_attention.build_dedup_attention`:
-// `attention_kernels.k10_work_list` over the rows' cells); partials
-// [n_partials, C + 2H] of the split rows merged by a second launch.
-extern "C" int pgl_dedup_attn_fwd_f32(
-    int device, const float* a_dst, const float* a_src, const float* v,
-    const int* cell_src, const int* cell_cnt, const int* cell_key,
-    const int* items, int n_long, int n_short, const int* empty,
-    int n_empty, const int* split_rows, const int* split_ptr, int n_split,
-    int H, int dvh, int vec, int lh, int group, int nv, float slope,
-    const int* seed, int thresh, float inv_keep, float* out, float* lse,
-    float* partials, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return fwd_groups_run<true>(
-      a_dst, a_src, v, cell_src, cell_cnt, cell_key, items, n_long, n_short,
-      empty, n_empty, split_rows, split_ptr, n_split, H, dvh, vec, lh, group,
-      nv, slope, seed, thresh, inv_keep, out, lse, partials,
-      static_cast<cudaStream_t>(stream));
-}
-
-// K8: d a_dst [N, H] (row pass over the cells in row order; partials
-// [n_partials, H] summed by a second launch), then d a_src [N, H] and dv
-// [N, H * dvh] (node walk over the cells in node order: row, count, key;
-// node_partials [n_node_partials, H + H * dvh] summed by a second launch).
-extern "C" int pgl_dedup_attn_bwd_f32(
-    int device, const float* a_dst, const float* a_src, const float* v,
-    const float* g, const float* lse, const float* delta,
-    const int* cell_src, const int* cell_urow, const int* cell_cnt,
-    const int* pieces, int n_pieces, const int* split_rows,
-    const int* split_ptr, int n_split, const int* node_dst,
-    const int* node_cnt, const int* node_key, const int* node_pieces,
-    int n_node_pieces, const int* node_split_rows, const int* node_split_ptr,
-    int n_node_split, int H, int dvh, float slope, const int* seed,
-    int thresh, float inv_keep, float* da_dst, float* dsrc, float* dv,
-    float* partials, float* node_partials, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// K8 additive: the row pass and the node walk, then the sums of split rows
+// and split nodes.
+template <typename T>
+int attn_bwd_run(const T* a_dst, const T* a_src, const T* v, const T* g,
+                 const float* lse, const float* delta, const int* cell_src,
+                 const int* cell_urow, const int* cell_cnt,
+                 const int* pieces, int n_pieces, const int* split_rows,
+                 const int* split_ptr, int n_split, const int* node_dst,
+                 const int* node_cnt, const int* node_key,
+                 const int* node_pieces, int n_node_pieces,
+                 const int* node_split_rows, const int* node_split_ptr,
+                 int n_node_split, int H, int dvh, float slope,
+                 const int* seed, int thresh, float inv_keep, T* da_dst,
+                 T* dsrc, T* dv, float* partials, float* node_partials,
+                 cudaStream_t s) {
   const int dvh_p = pow2_at_least(dvh);
   const int nc = slots_per_lane(H, dvh_p);
   if (nc == 0 || H <= 0 || dvh <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
   const auto* pc = reinterpret_cast<const int4*>(pieces);
   const auto* npc = reinterpret_cast<const int4*>(node_pieces);
   // lane groups a warp in the node walk: two where a head group fits in 16
   const bool halves = H * dvh_p <= 16;
   PGL_NC_SWITCH(nc, {
     if (n_pieces > 0)
-      dedup_attn_bwd_rows<NC, unroll_for(NC)><<<blocks_for(n_pieces),
-                                                kWarps * 32, 0, s>>>(
+      dedup_attn_bwd_rows<T, NC, unroll_for(NC)><<<blocks_for(n_pieces),
+                                                   kWarps * 32, 0, s>>>(
           a_dst, a_src, v, g, lse, delta, cell_src, cell_urow, cell_cnt, pc,
           n_pieces, H, dvh, dvh_p, slope, seed, thresh, inv_keep, da_dst,
           partials);
     if (n_node_pieces > 0) {
       if constexpr (NC == 1) {
         if (halves) {
-          dedup_attn_bwd_nodes<NC, NodeUnroll<NC, 2>::value, 2>
+          dedup_attn_bwd_nodes<T, NC, NodeUnroll<NC, 2>::value, 2>
               <<<blocks_for(n_node_pieces), kWarps * 32, 0, s>>>(
                   a_dst, a_src, v, g, lse, delta, node_dst, node_cnt,
                   node_key, npc, n_node_pieces, H, dvh, dvh_p, slope, seed,
@@ -405,7 +421,7 @@ extern "C" int pgl_dedup_attn_bwd_f32(
         }
       }
       if (!(NC == 1 && halves))
-        dedup_attn_bwd_nodes<NC, NodeUnroll<NC, 1>::value, 1>
+        dedup_attn_bwd_nodes<T, NC, NodeUnroll<NC, 1>::value, 1>
             <<<blocks_for(n_node_pieces), kWarps * 32, 0, s>>>(
                 a_dst, a_src, v, g, lse, delta, node_dst, node_cnt, node_key,
                 npc, n_node_pieces, H, dvh, dvh_p, slope, seed, thresh,
@@ -413,60 +429,144 @@ extern "C" int pgl_dedup_attn_bwd_f32(
     }
   })
   if (n_pieces > 0 && n_split > 0)
-    sum_combine<float><<<n_split, kSumWarps * 32, 0, s>>>(
+    sum_combine<T><<<n_split, kSumWarps * 32, 0, s>>>(
         partials, split_rows, split_ptr, H, 0, da_dst, nullptr);
   if (n_node_pieces > 0 && n_node_split > 0)
-    sum_combine<float><<<n_node_split, kSumWarps * 32, 0, s>>>(
+    sum_combine<T><<<n_node_split, kSumWarps * 32, 0, s>>>(
         node_partials, node_split_rows, node_split_ptr, H, H * dvh, dsrc,
         dv);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// Each entry point sets the device and launches its pass's kernels on
+// `stream`: the _f32 ones on float tables, the _bf16 ones on bf16 tables
+// (passed as raw 16-bit words; lse, delta and partials f32 either way).
+#define PGL_ON_DEVICE(device)                               \
+  do {                                                      \
+    const cudaError_t err_ = cudaSetDevice(device);         \
+    if (err_ != cudaSuccess) return static_cast<int>(err_); \
+  } while (0)
+
+// K7: out [N, H * dvh] and lse [N, H] over the cells in row order (node,
+// count, key) and their work list (`dedup_attention.build_dedup_attention`:
+// `attention_kernels.k10_work_list` over the rows' cells); partials
+// [n_partials, C + 2H] of the split rows merged by a second launch.
+#define PGL_DEDUP_ATTN_FWD(NAME, T, P)                                       \
+  extern "C" int NAME(int device, const P* a_dst, const P* a_src,           \
+                      const P* v, const int* cell_src, const int* cell_cnt, \
+                      const int* cell_key, const int* items, int n_long,     \
+                      int n_short, const int* empty, int n_empty,            \
+                      const int* split_rows, const int* split_ptr,           \
+                      int n_split, int H, int dvh, int vec, int lh,          \
+                      int group, int nv, float slope, const int* seed,       \
+                      int thresh, float inv_keep, P* out, float* lse,        \
+                      float* partials, void* stream) {                       \
+    PGL_ON_DEVICE(device);                                                   \
+    return fwd_groups_run<true>(                                             \
+        static_cast<const T*>(a_dst), static_cast<const T*>(a_src),          \
+        static_cast<const T*>(v), cell_src, cell_cnt, cell_key, items,       \
+        n_long, n_short, empty, n_empty, split_rows, split_ptr, n_split, H,  \
+        dvh, vec, lh, group, nv, slope, seed, thresh, inv_keep,              \
+        static_cast<T*>(out), lse, partials,                                 \
+        static_cast<cudaStream_t>(stream));                                  \
+  }
+
+// K8: d a_dst [N, H] (row pass over the cells in row order; partials
+// [n_partials, H] summed by a second launch), then d a_src [N, H] and dv
+// [N, H * dvh] (node walk over the cells in node order: row, count, key;
+// node_partials [n_node_partials, H + H * dvh] summed by a second launch).
+#define PGL_DEDUP_ATTN_BWD(NAME, T, P)                                       \
+  extern "C" int NAME(                                                       \
+      int device, const P* a_dst, const P* a_src, const P* v, const P* g,    \
+      const float* lse, const float* delta, const int* cell_src,             \
+      const int* cell_urow, const int* cell_cnt, const int* pieces,          \
+      int n_pieces, const int* split_rows, const int* split_ptr,             \
+      int n_split, const int* node_dst, const int* node_cnt,                 \
+      const int* node_key, const int* node_pieces, int n_node_pieces,        \
+      const int* node_split_rows, const int* node_split_ptr,                 \
+      int n_node_split, int H, int dvh, float slope, const int* seed,        \
+      int thresh, float inv_keep, P* da_dst, P* dsrc, P* dv,                 \
+      float* partials, float* node_partials, void* stream) {                 \
+    PGL_ON_DEVICE(device);                                                   \
+    return attn_bwd_run(                                                     \
+        static_cast<const T*>(a_dst), static_cast<const T*>(a_src),          \
+        static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,      \
+        cell_src, cell_urow, cell_cnt, pieces, n_pieces, split_rows,         \
+        split_ptr, n_split, node_dst, node_cnt, node_key, node_pieces,       \
+        n_node_pieces, node_split_rows, node_split_ptr, n_node_split, H,     \
+        dvh, slope, seed, thresh, inv_keep, static_cast<T*>(da_dst),         \
+        static_cast<T*>(dsrc), static_cast<T*>(dv), partials, node_partials, \
+        static_cast<cudaStream_t>(stream));                                  \
+  }
+
 // Dot-mode K7: out [N, H * dvh] and lse [N, H] from q, k [N, H * dsh] and v
 // [N, H * dvh]; the cells in row order (node, count, key); partials
 // [n_partials, H * dvh + 2H].
-extern "C" int pgl_dedup_dot_fwd_f32(
-    int device, const float* q, const float* k, const float* v,
-    const int* cell_src, const int* cell_cnt, const int* cell_key,
-    const int* pieces, int n_pieces, const int* split_rows,
-    const int* split_ptr, int n_split, int H, int dsh, int dvh, float slope,
-    const int* seed, int thresh, float inv_keep, float* out, float* lse,
-    float* partials, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return dot_fwd_run<true>(q, k, v, cell_src, cell_cnt, cell_key, pieces,
-                           n_pieces, split_rows, split_ptr, n_split, H, dsh,
-                           dvh, slope, seed, thresh, inv_keep, out, lse,
-                           partials, static_cast<cudaStream_t>(stream));
-}
+#define PGL_DEDUP_DOT_FWD(NAME, T, P)                                        \
+  extern "C" int NAME(int device, const P* q, const P* k, const P* v,       \
+                      const int* cell_src, const int* cell_cnt,              \
+                      const int* cell_key, const int* pieces, int n_pieces,  \
+                      const int* split_rows, const int* split_ptr,           \
+                      int n_split, int H, int dsh, int dvh, float slope,     \
+                      const int* seed, int thresh, float inv_keep, P* out,   \
+                      float* lse, float* partials, void* stream) {           \
+    PGL_ON_DEVICE(device);                                                   \
+    return dot_fwd_run<true>(                                                \
+        static_cast<const T*>(q), static_cast<const T*>(k),                  \
+        static_cast<const T*>(v), cell_src, cell_cnt, cell_key, pieces,      \
+        n_pieces, split_rows, split_ptr, n_split, H, dsh, dvh, slope, seed,  \
+        thresh, inv_keep, static_cast<T*>(out), lse, partials,               \
+        static_cast<cudaStream_t>(stream));                                  \
+  }
 
 // Dot-mode K8: dq [N, H * dsh] (row pass over the cells in row order;
 // partials [n_partials, H * dsh] summed by a second launch), then dk
 // [N, H * dsh] and dv [N, H * dvh] (node walk over the cells in node order:
 // destination, count, key; node_partials [n_node_partials, H * (dsh + dvh)]
 // summed by a second launch).
-extern "C" int pgl_dedup_dot_bwd_f32(
-    int device, const float* q, const float* k, const float* v,
-    const float* g, const float* lse, const float* delta,
-    const int* cell_src, const int* cell_cnt, const int* cell_key,
-    const int* pieces, int n_pieces, const int* split_rows,
-    const int* split_ptr, int n_split, const int* node_dst,
-    const int* node_cnt, const int* node_key, const int* node_pieces,
-    int n_node_pieces, const int* node_split_rows, const int* node_split_ptr,
-    int n_node_split, int H, int dsh, int dvh, float slope, const int* seed,
-    int thresh, float inv_keep, float* dq, float* dk, float* dv,
-    float* partials, float* node_partials, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int rc = dot_dq_run<true>(
-      q, k, v, g, lse, delta, cell_src, cell_cnt, cell_key, pieces, n_pieces,
-      split_rows, split_ptr, n_split, H, dsh, dvh, slope, seed, thresh,
-      inv_keep, dq, partials, s);
-  if (rc != 0) return rc;
-  return dot_dkv_run<true>(
-      q, k, v, g, lse, delta, node_dst, nullptr, node_cnt, node_key,
-      node_pieces, n_node_pieces, node_split_rows, node_split_ptr,
-      n_node_split, H, dsh, dvh, slope, seed, thresh, inv_keep, dk, dv,
-      node_partials, s);
-}
+#define PGL_DEDUP_DOT_BWD(NAME, T, P)                                        \
+  extern "C" int NAME(                                                       \
+      int device, const P* q, const P* k, const P* v, const P* g,            \
+      const float* lse, const float* delta, const int* cell_src,             \
+      const int* cell_cnt, const int* cell_key, const int* pieces,           \
+      int n_pieces, const int* split_rows, const int* split_ptr,             \
+      int n_split, const int* node_dst, const int* node_cnt,                 \
+      const int* node_key, const int* node_pieces, int n_node_pieces,        \
+      const int* node_split_rows, const int* node_split_ptr,                 \
+      int n_node_split, int H, int dsh, int dvh, float slope,                \
+      const int* seed, int thresh, float inv_keep, P* dq, P* dk, P* dv,      \
+      float* partials, float* node_partials, void* stream) {                 \
+    PGL_ON_DEVICE(device);                                                   \
+    const auto s = static_cast<cudaStream_t>(stream);                        \
+    const int rc = dot_dq_run<true>(                                         \
+        static_cast<const T*>(q), static_cast<const T*>(k),                  \
+        static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,      \
+        cell_src, cell_cnt, cell_key, pieces, n_pieces, split_rows,          \
+        split_ptr, n_split, H, dsh, dvh, slope, seed, thresh, inv_keep,      \
+        static_cast<T*>(dq), partials, s);                                   \
+    if (rc != 0) return rc;                                                  \
+    return dot_dkv_run<true>(                                                \
+        static_cast<const T*>(q), static_cast<const T*>(k),                  \
+        static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,      \
+        node_dst, nullptr, node_cnt, node_key, node_pieces, n_node_pieces,   \
+        node_split_rows, node_split_ptr, n_node_split, H, dsh, dvh, slope,   \
+        seed, thresh, inv_keep, static_cast<T*>(dk), static_cast<T*>(dv),    \
+        node_partials, s);                                                   \
+  }
+
+// The float32 entry points, or (built with -DPGL_BF16, the library
+// dedup_attention_bf16) the bf16 ones: each half instantiates only its
+// element type, so the two build in parallel.
+#ifndef PGL_BF16
+PGL_DEDUP_ATTN_FWD(pgl_dedup_attn_fwd_f32, float, float)
+PGL_DEDUP_ATTN_BWD(pgl_dedup_attn_bwd_f32, float, float)
+PGL_DEDUP_DOT_FWD(pgl_dedup_dot_fwd_f32, float, float)
+PGL_DEDUP_DOT_BWD(pgl_dedup_dot_bwd_f32, float, float)
+#else
+PGL_DEDUP_ATTN_FWD(pgl_dedup_attn_fwd_bf16, __nv_bfloat16, void)
+PGL_DEDUP_ATTN_BWD(pgl_dedup_attn_bwd_bf16, __nv_bfloat16, void)
+PGL_DEDUP_DOT_FWD(pgl_dedup_dot_fwd_bf16, __nv_bfloat16, void)
+PGL_DEDUP_DOT_BWD(pgl_dedup_dot_bwd_bf16, __nv_bfloat16, void)
+#endif  // PGL_BF16

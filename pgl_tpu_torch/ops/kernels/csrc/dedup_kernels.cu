@@ -70,9 +70,31 @@
 //   * a window that runs past its block's unique run reads the next
 //     block's rows (or the uv tail), whose counts are 0.
 //
+// On bf16 tables (`pgl_dedup_apply_bf16`, the library dedup_kernels_bf16:
+// this source built with -DPGL_BF16; K5, K6 and the weighted K6, which
+// replace the same TPU kernels on bf16, whose output takes the table's
+// dtype, `:674`, `:759`) a bf16 row is its own hi plane: mid and lo are
+// zero. So `dedup_apply_bf16` stages the gathered bf16 rows as they are,
+// by cp.async 16 bytes (8 columns) a thread, straight into the plane the
+// MMAs read (two stages' planes, the one in flight and the one read), with
+// no float staging buffer and no split, and runs one m16n8k16 MMA a tile
+// on bf16 C (exact counts up to 256); where C is float (the weighted form,
+// or counts above 256) A keeps its split, three products A_lo*B, A_mid*B,
+// A_hi*B, each exact. The window takes 20 KB of shared memory where the
+// float32 kernel's takes 46 KB (at 32 columns a stage), and a tile one MMA
+// where it takes three (three where it takes six, on float C). What bounds
+// it is still bytes, now with bf16 rows: half the window gather and half
+// the output of the float32 kernel. The sums are f32; each stored value is
+// rounded once to bf16 (nearest even): a block of one group stores its
+// rows rounded, a split block's groups store f32 partials that the combine
+// sums in group order and rounds. So that the accumulators hold a row's
+// whole sum, a launch covers at most one 128-column tile: wider D runs one
+// launch a tile (K5 reloads, K6 rebuilds C in each), never a running sum
+// of rounded tiles in memory.
+//
 // Calling convention: launches on the given stream, does not synchronise,
 // allocates nothing (the caller passes `out` [n_pad, D] and `partials`
-// [n_partials*256, D]), and returns cudaGetLastError().
+// [n_partials*256, D], f32 either way), and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -218,6 +240,18 @@ __device__ __forceinline__ void split3x2(float2 v, uint32_t& hi, uint32_t& mid,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// a weight as f32
+__device__ __forceinline__ float ld_w(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_w(const bf16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// an f32 value stored as float, or as bf16 rounded once to nearest even
+__device__ __forceinline__ void st_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_as(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // K6: C_p [256][128]: each cell its edge count, or the float32 sum in
 // edge order of its edges' weights w[edge_id[e]]; bf16 (counts up to 256,
 // exact) or float (FA). A cell's edges are contiguous in the layout, so no
@@ -228,12 +262,12 @@ __device__ __forceinline__ void split3x2(float2 v, uint32_t& hi, uint32_t& mid,
 // chunk. Ends with a barrier.
 constexpr int kBuildChunk = 4 * kApplyThreads;
 
-template <int MODE, bool FA>
+template <int MODE, bool FA, typename TW>
 __device__ __forceinline__ void build_c(void* c, int4 pr,
                                         const int* __restrict__ dst,
                                         const int* __restrict__ urow,
                                         const int* __restrict__ edge_id,
-                                        const float* __restrict__ w,
+                                        const TW* __restrict__ w,
                                         void* scratch) {
   constexpr int kBytes = kNB * kW * (FA ? 4 : 2);
   uint4* z = static_cast<uint4*>(c);
@@ -259,7 +293,7 @@ __device__ __forceinline__ void build_c(void* c, int4 pr,
       if (e < pr.w) {  // the pair's edges all lie in its block and window
         const int r = __ldg(dst + e) - row0;
         const int u = __ldg(urow + e) - pr.y;
-        if constexpr (MODE == kWeighted) vv[k] = __ldg(w + __ldg(edge_id + e));
+        if constexpr (MODE == kWeighted) vv[k] = ld_w(w + __ldg(edge_id + e));
         kk[k] = FA ? cf_at(r, u) : cb_at(r, u);
       }
     }
@@ -353,28 +387,32 @@ __device__ __forceinline__ int load_a(uint32_t (&a)[FA ? 3 : 1][4],
 }
 
 // Product i of a tile: A plane pa(i) times B plane pb(i) (0 hi, 1 mid,
-// 2 lo), smallest first.
-template <bool FA>
+// 2 lo), smallest first; BP B planes (3 of a split float row, 1 of a bf16
+// row, its own hi plane).
+template <bool FA, int BP>
 __host__ __device__ constexpr int pa(int i) {
-  return FA ? (i == 0 ? 2 : i == 1 || i == 3 ? 1 : 0) : 0;
+  return !FA ? 0 : BP == 1 ? 2 - i : (i == 0 ? 2 : i == 1 || i == 3 ? 1 : 0);
 }
-template <bool FA>
+template <bool FA, int BP>
 __host__ __device__ constexpr int pb(int i) {
-  return FA ? (i == 0 || i == 3 ? 0 : i == 1 || i == 4 ? 1 : i == 2 ? 2 : 0)
-            : 2 - i;
+  return BP == 1 ? 0
+         : FA ? (i == 0 || i == 3 ? 0 : i == 1 || i == 4 ? 1 : i == 2 ? 2 : 0)
+              : 2 - i;
 }
 
 // This warp's MMAs for one stage: its 16 rows of C times the stage's CW
-// columns of B (three planes, `planes`), into the accumulators of column
+// columns of B (BP planes, `planes`), into the accumulators of column
 // chunk J of the tile. A k-step whose 16x16 tile of C is zero is skipped;
 // one with a single nonzero 16x8 half runs m16n8k8 on that half only.
 // The products go in a fixed order, smallest first.
-template <bool FA, int DT, int CW, int PS, int J>
+template <bool FA, int BP, int DT, int CW, int PS, int J>
 __device__ __forceinline__ void mma_stage(float (&acc)[DT / 8][4],
                                           const void* c, const bf16* planes,
                                           int warp, int lane) {
   constexpr int NT = CW / 8;  // n-tiles of the stage, acc[J * NT + n]
-  constexpr int NP = FA ? 6 : 3;  // products a tile
+  // products a tile: six of split float C by three B planes, three of
+  // bf16 C by them; three of split float C by one plane, one of bf16 C
+  constexpr int NP = BP == 3 ? (FA ? 6 : 3) : (FA ? 3 : 1);
 #pragma unroll
   for (int ks = 0; ks < kW / 16; ++ks) {
     uint32_t a[FA ? 3 : 1][4];
@@ -382,25 +420,25 @@ __device__ __forceinline__ void mma_stage(float (&acc)[DT / 8][4],
     if (m == 3) {
 #pragma unroll
       for (int nn = 0; nn < NT / 2; ++nn) {
-        uint32_t b[3][4];  // regs {0,1} n-tile 2nn, {2,3} 2nn + 1
+        uint32_t b[BP][4];  // regs {0,1} n-tile 2nn, {2,3} 2nn + 1
 #pragma unroll
-        for (int q = 0; q < 3; ++q)
+        for (int q = 0; q < BP; ++q)
           ldsm_x4_t(b[q], planes + q * kW * PS + (ks * 16 + (lane & 15)) * PS +
                               nn * 16 + (lane >> 4) * 8);
 #pragma unroll
         for (int i = 0; i < NP; ++i) {
-          mma_bf16(acc[J * NT + 2 * nn], a[pa<FA>(i)], b[pb<FA>(i)][0],
-                   b[pb<FA>(i)][1]);
-          mma_bf16(acc[J * NT + 2 * nn + 1], a[pa<FA>(i)], b[pb<FA>(i)][2],
-                   b[pb<FA>(i)][3]);
+          mma_bf16(acc[J * NT + 2 * nn], a[pa<FA, BP>(i)],
+                   b[pb<FA, BP>(i)][0], b[pb<FA, BP>(i)][1]);
+          mma_bf16(acc[J * NT + 2 * nn + 1], a[pa<FA, BP>(i)],
+                   b[pb<FA, BP>(i)][2], b[pb<FA, BP>(i)][3]);
         }
       }
     } else if (m != 0) {
       const int kh = m == 1 ? 0 : 1;  // the nonzero 16x8 half
       // B rows ks*16 + 8kh .. +7 of all NT n-tiles, one register each
-      uint32_t b[3][NT];
+      uint32_t b[BP][NT];
 #pragma unroll
-      for (int q = 0; q < 3; ++q) {
+      for (int q = 0; q < BP; ++q) {
         const bf16* bp = planes + q * kW * PS +
                          (ks * 16 + 8 * kh + (lane & 7)) * PS + (lane >> 3) * 8;
         if constexpr (NT == 4) {
@@ -411,11 +449,11 @@ __device__ __forceinline__ void mma_stage(float (&acc)[DT / 8][4],
       }
 #pragma unroll
       for (int i = 0; i < NP; ++i) {
-        const uint32_t* ai = a[pa<FA>(i)];
+        const uint32_t* ai = a[pa<FA, BP>(i)];
         const uint32_t a0 = kh ? ai[2] : ai[0], a1 = kh ? ai[3] : ai[1];
 #pragma unroll
         for (int n = 0; n < NT; ++n)
-          mma_k8(acc[J * NT + n], a0, a1, b[pb<FA>(i)][n]);
+          mma_k8(acc[J * NT + n], a0, a1, b[pb<FA, BP>(i)][n]);
       }
     }
   }
@@ -590,8 +628,8 @@ dedup_apply(const float* __restrict__ x, const int* __restrict__ uv,
     const void* cs = cbuf + (q % NCB) * kCOne;
     if constexpr (MODE != kCached) {
       if (rem == 0)
-        build_c<MODE, FA>(cbuf, pairs[gr.y + q], dst, urow, edge_id, w,
-                          planes);
+        build_c<MODE, FA, float>(cbuf, pairs[gr.y + q], dst, urow, edge_id,
+                                 w, planes);
     }
     cp_async_wait_all();  // stage s's rows (and C)
     __syncthreads();
@@ -613,20 +651,20 @@ dedup_apply(const float* __restrict__ x, const int* __restrict__ uv,
     issue(s + 1, wb_next);
     if constexpr (CPT == 4) {
       if (j == 0)
-        mma_stage<FA, DT, CW, PS, 0>(acc, cs, planes, warp, lane);
+        mma_stage<FA, 3, DT, CW, PS, 0>(acc, cs, planes, warp, lane);
       else if (j == 1)
-        mma_stage<FA, DT, CW, PS, 1>(acc, cs, planes, warp, lane);
+        mma_stage<FA, 3, DT, CW, PS, 1>(acc, cs, planes, warp, lane);
       else if (j == 2)
-        mma_stage<FA, DT, CW, PS, 2>(acc, cs, planes, warp, lane);
+        mma_stage<FA, 3, DT, CW, PS, 2>(acc, cs, planes, warp, lane);
       else
-        mma_stage<FA, DT, CW, PS, 3>(acc, cs, planes, warp, lane);
+        mma_stage<FA, 3, DT, CW, PS, 3>(acc, cs, planes, warp, lane);
     } else if constexpr (CPT == 2) {
       if (j == 0)
-        mma_stage<FA, DT, CW, PS, 0>(acc, cs, planes, warp, lane);
+        mma_stage<FA, 3, DT, CW, PS, 0>(acc, cs, planes, warp, lane);
       else
-        mma_stage<FA, DT, CW, PS, 1>(acc, cs, planes, warp, lane);
+        mma_stage<FA, 3, DT, CW, PS, 1>(acc, cs, planes, warp, lane);
     } else {
-      mma_stage<FA, DT, CW, PS, 0>(acc, cs, planes, warp, lane);
+      mma_stage<FA, 3, DT, CW, PS, 0>(acc, cs, planes, warp, lane);
     }
     if (n_tiles > 1 && j == CPT - 1) {
       flush_tile(rem / CPT, q == 0);
@@ -640,14 +678,233 @@ dedup_apply(const float* __restrict__ x, const int* __restrict__ uv,
   if (n_tiles == 1) flush_rows();
 }
 
+// What a block of the bf16 apply keeps in shared memory: C as the float32
+// kernel's; two stages' window rows as they were gathered (bf16, each its
+// own B plane: the stage in flight and the one the MMAs read); the row id
+// ring; K6's build scratch (the float32 kernel borrows its planes' space
+// for it, which two bf16 stages do not always hold).
+template <int MODE, bool FA, int DT>
+struct ApplyShapeB {
+  static constexpr int CW = DT < 32 ? DT : 32;  // columns a stage gathers
+  static constexpr int CPT = DT / CW;           // stages a column tile
+  static constexpr int PS = CW + 8;             // plane row stride (bf16)
+  static constexpr int NCB = MODE == kCached ? 2 : 1;
+  static constexpr size_t kCBytes = size_t{NCB} * kNB * kW * (FA ? 4 : 2);
+  static constexpr size_t kPlaneBytes = sizeof(bf16) * 2 * kW * PS;
+  static constexpr size_t kIdBytes = sizeof(int) * 2 * kW;
+  static constexpr size_t kScratchBytes =
+      MODE == kCached ? 0 : 8 * kBuildChunk;
+  static constexpr size_t kPartBytes =
+      kCBytes + kPlaneBytes + kIdBytes + kScratchBytes;
+  static constexpr size_t kFlushBytes = sizeof(float) * kNB * (DT + 8);
+  static constexpr size_t kSmem =
+      kPartBytes > kFlushBytes ? kPartBytes : kFlushBytes;
+};
+
+// K5 and K6 on bf16 tables, over the columns [c0, c0 + DT) of x (at most
+// one column tile a launch, so the accumulators hold each row's whole sum
+// over the group's pairs): the float32 kernel's pairs, groups, C and MMAs,
+// but stage s's window rows arrive by cp.async as bf16 straight into plane
+// s % 2, which the MMAs read as B with no split. A block of one group
+// stores its rows as bf16 (rounded once), a split block's group its f32
+// partial rows.
+template <int MODE, bool FA, int DT>
+__global__ void __launch_bounds__(kApplyThreads, 1)
+dedup_apply_bf16(const bf16* __restrict__ x, const int* __restrict__ uv,
+                 const int4* __restrict__ pairs,
+                 const int4* __restrict__ groups, const int* __restrict__ dst,
+                 const int* __restrict__ urow,
+                 const bf16* __restrict__ counts,
+                 const int* __restrict__ edge_id,
+                 const bf16* __restrict__ w, int D, int c0,
+                 bf16* __restrict__ out, float* __restrict__ partials) {
+  using S = ApplyShapeB<MODE, FA, DT>;
+  constexpr int CW = S::CW, CPT = S::CPT, PS = S::PS, NCB = S::NCB;
+  constexpr size_t kCOne = S::kCBytes / NCB;  // bytes of one C buffer
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* cbuf = smem;                                    // [NCB] C
+  bf16* planes = reinterpret_cast<bf16*>(smem + S::kCBytes);    // [2][kW][PS]
+  int* ids = reinterpret_cast<int*>(smem + S::kCBytes + S::kPlaneBytes);
+  void* scratch = smem + S::kCBytes + S::kPlaneBytes + S::kIdBytes;
+
+  const int4 gr = groups[blockIdx.x];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int width = min(DT, D - c0);  // this launch's columns
+  const int n_stages = (gr.z - gr.y) * CPT;
+  const bool vec =
+      (D & 7) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+
+  // the window rows of stage s into plane s % 2: cp.async 16 bytes (8
+  // columns) a copy where rows allow, else plain loads; with a pair's
+  // first stage, for K5 its C and the row ids of the next pair (as the
+  // float32 kernel's `issue`), all one commit group
+  auto issue = [&](int s, int wb_next) {
+    if (s >= n_stages) {
+      cp_async_commit();
+      return;
+    }
+    const int q = s / CPT;
+    const int j = s - q * CPT;
+    const int p = gr.y + q;
+    const int col0 = j * CW;  // of the launch's columns
+    const int* id = ids + (q & 1) * kW;
+    bf16* pl = planes + (s & 1) * kW * PS;
+    if (vec) {
+      for (int i = threadIdx.x; i < kW * CW / 8; i += kApplyThreads) {
+        const int c = i / (CW / 8);
+        const int cc = 8 * (i % (CW / 8));
+        const bf16* row = x + static_cast<size_t>(id[c]) * D + c0;
+        const bool ok = col0 + cc < width;
+        cp_async16(pl + c * PS + cc, ok ? row + col0 + cc : row, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < kW * CW; i += kApplyThreads) {
+        const int c = i / CW;
+        const int cc = i % CW;
+        pl[c * PS + cc] =
+            col0 + cc < width
+                ? x[static_cast<size_t>(id[c]) * D + c0 + col0 + cc]
+                : __float2bfloat16_rn(0.f);
+      }
+    }
+    if (j == 0) {
+      if (p + 1 < gr.z && threadIdx.x < kW / 4)
+        cp_async16(ids + ((q + 1) & 1) * kW + 4 * threadIdx.x,
+                   uv + wb_next + 4 * threadIdx.x, true);
+      if constexpr (MODE == kCached) {
+        bf16* cb = reinterpret_cast<bf16*>(cbuf + (q % NCB) * kCOne);
+        const bf16* src = counts + static_cast<size_t>(p) * kNB * kW;
+        for (int i = threadIdx.x; i < kNB * kW / 8; i += kApplyThreads) {
+          const int r8 = i / (kW / 8);
+          const int c8 = 8 * (i % (kW / 8));
+          cp_async16(cb + cb_at(r8, c8), src + r8 * kW + c8, true);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto wb_after = [&](int s) {
+    const int q = s / CPT;
+    return s < n_stages && s == q * CPT && gr.y + q + 1 < gr.z
+               ? __ldg(&pairs[gr.y + q + 1].y)
+               : 0;
+  };
+
+  float acc[DT / 8][4];
+#pragma unroll
+  for (int n = 0; n < DT / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
+
+  if (threadIdx.x < kW)
+    ids[threadIdx.x] = __ldg(uv + pairs[gr.y].y + threadIdx.x);
+  __syncthreads();
+  issue(0, wb_after(0));
+  for (int s = 0; s < n_stages; ++s) {
+    const int wb_next = wb_after(s + 1);
+    const int q = s / CPT;
+    const int j = s - q * CPT;
+    const void* cs = cbuf + (q % NCB) * kCOne;
+    if constexpr (MODE != kCached) {
+      if (j == 0)
+        build_c<MODE, FA, bf16>(cbuf, pairs[gr.y + q], dst, urow, edge_id,
+                                w, scratch);
+    }
+    cp_async_wait_all();  // stage s's rows (and C)
+    __syncthreads();
+    issue(s + 1, wb_next);  // into the other plane, read a stage ago
+    const bf16* pl = planes + (s & 1) * kW * PS;
+    if constexpr (CPT == 4) {
+      if (j == 0)
+        mma_stage<FA, 1, DT, CW, PS, 0>(acc, cs, pl, warp, lane);
+      else if (j == 1)
+        mma_stage<FA, 1, DT, CW, PS, 1>(acc, cs, pl, warp, lane);
+      else if (j == 2)
+        mma_stage<FA, 1, DT, CW, PS, 2>(acc, cs, pl, warp, lane);
+      else
+        mma_stage<FA, 1, DT, CW, PS, 3>(acc, cs, pl, warp, lane);
+    } else if constexpr (CPT == 2) {
+      if (j == 0)
+        mma_stage<FA, 1, DT, CW, PS, 0>(acc, cs, pl, warp, lane);
+      else
+        mma_stage<FA, 1, DT, CW, PS, 1>(acc, cs, pl, warp, lane);
+    } else {
+      mma_stage<FA, 1, DT, CW, PS, 0>(acc, cs, pl, warp, lane);
+    }
+    __syncthreads();  // C and this plane are free for the next stage
+  }
+
+  // the warp's 16 x width tile through shared memory (all of it free),
+  // then out: bf16 rows (16 bytes, 8 columns a lane, where the widths
+  // allow) or f32 partial rows (16 bytes, 4 columns)
+  constexpr int LD = DT + 8;
+  float* t = reinterpret_cast<float*>(smem) + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < DT / 8; ++n)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      *reinterpret_cast<float2*>(t + ((lane >> 2) + 8 * rr) * LD + n * 8 +
+                                 2 * (lane & 3)) =
+          make_float2(acc[n][2 * rr], acc[n][2 * rr + 1]);
+  __syncwarp();
+  const size_t row0 = static_cast<size_t>(gr.w < 0 ? gr.x : gr.w) * kNB +
+                      warp * 16;
+  if (gr.w < 0) {
+    bf16* o = out + row0 * D + c0;
+    if ((width & 7) == 0 && (D & 7) == 0) {
+      for (int i = 8 * lane; i < 16 * width; i += 256) {
+        const int r = i / width;
+        const int c = i - r * width;
+        const float4 a = *reinterpret_cast<const float4*>(t + r * LD + c);
+        const float4 b = *reinterpret_cast<const float4*>(t + r * LD + c + 4);
+        const __nv_bfloat162 h[4] = {__floats2bfloat162_rn(a.x, a.y),
+                                     __floats2bfloat162_rn(a.z, a.w),
+                                     __floats2bfloat162_rn(b.x, b.y),
+                                     __floats2bfloat162_rn(b.z, b.w)};
+        unsigned u[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          u[k] = *reinterpret_cast<const unsigned*>(&h[k]);
+        *reinterpret_cast<uint4*>(o + r * D + c) =
+            make_uint4(u[0], u[1], u[2], u[3]);
+      }
+    } else {
+      for (int i = lane; i < 16 * width; i += 32) {
+        const int r = i / width;
+        const int c = i - r * width;
+        o[r * D + c] = __float2bfloat16_rn(t[r * LD + c]);
+      }
+    }
+  } else {
+    float* o = partials + row0 * D + c0;
+    if ((width & 3) == 0 && (D & 3) == 0) {
+      for (int i = 4 * lane; i < 16 * width; i += 128) {
+        const int r = i / width;
+        const int c = i - r * width;
+        *reinterpret_cast<float4*>(o + r * D + c) =
+            *reinterpret_cast<const float4*>(t + r * LD + c);
+      }
+    } else {
+      for (int i = lane; i < 16 * width; i += 32) {
+        const int r = i / width;
+        const int c = i - r * width;
+        o[r * D + c] = t[r * LD + c];
+      }
+    }
+  }
+}
+
 // One CUDA block per (split dst block, 8 of its rows): warp w sums row
 // r0 + w of the block's partial slots in slot order, loading eight slots
-// at once (a hub block has over a hundred).
+// at once (a hub block has over a hundred), and stores it as T (bf16:
+// rounded once).
+template <typename T>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 dedup_combine(const float* __restrict__ partials,
               const int* __restrict__ split_blocks,
               const int* __restrict__ split_ptr, int D,
-              float* __restrict__ out) {
+              T* __restrict__ out) {
   constexpr int U = 8;
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -656,7 +913,7 @@ dedup_combine(const float* __restrict__ partials,
   const int s1 = split_ptr[blockIdx.x + 1];
   const size_t slot = static_cast<size_t>(kNB) * D;  // a slot's stride
   const float* p = partials + (static_cast<size_t>(s0) * kNB + r) * D;
-  float* o = out + (static_cast<size_t>(split_blocks[blockIdx.x]) * kNB + r) * D;
+  T* o = out + (static_cast<size_t>(split_blocks[blockIdx.x]) * kNB + r) * D;
   for (int col = lane; col < D; col += 32) {
     float acc = 0.f;
     int s = s0;
@@ -668,7 +925,7 @@ dedup_combine(const float* __restrict__ partials,
       for (int k = 0; k < U; ++k) acc += v[k];
     }
     for (; s < s1; ++s) acc += __ldg(p + (s - s0) * slot + col);
-    o[col] = acc;
+    st_as(o + col, acc);
   }
 }
 
@@ -685,8 +942,11 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
   return err;
 }
 
+// The apply's arguments on tables of T (float, or bf16 for the bf16
+// kernel); partials f32 either way.
+template <typename T>
 struct ApplyArgs {
-  const float* x;
+  const T* x;
   const int* uv;
   const int4* pairs;
   const int4* groups;
@@ -694,14 +954,15 @@ struct ApplyArgs {
   const int* urow;
   const bf16* counts;
   const int* edge_id;
-  const float* w;
+  const T* w;
   int D;
-  float* out;
+  T* out;
   float* partials;
 };
 
 template <int MODE, bool FA, int DT>
-cudaError_t launch_apply(int n_groups, cudaStream_t s, const ApplyArgs& a) {
+cudaError_t launch_apply(int n_groups, cudaStream_t s,
+                         const ApplyArgs<float>& a) {
   static bool ready = false;
   const auto kernel = dedup_apply<MODE, FA, DT>;
   constexpr size_t smem = ApplyShape<MODE, FA, DT>::kSmem;
@@ -710,6 +971,22 @@ cudaError_t launch_apply(int n_groups, cudaStream_t s, const ApplyArgs& a) {
   kernel<<<n_groups, kApplyThreads, smem, s>>>(
       a.x, a.uv, a.pairs, a.groups, a.dst, a.urow, a.counts, a.edge_id, a.w,
       a.D, a.out, a.partials);
+  return cudaSuccess;
+}
+
+// The bf16 apply: one launch a column tile of DT columns.
+template <int MODE, bool FA, int DT>
+cudaError_t launch_apply(int n_groups, cudaStream_t s,
+                         const ApplyArgs<bf16>& a) {
+  static bool ready = false;
+  const auto kernel = dedup_apply_bf16<MODE, FA, DT>;
+  constexpr size_t smem = ApplyShapeB<MODE, FA, DT>::kSmem;
+  const cudaError_t err = allow_smem(kernel, smem, ready);
+  if (err != cudaSuccess) return err;
+  for (int c0 = 0; c0 < a.D; c0 += DT)
+    kernel<<<n_groups, kApplyThreads, smem, s>>>(
+        a.x, a.uv, a.pairs, a.groups, a.dst, a.urow, a.counts, a.edge_id,
+        a.w, a.D, c0, a.out, a.partials);
   return cudaSuccess;
 }
 
@@ -735,7 +1012,50 @@ cudaError_t with_apply(int mode, int max_count, int D, F&& f) {
   return cudaErrorInvalidValue;
 }
 
+// The apply on tables of T, then the combine of the split blocks.
+template <typename T>
+int run_apply(int device, int mode, const T* x, const int* uv,
+              const int* pairs, const int* groups, int n_groups,
+              const int* split_blocks, const int* split_ptr, int n_split,
+              const int* dst, const int* urow, const void* counts,
+              const int* edge_id, const T* w, int max_count, int D, T* out,
+              float* partials, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_groups <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const ApplyArgs<T> a{x,
+                       uv,
+                       reinterpret_cast<const int4*>(pairs),
+                       reinterpret_cast<const int4*>(groups),
+                       dst,
+                       urow,
+                       static_cast<const bf16*>(counts),
+                       edge_id,
+                       w,
+                       D,
+                       out,
+                       partials};
+  err = with_apply(mode, max_count, D, [&](auto m, auto fa, auto dt) {
+    return launch_apply<decltype(m)::value, decltype(fa)::value != 0,
+                        decltype(dt)::value>(n_groups, s, a);
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_split > 0) {
+    dedup_combine<T><<<dim3(n_split, kNB / kCombineWarps),
+                       kCombineWarps * 32, 0, s>>>(partials, split_blocks,
+                                                   split_ptr, D, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The float32 entry points (K4 and the apply), or (built with -DPGL_BF16,
+// the library dedup_kernels_bf16) the bf16 apply: each half instantiates
+// only its element type, so the two build in parallel. K4 reads no
+// feature, so the bf16 path takes its counts from the float32 library.
+#ifndef PGL_BF16
 
 // K4: counts [P*256, 128] bf16 from the layout's pairs and edges.
 extern "C" int pgl_dedup_counts(int device, const int* pairs, int n_pairs,
@@ -769,43 +1089,47 @@ extern "C" int pgl_dedup_apply_f32(int device, int mode, const float* x,
                                    const float* w, int max_count, int D,
                                    float* out, float* partials,
                                    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_groups <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
-  const auto s = static_cast<cudaStream_t>(stream);
-  const ApplyArgs a{x,
-                    uv,
-                    reinterpret_cast<const int4*>(pairs),
-                    reinterpret_cast<const int4*>(groups),
-                    dst,
-                    urow,
-                    static_cast<const bf16*>(counts),
-                    edge_id,
-                    w,
-                    D,
-                    out,
-                    partials};
-  err = with_apply(mode, max_count, D, [&](auto m, auto fa, auto dt) {
-    return launch_apply<decltype(m)::value, decltype(fa)::value != 0,
-                        decltype(dt)::value>(n_groups, s, a);
-  });
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_split > 0) {
-    dedup_combine<<<dim3(n_split, kNB / kCombineWarps), kCombineWarps * 32,
-                    0, s>>>(partials, split_blocks, split_ptr, D, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_apply(device, mode, x, uv, pairs, groups, n_groups,
+                   split_blocks, split_ptr, n_split, dst, urow, counts,
+                   edge_id, w, max_count, D, out, partials, stream);
 }
 
-// The dynamic shared memory (bytes) of the apply launch for `mode` at
-// `max_count` and width D, as `pgl_dedup_apply_f32` takes them; -1 for an
-// unknown mode.
-extern "C" int pgl_dedup_apply_smem(int mode, int max_count, int D) {
+#else
+
+// The apply on bf16 tables: x [N, D], w [E] and out [n_pad, D] bf16 (raw
+// 16-bit words), partials [n_partials*256, D] f32; modes and the rest as
+// pgl_dedup_apply_f32's. The sums f32, each stored value rounded once to
+// nearest even.
+extern "C" int pgl_dedup_apply_bf16(int device, int mode, const void* x,
+                                    const int* uv, const int* pairs,
+                                    const int* groups, int n_groups,
+                                    const int* split_blocks,
+                                    const int* split_ptr, int n_split,
+                                    const int* dst, const int* urow,
+                                    const void* counts, const int* edge_id,
+                                    const void* w, int max_count, int D,
+                                    void* out, float* partials,
+                                    void* stream) {
+  return run_apply(device, mode, static_cast<const bf16*>(x), uv, pairs,
+                   groups, n_groups, split_blocks, split_ptr, n_split, dst,
+                   urow, counts, edge_id, static_cast<const bf16*>(w),
+                   max_count, D, static_cast<bf16*>(out), partials, stream);
+}
+
+#endif  // PGL_BF16
+
+// The dynamic shared memory (bytes) of the apply launch on bf16 tables
+// (`on_bf16` nonzero) or float ones, for `mode` at `max_count` and width D,
+// as the entry points take them; -1 for an unknown mode.
+extern "C" int pgl_dedup_apply_smem(int on_bf16, int mode, int max_count,
+                                    int D) {
   size_t bytes = 0;
   const cudaError_t err =
       with_apply(mode, max_count, D, [&](auto m, auto fa, auto dt) {
-        bytes = ApplyShape<decltype(m)::value, decltype(fa)::value != 0,
-                           decltype(dt)::value>::kSmem;
+        constexpr int M = decltype(m)::value, DT = decltype(dt)::value;
+        constexpr bool FA = decltype(fa)::value != 0;
+        bytes = on_bf16 ? ApplyShapeB<M, FA, DT>::kSmem
+                        : ApplyShape<M, FA, DT>::kSmem;
         return cudaSuccess;
       });
   return err == cudaSuccess ? static_cast<int>(bytes) : -1;

@@ -57,8 +57,8 @@
 // register holds them in flight. The per-edge instantiations compile as
 // they did before the form existed (`CELLS` false removes every branch).
 //
-// T, the tables' element type: float, or bf16 for the per-edge kernels
-// (the cell form is float only). A bf16 row is widened to f32 as it is
+// T, the tables' element type: float or bf16, per edge and per cell alike.
+// A bf16 row is widened to f32 as it is
 // staged (`stage_row`, by plain loads rather than cp.async) or loaded, so
 // the ring and every sum are f32; lse and delta are f32 tensors, the
 // partials f32, and out, dq, dk and dv are rounded once to T when stored.
@@ -151,7 +151,6 @@ dot_fwd_staged(const T* __restrict__ q, const T* __restrict__ k,
                const int* __restrict__ seed_p, int thresh, float inv_keep,
                T* __restrict__ out, float* __restrict__ lse,
                float* __restrict__ partials) {
-  static_assert(!CELLS || std::is_same_v<T, float>, "K7 is float only");
   constexpr int P = StageEdges<NC>::value;
   constexpr int S = kStageSteps;
   extern __shared__ float4 kv_smem[];
@@ -310,7 +309,6 @@ dot_dq_staged(const T* __restrict__ q, const T* __restrict__ k,
               bool vec2, float slope, const int* __restrict__ seed_p,
               int thresh, float inv_keep, T* __restrict__ dq,
               float* __restrict__ partials) {
-  static_assert(!CELLS || std::is_same_v<T, float>, "K8 is float only");
   constexpr int P = StageEdges<NC>::value;
   constexpr int S = kStageSteps;
   // lse and delta a head in the warp's shared memory where a slot's own
@@ -512,7 +510,6 @@ dot_dkv_staged(const T* __restrict__ q, const T* __restrict__ k,
                const int* __restrict__ seed_p, int thresh, float inv_keep,
                T* __restrict__ dk, T* __restrict__ dv,
                float* __restrict__ partials) {
-  static_assert(!CELLS || std::is_same_v<T, float>, "K8 is float only");
   constexpr int P = StageEdges<NC>::value;
   constexpr int S = kStageSteps;
   extern __shared__ float4 dkv_smem[];

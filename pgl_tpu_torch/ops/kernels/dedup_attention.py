@@ -44,13 +44,24 @@ edges into row r from unique row u (node ``uv[u]``), which share one score.
   version, its fake one the shapes of ``(out, lse)``), so an exported
   program calls K7; an eager call launches directly.
 
-``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, H, dvh)`` in additive
-mode, kernel one of ``dedup_fwd`` (K7) and ``dedup_bwd`` (K8: its row pass
-and node walk), and by ``(kernel, H, dsh, dvh)`` in dot mode, kernel one of
-``dedup_dot_fwd`` and ``dedup_dot_bwd``; where a row has several pieces,
-each kernel's second launch counts under its name with ``_combine``, and
-where a node's cells have several, K8's under ``dedup_bwd_node_combine``
-(dot: ``dedup_dot_bwd_node_combine``).
+* The kernels take float32 or bf16 tables (``pgl_dedup_*_f32`` in the
+  library ``dedup_attention``, ``pgl_dedup_*_bf16`` in
+  ``dedup_attention_bf16``, the same source built apart): bf16 loaded and
+  widened to float32, every score, exp and sum float32, ``lse`` and
+  ``delta`` (formed in float32 from the widened ``g`` and ``out``) float32,
+  and ``out``, ``d a_dst`` / ``dq``, ``d a_src`` / ``dk`` and ``dv`` each
+  rounded once to bf16. The plain versions compute bf16 (or fp16) tables
+  the same way: the kernels' contract. The dropout masks are keyed by the
+  cell either way, so bf16 drops what float32 drops.
+
+``LAUNCHES_BY_SHAPE`` counts float32 launches by ``(kernel, H, dvh)`` in
+additive mode, kernel one of ``dedup_fwd`` (K7) and ``dedup_bwd`` (K8: its
+row pass and node walk), and by ``(kernel, H, dsh, dvh)`` in dot mode,
+kernel one of ``dedup_dot_fwd`` and ``dedup_dot_bwd``; where a row has
+several pieces, each kernel's second launch counts under its name with
+``_combine``, and where a node's cells have several, K8's under
+``dedup_bwd_node_combine`` (dot: ``dedup_dot_bwd_node_combine``).
+``LAUNCHES_BF16`` counts the bf16 launches apart, by the same keys.
 """
 
 from __future__ import annotations
@@ -66,7 +77,8 @@ import torch
 from ..dispatch import traced, use_dedup_attention_kernel
 from . import _build
 from . import segment_kernels as sk
-from .attention_kernels import (_check, _drop_args, _k10_args,
+from .attention_kernels import (_SUFFIX, _check, _delta, _drop_args, _f32,
+                                _f32_empty, _k10_args, _lse_like,
                                 _seed_tensor, _stream, edge_grads,
                                 head_scatter, k10_work_list,
                                 plain_attention)
@@ -76,12 +88,13 @@ __all__ = ["DedupAttention", "build_dedup_attention", "build_uniq_reduce",
            "cell_idx", "dedup_attention_reference", "dedup_bwd_reference",
            "dedup_gat_attention", "dedup_dot_reference",
            "dedup_dot_bwd_reference", "dedup_dot_attention", "ET",
-           "LAUNCHES_BY_SHAPE", "reset_launches"]
+           "LAUNCHES_BY_SHAPE", "LAUNCHES_BF16", "reset_launches"]
 
 # most cells in one piece (one warp's work); read when a work list is built
 ET = 256
 
 LAUNCHES_BY_SHAPE: Counter = Counter()
+LAUNCHES_BF16: Counter = Counter()
 
 _MASK32 = 0xFFFFFFFF
 
@@ -89,6 +102,7 @@ _MASK32 = 0xFFFFFFFF
 def reset_launches():
     """Set the launch counts to 0."""
     LAUNCHES_BY_SHAPE.clear()
+    LAUNCHES_BF16.clear()
 
 
 def build_uniq_reduce(layout: DedupLayout, num_nodes: int) -> sk.SpmmLayout:
@@ -243,12 +257,16 @@ def dedup_attention_reference(a_dst, a_src, v, layout: DedupLayout,
     """The plain K7: ``(out [N, H·dvh], lse [N, H])`` over the edges of the
     CSC dedup ``layout``, duplicates one by one (their scores are equal, so
     this is the softmax over cells weighted by their counts), with the cell
-    dropout; an empty row gives zeros in both."""
+    dropout; an empty row gives zeros in both. bf16 tables: computed in
+    float32, ``out`` rounded once, ``lse`` float32."""
+    dtype = v.dtype
+    a_dst, a_src, v = _f32(a_dst, a_src, v)
     dst, urow, _ = _edge_slots(layout)
-    return plain_attention(a_dst, a_src, v, dst, layout.uv.long()[urow],
-                           cell_idx(dst, urow), leaky_slope,
-                           dvh or v.shape[1] // a_dst.shape[1], attn_drop,
-                           seed)
+    out, lse = plain_attention(a_dst, a_src, v, dst, layout.uv.long()[urow],
+                               cell_idx(dst, urow), leaky_slope,
+                               dvh or v.shape[1] // a_dst.shape[1], attn_drop,
+                               seed)
+    return out.to(dtype), lse
 
 
 def dedup_bwd_reference(a_dst, a_src, v, g, lse, delta, layout: DedupLayout,
@@ -257,18 +275,20 @@ def dedup_bwd_reference(a_dst, a_src, v, g, lse, delta, layout: DedupLayout,
     """The plain K8: ``(d a_dst [N, H], d a_src [N, H], dv [N, H·dvh])``,
     ``Σ ds`` into destination rows and ``Σ ds``, ``Σ keep·p·g[dst]`` into
     source nodes, as the kernels' node walk writes them (no slot rows, no
-    fold)."""
+    fold). bf16 tables: computed in float32, each output rounded once."""
     N, H = a_dst.shape
     dvh = dvh or v.shape[1] // H
+    dtype = v.dtype
+    a_dst, a_src, v, g = _f32(a_dst, a_src, v, g)
     dst, urow, _ = _edge_slots(layout)
     src = layout.uv.long()[urow]
     q, ds, g_e = edge_grads(a_dst, a_src, v, g, lse, delta, dst, src,
                             cell_idx(dst, urow), leaky_slope, dvh, attn_drop,
                             seed)
     dv = (q[..., None] * g_e).reshape(-1, H * dvh)
-    return (ds.new_zeros(N, H).index_add_(0, dst, ds),
-            ds.new_zeros(N, H).index_add_(0, src, ds),
-            dv.new_zeros(N, H * dvh).index_add_(0, src, dv))
+    return (ds.new_zeros(N, H).index_add_(0, dst, ds).to(dtype),
+            ds.new_zeros(N, H).index_add_(0, src, ds).to(dtype),
+            dv.new_zeros(N, H * dvh).index_add_(0, src, dv).to(dtype))
 
 
 def dedup_dot_reference(q, k, v, layout: DedupLayout, dsh: int, dvh: int,
@@ -277,11 +297,15 @@ def dedup_dot_reference(q, k, v, layout: DedupLayout, dsh: int, dvh: int,
     """The plain dot-mode K7: ``(out [N, H·dvh], lse [N, H])`` from q, k
     [N, H·dsh] over the edges of the CSC dedup ``layout``, as
     :func:`dedup_attention_reference` (cell dropout; an empty row gives
-    zeros in both)."""
+    zeros in both; bf16 tables computed in float32, ``out`` rounded once,
+    ``lse`` float32)."""
+    dtype = v.dtype
+    q, k, v = _f32(q, k, v)
     dst, urow, _ = _edge_slots(layout)
-    return plain_attention(q, k, v, dst, layout.uv.long()[urow],
-                           cell_idx(dst, urow), leaky_slope, dvh, attn_drop,
-                           seed, dsh)
+    out, lse = plain_attention(q, k, v, dst, layout.uv.long()[urow],
+                               cell_idx(dst, urow), leaky_slope, dvh,
+                               attn_drop, seed, dsh)
+    return out.to(dtype), lse
 
 
 def dedup_dot_bwd_reference(q, k, v, g, lse, delta, layout: DedupLayout,
@@ -290,22 +314,31 @@ def dedup_dot_bwd_reference(q, k, v, g, lse, delta, layout: DedupLayout,
     """The plain dot-mode K8: ``(dq [N, H·dsh], dk [N, H·dsh], dv [N,
     H·dvh])``, per head ``Σ ds·k[src]`` into destination rows and ``Σ
     ds·q[dst]``, ``Σ keep·p·g[dst]`` into source nodes, as the kernels'
-    node walk writes them (no slot rows, no fold)."""
+    node walk writes them (no slot rows, no fold; bf16 tables computed in
+    float32, each output rounded once)."""
+    dtype = v.dtype
+    q, k, v, g = _f32(q, k, v, g)
     dst, urow, _ = _edge_slots(layout)
     src = layout.uv.long()[urow]
     qe, ds, g_e = edge_grads(q, k, v, g, lse, delta, dst, src,
                              cell_idx(dst, urow), leaky_slope, dvh, attn_drop,
                              seed, dsh)
     N = q.shape[0]
-    return (head_scatter(ds, k[src], dst, N),
-            head_scatter(ds, q[dst], src, N),
-            head_scatter(qe, g_e.flatten(1), src, N))
+    return (head_scatter(ds, k[src], dst, N).to(dtype),
+            head_scatter(ds, q[dst], src, N).to(dtype),
+            head_scatter(qe, g_e.flatten(1), src, N).to(dtype))
 
 
 # -- CUDA --------------------------------------------------------------------
 
-def _lib():
-    lib = _build.load("dedup_attention")
+def _lib(dtype=torch.float32):
+    """The library of the entry points on ``dtype``: ``dedup_attention``
+    (``pgl_dedup_*_f32``) or, for bf16, ``dedup_attention_bf16``
+    (``pgl_dedup_*_bf16``: the same source built apart, so the two build
+    in parallel)."""
+    suffix = _SUFFIX[dtype]
+    lib = _build.load("dedup_attention" if suffix == "f32"
+                      else "dedup_attention_bf16")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (..., pieces, n_pieces, split_rows, split_ptr, n_split, ...)
     rows = [p, i, p, p, i]
@@ -316,18 +349,23 @@ def _lib():
     # split_ptr, n_split, H, dvh, vec, lh, group, nv, slope, seed, thresh,
     # inv_keep)
     k7 = [p, i, i, p, i, p, p, i] + [i] * 6 + [f, p, i, f]
-    sigs = {"pgl_dedup_attn_fwd_f32": [i] + [p] * 6 + k7 + [p] * 4,
-            "pgl_dedup_attn_bwd_f32": [i] + [p] * 6 + cells + cells + tail
+    sigs = {"pgl_dedup_attn_fwd": [i] + [p] * 6 + k7 + [p] * 4,
+            "pgl_dedup_attn_bwd": [i] + [p] * 6 + cells + cells + tail
             + [p] * 6,
-            "pgl_dedup_dot_fwd_f32": [i] + [p] * 3 + cells + dot + [p] * 4,
-            "pgl_dedup_dot_bwd_f32": [i] + [p] * 6 + cells + cells + dot
+            "pgl_dedup_dot_fwd": [i] + [p] * 3 + cells + dot + [p] * 4,
+            "pgl_dedup_dot_bwd": [i] + [p] * 6 + cells + cells + dot
             + [p] * 6}
     for name, argtypes in sigs.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, f"{name}_{suffix}")
         if fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def _entry(name, t):
+    """The entry point ``name`` for the tables' dtype of ``t``."""
+    return getattr(_lib(t.dtype), f"{name}_{_SUFFIX[t.dtype]}")
 
 
 def _raise_on(rc, name):
@@ -336,14 +374,15 @@ def _raise_on(rc, name):
                            f"error {rc}")
 
 
-def _count(name, att, *shape, nodes=False):
-    """One launch of ``name``, its merge where rows split, and (``nodes``:
-    K8) the node walk's where nodes split."""
-    LAUNCHES_BY_SHAPE[(name, *shape)] += 1
+def _count(name, att, t, *shape, nodes=False):
+    """One launch of ``name`` on the tables' dtype of ``t``, its merge where
+    rows split, and (``nodes``: K8) the node walk's where nodes split."""
+    counts = LAUNCHES_BF16 if t.dtype == torch.bfloat16 else LAUNCHES_BY_SHAPE
+    counts[(name, *shape)] += 1
     if att.num_partials:
-        LAUNCHES_BY_SHAPE[(f"{name}_combine", *shape)] += 1
+        counts[(f"{name}_combine", *shape)] += 1
     if nodes and att.num_node_partials:
-        LAUNCHES_BY_SHAPE[(f"{name}_node_combine", *shape)] += 1
+        counts[(f"{name}_node_combine", *shape)] += 1
 
 
 def _rows(att):
@@ -376,39 +415,38 @@ def _fwd_cuda(a_dst, a_src, v, att, slope, dvh, rate, seed):
     N, H = a_dst.shape
     _check(att, H, dvh, a_dst, a_src, v)
     out = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
-    lse = torch.empty(N, H, dtype=v.dtype, device=v.device)
-    part = torch.empty(att.num_partials, H * dvh + 2 * H, dtype=v.dtype,
-                       device=v.device)
-    _raise_on(_lib().pgl_dedup_attn_fwd_f32(
+    lse = _f32_empty(N, H, like=v)
+    part = _f32_empty(att.num_partials, H * dvh + 2 * H, like=v)
+    _raise_on(_entry("pgl_dedup_attn_fwd", v)(
         v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
         att.cell_src.data_ptr(), att.cell_cnt.data_ptr(),
-        att.cell_key.data_ptr(), *_k10_args(att, H, dvh, slope, rate, seed),
+        att.cell_key.data_ptr(),
+        *_k10_args(att, H, dvh, slope, rate, seed, v.dtype),
         out.data_ptr(), lse.data_ptr(), part.data_ptr(), _stream(v)),
         "forward")
-    _count("dedup_fwd", att, H, dvh)
+    _count("dedup_fwd", att, v, H, dvh)
     return out, lse
 
 
 def _bwd_cuda(a_dst, a_src, v, g, lse, delta, att, slope, dvh, rate, seed):
     """K8 (row pass, node walk, the sums of split rows and split nodes):
     ``(d a_dst, d a_src, dv)``, all on node rows; the row pass's partials
-    are ``H`` wide, the node walk's ``H + H·dvh``."""
+    are ``H`` wide, the node walk's ``H + H·dvh`` (float32)."""
     N, H = a_dst.shape
     _check(att, H, dvh, a_dst, a_src, v, g, lse, delta)
     da, dsrc = (torch.empty(N, H, dtype=v.dtype, device=v.device)
                 for _ in range(2))
     dv = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
-    part = torch.empty(att.num_partials, H, dtype=v.dtype, device=v.device)
-    node_part = torch.empty(att.num_node_partials, H * (1 + dvh),
-                            dtype=v.dtype, device=v.device)
+    part = _f32_empty(att.num_partials, H, like=v)
+    node_part = _f32_empty(att.num_node_partials, H * (1 + dvh), like=v)
     thresh, inv_keep = _drop_args(rate)
-    _raise_on(_lib().pgl_dedup_attn_bwd_f32(
+    _raise_on(_entry("pgl_dedup_attn_bwd", v)(
         v.device.index, a_dst.data_ptr(), a_src.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_rows(att),
         *_node_cells(att), H, dvh, slope, seed.data_ptr(), thresh, inv_keep,
         da.data_ptr(), dsrc.data_ptr(), dv.data_ptr(), part.data_ptr(),
         node_part.data_ptr(), _stream(v)), "backward")
-    _count("dedup_bwd", att, H, dvh, nodes=True)
+    _count("dedup_bwd", att, v, H, dvh, nodes=True)
     return da, dsrc, dv
 
 
@@ -472,7 +510,7 @@ def _gat_op_cuda(a_dst, a_src, v, tensors, ints, leaky_slope, dvh, rate,
 def _gat_op_fake(a_dst, a_src, v, tensors, ints, leaky_slope, dvh, rate,
                  seed):
     N, H = a_dst.shape
-    return v.new_empty(N, H * dvh), v.new_empty(N, H)
+    return v.new_empty(N, H * dvh), _lse_like(v, N, H)
 
 
 @torch.library.custom_op("pgl_tpu_torch::dedup_dot_attention",
@@ -496,7 +534,7 @@ def _dot_op_cuda(q, k, v, tensors, ints, leaky_slope, dsh, dvh, rate, seed):
 @_dot_op.register_fake
 def _dot_op_fake(q, k, v, tensors, ints, leaky_slope, dsh, dvh, rate, seed):
     N, H = q.shape[0], q.shape[1] // dsh
-    return v.new_empty(N, H * dvh), v.new_empty(N, H)
+    return v.new_empty(N, H * dvh), _lse_like(v, N, H)
 
 
 class _DedupGatAttention(torch.autograd.Function):
@@ -522,8 +560,7 @@ class _DedupGatAttention(torch.autograd.Function):
         att, slope, dvh, rate = ctx.meta
         H = a_dst.shape[1]
         g = g.contiguous()
-        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
-        ins = (a_dst, a_src, v, g, lse, delta)
+        ins = (a_dst, a_src, v, g, lse, _delta(g, out, H, dvh))
         if use_dedup_attention_kernel(v):
             da_dst, dsrc, dv = _bwd_cuda(*ins, att, slope, dvh, rate, seed)
         else:
@@ -570,40 +607,37 @@ def _dot_fwd_cuda(q, k, v, att, slope, dsh, dvh, rate, seed):
     N, H = q.shape[0], q.shape[1] // dsh
     _check(att, H, dvh, q, k, v, dsh=dsh)
     out = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
-    lse = torch.empty(N, H, dtype=v.dtype, device=v.device)
-    part = torch.empty(att.num_partials, H * dvh + 2 * H, dtype=v.dtype,
-                       device=v.device)
+    lse = _f32_empty(N, H, like=v)
+    part = _f32_empty(att.num_partials, H * dvh + 2 * H, like=v)
     thresh, inv_keep = _drop_args(rate)
-    _raise_on(_lib().pgl_dedup_dot_fwd_f32(
+    _raise_on(_entry("pgl_dedup_dot_fwd", v)(
         v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *_cells(att), H, dsh, dvh, slope, seed.data_ptr(), thresh, inv_keep,
         out.data_ptr(), lse.data_ptr(), part.data_ptr(), _stream(v)),
         "dot forward")
-    _count("dedup_dot_fwd", att, H, dsh, dvh)
+    _count("dedup_dot_fwd", att, v, H, dsh, dvh)
     return out, lse
 
 
 def _dot_bwd_cuda(q, k, v, g, lse, delta, att, slope, dsh, dvh, rate, seed):
     """Dot-mode K8 (row pass, node walk, the sums of split rows and split
     nodes): ``(dq, dk, dv)``, all on node rows; the row pass's partials
-    are ``H·dsh`` wide, the node walk's ``H·(dsh + dvh)``."""
+    are ``H·dsh`` wide, the node walk's ``H·(dsh + dvh)`` (float32)."""
     N, H = q.shape[0], q.shape[1] // dsh
     _check(att, H, dvh, q, k, v, g, lse, delta, dsh=dsh)
     dq, dk = (torch.empty(N, H * dsh, dtype=v.dtype, device=v.device)
               for _ in range(2))
     dv = torch.empty(N, H * dvh, dtype=v.dtype, device=v.device)
-    part = torch.empty(att.num_partials, H * dsh, dtype=v.dtype,
-                       device=v.device)
-    node_part = torch.empty(att.num_node_partials, H * (dsh + dvh),
-                            dtype=v.dtype, device=v.device)
+    part = _f32_empty(att.num_partials, H * dsh, like=v)
+    node_part = _f32_empty(att.num_node_partials, H * (dsh + dvh), like=v)
     thresh, inv_keep = _drop_args(rate)
-    _raise_on(_lib().pgl_dedup_dot_bwd_f32(
+    _raise_on(_entry("pgl_dedup_dot_bwd", v)(
         v.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_cells(att),
         *_node_cells(att), H, dsh, dvh, slope, seed.data_ptr(), thresh,
         inv_keep, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         part.data_ptr(), node_part.data_ptr(), _stream(v)), "dot backward")
-    _count("dedup_dot_bwd", att, H, dsh, dvh, nodes=True)
+    _count("dedup_dot_bwd", att, v, H, dsh, dvh, nodes=True)
     return dq, dk, dv
 
 
@@ -630,8 +664,7 @@ class _DedupDotAttention(torch.autograd.Function):
         att, slope, dsh, dvh, rate = ctx.meta
         H = q.shape[1] // dsh
         g = g.contiguous()
-        delta = (g.reshape(-1, H, dvh) * out.reshape(-1, H, dvh)).sum(-1)
-        ins = (q, k, v, g, lse, delta)
+        ins = (q, k, v, g, lse, _delta(g, out, H, dvh))
         if use_dedup_attention_kernel(v):
             dq, dk, dv = _dot_bwd_cuda(*ins, att, slope, dsh, dvh, rate,
                                        seed)

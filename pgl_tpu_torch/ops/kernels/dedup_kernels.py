@@ -53,11 +53,21 @@ the number of its edges with destination ``blk_p·NB + r`` whose source is
   (``bincount``; ``bmm`` and ``index_add_``; ``index_select``, a product and
   ``index_add_``). CPU tensors run them; CUDA tensors launch the kernels or
   raise.
+* The apply takes float32 and bf16 tables: ``pgl_dedup_apply_f32`` in the
+  library ``dedup_kernels``, ``pgl_dedup_apply_bf16`` in
+  ``dedup_kernels_bf16`` (the same source built apart): bf16 rows gathered
+  as they are, the sums float32, each output (and dx, and the weighted
+  K6's dw through K1w) rounded once to bf16; the partials of split blocks
+  stay float32. The plain versions compute a bf16 (or fp16) table in
+  float32 and round each output once, the kernels' contract. K4 reads no
+  feature and stays in ``dedup_kernels``.
 
-``LAUNCHES_BY_SHAPE`` counts launches by ``(kernel, layout kind, D)`` with
-kernel ``"counts"`` (K4; D is None), ``"dedup_cached"`` (K5), ``"dedup"``
-(K6) or ``"dedup_weighted"`` (the weighted K6); one per call, which is two
-CUDA launches when a block has several groups. ``LAUNCHES`` is their sum.
+``LAUNCHES_BY_SHAPE`` counts float32 launches by ``(kernel, layout kind,
+D)`` with kernel ``"counts"`` (K4; D is None), ``"dedup_cached"`` (K5),
+``"dedup"`` (K6) or ``"dedup_weighted"`` (the weighted K6); one per call,
+which is two CUDA launches when a block has several groups (more, one a
+128-column tile, for bf16 past 128 columns). ``LAUNCHES_BF16`` counts the
+bf16 launches apart, by the same keys. ``LAUNCHES`` is the sum of both.
 """
 
 from __future__ import annotations
@@ -74,13 +84,13 @@ import torch
 from ... import resolve_device
 from ..dispatch import COUNTS_MAX, traced, use_dedup_kernel
 from . import _build
-from .segment_kernels import SpmmLayout, _weighted_backward, cut_rows
+from .segment_kernels import _HALF, SpmmLayout, _weighted_backward, cut_rows
 
 __all__ = ["DedupLayout", "build_dedup_layout", "materialize_counts",
            "spmm_dedup", "spmm_dedup_weighted", "counts_reference",
            "apply_reference", "apply_weighted_reference", "NB", "W",
            "PAIRS_PER_GROUP", "LAUNCHES", "LAUNCHES_BY_SHAPE",
-           "reset_launches"]
+           "LAUNCHES_BF16", "reset_launches"]
 
 NB = 256      # destination rows per block (NBD_DEFAULT of the reference)
 W = 128       # unique rows per window (W_DEFAULT of the reference)
@@ -90,17 +100,19 @@ W = 128       # unique rows per window (W_DEFAULT of the reference)
 PAIRS_PER_GROUP = 8
 
 LAUNCHES_BY_SHAPE: Counter = Counter()
+LAUNCHES_BF16: Counter = Counter()
 
 
 def __getattr__(name):
     if name == "LAUNCHES":
-        return sum(LAUNCHES_BY_SHAPE.values())
+        return sum(LAUNCHES_BY_SHAPE.values()) + sum(LAUNCHES_BF16.values())
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_launches():
     """Set the launch counts to 0."""
     LAUNCHES_BY_SHAPE.clear()
+    LAUNCHES_BF16.clear()
 
 
 @dataclass(frozen=True)
@@ -305,50 +317,68 @@ def counts_reference(layout: DedupLayout) -> torch.Tensor:
     return _count_cells(layout, torch.bfloat16)
 
 
+def _acc(x: torch.Tensor):
+    """The dtype the plain versions compute ``x`` in: float32 for bf16 and
+    fp16 (each output rounded once to ``x``'s dtype), else ``x``'s."""
+    return torch.float32 if x.dtype in _HALF else x.dtype
+
+
 def apply_reference(x: torch.Tensor, layout: DedupLayout,
                     counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version of K5 (``counts`` given) and K6 (counts rebuilt):
     ``out[blk_p·NB + r] += Σ_c C_p[r, c] · x[uv[wb_p + c]]``, in ``x``'s
-    dtype. The two agree bit for bit wherever the counts are exact."""
+    dtype (a bf16 ``x`` summed in float32, each output rounded once). The
+    two agree bit for bit wherever the counts are exact."""
     P = layout.num_pairs
+    acc = _acc(x)
     if counts is None:
-        counts = _count_cells(layout, x.dtype)
+        counts = _count_cells(layout, acc)
     pairs = layout.pairs.long()
     ar_w = torch.arange(W, device=x.device)
     win = x.index_select(0, layout.uv.long()[pairs[:, 1:2] + ar_w].reshape(
-        -1)).reshape(P, W, -1)
-    prod = torch.bmm(counts.to(x.dtype).reshape(P, NB, W), win)
+        -1)).reshape(P, W, -1).to(acc)
+    prod = torch.bmm(counts.to(acc).reshape(P, NB, W), win)
     rows = (pairs[:, 0:1] * NB + torch.arange(NB, device=x.device)).reshape(
         -1)
-    out = x.new_zeros(layout.n_pad, x.shape[1]).index_add_(
+    out = win.new_zeros(layout.n_pad, x.shape[1]).index_add_(
         0, rows, prod.reshape(P * NB, -1))
-    return out[:layout.num_segments]
+    return out[:layout.num_segments].to(x.dtype)
 
 
 def apply_weighted_reference(x: torch.Tensor, w: torch.Tensor,
                              layout: DedupLayout) -> torch.Tensor:
     """The plain version of the weighted K6: ``out[dst_e] += w[edge_id_e] ·
     x[uv[urow_e]]`` over the layout's edges, ``w`` [E] in the original edge
-    order."""
-    msgs = x.index_select(0, layout.uv.index_select(0, layout.urow)) \
-        * w.index_select(0, layout.edge_id).unsqueeze(1)
-    return x.new_zeros(layout.num_segments, x.shape[1]).index_add_(
-        0, layout.dst, msgs)
+    order (bf16 tables: the messages and sums float32, each output rounded
+    once)."""
+    acc = _acc(x)
+    msgs = x.index_select(0, layout.uv.index_select(0, layout.urow)).to(acc) \
+        * w.index_select(0, layout.edge_id).to(acc).unsqueeze(1)
+    return msgs.new_zeros(layout.num_segments, x.shape[1]).index_add_(
+        0, layout.dst, msgs).to(x.dtype)
 
 
 # -- the CUDA kernels -------------------------------------------------------
 
-def _lib():
-    lib = _build.load("dedup_kernels")
-    if lib.pgl_dedup_counts.argtypes is None:
+def _lib(dtype=torch.float32):
+    """The library of the entry points on ``dtype``: ``dedup_kernels`` (K4,
+    ``pgl_dedup_apply_f32``) or, for bf16, ``dedup_kernels_bf16``
+    (``pgl_dedup_apply_bf16``: the same source built apart, so the two
+    build in parallel); each has ``pgl_dedup_apply_smem``."""
+    bf16 = dtype == torch.bfloat16
+    lib = _build.load("dedup_kernels_bf16" if bf16 else "dedup_kernels")
+    if lib.pgl_dedup_apply_smem.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pgl_dedup_counts.argtypes = [i, p, i, p, p, p, p]
-        lib.pgl_dedup_counts.restype = ctypes.c_int
-        lib.pgl_dedup_apply_f32.argtypes = [i, i, p, p, p, p, i, p, p, i,
-                                            p, p, p, p, p, i, i, p, p, p]
-        lib.pgl_dedup_apply_f32.restype = ctypes.c_int
-        lib.pgl_dedup_apply_smem.argtypes = [i, i, i]
+        apply = (lib.pgl_dedup_apply_bf16 if bf16
+                 else lib.pgl_dedup_apply_f32)
+        apply.argtypes = [i, i, p, p, p, p, i, p, p, i, p, p, p, p, p, i, i,
+                          p, p, p]
+        apply.restype = ctypes.c_int
+        lib.pgl_dedup_apply_smem.argtypes = [i, i, i, i]
         lib.pgl_dedup_apply_smem.restype = ctypes.c_int
+        if not bf16:
+            lib.pgl_dedup_counts.argtypes = [i, p, i, p, p, p, p]
+            lib.pgl_dedup_counts.restype = ctypes.c_int
     return lib
 
 
@@ -370,10 +400,14 @@ def _launch_counts(layout: DedupLayout, counts: torch.Tensor):
 
 def _launch_apply(x, layout: DedupLayout, counts, out, partials, w=None):
     """K5 (``counts`` given), K6 (``counts`` None) or the weighted K6
-    (weights ``w`` [E] given) into preallocated ``out`` [n_pad, D] and
-    ``partials`` [num_partials·NB, D]."""
+    (weights ``w`` [E] given) into preallocated ``out`` [n_pad, D] (``x``'s
+    dtype, float32 or bf16, as ``w``) and ``partials`` [num_partials·NB, D]
+    (float32)."""
     mode = 2 if w is not None else 0 if counts is not None else 1
-    rc = _lib().pgl_dedup_apply_f32(
+    lib = _lib(x.dtype)
+    fn = (lib.pgl_dedup_apply_bf16 if x.dtype == torch.bfloat16
+          else lib.pgl_dedup_apply_f32)
+    rc = fn(
         x.device.index, mode, x.data_ptr(),
         layout.uv.data_ptr(), layout.pairs.data_ptr(),
         layout.groups.data_ptr(), layout.groups.shape[0],
@@ -427,12 +461,14 @@ def _apply_cuda(x: torch.Tensor, layout: DedupLayout,
                          "weights")
     D = x.shape[1]
     out = torch.empty(layout.n_pad, D, dtype=x.dtype, device=x.device)
-    partials = torch.empty(layout.num_partials * NB, D, dtype=x.dtype,
+    # a split block's partial sums stay float32 whatever x's dtype
+    partials = torch.empty(layout.num_partials * NB, D, dtype=torch.float32,
                            device=x.device)
     _launch_apply(x, layout, layout.counts, out, partials, w)
     kernel = ("dedup_weighted" if w is not None
               else "dedup" if layout.counts is None else "dedup_cached")
-    LAUNCHES_BY_SHAPE[(kernel, layout.kind, D)] += 1
+    (LAUNCHES_BF16 if x.dtype == torch.bfloat16
+     else LAUNCHES_BY_SHAPE)[(kernel, layout.kind, D)] += 1
     return out[:layout.num_segments]
 
 

@@ -1,12 +1,15 @@
 """Mixed-precision helpers for bf16 training on the card (port of
 ``pgl_tpu/utils/amp.py``).
 
-K1, the SpMM behind every sum and mean, K1w behind ``send_ue_recv`` and
-the per-edge attention K9/K10 behind ``GATConv`` and ``TransformerConv``
-take bf16 tables (``ops/kernels/``: f32 arithmetic, each stored value
-rounded once), so the recipe is the reference's: parameters and
-activations in bf16, the master weights, the optimizer's state and the
-loss in float32.
+K1, the SpMM behind every sum and mean, K1w behind ``send_ue_recv``, the
+dedup SpMM K5/K6 (and the weighted K6) on a graph with dedup layouts, and
+the attention kernels behind ``GATConv`` and ``TransformerConv``, per edge
+(K9/K10) and per count-matrix cell (K7/K8), take bf16 tables
+(``ops/kernels/``: f32 arithmetic, each stored value rounded once), so the
+recipe is the reference's: parameters and activations in bf16, the master
+weights, the optimizer's state and the loss in float32. Only K11
+(``Graph.sddmm_csc``) takes float32 alone, as the reference's kernel
+does.
 """
 
 from __future__ import annotations

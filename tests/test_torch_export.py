@@ -12,8 +12,8 @@ bit and the reference's served output (``pgl_tpu.utils.export``) at the
 model's parity tolerance (logits rtol/atol 1e-5, as
 ``tests/test_torch_gat.py``; the SDDMM bit for bit, as
 ``tests/test_torch_sddmm.py``). ``torch.library.opcheck`` holds each new
-op's fake implementation to its CPU one, float32 and (K1w, K9) bf16, the
-collectives in a gloo world of one. Two gloo ranks export the halo GCN and
+op's fake implementation to its CPU one, float32 and (K1w, K9, K5/K6 and
+the weighted K6, K7) bf16, the collectives in a gloo world of one. Two gloo ranks export the halo GCN and
 the ``ShardedGraph`` GCN, and two fresh rank processes serve them
 (``tests/torch_parallel_ranks.py``'s ``export`` and ``serve`` suites).
 """
@@ -244,27 +244,30 @@ def _op_cases():
         out.append((f"sddmm-{op}", sdk._sddmm_op, (
             _table(40, 8, f32, 1), _table(40, 8, f32, 2), lay.slot_src,
             lay.slot_dst, lay.num_segments, op)))
-    for counts in (True, False):
-        gd = _small_graph(True, counts)
-        csc_d = gd._dedup_layouts[0]
-        tensors = [getattr(csc_d, n) for n in dk._OP_TENSORS]
-        ints = [getattr(csc_d, n) for n in dk._OP_INTS]
-        x = _table(40, 8, f32, 1)
-        out.append((f"spmm_dedup-counts_{counts}", dk._apply_op, (
-            x, tensors, ints, csc_d.counts, None, None, csc_d.kind)))
-    out.append(("spmm_dedup-weighted", dk._apply_op, (
-        x, tensors, ints, None, csc_d.edge_id,
-        _table(gd.num_edges, 1, f32, 6).reshape(-1), csc_d.kind)))
-    att = gd._dedup_attn_aux()
-    seed = torch.tensor([7], dtype=torch.int32)
-    for rate in (0.0, 0.5):
-        out.append((f"dedup_gat_attention-{rate}", da._gat_op, (
-            _table(40, 2, f32, 3), _table(40, 2, f32, 4),
-            _table(40, 8, f32, 5), *da._op_args(att), 0.2, 4, rate, seed)))
-        out.append((f"dedup_dot_attention-{rate}", da._dot_op, (
-            _table(40, 6, f32, 3), _table(40, 6, f32, 4),
-            _table(40, 8, f32, 5), *da._op_args(att), 0.0, 3, 4, rate,
-            seed)))
+    # the dedup ops on float32 and (named with the dtype) bf16 tables
+    for dtype, tag in ((f32, ""), (bf16, "-bfloat16")):
+        for counts in (True, False):
+            gd = _small_graph(True, counts)
+            csc_d = gd._dedup_layouts[0]
+            tensors = [getattr(csc_d, n) for n in dk._OP_TENSORS]
+            ints = [getattr(csc_d, n) for n in dk._OP_INTS]
+            x = _table(40, 8, dtype, 1)
+            out.append((f"spmm_dedup-counts_{counts}{tag}", dk._apply_op, (
+                x, tensors, ints, csc_d.counts, None, None, csc_d.kind)))
+        out.append((f"spmm_dedup-weighted{tag}", dk._apply_op, (
+            x, tensors, ints, None, csc_d.edge_id,
+            _table(gd.num_edges, 1, dtype, 6).reshape(-1), csc_d.kind)))
+        att = gd._dedup_attn_aux()
+        seed = torch.tensor([7], dtype=torch.int32)
+        for rate in (0.0, 0.5):
+            out.append((f"dedup_gat_attention-{rate}{tag}", da._gat_op, (
+                _table(40, 2, dtype, 3), _table(40, 2, dtype, 4),
+                _table(40, 8, dtype, 5), *da._op_args(att), 0.2, 4, rate,
+                seed)))
+            out.append((f"dedup_dot_attention-{rate}{tag}", da._dot_op, (
+                _table(40, 6, dtype, 3), _table(40, 6, dtype, 4),
+                _table(40, 8, dtype, 5), *da._op_args(att), 0.0, 3, 4,
+                rate, seed)))
     return out
 
 

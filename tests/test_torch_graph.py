@@ -131,6 +131,25 @@ def test_mean_of_a_three_dim_feature_divides_each_row():
                                rtol=1e-5, atol=1e-5)
 
 
+def test_mean_of_a_one_dim_feature_is_per_node():
+    """Departure: ``send_u_recv(x, "mean")`` on an ``[N]`` feature gives
+    each node's sum over its in-degree (floored at 1), ``[N]``, in the port
+    (as the reference's own ``BiGraph.send_recv`` does). The reference's
+    ``Graph`` divides the ``[N]`` sum by ``deg[:, None]``
+    (``pgl_tpu/graph.py:339-341``), which broadcasts to ``[N, N]``: row i
+    is every node's sum over node i's degree."""
+    edges = np.array([[0, 1], [1, 1], [2, 0]])
+    x = np.array([1.0, 2.0, 4.0], np.float32)
+    ref = pgl_tpu.Graph(edges, num_nodes=3).tensor().send_recv(
+        jnp.asarray(x), "mean")
+    np.testing.assert_allclose(np.asarray(ref), [[4, 3, 0], [2, 1.5, 0],
+                                                 [4, 3, 0]])
+    got = pgl_tpu_torch.Graph(edges, num_nodes=3).tensor("cpu").send_recv(
+        torch.as_tensor(x), "mean")
+    assert got.shape == (3,)
+    np.testing.assert_allclose(got.numpy(), [4, 1.5, 0])
+
+
 def test_degree_norm_matches_reference():
     edges = random_edges(60, 500, seed=6)
     jg = pgl_tpu.Graph(edges, num_nodes=60).tensor()

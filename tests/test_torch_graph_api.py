@@ -441,13 +441,15 @@ def test_cuda_dtype_rule(dtype, device_type):
     and bf16 to the kernel, every other dtype to the segment path) on the
     card: ``dispatch.plain_on_cuda`` sends integer, float16 and float64
     CUDA tensors to the plain path; float32 launches every kernel; bf16
-    launches K1 (``use_spmm_kernel``), K1w (``use_weighted_spmm_kernel``)
-    and the per-edge attention K9/K10 (``use_attention_kernel``) and
-    raises at every wrapper whose kernel has no bf16 instantiation yet
-    (K4-K6, the count-matrix attention K7/K8, K11); float16 raises at every
-    wrapper, which the plain path keeps it from reaching. A CPU tensor is
-    never plain-on-CUDA: it runs the wrappers' plain versions. A stand-in
-    with a CUDA device holds the rule without a card."""
+    launches K1 (``use_spmm_kernel``), K1w (``use_weighted_spmm_kernel``),
+    the dedup SpMM K5/K6 (``use_dedup_kernel``), the per-edge attention
+    K9/K10 (``use_attention_kernel``) and the count-matrix attention K7/K8
+    (``use_dedup_attention_kernel``), and raises at K11
+    (``use_sddmm_kernel``), whose reference kernel takes float32 alone;
+    float16 raises at every wrapper, which the plain path keeps it from
+    reaching. A CPU tensor is never plain-on-CUDA: it runs the wrappers'
+    plain versions. A stand-in with a CUDA device holds the rule without a
+    card."""
     from types import SimpleNamespace
 
     from pgl_tpu_torch.ops import dispatch
@@ -461,7 +463,8 @@ def test_cuda_dtype_rule(dtype, device_type):
                 dispatch.use_dedup_attention_kernel,
                 dispatch.use_sddmm_kernel)
     bf16 = (dispatch.use_spmm_kernel, dispatch.use_weighted_spmm_kernel,
-            dispatch.use_attention_kernel)
+            dispatch.use_dedup_kernel, dispatch.use_attention_kernel,
+            dispatch.use_dedup_attention_kernel)
     for use in wrappers:
         takes = dtype == torch.float32 or (
             dtype == torch.bfloat16 and use in bf16)

@@ -57,7 +57,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (DDOT_KERNELS, DEDUP_CASE_D, DOT_KERNELS,
+from chip_smoke import (AMP_DEDUP_D, DDOT_KERNELS, DEDUP_CASE_D,
+                        DOT_KERNELS, GAT_SHAPES, UNIMP_SHAPE,
+                        bf16_dedup_graphs, check_bf16_dedup,
+                        run_bf16_dedup_attention,
                         K10_SHAPES, READOUT_PER_STEP, SAGE_BUCKETS,
                         SDDMM_OPS, attention_graph, attention_inputs, check,
                         check_batch_graph_k1, check_device_samples,
@@ -778,11 +781,13 @@ def test_half_precision_on_cuda_raises(cuda, dtype):
     plain version (float32 sums rounded once); an fp16 one takes the
     segment path and launches nothing; a bf16 ``send_ue_recv`` launches
     the bf16 K1w (counted in ``LAUNCHES_BF16``) and equals its plain
-    version. bf16 raises where a kernel has no bf16 instantiation, with no
-    launch counted: at K11 (``sddmm_csc``) and on a graph with dedup
-    layouts (K5/K6 for ``send_u_recv``). The features are small integers,
-    whose sums both half types hold exactly, so either path equals the CPU
-    graph's sums."""
+    version; on a graph with dedup layouts a bf16 ``send_u_recv`` launches
+    the bf16 K5 (and, over a zero counts budget, K6), counted in
+    ``dk.LAUNCHES_BF16``, and equals its plain version bit for bit. bf16
+    raises at K11 (``sddmm_csc``), the one kernel without a bf16
+    instantiation (the reference's raises too), with no launch counted.
+    The features are small integers, whose sums both half types hold
+    exactly, so every path equals the CPU graph's sums."""
     host = Graph(skewed_graph(100, 800, seed=6), num_nodes=100)
     g = host.tensor(cuda)
     x = torch.randint(-3, 4, (100, 16), device=cuda,
@@ -804,22 +809,82 @@ def test_half_precision_on_cuda_raises(cuda, dtype):
         assert torch.equal(weighted, sk.spmm_weighted_reference(
             x.to(dtype), w.reshape(-1, 1), g._spmm_layouts[0]))
         assert torch.equal(weighted, got)
-        with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0,
-                               DEDUP_MAX_RATIO=float("inf")):
-            g_d = host.tensor(cuda)
-        assert g_d._dedup_layouts is not None
-        for call in (lambda: g.sddmm_csc(x.to(dtype), x.to(dtype), "mul"),
-                     lambda: g_d.send_u_recv(x.to(dtype), "sum")):
-            sk.reset_launches()
-            sdk.reset_launches()
+        for kernel, budget in (("dedup_cached", None), ("dedup", 0)):
+            settings = {} if budget is None else {
+                "COUNTS_BUDGET_BYTES": budget}
+            with dispatch_settings(DEDUP=True, DEDUP_MIN_EDGES=0,
+                                   DEDUP_MAX_RATIO=float("inf"),
+                                   **settings):
+                g_d = host.tensor(cuda)
+            csc_d = g_d._dedup_layouts[0]
+            assert (csc_d.counts is None) is (budget == 0)
             dk.reset_launches()
-            with pytest.raises(TypeError):
-                call()
-            assert not any(m.LAUNCHES_BY_SHAPE for m in (sk, sdk, dk))
+            sk.reset_launches()
+            got_d = g_d.send_u_recv(x.to(dtype), "sum")
+            assert got_d.dtype == dtype
+            assert dict(dk.LAUNCHES_BF16) == {(kernel, "csc", 16): 1}
+            assert not dk.LAUNCHES_BY_SHAPE and sk.LAUNCHES == 0
+            assert torch.equal(got_d, dk.apply_reference(
+                x.to(dtype), csc_d, csc_d.counts))
+            assert torch.equal(got_d, got)
         sk.reset_launches()
+        sdk.reset_launches()
+        dk.reset_launches()
+        with pytest.raises(TypeError):
+            g.sddmm_csc(x.to(dtype), x.to(dtype), "mul")
+        assert not any(m.LAUNCHES_BY_SHAPE for m in (sk, sdk, dk))
+        assert not dk.LAUNCHES_BF16
     assert sk.LAUNCHES == 0
     want = host.tensor("cpu").send_u_recv(x.cpu().to(dtype), "sum")
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", AMP_DEDUP_D)
+def test_bf16_dedup_apply_matches_plain_version(cuda, D):
+    """The bf16 K5, K6 and weighted K6 (``pgl_dedup_apply_bf16``) on the
+    dedup case graphs (a count of 256: K5 and K6, windows past their
+    block's unique run, split and empty blocks; a count of 300: K6 with C
+    in float32): forward, dx and the weighted K6's dw against the float64
+    plain version of the same bf16 values by ``check_bf16``, the same bits
+    twice, K5 and K6 bit for bit (``check_bf16_dedup``), every launch
+    counted in ``dk.LAUNCHES_BF16`` and none in ``LAUNCHES_BY_SHAPE``."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    for tag, g in bf16_dedup_graphs(cuda).items():
+        dk.reset_launches()
+        sk.reset_launches()
+        check_bf16_dedup(tag, g, D, cuda, gen)
+        kernels = {k[0] for k in dk.LAUNCHES_BF16}
+        assert kernels == ({"dedup", "dedup_cached", "dedup_weighted"}
+                           if tag == "count 256" else
+                           {"dedup", "dedup_weighted"}), kernels
+        assert not dk.LAUNCHES_BY_SHAPE and not sk.LAUNCHES_BY_SHAPE
+        assert sk.LAUNCHES_BF16          # the weighted K6's dw: K1w's pass
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,rate", [(s, r) for s in GAT_SHAPES
+                                        for r in (0.0, 0.6)]
+                         + [(UNIMP_SHAPE, r) for r in (0.0, 0.3)])
+def test_bf16_dedup_attention_matches_plain_version(cuda, shape, rate):
+    """The bf16 K7 and K8 (``pgl_dedup_attn_*_bf16`` additive,
+    ``pgl_dedup_dot_*_bf16`` dot) on a multigraph whose cells count 2 to 4
+    edges (a split hub, rows without cells): out and the gradients against
+    the float64 plain versions of the same bf16 values by ``check_bf16``
+    (lse, float32, by ``check``), the same bits twice
+    (``run_bf16_dedup_attention``), counted in ``da.LAUNCHES_BF16``
+    only."""
+    gen = torch.Generator(device=cuda).manual_seed(
+        len(shape) + int(rate * 10))
+    att = k7_case_atts(cuda)["multi"]
+    seed = torch.tensor([4242], dtype=torch.int32, device=cuda)
+    ins = bf16_inputs(attention_inputs(att.num_rows, *shape, cuda, gen)
+                      if len(shape) == 2 else
+                      dot_inputs(att.num_rows, shape, cuda, gen))
+    da.reset_launches()
+    run_bf16_dedup_attention("multi", att, ins, shape, rate, seed)
+    fwd = "dedup_dot_fwd" if len(shape) == 3 else "dedup_fwd"
+    assert da.LAUNCHES_BF16[(fwd, *shape)] == 2 and not da.LAUNCHES_BY_SHAPE
 
 
 @pytest.mark.gpu

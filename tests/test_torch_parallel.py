@@ -497,6 +497,20 @@ def test_send_u_recv(runs, op):
     close(port[f"recv_{op}"], ref[f"recv_{op}"])
 
 
+def test_one_dim_mean_is_the_graph_mean(runs):
+    """``send_u_recv(x, "mean")`` on a 1-D feature: ``HaloGraph`` and
+    ``ShardedGraph`` give the port's ``Graph`` mean, ``[N]`` (each node's
+    sum over its in-degree; the reference's ``Graph`` broadcasts to
+    ``[N, N]``, a departure pinned in ``tests/test_torch_graph.py``)."""
+    port, _ = runs
+    want = pgl_torch.Graph(EDGES, num_nodes=N).tensor("cpu").send_u_recv(
+        torch.as_tensor(FEAT[:, 0]), "mean").numpy()
+    assert want.shape == (N,)
+    for name in ("recv_mean_1d", "sg_mean_1d"):
+        assert port[name].shape == (N,), name
+        close(port[name], want)
+
+
 def test_degrees(runs):
     port, ref = runs
     for k in ("indegree", "outdegree"):

@@ -79,6 +79,7 @@ def halo_suite(inp, rank, size, res):
         res[f"report_{k}"] = np.asarray(v)
     for op in ("sum", "mean", "max", "min"):
         res[f"recv_{op}"] = U(hg.send_u_recv(x, op))
+    res["recv_mean_1d"] = U(hg.send_u_recv(x[:, 0].contiguous(), "mean"))
     res["indegree"] = U(hg.indegree())
     res["outdegree"] = U(hg.outdegree())
 
@@ -294,6 +295,8 @@ def sharded(inp, g, gt, rank, size, res):
     res[f"sg_edges_{rank}"] = sg.edges.numpy()
     for op in ("sum", "mean", "max", "min"):
         res[f"sg_{op}"] = sg.send_u_recv(feat, op).numpy()
+    res["sg_mean_1d"] = sg.send_u_recv(feat[:, 0].contiguous(),
+                                       "mean").numpy()
     res["sg_indegree"] = sg.indegree().numpy()
     res["sg_outdegree"] = sg.outdegree().numpy()
     w = sg.shard_edge_values(inp["W_E"])
