@@ -8873,12 +8873,16 @@ def bf16_attention_rows(rows, tag, g, lays, ins, rate, seed, launches,
     """Rows of the bf16 attention kernels on ``g`` (additive at (H, dvh)
     from ``ins``, or dot at ``shape``): CUDA-event ms of the bf16 kernel
     and of the float32 one on the same values, the plain version's on the
-    bf16 tables, and the byte bound with bf16 tables (each input read
-    once, each output written once: bf16 columns at 2 bytes, lse and delta
-    at 4; the edge list, the CSC positions where the CSR pass drops, the
-    work list). No one PyTorch call computes graph attention: library
-    none. ``launches`` are the amp run's, keyed as ``all_launches``; the
-    bf16 kernels' device ms a step are the amp profile's."""
+    bf16 tables, the byte bound with bf16 tables (each input read once,
+    each output written once: bf16 columns at 2 bytes, lse and delta at 4;
+    the edge list, the CSC positions where the CSR pass drops, the work
+    list), and the gather bound at bf16 bytes (the rows each edge gathers,
+    as the float32 rows count them: a_src or k | v, or the dkv pass's a_dst
+    or q | g at 2 bytes a column and lse | delta at 4; the additive CSR
+    pass's CSC position where it drops). No one PyTorch call computes
+    graph attention: library none. ``launches`` are the amp run's, keyed
+    as ``all_launches``; the bf16 kernels' device ms a step are the amp
+    profile's."""
     import torch
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     csc, csr = lays
@@ -8946,6 +8950,9 @@ def bf16_attention_rows(rows, tag, g, lays, ins, rate, seed, launches,
         edge_ints = 1 + (part == "dkv" and rate > 0)
         nbytes = (N * (2 * (b_in + b_out) + 4 * (f_in + f_out))
                   + 4 * (E * edge_ints + work))
+        gathered = E * (2 * (DS + C) if dot else 2 * (H + C))
+        if part == "dkv":
+            gathered += E * (8 * H if dot else 4 * (rate > 0) + 8 * H)
         ops = E * (H * per_head + (2 * DS if dot else 0)
                    + per_col[part] * C)
         name = (f"{kernel}_h{H}_s{dsh}_d{dvh}" if dot
@@ -8957,7 +8964,7 @@ def bf16_attention_rows(rows, tag, g, lays, ins, rate, seed, launches,
                    name, kernel, DOT_SOURCE if dot else ATTN_SOURCE,
                    (DOT_REPLACES if dot else ATTN_REPLACES)[kernel],
                    launches.get(key, 0), errs[kernel], ms, plain_ms, nbytes,
-                   ops, None)
+                   ops, None, gathered)
         rows[-1]["f32_ms"] = f32_ms
         print(f"[amp kernels] {name}: bf16 {ms:.5f} ms, float32 "
               f"{f32_ms:.5f} ms ({ms / f32_ms:.3f}x); max |err| vs float64 "
@@ -9487,8 +9494,11 @@ def bf16_dedup_attention_rows(rows, g, shape, rate, seed, launches, dev,
     the float32 kernels on the same values and the plain versions on the
     bf16 tables. The byte bound with bf16 tables: each node table read
     once and each output written once at 2 bytes (lse and delta at 4), the
-    cell lists and work lists at 4 bytes an int. No one PyTorch call
-    computes graph attention: library none."""
+    cell lists and work lists at 4 bytes an int; the gather bound at bf16
+    bytes, the rows each cell gathers as the float32 rows count them (K7
+    and K8's row pass: a_src or k | v; K8's node walk: a_dst or q | g at 2
+    bytes a column, lse | delta at 4). No one PyTorch call computes graph
+    attention: library none."""
     import torch
     from pgl_tpu_torch.ops.kernels import attention_kernels as ak
     from pgl_tpu_torch.ops.kernels import dedup_attention as da
@@ -9556,6 +9566,9 @@ def bf16_dedup_attention_rows(rows, g, shape, rate, seed, launches, dev,
                 + 4 * (row_ints + node_ints) + 2 * N * (2 * DS + C),
                 n * (8 * DS + 6 * C + 2 * H * (per_head + 3)) if dot
                 else n * (2 * H * (per_head + 2) + 6 * C))}
+    rows_gather = 2 * n * ((DS if dot else H) + C)
+    walk_gather = n * (2 * ((DS if dot else H) + C) + 8 * H)
+    gather = {"fwd": rows_gather, "bwd": rows_gather + walk_gather}
     info = {"graph": "gat_graph", "rows": N, "edges": lay.num_edges,
             "cells": n, "H": H, "dvh": dvh, "rate": rate, "dtype": "bf16"}
     if dot:
@@ -9565,7 +9578,8 @@ def bf16_dedup_attention_rows(rows, g, shape, rate, seed, launches, dev,
             ms = time_ms(fn, 20)
             f32_ms = time_ms(fl[kernel][0], 20)
             plain_ms = time_ms(plain, 3)
-        nbytes, ops = cost[kernel.rsplit("_", 1)[1]]
+        part = kernel.rsplit("_", 1)[1]
+        nbytes, ops = cost[part]
         name = (f"{kernel}_h{H}_s{dsh}_d{dvh}" if dot
                 else f"{kernel}_h{H}_d{dvh}") + (
             f"_drop{rate:g}" if rate else "") + "_bf16"
@@ -9573,7 +9587,7 @@ def bf16_dedup_attention_rows(rows, g, shape, rate, seed, launches, dev,
                    DOT_SOURCE if dot else DATTN_SOURCE,
                    (DDOT_REPLACES if dot else DATTN_REPLACES)[kernel],
                    launches.get(("bf16", kernel, *shape), 0), errs[kernel],
-                   ms, plain_ms, nbytes, ops, None)
+                   ms, plain_ms, nbytes, ops, None, gather[part])
         rows[-1]["f32_ms"] = f32_ms
         print(f"[amp dedup kernels] {name}: bf16 {ms:.5f} ms, float32 "
               f"{f32_ms:.5f} ms ({ms / f32_ms:.3f}x); max |err| vs float64 "
@@ -10334,6 +10348,10 @@ def main():
         for line in register_report(
                 libs[name].with_suffix(".log").read_text()):
             print(line, flush=True)
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    print(f"[build] dot backward ring depth: float32 "
+          f"{ak._lib(torch.float32).pgl_dot_ring_steps_f32()} steps, bf16 "
+          f"{ak._lib(torch.bfloat16).pgl_dot_ring_steps_bf16()}", flush=True)
 
     t0 = time.perf_counter()
     host = headline_host()

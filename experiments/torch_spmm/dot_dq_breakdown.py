@@ -52,8 +52,8 @@ from k1_k10_before_after import old_dir, registers  # noqa: E402
 # (text, replacement) pairs, applied inside the K10-dq kernel's body only
 TREE = {
     "as_is": [],
-    "no_rows": [("        stage_row(st, k + s * DS, DS, vec1, lane);\n"
-                 "        stage_row(st + o_v, v + s * C, C, vec2, lane);\n",
+    "no_rows": [("        stage_ring(st, k + s * DS, DS, cls1, lane);\n"
+                 "        stage_ring(st + o_v, v + s * C, C, cls2, lane);\n",
                  "        (void)st;\n        (void)s;\n")],
     "no_trees": [("      head_dot<NC, WIDE ? kWide : kNarrow>(qr, kd[e], wp, "
                   "sd[e]);\n"

@@ -54,6 +54,28 @@ revision with the one-warp-a-piece forward (``--extract --rev e1f22d9``,
 then ``--rev e1f22d9 --only k9add k7add``).
 ``--only`` picks among k1, k1w, k10, k9, k10dq, k7, k8, k8add, k10add,
 k9add, k7add.
+
+``--bf16`` runs the bf16 arm instead (``bf16_arm``), for ``k10`` (K10-dkv),
+``k10dq`` and ``k8`` (the dot K8, the cell forms of the same two passes)
+against a revision with the same entry points (``--rev 41478a7``, the
+parent of the bf16 ring): it builds the revision's
+``attention_kernels_bf16`` and ``dedup_attention_bf16`` beside the tree's,
+and the tree's again at each ring depth of ``--depths`` (a copy of
+``csrc/`` with ``kBf16RingSteps`` set, ``_archive/ring_steps_<S>/``);
+compares every build's bf16 dq, dk and dv
+(and K9's out and lse, and K8's) with the revision's bit for bit at
+UniMP's shape on the UniMP stand-in (rates 0 and 0.3), at the four shapes
+of ``test_bf16_dot_attention_matches_plain_version`` on its graph and (K8)
+on phase 6's multigraph, each within ``check_bf16`` of float64 and the
+same bits on a second run; compares the ``cuobjdump -sass`` of every staged
+instantiation, float32 and bf16, of the two builds (the forward, K9 and
+K7, and the float32 backward must be unchanged); times the
+bf16 K10-dq and K10-dkv of every build at UniMP's shape, rates 0 and 0.3,
+in turns (revision, tree, each depth, then in reverse) beside the float32
+kernels on the same values, and the bf16 K8 (revision, tree, tree,
+revision) on the bench GAT graph's count matrix; and times the amp UniMP
+step (phase 18's trainer) on each build's libraries, revision, tree, tree,
+revision.
 New results
 are held against the float64
 plain version (``chip_smoke.check_spmm``) and old against new (the dot
@@ -69,6 +91,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -77,8 +100,12 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 CSRC = "pgl_tpu_torch/ops/kernels/csrc"
 SOURCES = ("segment_kernels.cu", "attention_kernels.cu",
-           "dedup_attention.cu", "attention_common.cuh", "dot_staged.cuh")
+           "dedup_attention.cu", "attention_common.cuh", "dot_staged.cuh",
+           "additive_groups.cuh")
 LIBS = ("segment_kernels", "attention_kernels", "dedup_attention")
+# the bf16 arm's libraries: (library, source), built with -DPGL_BF16
+LIBS_BF16 = (("attention_kernels_bf16", "attention_kernels"),
+             ("dedup_attention_bf16", "dedup_attention"))
 
 
 def old_dir(rev):
@@ -123,6 +150,77 @@ def build_old(rev):
     return libs, logs
 
 
+def build_bf16(src_dir, out_dir):
+    """Compile the bf16 libraries of ``LIBS_BF16`` from the sources in
+    ``src_dir`` with ``-DPGL_BF16``, in parallel, into ``out_dir``;
+    returns ({library: CDLL}, {library: .so path}, {library: ptxas
+    log})."""
+    from pgl_tpu_torch.ops.kernels import _build
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in LIBS_BF16:
+        so = out_dir / f"lib{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-DPGL_BF16", "-o", str(so),
+             str(src_dir / f"{src}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, paths, logs = {}, {}, {}
+    for name, (so, proc) in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name} from {src_dir} failed to build:\n"
+                               f"{logs[name]}")
+        libs[name], paths[name] = ctypes.CDLL(str(so)), so
+    return libs, paths, logs
+
+
+def ring_steps_copy(depth):
+    """A copy of the tree's ``csrc/`` in ``_archive/ring_steps_<depth>/``
+    whose bf16 ring is ``depth`` steps deep (``kBf16RingSteps``)."""
+    d = ROOT / "_archive" / f"ring_steps_{depth}"
+    d.mkdir(parents=True, exist_ok=True)
+    for f in (ROOT / CSRC).glob("*.cu*"):
+        text = f.read_text()
+        if f.name == "attention_common.cuh":
+            text, n = re.subn(r"constexpr int kBf16RingSteps = \d+;",
+                              f"constexpr int kBf16RingSteps = {depth};",
+                              text)
+            if n != 1:
+                raise RuntimeError("kBf16RingSteps not found once")
+        (d / f.name).write_text(text)
+    return d
+
+
+# a staged dot kernel's name and template arguments (T, NC, FULL, WIDE,
+# CELLS), which key its SASS: the rest of a mangled name differs between
+# builds (the anonymous namespace's hash; a parameter's spelled type)
+STAGED_KEY = re.compile(r"(dot_\w+?_staged)I(f|13__nv_bfloat16)Li(\d+)ELb(\d)"
+                        r"ELb(\d)ELb(\d)E")
+
+
+def sass_functions(so):
+    """{(kernel, T, NC, FULL, WIDE, CELLS): its SASS} of the staged dot
+    kernels of a library (``cuobjdump -sass``; names in the code blanked),
+    or None where the toolkit has no cuobjdump."""
+    from pgl_tpu_torch.ops.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    out, key = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            k = STAGED_KEY.search(m.group(1))
+            key = k.groups() if k else None
+            if key is not None:
+                out[key] = []
+        elif key is not None:
+            out[key].append(re.sub(r"_Z\S+", "_Z", line.strip()))
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
 def registers(log, pattern):
     """(the kernel's match of ``pattern`` and its template arguments,
     registers, spill bytes) of each entry of ``log`` whose mangled name
@@ -156,6 +254,11 @@ def main():
              "k10add", "k9add", "k7add")
     ap.add_argument("--only", choices=kinds, nargs="+", default=kinds,
                     help="the kernels to time (default: all)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the bf16 arm (k10, k10dq, k8) instead")
+    ap.add_argument("--depths", type=int, nargs="*", default=(),
+                    help="bf16 ring depths to build the tree at besides "
+                    "its own")
     a = ap.parse_args()
     if a.extract:
         extract(a.rev)
@@ -165,6 +268,8 @@ def main():
     if not torch.cuda.is_available():
         print("k1_k10_before_after: no CUDA device", file=sys.stderr)
         return 1
+    if a.bf16:
+        return bf16_arm(a)
     from chip_smoke import (GAT_SHAPES, PARENT_BITS_CASES, UNIMP_SHAPE,
                             attention_inputs, bits_digest, check,
                             check_dedup_attention, check_spmm,
@@ -964,6 +1069,261 @@ def main():
         if only & {"k9", "k10dq"}:
             fwd_dq_rows("UniMP stand-in", g, UNIMP_SHAPE, 0.0, (0.0, 0.3))
     print(json.dumps({"before_after": rows, "rev": a.rev, "device": smi}))
+    return 0
+
+
+def bf16_arm(a):
+    """The bf16 dot K10-dq, K10-dkv and K8 of the revision ``a.rev``, the
+    tree and the tree at each ring depth of ``a.depths``: bits, SASS of the
+    staged kernels, times in turns, and the amp UniMP step (the module's
+    docstring)."""
+    import torch
+    from chip_smoke import (UNIMP_SHAPE, attention_graph, bf16_inputs,
+                            check_bf16, check_dedup_dot, check_dot,
+                            dedup_attention_of, dispatch_settings,
+                            dot_inputs, gat_host, k7_case_atts, run_dot,
+                            run_dedup_dot, same_bits, time_ms, unimp_host,
+                            unimp_trainer)
+    from pgl_tpu_torch import Graph
+    from pgl_tpu_torch.ops.kernels import _build
+    from pgl_tpu_torch.ops.kernels import attention_kernels as ak
+    from pgl_tpu_torch.ops.kernels import dedup_attention as da
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    only = set(a.only)
+    d = old_dir(a.rev)
+    if not (d / "attention_kernels.cu").exists():
+        raise SystemExit(f"{d} has no sources: run with --extract first")
+    # build -> ({library: CDLL}, {library: .so}, {library: ptxas log})
+    builds = {"old": build_bf16(d, d / "build_bf16")}
+    tree = _build.build("segment_kernels", "attention_kernels",
+                        "dedup_attention", *(n for n, _ in LIBS_BF16))
+    builds["tree"] = ({n: _build.load(n) for n, _ in LIBS_BF16},
+                      {n: tree[n] for n, _ in LIBS_BF16},
+                      {n: tree[n].with_suffix(".log").read_text()
+                       for n, _ in LIBS_BF16})
+    for depth in a.depths:
+        src = ring_steps_copy(depth)
+        builds[f"S={depth}"] = build_bf16(src, src / "build")
+    depth_of = {}
+    for b, (libs, _, logs) in builds.items():
+        fn = getattr(libs["attention_kernels_bf16"],
+                     "pgl_dot_ring_steps_bf16", None)
+        depth_of[b] = fn() if fn is not None else 3  # before: kStageSteps
+        for name, log in logs.items():
+            for args, regs, spill in registers(
+                    log, r"dot_(fwd|dq|dkv)_staged"):
+                print(f"[ptxas] {b} (S={depth_of[b]}) {name} {args}: "
+                      f"{regs} registers, {spill} B spilled", flush=True)
+    rows = []
+
+    class Entries:
+        """The bf16 wrappers of ``ak`` and ``da`` on build ``b``'s
+        libraries (the tree's argtypes); float32 calls stay the tree's."""
+        def __init__(self, b):
+            self.libs = builds[b][0]
+
+        def __enter__(self):
+            self.saved = {ak: ak._entry, da: da._entry}
+            for mod, lib_name in ((ak, "attention_kernels_bf16"),
+                                  (da, "dedup_attention_bf16")):
+                lib, tree_entry = self.libs[lib_name], self.saved[mod]
+
+                def entry(name, t, lib=lib, tree_entry=tree_entry):
+                    if t.dtype != bf:
+                        return tree_entry(name, t)
+                    fn = getattr(lib, f"{name}_bf16")
+                    if fn.argtypes is None:
+                        ref = tree_entry(name, t)
+                        fn.argtypes, fn.restype = ref.argtypes, ref.restype
+                    return fn
+                mod._entry = entry
+            return self
+
+        def __exit__(self, *exc):
+            for mod, e in self.saved.items():
+                mod._entry = e
+
+    def on(b, fn):
+        def run():
+            with Entries(b):
+                return fn()
+        return run
+
+    def same_all(xs, ys):
+        return all(map(same_bits, xs, ys))
+
+    # SASS of the staged kernels in both builds, float32 and bf16: the
+    # forward (K9, K7) must run the code it ran before
+    build_old(a.rev)
+    so = {"old": {**builds["old"][1], **{
+              n: d / "build" / f"lib{n}.so"
+              for n in ("attention_kernels", "dedup_attention")}},
+          "tree": {**builds["tree"][1], "attention_kernels":
+                   tree["attention_kernels"],
+                   "dedup_attention": tree["dedup_attention"]}}
+    sass = {b: {n: sass_functions(p) for n, p in so[b].items()}
+            for b in so}
+    for name in so["old"]:
+        o, n = sass["old"][name], sass["tree"][name]
+        if o is None or n is None:
+            print("[sass] not measured: no cuobjdump", flush=True)
+            break
+        for kernel in ("dot_fwd_staged", "dot_dq_staged", "dot_dkv_staged"):
+            fns = sorted(k for k in o if k[0] == kernel)
+            same = {k: k in n and o[k] == n[k] for k in fns}
+            rows.append(dict(name=f"sass {name} {kernel}",
+                             same=sum(same.values()), kernels=len(fns)))
+            print(f"[sass] {name} {kernel}: the same SASS in both builds "
+                  f"in {sum(same.values())} of {len(fns)} instantiations",
+                  flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+
+    def bits_rows(tag, lays, shape, leaky, rates, n):
+        """Every build's bf16 K9, K10-dq and K10-dkv against the
+        revision's bit for bit, the tree's against float64 and twice."""
+        ins = bf16_inputs(dot_inputs(n, shape, dev, gen))
+        for rate in rates:
+            got = {b: on(b, lambda: run_dot(lays, ins, shape, leaky, rate,
+                                            seed))() for b in builds}
+            again = on("tree", lambda: run_dot(lays, ins, shape, leaky,
+                                               rate, seed))()
+            err = check_dot(f"bf16 {tag}", lays, ins, shape, leaky, rate,
+                            seed, got["tree"], rule=check_bf16)
+            same = {b: {"fwd": same_all(got[b][:2], got["old"][:2]),
+                        "dq": same_bits(got[b][2], got["old"][2]),
+                        "dkv": same_all(got[b][3:], got["old"][3:])}
+                    for b in builds if b != "old"}
+            twice = same_all(got["tree"], again)
+            rows.append(dict(name=f"bits {tag} {shape} rate={rate}",
+                             same_as_old=same, twice=twice,
+                             max_abs_err=err))
+            print(f"[bits] {tag} {shape} leaky={leaky} rate={rate}: same "
+                  f"as the revision {same}; the tree's twice {twice}; max "
+                  f"|err| vs float64 {err}", flush=True)
+
+    def k8_bits(tag, att, shape, rates):
+        ins = bf16_inputs(dot_inputs(att.num_rows, shape, dev, gen))
+        for rate in rates:
+            got = {b: on(b, lambda: run_dedup_dot(att, ins, shape, rate,
+                                                  seed))() for b in builds}
+            again = on("tree", lambda: run_dedup_dot(att, ins, shape, rate,
+                                                     seed))()
+            err = check_dedup_dot(f"bf16 {tag}", att, ins, shape, rate,
+                                  seed, got["tree"], rule=check_bf16)
+            same = {b: {"fwd": same_all(got[b][:2], got["old"][:2]),
+                        "bwd": same_all(got[b][2:], got["old"][2:])}
+                    for b in builds if b != "old"}
+            twice = same_all(got["tree"], again)
+            rows.append(dict(name=f"K8 bits {tag} {shape} rate={rate}",
+                             same_as_old=same, twice=twice,
+                             max_abs_err=err))
+            print(f"[K8 bits] {tag} {shape} rate={rate}: same as the "
+                  f"revision {same}; the tree's twice {twice}; max |err| "
+                  f"vs float64 {err}", flush=True)
+
+    def turns(name, fns, iters, **extra):
+        """``fns`` {label: call} timed in order and then in reverse (CUDA
+        events), each label's two runs averaged."""
+        order = list(fns) + list(fns)[::-1]
+        t = {b: [] for b in fns}
+        for b in order:
+            t[b].append(time_ms(fns[b], iters))
+        ms = {b: sum(v) / len(v) for b, v in t.items()}
+        rows.append(dict(name=name, ms=ms, runs=t, **extra))
+        print(f"[before/after] {name}: " + ", ".join(
+            f"{b} {v:.5f} ms" for b, v in ms.items())
+            + f" (tree/old {ms['tree'] / ms['old']:.3f})", flush=True)
+
+    test_shapes = ((2, 128, 128, 0.0), (8, 16, 16, 0.0), (43, 2, 8, 0.2),
+                   (3, 5, 7, 0.0))
+    if only & {"k10", "k10dq"}:
+        g = Graph(attention_graph(3000, 40000, seed=4), num_nodes=3000
+                  ).tensor(dev)
+        for *shape, leaky in test_shapes:
+            bits_rows("test graph", g._attention_layouts(), tuple(shape),
+                      leaky, (0.0, 0.3), 3000)
+        del g
+        host_u, labels = unimp_host()
+        g = host_u.tensor(dev)
+        lays = g._attention_layouts()
+        csc, csr = lays
+        bits_rows("UniMP stand-in", lays, UNIMP_SHAPE, 0.0, (0.0, 0.3),
+                  g.num_nodes)
+        H, dsh, dvh = UNIMP_SHAPE
+        ins = bf16_inputs(dot_inputs(g.num_nodes, UNIMP_SHAPE, dev, gen))
+        f32 = tuple(t.float() for t in ins)
+        for rate in (0.0, 0.3):
+            bwd = {}
+            for dt, tabs in (("bf16", ins), ("f32", f32)):
+                with torch.no_grad():
+                    out, lse = ak._dot_fwd_cuda(*tabs[:3], csc, 0.0, dsh,
+                                                dvh, rate, seed)
+                bwd[dt] = (*tabs, lse, ak._delta(tabs[3], out, H, dvh))
+            args = (0.0, dsh, dvh, rate, seed)
+            for kind, kernel, lay in (("k10dq", ak._dot_dq_cuda, csc),
+                                      ("k10", ak._dot_dkv_cuda, csr)):
+                if kind not in only:
+                    continue
+                fns = {b: on(b, lambda k=kernel, lay=lay: k(
+                    *bwd["bf16"], lay, *args)) for b in builds}
+                fns["f32"] = lambda k=kernel, lay=lay: k(*bwd["f32"], lay,
+                                                         *args)
+                name = {"k10dq": "K10-dq", "k10": "K10-dkv"}[kind]
+                turns(f"bf16 {name} UniMP stand-in {UNIMP_SHAPE} "
+                      f"rate={rate}", fns, 20, depth=depth_of)
+        # the amp UniMP step, phase 18's trainer, on each build
+        _, step = unimp_trainer(g, labels, bf16=True)
+
+        def steps(b, n=10):
+            with Entries(b):
+                for _ in range(3):
+                    step()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    step()
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        t = [steps(b) for b in ("old", "tree", "tree", "old")]
+        step_ms = {"old": (t[0] + t[3]) / 2, "tree": (t[1] + t[2]) / 2}
+        rows.append(dict(name="amp UniMP step", ms=step_ms, runs=t))
+        print(f"[amp UniMP step] old {step_ms['old']:.4f} ms, tree "
+              f"{step_ms['tree']:.4f} ms (tree/old "
+              f"{step_ms['tree'] / step_ms['old']:.3f}; runs "
+              f"{', '.join(f'{v:.4f}' for v in t)})", flush=True)
+        del g, lays, csc, csr, ins, f32, bwd, step
+        torch.cuda.empty_cache()
+    if "k8" in only:
+        att = k7_case_atts(dev)["multi"]
+        for *shape, _ in test_shapes:
+            k8_bits("multigraph", att, tuple(shape), (0.0, 0.3))
+        with dispatch_settings(DEDUP=False):
+            g = gat_host().tensor(dev)
+        att = dedup_attention_of(g, dev, False)
+        k8_bits("bench GAT graph", att, UNIMP_SHAPE, (0.0, 0.3))
+        H, dsh, dvh = UNIMP_SHAPE
+        ins = bf16_inputs(dot_inputs(att.num_rows, UNIMP_SHAPE, dev, gen))
+        for rate in (0.0, 0.3):
+            with torch.no_grad():
+                out, lse = da._dot_fwd_cuda(*ins[:3], att, 0.0, dsh, dvh,
+                                            rate, seed)
+            bwd = (*ins, lse, ak._delta(ins[3], out, H, dvh))
+            fns = {b: on(b, lambda: da._dot_bwd_cuda(
+                *bwd, att, 0.0, dsh, dvh, rate, seed))
+                for b in ("old", "tree")}
+            turns(f"bf16 K8-dot bench GAT graph {UNIMP_SHAPE} rate={rate}",
+                  fns, 20)
+    print(json.dumps({"before_after_bf16": rows, "rev": a.rev,
+                      "depths": depth_of, "device": smi}))
     return 0
 
 

@@ -491,7 +491,8 @@ def _lib(dtype=torch.float32):
             "pgl_gat_dkv": [i] + [p] * 8 + k10 + [p] * 4,
             "pgl_dot_fwd": [i] + [p] * 4 + dot + [p] * 4,
             "pgl_dot_dq": [i] + [p] * 7 + dot + [p] * 3,
-            "pgl_dot_dkv": [i] + [p] * 8 + dot + [p] * 4}
+            "pgl_dot_dkv": [i] + [p] * 8 + dot + [p] * 4,
+            "pgl_dot_ring_steps": []}
     for name, argtypes in sigs.items():
         fn = getattr(lib, f"{name}_{suffix}")
         if fn.argtypes is None:

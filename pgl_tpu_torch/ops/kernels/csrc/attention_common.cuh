@@ -18,16 +18,19 @@
 //   `gat_fwd_combine` merges online-softmax partials (m, l, acc), a few
 //   pieces' loads in flight, `sum_combine` adds plain partials, both in a
 //   fixed order (no float atomics, so every run gives the same bits);
-// * the staging of gathered rows that the dot-mode per-edge kernels (K9,
-//   K10-dq, K10-dkv) share: a per-warp shared-memory ring filled by
-//   cp.async (`kStageSteps`, `StageEdges`, `StageBlocks`, `stage_row`),
-//   the piece's edge list read a 32-entry batch ahead (`PieceList`), and
-//   DotSlots' slot map computed rather than held (`dot_col`, `dot_head`);
+// * the staging of gathered rows that the dot-mode kernels (K9, K10-dq,
+//   K10-dkv and their cell forms) share: a per-warp shared-memory ring
+//   filled by cp.async (`RingSteps`, `StageEdges`, `StageBlocks`,
+//   `stage_ring`, `stage_row`), the piece's edge list read a 32-entry
+//   batch ahead (`PieceList`), and DotSlots' slot map computed rather than
+//   held (`dot_col`, `dot_head`);
 // * the element type T of the tables (float, or __nv_bfloat16 under amp):
 //   `ld_f` reads one element as f32, `from_f` rounds an f32 once to T (to
-//   nearest even), `stage_row` widens a staged bf16 row to f32. Every
-//   kernel computes in f32 whatever T is; lse, delta and the split rows'
-//   partials are f32.
+//   nearest even). The backward passes' ring holds T (`stage_ring` copies
+//   bytes, `ring_f` widens an element exactly as it is read); the
+//   forward's ring holds f32, which `stage_row` widens a bf16 row into as
+//   it stages it. Every kernel computes in f32 whatever T is; lse, delta
+//   and the split rows' partials are f32.
 
 #pragma once
 
@@ -377,16 +380,29 @@ int blocks_for(int warps) { return (warps + kWarps - 1) / kWarps; }
 
 constexpr int unroll_for(int nc) { return nc <= 2 ? 4 : (nc <= 4 ? 2 : 1); }
 
-// -- staged gathers (the dot-mode per-edge kernels) --------------------------
+// -- staged gathers (the dot-mode kernels) -----------------------------------
 //
-// Each warp keeps a ring of kStageSteps steps of StageEdges<NC> edges in
-// shared memory, an edge's gathered rows one after the other (each part
+// Each warp keeps a ring of S = RingSteps<R> steps of StageEdges<NC> edges
+// in shared memory, an edge's gathered rows one after the other (each part
 // padded to 16 bytes), and fills it by cp.async (16-byte copies where every
-// row is 16-byte aligned, else 4-byte) kStageSteps - 1 steps ahead of the
-// step it computes, so the loads in flight hold no registers. The P edges
-// of a step are computed together, so their head reductions' shuffles
-// interleave.
+// row is 16-byte aligned, else 4-byte) S - 1 steps ahead of the step it
+// computes, so the loads in flight hold no registers. The P edges of a
+// step are computed together, so their head reductions' shuffles
+// interleave. R is the ring's element type: f32, or bf16 in the bf16
+// backward passes, whose depth is its own constant (kBf16RingSteps). A
+// bf16 item is about half an f32 item's bytes, yet depth hardly matters at
+// UniMP's shape: K10-dq + K10-dkv at 3, 4 and 6 steps came within 2%, 3
+// and 4 trading places between runs, 6 the slowest (experiments/torch_spmm/
+// k1_k10_before_after.py --bf16 --depths, H100). 4 is kept: at 3 and 6 the
+// bf16 K10-dkv at NC = 8, FULL, not WIDE spilled 4 B in its 128 registers.
 constexpr int kStageSteps = 3;
+constexpr int kBf16RingSteps = 4;
+
+template <typename R>
+struct RingSteps {  // S: steps of a ring of R
+  static constexpr int value =
+      std::is_same_v<R, float> ? kStageSteps : kBf16RingSteps;
+};
 
 template <int NC>
 struct StageEdges {  // P: edges a step
@@ -400,6 +416,20 @@ struct StageBlocks {
 };
 
 __host__ __device__ __forceinline__ int up4(int v) { return (v + 3) & ~3; }
+
+// n elements of R rounded up to a multiple of 16 bytes: up4 on float, in
+// its form, so the f32 kernels compile the arithmetic they did
+template <typename R>
+__host__ __device__ __forceinline__ int up16(int n) {
+  constexpr int V = kVecElems<R>;
+  return (n + V - 1) & ~(V - 1);
+}
+
+// a ring element as f32 (exact)
+__device__ __forceinline__ float ring_f(float x) { return x; }
+__device__ __forceinline__ float ring_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -422,10 +452,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The copy class of a staged part of a ring of R (`ring_class`): on a
+// float ring whether every row of the part is 16-byte aligned (16-byte
+// copies, else 4-byte), as the float32 kernels always took it; on a bf16
+// ring the bytes a copy, 16, 4 or 2 (`row_class`).
+template <typename R>
+using RingCls = std::conditional_t<std::is_same_v<R, float>, bool, int>;
+
 // The warp copies n floats from src to dst (both 16-byte aligned when vec)
 // by cp.async.
-__device__ __forceinline__ void stage_row(float* dst, const float* src, int n,
-                                          bool vec, int lane) {
+__device__ __forceinline__ void stage_ring(float* dst, const float* src,
+                                           int n, bool vec, int lane) {
   if (vec) {
     for (int c = lane; c < n / 4; c += 32) cp_async16(dst + 4 * c, src + 4 * c);
   } else {
@@ -433,12 +470,35 @@ __device__ __forceinline__ void stage_row(float* dst, const float* src, int n,
   }
 }
 
-// The warp widens n bf16 of src into n floats at dst (src 16-byte aligned
-// and n a multiple of 8 when vec): plain loads and shared stores, not
-// cp.async, which copies bytes and cannot widen. The ring keeps f32, so
-// the compute reads it as on float tables; the step's loads are waited
-// for here rather than kStageSteps - 1 steps later, and the __syncwarp
-// after cp_async_wait makes them visible to the warp as the copies are.
+// The warp copies n bf16 from src to dst, cls bytes a copy: by cp.async,
+// 16-byte copies where every row of the part is 16-byte aligned, 4-byte
+// copies of two where it is 4-byte aligned; a row that starts on a 2-byte
+// boundary (an odd width) by plain loads and shared stores, which cp.async
+// cannot copy, so their latency is taken at the step that stages them.
+// The __syncwarp after cp_async_wait makes either visible to the warp.
+__device__ __forceinline__ void stage_ring(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, int n,
+                                           int cls, int lane) {
+  if (cls == 16) {
+    for (int c = lane; c < n / 8; c += 32) cp_async16(dst + 8 * c, src + 8 * c);
+  } else if (cls == 4) {
+    for (int c = lane; c < n / 2; c += 32) cp_async4(dst + 2 * c, src + 2 * c);
+  } else {
+    for (int c = lane; c < n; c += 32) dst[c] = __ldg(src + c);
+  }
+}
+
+// The forward's staging into its f32 ring: float rows by cp.async,
+__device__ __forceinline__ void stage_row(float* dst, const float* src, int n,
+                                          bool vec, int lane) {
+  stage_ring(dst, src, n, vec, lane);
+}
+
+// and bf16 rows widened to f32 (src 16-byte aligned and n a multiple of 8
+// when vec): plain loads and shared stores, not cp.async, which copies
+// bytes and cannot widen; the step's loads are waited for here rather than
+// kStageSteps - 1 steps later, and the __syncwarp after cp_async_wait makes
+// them visible to the warp as the copies are.
 __device__ __forceinline__ void stage_row(float* dst,
                                           const __nv_bfloat16* src, int n,
                                           bool vec, int lane) {

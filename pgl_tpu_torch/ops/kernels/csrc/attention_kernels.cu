@@ -90,9 +90,11 @@
 // dq, d a_src or dk, and dv are each rounded once to bf16 when stored. So
 // the port rounds less often than the reference. The dropout hash is
 // integer arithmetic on the CSC position, the same on both types. The
-// dot kernels stage a bf16 row by plain loads widened into their f32 ring
-// (`stage_row`), not by cp.async; the additive ones load 16-byte vectors
-// of 8 bf16.
+// dot K10-dq and K10-dkv stage bf16 rows into a bf16 ring by cp.async
+// (`stage_ring`; 16- or 4-byte copies by the rows' alignment, plain loads
+// for rows on a 2-byte boundary) and widen them exactly as they read them;
+// the dot K9 stages a bf16 row by plain loads widened into its f32 ring
+// (`stage_row`); the additive kernels load 16-byte vectors of 8 bf16.
 //
 // Calling convention: launches on the given stream, does not synchronise,
 // allocates nothing (the caller passes outputs and partials), and returns
@@ -511,10 +513,16 @@ int dkv_groups_run(const T* a_dst, const T* a_src, const T* v, const T* g,
         static_cast<cudaStream_t>(stream));                                  \
   }
 
+// The depth of the dot backward passes' ring on T (RingSteps): steps of
+// StageEdges<NC> items, S - 1 of them staged ahead of the one computed.
+#define PGL_RING_STEPS(NAME, T) \
+  extern "C" int NAME(void) { return RingSteps<T>::value; }
+
 // The float32 entry points, or (built with -DPGL_BF16, the library
 // attention_kernels_bf16) the bf16 ones: each half instantiates only its
 // element type, so the two build in parallel.
 #ifndef PGL_BF16
+PGL_RING_STEPS(pgl_dot_ring_steps_f32, float)
 PGL_GAT_FWD(pgl_gat_fwd_f32, float, float)
 PGL_GAT_DQ(pgl_gat_dq_f32, float, float)
 PGL_GAT_DKV(pgl_gat_dkv_f32, float, float)
@@ -522,6 +530,7 @@ PGL_DOT_FWD(pgl_dot_fwd_f32, float, float)
 PGL_DOT_DQ(pgl_dot_dq_f32, float, float)
 PGL_DOT_DKV(pgl_dot_dkv_f32, float, float)
 #else
+PGL_RING_STEPS(pgl_dot_ring_steps_bf16, __nv_bfloat16)
 PGL_GAT_FWD(pgl_gat_fwd_bf16, __nv_bfloat16, void)
 PGL_GAT_DQ(pgl_gat_dq_bf16, __nv_bfloat16, void)
 PGL_GAT_DKV(pgl_gat_dkv_bf16, __nv_bfloat16, void)

@@ -93,8 +93,10 @@
 // kernels take bf16 too, their out and dv in v's dtype, d a_dst and d
 // a_src in the scores', `:579`, `:713`, `:724`) every kernel above runs on
 // T = bf16: a table element is widened to f32 as it is loaded (the
-// additive lane groups by 16-byte vectors of 8 bf16, the dot kernels'
-// rows by plain loads into their f32 ring, `stage_row`), the scores, exps
+// additive lane groups by 16-byte vectors of 8 bf16; the dot K7's rows by
+// plain loads into its f32 ring, `stage_row`; the dot K8's row pass and
+// node walk copy bf16 rows into a bf16 ring by cp.async, `stage_ring`, and
+// widen them as they read them), the scores, exps
 // and sums are f32 as on float, lse, delta and the partials stay f32, and
 // out, d a_dst, d a_src (dq, dk) and dv are each rounded once to bf16
 // when stored. The dropout keys are the cells', so the masks are float's.

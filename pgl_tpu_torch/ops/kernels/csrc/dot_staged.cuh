@@ -16,11 +16,11 @@
 // short and the head reductions' shuffles set the pace instead, measured
 // by experiments/torch_spmm/dot_dq_breakdown.py.) The design of all three:
 //   * the gathered rows are staged through the warp's shared-memory ring
-//     (`kStageSteps`, attention_common.cuh) by cp.async, kStageSteps - 1
-//     steps of StageEdges<NC> items ahead of the step being computed, so
-//     two items' rows are in flight a warp at UniMP's shape while the
-//     registers hold only the resident rows and the sums, and the copies
-//     are 16 bytes a lane where the rows allow;
+//     (S = `RingSteps`, attention_common.cuh) by cp.async, S - 1 steps of
+//     StageEdges<NC> items ahead of the step being computed, so two items'
+//     rows are in flight a warp at UniMP's shape while the registers hold
+//     only the resident rows and the sums, and the copies are 16 bytes a
+//     lane where the rows allow;
 //   * the softmax work is a head's, not a slot's: where a head is wider
 //     than a warp it holds kph = wp / 32 consecutive slots of each lane,
 //     and its score, running max and sum, exps, keep bit and ds are
@@ -58,10 +58,17 @@
 // they did before the form existed (`CELLS` false removes every branch).
 //
 // T, the tables' element type: float or bf16, per edge and per cell alike.
-// A bf16 row is widened to f32 as it is
-// staged (`stage_row`, by plain loads rather than cp.async) or loaded, so
-// the ring and every sum are f32; lse and delta are f32 tensors, the
-// partials f32, and out, dq, dk and dv are rounded once to T when stored.
+// The two backward passes (K10-dq, K10-dkv, K8's row pass and node walk)
+// stage into a ring of T itself (R = T): on bf16 the rows are copied as
+// bf16 bytes by cp.async (`stage_ring`: 16- or 4-byte copies by the rows'
+// alignment, plain loads only for rows on a 2-byte boundary), S - 1 steps
+// ahead as on float, and widened exactly as the compute reads them
+// (`ring_f`), so the slot map, every product and sum and their order are
+// float's; the bf16 ring is RingSteps<bf16> deep. The forward (K9, K7)
+// keeps an f32 ring, a bf16 row widened as it is staged (`stage_row`, by
+// plain loads rather than cp.async). Every sum is f32; lse and delta are
+// f32 tensors (staged as f32 in the dkv ring), the partials f32, and out,
+// dq, dk and dv are rounded once to T when stored.
 
 #pragma once
 
@@ -69,28 +76,37 @@
 
 namespace {
 
-// The ring of the forward and the dq pass: an item's k row, a pad of at
-// least one float that stays 0 (cleared once; masked slots read it), then
-// its v row, each part a multiple of 4 floats.
-__host__ __device__ __forceinline__ int kv_k_floats(int DS) {
-  return up4(DS + 1);
+// The ring of the forward and the dq pass, in elements of R: an item's k
+// row, a pad of at least one element that stays 0 (cleared once; masked
+// slots read it), then its v row, each part a multiple of 16 bytes.
+template <typename R>
+__host__ __device__ __forceinline__ int kv_k_elems(int DS) {
+  return up16<R>(DS + 1);
 }
 
-__host__ __device__ __forceinline__ int kv_edge_floats(int DS, int C) {
-  return kv_k_floats(DS) + up4(C);
+template <typename R>
+__host__ __device__ __forceinline__ int kv_edge_elems(int DS, int C) {
+  return kv_k_elems<R>(DS) + up16<R>(C);
 }
 
-template <int NC>
-__host__ __device__ __forceinline__ int kv_warp_floats(int DS, int C) {
-  return kStageSteps * StageEdges<NC>::value * kv_edge_floats(DS, C);
+template <typename R, int NC>
+__host__ __device__ __forceinline__ int kv_ring_elems(int DS, int C) {
+  return RingSteps<R>::value * StageEdges<NC>::value *
+         kv_edge_elems<R>(DS, C);
 }
 
-// CELLS: the floats after a warp's ring (and the dq pass's lse | delta)
-// that hold the (count, key) int pairs of the ring's cells; none per edge
-template <int NC, bool CELLS>
+// CELLS: the floats after a warp's ring of R (and the dq pass's lse |
+// delta) that hold the (count, key) int pairs of the ring's cells; none
+// per edge
+template <typename R, int NC, bool CELLS>
 __host__ __device__ __forceinline__ int cell_pair_floats() {
-  return CELLS ? up4(2 * kStageSteps * StageEdges<NC>::value) : 0;
+  return CELLS ? up4(2 * RingSteps<R>::value * StageEdges<NC>::value) : 0;
 }
+
+// elements of R in a float: the f32 and int parts of a ring of R are
+// counted in elements of R, so a ring of float keeps its float offsets
+template <typename R>
+constexpr int kPerFloat = static_cast<int>(sizeof(float) / sizeof(R));
 
 // CELLS: lanes 0 and 1 copy cell i's count and key to pair[0] and pair[1]
 template <bool CELLS>
@@ -160,12 +176,13 @@ dot_fwd_staged(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int DS = H * dsh;
   const int C = H * dvh;
-  const int ES = kv_edge_floats(DS, C);
-  const int o_v = kv_k_floats(DS);
-  float* ring = reinterpret_cast<float*>(kv_smem) +
-                static_cast<size_t>(wb) * (kv_warp_floats<NC>(DS, C) +
-                                           cell_pair_floats<NC, CELLS>());
-  int* pairs = reinterpret_cast<int*>(ring + kv_warp_floats<NC>(DS, C));
+  const int ES = kv_edge_elems<float>(DS, C);
+  const int o_v = kv_k_elems<float>(DS);
+  float* ring =
+      reinterpret_cast<float*>(kv_smem) +
+      static_cast<size_t>(wb) * (kv_ring_elems<float, NC>(DS, C) +
+                                 cell_pair_floats<float, NC, CELLS>());
+  int* pairs = reinterpret_cast<int*>(ring + kv_ring_elems<float, NC>(DS, C));
   const int4 pc = pieces[warp];
   const int n = pc.z - pc.y;
   const bool drop = thresh >= 0;
@@ -291,11 +308,14 @@ dot_fwd_staged(const T* __restrict__ q, const T* __restrict__ k,
 // q's and g's rows are resident in registers, and the row's lse and delta:
 // in registers a slot where each slot is its own head, else (WIDE) once a
 // head in the warp's shared memory after its ring; each item's k and v
-// source rows are staged. Per head: p = exp(s - lse), its kept value and
-// ds; per slot: dq += ds * k.
-template <int NC>
-__host__ __device__ __forceinline__ int dq_warp_floats(int DS, int C, int H) {
-  return kv_warp_floats<NC>(DS, C) + 2 * up4(H);
+// source rows are staged, in a ring of T (R = T: bf16 rows copied as they
+// are and widened as they are read). Per head: p = exp(s - lse), its kept
+// value and ds; per slot: dq += ds * k.
+// Elements of R of a warp's ring and its row's lse | delta (f32; the
+// cells' pairs follow).
+template <typename R, int NC>
+__host__ __device__ __forceinline__ int dq_warp_elems(int DS, int C, int H) {
+  return kv_ring_elems<R, NC>(DS, C) + 2 * up4(H) * kPerFloat<R>;
 }
 
 template <typename T, int NC, bool FULL, bool WIDE, bool CELLS>
@@ -305,12 +325,14 @@ dot_dq_staged(const T* __restrict__ q, const T* __restrict__ k,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const int* __restrict__ indices, const int* __restrict__ cnt,
               const int* __restrict__ keys, const int4* __restrict__ pieces,
-              int n_pieces, int H, int dsh, int dvh, int wp, bool vec1,
-              bool vec2, float slope, const int* __restrict__ seed_p,
-              int thresh, float inv_keep, T* __restrict__ dq,
-              float* __restrict__ partials) {
+              int n_pieces, int H, int dsh, int dvh, int wp,
+              RingCls<T> cls1, RingCls<T> cls2, float slope,
+              const int* __restrict__ seed_p, int thresh, float inv_keep,
+              T* __restrict__ dq, float* __restrict__ partials) {
+  using R = T;  // the ring's element type
   constexpr int P = StageEdges<NC>::value;
-  constexpr int S = kStageSteps;
+  constexpr int S = RingSteps<R>::value;
+  static_assert(S * P <= 32, "a lane clears each ring item's pad");
   // lse and delta a head in the warp's shared memory where a slot's own
   // registers do not fit: heads wider than a warp, and bf16 tables at 16
   // slots a lane (held a slot there, they spilled 32 B at 255 registers)
@@ -323,14 +345,16 @@ dot_dq_staged(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int DS = H * dsh;
   const int C = H * dvh;
-  const int ES = kv_edge_floats(DS, C);
-  const int o_v = kv_k_floats(DS);
-  float* ring = reinterpret_cast<float*>(kv_smem) +
-                static_cast<size_t>(wb) * (dq_warp_floats<NC>(DS, C, H) +
-                                           cell_pair_floats<NC, CELLS>());
-  float* lsh = ring + S * P * ES;  // SHARED_LD: the row's lse, delta [H]
+  const int ES = kv_edge_elems<R>(DS, C);
+  const int o_v = kv_k_elems<R>(DS);
+  R* ring = reinterpret_cast<R*>(kv_smem) +
+           static_cast<size_t>(wb) *
+               (dq_warp_elems<R, NC>(DS, C, H) +
+                cell_pair_floats<R, NC, CELLS>() * kPerFloat<R>);
+  // SHARED_LD: the row's lse, delta [H]
+  float* lsh = reinterpret_cast<float*>(ring + S * P * ES);
   float* dlh = lsh + up4(H);
-  int* pairs = reinterpret_cast<int*>(ring + dq_warp_floats<NC>(DS, C, H));
+  int* pairs = reinterpret_cast<int*>(ring + dq_warp_elems<R, NC>(DS, C, H));
   const int4 pc = pieces[warp];
   const int n = pc.z - pc.y;
   const bool drop = thresh >= 0;
@@ -361,7 +385,7 @@ dot_dq_staged(const T* __restrict__ q, const T* __restrict__ k,
       dlh[h] = __ldg(delta + static_cast<size_t>(pc.x) * H + h);
     }
   }
-  if (lane < S * P) ring[lane * ES + DS] = 0.f;  // the pads
+  if (lane < S * P) ring[lane * ES + DS] = from_f<R>(0.f);  // the pads
 
   PieceList src(indices, pc.y, n, lane);
   const int steps = (n + P - 1) / P;
@@ -373,9 +397,9 @@ dot_dq_staged(const T* __restrict__ q, const T* __restrict__ k,
       const int j = ts * P + e;
       if (j < n) {  // uniform
         const size_t s = static_cast<size_t>(src.at(j));
-        float* st = ring + (in * P + e) * ES;
-        stage_row(st, k + s * DS, DS, vec1, lane);
-        stage_row(st + o_v, v + s * C, C, vec2, lane);
+        R* st = ring + (in * P + e) * ES;
+        stage_ring(st, k + s * DS, DS, cls1, lane);
+        stage_ring(st + o_v, v + s * C, C, cls2, lane);
         stage_cell<CELLS>(pairs + 2 * (in * P + e), cnt, keys, pc.y + j,
                           lane);
       }
@@ -385,18 +409,18 @@ dot_dq_staged(const T* __restrict__ q, const T* __restrict__ k,
     if (t < 0) continue;  // uniform
     cp_async_wait<S - 1>();
     __syncwarp();
-    const float* st0 = ring + at * P * ES;
+    const R* st0 = ring + at * P * ES;
     // the step's scores and g . v first, their shuffles interleaved; the
     // k values stay in registers for dq
     float kd[P][NC], sd[P][NC], gv[P][NC];
 #pragma unroll
     for (int e = 0; e < P; ++e) {
-      const float* st = st0 + e * ES;
+      const R* st = st0 + e * ES;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int j = lane + 32 * c;
-        kd[e][c] = st[kv_s<FULL>(sw[c], j)];
-        gv[e][c] = gr[c] * st[kv_v<FULL>(sw[c], j, o_v)];
+        kd[e][c] = ring_f(st[kv_s<FULL>(sw[c], j)]);
+        gv[e][c] = gr[c] * ring_f(st[kv_v<FULL>(sw[c], j, o_v)]);
       }
       head_dot<NC, WIDE ? kWide : kNarrow>(qr, kd[e], wp, sd[e]);
       head_sum<NC, WIDE ? kWide : kNarrow>(gv[e], wp);
@@ -481,37 +505,52 @@ dot_dq_staged(const T* __restrict__ q, const T* __restrict__ k,
 // 0.3, where a kernel's two runs differ by under 0.1%
 // (experiments/torch_spmm/k1_k10_before_after.py --only k10, H100).
 
-// Floats of one staged item: q [DS] | g [C] | lse [H] | delta [H], each
-// part rounded up to 4 floats.
-__host__ __device__ __forceinline__ int dkv_edge_floats(int DS, int C, int H) {
-  return up4(DS) + up4(C) + 2 * up4(H);
+// Elements of R of one staged item: q [DS] | g [C] in R, each part
+// rounded up to 16 bytes, then lse [H] | delta [H] in f32, each rounded up
+// to 4 floats.
+template <typename R>
+__host__ __device__ __forceinline__ int dkv_edge_elems(int DS, int C, int H) {
+  return up16<R>(DS) + up16<R>(C) + 2 * up4(H) * kPerFloat<R>;
 }
 
-template <int NC, bool CELLS>
-__host__ __device__ __forceinline__ int dkv_warp_floats(int DS, int C, int H) {
+template <typename R, int NC, bool CELLS>
+__host__ __device__ __forceinline__ int dkv_warp_elems(int DS, int C, int H) {
   // the ring, then one int a ring edge (its CSC position), or two a ring
   // cell (its count and key), rounded to 4
-  constexpr int ring = kStageSteps * StageEdges<NC>::value;
-  return ring * dkv_edge_floats(DS, C, H) + up4((CELLS ? 2 : 1) * ring);
+  constexpr int ring = RingSteps<R>::value * StageEdges<NC>::value;
+  return ring * dkv_edge_elems<R>(DS, C, H) +
+         up4((CELLS ? 2 : 1) * ring) * kPerFloat<R>;
 }
+
+// blocks an SM of the dkv pass: StageBlocks', and on a bf16 ring
+// KvBlocks', as the dq pass (at 8 slots of heads with masked columns, 128
+// registers spilled 24-32 B there)
+template <typename T, int NC, bool FULL, bool WIDE>
+struct DkvBlocks {
+  static constexpr int value = std::is_same_v<T, float>
+                                   ? StageBlocks<NC>::value
+                                   : KvBlocks<NC, FULL, WIDE>::value;
+};
 
 // FULL: every slot is a real score and value column (dsh == dvh == wp and
 // H * wp == 32 NC, as at UniMP's shape), so a slot's column is its index
 // and no slot is masked. WIDE: wp > 32.
 template <typename T, int NC, bool FULL, bool WIDE, bool CELLS>
-__global__ void __launch_bounds__(kWarps * 32, StageBlocks<NC>::value)
+__global__ void __launch_bounds__(kWarps * 32,
+                                  DkvBlocks<T, NC, FULL, WIDE>::value)
 dot_dkv_staged(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ g,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const int* __restrict__ indices, const int* __restrict__ eidx,
                const int* __restrict__ cnt, const int* __restrict__ keys,
                const int4* __restrict__ pieces, int n_pieces, int H, int dsh,
-               int dvh, int wp, bool vec, float slope,
+               int dvh, int wp, RingCls<T> cls, float slope,
                const int* __restrict__ seed_p, int thresh, float inv_keep,
                T* __restrict__ dk, T* __restrict__ dv,
                float* __restrict__ partials) {
+  using R = T;  // the ring's element type of q and g
   constexpr int P = StageEdges<NC>::value;
-  constexpr int S = kStageSteps;
+  constexpr int S = RingSteps<R>::value;
   extern __shared__ float4 dkv_smem[];
   const int wb = threadIdx.x >> 5;
   const int warp = blockIdx.x * kWarps + wb;
@@ -519,12 +558,13 @@ dot_dkv_staged(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int DS = H * dsh;
   const int C = H * dvh;
-  const int ES = dkv_edge_floats(DS, C, H);
-  const int o_g = (DS + 3) & ~3;
-  const int o_l = o_g + ((C + 3) & ~3);
-  const int o_d = o_l + ((H + 3) & ~3);
-  float* ring = reinterpret_cast<float*>(dkv_smem) +
-                static_cast<size_t>(wb) * dkv_warp_floats<NC, CELLS>(DS, C, H);
+  const int ES = dkv_edge_elems<R>(DS, C, H);
+  const int o_g = up16<R>(DS);
+  // the item's lse [H] and delta [H]: floats from the item's start
+  const int o_l = (o_g + up16<R>(C)) / kPerFloat<R>;
+  const int o_d = o_l + up4(H);
+  R* ring = reinterpret_cast<R*>(dkv_smem) +
+           static_cast<size_t>(wb) * dkv_warp_elems<R, NC, CELLS>(DS, C, H);
   // per edge: a CSC position a ring edge; CELLS: a (count, key) pair
   int* ring_pos = reinterpret_cast<int*>(ring + S * P * ES);
   const int4 pc = pieces[warp];
@@ -579,12 +619,13 @@ dot_dkv_staged(const T* __restrict__ q, const T* __restrict__ k,
         const size_t d =
             static_cast<size_t>(__shfl_sync(kFull, imine, j & 31));
         const int pos = CELLS ? 0 : __shfl_sync(kFull, pmine, j & 31);
-        float* st = ring + ((ts % S) * P + e) * ES;
-        stage_row(st, q + d * DS, DS, vec, lane);
-        stage_row(st + o_g, g + d * C, C, vec, lane);
+        R* st = ring + ((ts % S) * P + e) * ES;
+        stage_ring(st, q + d * DS, DS, cls, lane);
+        stage_ring(st + o_g, g + d * C, C, cls, lane);
+        float* sf = reinterpret_cast<float*>(st);
         for (int h = lane; h < H; h += 32) {
-          cp_async4(st + o_l + h, lse + d * H + h);
-          cp_async4(st + o_d + h, delta + d * H + h);
+          cp_async4(sf + o_l + h, lse + d * H + h);
+          cp_async4(sf + o_d + h, delta + d * H + h);
         }
         if (CELLS)
           stage_cell<CELLS>(ring_pos + 2 * ((ts % S) * P + e), cnt, keys,
@@ -597,21 +638,22 @@ dot_dkv_staged(const T* __restrict__ q, const T* __restrict__ k,
     if (t < 0) continue;  // uniform
     cp_async_wait<S - 1>();  // this lane's copies of step t have landed
     __syncwarp();            // and every lane's
-    const float* st0 = ring + (t % S) * P * ES;
+    const R* st0 = ring + (t % S) * P * ES;
     // the step's scores and g . v first, their shuffles interleaved; q and
     // g are read again from the ring below rather than held
     float sd[P][NC], gv[P][NC];
 #pragma unroll
     for (int e = 0; e < P; ++e) {
-      const float* st = st0 + e * ES;
+      const R* st = st0 + e * ES;
       float qd[NC];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int j = lane + 32 * c, h = j >> lwp, w = j & (wp - 1);
-        qd[c] = FULL || (h < H && w < dsh) ? st[FULL ? j : h * dsh + w]
-                                           : 0.f;
+        qd[c] = FULL || (h < H && w < dsh)
+                    ? ring_f(st[FULL ? j : h * dsh + w])
+                    : 0.f;
         gv[e][c] = FULL || (h < H && w < dvh)
-                       ? st[o_g + (FULL ? j : h * dvh + w)] * vr[c]
+                       ? ring_f(st[o_g + (FULL ? j : h * dvh + w)]) * vr[c]
                        : 0.f;
       }
       head_dot<NC, WIDE ? kWide : kNarrow>(qd, kr, wp, sd[e]);
@@ -620,7 +662,8 @@ dot_dkv_staged(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < P; ++e) {
       if (t * P + e >= n) break;  // uniform
-      const float* st = st0 + e * ES;
+      const R* st = st0 + e * ES;
+      const float* sf = reinterpret_cast<const float*>(st);
       const int r = (t % S) * P + e;
       const uint32_t pos = static_cast<uint32_t>(
           CELLS ? ring_pos[2 * r + 1] : ring_pos[r]);
@@ -634,22 +677,22 @@ dot_dkv_staged(const T* __restrict__ q, const T* __restrict__ k,
         if ((c & (kph - 1)) == 0) {  // uniform
           const int hd = FULL ? h : min(h, H - 1);
           p = CELLS ? mult * expf(fminf(leaky(sd[e][c], slope) -
-                                            st[o_l + hd],
+                                            sf[o_l + hd],
                                         80.f))
-                    : expf(leaky(sd[e][c], slope) - st[o_l + hd]);
+                    : expf(leaky(sd[e][c], slope) - sf[o_l + hd]);
           qe = drop ? (drop_keep(pos, seed,
                                  static_cast<uint32_t>(hd) * 0x632BE5ABu,
                                  thresh)
                            ? p * inv_keep
                            : 0.f)
                     : p;
-          ds = (qe * gv[e][c] - p * st[o_d + hd]) *
+          ds = (qe * gv[e][c] - p * sf[o_d + hd]) *
                leaky_grad(sd[e][c], slope);
         }
         if (FULL || (h < H && w < dsh))
-          dka[c] += ds * st[FULL ? j : h * dsh + w];
+          dka[c] += ds * ring_f(st[FULL ? j : h * dsh + w]);
         if (FULL || (h < H && w < dvh))
-          dva[c] += qe * st[o_g + (FULL ? j : h * dvh + w)];
+          dva[c] += qe * ring_f(st[o_g + (FULL ? j : h * dvh + w)]);
       }
     }
     __syncwarp();  // every lane is done with slot t % S before it refills
@@ -703,14 +746,35 @@ cudaError_t launch_staged(void (*kernel)(KArgs...), size_t smem,
   return cudaGetLastError();
 }
 
-// Whether every row of a staged tensor is 16-byte aligned (its width a
-// multiple of a 16-byte vector of T, the tensor 16-byte aligned): then it
-// is staged by 16-byte vectors, else element by element; each of a
-// kernel's two staged tensors is decided alone.
+// The bytes a copy that every row of a staged tensor `width` wide allows:
+// 16 where every row is 16-byte aligned (the width a multiple of 16 bytes,
+// the tensor 16-byte aligned), else 4 where every row is 4-byte aligned
+// (always on float), else 2 (bf16 rows on a 2-byte boundary).
+template <typename T>
+int row_class(int width, const T* a) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(a);
+  const size_t bytes = sizeof(T) * static_cast<size_t>(width);
+  if (bytes % 16 == 0 && at % 16 == 0) return 16;
+  if (bytes % 4 == 0 && at % 4 == 0) return 4;
+  return static_cast<int>(sizeof(T));
+}
+
+// Whether a tensor is staged by 16-byte vectors (the forward; each of a
+// kernel's two staged tensors is decided alone)
 template <typename T>
 bool row_vec(int width, const T* a) {
-  return width % kVecElems<T> == 0 &&
-         (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  return row_class(width, a) == 16;
+}
+
+// The copy class of a staged tensor in a backward pass's ring of T
+// (`RingCls`); the dkv pass takes the lesser of q's and g's
+template <typename T>
+RingCls<T> ring_class(int width, const T* a) {
+  if constexpr (std::is_same_v<T, float>) {
+    return row_vec(width, a);
+  } else {
+    return row_class(width, a);
+  }
 }
 
 // Whether every slot is a real score and value column (FULL).
@@ -752,9 +816,9 @@ int dot_fwd_run(const T* q, const T* k, const T* v, const int* indices,
   const bool full = dot_full(H, dsh, dvh, wp, nc), wide = wp > 32;
   cudaError_t err = cudaSuccess;
   PGL_NC_SWITCH(nc, {
-    const size_t smem =
-        sizeof(float) * kWarps *
-        (kv_warp_floats<NC>(H * dsh, H * dvh) + cell_pair_floats<NC, CELLS>());
+    const size_t smem = sizeof(float) * kWarps *
+                        (kv_ring_elems<float, NC>(H * dsh, H * dvh) +
+                         cell_pair_floats<float, NC, CELLS>());
     err = launch_staged(
         PGL_DOT_PICK(dot_fwd_staged, T, NC, CELLS), smem, n_pieces, s, q, k,
         v,
@@ -787,18 +851,19 @@ int dot_dq_run(const T* q, const T* k, const T* v, const T* g,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
   const auto* pc = reinterpret_cast<const int4*>(pieces);
-  const bool vec1 = row_vec(H * dsh, k), vec2 = row_vec(H * dvh, v);
+  const RingCls<T> cls1 = ring_class(H * dsh, k),
+                   cls2 = ring_class(H * dvh, v);
   const bool full = dot_full(H, dsh, dvh, wp, nc), wide = wp > 32;
   cudaError_t err = cudaSuccess;
   PGL_NC_SWITCH(nc, {
-    const size_t smem = sizeof(float) * kWarps *
-                        (dq_warp_floats<NC>(H * dsh, H * dvh, H) +
-                         cell_pair_floats<NC, CELLS>());
+    const size_t smem = sizeof(T) * kWarps *
+                        (dq_warp_elems<T, NC>(H * dsh, H * dvh, H) +
+                         cell_pair_floats<T, NC, CELLS>() * kPerFloat<T>);
     err = launch_staged(
         PGL_DOT_PICK(dot_dq_staged, T, NC, CELLS), smem, n_pieces, s, q, k,
         v,
         g, lse, delta, indices, cnt, keys, pc, n_pieces, H, dsh, dvh, wp,
-        vec1, vec2, slope, seed, thresh, inv_keep, dq, partials);
+        cls1, cls2, slope, seed, thresh, inv_keep, dq, partials);
     if (err != cudaSuccess) return static_cast<int>(err);
   })
   if (n_split > 0)
@@ -821,17 +886,19 @@ int dot_dkv_run(const T* q, const T* k, const T* v, const T* g,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pieces <= 0) return static_cast<int>(cudaGetLastError());
   const auto* pc = reinterpret_cast<const int4*>(pieces);
-  const bool vec = row_vec(H * dsh, q) && row_vec(H * dvh, g);
+  const RingCls<T> cls_q = ring_class(H * dsh, q),
+                   cls_g = ring_class(H * dvh, g);
+  const RingCls<T> cls = cls_q < cls_g ? cls_q : cls_g;
   const bool full = dot_full(H, dsh, dvh, wp, nc), wide = wp > 32;
   cudaError_t err = cudaSuccess;
   PGL_NC_SWITCH(nc, {
-    const size_t smem = sizeof(float) * kWarps *
-                        dkv_warp_floats<NC, CELLS>(H * dsh, H * dvh, H);
+    const size_t smem = sizeof(T) * kWarps *
+                        dkv_warp_elems<T, NC, CELLS>(H * dsh, H * dvh, H);
     err = launch_staged(
         PGL_DOT_PICK(dot_dkv_staged, T, NC, CELLS), smem, n_pieces, s, q, k,
         v,
         g, lse, delta, indices, eidx, cnt, keys, pc, n_pieces, H, dsh, dvh,
-        wp, vec, slope, seed, thresh, inv_keep, dk, dv, partials);
+        wp, cls, slope, seed, thresh, inv_keep, dk, dv, partials);
     if (err != cudaSuccess) return static_cast<int>(err);
   })
   if (n_split > 0)

@@ -196,13 +196,14 @@ def test_bf16_additive_attention_no_worse_than_pallas(H, dvh, rate):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
-def test_bf16_dot_attention_no_worse_than_pallas(rate):
+@pytest.mark.parametrize("shape", [(2, 64, 64), (8, 16, 16)])
+def test_bf16_dot_attention_no_worse_than_pallas(shape, rate):
     """The dot-mode K9 and K10 (dq, dk, dv) at (H, dsh, dvh) = (2, 64, 64)
-    on bf16 tables: the port's bf16 plain versions and the reference's
-    ``fused_graph_attention`` in interpret mode, each against float64 of
-    the same bf16 values: the port's error is no larger
+    and (8, 16, 16) on bf16 tables: the port's bf16 plain versions and the
+    reference's ``fused_graph_attention`` in interpret mode, each against
+    float64 of the same bf16 values: the port's error is no larger
     (``_no_worse``)."""
-    H, dsh, dvh = 2, 64, 64
+    H, dsh, dvh = shape
     port, (csc, csr, perm) = _layouts(9)
     rng = np.random.default_rng(3)
     q, k = (_bf16(rng.normal(size=(N, H * dsh)) * dsh ** -0.25)

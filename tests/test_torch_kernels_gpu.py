@@ -960,6 +960,80 @@ def test_bf16_dot_attention_matches_plain_version(cuda, H, dsh, dvh, leaky,
         (k + c, *shape): 2 for k in DOT_KERNELS for c in ("", "_combine")}
 
 
+def _ring_edges(lengths, n=3000, hub=1000, seed=27):
+    """Edges of a graph whose CSC and CSR work lists hold a piece of each
+    of ``lengths`` items: destination i has lengths[i] in-edges and source
+    100 + i lengths[i] out-edges (from and to nodes 200 and up), and a
+    hub destination (98) and a hub source (99) of ``hub`` edges each split
+    into pieces; every other node of 0-199 has no edge on that side."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for i, m in enumerate(lengths):
+        parts.append(np.stack([rng.integers(200, n, m), np.full(m, i)], 1))
+        parts.append(np.stack([np.full(m, 100 + i), rng.integers(200, n, m)],
+                              1))
+    parts.append(np.stack([rng.integers(200, n, hub), np.full(hub, 98)], 1))
+    parts.append(np.stack([np.full(hub, 99), rng.integers(200, n, hub)], 1))
+    return np.concatenate(parts)
+
+
+def _offset(t, nbytes):
+    """A contiguous copy of ``t`` ``nbytes`` past a 16-byte boundary."""
+    skip = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    out = buf[skip:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == nbytes
+    return out
+
+
+# (H, dsh, dvh, leaky, bytes past a 16-byte boundary) of each copy class
+# of the bf16 ring: UniMP's rows by 16-byte copies; (43, 2, 8)'s q and k
+# rows (86 bf16) by 4-byte copies (its v and g rows by 16-byte copies in
+# the dq pass); (3, 5, 7)'s odd widths by plain loads; UniMP's shape with
+# its tables 4 or 2 bytes off a 16-byte boundary
+RING_CASES = {"16-byte": (2, 128, 128, 0.0, 0),
+              "4-byte": (43, 2, 8, 0.2, 0),
+              "2-byte": (3, 5, 7, 0.0, 0),
+              "4-byte offset": (2, 128, 128, 0.0, 4),
+              "2-byte offset": (2, 128, 128, 0.0, 2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("case", sorted(RING_CASES))
+def test_bf16_dot_backward_ring_on_every_piece_length(cuda, case, rate):
+    """The bf16 dot K10-dq and K10-dkv, whose ring holds bf16 rows copied
+    by cp.async and widened as they are read, on pieces of 0 to 4 S + 2
+    items (S the ring's depth, read from the library: 0, 1 and 2 items are
+    shorter than the ring's prologue, S P + 1 wraps it at each P of 1, 2
+    and 4 items a step) and a split hub on each side, at each copy class:
+    within ``check_bf16``'s bound of float64 (with K9, whose lse they read),
+    the same bits twice, counted in ``LAUNCHES_BF16`` only."""
+    H, dsh, dvh, leaky, off = RING_CASES[case]
+    S = ak._lib(torch.bfloat16).pgl_dot_ring_steps_bf16()
+    assert S >= 2
+    lengths = list(range(4 * S + 3))
+    g = Graph(_ring_edges(lengths), num_nodes=3000).tensor(cuda)
+    lays = g._attention_layouts()
+    for lay in lays:
+        pieces = lay.pieces.view(-1, 4).cpu().numpy()
+        have = set((pieces[:, 2] - pieces[:, 1]).tolist())
+        assert {0, 1, 2, S + 1, 2 * S + 1, 4 * S + 1} <= have
+        assert lay.num_partials > 0
+    shape = (H, dsh, dvh)
+    gen = torch.Generator(device=cuda).manual_seed(H * dsh * dvh + off)
+    ins = tuple(_offset(t, off) for t in
+                bf16_inputs(dot_inputs(3000, shape, cuda, gen)))
+    seed = torch.tensor([-987654321], dtype=torch.int32, device=cuda)
+    ak.reset_launches()
+    bf16_attention_check(f"bf16 ring {case}", lays, ins, rate, seed, shape,
+                         leaky)
+    assert not ak.LAUNCHES_BY_SHAPE
+    assert dict(ak.LAUNCHES_BF16) == {
+        (k + c, *shape): 2 for k in DOT_KERNELS for c in ("", "_combine")}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("aligned", [True, False], ids=["vec", "unaligned"])
 @pytest.mark.parametrize("D", [1, 3, 8, 16, 64, 128])
